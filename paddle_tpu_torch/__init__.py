@@ -13,5 +13,7 @@ raise when no card is present.
 from . import obs  # noqa: F401
 from . import fluid  # noqa: F401
 from . import ops  # noqa: F401
+from . import dataset  # noqa: F401
+from .batch import batch  # noqa: F401
 
-__all__ = ['fluid', 'obs', 'ops']
+__all__ = ['fluid', 'obs', 'ops', 'dataset', 'batch']

@@ -1,9 +1,9 @@
 """paddle_tpu_torch.fluid — the Fluid API of the PyTorch/CUDA port.
 
 Parity: reference python/paddle/fluid/__init__.py and the JAX package's
-paddle_tpu.fluid, reduced to what this slice of the port carries: the
-Program IR, the layer builders of the Transformer, the eager Executor,
-and io.
+paddle_tpu.fluid, reduced to what the port carries so far: the Program
+IR, the layer builders of the Transformer, the eager Executor, io, and the
+training step (backward, optimizer, regularizer, clip).
 """
 from . import core
 from . import framework
@@ -16,11 +16,16 @@ from .executor import Executor, global_scope, scope_guard, Scope
 from . import layers
 from . import initializer
 from . import io
+from . import backward
+from . import regularizer
+from . import clip
+from . import optimizer
 from .param_attr import ParamAttr
 from . import unique_name
 from .core import CPUPlace, CUDAPlace, TPUPlace, CUDAPinnedPlace
 
 __all__ = framework.__all__ + executor.__all__ + [
     'io', 'initializer', 'layers', 'ParamAttr', 'unique_name', 'core',
+    'backward', 'optimizer', 'regularizer', 'clip',
     'CPUPlace', 'CUDAPlace', 'TPUPlace', 'CUDAPinnedPlace',
 ]

@@ -4,8 +4,19 @@ Parity: reference python/paddle/fluid/executor.py:256 and the JAX
 package's fluid/executor.py. The JAX Executor lowers a whole Program into
 one jitted XLA step; here each op's rule (ops_impl/) runs eagerly on the
 executor's device, in program order, and the CUDA kernels of ops/ launch
-from inside those rules. Programs without an `autodiff` op (inference,
-startup) run under torch.inference_mode().
+from inside those rules. A program that writes no persistable (inference)
+runs under torch.inference_mode(); one that does (startup, training) under
+torch.no_grad(), so the scope never holds inference tensors, which autograd
+could not save.
+
+A program with an `autodiff` op (fluid.backward.append_backward) is a
+training step, split at the marker as the JAX package's StepArtifact step
+splits it (fluid/step_artifact.py:213-234, dense form): the ops before it
+run with the trainable parameters as leaves that require grad,
+torch.autograd.grad of the summed loss binds every `<param>@GRAD`, and the
+ops after it (clip, regularizers, optimizer updates) run under
+torch.no_grad(). Only detached tensors go back to the scope or out as
+fetches.
 
 Random ops draw from ONE torch.Generator per Executor, on its device,
 re-seeded at every run from Program.random_seed and the run count (the JAX
@@ -21,11 +32,12 @@ import threading
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .. import obs
 from . import core
 from .framework import Variable, default_main_program
-from .lowering import Ctx, run_block
+from .lowering import Ctx, run_block, run_op
 
 __all__ = ['Executor', 'Scope', 'global_scope', 'scope_guard']
 
@@ -112,7 +124,7 @@ def _as_fetch_name(f):
 class _RunPlan(object):
     """What a run of one program version needs beyond its ops: the
     persistables it may read from the scope, the ones it writes back, and
-    whether it differentiates."""
+    the index of its autodiff op (None: it does not differentiate)."""
 
     def __init__(self, program):
         block = program.global_block()
@@ -120,7 +132,55 @@ class _RunPlan(object):
         self.persistables = sorted(persist)
         self.writes = sorted({n for op in block.ops
                               for n in op.output_arg_names if n in persist})
-        self.autodiff = any(op.type == 'autodiff' for op in block.ops)
+        ad = [i for i, op in enumerate(block.ops) if op.type == 'autodiff']
+        if len(ad) > 1:
+            raise ValueError('at most one append_backward per program; '
+                             'this one has %d autodiff ops' % len(ad))
+        self.ad_idx = ad[0] if ad else None
+
+
+def _run_ops(ops, env, ctx, detach_stop_gradient=False):
+    """Run `ops` against env; with detach_stop_gradient, every output var
+    marked stop_gradient is detached (the JAX package's _run_ops in grad
+    mode, fluid/step_artifact.py:591-596)."""
+    for op in ops:
+        run_op(op, env, ctx)
+        if detach_stop_gradient:
+            for vs in op.outputs.values():
+                for v in vs:
+                    t = env.get(v.name)
+                    if v.stop_gradient and isinstance(t, torch.Tensor):
+                        env[v.name] = t.detach()
+
+
+def _train_step(ops, ad_idx, env, ctx):
+    """The step of a program with an autodiff op at ad_idx: the eager
+    counterpart of StepArtifact's _grad_setup / _make_fwd / _apply_grads
+    (fluid/step_artifact.py:412-478) without the sparse taps."""
+    ad = ops[ad_idx]
+    pnames = [n for n in ad.attrs['param_names'] if n in env]
+    gnames = dict(zip(ad.attrs['param_names'], ad.attrs['grad_names']))
+    leaves = [env[n].detach().requires_grad_() for n in pnames]
+    env.update(zip(pnames, leaves))
+    # record_function ranges name the phases in a torch.profiler trace
+    # (tools/torch_train_profile.py); without a profiler they cost ~1 us
+    with torch.enable_grad():
+        with record_function('executor.forward'):
+            _run_ops(ops[:ad_idx], env, ctx, detach_stop_gradient=True)
+            loss = env[ad.attrs['loss_name']].to(torch.float32).sum()
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    scale = ad.attrs.get('loss_scale', 1.0)
+    for n in list(env):
+        if isinstance(env[n], torch.Tensor):
+            env[n] = env[n].detach()
+    for n, leaf, g in zip(pnames, leaves, grads):
+        if g is None:          # the loss does not reach this parameter
+            g = torch.zeros_like(leaf)
+        if scale != 1.0:
+            g = g * scale
+        env[gnames[n]] = g.to(leaf.dtype)
+    with torch.no_grad(), record_function('executor.update'):
+        _run_ops(ops[ad_idx + 1:], env, ctx)
 
 
 class Executor(object):
@@ -188,10 +248,13 @@ class Executor(object):
             for name, val in feed.items():
                 env[name] = self._feed_tensor(val, block.vars.get(name))
             ctx = Ctx(self.device, self._generator)
-            mode = contextlib.nullcontext() if plan.autodiff \
-                else torch.inference_mode()
-            with mode:
-                run_block(block, env, ctx)
+            if plan.ad_idx is not None:
+                _train_step(block.ops, plan.ad_idx, env, ctx)
+            else:
+                mode = torch.no_grad() if plan.writes \
+                    else torch.inference_mode()
+                with mode:
+                    run_block(block, env, ctx)
             for name in plan.writes:
                 if name in env:
                     scope._chain_set(name, env[name])

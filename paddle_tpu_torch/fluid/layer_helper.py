@@ -132,6 +132,15 @@ class LayerHelper(object):
         return self.main_program.global_block().create_var(
             *args, persistable=persistable, **kwargs)
 
+    def set_variable_initializer(self, var, initializer):
+        """Declare `var` in the startup program (persistable) and append
+        its init op there."""
+        startup_blk = self.startup_program.global_block()
+        if var.name not in startup_blk.vars:
+            startup_blk.create_var(name=var.name, shape=var.shape,
+                                   dtype=var.dtype, persistable=True)
+        initializer(startup_blk.vars[var.name], startup_blk)
+
     def append_bias_op(self, input_var, dim_start=1, dim_end=None):
         """Add a bias over dims [dim_start, dim_end) of the input."""
         size = list(input_var.shape[dim_start:dim_end])

@@ -2,7 +2,7 @@
 from ..layer_helper import LayerHelper
 
 __all__ = ['mul', 'scale', 'clip', 'elementwise_add', 'elementwise_sub',
-           'elementwise_mul', 'elementwise_div']
+           'elementwise_mul', 'elementwise_div', 'elementwise_min']
 
 
 def _single_in_op(op_type, x, attrs=None, name=None):
@@ -55,3 +55,4 @@ elementwise_add = _make_binary('elementwise_add')
 elementwise_sub = _make_binary('elementwise_sub')
 elementwise_mul = _make_binary('elementwise_mul')
 elementwise_div = _make_binary('elementwise_div')
+elementwise_min = _make_binary('elementwise_min')

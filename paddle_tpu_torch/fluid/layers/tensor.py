@@ -3,9 +3,22 @@ import numpy as np
 
 from ..framework import Variable
 from ..layer_helper import LayerHelper
+from ..initializer import Constant
 from ..core import convert_dtype
 
-__all__ = ['cast', 'assign']
+__all__ = ['create_global_var', 'cast', 'assign', 'fill_constant']
+
+
+def create_global_var(shape, value, dtype, persistable=False,
+                      force_cpu=False, name=None):
+    """A global-block var filled with `value` by the startup program."""
+    helper = LayerHelper("global_var", name=name)
+    var = helper.create_global_variable(dtype=dtype, shape=shape,
+                                        persistable=persistable,
+                                        name=name)
+    helper.set_variable_initializer(var,
+                                    initializer=Constant(value=float(value)))
+    return var
 
 
 def cast(x, dtype):
@@ -35,3 +48,15 @@ def assign(input, output=None):
         raise ValueError("assign expects Variable or numpy.ndarray")
     return output
 
+
+def fill_constant(shape, dtype, value, force_cpu=False, out=None):
+    helper = LayerHelper("fill_constant", **locals())
+    if out is None:
+        out = helper.create_variable_for_type_inference(
+            dtype=convert_dtype(dtype))
+    helper.append_op(type='fill_constant', outputs={'Out': [out]},
+                     attrs={'shape': list(shape),
+                            'dtype': convert_dtype(dtype),
+                            'value': float(value), 'force_cpu': force_cpu})
+    out.stop_gradient = True
+    return out

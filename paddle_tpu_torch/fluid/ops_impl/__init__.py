@@ -7,3 +7,4 @@ from . import math_ops  # noqa: F401
 from . import tensor_ops  # noqa: F401
 from . import nn_ops  # noqa: F401
 from . import sequence_ops  # noqa: F401
+from . import optim_ops  # noqa: F401

@@ -20,6 +20,9 @@ def _unary(op_type, fn):
 
 
 _unary('relu', lambda x, a: torch.relu(x))
+_unary('sqrt', lambda x, a: torch.sqrt(x))
+_unary('square', lambda x, a: torch.square(x))
+_unary('sign', lambda x, a: torch.sign(x))
 _unary('clip', lambda x, a: torch.clamp(x, a['min'], a['max']))
 _unary('scale', lambda x, a: (x + a.get('bias', 0.0)) * a['scale']
        if a.get('bias_after_scale', True) is False
@@ -52,6 +55,18 @@ _binary('elementwise_add', torch.add)
 _binary('elementwise_sub', torch.sub)
 _binary('elementwise_mul', torch.mul)
 _binary('elementwise_div', torch.div)
+_binary('elementwise_max', torch.maximum)
+_binary('elementwise_min', torch.minimum)
+_binary('elementwise_pow', torch.pow)
+
+
+@register('sum')
+def _sum(ins, attrs, ctx):
+    xs = [data_of(v) for v in ins['X']]
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    return {'Out': out}
 
 
 @register('mul')

@@ -52,6 +52,14 @@ def _cast(ins, attrs, ctx):
     return {'Out': like(x, data_of(x).to(torch_dtype(attrs['out_dtype'])))}
 
 
+@register('increment')
+def _increment(ins, attrs, ctx):
+    x = data_of(ins['X'][0])
+    # the step in x's dtype, as a 0-dim CPU tensor: a scalar operand on any
+    # device, with no host-to-device copy
+    return {'Out': x + torch.tensor(attrs.get('step', 1.0), dtype=x.dtype)}
+
+
 @register('assign')
 def _assign(ins, attrs, ctx):
     return {'Out': ins['X'][0]}

@@ -6,16 +6,19 @@ names, shapes and attrs. Dense padded [B, S] inputs with in-graph pad
 masks; every attention is ONE flash_attention op, which on the card runs
 the hand-written CUDA kernel (paddle_tpu_torch/ops/flash_attention.py).
 
-The training-only parts of the JAX module (get_model with its optimizer
-and dataset readers, the pp_decoder pipeline stamps) wait for the training
-slice of the port.
+get_model builds the training program as the JAX module's does (noam_decay
+learning rate, Adam) with its wmt16 readers; training_program is that
+program alone, with the dropout rate as an argument. The pp_decoder pipeline stamps
+wait for the parallel slice of the port.
 """
 import numpy as np
 
+from ..batch import batch
 from .. import fluid
+from ..dataset import wmt16
 from ..fluid import layers
 
-__all__ = ['transformer', 'pad_batch']
+__all__ = ['transformer', 'training_program', 'get_model', 'pad_batch']
 
 
 def _position_encoding(max_len, d_model):
@@ -173,3 +176,50 @@ def pad_batch(batch, max_length):
             return np.asarray(x + [0] * (max_length - len(x)), dtype='int64')
         out.append((pad(src), pad(trg), pad(lbl)))
     return out
+
+
+def training_program(dict_size, max_length, n_layer=6, d_model=512,
+                     n_head=8, d_inner=2048, learning_rate=2.0,
+                     warmup_steps=4000, dropout_rate=0.1):
+    """get_model's training program in the default programs: the
+    Transformer, noam_decay scaled by learning_rate, and Adam. With
+    dropout_rate 0 it is the same program without its dropout ops (the same
+    parameter and accumulator names), which two devices or two packages
+    step alike. Returns (avg_cost, token_count, feed names)."""
+    avg_cost, token_count, feeds = transformer(
+        dict_size, dict_size, max_length, n_layer, d_model, n_head, d_inner,
+        dropout_rate=dropout_rate)
+    lr = layers.learning_rate_scheduler.noam_decay(d_model, warmup_steps)
+    lr = layers.scale(lr, scale=float(learning_rate))
+    opt = fluid.optimizer.Adam(learning_rate=lr, beta1=0.9, beta2=0.98,
+                               epsilon=1e-9)
+    opt.minimize(avg_cost)
+    return avg_cost, token_count, feeds
+
+
+def get_model(batch_size=16, max_length=64, n_layer=6, d_model=512,
+              n_head=8, d_inner=2048, dict_size=10000, learning_rate=2.0,
+              warmup_steps=4000, pp_decoder=False):
+    """The JAX package's models/transformer.py:get_model: the training
+    program in the default programs, and its readers. Returns (avg_cost,
+    token_count, train_reader, test_reader, feed names)."""
+    if pp_decoder:
+        raise NotImplementedError(
+            'pp_decoder (the GPipe decoder stages) waits for the parallel '
+            'slice of the port')
+    avg_cost, token_count, feeds = training_program(
+        dict_size, max_length, n_layer, d_model, n_head, d_inner,
+        learning_rate, warmup_steps)
+
+    raw_train = wmt16.train(dict_size, dict_size)
+    raw_test = wmt16.test(dict_size, dict_size)
+
+    def train_reader():
+        for b in batch(raw_train, batch_size)():
+            yield pad_batch(b, max_length)
+
+    def test_reader():
+        for b in batch(raw_test, batch_size)():
+            yield pad_batch(b, max_length)
+
+    return avg_cost, token_count, train_reader, test_reader, feeds

@@ -1,11 +1,13 @@
 """Build and bind the port's hand-written CUDA kernels.
 
-Each kernel is one CUDA C++ source under paddle_tpu_torch/csrc/ with a
-plain C entry point. At first use it is compiled with nvcc for Hopper
-(`sm_90a`) into a shared library under paddle_tpu_torch/build/ (named by
-the hash of the source, so an edited source is rebuilt) and loaded with
-ctypes. Pointers and the stream cross as c_void_p; every C entry point
-returns cudaGetLastError() and the wrapper raises on anything but 0.
+Each CUDA C++ source under paddle_tpu_torch/csrc/ exports one or more plain
+C entry points. At first use a source is compiled once with nvcc for Hopper
+(`sm_90a`) into one shared library under paddle_tpu_torch/build/ (named by
+the source and the hash of its text, so an edited source is rebuilt) and
+loaded with ctypes; every kernel registered on that source binds its own
+entry point from the one library. Pointers and the stream cross as
+c_void_p; every C entry point returns cudaGetLastError() and the wrapper
+raises on anything but 0.
 
 There is no fallback: a kernel that does not build or does not launch
 raises. Callers pick the plain torch version only for tensors that lie on
@@ -28,6 +30,8 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 
 # every kernel of the port, by name (chip_smoke.py walks this)
 KERNELS = {}
+# one _Library per CUDA source, shared by the kernels it exports
+_LIBRARIES = {}
 
 
 def nvcc_path():
@@ -41,22 +45,14 @@ def nvcc_path():
     return 'nvcc'
 
 
-class CudaKernel(object):
-    """One hand-written kernel: its source, the C entry point, the ctypes
-    signature, and `launches`, a plain count of successful launches (the
-    wrapper adds one where it launches the kernel, and nowhere else)."""
+class _Library(object):
+    """One CUDA source and the shared library nvcc builds from it."""
 
-    def __init__(self, name, source, entry, argtypes, replaces):
-        self.name = name
+    def __init__(self, source):
         self.source = source            # path relative to the package
-        self.entry = entry
-        self.argtypes = list(argtypes)
-        self.replaces = replaces        # the TPU kernel it replaces
-        self.launches = 0
         self.build_log = None
-        self._fn = None
+        self._lib = None
         self._lock = threading.Lock()
-        KERNELS[name] = self
 
     @property
     def source_path(self):
@@ -65,10 +61,11 @@ class CudaKernel(object):
     def library_path(self):
         with open(self.source_path, 'rb') as f:
             digest = hashlib.sha256(f.read()).hexdigest()[:12]
-        return os.path.join(BUILD_DIR, 'lib%s-%s.so' % (self.name, digest))
+        stem = os.path.splitext(os.path.basename(self.source))[0]
+        return os.path.join(BUILD_DIR, 'lib%s-%s.so' % (stem, digest))
 
     def start_build(self):
-        """Start nvcc for this kernel; returns (Popen, tmp path, final
+        """Start nvcc for this source; returns (Popen, tmp path, final
         path), or None when the library is already built."""
         out = self.library_path()
         if os.path.exists(out):
@@ -90,20 +87,46 @@ class CudaKernel(object):
                                % (proc.returncode, self.source, log))
         os.replace(tmp, out)
 
-    def _load(self):
+    def load(self):
+        """The loaded library, built first if needed (once per process)."""
         with self._lock:
-            if self._fn is None:
+            if self._lib is None:
                 started = self.start_build()
                 if started is not None:
                     self.finish_build(started)
                 lib = ctypes.CDLL(self.library_path())
+                lib.port_cuda_error_string.argtypes = [ctypes.c_int]
+                lib.port_cuda_error_string.restype = ctypes.c_char_p
+                self._lib = lib
+            return self._lib
+
+
+class CudaKernel(object):
+    """One hand-written kernel: its source, the C entry point, the ctypes
+    signature, and `launches`, a plain count of successful launches (the
+    wrapper adds one where it launches the kernel, and nowhere else).
+    Kernels that name the same source share one build."""
+
+    def __init__(self, name, source, entry, argtypes, replaces):
+        self.name = name
+        self.source = source            # path relative to the package
+        self.entry = entry
+        self.argtypes = list(argtypes)
+        self.replaces = replaces        # the TPU kernel it replaces
+        self.launches = 0
+        self.library = _LIBRARIES.setdefault(source, _Library(source))
+        self._fn = None
+        self._lock = threading.Lock()
+        KERNELS[name] = self
+
+    def _load(self):
+        with self._lock:
+            if self._fn is None:
+                lib = self.library.load()
                 fn = getattr(lib, self.entry)
                 fn.argtypes = self.argtypes
                 fn.restype = ctypes.c_int
-                err = lib.port_cuda_error_string
-                err.argtypes = [ctypes.c_int]
-                err.restype = ctypes.c_char_p
-                self._err = err
+                self._err = lib.port_cuda_error_string
                 self._fn = fn
             return self._fn
 
@@ -119,19 +142,22 @@ class CudaKernel(object):
 
 
 def build_all():
-    """Build every registered kernel, one nvcc process per source, all
-    started together. Returns {name: nvcc output} for the kernels built."""
-    started = {n: k.start_build() for n, k in KERNELS.items()}
+    """Build every source that a registered kernel names, one nvcc process
+    per source, all started together. Returns {source: nvcc output} for
+    the sources built."""
+    libs = sorted({k.library.source: k.library
+                   for k in KERNELS.values()}.items())
+    started = [(lib, lib.start_build()) for _, lib in libs]
     logs, errors = {}, []
-    for n, s in started.items():
+    for lib, s in started:
         if s is None:
             continue
         try:    # reap every nvcc before reporting any failure
-            KERNELS[n].finish_build(s)
+            lib.finish_build(s)
         except RuntimeError as e:
             errors.append(str(e))
             continue
-        logs[n] = KERNELS[n].build_log
+        logs[lib.source] = lib.build_log
     if errors:
         raise RuntimeError('\n'.join(errors))
     return logs

@@ -30,7 +30,12 @@ SUBMODULES = [
     'paddle_tpu_torch.fluid.executor', 'paddle_tpu_torch.fluid.ops_impl',
     'paddle_tpu_torch.ops', 'paddle_tpu_torch.ops.flash_attention',
     'paddle_tpu_torch.inference', 'paddle_tpu_torch.serving',
-    'paddle_tpu_torch.models.transformer',
+    'paddle_tpu_torch.models.transformer', 'paddle_tpu_torch.batch',
+    'paddle_tpu_torch.dataset.wmt16', 'paddle_tpu_torch.fluid.backward',
+    'paddle_tpu_torch.fluid.optimizer', 'paddle_tpu_torch.fluid.clip',
+    'paddle_tpu_torch.fluid.regularizer',
+    'paddle_tpu_torch.fluid.layers.learning_rate_scheduler',
+    'paddle_tpu_torch.fluid.ops_impl.optim_ops',
 ]
 
 
