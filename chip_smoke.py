@@ -18,7 +18,16 @@ result line):
                 stated tolerance; time kernel, plain version and the
                 PyTorch library call computing the same function (for the
                 two backward kernels, which no library call computes one
-                at a time: the pair against SDPA's backward).
+                at a time: the pair against SDPA's backward). The sparse
+                Adam and Adagrad kernels on DeepFM's [100000, D] tables in
+                four merges: the first reader batch's 6,656 ids at D=10
+                and D=1, duplicate-heavy ids from 0..63, and all slots
+                invalid (bitwise the input); no library call computes a
+                merged-row lazy update, so their library_ms is null.
+                Their ms and plain_ms are device times from CUDA graph
+                replays (the wrapper's Python per call is longer than the
+                kernel); eager_ms is the time per call through the
+                wrapper, as the training step calls it.
   3. serving  — full-width Transformer-base (6+6 layers, d_model 512, 8
                 heads, d_inner 2048, vocab 10000, max_length 256) built
                 with the port's layers, initialized on the card from a seed,
@@ -36,7 +45,18 @@ result line):
                 backward dK/dV), step-1 gradients on the card against the
                 same step on the CPU, and the trained program's inference
                 artifact answering a request through Predictor on the card.
-  5. a JSON line {"kernels": [...]} with each kernel's parity, launches,
+  5. ctr_training — full-width DeepFM (26 fields, vocab 100,000,
+                embed_dim 10, hidden [400, 400, 400]) with both FM tables
+                is_sparse, auc and Adam(1e-3), trained CTR_STEPS steps at
+                batch 256 through Executor() on synthetic_ctr_reader:
+                finite losses, AUC in [0, 1], 2 sparse_adam launches per
+                step; the same program from fresh weights on one batch
+                repeated, whose loss must fall below 0.01; 3 steps on the
+                card against 3 on the CPU; sparse against dense Adagrad
+                on the card (2 sparse_adagrad launches per sparse step);
+                the trained prob served through Predictor on the card.
+                Phases 3-4 launch no sparse kernel.
+  6. a JSON line {"kernels": [...]} with each kernel's parity, launches,
      times and bound; then the card's name and power limit; then the last
      line {"ok": true, "device": {...}}.
 """
@@ -90,6 +110,33 @@ TRAIN_STEPS = 20
 # 12 and the loss of this post-norm model rose from there.
 TRAIN_WARMUP = 200
 
+# the sparse optimizer kernels against their plain versions: the same fp32
+# expression in the same order and rounding, so 0 or 1 ulp; the tolerance
+# of the Pallas kernels' own test (tests/test_kernels.py:182)
+SPARSE_TOL = 1e-6
+# DeepFM at the model's own widths (paddle_tpu/models/deepfm.py:18-24): 26
+# fields, vocab 100,000, embed_dim 10, hidden [400, 400, 400]; batch 256 and
+# Adam(1e-3) as get_model sets them
+CTR_BATCH = 256
+CTR_EMBED_DIM = 10
+CTR_LR = 1e-3
+CTR_STEPS = 20
+CTR_ADAGRAD_LR = 0.01
+CTR_COMPARE_STEPS = 3
+# card against CPU over CTR_COMPARE_STEPS Adam steps from the same weights:
+# the merge's index_add_ sums the rows of a repeated id in another order on
+# the card (atomics) than on the CPU, and the fc products too, so the
+# gradients differ in their last bits and Adam's normalised steps carry
+# that on (largest difference in PERF.md section 6)
+CTR_CROSS_DEVICE_TOL = 1e-5
+# sparse against dense Adagrad on the card: the same function (dense
+# Adagrad leaves untouched rows unchanged), sums in another order; the
+# tolerance of tests/test_sparse_embedding.py:98
+ADAGRAD_RTOL, ADAGRAD_ATOL = 1e-4, 1e-6
+# the single-batch learning check: the JAX package's run reached 4.0e-5
+CTR_LEARN_LOSS = 0.01
+SPARSE_KERNELS = ('sparse_adam', 'sparse_adagrad')
+
 
 def log(*args):
     print(*args, flush=True)
@@ -117,6 +164,36 @@ def time_ms(fn, iters=50, warmup=5, rounds=3):
         start.record()
         for _ in range(iters):
             fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return sorted(times)[len(times) // 2]
+
+
+def time_graph_ms(fn, iters=50, rounds=3):
+    """Device ms per call with the host out of the way: `iters` calls
+    captured in one CUDA graph, the replay timed with CUDA events, the
+    median of `rounds` replays. For kernels shorter than the wrapper's
+    own Python, where time_ms measures the host."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / iters)
@@ -242,7 +319,8 @@ def phase_kernels():
         q, k, v, kb = c['q'], c['k'], c['v'], c['bias']
         causal, scale = c['causal'], c['scale']
         Bq, Hq, Tq, Tk, Dq = c['shape']
-        head = dict(case=c['name'], shape_B_H_Tq_Tk_D=c['shape'],
+        head = dict(case=c['name'], shape=dict(zip(('B', 'H', 'Tq', 'Tk',
+                                                    'D'), c['shape'])),
                     causal=causal)
         mask = _sdpa_mask(c)
 
@@ -311,12 +389,113 @@ def phase_kernels():
                      bound_by=bound_by, backward_pair=pair)
             log('[kernels] %s %s' % (name, json.dumps(r)))
             results[name].append(r)
+    results.update(_sparse_optim_cases())
     for name, rs in results.items():
         bad = [r['case'] for r in rs if not r['ok']]
         if bad:
             raise AssertionError('%s disagrees with its plain version '
                                  'beyond %g in: %s'
                                  % (name, rs[0]['tol'], bad))
+    return results
+
+
+def _sparse_merges(gen):
+    """The four merges the sparse optimizer kernels are held on, as
+    _merge_sparse makes them on the card: (name, D, uids, gm, valid)."""
+    import torch
+    from paddle_tpu_torch.fluid.lowering import SparseRows
+    from paddle_tpu_torch.fluid.ops_impl.optim_ops import _merge_sparse
+    from paddle_tpu_torch.models import deepfm
+    ids = torch.from_numpy(ctr_feed(first_ctr_batch())['feat_ids']
+                           .reshape(-1)).cuda()
+    n = ids.shape[0]
+    dups = torch.randint(0, 64, (n,), generator=gen, device='cuda')
+    dups[:2] = 0
+    out = []
+    for name, D, case_ids in (
+            ('main-path merge, D=10 (fm_embed)', CTR_EMBED_DIM, ids),
+            ('main-path merge, D=1 (fm_first_w)', 1, ids),
+            ('duplicate-heavy, ids 0..63, D=10', CTR_EMBED_DIM, dups),
+            ('all invalid, D=10', CTR_EMBED_DIM, ids)):
+        rows = torch.randn((n, D), generator=gen, device='cuda') * 1e-2
+        uids, gm, valid = _merge_sparse(
+            SparseRows(case_ids, rows, (deepfm.VOCAB, D)))
+        if name.startswith('all invalid'):
+            uids, gm = torch.zeros_like(uids), torch.zeros_like(gm)
+            valid = torch.zeros_like(valid)
+        out.append((name, D, uids, gm, valid))
+    return out
+
+
+def _sparse_bound(n, d, n_valid, n_tables, flops_per_element):
+    """Least time for one merged update, ms, from the bytes this data needs:
+    the bool valid mask of all n slots and lr read once; for the valid
+    slots only, the int64 uid and the gm row read once and each table row
+    read once and written once (an invalid slot reads nothing more)."""
+    nbytes = (1.0 * n + 4 + n_valid * (8.0 + 4.0 * d)
+              + 2 * 4.0 * n_valid * d * n_tables)
+    return _bound(float(flops_per_element) * n_valid * d, nbytes)
+
+
+def _sparse_optim_cases():
+    """sparse_adam and sparse_adagrad against their plain versions on
+    DeepFM's tables (100,000 rows) in four merges each; returns
+    {kernel name: [case result, ...]}."""
+    import torch
+    from paddle_tpu_torch.models import deepfm
+    so = importlib.import_module(
+        'paddle_tpu_torch.ops.kernels.sparse_optim')
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(SEED + 3)
+    lr = torch.tensor(1e-3, device='cuda')
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    kinds = {
+        # name: (kernel, plain, tables, extra args, flops per element)
+        'sparse_adagrad': (so.fused_sparse_adagrad,
+                           so.fused_sparse_adagrad_plain, 2, (1e-6,), 9),
+        'sparse_adam': (so.fused_sparse_adam, so.fused_sparse_adam_plain,
+                        3, (b1, b2, eps), 16),
+    }
+    results = {k: [] for k in kinds}
+    for case, D, uids, gm, valid in _sparse_merges(gen):
+        tables = [torch.randn((deepfm.VOCAB, D), generator=gen,
+                              device='cuda') * 0.1,
+                  torch.rand((deepfm.VOCAB, D), generator=gen,
+                             device='cuda') * 1e-3,
+                  torch.rand((deepfm.VOCAB, D), generator=gen,
+                             device='cuda') * 1e-5]
+        n_valid = int(valid.sum())
+        for name, (kern, plain, nt, extra, fpe) in kinds.items():
+            args = (uids, gm, valid, lr) + extra
+            given = [t.clone() for t in tables[:nt]]
+            got = kern(*given, *args)
+            torch.cuda.synchronize()
+            want = plain(*[t.clone() for t in tables[:nt]], *args)
+            err = _max_err(got, want)
+            ok = err <= SPARSE_TOL and all(
+                g is t for g, t in zip(got, given))
+            if not valid.any():     # no slot valid: bitwise the input
+                ok = ok and all(torch.equal(g.view(torch.int32),
+                                            t.view(torch.int32))
+                                for g, t in zip(got, tables))
+            # timing updates scratch copies in place, call after call.
+            # ms and plain_ms are device times (graph replays); the
+            # eager_ ones are per call through the wrapper, as the step
+            # calls it, where the host's Python is the longer part
+            scratch = [t.clone() for t in tables[:nt]]
+            bound_ms, bound_by = _sparse_bound(gm.shape[0], D, n_valid, nt,
+                                               fpe)
+            r = dict(case=case, shape=dict(V=deepfm.VOCAB,
+                                           N=int(gm.shape[0]), D=D,
+                                           valid=n_valid),
+                     max_abs_err=err, ok=ok, tol=SPARSE_TOL,
+                     ms=time_graph_ms(lambda: kern(*scratch, *args)),
+                     plain_ms=time_graph_ms(lambda: plain(*scratch, *args)),
+                     eager_ms=time_ms(lambda: kern(*scratch, *args)),
+                     plain_eager_ms=time_ms(lambda: plain(*scratch, *args)),
+                     library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+            log('[kernels] %s %s' % (name, json.dumps(r)))
+            results[name].append(r)
     return results
 
 
@@ -620,6 +799,232 @@ def _serve_trained(main, scope, exe):
         % (rows, float(np.abs(got[:1] - ref).max()), CROSS_DEVICE_TOL))
 
 
+# -- phase 5 ----------------------------------------------------------------
+
+def first_ctr_batch():
+    """The first batch of 256 rows of DeepFM's synthetic_ctr_reader."""
+    from paddle_tpu_torch.batch import batch
+    from paddle_tpu_torch.models import deepfm
+    return next(batch(deepfm.synthetic_ctr_reader(tag='train'),
+                      CTR_BATCH)())
+
+
+def ctr_feed(rows):
+    """A batch of (ids, label) rows -> {'feat_ids': [B, 26], 'label':
+    [B, 1]} int64."""
+    return {'feat_ids': np.stack([r[0] for r in rows]),
+            'label': np.array([[r[1]] for r in rows], dtype='int64')}
+
+
+def build_ctr(opt='adam', is_sparse=True):
+    """deepfm.training_program: deepfm(is_sparse=...) at the model's widths
+    with get_model's other settings (auc over [1 - prob, prob], batch 256),
+    as the JAX package's bench.py:701-706 builds the sparse program; the
+    optimizer Adam(1e-3) or Adagrad(0.01). Returns (main, startup,
+    avg_cost, auc, prob)."""
+    from paddle_tpu_torch.fluid import framework, unique_name
+    from paddle_tpu_torch.models import deepfm
+    main, startup = framework.Program(), framework.Program()
+    main.random_seed = startup.random_seed = SEED
+    with unique_name.guard(), framework.program_guard(main, startup):
+        avg_cost, auc, prob, _ = deepfm.training_program(
+            is_sparse=is_sparse, optimizer=opt,
+            learning_rate=CTR_LR if opt == 'adam' else CTR_ADAGRAD_LR,
+            embed_dim=CTR_EMBED_DIM)
+    return main, startup, avg_cost, auc, prob
+
+
+def _launch_counts():
+    from paddle_tpu_torch import ops
+    return {n: k.launches for n, k in ops.KERNELS.items()}
+
+
+def _reset_launch_counts():
+    from paddle_tpu_torch import ops
+    for k in ops.KERNELS.values():
+        k.launches = 0
+
+
+def _train_ctr(exe, main, scope, fetch, feeds):
+    """One exe.run per feed; returns ([fetched values per step],
+    [host seconds per step])."""
+    outs, secs = [], []
+    for feed in feeds:
+        t0 = time.perf_counter()
+        outs.append(exe.run(main, feed=feed, fetch_list=fetch, scope=scope))
+        secs.append(time.perf_counter() - t0)
+    return outs, secs
+
+
+def phase_ctr_training():
+    """Full-width DeepFM with both FM tables is_sparse through
+    Executor() on the card; returns the launch counts of its two main
+    paths (sparse_adam from the Adam run, sparse_adagrad from the sparse
+    Adagrad run)."""
+    import torch
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.batch import batch
+    from paddle_tpu_torch.models import deepfm
+    t0 = time.perf_counter()
+    main, startup, avg_cost, auc, prob = build_ctr('adam')
+    scope = fluid.Scope()
+    exe = fluid.Executor()                      # the default place: the card
+    exe.run(startup, scope=scope)
+    initial = scope.to_numpy()
+    epoch = [ctr_feed(b) for b in batch(
+        deepfm.synthetic_ctr_reader(tag='train'), CTR_BATCH)()]
+    feeds = [epoch[i % len(epoch)] for i in range(CTR_STEPS)]
+    log('[ctr_training] built deepfm(is_sparse=True) (26 fields, vocab %d, '
+        'embed_dim %d, hidden [400, 400, 400]) + auc + Adam(%g), '
+        'initialized on the card and read %d batches of %d in %.3f s'
+        % (deepfm.VOCAB, CTR_EMBED_DIM, CTR_LR, len(epoch), CTR_BATCH,
+           time.perf_counter() - t0))
+
+    # 1. the main path: CTR_STEPS steps over the reader, restarted at the
+    #    end of its 16-batch epoch
+    _reset_launch_counts()
+    outs, step_s = _train_ctr(exe, main, scope, [avg_cost, auc], feeds)
+    launches = _launch_counts()
+    losses = [float(o[0][0]) for o in outs]
+    aucs = [float(o[1]) for o in outs]
+    want = dict.fromkeys(launches, 0)
+    want['sparse_adam'] = 2 * CTR_STEPS         # one per FM table and step
+    if launches != want:
+        raise AssertionError('DeepFM training launched %r in %d steps; the '
+                             'path must launch %r'
+                             % (launches, CTR_STEPS, want))
+    if not np.isfinite(losses).all():
+        raise AssertionError('non-finite DeepFM loss: %r' % (losses,))
+    if not all(0.0 <= a <= 1.0 for a in aucs):
+        raise AssertionError('AUC outside [0, 1]: %r' % (aucs,))
+    med = float(np.median(step_s[1:]))
+    log('[ctr_training] losses %s' % ', '.join('%.4f' % x for x in losses))
+    log('[ctr_training] auc %s' % ', '.join('%.4f' % x for x in aucs))
+    log('[ctr_training] step seconds %s'
+        % ', '.join('%.4f' % x for x in step_s))
+    log('[ctr_training] median step (steps 2-%d) %.4f s: %.1f examples/s; '
+        'sparse_adam launches %d = 2 x %d steps'
+        % (CTR_STEPS, med, CTR_BATCH / med, launches['sparse_adam'],
+           CTR_STEPS))
+
+    # 2. learning: fresh weights, one batch repeated (over the reader the
+    #    loss does not fall in 20 steps: each of the 100,000 ids is seen
+    #    about once)
+    s2 = fluid.Scope()
+    exe2 = fluid.Executor()
+    exe2.run(startup, scope=s2)
+    outs2, _ = _train_ctr(exe2, main, s2, [avg_cost, auc],
+                          [feeds[0]] * CTR_STEPS)
+    learn = [float(o[0][0]) for o in outs2]
+    log('[ctr_training] one batch repeated: loss %s; auc %.4f'
+        % (', '.join('%.3g' % x for x in learn), float(outs2[-1][1])))
+    if not learn[-1] < CTR_LEARN_LOSS:
+        raise AssertionError('the single-batch loss reached %r, not below '
+                             '%g, by step %d' % (learn[-1], CTR_LEARN_LOSS,
+                                                 CTR_STEPS))
+
+    _ctr_card_against_cpu(main, avg_cost, initial, feeds)
+    adagrad_launches = _ctr_adagrad_sparse_against_dense(feeds)
+    launches['sparse_adagrad'] = adagrad_launches
+    _serve_ctr(main, prob, scope, exe, feeds[0])
+    torch.cuda.synchronize()
+    return launches
+
+
+def _ctr_card_against_cpu(main, avg_cost, initial, feeds):
+    """CTR_COMPARE_STEPS Adam steps from the startup weights on the card
+    and on the CPU (where the plain versions run): losses, both FM tables
+    and their moments."""
+    from paddle_tpu_torch import fluid
+    runs = {}
+    for where, place in (('card', fluid.CUDAPlace(0)),
+                         ('cpu', fluid.CPUPlace())):
+        s = fluid.Scope()
+        s.load_numpy(initial, place)
+        outs, _ = _train_ctr(fluid.Executor(place), main, s, [avg_cost],
+                             feeds[:CTR_COMPARE_STEPS])
+        runs[where] = ([float(o[0][0]) for o in outs], s.to_numpy(
+            [n for n in initial if 'fm_' in n]))
+    (gl, gs), (wl, ws) = runs['card'], runs['cpu']
+    np.testing.assert_allclose(gl, wl, rtol=CTR_CROSS_DEVICE_TOL,
+                               atol=CTR_CROSS_DEVICE_TOL)
+    worst = []
+    for n in sorted(ws):
+        np.testing.assert_allclose(gs[n], ws[n], rtol=CTR_CROSS_DEVICE_TOL,
+                                   atol=CTR_CROSS_DEVICE_TOL, err_msg=n)
+        worst.append('%s %.3g' % (n, float(np.abs(gs[n] - ws[n]).max())))
+    log('[ctr_training] %d Adam steps, card vs CPU from the same weights: '
+        'losses %s vs %s; max abs diff %s (tol %g)'
+        % (CTR_COMPARE_STEPS, ', '.join('%.6f' % x for x in gl),
+           ', '.join('%.6f' % x for x in wl), ', '.join(worst),
+           CTR_CROSS_DEVICE_TOL))
+
+
+def _ctr_adagrad_sparse_against_dense(feeds):
+    """Adagrad(0.01) with is_sparse=True against the same program with
+    is_sparse=False, on the card, from the same weights and feeds; returns
+    the sparse run's sparse_adagrad launches."""
+    from paddle_tpu_torch import fluid
+    progs = {s: build_ctr('adagrad', is_sparse=s) for s in (True, False)}
+    init = fluid.Scope()
+    fluid.Executor().run(progs[True][1], scope=init)
+    state = init.to_numpy()
+    tables, launched = {}, {}
+    for sparse, (main, _, avg_cost, _, _) in progs.items():
+        s = fluid.Scope()
+        s.load_numpy(state, fluid.CUDAPlace(0))
+        _reset_launch_counts()
+        _train_ctr(fluid.Executor(), main, s, [avg_cost],
+                   feeds[:CTR_COMPARE_STEPS])
+        launched[sparse] = _launch_counts()
+        tables[sparse] = s.to_numpy(['fm_first_w', 'fm_embed'])
+    want = 2 * CTR_COMPARE_STEPS
+    if launched[True]['sparse_adagrad'] != want \
+            or any(launched[False].values()):
+        raise AssertionError('sparse Adagrad launched %r, dense %r; the '
+                             'sparse path must launch sparse_adagrad %d '
+                             'times, the dense path no kernel'
+                             % (launched[True], launched[False], want))
+    diffs = []
+    for n in ('fm_first_w', 'fm_embed'):
+        np.testing.assert_allclose(tables[True][n], tables[False][n],
+                                   rtol=ADAGRAD_RTOL, atol=ADAGRAD_ATOL,
+                                   err_msg=n)
+        diffs.append('%s %.3g' % (n, float(np.abs(
+            tables[True][n] - tables[False][n]).max())))
+    log('[ctr_training] Adagrad(%g), %d steps on the card, sparse vs dense: '
+        'max abs diff %s (rtol %g, atol %g); sparse_adagrad launches %d = '
+        '2 x %d steps, dense run: none'
+        % (CTR_ADAGRAD_LR, CTR_COMPARE_STEPS, ', '.join(diffs), ADAGRAD_RTOL,
+           ADAGRAD_ATOL, launched[True]['sparse_adagrad'],
+           CTR_COMPARE_STEPS))
+    return launched[True]['sparse_adagrad']
+
+
+def _serve_ctr(main, prob, scope, exe, feed):
+    """The trained program's prob, saved with save_inference_model, answers
+    a request through Predictor on the card; one row against the CPU."""
+    from paddle_tpu_torch import fluid, inference
+    test_prog = main.clone(for_test=True)
+    request = {'feat_ids': feed['feat_ids'][:8]}
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_ctr_') as tmp:
+        fluid.io.save_inference_model(
+            tmp, ['feat_ids'], [test_prog.global_block().var(prob.name)],
+            exe, main_program=test_prog, scope=scope)
+        got = inference.Predictor(tmp).run(request)[0]
+        ref = inference.Predictor(tmp, place=fluid.CPUPlace()).run(
+            {'feat_ids': request['feat_ids'][:1]})[0]
+    if got.shape != (8, 1) or not np.isfinite(got).all() \
+            or not ((got >= 0) & (got <= 1)).all():
+        raise AssertionError('the trained DeepFM answered %r' % (got,))
+    np.testing.assert_allclose(got[:1], ref, atol=CROSS_DEVICE_TOL,
+                               rtol=CROSS_DEVICE_TOL)
+    log('[ctr_training] the trained DeepFM served 8 rows through Predictor '
+        'on the card (prob %s); card vs CPU on one row: %.7f vs %.7f'
+        % (', '.join('%.4f' % x for x in got[:, 0]), float(got[0, 0]),
+           float(ref[0, 0])))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -631,7 +1036,12 @@ def main():
            torch.cuda.device_count(), torch.cuda.get_device_name(0)))
     phase_build()
     cases = phase_kernels()
-    by_path = {'serving': phase_serving(), 'training': phase_training()}
+    by_path = {'serving': phase_serving(), 'training': phase_training(),
+               'ctr_training': phase_ctr_training()}
+    for path in ('serving', 'training'):
+        if any(by_path[path][k] for k in SPARSE_KERNELS):
+            raise AssertionError('the %s path launched a sparse optimizer '
+                                 'kernel: %r' % (path, by_path[path]))
     if 'jax' in sys.modules or any(
             m == 'paddle_tpu' or m.startswith('paddle_tpu.')
             for m in sys.modules):
@@ -650,7 +1060,7 @@ def main():
             max_abs_err=max(r['max_abs_err'] for r in rs),
             ms=head['ms'], plain_ms=head['plain_ms'],
             bound_ms=head['bound_ms'], bound_by=head['bound_by'],
-            library_ms=head['library_ms'], shape=head['shape_B_H_Tq_Tk_D'],
+            library_ms=head['library_ms'], shape=head['shape'],
             **({'backward_pair': head['backward_pair']}
                if 'backward_pair' in head else {}),
             cases=rs))

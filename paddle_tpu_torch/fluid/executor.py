@@ -18,6 +18,14 @@ ops after it (clip, regularizers, optimizer updates) run under
 torch.no_grad(). Only detached tensors go back to the scope or out as
 fetches.
 
+An is_sparse embedding table that qualifies (the plan of
+_sparse_embedding_plan, the JAX StepArtifact's :321-406, unsharded case)
+is not a leaf: each of its lookups gets a zero tap that requires grad,
+added to the lookup's output, and `W@GRAD` is bound to a
+lowering.SparseRows of the lookups' ids and the taps' gradients (JAX
+_grad_setup / _run_ops / _apply_grads, :412-501), so the vocab-sized
+dense gradient never exists.
+
 Random ops draw from ONE torch.Generator per Executor, on its device,
 re-seeded at every run from Program.random_seed and the run count (the JAX
 Executor derives its per-run PRNG key the same way), so a seeded program
@@ -37,7 +45,7 @@ from torch.profiler import record_function
 from .. import obs
 from . import core
 from .framework import Variable, default_main_program
-from .lowering import Ctx, run_block, run_op
+from .lowering import Ctx, SparseRows, run_block, run_op
 
 __all__ = ['Executor', 'Scope', 'global_scope', 'scope_guard']
 
@@ -122,11 +130,12 @@ def _as_fetch_name(f):
 
 
 class _RunPlan(object):
-    """What a run of one program version needs beyond its ops: the
-    persistables it may read from the scope, the ones it writes back, and
-    the index of its autodiff op (None: it does not differentiate)."""
+    """What a run of one program version with one fetch list needs beyond
+    its ops: the persistables it may read from the scope, the ones it
+    writes back, the index of its autodiff op (None: it does not
+    differentiate) and its sparse embedding plan."""
 
-    def __init__(self, program):
+    def __init__(self, program, fetch_names):
         block = program.global_block()
         persist = {v.name for v in program.list_vars() if v.persistable}
         self.persistables = sorted(persist)
@@ -137,14 +146,71 @@ class _RunPlan(object):
             raise ValueError('at most one append_backward per program; '
                              'this one has %d autodiff ops' % len(ad))
         self.ad_idx = ad[0] if ad else None
+        self.sparse_plan = {} if self.ad_idx is None else \
+            _sparse_embedding_plan(block.ops, self.ad_idx, persist,
+                                   set(fetch_names))
 
 
-def _run_ops(ops, env, ctx, detach_stop_gradient=False):
+# optimizer ops with a SparseRows gradient branch (ops_impl/optim_ops.py)
+_SPARSE_OPTS = frozenset(['sgd', 'adagrad', 'adam'])
+
+
+def _sparse_embedding_plan(ops, ad_idx, persistable, fetch_names):
+    """Which embedding tables take the sparse gradient path (the JAX
+    package's StepArtifact._sparse_embedding_plan, unsharded case).
+
+    A table W qualifies when every reader of W other than its optimizer op
+    is an is_sparse lookup_table, W@GRAD is read by exactly one sgd,
+    adagrad or adam op and by nothing else, and W@GRAD has no writer, is
+    not persistable and is not fetched (fetching it asks for the dense
+    gradient). Any other table keeps the dense path.
+    Returns {w_name: {'lookups': [(op_idx, ids_name, padding_idx)],
+                      'gname': str}}."""
+    ad = ops[ad_idx]
+    gnames = dict(zip(ad.attrs['param_names'], ad.attrs['grad_names']))
+    readers, writers = {}, {}
+    for i, op in enumerate(ops):
+        if i == ad_idx:
+            continue
+        for n in op.input_arg_names:
+            readers.setdefault(n, []).append(i)
+        for n in op.output_arg_names:
+            writers.setdefault(n, []).append(i)
+    plan = {}
+    for w, gname in gnames.items():
+        lookups = []
+        opt_idx = None
+        ok = gname not in fetch_names and gname not in persistable
+        for i in set(readers.get(w, [])):
+            op = ops[i]
+            if (op.type == 'lookup_table' and op.attrs.get('is_sparse')
+                    and op.inputs['W'][0].name == w):
+                lookups.append((i, op.inputs['Ids'][0].name,
+                                op.attrs.get('padding_idx', -1)))
+            elif (op.type in _SPARSE_OPTS and opt_idx is None
+                  and any(v.name == gname
+                          for v in op.inputs.get('Grad', []))):
+                opt_idx = i
+            else:
+                ok = False
+        if (ok and lookups and opt_idx is not None
+                and set(readers.get(gname, [])) <= {opt_idx}
+                and not writers.get(gname)):
+            plan[w] = {'lookups': sorted(lookups), 'gname': gname}
+    return plan
+
+
+def _run_ops(ops, env, ctx, detach_stop_gradient=False, taps=None):
     """Run `ops` against env; with detach_stop_gradient, every output var
     marked stop_gradient is detached (the JAX package's _run_ops in grad
-    mode, fluid/step_artifact.py:591-596)."""
-    for op in ops:
+    mode, fluid/step_artifact.py:591-596). taps: {op index: (tap tensor,
+    output name)}: right after that op the tap is added to its output, so
+    the tap's gradient is the per-row gradient there (:586-590)."""
+    for i, op in enumerate(ops):
         run_op(op, env, ctx)
+        if taps is not None and i in taps:
+            tap, out = taps[i]
+            env[out] = env[out] + tap
         if detach_stop_gradient:
             for vs in op.outputs.values():
                 for v in vs:
@@ -153,22 +219,42 @@ def _run_ops(ops, env, ctx, detach_stop_gradient=False):
                         env[v.name] = t.detach()
 
 
-def _train_step(ops, ad_idx, env, ctx):
+def _train_step(ops, ad_idx, sparse_plan, env, ctx):
     """The step of a program with an autodiff op at ad_idx: the eager
     counterpart of StepArtifact's _grad_setup / _make_fwd / _apply_grads
-    (fluid/step_artifact.py:412-478) without the sparse taps."""
+    (fluid/step_artifact.py:412-501)."""
     ad = ops[ad_idx]
-    pnames = [n for n in ad.attrs['param_names'] if n in env]
     gnames = dict(zip(ad.attrs['param_names'], ad.attrs['grad_names']))
+    # the planned tables whose ids are known before the forward runs (fed
+    # or persistable), which the taps' shapes need; the others stay dense
+    sparse = {w: p for w, p in sparse_plan.items()
+              if w in env and all(ids in env for _, ids, _ in p['lookups'])}
+    taps = {}
+    for w, p in sparse.items():
+        d = env[w].shape[-1]
+        for op_idx, ids_name, _ in p['lookups']:
+            shape = tuple(env[ids_name].shape)
+            if shape and shape[-1] == 1:
+                shape = shape[:-1]
+            taps[op_idx] = (torch.zeros(shape + (d,), dtype=env[w].dtype,
+                                        device=env[w].device,
+                                        requires_grad=True),
+                            ops[op_idx].outputs['Out'][0].name)
+    pnames = [n for n in ad.attrs['param_names']
+              if n in env and n not in sparse]
     leaves = [env[n].detach().requires_grad_() for n in pnames]
     env.update(zip(pnames, leaves))
+    tap_order = sorted(taps)
     # record_function ranges name the phases in a torch.profiler trace
     # (tools/torch_train_profile.py); without a profiler they cost ~1 us
     with torch.enable_grad():
         with record_function('executor.forward'):
-            _run_ops(ops[:ad_idx], env, ctx, detach_stop_gradient=True)
+            _run_ops(ops[:ad_idx], env, ctx, detach_stop_gradient=True,
+                     taps=taps)
             loss = env[ad.attrs['loss_name']].to(torch.float32).sum()
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = torch.autograd.grad(
+            loss, leaves + [taps[i][0] for i in tap_order],
+            allow_unused=True)
     scale = ad.attrs.get('loss_scale', 1.0)
     for n in list(env):
         if isinstance(env[n], torch.Tensor):
@@ -179,6 +265,27 @@ def _train_step(ops, ad_idx, env, ctx):
         if scale != 1.0:
             g = g * scale
         env[gnames[n]] = g.to(leaf.dtype)
+    tap_grads = dict(zip(tap_order, grads[len(leaves):]))
+    for w, p in sparse.items():
+        d = env[w].shape[-1]
+        ids_parts, row_parts = [], []
+        for op_idx, ids_name, pad in p['lookups']:
+            ids = env[ids_name].reshape(-1).long()
+            g = tap_grads[op_idx]
+            rows = torch.zeros((ids.shape[0], d), dtype=env[w].dtype,
+                               device=ids.device) if g is None \
+                else g.reshape(-1, d)
+            if pad is not None and pad >= 0:
+                # the dense gradient's padding_idx row is zero (the lookup
+                # reads that row as zeros); mirror it on the rows
+                rows = rows.masked_fill((ids == pad)[:, None], 0.0)
+            ids_parts.append(ids)
+            row_parts.append(rows)
+        rows = torch.cat(row_parts)
+        if scale != 1.0:
+            rows = rows * scale
+        env[p['gname']] = SparseRows(torch.cat(ids_parts),
+                                     rows.to(env[w].dtype), env[w].shape)
     with torch.no_grad(), record_function('executor.update'):
         _run_ops(ops[ad_idx + 1:], env, ctx)
 
@@ -199,11 +306,11 @@ class Executor(object):
         self._plans = {}
         self._lock = threading.Lock()
 
-    def _plan(self, program):
-        key = (program._uid, program._version)
+    def _plan(self, program, fetch_names):
+        key = (program._uid, program._version, fetch_names)
         plan = self._plans.get(key)
         if plan is None:
-            plan = self._plans[key] = _RunPlan(program)
+            plan = self._plans[key] = _RunPlan(program, fetch_names)
         return plan
 
     def _feed_tensor(self, val, var):
@@ -234,8 +341,9 @@ class Executor(object):
         if scope is None:
             scope = global_scope()
         block = program.global_block()
+        fetch_names = tuple(_as_fetch_name(f) for f in fetch_list)
         with obs.span('executor.step'), self._lock:
-            plan = self._plan(program)
+            plan = self._plan(program, fetch_names)
             self._run_counter += 1
             self._generator.manual_seed(
                 ((program.random_seed or 0) * 2654435761
@@ -249,7 +357,8 @@ class Executor(object):
                 env[name] = self._feed_tensor(val, block.vars.get(name))
             ctx = Ctx(self.device, self._generator)
             if plan.ad_idx is not None:
-                _train_step(block.ops, plan.ad_idx, env, ctx)
+                _train_step(block.ops, plan.ad_idx, plan.sparse_plan, env,
+                            ctx)
             else:
                 mode = torch.no_grad() if plan.writes \
                     else torch.inference_mode()
@@ -258,7 +367,7 @@ class Executor(object):
             for name in plan.writes:
                 if name in env:
                     scope._chain_set(name, env[name])
-            fetches = [env[_as_fetch_name(f)] for f in fetch_list]
+            fetches = [env[n] for n in fetch_names]
             if not return_numpy:
                 return fetches
             with obs.span('executor.fetch'):

@@ -54,9 +54,11 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
 
 def embedding(input, size, is_sparse=False, is_distributed=False,
               padding_idx=None, param_attr=None, dtype='float32'):
-    """reference nn.py:embedding (lookup_table op). is_sparse and
-    is_distributed are recorded on the op for artifact parity; the port
-    runs the dense lookup."""
+    """reference nn.py:embedding (lookup_table op). With is_sparse=True a
+    training step hands the table's optimizer the touched rows (a
+    lowering.SparseRows, fluid/executor.py) instead of a dense gradient.
+    is_distributed is recorded on the op for artifact parity; the
+    row-sharded lookup wire waits for the parallel slice."""
     helper = LayerHelper('embedding', **locals())
     w = helper.create_parameter(attr=helper.param_attr, shape=size,
                                 dtype=dtype, is_bias=False)

@@ -1,8 +1,15 @@
-"""Elementwise / scale / clip layers. Parity: reference layers/ops.py."""
+"""Activation / elementwise / scale / clip / loss layers. Parity:
+reference layers/ops.py and the JAX package's fluid/layers/ops.py, whose
+activation generator (:5-8, :49) here makes only the activations whose
+rules the port has."""
 from ..layer_helper import LayerHelper
 
-__all__ = ['mul', 'scale', 'clip', 'elementwise_add', 'elementwise_sub',
-           'elementwise_mul', 'elementwise_div', 'elementwise_min']
+__activations__ = ['sigmoid', 'sqrt', 'square']
+
+__all__ = __activations__ + [
+    'mean', 'mul', 'scale', 'clip', 'sigmoid_cross_entropy_with_logits',
+    'elementwise_add', 'elementwise_sub', 'elementwise_mul',
+    'elementwise_div', 'elementwise_min']
 
 
 def _single_in_op(op_type, x, attrs=None, name=None):
@@ -10,6 +17,33 @@ def _single_in_op(op_type, x, attrs=None, name=None):
     out = helper.create_variable_for_type_inference(x.dtype)
     helper.append_op(type=op_type, inputs={'X': [x]}, outputs={'Out': [out]},
                      attrs=attrs or {})
+    return out
+
+
+def _make_unary(op_type):
+    def layer(x, name=None, **kwargs):
+        kwargs.pop('act', None)
+        return _single_in_op(op_type, x, attrs=kwargs, name=name)
+    layer.__name__ = op_type
+    layer.__doc__ = ("%s activation (reference layers/ops.py generated "
+                     "from operators/activation_op.cc)" % op_type)
+    return layer
+
+
+for _a in __activations__:
+    globals()[_a] = _make_unary(_a)
+
+
+def mean(x, name=None):
+    return _single_in_op('mean', x, name=name)
+
+
+def sigmoid_cross_entropy_with_logits(x, label, name=None):
+    helper = LayerHelper('sigmoid_cross_entropy_with_logits', name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type='sigmoid_cross_entropy_with_logits',
+                     inputs={'X': [x], 'Label': [label]},
+                     outputs={'Out': [out]})
     return out
 
 

@@ -6,7 +6,7 @@ from ..layer_helper import LayerHelper
 from ..initializer import Constant
 from ..core import convert_dtype
 
-__all__ = ['create_global_var', 'cast', 'assign', 'fill_constant']
+__all__ = ['create_global_var', 'cast', 'concat', 'assign', 'fill_constant']
 
 
 def create_global_var(shape, value, dtype, persistable=False,
@@ -26,6 +26,28 @@ def cast(x, dtype):
     out = helper.create_variable_for_type_inference(dtype=convert_dtype(dtype))
     helper.append_op(type='cast', inputs={'X': [x]}, outputs={'Out': [out]},
                      attrs={'in_dtype': x.dtype, 'out_dtype': convert_dtype(dtype)})
+    return out
+
+
+def concat(input, axis=0, name=None):
+    helper = LayerHelper('concat', **locals())
+    # static out shape (reference concat_op InferShape): inputs' shape
+    # with the concat axis summed — downstream fc reads .shape
+    shape = None
+    shapes = [getattr(v, 'shape', None) for v in input]
+    if all(s is not None for s in shapes):
+        shape = list(shapes[0])
+        ax = axis if axis >= 0 else len(shape) + axis
+        if all(len(s) == len(shape) for s in shapes) \
+                and all(s[ax] is not None and s[ax] >= 0 for s in shapes):
+            shape[ax] = sum(s[ax] for s in shapes)
+        else:
+            shape = None
+    out = helper.create_variable_for_type_inference(
+        dtype=helper.input_dtype(), shape=shape,
+        lod_level=max((getattr(v, 'lod_level', 0) or 0) for v in input))
+    helper.append_op(type='concat', inputs={'X': input},
+                     outputs={'Out': [out]}, attrs={'axis': axis})
     return out
 
 

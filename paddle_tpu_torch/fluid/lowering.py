@@ -8,8 +8,9 @@ build-time shape inference evaluates the same rules on `meta` tensors
 (shapes and dtypes only, no storage), with the dynamic batch dim stood in
 by framework.DYN_DIM, so op semantics are defined exactly once.
 
-Sequence (LoD) values, sparse-row gradients and tensor arrays of the JAX
-package (SeqValue, SparseRows, ArrayValue) have no counterpart yet.
+SparseRows (lowering.py:189-231) carries the touched-rows gradient of an
+is_sparse embedding table. Sequence (LoD) values and tensor arrays of the
+JAX package (SeqValue, ArrayValue) have no counterpart yet.
 """
 import torch
 
@@ -29,7 +30,9 @@ def register(op_type, constant=False):
     rule's outputs depend on its attrs alone (no inputs, no randomness):
     run_op then evaluates it once per op and device and reuses the result,
     the eager counterpart of XLA folding the constant into the compiled
-    step."""
+    step — except where the op writes a persistable (a startup
+    initializer): the scope owns that tensor, and the sparse optimizer
+    rules update tables and moments in place, so each run makes it anew."""
     def deco(fn):
         _RULES[op_type] = fn
         if constant:
@@ -62,6 +65,36 @@ class Ctx(object):
         self.is_test = is_test
 
 
+class SparseRows(object):
+    """Sparse gradient of an embedding table: the rows actually touched
+    (the reference's SelectedRows, paddle/fluid/framework/selected_rows.h).
+
+    `ids` int64 [N] are the looked-up row indices (duplicates allowed, in
+    lookup order), `rows` [N, D] the per-occurrence gradients; the dense
+    gradient they stand for is index_add(zeros(dense_shape), ids, rows).
+    The optimizer rules (ops_impl/optim_ops.py) consume it with row
+    updates, so the vocab-sized dense @GRAD buffer never exists."""
+
+    __slots__ = ('ids', 'rows', 'dense_shape')
+
+    def __init__(self, ids, rows, dense_shape):
+        self.ids = ids
+        self.rows = rows
+        self.dense_shape = tuple(dense_shape)
+
+    @property
+    def dtype(self):
+        return self.rows.dtype
+
+    def astype(self, dtype):
+        return SparseRows(self.ids, self.rows.to(dtype), self.dense_shape)
+
+    def to_dense(self):
+        out = torch.zeros(self.dense_shape, dtype=self.rows.dtype,
+                          device=self.rows.device)
+        return out.index_add_(0, self.ids, self.rows)
+
+
 def data_of(v):
     return v
 
@@ -74,7 +107,7 @@ def like(template, new_data):
 
 def run_op(op, env, ctx):
     """Resolve an op's inputs from env, apply its rule, bind outputs."""
-    if op.type in _CONSTANT_OPS:
+    if op.type in _CONSTANT_OPS and not _writes_persistable(op):
         cache = op.__dict__.setdefault('_constant_outs', {})
         outs = cache.get(ctx.device)
         if outs is None:
@@ -84,6 +117,10 @@ def run_op(op, env, ctx):
                for slot, vs in op.inputs.items()}
         outs = get_rule(op.type)(ins, op.attrs, ctx)
     _bind_outputs(op, outs, env)
+
+
+def _writes_persistable(op):
+    return any(v.persistable for vs in op.outputs.values() for v in vs)
 
 
 def run_block(block, env, ctx):

@@ -20,6 +20,7 @@ def _unary(op_type, fn):
 
 
 _unary('relu', lambda x, a: torch.relu(x))
+_unary('sigmoid', lambda x, a: torch.sigmoid(x))
 _unary('sqrt', lambda x, a: torch.sqrt(x))
 _unary('square', lambda x, a: torch.square(x))
 _unary('sign', lambda x, a: torch.sign(x))
@@ -67,6 +68,13 @@ def _sum(ins, attrs, ctx):
     for x in xs[1:]:
         out = out + x
     return {'Out': out}
+
+
+@register('mean')
+def _mean(ins, attrs, ctx):
+    # shape [1], not 0-d: reference mean_op's output dims are {1}
+    # (mean_op.cc InferShape); the dense form (no sequence values yet)
+    return {'Out': torch.mean(data_of(ins['X'][0])).reshape(1)}
 
 
 @register('mul')

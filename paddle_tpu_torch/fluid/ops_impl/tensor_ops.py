@@ -75,6 +75,13 @@ def _reshape(ins, attrs, ctx):
     return {'Out': x.reshape(out_shape)}
 
 
+@register('concat')
+def _concat(ins, attrs, ctx):
+    # the dense form: sequence (LoD) inputs wait for SeqValue
+    return {'Out': torch.cat([data_of(v) for v in ins['X']],
+                             dim=attrs.get('axis', 0))}
+
+
 @register('transpose')
 def _transpose(ins, attrs, ctx):
     return {'Out': data_of(ins['X'][0]).permute(*attrs['axis'])}

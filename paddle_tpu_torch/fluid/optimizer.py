@@ -1,10 +1,10 @@
 """Optimizers: append per-param update ops after backward.
 
 Parity: reference python/paddle/fluid/optimizer.py and the JAX package's
-fluid/optimizer.py:28-274 (Optimizer, SGD, Adam). The update ops run
-eagerly after the autodiff marker (executor.py); their rules are
-ops_impl/optim_ops.py. Momentum, Adagrad, Adamax, DecayedAdagrad, RMSProp,
-Ftrl, Adadelta and ModelAverage wait for a later slice (ROADMAP.md).
+fluid/optimizer.py:28-274 (Optimizer, SGD, Adagrad, Adam). The update ops
+run eagerly after the autodiff marker (executor.py); their rules are
+ops_impl/optim_ops.py. Momentum, Adamax, DecayedAdagrad, RMSProp, Ftrl,
+Adadelta and ModelAverage wait for a later slice (ROADMAP.md).
 """
 from collections import defaultdict
 
@@ -18,7 +18,8 @@ from .layer_helper import LayerHelper
 from .regularizer import append_regularization_ops
 from .layers import tensor as tensor_layers
 
-__all__ = ['SGD', 'Adam', 'SGDOptimizer', 'AdamOptimizer', 'Optimizer']
+__all__ = ['SGD', 'Adagrad', 'Adam', 'SGDOptimizer', 'AdagradOptimizer',
+           'AdamOptimizer', 'Optimizer']
 
 
 class Optimizer(object):
@@ -145,6 +146,31 @@ class SGDOptimizer(Optimizer):
             outputs={"ParamOut": param_and_grad[0]}, infer_shape=False)
 
 
+class AdagradOptimizer(Optimizer):
+    _moment_acc_str = "moment"
+
+    def __init__(self, learning_rate, epsilon=1.0e-6, **kwargs):
+        super(AdagradOptimizer, self).__init__(learning_rate=learning_rate,
+                                               **kwargs)
+        self.type = "adagrad"
+        self._epsilon = epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._moment_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        moment_acc = self._get_accumulator(self._moment_acc_str,
+                                           param_and_grad[0])
+        return block.append_op(
+            type=self.type,
+            inputs={"Param": param_and_grad[0], "Grad": param_and_grad[1],
+                    "Moment": moment_acc,
+                    "LearningRate": self._create_param_lr(param_and_grad)},
+            outputs={"ParamOut": param_and_grad[0], "MomentOut": moment_acc},
+            attrs={"epsilon": self._epsilon}, infer_shape=False)
+
+
 class AdamOptimizer(Optimizer):
     _moment1_acc_str = "moment1"
     _moment2_acc_str = "moment2"
@@ -206,4 +232,5 @@ class AdamOptimizer(Optimizer):
 
 # reference optimizer.py end-of-module aliases
 SGD = SGDOptimizer
+Adagrad = AdagradOptimizer
 Adam = AdamOptimizer

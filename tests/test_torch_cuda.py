@@ -10,7 +10,9 @@ card:
 Tolerance 1e-4 in fp32 for the forward: the kernel sums in tile order with
 an online softmax, the plain version in one product and one softmax. 3e-4
 for the backward kernels, the Pallas backward's own tolerance
-(tests/test_flash_attention.py:64).
+(tests/test_flash_attention.py:64). 1e-6 for the sparse optimizer kernels,
+the Pallas kernels' (tests/test_kernels.py:182): kernel and plain version
+evaluate the same fp32 expression.
 """
 import importlib
 import os
@@ -154,8 +156,9 @@ def test_sources_build_once_and_bind_every_entry(card):
 
 def test_training_step_on_the_card_matches_the_cpu(card):
     """A small Transformer's training step (dropout off, Adam) from the same
-    weights on the card and on the CPU: loss and every gradient, and 3
-    launches of each attention kernel per layer pair and step."""
+    weights on the card and on the CPU: loss and every gradient, 3
+    launches of each attention kernel per layer pair and step, and none
+    of any other kernel."""
     import paddle_tpu_torch.fluid as fluid
     from paddle_tpu_torch import ops
     from paddle_tpu_torch.models import transformer as T
@@ -184,8 +187,128 @@ def test_training_step_on_the_card_matches_the_cpu(card):
             main, feed=feed, fetch_list=[avg_cost] + gnames, scope=scope)
         launched = {n: k.launches - before[n]
                     for n, k in ops.KERNELS.items()}
-        want = 3 * 2 if isinstance(place, fluid.CUDAPlace) else 0
-        assert launched == {n: want for n in launched}
+        per_kernel = 3 * 2 if isinstance(place, fluid.CUDAPlace) else 0
+        # the attention kernels; the sparse optimizer kernels never run
+        # here (no is_sparse table)
+        want = {n: per_kernel if n.startswith('flash_attention') else 0
+                for n in launched}
+        assert launched == want
     for got, ref in zip(outs['CUDAPlace'], outs['CPUPlace']):
         scale = max(float(np.abs(ref).max()), 1e-12)
         np.testing.assert_allclose(got, ref, rtol=0, atol=1e-3 * scale)
+
+
+# -- the fused sparse optimizer kernels --------------------------------------
+
+tso = importlib.import_module('paddle_tpu_torch.ops.kernels.sparse_optim')
+SPARSE_TOL = 1e-6      # the Pallas kernel test's (tests/test_kernels.py:182)
+
+
+def _sparse_case(card, kind, D, V=1000, n=600):
+    """A merge as _merge_sparse makes it, on the card: 'random' ids from
+    the whole table, 'dups' from 0..63 (most slots invalid and clamped to
+    row 0), 'invalid' none valid."""
+    from paddle_tpu_torch.fluid import lowering
+    from paddle_tpu_torch.fluid.ops_impl.optim_ops import _merge_sparse
+    g = torch.Generator(device=card)
+    g.manual_seed(V + n + D)
+    high = 64 if kind == 'dups' else V
+    ids = torch.randint(0, high, (n,), generator=g, device=card)
+    ids[:2] = 0
+    rows = torch.randn((n, D), generator=g, device=card)
+    uids, gm, valid = _merge_sparse(lowering.SparseRows(ids, rows, (V, D)))
+    if kind == 'invalid':
+        valid = torch.zeros_like(valid)
+        gm = torch.zeros_like(gm)
+    tables = [torch.randn((V, D), generator=g, device=card) * 0.5,
+              torch.rand((V, D), generator=g, device=card),
+              torch.rand((V, D), generator=g, device=card) * 0.1]
+    return uids, gm, valid, tables
+
+
+@pytest.mark.parametrize('kind', ['random', 'dups', 'invalid'])
+@pytest.mark.parametrize('D', [1, 10, 33])
+@pytest.mark.parametrize('opt', ['adagrad', 'adam'])
+def test_sparse_kernels_match_plain(card, opt, D, kind):
+    uids, gm, valid, tables = _sparse_case(card, kind, D)
+    lr = torch.tensor(0.05, device=card)
+    if opt == 'adagrad':
+        kernel, n_tables = tso.KERNEL_ADAGRAD, 2
+        call = lambda fn, ts: fn(*ts, uids, gm, valid, lr, 1e-6)
+        fns = (tso.fused_sparse_adagrad, tso.fused_sparse_adagrad_plain)
+    else:
+        kernel, n_tables = tso.KERNEL_ADAM, 3
+        call = lambda fn, ts: fn(*ts, uids, gm, valid, lr, 0.9, 0.999, 1e-8)
+        fns = (tso.fused_sparse_adam, tso.fused_sparse_adam_plain)
+    before = tables[:n_tables]
+    got_in = [t.clone() for t in before]
+    want_in = [t.clone() for t in before]
+    launches = kernel.launches
+    got = call(fns[0], got_in)
+    torch.cuda.synchronize()
+    assert kernel.launches == launches + 1
+    assert all(o is t for o, t in zip(got, got_in))
+    want = call(fns[1], want_in)
+    for g, w, b in zip(got, want, before):
+        torch.testing.assert_close(g, w, rtol=0, atol=SPARSE_TOL)
+        if kind == 'invalid':
+            assert torch.equal(g.view(torch.int32), b.view(torch.int32))
+
+
+def test_sparse_kernel_wrapper_refuses_what_it_does_not_take(card):
+    uids, gm, valid, tables = _sparse_case(card, 'random', 4)
+    lr = torch.tensor(0.05, device=card)
+    with pytest.raises(ValueError, match='lr'):
+        tso.fused_sparse_adagrad(tables[0], tables[1], uids, gm, valid,
+                                 torch.tensor(0.05), 1e-6)
+    with pytest.raises(ValueError, match='gm'):
+        tso.fused_sparse_adagrad(tables[0], tables[1], uids, gm.double(),
+                                 valid, lr, 1e-6)
+    with pytest.raises(ValueError, match='table'):
+        tso.fused_sparse_adagrad(tables[0], tables[1].t(), uids, gm, valid,
+                                 lr, 1e-6)
+    with pytest.raises(ValueError, match='uids'):
+        tso.fused_sparse_adagrad(tables[0], tables[1], uids.int(), gm, valid,
+                                 lr, 1e-6)
+
+
+@pytest.mark.parametrize('opt', ['adam', 'adagrad'])
+def test_sparse_deepfm_step_on_the_card_matches_the_cpu(card, opt):
+    """A small deepfm(is_sparse=True) for 3 steps from the same weights on
+    the card and on the CPU: losses, tables and moments, and 2 launches
+    per step of the optimizer's sparse kernel (one per FM table). The
+    merge's index_add_ sums duplicate rows in another order on the card."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.models import deepfm
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 5
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        feat = fluid.layers.data(name='feat_ids', shape=[6], dtype='int64')
+        label = fluid.layers.data(name='label', shape=[1], dtype='int64')
+        cost, _, _ = deepfm.deepfm(feat, label, num_fields=6, vocab_size=64,
+                                   embed_dim=4, hidden=[16], is_sparse=True)
+        (fluid.optimizer.Adam(learning_rate=1e-2) if opt == 'adam' else
+         fluid.optimizer.Adagrad(learning_rate=0.05)).minimize(cost)
+    init = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=init)
+    r = np.random.RandomState(2)
+    feeds = [{'feat_ids': r.randint(0, 64, (16, 6)).astype('int64'),
+              'label': r.randint(0, 2, (16, 1)).astype('int64')}
+             for _ in range(3)]
+    kernel = tso.KERNEL_ADAM if opt == 'adam' else tso.KERNEL_ADAGRAD
+    runs = {}
+    for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+        scope = fluid.Scope()
+        scope.load_numpy(init.to_numpy(), place)
+        exe = fluid.Executor(place)
+        launches = kernel.launches
+        losses = [exe.run(main, feed=f, fetch_list=[cost], scope=scope)[0]
+                  for f in feeds]
+        want = 2 * len(feeds) if isinstance(place, fluid.CUDAPlace) else 0
+        assert kernel.launches - launches == want
+        runs[type(place).__name__] = (losses, scope.to_numpy())
+    (gl, gs), (wl, ws) = runs['CUDAPlace'], runs['CPUPlace']
+    np.testing.assert_allclose(gl, wl, rtol=1e-5, atol=1e-6)
+    for n, w in ws.items():
+        np.testing.assert_allclose(gs[n], w, rtol=1e-5, atol=1e-6,
+                                   err_msg=n)

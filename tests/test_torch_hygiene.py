@@ -36,6 +36,10 @@ SUBMODULES = [
     'paddle_tpu_torch.fluid.regularizer',
     'paddle_tpu_torch.fluid.layers.learning_rate_scheduler',
     'paddle_tpu_torch.fluid.ops_impl.optim_ops',
+    'paddle_tpu_torch.fluid.layers.metric_op', 'paddle_tpu_torch.embedding',
+    'paddle_tpu_torch.embedding.lookup', 'paddle_tpu_torch.ops.kernels',
+    'paddle_tpu_torch.ops.kernels.sparse_optim',
+    'paddle_tpu_torch.models.deepfm', 'paddle_tpu_torch.dataset.common',
 ]
 
 

@@ -1,8 +1,8 @@
-"""The op rules the port's training step adds (noam_decay's arithmetic, the
-optimizer updates, clip and regularizer ops) against the JAX package's rule
-for the same op type, on the same numpy inputs, at 1e-6 (fp32 on the CPU in
-both; only summation orders differ), as tests/test_torch_ops.py does for
-the serving rules."""
+"""The op rules the port's training steps add (noam_decay's arithmetic, the
+optimizer updates, clip and regularizer ops, DeepFM's loss, activations
+and auc) against the JAX package's rule for the same op type, on the same
+numpy inputs, at 1e-6 (fp32 on the CPU in both; only summation orders
+differ), as tests/test_torch_ops.py does for the serving rules."""
 import numpy as np
 import pytest
 import torch
@@ -70,7 +70,8 @@ def test_increment_keeps_the_dtype(x, step):
     _check('increment', {'X': [x]}, {'step': step})
 
 
-@pytest.mark.parametrize('op_type', ['sqrt', 'square', 'sign'])
+@pytest.mark.parametrize('op_type', ['sqrt', 'square', 'sign', 'sigmoid',
+                                     'mean'])
 def test_unary_rules(op_type):
     x = _f32(4, 5)
     if op_type == 'sqrt':
@@ -103,6 +104,41 @@ def test_adam(b1p, b2p):
            slots=('ParamOut', 'Moment1Out', 'Moment2Out'))
 
 
+def test_adagrad():
+    _check('adagrad', {'Param': [_f32(6, 4)], 'Grad': [_f32(6, 4)],
+                       'LearningRate': [_lr(0.05)],
+                       'Moment': [np.abs(_f32(6, 4))]},
+           {'epsilon': 1e-6}, slots=('ParamOut', 'MomentOut'))
+
+
+@pytest.mark.parametrize('axis', [0, 1])
+def test_concat(axis):
+    _check('concat', {'X': [_f32(3, 2), _f32(3, 2), _f32(3, 2)]},
+           {'axis': axis})
+
+
+def test_sigmoid_cross_entropy_with_logits():
+    x = _f32(8, 1) * 4
+    x[0] = 0.0
+    label = (R.rand(8, 1) > 0.5).astype('float32')
+    _check('sigmoid_cross_entropy_with_logits', {'X': [x], 'Label': [label]},
+           {})
+
+
+@pytest.mark.parametrize('width', [1, 2])
+def test_auc_carries_the_jax_histograms(width):
+    """Histograms and AUC as the JAX rule computes them; a state carried
+    from the JAX package arrives as int32 and leaves as int64."""
+    prob = R.rand(64, 1).astype('float32')
+    if width == 2:
+        prob = np.concatenate([1 - prob, prob], axis=1)
+    label = (R.rand(64, 1) > 0.4).astype('int64')
+    stats = [R.randint(0, 9, 20).astype('int32') for _ in range(2)]
+    _check('auc', {'Predict': [prob], 'Label': [label],
+                   'StatPos': [stats[0]], 'StatNeg': [stats[1]]},
+           {'num_thresholds': 20}, slots=('AUC', 'StatPosOut', 'StatNegOut'))
+
+
 def test_adam_beta_pow_update():
     _check('adam_beta_pow_update',
            {'Beta1Pow': [np.array([0.81], 'float32')],
@@ -111,12 +147,14 @@ def test_adam_beta_pow_update():
            slots=('Beta1PowOut', 'Beta2PowOut'))
 
 
-@pytest.mark.parametrize('op_type', ['sgd', 'adam'])
+@pytest.mark.parametrize('op_type', ['sgd', 'adam', 'adagrad'])
 def test_a_sparse_gradient_raises_and_is_never_densified(op_type):
+    """A torch sparse tensor is no SparseRows: every rule refuses it."""
     g = torch.sparse_coo_tensor([[1, 3]], torch.ones((2, 4)), (5, 4),
                                 check_invariants=True)
     ins = {'Param': [torch.zeros((5, 4))], 'Grad': [g],
            'LearningRate': [torch.ones(1)],
+           'Moment': [torch.zeros((5, 4))],
            'Moment1': [torch.zeros((5, 4))], 'Moment2': [torch.zeros((5, 4))],
            'Beta1Pow': [torch.ones(1) * 0.9],
            'Beta2Pow': [torch.ones(1) * 0.99]}

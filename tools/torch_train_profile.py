@@ -1,21 +1,31 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port's training step, on one card.
 
-    python3 tools/torch_train_profile.py [--batch 16] [--steps 20]
+    python3 tools/torch_train_profile.py [--model transformer] [--batch 16]
+                                         [--steps 20]
+    python3 tools/torch_train_profile.py --model deepfm [--batch 256]
 
-Builds full-width Transformer-base with models.transformer.get_model (its
-defaults: 6+6 layers, d_model 512, 8 heads, d_inner 2048, vocab 10000;
-noam_decay, Adam, dropout 0.1) at max_length 256 and warmup_steps 200, as
-chip_smoke.py trains it, initializes it on CUDAPlace(0) from a seed and
-trains it on its wmt16 reader.
-It times each step on the host clock (each step ends in its loss fetch),
-then traces a few more with torch.profiler: device time by class (matmul,
-the flash-attention forward and backward kernels, the optimizer update,
-other elementwise/normalization kernels, copies) and the device's idle
-share, both of the traced wall time (the profiler slows the host's op
-walk) and of the untraced median step. The optimizer's device time is that
-of the kernels launched inside the Executor's `executor.update` range.
-Prints one JSON line.
+--model transformer (the default) builds full-width Transformer-base with
+models.transformer.get_model (its defaults: 6+6 layers, d_model 512, 8
+heads, d_inner 2048, vocab 10000; noam_decay, Adam, dropout 0.1) at
+max_length 256 and warmup_steps 200, as chip_smoke.py trains it, and
+trains it on its wmt16 reader. --model deepfm builds full-width DeepFM
+(models.deepfm: 26 fields, vocab 100,000, embed_dim 10, hidden
+[400, 400, 400]) with both FM tables is_sparse, auc and Adam(1e-3), as
+chip_smoke.py's ctr_training phase does, and trains it on
+synthetic_ctr_reader (restarted at the end of its 16 batches).
+
+Either way it initializes on CUDAPlace(0) from a seed, times each step on
+the host clock (each step ends in its fetch), then traces a few more with
+torch.profiler: device time by class, the share of the attention kernels
+and of the sparse kernels, and the device's idle share, both of the
+traced wall time (the profiler slows the host's op walk) and of the
+untraced median step. The classes: matmul; the port's hand-written
+kernels by name (flash attention forward and backward, sparse_adam,
+sparse_adagrad); the sparse merge (the kernels launched inside
+_merge_sparse's `optim.merge_sparse` range); the dense optimizer update
+(the rest of the Executor's `executor.update` range); other
+elementwise/normalization kernels; copies. Prints one JSON line.
 """
 import argparse
 import json
@@ -33,13 +43,18 @@ SEED = 2024
 MAX_LENGTH = 256
 WARMUP_STEPS = 200
 PROFILE_STEPS = 3
-CLASSES = ('matmul', 'flash_attention_fwd', 'flash_attention_bwd_dq',
-           'flash_attention_bwd_dkv', 'optimizer', 'elementwise/norm/other',
-           'copy')
+KERNEL_CLASSES = ('flash_attention_fwd', 'flash_attention_bwd_dq',
+                  'flash_attention_bwd_dkv', 'sparse_adam', 'sparse_adagrad')
+CLASSES = ('matmul',) + KERNEL_CLASSES + (
+    'sparse merge', 'optimizer (dense)', 'elementwise/norm/other', 'copy')
 
 
 def _kernel_class(name):
     n = name.lower()
+    if 'sparse_adam_kernel' in n:
+        return 'sparse_adam'
+    if 'sparse_adagrad_kernel' in n:
+        return 'sparse_adagrad'
     if 'bwd_dq_kernel' in n:
         return 'flash_attention_bwd_dq'
     if 'bwd_dkv_kernel' in n:
@@ -53,7 +68,7 @@ def _kernel_class(name):
     return 'elementwise/norm/other'
 
 
-def profile_steps(exe, main, scope, avg_cost, feeds):
+def profile_steps(exe, main, scope, fetch, feeds):
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -61,15 +76,15 @@ def profile_steps(exe, main, scope, avg_cost, feeds):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for feed in feeds:
-            exe.run(main, feed=feed, fetch_list=[avg_cost], scope=scope)
+            exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
         torch.cuda.synchronize()
         traced_wall = time.perf_counter() - t0
     classes = dict.fromkeys(CLASSES, 0.0)
-    update_us = 0.0
+    ranges = {'executor.update': 0.0, 'optim.merge_sparse': 0.0}
     for evt in prof.events():
-        if evt.name == 'executor.update' \
+        if evt.name in ranges \
                 and evt.device_type != torch.autograd.DeviceType.CUDA:
-            update_us += evt.device_time_total
+            ranges[evt.name] += evt.device_time_total
             continue
         # device-side records only (kernels, memcpys): the host ops that
         # launched them carry the same time again in their totals, and so
@@ -78,19 +93,28 @@ def profile_steps(exe, main, scope, avg_cost, feeds):
                 or evt.is_user_annotation:
             continue
         classes[_kernel_class(evt.name)] += evt.time_range.elapsed_us()
-    # the update's kernels are elementwise: move their time to its class
-    classes['optimizer'] = update_us
-    classes['elementwise/norm/other'] -= update_us
+    # the update range holds the merge, the sparse kernels and the dense
+    # rules; the merge's and the dense rules' kernels are elementwise,
+    # sorts and scatters: move their time to their classes
+    sparse_us = classes['sparse_adam'] + classes['sparse_adagrad']
+    classes['sparse merge'] = ranges['optim.merge_sparse']
+    classes['optimizer (dense)'] = (ranges['executor.update'] - sparse_us
+                                    - ranges['optim.merge_sparse'])
+    classes['elementwise/norm/other'] -= (ranges['executor.update']
+                                          - sparse_us)
     n = len(feeds)
     busy_s = sum(classes.values()) / 1e6
-    attention_us = sum(v for k, v in classes.items()
-                       if k.startswith('flash_attention'))
+    shares = {}
+    for group, prefix in (('attention', 'flash_attention'),
+                          ('sparse_kernels', 'sparse_')):
+        us = sum(v for k, v in classes.items() if k.startswith(prefix))
+        shares[group + '_share_of_device_time'] = us / 1e6 / busy_s
+        shares[group + '_share_of_step'] = us / 1e6 / traced_wall
     return {
         'traced_wall_ms_per_step': traced_wall * 1e3 / n,
         'device_busy_ms_per_step': busy_s * 1e3 / n,
         'device_idle_share': 1.0 - busy_s / traced_wall,
-        'attention_share_of_device_time': attention_us / 1e6 / busy_s,
-        'attention_share_of_step': attention_us / 1e6 / traced_wall,
+        **shares,
         'device_ms_per_step_by_class': {k: v / 1e3 / n
                                         for k, v in classes.items()},
     }
@@ -104,53 +128,89 @@ def card_line():
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
+def build_transformer(batch_size, n_feeds):
+    """get_model in fresh programs; returns (main, startup, fetch, feeds,
+    units per step and their name)."""
+    from paddle_tpu_torch.fluid import framework, unique_name
+    from paddle_tpu_torch.models import transformer
+    main, startup = framework.Program(), framework.Program()
+    main.random_seed = startup.random_seed = SEED
+    with unique_name.guard(), framework.program_guard(main, startup):
+        avg_cost, _, reader, _, names = transformer.get_model(
+            batch_size=batch_size, max_length=MAX_LENGTH,
+            warmup_steps=WARMUP_STEPS)
+    it = reader()
+    feeds = [{n: np.stack([row[i] for row in batch])
+              for i, n in enumerate(names)}
+             for batch in (next(it) for _ in range(n_feeds))]
+    return (main, startup, [avg_cost], feeds,
+            batch_size * MAX_LENGTH * 2, 'source_target_positions_per_s')
+
+
+def build_deepfm(batch_size, n_feeds):
+    """deepfm.training_program's defaults (both FM tables is_sparse, auc,
+    Adam(1e-3)), as chip_smoke.py's ctr_training phase builds it; returns
+    as build_transformer."""
+    from paddle_tpu_torch.batch import batch
+    from paddle_tpu_torch.fluid import framework, unique_name
+    from paddle_tpu_torch.models import deepfm
+    main, startup = framework.Program(), framework.Program()
+    main.random_seed = startup.random_seed = SEED
+    with unique_name.guard(), framework.program_guard(main, startup):
+        avg_cost, auc, _, _ = deepfm.training_program()
+    epoch = [{'feat_ids': np.stack([r[0] for r in b]),
+              'label': np.array([[r[1]] for r in b], dtype='int64')}
+             for b in batch(deepfm.synthetic_ctr_reader(tag='train'),
+                            batch_size)()]
+    feeds = [epoch[i % len(epoch)] for i in range(n_feeds)]
+    return main, startup, [avg_cost, auc], feeds, batch_size, \
+        'examples_per_s'
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument('--batch', type=int, default=16)
+    ap.add_argument('--model', choices=('transformer', 'deepfm'),
+                    default='transformer')
+    ap.add_argument('--batch', type=int, default=None,
+                    help='default: 16 (transformer), 256 (deepfm)')
     ap.add_argument('--steps', type=int, default=20)
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         raise SystemExit('torch_train_profile: needs a CUDA card')
-    from paddle_tpu_torch import fluid
-    from paddle_tpu_torch.fluid import framework, unique_name
-    from paddle_tpu_torch.models import transformer
-    main_prog, startup = framework.Program(), framework.Program()
-    main_prog.random_seed = startup.random_seed = SEED
-    with unique_name.guard(), framework.program_guard(main_prog, startup):
-        avg_cost, _, reader, _, names = transformer.get_model(
-            batch_size=args.batch, max_length=MAX_LENGTH,
-            warmup_steps=WARMUP_STEPS)
+    from paddle_tpu_torch import fluid, ops
+    build = build_transformer if args.model == 'transformer' \
+        else build_deepfm
+    batch = args.batch or (16 if args.model == 'transformer' else 256)
+    main_prog, startup, fetch, feeds, units, unit_name = build(
+        batch, args.steps + PROFILE_STEPS)
     scope = fluid.Scope()
     exe = fluid.Executor(fluid.CUDAPlace(0))
     exe.run(startup, scope=scope)
-    it = reader()
-    feeds = [{n: np.stack([row[i] for row in batch])
-              for i, n in enumerate(names)}
-             for batch in (next(it)
-                           for _ in range(args.steps + PROFILE_STEPS))]
     step_s, losses = [], []
+    before = {n: k.launches for n, k in ops.KERNELS.items()}
     for feed in feeds[:args.steps]:
         t0 = time.perf_counter()
-        loss, = exe.run(main_prog, feed=feed, fetch_list=[avg_cost],
-                        scope=scope)
+        out = exe.run(main_prog, feed=feed, fetch_list=fetch, scope=scope)
         step_s.append(time.perf_counter() - t0)
-        losses.append(float(np.asarray(loss).reshape(())))
+        losses.append(float(np.asarray(out[0]).reshape(())))
+    launches = {n: (k.launches - before[n]) / args.steps
+                for n, k in ops.KERNELS.items() if k.launches > before[n]}
     med = float(np.median(step_s[1:]))
-    positions = args.batch * MAX_LENGTH * 2      # source + target
     torch.cuda.reset_peak_memory_stats()
-    prof = profile_steps(exe, main_prog, scope, avg_cost,
+    prof = profile_steps(exe, main_prog, scope, fetch,
                          feeds[args.steps:])
-    r = dict(card=card_line(), batch=args.batch,
-             max_length=MAX_LENGTH, steps=args.steps,
-             step_s=step_s, median_step_s=med,
-             source_target_positions_per_s=positions / med,
-             losses=losses,
+    r = dict(card=card_line(), model=args.model, batch=batch,
+             steps=args.steps, step_s=step_s, median_step_s=med,
+             losses=losses, kernel_launches_per_step=launches,
              peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
              profiled_steps=PROFILE_STEPS,
              device_idle_share_of_median_step=(
                  1.0 - prof['device_busy_ms_per_step'] / 1e3 / med),
              **prof)
+    r[unit_name] = units / med
+    if args.model == 'transformer':
+        r['max_length'] = MAX_LENGTH
     print(json.dumps(r), flush=True)
 
 
