@@ -27,7 +27,12 @@ result line):
                 Their ms and plain_ms are device times from CUDA graph
                 replays (the wrapper's Python per call is longer than the
                 kernel); eager_ms is the time per call through the
-                wrapper, as the training step calls it.
+                wrapper, as the training step calls it. The paged decode
+                attention in five cases: the decode path's shape (16
+                slots, beam 3, page_size 16, 2 pages a slot, src_cap 32,
+                D 1024), src_cap 29, a fully masked slot, beam 1 over 64
+                slots, and the test decoder's D 6; its library_ms is SDPA
+                over rows gathered beforehand (the gather not timed).
   3. serving  — full-width Transformer-base (6+6 layers, d_model 512, 8
                 heads, d_inner 2048, vocab 10000, max_length 256) built
                 with the port's layers, initialized on the card from a seed,
@@ -56,7 +61,22 @@ result line):
                 on the card (2 sparse_adagrad launches per sparse step);
                 the trained prob served through Predictor on the card.
                 Phases 3-4 launch no sparse kernel.
-  6. a JSON line {"kernels": [...]} with each kernel's parity, launches,
+  6. decode   — the paged DecodeEngine at the full width of the
+                machine_translation decoder (E 512, encoder rows D 1024,
+                H 512, vocab 30000, beam 3, max_len 50; random weights
+                from the seed), DecodeConfig(slots=16, src_cap=32,
+                page_size=16, pages=64): warmup, then 48 requests burst-
+                submitted (sources of 4-29 rows, every third one of 4
+                canonical sources so the prefix cache hits, limits 8-50).
+                Checks: every result's shape; the same stream through the
+                dense engine on the card (no kernel) gives equal tokens and
+                scores within 1e-4 (1 + |s|); 4 requests through the paged
+                engine on the CPU (the plain version) the same; one
+                paged_attention launch per step dispatch, warmup's
+                included; the history pool all free after the drain and
+                prefix hits > 0. Phases 3-5 launch no paged_attention, and
+                this phase none of the other kernels.
+  7. a JSON line {"kernels": [...]} with each kernel's parity, launches,
      times and bound; then the card's name and power limit; then the last
      line {"ok": true, "device": {...}}.
 """
@@ -135,7 +155,34 @@ CTR_CROSS_DEVICE_TOL = 1e-5
 ADAGRAD_RTOL, ADAGRAD_ATOL = 1e-4, 1e-6
 # the single-batch learning check: the JAX package's run reached 4.0e-5
 CTR_LEARN_LOSS = 0.01
-SPARSE_KERNELS = ('sparse_adam', 'sparse_adagrad')
+# the paths each kernel may launch on (main() holds every path to it)
+KERNEL_PATHS = {
+    'flash_attention_fwd': ('serving', 'training'),
+    'flash_attention_bwd_dq': ('training',),
+    'flash_attention_bwd_dkv': ('training',),
+    'sparse_adam': ('ctr_training',),
+    'sparse_adagrad': ('ctr_training',),
+    'paged_attention': ('decode',),
+}
+
+# the paged decode attention against its plain version: an online softmax
+# over pages against one softmax over the gathered rows; the Pallas
+# kernel's own tolerance, 1e-5 + 1e-5 * |plain| (tests/test_kernels.py:127)
+PAGED_TOL = 1e-5
+# the machine_translation decoder at get_model's widths
+# (paddle_tpu/models/machine_translation.py:137-138, seq_to_seq_net
+# :82-100): target embedding 512, encoder rows 1024 (two 512-wide LSTMs
+# concatenated), decoder LSTM 512, vocab 30000; beam 3, max_len 50
+MT_DECODER = dict(E=512, D=1024, H=512, V=30000)
+DECODE_CONFIG = dict(slots=16, beam_size=3, max_len=50, start_id=0,
+                     end_id=1, src_cap=32, page_size=16, pages=64)
+DECODE_REQUESTS = 48
+DECODE_CANONICAL = 4        # sources every third request draws from
+DECODE_CPU_REQUESTS = 4
+# beam scores of two engines (dense on the card, paged on the CPU) against
+# the paged engine on the card: the attention sums in another order, and
+# log-probabilities of up to 50 steps accumulate the difference
+DECODE_SCORE_TOL = 1e-4
 
 
 def log(*args):
@@ -390,6 +437,7 @@ def phase_kernels():
             log('[kernels] %s %s' % (name, json.dumps(r)))
             results[name].append(r)
     results.update(_sparse_optim_cases())
+    results['paged_attention'] = _paged_attention_cases()
     for name, rs in results.items():
         bad = [r['case'] for r in rs if not r['ok']]
         if bad:
@@ -497,6 +545,104 @@ def _sparse_optim_cases():
             log('[kernels] %s %s' % (name, json.dumps(r)))
             results[name].append(r)
     return results
+
+
+def paged_case(rng, C, beam, ps, npe, src_cap, D, lo, masked_slot=None):
+    """Paged encoder pools as the decode engine lays them out, numpy:
+    page 0 the zero page, each slot's pages drawn from a permutation of
+    the rest, a length in [lo, min(29, src_cap)] setting the mask, the
+    tail entries on page 0; `masked_slot` owns no page (an inactive
+    slot). Returns (q [C*beam, D], enc_pages, mask_pages, pt_enc)."""
+    n_pages = 1 + C * npe
+    enc = (rng.randn(n_pages, ps, D) * 0.5).astype(np.float32)
+    enc[0] = 0.0
+    mask = np.zeros((n_pages, ps), np.float32)
+    free = list(rng.permutation(np.arange(1, n_pages)))
+    pt = np.zeros((C, npe), np.int32)
+    for c in range(C):
+        ln = 0 if c == masked_slot else \
+            int(rng.randint(lo, min(29, src_cap) + 1))
+        for j in range(-(-ln // ps)):
+            pt[c, j] = free.pop()
+            mask[pt[c, j], :min(ps, ln - j * ps)] = 1.0
+    # the scale of the decode path's queries (h @ w_q, |h| < 1)
+    q = (rng.randn(C * beam, D) * 0.3).astype(np.float32)
+    return q, enc, mask, pt
+
+
+def _paged_bound(C, beam, ps, npe, src_cap, D, pt):
+    """Least time for one call, ms: q read and the context written once,
+    each distinct page below src_cap read once (rows and mask), the
+    tables read once; 4 FLOPs per (query row, position, element)."""
+    used = -(-src_cap // ps)
+    pages = len(set(pt[:, :used].reshape(-1).tolist()))
+    nbytes = 4.0 * (2 * C * beam * D + pages * (ps * D + ps) + C * npe)
+    return _bound(4.0 * C * beam * min(src_cap, npe * ps) * D, nbytes)
+
+
+def _paged_attention_cases():
+    """paged_attention against its plain version on the card in five
+    cases; returns [case result, ...]."""
+    import torch
+    import torch.nn.functional as F
+    pa = importlib.import_module(
+        'paddle_tpu_torch.ops.kernels.paged_attention')
+    rng = np.random.RandomState(SEED + 4)
+    cases = [
+        # name, C, beam, ps, NPE, src_cap, D, shortest source, masked slot
+        ('decode path: 16 slots, beam 3, ps 16, NPE 2, src_cap 32, D 1024',
+         16, 3, 16, 2, 32, 1024, 4, None),
+        ('src_cap 29, not a multiple of ps', 16, 3, 16, 2, 29, 1024, 4,
+         None),
+        ('one fully masked slot', 16, 3, 16, 2, 32, 1024, 4, 5),
+        ('beam 1 over 64 slots (the speculative shape)', 64, 1, 16, 2, 32,
+         1024, 4, None),
+        ('D 6, the test decoder (ps 3, src_cap 5)', 4, 3, 3, 2, 5, 6, 1, 1),
+    ]
+    out = []
+    for name, C, beam, ps, npe, src_cap, D, lo, masked in cases:
+        arrays = paged_case(rng, C, beam, ps, npe, src_cap, D, lo, masked)
+        args = [torch.from_numpy(a).cuda() for a in arrays]
+        got = pa.paged_attention(*args, src_cap)
+        torch.cuda.synchronize()
+        want = pa.paged_attention_plain(*args, src_cap)
+        err = (got - want).abs()
+        ok = bool(torch.isfinite(got).all()) and bool(
+            (err <= PAGED_TOL + PAGED_TOL * want.abs()).all())
+        # SDPA over the same rows gathered beforehand: [C, 1, beam, D]
+        # queries, [C, 1, S, D] keys = values, an additive finfo.min mask
+        q, enc_pages, mask_pages, pt = args
+        rows = enc_pages[pt.long()].reshape(C, 1, npe * ps, D)[:, :, :src_cap]
+        live = mask_pages[pt.long()].reshape(C, 1, 1, npe * ps)[
+            ..., :src_cap] > 0
+        add = torch.where(live, 0.0, pa.NEG_MASKED).to(torch.float32)
+        qg = q.reshape(C, 1, beam, D)
+        lib = F.scaled_dot_product_attention(qg, rows, rows, attn_mask=add,
+                                             scale=1.0)
+        bound_ms, bound_by = _paged_bound(C, beam, ps, npe, src_cap, D,
+                                          arrays[3])
+        r = dict(case=name, shape=dict(C=C, beam=beam, ps=ps, NPE=npe,
+                                       src_cap=src_cap, D=D),
+                 max_abs_err=float(err.max()), ok=ok, tol=PAGED_TOL,
+                 library_max_abs_err=float(
+                     (lib.reshape(C * beam, D) - want).abs().max()),
+                 ms=time_graph_ms(lambda: pa.paged_attention(*args,
+                                                             src_cap)),
+                 plain_ms=time_graph_ms(
+                     lambda: pa.paged_attention_plain(*args, src_cap)),
+                 eager_ms=time_ms(lambda: pa.paged_attention(*args,
+                                                             src_cap)),
+                 plain_eager_ms=time_ms(
+                     lambda: pa.paged_attention_plain(*args, src_cap)),
+                 library='scaled_dot_product_attention over the gathered '
+                         'rows (the page gather excluded)',
+                 library_ms=time_graph_ms(
+                     lambda: F.scaled_dot_product_attention(
+                         qg, rows, rows, attn_mask=add, scale=1.0)),
+                 bound_ms=bound_ms, bound_by=bound_by)
+        log('[kernels] paged_attention %s' % json.dumps(r))
+        out.append(r)
+    return out
 
 
 # -- phase 3 ----------------------------------------------------------------
@@ -1025,6 +1171,209 @@ def _serve_ctr(main, prob, scope, exe, feed):
            float(ref[0, 0])))
 
 
+# -- phase 6 ----------------------------------------------------------------
+
+def mt_decoder_weights(seed=SEED):
+    """Random weights of the machine_translation decoder at MT_DECODER's
+    widths, the numpy dict DecodeEngine takes: each matrix and its bias
+    N(0, 1/fan_in), so the gates do not saturate; the target embedding
+    N(0, 1/E)."""
+    r = np.random.RandomState(seed)
+    E, D, H, V = (MT_DECODER[k] for k in ('E', 'D', 'H', 'V'))
+
+    def normal(shape, fan_in):
+        return (r.randn(*shape) / np.sqrt(fan_in)).astype(np.float32)
+
+    return {'w_dec': normal((E + D, 4 * H), E + D),
+            'u_dec': normal((H, 4 * H), H),
+            'b_dec': normal((1, 4 * H), E + D),
+            'w_q': normal((H, D), H),
+            'w_emb': normal((V, E), E),
+            'w_out': normal((H, V), H),
+            'b_out': normal((1, V), H)}
+
+
+def decode_requests(seed=SEED):
+    """DECODE_REQUESTS (encoder rows [S, D], limit) pairs: S uniform in
+    4-29 (the wmt14 sources, paddle_tpu/dataset/wmt14.py:14), rows
+    N(0, 0.5^2), every third request one of DECODE_CANONICAL canonical
+    sources (the prefix-cache mix of tools/serve_bench.py:454-464),
+    limits uniform in 8-50."""
+    r = np.random.RandomState(seed + 5)
+
+    def source():
+        return (r.randn(r.randint(4, 30), MT_DECODER['D']) * 0.5).astype(
+            np.float32)
+
+    canon = [source() for _ in range(DECODE_CANONICAL)]
+    return [(canon[r.randint(DECODE_CANONICAL)] if i % 3 == 2 else source(),
+             int(r.randint(8, DECODE_CONFIG['max_len'] + 1)))
+            for i in range(DECODE_REQUESTS)]
+
+
+def decode_engine_run(weights, reqs, paged=True, place=None):
+    """A DecodeEngine of DECODE_CONFIG (dense without its page settings),
+    warmed up, then `reqs` burst-submitted and drained. Returns dict(
+    results, seconds, stats, steps: the handle's step dispatches with
+    warmup's, state_bytes, hist_free: (free, usable) history pages)."""
+    from paddle_tpu_torch import serving
+    cfg = dict(DECODE_CONFIG)
+    if not paged:
+        del cfg['page_size'], cfg['pages']
+    eng = serving.DecodeEngine(weights, serving.DecodeConfig(**cfg),
+                               place=place)
+    try:
+        eng.warmup()
+        t0 = time.perf_counter()
+        futs = [eng.submit({'enc': e}, max_new_tokens=n) for e, n in reqs]
+        results = [f.result(timeout=600) for f in futs]
+        secs = time.perf_counter() - t0
+    finally:
+        eng.shutdown()
+    return dict(results=results, seconds=secs, stats=eng.stats,
+                steps=eng._handle.steps, state_bytes=eng.state_bytes(),
+                hist_free=(eng._hist_pool.free_count, eng._hist_pool.usable)
+                if paged else None)
+
+
+def _divergence(weights, enc, toks_a, toks_b):
+    """The first step at which two token matrices [beam, L] of one request
+    differ, and the gaps between the beam + 1 best candidate scores there,
+    from a replay of the request alone through the dense beam step on the
+    card (diagnostics for a failed comparison)."""
+    import torch
+    from paddle_tpu_torch.fluid.ops_impl import lod_beam
+    from paddle_tpu_torch.serving.decode import WEIGHT_KEYS
+    K, S = DECODE_CONFIG['beam_size'], DECODE_CONFIG['src_cap']
+    step = int(np.argmax((toks_a != toks_b).any(axis=0)))
+    params = tuple(torch.from_numpy(weights[k]).cuda() for k in WEIGHT_KEYS)
+    rows = np.zeros((S, enc.shape[1]), np.float32)
+    rows[:enc.shape[0]] = enc
+    enc_t = torch.from_numpy(rows).cuda()[None].repeat(K, 1, 1)
+    mask_t = (torch.arange(S, device='cuda') < enc.shape[0]).float()[
+        None].repeat(K, 1)
+    carry = lod_beam.beam_init_carry(1, K, MT_DECODER['H'],
+                                     DECODE_CONFIG['start_id'],
+                                     device='cuda')
+    seen = []
+    top_k = lod_beam.top_k_lower_index
+    lod_beam.top_k_lower_index = lambda x, k: (seen.append(x), top_k(x, k))[1]
+    try:
+        with torch.no_grad():
+            for _ in range(step + 1):
+                carry, _ = lod_beam.attention_beam_step(
+                    params, enc_t, mask_t, carry, K,
+                    DECODE_CONFIG['end_id'])
+    finally:
+        lod_beam.top_k_lower_index = top_k
+    best = torch.sort(seen[-1][0], descending=True).values[:K + 1]
+    return step, (best[:-1] - best[1:]).tolist()
+
+
+def _compare_decodes(what, want, got, reqs, weights):
+    """`got` against the paged engine on the card (`want`): equal tokens,
+    scores within DECODE_SCORE_TOL * (1 + |s|). Returns the largest score
+    difference."""
+    worst = 0.0
+    for i, ((tw, sw), (tg, sg)) in enumerate(zip(want, got)):
+        if not np.array_equal(tw, tg):
+            step, gaps = _divergence(weights, reqs[i][0], tw, tg)
+            log('[decode] %s: request %d first differs at step %d; the '
+                'gaps between its %d best candidate scores there: %s'
+                % (what, i, step, len(gaps) + 1,
+                   ', '.join('%.3g' % g for g in gaps)))
+            raise AssertionError('%s: request %d gave other tokens than the '
+                                 'paged engine on the card' % (what, i))
+        diff = np.abs(sg - sw)
+        if not (diff <= DECODE_SCORE_TOL * (1 + np.abs(sw))).all():
+            raise AssertionError('%s: request %d scores %r, the paged '
+                                 'engine on the card %r' % (what, i, sg, sw))
+        worst = max(worst, float(diff.max()))
+    return worst
+
+
+def phase_decode():
+    """The paged DecodeEngine at the machine_translation decoder's full
+    width on the card; returns the main path's launch counts."""
+    import torch
+    from paddle_tpu_torch import fluid, obs
+    weights = mt_decoder_weights()
+    reqs = decode_requests()
+    K = DECODE_CONFIG['beam_size']
+    hists = [obs.histogram('decode.step.seconds'),
+             obs.histogram('decode.ttft.seconds')]
+    before = [h.snapshot() for h in hists]
+
+    # the main path: warmup, then the burst, drained
+    _reset_launch_counts()
+    paged = decode_engine_run(weights, reqs)
+    launches = _launch_counts()
+    after = [h.snapshot() for h in hists]
+
+    for i, ((enc, n), (toks, sc)) in enumerate(zip(reqs, paged['results'])):
+        if toks.shape != (K, n) or sc.shape != (K,) \
+                or not np.isfinite(sc).all():
+            raise AssertionError('request %d (limit %d) resolved to %r %r'
+                                 % (i, n, toks.shape, sc))
+    want = dict.fromkeys(launches, 0)
+    want['paged_attention'] = paged['steps']
+    if launches != want:
+        raise AssertionError('the paged decode launched %r over %d step '
+                             'dispatches; it must launch %r'
+                             % (launches, paged['steps'], want))
+    free, usable = paged['hist_free']
+    st = paged['stats']
+    if free != usable or not st['prefix_hits'] > 0:
+        raise AssertionError('after the drain %d of %d history pages are '
+                             'free and %d prefix hits were counted'
+                             % (free, usable, st['prefix_hits']))
+    step_p = [hists[0].percentile_window(before[0], after[0], p)
+              for p in (50, 99)]
+    ttft_p50 = hists[1].percentile_window(before[1], after[1], 50)
+    log('[decode] machine_translation decoder %s, DecodeConfig %s, '
+        'state_bytes %d' % (MT_DECODER, DECODE_CONFIG, paged['state_bytes']))
+    log('[decode] %d requests in %.4f s: %d tokens, %.1f tokens/s; %d step '
+        'dispatches (warmup included); prefix hits %d, misses %d'
+        % (len(reqs), paged['seconds'], st['tokens'],
+           st['tokens'] / paged['seconds'], paged['steps'],
+           st['prefix_hits'], st['prefix_misses']))
+    n_steps = after[0]['count'] - before[0]['count']
+    log('[decode] decode.step.seconds over %d dispatches: mean %.6f, p50 '
+        '%.6f, p99 %.6f (bucket estimates); decode.ttft.seconds p50 %.6f'
+        % (n_steps, (after[0]['sum'] - before[0]['sum']) / n_steps,
+           step_p[0], step_p[1], ttft_p50))
+    log('[decode] paged_attention launches %d = the %d step dispatches; %d '
+        'of %d history pages free after the drain'
+        % (launches['paged_attention'], paged['steps'], free, usable))
+
+    # the same stream through the dense engine on the card: no kernel
+    _reset_launch_counts()
+    dense = decode_engine_run(weights, reqs, paged=False)
+    if any(_launch_counts().values()):
+        raise AssertionError('the dense decode launched %r'
+                             % (_launch_counts(),))
+    worst = _compare_decodes('dense engine on the card', paged['results'],
+                             dense['results'], reqs, weights)
+    log('[decode] dense engine on the card (no kernel, state_bytes %d): '
+        'equal tokens for all %d requests, scores max abs diff %.3g (tol %g '
+        'x (1 + |s|)); %.4f s, %d step dispatches'
+        % (dense['state_bytes'], len(reqs), worst, DECODE_SCORE_TOL,
+           dense['seconds'], dense['steps']))
+
+    # a few requests through the paged engine on the CPU: the plain version
+    sub = reqs[:DECODE_CPU_REQUESTS]
+    cpu = decode_engine_run(weights, sub, place=fluid.CPUPlace())
+    worst = _compare_decodes('paged engine on the CPU',
+                             paged['results'][:len(sub)], cpu['results'],
+                             sub, weights)
+    log('[decode] paged engine on the CPU: equal tokens for %d requests, '
+        'scores max abs diff %.3g (tol %g x (1 + |s|))'
+        % (len(sub), worst, DECODE_SCORE_TOL))
+    log('[decode] card: %s' % nvidia_smi_line())
+    torch.cuda.synchronize()
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1037,11 +1386,14 @@ def main():
     phase_build()
     cases = phase_kernels()
     by_path = {'serving': phase_serving(), 'training': phase_training(),
-               'ctr_training': phase_ctr_training()}
-    for path in ('serving', 'training'):
-        if any(by_path[path][k] for k in SPARSE_KERNELS):
-            raise AssertionError('the %s path launched a sparse optimizer '
-                                 'kernel: %r' % (path, by_path[path]))
+               'ctr_training': phase_ctr_training(),
+               'decode': phase_decode()}
+    for path, counts in by_path.items():
+        stray = {k: n for k, n in counts.items()
+                 if n and path not in KERNEL_PATHS[k]}
+        if stray:
+            raise AssertionError('the %s path launched kernels of other '
+                                 'paths: %r' % (path, stray))
     if 'jax' in sys.modules or any(
             m == 'paddle_tpu' or m.startswith('paddle_tpu.')
             for m in sys.modules):

@@ -31,6 +31,10 @@ re-seeded at every run from Program.random_seed and the run count (the JAX
 Executor derives its per-run PRNG key the same way), so a seeded program
 gives the same numbers run for run.
 
+`acquire_step` pins one feedless state-update program (the decode
+engine's step) behind a StepHandle that keeps the written persistables
+between calls (JAX executor.py:464, :1568).
+
 The JAX Executor's jit cache, IR passes, mesh placement and run_bundle
 have no counterpart yet.
 """
@@ -47,7 +51,8 @@ from . import core
 from .framework import Variable, default_main_program
 from .lowering import Ctx, SparseRows, run_block, run_op
 
-__all__ = ['Executor', 'Scope', 'global_scope', 'scope_guard']
+__all__ = ['Executor', 'Scope', 'StepHandle', 'global_scope',
+           'scope_guard']
 
 
 class Scope(object):
@@ -290,6 +295,60 @@ def _train_step(ops, ad_idx, sparse_plan, env, ctx):
         _run_ops(ops[ad_idx + 1:], env, ctx)
 
 
+class StepHandle(object):
+    """Pinned runner of ONE feedless step program: the continuous-batching
+    decode engine calls the same step thousands of times (JAX
+    executor.py:464, reduced to what the engine uses).
+
+    The persistables the program writes live INSIDE the handle between
+    calls, read-only ones (the weights) are fixed at acquire time, and the
+    scope is kept in sync after every step, so nothing walks the scope per
+    call. `step()` runs the ops under torch.no_grad() and returns the
+    fetch list as device tensors; the caller decides when to pay the host
+    sync. Callers update the tensors of `state` in place between steps
+    (under no_grad), since the handle and the scope hold the same objects.
+    The JAX handle's compile cache, donation, set_state and state_dict
+    have no counterpart."""
+
+    _C_STEPS = None   # registry counter, created with the first handle
+
+    def __init__(self, exe, program, scope, fetch_names, plan):
+        self._exe = exe
+        self._block = program.global_block()
+        self._scope = scope
+        self._fetch = fetch_names
+        writes = set(plan.writes)
+        self._written = {n: scope._chain_get(n) for n in plan.persistables
+                         if n in writes}
+        self._fixed = {n: scope._chain_get(n) for n in plan.persistables
+                       if n not in writes}
+        self.steps = 0
+        if StepHandle._C_STEPS is None:
+            StepHandle._C_STEPS = obs.counter('executor.handle.steps')
+
+    @property
+    def state(self):
+        """name -> tensor view of the step's persistable state (written
+        and read-only)."""
+        view = dict(self._fixed)
+        view.update(self._written)
+        return view
+
+    def step(self):
+        """One execution; returns the fetch list as device tensors."""
+        env = dict(self._fixed)
+        env.update(self._written)
+        exe = self._exe
+        with exe._lock, torch.no_grad():
+            run_block(self._block, env, Ctx(exe.device, exe._generator))
+        for n in self._written:
+            self._written[n] = env[n]
+            self._scope._chain_set(n, env[n])
+        self.steps += 1
+        StepHandle._C_STEPS.inc()
+        return [env[n] for n in self._fetch]
+
+
 class Executor(object):
     """Parity: reference python/paddle/fluid/executor.py:256.
 
@@ -372,6 +431,32 @@ class Executor(object):
                 return fetches
             with obs.span('executor.fetch'):
                 return [self._to_numpy(t) for t in fetches]
+
+    def acquire_step(self, program=None, feed=None, fetch_list=None,
+                     scope=None):
+        """Resolve a feedless state-update program ONCE and return a pinned
+        StepHandle whose repeated `.step()` calls skip run()'s per-call
+        work. Every persistable it reads or writes must already have a
+        scope value (run the startup program first)."""
+        if program is None:
+            program = default_main_program()
+        if scope is None:
+            scope = global_scope()
+        if feed:
+            raise ValueError('acquire_step: the handle runs feedless state-'
+                             'update programs; got feed %r' % sorted(feed))
+        fetch_names = tuple(_as_fetch_name(f) for f in fetch_list or [])
+        plan = self._plan(program, fetch_names)
+        if plan.ad_idx is not None:
+            raise ValueError('acquire_step: a training program (autodiff op) '
+                             'runs through run()')
+        gap = [n for n in plan.persistables if scope._chain_get(n) is None]
+        if gap:
+            raise ValueError(
+                'acquire_step: persistable(s) %r have no scope value yet; a '
+                'handle needs its whole state; run the startup program '
+                'first' % gap)
+        return StepHandle(self, program, scope, fetch_names, plan)
 
     @staticmethod
     def _to_numpy(t):

@@ -8,3 +8,5 @@ from . import tensor_ops  # noqa: F401
 from . import nn_ops  # noqa: F401
 from . import sequence_ops  # noqa: F401
 from . import optim_ops  # noqa: F401
+from . import lod_beam  # noqa: F401
+from . import sampled_ops  # noqa: F401

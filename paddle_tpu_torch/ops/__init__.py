@@ -4,7 +4,7 @@ replace). `KERNELS` names every kernel; `build_all()` compiles them."""
 from ._cuda import KERNELS, build_all  # noqa: F401
 from .flash_attention import flash_attention, flash_attention_lse, \
     flash_attention_lse_plain, flash_attention_bwd_plain  # noqa: F401
-from . import kernels  # noqa: F401  (registers the sparse optimizer kernels)
+from . import kernels  # noqa: F401  (registers the kernels of ops/kernels)
 
 __all__ = ['flash_attention', 'flash_attention_lse',
            'flash_attention_lse_plain', 'flash_attention_bwd_plain',

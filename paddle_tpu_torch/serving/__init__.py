@@ -1,8 +1,9 @@
 """paddle_tpu_torch.serving — dynamic micro-batching serving engine.
 
 Parity: the JAX package's paddle_tpu.serving, reduced to the
-`ServingEngine` over a `Predictor` (the decode engine, router, pod and
-transport layers wait for later slices of the port).
+`ServingEngine` over a `Predictor` and the continuous-batching
+`DecodeEngine` (dense and paged; the router, pod and transport layers wait
+for later slices of the port).
 
     from paddle_tpu_torch import inference, serving
 
@@ -13,12 +14,23 @@ transport layers wait for later slices of the port).
     fut = eng.submit({'x': batch})     # concurrent.futures.Future
     logits, = fut.result()
     eng.shutdown()                     # drains in-flight requests
+
+    dec = serving.DecodeEngine(weights, serving.DecodeConfig(   # the card
+        slots=16, beam_size=3, max_len=50, src_cap=32, page_size=16,
+        pages=64))
+    dec.warmup()
+    ids, scores = dec.submit({'enc': enc_rows}, max_new_tokens=20).result()
+    dec.shutdown()
 """
 from . import buckets  # noqa: F401
+from . import pages  # noqa: F401
 from .buckets import default_buckets, pad_rows, pick_bucket  # noqa: F401
 from .engine import (DeadlineExceeded, ServerClosed,  # noqa: F401
                      ServerOverloaded, ServingConfig, ServingEngine)
+from .decode import (DecodeConfig, DecodeEngine,  # noqa: F401
+                     DecodeSlotPoisoned, mt_weights)
 
 __all__ = ['ServingEngine', 'ServingConfig', 'ServerOverloaded',
            'ServerClosed', 'DeadlineExceeded', 'buckets',
-           'default_buckets', 'pick_bucket', 'pad_rows']
+           'default_buckets', 'pick_bucket', 'pad_rows', 'DecodeConfig',
+           'DecodeEngine', 'DecodeSlotPoisoned', 'mt_weights', 'pages']

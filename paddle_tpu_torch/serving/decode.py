@@ -1,0 +1,1075 @@
+"""Continuous batching for autoregressive beam decode.
+
+Parity: the JAX package's serving/decode.py (DecodeConfig :104,
+mt_weights :243, DecodeEngine :410), the dense and the paged engine. An
+autoregressive decode request is a SEQUENCE of coupled steps; this module
+serves one attention-LSTM beam decoder with iteration-level scheduling:
+
+  * a fixed-capacity SLOT POOL holds per-sequence decode state (beam
+    scores, LSTM rows, token history, encoder rows) as persistable device
+    tensors of shape [slots, ...];
+  * ONE step program (`attention_lstm_beam_decode_step`, or
+    `attention_lstm_beam_paged_step` in paged mode) advances every ACTIVE
+    slot per call, through `Executor.acquire_step`'s pinned StepHandle;
+    where-select masking keeps dead and poisoned slots from perturbing
+    live ones;
+  * JOIN/LEAVE happens between steps on the host: a finished sequence
+    (all beams ended, or its token limit reached) releases its slot and
+    resolves its Future at once, and queued requests join free slots
+    mid-flight;
+  * PAGED state memory (`DecodeConfig(page_size=, pages=)`): token history
+    and encoder rows live in fixed-size pages claimed at admission for
+    each request's own limit and source length (serving/pages.py), read
+    through int32 page tables; on the card the step's attention is the
+    hand-written paged_attention kernel. A full pool blocks admission;
+  * PREFIX caching: released encoder pages stay resident keyed by the
+    request's content, and a request with the same encoder rows joins
+    without writing them again.
+
+Requests carry encoder rows directly, `submit({'enc': [S, D]})`. The
+join is a plain function over the handle's tensors (the JAX engine's
+jitted scatter): it writes one row per joining request in place with
+index_copy_, whose targets are distinct. The step and the join run under
+torch.no_grad().
+Per dispatch the loop reads back one small tensor (each slot's active
+flag and step count), and the history pools and scores only when a slot
+releases.
+
+Not ported here (ROADMAP.md Queue A): speculative decoding (`spec_k`,
+`draft=`), streaming (`on_token`, `checkpoint`, `resume`, `cancel`),
+`push_rows`, `export_step_program`, `cache_stats`, `LockstepDecoder`,
+`program_prefill` and the Router.
+
+Observability: decode.slots.occupied / decode.queue.depth /
+decode.pages.free gauges, decode.step.seconds + decode.ttft.seconds
+histograms, join/release/poison/prefix events and token counters.
+"""
+import collections
+import concurrent.futures
+import threading
+import time
+
+import numpy as np
+import torch
+
+from .. import obs
+from . import pages as _pages
+from .engine import (DeadlineExceeded, ServerClosed, ServerOverloaded,
+                     _POLL_S)
+
+__all__ = ['DecodeConfig', 'DecodeEngine', 'DecodeSlotPoisoned',
+           'mt_weights', 'WEIGHT_KEYS']
+
+WEIGHT_KEYS = ('w_dec', 'u_dec', 'b_dec', 'w_q', 'w_emb', 'w_out', 'b_out')
+
+
+class DecodeSlotPoisoned(RuntimeError):
+    """Non-finite values appeared in one slot's beam scores (a poisoned
+    feed). Only that slot's future receives this error; the slot is freed
+    and every other in-flight sequence is untouched."""
+
+
+class DecodeConfig(object):
+    """Slot-pool / admission policy for a DecodeEngine.
+
+    slots:        fixed capacity of the slot pool (the step's batch
+                  dimension).
+    beam_size:    beam width per sequence.
+    max_len:      token-buffer capacity per slot; a request's
+                  max_new_tokens may not exceed it.
+    start_id/end_id: decode vocabulary sentinels.
+    src_cap:      encoder-row capacity per slot.
+    bundle:       decode steps per dispatch; slots finishing mid-bundle
+                  freeze, so results equal bundle=1, and join/leave
+                  coarsens to the bundle boundary.
+    queue_capacity / overflow / default_deadline_ms: admission control
+                  (typed ServerOverloaded / DeadlineExceeded).
+    page_size:    switches the engine to PAGED state memory: history and
+                  encoder rows in fixed-size pages claimed per request.
+    pages:        history-pool size (required with page_size); a request
+                  claims ceil(limit/page_size) of them.
+    enc_pages:    encoder-pool size (default: one full src_cap window per
+                  slot + equal headroom for resident prefixes + the
+                  reserved zero page).
+    prefix_cache: keep released encoder pages resident keyed by request
+                  content (default True when paged).
+    spec_k:       speculative decoding; not ported (raises).
+    """
+
+    def __init__(self, slots=8, beam_size=3, max_len=32, start_id=0,
+                 end_id=1, src_cap=16, bundle=1, queue_capacity=256,
+                 overflow='block', default_deadline_ms=None,
+                 page_size=None, pages=None, enc_pages=None,
+                 prefix_cache=None, spec_k=None):
+        if overflow not in ('block', 'reject'):
+            raise ValueError("overflow must be 'block' or 'reject', got %r"
+                             % (overflow,))
+        if slots < 1:
+            raise ValueError('slots must be >= 1')
+        if max_len < 1 or src_cap < 1 or beam_size < 1:
+            raise ValueError('beam_size, max_len and src_cap must be >= 1')
+        if not 1 <= int(bundle) <= int(max_len):
+            raise ValueError('bundle must be in [1, max_len=%d], got %r'
+                             % (max_len, bundle))
+        if spec_k is not None:
+            raise NotImplementedError(
+                'speculative decoding (spec_k) is not ported to '
+                'paddle_tpu_torch yet; see ROADMAP.md Queue A')
+        self.bundle = int(bundle)
+        self.slots = int(slots)
+        self.beam_size = int(beam_size)
+        self.max_len = int(max_len)
+        self.start_id = int(start_id)
+        self.end_id = int(end_id)
+        self.src_cap = int(src_cap)
+        self.queue_capacity = int(queue_capacity)
+        self.overflow = overflow
+        self.default_deadline_ms = default_deadline_ms
+        # -- paged state memory -------------------------------------------
+        self.paged = page_size is not None
+        self.page_size = int(page_size) if self.paged else 0
+        if not self.paged:
+            if pages is not None or enc_pages is not None:
+                raise ValueError('pages/enc_pages require page_size '
+                                 '(the paged engine)')
+            if prefix_cache:
+                raise ValueError('prefix_cache requires page_size (the '
+                                 'cache is resident PAGES)')
+            self.pages = self.enc_pages = 0
+            self.prefix_cache = False
+            self.hist_table_width = self.enc_table_width = 0
+            return
+        if self.page_size < 1:
+            raise ValueError('page_size must be >= 1')
+        # per-slot page-table widths (static shapes)
+        self.hist_table_width = _pages.pages_for(self.max_len,
+                                                 self.page_size)
+        self.enc_table_width = _pages.pages_for(self.src_cap,
+                                                self.page_size)
+        if pages is None:
+            raise ValueError('paged mode needs pages=N (the history '
+                             'pool size; a request claims '
+                             'ceil(limit/page_size) of them)')
+        self.pages = int(pages)
+        if self.pages < self.hist_table_width:
+            raise ValueError(
+                'pages=%d cannot back even one max_len=%d request '
+                '(needs %d pages of %d rows)'
+                % (self.pages, self.max_len, self.hist_table_width,
+                   self.page_size))
+        # +1: encoder page 0 is the reserved zero page. The default holds
+        # one worst-case working set for the live slots PLUS equal
+        # headroom, so a released prefix survives the next join
+        self.enc_pages = (1 + 2 * self.slots * self.enc_table_width
+                          if enc_pages is None else int(enc_pages))
+        if self.enc_pages < 1 + self.enc_table_width:
+            raise ValueError(
+                'enc_pages=%d cannot back one src_cap=%d request plus '
+                'the reserved zero page (needs %d)'
+                % (self.enc_pages, self.src_cap,
+                   1 + self.enc_table_width))
+        self.prefix_cache = True if prefix_cache is None \
+            else bool(prefix_cache)
+
+
+def mt_weights(scope, name='mt'):
+    """Collect the machine_translation decoder's weights from a scope
+    (the JAX package's names: mt_w_dec, mt_u_dec, mt_b_dec, mt_w_attnq,
+    mt_trg_emb, mt_w_out, mt_b_out) into the numpy dict DecodeEngine
+    takes."""
+    def pick(suffix):
+        v = scope._chain_get(name + suffix)
+        if v is None:
+            raise KeyError('scope has no %r' % (name + suffix))
+        return v.detach().cpu().numpy().copy() \
+            if isinstance(v, torch.Tensor) else np.asarray(v)
+
+    return {'w_dec': pick('_w_dec'), 'u_dec': pick('_u_dec'),
+            'b_dec': pick('_b_dec'), 'w_q': pick('_w_attnq'),
+            'w_emb': pick('_trg_emb'), 'w_out': pick('_w_out'),
+            'b_out': pick('_b_out')}
+
+
+class _Request(object):
+    __slots__ = ('feed', 'limit', 'future', 't_submit', 'deadline',
+                 't_join', 'pkey', 'hist_need', 'enc_need')
+
+    def __init__(self, feed, limit, future, t_submit, deadline,
+                 pkey=None, hist_need=0, enc_need=0):
+        self.feed = feed
+        self.limit = limit
+        self.future = future
+        self.t_submit = t_submit
+        self.deadline = deadline
+        self.t_join = None
+        # paged admission: content key for the prefix cache + the
+        # worst-case page claim the admission gate budgets against
+        self.pkey = pkey
+        self.hist_need = hist_need
+        self.enc_need = enc_need
+
+
+# process-wide decode telemetry; per-engine views live in engine.stats /
+# stats_window()
+_G_SLOTS = obs.gauge('decode.slots.occupied')
+_G_QDEPTH = obs.gauge('decode.queue.depth')
+_H_STEP = obs.histogram('decode.step.seconds')
+_H_TTFT = obs.histogram('decode.ttft.seconds')
+_H_REQ_TOKENS = obs.histogram('decode.request.tokens',
+                              buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256,
+                                       512, 1024))
+_C_REQUESTS = obs.counter('decode.requests')
+_C_TOKENS = obs.counter('decode.tokens')
+_C_JOINS = obs.counter('decode.joins')
+_C_RELEASES = obs.counter('decode.releases')
+_C_POISONED = obs.counter('decode.poisoned')
+_C_SHED = obs.counter('decode.shed')
+_C_REJECTED = obs.counter('decode.rejected')
+_C_STEPS = obs.counter('decode.steps')
+# paged state memory + prefix cache
+_G_PAGES_FREE = obs.gauge('decode.pages.free')
+_C_PREFIX_HITS = obs.counter('decode.prefix.hits')
+_C_PREFIX_MISSES = obs.counter('decode.prefix.misses')
+_C_PREFIX_EVICT = obs.counter('decode.prefix.evictions')
+
+
+class DecodeEngine(object):
+    """Slot-based continuous-batching front end over one attention-LSTM
+    beam decoder (the module docstring has the architecture).
+
+    weights: dict with keys w_dec/u_dec/b_dec/w_q/w_emb/w_out/b_out
+    (WEIGHT_KEYS), numpy arrays: the decoder tensors of the JAX package's
+    engine (`mt_weights` collects them from a machine_translation scope).
+
+    place: where the slot state and the step run. None means CUDAPlace(0),
+    which raises without a card; pass fluid.CPUPlace() to run on the CPU.
+
+    Requests carry the encoder rows directly, {'enc': [S, D]} with
+    S <= config.src_cap (the encoder prefill is not ported yet). They
+    enter through `submit(feed, max_new_tokens=...)` and resolve to
+    (sentence_ids int64 [beam_size, max_new_tokens], sentence_scores
+    float32 [beam_size]).
+    """
+
+    def __init__(self, weights, config=None, place=None):
+        from ..fluid.executor import Executor, Scope
+
+        self.config = config or DecodeConfig()
+        missing = [k for k in WEIGHT_KEYS if k not in weights]
+        if missing:
+            raise ValueError('decode weights missing %r (need %r)'
+                             % (missing, list(WEIGHT_KEYS)))
+        self._scope = Scope()
+        self._exe = Executor(place)
+        self._hidden = int(np.asarray(weights['u_dec']).shape[0])
+        self._enc_dim = int(np.asarray(weights['w_q']).shape[1])
+        self._vocab = int(np.asarray(weights['w_out']).shape[1])
+        # host side of the paged state: the allocator + prefix cache
+        # (loop-thread owned) and per-slot page assignments
+        cfg = self.config
+        self._hist_pool = self._enc_pool = self._prefix = None
+        self._slot_pages = [None] * cfg.slots
+        self._pages_starved = False
+        if cfg.paged:
+            self._hist_pool = _pages.PagePool(cfg.pages)
+            self._enc_pool = _pages.PagePool(cfg.enc_pages, reserved=1)
+            if cfg.prefix_cache:
+                self._prefix = _pages.PrefixCache(
+                    self._enc_pool, on_evict=self._on_prefix_evict)
+        self._build_step_program(weights)
+        self._handle = None          # acquired lazily (first step/warmup)
+        self._warm = False
+
+        self._lock = threading.Lock()
+        self._handle_lock = threading.RLock()
+        self._not_empty = threading.Condition(self._lock)
+        self._not_full = threading.Condition(self._lock)
+        self._queue = collections.deque()
+        self._shutdown = False
+        self._drain = True
+        # slot table: owned by the decode-loop thread only
+        self._occupant = [None] * cfg.slots
+        self._slot_steps = [0] * cfg.slots
+        # cumulative stats (+ the windowed counterparts stats_window()
+        # reads and resets)
+        self._n = collections.Counter()
+        self._win = collections.Counter()
+        self._q_high_water = 0
+
+        self._thread = threading.Thread(target=self._loop,
+                                        name='decode-loop', daemon=True)
+        self._thread.start()
+
+    # -- program build -----------------------------------------------------
+
+    def _on_prefix_evict(self, key, pages):
+        _C_PREFIX_EVICT.inc()
+        obs.event('decode.prefix.evict', key=key[:12], pages=len(pages))
+
+    def _build_step_program(self, weights):
+        """The step-form decode Program: one decode-step op over
+        persistable slot state + the decoder weights, their values put in
+        the engine's scope on the executor's device."""
+        from ..fluid import core, framework
+
+        cfg = self.config
+        dev = self._exe.device
+        prog = framework.Program()
+        blk = prog.global_block()
+        C, K, T, S = cfg.slots, cfg.beam_size, cfg.max_len, cfg.src_cap
+        H, D = self._hidden, self._enc_dim
+        ps, NPH, NPE = (cfg.page_size, cfg.hist_table_width,
+                        cfg.enc_table_width)
+
+        def pvar(name, shape, dtype, init):
+            v = blk.create_var(name='cbd_' + name, shape=shape,
+                               dtype=dtype, persistable=True)
+            self._scope.vars['cbd_' + name] = init.to(dev)
+            return v
+
+        wvars = {}
+        for k in WEIGHT_KEYS:
+            a = np.array(weights[k], dtype=np.float32)
+            wvars[k] = pvar(k, list(a.shape), 'float32',
+                            torch.from_numpy(a))
+
+        spec = {'h': ([C, K, H], 'float32'), 'c': ([C, K, H], 'float32'),
+                'prev_ids': ([C, K], 'int32'), 'acc': ([C, K], 'float32'),
+                'fin': ([C, K], 'bool'),
+                'step': ([C], 'int32'), 'limit': ([C], 'int32'),
+                'active': ([C], 'bool')}
+        if cfg.paged:
+            # pools + per-slot page tables: a slot only claims the pages
+            # its OWN limit and source length need. pt_hist defaults to
+            # the out-of-range page (writes drop), pt_enc to the reserved
+            # zero page (reads stay finite under the mask).
+            spec.update({
+                'hist_ids': ([cfg.pages, ps, K], 'int32'),
+                'hist_par': ([cfg.pages, ps, K], 'int32'),
+                'enc_pages': ([cfg.enc_pages, ps, D], 'float32'),
+                'mask_pages': ([cfg.enc_pages, ps], 'float32'),
+                'pt_hist': ([C, NPH], 'int32'),
+                'pt_enc': ([C, NPE], 'int32')})
+        else:
+            spec.update({
+                'enc': ([C, S, D], 'float32'), 'mask': ([C, S], 'float32'),
+                'ids_hist': ([C, T, K], 'int32'),
+                'par_hist': ([C, T, K], 'int32')})
+        svars = {}
+        for name, (shape, dtype) in spec.items():
+            fill = cfg.pages if name == 'pt_hist' else 0
+            svars[name] = pvar(name, shape, dtype, torch.full(
+                shape, fill, dtype=core.torch_dtype(dtype)))
+        done = blk.create_var(name='cbd_done', shape=[C], dtype='bool')
+        bad = blk.create_var(name='cbd_bad', shape=[C], dtype='bool')
+
+        ins = {'WDec': [wvars['w_dec']], 'UDec': [wvars['u_dec']],
+               'BDec': [wvars['b_dec']], 'WAttnQ': [wvars['w_q']],
+               'WEmb': [wvars['w_emb']], 'WOut': [wvars['w_out']],
+               'BOut': [wvars['b_out']],
+               'H': [svars['h']], 'C': [svars['c']],
+               'PrevIds': [svars['prev_ids']], 'Acc': [svars['acc']],
+               'Fin': [svars['fin']], 'Step': [svars['step']],
+               'Limit': [svars['limit']], 'Active': [svars['active']]}
+        outs = {'HOut': [svars['h']], 'COut': [svars['c']],
+                'PrevIdsOut': [svars['prev_ids']], 'AccOut': [svars['acc']],
+                'FinOut': [svars['fin']], 'StepOut': [svars['step']],
+                'ActiveOut': [svars['active']],
+                'Done': [done], 'Bad': [bad]}
+        if cfg.paged:
+            ins.update({
+                'PtHist': [svars['pt_hist']], 'PtEnc': [svars['pt_enc']],
+                'HistIds': [svars['hist_ids']],
+                'HistPar': [svars['hist_par']],
+                'EncPages': [svars['enc_pages']],
+                'MaskPages': [svars['mask_pages']]})
+            outs.update({'HistIdsOut': [svars['hist_ids']],
+                         'HistParOut': [svars['hist_par']]})
+        else:
+            ins.update({
+                'Enc': [svars['enc']], 'Mask': [svars['mask']],
+                'IdsHist': [svars['ids_hist']],
+                'ParHist': [svars['par_hist']]})
+            outs.update({'IdsHistOut': [svars['ids_hist']],
+                         'ParHistOut': [svars['par_hist']]})
+        attrs = {'beam_size': cfg.beam_size, 'end_id': cfg.end_id,
+                 'bundle': cfg.bundle}
+        if cfg.paged:
+            attrs.update(page_size=ps, src_cap=S)
+        blk.append_op(
+            type='attention_lstm_beam_paged_step' if cfg.paged
+            else 'attention_lstm_beam_decode_step',
+            inputs=ins, outputs=outs, attrs=attrs)
+        self._step_program = prog
+        # the step fetches the state a release reads, so a release is a
+        # numpy slice of one host copy. Releases are LEVEL-triggered off
+        # Active (occupied slot now inactive; poisoning detected from NaN
+        # in the fetched scores), not off the per-dispatch Done edge: an
+        # extra dispatch (warmup's no-op step racing live traffic) can
+        # swallow an edge, but a level cannot be lost.
+        ids_n, par_n = ('hist_ids', 'hist_par') if cfg.paged \
+            else ('ids_hist', 'par_hist')
+        self._fetch_vars = [svars['active'], svars[ids_n], svars[par_n],
+                            svars['acc'], svars['step']]
+        self._state_spec = spec
+
+    def _scatter_join(self, slot_idx, enc, mask, limit, pt_hist_rows=None,
+                      pt_enc_rows=None, enc_write_pages=None):
+        """Write the joining requests' slot state into the handle's
+        tensors, in place: host arrays with one row per request, each to
+        its own free slot. Paged form: the slots' page-table rows, and the
+        encoder content of the freshly claimed pages; write-page entries
+        past the pool (prefix hits, duplicates in the batch, tails on the
+        zero page) are dropped, so resident pages are never rewritten.
+        Serialized with the step under _handle_lock."""
+        cfg = self.config
+        n = len(slot_idx)
+        K, H = cfg.beam_size, self._hidden
+        dev = self._exe.device
+        acc0 = np.full((n, K), np.finfo(np.float32).min, np.float32)
+        acc0[:, 0] = 0.0
+        rows = {
+            'h': np.zeros((n, K, H), np.float32),
+            'c': np.zeros((n, K, H), np.float32),
+            'prev_ids': np.full((n, K), cfg.start_id, np.int32),
+            'acc': acc0, 'fin': np.zeros((n, K), bool),
+            'step': np.zeros(n, np.int32),
+            'limit': np.asarray(limit, np.int32),
+            'active': np.ones(n, bool)}
+        pages = None
+        if cfg.paged:
+            rows['pt_hist'] = np.asarray(pt_hist_rows, np.int32)
+            rows['pt_enc'] = np.asarray(pt_enc_rows, np.int32)
+            ps, NPE = cfg.page_size, cfg.enc_table_width
+            wr = np.asarray(enc_write_pages, np.int64).reshape(-1)
+            keep = wr < cfg.enc_pages
+            if keep.any():
+                pages = (wr[keep], enc.reshape(n * NPE, ps, -1)[keep],
+                         mask.reshape(n * NPE, ps)[keep])
+        else:
+            rows['enc'] = enc
+            rows['mask'] = mask
+        handle = self._acquire()
+        with self._handle_lock, torch.no_grad():
+            st = handle.state
+
+            def put(name, idx, values):
+                t = st['cbd_' + name]
+                t.index_copy_(0, idx, torch.from_numpy(values).to(
+                    device=dev, dtype=t.dtype))
+
+            idx = torch.from_numpy(np.asarray(slot_idx, np.int64)).to(dev)
+            for name, values in rows.items():
+                put(name, idx, values)
+            if pages is not None:
+                pidx = torch.from_numpy(pages[0]).to(dev)
+                put('enc_pages', pidx, pages[1])
+                put('mask_pages', pidx, pages[2])
+
+    def _acquire(self):
+        # RLock: warmup() runs on the caller thread while the decode loop
+        # may be admitting/stepping
+        with self._handle_lock:
+            if self._handle is None:
+                self._handle = self._exe.acquire_step(
+                    self._step_program, fetch_list=self._fetch_vars,
+                    scope=self._scope)
+            return self._handle
+
+    # -- admission ---------------------------------------------------------
+
+    def submit(self, feed, max_new_tokens=None, deadline_ms=None,
+               timeout=None):
+        """Enqueue one decode request; returns a Future resolving to
+        (sentence_ids [beam, max_new_tokens] int64, sentence_scores [beam]
+        float32). Raises ServerClosed after shutdown, ServerOverloaded
+        under the 'reject' policy (or a 'block' admission timeout), and
+        ValueError for malformed feeds. A deadline sheds the request with
+        DeadlineExceeded if it is still QUEUED when it passes."""
+        cfg = self.config
+        limit = cfg.max_len if max_new_tokens is None else int(max_new_tokens)
+        if not 1 <= limit <= cfg.max_len:
+            raise ValueError(
+                'max_new_tokens=%d out of range [1, %d] (the slot token '
+                'buffer is fixed at engine build)' % (limit, cfg.max_len))
+        if 'enc' not in feed:
+            raise ValueError("the engine takes encoder rows directly: feed "
+                             "must carry 'enc' (got %r)" % sorted(feed))
+        enc = np.asarray(feed['enc'], np.float32)
+        if enc.ndim != 2 or not 1 <= enc.shape[0] <= cfg.src_cap \
+                or enc.shape[1] != self._enc_dim:
+            raise ValueError("feed['enc'] must be [1<=S<=%d, %d], got %r"
+                             % (cfg.src_cap, self._enc_dim, enc.shape))
+        feed = {'enc': enc}
+        if deadline_ms is None:
+            deadline_ms = cfg.default_deadline_ms
+        now = time.monotonic()
+        deadline = now + deadline_ms / 1000.0 if deadline_ms is not None \
+            else None
+        pkey, hist_need, enc_need = None, 0, 0
+        if cfg.paged:
+            hist_need = _pages.pages_for(limit, cfg.page_size)
+            enc_need = _pages.pages_for(enc.shape[0], cfg.page_size)
+            if cfg.prefix_cache:
+                pkey = _pages.content_key(feed)
+        fut = concurrent.futures.Future()
+        req = _Request(feed, limit, fut, now, deadline, pkey=pkey,
+                       hist_need=hist_need, enc_need=enc_need)
+        t_give_up = now + timeout if timeout is not None else None
+        with self._lock:
+            while True:
+                if self._shutdown:
+                    raise ServerClosed('decode engine is shut down')
+                if len(self._queue) < cfg.queue_capacity:
+                    break
+                # the queue can be full because joins are blocked on an
+                # exhausted page pool: the reject event says which wall
+                reason = 'pages' if self._pages_starved else 'queue'
+                if cfg.overflow == 'reject':
+                    self._reject_locked(reason)
+                    raise ServerOverloaded(
+                        'decode queue is full (%d request(s), capacity '
+                        '%d; blocked on %s) and the overflow policy is '
+                        'reject' % (len(self._queue), cfg.queue_capacity,
+                                    'free pages' if reason == 'pages'
+                                    else 'free slots'))
+                remaining = _POLL_S if t_give_up is None else \
+                    min(_POLL_S, t_give_up - time.monotonic())
+                if t_give_up is not None and remaining <= 0:
+                    self._reject_locked(reason, waited_s=timeout)
+                    raise ServerOverloaded(
+                        'decode queue stayed full for %.3fs (capacity %d)'
+                        % (timeout, cfg.queue_capacity))
+                self._not_full.wait(remaining)
+            self._queue.append(req)
+            self._n['submitted'] += 1
+            self._win['submitted'] += 1
+            depth = len(self._queue)
+            self._q_high_water = max(self._q_high_water, depth)
+            self._win['queue_high_water'] = max(
+                self._win['queue_high_water'], depth)
+            _C_REQUESTS.inc()
+            _G_QDEPTH.set(depth)
+            self._not_empty.notify()
+        return fut
+
+    def _reject_locked(self, reason, **fields):
+        self._n['rejected'] += 1
+        self._win['rejected'] += 1
+        _C_REJECTED.inc()
+        obs.event('decode.reject', queue_depth=len(self._queue),
+                  capacity=self.config.queue_capacity, reason=reason,
+                  **fields)
+
+    def predict(self, feed, max_new_tokens=None, deadline_ms=None,
+                timeout=None):
+        """Synchronous convenience: submit + wait, one wall-clock budget
+        for admission and result."""
+        t0 = time.monotonic()
+        fut = self.submit(feed, max_new_tokens=max_new_tokens,
+                          deadline_ms=deadline_ms, timeout=timeout)
+        remaining = None if timeout is None else \
+            max(0.0, timeout - (time.monotonic() - t0))
+        try:
+            return fut.result(remaining)
+        except concurrent.futures.TimeoutError:
+            if fut.done():
+                return fut.result()
+            if fut.cancel():
+                raise DeadlineExceeded(
+                    'no result within the %.3fs predict() timeout; the '
+                    'queued decode request was cancelled' % timeout)
+            raise DeadlineExceeded(
+                'no result within the %.3fs predict() timeout; the '
+                'sequence is already decoding — it completes but the '
+                'result is discarded' % timeout)
+
+    # -- warmup ------------------------------------------------------------
+
+    def warmup(self):
+        """Run the step once with every slot inactive: a no-op step that
+        builds the kernels and pays the card's first-use costs before any
+        request."""
+        handle = self._acquire()
+        with self._handle_lock:
+            handle.step()
+        self._warm = True
+
+    # -- decode loop -------------------------------------------------------
+
+    def _pop_live_locked(self, now, shed, cap):
+        """Pop up to `cap` still-wanted requests; expired ones collect
+        into `shed` (failed by the caller OUTSIDE the lock). In paged mode
+        a head whose page claim cannot be covered RIGHT NOW (free +
+        evictable) BLOCKS in the queue, FIFO, and the engine marks itself
+        page-starved for the reject events' reason field."""
+        out = []
+        budget = None
+        pinned = set()
+        if self.config.paged:
+            budget = {'hist': self._hist_pool.available(),
+                      'enc': self._enc_pool.available(self._prefix)}
+        starved = False
+        while self._queue and len(out) < cap:
+            req = self._queue[0]
+            if req.deadline is not None and now > req.deadline:
+                self._queue.popleft()
+                self._not_full.notify()
+                shed.append(req)
+                continue
+            if budget is not None:
+                enc_need = req.enc_need
+                if req.pkey is not None and self._prefix.peek(req.pkey):
+                    # resident prefix: no NEW pages, but the hit PINS the
+                    # entry, taking its pages out of the evictable budget
+                    # batch-mates were counting on; charge that once per
+                    # key
+                    enc_need = 0 if req.pkey in pinned \
+                        else self._prefix.pinnable_pages(req.pkey)
+                if req.hist_need > budget['hist'] \
+                        or enc_need > budget['enc']:
+                    starved = True        # head-of-line blocks on pages
+                    break
+                budget['hist'] -= req.hist_need
+                budget['enc'] -= enc_need
+                if req.pkey is not None:
+                    pinned.add(req.pkey)
+            self._queue.popleft()
+            self._not_full.notify()
+            if not req.future.set_running_or_notify_cancel():
+                continue              # cancelled while queued
+            out.append(req)
+        self._pages_starved = starved
+        _G_QDEPTH.set(len(self._queue))
+        return out
+
+    def _fail_shed(self, shed):
+        now = time.monotonic()
+        for req in shed:
+            if not req.future.set_running_or_notify_cancel():
+                continue
+            with self._lock:   # _win races stats_window's copy+reset
+                self._n['shed'] += 1
+                self._win['shed'] += 1
+            _C_SHED.inc()
+            waited = now - req.t_submit
+            obs.event('decode.shed', waited_s=waited)
+            req.future.set_exception(DeadlineExceeded(
+                'decode request shed after waiting %.3fs: its deadline '
+                'passed before a slot opened' % waited))
+
+    def _admit(self, joins):
+        """Write the joining requests' slot state in one join (loop thread
+        only)."""
+        if self.config.paged:
+            return self._admit_paged(joins)
+        cfg = self.config
+        n = len(joins)
+        enc = np.zeros((n, cfg.src_cap, self._enc_dim), np.float32)
+        mask = np.zeros((n, cfg.src_cap), np.float32)
+        for i, r in enumerate(joins):
+            s_len = r.feed['enc'].shape[0]
+            enc[i, :s_len] = r.feed['enc']
+            mask[i, :s_len] = 1.0
+        free = [i for i, occ in enumerate(self._occupant) if occ is None]
+        self._scatter_join(free[:n], enc, mask, [r.limit for r in joins])
+        now = time.monotonic()
+        for i, req in enumerate(joins):
+            slot = free[i]
+            self._occupant[slot] = req
+            self._slot_steps[slot] = 0
+            req.t_join = now
+            with self._lock:
+                self._n['joins'] += 1
+                self._win['joins'] += 1
+            _C_JOINS.inc()
+            obs.event('decode.join', slot=slot, limit=req.limit,
+                      src_len=int(req.feed['enc'].shape[0]))
+        self._note_occupancy()
+
+    def _note_occupancy(self):
+        occ_now = sum(o is not None for o in self._occupant)
+        _G_SLOTS.set(occ_now)
+        with self._lock:
+            self._n['slots_high_water'] = max(
+                self._n['slots_high_water'], occ_now)
+
+    def _admit_paged(self, joins):
+        """Paged admission (loop thread only): prefix-cache lookups FIRST
+        (so a resident entry a batch-mate relies on cannot be evicted by
+        this batch's own allocations), then page claims for the misses
+        and every request's history, then one join writing page tables +
+        fresh page content. The admission gate (_pop_live_locked) already
+        budgeted the claims, so they cannot fail; if they do, the gate is
+        wrong and the error fails every future through _loop."""
+        cfg = self.config
+        ps, NPE, NPH = (cfg.page_size, cfg.enc_table_width,
+                        cfg.hist_table_width)
+        S_pad = NPE * ps
+        n = len(joins)
+        # enc plan per join: ('hit', pages, src_len) | ('miss',) |
+        # ('dup', i_first), a batch-mate's miss with the same content
+        plan = [None] * n
+        first_by_key = {}
+        miss_idx = []
+        for i, r in enumerate(joins):
+            if r.pkey is not None and self._prefix.peek(r.pkey):
+                plan[i] = ('hit',) + tuple(self._prefix.lookup(r.pkey))
+                continue
+            if r.pkey is not None and r.pkey in first_by_key:
+                plan[i] = ('dup', first_by_key[r.pkey])
+                continue
+            if r.pkey is not None:
+                first_by_key[r.pkey] = i
+                self._prefix.misses += 1   # cache-level miss
+            plan[i] = ('miss',)
+            miss_idx.append(i)
+        # page claims (cache insertion waits until the content is written)
+        miss_pages = {}
+        for i in miss_idx:
+            need = joins[i].enc_need
+            pages = self._enc_pool.alloc(need, self._prefix)
+            if pages is None:
+                raise RuntimeError(
+                    'encoder page pool exhausted mid-admit (%d needed, %d '
+                    'free)' % (need, self._enc_pool.free_count))
+            miss_pages[i] = pages
+        hist_pages = []
+        for r in joins:
+            pages = self._hist_pool.alloc(r.hist_need)
+            if pages is None:
+                raise RuntimeError(
+                    'history page pool exhausted mid-admit (%d needed, %d '
+                    'free)' % (r.hist_need, self._hist_pool.free_count))
+            hist_pages.append(pages)
+        # the join arrays, one row per joining request
+        enc = np.zeros((n, S_pad, self._enc_dim), np.float32)
+        mask = np.zeros((n, S_pad), np.float32)
+        pt_hist = np.full((n, NPH), cfg.pages, np.int32)
+        pt_enc = np.zeros((n, NPE), np.int32)        # tail: zero page
+        wr_enc = np.full((n, NPE), cfg.enc_pages, np.int32)
+        src_len = np.zeros(n, np.int32)
+        enc_pages_of = [None] * n
+        for i, r in enumerate(joins):
+            kind = plan[i][0]
+            if kind == 'hit':
+                pages, s_len = plan[i][1], plan[i][2]
+            else:
+                first = plan[i][1] if kind == 'dup' else i
+                pages = miss_pages[first]
+                s_len = joins[first].feed['enc'].shape[0]
+            if kind == 'miss':
+                enc[i, :s_len] = r.feed['enc']
+                mask[i, :s_len] = 1.0
+                wr_enc[i, :len(pages)] = pages
+            src_len[i] = s_len
+            enc_pages_of[i] = pages
+            pt_enc[i, :len(pages)] = pages
+            pt_hist[i, :len(hist_pages[i])] = hist_pages[i]
+        free = [i for i, occ in enumerate(self._occupant) if occ is None]
+        self._scatter_join(free[:n], enc, mask, [r.limit for r in joins],
+                           pt_hist, pt_enc, wr_enc)
+        # the pages now hold real content: make the miss entries resident
+        # (refs = every user in this batch, the first writer plus its
+        # dups), so a half-written prefix can never be hit
+        for i in miss_idx:
+            key = joins[i].pkey
+            if key is not None:
+                users = 1 + sum(1 for p in plan
+                                if p[0] == 'dup' and p[1] == i)
+                self._prefix.insert(key, miss_pages[i], int(src_len[i]),
+                                    refs=users)
+        now = time.monotonic()
+        pages_free = self._pages_free()
+        _G_PAGES_FREE.set(pages_free)
+        for i, req in enumerate(joins):
+            slot = free[i]
+            self._occupant[slot] = req
+            self._slot_steps[slot] = 0
+            hit = plan[i][0] != 'miss'
+            self._slot_pages[slot] = {
+                'hist': hist_pages[i], 'enc': enc_pages_of[i],
+                'pkey': req.pkey}
+            req.t_join = now
+            with self._lock:
+                self._n['joins'] += 1
+                self._win['joins'] += 1
+                key = 'prefix_hits' if hit else 'prefix_misses'
+                self._n[key] += 1
+                self._win[key] += 1
+            _C_JOINS.inc()
+            (_C_PREFIX_HITS if hit else _C_PREFIX_MISSES).inc()
+            obs.event('decode.join', slot=slot, limit=req.limit,
+                      src_len=int(src_len[i]), prefix_hit=hit,
+                      pages_hist=len(hist_pages[i]),
+                      pages_enc=len(enc_pages_of[i]),
+                      pages_free=pages_free)
+        self._note_occupancy()
+
+    def _pages_free(self):
+        return self._hist_pool.free_count + self._enc_pool.free_count
+
+    def _release(self, slot, poisoned, ids_np, par_np, acc_np):
+        """Resolve the slot's future from the step's fetched token history
+        (host arrays; in paged mode ids_np/par_np are the page POOLS and
+        the slot's history is gathered through its page table) and free
+        it: pages return to the pool, the prefix entry stays resident with
+        its ref count dropped (loop thread only)."""
+        from ..fluid.ops_impl.lod_beam import backtrace_beams
+        cfg = self.config
+        req = self._occupant[slot]
+        self._occupant[slot] = None
+        taken = self._slot_steps[slot]
+        sp = self._slot_pages[slot]
+        self._slot_pages[slot] = None
+        if sp is not None:
+            self._hist_pool.release(sp['hist'])
+            if sp['pkey'] is not None:
+                self._prefix.unref(sp['pkey'])
+            else:
+                self._enc_pool.release(sp['enc'])
+            _G_PAGES_FREE.set(self._pages_free())
+        with self._lock:
+            self._n['releases'] += 1
+            self._win['releases'] += 1
+        _C_RELEASES.inc()
+        _G_SLOTS.set(sum(o is not None for o in self._occupant))
+        if req is None:
+            return
+        if poisoned:
+            with self._lock:
+                self._n['poisoned'] += 1
+                self._win['poisoned'] += 1
+            _C_POISONED.inc()
+            obs.event('decode.poisoned', slot=slot, steps=taken)
+            req.future.set_exception(DecodeSlotPoisoned(
+                'slot %d produced non-finite beam scores after %d '
+                'step(s); the request was aborted (other in-flight '
+                'sequences are unaffected)' % (slot, taken)))
+            return
+        acc = acc_np[slot]
+        if cfg.paged:
+            K = cfg.beam_size
+            ids_seq = ids_np[sp['hist']].reshape(-1, K)[:taken]
+            par_seq = par_np[sp['hist']].reshape(-1, K)[:taken]
+        else:
+            ids_seq = ids_np[slot, :taken]
+            par_seq = par_np[slot, :taken]
+        toks = backtrace_beams(ids_seq, par_seq)        # [K, taken]
+        if taken < req.limit:
+            # the whole-sequence decode keeps emitting end_id with
+            # identity parents once every beam finished: pad instead of
+            # stepping
+            pad = np.full((cfg.beam_size, req.limit - taken), cfg.end_id,
+                          toks.dtype)
+            toks = np.concatenate([toks, pad], axis=1)
+        with self._lock:
+            self._n['completed'] += 1
+            self._win['completed'] += 1
+            self._n['tokens'] += taken
+            self._win['tokens'] += taken
+        _H_REQ_TOKENS.observe(taken)
+        obs.event('decode.release', slot=slot, steps=taken,
+                  finished=taken < req.limit)
+        req.future.set_result((toks.astype(np.int64), acc))
+
+    def _loop(self):
+        """Decode-loop thread wrapper: a loop bug fails every in-flight
+        and queued future loudly instead of stranding them."""
+        try:
+            self._loop_body()
+        except BaseException as e:  # noqa: BLE001 — resolved into futures
+            obs.event('decode.loop.error',
+                      error='%s: %s' % (type(e).__name__, e))
+            with self._lock:
+                self._shutdown = True
+                self._drain = False
+                doomed = [r for r in self._queue]
+                self._queue.clear()
+                _G_QDEPTH.set(0)
+            doomed += [occ for occ in self._occupant if occ is not None]
+            self._occupant = [None] * self.config.slots
+            _G_SLOTS.set(0)
+            for r in doomed:
+                try:
+                    # queued futures are PENDING and must be claimed;
+                    # in-flight ones are already RUNNING and raise here
+                    r.future.set_running_or_notify_cancel()
+                except RuntimeError:
+                    pass
+                if not r.future.done():
+                    r.future.set_exception(e)
+
+    def _loop_body(self):
+        while True:
+            shed, joins, doomed = [], [], []
+            with self._lock:
+                free = sum(o is None for o in self._occupant)
+                if free:
+                    joins = self._pop_live_locked(time.monotonic(), shed,
+                                                  free)
+                pending = len(self._queue)
+                closing = self._shutdown
+                if closing and not self._drain:
+                    # queued requests fail with ServerClosed; active slots
+                    # still finish. Futures resolve OUTSIDE the lock
+                    while self._queue:
+                        doomed.append(self._queue.popleft())
+                    doomed += joins     # claimed but not yet admitted
+                    joins = []
+                    pending = 0
+                    _G_QDEPTH.set(0)
+            for r in doomed:
+                try:
+                    r.future.set_running_or_notify_cancel()
+                except RuntimeError:
+                    pass                # already claimed as a join
+                if not r.future.done():
+                    r.future.set_exception(ServerClosed(
+                        'decode engine shut down without draining'))
+            self._fail_shed(shed)
+            if joins:
+                self._admit(joins)
+            if not any(o is not None for o in self._occupant):
+                if closing and pending == 0:
+                    break
+                with self._lock:
+                    if not self._queue and not self._shutdown:
+                        self._not_empty.wait(_POLL_S)
+                continue
+            handle = self._acquire()
+            t0 = time.perf_counter()
+            # host copies own their memory (Executor._to_numpy): a CPU
+            # tensor's numpy view would alias state the next join updates
+            host = self._exe._to_numpy
+            with self._handle_lock:   # vs warmup's step
+                active_v, ids_v, par_v, acc_v, step_v = handle.step()
+                # the one host sync of a dispatch: each slot's active flag
+                # and step count, in one copy
+                level = host(torch.stack([active_v.to(torch.int32), step_v]))
+                active_np, steps_np = level[0] != 0, level[1]
+                finished = [slot for slot, occ
+                            in enumerate(self._occupant)
+                            if occ is not None and not active_np[slot]]
+                if finished:
+                    # one more for every release of this dispatch
+                    ids_np = host(ids_v)
+                    par_np = host(par_v)
+                    acc_np = host(acc_v)
+            dt = time.perf_counter() - t0
+            _H_STEP.observe(dt)
+            _C_STEPS.inc()
+            with self._lock:
+                self._n['steps'] += 1
+                self._win['steps'] += 1
+            now = time.monotonic()
+            for slot, occ in enumerate(self._occupant):
+                if occ is None:
+                    continue
+                prev_steps = self._slot_steps[slot]
+                self._slot_steps[slot] = cur = int(steps_np[slot])
+                _C_TOKENS.inc(cur - prev_steps)
+                if prev_steps == 0 and cur > 0 and occ.t_join is not None:
+                    _H_TTFT.observe(now - occ.t_submit)
+                if slot in finished:
+                    self._release(slot,
+                                  bool(np.isnan(acc_np[slot]).any()),
+                                  ids_np, par_np, acc_np)
+
+    # -- lifecycle / stats -------------------------------------------------
+
+    def request_shutdown(self):
+        """Signal-safe: flag only."""
+        self._shutdown = True
+
+    def shutdown(self, drain=True, timeout=None):
+        """Stop admission; with drain=True every queued request still
+        decodes, else queued futures fail with ServerClosed (in-flight
+        sequences always finish). No future is ever lost."""
+        with self._lock:
+            self._drain = drain
+            self._shutdown = True
+            self._not_empty.notify_all()
+            self._not_full.notify_all()
+        self._thread.join(timeout)
+        done = not self._thread.is_alive()
+        extra = {}
+        if self.config.paged:
+            extra.update(pages_total=(self._hist_pool.usable
+                                      + self._enc_pool.usable),
+                         prefix_hits=self._n['prefix_hits'],
+                         prefix_misses=self._n['prefix_misses'],
+                         prefix_evictions=(self._prefix.evictions
+                                           if self._prefix else 0))
+        obs.event('decode.shutdown', drained=drain, clean=done,
+                  completed=self._n['completed'],
+                  tokens=self._n['tokens'], **extra)
+        return done
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self.shutdown(drain=exc_type is None)
+        return False
+
+    def _page_fields(self):
+        return {'pages_total': self._hist_pool.usable + self._enc_pool.usable,
+                'pages_free': self._pages_free()}
+
+    @property
+    def stats(self):
+        """Cumulative decode statistics + instantaneous depth/occupancy
+        (the windowed signal is stats_window())."""
+        with self._lock:
+            depth = len(self._queue)
+        out = {k: self._n.get(k, 0) for k in
+               ('submitted', 'completed', 'rejected', 'shed', 'poisoned',
+                'joins', 'releases', 'steps', 'tokens', 'slots_high_water')}
+        out['queue_depth'] = depth
+        out['queue_high_water'] = self._q_high_water
+        out['slots'] = self.config.slots
+        out['slots_occupied'] = sum(o is not None for o in self._occupant)
+        out['warm'] = self._warm
+        if self.config.paged:
+            out.update(self._page_fields())
+            out['prefix_hits'] = self._n['prefix_hits']
+            out['prefix_misses'] = self._n['prefix_misses']
+            out['prefix_evictions'] = (self._prefix.evictions
+                                       if self._prefix else 0)
+        return out
+
+    def stats_window(self):
+        """Admission-pressure counters SINCE THE LAST CALL (queue
+        high-water mark, shed/reject counts, page occupancy and prefix hit
+        rate); reading resets the window."""
+        with self._lock:
+            win = dict(self._win)
+            self._win.clear()
+            depth = len(self._queue)
+        for k in ('queue_high_water', 'shed', 'rejected', 'submitted',
+                  'completed', 'tokens'):
+            win.setdefault(k, 0)
+        win['queue_depth'] = depth
+        win['inflight'] = sum(o is not None for o in self._occupant)
+        # 'capacity' is the ADMISSION queue capacity, as on ServingEngine
+        win['capacity'] = self.config.queue_capacity
+        win['slots'] = self.config.slots
+        if self.config.paged:
+            win.update(self._page_fields())
+            seen = win.get('prefix_hits', 0) + win.get('prefix_misses', 0)
+            win['prefix_hit_rate'] = (win.get('prefix_hits', 0) / seen
+                                      if seen else None)
+        else:
+            win['pages_free'] = win['pages_total'] = 0
+            win['prefix_hit_rate'] = None
+        return win
+
+    def state_bytes(self):
+        """Total bytes of the per-request decode STATE tensors (slot state
+        + history/encoder storage: dense buffers or page pools + page
+        tables; weights excluded)."""
+        total = 0
+        for shape, dtype in self._state_spec.values():
+            total += int(np.prod(shape)) * np.dtype(dtype).itemsize
+        return total

@@ -12,7 +12,9 @@ an online softmax, the plain version in one product and one softmax. 3e-4
 for the backward kernels, the Pallas backward's own tolerance
 (tests/test_flash_attention.py:64). 1e-6 for the sparse optimizer kernels,
 the Pallas kernels' (tests/test_kernels.py:182): kernel and plain version
-evaluate the same fp32 expression.
+evaluate the same fp32 expression. 1e-5 + 1e-5*|plain| for the paged
+decode attention, the Pallas kernel's (tests/test_kernels.py:127): an
+online softmax against one softmax over the gathered rows.
 """
 import importlib
 import os
@@ -312,3 +314,123 @@ def test_sparse_deepfm_step_on_the_card_matches_the_cpu(card, opt):
     for n, w in ws.items():
         np.testing.assert_allclose(gs[n], w, rtol=1e-5, atol=1e-6,
                                    err_msg=n)
+
+
+# -- the paged decode attention kernel ---------------------------------------
+
+tpa = importlib.import_module('paddle_tpu_torch.ops.kernels.paged_attention')
+
+
+def _paged_case(seed, C, beam, ps, npe, src_cap, D, lo=1, masked_slot=None):
+    """A paged encoder pool as the engine lays it out: page 0 the zero
+    page, each slot's pages drawn from a permutation of the rest, a length
+    in [lo, src_cap] setting the mask, tail entries on page 0; the
+    `masked_slot` owns no page (an inactive slot)."""
+    r = np.random.RandomState(seed)
+    n_pages = 1 + C * npe
+    enc = (r.randn(n_pages, ps, D) * 0.5).astype('float32')
+    enc[0] = 0.0
+    mask = np.zeros((n_pages, ps), 'float32')
+    free = list(r.permutation(np.arange(1, n_pages)))
+    pt = np.zeros((C, npe), 'int32')
+    for c in range(C):
+        ln = 0 if c == masked_slot else int(r.randint(lo, src_cap + 1))
+        for j in range(-(-ln // ps)):
+            pt[c, j] = free.pop()
+            mask[pt[c, j], :max(0, min(ps, ln - j * ps))] = 1.0
+    q = (r.randn(C * beam, D) * 0.3).astype('float32')
+    return q, enc, mask, pt
+
+
+@pytest.mark.parametrize('C,beam,ps,npe,src_cap,D,masked', [
+    (16, 3, 16, 2, 32, 1024, None),     # the main decode path
+    (16, 3, 16, 2, 29, 1024, None),     # src_cap not a multiple of ps
+    (16, 3, 16, 2, 32, 1024, 5),        # one fully masked slot
+    (64, 1, 16, 2, 32, 1024, None),     # beam 1, the speculative shape
+    (4, 3, 3, 2, 5, 6, 1),              # the test decoder's width
+    (3, 2, 4, 3, 10, 200, None),        # D not a multiple of 128
+])
+def test_paged_attention_kernel_matches_plain(card, C, beam, ps, npe,
+                                              src_cap, D, masked):
+    args = [torch.from_numpy(a).to(card) for a in _paged_case(
+        C * 100 + D + src_cap, C, beam, ps, npe, src_cap, D,
+        masked_slot=masked)]
+    before = tpa.KERNEL.launches
+    got = tpa.paged_attention(*args, src_cap)
+    torch.cuda.synchronize()
+    assert tpa.KERNEL.launches == before + 1
+    want = tpa.paged_attention_plain(*args, src_cap)
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs() <= 1e-5 + 1e-5 * want.abs()).all(), \
+        float((got - want).abs().max())
+
+
+def test_paged_attention_wrapper_refuses_what_it_does_not_take(card):
+    q, enc, mask, pt = [torch.from_numpy(a).to(card) for a in _paged_case(
+        1, 2, 3, 4, 2, 8, 16)]
+    with pytest.raises(ValueError, match='pt_enc'):
+        tpa.paged_attention(q, enc, mask, pt.long(), 8)
+    with pytest.raises(ValueError, match='src_cap'):
+        tpa.paged_attention(q, enc, mask, pt, 9)
+    with pytest.raises(ValueError, match='q'):
+        tpa.paged_attention(q[:5], enc, mask, pt, 8)
+
+
+def test_paged_attention_takes_unaligned_contiguous_views(card):
+    """Contiguous views that start one float into their storage: the pool
+    is not 16-byte aligned, so the kernel must not take its float4 loads
+    (a misaligned vector load would fault the context)."""
+    args = [torch.from_numpy(a).to(card) for a in _paged_case(
+        3, 4, 3, 16, 2, 32, 1024)]
+
+    def shifted(t):
+        base = torch.empty(t.numel() + 1, dtype=t.dtype, device=card)
+        v = base[1:].view(t.shape)
+        v.copy_(t)
+        return v
+
+    q, enc = shifted(args[0]), shifted(args[1])
+    assert enc.is_contiguous() and enc.data_ptr() % 16 != 0
+    got = tpa.paged_attention(q, enc, args[2], args[3], 32)
+    want = tpa.paged_attention_plain(*args, 32)
+    assert ((got - want).abs() <= 1e-5 + 1e-5 * want.abs()).all(), \
+        float((got - want).abs().max())
+
+
+@pytest.mark.parametrize('bundle', [1, 3])
+def test_paged_decode_on_the_card_matches_the_dense_engine(card, bundle):
+    """The paged DecodeEngine on the card (the kernel, one launch per step
+    dispatch and bundled step) against the dense engine on the card (no
+    kernel): equal tokens, scores within 1e-5."""
+    from paddle_tpu_torch import serving
+    r = np.random.RandomState(7)
+    V, E, D, H, K, SRC, T = 20, 8, 6, 8, 3, 5, 8
+    w = {'w_dec': r.randn(E + D, 4 * H) * 0.3,
+         'u_dec': r.randn(H, 4 * H) * 0.3,
+         'b_dec': r.randn(1, 4 * H) * 0.1, 'w_q': r.randn(H, D) * 0.3,
+         'w_emb': r.randn(V, E) * 0.3, 'w_out': r.randn(H, V) * 0.3,
+         'b_out': r.randn(1, V) * 0.1}
+    encs = [(r.randn(r.randint(2, SRC + 1), D) * 0.5).astype('float32')
+            for _ in range(8)]
+    lims = [int(r.randint(1, T + 1)) for _ in encs]
+    out, launched = {}, {}
+    for paged in (True, False):
+        kw = dict(page_size=3, pages=8) if paged else {}
+        eng = serving.DecodeEngine(w, serving.DecodeConfig(
+            slots=3, beam_size=K, max_len=T, src_cap=SRC, bundle=bundle,
+            **kw))
+        before = tpa.KERNEL.launches
+        try:
+            eng.warmup()
+            futs = [eng.submit({'enc': e}, max_new_tokens=n)
+                    for e, n in zip(encs, lims)]
+            out[paged] = [f.result(120) for f in futs]
+            steps = eng._handle.steps
+        finally:
+            eng.shutdown()
+        launched[paged] = (tpa.KERNEL.launches - before, steps)
+    assert launched[True][0] == bundle * launched[True][1]
+    assert launched[False][0] == 0
+    for (tp, sp), (td, sd) in zip(out[True], out[False]):
+        assert np.array_equal(tp, td)
+        np.testing.assert_allclose(sp, sd, rtol=1e-5, atol=1e-5)

@@ -187,4 +187,4 @@ def test_backward_entry_points_share_one_library_build():
     paths = {k.library.library_path() for k in _cuda.KERNELS.values()}
     assert sorted(p.rsplit('/', 1)[1].rsplit('-', 1)[0] for p in paths) == \
         ['libflash_attention_bwd', 'libflash_attention_fwd',
-         'libsparse_optim']
+         'libpaged_attention', 'libsparse_optim']

@@ -3,8 +3,8 @@
   * it imports neither jax nor the JAX package (checked in a fresh
     interpreter, and on every source line);
   * its entry points run on the card unless asked for the CPU: with no
-    card, Executor() and Predictor(dirname) raise instead of running on
-    the CPU;
+    card, Executor(), Predictor(dirname) and serving.DecodeEngine(weights)
+    raise instead of running on the CPU;
   * chip_smoke.py refuses to run, and prints no result, without a card or
     outside a checkout.
 """
@@ -40,6 +40,10 @@ SUBMODULES = [
     'paddle_tpu_torch.embedding.lookup', 'paddle_tpu_torch.ops.kernels',
     'paddle_tpu_torch.ops.kernels.sparse_optim',
     'paddle_tpu_torch.models.deepfm', 'paddle_tpu_torch.dataset.common',
+    'paddle_tpu_torch.ops.kernels.paged_attention',
+    'paddle_tpu_torch.fluid.ops_impl.lod_beam',
+    'paddle_tpu_torch.fluid.ops_impl.sampled_ops',
+    'paddle_tpu_torch.serving.pages', 'paddle_tpu_torch.serving.decode',
 ]
 
 
@@ -113,6 +117,30 @@ def test_predictor_defaults_to_the_card_and_raises_without_one(tmp_path):
     got = inference.Predictor(str(tmp_path), place=fluid.CPUPlace()).run(
         {'x': np.ones((2, 4), 'float32')})[0]
     assert got.shape == (2, 3)
+
+
+def test_decode_engine_defaults_to_the_card_and_raises_without_one():
+    _no_card()
+    from paddle_tpu_torch import serving
+    r = np.random.RandomState(0)
+    weights = {k: r.randn(*shape).astype('float32') for k, shape in (
+        ('w_dec', (10, 16)), ('u_dec', (4, 16)), ('b_dec', (1, 16)),
+        ('w_q', (4, 6)), ('w_emb', (9, 4)), ('w_out', (4, 9)),
+        ('b_out', (1, 9)))}
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        serving.DecodeEngine(weights)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        serving.DecodeEngine(weights, serving.DecodeConfig(
+            page_size=4, pages=8))
+    eng = serving.DecodeEngine(weights, serving.DecodeConfig(
+        slots=2, max_len=4, src_cap=3, page_size=2, pages=4),
+        place=fluid.CPUPlace())
+    try:
+        eng.warmup()
+        ids, scores = eng.predict({'enc': r.randn(2, 6)}, timeout=60)
+        assert ids.shape == (3, 4) and scores.shape == (3,)
+    finally:
+        eng.shutdown()
 
 
 @pytest.mark.parametrize('where', ['checkout', 'alone'])

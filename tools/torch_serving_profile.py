@@ -1,16 +1,27 @@
 #!/usr/bin/env python3
-"""Where the time goes in the PyTorch port's serving forward, on one card.
+"""Where the time goes in the PyTorch port's serving paths, on one card.
 
     python3 tools/torch_serving_profile.py [--batch 16 1] [--runs 5]
+    python3 tools/torch_serving_profile.py --model decode [--runs 3]
 
-Builds full-width Transformer-base with the port (the artifact
-chip_smoke.py serves), loads it with Predictor on CUDAPlace(0), and for
-each batch size times Predictor.run on the host clock (each run ends in
-its device-to-host fetch, so the wall time is the request's) and traces
-the same runs with torch.profiler: device time by kernel, grouped into
-classes (matmul, flash attention, elementwise/normalization, copies), and
-the device's idle share of the wall time. Prints one JSON line per batch
-size.
+--model transformer (the default) builds full-width Transformer-base with
+the port (the artifact chip_smoke.py serves), loads it with Predictor on
+CUDAPlace(0), and for each batch size times Predictor.run on the host
+clock (each run ends in its device-to-host fetch, so the wall time is the
+request's) and traces the same runs with torch.profiler: device time by
+kernel, grouped into classes (matmul, flash attention, elementwise/
+normalization, copies), and the device's idle share of the wall time.
+Prints one JSON line per batch size.
+
+--model decode builds chip_smoke.py's phase 6 engine (the paged
+DecodeEngine at the machine_translation decoder's full width) on the card,
+fills all 16 slots with requests of the longest limit, then holds the
+decode loop and runs `--runs` dispatches itself as the loop runs them (the
+step, then the one host sync of the slots' active flags and step counts):
+first timed on the host clock, then traced. Device ms per dispatch by
+class (matmul, top-k sort, paged_attention, elementwise and gathers,
+copies), the busy time and the idle share of the traced dispatches. One
+JSON line.
 """
 import argparse
 import json
@@ -28,6 +39,7 @@ import chip_smoke  # noqa: E402  (builds the artifact it serves)
 
 
 def _kernel_class(name):
+    """The Transformer forward's classes."""
     n = name.lower()
     if 'flash_attention' in n or 'fwd_kernel' in n:
         return 'flash_attention_fwd'
@@ -38,25 +50,43 @@ def _kernel_class(name):
     return 'elementwise/norm/other'
 
 
-def profile_batch(pred, feed, runs):
+def _decode_class(name):
+    """The decode step's classes: its sort and its gathers have their
+    own, and memsets count as copies."""
+    n = name.lower()
+    if 'paged_attention' in n:
+        return 'paged_attention'
+    if 'gemm' in n or 'sgemm' in n or 'cutlass' in n or 'xmma' in n:
+        return 'matmul'
+    if 'memcpy' in n or 'memset' in n:
+        return 'copy'
+    if 'sort' in n or 'radix' in n:
+        return 'top-k sort'
+    return 'elementwise/gather/other'
+
+
+def profile_runs(run, runs, classify=_kernel_class):
+    """Time `runs` calls of run() on the host clock (each ends in a host
+    sync), then trace as many with torch.profiler: device time by class
+    and by kernel, busy time and idle share, per call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
-        pred.run(feed)
+        run()
     torch.cuda.synchronize()
     walls = []
     for _ in range(runs):
         t0 = time.perf_counter()
-        pred.run(feed)
+        run()
         walls.append(time.perf_counter() - t0)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(runs):
-            pred.run(feed)
+            run()
         torch.cuda.synchronize()
         traced_wall = time.perf_counter() - t0
-    classes, kernels = {}, {}
+    classes, kernels, n_device = {}, {}, 0
     for evt in prof.events():
         # device-side records only (kernels, memcpys): the host ops that
         # launched them carry the same time again in their totals, and so
@@ -66,8 +96,9 @@ def profile_batch(pred, feed, runs):
                 or evt.is_user_annotation:
             continue
         dev_us = evt.time_range.elapsed_us()
+        n_device += 1
         kernels[evt.name] = kernels.get(evt.name, 0.0) + dev_us
-        c = _kernel_class(evt.name)
+        c = classify(evt.name)
         classes[c] = classes.get(c, 0.0) + dev_us
     busy_s = sum(classes.values()) / 1e6
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
@@ -78,21 +109,76 @@ def profile_batch(pred, feed, runs):
         'device_idle_share': 1.0 - busy_s / traced_wall,
         'device_ms_per_run_by_class': {
             k: v / 1e3 / runs for k, v in sorted(classes.items())},
+        'device_records_per_run': n_device / runs,
         'top_kernels_ms_per_run': [[k[:90], v / 1e3 / runs]
                                    for k, v in top],
     }
 
 
+def profile_decode(card, runs):
+    """chip_smoke.py's phase 6 engine with all slots decoding: `runs`
+    dispatches timed, then traced, from this thread while it holds the
+    decode loop off (the engine's handle lock)."""
+    import torch
+    from paddle_tpu_torch import serving
+    cfg = chip_smoke.DECODE_CONFIG
+    eng = serving.DecodeEngine(chip_smoke.mt_decoder_weights(),
+                               serving.DecodeConfig(**cfg))
+    reqs = chip_smoke.decode_requests()[:cfg['slots']]
+    try:
+        eng.warmup()
+        futs = [eng.submit({'enc': e}, max_new_tokens=cfg['max_len'])
+                for e, _ in reqs]
+        t_end = time.monotonic() + 600
+        while eng.stats['joins'] < cfg['slots']:
+            if time.monotonic() > t_end:
+                raise SystemExit('torch_serving_profile: the requests did '
+                                 'not join (%r)' % (eng.stats,))
+            time.sleep(0.001)
+        with eng._handle_lock:
+            if eng.stats['slots_occupied'] != cfg['slots']:
+                raise SystemExit('torch_serving_profile: the slots did not '
+                                 'fill (%r)' % (eng.stats,))
+            handle = eng._acquire()
+
+            def dispatch():
+                # what one turn of the decode loop runs: the step, then
+                # one host copy of the active flags and step counts
+                active, _, _, _, step = handle.step()
+                torch.stack([active.to(torch.int32), step]).cpu()
+
+            r = profile_runs(dispatch, runs, _decode_class)
+            # 2 warm + runs timed + runs traced dispatches: every slot
+            # must still be decoding (none reached max_len)
+            if any(f.done() for f in futs):
+                raise SystemExit('torch_serving_profile: a slot finished '
+                                 'inside the profiled dispatches')
+        for f in futs:
+            f.result(timeout=600)
+    finally:
+        eng.shutdown()
+    return dict(card=card, model='decode', config=cfg,
+                decoder=chip_smoke.MT_DECODER, slots_active=cfg['slots'],
+                dispatches=runs, **r)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument('--model', choices=('transformer', 'decode'),
+                    default='transformer')
     ap.add_argument('--batch', type=int, nargs='+', default=[16, 1])
-    ap.add_argument('--runs', type=int, default=5)
+    ap.add_argument('--runs', type=int, default=None,
+                    help='runs per batch size (default 5) or dispatches '
+                    '(default 3)')
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         raise SystemExit('torch_serving_profile: needs a CUDA card')
     from paddle_tpu_torch import fluid, inference
     card = chip_smoke.nvidia_smi_line()
+    if args.model == 'decode':
+        print(json.dumps(profile_decode(card, args.runs or 3)), flush=True)
+        return
     cfg = chip_smoke.TRANSFORMER_BASE
     with tempfile.TemporaryDirectory(prefix='torch_serving_profile_') as tmp:
         chip_smoke.build_artifact(tmp, cfg, fluid.CUDAPlace(0))
@@ -103,7 +189,7 @@ def main():
                                         cfg['trg_vocab_size'], rng)[0]
         feed = {n: np.repeat(a, b, axis=0) for n, a in reqs.items()}
         r = dict(card=card, batch=b, max_length=cfg['max_length'],
-                 **profile_batch(pred, feed, args.runs))
+                 **profile_runs(lambda: pred.run(feed), args.runs or 5))
         print(json.dumps(r), flush=True)
 
 
