@@ -11,14 +11,17 @@ result line):
   1. build    — compile every hand-written kernel of the port from the
                 sources in the checkout (one nvcc per source, all started
                 together); print the build time, ptxas' resource lines and
-                the card's name and power limit.
+                the card's name and power limit; fail if ptxas reports a
+                spill in the backward kernels.
   2. kernels  — each kernel's wrapper against its plain torch version on
                 the card, at the shapes the main paths give it (batch 16:
                 the training batch and serving's largest bucket), within a
                 stated tolerance; time kernel, plain version and the
                 PyTorch library call computing the same function (for the
                 two backward kernels, which no library call computes one
-                at a time: the pair against SDPA's backward). The sparse
+                at a time: the pair against SDPA's backward; the pair is
+                launched twice, and the two results must be bitwise
+                equal). The sparse
                 Adam and Adagrad kernels on DeepFM's [100000, D] tables in
                 four merges: the first reader batch's 6,656 ids at D=10
                 and D=1, duplicate-heavy ids from 0..63, and all slots
@@ -85,6 +88,7 @@ import importlib
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -94,10 +98,13 @@ import numpy as np
 
 SEED = 2024
 # the card's published peaks (NVIDIA H100 SXM data sheet): device memory
-# rate, and the fp32 rate outside the tensor cores (the kernel runs fp32
-# FFMA; TF32 is off on the port's GPU path)
+# rate, the fp32 rate outside the tensor cores (the forward and the other
+# kernels run fp32 FFMA), and the dense TF32 rate of the tensor cores. The
+# backward pair runs its products in 3xTF32, three TF32 products per fp32
+# product, so its least time counts its FLOPs at PEAK_TF32_FLOPS / 3.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 # kernel vs plain torch, fp32 on the card: the kernel sums q.k over D and
 # p.v over keys in tile order with an online softmax, the plain version in
 # one cuBLAS product and one softmax — different summation orders
@@ -258,8 +265,18 @@ def phase_build():
         % (len(logs), secs, ', '.join(sorted(ops.KERNELS))))
     for name, text in sorted(logs.items()):
         for line in text.splitlines():
-            if 'registers' in line or 'spill' in line or 'smem' in line:
+            if 'registers' in line or 'spill' in line or 'smem' in line \
+                    or 'entry function' in line:
                 log('[build] %s: %s' % (name, line.strip()))
+    # the backward pair keeps its tiles of s, dP and the outputs in
+    # registers: a spill would put them in local memory
+    bwd = logs.get(importlib.import_module(
+        'paddle_tpu_torch.ops.flash_attention').KERNEL_BWD_DQ.source, '')
+    spills = [m for m in re.findall(r'(\d+) bytes spill stores, (\d+) bytes '
+                                    r'spill loads', bwd) if m != ('0', '0')]
+    if spills:
+        raise AssertionError('the backward kernels spill registers: %r'
+                             % (spills,))
     log('[build] card: %s' % nvidia_smi_line())
 
 
@@ -288,12 +305,11 @@ def _pairs(Tq, Tk, causal):
     return Tq * Tk
 
 
-def _bound(flops, nbytes):
+def _bound(flops, nbytes, peak_flops=PEAK_FP32_FLOPS):
     """Least time for the work, ms, and what bounds it."""
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    return (max(t_ops, t_bytes),
-            'operations' if t_ops >= t_bytes else 'bytes')
+    return max(t_ops, t_bytes), 'operations' if t_ops >= t_bytes else 'bytes'
 
 
 def _attention_bound(B, H, Tq, Tk, D, causal):
@@ -308,14 +324,19 @@ def _attention_bound(B, H, Tq, Tk, D, causal):
 def _attention_bwd_bound(B, H, Tq, Tk, D, causal, which):
     """Backward: dQ ('dq') does 3 tile products per pair (s, dP, dQ), dK/dV
     ('dkv') 4 (s, dP, dV, dK), the two ('both') 14 * B * H * D * pairs
-    FLOPs. Each reads q, k, v, dO, bias, lse and delta once and writes its
-    outputs once."""
+    FLOPs, each an fp32-accurate product from three TF32 ones (3xTF32), so
+    at a third of the TF32 rate. Each reads q, k, v, dO, bias, lse and
+    delta once and writes its outputs once."""
     products = {'dq': 3, 'dkv': 4, 'both': 7}[which]
     flops = 2.0 * products * B * H * D * _pairs(Tq, Tk, causal)
     reads = B * H * Tq * D * 2 + B * H * Tk * D * 2 + B * Tk + 2 * B * H * Tq
     writes = (B * H * Tq * D * (which != 'dkv')
               + 2 * B * H * Tk * D * (which != 'dq'))
-    return _bound(flops, 4.0 * (reads + writes))
+    return _bound(flops, 4.0 * (reads + writes), PEAK_TF32_FLOPS / 3)
+
+
+# the rate the backward's operations are counted at, beside its bound_by
+BWD_OPS_RATE = '3xTF32: 495 / 3 TFLOP/s'
 
 
 def _sdpa_mask(c):
@@ -399,7 +420,13 @@ def phase_kernels():
         fa._check_bwd(q, do, lse, delta)
         dq = fa._bwd_dq_cuda(*bwd)
         dk, dv = fa._bwd_dkv_cuda(*bwd)
+        # each block owns the rows it writes, in a fixed order: a second
+        # launch on the same inputs must give the same bits
+        again = (fa._bwd_dq_cuda(*bwd),) + fa._bwd_dkv_cuda(*bwd)
         torch.cuda.synchronize()
+        deterministic = all(torch.equal(a.view(torch.int32),
+                                        b.view(torch.int32))
+                            for a, b in zip((dq, dk, dv), again))
         want_dq = fa.flash_attention_bwd_dq_plain(*bwd)
         want_dkv = fa.flash_attention_bwd_dkv_plain(*bwd)
         # no library call computes dQ alone or dK/dV alone: SDPA's
@@ -415,7 +442,7 @@ def phase_kernels():
             kernels=['flash_attention_bwd_dq', 'flash_attention_bwd_dkv'],
             ms=time_ms(lambda: (fa._bwd_dq_cuda(*bwd),
                                 fa._bwd_dkv_cuda(*bwd))),
-            bound_ms=pair_bound, bound_by=pair_by,
+            bound_ms=pair_bound, bound_by=pair_by, ops_rate=BWD_OPS_RATE,
             library='torch.autograd.grad through scaled_dot_product_'
                     'attention: dQ, dK and dV in one backward',
             library_ms=time_ms(lambda: torch.autograd.grad(
@@ -428,12 +455,14 @@ def phase_kernels():
             bound_ms, bound_by = _attention_bwd_bound(Bq, Hq, Tq, Tk, Dq,
                                                       causal, which)
             r = dict(head, max_abs_err=_max_err(got, want),
-                     ok=_allclose(got, want, KERNEL_BWD_TOL),
-                     tol=KERNEL_BWD_TOL,
+                     ok=_allclose(got, want, KERNEL_BWD_TOL)
+                     and deterministic,
+                     deterministic=deterministic, tol=KERNEL_BWD_TOL,
                      ms=time_ms(lambda: kern(*bwd)),
                      plain_ms=time_ms(lambda: plain(*bwd)),
                      library_ms=None, bound_ms=bound_ms,
-                     bound_by=bound_by, backward_pair=pair)
+                     bound_by=bound_by, ops_rate=BWD_OPS_RATE,
+                     backward_pair=pair)
             log('[kernels] %s %s' % (name, json.dumps(r)))
             results[name].append(r)
     results.update(_sparse_optim_cases())
@@ -442,8 +471,11 @@ def phase_kernels():
         bad = [r['case'] for r in rs if not r['ok']]
         if bad:
             raise AssertionError('%s disagrees with its plain version '
-                                 'beyond %g in: %s'
-                                 % (name, rs[0]['tol'], bad))
+                                 'beyond %g%s in: %s' % (
+                                     name, rs[0]['tol'],
+                                     ', or with its own second launch,'
+                                     if 'deterministic' in rs[0] else '',
+                                     bad))
     return results
 
 
@@ -1413,7 +1445,9 @@ def main():
             ms=head['ms'], plain_ms=head['plain_ms'],
             bound_ms=head['bound_ms'], bound_by=head['bound_by'],
             library_ms=head['library_ms'], shape=head['shape'],
-            **({'backward_pair': head['backward_pair']}
+            **({'ops_rate': head['ops_rate'],
+                'deterministic': all(r['deterministic'] for r in rs),
+                'backward_pair': head['backward_pair']}
                if 'backward_pair' in head else {}),
             cases=rs))
     log(json.dumps({'kernels': kernels}))

@@ -1,4 +1,5 @@
-// Flash-attention backward for Hopper (sm_90a), fp32.
+// Flash-attention backward for Hopper (sm_90a): fp32 in and out, tile
+// products on the tensor cores in 3xTF32.
 //
 // Replaces the four Pallas grids of the TPU backward in
 // paddle_tpu/ops/flash_attention.py:
@@ -15,19 +16,18 @@
 //                            query tiles                     -> dK, dV
 //
 // What they compute, with s, P recomputed from the forward's saved lse:
-//   s[q,k] = (q * scale) . k + bias[b, k]   (scale on q first, as the forward
-//            kernel csrc/flash_attention_fwd.cu does; the same d-order fmaf
-//            sum, so s is the forward's s)
+//   s[q,k] = (q . k) * scale + bias[b, k]
 //   s      = NEG_BIG (-1e9) where causal and qpos < kpos  (set, not added)
 //   s      = -inf past Tk                                   (P = 0)
 //   P      = exp(s - lse[q]);   dP = dO . V^T
 //   dS'    = P * (dP - delta[q])       (delta = rowsum(dO * O) - dlse, made
 //                                       by the wrapper in plain torch, as the
 //                                       JAX package makes it outside Pallas)
-//   dQ     = scale * sum_k dS' k;  dK = sum_q dS' (q * scale);  dV = sum_q P dO
+//   dQ     = scale * sum_k dS' k;  dK = scale * sum_q dS' q;  dV = sum_q P dO
 // Inputs q, dO [B, H, Tq, D], k, v [B, H, Tk, D], bias [B, Tk], lse and delta
 // [B, H, Tq], all contiguous fp32; outputs dQ [B, H, Tq, D] and dK, dV
-// [B, H, Tk, D].
+// [B, H, Tk, D]. The scale is applied to the fp32 accumulators, not to q
+// before the product: the same function, rounded in another place.
 //
 // Why two passes and not FlashAttention-2's single pass. FA2 walks key tiles
 // in the outer loop, accumulates dK/dV in registers and adds each query
@@ -36,217 +36,470 @@
 // changes from run to run, so the gradients are not reproducible, and the
 // atomics contend on the same dQ rows from Tk/64 blocks. Here each block owns
 // the rows it writes (dQ rows in the first kernel, dK/dV rows in the second):
-// no atomics, no zero-fill, and the result is deterministic. It is also the
-// TPU's own split into two passes. The price is that s and P are computed
-// twice (once per kernel).
+// no atomics, no zero-fill, and the result is bitwise the same from launch
+// to launch. It is also the TPU's own split into two passes. The price is
+// that s and P are computed twice (once per kernel).
 //
-// What bounds it on the H100: per (query, key) pair the two kernels do 7
+// What bounds it on the H100. Per (query, key) pair the two kernels do 7
 // tile products of depth D (s and dP in both, dQ in the first, dV and dK in
 // the second): 14 * B * H * D * keys FLOPs, keys counting the pairs a causal
-// mask leaves. Against the bytes of q, k, v, dO, lse, delta, bias, dQ, dK
-// and dV (each read or written once) that is far above the card's fp32 ridge
-// (67 TFLOP/s over 3.35 TB/s = 20 FLOP/byte) at T = 256, so it is bound by
-// arithmetic: fp32 FFMA on the CUDA cores (TF32 is off on the port's path),
-// fed from shared memory.
+// mask leaves. Against the bytes of q, k, v, dO, lse, delta, bias, dQ, dK and
+// dV (each read or written once) that is far above the card's ridge at
+// T = 256, so it is bound by arithmetic. fp32 FFMA on the CUDA cores peaks at
+// 67 TFLOP/s; the tensor cores take TF32 at 495 TFLOP/s, and three TF32
+// products per fp32 product (3xTF32, below) give fp32-level accuracy at
+// 495 / 3 = 165 TFLOP/s: that is the bound these kernels are held to.
+// In practice they are bound by instruction throughput, well before the
+// tensor cores: every B fragment an mma.sync reads is loaded from shared memory
+// and split by each warp that uses it, about 4 instructions a value beside
+// the 3 mma instructions per fragment, and only 8 warps fit an SM (the
+// shared memory of 2 blocks). Cheaper splits moved the time most
+// (PERF.md).
 //
-// What the design does about it (the forward kernel's scheme):
-//   * 64 x 64 tiles staged in shared memory, so each element of a streamed
-//     tile feeds 64 rows of the resident one; the [Tq, Tk] P and dS never
-//     leave the chip;
-//   * 256 threads as a 16 x 16 grid, each holding a 4 x 4 register tile of
-//     s and dP (rows ty + 16i, columns tx + 16j) and 4 x D/16 accumulators
-//     per output, so every shared-memory load feeds several FMAs; tiles read
-//     along D are padded to D+1 columns and P/dS tiles to 65, which keeps the
-//     reads free of bank conflicts;
-//   * under causal masking the dQ loop stops at the tile holding the query
+// What the design does about it:
+//   * 3xTF32 on the tensor cores. Every tile product is
+//     mma.sync.m16n8k8.row.col.f32.tf32.tf32.f32 (inline PTX). Each fp32
+//     operand x is split into big = x rounded to TF32 (to nearest, ties
+//     away, as cvt.rna) and small = x - big, which the tensor core reads
+//     rounded toward zero to TF32; a.b is accumulated in fp32 as
+//     a_small.b_big + a_big.b_small + a_big.b_big, small terms first. The
+//     operand then carries about 21 significant bits (|small| <= 2^-11 |x|,
+//     cut to 11 bits), and the dropped a_small.b_small is about 2^-22 of
+//     the product: fp32-level, as CUTLASS's OpMultiplyAddFastF32, which
+//     SDPA's fp32 backward runs, also rounds one of the two halves toward
+//     zero. Rounding small with a second cvt.rna would cost two more
+//     instructions an operand for one more bit; the split is most of the
+//     kernels' instructions (above). P is __expf's (ex2.approx), within a
+//     few ulp of expf and free of its slow path. One TF32 product alone
+//     keeps 11 significant bits: an error of 5e-4 relative in a score near
+//     10 moves P = exp(s - lse) by more than the 3e-4 tolerance.
+//   * mma.sync and not wgmma. For .tf32, wgmma needs its shared-memory
+//     operands K-major. That holds for s = Q.K^T and dP = dO.V^T as the
+//     tiles sit, but not for dQ = dS.K, dV = P^T.dO or dK = dS^T.Q, whose
+//     summation index is the row index of the stored tile: they would need
+//     transposed copies of K, Q and dO, and the big/small halves of every
+//     operand would have to live in shared memory too. mma.sync reads its
+//     fragments from registers, so each thread splits what it loads and
+//     the stored tiles serve both products.
+//   * Each of the 4 warps owns a 16-row strip of the block's 64 rows (query
+//     rows in the dQ kernel, key rows in the dK/dV kernel) and keeps its
+//     strip of s and dP, and its D-wide output accumulators, in registers.
+//   * The accumulator (C) fragment of m16n8k8 is not an A fragment: thread
+//     (g, t) holds C rows g, g+8 at columns 2t, 2t+1, but A rows g, g+8 at
+//     columns t, t+4. The second product's summation index is permuted
+//     instead of staging dS (or P) through shared memory: within each step
+//     of 8, A position t stands for key (query) 2t and position t+4 for
+//     2t+1, and the B fragment's rows (b0 row t, b1 row t+4) are loaded from
+//     those same keys. The C fragment (c0, c1, c2, c3) is then the A
+//     fragment (c0, c2, c1, c3), with no shuffle and no shared-memory trip.
+//   * Asynchronous, double-buffered tiles. The resident tiles (Q and dO in
+//     the dQ kernel, K and V in the dK/dV kernel) load once; the streamed
+//     ones (K, V and the bias; Q, dO, lse and delta) go through a 2-stage
+//     ring with cp.async, so tile t+1 is in flight while tile t is
+//     multiplied. 16-byte cp.async.cg chunks, with the zero-fill size
+//     operand for rows past Tk or Tq; where D is not a multiple of 4, or a
+//     base is not 16-byte aligned, 4-byte cp.async.ca copies instead. Shared
+//     rows are padded to D+4 floats (D rounded up to 16, 32, 64 or 128; the
+//     columns past D hold zeros, which pads the summation over d): the pitch
+//     keeps every row 16-byte aligned, and with the permuted rows above
+//     every fragment load of 8 rows x 4 columns, or 4 row pairs x 8
+//     columns, hits 32 distinct banks. 6 tiles: 104 KB at D = 64, two
+//     blocks an SM.
+//   * Causal masking: the dQ loop stops at the key tile holding the query
 //     tile's last diagonal key, and the dK/dV loop starts at the query tile
 //     holding the key tile's first diagonal row (the _tri_maps_kv order,
-//     :81-92): tiles above the diagonal are never loaded;
-//   * ragged edges from Tq and Tk, with no padding copies: keys past Tk load
+//     :81-92); tiles above the diagonal are never loaded. A block's work
+//     then grows with its query tile (dQ) or shrinks with its key tile
+//     (dK/dV): blockIdx.x runs over (b, h) and blockIdx.y over the tiles,
+//     longest first, so the tail of the grid is short. (Skipping, inside the
+//     diagonal tile, the steps of 8 keys that lie wholly above a warp's
+//     rows was slower: the guards between the unrolled steps cost more
+//     than the steps.)
+//   * Ragged edges from Tq and Tk, with no padding copies: keys past Tk load
 //     as zeros and get P = 0; query rows past Tq load as zeros (dO, lse and
 //     delta too), get P = 0 and are never stored, so they add nothing.
-// TF32/bf16 tensor cores (wgmma), TMA and warp specialisation are for later
-// versions, as for the forward kernel.
+//
+// s is not the forward kernel's s bit for bit: the forward sums q.k by
+// fp32 FFMA in d order, the tensor cores in another order and rounding. For
+// a live row that is noise far below the tolerance. A row whose every key
+// is masked (the bias puts -1e9 on each) scores near -1e9, where the fp32
+// spacing is 64; -1e9 is itself a multiple of 64, so s rounds to exactly
+// -1e9 unless |q.k * scale| reaches 32. The two designs could round to
+// different multiples only if their products fell on opposite sides of
+// +-32, and real scores stay far below that (if it happened P would jump by
+// e^64). chip_smoke.py's card-vs-CPU gradient check of the training step
+// holds the whole step to that. Such a row's P on the causally masked keys
+// is not 0 either (exp(-1e9 - lse) with lse near -1e9), so skipping the
+// tiles above the diagonal changes its gradient, as it does in the forward
+// kernel: such a row is ill-conditioned in every implementation, and the
+// tests leave it out.
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include "port_cuda.cuh"
 
 namespace {
 
-constexpr int BLOCK_M = 64;    // query rows per tile
-constexpr int BLOCK_N = 64;    // keys per tile
-constexpr int THREADS = 256;   // 16 x 16
-constexpr int PS = BLOCK_N + 1;
+constexpr int BLOCK = 64;      // query rows and keys per tile
+constexpr int THREADS = 128;   // 4 warps, 16 rows each
 constexpr float NEG_BIG = -1e9f;
 
-// Loads rows [r0, r0 + 64) of a [rows, D] matrix into a [64][DP+1] shared
-// tile, times `mul`; rows past `rows` and columns past D are zero.
-template <int DP>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int r0, int rows, int D, float mul) {
-  constexpr int QS = DP + 1;
-  for (int e = (int)threadIdx.x; e < 64 * DP; e += THREADS) {
-    const int r = e / DP, d = e % DP;
-    float val = 0.f;
-    if (r0 + r < rows && d < D) val = src[(size_t)(r0 + r) * D + d] * mul;
-    dst[r * QS + d] = val;
+// -- the tensor-core product -------------------------------------------------
+
+// x = big + small: big is cvt.rna.tf32.f32(x) for a finite x, done in two
+// integer operations (the bits hold sign and magnitude apart, so adding
+// half the unit of the 13 dropped bits and clearing them rounds the
+// magnitude to 10 explicit mantissa bits, ties away from zero; the PTX cvt
+// also handles NaN and inf, which these kernels never split, and costs
+// several instructions more). small = x - big is exact in fp32; it goes to
+// the tensor core as it is, which reads the top 19 bits of a .tf32 operand
+// and so rounds small toward zero.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// An A fragment (16 x 8) split into its TF32 halves.
+struct FragA {
+  uint32_t big[4], small[4];
+  __device__ __forceinline__ void set(float a0, float a1, float a2, float a3) {
+    split_tf32(a0, big[0], small[0]);
+    split_tf32(a1, big[1], small[1]);
+    split_tf32(a2, big[2], small[2]);
+    split_tf32(a3, big[3], small[3]);
+  }
+};
+
+// A B fragment (8 x 8) split into its TF32 halves.
+struct FragB {
+  uint32_t big[2], small[2];
+  __device__ __forceinline__ void set(float b0, float b1) {
+    split_tf32(b0, big[0], small[0]);
+    split_tf32(b1, big[1], small[1]);
+  }
+};
+
+// c[n0 + i] += a . b[i] and d[n0 + i] += e . f[i] in 3xTF32, for N
+// independent accumulators of each: every small.big term first, then every
+// big.small, then every big.big, so that the mmas into one accumulator do
+// not wait on each other back to back. (Measured a few percent faster in
+// the dK/dV kernel than one 3-term product after another, which also
+// spills registers there at D = 128.)
+template <int N, int M>
+__device__ __forceinline__ void mma3_span2(float (&c)[M][4], const FragA& a,
+                                           const FragB (&b)[N],
+                                           float (&d)[M][4], const FragA& e,
+                                           const FragB (&f)[N], int n0) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    mma_tf32(c[n0 + i], a.small, b[i].big);
+    mma_tf32(d[n0 + i], e.small, f[i].big);
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    mma_tf32(c[n0 + i], a.big, b[i].small);
+    mma_tf32(d[n0 + i], e.big, f[i].small);
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    mma_tf32(c[n0 + i], a.big, b[i].big);
+    mma_tf32(d[n0 + i], e.big, f[i].big);
   }
 }
 
-// Loads 64 entries [i0, i0 + 64) of a vector; entries past n are zero.
+// c[n0 + i] += a . b[i] in 3xTF32, in the same order.
+template <int N, int M>
+__device__ __forceinline__ void mma3_span(float (&c)[M][4], const FragA& a,
+                                          const FragB (&b)[N], int n0) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) mma_tf32(c[n0 + i], a.small, b[i].big);
+#pragma unroll
+  for (int i = 0; i < N; ++i) mma_tf32(c[n0 + i], a.big, b[i].small);
+#pragma unroll
+  for (int i = 0; i < N; ++i) mma_tf32(c[n0 + i], a.big, b[i].big);
+}
+
+// The A fragment of rows [r, r+16) and columns [c, c+8) of a shared tile of
+// pitch P: a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4).
+template <int P>
+__device__ __forceinline__ void load_a(FragA& a, const float* tile, int r,
+                                       int c, int g, int t) {
+  const float* p = tile + (r + g) * P + c + t;
+  a.set(p[0], p[8 * P], p[4], p[8 * P + 4]);
+}
+
+// -- asynchronous tile loads -------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool live) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(live ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool live) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(live ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most one committed group is still in flight.
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Starts the copy of rows [r0, r0 + 64) of a [rows, D] matrix into a shared
+// tile of pitch DP+4; rows past `rows` are zero-filled, columns past D are
+// left alone (zero_pad_columns clears them once). `vec`: D is a multiple of
+// 4 and src 16-byte aligned, so rows go in 16-byte chunks.
+template <int DP>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          int r0, int rows, int D, bool vec) {
+  constexpr int P = DP + 4;
+  if (vec) {
+    constexpr int CPR = DP / 4;   // 16-byte chunks per padded row
+#pragma unroll 4
+    for (int e = threadIdx.x; e < BLOCK * CPR; e += THREADS) {
+      const int r = e / CPR, c = (e % CPR) * 4;
+      if (c < D) {
+        const bool live = r0 + r < rows;
+        cp_async16(dst + r * P + c,
+                   live ? src + (size_t)(r0 + r) * D + c : src, live);
+      }
+    }
+  } else {
+    for (int e = threadIdx.x; e < BLOCK * DP; e += THREADS) {
+      const int r = e / DP, c = e % DP;
+      if (c < D) {
+        const bool live = r0 + r < rows;
+        cp_async4(dst + r * P + c,
+                  live ? src + (size_t)(r0 + r) * D + c : src, live);
+      }
+    }
+  }
+}
+
+// Starts the copy of entries [i0, i0 + 64) of a vector; entries past n are
+// zero-filled.
 __device__ __forceinline__ void load_vec(float* dst, const float* src, int i0,
                                          int n) {
   const int i = threadIdx.x;
-  if (i < 64) dst[i] = (i0 + i < n) ? src[i0 + i] : 0.f;
+  if (i < BLOCK) {
+    const bool live = i0 + i < n;
+    cp_async4(dst + i, live ? src + i0 + i : src, live);
+  }
 }
 
-// The forward's score for (qpos, kpos): bias added, causal positions set to
-// NEG_BIG, keys past Tk at -inf.
-__device__ __forceinline__ float masked_score(float s, float b, int qpos,
-                                              int kpos, int Tk, int causal) {
-  float val = s + b;
+// Zeroes columns [D, DP) of `count` consecutive shared tiles (the padding
+// of the summation over d; the copies never write there).
+template <int DP>
+__device__ __forceinline__ void zero_pad_columns(float* tiles, int count,
+                                                 int D) {
+  constexpr int P = DP + 4;
+  const int w = DP - D;
+  for (int e = threadIdx.x; e < count * BLOCK * w; e += THREADS) {
+    const int row = e / w;   // over all tiles' rows
+    tiles[row * P + D + e % w] = 0.f;
+  }
+}
+
+// The forward's score for (qpos, kpos) from the fp32 accumulator: scale,
+// bias, causal positions set to NEG_BIG, keys past Tk at -inf.
+__device__ __forceinline__ float masked_score(float acc, float scale, float b,
+                                              int qpos, int kpos, int Tk,
+                                              int causal) {
+  float val = acc * scale + b;
   if (causal && qpos < kpos) val = NEG_BIG;
   if (kpos >= Tk) val = -INFINITY;
   return val;
 }
 
 template <int DP>
-constexpr int dq_smem_floats() {
-  // Qs, dOs [BLOCK_M][DP+1]; Ks, Vs [BLOCK_N][DP+1]; dSs [BLOCK_M][PS];
-  // Bs [BLOCK_N]; Ls, Ds [BLOCK_M]
-  return 2 * BLOCK_M * (DP + 1) + 2 * BLOCK_N * (DP + 1) + BLOCK_M * PS +
-         BLOCK_N + 2 * BLOCK_M;
+constexpr int smem_floats() {
+  // 2 resident tiles, 2 streamed tiles x 2 stages, each [64][DP+4]; four
+  // 64-entry vectors (dQ: the bias ring, lse, delta; dK/dV: the bias, and
+  // the lse and delta rings take 2 x 2 x 64)
+  return 6 * BLOCK * (DP + 4) + 5 * BLOCK;
 }
+
+// -- dQ ----------------------------------------------------------------------
 
 template <int DP>
 __global__ void __launch_bounds__(THREADS)
 bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ bias,
               const float* __restrict__ dout, const float* __restrict__ lse,
-              const float* __restrict__ delta, float* __restrict__ dq,
-              int H, int Tq, int Tk, int D, float scale, int causal) {
-  constexpr int QS = DP + 1;
-  constexpr int CPT = DP / 16;   // output columns per thread
-  extern __shared__ float smem[];
+              const float* __restrict__ delta, float* __restrict__ dq, int H,
+              int Tq, int Tk, int D, float scale, int causal, int vec) {
+  constexpr int P = DP + 4;
+  constexpr int TILE = BLOCK * P;
+  // keys of the streamed tile held in registers at a time: all 64, or
+  // fewer at D = 128, where the dQ accumulators take more registers
+  constexpr int NC = DP >= 128 ? 32 : 64;
+  constexpr int NT = NC / 8;    // key steps of 8 in a chunk
+  constexpr int DT = DP / 8;    // d steps of 8
+  extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
-  float* dOs = Qs + BLOCK_M * QS;
-  float* Ks = dOs + BLOCK_M * QS;
-  float* Vs = Ks + BLOCK_N * QS;
-  float* dSs = Vs + BLOCK_N * QS;
-  float* Bs = dSs + BLOCK_M * PS;
-  float* Ls = Bs + BLOCK_N;
-  float* Ds = Ls + BLOCK_M;
+  float* dOs = Qs + TILE;
+  float* Ks = dOs + TILE;        // [2][TILE]
+  float* Vs = Ks + 2 * TILE;     // [2][TILE]
+  float* Bs = Vs + 2 * TILE;     // [2][BLOCK]
+  float* Ls = Bs + 2 * BLOCK;
+  float* Ds = Ls + BLOCK;
 
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int q0 = blockIdx.x * BLOCK_M;
-  const size_t bh = (size_t)blockIdx.z * H + blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = 16 * warp;               // the warp's strip
+  const size_t bh = blockIdx.x;
+  const int b = (int)(bh / H);
+  // the query tile: the last (longest under causal masking) first
+  const int q0 = ((Tq + BLOCK - 1) / BLOCK - 1 - (int)blockIdx.y) * BLOCK;
   const float* kb = k + bh * Tk * D;
   const float* vb = v + bh * Tk * D;
-  const float* biasb = bias + (size_t)blockIdx.z * Tk;
+  const float* biasb = bias + (size_t)b * Tk;
+  const bool vec16 = vec != 0;
 
-  load_tile<DP>(Qs, q + bh * Tq * D, q0, Tq, D, scale);
-  load_tile<DP>(dOs, dout + bh * Tq * D, q0, Tq, D, 1.f);
+  if (D < DP) zero_pad_columns<DP>(smem, 6, D);
+  load_tile<DP>(Qs, q + bh * Tq * D, q0, Tq, D, vec16);
+  load_tile<DP>(dOs, dout + bh * Tq * D, q0, Tq, D, vec16);
   load_vec(Ls, lse + bh * Tq, q0, Tq);
   load_vec(Ds, delta + bh * Tq, q0, Tq);
 
-  int n_tiles = (Tk + BLOCK_N - 1) / BLOCK_N;
+  int n_tiles = (Tk + BLOCK - 1) / BLOCK;
   if (causal) {
-    const int last_row = min(q0 + BLOCK_M, Tq) - 1;
-    n_tiles = min(n_tiles, last_row / BLOCK_N + 1);
+    const int last_row = min(q0 + BLOCK, Tq) - 1;
+    n_tiles = min(n_tiles, last_row / BLOCK + 1);
   }
+  load_tile<DP>(Ks, kb, 0, Tk, D, vec16);
+  load_tile<DP>(Vs, vb, 0, Tk, D, vec16);
+  load_vec(Bs, biasb, 0, Tk);
+  cp_async_commit();
 
-  float acc[4][CPT];
+  float acc[DT][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < DT; ++n)
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float lse_r[2], del_r[2];
+  const int qpos[2] = {q0 + row0 + g, q0 + row0 + g + 8};
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * BLOCK_N;
-    __syncthreads();   // the previous tile's Ks/Vs/dSs reads are done
-    load_tile<DP>(Ks, kb, k0, Tk, D, 1.f);
-    load_tile<DP>(Vs, vb, k0, Tk, D, 1.f);
-    load_vec(Bs, biasb, k0, Tk);
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) {
+      const int nxt = (it + 1) & 1, k1 = (it + 1) * BLOCK;
+      load_tile<DP>(Ks + nxt * TILE, kb, k1, Tk, D, vec16);
+      load_tile<DP>(Vs + nxt * TILE, vb, k1, Tk, D, vec16);
+      load_vec(Bs + nxt * BLOCK, biasb, k1, Tk);
+    }
+    cp_async_commit();
+    cp_async_wait_one();    // tile it (and the resident tiles) have landed
     __syncthreads();
+    if (it == 0) {
+      lse_r[0] = Ls[row0 + g];
+      lse_r[1] = Ls[row0 + g + 8];
+      del_r[0] = Ds[row0 + g];
+      del_r[1] = Ds[row0 + g + 8];
+    }
+    const float* Kt = Ks + (it & 1) * TILE;
+    const float* Vt = Vs + (it & 1) * TILE;
+    const float* Bt = Bs + (it & 1) * BLOCK;
+    const int k0 = it * BLOCK;
 
-    float s[4][4], dp[4][4];
+#pragma unroll 1
+    for (int c0 = 0; c0 < BLOCK; c0 += NC) {
+      // s = Q.K^T and dP = dO.V^T over this chunk's keys
+      float s[NT][4], dp[NT][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DP; ++d) {
-      float a[4], o[4], bk[4], bv[4];
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = Qs[(ty + 16 * i) * QS + d];
-        o[i] = dOs[(ty + 16 * i) * QS + d];
-      }
+      for (int ks = 0; ks < DT; ++ks) {
+        FragA qa, oa;
+        load_a<P>(qa, Qs, row0, 8 * ks, g, t);
+        load_a<P>(oa, dOs, row0, 8 * ks, g, t);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        bk[j] = Ks[(tx + 16 * j) * QS + d];
-        bv[j] = Vs[(tx + 16 * j) * QS + d];
-      }
+        for (int j = 0; j < NT; j += 2) {
+          FragB kf[2], vf[2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[i], bk[j], s[i][j]);
-          dp[i][j] = fmaf(o[i], bv[j], dp[i][j]);
+          for (int i = 0; i < 2; ++i) {
+            const int at = (c0 + 8 * (j + i) + g) * P + 8 * ks + t;
+            kf[i].set(Kt[at], Kt[at + 4]);
+            vf[i].set(Vt[at], Vt[at + 4]);
+          }
+          mma3_span2(s, qa, kf, dp, oa, vf, j);
         }
-    }
-
+      }
+      // dS' in place of s: C element e sits at row g + 8 (e >> 1), key
+      // column 8j + 2t + (e & 1)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-      const int qpos = q0 + r;
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const float val = masked_score(s[i][j], Bs[c], qpos, k0 + c, Tk,
-                                       causal);
-        const float p = expf(val - Ls[r]);
-        dSs[r * PS + c] = p * (dp[i][j] - Ds[r]);
+        for (int e = 0; e < 4; ++e) {
+          const int col = c0 + 8 * j + 2 * t + (e & 1);
+          const int h = e >> 1;
+          const float val = masked_score(s[j][e], scale, Bt[col], qpos[h],
+                                         k0 + col, Tk, causal);
+          const float p = __expf(val - lse_r[h]);
+          s[j][e] = p * (dp[j][e] - del_r[h]);
+        }
+      // dQ += dS'.K: key step j's A fragment is (c0, c2, c1, c3) of s[j],
+      // position t standing for key 2t and t+4 for key 2t+1
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        FragA da;
+        da.set(s[j][0], s[j][2], s[j][1], s[j][3]);
+        const float* k_even = Kt + (c0 + 8 * j + 2 * t) * P + g;
+        constexpr int NG = DT >= 4 ? 4 : DT;
+#pragma unroll
+        for (int n = 0; n < DT; n += NG) {
+          FragB kf[NG];
+#pragma unroll
+          for (int i = 0; i < NG; ++i)
+            kf[i].set(k_even[8 * (n + i)], k_even[P + 8 * (n + i)]);
+          mma3_span(acc, da, kf, n);
+        }
       }
     }
-    __syncthreads();   // dSs complete
-
-#pragma unroll 4
-    for (int kk = 0; kk < BLOCK_N; ++kk) {
-      float ds[4], kv[CPT];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) ds[i] = dSs[(ty + 16 * i) * PS + kk];
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) kv[c] = Ks[kk * QS + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) acc[i][c] = fmaf(ds[i], kv[c], acc[i][c]);
-    }
+    __syncthreads();   // every warp is done with this stage before refill
   }
+  cp_async_wait_all();
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= Tq) continue;
-    float* drow = dq + (bh * Tq + row) * D;
+  for (int h = 0; h < 2; ++h) {
+    if (qpos[h] >= Tq) continue;
+    float* drow = dq + (bh * Tq + qpos[h]) * D;
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const int col = tx + 16 * c;
-      if (col < D) drow[col] = acc[i][c] * scale;
-    }
+    for (int n = 0; n < DT; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * n + 2 * t + e;
+        if (col < D) drow[col] = acc[n][2 * h + e] * scale;
+      }
   }
 }
 
-template <int DP>
-constexpr int dkv_smem_floats() {
-  // Ks, Vs [BLOCK_N][DP+1]; Qs, dOs [BLOCK_M][DP+1]; Pt, dSt [BLOCK_N][PS];
-  // Bs [BLOCK_N]; Ls, Ds [BLOCK_M]
-  return 2 * BLOCK_N * (DP + 1) + 2 * BLOCK_M * (DP + 1) + 2 * BLOCK_N * PS +
-         BLOCK_N + 2 * BLOCK_M;
-}
+// -- dK, dV ------------------------------------------------------------------
 
 template <int DP>
 __global__ void __launch_bounds__(THREADS)
@@ -255,137 +508,177 @@ bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ dout, const float* __restrict__ lse,
                const float* __restrict__ delta, float* __restrict__ dk,
                float* __restrict__ dv, int H, int Tq, int Tk, int D,
-               float scale, int causal) {
-  constexpr int QS = DP + 1;
-  constexpr int CPT = DP / 16;
-  extern __shared__ float smem[];
+               float scale, int causal, int vec) {
+  constexpr int P = DP + 4;
+  constexpr int TILE = BLOCK * P;
+  // queries held in registers at a time (the dK and dV accumulators
+  // take 128 registers a thread at D = 128)
+  constexpr int NC = DP >= 128 ? 16 : 64;
+  constexpr int NT = NC / 8;    // query steps of 8 in a chunk
+  constexpr int DT = DP / 8;
+  extern __shared__ __align__(16) float smem[];
   float* Ks = smem;
-  float* Vs = Ks + BLOCK_N * QS;
-  float* Qs = Vs + BLOCK_N * QS;
-  float* dOs = Qs + BLOCK_M * QS;
-  float* Pt = dOs + BLOCK_M * QS;    // P transposed: [key][query]
-  float* dSt = Pt + BLOCK_N * PS;    // dS' transposed
-  float* Bs = dSt + BLOCK_N * PS;
-  float* Ls = Bs + BLOCK_N;
-  float* Ds = Ls + BLOCK_M;
+  float* Vs = Ks + TILE;
+  float* Qs = Vs + TILE;         // [2][TILE]
+  float* dOs = Qs + 2 * TILE;    // [2][TILE]
+  float* Bs = dOs + 2 * TILE;    // [BLOCK]
+  float* Ls = Bs + BLOCK;        // [2][BLOCK]
+  float* Ds = Ls + 2 * BLOCK;    // [2][BLOCK]
 
-  const int tx = threadIdx.x & 15;   // query column of the s^T tile
-  const int ty = threadIdx.x >> 4;   // key row
-  const int k0 = blockIdx.x * BLOCK_N;
-  const size_t bh = (size_t)blockIdx.z * H + blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = 16 * warp;               // the warp's strip of keys
+  const size_t bh = blockIdx.x;
+  const int b = (int)(bh / H);
+  // the key tile: the first (longest under causal masking) first
+  const int k0 = blockIdx.y * BLOCK;
   const float* qb = q + bh * Tq * D;
   const float* dob = dout + bh * Tq * D;
   const float* lseb = lse + bh * Tq;
   const float* deltab = delta + bh * Tq;
+  const bool vec16 = vec != 0;
 
-  load_tile<DP>(Ks, k + bh * Tk * D, k0, Tk, D, 1.f);
-  load_tile<DP>(Vs, v + bh * Tk * D, k0, Tk, D, 1.f);
-  load_vec(Bs, bias + (size_t)blockIdx.z * Tk, k0, Tk);
+  if (D < DP) zero_pad_columns<DP>(smem, 6, D);
+  load_tile<DP>(Ks, k + bh * Tk * D, k0, Tk, D, vec16);
+  load_tile<DP>(Vs, v + bh * Tk * D, k0, Tk, D, vec16);
+  load_vec(Bs, bias + (size_t)b * Tk, k0, Tk);
 
-  const int n_tiles = (Tq + BLOCK_M - 1) / BLOCK_M;
+  const int n_tiles = (Tq + BLOCK - 1) / BLOCK;
   // under causal masking, query rows before k0 see none of these keys
-  const int first = causal ? k0 / BLOCK_M : 0;
+  const int first = causal ? k0 / BLOCK : 0;
+  if (first < n_tiles) {
+    load_tile<DP>(Qs, qb, first * BLOCK, Tq, D, vec16);
+    load_tile<DP>(dOs, dob, first * BLOCK, Tq, D, vec16);
+    load_vec(Ls, lseb, first * BLOCK, Tq);
+    load_vec(Ds, deltab, first * BLOCK, Tq);
+  }
+  cp_async_commit();
 
-  float acc_k[4][CPT], acc_v[4][CPT];
+  float acc_k[DT][4], acc_v[DT][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < DT; ++n)
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
+    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+  float bias_r[2];
+  const int kpos[2] = {k0 + row0 + g, k0 + row0 + g + 8};
 
-  for (int t = first; t < n_tiles; ++t) {
-    const int q0 = t * BLOCK_M;
-    __syncthreads();   // the previous tile's Qs/dOs/Pt/dSt reads are done
-    load_tile<DP>(Qs, qb, q0, Tq, D, scale);
-    load_tile<DP>(dOs, dob, q0, Tq, D, 1.f);
-    load_vec(Ls, lseb, q0, Tq);
-    load_vec(Ds, deltab, q0, Tq);
+  for (int it = first; it < n_tiles; ++it) {
+    const int stage = (it - first) & 1;
+    if (it + 1 < n_tiles) {
+      const int nxt = stage ^ 1, q1 = (it + 1) * BLOCK;
+      load_tile<DP>(Qs + nxt * TILE, qb, q1, Tq, D, vec16);
+      load_tile<DP>(dOs + nxt * TILE, dob, q1, Tq, D, vec16);
+      load_vec(Ls + nxt * BLOCK, lseb, q1, Tq);
+      load_vec(Ds + nxt * BLOCK, deltab, q1, Tq);
+    }
+    cp_async_commit();
+    cp_async_wait_one();    // tile it (and the resident tiles) have landed
     __syncthreads();
+    if (it == first) {
+      bias_r[0] = Bs[row0 + g];
+      bias_r[1] = Bs[row0 + g + 8];
+    }
+    const float* Qt = Qs + stage * TILE;
+    const float* dOt = dOs + stage * TILE;
+    const float* Lt = Ls + stage * BLOCK;
+    const float* Dt = Ds + stage * BLOCK;
+    const int q0 = it * BLOCK;
 
-    // s^T and dP^T: rows are keys ty + 16i, columns queries tx + 16j; the
-    // sum over d runs in the forward's order, so s is the forward's s
-    float st[4][4], dpt[4][4];
+#pragma unroll 1
+    for (int c0 = 0; c0 < BLOCK; c0 += NC) {
+      // s^T = K.Q^T and dP^T = V.dO^T over this chunk's queries
+      float st[NT][4], dpt[NT][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DP; ++d) {
-      float kk[4], vv[4], a[4], o[4];
+        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        kk[i] = Ks[(ty + 16 * i) * QS + d];
-        vv[i] = Vs[(ty + 16 * i) * QS + d];
-      }
+      for (int ks = 0; ks < DT; ++ks) {
+        FragA ka, va;
+        load_a<P>(ka, Ks, row0, 8 * ks, g, t);
+        load_a<P>(va, Vs, row0, 8 * ks, g, t);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        a[j] = Qs[(tx + 16 * j) * QS + d];
-        o[j] = dOs[(tx + 16 * j) * QS + d];
-      }
+        for (int j = 0; j < NT; j += 2) {
+          FragB qf[2], of[2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          st[i][j] = fmaf(a[j], kk[i], st[i][j]);
-          dpt[i][j] = fmaf(o[j], vv[i], dpt[i][j]);
+          for (int i = 0; i < 2; ++i) {
+            const int at = (c0 + 8 * (j + i) + g) * P + 8 * ks + t;
+            qf[i].set(Qt[at], Qt[at + 4]);
+            of[i].set(dOt[at], dOt[at + 4]);
+          }
+          mma3_span2(st, ka, qf, dpt, va, of, j);
         }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-      const int kpos = k0 + r;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const int qpos = q0 + c;
-        const float val = masked_score(st[i][j], Bs[r], qpos, kpos, Tk,
-                                       causal);
-        // rows past Tq have no dO: they must add nothing, whatever the bias
-        const float p = qpos < Tq ? expf(val - Ls[c]) : 0.f;
-        Pt[r * PS + c] = p;
-        dSt[r * PS + c] = p * (dpt[i][j] - Ds[c]);
       }
-    }
-    __syncthreads();   // Pt, dSt complete
-
-#pragma unroll 4
-    for (int qq = 0; qq < BLOCK_M; ++qq) {
-      float p[4], ds[4], o[CPT], a[CPT];
+      // P in place of s^T, dS' in place of dP^T: C element e sits at key
+      // row g + 8 (e >> 1), query column 8j + 2t + (e & 1); rows past Tq
+      // have no dO and must add nothing, whatever the bias
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        p[i] = Pt[(ty + 16 * i) * PS + qq];
-        ds[i] = dSt[(ty + 16 * i) * PS + qq];
-      }
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        o[c] = dOs[qq * QS + tx + 16 * c];
-        a[c] = Qs[qq * QS + tx + 16 * c];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) {
-          acc_v[i][c] = fmaf(p[i], o[c], acc_v[i][c]);
-          acc_k[i][c] = fmaf(ds[i], a[c], acc_k[i][c]);
+        for (int e = 0; e < 4; ++e) {
+          const int col = c0 + 8 * j + 2 * t + (e & 1);
+          const int qp = q0 + col;
+          const int h = e >> 1;
+          const float val = masked_score(st[j][e], scale, bias_r[h], qp,
+                                         kpos[h], Tk, causal);
+          const float p = qp < Tq ? __expf(val - Lt[col]) : 0.f;
+          st[j][e] = p;
+          dpt[j][e] = p * (dpt[j][e] - Dt[col]);
         }
-    }
-  }
-
+      // dV += P^T.dO and dK += dS'^T.Q: query step j's A fragments are
+      // (c0, c2, c1, c3), position t standing for query 2t and t+4 for 2t+1
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = k0 + ty + 16 * i;
-    if (row >= Tk) continue;
-    float* dkrow = dk + (bh * Tk + row) * D;
-    float* dvrow = dv + (bh * Tk + row) * D;
+      for (int j = 0; j < NT; ++j) {
+        FragA pa, da;
+        pa.set(st[j][0], st[j][2], st[j][1], st[j][3]);
+        da.set(dpt[j][0], dpt[j][2], dpt[j][1], dpt[j][3]);
+        const int r = (c0 + 8 * j + 2 * t) * P + g;
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const int col = tx + 16 * c;
-      if (col < D) {
-        dkrow[col] = acc_k[i][c];
-        dvrow[col] = acc_v[i][c];
+        for (int n = 0; n < DT; n += 2) {
+          FragB of[2], qf[2];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            of[i].set(dOt[r + 8 * (n + i)], dOt[r + P + 8 * (n + i)]);
+            qf[i].set(Qt[r + 8 * (n + i)], Qt[r + P + 8 * (n + i)]);
+          }
+          mma3_span2(acc_v, pa, of, acc_k, da, qf, n);
+        }
       }
     }
+    __syncthreads();   // every warp is done with this stage before refill
   }
+  cp_async_wait_all();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (kpos[h] >= Tk) continue;
+    float* dkrow = dk + (bh * Tk + kpos[h]) * D;
+    float* dvrow = dv + (bh * Tk + kpos[h]) * D;
+#pragma unroll
+    for (int n = 0; n < DT; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * n + 2 * t + e;
+        if (col < D) {
+          dkrow[col] = acc_k[n][2 * h + e] * scale;
+          dvrow[col] = acc_v[n][2 * h + e];
+        }
+      }
+  }
+}
+
+// -- launches ----------------------------------------------------------------
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// 16-byte copies need D a multiple of 4 and every [*, D] operand 16-byte
+// aligned (a contiguous view may start anywhere in its storage)
+int vec_ok(const float* q, const float* k, const float* v, const float* dout,
+           int D) {
+  return D % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
+         aligned16(dout);
 }
 
 template <int DP>
@@ -393,13 +686,14 @@ int launch_dq(const float* q, const float* k, const float* v, const float* b,
               const float* dout, const float* lse, const float* delta,
               float* dq, int B, int H, int Tq, int Tk, int D, float scale,
               int causal, cudaStream_t stream) {
-  const int smem = dq_smem_floats<DP>() * (int)sizeof(float);
+  const int smem = smem_floats<DP>() * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       bwd_dq_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Tq + BLOCK_M - 1) / BLOCK_M, H, B);
+  const dim3 grid(B * H, (Tq + BLOCK - 1) / BLOCK);
   bwd_dq_kernel<DP><<<grid, THREADS, smem, stream>>>(
-      q, k, v, b, dout, lse, delta, dq, H, Tq, Tk, D, scale, causal);
+      q, k, v, b, dout, lse, delta, dq, H, Tq, Tk, D, scale, causal,
+      vec_ok(q, k, v, dout, D));
   return (int)cudaGetLastError();
 }
 
@@ -408,13 +702,14 @@ int launch_dkv(const float* q, const float* k, const float* v, const float* b,
                const float* dout, const float* lse, const float* delta,
                float* dk, float* dv, int B, int H, int Tq, int Tk, int D,
                float scale, int causal, cudaStream_t stream) {
-  const int smem = dkv_smem_floats<DP>() * (int)sizeof(float);
+  const int smem = smem_floats<DP>() * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       bwd_dkv_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Tk + BLOCK_N - 1) / BLOCK_N, H, B);
+  const dim3 grid(B * H, (Tk + BLOCK - 1) / BLOCK);
   bwd_dkv_kernel<DP><<<grid, THREADS, smem, stream>>>(
-      q, k, v, b, dout, lse, delta, dk, dv, H, Tq, Tk, D, scale, causal);
+      q, k, v, b, dout, lse, delta, dk, dv, H, Tq, Tk, D, scale, causal,
+      vec_ok(q, k, v, dout, D));
   return (int)cudaGetLastError();
 }
 
@@ -431,6 +726,7 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       const void* delta, void* dq, int B,
                                       int H, int Tq, int Tk, int D,
                                       float scale, int causal, void* stream) {
+  if ((long long)B * H > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   float* out = static_cast<float*>(dq);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define PORT_DQ(DP)                                                         \
@@ -451,6 +747,7 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        const void* delta, void* dk, void* dv,
                                        int B, int H, int Tq, int Tk, int D,
                                        float scale, int causal, void* stream) {
+  if ((long long)B * H > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   float* dko = static_cast<float*>(dk);
   float* dvo = static_cast<float*>(dv);
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -93,14 +93,13 @@ def test_transformer_on_the_card_matches_the_cpu(card, tmp_path):
     np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3)
 
 
-@pytest.mark.parametrize('D', [16, 40, 64, 128])
-@pytest.mark.parametrize('Tq,Tk,causal', [(64, 64, False), (64, 64, True),
-                                          (100, 37, False), (130, 130, True),
-                                          (37, 100, True), (1, 70, False)])
-def test_flash_attention_bwd_kernels_match_plain(card, D, Tq, Tk, causal):
+def _bwd_case(card, B, H, Tq, Tk, D, causal, seed):
+    """Backward inputs as the autograd Function makes them: the forward
+    kernel's O and lse, random cotangents dO and dlse, delta =
+    rowsum(dO * O) - dlse. Batch row 0 is padded from Tk // 2 on, key 0
+    live. Returns (q, k, v, kb, do, lse, delta)."""
     g = torch.Generator(device=card)
-    g.manual_seed(Tq * 1000 + Tk + D + 7)
-    B, H = 2, 3
+    g.manual_seed(seed)
     q, k, v = [torch.randn((B, H, T, D), generator=g, device=card)
                for T in (Tq, Tk, Tk)]
     kb = torch.zeros((B, Tk), device=card)
@@ -109,16 +108,68 @@ def test_flash_attention_bwd_kernels_match_plain(card, D, Tq, Tk, causal):
     do = torch.randn(o.shape, generator=g, device=card)
     dlse = torch.randn(lse.shape, generator=g, device=card)
     delta = ((do * o).sum(-1) - dlse).contiguous()
+    return q, k, v, kb, do, lse, delta
+
+
+def _bwd_matches_plain(args, causal, D):
     before = (tfa.KERNEL_BWD_DQ.launches, tfa.KERNEL_BWD_DKV.launches)
-    dq, dk, dv = tfa._flash_bwd_cuda(q, k, v, kb, do, lse, delta, causal,
-                                     D ** -0.5)
+    dq, dk, dv = tfa._flash_bwd_cuda(*args, causal, D ** -0.5)
     torch.cuda.synchronize()
     assert (tfa.KERNEL_BWD_DQ.launches, tfa.KERNEL_BWD_DKV.launches) == \
         (before[0] + 1, before[1] + 1)
-    want = tfa.flash_attention_bwd_plain(q, k, v, kb, do, lse, delta,
-                                         causal, D ** -0.5)
+    want = tfa.flash_attention_bwd_plain(*args, causal, D ** -0.5)
     for got, ref in zip((dq, dk, dv), want):
         torch.testing.assert_close(got, ref, rtol=BWD_TOL, atol=BWD_TOL)
+    return dq, dk, dv
+
+
+# D 6: no 16-byte copies (D not a multiple of 4); D 20 and 40: the
+# summation over d zero-padded to 32 and 64
+@pytest.mark.parametrize('D', [6, 16, 20, 40, 64, 128])
+@pytest.mark.parametrize('Tq,Tk,causal', [(64, 64, False), (64, 64, True),
+                                          (100, 37, False), (130, 130, True),
+                                          (37, 100, True), (1, 70, False)])
+def test_flash_attention_bwd_kernels_match_plain(card, D, Tq, Tk, causal):
+    args = _bwd_case(card, 2, 3, Tq, Tk, D, causal, Tq * 1000 + Tk + D + 7)
+    _bwd_matches_plain(args, causal, D)
+
+
+def test_flash_attention_bwd_kernels_long_causal(card):
+    """T = 1024, causal: 16 tiles a block at most, many more than the
+    copy ring's 2 stages."""
+    args = _bwd_case(card, 1, 2, 1024, 1024, 64, True, 1024)
+    _bwd_matches_plain(args, True, 64)
+
+
+@pytest.mark.parametrize('causal', [False, True])
+def test_flash_attention_bwd_kernels_are_deterministic(card, causal):
+    """Each block owns the rows it writes and sums in a fixed order: two
+    launches on the same inputs are bitwise equal."""
+    args = _bwd_case(card, 2, 4, 200, 200, 64, causal, 11)
+    first = tfa._flash_bwd_cuda(*args, causal, 0.125)
+    second = tfa._flash_bwd_cuda(*args, causal, 0.125)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize('D', [20, 64])
+def test_flash_attention_bwd_kernels_take_unaligned_views(card, D):
+    """Contiguous q, k, v and dO views that start one float into their
+    storage: not 16-byte aligned, so the kernels must take their 4-byte
+    copies (a misaligned 16-byte cp.async would fault the context)."""
+    q, k, v, kb, do, lse, delta = _bwd_case(card, 2, 3, 100, 90, D, True, 5)
+
+    def shifted(t):
+        base = torch.empty(t.numel() + 1, dtype=t.dtype, device=card)
+        view = base[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    q, k, v, do = map(shifted, (q, k, v, do))
+    assert all(t.is_contiguous() and t.data_ptr() % 16 != 0
+               for t in (q, k, v, do))
+    _bwd_matches_plain((q, k, v, kb, do, lse, delta), True, D)
 
 
 def test_autograd_on_the_card_matches_the_cpu(card):

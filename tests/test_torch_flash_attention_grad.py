@@ -175,6 +175,91 @@ def test_backward_wrapper_rejects_what_the_kernels_do_not_take():
         tfa._check_bwd(q, q, lse, lse.double())
 
 
+def _tf32(x):
+    """fp32 -> TF32 as cvt.rna.tf32.f32 rounds: to nearest, ties away from
+    zero, 10 explicit mantissa bits. The int32 view holds sign and
+    magnitude apart, so adding half of the dropped 13 bits' unit and
+    clearing them rounds the magnitude half up, whatever the sign."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1fff).view(torch.float32)
+
+
+def _tf32_toward_zero(x):
+    """fp32 -> TF32 as the tensor core reads an fp32 register given as a
+    .tf32 operand: the 13 low bits dropped."""
+    return (x.contiguous().view(torch.int32) & ~0x1fff).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as the backward kernels compute it: each fp32 operand split
+    into big = tf32(x) and small = x - big, which the tensor core reads
+    rounded toward zero; the three products small.big + big.small +
+    big.big summed in fp32, small terms first."""
+    ab, bb = _tf32(a), _tf32(b)
+    as_, bs = _tf32_toward_zero(a - ab), _tf32_toward_zero(b - bb)
+    return (torch.matmul(as_, bb) + torch.matmul(ab, bs)) \
+        + torch.matmul(ab, bb)
+
+
+def _mm_1xtf32(a, b):
+    return torch.matmul(_tf32(a), _tf32(b))
+
+
+def _bwd_with(mm, q, k, v, kb, do, lse, delta, causal, scale):
+    """The backward kernels' function with every tile product through mm:
+    s = (q.k^T) * scale + bias, causal positions set to NEG_BIG, P =
+    exp(s - lse), dS' = P (dO.V^T - delta); dQ, dK, dV."""
+    s = mm(q, k.transpose(-1, -2)) * scale + kb[:, None, None, :]
+    if causal:
+        Tq, Tk = s.shape[-2:]
+        visible = torch.arange(Tq)[:, None] >= torch.arange(Tk)[None, :]
+        s = torch.where(visible, s, torch.full_like(s, tfa.NEG_BIG))
+    p = torch.exp(s - lse[..., None])
+    ds = p * (mm(do, v.transpose(-1, -2)) - delta[..., None])
+    return (mm(ds, k) * scale, mm(ds.transpose(-1, -2), q) * scale,
+            mm(p.transpose(-1, -2), do))
+
+
+def test_tf32_emulation_rounds_as_the_kernels_do():
+    ulp = 2.0 ** -10
+    x = torch.tensor([1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 4,
+                      1 + 3 * ulp / 4, 3.0, -0.0], dtype=torch.float32)
+    assert _tf32(x).tolist() == [1 + ulp, -(1 + ulp), 1.0, 1 + ulp, 3.0,
+                                 -0.0]
+    assert _tf32_toward_zero(x).tolist() == [1.0, -1.0, 1.0, 1.0, 3.0, -0.0]
+
+
+@pytest.mark.parametrize('causal', [False, True])
+def test_3xtf32_products_keep_the_backward_within_tolerance(causal):
+    """The numerical design of csrc/flash_attention_bwd.cu on the CPU: dQ,
+    dK and dV with every tile product in 3xTF32 lie within the kernels'
+    3e-4 of a float64 reference, and with plain (1xTF32) products they do
+    not: the split is what keeps fp32 accuracy. B=1, H=2, T=256, D=64,
+    randn inputs, 30% of the keys padded (key 0 live); lse and delta as
+    the forward and the wrapper hand them over, in fp32."""
+    B, H, T, D = 1, 2, 256, 64
+    r = np.random.RandomState(7)
+    q, k, v, do = [torch.from_numpy(r.randn(B, H, T, D).astype('float32'))
+                   for _ in range(4)]
+    kb = np.where(r.rand(B, T) < 0.3, -1e9, 0.0).astype('float32')
+    kb[:, 0] = 0.0
+    kb = torch.from_numpy(kb)
+    dlse = torch.from_numpy(r.randn(B, H, T).astype('float32'))
+    scale = D ** -0.5
+    o, lse = tfa.flash_attention_lse_plain(q, k, v, kb, causal, scale)
+    delta = (do * o).sum(-1) - dlse
+    args = (q, k, v, kb, do, lse, delta)
+    ref = _bwd_with(torch.matmul, *[t.double() for t in args], causal, scale)
+
+    def within(got):
+        return all(bool(((g.double() - w).abs()
+                         <= TOL + TOL * w.abs()).all())
+                   for g, w in zip(got, ref))
+
+    assert within(_bwd_with(_mm_3xtf32, *args, causal, scale))
+    assert not within(_bwd_with(_mm_1xtf32, *args, causal, scale))
+
+
 def test_backward_entry_points_share_one_library_build():
     """Both backward kernels bind from one build of one source, so building
     every kernel starts one nvcc per source and no two write the same
