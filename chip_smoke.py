@@ -12,16 +12,24 @@ result line):
                 sources in the checkout (one nvcc per source, all started
                 together); print the build time, ptxas' resource lines and
                 the card's name and power limit; fail if ptxas reports a
-                spill in the backward kernels.
+                spill in the flash-attention kernels (forward or
+                backward).
   2. kernels  — each kernel's wrapper against its plain torch version on
                 the card, at the shapes the main paths give it (batch 16:
                 the training batch and serving's largest bucket), within a
                 stated tolerance; time kernel, plain version and the
                 PyTorch library call computing the same function (for the
                 two backward kernels, which no library call computes one
-                at a time: the pair against SDPA's backward; the pair is
-                launched twice, and the two results must be bitwise
-                equal). The sparse
+                at a time: the pair against SDPA's backward). The
+                flash-attention kernels run their products on the tensor
+                cores in 3xTF32: their bound counts FLOPs at 495 / 3
+                TFLOP/s (`ops_rate`), the forward and the backward pair
+                are each launched twice and the two results must be
+                bitwise equal, and they, their plain versions and SDPA
+                (forward, and backward through autograd) are timed by CUDA
+                graph replay, the wrapper's eager time beside as eager_ms;
+                the SDPA kernels torch.profiler shows are named
+                (library_kernels). The sparse
                 Adam and Adagrad kernels on DeepFM's [100000, D] tables in
                 four merges: the first reader batch's 6,656 ids at D=10
                 and D=1, duplicate-heavy ids from 0..63, and all slots
@@ -98,16 +106,18 @@ import numpy as np
 
 SEED = 2024
 # the card's published peaks (NVIDIA H100 SXM data sheet): device memory
-# rate, the fp32 rate outside the tensor cores (the forward and the other
+# rate, the fp32 rate outside the tensor cores (the paged and sparse
 # kernels run fp32 FFMA), and the dense TF32 rate of the tensor cores. The
-# backward pair runs its products in 3xTF32, three TF32 products per fp32
-# product, so its least time counts its FLOPs at PEAK_TF32_FLOPS / 3.
+# flash-attention kernels (forward and backward) run their products in
+# 3xTF32, three TF32 products per fp32 product, so their least time counts
+# their FLOPs at PEAK_TF32_FLOPS / 3.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 # kernel vs plain torch, fp32 on the card: the kernel sums q.k over D and
-# p.v over keys in tile order with an online softmax, the plain version in
-# one cuBLAS product and one softmax — different summation orders
+# p.v over keys in tile order (3xTF32 products) with an online softmax, the
+# plain version in one cuBLAS product and one softmax — different summation
+# orders
 KERNEL_TOL = 1e-4
 # the backward kernels vs their plain versions: the same orders again, over
 # products of depth 64 (dP, dQ, dK, dV) fed by P recomputed from the lse;
@@ -224,20 +234,34 @@ def time_ms(fn, iters=50, warmup=5, rounds=3):
     return sorted(times)[len(times) // 2]
 
 
+_CAPTURE = []
+
+
+def capture_stream():
+    """The one side stream every graph is warmed up and captured on. An
+    autograd backward launches its kernels on the stream its forward ran
+    on, so a backward is captured here only after its forward ran on this
+    stream."""
+    import torch
+    if not _CAPTURE:
+        _CAPTURE.append(torch.cuda.Stream())
+    return _CAPTURE[0]
+
+
 def time_graph_ms(fn, iters=50, rounds=3):
     """Device ms per call with the host out of the way: `iters` calls
     captured in one CUDA graph, the replay timed with CUDA events, the
     median of `rounds` replays. For kernels shorter than the wrapper's
     own Python, where time_ms measures the host."""
     import torch
-    side = torch.cuda.Stream()
+    side = capture_stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -254,6 +278,20 @@ def time_graph_ms(fn, iters=50, rounds=3):
     return sorted(times)[len(times) // 2]
 
 
+def device_kernels(fn):
+    """The names of the device kernels one call of fn launches, as
+    torch.profiler shows them (after one call to warm up)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA})
+
+
 # -- phase 1 ----------------------------------------------------------------
 
 def phase_build():
@@ -268,15 +306,17 @@ def phase_build():
             if 'registers' in line or 'spill' in line or 'smem' in line \
                     or 'entry function' in line:
                 log('[build] %s: %s' % (name, line.strip()))
-    # the backward pair keeps its tiles of s, dP and the outputs in
-    # registers: a spill would put them in local memory
-    bwd = logs.get(importlib.import_module(
-        'paddle_tpu_torch.ops.flash_attention').KERNEL_BWD_DQ.source, '')
-    spills = [m for m in re.findall(r'(\d+) bytes spill stores, (\d+) bytes '
-                                    r'spill loads', bwd) if m != ('0', '0')]
-    if spills:
-        raise AssertionError('the backward kernels spill registers: %r'
-                             % (spills,))
+    # the flash-attention kernels keep their strips of s (and dP), the
+    # forward's split Q and the outputs in registers: a spill would put
+    # them in local memory
+    fa = importlib.import_module('paddle_tpu_torch.ops.flash_attention')
+    for source in sorted({fa.KERNEL.source, fa.KERNEL_BWD_DQ.source}):
+        spills = [m for m in re.findall(
+            r'(\d+) bytes spill stores, (\d+) bytes spill loads',
+            logs.get(source, '')) if m != ('0', '0')]
+        if spills:
+            raise AssertionError('%s: the kernels spill registers: %r'
+                                 % (source, spills))
     log('[build] card: %s' % nvidia_smi_line())
 
 
@@ -313,12 +353,13 @@ def _bound(flops, nbytes, peak_flops=PEAK_FP32_FLOPS):
 
 
 def _attention_bound(B, H, Tq, Tk, D, causal):
-    """Forward: 2 tile products (s, P.V) of depth D per pair; q, k, v, bias
-    read once, O and lse written once."""
+    """Forward: 2 tile products (s, P.V) of depth D per pair, each an
+    fp32-accurate product from three TF32 ones (3xTF32), so at a third of
+    the TF32 rate; q, k, v, bias read once, O and lse written once."""
     flops = 4.0 * B * H * D * _pairs(Tq, Tk, causal)
     nbytes = 4.0 * (B * H * Tq * D * 2 + B * H * Tk * D * 2 + B * Tk
                     + B * H * Tq)
-    return _bound(flops, nbytes)
+    return _bound(flops, nbytes, PEAK_TF32_FLOPS / 3)
 
 
 def _attention_bwd_bound(B, H, Tq, Tk, D, causal, which):
@@ -335,8 +376,9 @@ def _attention_bwd_bound(B, H, Tq, Tk, D, causal, which):
     return _bound(flops, 4.0 * (reads + writes), PEAK_TF32_FLOPS / 3)
 
 
-# the rate the backward's operations are counted at, beside its bound_by
-BWD_OPS_RATE = '3xTF32: 495 / 3 TFLOP/s'
+# the rate the flash-attention kernels' operations are counted at, beside
+# their bound_by
+TF32X3_OPS_RATE = '3xTF32: 495 / 3 TFLOP/s'
 
 
 def _sdpa_mask(c):
@@ -362,9 +404,10 @@ def _allclose(got, want, tol):
                for g, w in zip(got, want))
 
 
-def phase_kernels():
-    """Every kernel against its plain version in four cases; returns
-    {kernel name: [case result, ...]}."""
+def _attention_cases():
+    """The flash-attention kernels (forward, backward dQ and dK/dV) against
+    their plain versions in four cases; returns {kernel name: [case
+    result, ...]}."""
     import torch
     import torch.nn.functional as F
     # the module (ops/__init__ exports a function of the same name)
@@ -392,22 +435,38 @@ def phase_kernels():
                     causal=causal)
         mask = _sdpa_mask(c)
 
-        # forward
+        # forward: each block owns the rows it writes and sums in a fixed
+        # order, so a second launch on the same inputs gives the same bits
         kw = dict(key_bias=kb, causal=causal, sm_scale=scale)
-        o, lse = fa.flash_attention_lse(q, k, v, **kw)
+
+        def fwd():
+            return fa._flash_lse_cuda(q, k, v, kb, causal, scale)
+
+        def fwd_plain():
+            return fa.flash_attention_lse_plain(q, k, v, **kw)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  scale=scale)
+        o, lse = fwd()
+        again = fwd()
         torch.cuda.synchronize()
-        want = fa.flash_attention_lse_plain(q, k, v, **kw)
-        ok = _allclose((o, lse), want, KERNEL_TOL)
+        deterministic = all(torch.equal(a.view(torch.int32),
+                                        b.view(torch.int32))
+                            for a, b in zip((o, lse), again))
+        want = fwd_plain()
         bound_ms, bound_by = _attention_bound(Bq, Hq, Tq, Tk, Dq, causal)
-        r = dict(head, max_abs_err=_max_err((o, lse), want), ok=ok,
-                 tol=KERNEL_TOL,
-                 ms=time_ms(lambda: fa._flash_lse_cuda(q, k, v, kb, causal,
-                                                       scale)),
-                 plain_ms=time_ms(
-                     lambda: fa.flash_attention_lse_plain(q, k, v, **kw)),
-                 library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                     q, k, v, attn_mask=mask, scale=scale)),
-                 bound_ms=bound_ms, bound_by=bound_by)
+        r = dict(head, max_abs_err=_max_err((o, lse), want),
+                 ok=_allclose((o, lse), want, KERNEL_TOL) and deterministic,
+                 deterministic=deterministic, tol=KERNEL_TOL,
+                 ms=time_graph_ms(fwd), eager_ms=time_ms(fwd),
+                 plain_ms=time_graph_ms(fwd_plain),
+                 library='scaled_dot_product_attention with the same '
+                         'additive mask (O only)',
+                 library_kernels=device_kernels(sdpa),
+                 library_ms=time_graph_ms(sdpa),
+                 bound_ms=bound_ms, bound_by=bound_by,
+                 ops_rate=TF32X3_OPS_RATE)
         log('[kernels] flash_attention_fwd %s' % json.dumps(r))
         results['flash_attention_fwd'].append(r)
 
@@ -432,21 +491,37 @@ def phase_kernels():
         # no library call computes dQ alone or dK/dV alone: SDPA's
         # backward (autograd through it with the same additive mask; the
         # dlse cotangent has no counterpart there) computes all three, so
-        # it stands beside the pair of kernels, timed together
-        qr, kr, vr = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-        out = F.scaled_dot_product_attention(qr, kr, vr, attn_mask=mask,
-                                             scale=scale)
+        # it stands beside the pair of kernels, timed together. Its forward
+        # runs on the capture stream, where its backward is then captured
+        # (and once more on this stream, for the eager time).
+        outs = []
+        for stream in (capture_stream(), torch.cuda.current_stream()):
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                qr, kr, vr = [t.detach().clone().requires_grad_()
+                              for t in (q, k, v)]
+                outs.append(((qr, kr, vr), F.scaled_dot_product_attention(
+                    qr, kr, vr, attn_mask=mask, scale=scale)))
+            torch.cuda.current_stream().wait_stream(stream)
+
+        def sdpa_bwd(leaves, out):
+            return lambda: torch.autograd.grad(out, leaves, do,
+                                               retain_graph=True)
+
+        def pair_fn():
+            return fa._bwd_dq_cuda(*bwd), fa._bwd_dkv_cuda(*bwd)
         pair_bound, pair_by = _attention_bwd_bound(Bq, Hq, Tq, Tk, Dq,
                                                    causal, 'both')
         pair = dict(
             kernels=['flash_attention_bwd_dq', 'flash_attention_bwd_dkv'],
-            ms=time_ms(lambda: (fa._bwd_dq_cuda(*bwd),
-                                fa._bwd_dkv_cuda(*bwd))),
-            bound_ms=pair_bound, bound_by=pair_by, ops_rate=BWD_OPS_RATE,
+            ms=time_graph_ms(pair_fn), eager_ms=time_ms(pair_fn),
+            bound_ms=pair_bound, bound_by=pair_by,
+            ops_rate=TF32X3_OPS_RATE,
             library='torch.autograd.grad through scaled_dot_product_'
                     'attention: dQ, dK and dV in one backward',
-            library_ms=time_ms(lambda: torch.autograd.grad(
-                out, (qr, kr, vr), do, retain_graph=True)))
+            library_kernels=device_kernels(sdpa_bwd(*outs[1])),
+            library_ms=time_graph_ms(sdpa_bwd(*outs[0])),
+            library_eager_ms=time_ms(sdpa_bwd(*outs[1])))
         for name, which, got, want, kern, plain in (
                 ('flash_attention_bwd_dq', 'dq', (dq,), (want_dq,),
                  fa._bwd_dq_cuda, fa.flash_attention_bwd_dq_plain),
@@ -458,13 +533,21 @@ def phase_kernels():
                      ok=_allclose(got, want, KERNEL_BWD_TOL)
                      and deterministic,
                      deterministic=deterministic, tol=KERNEL_BWD_TOL,
-                     ms=time_ms(lambda: kern(*bwd)),
-                     plain_ms=time_ms(lambda: plain(*bwd)),
+                     ms=time_graph_ms(lambda: kern(*bwd)),
+                     eager_ms=time_ms(lambda: kern(*bwd)),
+                     plain_ms=time_graph_ms(lambda: plain(*bwd)),
                      library_ms=None, bound_ms=bound_ms,
-                     bound_by=bound_by, ops_rate=BWD_OPS_RATE,
+                     bound_by=bound_by, ops_rate=TF32X3_OPS_RATE,
                      backward_pair=pair)
             log('[kernels] %s %s' % (name, json.dumps(r)))
             results[name].append(r)
+    return results
+
+
+def phase_kernels():
+    """Every kernel against its plain version in its cases; returns
+    {kernel name: [case result, ...]}."""
+    results = _attention_cases()
     results.update(_sparse_optim_cases())
     results['paged_attention'] = _paged_attention_cases()
     for name, rs in results.items():
@@ -1437,6 +1520,11 @@ def main():
         paths = {p: n[name] for p, n in by_path.items() if n[name]}
         if not paths:
             raise AssertionError('%s was launched on no main path' % name)
+        extra = {key: head[key] for key in (
+            'eager_ms', 'ops_rate', 'library', 'library_kernels',
+            'backward_pair') if key in head}
+        if 'deterministic' in head:
+            extra['deterministic'] = all(r['deterministic'] for r in rs)
         kernels.append(dict(
             name=name, route='cuda', source='paddle_tpu_torch/' + k.source,
             replaces=k.replaces, launches=sum(paths.values()),
@@ -1445,11 +1533,7 @@ def main():
             ms=head['ms'], plain_ms=head['plain_ms'],
             bound_ms=head['bound_ms'], bound_by=head['bound_by'],
             library_ms=head['library_ms'], shape=head['shape'],
-            **({'ops_rate': head['ops_rate'],
-                'deterministic': all(r['deterministic'] for r in rs),
-                'backward_pair': head['backward_pair']}
-               if 'backward_pair' in head else {}),
-            cases=rs))
+            **extra, cases=rs))
     log(json.dumps({'kernels': kernels}))
     log(nvidia_smi_line())
     print(json.dumps({'ok': True, 'device': {

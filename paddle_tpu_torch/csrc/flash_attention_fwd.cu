@@ -1,4 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a), fp32.
+// Flash-attention forward for Hopper (sm_90a): fp32 in and out, tile
+// products on the tensor cores in 3xTF32.
 //
 // Replaces the TPU kernel paddle_tpu/ops/flash_attention.py:_fwd_call
 // (:311-358): both of its Pallas grids over the one body _fwd_body (:99-138)
@@ -9,228 +10,382 @@
 // What it computes, per (b, h) and query row:
 //   s[k]  = (q * scale) . k[k] + bias[b, k]       (scale on q first, :109)
 //   s[k]  = NEG_BIG (-1e9)  where causal and qpos < kpos   (set, not added)
+//   s[k]  = -inf            where kpos >= Tk      (P = 0)
 //   O     = softmax(s) . V,  lse = m + log(l)
 // with the online softmax of FlashAttention-2: running max m (starts at
 // -1e30), running sum l (clamped at 1e-30 in the epilogue) and accumulator.
-// Inputs q, k, v [B, H, T, D] contiguous fp32, bias [B, Tk] fp32; outputs
-// O [B, H, Tq, D] and lse [B, H, Tq] fp32 (the backward and ring attention
-// read the lse).
+// Inputs q [B, H, Tq, D], k, v [B, H, Tk, D], bias [B, Tk], all contiguous
+// fp32; outputs O [B, H, Tq, D] and lse [B, H, Tq] fp32 (the backward and
+// ring attention read the lse).
 //
-// What bounds it on the H100: the work is 4*B*H*Tq*Tk*D FLOPs (half under
-// causal masking) against the bytes of q, k, v and O read or written once.
-// At the serving shape (T = 256, D = 64) that is T/4 = 64 FLOPs per byte,
-// above the fp32 ridge of the card (67 TFLOP/s over 3.35 TB/s = 20), so the
-// kernel is bound by arithmetic; in fp32 without TF32 the only units are the
-// CUDA cores' FFMA, and shared-memory bandwidth feeding them is the next
-// limit.
+// What bounds it on the H100. The work is 4 * B * H * D * pairs FLOPs (two
+// tile products of depth D per (query, key) pair, pairs counting those a
+// causal mask leaves) against the bytes of q, k, v, bias, O and lse read or
+// written once: at T = 256, D = 64 that is T / 4 = 64 FLOPs a byte, far above
+// the card's ridge, so it is bound by arithmetic. fp32 FFMA on the CUDA cores
+// peaks at 67 TFLOP/s; the tensor cores take TF32 at 495 TFLOP/s, and three
+// TF32 products per fp32 product (3xTF32, below) give fp32-level accuracy at
+// 495 / 3 = 165 TFLOP/s: that is the bound this kernel is held to. The data
+// sheet's 495 is wgmma's; mma.sync's tf32 rate on this card measures about
+// two thirds of it (tools/torch_mma_peak.py), and before that ceiling
+// instruction issue binds, as in the backward (flash_attention_bwd.cu):
+// every B fragment a warp reads is loaded from shared memory and split into
+// its TF32 halves by that warp, about 4 instructions a value beside the 3
+// mma instructions per fragment.
 //
 // What the design does about it:
-//   * one thread block per (b, h, 64-row query tile); the TPU's sequential
-//     k-grid becomes a loop over 64-key tiles staged in shared memory, so
-//     each k/v element is read from device memory once per query tile and
-//     reused 64 times, and the [Tq, Tk] score matrix never leaves the chip;
-//   * 256 threads as a 16 x 16 grid; each thread keeps a 4 x 4 register
-//     tile of scores (rows ty + 16i, keys tx + 16j) and 4 x D/16 output
-//     accumulators, so every shared-memory load feeds several FMAs; rows
-//     and keys are strided by 16 and the q/k tiles padded by one column,
-//     which keeps the shared-memory reads free of bank conflicts;
-//   * the row max and row sum are reduced across the 16 threads of a row
-//     with warp shuffles (a row's 16 threads are one half-warp);
-//   * under causal masking the loop stops at the tile holding the diagonal
-//     of the query tile's last row: the tiles above the diagonal are never
-//     loaded or computed (the TPU needs a separate triangular grid for it);
-//   * ragged edges are masked here from Tq and Tk, with no padding copies:
-//     keys past Tk score -inf (an exact zero weight; the TPU's padded keys
-//     carry NEG_BIG, which differs only on rows whose every key is masked),
-//     and rows past Tq are never stored.
-// TF32/bf16 tensor cores (wgmma), TMA and warp specialisation are for later
-// versions of this kernel.
+//   * 3xTF32 on the tensor cores. Both tile products, s = (q*scale).K^T and
+//     O += P.V, are mma.sync.m16n8k8.row.col.f32.tf32.tf32.f32 (inline PTX,
+//     tf32_mma.cuh). Each fp32 operand x is split into big = x rounded to
+//     TF32 (to nearest, ties away) and small = x - big, which the tensor
+//     core reads rounded toward zero; a.b is summed in fp32 as
+//     a_small.b_big + a_big.b_small + a_big.b_big, small terms first. The
+//     dropped a_small.b_small is about 2^-22 of the product: fp32-level, as
+//     CUTLASS's OpMultiplyAddFastF32. One TF32 product alone keeps 11
+//     significant bits: on a score near 10 it would move the lse by about
+//     5e-4 relative, and the backward recomputes P = exp(s - lse) from it.
+//   * mma.sync and not wgmma. For .tf32, wgmma reads both operands K-major
+//     from shared memory. s = Q.K^T has them so, but P.V sums over V's row
+//     index: it would need a transposed copy of V, and P and the big/small
+//     halves of every operand would have to be staged in shared memory.
+//     mma.sync reads its fragments from registers, so each thread splits
+//     what it loads, and P never leaves the registers (below).
+//   * Each of the 4 warps owns one or two 16-row strips of query rows (a
+//     block has 64 or 128 rows). The B fragments of K and V a warp loads and
+//     splits serve every strip it owns, so two strips halve the split work
+//     per product. Without causal masking every block does the same work,
+//     and two strips a warp measure faster (PERF.md); under causal masking a
+//     block's work grows with its query tile, and one strip a warp (64-row
+//     blocks, twice as many, longest first) balances the grid better.
+//   * Q is resident for the whole key loop. With one strip at D <= 64, each
+//     warp splits its strip of q*scale into TF32 halves once, before the
+//     loop (64 registers a thread at D = 64); with two strips, or at
+//     D = 128, that would take 128 registers, so there the strips are split
+//     again from shared memory at each use. The strips of s for the current
+//     keys and the D-wide output accumulators stay in registers (keys 64 at
+//     a time, 32 at D = 128).
+//   * P never leaves the registers. s comes out of the first product as
+//     accumulator (C) fragments: thread (g, t) holds rows g, g+8 at key
+//     columns 2t, 2t+1 of each step of 8 keys. The online softmax works on
+//     them in place: the row max and the row sum reduce over the 4 threads
+//     of a quad (__shfl_xor_sync 1, 2; the sum only once, in the epilogue,
+//     each thread carrying its own columns' share of l), P = __expf(s - m)
+//     (ex2.approx, within a few ulp of expf), and the O accumulators are
+//     rescaled by alpha = __expf(m_old - m_new). A C fragment is not an A
+//     fragment (A rows g, g+8 at columns t, t+4), so the summation index of
+//     P.V is permuted instead: A position t stands for key 2t and t+4 for
+//     2t+1, and V's B fragment rows (b0 row t, b1 row t+4) are loaded from
+//     those same keys. The C fragment (c0, c1, c2, c3) is then the A
+//     fragment (c0, c2, c1, c3), with no shuffle and no shared-memory trip.
+//   * Asynchronous, double-buffered tiles. Q loads once; K, V and the bias
+//     stream through a 2-stage cp.async ring, so tile t+1 is in flight while
+//     tile t is multiplied, with one barrier a tile (the copies of tile t+1
+//     start after the barrier that ends every warp's use of tile t-1).
+//     16-byte cp.async.cg chunks with the zero-fill size operand for rows
+//     past Tk (or Tq); 4-byte cp.async.ca copies where D is not a multiple
+//     of 4 or a base is not 16-byte aligned.
+//     Shared rows are padded to DP+4 floats; the columns past D hold zeros
+//     (zeroed once), which pads the summation over d. The pitch keeps every
+//     row 16-byte aligned, and with the permuted rows above every fragment
+//     load (8 rows x 4 columns, or 4 row pairs x 8 columns) hits 32 distinct
+//     banks. 5 tiles (6 with two strips): 87.5 KB (104 KB) at D = 64, two
+//     blocks an SM.
+//   * Causal masking: the key loop stops at the tile holding the query
+//     tile's last diagonal key; tiles above the diagonal are never loaded or
+//     multiplied (the TPU needs its separate triangular grid for that). A
+//     block's work then grows with its query tile: blockIdx.x runs over
+//     (b, h) and blockIdx.y over the query tiles, last (longest) first, so
+//     the tail of the grid is short.
+//   * Ragged edges from Tq and Tk, with no padding copies: keys past Tk load
+//     as zeros and score -inf (an exact zero weight; the TPU's padded keys
+//     carry NEG_BIG, which differs only on rows whose every key is masked);
+//     query rows past Tq load as zeros and are never stored.
+//   * The epilogue: O = acc / l leaves from the C fragments as 2-float
+//     stores (scalar ones where D is odd), and one thread of each quad
+//     writes the lse. Every block owns its rows and sums in a fixed order,
+//     so two launches on the same inputs give the same bits.
+//
+// A row whose every key is masked (the bias puts -1e9 on each) has scores
+// near -1e9, so its m is near -1e9 and it averages V over the keys the loop
+// visits, with weights that depend on the rounding of s near -1e9 (where
+// the fp32 spacing is 64): under causal masking the loop stops at the
+// diagonal tile, so such a row averages a different key set than one
+// softmax over all keys. Such a row is ill-conditioned in every
+// implementation (the JAX kernel and its oracle included), real pad masks
+// never build one (a sequence's first key is live), and the tests leave it
+// out.
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include "port_cuda.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
-constexpr int BLOCK_M = 64;    // query rows per block
-constexpr int BLOCK_N = 64;    // keys per shared-memory tile
-constexpr int THREADS = 256;   // 16 x 16
-constexpr int PS = BLOCK_N + 1;
-constexpr float NEG_BIG = -1e9f;
 constexpr float M_INIT = -1e30f;
 
-template <int DP>
-constexpr int smem_floats() {
-  // Qs [BLOCK_M][DP+1], Ks [BLOCK_N][DP+1], Vs [BLOCK_N][DP],
-  // Ps [BLOCK_M][BLOCK_N+1], Bs [BLOCK_N]
-  return BLOCK_M * (DP + 1) + BLOCK_N * (DP + 1) + BLOCK_N * DP +
-         BLOCK_M * PS + BLOCK_N;
+template <int DP, int STRIPS>
+constexpr int fwd_smem_floats() {
+  // the resident Q tiles (STRIPS of them), K and V tiles x 2 stages, each
+  // [64][DP+4]; the bias ring, 2 x 64
+  return (STRIPS + 4) * BLOCK * (DP + 4) + 2 * BLOCK;
 }
 
-__device__ __forceinline__ float half_warp_max(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
+// over the 4 threads of a quad (lanes 4g .. 4g+3), which hold one row
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
 }
 
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// DP: the head dim D rounded up to a multiple of 16 (16, 32, 64 or 128);
-// columns D..DP-1 are zero in shared memory and never stored.
-template <int DP>
+// The A fragment of q * scale, rows [r, r+16) and columns [c, c+8) of the
+// shared Q tile (pitch P), split into its TF32 halves.
+template <int P>
+__device__ __forceinline__ void load_q(FragA& a, const float* tile, int r,
+                                       int c, int g, int t, float scale) {
+  const float* p = tile + (r + g) * P + c + t;
+  a.set(p[0] * scale, p[8 * P] * scale, p[4] * scale, p[8 * P + 4] * scale);
+}
+
+// DP: the head dim D rounded up to 16, 32, 64 or 128; STRIPS: 16-row
+// strips a warp owns (the block has 64 * STRIPS query rows).
+template <int DP, int STRIPS>
 __global__ void __launch_bounds__(THREADS)
 fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, const float* __restrict__ bias,
-           float* __restrict__ o, float* __restrict__ lse,
-           int H, int Tq, int Tk, int D, float scale, int causal) {
-  constexpr int QS = DP + 1;
-  constexpr int CPT = DP / 16;   // output columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + BLOCK_M * QS;
-  float* Vs = Ks + BLOCK_N * QS;
-  float* Ps = Vs + BLOCK_N * DP;
-  float* Bs = Ps + BLOCK_M * PS;
+           float* __restrict__ o, float* __restrict__ lse, int H, int Tq,
+           int Tk, int D, float scale, int causal, int vec) {
+  constexpr int P = DP + 4;
+  constexpr int TILE = BLOCK * P;
+  constexpr int ROWS = BLOCK * STRIPS;     // query rows of the block
+  constexpr bool QREG = STRIPS == 1 && DP <= 64;  // Q's halves in registers
+  constexpr int NC = DP >= 128 ? 32 : 64;  // keys in registers at a time
+  constexpr int NT = NC / 8;               // key steps of 8 in a chunk
+  constexpr int DT = DP / 8;               // d steps of 8
+  constexpr int NG = DT >= 4 ? 4 : DT;     // B fragments per mma3_span
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;                   // [STRIPS][TILE]
+  float* Ks = Qs + STRIPS * TILE;     // [2][TILE]
+  float* Vs = Ks + 2 * TILE;          // [2][TILE]
+  float* Bs = Vs + 2 * TILE;          // [2][BLOCK]
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int q0 = blockIdx.x * BLOCK_M;
-  const size_t bh = (size_t)blockIdx.z * H + blockIdx.y;
-  const float* qb = q + bh * Tq * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = 16 * STRIPS * warp;      // the warp's first strip
+  const size_t bh = blockIdx.x;
+  const int b = (int)(bh / H);
+  // the query tile: the last (longest under causal masking) first
+  const int q0 = ((Tq + ROWS - 1) / ROWS - 1 - (int)blockIdx.y) * ROWS;
   const float* kb = k + bh * Tk * D;
   const float* vb = v + bh * Tk * D;
-  const float* biasb = bias + (size_t)blockIdx.z * Tk;
+  const float* biasb = bias + (size_t)b * Tk;
+  const bool vec16 = vec != 0;
 
-  for (int e = tid; e < BLOCK_M * DP; e += THREADS) {
-    const int r = e / DP, d = e % DP;
-    float val = 0.f;
-    if (q0 + r < Tq && d < D) val = qb[(size_t)(q0 + r) * D + d] * scale;
-    Qs[r * QS + d] = val;
-  }
+  if (D < DP) zero_pad_columns<DP>(smem, STRIPS + 4, D);
+#pragma unroll
+  for (int i = 0; i < STRIPS; ++i)
+    load_tile<DP>(Qs + i * TILE, q + bh * Tq * D, q0 + i * BLOCK, Tq, D,
+                  vec16);
 
-  int n_tiles = (Tk + BLOCK_N - 1) / BLOCK_N;
+  int n_tiles = (Tk + BLOCK - 1) / BLOCK;
   if (causal) {
-    // last key any row of this tile may attend to is its last row's index
-    const int last_row = min(q0 + BLOCK_M, Tq) - 1;
-    n_tiles = min(n_tiles, last_row / BLOCK_N + 1);
+    // the last key any row of this tile may attend to is its last row's
+    const int last_row = min(q0 + ROWS, Tq) - 1;
+    n_tiles = min(n_tiles, last_row / BLOCK + 1);
   }
+  load_tile<DP>(Ks, kb, 0, Tk, D, vec16);
+  load_tile<DP>(Vs, vb, 0, Tk, D, vec16);
+  load_vec(Bs, biasb, 0, Tk);
+  cp_async_commit();
 
-  float m_i[4], l_i[4], acc[4][CPT];
+  FragA qf[QREG ? DT : 1];
+  float acc[STRIPS][DT][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_i[i] = M_INIT;
-    l_i[i] = 0.f;
+  for (int st = 0; st < STRIPS; ++st)
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * BLOCK_N;
-    __syncthreads();   // the previous tile's Ks/Vs/Ps reads are done
-    for (int e = tid; e < BLOCK_N * DP; e += THREADS) {
-      const int r = e / DP, d = e % DP;
-      const bool ok = (k0 + r < Tk) && d < D;
-      const size_t off = (size_t)(k0 + r) * D + d;
-      Ks[r * QS + d] = ok ? kb[off] : 0.f;
-      Vs[r * DP + d] = ok ? vb[off] : 0.f;
+    for (int n = 0; n < DT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[st][n][e] = 0.f;
+  // rows g and g+8 of each strip: running max, and this thread's share of
+  // the running sum (its own key columns)
+  float m_r[STRIPS][2], l_r[STRIPS][2];
+  int qpos[STRIPS][2];
+#pragma unroll
+  for (int st = 0; st < STRIPS; ++st)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m_r[st][h] = M_INIT;
+      l_r[st][h] = 0.f;
+      qpos[st][h] = q0 + row0 + 16 * st + g + 8 * h;
     }
-    if (tid < BLOCK_N) Bs[tid] = (k0 + tid < Tk) ? biasb[k0 + tid] : 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait_all();    // tile it (and Q) have landed for this thread
+    // ... and for every thread; and every warp is done with tile it - 1,
+    // whose stage the copies of tile it + 1 overwrite
     __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < DP; ++d) {
-      float a[4], bk[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Qs[(ty + 16 * i) * QS + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bk[j] = Ks[(tx + 16 * j) * QS + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], bk[j], s[i][j]);
+    const int k0 = it * BLOCK;
+    if (it + 1 < n_tiles) {
+      const int nxt = (it + 1) & 1, k1 = k0 + BLOCK;
+      load_tile<DP>(Ks + nxt * TILE, kb, k1, Tk, D, vec16);
+      load_tile<DP>(Vs + nxt * TILE, vb, k1, Tk, D, vec16);
+      load_vec(Bs + nxt * BLOCK, biasb, k1, Tk);
+      cp_async_commit();
     }
-
+    if constexpr (QREG) {
+      if (it == 0) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty + 16 * i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        float val = s[i][j] + Bs[tx + 16 * j];
-        if (causal && qpos < kpos) val = NEG_BIG;
-        if (kpos >= Tk) val = -INFINITY;
-        s[i][j] = val;
-        mx = fmaxf(mx, val);
+        for (int ks = 0; ks < DT; ++ks)
+          load_q<P>(qf[ks], Qs, row0, 8 * ks, g, t, scale);
       }
-      const float m_new = fmaxf(m_i[i], half_warp_max(mx));
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        Ps[(ty + 16 * i) * PS + tx + 16 * j] = p;
-        psum += p;
-      }
-      const float alpha = expf(m_i[i] - m_new);
-      l_i[i] = l_i[i] * alpha + half_warp_sum(psum);
-      m_i[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) acc[i][c] *= alpha;
     }
-    __syncthreads();   // Ps complete
+    const float* Kt = Ks + (it & 1) * TILE;
+    const float* Vt = Vs + (it & 1) * TILE;
+    const float* Bt = Bs + (it & 1) * BLOCK;
 
-#pragma unroll 4
-    for (int kk = 0; kk < BLOCK_N; ++kk) {
-      float p[4], vv[CPT];
+#pragma unroll 1
+    for (int c0 = 0; c0 < BLOCK; c0 += NC) {
+      // s = (q*scale).K^T over this chunk's keys
+      float s[STRIPS][NT][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = Ps[(ty + 16 * i) * PS + kk];
+      for (int st = 0; st < STRIPS; ++st)
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) vv[c] = Vs[kk * DP + tx + 16 * c];
+        for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+          for (int e = 0; e < 4; ++e) s[st][j][e] = 0.f;
 #pragma unroll
-        for (int c = 0; c < CPT; ++c) acc[i][c] = fmaf(p[i], vv[c], acc[i][c]);
+      for (int ks = 0; ks < DT; ++ks) {
+        FragA qa[STRIPS];
+#pragma unroll
+        for (int st = 0; st < STRIPS; ++st) {
+          if constexpr (QREG)
+            qa[st] = qf[ks];
+          else
+            load_q<P>(qa[st], Qs, row0 + 16 * st, 8 * ks, g, t, scale);
+        }
+#pragma unroll
+        for (int j = 0; j < NT; j += 4) {
+          FragB kf[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int at = (c0 + 8 * (j + i) + g) * P + 8 * ks + t;
+            kf[i].set(Kt[at], Kt[at + 4]);
+          }
+          if constexpr (STRIPS == 2)
+            mma3_span2(s[0], qa[0], kf, s[1], qa[1], kf, j);
+          else
+            mma3_span(s[0], qa[0], kf, j);
+        }
+      }
+      // the online softmax, in place: C element e sits at row
+      // g + 8 (e >> 1), key column 8j + 2t + (e & 1); s becomes P
+#pragma unroll
+      for (int st = 0; st < STRIPS; ++st) {
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = c0 + 8 * j + 2 * t + (e & 1);
+            const int h = e >> 1;
+            // scale is already on q: masked_score's factor is 1
+            s[st][j][e] = masked_score(s[st][j][e], 1.f, Bt[col],
+                                       qpos[st][h], k0 + col, Tk, causal);
+            mx[h] = fmaxf(mx[h], s[st][j][e]);
+          }
+        float alpha[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float m_new = fmaxf(m_r[st][h], quad_max(mx[h]));
+          alpha[h] = __expf(m_r[st][h] - m_new);
+          m_r[st][h] = m_new;
+          l_r[st][h] *= alpha[h];
+        }
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int h = e >> 1;
+            s[st][j][e] = __expf(s[st][j][e] - m_r[st][h]);
+            l_r[st][h] += s[st][j][e];
+          }
+#pragma unroll
+        for (int n = 0; n < DT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[st][n][e] *= alpha[e >> 1];
+      }
+      // O += P.V: key step j's A fragment is (c0, c2, c1, c3) of s[j],
+      // position t standing for key 2t and t+4 for key 2t+1
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        FragA pa[STRIPS];
+#pragma unroll
+        for (int st = 0; st < STRIPS; ++st)
+          pa[st].set(s[st][j][0], s[st][j][2], s[st][j][1], s[st][j][3]);
+        const float* v_even = Vt + (c0 + 8 * j + 2 * t) * P + g;
+#pragma unroll
+        for (int n = 0; n < DT; n += NG) {
+          FragB vf[NG];
+#pragma unroll
+          for (int i = 0; i < NG; ++i)
+            vf[i].set(v_even[8 * (n + i)], v_even[P + 8 * (n + i)]);
+          if constexpr (STRIPS == 2)
+            mma3_span2(acc[0], pa[0], vf, acc[1], pa[1], vf, n);
+          else
+            mma3_span(acc[0], pa[0], vf, n);
+        }
+      }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= Tq) continue;
-    const float l = fmaxf(l_i[i], 1e-30f);
-    float* orow = o + (bh * Tq + row) * D;
+  for (int st = 0; st < STRIPS; ++st)
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const int col = tx + 16 * c;
-      if (col < D) orow[col] = acc[i][c] / l;
+    for (int h = 0; h < 2; ++h) {
+      const float l = fmaxf(quad_sum(l_r[st][h]), 1e-30f);
+      if (qpos[st][h] >= Tq) continue;
+      float* orow = o + (bh * Tq + qpos[st][h]) * D;
+#pragma unroll
+      for (int n = 0; n < DT; ++n) {
+        const int col = 8 * n + 2 * t;
+        const float o0 = acc[st][n][2 * h] / l;
+        const float o1 = acc[st][n][2 * h + 1] / l;
+        if (D % 2 == 0) {
+          if (col < D)
+            *reinterpret_cast<float2*>(orow + col) = make_float2(o0, o1);
+        } else {
+          if (col < D) orow[col] = o0;
+          if (col + 1 < D) orow[col + 1] = o1;
+        }
+      }
+      if (t == 0) lse[bh * Tq + qpos[st][h]] = m_r[st][h] + logf(l);
     }
-    if (tx == 0) lse[bh * Tq + row] = m_i[i] + logf(l);
-  }
 }
 
-template <int DP>
+// 16-byte copies need D a multiple of 4 and q, k, v 16-byte aligned (a
+// contiguous view may start anywhere in its storage)
+int vec_ok(const float* q, const float* k, const float* v, int D) {
+  return D % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
+}
+
+template <int DP, int STRIPS>
 int launch(const float* q, const float* k, const float* v, const float* bias,
            float* o, float* lse, int B, int H, int Tq, int Tk, int D,
            float scale, int causal, cudaStream_t stream) {
-  const int smem = smem_floats<DP>() * (int)sizeof(float);
+  const int smem = fwd_smem_floats<DP, STRIPS>() * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      fwd_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      fwd_kernel<DP, STRIPS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Tq + BLOCK_M - 1) / BLOCK_M, H, B);
-  fwd_kernel<DP><<<grid, THREADS, smem, stream>>>(q, k, v, bias, o, lse, H,
-                                                  Tq, Tk, D, scale, causal);
+  const dim3 grid(B * H, (Tq + BLOCK * STRIPS - 1) / (BLOCK * STRIPS));
+  fwd_kernel<DP, STRIPS><<<grid, THREADS, smem, stream>>>(
+      q, k, v, bias, o, lse, H, Tq, Tk, D, scale, causal,
+      vec_ok(q, k, v, D));
   return (int)cudaGetLastError();
 }
 
@@ -238,12 +393,14 @@ int launch(const float* q, const float* k, const float* v, const float* bias,
 
 // C entry point (bound with ctypes by paddle_tpu_torch/ops/flash_attention.py).
 // Returns cudaGetLastError() after the launch; the caller checks shapes,
-// dtypes, devices and contiguity before calling.
+// dtypes, devices and contiguity before calling, and Tq > 0. o is a fresh
+// torch allocation, so its 2-float stores are aligned.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, const void* bias, void* o,
                                    void* lse, int B, int H, int Tq, int Tk,
                                    int D, float scale, int causal,
                                    void* stream) {
+  if ((long long)B * H > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
   const float* vf = static_cast<const float*>(v);
@@ -251,13 +408,15 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   float* of = static_cast<float*>(o);
   float* lf = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D <= 16)
-    return launch<16>(qf, kf, vf, bf, of, lf, B, H, Tq, Tk, D, scale, causal, st);
-  if (D <= 32)
-    return launch<32>(qf, kf, vf, bf, of, lf, B, H, Tq, Tk, D, scale, causal, st);
-  if (D <= 64)
-    return launch<64>(qf, kf, vf, bf, of, lf, B, H, Tq, Tk, D, scale, causal, st);
-  if (D <= 128)
-    return launch<128>(qf, kf, vf, bf, of, lf, B, H, Tq, Tk, D, scale, causal, st);
+  // two strips a warp where every block does the same work; under causal
+  // masking one, so that the grid has more, shorter blocks to balance
+#define PORT_FWD(DP, STRIPS)                                                \
+  return launch<DP, STRIPS>(qf, kf, vf, bf, of, lf, B, H, Tq, Tk, D, scale, \
+                            causal, st)
+  if (D <= 16) { if (causal) PORT_FWD(16, 1); PORT_FWD(16, 2); }
+  if (D <= 32) { if (causal) PORT_FWD(32, 1); PORT_FWD(32, 2); }
+  if (D <= 64) { if (causal) PORT_FWD(64, 1); PORT_FWD(64, 2); }
+  if (D <= 128) PORT_FWD(128, 1);
+#undef PORT_FWD
   return (int)cudaErrorInvalidValue;
 }

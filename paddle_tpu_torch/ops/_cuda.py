@@ -3,8 +3,9 @@
 Each CUDA C++ source under paddle_tpu_torch/csrc/ exports one or more plain
 C entry points. At first use a source is compiled once with nvcc for Hopper
 (`sm_90a`) into one shared library under paddle_tpu_torch/build/ (named by
-the source and the hash of its text, so an edited source is rebuilt) and
-loaded with ctypes; every kernel registered on that source binds its own
+the source and a hash of its text, the text of every header beside it and
+the nvcc flags, so an edited source, header or flag is rebuilt) and loaded
+with ctypes; every kernel registered on that source binds its own
 entry point from the one library. Pointers and the stream cross as
 c_void_p; every C entry point returns cudaGetLastError() and the wrapper
 raises on anything but 0.
@@ -22,7 +23,6 @@ import threading
 __all__ = ['CudaKernel', 'KERNELS', 'build_all', 'nvcc_path']
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CSRC_DIR = os.path.join(_PKG_DIR, 'csrc')
 BUILD_DIR = os.path.join(_PKG_DIR, 'build')
 
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
@@ -46,23 +46,38 @@ def nvcc_path():
 
 
 class _Library(object):
-    """One CUDA source and the shared library nvcc builds from it."""
+    """One CUDA source and the shared library nvcc builds from it. `root`
+    is the directory the source path is relative to (the package)."""
 
-    def __init__(self, source):
-        self.source = source            # path relative to the package
+    def __init__(self, source, root=_PKG_DIR):
+        self.source = source            # path relative to root
+        self.root = root
         self.build_log = None
         self._lib = None
         self._lock = threading.Lock()
 
     @property
     def source_path(self):
-        return os.path.join(_PKG_DIR, self.source)
+        return os.path.join(self.root, self.source)
 
     def library_path(self):
-        with open(self.source_path, 'rb') as f:
-            digest = hashlib.sha256(f.read()).hexdigest()[:12]
+        """The build's path, named by a hash of what the build reads: the
+        source, every header (*.cuh) of its directory, which the sources
+        include, and NVCC_FLAGS."""
+        src_dir = os.path.dirname(self.source_path)
+        headers = sorted(f for f in os.listdir(src_dir) if f.endswith('.cuh'))
+        h = hashlib.sha256()
+        for path in [self.source_path] + [os.path.join(src_dir, f)
+                                          for f in headers]:
+            with open(path, 'rb') as f:
+                text = f.read()
+            h.update(b'%s %d\n' % (os.path.basename(path).encode(),
+                                     len(text)))
+            h.update(text)
+        h.update(' '.join(NVCC_FLAGS).encode())
         stem = os.path.splitext(os.path.basename(self.source))[0]
-        return os.path.join(BUILD_DIR, 'lib%s-%s.so' % (stem, digest))
+        return os.path.join(BUILD_DIR, 'lib%s-%s.so' % (stem,
+                                                       h.hexdigest()[:12]))
 
     def start_build(self):
         """Start nvcc for this source; returns (Popen, tmp path, final
@@ -73,7 +88,8 @@ class _Library(object):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = '%s.%d.tmp' % (out, os.getpid())
         cmd = [nvcc_path()] + list(NVCC_FLAGS) + [
-            '-I', CSRC_DIR, '-o', tmp, self.source_path]
+            '-I', os.path.dirname(self.source_path), '-o', tmp,
+            self.source_path]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         return proc, tmp, out

@@ -7,8 +7,9 @@ card:
 
 (the conftest only sets JAX up; these tests import no JAX).
 
-Tolerance 1e-4 in fp32 for the forward: the kernel sums in tile order with
-an online softmax, the plain version in one product and one softmax. 3e-4
+Tolerance 1e-4 in fp32 for the forward: the kernel sums in tile order
+(3xTF32 products) with an online softmax, the plain version in one product
+and one softmax. 3e-4
 for the backward kernels, the Pallas backward's own tolerance
 (tests/test_flash_attention.py:64). 1e-6 for the sparse optimizer kernels,
 the Pallas kernels' (tests/test_kernels.py:182): kernel and plain version
@@ -37,19 +38,19 @@ def card():
     return torch.device('cuda', 0)
 
 
-@pytest.mark.parametrize('D', [16, 40, 64, 128])
-@pytest.mark.parametrize('Tq,Tk,causal', [(64, 64, False), (64, 64, True),
-                                          (100, 37, False), (130, 130, True),
-                                          (1, 70, False)])
-def test_flash_attention_kernel_matches_plain(card, D, Tq, Tk, causal):
+def _fwd_case(card, B, H, Tq, Tk, D, seed):
+    """Forward inputs: randn q, k, v; batch row 0 padded from Tk // 2 on,
+    key 0 live. Returns (q, k, v, kb)."""
     g = torch.Generator(device=card)
-    g.manual_seed(Tq * 1000 + Tk + D)
-    B, H = 2, 3
-    q = torch.randn((B, H, Tq, D), generator=g, device=card)
-    k = torch.randn((B, H, Tk, D), generator=g, device=card)
-    v = torch.randn((B, H, Tk, D), generator=g, device=card)
+    g.manual_seed(seed)
+    q, k, v = [torch.randn((B, H, T, D), generator=g, device=card)
+               for T in (Tq, Tk, Tk)]
     kb = torch.zeros((B, Tk), device=card)
     kb[0, Tk // 2:] = -1e9          # one padded sequence, key 0 live
+    return q, k, v, kb
+
+
+def _fwd_matches_plain(q, k, v, kb, causal):
     before = tfa.KERNEL.launches
     o, lse = tfa.flash_attention_lse(q, k, v, key_bias=kb, causal=causal)
     torch.cuda.synchronize()
@@ -58,6 +59,61 @@ def test_flash_attention_kernel_matches_plain(card, D, Tq, Tk, causal):
                                                    causal=causal)
     torch.testing.assert_close(o, o_ref, rtol=TOL, atol=TOL)
     torch.testing.assert_close(lse, lse_ref, rtol=TOL, atol=TOL)
+    return o, lse
+
+
+# D 6 and 20: no 16-byte copies (D not a multiple of 4); D 20 and 40: the
+# summation over d zero-padded to 32 and 64; D 128: q split at each use;
+# without causal masking (D <= 64) two strips a warp
+@pytest.mark.parametrize('D', [6, 16, 20, 40, 64, 128])
+@pytest.mark.parametrize('Tq,Tk,causal', [(64, 64, False), (64, 64, True),
+                                          (100, 37, False), (130, 130, True),
+                                          (1, 70, False)])
+def test_flash_attention_kernel_matches_plain(card, D, Tq, Tk, causal):
+    _fwd_matches_plain(*_fwd_case(card, 2, 3, Tq, Tk, D,
+                                  Tq * 1000 + Tk + D), causal)
+
+
+@pytest.mark.parametrize('causal', [False, True])
+@pytest.mark.parametrize('D', [64, 128])
+def test_flash_attention_kernel_long_sequences(card, D, causal):
+    """T = 1000: up to 16 key tiles a block, many more than the copy ring's
+    2 stages, and a ragged last tile; 128-row blocks (two strips a warp)
+    without causal masking at D = 64, 64-row blocks otherwise."""
+    _fwd_matches_plain(*_fwd_case(card, 1, 2, 1000, 1000, D, 1000 + D),
+                       causal)
+
+
+@pytest.mark.parametrize('causal', [False, True])
+def test_flash_attention_kernel_is_deterministic(card, causal):
+    """Each block owns the rows it writes and sums in a fixed order: two
+    launches on the same inputs are bitwise equal, O and lse."""
+    q, k, v, kb = _fwd_case(card, 2, 4, 200, 200, 64, 13)
+    first = tfa._flash_lse_cuda(q, k, v, kb, causal, 0.125)
+    second = tfa._flash_lse_cuda(q, k, v, kb, causal, 0.125)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize('causal', [False, True])
+@pytest.mark.parametrize('D', [20, 64])
+def test_flash_attention_kernel_takes_unaligned_views(card, D, causal):
+    """Contiguous q, k and v views that start one float into their
+    storage: not 16-byte aligned, so the kernel must take its 4-byte
+    copies (a misaligned 16-byte cp.async would fault the context)."""
+    q, k, v, kb = _fwd_case(card, 2, 3, 100, 90, D, 17)
+
+    def shifted(t):
+        base = torch.empty(t.numel() + 1, dtype=t.dtype, device=card)
+        view = base[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    q, k, v = map(shifted, (q, k, v))
+    assert all(t.is_contiguous() and t.data_ptr() % 16 != 0
+               for t in (q, k, v))
+    _fwd_matches_plain(q, k, v, kb, causal)
 
 
 def test_transformer_on_the_card_matches_the_cpu(card, tmp_path):

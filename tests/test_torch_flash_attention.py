@@ -9,6 +9,8 @@ orders), as tests/test_flash_attention.py does for the TPU kernel. Rows
 whose every key is masked are excluded (paddle_tpu/ops/flash_attention.py
 module docstring: ill-conditioned in every implementation)."""
 import importlib
+import importlib.util
+import os
 
 import numpy as np
 import pytest
@@ -118,3 +120,58 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
         tfa._check(big, big, big, torch.zeros((1, 4)))
     with pytest.raises(ValueError, match='key bias'):
         tfa._check(q, k, v, kb[:, :4])
+
+
+# the head dims the card tests give the CUDA kernel: D 6 and 20 take its
+# 4-byte copies (D not a multiple of 4), D 20 and 40 pad the summation over
+# d to 32 and 64, D 128 splits q at each use
+@pytest.mark.parametrize('D', [6, 20, 40, 128])
+@pytest.mark.parametrize('Tq,Tk,causal', [(20, 20, True), (12, 30, True),
+                                          (30, 12, True), (20, 33, False)])
+def test_lse_matches_pallas_kernel_at_the_card_tests_head_dims(D, Tq, Tk,
+                                                                causal):
+    q, k, v, kb = _inputs(Tq=Tq, Tk=Tk, D=D, seed=D * 7 + Tq + Tk)
+    o_j, lse_j = jops.flash_attention_lse(q, k, v, key_bias=kb,
+                                          causal=causal, interpret=True)
+    o_t, lse_t = tfa.flash_attention_lse_plain(*_torch(q, k, v, kb),
+                                               causal=causal)
+    live = _live_rows(kb, Tq, causal)
+    assert live.any()
+    np.testing.assert_allclose(
+        np.where(live[..., None], o_t.numpy(), 0),
+        np.where(live[..., None], np.asarray(o_j), 0), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(np.where(live, lse_t.numpy(), 0),
+                               np.where(live, np.asarray(lse_j), 0),
+                               rtol=TOL, atol=TOL)
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (it imports only numpy at its top)."""
+    spec = importlib.util.spec_from_file_location(
+        'chip_smoke', os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), 'chip_smoke.py'))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_chip_smoke_counts_the_forward_at_the_3xtf32_rate():
+    """The forward runs both products in 3xTF32 on the tensor cores, so its
+    least time counts 4 * B * H * D * pairs FLOPs at 495 / 3 TFLOP/s, not
+    at the 67 TFLOP/s of fp32 FFMA: encoder self-attention at B=16, H=8,
+    T=256, D=64 takes 2.147e9 FLOPs, 0.0130 ms."""
+    cs = _chip_smoke()
+    ms, by = cs._attention_bound(16, 8, 256, 256, 64, False)
+    flops = 4.0 * 16 * 8 * 256 * 256 * 64
+    assert by == 'operations'
+    assert ms == pytest.approx(flops / (495e12 / 3) * 1e3, rel=1e-12)
+    assert ms == pytest.approx(0.0130, abs=5e-5)
+    # the causal triangles do about half the work, and at this rate their
+    # bytes (q, k, v, O, bias, lse) bound them
+    for T in (256, 200):
+        causal_ms, causal_by = cs._attention_bound(16, 8, T, T, 64, True)
+        nbytes = 4.0 * (16 * 8 * T * 64 * 4 + 16 * T + 16 * 8 * T)
+        assert causal_by == 'bytes'
+        assert causal_ms == pytest.approx(nbytes / 3.35e12 * 1e3)
+        assert causal_ms > 4.0 * 16 * 8 * 64 * T * (T + 1) / 2 / 165e12 * 1e3
+    assert cs.TF32X3_OPS_RATE == '3xTF32: 495 / 3 TFLOP/s'

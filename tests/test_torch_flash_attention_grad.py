@@ -191,7 +191,7 @@ def _tf32_toward_zero(x):
 
 
 def _mm_3xtf32(a, b):
-    """a @ b as the backward kernels compute it: each fp32 operand split
+    """a @ b as the attention kernels compute it: each fp32 operand split
     into big = tf32(x) and small = x - big, which the tensor core reads
     rounded toward zero; the three products small.big + big.small +
     big.big summed in fp32, small terms first."""
@@ -258,6 +258,48 @@ def test_3xtf32_products_keep_the_backward_within_tolerance(causal):
 
     assert within(_bwd_with(_mm_3xtf32, *args, causal, scale))
     assert not within(_bwd_with(_mm_1xtf32, *args, causal, scale))
+
+
+def _fwd_with(mm, q, k, v, kb, causal, scale):
+    """The forward kernel's function with both tile products through mm:
+    s = (q * scale).k^T + bias, causal positions set to NEG_BIG, one
+    softmax over all keys; (O, lse)."""
+    s = mm(q * scale, k.transpose(-1, -2)) + kb[:, None, None, :]
+    if causal:
+        Tq, Tk = s.shape[-2:]
+        visible = torch.arange(Tq)[:, None] >= torch.arange(Tk)[None, :]
+        s = torch.where(visible, s, torch.full_like(s, tfa.NEG_BIG))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    return mm(p, v) / l, (m + torch.log(l)).squeeze(-1)
+
+
+@pytest.mark.parametrize('causal', [False, True])
+def test_3xtf32_products_keep_the_forward_within_tolerance(causal):
+    """The numerical design of csrc/flash_attention_fwd.cu on the CPU: O
+    and lse with both tile products (s and P.V) in 3xTF32 lie within the
+    card's 1e-4 (chip_smoke.KERNEL_TOL) of a float64 reference, and with
+    plain (1xTF32) products they do not. B=1, H=2, T=256, D=64, randn
+    inputs, 30% of the keys padded (key 0 live)."""
+    B, H, T, D = 1, 2, 256, 64
+    r = np.random.RandomState(7)
+    q, k, v = [torch.from_numpy(r.randn(B, H, T, D).astype('float32'))
+               for _ in range(3)]
+    kb = np.where(r.rand(B, T) < 0.3, -1e9, 0.0).astype('float32')
+    kb[:, 0] = 0.0
+    kb = torch.from_numpy(kb)
+    scale = D ** -0.5
+    ref = _fwd_with(torch.matmul, *[t.double() for t in (q, k, v, kb)],
+                    causal, scale)
+
+    def within(got):
+        return all(bool(((g.double() - w).abs()
+                         <= 1e-4 + 1e-4 * w.abs()).all())
+                   for g, w in zip(got, ref))
+
+    assert within(_fwd_with(_mm_3xtf32, q, k, v, kb, causal, scale))
+    assert not within(_fwd_with(_mm_1xtf32, q, k, v, kb, causal, scale))
 
 
 def test_backward_entry_points_share_one_library_build():

@@ -1,0 +1,122 @@
+#!/usr/bin/env python3
+"""Time the flash-attention kernels of one or more checkouts on one card, in
+turns, with chip_smoke.py's own cases and timing.
+
+    python3 tools/torch_attention_bench.py [ROOT ...]
+
+Each ROOT is the root of a checkout of the repo (default: this one). For
+the roots in the order given and then in reverse (A B B A), a fresh process
+puts that ROOT's paddle_tpu_torch first on its path, builds its kernels
+(chip_smoke.phase_build: ptxas' resource lines and the spill check) and
+runs chip_smoke._attention_cases: the forward and the backward pair against
+their plain versions at B=16, H=8, T=256, D=64 in the four phase-2 cases,
+timed by CUDA graph replay beside SDPA. The chip_smoke.py used is always
+THIS checkout's, so every root is timed by the same code. Prints one JSON
+line per run, then a summary line: per root and case, the median over the
+root's runs of each time, the largest error, and whether every launch pair
+was bitwise equal. Needs one card.
+"""
+import argparse
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def load_chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        'chip_smoke', os.path.join(HERE, 'chip_smoke.py'))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def worker(root):
+    """Build ROOT's kernels and time its attention cases; prints one JSON
+    line."""
+    sys.path.insert(0, root)
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit('torch_attention_bench: no CUDA device')
+    import paddle_tpu_torch
+    where = os.path.dirname(os.path.abspath(paddle_tpu_torch.__file__))
+    if os.path.dirname(where) != os.path.abspath(root):
+        raise SystemExit('imported paddle_tpu_torch from %s, not %s'
+                         % (where, root))
+    cs = load_chip_smoke()
+    cs.phase_build()
+    results = cs._attention_cases()
+    rows = []
+    for name, rs in sorted(results.items()):
+        for r in rs:
+            row = dict(kernel=name, case=r['case'], ok=r['ok'],
+                       deterministic=r['deterministic'],
+                       max_abs_err=r['max_abs_err'], ms=r['ms'],
+                       eager_ms=r['eager_ms'], plain_ms=r['plain_ms'],
+                       bound_ms=r['bound_ms'])
+            if name == 'flash_attention_fwd':
+                row['library_ms'] = r['library_ms']
+            if name == 'flash_attention_bwd_dq':
+                pair = r['backward_pair']
+                row['pair_ms'] = pair['ms']
+                row['pair_library_ms'] = pair['library_ms']
+            rows.append(row)
+    print(json.dumps({'root': root, 'card': cs.nvidia_smi_line(),
+                      'rows': rows}), flush=True)
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if len(xs) % 2 else 0.5 * (
+        xs[len(xs) // 2 - 1] + xs[len(xs) // 2])
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument('roots', nargs='*', default=[HERE])
+    ap.add_argument('--worker', help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.worker:
+        worker(args.worker)
+        return
+    roots = [os.path.abspath(r) for r in args.roots]
+    runs = []
+    for root in roots + roots[::-1]:
+        out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              '--worker', root], capture_output=True,
+                             text=True)
+        sys.stderr.write(out.stderr[-4000:])
+        for line in out.stdout.splitlines():
+            print(line, flush=True)
+        if out.returncode != 0:
+            raise SystemExit('worker for %s failed (rc %d)'
+                             % (root, out.returncode))
+        runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
+    summary = {}
+    for root in roots:
+        mine = [r for r in runs if r['root'] == root]
+        by = {}
+        for run in mine:
+            for row in run['rows']:
+                by.setdefault((row['kernel'], row['case']), []).append(row)
+        cases = []
+        for (kernel, case), rows in sorted(by.items()):
+            entry = dict(kernel=kernel, case=case,
+                         ok=all(r['ok'] for r in rows),
+                         deterministic=all(r['deterministic'] for r in rows),
+                         max_abs_err=max(r['max_abs_err'] for r in rows))
+            for key in ('ms', 'eager_ms', 'plain_ms', 'bound_ms',
+                        'library_ms', 'pair_ms', 'pair_library_ms'):
+                if key in rows[0]:
+                    entry[key] = _median([r[key] for r in rows])
+            cases.append(entry)
+        summary[root] = dict(card=mine[0]['card'], runs=len(mine),
+                             cases=cases)
+    print(json.dumps({'summary': summary}), flush=True)
+
+
+if __name__ == '__main__':
+    main()
