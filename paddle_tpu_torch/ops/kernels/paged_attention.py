@@ -23,29 +23,123 @@ compute the same operations on the same values, bit for bit.
 
 Dispatch is by q's device, with no fallback and no switch: a CUDA tensor
 launches the kernel (built at first use) or raises; a CPU or meta tensor
-takes the plain version.
+takes the plain version. `launch_plan` chooses the kernel's cluster size,
+column slice, chunk length and beam group from the shapes.
 """
+import collections
 import ctypes
+import functools
 
 import torch
 
 from .._cuda import CudaKernel
 
 __all__ = ['paged_attention', 'paged_attention_plain', 'attend', 'KERNEL',
-           'NEG_MASKED']
+           'NEG_MASKED', 'launch_plan', 'smem_bytes', 'Plan']
 
 KERNEL = CudaKernel(
     name='paged_attention',
     source='csrc/paged_attention.cu',
     entry='paged_attention',
-    argtypes=[ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    argtypes=([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
+              + [ctypes.c_void_p]),
     # paged_attention's pallas_call (_kernel :72)
     replaces='paddle_tpu/ops/kernels/paged_attention.py:127')
 
 # the masked-position score of the JAX oracle and kernel (jnp.finfo min)
 NEG_MASKED = float(torch.finfo(torch.float32).min)
-# the kernel keeps up to 8 accumulators a thread, 256 threads a block
+# the widest row the kernel takes: 8 blocks of 256 columns
 _MAX_D = 8 * 256
+# the launcher's limits (csrc/paged_attention.cu): positions a chunk, beam
+# rows a cluster, dynamic shared memory a block (the H100's 227 KB)
+MAX_CHUNK = 64
+MAX_GROUP = 16
+MAX_SMEM = 232448
+
+Plan = collections.namedtuple('Plan',
+                              'n width chunk group chunks col_parts smem')
+# threads a block (csrc/paged_attention.cu THREADS)
+_THREADS = 256
+# the card's SMs when the wrapper does not ask (the H100 SXM's)
+_SMS = 132
+
+
+def _round4(x):
+    return (x + 3) // 4 * 4
+
+
+def _pow2_floor(x):
+    return 1 << (max(1, x).bit_length() - 1)
+
+
+def col_parts(group, chunk):
+    """The runs of columns each block's score pass cuts its slice into, so
+    that every warp has a (32 positions, four beam rows, run) to score: 1
+    to 8, as col_parts in the CUDA source."""
+    items = -(-chunk // 32) * -(-group // 4)
+    return min(8, _pow2_floor(_THREADS // 32 // items))
+
+
+def smem_bytes(n, width, chunk, group, chunks):
+    """One block's dynamic shared memory, as smem_floats in the CUDA
+    source lays it out: the page rows (two stages when there is more than
+    one chunk), the q slice and the P.V accumulators between chunks at a
+    row pitch of the width rounded up to 8 plus 4; the exchange buffers
+    (every block's partial scores, a stage each), the column runs' partial
+    scores, exp(s - m), the masks, the softmax state and the positions'
+    pool rows (int64)."""
+    kp, gp = (width + 7) // 8 * 8 + 4, _round4(group)
+    stages = 2 if chunks > 1 else 1
+    floats = (stages * chunk * kp + gp * kp + (gp * kp if chunks > 1 else 0)
+              + stages * n * chunk * gp + col_parts(group, chunk) * chunk * gp
+              + chunk * gp + _round4(stages * chunk)
+              + 3 * gp + _round4(2 * stages * chunk))
+    return 4 * floats
+
+
+def slice_width(D, n):
+    """The columns each of a cluster's n blocks holds: D / n rounded up
+    to a multiple of 4 (the last block holds the rest)."""
+    return _round4(-(-D // n))
+
+
+def _chunk(n, width, group, src_cap):
+    """The longest chunk, 64 or else 32 positions (src_cap if shorter),
+    whose blocks fit the shared memory; None if neither does."""
+    for chunk in (min(MAX_CHUNK, src_cap), min(32, src_cap)):
+        if smem_bytes(n, width, chunk, group, -(-src_cap // chunk)) \
+                <= MAX_SMEM:
+            return chunk
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(slots, D, beam, src_cap, sms=_SMS):
+    """How the kernel is launched for these shapes: a cluster of `n`
+    blocks for each slot and group of beam rows, each holding `width`
+    columns (D / n rounded up to a multiple of 4; the last block the
+    rest, at least 1); positions `chunk` at a time (src_cap, at most 64,
+    or 32 where 64 would not fit the shared memory; `chunks` of them);
+    `group` beam rows a cluster (at most 16); the score pass's
+    `col_parts`; and `smem` bytes of shared memory a block.
+
+    n gives slices of 256 to 511 columns (8 at D 2048, 4 from 1024, 2
+    from 512, else 1), doubled while a block would not fit the shared
+    memory, and halved while the clusters would need more blocks than the
+    card has SMs (`sms`) and the wider slices still fit."""
+    group = min(MAX_GROUP, beam)
+    clusters = slots * -(-beam // group)
+    n = 8 if D >= 2048 else 4 if D >= 1024 else 2 if D >= 512 else 1
+    while n < 8 and not _chunk(n, slice_width(D, n), group, src_cap):
+        n *= 2                             # wide slices of many beam rows
+    while n > 1 and clusters * n > sms and \
+            _chunk(n // 2, slice_width(D, n // 2), group, src_cap):
+        n //= 2
+    width = slice_width(D, n)
+    chunk = _chunk(n, width, group, src_cap)
+    chunks = -(-src_cap // chunk)
+    return Plan(n, width, chunk, group, chunks, col_parts(group, chunk),
+                smem_bytes(n, width, chunk, group, chunks))
 
 
 def attend(q, enc_t, mask_t):
@@ -109,6 +203,11 @@ def _check(q, enc_pages, mask_pages, pt_enc, src_cap):
         bad('D %d exceeds %d' % (D, _MAX_D))
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def paged_attention(q, enc_pages, mask_pages, pt_enc, src_cap):
     """Fused page-gather attention: ctx [B, D] from q [B, D] against the
     paged encoder pools. Same contract as `paged_attention_plain`."""
@@ -120,8 +219,10 @@ def paged_attention(q, enc_pages, mask_pages, pt_enc, src_cap):
     out = torch.empty_like(q)
     B, D = q.shape
     C, NPE = pt_enc.shape
+    plan = launch_plan(C, D, B // C, src_cap, _sm_count(q.device))
     KERNEL.launch(q.data_ptr(), enc_pages.data_ptr(), mask_pages.data_ptr(),
                   pt_enc.data_ptr(), out.data_ptr(), B, B // C, NPE,
-                  enc_pages.shape[1], D, src_cap,
+                  enc_pages.shape[1], D, src_cap, plan.n, plan.width,
+                  plan.chunk, plan.group,
                   torch.cuda.current_stream(q.device).cuda_stream)
     return out

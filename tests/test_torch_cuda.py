@@ -456,6 +456,12 @@ def _paged_case(seed, C, beam, ps, npe, src_cap, D, lo=1, masked_slot=None):
     (64, 1, 16, 2, 32, 1024, None),     # beam 1, the speculative shape
     (4, 3, 3, 2, 5, 6, 1),              # the test decoder's width
     (3, 2, 4, 3, 10, 200, None),        # D not a multiple of 128
+    (16, 3, 16, 16, 250, 1024, None),   # a long source: 4 chunks of 64
+    (3, 2, 4, 3, 10, 20, None),         # D 20, one block a slot
+    (8, 3, 16, 2, 32, 1000, None),      # D 1000: 4 blocks of 252, 244
+    (4, 3, 16, 2, 32, 1001, None),      # D 1001: 4-byte copies, 4 blocks
+    (8, 3, 16, 2, 32, 2048, None),      # D 2048: 8 blocks of 256
+    (2, 20, 4, 3, 10, 64, None),        # beam 20: two groups of rows
 ])
 def test_paged_attention_kernel_matches_plain(card, C, beam, ps, npe,
                                               src_cap, D, masked):
@@ -470,6 +476,53 @@ def test_paged_attention_kernel_matches_plain(card, C, beam, ps, npe,
     assert torch.isfinite(got).all()
     assert ((got - want).abs() <= 1e-5 + 1e-5 * want.abs()).all(), \
         float((got - want).abs().max())
+
+
+def test_paged_attention_kernel_reads_pages_shared_across_slots(card):
+    """Prefix-cache hits: slots whose tables name the same pages."""
+    r = np.random.RandomState(11)
+    C, beam, ps, npe, D = 6, 3, 16, 4, 1024
+    enc = (r.randn(1 + C * npe, ps, D) * 0.5).astype('float32')
+    enc[0] = 0.0
+    mask = (r.rand(1 + C * npe, ps) > 0.2).astype('float32')
+    mask[0] = 0.0
+    pt = (1 + r.permutation(C * npe)).reshape(C, npe).astype('int32')
+    pt[1::2, :2] = pt[0, :2]            # odd slots share slot 0's prefix
+    pt[2, 3] = pt[3, 3] = pt[4, 1]
+    q = (r.randn(C * beam, D) * 0.3).astype('float32')
+    args = [torch.from_numpy(a).to(card) for a in (q, enc, mask, pt)]
+    for src_cap in (64, 50):
+        got = tpa.paged_attention(*args, src_cap)
+        want = tpa.paged_attention_plain(*args, src_cap)
+        assert ((got - want).abs() <= 1e-5 + 1e-5 * want.abs()).all(), \
+            float((got - want).abs().max())
+
+
+@pytest.mark.parametrize('npe,src_cap,D', [(2, 32, 1024), (16, 250, 1024),
+                                           (2, 32, 1001)])
+def test_paged_attention_kernel_is_deterministic(card, npe, src_cap, D):
+    """Every block of a cluster sums the partial scores in rank order:
+    two launches are bitwise equal."""
+    args = [torch.from_numpy(a).to(card) for a in _paged_case(
+        5, 16, 3, 16, npe, src_cap, D)]
+    a = tpa.paged_attention(*args, src_cap)
+    b = tpa.paged_attention(*args, src_cap)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_paged_attention_launcher_refuses_a_bad_plan(card):
+    """The C entry point checks the plan it is given and the wrapper
+    raises on its error: a cluster of 3, a slice that leaves a block
+    empty, a chunk past 64."""
+    q, enc, mask, pt = [torch.from_numpy(a).to(card) for a in _paged_case(
+        1, 2, 3, 4, 2, 8, 16)]
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(card).cuda_stream
+    for n, width, chunk in ((3, 8, 8), (4, 8, 8), (1, 16, 65)):
+        with pytest.raises(RuntimeError, match='paged_attention'):
+            tpa.KERNEL.launch(q.data_ptr(), enc.data_ptr(), mask.data_ptr(),
+                              pt.data_ptr(), out.data_ptr(), 6, 3, 2, 4, 16,
+                              8, n, width, chunk, 3, stream)
 
 
 def test_paged_attention_wrapper_refuses_what_it_does_not_take(card):

@@ -1,22 +1,32 @@
 #!/usr/bin/env python3
-"""Time the flash-attention kernels of one or more checkouts on one card, in
+"""Time the attention kernels of one or more checkouts on one card, in
 turns, with chip_smoke.py's own cases and timing.
 
-    python3 tools/torch_attention_bench.py [ROOT ...]
+    python3 tools/torch_attention_bench.py [--cases flash|paged]
+        [--paged-n N] [ROOT ...]
 
 Each ROOT is the root of a checkout of the repo (default: this one). For
 the roots in the order given and then in reverse (A B B A), a fresh process
 puts that ROOT's paddle_tpu_torch first on its path, builds its kernels
-(chip_smoke.phase_build: ptxas' resource lines and the spill check) and
-runs chip_smoke._attention_cases: the forward and the backward pair against
-their plain versions at B=16, H=8, T=256, D=64 in the four phase-2 cases,
-timed by CUDA graph replay beside SDPA. The chip_smoke.py used is always
-THIS checkout's, so every root is timed by the same code. Prints one JSON
-line per run, then a summary line: per root and case, the median over the
-root's runs of each time, the largest error, and whether every launch pair
-was bitwise equal. Needs one card.
+(chip_smoke.phase_build: ptxas' resource lines; spills are reported in
+the run's line, not fatal, since an older checkout may have them) and
+runs one set of chip_smoke's phase-2 cases: `flash` (the default),
+chip_smoke._attention_cases, the forward and the backward pair against
+their plain versions at B=16, H=8, T=256, D=64 in the four cases, timed by
+CUDA graph replay beside SDPA; `paged`, chip_smoke._paged_attention_cases,
+the paged decode attention against its plain version in its six cases,
+timed by CUDA graph replay beside SDPA over gathered rows. The
+chip_smoke.py used is always THIS checkout's, so every root is timed by
+the same code. Prints one JSON line per run, then a summary line: per root
+and case, the median over the root's runs of each time, the largest error,
+and whether every launch pair was bitwise equal. `--paged-n N` times the
+paged kernel with clusters of N blocks in every case that can take them
+(the slices and the chunk follow from N), to hold launch_plan's choice
+against others; a checkout whose wrapper has no launch_plan ignores it.
+Needs one card.
 """
 import argparse
+import importlib
 import importlib.util
 import json
 import os
@@ -34,9 +44,28 @@ def load_chip_smoke():
     return module
 
 
-def worker(root):
-    """Build ROOT's kernels and time its attention cases; prints one JSON
-    line."""
+def force_cluster(pa, n):
+    """Make pa.launch_plan take clusters of n blocks where D gives every
+    block columns and the blocks fit the shared memory."""
+    chosen = pa.launch_plan
+
+    def plan(slots, D, beam, src_cap, sms=pa._SMS):
+        p = chosen(slots, D, beam, src_cap, sms)
+        width = pa.slice_width(D, n)
+        chunk = pa._chunk(n, width, p.group, src_cap)
+        if (n - 1) * width >= D or chunk is None:
+            return p
+        chunks = -(-src_cap // chunk)
+        return p._replace(n=n, width=width, chunk=chunk, chunks=chunks,
+                          col_parts=pa.col_parts(p.group, chunk),
+                          smem=pa.smem_bytes(n, width, chunk, p.group,
+                                             chunks))
+    pa.launch_plan = plan
+
+
+def worker(root, cases, paged_n=None):
+    """Build ROOT's kernels and time its `cases` (flash or paged); prints
+    one JSON line."""
     sys.path.insert(0, root)
     import torch
     if not torch.cuda.is_available():
@@ -47,8 +76,15 @@ def worker(root):
         raise SystemExit('imported paddle_tpu_torch from %s, not %s'
                          % (where, root))
     cs = load_chip_smoke()
-    cs.phase_build()
-    results = cs._attention_cases()
+    spills = cs.phase_build(fail_on_spill=False)
+    pa = importlib.import_module(
+        'paddle_tpu_torch.ops.kernels.paged_attention')
+    if paged_n and hasattr(pa, 'launch_plan'):
+        force_cluster(pa, paged_n)
+    if cases == 'paged':
+        results = {'paged_attention': cs._paged_attention_cases()}
+    else:
+        results = cs._attention_cases()
     rows = []
     for name, rs in sorted(results.items()):
         for r in rs:
@@ -57,7 +93,7 @@ def worker(root):
                        max_abs_err=r['max_abs_err'], ms=r['ms'],
                        eager_ms=r['eager_ms'], plain_ms=r['plain_ms'],
                        bound_ms=r['bound_ms'])
-            if name == 'flash_attention_fwd':
+            if name in ('flash_attention_fwd', 'paged_attention'):
                 row['library_ms'] = r['library_ms']
             if name == 'flash_attention_bwd_dq':
                 pair = r['backward_pair']
@@ -65,7 +101,7 @@ def worker(root):
                 row['pair_library_ms'] = pair['library_ms']
             rows.append(row)
     print(json.dumps({'root': root, 'card': cs.nvidia_smi_line(),
-                      'rows': rows}), flush=True)
+                      'spills': spills, 'rows': rows}), flush=True)
 
 
 def _median(xs):
@@ -77,17 +113,21 @@ def _median(xs):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument('roots', nargs='*', default=[HERE])
+    ap.add_argument('--cases', choices=('flash', 'paged'), default='flash')
+    ap.add_argument('--paged-n', type=int, choices=(1, 2, 4, 8))
     ap.add_argument('--worker', help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        worker(args.worker)
+        worker(args.worker, args.cases, args.paged_n)
         return
     roots = [os.path.abspath(r) for r in args.roots]
     runs = []
     for root in roots + roots[::-1]:
-        out = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              '--worker', root], capture_output=True,
-                             text=True)
+        cmd = [sys.executable, os.path.abspath(__file__), '--cases',
+               args.cases, '--worker', root]
+        if args.paged_n:
+            cmd += ['--paged-n', str(args.paged_n)]
+        out = subprocess.run(cmd, capture_output=True, text=True)
         sys.stderr.write(out.stderr[-4000:])
         for line in out.stdout.splitlines():
             print(line, flush=True)
@@ -114,7 +154,7 @@ def main():
                     entry[key] = _median([r[key] for r in rows])
             cases.append(entry)
         summary[root] = dict(card=mine[0]['card'], runs=len(mine),
-                             cases=cases)
+                             spills=mine[0]['spills'], cases=cases)
     print(json.dumps({'summary': summary}), flush=True)
 
 
