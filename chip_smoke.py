@@ -38,7 +38,17 @@ result line):
                 Their ms and plain_ms are device times from CUDA graph
                 replays (the wrapper's Python per call is longer than the
                 kernel); eager_ms is the time per call through the
-                wrapper, as the training step calls it. The paged decode
+                wrapper. Those four hold the merged form, the TPU kernel's
+                contract. The rows form, which the sparse rules call (the
+                ids' int32 sort, then one launch that sums each id's rows
+                in sorted order and updates the tables), in five id
+                vectors of 6,656: the reader's at D=10 and D=1, ids from
+                0..63, skewed (one id 256 times, four 64 times) and a
+                single id; two launches bitwise equal; ms is the route
+                (sort and kernel), kernel_ms the kernel alone, beside the
+                parent's route (_merge_sparse and the merged form,
+                parent_route_ms), the sorts alone and each route's device
+                kernels. The paged decode
                 attention in six cases: the decode path's shape (16
                 slots, beam 3, page_size 16, 2 pages a slot, src_cap 32,
                 D 1024), src_cap 29, a fully masked slot, beam 1 over 64
@@ -163,9 +173,10 @@ CTR_STEPS = 20
 CTR_ADAGRAD_LR = 0.01
 CTR_COMPARE_STEPS = 3
 # card against CPU over CTR_COMPARE_STEPS Adam steps from the same weights:
-# the merge's index_add_ sums the rows of a repeated id in another order on
-# the card (atomics) than on the CPU, and the fc products too, so the
-# gradients differ in their last bits and Adam's normalised steps carry
+# the sparse kernel sums the rows of a repeated id in the CPU's order (no
+# atomics), but the fc products sum in another order on the card and the
+# CPU's vectorised sqrt is not always correctly rounded, so the gradients
+# and updates differ in their last bits and Adam's normalised steps carry
 # that on (largest difference in PERF.md section 6)
 CTR_CROSS_DEVICE_TOL = 1e-5
 # sparse against dense Adagrad on the card: the same function (dense
@@ -280,9 +291,10 @@ def time_graph_ms(fn, iters=50, rounds=3):
     return sorted(times)[len(times) // 2]
 
 
-def device_kernels(fn):
-    """The names of the device kernels one call of fn launches, as
-    torch.profiler shows them (after one call to warm up)."""
+def device_kernel_counts(fn):
+    """{name: count} of the device kernels (memsets and copies included)
+    one call of fn launches, as torch.profiler shows them (after one call
+    to warm up)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -290,8 +302,16 @@ def device_kernels(fn):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sorted({e.name for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA})
+    counts = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            counts[e.name] = counts.get(e.name, 0) + 1
+    return counts
+
+
+def device_kernels(fn):
+    """The names of the device kernels one call of fn launches."""
+    return sorted(device_kernel_counts(fn))
 
 
 # -- phase 1 ----------------------------------------------------------------
@@ -562,6 +582,8 @@ def phase_kernels():
     {kernel name: [case result, ...]}."""
     results = _attention_cases()
     results.update(_sparse_optim_cases())
+    for name, rs in _sparse_rows_cases().items():
+        results[name].extend(rs)
     results['paged_attention'] = _paged_attention_cases()
     for name, rs in results.items():
         bad = [r['case'] for r in rs if not r['ok']]
@@ -570,7 +592,8 @@ def phase_kernels():
                                  'beyond %g%s in: %s' % (
                                      name, rs[0]['tol'],
                                      ', or with its own second launch,'
-                                     if 'deterministic' in rs[0] else '',
+                                     if any('deterministic' in r
+                                            for r in rs) else '',
                                      bad))
     return results
 
@@ -670,6 +693,162 @@ def _sparse_optim_cases():
                      eager_ms=time_ms(lambda: kern(*scratch, *args)),
                      plain_eager_ms=time_ms(lambda: plain(*scratch, *args)),
                      library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+            log('[kernels] %s %s' % (name, json.dumps(r)))
+            results[name].append(r)
+    return results
+
+
+def _sparse_rows_ids(gen):
+    """The id vectors the rows-form route is held on, C = 6,656 each:
+    (name, D, ids int64 on the card)."""
+    import torch
+    from paddle_tpu_torch.models import deepfm
+    ids = torch.from_numpy(ctr_feed(first_ctr_batch())['feat_ids']
+                           .reshape(-1)).cuda()
+    n = ids.shape[0]
+    dups = torch.randint(0, 64, (n,), generator=gen, device='cuda')
+    # a field with one value in every example of the batch (Criteo's
+    # low-cardinality fields): one id 256 times, four ids 64 times each,
+    # the rest uniform over the vocabulary, in shuffled order
+    hot = torch.randperm(deepfm.VOCAB, generator=gen, device='cuda')[:5]
+    skewed = torch.randint(0, deepfm.VOCAB, (n,), generator=gen,
+                           device='cuda')
+    skewed[:CTR_BATCH] = hot[0]
+    for k in range(4):
+        skewed[CTR_BATCH + 64 * k:CTR_BATCH + 64 * (k + 1)] = hot[k + 1]
+    skewed = skewed[torch.randperm(n, generator=gen, device='cuda')]
+    return [('rows: main-path ids, D=10 (fm_embed)', CTR_EMBED_DIM, ids),
+            ('rows: main-path ids, D=1 (fm_first_w)', 1, ids),
+            ('rows: duplicate-heavy, ids 0..63, D=10', CTR_EMBED_DIM, dups),
+            ('rows: skewed, one id x256, four x64, D=10', CTR_EMBED_DIM,
+             skewed),
+            ('rows: a single id, D=10', CTR_EMBED_DIM,
+             torch.full_like(ids, int(hot[0])))]
+
+
+def _sparse_rows_bound(n, d, n_unique, n_tables, id_bytes,
+                       flops_per_element):
+    """Least time for one fused rows-form update, ms (the sort not
+    included): the sorted ids (id_bytes each) and the int64 order read
+    once, the [n, d] rows read once, each touched table row read once and
+    written once in every table, lr; the segment sums' n * d adds and
+    the update's operations on each touched element."""
+    nbytes = (n * (id_bytes + 8.0) + 4.0 * n * d
+              + 2 * 4.0 * n_unique * d * n_tables + 4)
+    return _bound(n * d + float(flops_per_element) * n_unique * d, nbytes)
+
+
+def _sparse_rows_cases():
+    """The rows-form route (the ids' sort, then one launch that sums each
+    id's rows and updates the tables) of sparse_adam and sparse_adagrad
+    against its plain version on the card, two launches bitwise equal, in
+    five id vectors on DeepFM's tables; beside it the parent's route
+    (_merge_sparse, then the merged-form kernel) and the sorts alone,
+    with the device kernels each route launches. Returns {kernel name:
+    [case result, ...]}. A checkout without the rows form (an older one,
+    timed by tools/torch_attention_bench.py) gets the parent's route and
+    the sorts only."""
+    import torch
+    from paddle_tpu_torch.fluid.lowering import SparseRows
+    from paddle_tpu_torch.fluid.ops_impl.optim_ops import _merge_sparse
+    from paddle_tpu_torch.models import deepfm
+    so = importlib.import_module(
+        'paddle_tpu_torch.ops.kernels.sparse_optim')
+    rows_form = hasattr(so, 'fused_sparse_adam_rows')
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(SEED + 5)
+    lr = torch.tensor(1e-3, device='cuda')
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    kinds = {
+        # name: (merged form, rows form, tables, extra args, flops per
+        # element); the plain versions are named with _plain after them
+        'sparse_adagrad': ('fused_sparse_adagrad', 'fused_sparse_adagrad_rows',
+                           2, (1e-6,), 9),
+        'sparse_adam': ('fused_sparse_adam', 'fused_sparse_adam_rows', 3,
+                        (b1, b2, eps), 16),
+    }
+    results = {k: [] for k in kinds}
+    for case, D, ids in _sparse_rows_ids(gen):
+        n = ids.shape[0]
+        shape = (deepfm.VOCAB, D)
+        rows = torch.randn((n, D), generator=gen, device='cuda') * 1e-2
+        tables = [torch.randn(shape, generator=gen, device='cuda') * 0.1,
+                  torch.rand(shape, generator=gen, device='cuda') * 1e-3,
+                  torch.rand(shape, generator=gen, device='cuda') * 1e-5]
+        n_unique = int(torch.unique(ids).numel())
+        ids32 = ids.to(torch.int32)
+
+        def merge():
+            return _merge_sparse(SparseRows(ids, rows, shape))
+        sorts = dict(
+            sort_int64_ms=time_graph_ms(lambda: torch.sort(ids, stable=True)),
+            sort_int32_ms=time_graph_ms(
+                lambda: torch.sort(ids32, stable=True)),
+            cast_sort_int32_ms=time_graph_ms(
+                lambda: torch.sort(ids.to(torch.int32), stable=True)),
+            merge_ms=time_graph_ms(merge),
+            merge_kernels=device_kernel_counts(merge))
+        for name, (merged_name, rows_name, nt, extra, fpe) in kinds.items():
+            merged_fn = getattr(so, merged_name)
+            scratch = [t.clone() for t in tables[:nt]]
+
+            def fresh():
+                return [t.clone() for t in tables[:nt]]
+
+            def parent_route():
+                return merged_fn(*scratch, *merge(), lr, *extra)
+            r = dict(case=case, shape=dict(V=deepfm.VOCAB, C=n, D=D,
+                                           unique=n_unique),
+                     tol=SPARSE_TOL, library_ms=None,
+                     parent_route_ms=time_graph_ms(parent_route),
+                     parent_route_kernels=device_kernel_counts(parent_route),
+                     **sorts)
+            if rows_form:
+                fused = getattr(so, rows_name)
+                plain = getattr(so, rows_name + '_plain')
+                args = (ids, rows, lr) + extra
+                given = fresh()
+                got = fused(*given, *args)
+                again = fused(*fresh(), *args)
+                torch.cuda.synchronize()
+                # the plain version with its merge on the CPU, where
+                # index_add_ adds each id's rows in ascending sorted
+                # position, the kernel's order; on the card its atomics
+                # add them in run-to-run order, which moves a sum of
+                # thousands of rows by more than SPARSE_TOL
+                # (card_plain_max_abs_err)
+                want = getattr(so, merged_name + '_plain')(
+                    *fresh(), *[t.cuda() for t in so.merge_rows(
+                        ids.cpu(), rows.cpu())], lr, *extra)
+                err = _max_err(got, want)
+                deterministic = all(
+                    torch.equal(a.view(torch.int32), b.view(torch.int32))
+                    for a, b in zip(got, again))
+                sids, order = so.sort_ids(ids, deepfm.VOCAB)
+
+                def route():
+                    return fused(*scratch, *args)
+                bound_ms, bound_by = _sparse_rows_bound(
+                    n, D, n_unique, nt, sids.element_size(), fpe)
+                r.update(
+                    max_abs_err=err, deterministic=deterministic,
+                    bitwise_cpu_order=all(
+                        torch.equal(a.view(torch.int32), b.view(torch.int32))
+                        for a, b in zip(got, want)),
+                    card_plain_max_abs_err=_max_err(got, plain(*fresh(),
+                                                               *args)),
+                    ok=err <= SPARSE_TOL and deterministic and all(
+                        g is t for g, t in zip(got, given)),
+                    ms=time_graph_ms(route),
+                    kernel_ms=time_graph_ms(lambda: so.launch_sorted(
+                        scratch, sids, order, rows, lr, *extra)),
+                    sort_ms=time_graph_ms(
+                        lambda: so.sort_ids(ids, deepfm.VOCAB)),
+                    eager_ms=time_ms(route),
+                    plain_ms=time_graph_ms(lambda: plain(*scratch, *args)),
+                    route_kernels=device_kernel_counts(route),
+                    id_dtype=str(sids.dtype), bound_ms=bound_ms,
+                    bound_by=bound_by)
             log('[kernels] %s %s' % (name, json.dumps(r)))
             results[name].append(r)
     return results
@@ -1552,8 +1731,9 @@ def main():
         extra = {key: head[key] for key in (
             'eager_ms', 'ops_rate', 'library', 'library_kernels',
             'backward_pair') if key in head}
-        if 'deterministic' in head:
-            extra['deterministic'] = all(r['deterministic'] for r in rs)
+        checked = [r['deterministic'] for r in rs if 'deterministic' in r]
+        if checked:
+            extra['deterministic'] = all(checked)
         kernels.append(dict(
             name=name, route='cuda', source='paddle_tpu_torch/' + k.source,
             replaces=k.replaces, launches=sum(paths.values()),

@@ -12,9 +12,10 @@ vars as the inputs), so a tensor a caller fetched keeps its value.
 
 SparseRows gradients (is_sparse embedding tables, fluid/executor.py):
 only the touched rows change. SGD is linear, so its rows are index_add_-ed
-as they come, duplicates and all. Adagrad and Adam are not: their merge
-(_merge_sparse) sums the rows of each id first, then the fused kernels
-(ops/kernels/sparse_optim.py) update the merged rows. Those two branches
+as they come, duplicates and all. Adagrad and Adam are not: each id's
+rows are summed first, then its row updated, by the rows-form kernels
+(ops/kernels/sparse_optim.py: one launch after the ids' sort on the card,
+merge_rows and the plain update on the CPU). Those two branches
 are the one place where a rule is not pure: they update the table and its
 moments IN PLACE and return them, as the TPU kernel does through
 input_output_aliases, so the vocab-sized tables are never copied. The
@@ -25,8 +26,8 @@ value. A dense rule handed a SparseRows raises; it never densifies.
 import torch
 from torch.profiler import record_function
 
-from ...embedding.lookup import dedup_plan
-from ...ops.kernels import fused_sparse_adagrad, fused_sparse_adam
+from ...ops.kernels import fused_sparse_adagrad_rows, \
+    fused_sparse_adam_rows, merge_rows
 from ..lowering import register, data_of, SparseRows
 
 
@@ -45,27 +46,19 @@ def _lr(ins):
 
 def _merge_sparse(g):
     """Merge duplicate ids of a SparseRows grad (reference MergeAdd,
-    operators/math/selected_rows_functor.cc): nonlinear updates (adagrad's
-    g^2, adam's moments) must see each touched row ONCE with its summed
-    gradient. Static shapes, through embedding.lookup.dedup_plan: returns
-    (uids [N], merged [N, D], valid bool [N]) where the slots past the
-    unique count carry id 0 and zero rows. The JAX package's pinning of
-    these intermediates under a mesh waits for the parallel slice."""
-    ids, rows = g.ids, g.rows
-    n = ids.shape[0]
+    operators/math/selected_rows_functor.cc) into (uids [N], merged [N, D],
+    valid bool [N]), the merged form the JAX package's rules hand its
+    kernels: ops/kernels/sparse_optim.merge_rows, whose slots past the
+    unique count carry id 0 and zero rows. The rules' rows-form kernels
+    merge inside their one launch on the card and through merge_rows on
+    the CPU; this stays for the merged form's callers (its parity with the
+    JAX merge, and the merged route timed against the rows form). The JAX
+    package's pinning of these intermediates under a mesh waits for the
+    parallel slice."""
     # a torch.profiler range (tools/torch_train_profile.py reads the
     # merge's device time from it); without a profiler it costs ~1 us
     with record_function('optim.merge_sparse'):
-        uids, seg, order, n_unique = dedup_plan(ids)
-        merged = torch.zeros((n,) + tuple(rows.shape[1:]),
-                             dtype=rows.dtype, device=rows.device)
-        merged.index_add_(0, seg, rows[order])
-        valid = torch.arange(n, device=ids.device) < n_unique
-        # invalid slots carry dedup_plan's sentinel id: clamp it to 0 so
-        # the moment gathers at uids stay in bounds (the updates skip
-        # those slots)
-        uids = torch.where(valid, uids, torch.zeros_like(uids))
-    return uids, merged, valid
+        return merge_rows(g.ids, g.rows)
 
 
 @register('sgd')
@@ -90,8 +83,7 @@ def _adagrad(ins, attrs, ctx):
     if isinstance(g, SparseRows):
         # touched rows only, on merged duplicates (reference adagrad_op.h
         # SelectedRows branch: MergeAdd, then the per-row update), in place
-        uids, gm, valid = _merge_sparse(g)
-        p_out, m_out = fused_sparse_adagrad(p, m, uids, gm, valid, lr, eps)
+        p_out, m_out = fused_sparse_adagrad_rows(p, m, g.ids, g.rows, lr, eps)
         return {'ParamOut': p_out, 'MomentOut': m_out}
     g = _dense_grad(ins, 'adagrad')
     m_out = m + g * g
@@ -116,9 +108,8 @@ def _adam(ins, attrs, ctx):
         # only touched rows' moments decay and update, each row once with
         # its merged gradient; lr is already bias-corrected, as the kernel
         # applies it per row. In place.
-        uids, gm, valid = _merge_sparse(g)
-        p_out, m1_out, m2_out = fused_sparse_adam(
-            p, m1, m2, uids, gm, valid, lr, b1, b2, eps)
+        p_out, m1_out, m2_out = fused_sparse_adam_rows(
+            p, m1, m2, g.ids, g.rows, lr, b1, b2, eps)
         return {'ParamOut': p_out, 'Moment1Out': m1_out,
                 'Moment2Out': m2_out}
     g = _dense_grad(ins, 'adam')

@@ -13,7 +13,9 @@ and one softmax. 3e-4
 for the backward kernels, the Pallas backward's own tolerance
 (tests/test_flash_attention.py:64). 1e-6 for the sparse optimizer kernels,
 the Pallas kernels' (tests/test_kernels.py:182): kernel and plain version
-evaluate the same fp32 expression. 1e-5 + 1e-5*|plain| for the paged
+evaluate the same fp32 expression; the rows form, which sums each id's
+rows in the CPU's order, is held bitwise against its plain version with
+the merge on the CPU. 1e-5 + 1e-5*|plain| for the paged
 decode attention, the Pallas kernel's (tests/test_kernels.py:127): an
 online softmax against one softmax over the gathered rows.
 """
@@ -381,12 +383,149 @@ def test_sparse_kernel_wrapper_refuses_what_it_does_not_take(card):
                                  lr, 1e-6)
 
 
+def _rows_ids(card, kind, n, V):
+    """'random' ids from the whole table, 'dups' from 0..63, 'skewed' one
+    id n // 8 times and four n // 32 times among random ones, 'single' one
+    id; id 0 among the first two."""
+    g = torch.Generator(device=card)
+    g.manual_seed(n + V)
+    ids = torch.randint(0, 64 if kind == 'dups' else V, (n,), generator=g,
+                        device=card)
+    ids[:2] = 0
+    if kind == 'skewed':
+        ids[2:2 + n // 8] = 17
+        for k in range(4):
+            lo = 2 + n // 8 + k * (n // 32)
+            ids[lo:lo + n // 32] = 100 + k
+        ids = ids[torch.randperm(n, generator=g, device=card)]
+    elif kind == 'single':
+        ids[:] = 17
+    return ids
+
+
+def _rows_call(opt, fn, tables, ids, rows, lr):
+    if opt == 'adagrad':
+        return fn(*tables[:2], ids, rows, lr, 1e-6)
+    return fn(*tables, ids, rows, lr, 0.9, 0.999, 1e-8)
+
+
+def _rows_case_on(card, kind, D, V=1000, n=600):
+    ids = _rows_ids(card, kind, n, V)
+    g = torch.Generator(device=card)
+    g.manual_seed(V + n + D)
+    rows = torch.randn((n, D), generator=g, device=card) * 0.05
+    tables = [torch.randn((V, D), generator=g, device=card) * 0.5,
+              torch.rand((V, D), generator=g, device=card),
+              torch.rand((V, D), generator=g, device=card) * 0.1]
+    return ids, rows, tables
+
+
+_ROWS = {'adagrad': (tso.fused_sparse_adagrad_rows,
+                     tso.fused_sparse_adagrad_rows_plain, tso.KERNEL_ADAGRAD,
+                     2),
+         'adam': (tso.fused_sparse_adam_rows, tso.fused_sparse_adam_rows_plain,
+                  tso.KERNEL_ADAM, 3)}
+
+
+def _cpu_order_plain(opt, tables, ids, rows, lr):
+    """The rows form's plain version with its merge on the CPU, whose
+    index_add_ adds each id's rows in ascending sorted position (on the
+    card its atomics add them in run-to-run order, which moves a sum of
+    hundreds of rows by more than 1e-6), then the plain update on the
+    card, whose elementwise operations round as the kernel's intrinsics
+    do."""
+    uids, gm, valid = [t.to(ids.device) for t in tso.merge_rows(
+        ids.cpu(), rows.cpu())]
+    if opt == 'adagrad':
+        return tso.fused_sparse_adagrad_plain(*tables, uids, gm, valid, lr,
+                                              1e-6)
+    return tso.fused_sparse_adam_plain(*tables, uids, gm, valid, lr, 0.9,
+                                       0.999, 1e-8)
+
+
+@pytest.mark.parametrize('kind', ['random', 'dups', 'skewed', 'single'])
+@pytest.mark.parametrize('D', [1, 10, 33])
+@pytest.mark.parametrize('opt', ['adagrad', 'adam'])
+def test_sparse_rows_kernel_matches_plain(card, opt, D, kind):
+    """The rows form (sort, then one launch that sums each id's rows and
+    updates its row) against its plain version with the merge in the
+    CPU's order: bitwise equal, so within SPARSE_TOL; within SPARSE_TOL of
+    the plain version wholly on the card where no id repeats more than
+    the random ids do. One launch a call, the very tables returned,
+    untouched rows bitwise kept, a second launch bitwise equal."""
+    fused, plain, kernel, nt = _ROWS[opt]
+    ids, rows, tables = _rows_case_on(card, kind, D)
+    tables = tables[:nt]
+    lr = torch.tensor(0.05, device=card)
+    got_in = [t.clone() for t in tables]
+    launches = kernel.launches
+    got = _rows_call(opt, fused, got_in, ids, rows, lr)
+    torch.cuda.synchronize()
+    assert kernel.launches == launches + 1
+    assert all(o is t for o, t in zip(got, got_in))
+    again = _rows_call(opt, fused, [t.clone() for t in tables], ids, rows,
+                       lr)
+    want = _cpu_order_plain(opt, [t.clone() for t in tables], ids, rows, lr)
+    on_card = _rows_call(opt, plain, [t.clone() for t in tables], ids, rows,
+                         lr)
+    untouched = torch.ones(tables[0].shape[0], dtype=torch.bool, device=card)
+    untouched[ids] = False
+    for g, a, w, c, b in zip(got, again, want, on_card, tables):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+        assert torch.equal(g.view(torch.int32), a.view(torch.int32))
+        assert torch.equal(g[untouched].view(torch.int32),
+                           b[untouched].view(torch.int32))
+        if kind == 'random':
+            torch.testing.assert_close(g, c, rtol=0, atol=SPARSE_TOL)
+
+
+@pytest.mark.parametrize('opt', ['adagrad', 'adam'])
+def test_sparse_sorted_kernel_takes_int64_ids(card, opt):
+    """launch_sorted on int64 sorted ids (a vocabulary past int32) gives
+    the int32 route's tables bitwise."""
+    _, _, kernel, nt = _ROWS[opt]
+    ids, rows, tables = _rows_case_on(card, 'skewed', 10)
+    lr = torch.tensor(0.05, device=card)
+    hyper = (1e-6,) if nt == 2 else (0.9, 0.999, 1e-8)
+    outs = []
+    for vocab in (tables[0].shape[0], 2 ** 31):
+        sids, order = tso.sort_ids(ids, vocab)
+        ts = [t.clone() for t in tables[:nt]]
+        tso.launch_sorted(ts, sids, order, rows, lr, *hyper)
+        outs.append((sids.dtype, ts))
+    assert outs[0][0] == torch.int32 and outs[1][0] == torch.int64
+    for a, b in zip(outs[0][1], outs[1][1]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_sparse_rows_wrapper_refuses_what_it_does_not_take(card):
+    ids, rows, tables = _rows_case_on(card, 'random', 4)
+    lr = torch.tensor(0.05, device=card)
+    p, m = tables[:2]
+    with pytest.raises(ValueError, match='rows'):
+        tso.fused_sparse_adagrad_rows(p, m, ids, rows.double(), lr, 1e-6)
+    with pytest.raises(ValueError, match='ids'):
+        tso.fused_sparse_adagrad_rows(p, m, ids.float(), rows, lr, 1e-6)
+    with pytest.raises(ValueError, match='ids'):
+        tso.fused_sparse_adagrad_rows(p, m, ids.cpu(), rows, lr, 1e-6)
+    with pytest.raises(ValueError, match='lr'):
+        tso.fused_sparse_adagrad_rows(p, m, ids, rows, torch.tensor(0.05),
+                                      1e-6)
+    with pytest.raises(ValueError, match='table'):
+        tso.fused_sparse_adam_rows(p, m, tables[2].t(), ids, rows, lr, 0.9,
+                                   0.999, 1e-8)
+    with pytest.raises(ValueError, match='order'):
+        sids, order = tso.sort_ids(ids, p.shape[0])
+        tso.launch_sorted([p, m], sids, order.int(), rows, lr, 1e-6)
+
+
 @pytest.mark.parametrize('opt', ['adam', 'adagrad'])
 def test_sparse_deepfm_step_on_the_card_matches_the_cpu(card, opt):
     """A small deepfm(is_sparse=True) for 3 steps from the same weights on
     the card and on the CPU: losses, tables and moments, and 2 launches
     per step of the optimizer's sparse kernel (one per FM table). The
-    merge's index_add_ sums duplicate rows in another order on the card."""
+    kernel sums duplicate rows in the CPU's order (no atomics); the fc
+    products and the CPU's sqrt round differently."""
     import paddle_tpu_torch.fluid as fluid
     from paddle_tpu_torch.models import deepfm
     main, startup = fluid.Program(), fluid.Program()

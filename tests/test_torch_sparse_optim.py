@@ -14,7 +14,15 @@ package's, on the CPU, on the same numpy inputs:
   * the in-place contract: the wrapper returns the very tensors it was
     given, updated;
   * the sparse branches of the sgd, adagrad and adam rules against the
-    JAX rules handed the same SparseRows (their XLA branches), at 1e-6.
+    JAX rules handed the same SparseRows (their XLA branches), at 1e-6;
+  * the rows form (fused_sparse_*_rows, the rules' path: the gradient as
+    it comes, repeats summed inside): its plain version against the JAX
+    merge followed by the Pallas kernel in interpret mode at 1e-6, and
+    bitwise against the merged form's plain version after _merge_sparse;
+    an fp32 emulation of the CUDA kernel's order of operations (the ids'
+    int32 sort, segment heads, each segment summed in ascending sorted
+    position from 0.0, the update's expression) bitwise equal to the
+    plain rows form; sort_ids and launch_sorted on the CPU.
 """
 import numpy as np
 import pytest
@@ -225,3 +233,200 @@ def test_sparse_rows_to_dense_is_the_jax_one():
                                rtol=TOL, atol=TOL)
     assert t.astype(torch.float64).dtype == torch.float64
     assert t.astype(torch.float64).dense_shape == (V, 3)
+
+
+# -- the rows form ------------------------------------------------------------
+
+def _rows_ids(kind, n):
+    """'repeats': ids with repeats, 0 among them twice; 'single': one id
+    repeated; 'one': C = 1."""
+    if kind == 'repeats':
+        return _ids(n, n)
+    if kind == 'single':
+        return np.full(n, 7, 'int64')
+    return np.array([5], 'int64')
+
+
+def _rows_case(seed, kind, D, n=30):
+    """Ids, gradient rows at a training step's scale (a sum of 30 repeats
+    stays below 1, so 1e-6 is a few ulps of every moment) and tables."""
+    r = np.random.RandomState(seed)
+    ids = _rows_ids(kind, n)
+    rows = (r.randn(len(ids), D) * 0.05).astype('float32')
+    tables = dict(p=(r.randn(V, D) * 0.5).astype('float32'),
+                  m=np.abs(r.randn(V, D)).astype('float32'),
+                  m1=(r.randn(V, D) * 0.1).astype('float32'),
+                  m2=np.abs(r.randn(V, D) * 0.1).astype('float32'))
+    return ids, rows, tables
+
+
+_B1, _B2, _ADAM_EPS, _ADAGRAD_EPS = 0.9, 0.999, 1e-8, 1e-6
+_LR = {'adagrad': np.float32(0.1),
+       'adam': np.float32(1e-2 * np.sqrt(1 - _B2 ** 3) / (1 - _B1 ** 3))}
+_NAMES = {'adagrad': ('p', 'm'), 'adam': ('p', 'm1', 'm2')}
+
+
+def _rows_port(opt, ids, rows, tables, fn=None):
+    """The port's rows form (or `fn`, same signature) on CPU tensors."""
+    ts = [_t(tables[n]) for n in _NAMES[opt]]
+    lr = torch.tensor(_LR[opt])
+    if opt == 'adagrad':
+        fn = fn or tkern.fused_sparse_adagrad_rows
+        return fn(*ts, _t(ids), _t(rows), lr, _ADAGRAD_EPS)
+    fn = fn or tkern.fused_sparse_adam_rows
+    return fn(*ts, _t(ids), _t(rows), lr, _B1, _B2, _ADAM_EPS)
+
+
+@pytest.mark.parametrize('kind', ['repeats', 'single', 'one'])
+@pytest.mark.parametrize('D', [1, 4, 10])
+@pytest.mark.parametrize('opt', ['adagrad', 'adam'])
+def test_rows_form_matches_the_jax_merge_and_pallas_kernel(opt, D, kind):
+    ids, rows, tb = _rows_case(40 + D, kind, D)
+    uids, gm, valid = [jnp.asarray(a) for a in joptim._merge_sparse(
+        jlow.SparseRows(jnp.asarray(ids.astype('int32')), jnp.asarray(rows),
+                        (V, D)))]
+    jt = [jnp.asarray(tb[n]) for n in _NAMES[opt]]
+    if opt == 'adagrad':
+        want = jkern.fused_sparse_adagrad(*jt, uids, gm, valid, _LR[opt],
+                                          _ADAGRAD_EPS, interpret=True)
+    else:
+        want = jkern.fused_sparse_adam(*jt, uids, gm, valid, _LR[opt], _B1,
+                                       _B2, _ADAM_EPS, interpret=True)
+    got = _rows_port(opt, ids, rows, tb)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=TOL)
+    touched = sorted(set(ids.tolist()))
+    untouched = sorted(set(range(V)) - set(touched))
+    for g, n in zip(got, _NAMES[opt]):
+        assert not np.array_equal(g.numpy()[touched], tb[n][touched])
+        np.testing.assert_array_equal(g.numpy()[untouched],
+                                      tb[n][untouched])
+
+
+@pytest.mark.parametrize('kind', ['repeats', 'single', 'one'])
+@pytest.mark.parametrize('opt', ['adagrad', 'adam'])
+def test_rows_form_is_the_merged_form_after_the_merge(opt, kind):
+    ids, rows, tb = _rows_case(50, kind, 6)
+    got = _rows_port(opt, ids, rows, tb)
+    uids, gm, valid = toptim._merge_sparse(tlow.SparseRows(
+        _t(ids), _t(rows), (V, 6)))
+    ts = [_t(tb[n]) for n in _NAMES[opt]]
+    lr = torch.tensor(_LR[opt])
+    if opt == 'adagrad':
+        want = tkern.fused_sparse_adagrad(*ts, uids, gm, valid, lr,
+                                          _ADAGRAD_EPS)
+    else:
+        want = tkern.fused_sparse_adam(*ts, uids, gm, valid, lr, _B1, _B2,
+                                       _ADAM_EPS)
+    for g, w in zip(got, want):
+        assert g.numpy().tobytes() == w.numpy().tobytes()
+
+
+def _kernel_emulation(opt, ids, rows, tables):
+    """The CUDA rows-form kernel's arithmetic in numpy fp32, in its order:
+    the ids sorted stably as int32; position i heads a segment when its id
+    differs from position i-1's; the head sums rows[order[j]] for j = i,
+    i+1, ... while the id holds, from 0.0, one fp32 add at a time (the
+    head thread's adds for a segment inside its window of 8 positions,
+    one thread a column of its block for a longer one: the same order);
+    then the update's expression, one rounded operation at a time, on the
+    head's table row. The square root is torch's on the CPU, as the plain
+    version's: the kernel's __fsqrt_rn is correctly rounded, torch's
+    vectorised CPU sqrt not always (it differs from numpy's in the last
+    bit for some 0.6% of inputs)."""
+    f = np.float32
+
+    def sqrt(x):
+        return torch.sqrt(torch.from_numpy(x)).numpy()
+    sids = ids.astype('int32')
+    order = np.argsort(sids, kind='stable')
+    sids = sids[order]
+    out = {n: tables[n].copy() for n in _NAMES[opt]}
+    lr = f(_LR[opt])
+    for i in range(len(sids)):
+        if i > 0 and sids[i - 1] == sids[i]:
+            continue
+        u = sids[i]
+        g = np.zeros(rows.shape[1], 'float32')
+        for j in range(i, len(sids)):
+            if sids[j] != u:
+                break
+            g = g + rows[order[j]]
+        if opt == 'adagrad':
+            pv, mv = out['p'][u].copy(), out['m'][u].copy()
+            m_new = mv + g * g
+            delta = (-lr * g) / (sqrt(m_new) + f(_ADAGRAD_EPS))
+            out['p'][u] = pv + delta
+            out['m'][u] = mv + (m_new - mv)
+        else:
+            pv, a, b = (out[n][u].copy() for n in ('p', 'm1', 'm2'))
+            a_new = f(_B1) * a + f(1 - _B1) * g
+            b_new = f(_B2) * b + (f(1 - _B2) * g) * g
+            delta = (-lr * a_new) / (sqrt(b_new) + f(_ADAM_EPS))
+            out['p'][u] = pv + delta
+            out['m1'][u] = a + (a_new - a)
+            out['m2'][u] = b + (b_new - b)
+    return [out[n] for n in _NAMES[opt]]
+
+
+@pytest.mark.parametrize('kind', ['repeats', 'single', 'one', 'wide'])
+@pytest.mark.parametrize('D', [1, 4, 10])
+@pytest.mark.parametrize('opt', ['adagrad', 'adam'])
+def test_kernel_order_emulation_is_the_plain_rows_form_bitwise(opt, D,
+                                                                kind):
+    """What the card computes, emulated, is bitwise the CPU's plain route:
+    the CUDA kernel sums each segment in the order index_add_ does on the
+    CPU. 'wide': 200 ids over 24 rows, segments around the window's 8
+    positions."""
+    n = 200 if kind == 'wide' else 30
+    ids, rows, tb = _rows_case(60 + D, 'repeats' if kind == 'wide' else kind,
+                               D, n)
+    want = _kernel_emulation(opt, ids, rows, tb)
+    got = _rows_port(opt, ids, rows, tb)
+    for g, w in zip(got, want):
+        assert g.numpy().tobytes() == w.tobytes()
+
+
+@pytest.mark.parametrize('kind', ['repeats', 'single', 'one'])
+def test_sort_ids_is_the_plans_order(kind):
+    ids = _rows_ids(kind, 40)
+    sids, order = tkern.sparse_optim.sort_ids(_t(ids), V)
+    assert sids.dtype == torch.int32 and order.dtype == torch.int64
+    _, _, plan_order, _ = tlookup.dedup_plan(_t(ids))
+    np.testing.assert_array_equal(order.numpy(), plan_order.numpy())
+    np.testing.assert_array_equal(sids.numpy(), np.sort(ids))
+    # a vocabulary past int32 keeps the int64 ids
+    wide, _ = tkern.sparse_optim.sort_ids(_t(ids), 2 ** 31)
+    assert wide.dtype == torch.int64
+
+
+def test_launch_sorted_refuses_cpu_tensors():
+    ids, rows, tb = _rows_case(3, 'repeats', 4)
+    sids, order = tkern.sparse_optim.sort_ids(_t(ids), V)
+    with pytest.raises(ValueError, match='card'):
+        tkern.sparse_optim.launch_sorted(
+            [_t(tb['p']), _t(tb['m'])], sids, order, _t(rows),
+            torch.tensor(0.1), 1e-6)
+
+
+@pytest.mark.parametrize('kind', ['single', 'one'])
+@pytest.mark.parametrize('op_type', ['adagrad', 'adam'])
+def test_sparse_rule_branches_match_the_jax_rules_on_edge_ids(op_type, kind):
+    r = np.random.RandomState(4)
+    D = 3
+    ids = _rows_ids(kind, 12)
+    rows = (r.randn(len(ids), D) * 0.3).astype('float32')
+    ins = {'Param': (r.randn(V, D) * 0.5).astype('float32'),
+           'LearningRate': np.array([0.05], 'float32')}
+    if op_type == 'adagrad':
+        ins['Moment'] = np.abs(r.randn(V, D)).astype('float32')
+        attrs, slots = {'epsilon': 1e-6}, ('ParamOut', 'MomentOut')
+    else:
+        ins.update(Moment1=(r.randn(V, D) * 0.1).astype('float32'),
+                   Moment2=np.abs(r.randn(V, D) * 0.1).astype('float32'),
+                   Beta1Pow=np.array([0.9 ** 2], 'float32'),
+                   Beta2Pow=np.array([0.999 ** 2], 'float32'))
+        attrs = {'beta1': 0.9, 'beta2': 0.999, 'epsilon': 1e-8}
+        slots = ('ParamOut', 'Moment1Out', 'Moment2Out')
+    _rule_both(op_type, ins, (ids, rows), attrs, slots)

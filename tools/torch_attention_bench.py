@@ -2,7 +2,7 @@
 """Time the attention kernels of one or more checkouts on one card, in
 turns, with chip_smoke.py's own cases and timing.
 
-    python3 tools/torch_attention_bench.py [--cases flash|paged]
+    python3 tools/torch_attention_bench.py [--cases flash|paged|sparse]
         [--paged-n N] [ROOT ...]
 
 Each ROOT is the root of a checkout of the repo (default: this one). For
@@ -15,7 +15,13 @@ chip_smoke._attention_cases, the forward and the backward pair against
 their plain versions at B=16, H=8, T=256, D=64 in the four cases, timed by
 CUDA graph replay beside SDPA; `paged`, chip_smoke._paged_attention_cases,
 the paged decode attention against its plain version in its six cases,
-timed by CUDA graph replay beside SDPA over gathered rows. The
+timed by CUDA graph replay beside SDPA over gathered rows; `sparse`,
+chip_smoke._sparse_optim_cases and _sparse_rows_cases, sparse_adam and
+sparse_adagrad in their four merged-form cases and five rows-form cases
+(the rows-form route against the parent's _merge_sparse route and the
+sorts alone, by graph replay; a checkout without the rows form gets the
+parent's route and the sorts only), with each route's device kernels
+counted. The
 chip_smoke.py used is always THIS checkout's, so every root is timed by
 the same code. Prints one JSON line per run, then a summary line: per root
 and case, the median over the root's runs of each time, the largest error,
@@ -64,8 +70,8 @@ def force_cluster(pa, n):
 
 
 def worker(root, cases, paged_n=None):
-    """Build ROOT's kernels and time its `cases` (flash or paged); prints
-    one JSON line."""
+    """Build ROOT's kernels and time its `cases` (flash, paged or
+    sparse); prints one JSON line."""
     sys.path.insert(0, root)
     import torch
     if not torch.cuda.is_available():
@@ -83,18 +89,23 @@ def worker(root, cases, paged_n=None):
         force_cluster(pa, paged_n)
     if cases == 'paged':
         results = {'paged_attention': cs._paged_attention_cases()}
+    elif cases == 'sparse':
+        results = cs._sparse_optim_cases()
+        for name, rs in cs._sparse_rows_cases().items():
+            results[name].extend(rs)
     else:
         results = cs._attention_cases()
     rows = []
     for name, rs in sorted(results.items()):
         for r in rs:
-            row = dict(kernel=name, case=r['case'], ok=r['ok'],
-                       deterministic=r['deterministic'],
-                       max_abs_err=r['max_abs_err'], ms=r['ms'],
-                       eager_ms=r['eager_ms'], plain_ms=r['plain_ms'],
-                       bound_ms=r['bound_ms'])
-            if name in ('flash_attention_fwd', 'paged_attention'):
-                row['library_ms'] = r['library_ms']
+            row = dict(kernel=name, case=r['case'])
+            for key, value in r.items():
+                if key in ('ok', 'deterministic', 'max_abs_err') \
+                        or key.endswith('ms'):
+                    row[key] = value
+                elif key.endswith('_kernels') and isinstance(value, dict):
+                    # a route's device kernels: their launches in all
+                    row['n_' + key] = sum(value.values())
             if name == 'flash_attention_bwd_dq':
                 pair = r['backward_pair']
                 row['pair_ms'] = pair['ms']
@@ -113,7 +124,8 @@ def _median(xs):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument('roots', nargs='*', default=[HERE])
-    ap.add_argument('--cases', choices=('flash', 'paged'), default='flash')
+    ap.add_argument('--cases', choices=('flash', 'paged', 'sparse'),
+                    default='flash')
     ap.add_argument('--paged-n', type=int, choices=(1, 2, 4, 8))
     ap.add_argument('--worker', help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -144,14 +156,18 @@ def main():
                 by.setdefault((row['kernel'], row['case']), []).append(row)
         cases = []
         for (kernel, case), rows in sorted(by.items()):
-            entry = dict(kernel=kernel, case=case,
-                         ok=all(r['ok'] for r in rows),
-                         deterministic=all(r['deterministic'] for r in rows),
-                         max_abs_err=max(r['max_abs_err'] for r in rows))
-            for key in ('ms', 'eager_ms', 'plain_ms', 'bound_ms',
-                        'library_ms', 'pair_ms', 'pair_library_ms'):
-                if key in rows[0]:
+            entry = dict(kernel=kernel, case=case)
+            for key, value in sorted(rows[0].items()):
+                if key in ('ok', 'deterministic'):
+                    entry[key] = all(r[key] for r in rows)
+                elif key == 'max_abs_err':
+                    entry[key] = max(r[key] for r in rows)
+                elif key.endswith('ms') and value is not None:
                     entry[key] = _median([r[key] for r in rows])
+                elif key.startswith('n_'):
+                    # device kernels counted in each run (a profile that
+                    # caught nothing shows as 0)
+                    entry[key] = [r[key] for r in rows]
             cases.append(entry)
         summary[root] = dict(card=mine[0]['card'], runs=len(mine),
                              spills=mine[0]['spills'], cases=cases)

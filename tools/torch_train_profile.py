@@ -4,6 +4,7 @@
     python3 tools/torch_train_profile.py [--model transformer] [--batch 16]
                                          [--steps 20]
     python3 tools/torch_train_profile.py --model deepfm [--batch 256]
+                                         [--root CHECKOUT]
 
 --model transformer (the default) builds full-width Transformer-base with
 models.transformer.get_model (its defaults: 6+6 layers, d_model 512, 8
@@ -22,8 +23,10 @@ and of the sparse kernels, and the device's idle share, both of the
 traced wall time (the profiler slows the host's op walk) and of the
 untraced median step. The classes: matmul; the port's hand-written
 kernels by name (flash attention forward and backward, sparse_adam,
-sparse_adagrad); the sparse merge (the kernels launched inside
-_merge_sparse's `optim.merge_sparse` range); the dense optimizer update
+sparse_adagrad); the sparse sort and the rest of the sparse merge (the
+kernels launched inside _merge_sparse's `optim.merge_sparse` range, or
+the rows-form wrapper's `sparse_optim.sort_ids`: the sort ops' kernels,
+then the others); the dense optimizer update
 (the rest of the Executor's `executor.update` range); other
 elementwise/normalization kernels; copies. Prints one JSON line.
 """
@@ -36,8 +39,7 @@ import time
 
 import numpy as np
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))))
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SEED = 2024
 MAX_LENGTH = 256
@@ -46,15 +48,23 @@ PROFILE_STEPS = 3
 KERNEL_CLASSES = ('flash_attention_fwd', 'flash_attention_bwd_dq',
                   'flash_attention_bwd_dkv', 'sparse_adam', 'sparse_adagrad')
 CLASSES = ('matmul',) + KERNEL_CLASSES + (
-    'sparse merge', 'optimizer (dense)', 'elementwise/norm/other', 'copy')
+    'sparse sort', 'sparse merge (rest)', 'optimizer (dense)',
+    'elementwise/norm/other', 'copy')
+# the ranges around the sparse rules' id bookkeeping: _merge_sparse's
+# whole merge (the route of checkouts before the fused rows-form kernel)
+# and the rows-form wrapper's cast and sort
+MERGE_RANGES = ('optim.merge_sparse', 'sparse_optim.sort_ids')
 
 
 def _kernel_class(name):
     n = name.lower()
-    if 'sparse_adam_kernel' in n:
-        return 'sparse_adam'
-    if 'sparse_adagrad_kernel' in n:
+    # the sparse kernels: one template over the rule since the rows form
+    # (sparse_update_kernel<Adam, ...>), a kernel each before it
+    sparse = 'sparse_update_kernel' in n
+    if 'sparse_adagrad_kernel' in n or sparse and 'adagrad' in n:
         return 'sparse_adagrad'
+    if 'sparse_adam_kernel' in n or sparse and 'adam' in n:
+        return 'sparse_adam'
     if 'bwd_dq_kernel' in n:
         return 'flash_attention_bwd_dq'
     if 'bwd_dkv_kernel' in n:
@@ -66,6 +76,28 @@ def _kernel_class(name):
     if 'memcpy' in n or 'memset' in n:
         return 'copy'
     return 'elementwise/norm/other'
+
+
+def _under(evt, names):
+    """Whether a host event runs inside a range named in `names`."""
+    parent = evt.cpu_parent
+    while parent is not None:
+        if parent.name in names:
+            return True
+        parent = parent.cpu_parent
+    return False
+
+
+def _sort_us(events):
+    """Device time of the sorts inside the merge ranges: each outermost
+    host op named *sort* under such a range, with its children."""
+    import torch
+    sorts = [e for e in events if 'sort' in e.name
+             and e.name not in MERGE_RANGES
+             and e.device_type != torch.autograd.DeviceType.CUDA]
+    names = {e.name for e in sorts}
+    return sum(e.device_time_total for e in sorts
+               if _under(e, MERGE_RANGES) and not _under(e, names))
 
 
 def profile_steps(exe, main, scope, fetch, feeds):
@@ -80,7 +112,7 @@ def profile_steps(exe, main, scope, fetch, feeds):
         torch.cuda.synchronize()
         traced_wall = time.perf_counter() - t0
     classes = dict.fromkeys(CLASSES, 0.0)
-    ranges = {'executor.update': 0.0, 'optim.merge_sparse': 0.0}
+    ranges = dict.fromkeys(('executor.update',) + MERGE_RANGES, 0.0)
     for evt in prof.events():
         if evt.name in ranges \
                 and evt.device_type != torch.autograd.DeviceType.CUDA:
@@ -97,9 +129,11 @@ def profile_steps(exe, main, scope, fetch, feeds):
     # rules; the merge's and the dense rules' kernels are elementwise,
     # sorts and scatters: move their time to their classes
     sparse_us = classes['sparse_adam'] + classes['sparse_adagrad']
-    classes['sparse merge'] = ranges['optim.merge_sparse']
+    merge_us = sum(ranges[r] for r in MERGE_RANGES)
+    classes['sparse sort'] = _sort_us(prof.events())
+    classes['sparse merge (rest)'] = merge_us - classes['sparse sort']
     classes['optimizer (dense)'] = (ranges['executor.update'] - sparse_us
-                                    - ranges['optim.merge_sparse'])
+                                    - merge_us)
     classes['elementwise/norm/other'] -= (ranges['executor.update']
                                           - sparse_us)
     n = len(feeds)
@@ -174,7 +208,12 @@ def main():
     ap.add_argument('--batch', type=int, default=None,
                     help='default: 16 (transformer), 256 (deepfm)')
     ap.add_argument('--steps', type=int, default=20)
+    ap.add_argument('--root', default=HERE,
+                    help='the checkout whose paddle_tpu_torch is profiled '
+                         '(default: this one), to time two commits with '
+                         'the same tool')
     args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.root))
     import torch
     if not torch.cuda.is_available():
         raise SystemExit('torch_train_profile: needs a CUDA card')
@@ -200,7 +239,10 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     prof = profile_steps(exe, main_prog, scope, fetch,
                          feeds[args.steps:])
-    r = dict(card=card_line(), model=args.model, batch=batch,
+    import paddle_tpu_torch
+    r = dict(card=card_line(), root=os.path.dirname(os.path.dirname(
+        os.path.abspath(paddle_tpu_torch.__file__))),
+             model=args.model, batch=batch,
              steps=args.steps, step_s=step_s, median_step_s=med,
              losses=losses, kernel_launches_per_step=launches,
              peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
