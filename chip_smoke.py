@@ -99,7 +99,32 @@ result line):
                 included; the history pool all free after the drain and
                 prefix hits > 0. Phases 3-5 launch no paged_attention, and
                 this phase none of the other kernels.
-  7. a JSON line {"kernels": [...]} with each kernel's parity, launches,
+  7. image_training — the image and book configs through the entry
+                points on the card. fit_a_line (get_model: fc 13 -> 1,
+                SGD 0.01, batch 20) 10 epochs of the uci_housing reader
+                through DataFeeder: the last epoch's mean loss below a
+                tenth of the first's; its for_test clone through
+                Predictor, card against CPU within 1e-5. MNIST LeNet
+                (get_model: batch 128, Adam 1e-3) one epoch of 64 steps:
+                finite losses, the for_test clone's accuracy on the test
+                reader >= 0.9. ResNet-50 (get_model(data_set='imagenet',
+                depth=50, batch_size=32): 1000 classes, 3x224x224, NCHW,
+                Momentum(0.01, 0.9)) 20 steps on flowers batches read
+                beforehand: finite losses, running stats moved; the median
+                step over steps 2-20, images/s and peak memory; one batch
+                repeated 30 steps from the startup weights ends below half
+                its first loss; step 1 on the card against the CPU at
+                batch 2 (the loss and every running stat within 1e-4, the
+                median relative L2 of the gradients within 3x the CPU's
+                own spread under a 1e-6 change of the input: the network
+                is chaotic at its startup weights); one NHWC step's loss
+                within 1e-4 of NCHW's;
+                the trained for_test clone through Predictor and
+                ServingEngine on the card against the CPU within 1e-4,
+                its running stats bitwise unchanged by serving. The phase
+                launches none of the port's kernels (conv, pool and norm
+                are cuDNN library calls).
+  8. a JSON line {"kernels": [...]} with each kernel's parity, launches,
      times and bound; then the card's name and power limit; then the last
      line {"ok": true, "device": {...}}.
 """
@@ -213,6 +238,40 @@ DECODE_CPU_REQUESTS = 4
 # the paged engine on the card: the attention sums in another order, and
 # log-probabilities of up to 50 steps accumulate the difference
 DECODE_SCORE_TOL = 1e-4
+
+# phase 7: fit_a_line (get_model: batch 20, SGD 0.01) for FIT_EPOCHS epochs;
+# its answers on the card and on the CPU: one fc of 13 products
+FIT_EPOCHS = 10
+FIT_SERVE_TOL = 1e-5
+# MNIST LeNet (get_model: batch 128, Adam 1e-3): one epoch of the 8,192
+# synthetic samples, then the test reader's accuracy
+MNIST_STEPS = 64
+MNIST_MIN_ACC = 0.9
+# ResNet-50 as benchmark/fluid_benchmark.py trains it by default: batch 32,
+# 1000 classes at 3x224x224, Momentum(0.01, 0.9)
+RESNET_BATCH = 32
+RESNET_STEPS = 20
+RESNET_LEARN_STEPS = 30
+# step 1 on the card against the CPU at this batch (1 when the CPU step
+# takes over RESNET_CPU_STEP_S seconds), by the median over the tensors of
+# |card - cpu| / |cpu| in L2 (the maximum printed beside it). The loss and
+# the running stats are held to RESNET_GRAD_TOL. The gradients are not:
+# ResNet-50 at its startup weights is chaotic, a perturbation of the input
+# growing through each batch norm, so rounding-sized changes of the input
+# alone move its step-1 gradients by percents (PERF.md section 6). cuDNN
+# and the CPU's oneDNN round each convolution's sums (over 147-4,608
+# products) differently, about 1e-6 relative, so the card's gradients are
+# held to RESNET_GRAD_SPREAD times the CPU's own spread under an input
+# perturbation of RESNET_INPUT_NOISE, measured in the same run
+RESNET_CPU_BATCH = 2
+RESNET_CPU_STEP_S = 30.0
+RESNET_GRAD_TOL = 1e-4
+RESNET_INPUT_NOISE = 1e-6
+RESNET_GRAD_SPREAD = 3.0
+# the NHWC tower's loss against the NCHW one's from the same weights, and
+# the served probabilities on the card against the CPU and Predictor.run
+RESNET_NHWC_TOL = 1e-4
+RESNET_SERVE_TOL = 1e-4
 
 
 def log(*args):
@@ -1697,6 +1756,399 @@ def phase_decode():
     return launches
 
 
+# -- phase 7 ----------------------------------------------------------------
+
+def _program_pair():
+    from paddle_tpu_torch.fluid import framework
+    main, startup = framework.Program(), framework.Program()
+    main.random_seed = startup.random_seed = SEED
+    return main, startup
+
+
+def _input_of(program, op_type, slot):
+    """The variable in `slot` of the program's first `op_type` op."""
+    blk = program.global_block()
+    return blk.var([op.input(slot)[0] for op in blk.ops
+                    if op.type == op_type][0])
+
+
+def _fit_a_line():
+    """fit_a_line's get_model on the uci_housing reader through DataFeeder
+    for FIT_EPOCHS epochs on the card; its for_test clone saved and
+    answered by Predictor on the card and on the CPU."""
+    import random
+    from paddle_tpu_torch import fluid, inference
+    from paddle_tpu_torch.fluid import unique_name
+    from paddle_tpu_torch.models import fit_a_line
+    random.seed(SEED)                   # the shuffle's buffer order
+    main, startup = _program_pair()
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        avg_cost, test_prog, train_reader, test_reader, names = \
+            fit_a_line.get_model()
+    scope = fluid.Scope()
+    exe = fluid.Executor()                      # the default place: the card
+    exe.run(startup, scope=scope)
+    feeder = fluid.DataFeeder([main.global_block().var(n) for n in names],
+                              fluid.CUDAPlace(0), program=main)
+    epochs = []
+    t0 = time.perf_counter()
+    for _ in range(FIT_EPOCHS):
+        losses = [float(exe.run(main, feed=feeder.feed(b),
+                                fetch_list=[avg_cost], scope=scope)[0][0])
+                  for b in train_reader()]
+        if not np.isfinite(losses).all():
+            raise AssertionError('non-finite fit_a_line loss: %r'
+                                 % (losses,))
+        epochs.append(float(np.mean(losses)))
+    train_s = time.perf_counter() - t0
+    if not epochs[-1] < epochs[0] / 10:
+        raise AssertionError('fit_a_line: the last epoch\'s mean loss %r is '
+                             'not below a tenth of the first\'s %r'
+                             % (epochs[-1], epochs[0]))
+    rows = np.concatenate([feeder.feed(b)['x'] for b in test_reader()])
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_fit_') as tmp:
+        fluid.io.save_inference_model(
+            tmp, ['x'], [_input_of(test_prog, 'elementwise_sub', 'X')], exe,
+            main_program=test_prog, scope=scope)
+        got = inference.Predictor(tmp).run({'x': rows})[0]
+        ref = inference.Predictor(tmp, place=fluid.CPUPlace()).run(
+            {'x': rows})[0]
+    if got.shape != (len(rows), 1):
+        raise AssertionError('fit_a_line answered %r' % (got.shape,))
+    np.testing.assert_allclose(got, ref, rtol=FIT_SERVE_TOL,
+                               atol=FIT_SERVE_TOL)
+    log('[image_training] fit_a_line: %d epochs of batch 20 (SGD 0.01) in '
+        '%.3f s, mean loss by epoch %s; the for_test clone through '
+        'Predictor, card vs CPU on the %d test rows: max abs diff %.3g '
+        '(tol %g)' % (FIT_EPOCHS, train_s,
+                      ', '.join('%.4f' % x for x in epochs), len(rows),
+                      float(np.abs(got - ref).max()), FIT_SERVE_TOL))
+
+
+def _mnist():
+    """MNIST LeNet's get_model (batch 128, Adam 1e-3) for one epoch of the
+    synthetic reader on the card; accuracy of the for_test clone on the
+    test reader."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import unique_name
+    from paddle_tpu_torch.models import mnist
+    main, startup = _program_pair()
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        avg_cost, test_prog, train_reader, test_reader, acc = \
+            mnist.get_model()
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    exe.run(startup, scope=scope)
+    blk = main.global_block()
+    feeder = fluid.DataFeeder([blk.var('pixel'), blk.var('label')],
+                              fluid.CUDAPlace(0), program=main)
+    feeds = [feeder.feed(b) for b in train_reader()]
+    losses, step_s = [], []
+    for feed in feeds:
+        t0 = time.perf_counter()
+        losses.append(float(exe.run(main, feed=feed, fetch_list=[avg_cost],
+                                    scope=scope)[0][0]))
+        step_s.append(time.perf_counter() - t0)
+    if len(losses) != MNIST_STEPS or not np.isfinite(losses).all():
+        raise AssertionError('MNIST: %d steps, losses %r'
+                             % (len(losses), losses))
+    right = seen = 0
+    for b in test_reader():
+        a, = exe.run(test_prog, feed=feeder.feed(b), fetch_list=[acc.name],
+                     scope=scope)
+        right += float(a[0]) * len(b)
+        seen += len(b)
+    accuracy = right / seen
+    if not accuracy >= MNIST_MIN_ACC:
+        raise AssertionError('MNIST: test accuracy %.4f after one epoch, '
+                             'below %g' % (accuracy, MNIST_MIN_ACC))
+    log('[image_training] MNIST LeNet: %d steps of batch 128 (Adam 1e-3), '
+        'loss %.4f -> %.4f, median step %.4f s; for_test accuracy on the '
+        '%d test samples %.4f (min %g)'
+        % (len(losses), losses[0], losses[-1], float(np.median(step_s[1:])),
+           seen, accuracy, MNIST_MIN_ACC))
+
+
+def build_resnet(data_format='NCHW'):
+    """ResNet-50 at its full width: get_model(data_set='imagenet',
+    depth=50, batch_size=32) for NCHW; for NHWC the same layer calls with
+    resnet_imagenet(data_format='NHWC') and a [224, 224, 3] input (the
+    same parameter names). Returns (main, startup, avg_cost, prob,
+    train_reader or None)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import unique_name
+    from paddle_tpu_torch.models import resnet
+    main, startup = _program_pair()
+    reader = None
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        if data_format == 'NCHW':
+            avg_cost, _, reader, _ = resnet.get_model(
+                data_set='imagenet', depth=50, batch_size=RESNET_BATCH)
+        else:
+            image = fluid.layers.data(name='data', shape=[224, 224, 3])
+            label = fluid.layers.data(name='label', shape=[1],
+                                      dtype='int64')
+            predict = resnet.resnet_imagenet(image, 1000, depth=50,
+                                             data_format='NHWC')
+            avg_cost = fluid.layers.mean(
+                fluid.layers.cross_entropy(input=predict, label=label))
+            fluid.layers.accuracy(input=predict, label=label)
+            fluid.optimizer.Momentum(learning_rate=0.01,
+                                     momentum=0.9).minimize(avg_cost)
+    return main, startup, avg_cost, _input_of(main, 'cross_entropy', 'X'), \
+        reader
+
+
+def _bn_stats(program):
+    """The names of every batch norm's running mean and variance."""
+    out = []
+    for op in program.global_block().ops:
+        if op.type == 'batch_norm':
+            out += [op.input('Mean')[0], op.input('Variance')[0]]
+    return out
+
+
+def _rel_l2(got, want):
+    norm = float(np.linalg.norm(want))
+    return float(np.linalg.norm(got - want)) / norm if norm \
+        else float(np.abs(got).max())
+
+
+def _resnet50():
+    """ResNet-50 training on the card; returns nothing, raises on a failed
+    check."""
+    import torch
+    from paddle_tpu_torch import fluid
+    t0 = time.perf_counter()
+    main, startup, avg_cost, prob, reader = build_resnet()
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    exe.run(startup, scope=scope)
+    initial = scope.to_numpy()
+    blk = main.global_block()
+    feeder = fluid.DataFeeder([blk.var('data'), blk.var('label')],
+                              fluid.CUDAPlace(0), program=main)
+    # the flowers reader (512 samples: 16 batches) read before the timed
+    # steps, restarted at its end; images/s leaves the host reader out
+    feeds = []
+    while len(feeds) < RESNET_STEPS:
+        feeds += [feeder.feed(b) for b in reader()
+                  if len(b) == RESNET_BATCH][:RESNET_STEPS - len(feeds)]
+    stats = _bn_stats(main)
+    log('[image_training] ResNet-50 (get_model imagenet, depth 50, 1000 '
+        'classes, Momentum(0.01, 0.9), %d batch norms): built, initialized '
+        'on the card and read %d flowers batches of %d in %.3f s'
+        % (len(stats) // 2, len(feeds), RESNET_BATCH,
+           time.perf_counter() - t0))
+
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    for feed in feeds:
+        t0 = time.perf_counter()
+        loss, = exe.run(main, feed=feed, fetch_list=[avg_cost], scope=scope)
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(loss[0]))
+    peak = torch.cuda.max_memory_allocated()
+    if not np.isfinite(losses).all():
+        raise AssertionError('non-finite ResNet-50 loss: %r' % (losses,))
+    moved = scope.to_numpy(stats)
+    still = [n for n in stats if np.array_equal(moved[n], initial[n])]
+    if still:
+        raise AssertionError('running stats still at their initial values '
+                             'after %d steps: %r' % (RESNET_STEPS, still))
+    med = float(np.median(step_s[1:]))
+    log('[image_training] ResNet-50 losses %s'
+        % ', '.join('%.4f' % x for x in losses))
+    log('[image_training] ResNet-50 step seconds %s'
+        % ', '.join('%.4f' % x for x in step_s))
+    log('[image_training] ResNet-50 median step (steps 2-%d) %.4f s: %.1f '
+        'images/s at batch %d (the flowers reader read beforehand, not '
+        'timed); peak memory %.3f GB (torch.cuda.max_memory_allocated); '
+        'card: %s' % (RESNET_STEPS, med, RESNET_BATCH / med, RESNET_BATCH,
+                      peak / 1e9, nvidia_smi_line()))
+
+    # learning: fresh weights, one batch repeated
+    s2 = fluid.Scope()
+    s2.load_numpy(initial, fluid.CUDAPlace(0))
+    learn = [float(exe.run(main, feed=feeds[0], fetch_list=[avg_cost],
+                           scope=s2)[0][0])
+             for _ in range(RESNET_LEARN_STEPS)]
+    log('[image_training] ResNet-50, one batch repeated %d steps from the '
+        'startup weights: loss %s'
+        % (RESNET_LEARN_STEPS, ', '.join('%.4f' % x for x in learn)))
+    if not learn[-1] < learn[0] / 2:
+        raise AssertionError('ResNet-50 on one batch: loss %r at step %d, '
+                             'not below half of the first %r'
+                             % (learn[-1], RESNET_LEARN_STEPS, learn[0]))
+    del s2
+
+    _resnet_card_against_cpu(main, avg_cost, initial, feeds[0], stats)
+    _resnet_nhwc(initial, feeds[0], losses[0])
+    _serve_resnet(main, prob, scope, exe, stats)
+
+
+def _resnet_card_against_cpu(main, avg_cost, initial, feed, stats):
+    """Step 1 from the startup weights on the card and on the CPU at
+    RESNET_CPU_BATCH rows of the same full-width network: the loss, every
+    gradient and every running stat after the step, by relative L2; and
+    the CPU's step again on the input scaled by 1 + RESNET_INPUT_NOISE *
+    noise, the network's own spread under rounding-sized changes."""
+    from paddle_tpu_torch import fluid
+    ad = [op for op in main.global_block().ops if op.type == 'autodiff'][0]
+    gnames = list(ad.attrs['grad_names'])
+    noise = np.random.RandomState(SEED).randn(*feed['data'].shape)
+    rows = RESNET_CPU_BATCH
+    while True:
+        small = {k: v[:rows] for k, v in feed.items()}
+        nudged = dict(small, data=(small['data'] * (
+            1 + RESNET_INPUT_NOISE * noise[:rows])).astype('float32'))
+        outs, after, secs = {}, {}, {}
+        for where, place, f in (('card', fluid.CUDAPlace(0), small),
+                                ('cpu', fluid.CPUPlace(), small),
+                                ('nudged', fluid.CPUPlace(), nudged)):
+            s = fluid.Scope()
+            s.load_numpy(initial, place)
+            t0 = time.perf_counter()
+            outs[where] = fluid.Executor(place).run(
+                main, feed=f, fetch_list=[avg_cost] + gnames, scope=s)
+            secs[where] = time.perf_counter() - t0
+            after[where] = s.to_numpy(stats)
+        if secs['cpu'] <= RESNET_CPU_STEP_S or rows == 1:
+            break
+        log('[image_training] the CPU step at batch %d took %.1f s (over '
+            '%g s): comparing at batch 1' % (rows, secs['cpu'],
+                                             RESNET_CPU_STEP_S))
+        rows = 1
+
+    def spread(a, b):
+        errs = sorted((_rel_l2(outs[a][1 + i], outs[b][1 + i]), n)
+                      for i, n in enumerate(gnames))
+        return errs[len(errs) // 2][0], errs[-1]
+
+    med_g, worst_g = spread('card', 'cpu')
+    med_n, worst_n = spread('nudged', 'cpu')
+    s_err = sorted((_rel_l2(after['card'][n], after['cpu'][n]), n)
+                   for n in stats)
+    med_s = s_err[len(s_err) // 2][0]
+    loss, loss_cpu = float(outs['card'][0][0]), float(outs['cpu'][0][0])
+    loss_rel = abs(loss - loss_cpu) / abs(loss_cpu)
+    bad = [n for i, n in enumerate(gnames)
+           if not np.isfinite(outs['card'][1 + i]).all()]
+    log('[image_training] ResNet-50 step 1 from the startup weights, card '
+        'vs CPU at batch %d (CPU step %.2f s, card %.2f s): loss %.6f vs '
+        '%.6f (relative %.3g); %d running stats, |diff| / |cpu| (L2) median '
+        '%.3g, max %.3g (%s), tol %g on both; %d gradients, median %.3g, '
+        'max %.3g (%s), against the CPU with the input scaled by 1 + %g * '
+        'noise: median %.3g, max %.3g (%s); tol on the gradients median '
+        '%g x that spread'
+        % (rows, secs['cpu'], secs['card'], loss, loss_cpu, loss_rel,
+           len(s_err), med_s, s_err[-1][0], s_err[-1][1], RESNET_GRAD_TOL,
+           len(gnames), med_g, worst_g[0], worst_g[1], RESNET_INPUT_NOISE,
+           med_n, worst_n[0], worst_n[1], RESNET_GRAD_SPREAD))
+    if bad or not (loss_rel <= RESNET_GRAD_TOL and med_s <= RESNET_GRAD_TOL
+                   and med_g <= RESNET_GRAD_SPREAD * med_n):
+        raise AssertionError(
+            'ResNet-50 step 1, card vs CPU: loss %.3g, running stats %.3g '
+            '(tol %g), gradients %.3g against the CPU\'s own %.3g (tol %g '
+            'x), non-finite %r' % (loss_rel, med_s, RESNET_GRAD_TOL, med_g,
+                                   med_n, RESNET_GRAD_SPREAD, bad))
+
+
+def _resnet_nhwc(initial, feed, nchw_loss):
+    """One step of resnet_imagenet(data_format='NHWC') on the startup
+    weights and the first batch, transposed: its loss against the NCHW
+    main path's first."""
+    from paddle_tpu_torch import fluid
+    main, _, avg_cost, _, _ = build_resnet('NHWC')
+    params = sorted(p.name for p in main.all_parameters())
+    if not set(params) <= set(initial):
+        raise AssertionError('the NHWC program names other parameters')
+    s = fluid.Scope()
+    s.load_numpy(initial, fluid.CUDAPlace(0))
+    nhwc = {'data': np.ascontiguousarray(feed['data'].transpose(0, 2, 3, 1)),
+            'label': feed['label']}
+    loss = float(fluid.Executor().run(main, feed=nhwc, fetch_list=[avg_cost],
+                                      scope=s)[0][0])
+    rel = abs(loss - nchw_loss) / abs(nchw_loss)
+    log('[image_training] ResNet-50 NHWC, one step from the same weights: '
+        'loss %.6f vs NCHW %.6f (relative diff %.3g, tol %g)'
+        % (loss, nchw_loss, rel, RESNET_NHWC_TOL))
+    if not rel <= RESNET_NHWC_TOL:
+        raise AssertionError('NHWC loss %r, NCHW %r' % (loss, nchw_loss))
+
+
+def _serve_resnet(main, prob, scope, exe, stats):
+    """The trained network's for_test clone (batch norm in test mode),
+    saved and served through Predictor and ServingEngine on the card;
+    answers against the same artifact on the CPU; the running stats
+    bitwise unchanged by serving."""
+    import torch
+    from paddle_tpu_torch import fluid, inference, serving
+    from paddle_tpu_torch.dataset import flowers
+    test_prog = main.clone(for_test=True)
+    if not all(op.attrs['is_test'] for op in test_prog.global_block().ops
+               if op.type == 'batch_norm'):
+        raise AssertionError('the for_test clone trains its batch norms')
+    samples = list(itertools.islice(flowers.test(use_xmap=False)(), 10))
+    images = np.stack([s[0] for s in samples]).reshape(-1, 3, 224, 224)
+    reqs = [{'data': images[a:b]} for a, b in ((0, 1), (1, 3), (3, 6),
+                                               (6, 10))]
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_resnet_') as tmp:
+        fluid.io.save_inference_model(tmp, ['data'], [prob], exe,
+                                      main_program=test_prog, scope=scope)
+        pred = inference.Predictor(tmp)
+        cpu = inference.Predictor(tmp, place=fluid.CPUPlace())
+    before = pred._scope.to_numpy(stats)
+    engine = serving.ServingEngine(pred, serving.ServingConfig(
+        max_batch_size=8, max_queue_delay_ms=20.0))
+    try:
+        engine.warmup()
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(len(reqs)) as pool:
+            futs = list(pool.map(engine.submit, reqs))
+        answers = [f.result(timeout=600)[0] for f in futs]
+        serve_s = time.perf_counter() - t0
+    finally:
+        engine.shutdown()
+    direct = pred.run({'data': images})[0]
+    after = pred._scope.to_numpy(stats)
+    changed = [n for n in stats if not np.array_equal(after[n], before[n])]
+    if changed:
+        raise AssertionError('serving changed the running stats %r'
+                             % changed)
+    ref = cpu.run({'data': images})[0]
+    got = np.concatenate(answers)
+    if got.shape != (10, 1000) or not np.isfinite(got).all():
+        raise AssertionError('ResNet-50 answered %r' % (got.shape,))
+    np.testing.assert_allclose(got, direct, rtol=RESNET_SERVE_TOL,
+                               atol=RESNET_SERVE_TOL)
+    np.testing.assert_allclose(got, ref, rtol=RESNET_SERVE_TOL,
+                               atol=RESNET_SERVE_TOL)
+    torch.cuda.synchronize()
+    log('[image_training] the trained ResNet-50 served %d requests (10 '
+        'rows) through ServingEngine on the card in %.4f s; vs '
+        'Predictor.run on the card: max abs diff %.3g; vs the CPU: %.3g '
+        '(tol %g); the %d running stats bitwise unchanged after serving'
+        % (len(reqs), serve_s, float(np.abs(got - direct).max()),
+           float(np.abs(got - ref).max()), RESNET_SERVE_TOL, len(stats)))
+
+
+def phase_image_training():
+    """fit_a_line, MNIST LeNet and ResNet-50 trained through Executor() on
+    the card; returns the launch counts of the kernels over the phase (its
+    main path launches none of them)."""
+    import torch
+    _reset_launch_counts()
+    _fit_a_line()
+    _mnist()
+    _resnet50()
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    if any(launches.values()):
+        raise AssertionError('the image path launched %r' % (launches,))
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1710,7 +2162,8 @@ def main():
     cases = phase_kernels()
     by_path = {'serving': phase_serving(), 'training': phase_training(),
                'ctr_training': phase_ctr_training(),
-               'decode': phase_decode()}
+               'decode': phase_decode(),
+               'image_training': phase_image_training()}
     for path, counts in by_path.items():
         stray = {k: n for k, n in counts.items()
                  if n and path not in KERNEL_PATHS[k]}

@@ -13,7 +13,8 @@ raise when no card is present.
 from . import obs  # noqa: F401
 from . import fluid  # noqa: F401
 from . import ops  # noqa: F401
+from . import reader  # noqa: F401
 from . import dataset  # noqa: F401
 from .batch import batch  # noqa: F401
 
-__all__ = ['fluid', 'obs', 'ops', 'dataset', 'batch']
+__all__ = ['fluid', 'obs', 'ops', 'reader', 'dataset', 'batch']

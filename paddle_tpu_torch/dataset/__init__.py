@@ -1,8 +1,15 @@
 """Datasets of the port (parity: the JAX package's paddle_tpu.dataset),
-reduced to what the training slice reads: wmt16 for Transformer. As in the
-JAX package, with no download the readers yield a deterministic synthetic
-corpus from a seeded generator."""
+reduced to what its models read: wmt16 for Transformer, uci_housing for
+fit_a_line, mnist for LeNet, cifar and flowers for ResNet. They have no
+download path: each reader yields the JAX package's deterministic
+synthetic corpus from a seeded generator."""
 from . import common  # noqa: F401
 from . import wmt16  # noqa: F401
+from . import uci_housing  # noqa: F401
+from . import mnist  # noqa: F401
+from . import cifar  # noqa: F401
+from . import image  # noqa: F401
+from . import flowers  # noqa: F401
 
-__all__ = ['common', 'wmt16']
+__all__ = ['common', 'wmt16', 'uci_housing', 'mnist', 'cifar', 'image',
+           'flowers']

@@ -2,8 +2,9 @@
 
 Parity: reference python/paddle/fluid/__init__.py and the JAX package's
 paddle_tpu.fluid, reduced to what the port carries so far: the Program
-IR, the layer builders of the Transformer, the eager Executor, io, and the
-training step (backward, optimizer, regularizer, clip).
+IR, the layer builders of the port's models, nets, the DataFeeder, the
+eager Executor, io, and the training step (backward, optimizer,
+regularizer, clip).
 """
 from . import core
 from . import framework
@@ -20,12 +21,16 @@ from . import backward
 from . import regularizer
 from . import clip
 from . import optimizer
+from . import nets
+from . import data_feeder
+from .data_feeder import DataFeeder
 from .param_attr import ParamAttr
 from . import unique_name
 from .core import CPUPlace, CUDAPlace, TPUPlace, CUDAPinnedPlace
 
 __all__ = framework.__all__ + executor.__all__ + [
     'io', 'initializer', 'layers', 'ParamAttr', 'unique_name', 'core',
-    'backward', 'optimizer', 'regularizer', 'clip',
+    'backward', 'optimizer', 'regularizer', 'clip', 'nets', 'data_feeder',
+    'DataFeeder',
     'CPUPlace', 'CUDAPlace', 'TPUPlace', 'CUDAPinnedPlace',
 ]

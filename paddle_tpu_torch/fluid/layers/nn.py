@@ -1,17 +1,24 @@
 """Neural-network layers. Parity: reference python/paddle/fluid/layers/nn.py
-and the JAX package's fluid/layers/nn.py — the subset models/transformer.py
-builds with. Each appends op symbols lowered by ops_impl/.
+and the JAX package's fluid/layers/nn.py — the subset the port's models
+(transformer, deepfm, fit_a_line, mnist, resnet) build with. Each appends
+op symbols lowered by ops_impl/.
 """
 import numpy as np
 
 from ..layer_helper import LayerHelper
-from ..initializer import Constant
+from ..initializer import Constant, Normal
+from ..param_attr import ParamAttr
 
 __all__ = [
     'fc', 'embedding', 'layer_norm', 'dropout', 'reshape', 'transpose',
     'fused_attention', 'label_smooth', 'one_hot',
-    'softmax_with_cross_entropy', 'reduce_sum',
+    'softmax_with_cross_entropy', 'reduce_sum', 'conv2d', 'pool2d',
+    'batch_norm', 'softmax', 'cross_entropy', 'square_error_cost', 'topk',
 ]
+
+
+def _pair(v):
+    return list(v) if isinstance(v, (list, tuple)) else [v, v]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -212,3 +219,163 @@ def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32",
                      outputs={"Out": [smooth_label]},
                      attrs={"epsilon": float(epsilon)})
     return smooth_label
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=None, param_attr=None, bias_attr=None, use_cudnn=True,
+           use_mkldnn=False, act=None, name=None, data_format='NCHW'):
+    """reference nn.py:conv2d (NCHW); data_format='NHWC' runs channels-last
+    with the SAME OIHW filter params, so a model switches layout without
+    touching checkpoints (JAX package layers/nn.py:399)."""
+    if data_format not in ('NCHW', 'NHWC'):
+        raise ValueError("data_format must be 'NCHW' or 'NHWC', got %r"
+                         % (data_format,))
+    num_channels = (input.shape[-1] if data_format == 'NHWC'
+                    else input.shape[1])
+    helper = LayerHelper('conv2d', **locals())
+    dtype = helper.input_dtype()
+    groups = groups or 1
+    if num_channels % groups != 0:
+        raise ValueError("num_channels must be divisible by groups")
+    filter_size = _pair(filter_size)
+    filter_shape = [num_filters, num_channels // groups] + filter_size
+    std = (2.0 / (filter_size[0] ** 2 * num_channels)) ** 0.5
+    filter_param = helper.create_parameter(
+        attr=helper.param_attr, shape=filter_shape, dtype=dtype,
+        default_initializer=Normal(0.0, std, 0))
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type='conv2d',
+        inputs={'Input': [input], 'Filter': [filter_param]},
+        outputs={"Output": [pre_bias]},
+        attrs={'strides': _pair(stride), 'paddings': _pair(padding),
+               'dilations': _pair(dilation), 'groups': groups,
+               'use_cudnn': use_cudnn, 'data_format': data_format})
+    if data_format == 'NHWC':
+        pre_act = helper.append_bias_op(pre_bias, dim_start=-1)
+    else:
+        pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def softmax(input, param_attr=None, bias_attr=None, use_cudnn=True,
+            name=None):
+    helper = LayerHelper('softmax', **locals())
+    dtype = helper.input_dtype()
+    softmax_out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type="softmax", inputs={"X": [input]},
+                     outputs={"Out": [softmax_out]}, attrs={})
+    return softmax_out
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, use_mkldnn=False, name=None,
+           data_format='NCHW'):
+    """reference nn.py:pool2d; data_format='NHWC' pools channels-last. The
+    op carries no `exclusive` attr, so an average is exclusive (the
+    rule's default)."""
+    if pool_type not in ["max", "avg"]:
+        raise ValueError("pool_type must be 'max' or 'avg'")
+    if data_format not in ('NCHW', 'NHWC'):
+        raise ValueError("data_format must be 'NCHW' or 'NHWC', got %r"
+                         % (data_format,))
+    if global_pooling is False and pool_size == -1:
+        raise ValueError("pool_size must be set without global pooling")
+    helper = LayerHelper('pool2d', **locals())
+    dtype = helper.input_dtype()
+    pool_out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type='pool2d', inputs={"X": [input]}, outputs={"Out": [pool_out]},
+        attrs={"pooling_type": pool_type, "ksize": _pair(pool_size),
+               "global_pooling": global_pooling,
+               "strides": _pair(pool_stride),
+               "paddings": _pair(pool_padding), "ceil_mode": ceil_mode,
+               "data_format": data_format})
+    return pool_out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-05,
+               param_attr=None, bias_attr=None, data_layout='NCHW',
+               in_place=False, use_mkldnn=False, name=None,
+               moving_mean_name=None, moving_variance_name=None,
+               do_model_average_for_mean_and_var=False):
+    """reference nn.py:batch_norm. The running mean and variance are
+    persistable parameters, not trainable and stop_gradient, initialized
+    to 0 and 1; the op writes them back (MeanOut, VarianceOut) in
+    training, so a training step's scope holds the updated stats."""
+    if data_layout not in ('NCHW', 'NHWC'):
+        raise ValueError("data_layout must be 'NCHW' or 'NHWC', got %r"
+                         % (data_layout,))
+    helper = LayerHelper('batch_norm', **locals())
+    dtype = helper.input_dtype()
+    channel_num = input.shape[1] if data_layout == 'NCHW' \
+        else input.shape[-1]
+    param_shape = [channel_num]
+    scale = helper.create_parameter(attr=helper.param_attr, shape=param_shape,
+                                    dtype=dtype,
+                                    default_initializer=Constant(1.0))
+    bias = helper.create_parameter(attr=helper.bias_attr, shape=param_shape,
+                                   dtype=dtype, is_bias=True)
+    mean = helper.create_parameter(
+        attr=ParamAttr(name=moving_mean_name, initializer=Constant(0.0),
+                       trainable=False), shape=param_shape, dtype=dtype)
+    variance = helper.create_parameter(
+        attr=ParamAttr(name=moving_variance_name, initializer=Constant(1.0),
+                       trainable=False), shape=param_shape, dtype=dtype)
+    mean.stop_gradient = True
+    variance.stop_gradient = True
+    saved_mean = helper.create_variable_for_type_inference(dtype,
+                                                           stop_gradient=True)
+    saved_variance = helper.create_variable_for_type_inference(
+        dtype, stop_gradient=True)
+    batch_norm_out = input if in_place else \
+        helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="batch_norm",
+        inputs={"X": [input], "Scale": [scale], "Bias": [bias],
+                "Mean": [mean], "Variance": [variance]},
+        outputs={"Y": [batch_norm_out], "MeanOut": [mean],
+                 "VarianceOut": [variance], "SavedMean": [saved_mean],
+                 "SavedVariance": [saved_variance]},
+        attrs={"momentum": momentum, "epsilon": epsilon, "is_test": is_test,
+               "data_layout": data_layout})
+    return helper.append_activation(batch_norm_out)
+
+
+def cross_entropy(input, label, soft_label=False):
+    """-log(input[label] + 1e-8) per row: input is a probability (a softmax
+    before it), not a logit."""
+    helper = LayerHelper('cross_entropy', **locals())
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(type='cross_entropy',
+                     inputs={'X': [input], 'Label': [label]},
+                     outputs={'Y': [out]}, attrs={'soft_label': soft_label})
+    return out
+
+
+def square_error_cost(input, label):
+    """reference nn.py:square_error_cost = (input - label)^2."""
+    helper = LayerHelper('square_error_cost', **locals())
+    minus_out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(type='elementwise_sub',
+                     inputs={'X': [input], 'Y': [label]},
+                     outputs={'Out': [minus_out]}, attrs={'axis': -1})
+    square_out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(type='square', inputs={'X': [minus_out]},
+                     outputs={'Out': [square_out]})
+    return square_out
+
+
+def topk(input, k, name=None):
+    """The k largest entries of each row of input and their int64 ids,
+    equal values in index order (stop_gradient both)."""
+    helper = LayerHelper("top_k", **locals())
+    values = helper.create_variable_for_type_inference(dtype=input.dtype)
+    indices = helper.create_variable_for_type_inference(dtype="int64")
+    helper.append_op(type="top_k", inputs={"X": [input]},
+                     outputs={"Out": [values], "Indices": [indices]},
+                     attrs={"k": k})
+    values.stop_gradient = True
+    indices.stop_gradient = True
+    return values, indices

@@ -9,8 +9,8 @@ independent: no cross-row reduction mixes two sources, which is what lets
 the engine pack unrelated slots into one step and mask the dead ones.
 
 The joint top-k keeps lax.top_k's rule on ties, the lower index first: a
-stable descending sort (torch.topk promises no order among equal values
-on the card). Ties at finfo(f32).min are common: a finished beam offers
+stable descending sort of the values' total-order keys (torch.topk
+promises no order among equal values on the card). Ties at finfo(f32).min are common: a finished beam offers
 one live candidate, so a slot whose beams all finished has beam * V - beam
 candidates tied there.
 """
@@ -42,9 +42,16 @@ def beam_init_carry(rows, beam, hidden, start_id, device=None,
 
 def top_k_lower_index(x, k):
     """(values, indices) of the k largest entries of each row of x, equal
-    values in index order (lax.top_k's rule)."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
+    values in index order (lax.top_k's rule). An fp32 row is ordered as
+    lax.top_k orders it, by the total order of its bit patterns: +0.0
+    above -0.0 and NaN above +inf, where a float comparison ties the
+    zeros."""
+    key = x
+    if x.dtype == torch.float32:
+        bits = x.view(torch.int32)
+        key = bits ^ ((bits >> 31) & 0x7fffffff)
+    idx = torch.sort(key, dim=-1, descending=True, stable=True)[1][..., :k]
+    return torch.gather(x, -1, idx), idx
 
 
 def attention_beam_step(params, enc_t, mask_t, carry, beam, end_id,

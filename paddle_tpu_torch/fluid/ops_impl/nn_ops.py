@@ -1,13 +1,128 @@
-"""Normalization / dropout / loss / attention rules.
+"""Conv / pool / normalization / dropout / loss / metric / attention rules.
 
-Parity: the JAX package's fluid/ops_impl/nn_ops.py (layer_norm :219,
-dropout :240, softmax_with_cross_entropy :276,
-sigmoid_cross_entropy_with_logits :292, auc :366, flash_attention :529).
+Parity: the JAX package's fluid/ops_impl/nn_ops.py (conv2d :23, pool2d
+:157 with _pool :119, batch_norm :180, layer_norm :219, dropout :240,
+softmax :253, cross_entropy :259, softmax_with_cross_entropy :276,
+sigmoid_cross_entropy_with_logits :292, accuracy :348, auc :366,
+flash_attention :529). The JAX package computes convolutions, pools and
+batch norm outside any Pallas kernel (lax.conv_general_dilated,
+lax.reduce_window, jnp arithmetic); here they are torch.nn.functional's
+library calls, cuDNN on the card, under the port's TF32-off rule
+(fluid/core.py).
 """
 import torch
+import torch.nn.functional as F
 
 from ... import ops
 from ..lowering import register, data_of, like
+
+
+def _pair(v):
+    return tuple(v) if isinstance(v, (list, tuple)) else (v, v)
+
+
+def _to_nchw(x, fmt):
+    """An NHWC tensor as an NCHW view, and the function that turns a
+    result back into an NHWC view."""
+    if fmt == 'NHWC':
+        return x.permute(0, 3, 1, 2), lambda y: y.permute(0, 2, 3, 1)
+    return x, lambda y: y
+
+
+@register('conv2d')
+def _conv2d(ins, attrs, ctx):
+    """NCHW or NHWC (`data_format`); the filter is OIHW
+    [out_c, in_c / groups, kh, kw] in both, so weights are layout-portable
+    (reference operators/conv_op.cc).
+
+    The convolution always runs on NCHW memory. Its result, permuted back,
+    is an NHWC view of NCHW memory, and so are the pools', norms' and
+    elementwise results over it, so inside an NHWC tower only the fed
+    input is copied. torch's CPU convolution backward on channels_last
+    strides (oneDNN) has crashed the process when jaxlib was loaded in
+    it too."""
+    x = data_of(ins['Input'][0])
+    w = data_of(ins['Filter'][0])
+    xc, back = _to_nchw(x, attrs.get('data_format', 'NCHW'))
+    out = F.conv2d(xc.contiguous(), w.to(x.dtype), stride=_pair(attrs.get('strides', 1)),
+                   padding=_pair(attrs.get('paddings', 0)),
+                   dilation=_pair(attrs.get('dilations', 1)),
+                   groups=attrs.get('groups', 1) or 1)
+    return {'Output': back(out)}
+
+
+@register('pool2d')
+def _pool2d(ins, attrs, ctx):
+    """Max or average pooling as the JAX rule's reduce_window (:119-154):
+    global pooling takes the whole plane; ceil_mode pads stride - 1 more
+    on the bottom and right (torch's ceil_mode drops a window that starts
+    in the padding, so the padding is explicit here); an exclusive average
+    divides each window by its count of positions inside the input."""
+    x = data_of(ins['X'][0])
+    xc, back = _to_nchw(x, attrs.get('data_format', 'NCHW'))
+    if attrs.get('global_pooling', False):
+        ksize, strides, pads = tuple(xc.shape[2:]), (1, 1), (0, 0)
+    else:
+        ksize = _pair(attrs['ksize'])
+        strides = _pair(attrs.get('strides', 1))
+        pads = _pair(attrs.get('paddings', 0))
+    extra = [s - 1 for s in strides] if attrs.get('ceil_mode', False) \
+        else [0, 0]
+    # F.pad's order: (left, right, top, bottom)
+    pad = (pads[1], pads[1] + extra[1], pads[0], pads[0] + extra[0])
+    if attrs.get('pooling_type', 'max') == 'max':
+        if any(pad):
+            xc = F.pad(xc, pad, value=float('-inf'))
+        return {'Out': back(F.max_pool2d(xc, ksize, strides))}
+    if not any(pad):
+        return {'Out': back(F.avg_pool2d(xc, ksize, strides))}
+    out = F.avg_pool2d(F.pad(xc, pad), ksize, strides)
+    if attrs.get('exclusive', True):
+        # the share of each window inside the input, from a ones plane:
+        # the same for every sample and channel
+        ones = torch.ones((1, 1) + tuple(xc.shape[2:]), dtype=xc.dtype,
+                          device=xc.device)
+        out = out / F.avg_pool2d(F.pad(ones, pad), ksize, strides)
+    return {'Out': back(out)}
+
+
+@register('batch_norm')
+def _batch_norm(ins, attrs, ctx):
+    """reference operators/batch_norm_op.cc; NCHW or NHWC (`data_layout`).
+
+    Train: Y normalizes with the batch's mean and biased variance through
+    F.batch_norm(training=True) with no running stats (cuDNN on the card;
+    autograd gives its gradient). The running stats are updated here as
+    the JAX rule updates them (:207-208): stat * momentum + batch * (1 -
+    momentum), with the biased batch variance in fp32; torch's own update
+    weights the other way and keeps the unbiased variance, so it never
+    sees them. The JAX rule takes the variance in one pass, E[x^2] -
+    E[x]^2; torch in a stable one, which agrees with it to the one-pass
+    form's own rounding. Test: Y from the running stats, which go back out
+    unchanged (the same tensors)."""
+    x = data_of(ins['X'][0])
+    scale = data_of(ins['Scale'][0])
+    bias = data_of(ins['Bias'][0])
+    mean = data_of(ins['Mean'][0])
+    var = data_of(ins['Variance'][0])
+    eps = attrs.get('epsilon', 1e-5)
+    momentum = attrs.get('momentum', 0.9)
+    c_axis = 1 if attrs.get('data_layout', 'NCHW') == 'NCHW' else x.ndim - 1
+    xc = x.movedim(c_axis, 1)
+    if attrs.get('is_test', False) or ctx.is_test:
+        y = F.batch_norm(xc, mean, var, scale, bias, training=False, eps=eps)
+        return {'Y': y.movedim(1, c_axis), 'MeanOut': mean,
+                'VarianceOut': var, 'SavedMean': mean, 'SavedVariance': var}
+    y = F.batch_norm(xc, None, None, scale, bias, training=True, eps=eps)
+    with torch.no_grad():
+        axes = tuple(i for i in range(x.ndim) if i != c_axis)
+        b_var, b_mean = torch.var_mean(x.to(torch.float32), dim=axes,
+                                       unbiased=False)
+        mean_out = mean * momentum + b_mean * (1 - momentum)
+        var_out = var * momentum + b_var * (1 - momentum)
+    return {'Y': y.movedim(1, c_axis), 'MeanOut': mean_out,
+            'VarianceOut': var_out, 'SavedMean': b_mean,
+            'SavedVariance': b_var}
 
 
 @register('layer_norm')
@@ -43,6 +158,29 @@ def _dropout(ins, attrs, ctx):
     return {'Out': like(ins['X'][0], x * mask), 'Mask': mask}
 
 
+@register('softmax')
+def _softmax(ins, attrs, ctx):
+    x = ins['X'][0]
+    return {'Out': like(x, torch.softmax(data_of(x), dim=-1))}
+
+
+@register('cross_entropy')
+def _cross_entropy(ins, attrs, ctx):
+    """X: probabilities [N, C] (a softmax op before it); Label int64 [N, 1],
+    or probabilities with soft_label. -log(p + 1e-8), as the JAX rule."""
+    x = data_of(ins['X'][0])
+    label = data_of(ins['Label'][0])
+    eps = 1e-8
+    if attrs.get('soft_label', False):
+        loss = -(label * torch.log(x + eps)).sum(dim=-1, keepdim=True)
+    else:
+        li = label.long()
+        if li.ndim == x.ndim:
+            li = li.squeeze(-1)
+        loss = -torch.log(torch.gather(x, -1, li.unsqueeze(-1)) + eps)
+    return {'Y': like(ins['X'][0], loss)}
+
+
 @register('softmax_with_cross_entropy')
 def _softmax_with_cross_entropy(ins, attrs, ctx):
     logits = data_of(ins['Logits'][0])
@@ -68,6 +206,25 @@ def _sigmoid_xent(ins, attrs, ctx):
     loss = torch.maximum(x, torch.zeros_like(x)) - x * label \
         + torch.log1p(torch.exp(-torch.abs(x)))
     return {'Out': like(ins['X'][0], loss)}
+
+
+@register('accuracy')
+def _accuracy(ins, attrs, ctx):
+    """Out/Indices: a top_k's values and ids; Label int64 [N, 1]
+    (reference operators/accuracy_op.cu). Accuracy has shape [1], as the
+    reference's InferShape gives it; Correct and Total are int32
+    scalars."""
+    idx = data_of(ins['Indices'][0]).long()
+    label = data_of(ins['Label'][0]).long()
+    if label.ndim < idx.ndim:
+        label = label.unsqueeze(-1)
+    correct = (idx == label).any(dim=-1)
+    num_correct = correct.sum(dtype=torch.int32)
+    total = correct.numel()
+    return {'Accuracy': (num_correct.to(torch.float32) / total).reshape(1),
+            'Correct': num_correct,
+            'Total': torch.tensor(total, dtype=torch.int32,
+                                  device=idx.device)}
 
 
 @register('auc')

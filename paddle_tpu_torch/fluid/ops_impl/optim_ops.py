@@ -1,10 +1,9 @@
 """Optimizer update rules.
 
 Parity: the JAX package's fluid/ops_impl/optim_ops.py (_merge_sparse :19,
-sgd :60, adagrad :88, adam :122, adam_beta_pow_update :165; reference
-paddle/fluid/operators/{sgd,adagrad,adam}_op.*); momentum waits with its
-optimizer (ROADMAP.md). They run after the autodiff marker, under
-torch.no_grad().
+sgd :60, momentum :73, adagrad :88, adam :122, adam_beta_pow_update :165;
+reference paddle/fluid/operators/{sgd,momentum,adagrad,adam}_op.*). They
+run after the autodiff marker, under torch.no_grad().
 
 Dense gradients: the rules are pure, as in the JAX package. Each returns
 new tensors and the Executor binds them under the output names (the same
@@ -71,6 +70,23 @@ def _sgd(ins, attrs, ctx):
         # gradient never exists. Pure, like the dense branch.
         return {'ParamOut': p.index_add(0, g.ids, -_lr(ins) * g.rows)}
     return {'ParamOut': p - _lr(ins) * _dense_grad(ins, 'sgd')}
+
+
+@register('momentum')
+def _momentum(ins, attrs, ctx):
+    """Dense only, as the JAX rule: v' = mu * v + g, then p - lr * v', or
+    with use_nesterov p - (g + mu * v') * lr."""
+    p = data_of(ins['Param'][0])
+    g = _dense_grad(ins, 'momentum')
+    v = data_of(ins['Velocity'][0])
+    mu = attrs['mu']
+    lr = _lr(ins)
+    v_out = mu * v + g
+    if attrs.get('use_nesterov', False):
+        p_out = p - (g + mu * v_out) * lr
+    else:
+        p_out = p - lr * v_out
+    return {'ParamOut': p_out, 'VelocityOut': v_out}
 
 
 @register('adagrad')

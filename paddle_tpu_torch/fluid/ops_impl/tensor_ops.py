@@ -2,8 +2,8 @@
 
 Parity: the JAX package's fluid/ops_impl/tensor_ops.py (reference
 paddle/fluid/operators/{fill_constant,cast,reshape,transpose,one_hot,
-assign_value,uniform_random,gaussian_random,label_smooth}_op.*). Random ops
-draw from the Executor's torch.Generator, so they give other numbers than
+assign_value,uniform_random,gaussian_random,label_smooth,top_k}_op.*).
+Random ops draw from the Executor's torch.Generator, so they give other numbers than
 jax.random from the same seed, with the same distribution.
 """
 import numpy as np
@@ -11,6 +11,7 @@ import torch
 
 from ..core import torch_dtype
 from ..lowering import register, data_of, like
+from .lod_beam import top_k_lower_index
 
 
 @register('fill_constant', constant=True)
@@ -108,3 +109,12 @@ def _label_smooth(ins, attrs, ctx):
     else:
         out = (1 - eps) * x + eps / x.shape[-1]
     return {'Out': like(ins['X'][0], out)}
+
+
+@register('top_k')
+def _top_k(ins, attrs, ctx):
+    """The k largest entries of each row, equal values in index order as
+    lax.top_k gives them (a stable sort: torch.topk promises no order among
+    equal values on the card); ids int64."""
+    vals, idx = top_k_lower_index(data_of(ins['X'][0]), attrs['k'])
+    return {'Out': vals, 'Indices': idx}

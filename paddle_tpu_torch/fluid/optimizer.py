@@ -1,10 +1,10 @@
 """Optimizers: append per-param update ops after backward.
 
 Parity: reference python/paddle/fluid/optimizer.py and the JAX package's
-fluid/optimizer.py:28-274 (Optimizer, SGD, Adagrad, Adam). The update ops
-run eagerly after the autodiff marker (executor.py); their rules are
-ops_impl/optim_ops.py. Momentum, Adamax, DecayedAdagrad, RMSProp, Ftrl,
-Adadelta and ModelAverage wait for a later slice (ROADMAP.md).
+fluid/optimizer.py:28-274 (Optimizer, SGD, Momentum, Adagrad, Adam). The
+update ops run eagerly after the autodiff marker (executor.py); their rules
+are ops_impl/optim_ops.py. Adamax, DecayedAdagrad, RMSProp, Ftrl, Adadelta
+and ModelAverage wait for a later slice (ROADMAP.md).
 """
 from collections import defaultdict
 
@@ -18,8 +18,9 @@ from .layer_helper import LayerHelper
 from .regularizer import append_regularization_ops
 from .layers import tensor as tensor_layers
 
-__all__ = ['SGD', 'Adagrad', 'Adam', 'SGDOptimizer', 'AdagradOptimizer',
-           'AdamOptimizer', 'Optimizer']
+__all__ = ['SGD', 'Momentum', 'Adagrad', 'Adam', 'SGDOptimizer',
+           'MomentumOptimizer', 'AdagradOptimizer', 'AdamOptimizer',
+           'Optimizer']
 
 
 class Optimizer(object):
@@ -146,6 +147,35 @@ class SGDOptimizer(Optimizer):
             outputs={"ParamOut": param_and_grad[0]}, infer_shape=False)
 
 
+class MomentumOptimizer(Optimizer):
+    _velocity_acc_str = "velocity"
+
+    def __init__(self, learning_rate, momentum, use_nesterov=False,
+                 **kwargs):
+        super(MomentumOptimizer, self).__init__(learning_rate=learning_rate,
+                                                **kwargs)
+        self.type = "momentum"
+        self._momentum = momentum
+        self._use_nesterov = bool(use_nesterov)
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._velocity_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        velocity_acc = self._get_accumulator(self._velocity_acc_str,
+                                             param_and_grad[0])
+        return block.append_op(
+            type=self.type,
+            inputs={"Param": param_and_grad[0], "Grad": param_and_grad[1],
+                    "Velocity": velocity_acc,
+                    "LearningRate": self._create_param_lr(param_and_grad)},
+            outputs={"ParamOut": param_and_grad[0],
+                     "VelocityOut": velocity_acc},
+            attrs={"mu": self._momentum, "use_nesterov": self._use_nesterov},
+            infer_shape=False)
+
+
 class AdagradOptimizer(Optimizer):
     _moment_acc_str = "moment"
 
@@ -232,5 +262,6 @@ class AdamOptimizer(Optimizer):
 
 # reference optimizer.py end-of-module aliases
 SGD = SGDOptimizer
+Momentum = MomentumOptimizer
 Adagrad = AdagradOptimizer
 Adam = AdamOptimizer

@@ -1,5 +1,8 @@
 """Model builders of the port (parity: paddle_tpu.models)."""
 from . import deepfm  # noqa: F401
+from . import fit_a_line  # noqa: F401
+from . import mnist  # noqa: F401
+from . import resnet  # noqa: F401
 from . import transformer  # noqa: F401
 
-__all__ = ['deepfm', 'transformer']
+__all__ = ['deepfm', 'fit_a_line', 'mnist', 'resnet', 'transformer']

@@ -17,7 +17,12 @@ evaluate the same fp32 expression; the rows form, which sums each id's
 rows in the CPU's order, is held bitwise against its plain version with
 the merge on the CPU. 1e-5 + 1e-5*|plain| for the paged
 decode attention, the Pallas kernel's (tests/test_kernels.py:127): an
-online softmax against one softmax over the gathered rows.
+online softmax against one softmax over the gathered rows. The image rules
+(conv2d, pool2d, batch_norm, softmax, cross_entropy, top_k, accuracy,
+momentum: cuDNN and torch library calls, no kernel of the port) on the
+card against the CPU at 1e-5 of each output's max |x| (conv 1e-4, the CPU
+tests' tolerances against the JAX rules), top_k's ids exactly with ties;
+a bottleneck stage's training step at 1e-4 of each gradient's max |g|.
 """
 import importlib
 import os
@@ -733,3 +738,174 @@ def test_paged_decode_on_the_card_matches_the_dense_engine(card, bundle):
     for (tp, sp), (td, sd) in zip(out[True], out[False]):
         assert np.array_equal(tp, td)
         np.testing.assert_allclose(sp, sd, rtol=1e-5, atol=1e-5)
+
+
+# -- the image rules (cuDNN and torch library calls) --------------------------
+
+IMAGE_TOL = 1e-5        # of each output's max |x|; conv 1e-4, as on the CPU
+CONV_TOL = 1e-4
+
+
+def _rule_on(device, op_type, ins, attrs, is_test=False):
+    from paddle_tpu_torch.fluid import lowering
+    ctx = lowering.Ctx(device, torch.Generator(device=device),
+                       is_test=is_test)
+    outs = lowering.get_rule(op_type)(
+        {s: [torch.from_numpy(np.array(a)).to(device) for a in vs]
+         for s, vs in ins.items()}, attrs, ctx)
+    return {k: v for k, v in outs.items() if isinstance(v, torch.Tensor)}
+
+
+def _card_matches_cpu(card, op_type, ins, attrs, tol=IMAGE_TOL,
+                      is_test=False):
+    got = _rule_on(card, op_type, ins, attrs, is_test)
+    want = _rule_on(torch.device('cpu'), op_type, ins, attrs, is_test)
+    for slot, w in want.items():
+        g = got[slot]
+        assert g.device.type == 'cuda', slot
+        w = w.numpy()
+        scale = max(float(np.abs(w).max()), 1e-12) if w.dtype.kind == 'f' \
+            else 0
+        np.testing.assert_allclose(g.cpu().numpy(), w, rtol=0,
+                                   atol=tol * scale, err_msg=slot)
+    return got, want
+
+
+def _nhwc(x, fmt):
+    return np.ascontiguousarray(x.transpose(0, 2, 3, 1)) if fmt == 'NHWC' \
+        else x
+
+
+@pytest.mark.parametrize('fmt', ['NCHW', 'NHWC'])
+@pytest.mark.parametrize('strides,paddings,dilations,groups', [
+    (1, 0, 1, 1), (2, 3, 1, 1), (1, 2, 2, 1), (2, 1, 1, 2)])
+def test_conv2d_on_the_card_matches_the_cpu(card, fmt, strides, paddings,
+                                            dilations, groups):
+    r = np.random.RandomState(3)
+    ins = {'Input': [_nhwc(r.randn(4, 8, 20, 18).astype('float32'), fmt)],
+           'Filter': [r.randn(16, 8 // groups, 3, 3).astype('float32')]}
+    _card_matches_cpu(card, 'conv2d', ins, dict(
+        strides=[strides] * 2, paddings=[paddings] * 2,
+        dilations=[dilations] * 2, groups=groups, data_format=fmt),
+        tol=CONV_TOL)
+
+
+@pytest.mark.parametrize('fmt', ['NCHW', 'NHWC'])
+@pytest.mark.parametrize('attrs', [
+    dict(pooling_type='max', ksize=[2, 2], strides=[2, 2]),
+    dict(pooling_type='avg', ksize=[3, 3], strides=[2, 2]),
+    dict(pooling_type='avg', ksize=[3, 3], strides=[2, 2], paddings=[1, 1],
+         exclusive=True, ceil_mode=True),
+    dict(pooling_type='max', ksize=[3, 3], strides=[2, 2], paddings=[1, 1],
+         ceil_mode=True),
+    dict(pooling_type='avg', ksize=[1, 1], global_pooling=True)])
+def test_pool2d_on_the_card_matches_the_cpu(card, fmt, attrs):
+    r = np.random.RandomState(4)
+    x = _nhwc(r.randn(4, 8, 15, 14).astype('float32'), fmt)
+    _card_matches_cpu(card, 'pool2d', {'X': [x]},
+                      dict(attrs, data_format=fmt))
+
+
+@pytest.mark.parametrize('fmt', ['NCHW', 'NHWC'])
+@pytest.mark.parametrize('is_test', [False, True])
+def test_batch_norm_on_the_card_matches_the_cpu(card, fmt, is_test):
+    r = np.random.RandomState(5)
+    ins = {'X': [_nhwc(r.randn(8, 6, 7, 7).astype('float32') * 2 + 1, fmt)],
+           'Scale': [r.randn(6).astype('float32')],
+           'Bias': [r.randn(6).astype('float32')],
+           'Mean': [r.randn(6).astype('float32') * 0.1],
+           'Variance': [np.abs(r.randn(6)).astype('float32') + 0.5]}
+    _card_matches_cpu(card, 'batch_norm', ins, dict(
+        momentum=0.9, epsilon=1e-5, is_test=is_test, data_layout=fmt))
+
+
+def test_softmax_cross_entropy_and_momentum_on_the_card(card):
+    r = np.random.RandomState(6)
+    logits = r.randn(16, 1000).astype('float32') * 3
+    prob, _ = _card_matches_cpu(card, 'softmax', {'X': [logits]}, {})
+    label = r.randint(0, 1000, (16, 1)).astype('int64')
+    _card_matches_cpu(card, 'cross_entropy',
+                      {'X': [prob['Out'].cpu().numpy()], 'Label': [label]},
+                      {'soft_label': False})
+    for nesterov in (False, True):
+        _card_matches_cpu(card, 'momentum', {
+            'Param': [r.randn(64, 9).astype('float32')],
+            'Grad': [r.randn(64, 9).astype('float32')],
+            'Velocity': [r.randn(64, 9).astype('float32')],
+            'LearningRate': [np.array([0.01], 'float32')]},
+            {'mu': 0.9, 'use_nesterov': nesterov})
+
+
+@pytest.mark.parametrize('k', [1, 5])
+def test_top_k_and_accuracy_keep_the_lower_index_on_ties(card, k):
+    r = np.random.RandomState(7)
+    x = np.round(r.randn(64, 1000), 0).astype('float32')
+    x[0] = 1.0
+    x[1, [10, 500, 999]] = 9.0
+    x[2, :20] = [-0.0, 0.0] * 10
+    got, want = _card_matches_cpu(card, 'top_k', {'X': [x]}, {'k': k})
+    np.testing.assert_array_equal(got['Indices'].cpu().numpy(),
+                                  want['Indices'].numpy())
+    label = r.randint(0, 1000, (64, 1)).astype('int64')
+    label[1, 0] = 500
+    got, want = _card_matches_cpu(
+        card, 'accuracy', {'Out': [want['Out'].numpy()],
+                           'Indices': [want['Indices'].numpy()],
+                           'Label': [label]}, {})
+    assert int(got['Correct']) == int(want['Correct'])
+
+
+@pytest.mark.parametrize('fmt', ['NCHW', 'NHWC'])
+def test_resnet_block_step_on_the_card_matches_the_cpu(card, fmt):
+    """One Momentum step of a bottleneck stage (stride 2, projection
+    shortcut) from the same weights on the card and on the CPU: the loss,
+    every gradient and the running stats, and no kernel of the port
+    launched."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.models import resnet
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 9
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        shape = [16, 28, 28] if fmt == 'NCHW' else [28, 28, 16]
+        x = fluid.layers.data(name='x', shape=shape)
+        label = fluid.layers.data(name='label', shape=[1], dtype='int64')
+        y = resnet.bottleneck(x, 8, 2, data_format=fmt)
+        pool = fluid.layers.pool2d(y, pool_type='avg', global_pooling=True,
+                                   data_format=fmt)
+        prob = fluid.layers.fc(pool, size=10, act='softmax')
+        loss = fluid.layers.mean(fluid.layers.cross_entropy(prob, label))
+        fluid.optimizer.Momentum(learning_rate=0.1,
+                                 momentum=0.9).minimize(loss)
+    gnames = [op for op in main.global_block().ops
+              if op.type == 'autodiff'][0].attrs['grad_names']
+    init = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=init)
+    state = init.to_numpy()
+    stats = [n for n in state if 'batch_norm' in n
+             and ('.w_1' in n or '.w_2' in n)]
+    r = np.random.RandomState(2)
+    feed = {'x': r.randn(*([4] + shape)).astype('float32'),
+            'label': r.randint(0, 10, (4, 1)).astype('int64')}
+    outs, after = {}, {}
+    for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+        scope = fluid.Scope()
+        scope.load_numpy(state, place)
+        before = {n: k.launches for n, k in ops.KERNELS.items()}
+        outs[type(place).__name__] = fluid.Executor(place).run(
+            main, feed=feed, fetch_list=[loss] + gnames, scope=scope)
+        assert {n: k.launches for n, k in ops.KERNELS.items()} == before
+        after[type(place).__name__] = scope.to_numpy(stats)
+    assert len(gnames) == 14 and len(stats) == 8
+    for name, got, ref in zip(['loss'] + gnames, outs['CUDAPlace'],
+                              outs['CPUPlace']):
+        scale = max(float(np.abs(ref).max()), 1e-12)
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4 * scale,
+                                   err_msg=name)
+    for n in stats:
+        assert not np.array_equal(after['CPUPlace'][n], state[n]), n
+        np.testing.assert_allclose(after['CUDAPlace'][n],
+                                   after['CPUPlace'][n], rtol=0,
+                                   atol=1e-5 * max(1.0, float(np.abs(
+                                       after['CPUPlace'][n]).max())),
+                                   err_msg=n)

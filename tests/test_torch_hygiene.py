@@ -44,6 +44,13 @@ SUBMODULES = [
     'paddle_tpu_torch.fluid.ops_impl.lod_beam',
     'paddle_tpu_torch.fluid.ops_impl.sampled_ops',
     'paddle_tpu_torch.serving.pages', 'paddle_tpu_torch.serving.decode',
+    'paddle_tpu_torch.reader', 'paddle_tpu_torch.dataset.uci_housing',
+    'paddle_tpu_torch.dataset.mnist', 'paddle_tpu_torch.dataset.cifar',
+    'paddle_tpu_torch.dataset.image', 'paddle_tpu_torch.dataset.flowers',
+    'paddle_tpu_torch.fluid.nets', 'paddle_tpu_torch.fluid.data_feeder',
+    'paddle_tpu_torch.fluid.ops_impl.nn_ops',
+    'paddle_tpu_torch.models.fit_a_line', 'paddle_tpu_torch.models.mnist',
+    'paddle_tpu_torch.models.resnet',
 ]
 
 

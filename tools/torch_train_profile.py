@@ -5,6 +5,8 @@
                                          [--steps 20]
     python3 tools/torch_train_profile.py --model deepfm [--batch 256]
                                          [--root CHECKOUT]
+    python3 tools/torch_train_profile.py --model resnet50 [--batch 32]
+    python3 tools/torch_train_profile.py --model mnist [--batch 128]
 
 --model transformer (the default) builds full-width Transformer-base with
 models.transformer.get_model (its defaults: 6+6 layers, d_model 512, 8
@@ -15,6 +17,12 @@ trains it on its wmt16 reader. --model deepfm builds full-width DeepFM
 [400, 400, 400]) with both FM tables is_sparse, auc and Adam(1e-3), as
 chip_smoke.py's ctr_training phase does, and trains it on
 synthetic_ctr_reader (restarted at the end of its 16 batches).
+--model resnet50 builds models.resnet.get_model(data_set='imagenet',
+depth=50) (1000 classes, 3x224x224, NCHW, Momentum(0.01, 0.9)), as
+chip_smoke.py's image_training phase does, and trains it on batches of the
+flowers reader read beforehand (restarted at the end of its 16); --model
+mnist builds models.mnist.get_model (LeNet, Adam 1e-3) on its synthetic
+reader.
 
 Either way it initializes on CUDAPlace(0) from a seed, times each step on
 the host clock (each step ends in its fetch), then traces a few more with
@@ -28,7 +36,13 @@ kernels launched inside _merge_sparse's `optim.merge_sparse` range, or
 the rows-form wrapper's `sparse_optim.sort_ids`: the sort ops' kernels,
 then the others); the dense optimizer update
 (the rest of the Executor's `executor.update` range); other
-elementwise/normalization kernels; copies. Prints one JSON line.
+elementwise/normalization kernels; copies. For resnet50 and mnist each
+device kernel is classed instead by the host op that launched it (the
+innermost enclosing op or range whose name matches, IMAGE_CLASSES): cuDNN
+convolution forward and backward, batch norm forward (with the running
+stats' var_mean) and backward, pooling, the optimizer update (the
+`executor.update` range), copies, and the rest (elementwise, softmax,
+loss, the fc's matmul). Prints one JSON line.
 """
 import argparse
 import json
@@ -50,6 +64,16 @@ KERNEL_CLASSES = ('flash_attention_fwd', 'flash_attention_bwd_dq',
 CLASSES = ('matmul',) + KERNEL_CLASSES + (
     'sparse sort', 'sparse merge (rest)', 'optimizer (dense)',
     'elementwise/norm/other', 'copy')
+# the image models' classes: (class, substrings of the launching host op's
+# name), tried from the innermost enclosing op outwards, first match wins
+IMAGE_CLASSES = (
+    ('conv backward', ('convolution_backward', 'ConvolutionBackward')),
+    ('conv forward', ('convolution', 'conv2d')),
+    ('batch_norm backward', ('batch_norm_backward', 'BatchNormBackward')),
+    ('batch_norm forward', ('batch_norm', 'var_mean')),
+    ('pool', ('pool2d',)),
+    ('optimizer', ('executor.update',)),
+)
 # the ranges around the sparse rules' id bookkeeping: _merge_sparse's
 # whole merge (the route of checkouts before the fused rows-form kernel)
 # and the rows-form wrapper's cast and sort
@@ -100,7 +124,7 @@ def _sort_us(events):
                if _under(e, MERGE_RANGES) and not _under(e, names))
 
 
-def profile_steps(exe, main, scope, fetch, feeds):
+def profile_steps(exe, main, scope, fetch, feeds, image=False):
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -138,6 +162,21 @@ def profile_steps(exe, main, scope, fetch, feeds):
                                           - sparse_us)
     n = len(feeds)
     busy_s = sum(classes.values()) / 1e6
+    if image:
+        image_us = image_classes_us(prof.events())
+        # the same kernels by launching op; the sums agree within the
+        # events the profiler could not link to an op
+        return {
+            'traced_wall_ms_per_step': traced_wall * 1e3 / n,
+            'device_busy_ms_per_step': busy_s * 1e3 / n,
+            'device_idle_share': 1.0 - busy_s / traced_wall,
+            'linked_ms_per_step': sum(image_us.values()) / 1e3 / n,
+            'conv_share_of_device_time': (
+                image_us['conv forward'] + image_us['conv backward'])
+            / 1e6 / busy_s,
+            'device_ms_per_step_by_class': {k: v / 1e3 / n
+                                            for k, v in image_us.items()},
+        }
     shares = {}
     for group, prefix in (('attention', 'flash_attention'),
                           ('sparse_kernels', 'sparse_')):
@@ -152,6 +191,33 @@ def profile_steps(exe, main, scope, fetch, feeds):
         'device_ms_per_step_by_class': {k: v / 1e3 / n
                                         for k, v in classes.items()},
     }
+
+
+def image_classes_us(events):
+    """{class: device us} over IMAGE_CLASSES, 'copy' and 'elementwise/
+    other', each kernel (and memcpy/memset) charged to the class of the
+    innermost host op around its launch that matches one."""
+    import torch
+    out = dict.fromkeys([c for c, _ in IMAGE_CLASSES]
+                        + ['copy', 'elementwise/other'], 0.0)
+    for evt in events:
+        if evt.device_type == torch.autograd.DeviceType.CUDA \
+                or not evt.kernels:
+            continue
+        cls = None
+        node = evt
+        while node is not None and cls is None:
+            for c, keys in IMAGE_CLASSES:
+                if any(k in node.name for k in keys):
+                    cls = c
+                    break
+            node = node.cpu_parent
+        for k in evt.kernels:
+            n = k.name.lower()
+            c = 'copy' if ('memcpy' in n or 'memset' in n) \
+                and cls != 'optimizer' else cls or 'elementwise/other'
+            out[c] += k.duration
+    return out
 
 
 def card_line():
@@ -201,12 +267,65 @@ def build_deepfm(batch_size, n_feeds):
         'examples_per_s'
 
 
+def _flowers_feeds(main, reader, batch_size, n_feeds):
+    """n_feeds full batches of a batched flowers reader through the
+    DataFeeder, the reader restarted at its end."""
+    from paddle_tpu_torch import fluid
+    blk = main.global_block()
+    feeder = fluid.DataFeeder([blk.var('data'), blk.var('label')],
+                              fluid.CPUPlace(), program=main)
+    feeds = []
+    while len(feeds) < n_feeds:
+        feeds += [feeder.feed(b) for b in reader()
+                  if len(b) == batch_size][:n_feeds - len(feeds)]
+    return feeds
+
+
+def build_resnet50(batch_size, n_feeds):
+    """resnet.get_model(data_set='imagenet', depth=50); returns as
+    build_transformer."""
+    from paddle_tpu_torch.fluid import framework, unique_name
+    from paddle_tpu_torch.models import resnet
+    main, startup = framework.Program(), framework.Program()
+    main.random_seed = startup.random_seed = SEED
+    with unique_name.guard(), framework.program_guard(main, startup):
+        avg_cost, _, reader, _ = resnet.get_model(
+            data_set='imagenet', depth=50, batch_size=batch_size)
+    return (main, startup, [avg_cost],
+            _flowers_feeds(main, reader, batch_size, n_feeds), batch_size,
+            'images_per_s')
+
+
+def build_mnist(batch_size, n_feeds):
+    """mnist.get_model (LeNet, Adam 1e-3); returns as build_transformer."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import framework, unique_name
+    from paddle_tpu_torch.models import mnist
+    main, startup = framework.Program(), framework.Program()
+    main.random_seed = startup.random_seed = SEED
+    with unique_name.guard(), framework.program_guard(main, startup):
+        avg_cost, _, reader, _, _ = mnist.get_model(batch_size=batch_size)
+    blk = main.global_block()
+    feeder = fluid.DataFeeder([blk.var('pixel'), blk.var('label')],
+                              fluid.CPUPlace(), program=main)
+    epoch = [feeder.feed(b) for b in reader() if len(b) == batch_size]
+    feeds = [epoch[i % len(epoch)] for i in range(n_feeds)]
+    return main, startup, [avg_cost], feeds, batch_size, 'images_per_s'
+
+
+BUILDERS = {'transformer': (build_transformer, 16),
+            'deepfm': (build_deepfm, 256),
+            'resnet50': (build_resnet50, 32),
+            'mnist': (build_mnist, 128)}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument('--model', choices=('transformer', 'deepfm'),
+    ap.add_argument('--model', choices=sorted(BUILDERS),
                     default='transformer')
     ap.add_argument('--batch', type=int, default=None,
-                    help='default: 16 (transformer), 256 (deepfm)')
+                    help='default: 16 (transformer), 256 (deepfm), 32 '
+                         '(resnet50), 128 (mnist)')
     ap.add_argument('--steps', type=int, default=20)
     ap.add_argument('--root', default=HERE,
                     help='the checkout whose paddle_tpu_torch is profiled '
@@ -218,9 +337,8 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit('torch_train_profile: needs a CUDA card')
     from paddle_tpu_torch import fluid, ops
-    build = build_transformer if args.model == 'transformer' \
-        else build_deepfm
-    batch = args.batch or (16 if args.model == 'transformer' else 256)
+    build, default_batch = BUILDERS[args.model]
+    batch = args.batch or default_batch
     main_prog, startup, fetch, feeds, units, unit_name = build(
         batch, args.steps + PROFILE_STEPS)
     scope = fluid.Scope()
@@ -238,7 +356,8 @@ def main():
     med = float(np.median(step_s[1:]))
     torch.cuda.reset_peak_memory_stats()
     prof = profile_steps(exe, main_prog, scope, fetch,
-                         feeds[args.steps:])
+                         feeds[args.steps:],
+                         image=args.model in ('resnet50', 'mnist'))
     import paddle_tpu_torch
     r = dict(card=card_line(), root=os.path.dirname(os.path.dirname(
         os.path.abspath(paddle_tpu_torch.__file__))),
