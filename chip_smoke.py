@@ -7,7 +7,12 @@ Run from the root of a checkout, on a machine with a CUDA card, nvcc and
 PyTorch built for CUDA. It imports nothing of JAX or of the JAX package.
 
 Phases (any failure raises; the script then exits non-zero and prints no
-result line):
+result line). Every Executor.run, run_bundle, StepHandle.step,
+Predictor.run and serving dispatch on the card runs the step artifact of
+fluid/step_artifact.py: a signature's first call is its eager warm-up, the
+second captures it into a CUDA graph, later calls replay it; so phases 3-7
+check the captured paths, and their launch counts are counted under
+replay (each graph adds the launches its capture recorded).
   1. build    — compile every hand-written kernel of the port from the
                 sources in the checkout (one nvcc per source, all started
                 together); print the build time, ptxas' resource lines and
@@ -61,10 +66,11 @@ result line):
                 with the port's layers, initialized on the card from a seed,
                 saved with save_inference_model, loaded by Predictor (the
                 default place: the card) behind a ServingEngine that answers
-                concurrent requests. Every answer is checked against
-                Predictor.run on the same rows, one against the same
-                artifact run on the CPU, and the kernel launch counts
-                against what the path must launch.
+                concurrent requests (its warmup runs each bucket twice:
+                the warm-up and the capture of its graph). Every answer
+                is checked against Predictor.run on the same rows, one
+                against the same artifact run on the CPU, and the kernel
+                launch counts against what the path must launch.
   4. training — full-width Transformer-base from models.transformer.
                 get_model (noam_decay, Adam) at batch 16, max_length 256,
                 trained TRAIN_STEPS steps through Executor(CUDAPlace(0)) on
@@ -124,11 +130,35 @@ result line):
                 its running stats bitwise unchanged by serving. The phase
                 launches none of the port's kernels (conv, pool and norm
                 are cuDNN library calls).
-  8. a JSON line {"kernels": [...]} with each kernel's parity, launches,
+  8. captured — each path's captured step against debug_step's eager
+                walk in this call, at full width: Transformer-base
+                training at batch 16 (get_model, dropout 0.1), DeepFM,
+                a paged decode dispatch with 16 slots full, serving at
+                batch 1 and 16, LeNet, ResNet-50 at batch 32. For each:
+                the median step of the replay and of the eager walk
+                (CAPTURED_STEPS each, ending in the fetch on the host),
+                device busy time, idle share and kernel records per step
+                (torch.profiler over PROFILED_STEPS), peak memory
+                allocated and memory reserved; one JSON line
+                {"captured": [...]}. Checks: a replay against two eager
+                walks from one state (fetches and written persistables:
+                bitwise where the eager walks are bitwise equal, else
+                within twice their difference); captured run j against
+                eager run j with dropout 0.1 (Transformer, 3 steps:
+                losses and every persistable bitwise); run_bundle(K=4)
+                against 4 run() calls (DeepFM, bitwise); a guarded LeNet
+                step fed a NaN (every persistable bitwise unchanged,
+                skipped_steps 1); launches per replay (18 of each
+                attention kernel a training step, 18 forward launches a
+                serving forward, 2 sparse_adam a DeepFM step, 1
+                paged_attention a dispatch); a held device fetch unchanged
+                by the next replay.
+  9. a JSON line {"kernels": [...]} with each kernel's parity, launches,
      times and bound; then the card's name and power limit; then the last
      line {"ok": true, "device": {...}}.
 """
 import concurrent.futures
+import contextlib
 import importlib
 import itertools
 import json
@@ -272,6 +302,9 @@ RESNET_GRAD_SPREAD = 3.0
 # the served probabilities on the card against the CPU and Predictor.run
 RESNET_NHWC_TOL = 1e-4
 RESNET_SERVE_TOL = 1e-4
+# phase 8: steps timed per path and mode (captured, eager), and traced
+CAPTURED_STEPS = 10
+PROFILED_STEPS = 3
 
 
 def log(*args):
@@ -1107,14 +1140,16 @@ def _serve(tmp):
     finally:
         engine.shutdown()
     batches = stats['batches']
-    runs = len(buckets) + batches
+    # warmup runs each bucket twice: its warm-up and its capture
+    warm = serving.engine.WARMUP_RUNS * len(buckets)
+    runs = warm + batches
     want = ATTENTION_OPS_PER_FORWARD * runs
     if launches['flash_attention_fwd'] != want:
         raise AssertionError(
             'flash_attention_fwd launched %d times for %d forward(s) '
             '(%d warmup + %d batches); the path must launch it %d times '
             'per forward' % (launches['flash_attention_fwd'], runs,
-                             len(buckets), batches,
+                             warm, batches,
                              ATTENTION_OPS_PER_FORWARD))
     rows = sum(r['src_word'].shape[0] for r in reqs)
     real_tokens = sum(int((r['trg_word'] != 0).sum()) for r in reqs)
@@ -2149,6 +2184,566 @@ def phase_image_training():
     return launches
 
 
+# -- phase 8 ----------------------------------------------------------------
+
+def _to_host(tensors):
+    """Device tensors to numpy through pinned buffers (what Executor.run
+    does with its fetches), waiting for the copies."""
+    import torch
+    outs = []
+    for t in tensors:
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t, non_blocking=True)
+        outs.append(h)
+    torch.cuda.current_stream().synchronize()
+    return [h.numpy() for h in outs]
+
+
+def _device_busy(fn, n):
+    """(device busy ms per call, idle share of the traced wall, traced wall
+    ms per call, kernel records per call) over n calls of fn under
+    torch.profiler; a replayed graph's kernels are recorded one by one."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us, records = 0.0, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and not e.is_user_annotation:
+            busy_us += e.time_range.elapsed_us()
+            records += 1
+    return (busy_us / 1e3 / n, 1.0 - busy_us / 1e6 / wall, wall * 1e3 / n,
+            records / n)
+
+
+def _reserved():
+    """Memory the caching allocator holds once it has released every cached
+    block no tensor uses: what live tensors and the captured graphs' pools
+    take."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved()
+
+
+def _measure(path, captured, eager, pool_bytes, steps=CAPTURED_STEPS):
+    """The median step of `captured` (the path's entry point: a replay) and of
+    `eager` (debug_step's walk), each ending with its fetch on the host,
+    in this call; device busy time, idle share and kernel records per step
+    (torch.profiler over PROFILED_STEPS more); the peak memory allocated
+    over the timed steps and how far it rose above what was allocated
+    before them (an eager step's activations; a replay allocates only its
+    fetches), beside `pool_bytes`, what the path's capture reserved (its
+    graph pool, where a replay's activations live)."""
+    import gc
+    import torch
+    out = {'path': path}
+    modes = (('captured', captured), ('eager', eager))
+    timed = {}
+    gc.collect()
+    # both modes timed before either is traced: a traced run leaves the
+    # profiler's hooks behind
+    for mode, fn in modes:
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        secs = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        timed[mode] = (secs, base, torch.cuda.max_memory_allocated())
+    for mode, fn in modes:
+        secs, base, peak = timed[mode]
+        busy, idle, wall, records = _device_busy(fn, PROFILED_STEPS)
+        med = float(np.median(secs))
+        out[mode] = dict(
+            median_step_ms=med * 1e3, step_ms=[s * 1e3 for s in secs],
+            device_busy_ms=busy, idle_share_of_traced_wall=idle,
+            idle_share_of_median_step=1.0 - busy / 1e3 / med,
+            traced_wall_ms=wall, device_records_per_step=records,
+            peak_allocated_gb=peak / 1e9,
+            step_extra_gb=(peak - base) / 1e9)
+    out['captured']['graph_pool_gb'] = pool_bytes / 1e9
+    out['speedup'] = out['eager']['median_step_ms'] \
+        / out['captured']['median_step_ms']
+    c, e = out['captured'], out['eager']
+    if not c['device_busy_ms'] > 0:
+        raise AssertionError('%s: the profiler saw no device time in the '
+                             'replays' % path)
+    log('[captured] %s: median step captured %.4f ms, eager %.4f ms '
+        '(%.2fx); device busy %.4f / %.4f ms; idle %.3f / %.3f of the '
+        'median step; peak allocated %.3f / %.3f GB; the capture reserved '
+        '%.3f GB, an eager step allocates %.3f GB more; kernel records per '
+        'step %.0f / %.0f'
+        % (path, c['median_step_ms'], e['median_step_ms'], out['speedup'],
+           c['device_busy_ms'], e['device_busy_ms'],
+           c['idle_share_of_median_step'], e['idle_share_of_median_step'],
+           c['peak_allocated_gb'], e['peak_allocated_gb'],
+           c['graph_pool_gb'], e['step_extra_gb'],
+           c['device_records_per_step'], e['device_records_per_step']))
+    return out
+
+
+def _held_to_eager(what, got, eager):
+    """The determinism rule: where two eager walks are bitwise equal the
+    replay must be too; elsewhere it must lie within twice their largest
+    difference (the eager-against-eager spread of this run). `got` and each
+    entry of `eager` are {name: tensor}. Returns (n bitwise, n by
+    spread)."""
+    import torch
+    e1, e2 = eager
+    exact = spread_n = 0
+    for n, a in e1.items():
+        r, b = got[n], e2[n]
+        if torch.equal(a, b):
+            if not torch.equal(r, a):
+                raise AssertionError(
+                    '%s: %s: the replay differs from two bitwise equal '
+                    'eager walks (max abs diff %.3g)' % (
+                        what, n, float((r.double() - a.double()).abs()
+                                       .max())))
+            exact += 1
+            continue
+        a, b, r = a.double(), b.double(), r.double()
+        spread = float((a - b).abs().max())
+        d = min(float((r - a).abs().max()), float((r - b).abs().max()))
+        if not d <= 2 * spread:
+            raise AssertionError(
+                '%s: %s: the replay is %.3g from the eager walks, which '
+                'differ by %.3g' % (what, n, d, spread))
+        spread_n += 1
+    return exact, spread_n
+
+
+def _eager_spread(art, state, feed):
+    """How many of a step's written persistables and fetches differ
+    between two eager walks from one state."""
+    import torch
+    g = torch.Generator(device='cuda')
+    walks = []
+    for _ in range(2):
+        fetches, new, _ = art.debug_step(
+            {n: t.clone() for n, t in state.items()}, feed, 0,
+            generator=g)
+        walks.append(list(new.values()) + list(fetches))
+    return sum(not torch.equal(a, b) for a, b in zip(*walks))
+
+
+def _replay_against_eager(what, handle, art, scope, feed, seed):
+    """One step from one state three ways: debug_step's eager walk twice
+    (on clones of the state) and a replay through `handle`; the fetches
+    and the written persistables held to the determinism rule
+    (_held_to_eager). The scope's state is restored afterwards."""
+    import torch
+    snap = {n: t.clone() for n, t in art.state_dict(scope).items()}
+    dev_feed = {n: torch.as_tensor(v).cuda() for n, v in feed.items()}
+    g = torch.Generator(device='cuda')
+    eager = []
+    for _ in range(2):
+        fetches, new, _ = art.debug_step(
+            {n: t.clone() for n, t in snap.items()}, dev_feed, seed,
+            generator=g)
+        eager.append(dict(new, **{'fetch %d' % i: t
+                                  for i, t in enumerate(fetches)}))
+    fetches = handle.step(feed or None, seed=seed)
+    got = {n: scope._chain_get(n) for n in eager[0] if n in snap}
+    got.update(('fetch %d' % i, t) for i, t in enumerate(fetches))
+    exact, spread = _held_to_eager(what, got, eager)
+    with torch.no_grad():
+        for n, t in art.state_dict(scope).items():
+            t.copy_(snap[n])
+    log('[captured] %s: replay against the eager walk: %d tensors bitwise '
+        'equal, %d within the eager spread' % (what, exact, spread))
+    return exact, spread
+
+
+def _launches_under(fn, n):
+    """{kernel: launches per call} over n calls of fn."""
+    from paddle_tpu_torch import ops
+    before = {k: v.launches for k, v in ops.KERNELS.items()}
+    for _ in range(n):
+        fn()
+    return {k: (v.launches - before[k]) / n for k, v in ops.KERNELS.items()
+            if v.launches != before[k]}
+
+
+def _captured_transformer(records):
+    """Transformer-base training at batch 16 (get_model, dropout 0.1)."""
+    import torch
+    from paddle_tpu_torch import fluid
+    main, startup, avg_cost, names, reader = build_trainer()
+    init = fluid.Scope()
+    fluid.Executor().run(startup, scope=init)
+    it = reader()
+    feeds = [as_feed(next(it), names) for _ in range(4)]
+    # captured run j against eager run j, dropout on: bitwise
+    runs = []
+    for eager in (False, True):
+        scope = fluid.Scope()
+        scope.vars.update({n: t.clone() for n, t in init.vars.items()})
+        exe = fluid.Executor()
+        ctx = fluid.debugger.check_nan_inf() if eager \
+            else contextlib.nullcontext()
+        with ctx:
+            losses = []
+            for j, f in enumerate(feeds[:3]):
+                if j == 1 and not eager:
+                    r0 = _reserved()
+                losses.append(exe.run(main, feed=f, fetch_list=[avg_cost],
+                                      scope=scope)[0])
+                if j == 1 and not eager:
+                    pool = _reserved() - r0
+        runs.append((losses, scope, exe))
+    (cl, cs, cexe), (el, es, _) = runs
+    if cexe.cache_stats['captures'] != 1 or cexe.cache_stats['replays'] != 2:
+        raise AssertionError('3 Transformer steps: %r' % (cexe.cache_stats,))
+    for j, (a, b) in enumerate(zip(cl, el)):
+        if not np.array_equal(a, b):
+            raise AssertionError('dropout 0.1: captured run %d loss %r, '
+                                 'eager run %d %r' % (j, a, j, b))
+    diff = [n for n in cs.vars if not torch.equal(cs.vars[n], es.vars[n])]
+    if diff:
+        raise AssertionError('dropout 0.1: after 3 steps captured and eager '
+                             'differ in %r' % diff[:8])
+    log('[captured] transformer: 3 steps with dropout 0.1, captured (warm-'
+        'up, capture, replay) against eager: losses %s and all %d '
+        'persistables bitwise equal' % (
+            ', '.join('%.6f' % float(np.asarray(x).reshape(()))
+                      for x in cl), len(cs.vars)))
+    del runs, es
+    exe, scope = cexe, cs
+    launches = _launches_under(
+        lambda: exe.run(main, feed=feeds[3], fetch_list=[avg_cost],
+                        scope=scope), 2)
+    want = {k: float(ATTENTION_OPS_PER_FORWARD) for k in (
+        'flash_attention_fwd', 'flash_attention_bwd_dq',
+        'flash_attention_bwd_dkv')}
+    if launches != want:
+        raise AssertionError('Transformer replays launched %r per step, not '
+                             '%r' % (launches, want))
+    h = exe.acquire_step(main, feed=feeds[3], fetch_list=[avg_cost],
+                         scope=scope)
+    art = exe.step_artifact(main, feed=feeds[3], fetch_list=[avg_cost],
+                            scope=scope)
+    _replay_against_eager('transformer', h, art, scope, feeds[3], 77)
+    state = {n: t.clone() for n, t in art.state_dict(scope).items()}
+    dev = {n: torch.from_numpy(v).cuda() for n, v in feeds[3].items()}
+    g = torch.Generator(device='cuda')
+    r = _measure(
+        'transformer training, batch 16',
+        lambda: exe.run(main, feed=feeds[3], fetch_list=[avg_cost],
+                        scope=scope),
+        lambda: _to_host(art.debug_step(state, dev, 5, generator=g)[0]),
+        pool)
+    r['launches_per_replay'] = launches
+    records.append(r)
+
+
+def _captured_ctr(records):
+    """DeepFM (Adam, both FM tables sparse) at batch 256."""
+    import torch
+    from paddle_tpu_torch import fluid
+    main, startup, avg_cost, auc, _ = build_ctr('adam')
+    init = fluid.Scope()
+    fluid.Executor().run(startup, scope=init)
+    from paddle_tpu_torch.batch import batch
+    from paddle_tpu_torch.models import deepfm
+    feeds = [ctr_feed(b) for b in batch(
+        deepfm.synthetic_ctr_reader(tag='train'), CTR_BATCH)()][:6]
+    fetch = [avg_cost, auc]
+
+    def fresh():
+        s = fluid.Scope()
+        s.vars.update({n: t.clone() for n, t in init.vars.items()})
+        return s, fluid.Executor()
+
+    # run_bundle(K=4) against 4 run() calls: bitwise
+    s1, e1 = fresh()
+    ran = []
+    for j, f in enumerate(feeds[:4]):
+        if j == 1:
+            r0 = _reserved()
+        ran.append(e1.run(main, feed=f, fetch_list=fetch, scope=s1))
+        if j == 1:
+            pool = _reserved() - r0
+    s2, e2 = fresh()
+    bundled = e2.run_bundle(main, feeds=feeds[:4], fetch_list=fetch,
+                            scope=s2)
+    for j in range(4):
+        for a, b in zip(ran[j], bundled):
+            if not np.array_equal(a, b[j]):
+                raise AssertionError('run_bundle(K=4) inner step %d fetched '
+                                     '%r, run %d %r' % (j, b[j], j, a))
+    diff = [n for n in s1.vars if not torch.equal(s1.vars[n], s2.vars[n])]
+    if diff or e2.cache_stats['replays'] != 3:
+        raise AssertionError('run_bundle(K=4) against 4 runs: state differs '
+                             'in %r; %r' % (diff[:8], e2.cache_stats))
+    # a held device fetch, unchanged by the next replay
+    held = e1.run(main, feed=feeds[4], fetch_list=fetch, scope=s1,
+                  return_numpy=False)
+    copies = [t.clone() for t in held]
+    e1.run(main, feed=feeds[5], fetch_list=fetch, scope=s1)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(held, copies)):
+        raise AssertionError('a held device fetch changed under the next '
+                             'replay')
+    log('[captured] ctr: run_bundle(K=4) against 4 run() calls: fetches and '
+        'all %d persistables bitwise equal; a held device fetch unchanged by '
+        'the next replay' % len(s1.vars))
+    launches = _launches_under(
+        lambda: e1.run(main, feed=feeds[5], fetch_list=fetch, scope=s1), 4)
+    if launches != {'sparse_adam': 2.0}:
+        raise AssertionError('DeepFM replays launched %r per step'
+                             % (launches,))
+    h = e1.acquire_step(main, feed=feeds[5], fetch_list=fetch, scope=s1)
+    art = e1.step_artifact(main, feed=feeds[5], fetch_list=fetch, scope=s1)
+    _replay_against_eager('ctr', h, art, s1, feeds[5], 0)
+    state = {n: t.clone() for n, t in art.state_dict(s1).items()}
+    dev = {n: torch.from_numpy(v).cuda() for n, v in feeds[5].items()}
+    g = torch.Generator(device='cuda')
+    r = _measure(
+        'DeepFM training, batch 256',
+        lambda: e1.run(main, feed=feeds[5], fetch_list=fetch, scope=s1),
+        lambda: _to_host(art.debug_step(state, dev, 0, generator=g)[0]),
+        pool)
+    r['launches_per_replay'] = launches
+    records.append(r)
+
+
+def _captured_decode(records):
+    """One dispatch of the paged DecodeEngine with all 16 slots decoding
+    (the loop held off through the engine's handle lock)."""
+    import torch
+    from paddle_tpu_torch import serving
+    cfg = DECODE_CONFIG
+    eng = serving.DecodeEngine(mt_decoder_weights(),
+                               serving.DecodeConfig(**cfg))
+    reqs = decode_requests()[:cfg['slots']]
+    try:
+        r0 = _reserved()
+        eng.warmup()                # the step's warm-up and capture
+        pool = _reserved() - r0
+        futs = [eng.submit({'enc': e}, max_new_tokens=cfg['max_len'])
+                for e, _ in reqs]
+        t_end = time.monotonic() + 600
+        while eng.stats['joins'] < cfg['slots']:
+            if time.monotonic() > t_end:
+                raise AssertionError('the decode requests did not join (%r)'
+                                     % (eng.stats,))
+            time.sleep(0.001)
+        with eng._handle_lock:
+            if eng.stats['slots_occupied'] != cfg['slots']:
+                raise AssertionError('the slots did not fill (%r)'
+                                     % (eng.stats,))
+            h = eng._acquire()
+            art = h._compiled
+            scope = eng._scope
+
+            def dispatch(step):
+                active, _, _, _, steps = step()
+                _to_host([torch.stack([active.to(torch.int32), steps])])
+
+            _replay_against_eager('decode', h, art, scope, {}, 0)
+            launches = _launches_under(lambda: dispatch(h.step), 3)
+            if launches != {'paged_attention': 1.0}:
+                raise AssertionError('decode replays launched %r per '
+                                     'dispatch' % (launches,))
+            state = {n: t.clone() for n, t in h.state.items()}
+            g = torch.Generator(device='cuda')
+            r = _measure(
+                'decode dispatch, 16 slots full', lambda: dispatch(h.step),
+                lambda: dispatch(lambda: art.debug_step(
+                    state, {}, 0, generator=g)[0]), pool)
+            r['launches_per_replay'] = launches
+            live = int(h.state['cbd_active'].sum())
+            if live != cfg['slots']:
+                raise AssertionError('%d of %d slots still decoding after '
+                                     'the measured dispatches'
+                                     % (live, cfg['slots']))
+        for f in futs:
+            f.result(timeout=600)
+    finally:
+        eng.shutdown()
+    records.append(r)
+
+
+def _captured_serving(records):
+    """Predictor.run on full-width Transformer-base at batch 1 and 16."""
+    import torch
+    from paddle_tpu_torch import fluid, inference
+    cfg = TRANSFORMER_BASE
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_cap_') as tmp:
+        build_artifact(tmp, cfg, fluid.CUDAPlace(0))
+        pred = inference.Predictor(tmp)
+    rng = np.random.RandomState(SEED)
+    req = make_requests(1, 1, cfg['max_length'], cfg['trg_vocab_size'],
+                        rng)[0]
+    exe, scope = pred._exe, pred._scope
+    for b in (1, 16):
+        feed = {n: np.repeat(a, b, axis=0) for n, a in req.items()}
+        pred.run(feed)              # the warm-up
+        r0 = _reserved()
+        pred.run(feed)              # the capture and its first replay
+        pool = _reserved() - r0
+        fetch = pred._fetch_vars
+        h = exe.acquire_step(pred._program, feed=feed, fetch_list=fetch,
+                             scope=scope)
+        art = exe.step_artifact(pred._program, feed=feed, fetch_list=fetch,
+                                scope=scope)
+        _replay_against_eager('serving, batch %d' % b, h, art, scope, feed,
+                              0)
+        launches = _launches_under(lambda: pred.run(feed), 2)
+        if launches != {'flash_attention_fwd':
+                        float(ATTENTION_OPS_PER_FORWARD)}:
+            raise AssertionError('serving replays launched %r per forward'
+                                 % (launches,))
+        state = art.state_dict(scope)
+        dev = {n: torch.from_numpy(v).cuda() for n, v in feed.items()}
+        g = torch.Generator(device='cuda')
+        r = _measure('serving, batch %d' % b, lambda: pred.run(feed),
+                     lambda: _to_host(art.debug_step(
+                         state, dev, 0, generator=g)[0]),
+                     pool)
+        r['launches_per_replay'] = launches
+        records.append(r)
+
+
+def _captured_image(records):
+    """MNIST LeNet (batch 128) and ResNet-50 (batch 32) training; the
+    anomaly guard on LeNet fed a NaN."""
+    import warnings
+    import torch
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import unique_name
+    from paddle_tpu_torch.models import mnist
+    main, startup = _program_pair()
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        avg_cost, _, train_reader, _, _ = mnist.get_model()
+    blk = main.global_block()
+    feeder = fluid.DataFeeder([blk.var('pixel'), blk.var('label')],
+                              fluid.CUDAPlace(0), program=main)
+    lenet_feeds = [feeder.feed(b) for b in itertools.islice(
+        train_reader(), 4)]
+    main50, startup50, cost50, _, reader50 = build_resnet()
+    blk50 = main50.global_block()
+    feeder50 = fluid.DataFeeder([blk50.var('data'), blk50.var('label')],
+                                fluid.CUDAPlace(0), program=main50)
+    # a whole pass: the flowers reader's worker threads would otherwise
+    # go on decoding the epoch while the steps are timed
+    feed50 = [feeder50.feed(b) for b in reader50()
+              if len(b) == RESNET_BATCH][0]
+    for name, prog, start, cost, feed in (
+            ('MNIST LeNet training, batch 128', main, startup, avg_cost,
+             lenet_feeds[0]),
+            ('ResNet-50 training, batch 32', main50, startup50, cost50,
+             feed50)):
+        scope = fluid.Scope()
+        exe = fluid.Executor()
+        exe.run(start, scope=scope)
+        exe.run(prog, feed=feed, fetch_list=[cost], scope=scope)
+        r0 = _reserved()
+        exe.run(prog, feed=feed, fetch_list=[cost], scope=scope)
+        pool = _reserved() - r0
+        art = exe.step_artifact(prog, feed=feed, fetch_list=[cost],
+                                scope=scope)
+        state = {n: t.clone() for n, t in art.state_dict(scope).items()}
+        dev = {n: torch.from_numpy(v).cuda() for n, v in feed.items()}
+        g = torch.Generator(device='cuda')
+        differ = _eager_spread(art, state, dev)
+        records.append(_measure(
+            name, lambda: exe.run(prog, feed=feed, fetch_list=[cost],
+                                  scope=scope),
+            lambda: _to_host(art.debug_step(
+                state, dev, 0, generator=g)[0]), pool))
+        records[-1]['eager_walks_differ_in'] = differ
+        del state, exe, scope
+        # cuDNN's default convolution algorithms are not deterministic:
+        # the replay is held to the eager walk with deterministic ones, in
+        # a capture of its own
+        torch.backends.cudnn.deterministic = True
+        try:
+            scope = fluid.Scope()
+            exe = fluid.Executor()
+            exe.run(start, scope=scope)
+            for _ in range(2):
+                exe.run(prog, feed=feed, fetch_list=[cost], scope=scope)
+            h = exe.acquire_step(prog, feed=feed, fetch_list=[cost],
+                                 scope=scope)
+            art = exe.step_artifact(prog, feed=feed, fetch_list=[cost],
+                                    scope=scope)
+            _replay_against_eager(name + ', cuDNN deterministic', h, art,
+                                  scope, feed, 0)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        log('[captured] %s: with cuDNN\'s default algorithms two eager '
+            'walks from one state differ in %d tensors' % (name, differ))
+        del h, art, exe, scope
+
+    # the guard: one step fed a NaN leaves every persistable bitwise as it
+    # was and counts one skip; the next healthy step moves them again
+    fluid.anomaly_guard(main)
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    exe.run(startup, scope=scope)
+    for f in lenet_feeds[:2]:
+        exe.run(main, feed=f, fetch_list=[avg_cost], scope=scope)
+    before = {n: t.clone() for n, t in scope.vars.items()}
+    bad = dict(lenet_feeds[2], pixel=lenet_feeds[2]['pixel'].copy())
+    bad['pixel'][0, 0, 0, 0] = np.nan
+    with warnings.catch_warnings():
+        warnings.simplefilter('ignore')
+        loss = exe.run(main, feed=bad, fetch_list=[avg_cost], scope=scope)
+    changed = [n for n, t in scope.vars.items()
+               if not torch.equal(t, before[n])]
+    if changed or exe.skipped_steps != 1 or np.isfinite(loss[0]).all():
+        raise AssertionError('the guarded LeNet step fed a NaN: loss %r, '
+                             '%d skips, changed %r' % (
+                                 loss[0], exe.skipped_steps, changed[:8]))
+    exe.run(main, feed=lenet_feeds[3], fetch_list=[avg_cost], scope=scope)
+    moved = sum(not torch.equal(t, before[n])
+                for n, t in scope.vars.items())
+    if exe.skipped_steps != 1 or not moved or \
+            exe.cache_stats['replays'] != 3:
+        raise AssertionError('after the skip: %d skips, %d persistables '
+                             'moved, %r' % (exe.skipped_steps, moved,
+                                            exe.cache_stats))
+    log('[captured] anomaly guard on LeNet (replayed step fed a NaN): '
+        'all %d persistables bitwise unchanged, skipped_steps 1, health %r; '
+        'the next healthy replay moved %d of them'
+        % (len(before), {k: np.asarray(v).tolist()
+                         for k, v in exe.last_step_health.items()}, moved))
+
+
+def phase_captured():
+    """Every path's captured step against debug_step's eager walk in this
+    call; returns the records logged."""
+    import torch
+    records = []
+    _captured_transformer(records)
+    _captured_ctr(records)
+    _captured_decode(records)
+    _captured_serving(records)
+    _captured_image(records)
+    torch.cuda.synchronize()
+    card = nvidia_smi_line()
+    for r in records:
+        r['card'] = card
+    log(json.dumps({'captured': records}))
+    return records
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2164,6 +2759,7 @@ def main():
                'ctr_training': phase_ctr_training(),
                'decode': phase_decode(),
                'image_training': phase_image_training()}
+    phase_captured()
     for path, counts in by_path.items():
         stray = {k: n for k, n in counts.items()
                  if n and path not in KERNEL_PATHS[k]}

@@ -3,8 +3,9 @@
 Parity: reference python/paddle/fluid/__init__.py and the JAX package's
 paddle_tpu.fluid, reduced to what the port carries so far: the Program
 IR, the layer builders of the port's models, nets, the DataFeeder, the
-eager Executor, io, and the training step (backward, optimizer,
-regularizer, clip).
+Executor and its compiled step (step_artifact: one captured CUDA graph per
+step signature on the card), the anomaly guard, the NaN/Inf debugger, io,
+and the training step (backward, optimizer, regularizer, clip).
 """
 from . import core
 from . import framework
@@ -12,8 +13,12 @@ from .framework import Program, Operator, Parameter, Variable, \
     default_startup_program, default_main_program, program_guard, get_var
 from . import lowering
 from . import ops_impl  # noqa: F401  (registers every op rule)
+from . import passes
+from . import step_artifact
+from . import debugger
 from . import executor
-from .executor import Executor, global_scope, scope_guard, Scope
+from .executor import Executor, global_scope, scope_guard, Scope, \
+    anomaly_guard
 from . import layers
 from . import initializer
 from . import io
@@ -31,6 +36,6 @@ from .core import CPUPlace, CUDAPlace, TPUPlace, CUDAPinnedPlace
 __all__ = framework.__all__ + executor.__all__ + [
     'io', 'initializer', 'layers', 'ParamAttr', 'unique_name', 'core',
     'backward', 'optimizer', 'regularizer', 'clip', 'nets', 'data_feeder',
-    'DataFeeder',
+    'DataFeeder', 'debugger', 'step_artifact', 'passes',
     'CPUPlace', 'CUDAPlace', 'TPUPlace', 'CUDAPinnedPlace',
 ]

@@ -1,58 +1,54 @@
-"""Executor: runs a Program as an eager op walk on one torch device.
+"""Executor: thin entry points over the compiled step
+(fluid/step_artifact.py).
 
 Parity: reference python/paddle/fluid/executor.py:256 and the JAX
-package's fluid/executor.py. The JAX Executor lowers a whole Program into
-one jitted XLA step; here each op's rule (ops_impl/) runs eagerly on the
-executor's device, in program order, and the CUDA kernels of ops/ launch
-from inside those rules. A program that writes no persistable (inference)
-runs under torch.inference_mode(); one that does (startup, training) under
-torch.no_grad(), so the scope never holds inference tensors, which autograd
-could not save.
+package's fluid/executor.py (anomaly_guard :146, FetchHandle :373,
+StepHandle :464, run :1456, acquire_step :1568, run_bundle :1647,
+_observe_health :1854, state_dict :1955, cache_stats :2046). Each entry
+point resolves one StepArtifact per (program uid and version, feed
+signature, fetch names, guard) through `_prepare` and runs it:
 
-A program with an `autodiff` op (fluid.backward.append_backward) is a
-training step, split at the marker as the JAX package's StepArtifact step
-splits it (fluid/step_artifact.py:213-234, dense form): the ops before it
-run with the trainable parameters as leaves that require grad,
-torch.autograd.grad of the summed loss binds every `<param>@GRAD`, and the
-ops after it (clip, regularizers, optimizer updates) run under
-torch.no_grad(). Only detached tensors go back to the scope or out as
-fetches.
+  * on a CUDA place, a signature's first call is its eager warm-up, the
+    second captures it into a CUDA graph and every later call replays it
+    (StepArtifact.run_captured); the scope's persistables are the graph's
+    static state and are updated in place;
+  * on the CPU the artifact runs its eager body, and the written
+    persistables are rebound in the scope, as the JAX package's functional
+    step rebinds them;
+  * while fluid.debugger.check_nan_inf() is active, every place takes the
+    eager walk (StepArtifact.debug_step), which checks each op's outputs.
 
-An is_sparse embedding table that qualifies (the plan of
-_sparse_embedding_plan, the JAX StepArtifact's :321-406, unsharded case)
-is not a leaf: each of its lookups gets a zero tap that requires grad,
-added to the lookup's output, and `W@GRAD` is bound to a
-lowering.SparseRows of the lookups' ids and the taps' gradients (JAX
-_grad_setup / _run_ops / _apply_grads, :412-501), so the vocab-sized
-dense gradient never exists.
+Replays, fetch copies and capture serialize on the executor's lock, and
+every fetch leaves the executor's graph pool before the lock is released:
+numpy fetches through pinned host buffers, device fetches as clones.
 
 Random ops draw from ONE torch.Generator per Executor, on its device,
-re-seeded at every run from Program.random_seed and the run count (the JAX
+seeded at every run from Program.random_seed and the run count (the JAX
 Executor derives its per-run PRNG key the same way), so a seeded program
-gives the same numbers run for run.
+gives the same numbers run for run, captured or eager, bundled or not.
 
-`acquire_step` pins one feedless state-update program (the decode
-engine's step) behind a StepHandle that keeps the written persistables
-between calls (JAX executor.py:464, :1568).
-
-The JAX Executor's jit cache, IR passes, mesh placement and run_bundle
-have no counterpart yet.
+The JAX Executor's IR passes, mesh placement, AOT warm signatures,
+persistent compile cache and remat detection have no counterpart yet
+(ROADMAP.md Queue A).
 """
 import collections
 import contextlib
 import threading
+import warnings
+import weakref
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .. import obs
 from . import core
+from . import debugger
 from .framework import Variable, default_main_program
-from .lowering import Ctx, SparseRows, run_block, run_op
+from .step_artifact import (StepArtifact, _feed_signature, _pack_health,
+                            _write_back, health_to_numpy)
 
-__all__ = ['Executor', 'Scope', 'StepHandle', 'global_scope',
-           'scope_guard']
+__all__ = ['Executor', 'Scope', 'StepHandle', 'FetchHandle',
+           'global_scope', 'scope_guard', 'anomaly_guard']
 
 
 class Scope(object):
@@ -94,7 +90,9 @@ class Scope(object):
     def load_numpy(self, arrays, place):
         """Carry weights in: put every {name: ndarray} entry into this
         scope as a tensor on `place`'s device (e.g. the JAX package's
-        parameters, read from its scope or its __params__.npz)."""
+        parameters, read from its scope or its __params__.npz). A captured
+        step copies a rebound persistable into its static state before its
+        next replay."""
         device = place.torch_device()
         for name, a in arrays.items():
             self.vars[name] = torch.from_numpy(
@@ -134,245 +132,295 @@ def _as_fetch_name(f):
     return f.name if isinstance(f, Variable) else str(f)
 
 
-class _RunPlan(object):
-    """What a run of one program version with one fetch list needs beyond
-    its ops: the persistables it may read from the scope, the ones it
-    writes back, the index of its autodiff op (None: it does not
-    differentiate) and its sparse embedding plan."""
+def anomaly_guard(program=None, enable=True, max_consecutive_skips=None):
+    """Arm the in-graph anomaly guard on a training program (the JAX
+    :146): each step computes a health vector on the card (finiteness of
+    the loss and of every gradient, and the global gradient norm) and,
+    when the step is unhealthy, skips it: every written persistable
+    (parameters, optimizer state, running stats) keeps its pre-step value
+    through a torch.where select inside the captured graph.
 
-    def __init__(self, program, fetch_names):
-        block = program.global_block()
-        persist = {v.name for v in program.list_vars() if v.persistable}
-        self.persistables = sorted(persist)
-        self.writes = sorted({n for op in block.ops
-                              for n in op.output_arg_names if n in persist})
-        ad = [i for i, op in enumerate(block.ops) if op.type == 'autodiff']
-        if len(ad) > 1:
-            raise ValueError('at most one append_backward per program; '
-                             'this one has %d autodiff ops' % len(ad))
-        self.ad_idx = ad[0] if ad else None
-        self.sparse_plan = {} if self.ad_idx is None else \
-            _sparse_embedding_plan(block.ops, self.ad_idx, persist,
-                                   set(fetch_names))
-
-
-# optimizer ops with a SparseRows gradient branch (ops_impl/optim_ops.py)
-_SPARSE_OPTS = frozenset(['sgd', 'adagrad', 'adam'])
+    After each guarded run `exe.last_step_health` holds the health vector
+    (numpy) and `exe.skipped_steps` counts skips. With
+    max_consecutive_skips=N the N-th consecutive unhealthy step raises
+    FloatingPointError on the host. The eager per-op attribution mode is
+    fluid.debugger.check_nan_inf()."""
+    if program is None:
+        program = default_main_program()
+    program._anomaly_guard = bool(enable)
+    program._anomaly_guard_max_skips = max_consecutive_skips
+    program._bump_version()
+    return program
 
 
-def _sparse_embedding_plan(ops, ad_idx, persistable, fetch_names):
-    """Which embedding tables take the sparse gradient path (the JAX
-    package's StepArtifact._sparse_embedding_plan, unsharded case).
+# Process-wide executor telemetry; per-instance numbers are in
+# Executor.cache_stats.
+_C_HITS = obs.counter('executor.cache.hits')
+_C_MISSES = obs.counter('executor.cache.misses')
+_C_EVICTIONS = obs.counter('executor.cache.evictions')
+_C_BUNDLED_STEPS = obs.counter('executor.bundle.steps')
+_C_SKIPPED = obs.counter('anomaly.skipped_steps')
+_G_GRAD_NORM = obs.gauge('anomaly.grad_norm')
+# run(sync='async') handles not yet read (the host_stall histogram comes
+# from the obs.span in FetchHandle.block)
+_G_INFLIGHT = obs.gauge('executor.inflight')
 
-    A table W qualifies when every reader of W other than its optimizer op
-    is an is_sparse lookup_table, W@GRAD is read by exactly one sgd,
-    adagrad or adam op and by nothing else, and W@GRAD has no writer, is
-    not persistable and is not fetched (fetching it asks for the dense
-    gradient). Any other table keeps the dense path.
-    Returns {w_name: {'lookups': [(op_idx, ids_name, padding_idx)],
-                      'gname': str}}."""
-    ad = ops[ad_idx]
-    gnames = dict(zip(ad.attrs['param_names'], ad.attrs['grad_names']))
-    readers, writers = {}, {}
-    for i, op in enumerate(ops):
-        if i == ad_idx:
-            continue
-        for n in op.input_arg_names:
-            readers.setdefault(n, []).append(i)
-        for n in op.output_arg_names:
-            writers.setdefault(n, []).append(i)
-    plan = {}
-    for w, gname in gnames.items():
-        lookups = []
-        opt_idx = None
-        ok = gname not in fetch_names and gname not in persistable
-        for i in set(readers.get(w, [])):
-            op = ops[i]
-            if (op.type == 'lookup_table' and op.attrs.get('is_sparse')
-                    and op.inputs['W'][0].name == w):
-                lookups.append((i, op.inputs['Ids'][0].name,
-                                op.attrs.get('padding_idx', -1)))
-            elif (op.type in _SPARSE_OPTS and opt_idx is None
-                  and any(v.name == gname
-                          for v in op.inputs.get('Grad', []))):
-                opt_idx = i
-            else:
-                ok = False
-        if (ok and lookups and opt_idx is not None
-                and set(readers.get(gname, [])) <= {opt_idx}
-                and not writers.get(gname)):
-            plan[w] = {'lookups': sorted(lookups), 'gname': gname}
-    return plan
+# RLock: FetchHandle.__del__ may run from a GC pass triggered inside an
+# _inflight_delta call on the same thread
+_inflight_lock = threading.RLock()
+_inflight_n = 0
 
 
-def _run_ops(ops, env, ctx, detach_stop_gradient=False, taps=None):
-    """Run `ops` against env; with detach_stop_gradient, every output var
-    marked stop_gradient is detached (the JAX package's _run_ops in grad
-    mode, fluid/step_artifact.py:591-596). taps: {op index: (tap tensor,
-    output name)}: right after that op the tap is added to its output, so
-    the tap's gradient is the per-row gradient there (:586-590)."""
-    for i, op in enumerate(ops):
-        run_op(op, env, ctx)
-        if taps is not None and i in taps:
-            tap, out = taps[i]
-            env[out] = env[out] + tap
-        if detach_stop_gradient:
-            for vs in op.outputs.values():
-                for v in vs:
-                    t = env.get(v.name)
-                    if v.stop_gradient and isinstance(t, torch.Tensor):
-                        env[v.name] = t.detach()
+def _inflight_delta(d):
+    global _inflight_n
+    with _inflight_lock:
+        _inflight_n += d
+        _G_INFLIGHT.set(_inflight_n)
 
 
-def _train_step(ops, ad_idx, sparse_plan, env, ctx):
-    """The step of a program with an autodiff op at ad_idx: the eager
-    counterpart of StepArtifact's _grad_setup / _make_fwd / _apply_grads
-    (fluid/step_artifact.py:412-501)."""
-    ad = ops[ad_idx]
-    gnames = dict(zip(ad.attrs['param_names'], ad.attrs['grad_names']))
-    # the planned tables whose ids are known before the forward runs (fed
-    # or persistable), which the taps' shapes need; the others stay dense
-    sparse = {w: p for w, p in sparse_plan.items()
-              if w in env and all(ids in env for _, ids, _ in p['lookups'])}
-    taps = {}
-    for w, p in sparse.items():
-        d = env[w].shape[-1]
-        for op_idx, ids_name, _ in p['lookups']:
-            shape = tuple(env[ids_name].shape)
-            if shape and shape[-1] == 1:
-                shape = shape[:-1]
-            taps[op_idx] = (torch.zeros(shape + (d,), dtype=env[w].dtype,
-                                        device=env[w].device,
-                                        requires_grad=True),
-                            ops[op_idx].outputs['Out'][0].name)
-    pnames = [n for n in ad.attrs['param_names']
-              if n in env and n not in sparse]
-    leaves = [env[n].detach().requires_grad_() for n in pnames]
-    env.update(zip(pnames, leaves))
-    tap_order = sorted(taps)
-    # record_function ranges name the phases in a torch.profiler trace
-    # (tools/torch_train_profile.py); without a profiler they cost ~1 us
-    with torch.enable_grad():
-        with record_function('executor.forward'):
-            _run_ops(ops[:ad_idx], env, ctx, detach_stop_gradient=True,
-                     taps=taps)
-            loss = env[ad.attrs['loss_name']].to(torch.float32).sum()
-        grads = torch.autograd.grad(
-            loss, leaves + [taps[i][0] for i in tap_order],
-            allow_unused=True)
-    scale = ad.attrs.get('loss_scale', 1.0)
-    for n in list(env):
-        if isinstance(env[n], torch.Tensor):
-            env[n] = env[n].detach()
-    for n, leaf, g in zip(pnames, leaves, grads):
-        if g is None:          # the loss does not reach this parameter
-            g = torch.zeros_like(leaf)
-        if scale != 1.0:
-            g = g * scale
-        env[gnames[n]] = g.to(leaf.dtype)
-    tap_grads = dict(zip(tap_order, grads[len(leaves):]))
-    for w, p in sparse.items():
-        d = env[w].shape[-1]
-        ids_parts, row_parts = [], []
-        for op_idx, ids_name, pad in p['lookups']:
-            ids = env[ids_name].reshape(-1).long()
-            g = tap_grads[op_idx]
-            rows = torch.zeros((ids.shape[0], d), dtype=env[w].dtype,
-                               device=ids.device) if g is None \
-                else g.reshape(-1, d)
-            if pad is not None and pad >= 0:
-                # the dense gradient's padding_idx row is zero (the lookup
-                # reads that row as zeros); mirror it on the rows
-                rows = rows.masked_fill((ids == pad)[:, None], 0.0)
-            ids_parts.append(ids)
-            row_parts.append(rows)
-        rows = torch.cat(row_parts)
-        if scale != 1.0:
-            rows = rows * scale
-        env[p['gname']] = SparseRows(torch.cat(ids_parts),
-                                     rows.to(env[w].dtype), env[w].shape)
-    with torch.no_grad(), record_function('executor.update'):
-        _run_ops(ops[ad_idx + 1:], env, ctx)
+class FetchHandle(object):
+    """A lazy fetch of `run(sync='async')` (the JAX :373): the host waits
+    for the value at its FIRST READ (np.asarray, float(), .block()), not
+    inside run(), so the host can go on to the next step while the card
+    works on this one.
+
+      * the first read blocks until the copy out of the step has landed
+        (a CUDA event recorded after it), records the wait in the
+        executor.host_stall.seconds histogram and caches the result;
+      * `.ready` asks without blocking;
+      * a failure of the copy or of the conversion raises at the first
+        read and again at every later read;
+      * the executor.inflight gauge counts handles made minus handles read
+        (or collected unread)."""
+
+    __slots__ = ('_value', '_materialize', '_event', '_result', '_synced')
+
+    def __init__(self, value, materialize=None, event=None):
+        self._value = value
+        self._materialize = materialize if materialize is not None \
+            else (lambda v=value: np.asarray(v))
+        self._event = event
+        self._result = None
+        self._synced = False
+        _inflight_delta(1)
+
+    @property
+    def ready(self):
+        """Non-blocking: has the card finished producing this value?"""
+        if self._synced or self._event is None:
+            return True
+        return bool(self._event.query())
+
+    def block(self):
+        """The value on the host (cached); re-raises a deferred error at
+        every read."""
+        if not self._synced:
+            was_ready = self.ready
+            try:
+                with obs.span('executor.host_stall', ready=was_ready):
+                    if self._event is not None:
+                        self._event.synchronize()
+                    self._result = (True, self._materialize())
+            except Exception as e:  # noqa: BLE001 - deferred to the reader
+                self._result = (False, e)
+            finally:
+                self._synced = True
+                self._value = self._materialize = self._event = None
+                _inflight_delta(-1)
+        ok, payload = self._result
+        if ok:
+            return payload
+        raise payload
+
+    def __array__(self, dtype=None, copy=None):
+        a = np.asarray(self.block())
+        if dtype is not None and a.dtype != np.dtype(dtype):
+            a = a.astype(dtype)
+        elif copy:
+            a = a.copy()
+        return a
+
+    def __float__(self):
+        a = np.asarray(self.block())
+        if a.size != 1:
+            raise TypeError(
+                'float() on a fetch handle of shape %r: only one-element '
+                'fetches convert to a scalar' % (a.shape,))
+        return float(a.reshape(-1)[0])
+
+    def __del__(self):
+        # a handle never read gives its inflight slot back
+        if not getattr(self, '_synced', True):
+            self._synced = True
+            try:
+                _inflight_delta(-1)
+            except Exception:  # noqa: BLE001 - interpreter shutdown
+                pass
+
+    def __repr__(self):
+        state = 'synced' if self._synced else (
+            'ready' if self.ready else 'pending')
+        return 'FetchHandle(%s)' % state
 
 
 class StepHandle(object):
-    """Pinned runner of ONE feedless step program: the continuous-batching
-    decode engine calls the same step thousands of times (JAX
-    executor.py:464, reduced to what the engine uses).
+    """A pinned runner of ONE step artifact (the JAX :464): the decode
+    engine calls the same step thousands of times, and run()'s per-call
+    work (feed coercion, cache key, scope walk) would dominate it.
+    `Executor.acquire_step` resolves the artifact once; `step(feed, seed)`
+    runs it, on the card as a replay of its captured graph, and returns
+    the fetch list as device tensors (on the card clones taken out of the
+    graph's pool, so the next replay leaves them as they are).
 
-    The persistables the program writes live INSIDE the handle between
-    calls, read-only ones (the weights) are fixed at acquire time, and the
-    scope is kept in sync after every step, so nothing walks the scope per
-    call. `step()` runs the ops under torch.no_grad() and returns the
-    fetch list as device tensors; the caller decides when to pay the host
-    sync. Callers update the tensors of `state` in place between steps
-    (under no_grad), since the handle and the scope hold the same objects.
-    The JAX handle's compile cache, donation, set_state and state_dict
-    have no counterpart."""
+    The written persistables are the handle's state between calls and the
+    scope holds the same tensors. On the card they are the graph's static
+    tensors: callers may update `state` tensors in place between steps
+    (under no_grad), or replace one with `set_state`, which copies into
+    the static tensor. On the CPU a step rebinds them, as the JAX step
+    does. The handle raises when another entry point rebound one of them
+    in the scope since its last step: it must be the only runner of its
+    (program, scope). Random ops see seed 0 unless `seed` is passed."""
+
+    __slots__ = ('_exe', '_compiled', '_scope', '_program', '_donated',
+                 '_readonly', 'steps', 'key_id')
 
     _C_STEPS = None   # registry counter, created with the first handle
 
-    def __init__(self, exe, program, scope, fetch_names, plan):
+    def __init__(self, exe, compiled, scope, program, key_id):
         self._exe = exe
-        self._block = program.global_block()
+        self._compiled = compiled
         self._scope = scope
-        self._fetch = fetch_names
-        writes = set(plan.writes)
-        self._written = {n: scope._chain_get(n) for n in plan.persistables
-                         if n in writes}
-        self._fixed = {n: scope._chain_get(n) for n in plan.persistables
-                       if n not in writes}
+        self._program = program
+        self._donated, self._readonly = compiled.plan.split(
+            compiled._scope_state(scope))
         self.steps = 0
+        self.key_id = key_id
         if StepHandle._C_STEPS is None:
             StepHandle._C_STEPS = obs.counter('executor.handle.steps')
 
     @property
     def state(self):
-        """name -> tensor view of the step's persistable state (written
-        and read-only)."""
-        view = dict(self._fixed)
-        view.update(self._written)
+        """name -> tensor of the step's persistable state (written and
+        read-only)."""
+        view = dict(self._readonly)
+        view.update(self._donated)
         return view
 
-    def step(self):
-        """One execution; returns the fetch list as device tensors."""
-        env = dict(self._fixed)
-        env.update(self._written)
-        exe = self._exe
-        with exe._lock, torch.no_grad():
-            run_block(self._block, env, Ctx(exe.device, exe._generator))
-        for n in self._written:
-            self._written[n] = env[n]
-            self._scope._chain_set(n, env[n])
+    def state_dict(self):
+        """{name: tensor} of this step's persistable state, read through
+        the scope the handle keeps in sync."""
+        return self._compiled.state_dict(self._scope)
+
+    def set_state(self, name, value):
+        """Replace one persistable between steps: on the card the value is
+        copied into the step's static tensor, on the CPU it is rebound."""
+        if name in self._donated:
+            held = self._donated
+        elif name in self._readonly:
+            held = self._readonly
+        else:
+            raise KeyError('no persistable %r in this step (have %r)'
+                           % (name, sorted(self._donated)
+                              + sorted(self._readonly)))
+        t = held[name]
+        value = torch.as_tensor(value)
+        if (self._exe.device.type == 'cuda' and value.shape == t.shape
+                and value.dtype == t.dtype):
+            with self._exe._lock, torch.no_grad():
+                t.copy_(value)
+            return
+        value = value.to(self._exe.device)
+        held[name] = value
+        self._scope._chain_set(name, value)
+
+    def step(self, feed=None, seed=None):
+        """One execution; returns the fetch list as device tensors. `feed`
+        must match the acquire-time signature (None for a feedless
+        program)."""
+        for n, v in self._donated.items():
+            if self._scope._chain_get(n) is not v:
+                raise RuntimeError(
+                    'StepHandle state invalidated: persistable %r was '
+                    'rewritten in the scope by another execution path '
+                    '(run()/run_bundle/another handle) since the last '
+                    'step: a pinned handle must be the only runner of its '
+                    '(program, scope); re-acquire_step() to resume' % n)
+        exe, art = self._exe, self._compiled
+        feed_vals = exe._feed_values(self._program, feed or {})
+        sig = tuple(sorted(_feed_signature(n, v)
+                           for n, v in feed_vals.items()))
+        if sig != art._feed_sig:
+            raise ValueError('StepHandle.step: feed signature %r, but the '
+                             'handle was acquired for %r'
+                             % (sig, art._feed_sig))
+        with exe._lock:
+            fetches, health = exe._step(art, self._scope, feed_vals,
+                                        0 if seed is None else int(seed))
+            if exe.device.type == 'cuda':
+                fetches = [t.clone() for t in fetches]
+            if health is not None:
+                health = health_to_numpy(health)
+        for n in self._donated:
+            self._donated[n] = self._scope._chain_get(n)
+        if health is not None:
+            exe._observe_health(self._program, health)
         self.steps += 1
         StepHandle._C_STEPS.inc()
-        return [env[n] for n in self._fetch]
+        return fetches
 
 
 class Executor(object):
     """Parity: reference python/paddle/fluid/executor.py:256.
 
     place: where every tensor of a run lives. None means CUDAPlace(0), and
-    constructing an Executor there without a usable card raises — pass
-    CPUPlace() to run on the CPU. run() is thread-safe: concurrent calls
-    serialize on the executor."""
+    constructing an Executor there without a usable card raises: pass
+    CPUPlace() to run on the CPU. Its entry points are thread-safe:
+    concurrent calls serialize on the executor."""
 
     def __init__(self, place=None):
         self.place = core.CUDAPlace(0) if place is None else place
         self.device = self.place.torch_device()
         self._generator = torch.Generator(device=self.device)
         self._run_counter = 0
-        self._plans = {}
-        self._lock = threading.Lock()
+        self._cache = {}
+        self._lock = threading.RLock()
+        # the anomaly guard's host side (see anomaly_guard())
+        self.last_step_health = None
+        self.skipped_steps = 0
+        self._consecutive_skips = 0
+        self._cache_hits = 0
+        self._cache_misses = 0
+        self._cache_evictions = 0
+        self._captures = 0
+        self._replays = 0
+        self._last_cache_lookup = None   # {'outcome', 'key', 'entries'}
+        self._stream = None              # warm-up and capture stream
+        self._pool = None                # the captured graphs' memory pool
+        self._graphs = weakref.WeakSet()  # records of its live graphs
 
-    def _plan(self, program, fetch_names):
-        key = (program._uid, program._version, fetch_names)
-        plan = self._plans.get(key)
-        if plan is None:
-            plan = self._plans[key] = _RunPlan(program, fetch_names)
-        return plan
+    def _side_stream(self):
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        return self._stream
+
+    @property
+    def _graph_pool(self):
+        """One memory pool for every graph this executor captures: safe,
+        as replays serialize on the lock and fetches leave the pool before
+        it is released. Once no graph of the pool is alive (its scopes
+        gone, the executor closed, a capture failed), the caching allocator
+        releases it, so the next capture opens a new one."""
+        if self._pool is None or not self._graphs:
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
+
+    @staticmethod
+    def _seed(program, n):
+        return ((program.random_seed or 0) * 2654435761 + n) % (1 << 63)
 
     def _feed_tensor(self, val, var):
+        """One feed as a tensor of the var's dtype, on the CPU (the
+        artifact moves it to the card) or where the caller put it."""
         if isinstance(val, torch.Tensor):
             t = val
         else:
@@ -385,78 +433,380 @@ class Executor(object):
             t = torch.from_numpy(a)
         if var is not None:
             t = t.to(core.torch_dtype(var.dtype))
-        return t.to(self.device)
+        if t.device.type != 'cpu' and t.device != self.device:
+            t = t.to(self.device)
+        return t
+
+    def _feed_values(self, program, feed):
+        block = program.global_block()
+        return {n: self._feed_tensor(v, block.vars.get(n))
+                for n, v in feed.items()}
+
+    def _prepare(self, program, feed, fetch_list, scope,
+                 use_program_cache=True):
+        """Coerce the feed, resolve the (program, feed signature, fetch,
+        guard) cache key and build or fetch its StepArtifact. Returns
+        (artifact, feed tensors)."""
+        feed_vals = self._feed_values(program, feed)
+        fetch_names = tuple(_as_fetch_name(f) for f in fetch_list)
+        feed_sig = tuple(sorted(_feed_signature(n, v)
+                                for n, v in feed_vals.items()))
+        guard = bool(getattr(program, '_anomaly_guard', False))
+        key = (program._uid, program._version, feed_sig, fetch_names, guard)
+        key_id = '%08x' % (hash(key) & 0xFFFFFFFF)
+        art = self._cache.get(key) if use_program_cache else None
+        if art is None:
+            self._cache_misses += 1
+            _C_MISSES.inc()
+            persist_in = sorted(
+                v.name for v in program.list_vars()
+                if v.persistable and v.name not in feed_vals
+                and scope._chain_get(v.name) is not None)
+            art = StepArtifact(program, list(feed_vals), fetch_names,
+                               persist_in, guard=guard)
+            art._feed_sig = feed_sig
+            art._key_id = key_id
+            art._source_program = program
+            obs.event('executor.artifact', key=key_id,
+                      feeds=len(feed_vals), fetches=len(fetch_names),
+                      persistables=len(persist_in),
+                      writes=len(art.donate_names))
+            if use_program_cache:
+                self._cache[key] = art
+            outcome = 'miss'
+        else:
+            self._cache_hits += 1
+            _C_HITS.inc()
+            outcome = 'hit'
+        self._last_cache_lookup = {'outcome': outcome, 'key': key_id,
+                                   'entries': len(self._cache)}
+        return art, feed_vals
+
+    def _step(self, art, scope, feed_vals, seed):
+        """One step of `art` (the lock held): a warm-up, capture or replay
+        on the card, the eager body on the CPU, the eager walk with its
+        checks under fluid.debugger.check_nan_inf(). Returns (fetches,
+        health); on a replay the fetches are the graph's outputs."""
+        check = debugger.nan_inf_check_active()
+        if self.device.type == 'cuda' and not check:
+            return art.run_captured(self, scope, feed_vals, seed)
+        persist = art._scope_state(scope)
+        feed = {n: t.to(self.device) for n, t in feed_vals.items()}
+        if check:
+            fetches, new, health = art.debug_step(
+                persist, feed, seed, check_nan_inf=True,
+                generator=self._generator)
+        else:
+            fetches, new, health = art(persist, feed, seed, self._generator)
+        _write_back(scope, new, in_place=self.device.type == 'cuda')
+        return fetches, health
 
     def run(self, program=None, feed=None, fetch_list=None,
             feed_var_name='feed', fetch_var_name='fetch', scope=None,
-            return_numpy=True):
-        """Run `program` once: feeds in, fetches out (numpy arrays, or the
-        device tensors with return_numpy=False). Persistables the program
-        writes (startup initializers) land in `scope`."""
+            return_numpy=True, use_program_cache=True, sync='auto'):
+        """Run `program` once: feeds in, fetches out. Persistables the
+        program writes land in `scope`.
+
+        return_numpy: numpy arrays (through pinned host buffers on the
+        card), or with False device tensors (clones, which a later step
+        leaves as they are). use_program_cache=False builds a fresh
+        artifact for this call (on the card: an eager warm-up, never a
+        capture). sync: 'auto' and 'block' return the fetches ready;
+        'async' returns FetchHandles right after the step is launched, and
+        the host waits at their first read. An armed anomaly guard reads
+        its health vector on the host every step, so it waits there (a
+        host stall with cause anomaly_guard)."""
+        if sync not in ('auto', 'block', 'async'):
+            raise ValueError(
+                "sync must be 'auto', 'block' or 'async', got %r" % (sync,))
         if program is None:
             program = default_main_program()
-        feed = feed or {}
-        fetch_list = fetch_list or []
         if scope is None:
             scope = global_scope()
-        block = program.global_block()
-        fetch_names = tuple(_as_fetch_name(f) for f in fetch_list)
-        with obs.span('executor.step'), self._lock:
-            plan = self._plan(program, fetch_names)
+        with obs.span('executor.step') as sp, self._lock:
+            art, feed_vals = self._prepare(program, feed or {},
+                                           fetch_list or [], scope,
+                                           use_program_cache)
             self._run_counter += 1
-            self._generator.manual_seed(
-                ((program.random_seed or 0) * 2654435761
-                 + self._run_counter) % (1 << 63))
-            env = {}
-            for name in plan.persistables:
-                val = scope._chain_get(name)
-                if val is not None:
-                    env[name] = val
-            for name, val in feed.items():
-                env[name] = self._feed_tensor(val, block.vars.get(name))
-            ctx = Ctx(self.device, self._generator)
-            if plan.ad_idx is not None:
-                _train_step(block.ops, plan.ad_idx, plan.sparse_plan, env,
-                            ctx)
-            else:
-                mode = torch.no_grad() if plan.writes \
-                    else torch.inference_mode()
-                with mode:
-                    run_block(block, env, ctx)
-            for name in plan.writes:
-                if name in env:
-                    scope._chain_set(name, env[name])
-            fetches = [env[n] for n in fetch_names]
+            look = self._last_cache_lookup
+            sp.fields.update(run=self._run_counter, cache=look['outcome'],
+                             key=look['key'])
+            fetches, health = self._step(
+                art, scope, feed_vals, self._seed(program,
+                                                  self._run_counter))
+            if health is not None:
+                with (obs.span('executor.host_stall', cause='anomaly_guard')
+                      if sync == 'async' else contextlib.nullcontext()):
+                    self._observe_health(program, health_to_numpy(health))
+            with obs.span('executor.fetch', sync=sync):
+                return self._convert_fetches(fetches, return_numpy,
+                                             sync == 'async')
+
+    def _convert_fetches(self, fetches, return_numpy, lazy):
+        """The fetches out of the step: numpy arrays, device tensors or
+        lazy FetchHandles over either. On the card every copy is enqueued
+        here, before the lock is released: numpy through pinned host
+        buffers, device tensors as clones out of the graph pool."""
+        if self.device.type != 'cuda':
             if not return_numpy:
-                return fetches
-            with obs.span('executor.fetch'):
-                return [self._to_numpy(t) for t in fetches]
+                return [FetchHandle(t, lambda t=t: t) for t in fetches] \
+                    if lazy else list(fetches)
+            if lazy:
+                return [FetchHandle(t, lambda t=t: self._to_numpy(t))
+                        for t in fetches]
+            return [self._to_numpy(t) for t in fetches]
+        if return_numpy:
+            outs = []
+            for t in fetches:
+                host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                host.copy_(t, non_blocking=True)
+                outs.append(host)
+        else:
+            outs = [t.clone() for t in fetches]
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        if lazy:
+            return [FetchHandle(o, (lambda o=o: o.numpy()) if return_numpy
+                                else (lambda o=o: o), event=ev)
+                    for o in outs]
+        if return_numpy:
+            ev.synchronize()
+            return [o.numpy() for o in outs]
+        return outs
 
     def acquire_step(self, program=None, feed=None, fetch_list=None,
                      scope=None):
-        """Resolve a feedless state-update program ONCE and return a pinned
-        StepHandle whose repeated `.step()` calls skip run()'s per-call
-        work. Every persistable it reads or writes must already have a
-        scope value (run the startup program first)."""
+        """Resolve (program, feed signature, fetch) ONCE and return a pinned
+        StepHandle (the JAX :1568). `feed` is an example fixing the
+        signature (None or {} for a feedless state-update program). The
+        artifact is the one run() would use, from the same cache. Every
+        persistable the program writes must already have a scope value
+        (run the startup program first)."""
         if program is None:
             program = default_main_program()
         if scope is None:
             scope = global_scope()
-        if feed:
-            raise ValueError('acquire_step: the handle runs feedless state-'
-                             'update programs; got feed %r' % sorted(feed))
-        fetch_names = tuple(_as_fetch_name(f) for f in fetch_list or [])
-        plan = self._plan(program, fetch_names)
-        if plan.ad_idx is not None:
-            raise ValueError('acquire_step: a training program (autodiff op) '
-                             'runs through run()')
-        gap = [n for n in plan.persistables if scope._chain_get(n) is None]
-        if gap:
+        with self._lock:
+            art, _ = self._prepare(program, feed or {}, fetch_list or [],
+                                   scope)
+            gap = art.uninitialized(scope)
+            if gap:
+                raise ValueError(
+                    'acquire_step: program writes persistable(s) %r that '
+                    'have no scope value yet: a handle needs its whole '
+                    'state; run the startup program first' % gap)
+            if self.device.type == 'cuda':
+                art.pin_state(scope, self.device)
+            return StepHandle(self, art, scope, program,
+                              self._last_cache_lookup['key'])
+
+    def step_artifact(self, program=None, feed=None, fetch_list=None,
+                      scope=None):
+        """The cached StepArtifact of (program, feed signature, fetch),
+        resolved as run() resolves it: the seam for readers of artifact
+        metadata (touched_rows, sparse_plan, signatures)."""
+        if program is None:
+            program = default_main_program()
+        if scope is None:
+            scope = global_scope()
+        with self._lock:
+            return self._prepare(program, feed or {}, fetch_list or [],
+                                 scope)[0]
+
+    def run_bundle(self, program=None, feeds=None, fetch_list=None,
+                   steps=None, scope=None, return_numpy=True,
+                   use_program_cache=True, sync='auto'):
+        """Run K steps with one host round trip (the JAX :1647).
+
+        feeds: K per-step feed dicts of one signature; steps, when given,
+        must equal len(feeds). On the card the K feeds cross to the card in
+        one copy per name into a [K, ...] buffer, and the step's captured
+        graph is replayed K times back to back, each replay reading its
+        slice; the host waits once, for the stacked fetches.
+
+        The same as K run() calls: inner step j draws the seed run j would
+        (the same dropout masks); the anomaly guard rolls back each
+        unhealthy inner step in the graph, and the host observes the K
+        health vectors after the bundle (so max_consecutive_skips raises
+        after it, with the state of its end); persistables are in the
+        scope at the end. Returns one entry per fetch, stacked on a leading
+        K axis (FetchHandles over the same with sync='async')."""
+        if sync not in ('auto', 'block', 'async'):
             raise ValueError(
-                'acquire_step: persistable(s) %r have no scope value yet; a '
-                'handle needs its whole state; run the startup program '
-                'first' % gap)
-        return StepHandle(self, program, scope, fetch_names, plan)
+                "sync must be 'auto', 'block' or 'async', got %r" % (sync,))
+        if program is None:
+            program = default_main_program()
+        if scope is None:
+            scope = global_scope()
+        feeds = list(feeds or [])
+        if not feeds:
+            raise ValueError('run_bundle needs a non-empty list of '
+                             'per-step feed dicts')
+        K = len(feeds)
+        if steps is not None and int(steps) != K:
+            raise ValueError('steps=%d but %d feed dicts were given'
+                             % (steps, K))
+        with obs.span('executor.bundle', steps=K) as bsp, self._lock:
+            art, feed0 = self._prepare(program, feeds[0], fetch_list or [],
+                                       scope, use_program_cache)
+            look = self._last_cache_lookup
+            bsp.fields.update(cache=look['outcome'], key=look['key'])
+            extras = art.uninitialized(scope)
+            if extras:
+                raise ValueError(
+                    'run_bundle: persistable output(s) %r have no value in '
+                    'the scope yet; run the startup program (or one '
+                    'unbundled step) first so every persistable is '
+                    'initialized' % (extras,))
+            per_step = [feed0]
+            for j, f in enumerate(feeds[1:], start=1):
+                if set(f) != set(feed0):
+                    raise ValueError(
+                        'run_bundle feed %d has names %r, expected %r: a '
+                        'bundle runs one step signature'
+                        % (j, sorted(f), sorted(feed0)))
+                fv = self._feed_values(program, f)
+                for n, t in fv.items():
+                    if t.shape != feed0[n].shape \
+                            or t.dtype != feed0[n].dtype:
+                        raise ValueError(
+                            'run_bundle feed %d input %r has shape %r %s, '
+                            'expected %r %s (step 0): a bundle runs one '
+                            'step signature' % (
+                                j, n, tuple(t.shape), t.dtype,
+                                tuple(feed0[n].shape), feed0[n].dtype))
+                per_step.append(fv)
+            run_base = self._run_counter
+            self._run_counter += K
+            _C_BUNDLED_STEPS.inc(K)
+            art.bundle_signature(K)
+            seeds = [self._seed(program, run_base + j + 1)
+                     for j in range(K)]
+            if self.device.type == 'cuda':
+                # one copy per name: the K feeds stacked in pinned memory
+                stacked = {}
+                for n in feed0:
+                    t = torch.stack([f[n].to(feed0[n].device)
+                                     for f in per_step])
+                    if t.device.type == 'cpu':
+                        t = t.pin_memory()
+                    stacked[n] = t.to(self.device, non_blocking=True)
+                per_step = [{n: t[j] for n, t in stacked.items()}
+                            for j in range(K)]
+            outs, hbuf = None, None
+            for j in range(K):
+                fetches, health = self._step(art, scope, per_step[j],
+                                             seeds[j])
+                if outs is None:
+                    outs = [torch.empty((K,) + tuple(t.shape),
+                                        dtype=t.dtype, device=t.device)
+                            for t in fetches]
+                for o, t in zip(outs, fetches):
+                    o[j].copy_(t)
+                if health is not None:
+                    h = health if isinstance(health, torch.Tensor) \
+                        else _pack_health(health)
+                    if hbuf is None:
+                        hbuf = torch.empty((K,) + tuple(h.shape),
+                                           dtype=h.dtype, device=h.device)
+                    hbuf[j].copy_(h)
+            if hbuf is not None:
+                with (obs.span('executor.host_stall', cause='anomaly_guard',
+                               steps=K)
+                      if sync == 'async' else contextlib.nullcontext()):
+                    hs = health_to_numpy(hbuf)
+                for j in range(K):
+                    self._observe_health(
+                        program, {k: v[j] for k, v in hs.items()},
+                        run_id=run_base + j + 1)
+            with obs.span('executor.fetch', sync=sync, steps=K):
+                return self._convert_fetches(outs, return_numpy,
+                                             sync == 'async')
+
+    def _observe_health(self, program, h, run_id=None):
+        """The guard's host side (the JAX :1854): record the health vector
+        (numpy), count skips, warn per skipped step and raise
+        FloatingPointError at max_consecutive_skips."""
+        self.last_step_health = h
+        if run_id is None:
+            run_id = self._run_counter
+        _G_GRAD_NORM.set(float(h['grad_norm']))
+        if bool(h['healthy']):
+            self._consecutive_skips = 0
+            return
+        self.skipped_steps += 1
+        self._consecutive_skips += 1
+        _C_SKIPPED.inc()
+        obs.event('anomaly.skip', run=run_id,
+                  grad_norm=float(h['grad_norm']),
+                  loss_finite=bool(h['loss_finite']),
+                  grads_finite=bool(h['grads_finite']),
+                  consecutive=self._consecutive_skips)
+        warnings.warn(
+            'anomaly guard: step %d skipped (loss_finite=%s grads_finite=%s '
+            'grad_norm=%s): parameters and optimizer state were rolled '
+            'back' % (run_id, bool(h['loss_finite']),
+                      bool(h['grads_finite']), float(h['grad_norm'])),
+            RuntimeWarning, stacklevel=3)
+        max_skips = getattr(program, '_anomaly_guard_max_skips', None)
+        if max_skips is not None and self._consecutive_skips >= max_skips:
+            raise FloatingPointError(
+                'anomaly guard: %d consecutive unhealthy steps (limit %d): '
+                'the run has diverged, not hit a transient; last health: %r'
+                % (self._consecutive_skips, max_skips,
+                   {k: np.asarray(v).tolist() for k, v in h.items()}))
+
+    def state_dict(self, program=None, scope=None):
+        """{name: tensor} of every scope-initialized persistable of
+        `program` (the JAX :1955)."""
+        program = program if program is not None else default_main_program()
+        scope = scope if scope is not None else global_scope()
+        out = {}
+        for v in program.list_vars():
+            if v.persistable:
+                val = scope._chain_get(v.name)
+                if val is not None:
+                    out[v.name] = val
+        return out
+
+    def load_state_dict(self, state, program=None, scope=None):
+        """Restore a state_dict into the scope on the executor's device
+        (the JAX :1986). Entries that are not persistables of the program
+        are skipped with a warning; persistables absent from `state` keep
+        their values. A captured step copies each restored value into its
+        static state before its next replay. Returns the restored names."""
+        program = program if program is not None else default_main_program()
+        scope = scope if scope is not None else global_scope()
+        pvars = {v.name for v in program.list_vars() if v.persistable}
+        restored, unknown = [], []
+        for name, val in state.items():
+            if name not in pvars:
+                unknown.append(name)
+                continue
+            t = val if isinstance(val, torch.Tensor) else \
+                torch.from_numpy(np.array(val, copy=True))
+            scope._chain_set(name, t.detach().to(self.device).clone())
+            restored.append(name)
+        if unknown:
+            warnings.warn(
+                'load_state_dict: %d entr(ies) are not persistables of this '
+                'program and were skipped: %s'
+                % (len(unknown), sorted(unknown)[:8]), RuntimeWarning)
+        obs.event('executor.load_state_dict', restored=len(restored),
+                  skipped=len(unknown))
+        return restored
+
+    @property
+    def cache_stats(self):
+        """THIS executor's artifact cache: hits, misses, entries,
+        evictions (close() drops), captures (one per signature and scope)
+        and replays of captured graphs."""
+        return {'hits': self._cache_hits,
+                'misses': self._cache_misses,
+                'entries': len(self._cache),
+                'evictions': self._cache_evictions,
+                'captures': self._captures,
+                'replays': self._replays}
 
     @staticmethod
     def _to_numpy(t):
@@ -465,4 +815,8 @@ class Executor(object):
         return a.copy() if t.device.type == 'cpu' else a
 
     def close(self):
-        pass
+        """Drop every artifact and its captured graphs."""
+        with self._lock:
+            self._cache_evictions += len(self._cache)
+            _C_EVICTIONS.inc(len(self._cache))
+            self._cache.clear()

@@ -32,7 +32,9 @@ def register(op_type, constant=False):
     the eager counterpart of XLA folding the constant into the compiled
     step — except where the op writes a persistable (a startup
     initializer): the scope owns that tensor, and the sparse optimizer
-    rules update tables and moments in place, so each run makes it anew."""
+    rules update tables and moments in place, so each run hands out a
+    fresh copy of the cached result (a device-side copy, which a captured
+    CUDA graph can replay)."""
     def deco(fn):
         _RULES[op_type] = fn
         if constant:
@@ -107,11 +109,15 @@ def like(template, new_data):
 
 def run_op(op, env, ctx):
     """Resolve an op's inputs from env, apply its rule, bind outputs."""
-    if op.type in _CONSTANT_OPS and not _writes_persistable(op):
+    if op.type in _CONSTANT_OPS:
         cache = op.__dict__.setdefault('_constant_outs', {})
         outs = cache.get(ctx.device)
         if outs is None:
             outs = cache[ctx.device] = get_rule(op.type)({}, op.attrs, ctx)
+        if _writes_persistable(op):
+            outs = {slot: [v.clone() for v in vals]
+                    if isinstance(vals, (list, tuple)) else vals.clone()
+                    for slot, vals in outs.items()}
     else:
         ins = {slot: [env[v.name] for v in vs]
                for slot, vs in op.inputs.items()}

@@ -223,8 +223,10 @@ def _accuracy(ins, attrs, ctx):
     total = correct.numel()
     return {'Accuracy': (num_correct.to(torch.float32) / total).reshape(1),
             'Correct': num_correct,
-            'Total': torch.tensor(total, dtype=torch.int32,
-                                  device=idx.device)}
+            # a device fill: a host tensor copied over would wait for the
+            # card, which a captured step cannot do
+            'Total': torch.full((), total, dtype=torch.int32,
+                                device=idx.device)}
 
 
 @register('auc')

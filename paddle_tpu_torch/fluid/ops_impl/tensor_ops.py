@@ -44,7 +44,11 @@ def _assign_value(ins, attrs, ctx):
     vals = np.asarray(attrs['values'],
                       dtype=attrs.get('dtype', 'float32')).reshape(
                           attrs['shape'])
-    return {'Out': torch.from_numpy(vals).to(ctx.device)}
+    out = torch.from_numpy(vals)
+    if ctx.device.type == 'cuda':
+        # from pinned memory, without a host sync (a pageable copy waits)
+        out = out.pin_memory().to(ctx.device, non_blocking=True)
+    return {'Out': out.to(ctx.device)}
 
 
 @register('cast')

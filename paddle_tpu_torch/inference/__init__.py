@@ -48,6 +48,9 @@ class Predictor(object):
 
     def run(self, feed):
         """feed: dict name -> ndarray. Returns the list of fetched
-        ndarrays."""
+        ndarrays. On the card each feed signature (batch size) is warmed
+        up on its first call and captured into a CUDA graph on its
+        second; later calls replay it, and the fetches come back through
+        pinned host buffers."""
         return self._exe.run(self._program, feed=feed,
                              fetch_list=self._fetch_vars, scope=self._scope)

@@ -20,7 +20,8 @@ import os
 import subprocess
 import threading
 
-__all__ = ['CudaKernel', 'KERNELS', 'build_all', 'nvcc_path']
+__all__ = ['CudaKernel', 'KERNELS', 'build_all', 'nvcc_path',
+           'launch_counts', 'add_launches']
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG_DIR, 'build')
@@ -155,6 +156,21 @@ class CudaKernel(object):
                 self.name, rc, self._err(rc).decode()))
         with self._lock:
             self.launches += 1
+
+
+def launch_counts():
+    """{kernel name: launches so far}."""
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
+def add_launches(deltas):
+    """Add {kernel name: n} to the counts: a replayed CUDA graph runs no
+    wrapper, so the graph adds the launches its capture recorded
+    (fluid/step_artifact.py)."""
+    for name, n in deltas.items():
+        k = KERNELS[name]
+        with k._lock:
+            k.launches += n
 
 
 def build_all():

@@ -29,8 +29,10 @@ serves one attention-LSTM beam decoder with iteration-level scheduling:
 Requests carry encoder rows directly, `submit({'enc': [S, D]})`. The
 join is a plain function over the handle's tensors (the JAX engine's
 jitted scatter): it writes one row per joining request in place with
-index_copy_, whose targets are distinct. The step and the join run under
-torch.no_grad().
+index_copy_, whose targets are distinct. On the card those tensors are the
+static state of the step's captured CUDA graph, so the next replay reads
+the joined rows, and the step's fetches are clones that the next replay
+leaves as they are. The step and the join run under torch.no_grad().
 Per dispatch the loop reads back one small tensor (each slot's active
 flag and step count), and the history pools and scores only when a slot
 releases.
@@ -55,7 +57,7 @@ import torch
 from .. import obs
 from . import pages as _pages
 from .engine import (DeadlineExceeded, ServerClosed, ServerOverloaded,
-                     _POLL_S)
+                     WARMUP_RUNS, _POLL_S)
 
 __all__ = ['DecodeConfig', 'DecodeEngine', 'DecodeSlotPoisoned',
            'mt_weights', 'WEIGHT_KEYS']
@@ -587,12 +589,13 @@ class DecodeEngine(object):
     # -- warmup ------------------------------------------------------------
 
     def warmup(self):
-        """Run the step once with every slot inactive: a no-op step that
-        builds the kernels and pays the card's first-use costs before any
-        request."""
+        """Run the step twice with every slot inactive: no-op steps that,
+        on the card, warm the step signature up (kernel build, first-use
+        costs) and capture its CUDA graph before any request."""
         handle = self._acquire()
         with self._handle_lock:
-            handle.step()
+            for _ in range(WARMUP_RUNS):
+                handle.step()
         self._warm = True
 
     # -- decode loop -------------------------------------------------------

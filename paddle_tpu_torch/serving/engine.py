@@ -38,6 +38,9 @@ __all__ = ['ServingConfig', 'ServingEngine', 'ServerOverloaded',
 # How long any internal condition-wait may sleep before re-checking the
 # shutdown flag.
 _POLL_S = 0.02
+# runs of each bucket in warmup(): a step signature's first call is its
+# eager warm-up, its second the capture of its CUDA graph
+WARMUP_RUNS = 2
 
 
 class ServerOverloaded(RuntimeError):
@@ -260,12 +263,15 @@ class ServingEngine(object):
     # -- warmup ------------------------------------------------------------
 
     def warmup(self, example_feed=None):
-        """Run every bucket's batch shape once before traffic arrives, so
-        first-use costs (kernel build, allocator growth, library
-        heuristics) are not paid by a request. Builds a feed per bucket
-        by tiling `example_feed` (any row count >= 1) — or, when the model
-        publishes a fully static `input_spec`, a zeros feed. Returns the
-        bucket list."""
+        """Run every bucket's batch shape twice before traffic arrives, so
+        first-use costs are not paid by a request: through a Predictor on
+        the card the first run of a bucket's signature is its eager
+        warm-up (kernel build, allocator growth, library heuristics) and
+        the second captures it into a CUDA graph, which every batch of
+        that bucket then replays. Builds a feed per bucket by tiling
+        `example_feed` (any row count >= 1) — or, when the model publishes
+        a fully static `input_spec`, a zeros feed. Returns the bucket
+        list."""
         template = {}
         if example_feed is not None:
             arrays, _, _ = self._normalize_feed(example_feed)
@@ -284,7 +290,8 @@ class ServingEngine(object):
         for b in self.buckets:
             feed = {n: _buckets.pad_rows(a, b) for n, a in template.items()}
             with obs.span('serving.warmup', bucket=b):
-                self._model_fn(feed)
+                for _ in range(WARMUP_RUNS):
+                    self._model_fn(feed)
         self._warm = True
         return list(self.buckets)
 
@@ -489,6 +496,9 @@ class ServingEngine(object):
                           batch_size=rows, bucket=bucket,
                           padded=bucket - rows,
                           wait_max_s=max(waits)) as sp:
+                # through a Predictor: numpy views of the pinned host
+                # buffers the step's fetches were copied into; the slices
+                # each request gets keep them alive
                 outs = self._model_fn(feed)
                 sp.fields['warm'] = self._warm
             outs = [np.asarray(o) for o in outs]

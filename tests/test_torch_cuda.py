@@ -23,9 +23,17 @@ momentum: cuDNN and torch library calls, no kernel of the port) on the
 card against the CPU at 1e-5 of each output's max |x| (conv 1e-4, the CPU
 tests' tolerances against the JAX rules), top_k's ids exactly with ties;
 a bottleneck stage's training step at 1e-4 of each gradient's max |g|.
+The captured step (fluid/step_artifact.py): a replay against the eager
+walk, bitwise, for a small Transformer, DeepFM and the paged decode step;
+captured dropout against eager dropout and run_bundle's inner steps,
+bitwise; launch counts under replay; a held device fetch unchanged by the
+next replay; Scope.load_numpy seen by the next replay; a step that cannot
+be captured raising with its op's name.
 """
+import contextlib
 import importlib
 import os
+import time
 
 import numpy as np
 import pytest
@@ -909,3 +917,280 @@ def test_resnet_block_step_on_the_card_matches_the_cpu(card, fmt):
                                    atol=1e-5 * max(1.0, float(np.abs(
                                        after['CPUPlace'][n]).max())),
                                    err_msg=n)
+
+
+# -- the captured step (fluid/step_artifact.py) -------------------------------
+# A replay must equal the eager walk bitwise where two eager walks are
+# bitwise equal: the port's kernels, cuBLAS and the sparse updates are
+# deterministic at these shapes, so every comparison here is bitwise.
+
+
+def _small_transformer(fluid, dropout=0.0):
+    from paddle_tpu_torch.models import transformer as T
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 5
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        avg_cost, _, _ = T.transformer(100, 100, 40, n_layer=2, d_model=64,
+                                       n_head=4, d_inner=128,
+                                       dropout_rate=dropout)
+        fluid.optimizer.Adam(learning_rate=1e-3).minimize(avg_cost)
+    r = np.random.RandomState(1)
+    feeds = []
+    for _ in range(4):
+        f = {n: r.randint(1, 100, (3, 40)).astype('int64')
+             for n in ('src_word', 'trg_word', 'lbl_word')}
+        f['trg_word'][1, 17:] = 0
+        f['lbl_word'][1, 17:] = 0
+        feeds.append(f)
+    return main, startup, avg_cost, feeds
+
+
+def _small_deepfm(fluid):
+    from paddle_tpu_torch.models import deepfm
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 5
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        feat = fluid.layers.data(name='feat_ids', shape=[6], dtype='int64')
+        label = fluid.layers.data(name='label', shape=[1], dtype='int64')
+        cost, _, _ = deepfm.deepfm(feat, label, num_fields=6, vocab_size=64,
+                                   embed_dim=4, hidden=[16], is_sparse=True)
+        fluid.optimizer.Adam(learning_rate=1e-2).minimize(cost)
+    r = np.random.RandomState(2)
+    feeds = [{'feat_ids': r.randint(0, 64, (16, 6)).astype('int64'),
+              'label': r.randint(0, 2, (16, 1)).astype('int64')}
+             for _ in range(4)]
+    return main, startup, cost, feeds
+
+
+def _captured_and_eager(fluid, main, startup, cost, feeds):
+    """The same steps from the same weights through a captured executor
+    and through the eager walk (check_nan_inf); returns (captured losses,
+    state), (eager losses, state), the captured executor."""
+    init = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=init)
+    runs = []
+    for eager in (False, True):
+        scope = fluid.Scope()
+        scope.load_numpy(init.to_numpy(), fluid.CUDAPlace(0))
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        with (fluid.debugger.check_nan_inf() if eager
+              else contextlib.nullcontext()):
+            losses = [exe.run(main, feed=f, fetch_list=[cost],
+                              scope=scope)[0] for f in feeds]
+        runs.append((losses, scope.to_numpy(), exe))
+    return runs
+
+
+@pytest.mark.parametrize('model', ['transformer', 'deepfm'])
+def test_captured_training_matches_the_eager_walk(card, model):
+    """Four training steps (warm-up, capture and replay, two replays)
+    against four eager steps: losses and every persistable bitwise; one
+    capture, three replays; the attention and sparse kernels' launches
+    per step as the eager walk counts them."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import ops
+    main, startup, cost, feeds = (_small_transformer if model ==
+                                  'transformer' else _small_deepfm)(fluid)
+    before = {n: k.launches for n, k in ops.KERNELS.items()}
+    (cl, cs, cexe), (el, es, _) = _captured_and_eager(fluid, main, startup,
+                                                      cost, feeds)
+    after = {n: k.launches for n, k in ops.KERNELS.items()}
+    for a, b in zip(cl, el):
+        np.testing.assert_array_equal(a, b)
+    assert sorted(cs) == sorted(es)
+    for n in cs:
+        np.testing.assert_array_equal(cs[n], es[n], err_msg=n)
+    stats = cexe.cache_stats
+    assert stats['captures'] == 1 and stats['replays'] == 3, stats
+    per_step = {'transformer': {'flash_attention_fwd': 6,
+                                'flash_attention_bwd_dq': 6,
+                                'flash_attention_bwd_dkv': 6},
+                'deepfm': {'sparse_adam': 2}}[model]
+    got = {n: after[n] - before[n] for n in after if after[n] != before[n]}
+    # both executors' steps: 4 captured or replayed, 4 eager
+    assert got == {n: 8 * v for n, v in per_step.items()}
+
+
+def test_captured_dropout_draws_the_eager_masks(card):
+    """Captured run j draws the masks of eager run j, and run_bundle's
+    inner step j those of run j."""
+    import paddle_tpu_torch.fluid as fluid
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = 11
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.layers.data(name='x', shape=[64], dtype='float32')
+        out = fluid.layers.dropout(x, dropout_prob=0.5)
+    feed = {'x': np.ones((8, 64), 'float32')}
+    masks = {}
+    for mode in ('captured', 'eager', 'bundle'):
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        scope = fluid.Scope()
+        if mode == 'bundle':
+            masks[mode] = list(exe.run_bundle(main, feeds=[feed] * 4,
+                                              fetch_list=[out],
+                                              scope=scope)[0])
+            continue
+        with (fluid.debugger.check_nan_inf() if mode == 'eager'
+              else contextlib.nullcontext()):
+            masks[mode] = [exe.run(main, feed=feed, fetch_list=[out],
+                                   scope=scope)[0] for _ in range(4)]
+        if mode == 'captured':
+            assert exe.cache_stats['replays'] == 3
+    for j in range(4):
+        np.testing.assert_array_equal(masks['captured'][j],
+                                      masks['eager'][j])
+        np.testing.assert_array_equal(masks['bundle'][j],
+                                      masks['eager'][j])
+    assert not np.array_equal(masks['eager'][2], masks['eager'][3])
+    assert (masks['eager'][3] == 0).any()
+
+
+def test_held_device_fetch_survives_the_next_replay(card):
+    import paddle_tpu_torch.fluid as fluid
+    main, startup, cost, feeds = _small_deepfm(fluid)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    held = [exe.run(main, feed=f, fetch_list=[cost], scope=scope,
+                    return_numpy=False)[0] for f in feeds]
+    assert exe.cache_stats['replays'] == 3
+    copies = [h.clone() for h in held]
+    exe.run(main, feed=feeds[0], fetch_list=[cost], scope=scope)
+    torch.cuda.synchronize()
+    for h, c in zip(held, copies):
+        assert torch.equal(h, c)
+    assert not torch.equal(held[2], held[3])
+
+
+def test_load_numpy_is_seen_by_the_next_replay(card):
+    import paddle_tpu_torch.fluid as fluid
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.layers.data(name='x', shape=[8], dtype='float32')
+        out = fluid.layers.fc(input=x, size=3,
+                              param_attr=fluid.ParamAttr(name='w'),
+                              bias_attr=fluid.ParamAttr(name='b'))
+    r = np.random.RandomState(3)
+    feed = {'x': r.randn(4, 8).astype('float32')}
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    for _ in range(3):
+        scope.load_numpy({'w': r.randn(8, 3).astype('float32'),
+                          'b': r.randn(3).astype('float32')},
+                         fluid.CUDAPlace(0))
+        got = exe.run(main, feed=feed, fetch_list=[out], scope=scope)[0]
+        want = feed['x'] @ scope.vars['w'].cpu().numpy() \
+            + scope.vars['b'].cpu().numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    assert exe.cache_stats['captures'] == 1
+    assert exe.cache_stats['replays'] == 2
+    # weights of another shape: the step is captured again
+    scope.load_numpy({'w': r.randn(8, 5).astype('float32'),
+                      'b': r.randn(5).astype('float32')}, fluid.CUDAPlace(0))
+    got = exe.run(main, feed=feed, fetch_list=[out], scope=scope)[0]
+    np.testing.assert_allclose(
+        got, feed['x'] @ scope.vars['w'].cpu().numpy()
+        + scope.vars['b'].cpu().numpy(), rtol=1e-5, atol=1e-5)
+    assert exe.cache_stats['captures'] == 2
+
+
+def _register_test_rules():
+    from paddle_tpu_torch.fluid import lowering
+    if lowering.has_rule('test_waits_for_the_card'):
+        return
+
+    @lowering.register('test_waits_for_the_card')
+    def _waits(ins, attrs, ctx):
+        x = ins['X'][0]
+        if x.device.type == 'meta':
+            return {'Out': x}
+        return {'Out': x * float(x.sum())}
+
+    @lowering.register('test_refuses_capture')
+    def _refuses(ins, attrs, ctx):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError('refused under capture')
+        return {'Out': ins['X'][0] * 2.0}
+
+
+@pytest.mark.parametrize('op_type,when', [
+    ('test_waits_for_the_card', 'warm-up'), ('test_refuses_capture',
+                                             'capture')])
+def test_a_step_that_cannot_be_captured_names_its_op(card, op_type, when):
+    """No eager fallback: a host sync is found in the warm-up (sync debug
+    mode), a failure under capture at the capture; both name the op.
+    The executor captures other steps afterwards."""
+    import paddle_tpu_torch.fluid as fluid
+    _register_test_rules()
+    main = fluid.Program()
+    blk = main.global_block()
+    x = blk.create_var(name='x', shape=[-1, 4], dtype='float32')
+    y = blk.create_var(name='y', shape=[-1, 4], dtype='float32')
+    z = blk.create_var(name='z', shape=[-1, 4], dtype='float32')
+    blk.append_op(type='scale', inputs={'X': [x]}, outputs={'Out': [y]},
+                  attrs={'scale': 2.0})
+    blk.append_op(type=op_type, inputs={'X': [y]}, outputs={'Out': [z]},
+                  infer_shape=False)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    feed = {'x': np.ones((2, 4), 'float32')}
+    scope = fluid.Scope()
+    if when == 'capture':
+        exe.run(main, feed=feed, fetch_list=[z], scope=scope)
+    with pytest.raises(RuntimeError, match="op #1 %r" % op_type):
+        exe.run(main, feed=feed, fetch_list=[z], scope=scope)
+    fmain, _, fcost, ffeeds = _small_deepfm(fluid)
+    scope = fluid.Scope()
+    fluid.Executor(fluid.CUDAPlace(0)).run(_small_deepfm(fluid)[1],
+                                            scope=scope)
+    for f in ffeeds:
+        exe.run(fmain, feed=f, fetch_list=[fcost], scope=scope)
+    assert exe.cache_stats['captures'] == 1
+
+
+def test_captured_paged_decode_step_matches_the_eager_walk(card):
+    """The paged DecodeEngine's step with live slots: a replay of its
+    captured graph against debug_step's eager walk from the same state,
+    fetches and state bitwise; one paged_attention launch a replay."""
+    from paddle_tpu_torch import serving
+    r = np.random.RandomState(7)
+    V, E, D, H, K, SRC, T = 20, 8, 6, 8, 3, 5, 30
+    w = {'w_dec': r.randn(E + D, 4 * H) * 0.3,
+         'u_dec': r.randn(H, 4 * H) * 0.3,
+         'b_dec': r.randn(1, 4 * H) * 0.1, 'w_q': r.randn(H, D) * 0.3,
+         'w_emb': r.randn(V, E) * 0.3, 'w_out': r.randn(H, V) * 0.3,
+         'b_out': r.randn(1, V) * 0.1}
+    eng = serving.DecodeEngine(w, serving.DecodeConfig(
+        slots=3, beam_size=K, max_len=T, src_cap=SRC, page_size=3,
+        pages=40, end_id=V + 1))
+    try:
+        eng.warmup()
+        futs = [eng.submit({'enc': (r.randn(4, D) * 0.5).astype('float32')},
+                           max_new_tokens=T) for _ in range(3)]
+        deadline = time.monotonic() + 60
+        while eng.stats['slots_occupied'] < 3 or eng._handle.steps < 6:
+            assert time.monotonic() < deadline, eng.stats
+            time.sleep(0.001)
+        with eng._handle_lock:
+            h = eng._handle
+            art = h._compiled
+            snap = {n: t.clone() for n, t in h.state.items()}
+            before = tpa.KERNEL.launches
+            fetched = h.step()
+            assert tpa.KERNEL.launches == before + 1
+            replayed = {n: t.clone() for n, t in h.state.items()}
+            g = torch.Generator(device='cuda')
+            e_fetch, e_new, _ = art.debug_step(
+                {n: t.clone() for n, t in snap.items()}, {}, 0,
+                generator=g)
+            for a, b in zip(fetched, e_fetch):
+                assert torch.equal(a, b)
+            for n, t in e_new.items():
+                assert torch.equal(replayed[n], t), n
+            # back to the state before the compared step
+            with torch.no_grad():
+                for n, t in h.state.items():
+                    t.copy_(snap[n])
+        for f in futs:
+            f.result(120)
+    finally:
+        eng.shutdown()

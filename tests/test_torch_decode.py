@@ -507,9 +507,10 @@ def test_acquire_step_pins_the_state_and_refuses_feeds():
         exe.acquire_step(main, fetch_list=[x], scope=scope)
     scope.vars['x'] = torch.ones(3)
     scope.vars['y'] = torch.zeros(3)
-    with pytest.raises(ValueError, match='feedless'):
-        exe.acquire_step(main, feed={'x': np.ones(3)}, scope=scope)
     h = exe.acquire_step(main, fetch_list=[x], scope=scope)
+    # a feedless handle refuses a feed: it is not the acquired signature
+    with pytest.raises(ValueError, match='feed signature'):
+        h.step(feed={'x': np.ones(3, np.float32)})
     out, = h.step()
     out2, = h.step()
     assert out2.tolist() == [4.0] * 3 and h.steps == 2

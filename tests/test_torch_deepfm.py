@@ -134,7 +134,7 @@ def test_small_sparse_deepfm_matches_the_jax_package(opt):
     texe = tfluid.Executor(tfluid.CPUPlace())
     tout = [texe.run(tmain, feed=f, fetch_list=[tcost, tauc], scope=tscope)
             for f in feeds]
-    plan = [p.sparse_plan for p in texe._plans.values() if p.sparse_plan]
+    plan = [p.sparse_plan for p in texe._cache.values() if p.sparse_plan]
     assert plan and sorted(plan[0]) == ['fm_embed', 'fm_first_w']
 
     for (jl, ja), (tl, ta) in zip(jout, tout):

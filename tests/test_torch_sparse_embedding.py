@@ -98,7 +98,7 @@ def _run_port(opt, is_sparse, batches, model=_default_model, init=None,
         feed = b if isinstance(b, dict) else {'ids': b}
         out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
         losses.append(float(out[0][0]))
-    plans = [p.sparse_plan for p in exe._plans.values()]
+    plans = [p.sparse_plan for p in exe._cache.values()]
     return losses, scope, plans
 
 

@@ -4,6 +4,11 @@
     python3 tools/torch_serving_profile.py [--batch 16 1] [--runs 5]
     python3 tools/torch_serving_profile.py --model decode [--runs 3]
 
+Each path is measured two ways, side by side: `captured`, as users call
+it (on the card a replay of the step's captured CUDA graph), and `eager`,
+the same step artifact's eager walk (StepArtifact.debug_step, its fetches
+copied to the host through pinned memory as Executor.run copies them).
+
 --model transformer (the default) builds full-width Transformer-base with
 the port (the artifact chip_smoke.py serves), loads it with Predictor on
 CUDAPlace(0), and for each batch size times Predictor.run on the host
@@ -21,7 +26,7 @@ step, then the one host sync of the slots' active flags and step counts):
 first timed on the host clock, then traced. Device ms per dispatch by
 class (matmul, top-k sort, paged_attention, elementwise and gathers,
 copies), the busy time and the idle share of the traced dispatches. One
-JSON line.
+JSON line. Both modes are timed before either is traced.
 """
 import argparse
 import json
@@ -65,12 +70,21 @@ def _decode_class(name):
     return 'elementwise/gather/other'
 
 
-def profile_runs(run, runs, classify=_kernel_class):
-    """Time `runs` calls of run() on the host clock (each ends in a host
-    sync), then trace as many with torch.profiler: device time by class
-    and by kernel, busy time and idle share, per call."""
+def profile_modes(modes, runs, classify=_kernel_class):
+    """{mode: profile_runs(...)} over [(mode, run)]: every mode timed on
+    the host clock before any is traced (a trace leaves the profiler's
+    hooks behind)."""
+    walls = {mode: time_runs(run, runs) for mode, run in modes}
+    return {mode: dict(wall_ms_per_run=walls[mode],
+                       median_wall_ms=float(np.median(walls[mode])),
+                       **profile_runs(run, runs, classify))
+            for mode, run in modes}
+
+
+def time_runs(run, runs):
+    """Host ms of `runs` calls of run() (each ends in a host sync), after
+    two untimed ones."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
         run()
     torch.cuda.synchronize()
@@ -78,7 +92,15 @@ def profile_runs(run, runs, classify=_kernel_class):
     for _ in range(runs):
         t0 = time.perf_counter()
         run()
-        walls.append(time.perf_counter() - t0)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return walls
+
+
+def profile_runs(run, runs, classify=_kernel_class):
+    """Trace `runs` calls of run() with torch.profiler: device time by
+    class and by kernel, busy time and idle share, per call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -103,7 +125,6 @@ def profile_runs(run, runs, classify=_kernel_class):
     busy_s = sum(classes.values()) / 1e6
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     return {
-        'wall_ms_per_run': [w * 1e3 for w in walls],
         'traced_wall_ms_per_run': traced_wall * 1e3 / runs,
         'device_busy_ms_per_run': busy_s * 1e3 / runs,
         'device_idle_share': 1.0 - busy_s / traced_wall,
@@ -140,17 +161,24 @@ def profile_decode(card, runs):
                 raise SystemExit('torch_serving_profile: the slots did not '
                                  'fill (%r)' % (eng.stats,))
             handle = eng._acquire()
+            art = handle._compiled
+            state = {n: t.clone() for n, t in handle.state.items()}
+            gen = torch.Generator(device='cuda')
 
-            def dispatch():
+            def dispatch(step):
                 # what one turn of the decode loop runs: the step, then
                 # one host copy of the active flags and step counts
-                active, _, _, _, step = handle.step()
-                torch.stack([active.to(torch.int32), step]).cpu()
+                active, _, _, _, steps = step()
+                torch.stack([active.to(torch.int32), steps]).cpu()
 
-            r = profile_runs(dispatch, runs, _decode_class)
+            r = profile_modes(
+                [('captured', lambda: dispatch(handle.step)),
+                 ('eager', lambda: dispatch(lambda: art.debug_step(
+                     state, {}, 0, generator=gen)[0]))], runs, _decode_class)
             # 2 warm + runs timed + runs traced dispatches: every slot
             # must still be decoding (none reached max_len)
-            if any(f.done() for f in futs):
+            live = int(handle.state['cbd_active'].sum())
+            if live != cfg['slots']:
                 raise SystemExit('torch_serving_profile: a slot finished '
                                  'inside the profiled dispatches')
         for f in futs:
@@ -159,7 +187,7 @@ def profile_decode(card, runs):
         eng.shutdown()
     return dict(card=card, model='decode', config=cfg,
                 decoder=chip_smoke.MT_DECODER, slots_active=cfg['slots'],
-                dispatches=runs, **r)
+                dispatches=runs, cache_stats=eng._exe.cache_stats, **r)
 
 
 def main():
@@ -184,12 +212,25 @@ def main():
         chip_smoke.build_artifact(tmp, cfg, fluid.CUDAPlace(0))
         pred = inference.Predictor(tmp)
     rng = np.random.RandomState(chip_smoke.SEED)
+    exe, scope = pred._exe, pred._scope
+    gen = torch.Generator(device='cuda')
     for b in args.batch:
         reqs = chip_smoke.make_requests(1, 1, cfg['max_length'],
                                         cfg['trg_vocab_size'], rng)[0]
         feed = {n: np.repeat(a, b, axis=0) for n, a in reqs.items()}
+        art = exe.step_artifact(pred._program, feed=feed,
+                                fetch_list=pred._fetch_vars, scope=scope)
+        state = art.state_dict(scope)
+        dev = {n: torch.from_numpy(v).cuda() for n, v in feed.items()}
+
+        def eager():
+            chip_smoke._to_host(art.debug_step(state, dev, 0,
+                                               generator=gen)[0])
+
         r = dict(card=card, batch=b, max_length=cfg['max_length'],
-                 **profile_runs(lambda: pred.run(feed), args.runs or 5))
+                 **profile_modes([('captured', lambda: pred.run(feed)),
+                                  ('eager', eager)], args.runs or 5))
+        r['cache_stats'] = exe.cache_stats
         print(json.dumps(r), flush=True)
 
 

@@ -24,12 +24,21 @@ flowers reader read beforehand (restarted at the end of its 16); --model
 mnist builds models.mnist.get_model (LeNet, Adam 1e-3) on its synthetic
 reader.
 
-Either way it initializes on CUDAPlace(0) from a seed, times each step on
-the host clock (each step ends in its fetch), then traces a few more with
-torch.profiler: device time by class, the share of the attention kernels
-and of the sparse kernels, and the device's idle share, both of the
-traced wall time (the profiler slows the host's op walk) and of the
-untraced median step. The classes: matmul; the port's hand-written
+Either way it initializes on CUDAPlace(0) from a seed and measures the
+step two ways, side by side: `captured`, Executor.run as users call it (on
+the card a replay of the step's captured CUDA graph from its third call
+on), and `eager`, the same artifact's eager walk (StepArtifact.debug_step,
+on a copy of the state, its fetches copied to the host). A --root
+checkout whose Executor has no step_artifact reports its Executor.run as
+`run` alone. For each it times each step on the host clock (each step ends in
+its fetch), then traces a few more with torch.profiler: device time by
+class, the share of the attention kernels and of the sparse kernels, and
+the device's idle share, both of the traced wall time (the profiler slows
+the host) and of the untraced median step. A replay runs no host op, so
+the classes that lean on the host's ranges (the dense optimizer, the
+sparse sort and merge; every class of the image models) are the eager
+walk's only; the captured step's optimizer kernels count as elementwise.
+The classes: matmul; the port's hand-written
 kernels by name (flash attention forward and backward, sparse_adam,
 sparse_adagrad); the sparse sort and the rest of the sparse merge (the
 kernels launched inside _merge_sparse's `optim.merge_sparse` range, or
@@ -124,7 +133,8 @@ def _sort_us(events):
                if _under(e, MERGE_RANGES) and not _under(e, names))
 
 
-def profile_steps(exe, main, scope, fetch, feeds, image=False):
+def profile_steps(step, feeds, image=False):
+    """Trace step(feed) over `feeds` with torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -132,7 +142,7 @@ def profile_steps(exe, main, scope, fetch, feeds, image=False):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for feed in feeds:
-            exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+            step(feed)
         torch.cuda.synchronize()
         traced_wall = time.perf_counter() - t0
     classes = dict.fromkeys(CLASSES, 0.0)
@@ -336,6 +346,7 @@ def main():
     import torch
     if not torch.cuda.is_available():
         raise SystemExit('torch_train_profile: needs a CUDA card')
+    import paddle_tpu_torch
     from paddle_tpu_torch import fluid, ops
     build, default_batch = BUILDERS[args.model]
     batch = args.batch or default_batch
@@ -344,32 +355,59 @@ def main():
     scope = fluid.Scope()
     exe = fluid.Executor(fluid.CUDAPlace(0))
     exe.run(startup, scope=scope)
-    step_s, losses = [], []
-    before = {n: k.launches for n, k in ops.KERNELS.items()}
-    for feed in feeds[:args.steps]:
-        t0 = time.perf_counter()
-        out = exe.run(main_prog, feed=feed, fetch_list=fetch, scope=scope)
-        step_s.append(time.perf_counter() - t0)
-        losses.append(float(np.asarray(out[0]).reshape(())))
-    launches = {n: (k.launches - before[n]) / args.steps
-                for n, k in ops.KERNELS.items() if k.launches > before[n]}
-    med = float(np.median(step_s[1:]))
-    torch.cuda.reset_peak_memory_stats()
-    prof = profile_steps(exe, main_prog, scope, fetch,
-                         feeds[args.steps:],
-                         image=args.model in ('resnet50', 'mnist'))
-    import paddle_tpu_torch
+
+    def run(feed):
+        return exe.run(main_prog, feed=feed, fetch_list=fetch, scope=scope)
+
+    modes = [('run', run)]
+    if hasattr(exe, 'step_artifact'):
+        # a checkout with the step artifact: run() replays a captured
+        # graph, debug_step is the eager walk
+        art = exe.step_artifact(main_prog, feed=feeds[0], fetch_list=fetch,
+                                scope=scope)
+        state = {n: t.clone() for n, t in art.state_dict(scope).items()}
+        gen = torch.Generator(device='cuda')
+
+        def eager(feed):
+            dev = {n: torch.from_numpy(v).cuda() for n, v in feed.items()}
+            fetches = art.debug_step(state, dev, 0, generator=gen)[0]
+            return [t.cpu().numpy() for t in fetches]
+
+        modes = [('captured', run), ('eager', eager)]
+
+    image = args.model in ('resnet50', 'mnist')
     r = dict(card=card_line(), root=os.path.dirname(os.path.dirname(
         os.path.abspath(paddle_tpu_torch.__file__))),
-             model=args.model, batch=batch,
-             steps=args.steps, step_s=step_s, median_step_s=med,
-             losses=losses, kernel_launches_per_step=launches,
-             peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
-             profiled_steps=PROFILE_STEPS,
-             device_idle_share_of_median_step=(
-                 1.0 - prof['device_busy_ms_per_step'] / 1e3 / med),
-             **prof)
-    r[unit_name] = units / med
+             model=args.model, batch=batch, steps=args.steps,
+             profiled_steps=PROFILE_STEPS)
+    # every mode timed before any is traced: a trace leaves the
+    # profiler's hooks behind
+    for mode, step in modes:
+        step_s, losses = [], []
+        before = {n: k.launches for n, k in ops.KERNELS.items()}
+        torch.cuda.reset_peak_memory_stats()
+        for feed in feeds[:args.steps]:
+            t0 = time.perf_counter()
+            out = step(feed)
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(np.asarray(out[0]).reshape(())))
+        launches = {n: (k.launches - before[n]) / args.steps
+                    for n, k in ops.KERNELS.items()
+                    if k.launches > before[n]}
+        med = float(np.median(step_s[1:]))
+        r[mode] = dict(step_s=step_s, median_step_s=med, losses=losses,
+                       kernel_launches_per_step=launches,
+                       peak_memory_gb=torch.cuda.max_memory_allocated()
+                       / 1e9)
+        r[mode][unit_name] = units / med
+    for mode, step in modes:
+        prof = profile_steps(step, feeds[args.steps:],
+                             image=image and mode != 'captured')
+        r[mode].update(prof, device_idle_share_of_median_step=(
+            1.0 - prof['device_busy_ms_per_step'] / 1e3
+            / r[mode]['median_step_s']))
+    if modes[0][0] == 'captured':
+        r['cache_stats'] = exe.cache_stats
     if args.model == 'transformer':
         r['max_length'] = MAX_LENGTH
     print(json.dumps(r), flush=True)
