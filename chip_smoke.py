@@ -34,7 +34,15 @@ replay (each graph adds the launches its capture recorded).
                 (forward, and backward through autograd) are timed by CUDA
                 graph replay, the wrapper's eager time beside as eager_ms;
                 the SDPA kernels torch.profiler shows are named
-                (library_kernels). The sparse
+                (library_kernels). Their bf16 variants (q, k, v, dO and
+                the outputs bf16; AMP's path) in the same four cases, the
+                same draws rounded to bf16: O, dQ, dK and dV within
+                BF16_ULPS bf16 ulps of the tensor's largest magnitude
+                (lse within 1e-4), two launches bitwise equal, timed the
+                same way beside SDPA's forward and backward on the same
+                bf16 operands; their bound counts the FLOPs at the dense
+                bf16 rate (989 TFLOP/s) and the bytes at bf16 widths. The
+                sparse
                 Adam and Adagrad kernels on DeepFM's [100000, D] tables in
                 four merges: the first reader batch's 6,656 ids at D=10
                 and D=1, duplicate-heavy ids from 0..63, and all slots
@@ -130,11 +138,33 @@ replay (each graph adds the launches its capture recorded).
                 its running stats bitwise unchanged by serving. The phase
                 launches none of the port's kernels (conv, pool and norm
                 are cuDNN library calls).
+  7b. amp     — AMP through the entry points, bf16 on the tensor cores.
+                Transformer-base get_model (batch 16) under
+                fluid.amp.decorate_program, TRAIN_STEPS steps on its wmt16
+                reader: finite losses that fall, 18 launches per step of
+                each bf16 attention kernel and none of an fp32 one; its
+                losses against the same program in fp32 on the card from
+                the same weights (the JAX tests/test_amp.py bound); step 1
+                card against CPU (AMP on both: the loss, and each
+                gradient against the difference AMP itself makes on the
+                CPU). ResNet-50 as the JAX bench.py:215-253 builds it for
+                AMP (a bfloat16 data var fed bf16 flowers batches from the
+                DataFeeder, resnet_imagenet(depth=50), Momentum(0.01,
+                0.9)), NHWC (channels_last memory on the card) and NCHW,
+                RESNET_STEPS steps each: finite losses, images/s, peak
+                memory, one batch repeated falling below half, NHWC's
+                step 1 against NCHW's. Transformer-base's inference
+                artifact transpiled by fluid.contrib.Float16Transpiler in
+                its Predictor's scope behind a ServingEngine (max batch
+                16): fp32 answers against Predictor.run and against the
+                CPU, 18 bf16 forward launches per forward and no fp32 one.
   8. captured — each path's captured step against debug_step's eager
                 walk in this call, at full width: Transformer-base
-                training at batch 16 (get_model, dropout 0.1), DeepFM,
-                a paged decode dispatch with 16 slots full, serving at
-                batch 1 and 16, LeNet, ResNet-50 at batch 32. For each:
+                training at batch 16 (get_model, dropout 0.1), fp32 and
+                under AMP, DeepFM, a paged decode dispatch with 16 slots
+                full, serving at batch 1 and 16 (fp32 and transpiled to
+                bf16), LeNet, ResNet-50 at batch 32 (fp32 NCHW, and AMP
+                with a bf16 feed in NHWC and NCHW). For each:
                 the median step of the replay and of the eager walk
                 (CAPTURED_STEPS each, ending in the fetch on the host),
                 device busy time, idle share and kernel records per step
@@ -143,14 +173,18 @@ replay (each graph adds the launches its capture recorded).
                 {"captured": [...]}. Checks: a replay against two eager
                 walks from one state (fetches and written persistables:
                 bitwise where the eager walks are bitwise equal, else
-                within twice their difference); captured run j against
-                eager run j with dropout 0.1 (Transformer, 3 steps:
-                losses and every persistable bitwise); run_bundle(K=4)
-                against 4 run() calls (DeepFM, bitwise); a guarded LeNet
+                within twice their difference; the image paths also in a
+                capture under cudnn.deterministic, bitwise, whose median
+                replay is timed beside the default one); captured run j
+                against eager run j with dropout 0.1 (Transformer, fp32
+                and AMP, 3 steps: losses and every persistable bitwise);
+                run_bundle(K=4) against 4 run() calls (DeepFM, bitwise);
+                a guarded LeNet
                 step fed a NaN (every persistable bitwise unchanged,
                 skipped_steps 1); launches per replay (18 of each
                 attention kernel a training step, 18 forward launches a
-                serving forward, 2 sparse_adam a DeepFM step, 1
+                serving forward, the bf16 variants' under AMP, 2
+                sparse_adam a DeepFM step, 1
                 paged_attention a dispatch); a held device fetch unchanged
                 by the next replay.
   9. a JSON line {"kernels": [...]} with each kernel's parity, launches,
@@ -181,6 +215,9 @@ SEED = 2024
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+# the dense bf16 rate of the tensor cores: the bound of the flash-attention
+# kernels' bf16 variants counts the function's FLOPs at it
+PEAK_BF16_FLOPS = 989e12
 # kernel vs plain torch, fp32 on the card: the kernel sums q.k over D and
 # p.v over keys in tile order (3xTF32 products) with an online softmax, the
 # plain version in one cuBLAS product and one softmax — different summation
@@ -191,6 +228,12 @@ KERNEL_TOL = 1e-4
 # the tolerance of the Pallas backward's own test
 # (tests/test_flash_attention.py:64)
 KERNEL_BWD_TOL = 3e-4
+# the bf16 variants against their plain versions: O, dQ, dK and dV are
+# bf16, each the same fp32 function rounded once, from sums in other orders
+# (and P, dS carried to 2^-16 by the kernels' hi/lo split); held to
+# BF16_ULPS bf16 ulps of the tensor's largest magnitude. lse stays fp32:
+# KERNEL_TOL
+BF16_ULPS = 2
 # the same artifact on the card and on the CPU: 12 layers of fp32 products
 # and reductions summed in different orders on two devices
 CROSS_DEVICE_TOL = 1e-3
@@ -245,6 +288,9 @@ KERNEL_PATHS = {
     'flash_attention_fwd': ('serving', 'training'),
     'flash_attention_bwd_dq': ('training',),
     'flash_attention_bwd_dkv': ('training',),
+    'flash_attention_fwd_bf16': ('amp_training', 'amp_serving'),
+    'flash_attention_bwd_dq_bf16': ('amp_training',),
+    'flash_attention_bwd_dkv_bf16': ('amp_training',),
     'sparse_adam': ('ctr_training',),
     'sparse_adagrad': ('ctr_training',),
     'paged_attention': ('decode',),
@@ -302,6 +348,60 @@ RESNET_GRAD_SPREAD = 3.0
 # the served probabilities on the card against the CPU and Predictor.run
 RESNET_NHWC_TOL = 1e-4
 RESNET_SERVE_TOL = 1e-4
+# phase 7b (amp): AMP against fp32 losses on the card, step by step, within
+# the JAX package's own bound for the same comparison (tests/test_amp.py)
+AMP_FP32_RTOL, AMP_FP32_ATOL = 0.1, 1e-2
+# step 1 under AMP, card against CPU (AMP on both): the loss (relative),
+# and the gradients by the median over them of the relative L2
+# difference, within AMP_GRAD_SPREAD times the CPU's own spread: its step
+# again from the fp32 weights scaled by 1 + AMP_STATE_NOISE * noise. Under
+# AMP that spread is not small: a value within fp32 rounding of a bf16
+# rounding boundary lands on the other neighbour, 2^-8 relative, which
+# moves the sums downstream by more than fp32 rounding and flips more of
+# their roundings, so two sound runs that sum in other orders part by
+# about as much as AMP itself parts from fp32 (PERF.md section 6). That
+# comparison cannot tell a card that ignores AMP from one that keeps it;
+# the op-by-op check can (below)
+AMP_LOSS_TOL = 1e-3
+AMP_GRAD_SPREAD = 3.0
+AMP_STATE_NOISE = 1e-6
+# the bf16 tower's spread: a share of its bf16 input moved to the next
+# bf16 value (its inputs are integers less a channel mean, which no
+# fp32-sized change moves to another bf16 value): the stem's sums of 147
+# products carry about 2^-24 * sqrt(147) relative on another device,
+# which rounds about 4e-4 of its bf16 outputs the other way
+AMP_INPUT_FLIPS = 4e-4
+# op by op (_ops_against_cpu): each forward op of the card's step against
+# the CPU's rule on the same inputs, and at the AMP sites (the op's
+# output and the inputs its vector-Jacobian product is taken for) the VJP
+# too. An fp32 output within AMP_SITE_F32_TOL of its largest magnitude
+# (the products' fp32 sums in other orders); a bf16 one within two bf16
+# ulps of it, at most AMP_SITE_SHARE of its elements on another bf16
+# neighbour. The hi + lo split of the products' cotangent and of the
+# attention kernels' P and dS leaves 2^-16 of each term or less; where
+# the terms cancel (the dS of a row sums to 0) that flips the rounding of
+# a few elements in a hundred (measured up to 1.35% at the decoder's
+# attention dQ on an H100, PERF.md), while one rounding more (the
+# cotangent, or dS, rounded to bf16) moves about 40% of them
+# (tests/test_torch_amp.py; the plain dQ with dS rounded, on the CPU)
+AMP_SITES = {'mul': ('Out', ('X', 'Y')), 'matmul': ('Out', ('X', 'Y')),
+             'conv2d': ('Output', ('Input', 'Filter')),
+             'flash_attention': ('Out', ('Q', 'K', 'V'))}
+AMP_SITE_F32_TOL = 1e-5
+AMP_SITE_SHARE = 0.05
+# bf16 serving: the engine's answers against Predictor.run (other batch
+# shapes: other GEMM tilings) and the card against the CPU, by relative L2
+# over the logits. The rounding flips compound through 12 layers here too:
+# the card read 0.00399 against the CPU on an H100 (the same inputs and
+# kernels give the same reading each run) and the card's fp32 artifact,
+# the control, 0.00672 against the CPU's bf16 answer (PERF.md); the bound
+# lies between them, and the control must exceed it. The transpiled step
+# is also held op by op (_ops_against_cpu)
+AMP_CROSS_DEVICE_TOL = 5e-3
+# the AMP NHWC tower's step-1 loss against the NCHW one's from the same
+# startup weights: other cuDNN algorithms round the bf16 activations
+# differently
+AMP_LAYOUT_TOL = 1e-2
 # phase 8: steps timed per path and mode (captured, eager), and traced
 CAPTURED_STEPS = 10
 PROFILED_STEPS = 3
@@ -477,33 +577,40 @@ def _bound(flops, nbytes, peak_flops=PEAK_FP32_FLOPS):
     return max(t_ops, t_bytes), 'operations' if t_ops >= t_bytes else 'bytes'
 
 
-def _attention_bound(B, H, Tq, Tk, D, causal):
-    """Forward: 2 tile products (s, P.V) of depth D per pair, each an
+def _attention_bound(B, H, Tq, Tk, D, causal, bf16=False):
+    """Forward: 2 tile products (s, P.V) of depth D per pair. fp32: each an
     fp32-accurate product from three TF32 ones (3xTF32), so at a third of
-    the TF32 rate; q, k, v, bias read once, O and lse written once."""
+    the TF32 rate; bf16: at the dense bf16 rate. q, k, v and O read or
+    written once at their width (4 or 2 bytes), bias and lse at 4."""
     flops = 4.0 * B * H * D * _pairs(Tq, Tk, causal)
-    nbytes = 4.0 * (B * H * Tq * D * 2 + B * H * Tk * D * 2 + B * Tk
-                    + B * H * Tq)
-    return _bound(flops, nbytes, PEAK_TF32_FLOPS / 3)
+    nbytes = (2.0 if bf16 else 4.0) * (B * H * Tq * D * 2
+                                       + B * H * Tk * D * 2) \
+        + 4.0 * (B * Tk + B * H * Tq)
+    return _bound(flops, nbytes,
+                  PEAK_BF16_FLOPS if bf16 else PEAK_TF32_FLOPS / 3)
 
 
-def _attention_bwd_bound(B, H, Tq, Tk, D, causal, which):
+def _attention_bwd_bound(B, H, Tq, Tk, D, causal, which, bf16=False):
     """Backward: dQ ('dq') does 3 tile products per pair (s, dP, dQ), dK/dV
     ('dkv') 4 (s, dP, dV, dK), the two ('both') 14 * B * H * D * pairs
-    FLOPs, each an fp32-accurate product from three TF32 ones (3xTF32), so
-    at a third of the TF32 rate. Each reads q, k, v, dO, bias, lse and
-    delta once and writes its outputs once."""
+    FLOPs, in 3xTF32 at a third of the TF32 rate, or in bf16 at the dense
+    bf16 rate. Each reads q, k, v and dO (at their width) and bias, lse
+    and delta (fp32) once and writes its outputs once."""
     products = {'dq': 3, 'dkv': 4, 'both': 7}[which]
     flops = 2.0 * products * B * H * D * _pairs(Tq, Tk, causal)
-    reads = B * H * Tq * D * 2 + B * H * Tk * D * 2 + B * Tk + 2 * B * H * Tq
-    writes = (B * H * Tq * D * (which != 'dkv')
-              + 2 * B * H * Tk * D * (which != 'dq'))
-    return _bound(flops, 4.0 * (reads + writes), PEAK_TF32_FLOPS / 3)
+    tensors = (B * H * Tq * D * 2 + B * H * Tk * D * 2
+               + B * H * Tq * D * (which != 'dkv')
+               + 2 * B * H * Tk * D * (which != 'dq'))
+    nbytes = (2.0 if bf16 else 4.0) * tensors \
+        + 4.0 * (B * Tk + 2 * B * H * Tq)
+    return _bound(flops, nbytes,
+                  PEAK_BF16_FLOPS if bf16 else PEAK_TF32_FLOPS / 3)
 
 
 # the rate the flash-attention kernels' operations are counted at, beside
 # their bound_by
 TF32X3_OPS_RATE = '3xTF32: 495 / 3 TFLOP/s'
+BF16_OPS_RATE = 'bf16: 989 TFLOP/s'
 
 
 def _sdpa_mask(c):
@@ -523,22 +630,51 @@ def _max_err(got, want):
     return max((g - w).abs().max().item() for g, w in zip(got, want))
 
 
-def _allclose(got, want, tol):
+def bf16_tol(ref):
+    """BF16_ULPS bf16 ulps of the largest magnitude of `ref`."""
+    m = float(ref.detach().abs().max().float())
+    return BF16_ULPS * 2.0 ** (np.floor(np.log2(m)) - 7) if m > 0 else 0.0
+
+
+def _parity(got, want, tol):
+    """(ok, max abs error) of kernel outputs against their plain versions:
+    a bf16 output within bf16_tol of its plain version, an fp32 one within
+    tol (absolute and relative)."""
     import torch
-    return all(torch.allclose(g, w, atol=tol, rtol=tol)
-               for g, w in zip(got, want))
+    ok, err = True, 0.0
+    for g, w in zip(got, want):
+        err = max(err, float((g.float() - w.float()).abs().max()))
+        if g.dtype == torch.bfloat16:
+            ok = ok and float((g.float() - w.float()).abs().max()) \
+                <= bf16_tol(w)
+        else:
+            ok = ok and torch.allclose(g, w, atol=tol, rtol=tol)
+    return ok, err
 
 
-def _attention_cases():
-    """The flash-attention kernels (forward, backward dQ and dK/dV) against
-    their plain versions in four cases; returns {kernel name: [case
-    result, ...]}."""
+def _bits(t):
+    import torch
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def _attention_cases(bf16=False):
+    """The flash-attention kernels (forward, backward dQ and dK/dV), or
+    their bf16 variants on the same draws rounded to bf16, against their
+    plain versions in four cases; returns {kernel name: [case result,
+    ...]}."""
     import torch
     import torch.nn.functional as F
     # the module (ops/__init__ exports a function of the same name)
     fa = importlib.import_module('paddle_tpu_torch.ops.flash_attention')
     gen = torch.Generator(device='cuda')
     gen.manual_seed(SEED)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    sfx = '_bf16' if bf16 else ''
+    ops_rate = BF16_OPS_RATE if bf16 else TF32X3_OPS_RATE
+    fwd_tol = '%d bf16 ulps of max |O|; lse %g' % (BF16_ULPS, KERNEL_TOL) \
+        if bf16 else KERNEL_TOL
+    bwd_tol = '%d bf16 ulps of max |grad|' % BF16_ULPS if bf16 \
+        else KERNEL_BWD_TOL
     # the batch the training path gives every kernel, and the largest
     # bucket serving gives the forward
     B, H, T, D = TRAIN_BATCH, 8, 256, 64
@@ -549,16 +685,17 @@ def _attention_cases():
         _attention_case('ragged T=200, causal', B, H, 200, 200, D, True,
                         gen),
     ]
-    results = {'flash_attention_fwd': [], 'flash_attention_bwd_dq': [],
-               'flash_attention_bwd_dkv': []}
+    results = {n + sfx: [] for n in ('flash_attention_fwd',
+                                     'flash_attention_bwd_dq',
+                                     'flash_attention_bwd_dkv')}
     for c in cases:
-        q, k, v, kb = c['q'], c['k'], c['v'], c['bias']
-        causal, scale = c['causal'], c['scale']
+        q, k, v = [c[n].to(dt) for n in ('q', 'k', 'v')]
+        kb, causal, scale = c['bias'], c['causal'], c['scale']
         Bq, Hq, Tq, Tk, Dq = c['shape']
         head = dict(case=c['name'], shape=dict(zip(('B', 'H', 'Tq', 'Tk',
                                                     'D'), c['shape'])),
-                    causal=causal)
-        mask = _sdpa_mask(c)
+                    causal=causal, dtype=str(dt).replace('torch.', ''))
+        mask = _sdpa_mask(c).to(dt)
 
         # forward: each block owns the rows it writes and sums in a fixed
         # order, so a second launch on the same inputs gives the same bits
@@ -576,30 +713,30 @@ def _attention_cases():
         o, lse = fwd()
         again = fwd()
         torch.cuda.synchronize()
-        deterministic = all(torch.equal(a.view(torch.int32),
-                                        b.view(torch.int32))
+        deterministic = all(torch.equal(_bits(a), _bits(b))
                             for a, b in zip((o, lse), again))
-        want = fwd_plain()
-        bound_ms, bound_by = _attention_bound(Bq, Hq, Tq, Tk, Dq, causal)
-        r = dict(head, max_abs_err=_max_err((o, lse), want),
-                 ok=_allclose((o, lse), want, KERNEL_TOL) and deterministic,
-                 deterministic=deterministic, tol=KERNEL_TOL,
+        ok, err = _parity((o, lse), fwd_plain(), KERNEL_TOL)
+        bound_ms, bound_by = _attention_bound(Bq, Hq, Tq, Tk, Dq, causal,
+                                              bf16)
+        r = dict(head, max_abs_err=err,
+                 ok=ok and deterministic and o.dtype == dt,
+                 deterministic=deterministic, tol=fwd_tol,
                  ms=time_graph_ms(fwd), eager_ms=time_ms(fwd),
                  plain_ms=time_graph_ms(fwd_plain),
-                 library='scaled_dot_product_attention with the same '
-                         'additive mask (O only)',
+                 library='scaled_dot_product_attention on the same %s '
+                         'operands with the same additive mask (O only)'
+                         % head['dtype'],
                  library_kernels=device_kernels(sdpa),
                  library_ms=time_graph_ms(sdpa),
-                 bound_ms=bound_ms, bound_by=bound_by,
-                 ops_rate=TF32X3_OPS_RATE)
-        log('[kernels] flash_attention_fwd %s' % json.dumps(r))
-        results['flash_attention_fwd'].append(r)
+                 bound_ms=bound_ms, bound_by=bound_by, ops_rate=ops_rate)
+        log('[kernels] flash_attention_fwd%s %s' % (sfx, json.dumps(r)))
+        results['flash_attention_fwd' + sfx].append(r)
 
         # backward: both cotangents, delta = rowsum(dO * O) - dlse as the
         # autograd Function makes it
-        do = torch.randn(o.shape, generator=gen, device='cuda')
+        do = torch.randn(o.shape, generator=gen, device='cuda').to(dt)
         dlse = torch.randn(lse.shape, generator=gen, device='cuda')
-        delta = ((do * o).sum(-1) - dlse).contiguous()
+        delta = ((do.float() * o.float()).sum(-1) - dlse).contiguous()
         bwd = (q, k, v, kb, do, lse, delta, causal, scale)
         fa._check_bwd(q, do, lse, delta)
         dq = fa._bwd_dq_cuda(*bwd)
@@ -608,8 +745,7 @@ def _attention_cases():
         # launch on the same inputs must give the same bits
         again = (fa._bwd_dq_cuda(*bwd),) + fa._bwd_dkv_cuda(*bwd)
         torch.cuda.synchronize()
-        deterministic = all(torch.equal(a.view(torch.int32),
-                                        b.view(torch.int32))
+        deterministic = all(torch.equal(_bits(a), _bits(b))
                             for a, b in zip((dq, dk, dv), again))
         want_dq = fa.flash_attention_bwd_dq_plain(*bwd)
         want_dkv = fa.flash_attention_bwd_dkv_plain(*bwd)
@@ -636,14 +772,15 @@ def _attention_cases():
         def pair_fn():
             return fa._bwd_dq_cuda(*bwd), fa._bwd_dkv_cuda(*bwd)
         pair_bound, pair_by = _attention_bwd_bound(Bq, Hq, Tq, Tk, Dq,
-                                                   causal, 'both')
+                                                   causal, 'both', bf16)
         pair = dict(
-            kernels=['flash_attention_bwd_dq', 'flash_attention_bwd_dkv'],
+            kernels=['flash_attention_bwd_dq' + sfx,
+                     'flash_attention_bwd_dkv' + sfx],
             ms=time_graph_ms(pair_fn), eager_ms=time_ms(pair_fn),
-            bound_ms=pair_bound, bound_by=pair_by,
-            ops_rate=TF32X3_OPS_RATE,
+            bound_ms=pair_bound, bound_by=pair_by, ops_rate=ops_rate,
             library='torch.autograd.grad through scaled_dot_product_'
-                    'attention: dQ, dK and dV in one backward',
+                    'attention on the same %s operands: dQ, dK and dV in '
+                    'one backward' % head['dtype'],
             library_kernels=device_kernels(sdpa_bwd(*outs[1])),
             library_ms=time_graph_ms(sdpa_bwd(*outs[0])),
             library_eager_ms=time_ms(sdpa_bwd(*outs[1])))
@@ -653,19 +790,20 @@ def _attention_cases():
                 ('flash_attention_bwd_dkv', 'dkv', (dk, dv), want_dkv,
                  fa._bwd_dkv_cuda, fa.flash_attention_bwd_dkv_plain)):
             bound_ms, bound_by = _attention_bwd_bound(Bq, Hq, Tq, Tk, Dq,
-                                                      causal, which)
-            r = dict(head, max_abs_err=_max_err(got, want),
-                     ok=_allclose(got, want, KERNEL_BWD_TOL)
-                     and deterministic,
-                     deterministic=deterministic, tol=KERNEL_BWD_TOL,
+                                                      causal, which, bf16)
+            ok, err = _parity(got, want, KERNEL_BWD_TOL)
+            r = dict(head, max_abs_err=err,
+                     ok=ok and deterministic
+                     and all(g.dtype == dt for g in got),
+                     deterministic=deterministic, tol=bwd_tol,
                      ms=time_graph_ms(lambda: kern(*bwd)),
                      eager_ms=time_ms(lambda: kern(*bwd)),
                      plain_ms=time_graph_ms(lambda: plain(*bwd)),
                      library_ms=None, bound_ms=bound_ms,
-                     bound_by=bound_by, ops_rate=TF32X3_OPS_RATE,
+                     bound_by=bound_by, ops_rate=ops_rate,
                      backward_pair=pair)
-            log('[kernels] %s %s' % (name, json.dumps(r)))
-            results[name].append(r)
+            log('[kernels] %s%s %s' % (name, sfx, json.dumps(r)))
+            results[name + sfx].append(r)
     return results
 
 
@@ -673,6 +811,7 @@ def phase_kernels():
     """Every kernel against its plain version in its cases; returns
     {kernel name: [case result, ...]}."""
     results = _attention_cases()
+    results.update(_attention_cases(bf16=True))
     results.update(_sparse_optim_cases())
     for name, rs in _sparse_rows_cases().items():
         results[name].extend(rs)
@@ -681,7 +820,7 @@ def phase_kernels():
         bad = [r['case'] for r in rs if not r['ok']]
         if bad:
             raise AssertionError('%s disagrees with its plain version '
-                                 'beyond %g%s in: %s' % (
+                                 'beyond %s%s in: %s' % (
                                      name, rs[0]['tol'],
                                      ', or with its own second launch,'
                                      if any('deterministic' in r
@@ -1289,22 +1428,29 @@ def phase_training():
     return launches
 
 
-def _check_grads_against_cpu(state):
-    """Step 1 of the dropout-free twin program from the startup weights
-    `state`, on the card and on the CPU, for a 2-row batch: the loss and
-    every @GRAD. The wmt16 corpus starts each target with id 0, also the
-    pad id, which leaves the decoder's first query row no live key
-    (ill-conditioned everywhere, and the forward kernel only sums that row
-    over its diagonal tile): that position gets a live id here."""
-    from paddle_tpu_torch import fluid
+def _grad_check_feed(names):
+    """A 2-row wmt16 batch for the step-1 checks. The corpus starts each
+    target with id 0, also the pad id, which leaves the decoder's first
+    query row no live key (ill-conditioned everywhere, and the forward
+    kernel only sums that row over its diagonal tile): that position gets
+    a live id here."""
     from paddle_tpu_torch.dataset import wmt16
     from paddle_tpu_torch.models.transformer import pad_batch
     cfg = TRANSFORMER_BASE
-    main, _, avg_cost, names, _ = build_trainer(dropout=False)
     rows = itertools.islice(wmt16.train(cfg['src_vocab_size'],
                                         cfg['trg_vocab_size'])(), 2)
     feed = as_feed(pad_batch(list(rows), cfg['max_length']), names)
     feed['trg_word'][:, 0] = 2
+    return feed
+
+
+def _check_grads_against_cpu(state):
+    """Step 1 of the dropout-free twin program from the startup weights
+    `state`, on the card and on the CPU, for a 2-row batch
+    (_grad_check_feed): the loss and every @GRAD."""
+    from paddle_tpu_torch import fluid
+    main, _, avg_cost, names, _ = build_trainer(dropout=False)
+    feed = _grad_check_feed(names)
     fetch = [avg_cost] + grad_names(main)
     outs = {}
     for where, place in (('card', fluid.CUDAPlace(0)),
@@ -1333,6 +1479,255 @@ def _check_grads_against_cpu(state):
         '(L2) median %.3g, worst %s (tol %g)'
         % (loss, loss_cpu, len(errs), errs[len(errs) // 2][0],
            ', '.join('%s %.3g' % (n, e) for e, n in errs[:3]), GRAD_TOL))
+
+
+def _as_list(vals):
+    return list(vals) if isinstance(vals, (list, tuple)) else [vals]
+
+
+def _held_to_cpu(got, want, rounded=False):
+    """(share of elements that differ (bf16 values; 0 for fp32 ones),
+    |got - want| max, tolerance, passed) of a card tensor against the
+    CPU's: a bf16 tensor (or, `rounded`, an
+    fp32 one of bf16 values) within two bf16 ulps of max |want| with at
+    most AMP_SITE_SHARE of its elements differing, an fp32 one within
+    AMP_SITE_F32_TOL of max |want|, any other equal."""
+    import torch
+    got = got.detach().cpu()
+    if not want.is_floating_point():
+        same = torch.equal(got, want)
+        return 0.0 if same else 1.0, 0.0, 0.0, same
+    g, w = got.to(torch.float32), want.to(torch.float32)
+    share = float((g != w).float().mean()) if w.numel() else 0.0
+    err = float((g - w).abs().max()) if w.numel() else 0.0
+    peak = float(w.abs().max()) if w.numel() else 0.0
+    if want.dtype == torch.bfloat16 or rounded:
+        tol = bf16_tol(w)
+        return share, err, tol, err <= tol and share <= AMP_SITE_SHARE
+    tol = AMP_SITE_F32_TOL * peak
+    return 0.0, err, tol, err <= tol
+
+
+def _attention_backward(ins, attrs, ctx, device, rng):
+    """The backward kernels at one flash_attention op: q, k, v and the key
+    bias as the rule hands them on (amp_cast under AMP), O and lse from
+    the plain forward, dO drawn from `rng`, delta = rowsum(dO * O) as the
+    wrapper takes it; the CUDA route on `device` and the plain version on
+    the CPU from those same inputs (the gradient through the wrapper would
+    hold the backward to each side's own O, which differs from the other
+    by O's bf16 roundings). Returns [(slot, card gradient, CPU
+    gradient)]."""
+    import torch
+    from paddle_tpu_torch.fluid import lowering
+    fa = importlib.import_module('paddle_tpu_torch.ops.flash_attention')
+    q, k, v = lowering.amp_cast(ctx, *[ins[n][0].contiguous()
+                                       for n in ('Q', 'K', 'V')])
+    B, Tk = q.shape[0], k.shape[2]
+    kb = ins.get('KeyBias')
+    kb = fa._key_bias(kb[0].reshape(B, Tk) if kb else None, B, Tk,
+                      q.device).contiguous()
+    scale = attrs.get('scale', -1.0)
+    scale = fa._scale_of(q.shape[-1], None if scale is None or scale < 0
+                         else float(scale))
+    causal = bool(attrs.get('causal', False))
+    o, lse = fa.flash_attention_lse_plain(q, k, v, kb, causal, scale)
+    do = torch.from_numpy(rng.randn(*o.shape).astype('float32')).to(o.dtype)
+    delta = (do.to(torch.float32) * o.to(torch.float32)).sum(-1)
+    args = (q, k, v, kb, do, lse, delta)
+    want = fa.flash_attention_bwd_plain(*args, causal, scale)
+    got = fa._flash_bwd_cuda(*[t.to(device) for t in args], causal, scale)
+    return list(zip('QKV', got, want))
+
+
+def _ops_against_cpu(what, prog, state, feed, fetch, control=False):
+    """Op by op, the card's step against the CPU's rules: the card's eager
+    walk (debug_step) of `prog` from `state` on `feed`, and each forward
+    op's inputs, as the card made them, through the same rule on the CPU
+    (the step's AMP flag): every output held by _held_to_cpu. At the AMP
+    sites (AMP_SITES) of a training step the vector-Jacobian product too,
+    for a cotangent drawn from SEED: the gradients of the floating inputs
+    from the card's rule and the CPU's, by _held_to_cpu (at
+    flash_attention, the backward kernels on the plain forward's O and
+    lse: _attention_backward). Each op sees the card's own inputs, so the
+    comparison does not compound from op to op, as the step-1 gradients
+    do. With `control`, the products again on the card with AMP off (fp32
+    operands) must miss the forward bound at every product site. Returns
+    nothing; raises on a failed op."""
+    import torch
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import lowering
+    card = fluid.CUDAPlace(0)
+    exe = fluid.Executor(card)
+    scope = fluid.Scope()
+    _load_state(scope, state, card)
+    art = exe.step_artifact(prog, feed=feed, fetch_list=fetch, scope=scope)
+    persist = {n: t.clone() for n, t in art.state_dict(scope).items()}
+    cpu, cuda = torch.device('cpu'), card.torch_device()
+    dev = {n: t.to(cuda) for n, t in exe._feed_values(prog, feed).items()}
+    rng = np.random.RandomState(SEED)
+    prev = dict(persist)
+    prev.update(dev)
+    tally = {'ops': 0, 'sites': 0, 'vjp_share': 0.0, 'share': 0.0,
+             'control_missed': 0, 'control_sites': 0, 'worst': (0.0, '')}
+
+    def ctx_on(device, amp):
+        return lowering.Ctx(device, torch.Generator(device=device), amp=amp)
+
+    def hold(name, got, want, rounded=False):
+        share, err, tol, ok = _held_to_cpu(got, want, rounded)
+        if tol and err / tol > tally['worst'][0]:
+            tally['worst'] = (err / tol, name)
+        if not ok:
+            raise AssertionError(
+                '%s, op by op: %s on the card differs from the CPU\'s rule '
+                'on the same inputs by %.3g (tol %.3g), %.4f of its elements '
+                '(tol %g)' % (what, name, err, tol, share, AMP_SITE_SHARE))
+        return share
+
+    def hook(i, op, dt, env):
+        nonlocal prev
+        before, prev = prev, dict(env)
+        if art.ad_idx is not None and i > art.ad_idx or \
+                op.type in lowering._CONSTANT_OPS:
+            return
+        ins = {slot: [before[v.name] for v in vs]
+               for slot, vs in op.inputs.items()}
+        host = {slot: [t.detach().cpu() for t in ts]
+                for slot, ts in ins.items()}
+        rule = lowering.get_rule(op.type)
+        with torch.no_grad():
+            want = rule(host, op.attrs, ctx_on(cpu, art.amp))
+        tally['ops'] += 1
+        for slot, vs in op.outputs.items():
+            for var, w in zip(vs, _as_list(want.get(slot))):
+                if w is not None and var.name in env:
+                    tally['share'] = max(tally['share'], hold(
+                        '%s %s (op %d)' % (op.type, slot, i), env[var.name],
+                        w))
+        if op.type not in AMP_SITES:
+            return
+        tally['sites'] += 1
+        if art.ad_idx is None:          # a step with no backward
+            return
+        if op.type == 'flash_attention':
+            for slot, g, w in _attention_backward(
+                    host, op.attrs, ctx_on(cpu, art.amp), cuda, rng):
+                tally['vjp_share'] = max(tally['vjp_share'], hold(
+                    '%s d%s (op %d)' % (op.type, slot, i), g, w))
+            return
+        out, slots = AMP_SITES[op.type]
+        grads = {}
+        for where, device, ts in (('card', cuda, ins), ('cpu', cpu, host)):
+            leaves = {slot: [t.detach().to(device).requires_grad_(
+                slot in slots) for t in vs] for slot, vs in ts.items()}
+            with torch.enable_grad():
+                o = rule(leaves, op.attrs, ctx_on(device, art.amp))[out]
+                if where == 'card':
+                    cot = torch.from_numpy(rng.randn(*o.shape).astype(
+                        'float32')).to(o.dtype)
+                grads[where] = torch.autograd.grad(
+                    o, [t for slot in slots for t in leaves[slot]],
+                    cot.to(device))
+        for slot, g, w in zip(slots, grads['card'], grads['cpu']):
+            # under AMP the gradient of a cast operand is rounded to bf16
+            # (the cast's own gradient), whatever its dtype
+            tally['vjp_share'] = max(tally['vjp_share'], hold(
+                '%s d%s (op %d)' % (op.type, slot, i), g, w, art.amp))
+        if control and op.type in ('mul', 'matmul'):
+            with torch.no_grad():
+                o32 = rule(ins, op.attrs, ctx_on(cuda, False))[out]
+            tally['control_sites'] += 1
+            tally['control_missed'] += not _held_to_cpu(o32, want[out])[3]
+
+    art.debug_step(persist, dev, 0, on_op=hook)
+    log('[amp] %s, op by op on the card against the CPU\'s rules on the '
+        'same inputs: %d forward ops held (fp32 within %g of max |.|, bf16 '
+        'within two bf16 ulps of it and at most %g of the elements on '
+        'another bf16 neighbour: largest share %.4f); %d AMP sites%s; '
+        'nearest the tolerance: %.3g of it at %s%s' % (
+            what, tally['ops'], AMP_SITE_F32_TOL, AMP_SITE_SHARE,
+            tally['share'], tally['sites'],
+            ', their VJPs likewise (largest share %.4f)' % tally['vjp_share']
+            if art.ad_idx is not None else ' (no backward)',
+            tally['worst'][0], tally['worst'][1],
+            '; the control (the products with AMP off) misses the bound at '
+            '%d of %d product sites' % (tally['control_missed'],
+                                        tally['control_sites'])
+            if control else ''))
+    if not tally['sites']:
+        raise AssertionError('%s: no AMP site in the step' % what)
+    if control and tally['control_missed'] != tally['control_sites']:
+        raise AssertionError(
+            '%s: the control (products with AMP off) passes the bound at %d '
+            'of %d product sites' % (
+                what, tally['control_sites'] - tally['control_missed'],
+                tally['control_sites']))
+
+
+def _median_rel(outs, gnames, a, b):
+    """The median over the gradients of |a - b| / |b| (L2)."""
+    return float(np.median([_rel_l2(outs[a][1 + i], outs[b][1 + i])
+                            for i in range(len(gnames))]))
+
+
+def _nudged(state, rng):
+    """The fp32 arrays of `state` scaled by 1 + AMP_STATE_NOISE * noise."""
+    return {n: (v * (1 + AMP_STATE_NOISE * rng.randn(*v.shape))).astype(
+        v.dtype) if v.dtype == np.float32 else v for n, v in state.items()}
+
+
+def _check_amp_grads_against_cpu(state):
+    """Step 1 of the dropout-free twin program under decorate_program from
+    the startup weights `state`, on the card and on the CPU (AMP on both):
+    the loss within AMP_LOSS_TOL, the gradients' median relative L2
+    difference within AMP_GRAD_SPREAD times the CPU's own spread (its step
+    again from the weights nudged by AMP_STATE_NOISE). Logged beside it:
+    AMP's own difference (the CPU's bf16 gradients against its fp32 ones)
+    and the control (the card's fp32 step against the CPU's AMP one). Then
+    the same step op by op (_ops_against_cpu), where the control must
+    fail."""
+    from paddle_tpu_torch import fluid
+    main, _, avg_cost, names, _ = build_trainer(dropout=False)
+    main32 = build_trainer(dropout=False)[0]
+    fluid.amp.decorate_program(main)
+    feed = _grad_check_feed(names)
+    gnames = grad_names(main)
+    nudged = _nudged(state, np.random.RandomState(SEED))
+    outs = {}
+    for where, place, prog, st in (
+            ('card', fluid.CUDAPlace(0), main, state),
+            ('cpu', fluid.CPUPlace(), main, state),
+            ('nudged', fluid.CPUPlace(), main, nudged),
+            ('cpu fp32', fluid.CPUPlace(), main32, state),
+            ('card fp32', fluid.CUDAPlace(0), main32, state)):
+        s = fluid.Scope()
+        s.load_numpy(st, place)
+        outs[where] = fluid.Executor(place).run(
+            prog, feed=feed, fetch_list=[avg_cost] + gnames, scope=s)
+    bad = [n for i, n in enumerate(gnames, 1)
+           if not np.isfinite(outs['card'][i]).all()]
+    loss, loss_cpu = float(outs['card'][0]), float(outs['cpu'][0])
+    med = _median_rel(outs, gnames, 'card', 'cpu')
+    spread = _median_rel(outs, gnames, 'nudged', 'cpu')
+    log('[amp] step 1 from the startup weights under AMP (2 rows, dropout '
+        'off): loss card %.6f, CPU %.6f (tol %g relative), CPU fp32 %.6f; '
+        '%d gradients, |diff| / |grad| (L2) median: card vs CPU %.3g, the '
+        'CPU\'s own spread (weights scaled by 1 + %g * noise) %.3g (tol %g '
+        'x), AMP\'s own (the CPU\'s bf16 against its fp32) %.3g, the '
+        'control (the card\'s fp32 step against the CPU\'s AMP one) %.3g'
+        % (loss, loss_cpu, AMP_LOSS_TOL, float(outs['cpu fp32'][0]),
+           len(gnames), med, AMP_STATE_NOISE, spread, AMP_GRAD_SPREAD,
+           _median_rel(outs, gnames, 'cpu', 'cpu fp32'),
+           _median_rel(outs, gnames, 'card fp32', 'cpu')))
+    if bad or not abs(loss - loss_cpu) <= AMP_LOSS_TOL * abs(loss_cpu):
+        raise AssertionError('AMP step-1 loss %r on the card, %r on the '
+                             'CPU; non-finite %r' % (loss, loss_cpu, bad))
+    if not med <= AMP_GRAD_SPREAD * spread:
+        raise AssertionError('AMP gradients, card vs CPU: median %.3g, over '
+                             '%g x the CPU\'s own %.3g'
+                             % (med, AMP_GRAD_SPREAD, spread))
+    _ops_against_cpu('Transformer-base step 1 (2 rows)', main, state, feed,
+                     [avg_cost], control=True)
 
 
 def _serve_trained(main, scope, exe):
@@ -2022,46 +2417,80 @@ def _resnet50():
     _serve_resnet(main, prob, scope, exe, stats)
 
 
+def _autodiff_grads(program):
+    """The gradient names of `program`'s autodiff op."""
+    ad = [op for op in program.global_block().ops
+          if op.type == 'autodiff'][0]
+    return list(ad.attrs['grad_names'])
+
+
+def _load_state(scope, state, place):
+    """Put {name: ndarray or tensor} into `scope` on `place`'s device; a
+    tensor keeps its dtype (bf16 included)."""
+    import torch
+    arrays = {n: v for n, v in state.items()
+              if not isinstance(v, torch.Tensor)}
+    scope.load_numpy(arrays, place)
+    scope.vars.update({n: v.to(place.torch_device())
+                       for n, v in state.items() if n not in arrays})
+
+
+def _first_steps(stats, gnames, runs, tag):
+    """Step 1 of each (where, on the card?, program, loss, feed, startup
+    weights) of runs(RESNET_CPU_BATCH), again at batch 1 when the CPU's
+    step took over RESNET_CPU_STEP_S seconds. Returns
+    (rows, {where: [loss] + gradients}, {where: running stats after the
+    step}, {where: seconds})."""
+    from paddle_tpu_torch import fluid
+    rows = RESNET_CPU_BATCH
+    while True:
+        outs, after, secs = {}, {}, {}
+        for where, on_card, prog, loss, feed, state in runs(rows):
+            place = fluid.CUDAPlace(0) if on_card else fluid.CPUPlace()
+            s = fluid.Scope()
+            _load_state(s, state, place)
+            t0 = time.perf_counter()
+            outs[where] = fluid.Executor(place).run(
+                prog, feed=feed, fetch_list=[loss] + gnames, scope=s)
+            secs[where] = time.perf_counter() - t0
+            after[where] = s.to_numpy(stats)
+        if secs['cpu'] <= RESNET_CPU_STEP_S or rows == 1:
+            return rows, outs, after, secs
+        log('[%s] the CPU step at batch %d took %.1f s (over %g s): '
+            'comparing at batch 1' % (tag, rows, secs['cpu'],
+                                      RESNET_CPU_STEP_S))
+        rows = 1
+
+
+def _grad_spread(outs, gnames, a, b):
+    """The median over the gradients of |a - b| / |b| (L2), and the
+    largest with its name."""
+    errs = sorted((_rel_l2(outs[a][1 + i], outs[b][1 + i]), n)
+                  for i, n in enumerate(gnames))
+    return errs[len(errs) // 2][0], errs[-1]
+
+
 def _resnet_card_against_cpu(main, avg_cost, initial, feed, stats):
     """Step 1 from the startup weights on the card and on the CPU at
     RESNET_CPU_BATCH rows of the same full-width network: the loss, every
     gradient and every running stat after the step, by relative L2; and
     the CPU's step again on the input scaled by 1 + RESNET_INPUT_NOISE *
     noise, the network's own spread under rounding-sized changes."""
-    from paddle_tpu_torch import fluid
-    ad = [op for op in main.global_block().ops if op.type == 'autodiff'][0]
-    gnames = list(ad.attrs['grad_names'])
+    gnames = _autodiff_grads(main)
     noise = np.random.RandomState(SEED).randn(*feed['data'].shape)
-    rows = RESNET_CPU_BATCH
-    while True:
+
+    def runs(rows):
         small = {k: v[:rows] for k, v in feed.items()}
         nudged = dict(small, data=(small['data'] * (
             1 + RESNET_INPUT_NOISE * noise[:rows])).astype('float32'))
-        outs, after, secs = {}, {}, {}
-        for where, place, f in (('card', fluid.CUDAPlace(0), small),
-                                ('cpu', fluid.CPUPlace(), small),
-                                ('nudged', fluid.CPUPlace(), nudged)):
-            s = fluid.Scope()
-            s.load_numpy(initial, place)
-            t0 = time.perf_counter()
-            outs[where] = fluid.Executor(place).run(
-                main, feed=f, fetch_list=[avg_cost] + gnames, scope=s)
-            secs[where] = time.perf_counter() - t0
-            after[where] = s.to_numpy(stats)
-        if secs['cpu'] <= RESNET_CPU_STEP_S or rows == 1:
-            break
-        log('[image_training] the CPU step at batch %d took %.1f s (over '
-            '%g s): comparing at batch 1' % (rows, secs['cpu'],
-                                             RESNET_CPU_STEP_S))
-        rows = 1
+        return [('card', True, main, avg_cost, small, initial),
+                ('cpu', False, main, avg_cost, small, initial),
+                ('nudged', False, main, avg_cost, nudged, initial)]
 
-    def spread(a, b):
-        errs = sorted((_rel_l2(outs[a][1 + i], outs[b][1 + i]), n)
-                      for i, n in enumerate(gnames))
-        return errs[len(errs) // 2][0], errs[-1]
-
-    med_g, worst_g = spread('card', 'cpu')
-    med_n, worst_n = spread('nudged', 'cpu')
+    rows, outs, after, secs = _first_steps(stats, gnames, runs,
+                                           'image_training')
+    med_g, worst_g = _grad_spread(outs, gnames, 'card', 'cpu')
+    med_n, worst_n = _grad_spread(outs, gnames, 'nudged', 'cpu')
     s_err = sorted((_rel_l2(after['card'][n], after['cpu'][n]), n)
                    for n in stats)
     med_s = s_err[len(s_err) // 2][0]
@@ -2184,6 +2613,438 @@ def phase_image_training():
     return launches
 
 
+# -- phase 7b: amp -----------------------------------------------------------
+
+_AMP_RESNETS = {}
+
+
+def build_resnet_amp(data_format):
+    """ResNet-50 at its full width as the JAX bench.py:215-253 builds it for
+    AMP: a bfloat16 data var (NCHW [3, 224, 224] or NHWC [224, 224, 3]),
+    resnet_imagenet(depth=50, class_dim=1000), the mean cross entropy (and
+    accuracy, which reads the bf16 softmax through top_k),
+    Momentum(0.01, 0.9), decorate_program. Returns (main, startup,
+    avg_cost), built once per layout for phases 7b and 8."""
+    if data_format in _AMP_RESNETS:
+        return _AMP_RESNETS[data_format]
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import unique_name
+    from paddle_tpu_torch.models import resnet
+    main, startup = _program_pair()
+    shape = [3, 224, 224] if data_format == 'NCHW' else [224, 224, 3]
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        image = fluid.layers.data(name='data', shape=shape, dtype='bfloat16')
+        label = fluid.layers.data(name='label', shape=[1], dtype='int64')
+        predict = resnet.resnet_imagenet(image, 1000, depth=50,
+                                         data_format=data_format)
+        avg_cost = fluid.layers.mean(
+            fluid.layers.cross_entropy(input=predict, label=label))
+        fluid.layers.accuracy(input=predict, label=label)
+        fluid.optimizer.Momentum(learning_rate=0.01,
+                                 momentum=0.9).minimize(avg_cost)
+        fluid.amp.decorate_program(main)
+    _AMP_RESNETS[data_format] = main, startup, avg_cost
+    return _AMP_RESNETS[data_format]
+
+
+def amp_resnet_feeds(n):
+    """n flowers batches of RESNET_BATCH through a DataFeeder of the AMP
+    tower's bf16 `data` and int64 `label` (bf16 tensors, made through
+    torch), read before any timed step; the NHWC twins transposed on the
+    host; 'raw': the first batch as the reader gives it (fp32 NCHW images,
+    labels)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.batch import batch
+    from paddle_tpu_torch.dataset import flowers
+    from paddle_tpu_torch.fluid import unique_name
+    main, startup = _program_pair()
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        feeder = fluid.DataFeeder(
+            [fluid.layers.data(name='data', shape=[3, 224, 224],
+                               dtype='bfloat16'),
+             fluid.layers.data(name='label', shape=[1], dtype='int64')],
+            fluid.CUDAPlace(0), program=main)
+    reader = batch(flowers.train(), batch_size=RESNET_BATCH)
+    nchw, raw = [], None
+    while len(nchw) < n:
+        for b in reader():
+            if len(b) != RESNET_BATCH or len(nchw) == n:
+                continue
+            if raw is None:
+                raw = (np.stack([x for x, _ in b]).astype('float32').reshape(
+                    -1, 3, 224, 224),
+                       np.array([y for _, y in b], 'int64').reshape(-1, 1))
+            nchw.append(feeder.feed(b))
+    nhwc = [dict(f, data=f['data'].permute(0, 2, 3, 1).contiguous())
+            for f in nchw]
+    return {'NCHW': nchw, 'NHWC': nhwc, 'raw': raw}
+
+
+def _amp_transformer():
+    """Transformer-base get_model (batch 16, dropout 0.1) under
+    decorate_program, TRAIN_STEPS steps on its wmt16 reader; returns the
+    launch counts of that run."""
+    import torch
+    from paddle_tpu_torch import fluid
+    cfg = TRANSFORMER_BASE
+    t0 = time.perf_counter()
+    main, startup, avg_cost, names, reader = build_trainer()
+    fluid.amp.decorate_program(main)
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    exe.run(startup, scope=scope)
+    initial = scope.to_numpy()
+    it = reader()
+    feeds = [as_feed(next(it), names) for _ in range(TRAIN_STEPS)]
+    log('[amp] Transformer-base get_model under decorate_program: built, '
+        'initialized on the card and read %d wmt16 batches in %.3f s'
+        % (TRAIN_STEPS, time.perf_counter() - t0))
+
+    # the main path
+    _reset_launch_counts()
+    losses, step_s = [], []
+    for feed in feeds:
+        t0 = time.perf_counter()
+        loss, = exe.run(main, feed=feed, fetch_list=[avg_cost], scope=scope)
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(np.asarray(loss).reshape(())))
+    launches = _launch_counts()
+
+    want = ATTENTION_OPS_PER_FORWARD * TRAIN_STEPS
+    for name in ('flash_attention_fwd_bf16', 'flash_attention_bwd_dq_bf16',
+                 'flash_attention_bwd_dkv_bf16'):
+        if launches[name] != want:
+            raise AssertionError(
+                '%s launched %d times in %d AMP training steps; the path '
+                'must launch it %d times per step' % (
+                    name, launches[name], TRAIN_STEPS,
+                    ATTENTION_OPS_PER_FORWARD))
+    fp32 = {n: v for n, v in launches.items() if v and not
+            n.endswith('_bf16')}
+    if fp32:
+        raise AssertionError('the AMP step launched fp32 kernels: %r'
+                             % fp32)
+    if not np.isfinite(losses).all():
+        raise AssertionError('non-finite AMP training loss: %r' % (losses,))
+    if not np.mean(losses[-3:]) < losses[0]:
+        raise AssertionError('the AMP loss did not fall: %r' % (losses,))
+    med = float(np.median(step_s[1:]))
+    positions = TRAIN_BATCH * cfg['max_length'] * 2
+    log('[amp] Transformer losses %s' % ', '.join('%.4f' % x
+                                                  for x in losses))
+    log('[amp] Transformer step seconds %s'
+        % ', '.join('%.4f' % x for x in step_s))
+    log('[amp] Transformer median step (steps 2-%d) %.4f s: %.1f source+'
+        'target positions/s; launches per step: %s; card: %s'
+        % (TRAIN_STEPS, med, positions / med,
+           {n: v // TRAIN_STEPS for n, v in sorted(launches.items()) if v},
+           nvidia_smi_line()))
+
+    # AMP against fp32 on the card: the same program undecorated, from the
+    # same weights on the same batches (the JAX tests/test_amp.py bound)
+    main32, startup32, cost32, _, _ = build_trainer()
+    s32 = fluid.Scope()
+    exe32 = fluid.Executor()
+    # the startup run keeps the run counter, which seeds dropout, in step
+    # with the AMP run's
+    exe32.run(startup32, scope=s32)
+    s32.load_numpy(initial, fluid.CUDAPlace(0))
+    fp32_losses = [float(np.asarray(exe32.run(
+        main32, feed=f, fetch_list=[cost32], scope=s32)[0]).reshape(()))
+        for f in feeds]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(losses, fp32_losses))
+    log('[amp] Transformer AMP against fp32 losses on the card: %s vs %s; '
+        'worst relative diff %.3g (tol rtol %g, atol %g)'
+        % (', '.join('%.4f' % x for x in losses),
+           ', '.join('%.4f' % x for x in fp32_losses), worst,
+           AMP_FP32_RTOL, AMP_FP32_ATOL))
+    np.testing.assert_allclose(losses, fp32_losses, rtol=AMP_FP32_RTOL,
+                               atol=AMP_FP32_ATOL)
+    del s32, exe32
+    _check_amp_grads_against_cpu(initial)
+    torch.cuda.synchronize()
+    return launches
+
+
+def _amp_resnet():
+    """ResNet-50 with a bf16 feed under AMP at batch 32, NHWC (bench.py's
+    default) and NCHW, RESNET_STEPS steps each; returns the launch counts
+    of those runs (none of the port's kernels)."""
+    import torch
+    from paddle_tpu_torch import fluid
+    t0 = time.perf_counter()
+    feeds = amp_resnet_feeds(RESNET_STEPS)
+    log('[amp] read %d flowers batches of %d as bf16 (DataFeeder) in '
+        '%.3f s' % (RESNET_STEPS, RESNET_BATCH, time.perf_counter() - t0))
+    total = {}
+    first = {}
+    for fmt in ('NHWC', 'NCHW'):
+        main, startup, avg_cost = build_resnet_amp(fmt)
+        scope = fluid.Scope()
+        exe = fluid.Executor()
+        exe.run(startup, scope=scope)
+        if fmt == 'NHWC':
+            # the startup weights as they are (the tower's are bf16)
+            initial = {n: t.detach().cpu().clone()
+                       for n, t in scope.vars.items()}
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launch_counts()
+        losses, step_s = [], []
+        for feed in feeds[fmt]:
+            t0 = time.perf_counter()
+            loss, = exe.run(main, feed=feed, fetch_list=[avg_cost],
+                            scope=scope)
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(loss[0]))
+        launches = _launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        for n, v in launches.items():
+            total[n] = total.get(n, 0) + v
+        if not np.isfinite(losses).all():
+            raise AssertionError('non-finite AMP ResNet-50 loss (%s): %r'
+                                 % (fmt, losses))
+        dtypes = sorted({str(t.dtype) for t in scope.vars.values()
+                         if t.is_floating_point()})
+        first[fmt] = losses[0]
+        med = float(np.median(step_s[1:]))
+        log('[amp] ResNet-50 %s, bf16 feed: losses %s' % (
+            fmt, ', '.join('%.4f' % x for x in losses)))
+        log('[amp] ResNet-50 %s step seconds %s' % (
+            fmt, ', '.join('%.4f' % x for x in step_s)))
+        log('[amp] ResNet-50 %s median step (steps 2-%d) %.4f s: %.1f '
+            'images/s at batch %d; peak memory %.3f GB; captures %d, '
+            'replays %d; floating persistables after the run: %s; card: %s'
+            % (fmt, RESNET_STEPS, med, RESNET_BATCH / med, RESNET_BATCH,
+               peak / 1e9, exe.cache_stats['captures'],
+               exe.cache_stats['replays'], dtypes, nvidia_smi_line()))
+        if exe.cache_stats['captures'] != 1:
+            raise AssertionError('AMP ResNet-50 %s: %r'
+                                 % (fmt, exe.cache_stats))
+        # falling losses: over different flowers batches the loss swings
+        # (fp32 as much, phase 7), so one batch repeated from the startup
+        # weights, which must end below half its first loss
+        s2 = fluid.Scope()
+        exe.run(startup, scope=s2)
+        learn = [float(exe.run(main, feed=feeds[fmt][0],
+                               fetch_list=[avg_cost], scope=s2)[0][0])
+                 for _ in range(RESNET_LEARN_STEPS)]
+        log('[amp] ResNet-50 %s, one batch repeated %d steps from the '
+            'startup weights: loss %s' % (fmt, RESNET_LEARN_STEPS, ', '.join(
+                '%.4f' % x for x in learn)))
+        if not (np.isfinite(learn).all() and learn[-1] < learn[0] / 2):
+            raise AssertionError('AMP ResNet-50 %s on one batch: loss %r '
+                                 'at step %d, not below half of the first '
+                                 '%r' % (fmt, learn[-1], RESNET_LEARN_STEPS,
+                                         learn[0]))
+        del scope, s2, exe
+    rel = abs(first['NHWC'] - first['NCHW']) / abs(first['NCHW'])
+    log('[amp] ResNet-50 step 1 from the same startup weights: NHWC loss '
+        '%.6f, NCHW %.6f (relative diff %.3g, tol %g)'
+        % (first['NHWC'], first['NCHW'], rel, AMP_LAYOUT_TOL))
+    if not rel <= AMP_LAYOUT_TOL:
+        raise AssertionError('AMP NHWC loss %r, NCHW %r'
+                             % (first['NHWC'], first['NCHW']))
+    _amp_resnet_card_against_cpu(initial, *feeds['raw'])
+    torch.cuda.synchronize()
+    return total
+
+
+def _amp_resnet_card_against_cpu(initial, images, labels):
+    """Step 1 of the AMP NHWC tower from the startup weights `initial` (bf16
+    as the tower declares them) on the card and on the CPU (AMP on both)
+    at RESNET_CPU_BATCH rows of the first flowers batch (fp32 NCHW
+    `images`, rounded to bf16 as the feed rounds them): the loss, the
+    gradients and the running stats within RESNET_GRAD_SPREAD times the
+    CPU's own spread (its step again with AMP_INPUT_FLIPS of the bf16
+    input moved to the next bf16 value), by the median over the tensors of
+    the relative L2 difference; the loss within one bf16 ulp at least
+    (the tower computes it in bf16). Logged beside it: AMP's own
+    difference (the fp32 tower on the CPU from the same values) and the
+    control (the fp32 tower on the card). Then both layouts' steps op by
+    op (_ops_against_cpu)."""
+    import torch
+    main, _, avg_cost = build_resnet_amp('NHWC')
+    main32, _, cost32, _, _ = build_resnet('NHWC')
+    gnames = _autodiff_grads(main)
+    if _autodiff_grads(main32) != gnames:
+        raise AssertionError('the fp32 NHWC tower has other gradients')
+    if main.global_block().var(avg_cost.name).dtype != 'bfloat16':
+        raise AssertionError('the AMP tower\'s loss is not bf16')
+    stats = _bn_stats(main)
+    # the fp32 tower's startup weights: the same values, widened
+    initial32 = {n: t.to(torch.float32) if t.is_floating_point() else t
+                 for n, t in initial.items()}
+    flips = np.random.RandomState(SEED).rand(*images.shape) < AMP_INPUT_FLIPS
+
+    def nhwc(x):
+        return np.ascontiguousarray(x.transpose(0, 2, 3, 1))
+
+    feeds = {}
+
+    def runs(rows):
+        x, y = images[:rows], labels[:rows]
+        bf16 = torch.from_numpy(nhwc(x)).to(torch.bfloat16)
+        moved = (bf16.view(torch.int16) + torch.from_numpy(
+            nhwc(flips[:rows])).to(torch.int16)).view(torch.bfloat16)
+        feeds.update(bf16={'data': bf16, 'label': y},
+                     nudged={'data': moved, 'label': y},
+                     fp32={'data': nhwc(x), 'label': y})
+        return [('card', True, main, avg_cost, feeds['bf16'], initial),
+                ('cpu', False, main, avg_cost, feeds['bf16'], initial),
+                ('nudged', False, main, avg_cost, feeds['nudged'], initial),
+                ('cpu fp32', False, main32, cost32, feeds['fp32'],
+                 initial32),
+                ('card fp32', True, main32, cost32, feeds['fp32'],
+                 initial32)]
+
+    rows, outs, after, secs = _first_steps(stats, gnames, runs, 'amp')
+    moved = int((feeds['nudged']['data'] != feeds['bf16']['data']).sum())
+    med_g = _median_rel(outs, gnames, 'card', 'cpu')
+    med_n = _median_rel(outs, gnames, 'nudged', 'cpu')
+
+    def stat_spread(a, b):
+        return float(np.median([_rel_l2(after[a][n], after[b][n])
+                                for n in stats]))
+
+    med_s, med_sn = stat_spread('card', 'cpu'), stat_spread('nudged', 'cpu')
+    loss = {k: float(outs[k][0][0]) for k in outs}
+    ulp = 2.0 ** (np.floor(np.log2(abs(loss['cpu']))) - 7)
+    loss_tol = max(ulp, RESNET_GRAD_SPREAD * abs(loss['nudged']
+                                                 - loss['cpu']))
+    bad = [n for i, n in enumerate(gnames)
+           if not np.isfinite(outs['card'][1 + i]).all()]
+    log('[amp] ResNet-50 NHWC under AMP, step 1 from the startup weights, '
+        'card vs CPU (AMP on both) at batch %d (CPU step %.2f s, card %.2f '
+        's; the CPU\'s own spread: %d of %d bf16 inputs moved to the next '
+        'bf16 value): loss %.6f vs %.6f, nudged %.6f (tol %g); %d running '
+        'stats, |diff| / |cpu| (L2) median %.3g, spread %.3g; %d '
+        'gradients, median %.3g, spread %.3g (tol %g x the spread on '
+        'both); AMP\'s own (the fp32 tower on the CPU) %.3g, loss %.6f; '
+        'the control (the fp32 tower on the card) %.3g'
+        % (rows, secs['cpu'], secs['card'], moved, images[:rows].size,
+           loss['card'], loss['cpu'], loss['nudged'], loss_tol, len(stats),
+           med_s, med_sn, len(gnames), med_g, med_n, RESNET_GRAD_SPREAD,
+           _median_rel(outs, gnames, 'cpu', 'cpu fp32'), loss['cpu fp32'],
+           _median_rel(outs, gnames, 'card fp32', 'cpu')))
+    if bad or not (abs(loss['card'] - loss['cpu']) <= loss_tol
+                   and med_s <= RESNET_GRAD_SPREAD * med_sn
+                   and med_g <= RESNET_GRAD_SPREAD * med_n):
+        raise AssertionError(
+            'AMP ResNet-50 step 1, card vs CPU: loss %r vs %r (tol %g), '
+            'running stats %.3g against the CPU\'s own %.3g, gradients '
+            '%.3g against %.3g (tol %g x), non-finite %r' % (
+                loss['card'], loss['cpu'], loss_tol, med_s, med_sn, med_g,
+                med_n, RESNET_GRAD_SPREAD, bad))
+    _ops_against_cpu('ResNet-50 NHWC step 1 (%d rows)' % rows, main,
+                     initial, feeds['bf16'], [avg_cost])
+    main_nchw, _, cost_nchw = build_resnet_amp('NCHW')
+    _ops_against_cpu('ResNet-50 NCHW step 1 (%d rows)' % rows, main_nchw,
+                     initial, dict(feeds['bf16'], data=feeds['bf16'][
+                         'data'].permute(0, 3, 1, 2).contiguous()),
+                     [cost_nchw])
+
+
+def transpiled_predictor(dirname, place=None):
+    """A Predictor of the saved fp32 artifact, transpiled in its own scope
+    by fluid.contrib.Float16Transpiler: bf16 weights, AMP, fp32
+    fetches."""
+    from paddle_tpu_torch import fluid, inference
+    pred = inference.Predictor(dirname, place=place)
+    converted = fluid.contrib.Float16Transpiler().transpile(
+        pred._program, scope=pred._scope)
+    if not converted:
+        raise AssertionError('the transpiler converted nothing')
+    return pred
+
+
+def _amp_serving():
+    """Transformer-base's inference artifact transpiled to bf16 behind a
+    ServingEngine (max batch 16) on the card; returns the launch counts
+    of the warmup and the traffic."""
+    import torch
+    from paddle_tpu_torch import fluid, inference, serving
+    cfg = TRANSFORMER_BASE
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_amp_') as tmp:
+        build_artifact(tmp, cfg, fluid.CUDAPlace(0))
+        pred = transpiled_predictor(tmp)
+        cpu = transpiled_predictor(tmp, place=fluid.CPUPlace())
+        fp32 = inference.Predictor(tmp)
+    engine = serving.ServingEngine(pred, serving.ServingConfig(
+        max_batch_size=16, max_queue_delay_ms=20.0))
+    reqs = make_requests(8, 4, cfg['max_length'], cfg['trg_vocab_size'],
+                         np.random.RandomState(SEED + 2))
+    try:
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        buckets = engine.warmup()
+        warm_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(len(reqs)) as pool:
+            futs = list(pool.map(engine.submit, reqs))
+        answers = [f.result(timeout=600)[0] for f in futs]
+        serve_s = time.perf_counter() - t0
+        launches = _launch_counts()
+        stats = engine.stats
+    finally:
+        engine.shutdown()
+    runs = serving.engine.WARMUP_RUNS * len(buckets) + stats['batches']
+    want = ATTENTION_OPS_PER_FORWARD * runs
+    if launches['flash_attention_fwd_bf16'] != want or \
+            launches['flash_attention_fwd']:
+        raise AssertionError('bf16 serving launched %r for %d forwards; '
+                             'the path must launch the bf16 forward %d '
+                             'times per forward and no fp32 one'
+                             % (launches, runs, ATTENTION_OPS_PER_FORWARD))
+    worst = 0.0
+    for req, ans in zip(reqs, answers):
+        n = req['src_word'].shape[0]
+        if ans.dtype != np.float32 or ans.shape != (
+                n, cfg['max_length'], cfg['trg_vocab_size']) or \
+                not np.isfinite(ans).all():
+            raise AssertionError('bf16 serving answered %s %r'
+                                 % (ans.dtype, ans.shape))
+        worst = max(worst, _rel_l2(ans, pred.run(req)[0]))
+    if not worst <= AMP_CROSS_DEVICE_TOL:
+        raise AssertionError('bf16 engine answers against Predictor.run: '
+                             '%.3g (tol %g)' % (worst, AMP_CROSS_DEVICE_TOL))
+    small = {k: v[:1] for k, v in reqs[0].items()}
+    ref = cpu.run(small)[0]
+    diff = _rel_l2(answers[0][:1], ref)
+    control = _rel_l2(fp32.run(small)[0], ref)
+    log('[amp] bf16 serving (Float16Transpiler in the Predictor\'s scope): '
+        'warmup over buckets %s %.3f s; %d requests in %d batch(es) in '
+        '%.4f s; fp32 answers; vs Predictor.run: |diff| / |logits| (L2) '
+        '%.3g; card vs CPU on one row: %.3g, max abs diff %.3g (|logits| '
+        'max %.3g; tol %g on both); the control, the fp32 artifact on the '
+        'card against the CPU\'s bf16 answer: %.3g; '
+        'flash_attention_fwd_bf16 launches %d = %d x %d forwards'
+        % (buckets, warm_s, len(reqs), stats['batches'], serve_s, worst,
+           diff, float(np.abs(answers[0][:1] - ref).max()),
+           float(np.abs(ref).max()), AMP_CROSS_DEVICE_TOL, control,
+           launches['flash_attention_fwd_bf16'], ATTENTION_OPS_PER_FORWARD,
+           runs))
+    if not diff <= AMP_CROSS_DEVICE_TOL:
+        raise AssertionError('bf16 serving, card vs CPU: %.3g' % diff)
+    if not control > AMP_CROSS_DEVICE_TOL:
+        raise AssertionError('the control (the fp32 artifact) passes the '
+                             'bf16 serving bound: %.3g' % control)
+    _ops_against_cpu('bf16 serving, one row', pred._program,
+                     dict(pred._scope.vars), small, pred._fetch_vars)
+    torch.cuda.synchronize()
+    return launches
+
+
+def phase_amp():
+    """AMP on the card through the entry points: Transformer-base training
+    and ResNet-50 (bf16 feed, NHWC and NCHW) training under
+    decorate_program, and bf16 serving through Float16Transpiler; returns
+    {path: launch counts} for amp_training and amp_serving."""
+    train = _amp_transformer()
+    for n, v in _amp_resnet().items():
+        train[n] += v
+    return {'amp_training': train, 'amp_serving': _amp_serving()}
+
+
 # -- phase 8 ----------------------------------------------------------------
 
 def _to_host(tensors):
@@ -2196,7 +3057,9 @@ def _to_host(tensors):
         h.copy_(t, non_blocking=True)
         outs.append(h)
     torch.cuda.current_stream().synchronize()
-    return [h.numpy() for h in outs]
+    # numpy has no bf16: widened, as Executor.run widens its fetches
+    return [(h.float() if h.dtype == torch.bfloat16 else h).numpy()
+            for h in outs]
 
 
 def _device_busy(fn, n):
@@ -2379,11 +3242,15 @@ def _launches_under(fn, n):
             if v.launches != before[k]}
 
 
-def _captured_transformer(records):
-    """Transformer-base training at batch 16 (get_model, dropout 0.1)."""
+def _captured_transformer(records, amp=False):
+    """Transformer-base training at batch 16 (get_model, dropout 0.1); with
+    amp under decorate_program (the bf16 attention kernels)."""
     import torch
     from paddle_tpu_torch import fluid
     main, startup, avg_cost, names, reader = build_trainer()
+    tag = 'transformer' + (' AMP' if amp else '')
+    if amp:
+        fluid.amp.decorate_program(main)
     init = fluid.Scope()
     fluid.Executor().run(startup, scope=init)
     it = reader()
@@ -2408,41 +3275,41 @@ def _captured_transformer(records):
         runs.append((losses, scope, exe))
     (cl, cs, cexe), (el, es, _) = runs
     if cexe.cache_stats['captures'] != 1 or cexe.cache_stats['replays'] != 2:
-        raise AssertionError('3 Transformer steps: %r' % (cexe.cache_stats,))
+        raise AssertionError('3 %s steps: %r' % (tag, cexe.cache_stats))
     for j, (a, b) in enumerate(zip(cl, el)):
         if not np.array_equal(a, b):
-            raise AssertionError('dropout 0.1: captured run %d loss %r, '
-                                 'eager run %d %r' % (j, a, j, b))
+            raise AssertionError('%s, dropout 0.1: captured run %d loss %r, '
+                                 'eager run %d %r' % (tag, j, a, j, b))
     diff = [n for n in cs.vars if not torch.equal(cs.vars[n], es.vars[n])]
     if diff:
-        raise AssertionError('dropout 0.1: after 3 steps captured and eager '
-                             'differ in %r' % diff[:8])
-    log('[captured] transformer: 3 steps with dropout 0.1, captured (warm-'
-        'up, capture, replay) against eager: losses %s and all %d '
-        'persistables bitwise equal' % (
-            ', '.join('%.6f' % float(np.asarray(x).reshape(()))
-                      for x in cl), len(cs.vars)))
+        raise AssertionError('%s, dropout 0.1: after 3 steps captured and '
+                             'eager differ in %r' % (tag, diff[:8]))
+    log('[captured] %s: 3 steps with dropout 0.1, captured (warm-up, '
+        'capture, replay) against eager: losses %s and all %d persistables '
+        'bitwise equal' % (
+            tag, ', '.join('%.6f' % float(np.asarray(x).reshape(()))
+                           for x in cl), len(cs.vars)))
     del runs, es
     exe, scope = cexe, cs
     launches = _launches_under(
         lambda: exe.run(main, feed=feeds[3], fetch_list=[avg_cost],
                         scope=scope), 2)
-    want = {k: float(ATTENTION_OPS_PER_FORWARD) for k in (
-        'flash_attention_fwd', 'flash_attention_bwd_dq',
-        'flash_attention_bwd_dkv')}
+    want = {k + ('_bf16' if amp else ''): float(ATTENTION_OPS_PER_FORWARD)
+            for k in ('flash_attention_fwd', 'flash_attention_bwd_dq',
+                      'flash_attention_bwd_dkv')}
     if launches != want:
-        raise AssertionError('Transformer replays launched %r per step, not '
-                             '%r' % (launches, want))
+        raise AssertionError('%s replays launched %r per step, not %r'
+                             % (tag, launches, want))
     h = exe.acquire_step(main, feed=feeds[3], fetch_list=[avg_cost],
                          scope=scope)
     art = exe.step_artifact(main, feed=feeds[3], fetch_list=[avg_cost],
                             scope=scope)
-    _replay_against_eager('transformer', h, art, scope, feeds[3], 77)
+    _replay_against_eager(tag, h, art, scope, feeds[3], 77)
     state = {n: t.clone() for n, t in art.state_dict(scope).items()}
     dev = {n: torch.from_numpy(v).cuda() for n, v in feeds[3].items()}
     g = torch.Generator(device='cuda')
     r = _measure(
-        'transformer training, batch 16',
+        'transformer training, batch 16' + (', AMP' if amp else ''),
         lambda: exe.run(main, feed=feeds[3], fetch_list=[avg_cost],
                         scope=scope),
         lambda: _to_host(art.debug_step(state, dev, 5, generator=g)[0]),
@@ -2580,44 +3447,54 @@ def _captured_decode(records):
 
 
 def _captured_serving(records):
-    """Predictor.run on full-width Transformer-base at batch 1 and 16."""
+    """Predictor.run on full-width Transformer-base at batch 1 and 16, fp32
+    and transpiled to bf16 (Float16Transpiler)."""
     import torch
     from paddle_tpu_torch import fluid, inference
     cfg = TRANSFORMER_BASE
     with tempfile.TemporaryDirectory(prefix='chip_smoke_cap_') as tmp:
         build_artifact(tmp, cfg, fluid.CUDAPlace(0))
-        pred = inference.Predictor(tmp)
+        preds = [('', inference.Predictor(tmp)),
+                 (', bf16', transpiled_predictor(tmp))]
     rng = np.random.RandomState(SEED)
     req = make_requests(1, 1, cfg['max_length'], cfg['trg_vocab_size'],
                         rng)[0]
+    for (tag, pred), b in itertools.product(preds, (1, 16)):
+        _captured_serving_at(records, pred, req, b, tag)
+
+
+def _captured_serving_at(records, pred, req, b, tag):
+    """One batch size of _captured_serving; tag ', bf16' for the
+    transpiled predictor."""
+    import torch
     exe, scope = pred._exe, pred._scope
-    for b in (1, 16):
-        feed = {n: np.repeat(a, b, axis=0) for n, a in req.items()}
-        pred.run(feed)              # the warm-up
-        r0 = _reserved()
-        pred.run(feed)              # the capture and its first replay
-        pool = _reserved() - r0
-        fetch = pred._fetch_vars
-        h = exe.acquire_step(pred._program, feed=feed, fetch_list=fetch,
-                             scope=scope)
-        art = exe.step_artifact(pred._program, feed=feed, fetch_list=fetch,
-                                scope=scope)
-        _replay_against_eager('serving, batch %d' % b, h, art, scope, feed,
-                              0)
-        launches = _launches_under(lambda: pred.run(feed), 2)
-        if launches != {'flash_attention_fwd':
-                        float(ATTENTION_OPS_PER_FORWARD)}:
-            raise AssertionError('serving replays launched %r per forward'
-                                 % (launches,))
-        state = art.state_dict(scope)
-        dev = {n: torch.from_numpy(v).cuda() for n, v in feed.items()}
-        g = torch.Generator(device='cuda')
-        r = _measure('serving, batch %d' % b, lambda: pred.run(feed),
-                     lambda: _to_host(art.debug_step(
-                         state, dev, 0, generator=g)[0]),
-                     pool)
-        r['launches_per_replay'] = launches
-        records.append(r)
+    fwd = 'flash_attention_fwd' + ('_bf16' if tag else '')
+    feed = {n: np.repeat(a, b, axis=0) for n, a in req.items()}
+    pred.run(feed)              # the warm-up
+    r0 = _reserved()
+    pred.run(feed)              # the capture and its first replay
+    pool = _reserved() - r0
+    fetch = pred._fetch_vars
+    h = exe.acquire_step(pred._program, feed=feed, fetch_list=fetch,
+                         scope=scope)
+    art = exe.step_artifact(pred._program, feed=feed, fetch_list=fetch,
+                            scope=scope)
+    _replay_against_eager('serving, batch %d%s' % (b, tag), h, art,
+                          scope, feed, 0)
+    launches = _launches_under(lambda: pred.run(feed), 2)
+    if launches != {fwd: float(ATTENTION_OPS_PER_FORWARD)}:
+        raise AssertionError('serving replays launched %r per forward'
+                             % (launches,))
+    state = art.state_dict(scope)
+    dev = {n: torch.from_numpy(v).cuda() for n, v in feed.items()}
+    g = torch.Generator(device='cuda')
+    r = _measure('serving, batch %d%s' % (b, tag),
+                 lambda: pred.run(feed),
+                 lambda: _to_host(art.debug_step(
+                     state, dev, 0, generator=g)[0]),
+                 pool)
+    r['launches_per_replay'] = launches
+    records.append(r)
 
 
 def _captured_image(records):
@@ -2644,22 +3521,29 @@ def _captured_image(records):
     # go on decoding the epoch while the steps are timed
     feed50 = [feeder50.feed(b) for b in reader50()
               if len(b) == RESNET_BATCH][0]
-    for name, prog, start, cost, feed in (
-            ('MNIST LeNet training, batch 128', main, startup, avg_cost,
-             lenet_feeds[0]),
-            ('ResNet-50 training, batch 32', main50, startup50, cost50,
-             feed50)):
+    paths = [('MNIST LeNet training, batch 128', main, startup, avg_cost,
+              lenet_feeds[0]),
+             ('ResNet-50 training, batch 32', main50, startup50, cost50,
+              feed50)]
+    amp_feeds = amp_resnet_feeds(1)
+    for fmt in ('NHWC', 'NCHW'):
+        paths.append(('ResNet-50 training, batch 32, AMP %s' % fmt,)
+                     + build_resnet_amp(fmt) + (amp_feeds[fmt][0],))
+    for name, prog, start, cost, feed in paths:
         scope = fluid.Scope()
         exe = fluid.Executor()
         exe.run(start, scope=scope)
-        exe.run(prog, feed=feed, fetch_list=[cost], scope=scope)
-        r0 = _reserved()
-        exe.run(prog, feed=feed, fetch_list=[cost], scope=scope)
-        pool = _reserved() - r0
+        # warm-ups until the capture (an AMP tower's bf16-declared weights
+        # and velocities come back fp32 from their first updates: two
+        # warm-ups more)
+        while not exe.cache_stats['captures']:
+            r0 = _reserved()
+            exe.run(prog, feed=feed, fetch_list=[cost], scope=scope)
+            pool = _reserved() - r0
         art = exe.step_artifact(prog, feed=feed, fetch_list=[cost],
                                 scope=scope)
         state = {n: t.clone() for n, t in art.state_dict(scope).items()}
-        dev = {n: torch.from_numpy(v).cuda() for n, v in feed.items()}
+        dev = {n: torch.as_tensor(v).cuda() for n, v in feed.items()}
         g = torch.Generator(device='cuda')
         differ = _eager_spread(art, state, dev)
         records.append(_measure(
@@ -2671,13 +3555,14 @@ def _captured_image(records):
         del state, exe, scope
         # cuDNN's default convolution algorithms are not deterministic:
         # the replay is held to the eager walk with deterministic ones, in
-        # a capture of its own
+        # a capture of its own; what they cost is the median replay beside
+        # the default one
         torch.backends.cudnn.deterministic = True
         try:
             scope = fluid.Scope()
             exe = fluid.Executor()
             exe.run(start, scope=scope)
-            for _ in range(2):
+            while not exe.cache_stats['captures']:
                 exe.run(prog, feed=feed, fetch_list=[cost], scope=scope)
             h = exe.acquire_step(prog, feed=feed, fetch_list=[cost],
                                  scope=scope)
@@ -2685,10 +3570,22 @@ def _captured_image(records):
                                     scope=scope)
             _replay_against_eager(name + ', cuDNN deterministic', h, art,
                                   scope, feed, 0)
+            secs = []
+            for _ in range(CAPTURED_STEPS):
+                t0 = time.perf_counter()
+                exe.run(prog, feed=feed, fetch_list=[cost], scope=scope)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
         finally:
             torch.backends.cudnn.deterministic = False
+        det = float(np.median(secs)) * 1e3
+        records[-1]['cudnn_deterministic_median_step_ms'] = det
         log('[captured] %s: with cuDNN\'s default algorithms two eager '
-            'walks from one state differ in %d tensors' % (name, differ))
+            'walks from one state differ in %d tensors; the replay with '
+            'cudnn.deterministic %.4f ms against %.4f ms with the default '
+            'algorithms (%.3fx)'
+            % (name, differ, det, records[-1]['captured']['median_step_ms'],
+               det / records[-1]['captured']['median_step_ms']))
         del h, art, exe, scope
 
     # the guard: one step fed a NaN leaves every persistable bitwise as it
@@ -2732,6 +3629,7 @@ def phase_captured():
     import torch
     records = []
     _captured_transformer(records)
+    _captured_transformer(records, amp=True)
     _captured_ctr(records)
     _captured_decode(records)
     _captured_serving(records)
@@ -2759,6 +3657,7 @@ def main():
                'ctr_training': phase_ctr_training(),
                'decode': phase_decode(),
                'image_training': phase_image_training()}
+    by_path.update(phase_amp())
     phase_captured()
     for path, counts in by_path.items():
         stray = {k: n for k, n in counts.items()

@@ -1,5 +1,6 @@
 // Flash-attention backward for Hopper (sm_90a): fp32 in and out, tile
-// products on the tensor cores in 3xTF32.
+// products on the tensor cores in 3xTF32; and its bf16 variants (at the
+// end of the file), bf16 in and out, bf16 tile products.
 //
 // Replaces the four Pallas grids of the TPU backward in
 // paddle_tpu/ops/flash_attention.py:
@@ -139,6 +140,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "bf16_mma.cuh"
 #include "port_cuda.cuh"
 #include "tf32_mma.cuh"
 
@@ -565,5 +567,438 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
   if (D <= 64) PORT_DKV(64);
   if (D <= 128) PORT_DKV(128);
 #undef PORT_DKV
+  return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 variants: q, k, v, dO [B, H, T, D] bf16 in, dQ, dK, dV bf16 out;
+// bias, lse and delta fp32, as are P, dS and every accumulator.
+//
+// What the TPU kernels do with bf16 tiles: they upcast q, k, v and dO to
+// fp32 (:173-176, :228-231), take every dot in fp32 and write dQ, dK and dV
+// in their operands' dtypes (:197, :254-255). These kernels compute the same
+// function, with the fp32 kernels' structure (two passes, each block owning
+// the rows it writes, the same masks and causal loop bounds, bitwise
+// reproducible):
+//   * s = Q.K^T and dP = dO.V^T (and their transposes in the dK/dV kernel):
+//     one mma.sync.m16n8k16 bf16 with fp32 accumulation each. A product of
+//     two bf16 values is exact in fp32. The scale multiplies the fp32
+//     score after the product, as in the fp32 kernels.
+//   * dQ = dS.K, dV = P^T.dO and dK = dS^T.Q, where P and dS are fp32: the
+//     fp32 operand is split into two bf16 terms, hi = bf16(x) and lo =
+//     bf16(x - hi), each multiplied with the bf16 tile and accumulated in
+//     fp32. The split keeps about 16 bits of P and dS; its error (below
+//     2^-16 relative) is far below the bf16 rounding of dQ, dK and dV
+//     (2^-9) that the reference applies anyway. dQ's and dK's accumulators
+//     are multiplied by the scale at the end (dK = scale * dS^T.Q is
+//     dS^T.(q * scale) rounded in another place).
+//   * The C fragments of two adjacent steps of 8 are the A fragment of a
+//     16-step of the next product (c_to_a_split), so dS and P stay in
+//     registers with no permutation. The right-hand sides of the second
+//     products (K in dQ; dO and Q in dK/dV) are read down their columns
+//     with 16-bit loads (load_b_cols); the first products read theirs along
+//     rows with 32-bit loads.
+// What bounds them: 14 * B * H * D * pairs FLOPs at the bf16 dense rate;
+// the split products count twice on the tensor cores. Shared rows are
+// padded to DP + 8 bf16; 6 tiles: 54 KB at D = 64.
+namespace {
+
+template <int DP>
+constexpr int bwd_bf16_smem_bytes() {
+  // 2 resident tiles and 2 streamed tiles x 2 stages of [64][DP+8] bf16;
+  // five 64-entry fp32 vectors, as smem_floats
+  return 6 * BLOCK * (DP + 8) * 2 + 5 * BLOCK * 4;
+}
+
+template <int DP>
+__global__ void __launch_bounds__(THREADS)
+bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, const float* __restrict__ bias,
+                   const bf16* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, bf16* __restrict__ dq,
+                   int H, int Tq, int Tk, int D, float scale, int causal,
+                   int mode) {
+  constexpr int P = DP + 8;
+  constexpr int TILE = BLOCK * P;
+  constexpr int NC = DP >= 128 ? 32 : 64;  // keys in registers at a time
+  constexpr int NT = NC / 8;
+  constexpr int DT = DP / 8;
+  constexpr int DK = DP / 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* dOs = Qs + TILE;
+  bf16* Ks = dOs + TILE;         // [2][TILE]
+  bf16* Vs = Ks + 2 * TILE;      // [2][TILE]
+  float* Bs = reinterpret_cast<float*>(Vs + 2 * TILE);   // [2][BLOCK]
+  float* Ls = Bs + 2 * BLOCK;
+  float* Ds = Ls + BLOCK;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = 16 * warp;
+  const size_t bh = blockIdx.x;
+  const int b = (int)(bh / H);
+  const int q0 = ((Tq + BLOCK - 1) / BLOCK - 1 - (int)blockIdx.y) * BLOCK;
+  const bf16* kb = k + bh * Tk * D;
+  const bf16* vb = v + bh * Tk * D;
+  const float* biasb = bias + (size_t)b * Tk;
+
+  if (D < DP) zero_pad_bf16<DP>(Qs, 6, D);
+  load_tile_bf16<DP>(Qs, q + bh * Tq * D, q0, Tq, D, mode);
+  load_tile_bf16<DP>(dOs, dout + bh * Tq * D, q0, Tq, D, mode);
+  load_vec(Ls, lse + bh * Tq, q0, Tq);
+  load_vec(Ds, delta + bh * Tq, q0, Tq);
+
+  int n_tiles = (Tk + BLOCK - 1) / BLOCK;
+  if (causal) {
+    const int last_row = min(q0 + BLOCK, Tq) - 1;
+    n_tiles = min(n_tiles, last_row / BLOCK + 1);
+  }
+  load_tile_bf16<DP>(Ks, kb, 0, Tk, D, mode);
+  load_tile_bf16<DP>(Vs, vb, 0, Tk, D, mode);
+  load_vec(Bs, biasb, 0, Tk);
+  cp_async_commit();
+
+  float acc[DT][4];
+#pragma unroll
+  for (int n = 0; n < DT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float lse_r[2], del_r[2];
+  const int qpos[2] = {q0 + row0 + g, q0 + row0 + g + 8};
+
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) {
+      const int nxt = (it + 1) & 1, k1 = (it + 1) * BLOCK;
+      load_tile_bf16<DP>(Ks + nxt * TILE, kb, k1, Tk, D, mode);
+      load_tile_bf16<DP>(Vs + nxt * TILE, vb, k1, Tk, D, mode);
+      load_vec(Bs + nxt * BLOCK, biasb, k1, Tk);
+    }
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+    if (it == 0) {
+      lse_r[0] = Ls[row0 + g];
+      lse_r[1] = Ls[row0 + g + 8];
+      del_r[0] = Ds[row0 + g];
+      del_r[1] = Ds[row0 + g + 8];
+    }
+    const bf16* Kt = Ks + (it & 1) * TILE;
+    const bf16* Vt = Vs + (it & 1) * TILE;
+    const float* Bt = Bs + (it & 1) * BLOCK;
+    const int k0 = it * BLOCK;
+
+#pragma unroll 1
+    for (int c0 = 0; c0 < BLOCK; c0 += NC) {
+      float s[NT][4], dp[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < DK; ++ks) {
+        uint32_t qa[4], oa[4];
+        load_a_bf16<P>(qa, Qs, row0, 16 * ks, g, t);
+        load_a_bf16<P>(oa, dOs, row0, 16 * ks, g, t);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          uint32_t kf[2], vf[2];
+          load_b_rows<P>(kf, Kt, c0 + 8 * j, 16 * ks, g, t);
+          load_b_rows<P>(vf, Vt, c0 + 8 * j, 16 * ks, g, t);
+          mma_bf16(s[j], qa, kf);
+          mma_bf16(dp[j], oa, vf);
+        }
+      }
+      // dS' in place of s: C element e sits at row g + 8 (e >> 1), key
+      // column 8j + 2t + (e & 1)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = c0 + 8 * j + 2 * t + (e & 1);
+          const int h = e >> 1;
+          const float val = masked_score(s[j][e], scale, Bt[col], qpos[h],
+                                         k0 + col, Tk, causal);
+          const float p = __expf(val - lse_r[h]);
+          s[j][e] = p * (dp[j][e] - del_r[h]);
+        }
+      // dQ += dS'.K, 16 keys a step, dS' as hi + lo
+#pragma unroll
+      for (int kk = 0; kk < NT / 2; ++kk) {
+        uint32_t dhi[4], dlo[4];
+        c_to_a_split(s[2 * kk], s[2 * kk + 1], dhi, dlo);
+#pragma unroll
+        for (int n = 0; n < DT; ++n) {
+          uint32_t kf[2];
+          load_b_cols<P>(kf, Kt, c0 + 16 * kk, 8 * n, g, t);
+          mma_bf16(acc[n], dlo, kf);
+          mma_bf16(acc[n], dhi, kf);
+        }
+      }
+    }
+    __syncthreads();   // every warp is done with this stage before refill
+  }
+  cp_async_wait_all();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (qpos[h] >= Tq) continue;
+    bf16* drow = dq + (bh * Tq + qpos[h]) * D;
+#pragma unroll
+    for (int n = 0; n < DT; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * n + 2 * t + e;
+        if (col < D) drow[col] = __float2bfloat16(acc[n][2 * h + e] * scale);
+      }
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(THREADS)
+bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v,
+                    const float* __restrict__ bias,
+                    const bf16* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, bf16* __restrict__ dk,
+                    bf16* __restrict__ dv, int H, int Tq, int Tk, int D,
+                    float scale, int causal, int mode) {
+  constexpr int P = DP + 8;
+  constexpr int TILE = BLOCK * P;
+  // queries held in registers at a time (the dK and dV accumulators take
+  // 128 registers a thread at D = 128)
+  constexpr int NC = DP >= 128 ? 16 : 64;
+  constexpr int NT = NC / 8;
+  constexpr int DT = DP / 8;
+  constexpr int DK = DP / 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = Ks + TILE;
+  bf16* Qs = Vs + TILE;          // [2][TILE]
+  bf16* dOs = Qs + 2 * TILE;     // [2][TILE]
+  float* Bs = reinterpret_cast<float*>(dOs + 2 * TILE);   // [BLOCK]
+  float* Ls = Bs + BLOCK;        // [2][BLOCK]
+  float* Ds = Ls + 2 * BLOCK;    // [2][BLOCK]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = 16 * warp;
+  const size_t bh = blockIdx.x;
+  const int b = (int)(bh / H);
+  const int k0 = blockIdx.y * BLOCK;
+  const bf16* qb = q + bh * Tq * D;
+  const bf16* dob = dout + bh * Tq * D;
+  const float* lseb = lse + bh * Tq;
+  const float* deltab = delta + bh * Tq;
+
+  if (D < DP) zero_pad_bf16<DP>(Ks, 6, D);
+  load_tile_bf16<DP>(Ks, k + bh * Tk * D, k0, Tk, D, mode);
+  load_tile_bf16<DP>(Vs, v + bh * Tk * D, k0, Tk, D, mode);
+  load_vec(Bs, bias + (size_t)b * Tk, k0, Tk);
+
+  const int n_tiles = (Tq + BLOCK - 1) / BLOCK;
+  const int first = causal ? k0 / BLOCK : 0;
+  if (first < n_tiles) {
+    load_tile_bf16<DP>(Qs, qb, first * BLOCK, Tq, D, mode);
+    load_tile_bf16<DP>(dOs, dob, first * BLOCK, Tq, D, mode);
+    load_vec(Ls, lseb, first * BLOCK, Tq);
+    load_vec(Ds, deltab, first * BLOCK, Tq);
+  }
+  cp_async_commit();
+
+  float acc_k[DT][4], acc_v[DT][4];
+#pragma unroll
+  for (int n = 0; n < DT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+  float bias_r[2];
+  const int kpos[2] = {k0 + row0 + g, k0 + row0 + g + 8};
+
+  for (int it = first; it < n_tiles; ++it) {
+    const int stage = (it - first) & 1;
+    if (it + 1 < n_tiles) {
+      const int nxt = stage ^ 1, q1 = (it + 1) * BLOCK;
+      load_tile_bf16<DP>(Qs + nxt * TILE, qb, q1, Tq, D, mode);
+      load_tile_bf16<DP>(dOs + nxt * TILE, dob, q1, Tq, D, mode);
+      load_vec(Ls + nxt * BLOCK, lseb, q1, Tq);
+      load_vec(Ds + nxt * BLOCK, deltab, q1, Tq);
+    }
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+    if (it == first) {
+      bias_r[0] = Bs[row0 + g];
+      bias_r[1] = Bs[row0 + g + 8];
+    }
+    const bf16* Qt = Qs + stage * TILE;
+    const bf16* dOt = dOs + stage * TILE;
+    const float* Lt = Ls + stage * BLOCK;
+    const float* Dt = Ds + stage * BLOCK;
+    const int q0 = it * BLOCK;
+
+#pragma unroll 1
+    for (int c0 = 0; c0 < BLOCK; c0 += NC) {
+      // s^T = K.Q^T and dP^T = V.dO^T over this chunk's queries
+      float st[NT][4], dpt[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < DK; ++ks) {
+        uint32_t ka[4], va[4];
+        load_a_bf16<P>(ka, Ks, row0, 16 * ks, g, t);
+        load_a_bf16<P>(va, Vs, row0, 16 * ks, g, t);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          uint32_t qf[2], of[2];
+          load_b_rows<P>(qf, Qt, c0 + 8 * j, 16 * ks, g, t);
+          load_b_rows<P>(of, dOt, c0 + 8 * j, 16 * ks, g, t);
+          mma_bf16(st[j], ka, qf);
+          mma_bf16(dpt[j], va, of);
+        }
+      }
+      // P in place of s^T, dS' in place of dP^T: C element e sits at key
+      // row g + 8 (e >> 1), query column 8j + 2t + (e & 1); rows past Tq
+      // have no dO and must add nothing, whatever the bias
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = c0 + 8 * j + 2 * t + (e & 1);
+          const int qp = q0 + col;
+          const int h = e >> 1;
+          const float val = masked_score(st[j][e], scale, bias_r[h], qp,
+                                         kpos[h], Tk, causal);
+          const float p = qp < Tq ? __expf(val - Lt[col]) : 0.f;
+          st[j][e] = p;
+          dpt[j][e] = p * (dpt[j][e] - Dt[col]);
+        }
+      // dV += P^T.dO and dK += dS'^T.Q, 16 queries a step, P and dS' as
+      // hi + lo
+#pragma unroll
+      for (int kk = 0; kk < NT / 2; ++kk) {
+        uint32_t phi[4], plo[4], dhi[4], dlo[4];
+        c_to_a_split(st[2 * kk], st[2 * kk + 1], phi, plo);
+        c_to_a_split(dpt[2 * kk], dpt[2 * kk + 1], dhi, dlo);
+#pragma unroll
+        for (int n = 0; n < DT; ++n) {
+          uint32_t of[2], qf[2];
+          load_b_cols<P>(of, dOt, c0 + 16 * kk, 8 * n, g, t);
+          load_b_cols<P>(qf, Qt, c0 + 16 * kk, 8 * n, g, t);
+          mma_bf16(acc_v[n], plo, of);
+          mma_bf16(acc_k[n], dlo, qf);
+          mma_bf16(acc_v[n], phi, of);
+          mma_bf16(acc_k[n], dhi, qf);
+        }
+      }
+    }
+    __syncthreads();   // every warp is done with this stage before refill
+  }
+  cp_async_wait_all();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (kpos[h] >= Tk) continue;
+    bf16* dkrow = dk + (bh * Tk + kpos[h]) * D;
+    bf16* dvrow = dv + (bh * Tk + kpos[h]) * D;
+#pragma unroll
+    for (int n = 0; n < DT; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * n + 2 * t + e;
+        if (col < D) {
+          dkrow[col] = __float2bfloat16(acc_k[n][2 * h + e] * scale);
+          dvrow[col] = __float2bfloat16(acc_v[n][2 * h + e]);
+        }
+      }
+  }
+}
+
+template <int DP>
+int launch_dq_bf16(const bf16* q, const bf16* k, const bf16* v,
+                   const float* b, const bf16* dout, const float* lse,
+                   const float* delta, bf16* dq, int B, int H, int Tq, int Tk,
+                   int D, float scale, int causal, cudaStream_t stream) {
+  const int smem = bwd_bf16_smem_bytes<DP>();
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_dq_bf16_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(B * H, (Tq + BLOCK - 1) / BLOCK);
+  bwd_dq_bf16_kernel<DP><<<grid, THREADS, smem, stream>>>(
+      q, k, v, b, dout, lse, delta, dq, H, Tq, Tk, D, scale, causal,
+      copy_mode(D, q, k, v, dout));
+  return (int)cudaGetLastError();
+}
+
+template <int DP>
+int launch_dkv_bf16(const bf16* q, const bf16* k, const bf16* v,
+                    const float* b, const bf16* dout, const float* lse,
+                    const float* delta, bf16* dk, bf16* dv, int B, int H,
+                    int Tq, int Tk, int D, float scale, int causal,
+                    cudaStream_t stream) {
+  const int smem = bwd_bf16_smem_bytes<DP>();
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_dkv_bf16_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(B * H, (Tk + BLOCK - 1) / BLOCK);
+  bwd_dkv_bf16_kernel<DP><<<grid, THREADS, smem, stream>>>(
+      q, k, v, b, dout, lse, delta, dk, dv, H, Tq, Tk, D, scale, causal,
+      copy_mode(D, q, k, v, dout));
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// C entry points of the bf16 variants: q, k, v, dO and the gradients bf16,
+// bias, lse and delta fp32; otherwise as the fp32 entry points.
+#define PORT_B(x) static_cast<const bf16*>(x)
+
+extern "C" int flash_attention_bwd_dq_bf16(const void* q, const void* k,
+                                           const void* v, const void* bias,
+                                           const void* dout, const void* lse,
+                                           const void* delta, void* dq, int B,
+                                           int H, int Tq, int Tk, int D,
+                                           float scale, int causal,
+                                           void* stream) {
+  if ((long long)B * H > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  bf16* out = static_cast<bf16*>(dq);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define PORT_DQ_BF16(DP)                                                   \
+  return launch_dq_bf16<DP>(PORT_B(q), PORT_B(k), PORT_B(v), PORT_F(bias), \
+                            PORT_B(dout), PORT_F(lse), PORT_F(delta), out, \
+                            B, H, Tq, Tk, D, scale, causal, st)
+  if (D <= 16) PORT_DQ_BF16(16);
+  if (D <= 32) PORT_DQ_BF16(32);
+  if (D <= 64) PORT_DQ_BF16(64);
+  if (D <= 128) PORT_DQ_BF16(128);
+#undef PORT_DQ_BF16
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int flash_attention_bwd_dkv_bf16(const void* q, const void* k,
+                                            const void* v, const void* bias,
+                                            const void* dout, const void* lse,
+                                            const void* delta, void* dk,
+                                            void* dv, int B, int H, int Tq,
+                                            int Tk, int D, float scale,
+                                            int causal, void* stream) {
+  if ((long long)B * H > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  bf16* dko = static_cast<bf16*>(dk);
+  bf16* dvo = static_cast<bf16*>(dv);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define PORT_DKV_BF16(DP)                                                   \
+  return launch_dkv_bf16<DP>(PORT_B(q), PORT_B(k), PORT_B(v), PORT_F(bias), \
+                             PORT_B(dout), PORT_F(lse), PORT_F(delta), dko, \
+                             dvo, B, H, Tq, Tk, D, scale, causal, st)
+  if (D <= 16) PORT_DKV_BF16(16);
+  if (D <= 32) PORT_DKV_BF16(32);
+  if (D <= 64) PORT_DKV_BF16(64);
+  if (D <= 128) PORT_DKV_BF16(128);
+#undef PORT_DKV_BF16
   return (int)cudaErrorInvalidValue;
 }

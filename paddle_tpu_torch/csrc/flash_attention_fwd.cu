@@ -1,5 +1,6 @@
 // Flash-attention forward for Hopper (sm_90a): fp32 in and out, tile
-// products on the tensor cores in 3xTF32.
+// products on the tensor cores in 3xTF32; and its bf16 variant (at the end
+// of the file), bf16 in and out, bf16 tile products.
 //
 // Replaces the TPU kernel paddle_tpu/ops/flash_attention.py:_fwd_call
 // (:311-358): both of its Pallas grids over the one body _fwd_body (:99-138)
@@ -118,6 +119,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "bf16_mma.cuh"
 #include "port_cuda.cuh"
 #include "tf32_mma.cuh"
 
@@ -418,5 +420,262 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   if (D <= 64) { if (causal) PORT_FWD(64, 1); PORT_FWD(64, 2); }
   if (D <= 128) PORT_FWD(128, 1);
 #undef PORT_FWD
+  return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 variant: q, k, v [B, H, T, D] bf16 in, O bf16 out, lse fp32.
+//
+// What the TPU kernel does with bf16 tiles: it upcasts q, k and v to fp32
+// (:109-111), takes both dots in fp32 and writes O in q's dtype (:136). This
+// kernel computes the same function:
+//   * s = q . K^T: one mma.sync.m16n8k16 bf16 with fp32 accumulation. A
+//     product of two bf16 values is exact in fp32, so this is the upcast
+//     dot, summed in another order. The scale multiplies the fp32 score
+//     after the product; the TPU kernel scales q first. At D = 64 the scale
+//     is 1/8, a power of two, and the two orders agree bit for bit, else
+//     they differ by fp32 rounding only.
+//   * O += P . V with P fp32 (the online softmax's weights): P is split
+//     into two bf16 terms, hi = bf16(P) and lo = bf16(P - hi), and each is
+//     multiplied with V's bf16 tile on the tensor cores, accumulated in
+//     fp32. The split keeps about 16 bits of P; its error (below 2^-16
+//     relative) is far below the bf16 rounding of O (2^-9) that the
+//     reference applies anyway.
+//   * The masks are the fp32 kernel's: causal positions set to -1e9, keys
+//     past Tk at -inf. m, l, the accumulators and lse stay fp32.
+//
+// What bounds it: the same 4 * B * H * D * pairs FLOPs, now at the bf16
+// dense rate (989 TFLOP/s), three products a pair (s, and P.V twice) on
+// half the bytes. The design is the fp32 kernel's, simplified: 4 warps of
+// one 16-row strip each (64-row blocks), keys 64 at a time (32 at D = 128),
+// a 2-stage cp.async ring of K, V and the bias, Q's A fragments resident
+// in registers for the whole key loop at D <= 64 (D/16 x 4 registers).
+// The m16n8k16 fragments line up better than tf32's: the C fragments of
+// two adjacent key steps of 8 ARE the A fragment of a 16-key step of P.V,
+// so P goes from the scores to the next product with no permutation
+// (c_to_a_split).
+// V's B fragment is read down its columns with 16-bit loads (load_b_cols).
+// Shared rows are padded to DP + 8 bf16 (16-byte aligned rows, distinct
+// banks); 5 tiles: 45 KB at D = 64.
+namespace {
+
+template <int DP>
+constexpr int fwd_bf16_smem_bytes() {
+  // Q, K x 2, V x 2 tiles of [64][DP+8] bf16; the bias ring, 2 x 64 fp32
+  return 5 * BLOCK * (DP + 8) * 2 + 2 * BLOCK * 4;
+}
+
+template <int DP>
+__global__ void __launch_bounds__(THREADS)
+fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, const float* __restrict__ bias,
+                bf16* __restrict__ o, float* __restrict__ lse, int H, int Tq,
+                int Tk, int D, float scale, int causal, int mode) {
+  constexpr int P = DP + 8;
+  constexpr int TILE = BLOCK * P;
+  constexpr int NC = DP >= 128 ? 32 : 64;  // keys in registers at a time
+  constexpr int NT = NC / 8;               // key steps of 8 in a chunk
+  constexpr int DT = DP / 8;               // output column steps of 8
+  constexpr int DK = DP / 16;              // d steps of 16
+  // Q's A fragments in registers for the whole key loop; at D = 128 they
+  // would take 32 registers more, and ptxas spills: there each is loaded
+  // from shared memory at its use
+  constexpr bool QREG = DP <= 64;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Ks = Qs + TILE;                    // [2][TILE]
+  bf16* Vs = Ks + 2 * TILE;                // [2][TILE]
+  float* Bs = reinterpret_cast<float*>(Vs + 2 * TILE);   // [2][BLOCK]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = 16 * warp;
+  const size_t bh = blockIdx.x;
+  const int b = (int)(bh / H);
+  // the query tile: the last (longest under causal masking) first
+  const int q0 = ((Tq + BLOCK - 1) / BLOCK - 1 - (int)blockIdx.y) * BLOCK;
+  const bf16* kb = k + bh * Tk * D;
+  const bf16* vb = v + bh * Tk * D;
+  const float* biasb = bias + (size_t)b * Tk;
+
+  if (D < DP) zero_pad_bf16<DP>(Qs, 5, D);
+  load_tile_bf16<DP>(Qs, q + bh * Tq * D, q0, Tq, D, mode);
+  int n_tiles = (Tk + BLOCK - 1) / BLOCK;
+  if (causal) {
+    const int last_row = min(q0 + BLOCK, Tq) - 1;
+    n_tiles = min(n_tiles, last_row / BLOCK + 1);
+  }
+  load_tile_bf16<DP>(Ks, kb, 0, Tk, D, mode);
+  load_tile_bf16<DP>(Vs, vb, 0, Tk, D, mode);
+  load_vec(Bs, biasb, 0, Tk);
+  cp_async_commit();
+
+  uint32_t qf[QREG ? DK : 1][4];
+  float acc[DT][4];
+#pragma unroll
+  for (int n = 0; n < DT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m_r[2] = {M_INIT, M_INIT}, l_r[2] = {0.f, 0.f};
+  const int qpos[2] = {q0 + row0 + g, q0 + row0 + g + 8};
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait_all();
+    __syncthreads();
+    const int k0 = it * BLOCK;
+    if (it + 1 < n_tiles) {
+      const int nxt = (it + 1) & 1, k1 = k0 + BLOCK;
+      load_tile_bf16<DP>(Ks + nxt * TILE, kb, k1, Tk, D, mode);
+      load_tile_bf16<DP>(Vs + nxt * TILE, vb, k1, Tk, D, mode);
+      load_vec(Bs + nxt * BLOCK, biasb, k1, Tk);
+      cp_async_commit();
+    }
+    if constexpr (QREG) {
+      if (it == 0) {
+#pragma unroll
+        for (int ks = 0; ks < DK; ++ks)
+          load_a_bf16<P>(qf[ks], Qs, row0, 16 * ks, g, t);
+      }
+    }
+    const bf16* Kt = Ks + (it & 1) * TILE;
+    const bf16* Vt = Vs + (it & 1) * TILE;
+    const float* Bt = Bs + (it & 1) * BLOCK;
+
+#pragma unroll 1
+    for (int c0 = 0; c0 < BLOCK; c0 += NC) {
+      float s[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < DK; ++ks) {
+        uint32_t qa[4];
+        if constexpr (QREG) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) qa[i] = qf[ks][i];
+        } else {
+          load_a_bf16<P>(qa, Qs, row0, 16 * ks, g, t);
+        }
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          uint32_t kf[2];
+          load_b_rows<P>(kf, Kt, c0 + 8 * j, 16 * ks, g, t);
+          mma_bf16(s[j], qa, kf);
+        }
+      }
+      // the online softmax, in place: C element e sits at row
+      // g + 8 (e >> 1), key column 8j + 2t + (e & 1); s becomes P
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = c0 + 8 * j + 2 * t + (e & 1);
+          const int h = e >> 1;
+          s[j][e] = masked_score(s[j][e], scale, Bt[col], qpos[h], k0 + col,
+                                 Tk, causal);
+          mx[h] = fmaxf(mx[h], s[j][e]);
+        }
+      float alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float m_new = fmaxf(m_r[h], quad_max(mx[h]));
+        alpha[h] = __expf(m_r[h] - m_new);
+        m_r[h] = m_new;
+        l_r[h] *= alpha[h];
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          s[j][e] = __expf(s[j][e] - m_r[h]);
+          l_r[h] += s[j][e];
+        }
+#pragma unroll
+      for (int n = 0; n < DT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+      // O += P.V, 16 keys a step, P as hi + lo
+#pragma unroll
+      for (int kk = 0; kk < NT / 2; ++kk) {
+        uint32_t phi[4], plo[4];
+        c_to_a_split(s[2 * kk], s[2 * kk + 1], phi, plo);
+#pragma unroll
+        for (int n = 0; n < DT; ++n) {
+          uint32_t vf[2];
+          load_b_cols<P>(vf, Vt, c0 + 16 * kk, 8 * n, g, t);
+          mma_bf16(acc[n], plo, vf);
+          mma_bf16(acc[n], phi, vf);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float l = fmaxf(quad_sum(l_r[h]), 1e-30f);
+    if (qpos[h] >= Tq) continue;
+    bf16* orow = o + (bh * Tq + qpos[h]) * D;
+#pragma unroll
+    for (int n = 0; n < DT; ++n) {
+      const int col = 8 * n + 2 * t;
+      const float o0 = acc[n][2 * h] / l;
+      const float o1 = acc[n][2 * h + 1] / l;
+      if (D % 2 == 0) {
+        if (col < D)
+          *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+              __floats2bfloat162_rn(o0, o1);
+      } else {
+        if (col < D) orow[col] = __float2bfloat16(o0);
+        if (col + 1 < D) orow[col + 1] = __float2bfloat16(o1);
+      }
+    }
+    if (t == 0) lse[bh * Tq + qpos[h]] = m_r[h] + logf(l);
+  }
+}
+
+template <int DP>
+int launch_bf16(const bf16* q, const bf16* k, const bf16* v,
+                const float* bias, bf16* o, float* lse, int B, int H, int Tq,
+                int Tk, int D, float scale, int causal, cudaStream_t stream) {
+  const int smem = fwd_bf16_smem_bytes<DP>();
+  cudaError_t err = cudaFuncSetAttribute(
+      fwd_bf16_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(B * H, (Tq + BLOCK - 1) / BLOCK);
+  fwd_bf16_kernel<DP><<<grid, THREADS, smem, stream>>>(
+      q, k, v, bias, o, lse, H, Tq, Tk, D, scale, causal,
+      copy_mode(D, q, k, v, q));
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// C entry point of the bf16 variant: q, k, v and o bf16, bias and lse fp32;
+// otherwise as flash_attention_fwd. o is a fresh torch allocation, so its
+// 2-value stores are aligned where D is even.
+extern "C" int flash_attention_fwd_bf16(const void* q, const void* k,
+                                        const void* v, const void* bias,
+                                        void* o, void* lse, int B, int H,
+                                        int Tq, int Tk, int D, float scale,
+                                        int causal, void* stream) {
+  if ((long long)B * H > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const bf16* qb = static_cast<const bf16*>(q);
+  const bf16* kb = static_cast<const bf16*>(k);
+  const bf16* vb = static_cast<const bf16*>(v);
+  const float* bb = static_cast<const float*>(bias);
+  bf16* ob = static_cast<bf16*>(o);
+  float* lf = static_cast<float*>(lse);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define PORT_FWD_BF16(DP)                                                 \
+  return launch_bf16<DP>(qb, kb, vb, bb, ob, lf, B, H, Tq, Tk, D, scale, \
+                         causal, st)
+  if (D <= 16) PORT_FWD_BF16(16);
+  if (D <= 32) PORT_FWD_BF16(32);
+  if (D <= 64) PORT_FWD_BF16(64);
+  if (D <= 128) PORT_FWD_BF16(128);
+#undef PORT_FWD_BF16
   return (int)cudaErrorInvalidValue;
 }

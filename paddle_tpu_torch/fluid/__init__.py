@@ -5,7 +5,8 @@ paddle_tpu.fluid, reduced to what the port carries so far: the Program
 IR, the layer builders of the port's models, nets, the DataFeeder, the
 Executor and its compiled step (step_artifact: one captured CUDA graph per
 step signature on the card), the anomaly guard, the NaN/Inf debugger, io,
-and the training step (backward, optimizer, regularizer, clip).
+the training step (backward, optimizer, regularizer, clip), AMP (amp) and
+the bf16 inference transpiler (contrib.Float16Transpiler).
 """
 from . import core
 from . import framework
@@ -15,6 +16,7 @@ from . import lowering
 from . import ops_impl  # noqa: F401  (registers every op rule)
 from . import passes
 from . import step_artifact
+from . import amp
 from . import debugger
 from . import executor
 from .executor import Executor, global_scope, scope_guard, Scope, \
@@ -31,11 +33,12 @@ from . import data_feeder
 from .data_feeder import DataFeeder
 from .param_attr import ParamAttr
 from . import unique_name
+from . import contrib
 from .core import CPUPlace, CUDAPlace, TPUPlace, CUDAPinnedPlace
 
 __all__ = framework.__all__ + executor.__all__ + [
     'io', 'initializer', 'layers', 'ParamAttr', 'unique_name', 'core',
     'backward', 'optimizer', 'regularizer', 'clip', 'nets', 'data_feeder',
-    'DataFeeder', 'debugger', 'step_artifact', 'passes',
+    'DataFeeder', 'debugger', 'step_artifact', 'passes', 'amp', 'contrib',
     'CPUPlace', 'CUDAPlace', 'TPUPlace', 'CUDAPinnedPlace',
 ]

@@ -58,6 +58,11 @@ class CUDAPlace(Place):
         # off the reference by more than the stated tolerances
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        # bf16 products (AMP) accumulate in fp32 throughout, as the JAX
+        # rules' preferred_element_type=float32: no reduced-precision
+        # split-K reduction (torch's default allows one)
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
         return torch.device('cuda', self.device_id)
 
 

@@ -5,6 +5,7 @@ fluid/data_feeder.py:71, dense slots only: a sequence slot (lod_level > 0)
 needs the SeqValue the port does not carry yet, and raises.
 """
 import numpy as np
+import torch
 
 from .framework import Variable, default_main_program
 
@@ -16,7 +17,9 @@ class DataFeeder(object):
     {name: ndarray}, each slot stacked along a new batch dim and reshaped
     to [-1] + the var's declared shape when the sample's own rank differs
     (a flat 784-float image for a [1, 28, 28] var; a scalar label for
-    [1]). The Executor moves the arrays to its device."""
+    [1]). The Executor moves the arrays to its device. A bfloat16 slot
+    (numpy has no such dtype) is stacked in float32 and rounded to bf16 by
+    torch: it comes out as a CPU bf16 tensor."""
 
     def __init__(self, feed_list, place, program=None):
         if program is None:
@@ -49,8 +52,10 @@ class DataFeeder(object):
         out = {}
         for name, dtype, shape, data in zip(
                 self.feed_names, self.feed_dtypes, self.feed_shapes, slots):
-            arr = np.array(data, dtype=dtype)
+            half = dtype == 'bfloat16'
+            arr = np.array(data, dtype='float32' if half else dtype)
             if shape and arr.ndim != len(shape) + 1:
                 arr = arr.reshape([-1] + [abs(int(s)) for s in shape])
-            out[name] = arr
+            out[name] = torch.from_numpy(arr).to(torch.bfloat16) if half \
+                else arr
         return out

@@ -6,7 +6,7 @@ package's fluid/executor.py (anomaly_guard :146, FetchHandle :373,
 StepHandle :464, run :1456, acquire_step :1568, run_bundle :1647,
 _observe_health :1854, state_dict :1955, cache_stats :2046). Each entry
 point resolves one StepArtifact per (program uid and version, feed
-signature, fetch names, guard) through `_prepare` and runs it:
+signature, fetch names, guard, amp) through `_prepare` and runs it:
 
   * on a CUDA place, a signature's first call is its eager warm-up, the
     second captures it into a CUDA graph and every later call replays it
@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from .. import obs
+from . import amp as amp_mod
 from . import core
 from . import debugger
 from .framework import Variable, default_main_program
@@ -90,19 +91,41 @@ class Scope(object):
     def load_numpy(self, arrays, place):
         """Carry weights in: put every {name: ndarray} entry into this
         scope as a tensor on `place`'s device (e.g. the JAX package's
-        parameters, read from its scope or its __params__.npz). A captured
-        step copies a rebound persistable into its static state before its
-        next replay."""
+        parameters, read from its scope or its __params__.npz). A bf16
+        array (numpy dtype name 'bfloat16', as the JAX package hands them
+        out) becomes a bf16 tensor bit for bit. A captured step copies a
+        rebound persistable into its static state before its next
+        replay."""
         device = place.torch_device()
         for name, a in arrays.items():
-            self.vars[name] = torch.from_numpy(
-                np.array(a, copy=True)).to(device)
+            self.vars[name] = tensor_of_numpy(a).to(device)
 
     def to_numpy(self, names=None):
-        """{name: ndarray} of the named (default: all) local variables."""
+        """{name: ndarray} of the named (default: all) local variables. A
+        bf16 tensor comes back widened to float32, which is exact: numpy
+        has no bf16 dtype of its own."""
         names = list(self.vars) if names is None else names
-        return {n: self.vars[n].detach().cpu().numpy().copy()
+        return {n: numpy_of(self.vars[n].detach().cpu()).copy()
                 for n in names}
+
+
+def tensor_of_numpy(a):
+    """A CPU tensor holding a copy of numpy array `a`. A bf16 array (dtype
+    name 'bfloat16', from ml_dtypes, which this package does not import)
+    crosses through its 16-bit view, bit for bit."""
+    a = np.asarray(a)
+    if a.dtype.name == 'bfloat16':
+        return torch.from_numpy(
+            np.array(a.view(np.int16), copy=True)).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def numpy_of(t):
+    """A CPU tensor as a numpy array (a view where numpy has the dtype): a
+    bf16 tensor widened to float32, which is exact."""
+    if t.dtype == torch.bfloat16:
+        return t.to(torch.float32).numpy()
+    return t.numpy()
 
 
 _global_scope = Scope()
@@ -425,13 +448,18 @@ class Executor(object):
             t = val
         else:
             a = np.asarray(val)
-            if var is not None and var.dtype != 'bfloat16' \
-                    and a.dtype != np.dtype(var.dtype):
-                a = a.astype(var.dtype)
-            if not (a.flags.c_contiguous and a.flags.writeable):
-                a = np.array(a, copy=True, order='C')
-            t = torch.from_numpy(a)
+            if a.dtype.name == 'bfloat16':
+                t = tensor_of_numpy(a)
+            else:
+                if var is not None and var.dtype != 'bfloat16' \
+                        and a.dtype != np.dtype(var.dtype):
+                    a = a.astype(var.dtype)
+                if not (a.flags.c_contiguous and a.flags.writeable):
+                    a = np.array(a, copy=True, order='C')
+                t = torch.from_numpy(a)
         if var is not None:
+            # a float feed of a bf16 var is rounded to bf16 here by torch
+            # (to nearest, ties to even)
             t = t.to(core.torch_dtype(var.dtype))
         if t.device.type != 'cpu' and t.device != self.device:
             t = t.to(self.device)
@@ -452,7 +480,11 @@ class Executor(object):
         feed_sig = tuple(sorted(_feed_signature(n, v)
                                 for n, v in feed_vals.items()))
         guard = bool(getattr(program, '_anomaly_guard', False))
-        key = (program._uid, program._version, feed_sig, fetch_names, guard)
+        # AMP changes what the rules compute: one program run with and
+        # without it builds (and on the card captures) two steps
+        amp = amp_mod.is_amp(program)
+        key = (program._uid, program._version, feed_sig, fetch_names, guard,
+               amp)
         key_id = '%08x' % (hash(key) & 0xFFFFFFFF)
         art = self._cache.get(key) if use_program_cache else None
         if art is None:
@@ -463,7 +495,7 @@ class Executor(object):
                 if v.persistable and v.name not in feed_vals
                 and scope._chain_get(v.name) is not None)
             art = StepArtifact(program, list(feed_vals), fetch_names,
-                               persist_in, guard=guard)
+                               persist_in, guard=guard, amp=amp)
             art._feed_sig = feed_sig
             art._key_id = key_id
             art._source_program = program
@@ -539,14 +571,22 @@ class Executor(object):
                       if sync == 'async' else contextlib.nullcontext()):
                     self._observe_health(program, health_to_numpy(health))
             with obs.span('executor.fetch', sync=sync):
-                return self._convert_fetches(fetches, return_numpy,
+                return self._convert_fetches(program, fetches, return_numpy,
                                              sync == 'async')
 
-    def _convert_fetches(self, fetches, return_numpy, lazy):
+    def _convert_fetches(self, program, fetches, return_numpy, lazy):
         """The fetches out of the step: numpy arrays, device tensors or
         lazy FetchHandles over either. On the card every copy is enqueued
         here, before the lock is released: numpy through pinned host
-        buffers, device tensors as clones out of the graph pool."""
+        buffers, device tensors as clones out of the graph pool.
+
+        A program with `_fetch_f32` (Float16Transpiler's contract, the JAX
+        _convert_fetch) fetches its bf16 values as fp32, cast on their
+        device. numpy has no bf16 dtype, so any other bf16 numpy fetch is
+        widened to fp32 on the host (numpy_of): exact either way."""
+        if getattr(program, '_fetch_f32', False):
+            fetches = [t.to(torch.float32) if t.dtype == torch.bfloat16
+                       else t for t in fetches]
         if self.device.type != 'cuda':
             if not return_numpy:
                 return [FetchHandle(t, lambda t=t: t) for t in fetches] \
@@ -566,12 +606,12 @@ class Executor(object):
         ev = torch.cuda.Event()
         ev.record(torch.cuda.current_stream(self.device))
         if lazy:
-            return [FetchHandle(o, (lambda o=o: o.numpy()) if return_numpy
+            return [FetchHandle(o, (lambda o=o: numpy_of(o)) if return_numpy
                                 else (lambda o=o: o), event=ev)
                     for o in outs]
         if return_numpy:
             ev.synchronize()
-            return [o.numpy() for o in outs]
+            return [numpy_of(o) for o in outs]
         return outs
 
     def acquire_step(self, program=None, feed=None, fetch_list=None,
@@ -720,7 +760,7 @@ class Executor(object):
                         program, {k: v[j] for k, v in hs.items()},
                         run_id=run_base + j + 1)
             with obs.span('executor.fetch', sync=sync, steps=K):
-                return self._convert_fetches(outs, return_numpy,
+                return self._convert_fetches(program, outs, return_numpy,
                                              sync == 'async')
 
     def _observe_health(self, program, h, run_id=None):
@@ -810,7 +850,7 @@ class Executor(object):
 
     @staticmethod
     def _to_numpy(t):
-        a = t.detach().cpu().numpy()
+        a = numpy_of(t.detach().cpu())
         # a CPU tensor's numpy view would alias scope or cached state
         return a.copy() if t.device.type == 'cpu' else a
 

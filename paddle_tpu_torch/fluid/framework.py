@@ -302,6 +302,12 @@ class Program(object):
         inference_optimize)."""
         p = Program()
         p.random_seed = self.random_seed
+        # execution flags travel with the program, as in the JAX package's
+        # clone (:583-588): amp mode and the Float16Transpiler's fetch
+        # contract
+        for flag in ('_amp', '_fetch_f32'):
+            if hasattr(self, flag):
+                setattr(p, flag, getattr(self, flag))
         p.blocks = []
         for blk in self.blocks:
             nb = Block(p, blk.idx, blk.parent_idx)

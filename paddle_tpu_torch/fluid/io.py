@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from .framework import Program, Parameter, Variable, default_main_program
-from .executor import global_scope
+from .executor import global_scope, numpy_of, tensor_of_numpy
 
 __all__ = [
     'save_vars', 'save_params', 'save_persistables', 'load_vars',
@@ -37,7 +37,7 @@ def is_persistable(var):
 def save_vars(executor, dirname, main_program=None, vars=None,
               predicate=None, filename=None, scope=None):
     """reference io.py:save_vars: the named scope tensors, as numpy arrays,
-    into one .npz file."""
+    into one .npz file (a bf16 tensor widened to float32, exactly)."""
     if vars is None:
         if main_program is None:
             main_program = default_main_program()
@@ -50,7 +50,7 @@ def save_vars(executor, dirname, main_program=None, vars=None,
         v = scope._chain_get(name)
         if v is None:
             raise RuntimeError("variable %s is not initialized in scope" % name)
-        arrays[name] = v.detach().cpu().numpy()
+        arrays[name] = numpy_of(v.detach().cpu())
     os.makedirs(dirname, exist_ok=True)
     path = os.path.join(dirname, filename or _PARAMS_FILE)
     np.savez(path, **arrays)
@@ -74,7 +74,8 @@ def load_vars(executor, dirname, main_program=None, vars=None,
               predicate=None, filename=None, scope=None):
     """reference io.py:load_vars: each named array of the .npz goes into
     `scope` (default: the global scope) as a tensor on the executor's
-    device."""
+    device; a var declared bfloat16 (a Float16Transpiler's program) is
+    rounded back to bf16, which undoes save_vars' widening exactly."""
     if vars is None:
         if main_program is None:
             main_program = default_main_program()
@@ -88,8 +89,10 @@ def load_vars(executor, dirname, main_program=None, vars=None,
             if name not in data:
                 raise RuntimeError("variable %s not found in %s"
                                    % (name, path))
-            scope.vars[name] = torch.from_numpy(data[name]).to(
-                executor.device)
+            t = tensor_of_numpy(data[name])
+            if isinstance(var, Variable) and var.dtype == 'bfloat16':
+                t = t.to(torch.bfloat16)
+            scope.vars[name] = t.to(executor.device)
 
 
 def load_params(executor, dirname, main_program=None, filename=None,

@@ -14,6 +14,7 @@ __all__ = [
     'fused_attention', 'label_smooth', 'one_hot',
     'softmax_with_cross_entropy', 'reduce_sum', 'conv2d', 'pool2d',
     'batch_norm', 'softmax', 'cross_entropy', 'square_error_cost', 'topk',
+    'matmul',
 ]
 
 
@@ -165,6 +166,17 @@ def fused_attention(q, k, v, key_bias=None, causal=False, scale=None,
                      attrs={'causal': bool(causal),
                             'scale': (float(scale) if scale is not None
                                       else -1.0)})
+    return out
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
+    helper = LayerHelper('matmul', **locals())
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type='matmul', inputs={'X': [x], 'Y': [y]},
+                     outputs={'Out': [out]},
+                     attrs={'transpose_X': transpose_x,
+                            'transpose_Y': transpose_y,
+                            'alpha': float(alpha)})
     return out
 
 

@@ -55,16 +55,28 @@ def has_rule(op_type):
 
 
 class Ctx(object):
-    """Per-run lowering context: run mode, the torch.device every tensor of
-    the run lives on, and the Executor's torch.Generator that random ops
-    draw from (None under shape inference)."""
+    """Per-run lowering context: run mode, AMP (the JAX Ctx's `amp`,
+    lowering.py:81-96), the torch.device every tensor of the run lives on,
+    and the Executor's torch.Generator that random ops draw from (None
+    under shape inference)."""
 
-    __slots__ = ('is_test', 'device', 'generator')
+    __slots__ = ('is_test', 'amp', 'device', 'generator')
 
-    def __init__(self, device, generator=None, is_test=False):
+    def __init__(self, device, generator=None, is_test=False, amp=False):
         self.device = device
         self.generator = generator
         self.is_test = is_test
+        self.amp = amp
+
+
+def amp_cast(ctx, *xs):
+    """Under AMP, cast fp32 matmul / conv / attention operands to bf16 for
+    the tensor cores (the JAX :98-104); anything else passes through."""
+    if not ctx.amp:
+        return xs if len(xs) > 1 else xs[0]
+    out = tuple(x.to(torch.bfloat16) if x.dtype == torch.float32 else x
+                for x in xs)
+    return out if len(out) > 1 else out[0]
 
 
 class SparseRows(object):

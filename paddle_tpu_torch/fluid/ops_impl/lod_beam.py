@@ -40,16 +40,23 @@ def beam_init_carry(rows, beam, hidden, start_id, device=None,
             torch.zeros((n,), dtype=torch.bool, device=device))
 
 
+# the signed integer views of the float dtypes the total-order key covers
+_KEY_INTS = {torch.float32: (torch.int32, 31, 0x7fffffff),
+             torch.bfloat16: (torch.int16, 15, 0x7fff),
+             torch.float16: (torch.int16, 15, 0x7fff)}
+
+
 def top_k_lower_index(x, k):
     """(values, indices) of the k largest entries of each row of x, equal
-    values in index order (lax.top_k's rule). An fp32 row is ordered as
-    lax.top_k orders it, by the total order of its bit patterns: +0.0
-    above -0.0 and NaN above +inf, where a float comparison ties the
-    zeros."""
+    values in index order (lax.top_k's rule). An fp32, bf16 or fp16 row is
+    ordered as lax.top_k orders it, by the total order of its bit patterns
+    (an integer view of the same width): +0.0 above -0.0 and NaN above
+    +inf, where a float comparison ties the zeros."""
     key = x
-    if x.dtype == torch.float32:
-        bits = x.view(torch.int32)
-        key = bits ^ ((bits >> 31) & 0x7fffffff)
+    if x.dtype in _KEY_INTS:
+        ity, sign, mag = _KEY_INTS[x.dtype]
+        bits = x.view(ity)
+        key = bits ^ ((bits >> sign) & mag)
     idx = torch.sort(key, dim=-1, descending=True, stable=True)[1][..., :k]
     return torch.gather(x, -1, idx), idx
 

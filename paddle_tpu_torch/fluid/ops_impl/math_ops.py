@@ -2,13 +2,14 @@
 
 Parity: the JAX package's fluid/ops_impl/math_ops.py (reference
 paddle/fluid/operators/{elementwise_*,activation,reduce_*,mul,clip,scale}
-_op.*). The plain products stay torch.matmul: the JAX package leaves them
-to XLA outside any kernel.
+_op.*). The plain products stay torch.matmul (under AMP cuBLAS's bf16
+GEMM with an fp32 result): the JAX package leaves them to XLA outside any
+kernel.
 """
 import numpy as np
 import torch
 
-from ..lowering import register, data_of, like
+from ..lowering import register, data_of, like, amp_cast
 
 
 def _unary(op_type, fn):
@@ -77,10 +78,79 @@ def _mean(ins, attrs, ctx):
     return {'Out': torch.mean(data_of(ins['X'][0])).reshape(1)}
 
 
+class _Bf16Product(torch.autograd.Function):
+    """x @ y of bf16 operands with an fp32 result on the card: cuBLAS's
+    bf16 GEMM with fp32 accumulation, its output never rounded to bf16
+    (torch.matmul of two bf16 tensors would round it). torch.mm / bmm with
+    out_dtype have no autograd formula, so the backward is written here.
+    The JAX rule's gradient (and the CPU's exact form) multiplies the fp32
+    cotangent by the other bf16 operand in fp32, then rounds to the
+    operand's dtype. The bf16 GEMM takes the cotangent as two bf16 terms,
+    hi = bf16(g) and lo = bf16(g - hi), each multiplied with an fp32
+    result and the two summed: hi + lo keeps g to 2^-17 relative, far
+    below the bf16 rounding of the gradient (2^-9) that both apply, so the
+    gradient is the reference's but for a rare rounding flip (the split
+    of the flash-attention kernels' P and dS)."""
+
+    @staticmethod
+    def forward(ctx, x, y):
+        ctx.save_for_backward(x, y)
+        return _bf16_mm(x, y)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        hi = g.to(torch.bfloat16)
+        lo = (g - hi.to(g.dtype)).to(torch.bfloat16)
+        dx = dy = None
+        if ctx.needs_input_grad[0]:
+            yt = y.transpose(-1, -2)
+            dx = (_bf16_mm(hi, yt) + _bf16_mm(lo, yt)).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            xt = x.transpose(-1, -2)
+            dy = _bf16_mm(xt, hi) + _bf16_mm(xt, lo)
+            # y broadcast over the batch: its gradient summed in fp32, then
+            # rounded once, as the CPU's exact form
+            dy = dy.sum_to_size(y.shape).to(y.dtype)
+        return dx, dy
+
+
+def _bf16_mm(x, y):
+    """fp32 x @ y of bf16 tensors on the card (2-D, or batched with y
+    broadcast)."""
+    if x.dim() == 2 and y.dim() == 2:
+        return torch.mm(x, y, out_dtype=torch.float32)
+    batch = torch.broadcast_shapes(x.shape[:-2], y.shape[:-2])
+    xb = x.expand(batch + x.shape[-2:]).reshape((-1,) + x.shape[-2:])
+    yb = y.expand(batch + y.shape[-2:]).reshape((-1,) + y.shape[-2:])
+    out = torch.bmm(xb, yb, out_dtype=torch.float32)
+    return out.reshape(batch + out.shape[-2:])
+
+
+def _product(x, y, ctx):
+    """x @ y as the JAX rules take it: under AMP the fp32 operands go to
+    bf16 (amp_cast) and the product comes back in fp32
+    (preferred_element_type=float32), before the rule casts it to the
+    input's dtype. On the card that is _Bf16Product (cuBLAS, fp32 result);
+    on the CPU and in shape inference the exact form: the bf16 operands
+    widened and multiplied in fp32, as XLA's CPU dot computes the bf16
+    product (a product of two bf16 values is exact in fp32)."""
+    x, y = amp_cast(ctx, x, y)
+    if x.dtype != torch.bfloat16 or y.dtype != torch.bfloat16:
+        # mixed dtypes promote as jnp.matmul promotes them (bf16 with
+        # fp32 is fp32); torch.matmul would refuse them
+        dt = torch.promote_types(x.dtype, y.dtype)
+        return torch.matmul(x.to(dt), y.to(dt))
+    if x.is_cuda:
+        return _Bf16Product.apply(x, y)
+    return torch.matmul(x.to(torch.float32), y.to(torch.float32))
+
+
 @register('mul')
 def _mul(ins, attrs, ctx):
     """reference operators/mul_op.cc: flatten x to 2-D at x_num_col_dims and
-    y at y_num_col_dims, then matmul."""
+    y at y_num_col_dims, then matmul; the result in x's dtype (the JAX
+    :125-144)."""
     x = data_of(ins['X'][0])
     y = data_of(ins['Y'][0])
     xn = attrs.get('x_num_col_dims', 1)
@@ -88,8 +158,23 @@ def _mul(ins, attrs, ctx):
     xs, ys = tuple(x.shape), tuple(y.shape)
     x2 = x.reshape(int(np.prod(xs[:xn])), int(np.prod(xs[xn:])))
     y2 = y.reshape(int(np.prod(ys[:yn])), int(np.prod(ys[yn:])))
-    out = torch.matmul(x2, y2).reshape(xs[:xn] + ys[yn:])
+    out = _product(x2, y2, ctx).to(x.dtype).reshape(xs[:xn] + ys[yn:])
     return {'Out': like(ins['X'][0], out)}
+
+
+@register('matmul')
+def _matmul(ins, attrs, ctx):
+    """reference operators/matmul_op.cc: batched x @ y with optional
+    transposes of the last two dims, times alpha; the result in x's dtype
+    (the JAX :147-160)."""
+    x = data_of(ins['X'][0])
+    y = data_of(ins['Y'][0])
+    if attrs.get('transpose_X', False):
+        x = x.transpose(-1, -2)
+    if attrs.get('transpose_Y', False):
+        y = y.transpose(-1, -2)
+    out = _product(x, y, ctx).to(x.dtype) * attrs.get('alpha', 1.0)
+    return {'Out': out}
 
 
 @register('reduce_sum')

@@ -8,13 +8,15 @@ flash_attention :529). The JAX package computes convolutions, pools and
 batch norm outside any Pallas kernel (lax.conv_general_dilated,
 lax.reduce_window, jnp arithmetic); here they are torch.nn.functional's
 library calls, cuDNN on the card, under the port's TF32-off rule
-(fluid/core.py).
+(fluid/core.py). Under AMP conv2d and flash_attention take bf16 operands
+(lowering.amp_cast), as the JAX rules do; a bf16 tower's pools, norms,
+softmax and loss then see bf16 activations.
 """
 import torch
 import torch.nn.functional as F
 
 from ... import ops
-from ..lowering import register, data_of, like
+from ..lowering import register, data_of, like, amp_cast
 
 
 def _pair(v):
@@ -33,22 +35,30 @@ def _to_nchw(x, fmt):
 def _conv2d(ins, attrs, ctx):
     """NCHW or NHWC (`data_format`); the filter is OIHW
     [out_c, in_c / groups, kh, kw] in both, so weights are layout-portable
-    (reference operators/conv_op.cc).
+    (reference operators/conv_op.cc). Under AMP a bf16 convolution (fp32
+    accumulation inside cuDNN), its result cast to the input's dtype (the
+    JAX :23-50).
 
-    The convolution always runs on NCHW memory. Its result, permuted back,
-    is an NHWC view of NCHW memory, and so are the pools', norms' and
-    elementwise results over it, so inside an NHWC tower only the fed
-    input is copied. torch's CPU convolution backward on channels_last
-    strides (oneDNN) has crashed the process when jaxlib was loaded in
-    it too."""
+    On the card an NHWC tower runs on channels_last memory, which cuDNN's
+    tensor-core convolutions take as they are: the NHWC input permuted to
+    NCHW is a channels_last view, and so are the results the pools, norms
+    and elementwise ops make over it. On the CPU the convolution runs on
+    NCHW memory (an NHWC tower's results are NHWC views of NCHW memory):
+    torch's CPU convolution backward on channels_last strides (oneDNN) has
+    crashed the process when jaxlib was loaded in it too."""
     x = data_of(ins['Input'][0])
     w = data_of(ins['Filter'][0])
-    xc, back = _to_nchw(x, attrs.get('data_format', 'NCHW'))
-    out = F.conv2d(xc.contiguous(), w.to(x.dtype), stride=_pair(attrs.get('strides', 1)),
+    fmt = attrs.get('data_format', 'NCHW')
+    xc, back = _to_nchw(x, fmt)
+    xc, wc = amp_cast(ctx, xc, w.to(x.dtype))
+    memory = torch.channels_last if fmt == 'NHWC' and xc.is_cuda \
+        else torch.contiguous_format
+    out = F.conv2d(xc.contiguous(memory_format=memory), wc,
+                   stride=_pair(attrs.get('strides', 1)),
                    padding=_pair(attrs.get('paddings', 0)),
                    dilation=_pair(attrs.get('dilations', 1)),
                    groups=attrs.get('groups', 1) or 1)
-    return {'Output': back(out)}
+    return {'Output': back(out.to(x.dtype))}
 
 
 @register('pool2d')
@@ -99,10 +109,18 @@ def _batch_norm(ins, attrs, ctx):
     sees them. The JAX rule takes the variance in one pass, E[x^2] -
     E[x]^2; torch in a stable one, which agrees with it to the one-pass
     form's own rounding. Test: Y from the running stats, which go back out
-    unchanged (the same tensors)."""
+    unchanged (the same tensors).
+
+    On a bf16 x, Y is the fp32 normalization rounded to bf16 once: Scale
+    and Bias go in as fp32 (their gradients come back in their own
+    dtype). With bf16 ones the CPU's kernel rounds along the way (about a
+    third of Y's elements land on another bf16 neighbour) and cuDNN
+    takes fp32 ones only. The JAX rule computes Y in bf16 arithmetic,
+    rounding each step: the two agree within four bf16 ulps of max |Y|
+    (tests/test_torch_amp.py)."""
     x = data_of(ins['X'][0])
-    scale = data_of(ins['Scale'][0])
-    bias = data_of(ins['Bias'][0])
+    scale = data_of(ins['Scale'][0]).to(torch.float32)
+    bias = data_of(ins['Bias'][0]).to(torch.float32)
     mean = data_of(ins['Mean'][0])
     var = data_of(ins['Variance'][0])
     eps = attrs.get('epsilon', 1e-5)
@@ -164,10 +182,25 @@ def _softmax(ins, attrs, ctx):
     return {'Out': like(x, torch.softmax(data_of(x), dim=-1))}
 
 
+def take_along_last(x, idx):
+    """x[..., idx] along the last axis with JAX's default gather mode
+    (jnp.take_along_axis, as the JAX rules call it): an index in [-n, 0)
+    counts from the end, any other index outside [0, n) gives NaN. The
+    index is wrapped, clamped and the NaN selected on the device, with no
+    host check (a captured step cannot wait for one, and an out-of-range
+    gather on the card is a device-side assert)."""
+    n = x.shape[-1]
+    idx = torch.where(idx < 0, idx + n, idx)
+    picked = torch.gather(x, -1, idx.clamp(0, n - 1))
+    valid = (idx >= 0) & (idx < n)
+    return torch.where(valid, picked, torch.full_like(picked, float('nan')))
+
+
 @register('cross_entropy')
 def _cross_entropy(ins, attrs, ctx):
     """X: probabilities [N, C] (a softmax op before it); Label int64 [N, 1],
-    or probabilities with soft_label. -log(p + 1e-8), as the JAX rule."""
+    or probabilities with soft_label. -log(p + 1e-8), as the JAX rule; a
+    label outside [-C, C) gives NaN (take_along_last)."""
     x = data_of(ins['X'][0])
     label = data_of(ins['Label'][0])
     eps = 1e-8
@@ -177,7 +210,7 @@ def _cross_entropy(ins, attrs, ctx):
         li = label.long()
         if li.ndim == x.ndim:
             li = li.squeeze(-1)
-        loss = -torch.log(torch.gather(x, -1, li.unsqueeze(-1)) + eps)
+        loss = -torch.log(take_along_last(x, li.unsqueeze(-1)) + eps)
     return {'Y': like(ins['X'][0], loss)}
 
 
@@ -193,7 +226,7 @@ def _softmax_with_cross_entropy(ins, attrs, ctx):
         li = label.long()
         if li.ndim == logits.ndim:
             li = li.squeeze(-1)
-        loss = -torch.gather(logp, -1, li.unsqueeze(-1))
+        loss = -take_along_last(logp, li.unsqueeze(-1))
     return {'Softmax': sm, 'Loss': like(ins['Logits'][0], loss)}
 
 
@@ -277,6 +310,9 @@ def _flash_attention(ins, attrs, ctx):
         kb = kb.reshape(kb.shape[0], kb.shape[-1])
     scale = attrs.get('scale', -1.0)
     scale = None if scale is None or scale < 0 else float(scale)
+    # under AMP bf16 q, k and v (the JAX :545): the kernels' bf16 variants,
+    # O in bf16
+    q, k, v = amp_cast(ctx, q, k, v)
     out = ops.flash_attention(q, k, v, key_bias=kb,
                               causal=bool(attrs.get('causal', False)),
                               sm_scale=scale)

@@ -43,6 +43,18 @@ def _lr(ins):
     return data_of(ins['LearningRate'][0]).reshape(())
 
 
+def _promote(*ts):
+    """The tensors cast to their common dtype as jnp promotes them: the
+    learning rate is a 0-d fp32 array there, a strong type, so a bf16
+    parameter (a net built on a bf16 data var declares its weights bf16)
+    updates in fp32 and comes out fp32, as the JAX rules' do. torch would
+    keep the bf16 of the dimensioned tensor. A no-op when all are fp32."""
+    dt = ts[0].dtype
+    for t in ts[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return [t.to(dt) for t in ts]
+
+
 def _merge_sparse(g):
     """Merge duplicate ids of a SparseRows grad (reference MergeAdd,
     operators/math/selected_rows_functor.cc) into (uids [N], merged [N, D],
@@ -69,7 +81,8 @@ def _sgd(ins, attrs, ctx):
         # duplicates add up as in the dense gradient, and the vocab-sized
         # gradient never exists. Pure, like the dense branch.
         return {'ParamOut': p.index_add(0, g.ids, -_lr(ins) * g.rows)}
-    return {'ParamOut': p - _lr(ins) * _dense_grad(ins, 'sgd')}
+    p, lr, g = _promote(p, _lr(ins), _dense_grad(ins, 'sgd'))
+    return {'ParamOut': p - lr * g}
 
 
 @register('momentum')
@@ -83,9 +96,11 @@ def _momentum(ins, attrs, ctx):
     lr = _lr(ins)
     v_out = mu * v + g
     if attrs.get('use_nesterov', False):
-        p_out = p - (g + mu * v_out) * lr
+        p, step, lr = _promote(p, g + mu * v_out, lr)
+        p_out = p - step * lr
     else:
-        p_out = p - lr * v_out
+        p, lr, step = _promote(p, lr, v_out)
+        p_out = p - lr * step
     return {'ParamOut': p_out, 'VelocityOut': v_out}
 
 
@@ -131,7 +146,8 @@ def _adam(ins, attrs, ctx):
     g = _dense_grad(ins, 'adam')
     m1_out = b1 * m1 + (1 - b1) * g
     m2_out = b2 * m2 + (1 - b2) * g * g
-    p_out = p - lr * m1_out / (torch.sqrt(m2_out) + eps)
+    p, lr, m1_step, denom = _promote(p, lr, m1_out, torch.sqrt(m2_out) + eps)
+    p_out = p - lr * m1_step / denom
     return {'ParamOut': p_out, 'Moment1Out': m1_out, 'Moment2Out': m2_out}
 
 

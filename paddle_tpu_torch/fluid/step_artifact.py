@@ -23,7 +23,9 @@ The artifact owns
     (the scope's own tensors: `pin_state`), its fetch outputs and the
     kernel launches it makes per replay.
 
-On the card a signature's FIRST call is its warm-up: the body runs
+On the card a signature's FIRST call is its warm-up (repeated while a
+call changes the dtype or shape of a persistable it writes, as a
+bf16-declared parameter's first update does): the body runs
 eagerly on the executor's side stream under torch's sync debug mode
 ('error'), building each kernel at first use (ops/_cuda.py), filling the
 lowering's constant cache and finding any host sync. That call is the
@@ -163,8 +165,10 @@ class StepArtifact(object):
     docstring."""
 
     def __init__(self, program, feed_names, fetch_names, persist_in,
-                 guard=False):
+                 guard=False, amp=False):
         self.program = program
+        # AMP (fluid/amp.py): the rules' Ctx.amp, part of the artifact's key
+        self.amp = bool(amp)
         self.ops = list(program.global_block().ops)
         self.feed_names = list(feed_names)
         self.fetch_names = list(fetch_names)
@@ -316,12 +320,25 @@ class StepArtifact(object):
         for w, p in sparse.items():
             d = env[w].shape[-1]
             ids_parts, row_parts = [], []
+            n = env[w].shape[0]
             for op_idx, ids_name, pad in p['lookups']:
                 ids = env[ids_name].reshape(-1).long()
                 g = tap_grads[op_idx]
                 rows = torch.zeros((ids.shape[0], d), dtype=env[w].dtype,
                                    device=ids.device) if g is None \
                     else g.reshape(-1, d)
+                # the lookup's id rule (sequence_ops.lookup_table): an id in
+                # [-V, 0) counts from the end; any other id outside [0, V)
+                # read a NaN row and updates nothing (JAX drops its
+                # out-of-range scatter): it goes to row 0 with a zero row,
+                # on the device, so no kernel indexes past the table. A
+                # zero row leaves SGD and Adagrad exactly as they were;
+                # lazy Adam decays row 0's moments, in a step whose loss is
+                # NaN (which the anomaly guard skips whole)
+                ids = torch.where(ids < 0, ids + n, ids)
+                live = (ids >= 0) & (ids < n)
+                rows = rows.masked_fill(~live[:, None], 0.0)
+                ids = torch.where(live, ids, torch.zeros_like(ids))
                 if pad is not None and pad >= 0:
                     # the dense gradient's padding_idx row is zero (the
                     # lookup reads that row as zeros); mirror it on the rows
@@ -410,14 +427,15 @@ class StepArtifact(object):
             generator = torch.Generator(
                 device=tensors[0].device if tensors else 'cpu')
         generator.manual_seed(seed)
-        ctx = Ctx(generator.device, generator)
+        ctx = Ctx(generator.device, generator, amp=self.amp)
         return self._body(persist, feed, ctx, on_op=hook if hooks else None,
                           check_nan_inf=check_nan_inf)
 
     def __call__(self, persist, feed, seed, generator):
         """One eager step (the CPU's path, as JAX's jit runs on the CPU)."""
         generator.manual_seed(seed)
-        return self._body(persist, feed, Ctx(generator.device, generator))
+        return self._body(persist, feed,
+                          Ctx(generator.device, generator, amp=self.amp))
 
     # -- the captured step on the card -------------------------------------
 
@@ -454,8 +472,15 @@ class StepArtifact(object):
         copies them out under the executor's lock."""
         rec = self._captured.get(scope)
         if rec is None:
+            before = _state_signature(self._scope_state(scope))
             out = self._warm_up(exe, scope, feed, seed)
-            self._captured[scope] = _Captured()
+            # a step that changed the dtype or shape of a persistable (a
+            # bf16-declared parameter that its update writes back in fp32,
+            # as the JAX rules' promotion does) is warmed up again: a
+            # capture needs the state it updates in place to keep its
+            # dtypes and shapes
+            if _state_signature(self._scope_state(scope)) == before:
+                self._captured[scope] = _Captured()
             return out
         if rec.graph is None:
             self._capture(exe, scope, rec)
@@ -549,7 +574,14 @@ class StepArtifact(object):
                                     capture_error_mode='thread_local')
                 try:
                     fetches, new_persist, health = self._body(
-                        state, feeds, Ctx(dev, exe._generator))
+                        state, feeds, Ctx(dev, exe._generator, amp=self.amp))
+                    moved = [n for n, v in new_persist.items()
+                             if n in state and (v.shape != state[n].shape
+                                                or v.dtype != state[n].dtype)]
+                    if moved:
+                        raise RuntimeError(
+                            'persistables %r change dtype or shape in the '
+                            'step' % moved[:4])
                     _write_back_static(state, new_persist)
                     if health is not None:
                         health = _pack_health(health)
@@ -619,6 +651,7 @@ class StepArtifact(object):
         out = {}
         for w, plan in self.sparse_plan.items():
             parts = []
+            n = self.program.global_block().var(w).shape[0]
             for _op_idx, ids_name, pad in plan['lookups']:
                 v = feed.get(ids_name)
                 if v is None:
@@ -627,6 +660,10 @@ class StepArtifact(object):
                 if isinstance(v, torch.Tensor):
                     v = v.detach().cpu().numpy()
                 ids = np.asarray(v).reshape(-1)
+                # the lookup's id rule: negative ids wrap, ids out of range
+                # touch no row
+                ids = np.where(ids < 0, ids + n, ids)
+                ids = ids[(ids >= 0) & (ids < n)]
                 if pad is not None and pad >= 0:
                     ids = ids[ids != pad]
                 parts.append(ids.astype(np.int64))
@@ -648,6 +685,12 @@ class StepArtifact(object):
             if v is not None:
                 out[n] = v
         return out
+
+
+def _state_signature(state):
+    """(name, shape, dtype) of each tensor of a step's persistable state."""
+    return sorted((n, tuple(v.shape), v.dtype) for n, v in state.items()
+                  if isinstance(v, torch.Tensor))
 
 
 def _write_back(scope, new_persist, in_place):
@@ -736,8 +779,8 @@ def program_fingerprint(program):
 
 def stable_signature(art):
     """Process-independent identity of one step signature (the JAX :892):
-    program fingerprint, feed signature, fetch set, persistable set and
-    the guard flag. Cached on the artifact."""
+    program fingerprint, feed signature, fetch set, persistable set, the
+    guard and amp flags. Cached on the artifact."""
     if art._stable_sig is not None:
         return art._stable_sig
     src = art._source_program if art._source_program is not None \
@@ -749,6 +792,7 @@ def stable_signature(art):
         'persist_in': list(art.persist_in),
         'donates': sorted(art.donate_names),
         'guard': bool(art.guard),
+        'amp': bool(art.amp),
     }, sort_keys=True)
     art._stable_sig = hashlib.sha256(payload.encode('utf-8')).hexdigest()[:16]
     return art._stable_sig

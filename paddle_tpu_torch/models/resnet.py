@@ -4,7 +4,8 @@ Parity: reference benchmark/fluid/models/resnet.py (conv_bn_layer:33,
 shortcut:45, basicblock:53, bottleneck:60, resnet_imagenet:75,
 resnet_cifar10:102) and the JAX package's models/resnet.py, built with the
 same layer calls. Convolutions, pools and batch norm run as cuDNN library
-calls on the card (fluid/ops_impl/nn_ops.py), fp32 with TF32 off.
+calls on the card (fluid/ops_impl/nn_ops.py), fp32 with TF32 off, or bf16
+under AMP.
 """
 from .. import fluid
 from ..batch import batch
@@ -102,7 +103,8 @@ def get_model(data_set='cifar10', depth=None, batch_size=32,
     accuracy, Momentum(learning_rate, 0.9). imagenet and flowers read the
     flowers reader at 3x224x224 (1000 or 102 classes), cifar10 the cifar
     reader at 3x32x32. use_bf16 is accepted and not read, as in the JAX
-    package (its resnet.py:101); bf16 is not ported yet.
+    package (its resnet.py:101): bf16 training is a bfloat16 data var and
+    fluid.amp.decorate_program, as the JAX bench.py:215-253 builds it.
     Returns (avg_cost, accuracy, train_reader, test_reader)."""
     if data_set == "cifar10":
         class_dim = 10

@@ -10,6 +10,12 @@ paddle_tpu_torch/csrc/flash_attention_fwd.cu, and `_bwd_call` /
 `_bwd_call_tri` (the dQ and dK/dV grids, rectangular and triangular), whose
 source is paddle_tpu_torch/csrc/flash_attention_bwd.cu.
 
+Each kernel has two variants, built from the same source: fp32 (3xTF32
+products) and bf16 (q, k, v, dO and the outputs O, dQ, dK, dV in bf16; lse,
+delta and every accumulator fp32), which AMP's flash_attention rule feeds
+(fluid/lowering.amp_cast), as the TPU kernel takes bf16 tiles. The dtype of
+q, k and v decides the variant; there is no switch.
+
 Dispatch is by the device of the tensors, with no fallback and no switch:
   * CUDA tensors -> the kernels (built at first use), or an exception;
   * CPU or meta tensors -> the plain torch versions (meta is what build-time
@@ -34,7 +40,8 @@ from ._cuda import CudaKernel
 __all__ = ['flash_attention', 'flash_attention_lse',
            'flash_attention_lse_plain', 'flash_attention_bwd_plain',
            'flash_attention_bwd_dq_plain', 'flash_attention_bwd_dkv_plain',
-           'KERNEL', 'KERNEL_BWD_DQ', 'KERNEL_BWD_DKV']
+           'KERNEL', 'KERNEL_BWD_DQ', 'KERNEL_BWD_DKV', 'KERNEL_BF16',
+           'KERNEL_BWD_DQ_BF16', 'KERNEL_BWD_DKV_BF16']
 
 NEG_BIG = -1e9   # finite causal mask value, as in the TPU kernel
 
@@ -67,6 +74,33 @@ KERNEL_BWD_DKV = CudaKernel(
     # _bwd_call's dK/dV pallas_call (_bwd_dkv_kernel :258); its causal
     # triangle is _bwd_call_tri's at :384 (_bwd_dkv_kernel_tri :269)
     replaces='paddle_tpu/ops/flash_attention.py:430')
+
+# the bf16 variants: the same C signatures, bf16 for q, k, v, dO, O and the
+# gradients
+KERNEL_BF16 = CudaKernel(
+    name='flash_attention_fwd_bf16',
+    source='csrc/flash_attention_fwd.cu',
+    entry='flash_attention_fwd_bf16',
+    argtypes=KERNEL.argtypes,
+    replaces=KERNEL.replaces)
+KERNEL_BWD_DQ_BF16 = CudaKernel(
+    name='flash_attention_bwd_dq_bf16',
+    source='csrc/flash_attention_bwd.cu',
+    entry='flash_attention_bwd_dq_bf16',
+    argtypes=KERNEL_BWD_DQ.argtypes,
+    replaces=KERNEL_BWD_DQ.replaces)
+KERNEL_BWD_DKV_BF16 = CudaKernel(
+    name='flash_attention_bwd_dkv_bf16',
+    source='csrc/flash_attention_bwd.cu',
+    entry='flash_attention_bwd_dkv_bf16',
+    argtypes=KERNEL_BWD_DKV.argtypes,
+    replaces=KERNEL_BWD_DKV.replaces)
+
+# (forward, dQ, dK/dV) kernels by the dtype of q, k and v
+_VARIANTS = {
+    torch.float32: (KERNEL, KERNEL_BWD_DQ, KERNEL_BWD_DKV),
+    torch.bfloat16: (KERNEL_BF16, KERNEL_BWD_DQ_BF16, KERNEL_BWD_DKV_BF16),
+}
 
 MAX_HEAD_DIM = 128
 
@@ -151,10 +185,14 @@ def flash_attention_bwd_plain(q, k, v, key_bias, do, lse, delta,
 
 
 def _check(q, k, v, kb):
+    if q.dtype not in _VARIANTS:
+        raise TypeError('flash_attention kernel: q must be float32 or '
+                        'bfloat16, got %s' % q.dtype)
     for name, t in (('q', q), ('k', k), ('v', v)):
-        if t.dtype != torch.float32:
-            raise TypeError('flash_attention kernel: %s must be float32, '
-                            'got %s' % (name, t.dtype))
+        if t.dtype != q.dtype:
+            raise TypeError('flash_attention kernel: %s is %s, q %s: q, k '
+                            'and v must share one dtype'
+                            % (name, t.dtype, q.dtype))
         if t.dim() != 4:
             raise ValueError('flash_attention kernel: %s must be '
                              '[B, H, T, D], got %s' % (name, tuple(t.shape)))
@@ -183,15 +221,18 @@ def _check(q, k, v, kb):
 
 
 def _check_bwd(q, do, lse, delta):
-    """What the backward kernels take beyond _check's operands: dO like q,
-    lse and delta contiguous fp32 [B, H, Tq] on q's device."""
-    for name, t, shape in (('dO', do, q.shape), ('lse', lse, q.shape[:3]),
-                           ('delta', delta, q.shape[:3])):
-        if t.dtype != torch.float32 or t.shape != shape \
+    """What the backward kernels take beyond _check's operands: dO like q
+    (its dtype too), lse and delta contiguous fp32 [B, H, Tq] on q's
+    device."""
+    for name, t, shape, dtype in (
+            ('dO', do, q.shape, q.dtype),
+            ('lse', lse, q.shape[:3], torch.float32),
+            ('delta', delta, q.shape[:3], torch.float32)):
+        if t.dtype != dtype or t.shape != shape \
                 or not t.is_contiguous() or t.device != q.device:
             raise ValueError('flash_attention backward kernel: %s must be a '
-                             'contiguous float32 %s tensor on %s, got %s %s'
-                             % (name, tuple(shape), q.device, t.dtype,
+                             'contiguous %s %s tensor on %s, got %s %s'
+                             % (name, dtype, tuple(shape), q.device, t.dtype,
                                 tuple(t.shape)))
 
 
@@ -203,11 +244,11 @@ def _flash_lse_cuda(q, k, v, kb, causal, scale):
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
     _check(q, k, v, kb)
-    o = torch.empty((B, H, Tq, D), dtype=torch.float32, device=q.device)
+    o = torch.empty((B, H, Tq, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     if Tq == 0:
         return o, lse
-    KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), kb.data_ptr(),
+    _VARIANTS[q.dtype][0].launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), kb.data_ptr(),
                   o.data_ptr(), lse.data_ptr(), B, H, Tq, Tk, D, scale,
                   int(bool(causal)), _stream(q))
     return o, lse
@@ -216,7 +257,7 @@ def _flash_lse_cuda(q, k, v, kb, causal, scale):
 def _bwd_dq_cuda(q, k, v, kb, do, lse, delta, causal, scale):
     B, H, Tq, D = q.shape
     dq = torch.empty_like(q)
-    KERNEL_BWD_DQ.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    _VARIANTS[q.dtype][1].launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                          kb.data_ptr(), do.data_ptr(), lse.data_ptr(),
                          delta.data_ptr(), dq.data_ptr(), B, H, Tq,
                          k.shape[2], D, scale, int(bool(causal)), _stream(q))
@@ -226,7 +267,7 @@ def _bwd_dq_cuda(q, k, v, kb, do, lse, delta, causal, scale):
 def _bwd_dkv_cuda(q, k, v, kb, do, lse, delta, causal, scale):
     B, H, Tq, D = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    KERNEL_BWD_DKV.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    _VARIANTS[q.dtype][2].launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           kb.data_ptr(), do.data_ptr(), lse.data_ptr(),
                           delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B,
                           H, Tq, k.shape[2], D, scale, int(bool(causal)),

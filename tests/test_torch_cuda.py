@@ -131,6 +131,149 @@ def test_flash_attention_kernel_takes_unaligned_views(card, D, causal):
     _fwd_matches_plain(q, k, v, kb, causal)
 
 
+# -- the bf16 variants ---------------------------------------------------------
+
+def bf16_tol(ref):
+    """Two bf16 ulps of the tensor's largest magnitude: the kernel and its
+    plain version round the same fp32 function to bf16 once, from sums
+    taken in other orders (and the kernel's P and dS carried to 2^-16 by
+    their hi/lo split)."""
+    m = float(ref.detach().abs().max().float())
+    return 2.0 * 2.0 ** (np.floor(np.log2(m)) - 7) if m > 0 else 0.0
+
+
+def _bf16(*ts):
+    return [t.to(torch.bfloat16).contiguous() for t in ts]
+
+
+def _bf16_fwd_matches_plain(q, k, v, kb, causal):
+    before = (tfa.KERNEL_BF16.launches, tfa.KERNEL.launches)
+    o, lse = tfa.flash_attention_lse(q, k, v, key_bias=kb, causal=causal)
+    torch.cuda.synchronize()
+    assert (tfa.KERNEL_BF16.launches, tfa.KERNEL.launches) == \
+        (before[0] + 1, before[1])
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    o_ref, lse_ref = tfa.flash_attention_lse_plain(q, k, v, key_bias=kb,
+                                                   causal=causal)
+    tol = bf16_tol(o_ref)
+    torch.testing.assert_close(o.float(), o_ref.float(), rtol=0, atol=tol)
+    torch.testing.assert_close(lse, lse_ref, rtol=TOL, atol=TOL)
+
+
+# D 6 and 20: 4-byte copies (D not a multiple of 8); D 7: element copies
+# and odd stores; D 20 and 40: the summation over d zero-padded
+@pytest.mark.parametrize('D', [6, 7, 16, 20, 40, 64, 128])
+@pytest.mark.parametrize('Tq,Tk,causal', [(64, 64, False), (64, 64, True),
+                                          (100, 37, False), (130, 130, True),
+                                          (1, 70, False)])
+def test_flash_attention_bf16_kernel_matches_plain(card, D, Tq, Tk, causal):
+    q, k, v, kb = _fwd_case(card, 2, 3, Tq, Tk, D, Tq * 1000 + Tk + D)
+    _bf16_fwd_matches_plain(*_bf16(q, k, v), kb, causal)
+
+
+@pytest.mark.parametrize('causal', [False, True])
+@pytest.mark.parametrize('D', [64, 128])
+def test_flash_attention_bf16_kernel_long_sequences(card, D, causal):
+    q, k, v, kb = _fwd_case(card, 1, 2, 1000, 1000, D, 1000 + D)
+    _bf16_fwd_matches_plain(*_bf16(q, k, v), kb, causal)
+
+
+def _bwd_bf16_case(card, B, H, Tq, Tk, D, causal, seed):
+    """_bwd_case's inputs in bf16: q, k, v and dO bf16, O from the bf16
+    forward, lse and delta fp32."""
+    g = torch.Generator(device=card)
+    g.manual_seed(seed)
+    q, k, v = _bf16(*[torch.randn((B, H, T, D), generator=g, device=card)
+                      for T in (Tq, Tk, Tk)])
+    kb = torch.zeros((B, Tk), device=card)
+    kb[0, Tk // 2:] = -1e9
+    o, lse = tfa.flash_attention_lse(q, k, v, key_bias=kb, causal=causal)
+    do = torch.randn(o.shape, generator=g, device=card).to(torch.bfloat16)
+    dlse = torch.randn(lse.shape, generator=g, device=card)
+    delta = ((do.float() * o.float()).sum(-1) - dlse).contiguous()
+    return q, k, v, kb, do, lse, delta
+
+
+def _bwd_bf16_matches_plain(args, causal, D):
+    fp32 = (tfa.KERNEL_BWD_DQ.launches, tfa.KERNEL_BWD_DKV.launches)
+    before = (tfa.KERNEL_BWD_DQ_BF16.launches,
+              tfa.KERNEL_BWD_DKV_BF16.launches)
+    dq, dk, dv = tfa._flash_bwd_cuda(*args, causal, D ** -0.5)
+    torch.cuda.synchronize()
+    assert (tfa.KERNEL_BWD_DQ_BF16.launches,
+            tfa.KERNEL_BWD_DKV_BF16.launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    assert (tfa.KERNEL_BWD_DQ.launches,
+            tfa.KERNEL_BWD_DKV.launches) == fp32
+    want = tfa.flash_attention_bwd_plain(*args, causal, D ** -0.5)
+    for got, ref in zip((dq, dk, dv), want):
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                                   atol=bf16_tol(ref))
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize('D', [6, 7, 16, 20, 40, 64, 128])
+@pytest.mark.parametrize('Tq,Tk,causal', [(64, 64, False), (64, 64, True),
+                                          (100, 37, False), (130, 130, True),
+                                          (37, 100, True), (1, 70, False)])
+def test_flash_attention_bf16_bwd_kernels_match_plain(card, D, Tq, Tk,
+                                                      causal):
+    args = _bwd_bf16_case(card, 2, 3, Tq, Tk, D, causal,
+                          Tq * 1000 + Tk + D + 7)
+    _bwd_bf16_matches_plain(args, causal, D)
+
+
+def test_flash_attention_bf16_bwd_kernels_long_causal(card):
+    args = _bwd_bf16_case(card, 1, 2, 1024, 1024, 64, True, 1024)
+    _bwd_bf16_matches_plain(args, True, 64)
+
+
+@pytest.mark.parametrize('causal', [False, True])
+def test_flash_attention_bf16_kernels_are_deterministic(card, causal):
+    """Two launches of each bf16 kernel on the same inputs are bitwise
+    equal."""
+    args = _bwd_bf16_case(card, 2, 4, 200, 200, 64, causal, 19)
+    q, k, v, kb = args[:4]
+    outs = [tfa._flash_lse_cuda(q, k, v, kb, causal, 0.125)
+            + tfa._flash_bwd_cuda(*args, causal, 0.125) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a.view(torch.int16 if a.element_size() == 2
+                                  else torch.int32),
+                           b.view(torch.int16 if b.element_size() == 2
+                                  else torch.int32))
+
+
+@pytest.mark.parametrize('shift', [1, 2])
+@pytest.mark.parametrize('D', [20, 64])
+def test_flash_attention_bf16_kernels_take_unaligned_views(card, D, shift):
+    """Contiguous bf16 views that start 2 or 4 bytes into their storage:
+    the kernels must take their element or 4-byte copies."""
+    q, k, v, kb, do, lse, delta = _bwd_bf16_case(card, 2, 3, 100, 90, D,
+                                                 True, 5 + shift)
+
+    def shifted(t):
+        base = torch.empty(t.numel() + shift, dtype=t.dtype, device=card)
+        view = base[shift:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    q, k, v, do = map(shifted, (q, k, v, do))
+    assert all(t.is_contiguous() and t.data_ptr() % 16 != 0
+               for t in (q, k, v, do))
+    _bf16_fwd_matches_plain(q, k, v, kb, True)
+    _bwd_bf16_matches_plain((q, k, v, kb, do, lse, delta), True, D)
+
+
+def test_flash_attention_bf16_refuses_mixed_dtypes(card):
+    q, k, v, kb = _fwd_case(card, 1, 2, 64, 64, 64, 3)
+    with pytest.raises(TypeError):
+        tfa.flash_attention(q.to(torch.bfloat16), k, v, key_bias=kb)
+    with pytest.raises(TypeError):
+        tfa.flash_attention(q.half(), k.half(), v.half(), key_bias=kb)
+
+
 def test_transformer_on_the_card_matches_the_cpu(card, tmp_path):
     import paddle_tpu_torch.fluid as fluid
     from paddle_tpu_torch import inference
@@ -312,10 +455,11 @@ def test_training_step_on_the_card_matches_the_cpu(card):
         launched = {n: k.launches - before[n]
                     for n, k in ops.KERNELS.items()}
         per_kernel = 3 * 2 if isinstance(place, fluid.CUDAPlace) else 0
-        # the attention kernels; the sparse optimizer kernels never run
-        # here (no is_sparse table)
-        want = {n: per_kernel if n.startswith('flash_attention') else 0
-                for n in launched}
+        # the fp32 attention kernels; their bf16 variants (AMP's) and the
+        # sparse optimizer kernels never run here (no AMP, no is_sparse
+        # table)
+        want = {n: per_kernel if n.startswith('flash_attention')
+                and not n.endswith('_bf16') else 0 for n in launched}
         assert launched == want
     for got, ref in zip(outs['CUDAPlace'], outs['CPUPlace']):
         scale = max(float(np.abs(ref).max()), 1e-12)
@@ -1194,3 +1338,189 @@ def test_captured_paged_decode_step_matches_the_eager_walk(card):
             f.result(120)
     finally:
         eng.shutdown()
+
+
+# -- out-of-range labels and ids, AMP on the card -----------------------------
+
+@pytest.mark.parametrize('op_type', ['cross_entropy',
+                                     'softmax_with_cross_entropy'])
+def test_out_of_range_labels_give_nan_on_the_card(card, op_type):
+    """No device-side assert: labels past the classes give NaN, negative
+    ones count from the end, card and CPU alike; the context stays usable
+    (a later launch runs)."""
+    x_slot = 'X' if op_type == 'cross_entropy' else 'Logits'
+    probs = np.array([[0.2, 0.3, 0.5]] * 5, 'float32')
+    label = np.array([[0], [3], [-1], [-4], [7]], 'int64')
+    got = _rule_on(card, op_type, {x_slot: [probs], 'Label': [label]}, {})
+    want = _rule_on(torch.device('cpu'), op_type,
+                    {x_slot: [probs], 'Label': [label]}, {})
+    slot = 'Y' if op_type == 'cross_entropy' else 'Loss'
+    g, w = got[slot].cpu().numpy(), want[slot].numpy()
+    np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
+    assert np.isnan(g[[1, 3, 4]]).all() and np.isfinite(g[[0, 2]]).all()
+    np.testing.assert_allclose(g, w, rtol=1e-6)
+    assert float(torch.ones(3, device=card).sum()) == 3.0
+
+
+def test_out_of_range_ids_read_nan_rows_on_the_card(card):
+    w = np.arange(12, dtype='float32').reshape(4, 3)
+    ids = np.array([[5], [-1], [2], [-5]], 'int64')
+    got = _rule_on(card, 'lookup_table', {'W': [w], 'Ids': [ids]},
+                   {'padding_idx': -1})['Out'].cpu().numpy()
+    assert np.isnan(got[[0, 3]]).all()
+    np.testing.assert_array_equal(got[[1, 2]], w[[3, 2]])
+
+
+def test_an_out_of_range_label_in_a_captured_step_is_skipped(card):
+    """A guarded training step replayed from its graph, fed a label past
+    the classes: a NaN loss and a skipped step, not a device assert; the
+    next healthy replay trains."""
+    import warnings
+    import paddle_tpu_torch.fluid as fluid
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.layers.data(name='x', shape=[4])
+        label = fluid.layers.data(name='label', shape=[1], dtype='int64')
+        prob = fluid.layers.fc(input=x, size=3, act='softmax')
+        loss = fluid.layers.mean(fluid.layers.cross_entropy(prob, label))
+        fluid.optimizer.SGD(learning_rate=0.1).minimize(loss)
+    fluid.anomaly_guard(main)
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    good = {'x': np.ones((2, 4), 'float32'), 'label': np.array([[1], [2]])}
+    bad = dict(good, label=np.array([[1], [3]]))
+    for _ in range(2):
+        exe.run(main, feed=good, fetch_list=[loss], scope=scope)
+    before = {n: t.clone() for n, t in scope.vars.items()}
+    with warnings.catch_warnings():
+        warnings.simplefilter('ignore')
+        out = exe.run(main, feed=bad, fetch_list=[loss], scope=scope)[0]
+    assert np.isnan(out).all() and exe.skipped_steps == 1
+    assert all(torch.equal(t, before[n]) for n, t in scope.vars.items())
+    out = exe.run(main, feed=good, fetch_list=[loss], scope=scope)[0]
+    assert np.isfinite(out).all() and exe.cache_stats['replays'] >= 2
+
+
+def _amp_rule_on(device, op_type, ins, attrs):
+    from paddle_tpu_torch.fluid import lowering
+    ctx = lowering.Ctx(device, torch.Generator(device=device), amp=True)
+    return lowering.get_rule(op_type)(
+        {s: [t.to(device) for t in vs] for s, vs in ins.items()}, attrs, ctx)
+
+
+@pytest.mark.parametrize('op_type,attrs,shapes', [
+    ('mul', {'x_num_col_dims': 2}, ((8, 12, 96), (96, 40))),
+    ('matmul', {'transpose_Y': True, 'alpha': 0.5},
+     ((4, 3, 20, 32), (3, 24, 32))),
+])
+def test_amp_products_on_the_card_match_the_cpu(card, op_type, attrs,
+                                                 shapes):
+    """Under AMP the card's product (cuBLAS bf16, fp32 result, fp32
+    accumulation) against the CPU's exact form (the bf16 operands widened,
+    an fp32 product): 1e-5 of max |out|, sums in other orders. The
+    gradients: the card takes the fp32 cotangent as bf16 hi + lo
+    (_Bf16Product), 2^-17 relative, then both round to bf16: at most 1% of
+    the elements on the other bf16 neighbour, each within one bf16 ulp of
+    max |g|."""
+    r = np.random.RandomState(8)
+    arrays = [torch.tensor(r.randn(*s).astype('float32')) for s in shapes]
+    outs, grads = {}, {}
+    for dev in (torch.device('cpu'), card):
+        leaves = [a.to(dev).requires_grad_() for a in arrays]
+        out = _amp_rule_on(dev, op_type, {'X': [leaves[0]],
+                                          'Y': [leaves[1]]}, attrs)['Out']
+        assert out.dtype == torch.float32
+        wo = torch.tensor(r.randn(*out.shape).astype('float32')
+                          if dev.type == 'cpu' else grads['w']).to(dev)
+        grads['w'] = wo.cpu().numpy()
+        outs[dev.type] = out.detach().cpu()
+        grads[dev.type] = [g.cpu() for g in torch.autograd.grad(
+            (out * wo).sum(), leaves)]
+    ref = outs['cpu']
+    torch.testing.assert_close(outs['cuda'], ref, rtol=0,
+                               atol=1e-5 * float(ref.abs().max()))
+    for g, w in zip(grads['cuda'], grads['cpu']):
+        assert float((g != w).float().mean()) <= 0.01
+        torch.testing.assert_close(g, w, rtol=0, atol=bf16_tol(w) / 2)
+
+
+@pytest.mark.parametrize('fmt', ['NCHW', 'NHWC'])
+def test_amp_conv2d_on_the_card_matches_the_cpu(card, fmt):
+    """A bf16 convolution (cuDNN on channels_last memory for NHWC) against
+    the CPU's bf16 convolution: two bf16 ulps of max |out|."""
+    r = np.random.RandomState(9)
+    x = torch.tensor(_nhwc(r.randn(4, 16, 20, 20).astype('float32'), fmt))
+    w = torch.tensor(r.randn(32, 16, 3, 3).astype('float32'))
+    attrs = dict(strides=[1, 1], paddings=[1, 1], dilations=[1, 1],
+                 groups=1, data_format=fmt)
+    got = _amp_rule_on(card, 'conv2d', {'Input': [x], 'Filter': [w]},
+                       attrs)['Output']
+    want = _amp_rule_on(torch.device('cpu'), 'conv2d',
+                        {'Input': [x], 'Filter': [w]}, attrs)['Output']
+    assert got.dtype == want.dtype == torch.float32
+    torch.testing.assert_close(got.cpu(), want, rtol=0,
+                               atol=bf16_tol(want))
+
+
+@pytest.mark.parametrize('k', [1, 4])
+def test_bf16_top_k_keeps_the_total_order_on_the_card(card, k):
+    x = torch.tensor([[0.0, -0.0, 1.0, 1.0, float('nan'), -float('inf'),
+                       0.5, -0.0],
+                      [-0.0, 0.0, -1.0, float('inf'), -1.0, 2.0, 2.0, 0.0]]
+                     ).to(torch.bfloat16)
+    from paddle_tpu_torch.fluid.ops_impl.lod_beam import top_k_lower_index
+    got = top_k_lower_index(x.to(card), k)[1].cpu()
+    want = top_k_lower_index(x, k)[1]
+    assert torch.equal(got, want)
+
+
+def test_amp_training_step_on_the_card_matches_the_cpu(card):
+    """A small Transformer's AMP training step from the same weights on the
+    card and on the CPU: the bf16 attention kernels (3 a layer pair, no
+    fp32 attention kernel), the loss within 1e-3 and every gradient within
+    3e-2 of its L2 norm (bf16 activations rounded in other places: cuBLAS
+    and the kernels sum in other orders, and the card's products round
+    their cotangents to bf16)."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.models import transformer as T
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 5
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        avg_cost, _, _ = T.transformer(100, 100, 40, n_layer=2, d_model=64,
+                                       n_head=4, d_inner=128,
+                                       dropout_rate=0.0)
+        fluid.optimizer.Adam(learning_rate=1e-3).minimize(avg_cost)
+    fluid.amp.decorate_program(main)
+    gnames = [op for op in main.global_block().ops
+              if op.type == 'autodiff'][0].attrs['grad_names']
+    cpu_scope = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=cpu_scope)
+    init = cpu_scope.to_numpy()
+    r = np.random.RandomState(1)
+    feed = {n: r.randint(1, 100, (3, 40)).astype('int64')
+            for n in ('src_word', 'trg_word', 'lbl_word')}
+    outs = {}
+    counts = [(k.name, k.launches) for k in (
+        tfa.KERNEL, tfa.KERNEL_BWD_DQ, tfa.KERNEL_BWD_DKV, tfa.KERNEL_BF16,
+        tfa.KERNEL_BWD_DQ_BF16, tfa.KERNEL_BWD_DKV_BF16)]
+    for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+        s = fluid.Scope()
+        s.load_numpy(init, place)
+        outs[str(place)] = fluid.Executor(place).run(
+            main, feed=feed, fetch_list=[avg_cost] + list(gnames), scope=s)
+    launched = {n: k.launches - c for (n, c), k in zip(counts, (
+        tfa.KERNEL, tfa.KERNEL_BWD_DQ, tfa.KERNEL_BWD_DKV, tfa.KERNEL_BF16,
+        tfa.KERNEL_BWD_DQ_BF16, tfa.KERNEL_BWD_DKV_BF16))}
+    assert launched == {'flash_attention_fwd': 0,
+                        'flash_attention_bwd_dq': 0,
+                        'flash_attention_bwd_dkv': 0,
+                        'flash_attention_fwd_bf16': 6,
+                        'flash_attention_bwd_dq_bf16': 6,
+                        'flash_attention_bwd_dkv_bf16': 6}
+    gpu, cpu = outs['CUDAPlace(0)'], outs['CPUPlace(0)']
+    np.testing.assert_allclose(gpu[0], cpu[0], rtol=1e-3)
+    for name, g, w in zip(gnames, gpu[1:], cpu[1:]):
+        assert g.dtype == np.float32, name
+        err = np.linalg.norm(g - w) / max(np.linalg.norm(w), 1e-12)
+        assert err <= 3e-2, (name, err)

@@ -1,7 +1,9 @@
 """Boundaries of the PyTorch port (paddle_tpu_torch):
 
   * it imports neither jax nor the JAX package (checked in a fresh
-    interpreter, and on every source line);
+    interpreter, and on every source line), nor ml_dtypes, which the
+    machine with the card does not have (bf16 crosses numpy through
+    16-bit views);
   * its entry points run on the card unless asked for the CPU: with no
     card, Executor(), Predictor(dirname) and serving.DecodeEngine(weights)
     raise instead of running on the CPU;
@@ -50,7 +52,10 @@ SUBMODULES = [
     'paddle_tpu_torch.fluid.nets', 'paddle_tpu_torch.fluid.data_feeder',
     'paddle_tpu_torch.fluid.ops_impl.nn_ops',
     'paddle_tpu_torch.models.fit_a_line', 'paddle_tpu_torch.models.mnist',
-    'paddle_tpu_torch.models.resnet',
+    'paddle_tpu_torch.models.resnet', 'paddle_tpu_torch.fluid.amp',
+    'paddle_tpu_torch.fluid.contrib',
+    'paddle_tpu_torch.fluid.contrib.float16_transpiler',
+    'paddle_tpu_torch.fluid.ops_impl.math_ops',
 ]
 
 
@@ -94,6 +99,40 @@ def test_no_source_file_of_the_port_imports_jax_or_paddle_tpu():
         for i, line in enumerate(fh, 1):
             if _FORBIDDEN.match(line):
                 offenders.append('chip_smoke.py:%d: %s' % (i, line.strip()))
+    assert not offenders, offenders
+
+
+_ML_DTYPES = re.compile(r'^\s*(import|from)\s+ml_dtypes(\.|\s|$)')
+
+
+def test_port_imports_without_ml_dtypes():
+    """Nothing of the port, chip_smoke.py included, imports ml_dtypes: not
+    in a fresh interpreter that imports every module (bf16 feeds, scopes
+    and fetches included), not on any source line."""
+    code = ('import sys\n'
+            'for m in %r:\n'
+            '    __import__(m)\n'
+            'import numpy as np, paddle_tpu_torch.fluid as fluid\n'
+            's = fluid.Scope()\n'
+            's.load_numpy({"w": np.ones((2, 2), "float32")}, '
+            'fluid.CPUPlace())\n'
+            's.vars["w"] = s.vars["w"].bfloat16()\n'
+            'assert s.to_numpy()["w"].dtype == np.float32\n'
+            'assert "ml_dtypes" not in sys.modules\n'
+            'print("clean")\n' % (SUBMODULES,))
+    out = subprocess.run([sys.executable, '-c', code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == 'clean'
+    offenders = []
+    paths = [os.path.join(REPO, 'chip_smoke.py')] + [
+        os.path.join(root, f) for root, _, files in os.walk(PORT_DIR)
+        for f in files if f.endswith('.py')]
+    for path in paths:
+        with open(path) as fh:
+            for i, line in enumerate(fh, 1):
+                if _ML_DTYPES.match(line):
+                    offenders.append('%s:%d' % (path, i))
     assert not offenders, offenders
 
 

@@ -2,6 +2,7 @@
 """Where the time goes in the PyTorch port's serving paths, on one card.
 
     python3 tools/torch_serving_profile.py [--batch 16 1] [--runs 5]
+                                           [--bf16]
     python3 tools/torch_serving_profile.py --model decode [--runs 3]
 
 Each path is measured two ways, side by side: `captured`, as users call
@@ -16,7 +17,9 @@ clock (each run ends in its device-to-host fetch, so the wall time is the
 request's) and traces the same runs with torch.profiler: device time by
 kernel, grouped into classes (matmul, flash attention, elementwise/
 normalization, copies), and the device's idle share of the wall time.
-Prints one JSON line per batch size.
+Prints one JSON line per batch size. --bf16 transpiles the loaded
+artifact with fluid.contrib.Float16Transpiler in the Predictor's scope
+(bf16 weights, AMP, fp32 fetches), as chip_smoke.py's amp phase serves it.
 
 --model decode builds chip_smoke.py's phase 6 engine (the paged
 DecodeEngine at the machine_translation decoder's full width) on the card,
@@ -46,9 +49,13 @@ import chip_smoke  # noqa: E402  (builds the artifact it serves)
 def _kernel_class(name):
     """The Transformer forward's classes."""
     n = name.lower()
+    if 'fwd_bf16_kernel' in n:
+        return 'flash_attention_fwd_bf16'
     if 'flash_attention' in n or 'fwd_kernel' in n:
         return 'flash_attention_fwd'
-    if 'gemm' in n or 'sgemm' in n or 'cutlass' in n or 'xmma' in n:
+    # cuBLAS's Hopper GEMMs (bf16 among them) are named nvjet_*
+    if 'gemm' in n or 'sgemm' in n or 'cutlass' in n or 'xmma' in n \
+            or 'nvjet' in n:
         return 'matmul'
     if 'memcpy' in n:
         return 'copy'
@@ -195,6 +202,8 @@ def main():
     ap.add_argument('--model', choices=('transformer', 'decode'),
                     default='transformer')
     ap.add_argument('--batch', type=int, nargs='+', default=[16, 1])
+    ap.add_argument('--bf16', action='store_true',
+                    help='serve the artifact transpiled to bf16')
     ap.add_argument('--runs', type=int, default=None,
                     help='runs per batch size (default 5) or dispatches '
                     '(default 3)')
@@ -210,7 +219,8 @@ def main():
     cfg = chip_smoke.TRANSFORMER_BASE
     with tempfile.TemporaryDirectory(prefix='torch_serving_profile_') as tmp:
         chip_smoke.build_artifact(tmp, cfg, fluid.CUDAPlace(0))
-        pred = inference.Predictor(tmp)
+        pred = chip_smoke.transpiled_predictor(tmp) if args.bf16 \
+            else inference.Predictor(tmp)
     rng = np.random.RandomState(chip_smoke.SEED)
     exe, scope = pred._exe, pred._scope
     gen = torch.Generator(device='cuda')
@@ -228,6 +238,7 @@ def main():
                                                generator=gen)[0])
 
         r = dict(card=card, batch=b, max_length=cfg['max_length'],
+                 bf16=args.bf16,
                  **profile_modes([('captured', lambda: pred.run(feed)),
                                   ('eager', eager)], args.runs or 5))
         r['cache_stats'] = exe.cache_stats

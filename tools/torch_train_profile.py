@@ -6,7 +6,9 @@
     python3 tools/torch_train_profile.py --model deepfm [--batch 256]
                                          [--root CHECKOUT]
     python3 tools/torch_train_profile.py --model resnet50 [--batch 32]
+                                         [--amp [--layout NHWC|NCHW]]
     python3 tools/torch_train_profile.py --model mnist [--batch 128]
+    python3 tools/torch_train_profile.py --amp     (Transformer under AMP)
 
 --model transformer (the default) builds full-width Transformer-base with
 models.transformer.get_model (its defaults: 6+6 layers, d_model 512, 8
@@ -22,7 +24,12 @@ depth=50) (1000 classes, 3x224x224, NCHW, Momentum(0.01, 0.9)), as
 chip_smoke.py's image_training phase does, and trains it on batches of the
 flowers reader read beforehand (restarted at the end of its 16); --model
 mnist builds models.mnist.get_model (LeNet, Adam 1e-3) on its synthetic
-reader.
+reader. --amp runs the model under fluid.amp.decorate_program: the
+Transformer as it is (the bf16 attention kernels), ResNet-50 as the JAX
+bench.py:215-253 builds it for AMP (a bfloat16 data var, resnet_imagenet
+in --layout NHWC, the default there, or NCHW, the mean cross entropy and
+accuracy, Momentum(0.01, 0.9)), on the same flowers batches made bf16 by
+the DataFeeder.
 
 Either way it initializes on CUDAPlace(0) from a seed and measures the
 step two ways, side by side: `captured`, Executor.run as users call it (on
@@ -69,7 +76,10 @@ MAX_LENGTH = 256
 WARMUP_STEPS = 200
 PROFILE_STEPS = 3
 KERNEL_CLASSES = ('flash_attention_fwd', 'flash_attention_bwd_dq',
-                  'flash_attention_bwd_dkv', 'sparse_adam', 'sparse_adagrad')
+                  'flash_attention_bwd_dkv', 'flash_attention_fwd_bf16',
+                  'flash_attention_bwd_dq_bf16',
+                  'flash_attention_bwd_dkv_bf16', 'sparse_adam',
+                  'sparse_adagrad')
 CLASSES = ('matmul',) + KERNEL_CLASSES + (
     'sparse sort', 'sparse merge (rest)', 'optimizer (dense)',
     'elementwise/norm/other', 'copy')
@@ -98,13 +108,13 @@ def _kernel_class(name):
         return 'sparse_adagrad'
     if 'sparse_adam_kernel' in n or sparse and 'adam' in n:
         return 'sparse_adam'
-    if 'bwd_dq_kernel' in n:
-        return 'flash_attention_bwd_dq'
-    if 'bwd_dkv_kernel' in n:
-        return 'flash_attention_bwd_dkv'
-    if 'fwd_kernel' in n:
-        return 'flash_attention_fwd'
-    if 'gemm' in n or 'cutlass' in n or 'xmma' in n:
+    for kernel in ('bwd_dq', 'bwd_dkv', 'fwd'):
+        if kernel + '_bf16_kernel' in n:
+            return 'flash_attention_%s_bf16' % kernel
+        if kernel + '_kernel' in n:
+            return 'flash_attention_' + kernel
+    # cuBLAS's Hopper GEMMs (bf16 among them) are named nvjet_*
+    if 'gemm' in n or 'cutlass' in n or 'xmma' in n or 'nvjet' in n:
         return 'matmul'
     if 'memcpy' in n or 'memset' in n:
         return 'copy'
@@ -323,6 +333,26 @@ def build_mnist(batch_size, n_feeds):
     return main, startup, [avg_cost], feeds, batch_size, 'images_per_s'
 
 
+def build_resnet50_amp(batch_size, n_feeds, layout='NHWC'):
+    """ResNet-50 as the JAX bench.py builds it for AMP (chip_smoke.py's
+    build_resnet_amp) on the flowers batches, bf16 from the DataFeeder;
+    returns as build_transformer."""
+    import torch  # noqa: F401
+    sys.path.insert(0, HERE)
+    import chip_smoke
+    from paddle_tpu_torch.batch import batch
+    from paddle_tpu_torch.dataset import flowers
+    main, startup, avg_cost = chip_smoke.build_resnet_amp(layout)
+    nchw = chip_smoke.build_resnet_amp('NCHW')[0]
+    feeds = _flowers_feeds(nchw, batch(flowers.train(),
+                                       batch_size=batch_size),
+                           batch_size, n_feeds)
+    if layout == 'NHWC':
+        feeds = [dict(f, data=f['data'].permute(0, 2, 3, 1).contiguous())
+                 for f in feeds]
+    return main, startup, [avg_cost], feeds, batch_size, 'images_per_s'
+
+
 BUILDERS = {'transformer': (build_transformer, 16),
             'deepfm': (build_deepfm, 256),
             'resnet50': (build_resnet50, 32),
@@ -337,6 +367,11 @@ def main():
                     help='default: 16 (transformer), 256 (deepfm), 32 '
                          '(resnet50), 128 (mnist)')
     ap.add_argument('--steps', type=int, default=20)
+    ap.add_argument('--amp', action='store_true',
+                    help='under fluid.amp.decorate_program (transformer, '
+                         'resnet50)')
+    ap.add_argument('--layout', choices=('NHWC', 'NCHW'), default='NHWC',
+                    help='resnet50 --amp: the tower\'s layout')
     ap.add_argument('--root', default=HERE,
                     help='the checkout whose paddle_tpu_torch is profiled '
                          '(default: this one), to time two commits with '
@@ -350,8 +385,15 @@ def main():
     from paddle_tpu_torch import fluid, ops
     build, default_batch = BUILDERS[args.model]
     batch = args.batch or default_batch
-    main_prog, startup, fetch, feeds, units, unit_name = build(
-        batch, args.steps + PROFILE_STEPS)
+    if args.amp and args.model == 'resnet50':
+        main_prog, startup, fetch, feeds, units, unit_name = \
+            build_resnet50_amp(batch, args.steps + PROFILE_STEPS,
+                               args.layout)
+    else:
+        main_prog, startup, fetch, feeds, units, unit_name = build(
+            batch, args.steps + PROFILE_STEPS)
+        if args.amp:
+            fluid.amp.decorate_program(main_prog)
     scope = fluid.Scope()
     exe = fluid.Executor(fluid.CUDAPlace(0))
     exe.run(startup, scope=scope)
@@ -369,9 +411,9 @@ def main():
         gen = torch.Generator(device='cuda')
 
         def eager(feed):
-            dev = {n: torch.from_numpy(v).cuda() for n, v in feed.items()}
+            dev = {n: torch.as_tensor(v).cuda() for n, v in feed.items()}
             fetches = art.debug_step(state, dev, 0, generator=gen)[0]
-            return [t.cpu().numpy() for t in fetches]
+            return [t.float().cpu().numpy() for t in fetches]
 
         modes = [('captured', run), ('eager', eager)]
 
@@ -379,6 +421,8 @@ def main():
     r = dict(card=card_line(), root=os.path.dirname(os.path.dirname(
         os.path.abspath(paddle_tpu_torch.__file__))),
              model=args.model, batch=batch, steps=args.steps,
+             amp=args.amp, layout=args.layout if args.amp and
+             args.model == 'resnet50' else None,
              profiled_steps=PROFILE_STEPS)
     # every mode timed before any is traced: a trace leaves the
     # profiler's hooks behind
