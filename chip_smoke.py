@@ -18,7 +18,9 @@ replay (each graph adds the launches its capture recorded).
                 together); print the build time, ptxas' resource lines and
                 the card's name and power limit; fail if ptxas reports a
                 spill in the flash-attention kernels (forward or
-                backward) or in the paged attention.
+                backward) or in the paged attention, or if the SASS of a
+                bf16 backward kernel (cuobjdump -sass) lacks HGMMA or
+                holds HMMA, an atomic or a 16-bit shared load.
   2. kernels  — each kernel's wrapper against its plain torch version on
                 the card, at the shapes the main paths give it (batch 16:
                 the training batch and serving's largest bucket), within a
@@ -508,11 +510,48 @@ def device_kernels(fn):
 
 # -- phase 1 ----------------------------------------------------------------
 
-def phase_build(fail_on_spill=True):
+# the SASS opcodes counted in the bf16 backward kernels: their products must
+# run on wgmma (HGMMA), none on mma.sync (HMMA); no atomics on their outputs;
+# no 16-bit shared loads (a tile read down its columns)
+SASS_COUNTED = ('HGMMA', 'HMMA', 'ATOM', 'ATOMS', 'ATOMG', 'RED', 'REDG',
+                'LDS.U16')
+SASS_BF16_BWD = ('bwd_dq_bf16_kernel', 'bwd_dkv_bf16_kernel')
+
+
+def sass_counts(sass, names):
+    """{kernel function: {opcode: count of SASS_COUNTED}} of the functions
+    in `sass` (cuobjdump -sass output) whose (mangled) names hold one of
+    `names`."""
+    counts, current = {}, None
+    for line in sass.splitlines():
+        m = re.match(r'\s*Function : (\S+)', line)
+        if m:
+            current = m.group(1) if any(n in m.group(1)
+                                        for n in names) else None
+            if current:
+                counts[current] = dict.fromkeys(SASS_COUNTED, 0)
+            continue
+        if current is None or '*/' not in line:
+            continue
+        words = line.split('*/', 1)[1].split()
+        if words and words[0].startswith('@'):
+            words = words[1:]
+        if not words:
+            continue
+        op = words[0]
+        key = 'LDS.U16' if op.startswith('LDS.U16') else op.split('.')[0]
+        if key in counts[current]:
+            counts[current][key] += 1
+    return counts
+
+
+def phase_build(strict=True):
     """Build every kernel source; returns {source: [(spill stores, spill
-    loads), ...]} for the checked sources that spill, and raises on any
-    unless fail_on_spill is False (tools/torch_attention_bench.py times
-    older checkouts, whose spills it reports)."""
+    loads), ...]} for the checked sources that spill. Strict (the default),
+    it raises on any spill, and unless every bf16 backward kernel's SASS
+    holds HGMMA and no HMMA, atomic or 16-bit shared load;
+    tools/torch_attention_bench.py times older checkouts, which may spill
+    or predate wgmma, with strict=False and reports both."""
     from paddle_tpu_torch import ops
     t0 = time.perf_counter()
     logs = ops.build_all()
@@ -539,8 +578,22 @@ def phase_build(fail_on_spill=True):
             logs.get(source, '')) if m != ('0', '0')]
         if spills:
             spilled[source] = spills
-    if spilled and fail_on_spill:
+    if spilled and strict:
         raise AssertionError('the kernels spill registers: %r' % spilled)
+    cuobjdump = os.path.join(os.path.dirname(ops._cuda.nvcc_path()),
+                             'cuobjdump')
+    sass = sass_counts(subprocess.run(
+        [cuobjdump, '-sass', fa.KERNEL_BWD_DQ_BF16.library.library_path()],
+        check=True, capture_output=True, text=True).stdout, SASS_BF16_BWD)
+    for fn, c in sorted(sass.items()):
+        log('[build] SASS %s: %s' % (fn, json.dumps(c)))
+    bad = [fn for fn, c in sass.items()
+           if not c['HGMMA'] or any(n for k, n in c.items()
+                                    if k != 'HGMMA')]
+    if strict and (bad or len(sass) < len(SASS_BF16_BWD)):
+        raise AssertionError('the bf16 backward kernels must run wgmma '
+                             '(HGMMA) alone, with no HMMA, atomic or 16-bit '
+                             'shared load: %r' % sass)
     log('[build] card: %s' % nvidia_smi_line())
     return spilled
 

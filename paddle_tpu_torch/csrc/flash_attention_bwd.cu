@@ -141,6 +141,7 @@
 #include <stdint.h>
 
 #include "bf16_mma.cuh"
+#include "hopper_bf16.cuh"
 #include "port_cuda.cuh"
 #include "tf32_mma.cuh"
 
@@ -574,190 +575,376 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
 // The bf16 variants: q, k, v, dO [B, H, T, D] bf16 in, dQ, dK, dV bf16 out;
 // bias, lse and delta fp32, as are P, dS and every accumulator.
 //
-// What the TPU kernels do with bf16 tiles: they upcast q, k, v and dO to
-// fp32 (:173-176, :228-231), take every dot in fp32 and write dQ, dK and dV
-// in their operands' dtypes (:197, :254-255). These kernels compute the same
-// function, with the fp32 kernels' structure (two passes, each block owning
-// the rows it writes, the same masks and causal loop bounds, bitwise
-// reproducible):
-//   * s = Q.K^T and dP = dO.V^T (and their transposes in the dK/dV kernel):
-//     one mma.sync.m16n8k16 bf16 with fp32 accumulation each. A product of
-//     two bf16 values is exact in fp32. The scale multiplies the fp32
-//     score after the product, as in the fp32 kernels.
-//   * dQ = dS.K, dV = P^T.dO and dK = dS^T.Q, where P and dS are fp32: the
-//     fp32 operand is split into two bf16 terms, hi = bf16(x) and lo =
-//     bf16(x - hi), each multiplied with the bf16 tile and accumulated in
-//     fp32. The split keeps about 16 bits of P and dS; its error (below
-//     2^-16 relative) is far below the bf16 rounding of dQ, dK and dV
-//     (2^-9) that the reference applies anyway. dQ's and dK's accumulators
-//     are multiplied by the scale at the end (dK = scale * dS^T.Q is
-//     dS^T.(q * scale) rounded in another place).
-//   * The C fragments of two adjacent steps of 8 are the A fragment of a
-//     16-step of the next product (c_to_a_split), so dS and P stay in
-//     registers with no permutation. The right-hand sides of the second
-//     products (K in dQ; dO and Q in dK/dV) are read down their columns
-//     with 16-bit loads (load_b_cols); the first products read theirs along
-//     rows with 32-bit loads.
-// What bounds them: 14 * B * H * D * pairs FLOPs at the bf16 dense rate;
-// the split products count twice on the tensor cores. Shared rows are
-// padded to DP + 8 bf16; 6 tiles: 54 KB at D = 64.
+// They replace the same four TPU grids as the fp32 kernels above (_bwd_call's
+// dQ and dK/dV pallas_calls at :412 and :430, _bwd_call_tri's at :370 and
+// :384) where AMP feeds them bf16 tiles. The TPU kernels upcast q, k, v and
+// dO to fp32 (:173-176, :228-231), take every dot in fp32 and write dQ, dK
+// and dV in their operands' dtypes (:197, :254-255). These kernels compute
+// the same function with the fp32 kernels' structure: two passes, each
+// block owning the rows it writes (no atomics, bitwise reproducible), the
+// same masks (masked_score), causal loop bounds and longest-first dQ grid.
+//
+// What bounds them on the H100. At the Transformer's T = 256, D = 64
+// (B = 16, H = 8) a pair reads q, k, v and dO at 2 bytes and the fp32
+// vectors once and writes dQ, dK and dV once: 0.0088 ms at 3.35 TB/s. Its
+// 7 products of depth D a (query, key) pair, 14 * B * H * D * pairs FLOPs,
+// take 0.0076 ms at the dense bf16 rate (989 TFLOP/s); the hi/lo split
+// below makes them 10 products on the tensor cores, 0.011 ms. Each block
+// walks only T / 64 = 4 streamed tiles, so what decides the time is how
+// many blocks an SM holds and how well their products, their elementwise
+// work (P, dS and the split: most of a thread's instructions) and their
+// copies overlap one another.
+//
+// What the design does about it:
+//   * Products on wgmma.mma_async m64nNk16, bf16 in, fp32 accumulate
+//     (hopper_bf16.cuh). One warpgroup (4 warps, 128 threads) owns 64 rows:
+//     queries in the dQ kernel, keys in the dK/dV kernel. The first products
+//     read both operands from shared memory through descriptors, K-major:
+//     s = Q.K^T and dP = dO.V^T (dQ); s^T = K.Q^T and dP^T = V.dO^T (dK/dV).
+//     The scale multiplies the fp32 score after the product.
+//   * P and dS are fp32; each goes into the second products as two bf16
+//     terms, hi = bf16(x) and lo = bf16(x - hi), which keeps about 16 bits
+//     (its error, below 2^-16 relative, is far below the bf16 rounding of
+//     dQ, dK and dV that the reference applies anyway). The accumulator of
+//     an m64 product gives each warp its 16 rows in the m16n8 C layout, and
+//     two adjacent C fragments are the A fragment of a 16-step
+//     (c_to_a_split), so P and dS stay in registers.
+//   * The second products take A from those registers and B from the
+//     stored tile through an MN-major (transposed) descriptor: dQ += dS.K,
+//     dV += P^T.dO, dK += dS^T.Q sum over the tile's rows, which bf16 wgmma
+//     reads down the rows itself. No thread loads a tile's columns; no
+//     thread loads a tile at all.
+//   * Tiles by TMA into 128-byte-swizzled shared memory, the layout the
+//     descriptors read. The host builds one 3-D tensor map per operand
+//     ([B*H, T, D], boxes of [1, 64, 64]; D = 128 takes two boxes) and
+//     passes it as a __grid_constant__ parameter, which a CUDA graph
+//     captures by value. Rows past T and columns past D arrive as zeros.
+//     The resident tiles (Q and dO in the dQ kernel, K and V in the dK/dV
+//     kernel) and each streamed tile land on an mbarrier; one thread keeps
+//     the next streamed tile in flight while the warpgroup multiplies the
+//     current one (2 stages). bias, lse and delta are 64-entry fp32 rings
+//     filled with 4-byte cp.async beside them.
+//   * A launch takes the TMA when D % 8 == 0 and every bf16 base is 16-byte
+//     aligned (the Transformer's case). Otherwise the block's threads write
+//     the same swizzled layout with 4-byte cp.async copies (D even, bases
+//     4-byte aligned) or element copies, the padding zeroed first, and the
+//     same products run: the mode follows from shape and alignment.
+//   * Few instructions an element: P = exp(s * scale + bias - lse) is one
+//     MUFU.EX2 (exp_of), and masked_score's causal and ragged selects run
+//     only on the tiles that hold a masked position (the same function:
+//     masked scores are still set to NEG_BIG, keys past Tk to -inf).
+//   * Registers decide the blocks an SM holds (48 KB of shared memory a
+//     block at D = 64, D padded to 64 or 128): the dQ kernel takes its key
+//     tile whole (at most 128 registers a thread at D = 64, four blocks an
+//     SM), the dK/dV kernel its query tile 32 queries at a time, so that
+//     one chunk's scores sit beside the two 64 x D accumulators (three
+//     blocks an SM at D = 64). Blocks of 128 rows, two warpgroups sharing
+//     each streamed tile, hold the same registers a thread in twice the
+//     threads and were measured slower (PERF.md); a block is one
+//     warpgroup.
 namespace {
 
+// the copy modes of the bf16 backward: copy_mode's, with 16-byte copies
+// done by the TMA
+constexpr int MODE_TMA = 3;
+
+int bwd_bf16_mode(int D, const void* q, const void* k, const void* v,
+                  const void* dout) {
+  const int mode = copy_mode(D, q, k, v, dout);
+  return mode == COPY_16 ? MODE_TMA : mode;
+}
+
+// one warpgroup a block, for its 64 rows
+constexpr int BWD_THREADS = 128;
+
 template <int DP>
-constexpr int bwd_bf16_smem_bytes() {
-  // 2 resident tiles and 2 streamed tiles x 2 stages of [64][DP+8] bf16;
-  // five 64-entry fp32 vectors, as smem_floats
-  return 6 * BLOCK * (DP + 8) * 2 + 5 * BLOCK * 4;
+__host__ __device__ constexpr int tile_bytes() {
+  return DP / 64 * CB_BYTES;
 }
 
 template <int DP>
-__global__ void __launch_bounds__(THREADS)
-bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+constexpr int bwd_bf16_smem_bytes() {
+  // 1024-byte alignment slack; 2 resident tiles and 2 streamed tiles x 2
+  // stages; four 64-entry fp32 vectors; 3 mbarriers
+  return 1024 + 6 * tile_bytes<DP>() + 4 * BLOCK * 4 + 3 * 8;
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+// Starts the copy of rows [r0, r0 + 64) of a [rows, D] bf16 matrix into a
+// swizzled tile, by the block's threads (COPY_4 or COPY_ELEM); rows past
+// `rows` are zero-filled, columns past D keep the zeros the block wrote.
+template <int DP>
+__device__ __forceinline__ void load_tile_swz(unsigned char* dst,
+                                              const bf16* src, int r0,
+                                              int rows, int D, int mode) {
+  if (mode == COPY_4) {
+    constexpr int CPR = DP / 2;
+    for (int e = threadIdx.x; e < BLOCK * CPR; e += BWD_THREADS) {
+      const int r = e / CPR, c = (e % CPR) * 2;
+      if (c < D) {
+        const bool live = r0 + r < rows;
+        cp_async4_raw(dst + swz_offset(r, c),
+                      live ? src + (size_t)(r0 + r) * D + c : src, live);
+      }
+    }
+  } else {
+    for (int e = threadIdx.x; e < BLOCK * DP; e += BWD_THREADS) {
+      const int r = e / DP, c = e % DP;
+      if (c < D)
+        *reinterpret_cast<bf16*>(dst + swz_offset(r, c)) =
+            r0 + r < rows ? src[(size_t)(r0 + r) * D + c]
+                          : __float2bfloat16(0.f);
+    }
+  }
+}
+
+__device__ __forceinline__ void zero_smem(unsigned char* p, int bytes) {
+  for (int i = 16 * threadIdx.x; i < bytes; i += 16 * BWD_THREADS)
+    *reinterpret_cast<uint4*>(p + i) = make_uint4(0, 0, 0, 0);
+}
+
+// Starts the TMA copy of the 64-row tile at row r0 of (b, h) = bh.
+template <int DP>
+__device__ __forceinline__ void tma_tile(unsigned char* dst,
+                                         const CUtensorMap* map, int r0,
+                                         int bh, uint64_t* bar) {
+#pragma unroll
+  for (int cb = 0; cb < DP / 64; ++cb)
+    tma_load_3d(dst + cb * CB_BYTES, map, 64 * cb, r0, bh, bar);
+}
+
+// The first products of this warpgroup's 64 rows against N rows of the
+// streamed tile, over d: x = A.B^T and y = C.D^T, all four swizzled tiles
+// K-major (A and C the resident tiles, B and D the streamed ones from the
+// chunk's first row). Returns when they, and every product issued before
+// them, have landed.
+template <int DP, int N>
+__device__ __forceinline__ void strip_scores(float (&x)[N][4],
+                                             float (&y)[N][4], uint32_t a,
+                                             uint32_t b, uint32_t c,
+                                             uint32_t d) {
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < DP / 16; ++ks) {
+    const uint32_t off = (ks >> 2) * CB_BYTES + (ks & 3) * 32;
+    wgmma_ss(x, desc_k_major(a + off), desc_k_major(b + off), ks);
+  }
+#pragma unroll
+  for (int ks = 0; ks < DP / 16; ++ks) {
+    const uint32_t off = (ks >> 2) * CB_BYTES + (ks & 3) * 32;
+    wgmma_ss(y, desc_k_major(c + off), desc_k_major(d + off), ks);
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(x);
+  fence_regs(y);
+}
+
+// e^x as 2^(x log2 e) on MUFU.EX2, flushing denormal results to 0 (-inf
+// gives 0). x is s - lse, the difference taken first: a row whose every
+// key the bias masks has s and lse both near -1e9, where fp32 steps by 64,
+// and only their difference is small.
+__device__ __forceinline__ float exp_of(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x * 1.4426950408889634f));
+  return y;
+}
+
+// Columns [col, col + 2) of an output row (dQ, dK or dV) to bf16: a pair
+// of a C fragment; col is even.
+__device__ __forceinline__ void store_pair(bf16* row, int col, int D,
+                                           float x0, float x1) {
+  if ((D & 1) == 0) {
+    if (col < D)
+      *reinterpret_cast<__nv_bfloat162*>(row + col) =
+          __floats2bfloat162_rn(x0, x1);
+  } else {
+    if (col < D) row[col] = __float2bfloat16(x0);
+    if (col + 1 < D) row[col + 1] = __float2bfloat16(x1);
+  }
+}
+
+// at D = 64 at most 128 registers a thread, so that four blocks fit an SM
+template <int DP>
+__global__ void __launch_bounds__(BWD_THREADS, DP == 64 ? 4 : 1)
+bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
+                   const __grid_constant__ CUtensorMap map_k,
+                   const __grid_constant__ CUtensorMap map_v,
+                   const __grid_constant__ CUtensorMap map_do,
+                   const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, const float* __restrict__ bias,
                    const bf16* __restrict__ dout,
                    const float* __restrict__ lse,
                    const float* __restrict__ delta, bf16* __restrict__ dq,
                    int H, int Tq, int Tk, int D, float scale, int causal,
                    int mode) {
-  constexpr int P = DP + 8;
-  constexpr int TILE = BLOCK * P;
-  constexpr int NC = DP >= 128 ? 32 : 64;  // keys in registers at a time
-  constexpr int NT = NC / 8;
-  constexpr int DT = DP / 8;
-  constexpr int DK = DP / 16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dOs = Qs + TILE;
-  bf16* Ks = dOs + TILE;         // [2][TILE]
-  bf16* Vs = Ks + 2 * TILE;      // [2][TILE]
-  float* Bs = reinterpret_cast<float*>(Vs + 2 * TILE);   // [2][BLOCK]
-  float* Ls = Bs + 2 * BLOCK;
-  float* Ds = Ls + BLOCK;
+  constexpr int TB = tile_bytes<DP>();
+  constexpr int NCB = DP / 64;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* Qs = align1024(smem_raw);   // resident
+  unsigned char* dOs = Qs + TB;              // resident
+  unsigned char* Ks = dOs + TB;              // [2] stages
+  unsigned char* Vs = Ks + 2 * TB;           // [2]
+  float* Bs = reinterpret_cast<float*>(Vs + 2 * TB);          // [2][BLOCK]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(Bs + 4 * BLOCK);
+  // bars[0]: the resident tiles; bars[1 + s]: stage s
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int row0 = 16 * warp;
   const size_t bh = blockIdx.x;
   const int b = (int)(bh / H);
+  // the block's rows: the last, longest under causal masking, first
   const int q0 = ((Tq + BLOCK - 1) / BLOCK - 1 - (int)blockIdx.y) * BLOCK;
   const bf16* kb = k + bh * Tk * D;
   const bf16* vb = v + bh * Tk * D;
   const float* biasb = bias + (size_t)b * Tk;
+  const bool tma = mode == MODE_TMA;
 
-  if (D < DP) zero_pad_bf16<DP>(Qs, 6, D);
-  load_tile_bf16<DP>(Qs, q + bh * Tq * D, q0, Tq, D, mode);
-  load_tile_bf16<DP>(dOs, dout + bh * Tq * D, q0, Tq, D, mode);
-  load_vec(Ls, lse + bh * Tq, q0, Tq);
-  load_vec(Ds, delta + bh * Tq, q0, Tq);
-
+  // key tiles: all, or up to the one holding the last diagonal key
   int n_tiles = (Tk + BLOCK - 1) / BLOCK;
-  if (causal) {
-    const int last_row = min(q0 + BLOCK, Tq) - 1;
-    n_tiles = min(n_tiles, last_row / BLOCK + 1);
+  if (causal) n_tiles = min(n_tiles, (min(q0 + BLOCK, Tq) - 1) / BLOCK + 1);
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(&bars[i], 1);
+    mbar_fence_init();
   }
-  load_tile_bf16<DP>(Ks, kb, 0, Tk, D, mode);
-  load_tile_bf16<DP>(Vs, vb, 0, Tk, D, mode);
+  if (!tma) zero_smem(Qs, 6 * TB);
+  __syncthreads();
+  if (tma) {
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(&bars[0], 2 * TB);
+      tma_tile<DP>(Qs, &map_q, q0, (int)bh, &bars[0]);
+      tma_tile<DP>(dOs, &map_do, q0, (int)bh, &bars[0]);
+      mbar_expect_tx(&bars[1], 2 * TB);
+      tma_tile<DP>(Ks, &map_k, 0, (int)bh, &bars[1]);
+      tma_tile<DP>(Vs, &map_v, 0, (int)bh, &bars[1]);
+    }
+  } else {
+    load_tile_swz<DP>(Qs, q + bh * Tq * D, q0, Tq, D, mode);
+    load_tile_swz<DP>(dOs, dout + bh * Tq * D, q0, Tq, D, mode);
+    load_tile_swz<DP>(Ks, kb, 0, Tk, D, mode);
+    load_tile_swz<DP>(Vs, vb, 0, Tk, D, mode);
+  }
   load_vec(Bs, biasb, 0, Tk);
   cp_async_commit();
 
-  float acc[DT][4];
-#pragma unroll
-  for (int n = 0; n < DT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const int row = 16 * warp + g;
+  const int qpos[2] = {q0 + row, q0 + row + 8};
   float lse_r[2], del_r[2];
-  const int qpos[2] = {q0 + row0 + g, q0 + row0 + g + 8};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool live = qpos[h] < Tq;
+    lse_r[h] = live ? lse[bh * Tq + qpos[h]] : 0.f;
+    del_r[h] = live ? delta[bh * Tq + qpos[h]] : 0.f;
+  }
+  float acc[NCB][8][4];
+#pragma unroll
+  for (int cb = 0; cb < NCB; ++cb)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[cb][j][e] = 0.f;
 
   for (int it = 0; it < n_tiles; ++it) {
+    const int stage = it & 1;
+    // tile it's vectors (and copies) have landed, and every warp is done
+    // with the other stage, which now takes tile it + 1
+    cp_async_wait_all();
+    if (!tma) fence_proxy_async();
+    __syncthreads();
     if (it + 1 < n_tiles) {
-      const int nxt = (it + 1) & 1, k1 = (it + 1) * BLOCK;
-      load_tile_bf16<DP>(Ks + nxt * TILE, kb, k1, Tk, D, mode);
-      load_tile_bf16<DP>(Vs + nxt * TILE, vb, k1, Tk, D, mode);
+      const int nxt = stage ^ 1, k1 = (it + 1) * BLOCK;
+      if (tma) {
+        if (threadIdx.x == 0) {
+          mbar_expect_tx(&bars[1 + nxt], 2 * TB);
+          tma_tile<DP>(Ks + nxt * TB, &map_k, k1, (int)bh, &bars[1 + nxt]);
+          tma_tile<DP>(Vs + nxt * TB, &map_v, k1, (int)bh, &bars[1 + nxt]);
+        }
+      } else {
+        load_tile_swz<DP>(Ks + nxt * TB, kb, k1, Tk, D, mode);
+        load_tile_swz<DP>(Vs + nxt * TB, vb, k1, Tk, D, mode);
+      }
       load_vec(Bs + nxt * BLOCK, biasb, k1, Tk);
     }
     cp_async_commit();
-    cp_async_wait_one();
-    __syncthreads();
-    if (it == 0) {
-      lse_r[0] = Ls[row0 + g];
-      lse_r[1] = Ls[row0 + g + 8];
-      del_r[0] = Ds[row0 + g];
-      del_r[1] = Ds[row0 + g + 8];
+    if (tma) {
+      mbar_wait(&bars[0], 0);
+      mbar_wait(&bars[1 + stage], (it >> 1) & 1);
     }
-    const bf16* Kt = Ks + (it & 1) * TILE;
-    const bf16* Vt = Vs + (it & 1) * TILE;
-    const float* Bt = Bs + (it & 1) * BLOCK;
+    const uint32_t qa = smem_u32(Qs);
+    const uint32_t oa = smem_u32(dOs);
+    const uint32_t ka = smem_u32(Ks + stage * TB);
+    const uint32_t va = smem_u32(Vs + stage * TB);
+    const float* Bt = Bs + stage * BLOCK;
     const int k0 = it * BLOCK;
+    // masks only where the tile holds keys past Tk or above a row's
+    // diagonal
+    const bool edge = k0 + BLOCK > Tk || (causal && q0 < k0 + BLOCK - 1);
 
-#pragma unroll 1
-    for (int c0 = 0; c0 < BLOCK; c0 += NC) {
-      float s[NT][4], dp[NT][4];
+    // s = Q.K^T and dP = dO.V^T, the block's 64 rows x 64 keys
+    float s[8][4], dp[8][4];
+    strip_scores<DP>(s, dp, qa, ka, oa, va);
+    // dS' = P (dP - delta), in place of s: C element e of fragment j sits
+    // at row g + 8 (e >> 1), key column 8j + 2t + (e & 1)
 #pragma unroll
-      for (int j = 0; j < NT; ++j)
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < DK; ++ks) {
-        uint32_t qa[4], oa[4];
-        load_a_bf16<P>(qa, Qs, row0, 16 * ks, g, t);
-        load_a_bf16<P>(oa, dOs, row0, 16 * ks, g, t);
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          uint32_t kf[2], vf[2];
-          load_b_rows<P>(kf, Kt, c0 + 8 * j, 16 * ks, g, t);
-          load_b_rows<P>(vf, Vt, c0 + 8 * j, 16 * ks, g, t);
-          mma_bf16(s[j], qa, kf);
-          mma_bf16(dp[j], oa, vf);
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * t + (e & 1);
+        const int h = e >> 1;
+        float val = s[j][e] * scale + Bt[col];
+        if (edge) {
+          if (causal && qpos[h] < k0 + col) val = NEG_BIG;
+          if (k0 + col >= Tk) val = -INFINITY;
         }
+        s[j][e] = exp_of(val - lse_r[h]) * (dp[j][e] - del_r[h]);
       }
-      // dS' in place of s: C element e sits at row g + 8 (e >> 1), key
-      // column 8j + 2t + (e & 1)
+    uint32_t hi[4][4], lo[4][4];
 #pragma unroll
-      for (int j = 0; j < NT; ++j)
+    for (int kk = 0; kk < 4; ++kk)
+      c_to_a_split(s[2 * kk], s[2 * kk + 1], hi[kk], lo[kk]);
+    // dQ += dS'.K, 16 keys a step, dS' as hi + lo; B = the K tile read down
+    // its rows
+    wgmma_fence();
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = c0 + 8 * j + 2 * t + (e & 1);
-          const int h = e >> 1;
-          const float val = masked_score(s[j][e], scale, Bt[col], qpos[h],
-                                         k0 + col, Tk, causal);
-          const float p = __expf(val - lse_r[h]);
-          s[j][e] = p * (dp[j][e] - del_r[h]);
-        }
-      // dQ += dS'.K, 16 keys a step, dS' as hi + lo
+    for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int kk = 0; kk < NT / 2; ++kk) {
-        uint32_t dhi[4], dlo[4];
-        c_to_a_split(s[2 * kk], s[2 * kk + 1], dhi, dlo);
-#pragma unroll
-        for (int n = 0; n < DT; ++n) {
-          uint32_t kf[2];
-          load_b_cols<P>(kf, Kt, c0 + 16 * kk, 8 * n, g, t);
-          mma_bf16(acc[n], dlo, kf);
-          mma_bf16(acc[n], dhi, kf);
-        }
+      for (int cb = 0; cb < NCB; ++cb) {
+        const uint64_t kd = desc_mn_major(ka + cb * CB_BYTES + kk * 2048);
+        wgmma_rs(acc[cb], lo[kk], kd);
+        wgmma_rs(acc[cb], hi[kk], kd);
       }
-    }
-    __syncthreads();   // every warp is done with this stage before refill
+    wgmma_commit();
+    wgmma_wait_all();   // the stage is refilled after the next barrier
   }
   cp_async_wait_all();
+  if (tma) mbar_wait(&bars[0], 0);   // no copy outlives the block
+#pragma unroll
+  for (int cb = 0; cb < NCB; ++cb) fence_regs(acc[cb]);
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (qpos[h] >= Tq) continue;
     bf16* drow = dq + (bh * Tq + qpos[h]) * D;
 #pragma unroll
-    for (int n = 0; n < DT; ++n)
+    for (int cb = 0; cb < NCB; ++cb)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = 8 * n + 2 * t + e;
-        if (col < D) drow[col] = __float2bfloat16(acc[n][2 * h + e] * scale);
-      }
+      for (int j = 0; j < 8; ++j)
+        store_pair(drow, 64 * cb + 8 * j + 2 * t, D,
+                   acc[cb][j][2 * h] * scale, acc[cb][j][2 * h + 1] * scale);
   }
 }
 
 template <int DP>
-__global__ void __launch_bounds__(THREADS)
-bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+__global__ void __launch_bounds__(BWD_THREADS)
+bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
+                    const __grid_constant__ CUtensorMap map_k,
+                    const __grid_constant__ CUtensorMap map_v,
+                    const __grid_constant__ CUtensorMap map_do,
+                    const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v,
                     const float* __restrict__ bias,
                     const bf16* __restrict__ dout,
@@ -765,139 +952,174 @@ bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const float* __restrict__ delta, bf16* __restrict__ dk,
                     bf16* __restrict__ dv, int H, int Tq, int Tk, int D,
                     float scale, int causal, int mode) {
-  constexpr int P = DP + 8;
-  constexpr int TILE = BLOCK * P;
-  // queries held in registers at a time (the dK and dV accumulators take
-  // 128 registers a thread at D = 128)
-  constexpr int NC = DP >= 128 ? 16 : 64;
-  constexpr int NT = NC / 8;
-  constexpr int DT = DP / 8;
-  constexpr int DK = DP / 16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + TILE;
-  bf16* Qs = Vs + TILE;          // [2][TILE]
-  bf16* dOs = Qs + 2 * TILE;     // [2][TILE]
-  float* Bs = reinterpret_cast<float*>(dOs + 2 * TILE);   // [BLOCK]
-  float* Ls = Bs + BLOCK;        // [2][BLOCK]
-  float* Ds = Ls + 2 * BLOCK;    // [2][BLOCK]
+  constexpr int TB = tile_bytes<DP>();
+  constexpr int NCB = DP / 64;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* Ks = align1024(smem_raw);   // resident
+  unsigned char* Vs = Ks + TB;               // resident
+  unsigned char* Qs = Vs + TB;               // [2] stages
+  unsigned char* dOs = Qs + 2 * TB;          // [2]
+  float* Ls = reinterpret_cast<float*>(dOs + 2 * TB);   // [2][BLOCK]
+  float* Ds = Ls + 2 * BLOCK;                           // [2][BLOCK]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(Ds + 2 * BLOCK);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int row0 = 16 * warp;
   const size_t bh = blockIdx.x;
   const int b = (int)(bh / H);
-  const int k0 = blockIdx.y * BLOCK;
+  const int k0 = blockIdx.y * BLOCK;        // the block's first key
   const bf16* qb = q + bh * Tq * D;
   const bf16* dob = dout + bh * Tq * D;
   const float* lseb = lse + bh * Tq;
   const float* deltab = delta + bh * Tq;
+  const bool tma = mode == MODE_TMA;
 
-  if (D < DP) zero_pad_bf16<DP>(Ks, 6, D);
-  load_tile_bf16<DP>(Ks, k + bh * Tk * D, k0, Tk, D, mode);
-  load_tile_bf16<DP>(Vs, v + bh * Tk * D, k0, Tk, D, mode);
-  load_vec(Bs, bias + (size_t)b * Tk, k0, Tk);
-
+  // query tiles: all, or from the one holding the first diagonal row
   const int n_tiles = (Tq + BLOCK - 1) / BLOCK;
   const int first = causal ? k0 / BLOCK : 0;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(&bars[i], 1);
+    mbar_fence_init();
+  }
+  if (!tma) zero_smem(Ks, 6 * TB);
+  __syncthreads();
+  if (tma) {
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(&bars[0], 2 * TB);
+      tma_tile<DP>(Ks, &map_k, k0, (int)bh, &bars[0]);
+      tma_tile<DP>(Vs, &map_v, k0, (int)bh, &bars[0]);
+      if (first < n_tiles) {
+        mbar_expect_tx(&bars[1], 2 * TB);
+        tma_tile<DP>(Qs, &map_q, first * BLOCK, (int)bh, &bars[1]);
+        tma_tile<DP>(dOs, &map_do, first * BLOCK, (int)bh, &bars[1]);
+      }
+    }
+  } else {
+    load_tile_swz<DP>(Ks, k + bh * Tk * D, k0, Tk, D, mode);
+    load_tile_swz<DP>(Vs, v + bh * Tk * D, k0, Tk, D, mode);
+    if (first < n_tiles) {
+      load_tile_swz<DP>(Qs, qb, first * BLOCK, Tq, D, mode);
+      load_tile_swz<DP>(dOs, dob, first * BLOCK, Tq, D, mode);
+    }
+  }
   if (first < n_tiles) {
-    load_tile_bf16<DP>(Qs, qb, first * BLOCK, Tq, D, mode);
-    load_tile_bf16<DP>(dOs, dob, first * BLOCK, Tq, D, mode);
     load_vec(Ls, lseb, first * BLOCK, Tq);
     load_vec(Ds, deltab, first * BLOCK, Tq);
   }
   cp_async_commit();
 
-  float acc_k[DT][4], acc_v[DT][4];
-#pragma unroll
-  for (int n = 0; n < DT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+  const int row = 16 * warp + g;
+  const int kpos[2] = {k0 + row, k0 + row + 8};
   float bias_r[2];
-  const int kpos[2] = {k0 + row0 + g, k0 + row0 + g + 8};
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    bias_r[h] = kpos[h] < Tk ? bias[(size_t)b * Tk + kpos[h]] : 0.f;
+  float acc_k[NCB][8][4], acc_v[NCB][8][4];
+#pragma unroll
+  for (int cb = 0; cb < NCB; ++cb)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc_k[cb][j][e] = acc_v[cb][j][e] = 0.f;
+  const uint32_t ka = smem_u32(Ks), va = smem_u32(Vs);
 
   for (int it = first; it < n_tiles; ++it) {
-    const int stage = (it - first) & 1;
+    const int i = it - first, stage = i & 1;
+    cp_async_wait_all();
+    if (!tma) fence_proxy_async();
+    __syncthreads();
     if (it + 1 < n_tiles) {
       const int nxt = stage ^ 1, q1 = (it + 1) * BLOCK;
-      load_tile_bf16<DP>(Qs + nxt * TILE, qb, q1, Tq, D, mode);
-      load_tile_bf16<DP>(dOs + nxt * TILE, dob, q1, Tq, D, mode);
+      if (tma) {
+        if (threadIdx.x == 0) {
+          mbar_expect_tx(&bars[1 + nxt], 2 * TB);
+          tma_tile<DP>(Qs + nxt * TB, &map_q, q1, (int)bh, &bars[1 + nxt]);
+          tma_tile<DP>(dOs + nxt * TB, &map_do, q1, (int)bh,
+                       &bars[1 + nxt]);
+        }
+      } else {
+        load_tile_swz<DP>(Qs + nxt * TB, qb, q1, Tq, D, mode);
+        load_tile_swz<DP>(dOs + nxt * TB, dob, q1, Tq, D, mode);
+      }
       load_vec(Ls + nxt * BLOCK, lseb, q1, Tq);
       load_vec(Ds + nxt * BLOCK, deltab, q1, Tq);
     }
     cp_async_commit();
-    cp_async_wait_one();
-    __syncthreads();
-    if (it == first) {
-      bias_r[0] = Bs[row0 + g];
-      bias_r[1] = Bs[row0 + g + 8];
+    if (tma) {
+      mbar_wait(&bars[0], 0);
+      mbar_wait(&bars[1 + stage], (i >> 1) & 1);
     }
-    const bf16* Qt = Qs + stage * TILE;
-    const bf16* dOt = dOs + stage * TILE;
+    const uint32_t qa = smem_u32(Qs + stage * TB);
+    const uint32_t oa = smem_u32(dOs + stage * TB);
     const float* Lt = Ls + stage * BLOCK;
     const float* Dt = Ds + stage * BLOCK;
     const int q0 = it * BLOCK;
 
-#pragma unroll 1
-    for (int c0 = 0; c0 < BLOCK; c0 += NC) {
-      // s^T = K.Q^T and dP^T = V.dO^T over this chunk's queries
-      float st[NT][4], dpt[NT][4];
+    // masks only where the tile holds queries past Tq, keys past Tk or
+    // queries above a key's diagonal
+    const bool edge = q0 + BLOCK > Tq || k0 + BLOCK > Tk ||
+                      (causal && q0 < k0 + BLOCK - 1);
+
+    // the query tile in two chunks of 32: one chunk's scores in registers
+    // beside the dK and dV accumulators
 #pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < DK; ++ks) {
-        uint32_t ka[4], va[4];
-        load_a_bf16<P>(ka, Ks, row0, 16 * ks, g, t);
-        load_a_bf16<P>(va, Vs, row0, 16 * ks, g, t);
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          uint32_t qf[2], of[2];
-          load_b_rows<P>(qf, Qt, c0 + 8 * j, 16 * ks, g, t);
-          load_b_rows<P>(of, dOt, c0 + 8 * j, 16 * ks, g, t);
-          mma_bf16(st[j], ka, qf);
-          mma_bf16(dpt[j], va, of);
-        }
-      }
+    for (int c = 0; c < 2; ++c) {
+      // s^T = K.Q^T and dP^T = V.dO^T over the chunk's queries
+      float st[4][4], dpt[4][4];
+      strip_scores<DP>(st, dpt, ka, qa + c * 32 * 128, va, oa + c * 32 * 128);
       // P in place of s^T, dS' in place of dP^T: C element e sits at key
-      // row g + 8 (e >> 1), query column 8j + 2t + (e & 1); rows past Tq
-      // have no dO and must add nothing, whatever the bias
+      // row g + 8 (e >> 1), query column 32c + 8j + 2t + (e & 1); rows past
+      // Tq have no dO and must add nothing, whatever the bias
 #pragma unroll
-      for (int j = 0; j < NT; ++j)
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int col = c0 + 8 * j + 2 * t + (e & 1);
+          const int col = 32 * c + 8 * j + 2 * t + (e & 1);
           const int qp = q0 + col;
           const int h = e >> 1;
-          const float val = masked_score(st[j][e], scale, bias_r[h], qp,
-                                         kpos[h], Tk, causal);
-          const float p = qp < Tq ? __expf(val - Lt[col]) : 0.f;
+          float val = st[j][e] * scale + bias_r[h];
+          if (edge) {
+            val = masked_score(st[j][e], scale, bias_r[h], qp, kpos[h], Tk,
+                               causal);
+            if (qp >= Tq) val = -INFINITY;
+          }
+          const float p = exp_of(val - Lt[col]);
           st[j][e] = p;
           dpt[j][e] = p * (dpt[j][e] - Dt[col]);
         }
-      // dV += P^T.dO and dK += dS'^T.Q, 16 queries a step, P and dS' as
-      // hi + lo
+      uint32_t phi[2][4], plo[2][4], dhi[2][4], dlo[2][4];
 #pragma unroll
-      for (int kk = 0; kk < NT / 2; ++kk) {
-        uint32_t phi[4], plo[4], dhi[4], dlo[4];
-        c_to_a_split(st[2 * kk], st[2 * kk + 1], phi, plo);
-        c_to_a_split(dpt[2 * kk], dpt[2 * kk + 1], dhi, dlo);
-#pragma unroll
-        for (int n = 0; n < DT; ++n) {
-          uint32_t of[2], qf[2];
-          load_b_cols<P>(of, dOt, c0 + 16 * kk, 8 * n, g, t);
-          load_b_cols<P>(qf, Qt, c0 + 16 * kk, 8 * n, g, t);
-          mma_bf16(acc_v[n], plo, of);
-          mma_bf16(acc_k[n], dlo, qf);
-          mma_bf16(acc_v[n], phi, of);
-          mma_bf16(acc_k[n], dhi, qf);
-        }
+      for (int kk = 0; kk < 2; ++kk) {
+        c_to_a_split(st[2 * kk], st[2 * kk + 1], phi[kk], plo[kk]);
+        c_to_a_split(dpt[2 * kk], dpt[2 * kk + 1], dhi[kk], dlo[kk]);
       }
+      // dV += P^T.dO and dK += dS'^T.Q, 16 queries a step, P and dS' as
+      // hi + lo; B = the dO and Q tiles read down their rows
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+        for (int cb = 0; cb < NCB; ++cb) {
+          const uint32_t off = cb * CB_BYTES + (32 * c + 16 * kk) * 128;
+          const uint64_t od = desc_mn_major(oa + off);
+          const uint64_t qd = desc_mn_major(qa + off);
+          wgmma_rs(acc_v[cb], plo[kk], od);
+          wgmma_rs(acc_k[cb], dlo[kk], qd);
+          wgmma_rs(acc_v[cb], phi[kk], od);
+          wgmma_rs(acc_k[cb], dhi[kk], qd);
+        }
+      wgmma_commit();
     }
-    __syncthreads();   // every warp is done with this stage before refill
+    wgmma_wait_all();   // the stage is refilled after the next barrier
   }
   cp_async_wait_all();
+  if (tma) mbar_wait(&bars[0], 0);   // no copy outlives the block
+#pragma unroll
+  for (int cb = 0; cb < NCB; ++cb) {
+    fence_regs(acc_k[cb]);
+    fence_regs(acc_v[cb]);
+  }
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -905,16 +1127,27 @@ bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     bf16* dkrow = dk + (bh * Tk + kpos[h]) * D;
     bf16* dvrow = dv + (bh * Tk + kpos[h]) * D;
 #pragma unroll
-    for (int n = 0; n < DT; ++n)
+    for (int cb = 0; cb < NCB; ++cb)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = 8 * n + 2 * t + e;
-        if (col < D) {
-          dkrow[col] = __float2bfloat16(acc_k[n][2 * h + e] * scale);
-          dvrow[col] = __float2bfloat16(acc_v[n][2 * h + e]);
-        }
+      for (int j = 0; j < 8; ++j) {
+        const int col = 64 * cb + 8 * j + 2 * t;
+        store_pair(dkrow, col, D, acc_k[cb][j][2 * h] * scale,
+                   acc_k[cb][j][2 * h + 1] * scale);
+        store_pair(dvrow, col, D, acc_v[cb][j][2 * h],
+                   acc_v[cb][j][2 * h + 1]);
       }
   }
+}
+
+// The four operands' tensor maps, for a launch that takes the TMA.
+int bwd_tile_maps(CUtensorMap (&maps)[4], const bf16* q, const bf16* k,
+                  const bf16* v, const bf16* dout, int BH, int Tq, int Tk,
+                  int D) {
+  int err = make_tile_map(&maps[0], q, BH, Tq, D);
+  if (err == 0) err = make_tile_map(&maps[1], k, BH, Tk, D);
+  if (err == 0) err = make_tile_map(&maps[2], v, BH, Tk, D);
+  if (err == 0) err = make_tile_map(&maps[3], dout, BH, Tq, D);
+  return err;
 }
 
 template <int DP>
@@ -922,15 +1155,21 @@ int launch_dq_bf16(const bf16* q, const bf16* k, const bf16* v,
                    const float* b, const bf16* dout, const float* lse,
                    const float* delta, bf16* dq, int B, int H, int Tq, int Tk,
                    int D, float scale, int causal, cudaStream_t stream) {
+  const int mode = bwd_bf16_mode(D, q, k, v, dout);
+  CUtensorMap maps[4] = {};
+  if (mode == MODE_TMA) {
+    const int err = bwd_tile_maps(maps, q, k, v, dout, B * H, Tq, Tk, D);
+    if (err != 0) return err;
+  }
   const int smem = bwd_bf16_smem_bytes<DP>();
   cudaError_t err = cudaFuncSetAttribute(
       bwd_dq_bf16_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(B * H, (Tq + BLOCK - 1) / BLOCK);
-  bwd_dq_bf16_kernel<DP><<<grid, THREADS, smem, stream>>>(
-      q, k, v, b, dout, lse, delta, dq, H, Tq, Tk, D, scale, causal,
-      copy_mode(D, q, k, v, dout));
+  bwd_dq_bf16_kernel<DP><<<grid, BWD_THREADS, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], q, k, v, b, dout, lse, delta, dq,
+      H, Tq, Tk, D, scale, causal, mode);
   return (int)cudaGetLastError();
 }
 
@@ -940,15 +1179,21 @@ int launch_dkv_bf16(const bf16* q, const bf16* k, const bf16* v,
                     const float* delta, bf16* dk, bf16* dv, int B, int H,
                     int Tq, int Tk, int D, float scale, int causal,
                     cudaStream_t stream) {
+  const int mode = bwd_bf16_mode(D, q, k, v, dout);
+  CUtensorMap maps[4] = {};
+  if (mode == MODE_TMA) {
+    const int err = bwd_tile_maps(maps, q, k, v, dout, B * H, Tq, Tk, D);
+    if (err != 0) return err;
+  }
   const int smem = bwd_bf16_smem_bytes<DP>();
   cudaError_t err = cudaFuncSetAttribute(
       bwd_dkv_bf16_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(B * H, (Tk + BLOCK - 1) / BLOCK);
-  bwd_dkv_bf16_kernel<DP><<<grid, THREADS, smem, stream>>>(
-      q, k, v, b, dout, lse, delta, dk, dv, H, Tq, Tk, D, scale, causal,
-      copy_mode(D, q, k, v, dout));
+  bwd_dkv_bf16_kernel<DP><<<grid, BWD_THREADS, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], q, k, v, b, dout, lse, delta, dk,
+      dv, H, Tq, Tk, D, scale, causal, mode);
   return (int)cudaGetLastError();
 }
 
@@ -972,8 +1217,6 @@ extern "C" int flash_attention_bwd_dq_bf16(const void* q, const void* k,
   return launch_dq_bf16<DP>(PORT_B(q), PORT_B(k), PORT_B(v), PORT_F(bias), \
                             PORT_B(dout), PORT_F(lse), PORT_F(delta), out, \
                             B, H, Tq, Tk, D, scale, causal, st)
-  if (D <= 16) PORT_DQ_BF16(16);
-  if (D <= 32) PORT_DQ_BF16(32);
   if (D <= 64) PORT_DQ_BF16(64);
   if (D <= 128) PORT_DQ_BF16(128);
 #undef PORT_DQ_BF16
@@ -995,10 +1238,17 @@ extern "C" int flash_attention_bwd_dkv_bf16(const void* q, const void* k,
   return launch_dkv_bf16<DP>(PORT_B(q), PORT_B(k), PORT_B(v), PORT_F(bias), \
                              PORT_B(dout), PORT_F(lse), PORT_F(delta), dko, \
                              dvo, B, H, Tq, Tk, D, scale, causal, st)
-  if (D <= 16) PORT_DKV_BF16(16);
-  if (D <= 32) PORT_DKV_BF16(32);
   if (D <= 64) PORT_DKV_BF16(64);
   if (D <= 128) PORT_DKV_BF16(128);
 #undef PORT_DKV_BF16
   return (int)cudaErrorInvalidValue;
+}
+
+// How the bf16 backward kernels fill their tiles for these operands: 3 by
+// the TMA, 1 with 4-byte copies, 0 with element copies (CopyMode, MODE_TMA).
+extern "C" int flash_attention_bwd_bf16_copy_mode(int D, const void* q,
+                                                  const void* k,
+                                                  const void* v,
+                                                  const void* dout) {
+  return bwd_bf16_mode(D, q, k, v, dout);
 }

@@ -266,6 +266,78 @@ def test_flash_attention_bf16_kernels_take_unaligned_views(card, D, shift):
     _bwd_bf16_matches_plain((q, k, v, kb, do, lse, delta), True, D)
 
 
+def _shifted(t, shift):
+    """A contiguous copy of t that starts `shift` elements into its
+    storage."""
+    base = torch.empty(t.numel() + shift, dtype=t.dtype, device=t.device)
+    view = base[shift:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize('causal', [False, True])
+@pytest.mark.parametrize('D', [16, 64, 128])
+def test_flash_attention_bf16_bwd_takes_the_tma(card, D, causal):
+    """D a multiple of 8 on fresh (16-byte aligned) tensors: the backward
+    kernels fill their tiles by TMA, and agree with the plain version."""
+    args = _bwd_bf16_case(card, 2, 3, 130, 100, D, causal, 31 + D)
+    q, k, v, kb, do = args[:5]
+    assert tfa._bwd_bf16_copy_mode(q, k, v, do) == 'tma'
+    _bwd_bf16_matches_plain(args, causal, D)
+
+
+@pytest.mark.parametrize('causal', [False, True])
+@pytest.mark.parametrize('D', [20, 64])
+def test_flash_attention_bf16_bwd_takes_4_byte_copies(card, D, causal):
+    """Views 4 bytes into their storage (D even): not 16-byte aligned, so
+    the backward kernels write their swizzled tiles with 4-byte copies,
+    and agree with the plain version."""
+    q, k, v, kb, do, lse, delta = _bwd_bf16_case(card, 2, 3, 100, 90, D,
+                                                 causal, 41 + D)
+    q, k, v, do = (_shifted(t, 2) for t in (q, k, v, do))
+    assert tfa._bwd_bf16_copy_mode(q, k, v, do) == '4-byte'
+    _bwd_bf16_matches_plain((q, k, v, kb, do, lse, delta), causal, D)
+
+
+@pytest.mark.parametrize('causal', [False, True])
+def test_flash_attention_bf16_bwd_kernels_span_waves(card, causal):
+    """B * H = 512 at T = 256: 2048 blocks a kernel, several waves over
+    the card's SMs."""
+    args = _bwd_bf16_case(card, 64, 8, 256, 256, 64, causal, 512)
+    assert tfa._bwd_bf16_copy_mode(args[0], args[1], args[2],
+                                   args[4]) == 'tma'
+    _bwd_bf16_matches_plain(args, causal, 64)
+
+
+@pytest.mark.parametrize('causal', [False, True])
+def test_flash_attention_bf16_bwd_kernels_are_deterministic_at_d128(card,
+                                                                     causal):
+    """Two launches of the bf16 backward kernels at D = 128 (two column
+    blocks a tile; dK/dV takes its queries 32 at a time) are bitwise
+    equal."""
+    args = _bwd_bf16_case(card, 2, 4, 200, 200, 128, causal, 23)
+    outs = [tfa._flash_bwd_cuda(*args, causal, 128 ** -0.5)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+def test_flash_attention_bf16_bwd_kernels_take_fully_masked_rows(card):
+    """Batch row 1's bias masks every key (-1e9): its scores and lse sit
+    near -1e9, where fp32 steps by 64, and only their difference is small.
+    The gradients stay finite and agree with the plain version."""
+    args = _bwd_bf16_case(card, 2, 3, 128, 128, 64, False, 59)
+    kb = args[3]
+    kb[1] = -1e9
+    q, k, v = args[:3]
+    o, lse = tfa.flash_attention_lse(q, k, v, key_bias=kb)
+    do = args[4]
+    delta = (do.float() * o.float()).sum(-1).contiguous()
+    grads = _bwd_bf16_matches_plain((q, k, v, kb, do, lse, delta), False, 64)
+    assert all(bool(torch.isfinite(g.float()).all()) for g in grads)
+
+
 def test_flash_attention_bf16_refuses_mixed_dtypes(card):
     q, k, v, kb = _fwd_case(card, 1, 2, 64, 64, 64, 3)
     with pytest.raises(TypeError):

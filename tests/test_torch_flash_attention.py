@@ -175,3 +175,34 @@ def test_chip_smoke_counts_the_forward_at_the_3xtf32_rate():
         assert causal_ms == pytest.approx(nbytes / 3.35e12 * 1e3)
         assert causal_ms > 4.0 * 16 * 8 * 64 * T * (T + 1) / 2 / 165e12 * 1e3
     assert cs.TF32X3_OPS_RATE == '3xTF32: 495 / 3 TFLOP/s'
+
+
+def test_chip_smoke_counts_the_bf16_backward_sass():
+    """chip_smoke's build check reads cuobjdump -sass: per bf16 backward
+    kernel, the count of each checked opcode (predicated instructions
+    too), other functions left out."""
+    cs = _chip_smoke()
+    sass = '''
+	code for sm_90a
+		Function : _ZN12_GLOBAL__N_118bwd_dq_bf16_kernelILi64EEEvPKf
+	.headerflags	@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;
+        /*0020*/              @!P0 HGMMA.64x32x16.F32.BF16 R88, gdesc[UR8], R88 ;
+        /*0030*/                   LDS.U16 R3, [R2] ;
+        /*0040*/                   LDS R4, [R2+0x4] ;
+		..........
+		Function : _ZN12_GLOBAL__N_110fwd_kernelILi64EEEvPKf
+        /*0000*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+		Function : _ZN12_GLOBAL__N_119bwd_dkv_bf16_kernelILi64EEEvPKf
+        /*0000*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+        /*0010*/                   REDG.E.ADD.F32.FTZ.RN.STRONG.GPU [R2], R5 ;
+        /*0020*/                   ATOMS.ADD R6, [R7], R8 ;
+'''
+    counts = cs.sass_counts(sass, cs.SASS_BF16_BWD)
+    zero = dict.fromkeys(cs.SASS_COUNTED, 0)
+    assert counts == {
+        '_ZN12_GLOBAL__N_118bwd_dq_bf16_kernelILi64EEEvPKf':
+            dict(zero, HGMMA=2, **{'LDS.U16': 1}),
+        '_ZN12_GLOBAL__N_119bwd_dkv_bf16_kernelILi64EEEvPKf':
+            dict(zero, HMMA=1, REDG=1, ATOMS=1)}

@@ -2,20 +2,24 @@
 """Time the attention kernels of one or more checkouts on one card, in
 turns, with chip_smoke.py's own cases and timing.
 
-    python3 tools/torch_attention_bench.py [--cases flash|paged|sparse]
+    python3 tools/torch_attention_bench.py
+        [--cases flash|flash-bf16|paged|sparse]
         [--paged-n N] [ROOT ...]
 
 Each ROOT is the root of a checkout of the repo (default: this one). For
 the roots in the order given and then in reverse (A B B A), a fresh process
 puts that ROOT's paddle_tpu_torch first on its path, builds its kernels
-(chip_smoke.phase_build: ptxas' resource lines; spills are reported in
-the run's line, not fatal, since an older checkout may have them) and
+(chip_smoke.phase_build: ptxas' resource lines and the bf16 backward
+kernels' SASS counts; spills are reported in the run's line, not fatal,
+since an older checkout may have them) and
 runs one set of chip_smoke's phase-2 cases: `flash` (the default),
 chip_smoke._attention_cases, the forward and the backward pair against
 their plain versions at B=16, H=8, T=256, D=64 in the four cases, timed by
-CUDA graph replay beside SDPA; `paged`, chip_smoke._paged_attention_cases,
-the paged decode attention against its plain version in its six cases,
-timed by CUDA graph replay beside SDPA over gathered rows; `sparse`,
+CUDA graph replay beside SDPA; `flash-bf16`, the same with the bf16
+kernels (AMP's) on the same draws rounded to bf16; `paged`,
+chip_smoke._paged_attention_cases, the paged decode attention against its
+plain version in its six cases, timed by CUDA graph replay beside SDPA over
+gathered rows; `sparse`,
 chip_smoke._sparse_optim_cases and _sparse_rows_cases, sparse_adam and
 sparse_adagrad in their four merged-form cases and five rows-form cases
 (the rows-form route against the parent's _merge_sparse route and the
@@ -70,8 +74,8 @@ def force_cluster(pa, n):
 
 
 def worker(root, cases, paged_n=None):
-    """Build ROOT's kernels and time its `cases` (flash, paged or
-    sparse); prints one JSON line."""
+    """Build ROOT's kernels and time its `cases` (flash, flash-bf16,
+    paged or sparse); prints one JSON line."""
     sys.path.insert(0, root)
     import torch
     if not torch.cuda.is_available():
@@ -82,7 +86,7 @@ def worker(root, cases, paged_n=None):
         raise SystemExit('imported paddle_tpu_torch from %s, not %s'
                          % (where, root))
     cs = load_chip_smoke()
-    spills = cs.phase_build(fail_on_spill=False)
+    spills = cs.phase_build(strict=False)
     pa = importlib.import_module(
         'paddle_tpu_torch.ops.kernels.paged_attention')
     if paged_n and hasattr(pa, 'launch_plan'):
@@ -94,7 +98,7 @@ def worker(root, cases, paged_n=None):
         for name, rs in cs._sparse_rows_cases().items():
             results[name].extend(rs)
     else:
-        results = cs._attention_cases()
+        results = cs._attention_cases(bf16=cases == 'flash-bf16')
     rows = []
     for name, rs in sorted(results.items()):
         for r in rs:
@@ -106,7 +110,7 @@ def worker(root, cases, paged_n=None):
                 elif key.endswith('_kernels') and isinstance(value, dict):
                     # a route's device kernels: their launches in all
                     row['n_' + key] = sum(value.values())
-            if name == 'flash_attention_bwd_dq':
+            if name.startswith('flash_attention_bwd_dq'):
                 pair = r['backward_pair']
                 row['pair_ms'] = pair['ms']
                 row['pair_library_ms'] = pair['library_ms']
@@ -124,7 +128,8 @@ def _median(xs):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument('roots', nargs='*', default=[HERE])
-    ap.add_argument('--cases', choices=('flash', 'paged', 'sparse'),
+    ap.add_argument('--cases', choices=('flash', 'flash-bf16', 'paged',
+                                        'sparse'),
                     default='flash')
     ap.add_argument('--paged-n', type=int, choices=(1, 2, 4, 8))
     ap.add_argument('--worker', help=argparse.SUPPRESS)
