@@ -19,8 +19,9 @@ replay (each graph adds the launches its capture recorded).
                 the card's name and power limit; fail if ptxas reports a
                 spill in the flash-attention kernels (forward or
                 backward) or in the paged attention, or if the SASS of a
-                bf16 backward kernel (cuobjdump -sass) lacks HGMMA or
-                holds HMMA, an atomic or a 16-bit shared load.
+                bf16 attention kernel, the forward or the backward pair
+                (cuobjdump -sass), lacks HGMMA or holds HMMA, an atomic
+                or a 16-bit shared load.
   2. kernels  — each kernel's wrapper against its plain torch version on
                 the card, at the shapes the main paths give it (batch 16:
                 the training batch and serving's largest bucket), within a
@@ -195,6 +196,7 @@ replay (each graph adds the launches its capture recorded).
 """
 import concurrent.futures
 import contextlib
+import hashlib
 import importlib
 import itertools
 import json
@@ -510,12 +512,16 @@ def device_kernels(fn):
 
 # -- phase 1 ----------------------------------------------------------------
 
-# the SASS opcodes counted in the bf16 backward kernels: their products must
-# run on wgmma (HGMMA), none on mma.sync (HMMA); no atomics on their outputs;
-# no 16-bit shared loads (a tile read down its columns)
+# the SASS opcodes counted in the bf16 kernels (the forward and the backward
+# pair): their products must run on wgmma (HGMMA), none on mma.sync (HMMA);
+# no atomics on their outputs; no 16-bit shared loads (a tile read down its
+# columns). {library's kernel: function names}; the fp32 kernels in the same
+# libraries run mma.sync by design and are left out by name.
 SASS_COUNTED = ('HGMMA', 'HMMA', 'ATOM', 'ATOMS', 'ATOMG', 'RED', 'REDG',
                 'LDS.U16')
-SASS_BF16_BWD = ('bwd_dq_bf16_kernel', 'bwd_dkv_bf16_kernel')
+SASS_BF16 = {'KERNEL_BF16': ('fwd_bf16_kernel',),
+             'KERNEL_BWD_DQ_BF16': ('bwd_dq_bf16_kernel',
+                                    'bwd_dkv_bf16_kernel')}
 
 
 def sass_counts(sass, names):
@@ -548,8 +554,9 @@ def sass_counts(sass, names):
 def phase_build(strict=True):
     """Build every kernel source; returns {source: [(spill stores, spill
     loads), ...]} for the checked sources that spill. Strict (the default),
-    it raises on any spill, and unless every bf16 backward kernel's SASS
-    holds HGMMA and no HMMA, atomic or 16-bit shared load;
+    it raises on any spill, and unless every bf16 kernel's SASS (the
+    forward and the backward pair, SASS_BF16) holds HGMMA and no HMMA,
+    atomic or 16-bit shared load;
     tools/torch_attention_bench.py times older checkouts, which may spill
     or predate wgmma, with strict=False and reports both."""
     from paddle_tpu_torch import ops
@@ -561,7 +568,7 @@ def phase_build(strict=True):
     for name, text in sorted(logs.items()):
         for line in text.splitlines():
             if 'registers' in line or 'spill' in line or 'smem' in line \
-                    or 'entry function' in line:
+                    or 'entry function' in line or 'wgmma' in line:
                 log('[build] %s: %s' % (name, line.strip()))
     # the flash-attention kernels keep their strips of s (and dP), the
     # forward's split Q and the outputs in registers, the paged attention
@@ -582,18 +589,21 @@ def phase_build(strict=True):
         raise AssertionError('the kernels spill registers: %r' % spilled)
     cuobjdump = os.path.join(os.path.dirname(ops._cuda.nvcc_path()),
                              'cuobjdump')
-    sass = sass_counts(subprocess.run(
-        [cuobjdump, '-sass', fa.KERNEL_BWD_DQ_BF16.library.library_path()],
-        check=True, capture_output=True, text=True).stdout, SASS_BF16_BWD)
+    sass, names = {}, []
+    for kernel, fns in sorted(SASS_BF16.items()):
+        names.extend(fns)
+        sass.update(sass_counts(subprocess.run(
+            [cuobjdump, '-sass', getattr(fa, kernel).library.library_path()],
+            check=True, capture_output=True, text=True).stdout, fns))
     for fn, c in sorted(sass.items()):
         log('[build] SASS %s: %s' % (fn, json.dumps(c)))
     bad = [fn for fn, c in sass.items()
            if not c['HGMMA'] or any(n for k, n in c.items()
                                     if k != 'HGMMA')]
-    if strict and (bad or len(sass) < len(SASS_BF16_BWD)):
-        raise AssertionError('the bf16 backward kernels must run wgmma '
-                             '(HGMMA) alone, with no HMMA, atomic or 16-bit '
-                             'shared load: %r' % sass)
+    if strict and (bad or len(sass) < len(names)):
+        raise AssertionError('the bf16 kernels must run wgmma (HGMMA) '
+                             'alone, with no HMMA, atomic or 16-bit shared '
+                             'load: %r' % sass)
     log('[build] card: %s' % nvidia_smi_line())
     return spilled
 
@@ -710,11 +720,21 @@ def _bits(t):
     return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
 
 
-def _attention_cases(bf16=False):
+def _digest(*ts):
+    """sha1 of the tensors' bits: tools/torch_attention_bench.py holds two
+    checkouts' outputs on the same draws bitwise against each other."""
+    h = hashlib.sha1()
+    for t in ts:
+        h.update(_bits(t.detach().contiguous()).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _attention_cases(bf16=False, D=64):
     """The flash-attention kernels (forward, backward dQ and dK/dV), or
     their bf16 variants on the same draws rounded to bf16, against their
-    plain versions in four cases; returns {kernel name: [case result,
-    ...]}."""
+    plain versions in four cases at head dim D (the Transformer's 64;
+    tools/torch_attention_bench.py times others); returns {kernel name:
+    [case result, ...]}."""
     import torch
     import torch.nn.functional as F
     # the module (ops/__init__ exports a function of the same name)
@@ -730,7 +750,7 @@ def _attention_cases(bf16=False):
         else KERNEL_BWD_TOL
     # the batch the training path gives every kernel, and the largest
     # bucket serving gives the forward
-    B, H, T, D = TRAIN_BATCH, 8, 256, 64
+    B, H, T = TRAIN_BATCH, 8, 256
     cases = [
         _attention_case('encoder self, pad bias', B, H, T, T, D, False, gen),
         _attention_case('decoder self, causal', B, H, T, T, D, True, gen),
@@ -773,7 +793,8 @@ def _attention_cases(bf16=False):
                                               bf16)
         r = dict(head, max_abs_err=err,
                  ok=ok and deterministic and o.dtype == dt,
-                 deterministic=deterministic, tol=fwd_tol,
+                 deterministic=deterministic, digest=_digest(o, lse),
+                 tol=fwd_tol,
                  ms=time_graph_ms(fwd), eager_ms=time_ms(fwd),
                  plain_ms=time_graph_ms(fwd_plain),
                  library='scaled_dot_product_attention on the same %s '
@@ -848,7 +869,8 @@ def _attention_cases(bf16=False):
             r = dict(head, max_abs_err=err,
                      ok=ok and deterministic
                      and all(g.dtype == dt for g in got),
-                     deterministic=deterministic, tol=bwd_tol,
+                     deterministic=deterministic, digest=_digest(*got),
+                     tol=bwd_tol,
                      ms=time_graph_ms(lambda: kern(*bwd)),
                      eager_ms=time_ms(lambda: kern(*bwd)),
                      plain_ms=time_graph_ms(lambda: plain(*bwd)),

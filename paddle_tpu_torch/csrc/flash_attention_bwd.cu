@@ -140,7 +140,6 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "bf16_mma.cuh"
 #include "hopper_bf16.cuh"
 #include "port_cuda.cuh"
 #include "tf32_mma.cuh"
@@ -644,76 +643,14 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
 //     warpgroup.
 namespace {
 
-// the copy modes of the bf16 backward: copy_mode's, with 16-byte copies
-// done by the TMA
-constexpr int MODE_TMA = 3;
-
-int bwd_bf16_mode(int D, const void* q, const void* k, const void* v,
-                  const void* dout) {
-  const int mode = copy_mode(D, q, k, v, dout);
-  return mode == COPY_16 ? MODE_TMA : mode;
-}
-
 // one warpgroup a block, for its 64 rows
 constexpr int BWD_THREADS = 128;
-
-template <int DP>
-__host__ __device__ constexpr int tile_bytes() {
-  return DP / 64 * CB_BYTES;
-}
 
 template <int DP>
 constexpr int bwd_bf16_smem_bytes() {
   // 1024-byte alignment slack; 2 resident tiles and 2 streamed tiles x 2
   // stages; four 64-entry fp32 vectors; 3 mbarriers
   return 1024 + 6 * tile_bytes<DP>() + 4 * BLOCK * 4 + 3 * 8;
-}
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
-}
-
-// Starts the copy of rows [r0, r0 + 64) of a [rows, D] bf16 matrix into a
-// swizzled tile, by the block's threads (COPY_4 or COPY_ELEM); rows past
-// `rows` are zero-filled, columns past D keep the zeros the block wrote.
-template <int DP>
-__device__ __forceinline__ void load_tile_swz(unsigned char* dst,
-                                              const bf16* src, int r0,
-                                              int rows, int D, int mode) {
-  if (mode == COPY_4) {
-    constexpr int CPR = DP / 2;
-    for (int e = threadIdx.x; e < BLOCK * CPR; e += BWD_THREADS) {
-      const int r = e / CPR, c = (e % CPR) * 2;
-      if (c < D) {
-        const bool live = r0 + r < rows;
-        cp_async4_raw(dst + swz_offset(r, c),
-                      live ? src + (size_t)(r0 + r) * D + c : src, live);
-      }
-    }
-  } else {
-    for (int e = threadIdx.x; e < BLOCK * DP; e += BWD_THREADS) {
-      const int r = e / DP, c = e % DP;
-      if (c < D)
-        *reinterpret_cast<bf16*>(dst + swz_offset(r, c)) =
-            r0 + r < rows ? src[(size_t)(r0 + r) * D + c]
-                          : __float2bfloat16(0.f);
-    }
-  }
-}
-
-__device__ __forceinline__ void zero_smem(unsigned char* p, int bytes) {
-  for (int i = 16 * threadIdx.x; i < bytes; i += 16 * BWD_THREADS)
-    *reinterpret_cast<uint4*>(p + i) = make_uint4(0, 0, 0, 0);
-}
-
-// Starts the TMA copy of the 64-row tile at row r0 of (b, h) = bh.
-template <int DP>
-__device__ __forceinline__ void tma_tile(unsigned char* dst,
-                                         const CUtensorMap* map, int r0,
-                                         int bh, uint64_t* bar) {
-#pragma unroll
-  for (int cb = 0; cb < DP / 64; ++cb)
-    tma_load_3d(dst + cb * CB_BYTES, map, 64 * cb, r0, bh, bar);
 }
 
 // The first products of this warpgroup's 64 rows against N rows of the
@@ -741,30 +678,6 @@ __device__ __forceinline__ void strip_scores(float (&x)[N][4],
   wgmma_wait_all();
   fence_regs(x);
   fence_regs(y);
-}
-
-// e^x as 2^(x log2 e) on MUFU.EX2, flushing denormal results to 0 (-inf
-// gives 0). x is s - lse, the difference taken first: a row whose every
-// key the bias masks has s and lse both near -1e9, where fp32 steps by 64,
-// and only their difference is small.
-__device__ __forceinline__ float exp_of(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x * 1.4426950408889634f));
-  return y;
-}
-
-// Columns [col, col + 2) of an output row (dQ, dK or dV) to bf16: a pair
-// of a C fragment; col is even.
-__device__ __forceinline__ void store_pair(bf16* row, int col, int D,
-                                           float x0, float x1) {
-  if ((D & 1) == 0) {
-    if (col < D)
-      *reinterpret_cast<__nv_bfloat162*>(row + col) =
-          __floats2bfloat162_rn(x0, x1);
-  } else {
-    if (col < D) row[col] = __float2bfloat16(x0);
-    if (col + 1 < D) row[col + 1] = __float2bfloat16(x1);
-  }
 }
 
 // at D = 64 at most 128 registers a thread, so that four blocks fit an SM
@@ -811,7 +724,7 @@ bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
     for (int i = 0; i < 3; ++i) mbar_init(&bars[i], 1);
     mbar_fence_init();
   }
-  if (!tma) zero_smem(Qs, 6 * TB);
+  if (!tma) zero_smem<BWD_THREADS>(Qs, 6 * TB);
   __syncthreads();
   if (tma) {
     if (threadIdx.x == 0) {
@@ -823,10 +736,12 @@ bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
       tma_tile<DP>(Vs, &map_v, 0, (int)bh, &bars[1]);
     }
   } else {
-    load_tile_swz<DP>(Qs, q + bh * Tq * D, q0, Tq, D, mode);
-    load_tile_swz<DP>(dOs, dout + bh * Tq * D, q0, Tq, D, mode);
-    load_tile_swz<DP>(Ks, kb, 0, Tk, D, mode);
-    load_tile_swz<DP>(Vs, vb, 0, Tk, D, mode);
+    load_tile_swz<DP, BWD_THREADS>(Qs, q + bh * Tq * D, q0, Tq, D,
+                                   mode, threadIdx.x);
+    load_tile_swz<DP, BWD_THREADS>(dOs, dout + bh * Tq * D, q0, Tq, D,
+                                   mode, threadIdx.x);
+    load_tile_swz<DP, BWD_THREADS>(Ks, kb, 0, Tk, D, mode, threadIdx.x);
+    load_tile_swz<DP, BWD_THREADS>(Vs, vb, 0, Tk, D, mode, threadIdx.x);
   }
   load_vec(Bs, biasb, 0, Tk);
   cp_async_commit();
@@ -864,8 +779,10 @@ bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
           tma_tile<DP>(Vs + nxt * TB, &map_v, k1, (int)bh, &bars[1 + nxt]);
         }
       } else {
-        load_tile_swz<DP>(Ks + nxt * TB, kb, k1, Tk, D, mode);
-        load_tile_swz<DP>(Vs + nxt * TB, vb, k1, Tk, D, mode);
+        load_tile_swz<DP, BWD_THREADS>(Ks + nxt * TB, kb, k1, Tk, D,
+                                       mode, threadIdx.x);
+        load_tile_swz<DP, BWD_THREADS>(Vs + nxt * TB, vb, k1, Tk, D,
+                                       mode, threadIdx.x);
       }
       load_vec(Bs + nxt * BLOCK, biasb, k1, Tk);
     }
@@ -982,7 +899,7 @@ bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
     for (int i = 0; i < 3; ++i) mbar_init(&bars[i], 1);
     mbar_fence_init();
   }
-  if (!tma) zero_smem(Ks, 6 * TB);
+  if (!tma) zero_smem<BWD_THREADS>(Ks, 6 * TB);
   __syncthreads();
   if (tma) {
     if (threadIdx.x == 0) {
@@ -996,11 +913,15 @@ bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
       }
     }
   } else {
-    load_tile_swz<DP>(Ks, k + bh * Tk * D, k0, Tk, D, mode);
-    load_tile_swz<DP>(Vs, v + bh * Tk * D, k0, Tk, D, mode);
+    load_tile_swz<DP, BWD_THREADS>(Ks, k + bh * Tk * D, k0, Tk, D,
+                                   mode, threadIdx.x);
+    load_tile_swz<DP, BWD_THREADS>(Vs, v + bh * Tk * D, k0, Tk, D,
+                                   mode, threadIdx.x);
     if (first < n_tiles) {
-      load_tile_swz<DP>(Qs, qb, first * BLOCK, Tq, D, mode);
-      load_tile_swz<DP>(dOs, dob, first * BLOCK, Tq, D, mode);
+      load_tile_swz<DP, BWD_THREADS>(Qs, qb, first * BLOCK, Tq, D,
+                                     mode, threadIdx.x);
+      load_tile_swz<DP, BWD_THREADS>(dOs, dob, first * BLOCK, Tq, D,
+                                     mode, threadIdx.x);
     }
   }
   if (first < n_tiles) {
@@ -1039,8 +960,10 @@ bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
                        &bars[1 + nxt]);
         }
       } else {
-        load_tile_swz<DP>(Qs + nxt * TB, qb, q1, Tq, D, mode);
-        load_tile_swz<DP>(dOs + nxt * TB, dob, q1, Tq, D, mode);
+        load_tile_swz<DP, BWD_THREADS>(Qs + nxt * TB, qb, q1, Tq, D,
+                                       mode, threadIdx.x);
+        load_tile_swz<DP, BWD_THREADS>(dOs + nxt * TB, dob, q1, Tq, D,
+                                       mode, threadIdx.x);
       }
       load_vec(Ls + nxt * BLOCK, lseb, q1, Tq);
       load_vec(Ds + nxt * BLOCK, deltab, q1, Tq);
@@ -1155,7 +1078,7 @@ int launch_dq_bf16(const bf16* q, const bf16* k, const bf16* v,
                    const float* b, const bf16* dout, const float* lse,
                    const float* delta, bf16* dq, int B, int H, int Tq, int Tk,
                    int D, float scale, int causal, cudaStream_t stream) {
-  const int mode = bwd_bf16_mode(D, q, k, v, dout);
+  const int mode = bf16_tile_mode(D, q, k, v, dout);
   CUtensorMap maps[4] = {};
   if (mode == MODE_TMA) {
     const int err = bwd_tile_maps(maps, q, k, v, dout, B * H, Tq, Tk, D);
@@ -1179,7 +1102,7 @@ int launch_dkv_bf16(const bf16* q, const bf16* k, const bf16* v,
                     const float* delta, bf16* dk, bf16* dv, int B, int H,
                     int Tq, int Tk, int D, float scale, int causal,
                     cudaStream_t stream) {
-  const int mode = bwd_bf16_mode(D, q, k, v, dout);
+  const int mode = bf16_tile_mode(D, q, k, v, dout);
   CUtensorMap maps[4] = {};
   if (mode == MODE_TMA) {
     const int err = bwd_tile_maps(maps, q, k, v, dout, B * H, Tq, Tk, D);
@@ -1244,11 +1167,12 @@ extern "C" int flash_attention_bwd_dkv_bf16(const void* q, const void* k,
   return (int)cudaErrorInvalidValue;
 }
 
-// How the bf16 backward kernels fill their tiles for these operands: 3 by
-// the TMA, 1 with 4-byte copies, 0 with element copies (CopyMode, MODE_TMA).
-extern "C" int flash_attention_bwd_bf16_copy_mode(int D, const void* q,
-                                                  const void* k,
-                                                  const void* v,
-                                                  const void* dout) {
-  return bwd_bf16_mode(D, q, k, v, dout);
+// How the bf16 kernels, the forward (flash_attention_fwd.cu, which takes
+// q in dout's place) and the backward pair, fill their tiles for these
+// operands: 3 by the TMA, 1 with 4-byte copies, 0 with element copies
+// (CopyMode, hopper_bf16.cuh).
+extern "C" int flash_attention_bf16_copy_mode(int D, const void* q,
+                                              const void* k, const void* v,
+                                              const void* dout) {
+  return bf16_tile_mode(D, q, k, v, dout);
 }

@@ -119,7 +119,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "bf16_mma.cuh"
+#include "hopper_bf16.cuh"
 #include "port_cuda.cuh"
 #include "tf32_mma.cuh"
 
@@ -429,209 +429,304 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
 // What the TPU kernel does with bf16 tiles: it upcasts q, k and v to fp32
 // (:109-111), takes both dots in fp32 and writes O in q's dtype (:136). This
 // kernel computes the same function:
-//   * s = q . K^T: one mma.sync.m16n8k16 bf16 with fp32 accumulation. A
-//     product of two bf16 values is exact in fp32, so this is the upcast
-//     dot, summed in another order. The scale multiplies the fp32 score
-//     after the product; the TPU kernel scales q first. At D = 64 the scale
-//     is 1/8, a power of two, and the two orders agree bit for bit, else
-//     they differ by fp32 rounding only.
-//   * O += P . V with P fp32 (the online softmax's weights): P is split
-//     into two bf16 terms, hi = bf16(P) and lo = bf16(P - hi), and each is
-//     multiplied with V's bf16 tile on the tensor cores, accumulated in
-//     fp32. The split keeps about 16 bits of P; its error (below 2^-16
-//     relative) is far below the bf16 rounding of O (2^-9) that the
-//     reference applies anyway.
+//   * s = q . K^T on the tensor cores, bf16 in, fp32 accumulate. A product
+//     of two bf16 values is exact in fp32, so this is the upcast dot, summed
+//     in another order. The scale multiplies the fp32 score after the
+//     product; the TPU kernel scales q first. At D = 64 the scale is 1/8, a
+//     power of two, and the two orders agree bit for bit, else they differ
+//     by fp32 rounding only.
+//   * O += P . V with P fp32 (the online softmax's weights): P is split into
+//     two bf16 terms, hi = bf16(P) and lo = bf16(P - hi), and each is
+//     multiplied with V's bf16 tile, accumulated in fp32. The split keeps
+//     about 16 bits of P; its error (below 2^-16 relative) is far below the
+//     bf16 rounding of O (2^-9) that the reference applies anyway.
 //   * The masks are the fp32 kernel's: causal positions set to -1e9, keys
-//     past Tk at -inf. m, l, the accumulators and lse stay fp32.
+//     past Tk at -inf; m starts at -1e30 and l is clamped at 1e-30. m, l,
+//     the accumulators and lse stay fp32.
 //
-// What bounds it: the same 4 * B * H * D * pairs FLOPs, now at the bf16
-// dense rate (989 TFLOP/s), three products a pair (s, and P.V twice) on
-// half the bytes. The design is the fp32 kernel's, simplified: 4 warps of
-// one 16-row strip each (64-row blocks), keys 64 at a time (32 at D = 128),
-// a 2-stage cp.async ring of K, V and the bias, Q's A fragments resident
-// in registers for the whole key loop at D <= 64 (D/16 x 4 registers).
-// The m16n8k16 fragments line up better than tf32's: the C fragments of
-// two adjacent key steps of 8 ARE the A fragment of a 16-key step of P.V,
-// so P goes from the scores to the next product with no permutation
-// (c_to_a_split).
-// V's B fragment is read down its columns with 16-bit loads (load_b_cols).
-// Shared rows are padded to DP + 8 bf16 (16-byte aligned rows, distinct
-// banks); 5 tiles: 45 KB at D = 64.
+// What bounds it on the H100. At the Transformer's T = 256, D = 64 (B = 16,
+// H = 8) it reads q, k and v at 2 bytes and the bias once and writes O at 2
+// bytes and lse at 4: 0.0051 ms at 3.35 TB/s. Its 2 products of depth D a
+// (query, key) pair, 4 * B * H * D * pairs FLOPs, take 0.0022 ms at the
+// dense bf16 rate (989 TFLOP/s); the hi/lo split makes them 3 products on
+// the tensor cores, 0.0033 ms. Bytes bound it. A block walks only T / 64 = 4
+// key tiles, so what decides the time is how fast a block gets through that
+// short loop and how many blocks an SM holds.
+//
+// What the design does about what held the mma.sync design before it back
+// (2.05x the time of SDPA's cuDNN kernel):
+//   * Every product on wgmma.mma_async m64n64k16 (hopper_bf16.cuh): one
+//     warpgroup (4 warps, 128 threads) owns the block's 64 query rows.
+//     s = Q.K^T reads both tiles from shared memory through K-major
+//     descriptors. O += P.V takes P from the score accumulator registers as
+//     A fragments (c_to_a_split: two adjacent C fragments are the A fragment
+//     of a 16-key step) and V through an MN-major descriptor, which reads V
+//     down its rows. No thread loads a fragment of K or V, and none reads a
+//     column (mma.sync took V's B fragments with 16-bit loads, 128 of them a
+//     64-key chunk at D = 64, each twice).
+//   * Tiles by TMA into 128-byte-swizzled shared memory, the layout the
+//     descriptors read: [B*H, T, D] tensor maps in boxes of [1, 64, 64],
+//     passed as __grid_constant__ parameters, which a CUDA graph captures
+//     by value; rows past T and columns past D arrive as zeros. Q's tile
+//     lands once and stays. K, V and 64 bias entries stream through a
+//     2-stage ring: warp 0 refills one stage while the warpgroup multiplies
+//     the other. A stage has a full mbarrier (the TMA's bytes, and the
+//     4-byte cp.async copies of the bias, which arrive on it themselves)
+//     and an empty one (one arrival a warp once its products have read the
+//     stage). A launch the TMA cannot take (D % 8 != 0, or a base not
+//     16-byte aligned) has warp 0 write the same layout with 4-byte cp.async
+//     or element copies (load_tile_swz): the mode follows from shape and
+//     alignment.
+//   * The softmax on the accumulator registers: P = exp(s - m) is one
+//     MUFU.EX2 of the difference (exp_of), the row max and sum reduce over
+//     the quad, and the causal and ragged selects run only on a tile that
+//     holds a masked position (the causal diagonal, keys past Tk).
+//   * Registers decide the blocks an SM holds: at D = 64 the score set, the
+//     64 x 64 accumulator and P's hi/lo fragments fit 128 registers a
+//     thread, four blocks an SM (42 KB of shared memory each), so the
+//     Transformer's grid at T = 256, 512 blocks, runs in one wave on 132
+//     SMs. Measured slower on the H100 and not kept (PERF.md):
+//     FlashAttention-3's intra-warpgroup pipelining (the next tile's scores
+//     issued with this tile's P.V, its softmax under that product), which
+//     holds a second score set and a third stage, about 160 registers and
+//     three blocks an SM: 1.1-1.4x the time; and 128-row blocks (two
+//     warpgroups sharing each streamed tile, a producer warp): equal within
+//     1%, with more code.
+//   * D up to 64 pads to one 64-column block and D 128 takes two, as the
+//     backward does.
+//   * Causal masking: the key loop stops at the tile holding the block's
+//     last diagonal key (tiles above the diagonal are never loaded), and
+//     the query tiles run last (longest) first.
+//   * The epilogue: O = acc / l to bf16 pairs (store_pair), lse = m +
+//     log(l) in fp32. Each block owns its rows and sums in a fixed order, so
+//     two launches on the same inputs give the same bits.
 namespace {
+
+constexpr int FWD_STAGES = 2;
 
 template <int DP>
 constexpr int fwd_bf16_smem_bytes() {
-  // Q, K x 2, V x 2 tiles of [64][DP+8] bf16; the bias ring, 2 x 64 fp32
-  return 5 * BLOCK * (DP + 8) * 2 + 2 * BLOCK * 4;
+  // 1024-byte alignment slack; the resident Q tile; FWD_STAGES stages of a
+  // K tile, a V tile and 64 bias entries; a full and an empty mbarrier a
+  // stage
+  return 1024 + tile_bytes<DP>() +
+         FWD_STAGES * (2 * tile_bytes<DP>() + BLOCK * 4) + 2 * FWD_STAGES * 8;
+}
+
+// s = Q.K^T for the warpgroup's 64 query rows against a key tile, over d:
+// both swizzled tiles K-major. Issued and committed, not waited on.
+template <int DP>
+__device__ __forceinline__ void issue_scores(float (&s)[8][4], uint32_t qa,
+                                             uint32_t ka) {
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < DP / 16; ++ks) {
+    const uint32_t off = (ks >> 2) * CB_BYTES + (ks & 3) * 32;
+    wgmma_ss(s, desc_k_major(qa + off), desc_k_major(ka + off), ks);
+  }
+  wgmma_commit();
+}
+
+// O += P.V over a key tile, 16 keys a step, P as hi + lo (the small term
+// first); B = the V tile read down its rows (MN-major). Issued and
+// committed, not waited on.
+template <int NCB>
+__device__ __forceinline__ void issue_pv(float (&acc)[NCB][8][4],
+                                         const uint32_t (&hi)[4][4],
+                                         const uint32_t (&lo)[4][4],
+                                         uint32_t va) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb) {
+      const uint64_t vd = desc_mn_major(va + cb * CB_BYTES + kk * 2048);
+      wgmma_rs(acc[cb], lo[kk], vd);
+      wgmma_rs(acc[cb], hi[kk], vd);
+    }
+  wgmma_commit();
 }
 
 template <int DP>
 __global__ void __launch_bounds__(THREADS)
-fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
+                const __grid_constant__ CUtensorMap map_k,
+                const __grid_constant__ CUtensorMap map_v,
+                const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, const float* __restrict__ bias,
                 bf16* __restrict__ o, float* __restrict__ lse, int H, int Tq,
                 int Tk, int D, float scale, int causal, int mode) {
-  constexpr int P = DP + 8;
-  constexpr int TILE = BLOCK * P;
-  constexpr int NC = DP >= 128 ? 32 : 64;  // keys in registers at a time
-  constexpr int NT = NC / 8;               // key steps of 8 in a chunk
-  constexpr int DT = DP / 8;               // output column steps of 8
-  constexpr int DK = DP / 16;              // d steps of 16
-  // Q's A fragments in registers for the whole key loop; at D = 128 they
-  // would take 32 registers more, and ptxas spills: there each is loaded
-  // from shared memory at its use
-  constexpr bool QREG = DP <= 64;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + TILE;                    // [2][TILE]
-  bf16* Vs = Ks + 2 * TILE;                // [2][TILE]
-  float* Bs = reinterpret_cast<float*>(Vs + 2 * TILE);   // [2][BLOCK]
+  constexpr int TB = tile_bytes<DP>();
+  constexpr int NCB = DP / 64;
+  constexpr int NS = FWD_STAGES;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* Qs = align1024(smem_raw);   // resident
+  unsigned char* Ks = Qs + TB;               // [NS] stages
+  unsigned char* Vs = Ks + NS * TB;          // [NS]
+  float* Bs = reinterpret_cast<float*>(Vs + NS * TB);              // [NS][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(Bs + NS * BLOCK);   // [NS]
+  uint64_t* empty = full + NS;                                     // [NS]
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int row0 = 16 * warp;
   const size_t bh = blockIdx.x;
   const int b = (int)(bh / H);
-  // the query tile: the last (longest under causal masking) first
+  // the block's rows: the last, longest under causal masking, first
   const int q0 = ((Tq + BLOCK - 1) / BLOCK - 1 - (int)blockIdx.y) * BLOCK;
   const bf16* kb = k + bh * Tk * D;
   const bf16* vb = v + bh * Tk * D;
   const float* biasb = bias + (size_t)b * Tk;
+  const bool tma = mode == MODE_TMA;
+  // the maps stay in parameter space, where the TMA reads them
+  const CUtensorMap* mq = &map_q;
+  const CUtensorMap* mk = &map_k;
+  const CUtensorMap* mv = &map_v;
 
-  if (D < DP) zero_pad_bf16<DP>(Qs, 5, D);
-  load_tile_bf16<DP>(Qs, q + bh * Tq * D, q0, Tq, D, mode);
+  // key tiles: all, or up to the one holding the last diagonal key
   int n_tiles = (Tk + BLOCK - 1) / BLOCK;
-  if (causal) {
-    const int last_row = min(q0 + BLOCK, Tq) - 1;
-    n_tiles = min(n_tiles, last_row / BLOCK + 1);
-  }
-  load_tile_bf16<DP>(Ks, kb, 0, Tk, D, mode);
-  load_tile_bf16<DP>(Vs, vb, 0, Tk, D, mode);
-  load_vec(Bs, biasb, 0, Tk);
-  cp_async_commit();
+  if (causal) n_tiles = min(n_tiles, (min(q0 + BLOCK, Tq) - 1) / BLOCK + 1);
 
-  uint32_t qf[QREG ? DK : 1][4];
-  float acc[DT][4];
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      // full: warp 0's 32 copy arrivals and one more (with the TMA's
+      // bytes); empty: one arrival a warp
+      mbar_init(&full[s], 33);
+      mbar_init(&empty[s], THREADS / 32);
+    }
+    mbar_fence_init();
+  }
+  if (!tma) {
+    zero_smem<THREADS>(Qs, (1 + 2 * NS) * TB);
+    fence_proxy_async();
+  }
+  __syncthreads();
+
+  // Warp 0 fills stage i % NS with key tile i (K, V, the bias; at i = 0 the
+  // Q tile too) once every warp has released the stage's last tile.
+  auto produce = [&](int i) {
+    const int s = i % NS, k1 = i * BLOCK;
+    if (i >= NS) mbar_wait(&empty[s], (i / NS - 1) & 1);
+    if (tma) {
+      if (lane == 0) {
+        mbar_expect_tx(&full[s], (i == 0 ? 3 : 2) * TB);
+        if (i == 0) tma_tile<DP>(Qs, mq, q0, (int)bh, &full[s]);
+        tma_tile<DP>(Ks + s * TB, mk, k1, (int)bh, &full[s]);
+        tma_tile<DP>(Vs + s * TB, mv, k1, (int)bh, &full[s]);
+      }
+    } else {
+      if (i == 0)
+        load_tile_swz<DP, 32>(Qs, q + bh * Tq * D, q0, Tq, D, mode, lane);
+      load_tile_swz<DP, 32>(Ks + s * TB, kb, k1, Tk, D, mode, lane);
+      load_tile_swz<DP, 32>(Vs + s * TB, vb, k1, Tk, D, mode, lane);
+    }
+    for (int e = lane; e < BLOCK; e += 32) {
+      const bool live = k1 + e < Tk;
+      cp_async4(Bs + s * BLOCK + e, live ? biasb + k1 + e : biasb, live);
+    }
+    if (!tma) {
+      // the tiles' generic-proxy writes, complete, before wgmma reads them
+      cp_async_wait_all();
+      fence_proxy_async();
+      if (lane == 0) mbar_arrive(&full[s]);
+    }
+    cp_async_mbar_arrive(&full[s]);
+  };
+  if (warp == 0)
+    for (int i = 0; i < min(NS - 1, n_tiles); ++i) produce(i);
+
+  // each thread holds rows 16 warp + g and that + 8 in the C layout
+  // (hopper_bf16.cuh)
+  const int row = 16 * warp + g;
+  const int qpos[2] = {q0 + row, q0 + row + 8};
+  const uint32_t qa = smem_u32(Qs);
+  float acc[NCB][8][4];
 #pragma unroll
-  for (int n = 0; n < DT; ++n)
+  for (int cb = 0; cb < NCB; ++cb)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[cb][j][e] = 0.f;
   float m_r[2] = {M_INIT, M_INIT}, l_r[2] = {0.f, 0.f};
-  const int qpos[2] = {q0 + row0 + g, q0 + row0 + g + 8};
 
-  for (int it = 0; it < n_tiles; ++it) {
-    cp_async_wait_all();
-    __syncthreads();
-    const int k0 = it * BLOCK;
-    if (it + 1 < n_tiles) {
-      const int nxt = (it + 1) & 1, k1 = k0 + BLOCK;
-      load_tile_bf16<DP>(Ks + nxt * TILE, kb, k1, Tk, D, mode);
-      load_tile_bf16<DP>(Vs + nxt * TILE, vb, k1, Tk, D, mode);
-      load_vec(Bs + nxt * BLOCK, biasb, k1, Tk);
-      cp_async_commit();
-    }
-    if constexpr (QREG) {
-      if (it == 0) {
-#pragma unroll
-        for (int ks = 0; ks < DK; ++ks)
-          load_a_bf16<P>(qf[ks], Qs, row0, 16 * ks, g, t);
-      }
-    }
-    const bf16* Kt = Ks + (it & 1) * TILE;
-    const bf16* Vt = Vs + (it & 1) * TILE;
-    const float* Bt = Bs + (it & 1) * BLOCK;
+  for (int i = 0; i < n_tiles; ++i) {
+    if (warp == 0 && i + NS - 1 < n_tiles) produce(i + NS - 1);
+    const int stage = i % NS;
+    mbar_wait(&full[stage], (i / NS) & 1);
+    const float* Bt = Bs + stage * BLOCK;
+    const int k0 = i * BLOCK;
+    // masks only where the tile holds keys past Tk or above a row's
+    // diagonal
+    const bool edge = k0 + BLOCK > Tk || (causal && q0 < k0 + BLOCK - 1);
 
-#pragma unroll 1
-    for (int c0 = 0; c0 < BLOCK; c0 += NC) {
-      float s[NT][4];
+    float s[8][4];
+    issue_scores<DP>(s, qa, smem_u32(Ks + stage * TB));
+    wgmma_wait_all();
+    fence_regs(s);
+    // the online softmax, in place (s becomes P): C element e of fragment
+    // j sits at row g + 8 (e >> 1), key column 8j + 2t + (e & 1)
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-      for (int j = 0; j < NT; ++j)
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < DK; ++ks) {
-        uint32_t qa[4];
-        if constexpr (QREG) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) qa[i] = qf[ks][i];
-        } else {
-          load_a_bf16<P>(qa, Qs, row0, 16 * ks, g, t);
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * t + (e & 1);
+        const int h = e >> 1;
+        float val = s[j][e] * scale + Bt[col];
+        if (edge) {
+          if (causal && qpos[h] < k0 + col) val = NEG_BIG;
+          if (k0 + col >= Tk) val = -INFINITY;
         }
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          uint32_t kf[2];
-          load_b_rows<P>(kf, Kt, c0 + 8 * j, 16 * ks, g, t);
-          mma_bf16(s[j], qa, kf);
-        }
+        s[j][e] = val;
+        mx[h] = fmaxf(mx[h], val);
       }
-      // the online softmax, in place: C element e sits at row
-      // g + 8 (e >> 1), key column 8j + 2t + (e & 1); s becomes P
-      float mx[2] = {-INFINITY, -INFINITY};
+    float alpha[2];
 #pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = c0 + 8 * j + 2 * t + (e & 1);
-          const int h = e >> 1;
-          s[j][e] = masked_score(s[j][e], scale, Bt[col], qpos[h], k0 + col,
-                                 Tk, causal);
-          mx[h] = fmaxf(mx[h], s[j][e]);
-        }
-      float alpha[2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float m_new = fmaxf(m_r[h], quad_max(mx[h]));
-        alpha[h] = __expf(m_r[h] - m_new);
-        m_r[h] = m_new;
-        l_r[h] *= alpha[h];
-      }
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int h = e >> 1;
-          s[j][e] = __expf(s[j][e] - m_r[h]);
-          l_r[h] += s[j][e];
-        }
-#pragma unroll
-      for (int n = 0; n < DT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
-      // O += P.V, 16 keys a step, P as hi + lo
-#pragma unroll
-      for (int kk = 0; kk < NT / 2; ++kk) {
-        uint32_t phi[4], plo[4];
-        c_to_a_split(s[2 * kk], s[2 * kk + 1], phi, plo);
-#pragma unroll
-        for (int n = 0; n < DT; ++n) {
-          uint32_t vf[2];
-          load_b_cols<P>(vf, Vt, c0 + 16 * kk, 8 * n, g, t);
-          mma_bf16(acc[n], plo, vf);
-          mma_bf16(acc[n], phi, vf);
-        }
-      }
+    for (int h = 0; h < 2; ++h) {
+      const float m_new = fmaxf(m_r[h], quad_max(mx[h]));
+      alpha[h] = exp_of(m_r[h] - m_new);
+      m_r[h] = m_new;
+      l_r[h] *= alpha[h];
     }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        s[j][e] = exp_of(s[j][e] - m_r[h]);
+        l_r[h] += s[j][e];
+      }
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[cb][j][e] *= alpha[e >> 1];
+    // O += P.V, P from the score registers as hi + lo
+    uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      c_to_a_split(s[2 * kk], s[2 * kk + 1], hi[kk], lo[kk]);
+    issue_pv<NCB>(acc, hi, lo, smem_u32(Vs + stage * TB));
+    wgmma_wait_all();
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb) fence_regs(acc[cb]);
+    // the stage is read: warp 0 may refill it
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[stage]);
   }
 
+  // the epilogue: O = acc / l to bf16, lse = m + log(l)
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const float l = fmaxf(quad_sum(l_r[h]), 1e-30f);
     if (qpos[h] >= Tq) continue;
     bf16* orow = o + (bh * Tq + qpos[h]) * D;
 #pragma unroll
-    for (int n = 0; n < DT; ++n) {
-      const int col = 8 * n + 2 * t;
-      const float o0 = acc[n][2 * h] / l;
-      const float o1 = acc[n][2 * h + 1] / l;
-      if (D % 2 == 0) {
-        if (col < D)
-          *reinterpret_cast<__nv_bfloat162*>(orow + col) =
-              __floats2bfloat162_rn(o0, o1);
-      } else {
-        if (col < D) orow[col] = __float2bfloat16(o0);
-        if (col + 1 < D) orow[col + 1] = __float2bfloat16(o1);
-      }
-    }
+    for (int cb = 0; cb < NCB; ++cb)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        store_pair(orow, 64 * cb + 8 * j + 2 * t, D, acc[cb][j][2 * h] / l,
+                   acc[cb][j][2 * h + 1] / l);
     if (t == 0) lse[bh * Tq + qpos[h]] = m_r[h] + logf(l);
   }
 }
@@ -640,14 +735,22 @@ template <int DP>
 int launch_bf16(const bf16* q, const bf16* k, const bf16* v,
                 const float* bias, bf16* o, float* lse, int B, int H, int Tq,
                 int Tk, int D, float scale, int causal, cudaStream_t stream) {
+  const int mode = bf16_tile_mode(D, q, k, v, q);
+  CUtensorMap maps[3] = {};
+  if (mode == MODE_TMA) {
+    int err = make_tile_map(&maps[0], q, B * H, Tq, D);
+    if (err == 0) err = make_tile_map(&maps[1], k, B * H, Tk, D);
+    if (err == 0) err = make_tile_map(&maps[2], v, B * H, Tk, D);
+    if (err != 0) return err;
+  }
   const int smem = fwd_bf16_smem_bytes<DP>();
   cudaError_t err = cudaFuncSetAttribute(
       fwd_bf16_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(B * H, (Tq + BLOCK - 1) / BLOCK);
   fwd_bf16_kernel<DP><<<grid, THREADS, smem, stream>>>(
-      q, k, v, bias, o, lse, H, Tq, Tk, D, scale, causal,
-      copy_mode(D, q, k, v, q));
+      maps[0], maps[1], maps[2], q, k, v, bias, o, lse, H, Tq, Tk, D, scale,
+      causal, mode);
   return (int)cudaGetLastError();
 }
 
@@ -672,8 +775,6 @@ extern "C" int flash_attention_fwd_bf16(const void* q, const void* k,
 #define PORT_FWD_BF16(DP)                                                 \
   return launch_bf16<DP>(qb, kb, vb, bb, ob, lf, B, H, Tq, Tk, D, scale, \
                          causal, st)
-  if (D <= 16) PORT_FWD_BF16(16);
-  if (D <= 32) PORT_FWD_BF16(32);
   if (D <= 64) PORT_FWD_BF16(64);
   if (D <= 128) PORT_FWD_BF16(128);
 #undef PORT_FWD_BF16

@@ -275,21 +275,21 @@ def _bwd_dkv_cuda(q, k, v, kb, do, lse, delta, causal, scale):
     return dk, dv
 
 
-# flash_attention_bwd_bf16_copy_mode's answers
-_BWD_BF16_COPY_MODES = {3: 'tma', 1: '4-byte', 0: 'element'}
+# flash_attention_bf16_copy_mode's answers
+_BF16_COPY_MODES = {3: 'tma', 1: '4-byte', 0: 'element'}
 
 
-def _bwd_bf16_copy_mode(q, k, v, do):
-    """How the bf16 backward kernels fill their shared tiles for these CUDA
-    operands: 'tma' (D a multiple of 8, every base 16-byte aligned),
-    '4-byte' (D even, bases 4-byte aligned) or 'element' copies. The C
-    launcher makes the same choice; the tests ask it which one a launch
-    takes."""
-    fn = KERNEL_BWD_DQ_BF16.library.load().flash_attention_bwd_bf16_copy_mode
+def _bf16_copy_mode(q, k, v, do):
+    """How the bf16 kernels, the forward (pass q as `do`) and the backward
+    pair, fill their shared tiles for these CUDA operands: 'tma' (D a
+    multiple of 8, every base 16-byte aligned), '4-byte' (D even, bases
+    4-byte aligned) or 'element' copies. The C launchers make the same
+    choice; the tests ask it which one a launch takes."""
+    fn = KERNEL_BWD_DQ_BF16.library.load().flash_attention_bf16_copy_mode
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4
     fn.restype = ctypes.c_int
-    return _BWD_BF16_COPY_MODES[fn(q.shape[-1], q.data_ptr(), k.data_ptr(),
-                                   v.data_ptr(), do.data_ptr())]
+    return _BF16_COPY_MODES[fn(q.shape[-1], q.data_ptr(), k.data_ptr(),
+                               v.data_ptr(), do.data_ptr())]
 
 
 def _flash_bwd_cuda(q, k, v, kb, do, lse, delta, causal, scale):

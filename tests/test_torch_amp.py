@@ -234,10 +234,17 @@ def _attention_inputs(seed, B=2, H=3, Tq=40, Tk=40, D=16):
     return q, k, v, kb
 
 
-@pytest.mark.parametrize('causal,Tq,Tk', [(False, 40, 40), (True, 40, 40),
-                                          (False, 17, 40)])
-def test_plain_bf16_attention_matches_reference(causal, Tq, Tk):
+# the last two: batch row 1's bias masks every key (-1e9), at a ragged T
+# (200 queries over 160 keys, and 200 causal): its scores sit near -1e9,
+# where fp32 steps by 64 (the bf16 kernels' overflow case)
+@pytest.mark.parametrize('causal,Tq,Tk,masked_row',
+                         [(False, 40, 40, False), (True, 40, 40, False),
+                          (False, 17, 40, False), (False, 200, 160, True),
+                          (True, 200, 200, True)])
+def test_plain_bf16_attention_matches_reference(causal, Tq, Tk, masked_row):
     q, k, v, kb = _attention_inputs(5, Tq=Tq, Tk=Tk)
+    if masked_row:
+        kb[1] = -1e9
     want = jops.reference_attention(jnp.asarray(q), jnp.asarray(k),
                                     jnp.asarray(v), key_bias=jnp.asarray(kb),
                                     causal=causal)

@@ -158,6 +158,7 @@ def _bf16_fwd_matches_plain(q, k, v, kb, causal):
     tol = bf16_tol(o_ref)
     torch.testing.assert_close(o.float(), o_ref.float(), rtol=0, atol=tol)
     torch.testing.assert_close(lse, lse_ref, rtol=TOL, atol=TOL)
+    return o, lse
 
 
 # D 6 and 20: 4-byte copies (D not a multiple of 8); D 7: element copies
@@ -239,10 +240,11 @@ def test_flash_attention_bf16_kernels_are_deterministic(card, causal):
             + tfa._flash_bwd_cuda(*args, causal, 0.125) for _ in range(2)]
     torch.cuda.synchronize()
     for a, b in zip(*outs):
-        assert torch.equal(a.view(torch.int16 if a.element_size() == 2
-                                  else torch.int32),
-                           b.view(torch.int16 if b.element_size() == 2
-                                  else torch.int32))
+        assert torch.equal(_bits(a), _bits(b))
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
 
 
 @pytest.mark.parametrize('shift', [1, 2])
@@ -275,58 +277,84 @@ def _shifted(t, shift):
     return view
 
 
+def _bf16_kernel_matches_plain(kernel, args, causal, D):
+    """The bf16 forward ('fwd') or backward pair ('bwd') on _bwd_bf16_case's
+    operands against its plain version; returns its outputs."""
+    if kernel == 'fwd':
+        return _bf16_fwd_matches_plain(*args[:4], causal)
+    return _bwd_bf16_matches_plain(args, causal, D)
+
+
+def _copy_mode(kernel, args):
+    """The copy mode the kernel's launch takes: the forward passes q in
+    dO's place."""
+    q, k, v, _, do = args[:5]
+    return tfa._bf16_copy_mode(q, k, v, q if kernel == 'fwd' else do)
+
+
+BF16_KERNELS = ['fwd', 'bwd']
+
+
+@pytest.mark.parametrize('kernel', BF16_KERNELS)
 @pytest.mark.parametrize('causal', [False, True])
 @pytest.mark.parametrize('D', [16, 64, 128])
-def test_flash_attention_bf16_bwd_takes_the_tma(card, D, causal):
-    """D a multiple of 8 on fresh (16-byte aligned) tensors: the backward
-    kernels fill their tiles by TMA, and agree with the plain version."""
+def test_flash_attention_bf16_takes_the_tma(card, D, causal, kernel):
+    """D a multiple of 8 on fresh (16-byte aligned) tensors: the kernels
+    fill their tiles by TMA, and agree with the plain version."""
     args = _bwd_bf16_case(card, 2, 3, 130, 100, D, causal, 31 + D)
-    q, k, v, kb, do = args[:5]
-    assert tfa._bwd_bf16_copy_mode(q, k, v, do) == 'tma'
-    _bwd_bf16_matches_plain(args, causal, D)
+    assert _copy_mode(kernel, args) == 'tma'
+    _bf16_kernel_matches_plain(kernel, args, causal, D)
 
 
+@pytest.mark.parametrize('kernel', BF16_KERNELS)
 @pytest.mark.parametrize('causal', [False, True])
-@pytest.mark.parametrize('D', [20, 64])
-def test_flash_attention_bf16_bwd_takes_4_byte_copies(card, D, causal):
+@pytest.mark.parametrize('D', [6, 20, 64])
+def test_flash_attention_bf16_takes_4_byte_copies(card, D, causal, kernel):
     """Views 4 bytes into their storage (D even): not 16-byte aligned, so
-    the backward kernels write their swizzled tiles with 4-byte copies,
-    and agree with the plain version."""
+    the kernels write their swizzled tiles with 4-byte copies, and agree
+    with the plain version."""
     q, k, v, kb, do, lse, delta = _bwd_bf16_case(card, 2, 3, 100, 90, D,
                                                  causal, 41 + D)
     q, k, v, do = (_shifted(t, 2) for t in (q, k, v, do))
-    assert tfa._bwd_bf16_copy_mode(q, k, v, do) == '4-byte'
-    _bwd_bf16_matches_plain((q, k, v, kb, do, lse, delta), causal, D)
+    args = (q, k, v, kb, do, lse, delta)
+    assert _copy_mode(kernel, args) == '4-byte'
+    _bf16_kernel_matches_plain(kernel, args, causal, D)
 
 
+@pytest.mark.parametrize('kernel', BF16_KERNELS)
 @pytest.mark.parametrize('causal', [False, True])
-def test_flash_attention_bf16_bwd_kernels_span_waves(card, causal):
-    """B * H = 512 at T = 256: 2048 blocks a kernel, several waves over
-    the card's SMs."""
+def test_flash_attention_bf16_kernels_span_waves(card, causal, kernel):
+    """B * H = 512 at T = 256: 2048 blocks of 64 rows (1024 of 128), more
+    than two waves over the card's SMs."""
     args = _bwd_bf16_case(card, 64, 8, 256, 256, 64, causal, 512)
-    assert tfa._bwd_bf16_copy_mode(args[0], args[1], args[2],
-                                   args[4]) == 'tma'
-    _bwd_bf16_matches_plain(args, causal, 64)
+    assert _copy_mode(kernel, args) == 'tma'
+    _bf16_kernel_matches_plain(kernel, args, causal, 64)
 
 
+@pytest.mark.parametrize('kernel', BF16_KERNELS)
 @pytest.mark.parametrize('causal', [False, True])
-def test_flash_attention_bf16_bwd_kernels_are_deterministic_at_d128(card,
-                                                                     causal):
-    """Two launches of the bf16 backward kernels at D = 128 (two column
-    blocks a tile; dK/dV takes its queries 32 at a time) are bitwise
-    equal."""
+def test_flash_attention_bf16_kernels_are_deterministic_at_d128(card, causal,
+                                                                kernel):
+    """Two launches of the bf16 kernels at D = 128 (two column blocks a
+    tile; dK/dV takes its queries 32 at a time) are bitwise equal."""
     args = _bwd_bf16_case(card, 2, 4, 200, 200, 128, causal, 23)
-    outs = [tfa._flash_bwd_cuda(*args, causal, 128 ** -0.5)
-            for _ in range(2)]
+    if kernel == 'fwd':
+        outs = [tfa._flash_lse_cuda(*args[:4], causal, 128 ** -0.5)
+                for _ in range(2)]
+    else:
+        outs = [tfa._flash_bwd_cuda(*args, causal, 128 ** -0.5)
+                for _ in range(2)]
     torch.cuda.synchronize()
     for a, b in zip(*outs):
-        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+        assert torch.equal(_bits(a), _bits(b))
 
 
-def test_flash_attention_bf16_bwd_kernels_take_fully_masked_rows(card):
-    """Batch row 1's bias masks every key (-1e9): its scores and lse sit
-    near -1e9, where fp32 steps by 64, and only their difference is small.
-    The gradients stay finite and agree with the plain version."""
+@pytest.mark.parametrize('kernel', BF16_KERNELS)
+def test_flash_attention_bf16_kernels_take_fully_masked_rows(card, kernel):
+    """Batch row 1's bias masks every key (-1e9): its scores, running max
+    and lse sit near -1e9, where fp32 steps by 64, and only their
+    differences are small. The outputs stay finite and agree with the plain
+    version."""
     args = _bwd_bf16_case(card, 2, 3, 128, 128, 64, False, 59)
     kb = args[3]
     kb[1] = -1e9
@@ -334,8 +362,9 @@ def test_flash_attention_bf16_bwd_kernels_take_fully_masked_rows(card):
     o, lse = tfa.flash_attention_lse(q, k, v, key_bias=kb)
     do = args[4]
     delta = (do.float() * o.float()).sum(-1).contiguous()
-    grads = _bwd_bf16_matches_plain((q, k, v, kb, do, lse, delta), False, 64)
-    assert all(bool(torch.isfinite(g.float()).all()) for g in grads)
+    outs = _bf16_kernel_matches_plain(kernel, (q, k, v, kb, do, lse, delta),
+                                      False, 64)
+    assert all(bool(torch.isfinite(x.float()).all()) for x in outs)
 
 
 def test_flash_attention_bf16_refuses_mixed_dtypes(card):

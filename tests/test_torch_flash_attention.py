@@ -178,9 +178,11 @@ def test_chip_smoke_counts_the_forward_at_the_3xtf32_rate():
 
 
 def test_chip_smoke_counts_the_bf16_backward_sass():
-    """chip_smoke's build check reads cuobjdump -sass: per bf16 backward
-    kernel, the count of each checked opcode (predicated instructions
-    too), other functions left out."""
+    """chip_smoke's build check reads cuobjdump -sass: per bf16 kernel (the
+    forward and the backward pair), the count of each checked opcode
+    (predicated instructions too), other functions left out: the fp32
+    forward `fwd_kernel`, which shares the bf16 forward's library and runs
+    mma.sync by design, is not counted."""
     cs = _chip_smoke()
     sass = '''
 	code for sm_90a
@@ -192,17 +194,31 @@ def test_chip_smoke_counts_the_bf16_backward_sass():
         /*0030*/                   LDS.U16 R3, [R2] ;
         /*0040*/                   LDS R4, [R2+0x4] ;
 		..........
-		Function : _ZN12_GLOBAL__N_110fwd_kernelILi64EEEvPKf
-        /*0000*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+		Function : _ZN12_GLOBAL__N_110fwd_kernelILi64ELi2EEEvPKfS2_S2_S2_Pfi
+        /*0000*/                   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;
+		Function : _ZN12_GLOBAL__N_115fwd_bf16_kernelILi64EEEv14CUtensorMap_st
+        /*0000*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;
+        /*0010*/                   HGMMA.64x64x16.F32.BF16 R24, R120, gdesc[UR8], R24 ;
+        /*0020*/              @P1 SYNCS.ARRIVE.TRANS64.A1T0 RZ, [UR5], RZ ;
 		Function : _ZN12_GLOBAL__N_119bwd_dkv_bf16_kernelILi64EEEvPKf
         /*0000*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
         /*0010*/                   REDG.E.ADD.F32.FTZ.RN.STRONG.GPU [R2], R5 ;
         /*0020*/                   ATOMS.ADD R6, [R7], R8 ;
 '''
-    counts = cs.sass_counts(sass, cs.SASS_BF16_BWD)
+    names = [n for fns in cs.SASS_BF16.values() for n in fns]
+    assert sorted(names) == ['bwd_dkv_bf16_kernel', 'bwd_dq_bf16_kernel',
+                             'fwd_bf16_kernel']
+    counts = cs.sass_counts(sass, names)
     zero = dict.fromkeys(cs.SASS_COUNTED, 0)
     assert counts == {
         '_ZN12_GLOBAL__N_118bwd_dq_bf16_kernelILi64EEEvPKf':
             dict(zero, HGMMA=2, **{'LDS.U16': 1}),
+        '_ZN12_GLOBAL__N_115fwd_bf16_kernelILi64EEEv14CUtensorMap_st':
+            dict(zero, HGMMA=2),
         '_ZN12_GLOBAL__N_119bwd_dkv_bf16_kernelILi64EEEvPKf':
             dict(zero, HMMA=1, REDG=1, ATOMS=1)}
+    # each library's check reads its own functions: the forward's library
+    # holds fwd_kernel and fwd_bf16_kernel, and only the second counts
+    fwd = cs.sass_counts(sass, cs.SASS_BF16['KERNEL_BF16'])
+    assert list(fwd) == [
+        '_ZN12_GLOBAL__N_115fwd_bf16_kernelILi64EEEv14CUtensorMap_st']

@@ -4,19 +4,21 @@ turns, with chip_smoke.py's own cases and timing.
 
     python3 tools/torch_attention_bench.py
         [--cases flash|flash-bf16|paged|sparse]
-        [--paged-n N] [ROOT ...]
+        [--head-dim D] [--paged-n N] [ROOT ...]
 
 Each ROOT is the root of a checkout of the repo (default: this one). For
 the roots in the order given and then in reverse (A B B A), a fresh process
 puts that ROOT's paddle_tpu_torch first on its path, builds its kernels
-(chip_smoke.phase_build: ptxas' resource lines and the bf16 backward
+(chip_smoke.phase_build: ptxas' resource lines and the bf16 attention
 kernels' SASS counts; spills are reported in the run's line, not fatal,
 since an older checkout may have them) and
 runs one set of chip_smoke's phase-2 cases: `flash` (the default),
 chip_smoke._attention_cases, the forward and the backward pair against
 their plain versions at B=16, H=8, T=256, D=64 in the four cases, timed by
 CUDA graph replay beside SDPA; `flash-bf16`, the same with the bf16
-kernels (AMP's) on the same draws rounded to bf16; `paged`,
+kernels (AMP's) on the same draws rounded to bf16 (`--head-dim D` runs
+both at another head dim, D padded to 64 or 128 inside the bf16
+kernels); `paged`,
 chip_smoke._paged_attention_cases, the paged decode attention against its
 plain version in its six cases, timed by CUDA graph replay beside SDPA over
 gathered rows; `sparse`,
@@ -29,10 +31,12 @@ counted. The
 chip_smoke.py used is always THIS checkout's, so every root is timed by
 the same code. Prints one JSON line per run, then a summary line: per root
 and case, the median over the root's runs of each time, the largest error,
-and whether every launch pair was bitwise equal. `--paged-n N` times the
-paged kernel with clusters of N blocks in every case that can take them
-(the slices and the chunk follow from N), to hold launch_plan's choice
-against others; a checkout whose wrapper has no launch_plan ignores it.
+whether every launch pair was bitwise equal, and (flash cases) whether
+each root's outputs are bitwise those of the first root. `--paged-n N`
+times the paged kernel with clusters of N blocks in every case that can
+take them (the slices and the chunk follow from N), to hold launch_plan's
+choice against others; a checkout whose wrapper has no launch_plan
+ignores it.
 Needs one card.
 """
 import argparse
@@ -73,9 +77,10 @@ def force_cluster(pa, n):
     pa.launch_plan = plan
 
 
-def worker(root, cases, paged_n=None):
+def worker(root, cases, paged_n=None, head_dim=64):
     """Build ROOT's kernels and time its `cases` (flash, flash-bf16,
-    paged or sparse); prints one JSON line."""
+    paged or sparse; the flash cases at head dim `head_dim`); prints one
+    JSON line."""
     sys.path.insert(0, root)
     import torch
     if not torch.cuda.is_available():
@@ -98,13 +103,14 @@ def worker(root, cases, paged_n=None):
         for name, rs in cs._sparse_rows_cases().items():
             results[name].extend(rs)
     else:
-        results = cs._attention_cases(bf16=cases == 'flash-bf16')
+        results = cs._attention_cases(bf16=cases == 'flash-bf16',
+                                      D=head_dim)
     rows = []
     for name, rs in sorted(results.items()):
         for r in rs:
             row = dict(kernel=name, case=r['case'])
             for key, value in r.items():
-                if key in ('ok', 'deterministic', 'max_abs_err') \
+                if key in ('ok', 'deterministic', 'max_abs_err', 'digest') \
                         or key.endswith('ms'):
                     row[key] = value
                 elif key.endswith('_kernels') and isinstance(value, dict):
@@ -132,16 +138,18 @@ def main():
                                         'sparse'),
                     default='flash')
     ap.add_argument('--paged-n', type=int, choices=(1, 2, 4, 8))
+    ap.add_argument('--head-dim', type=int, default=64)
     ap.add_argument('--worker', help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        worker(args.worker, args.cases, args.paged_n)
+        worker(args.worker, args.cases, args.paged_n, args.head_dim)
         return
     roots = [os.path.abspath(r) for r in args.roots]
     runs = []
     for root in roots + roots[::-1]:
         cmd = [sys.executable, os.path.abspath(__file__), '--cases',
-               args.cases, '--worker', root]
+               args.cases, '--head-dim', str(args.head_dim), '--worker',
+               root]
         if args.paged_n:
             cmd += ['--paged-n', str(args.paged_n)]
         out = subprocess.run(cmd, capture_output=True, text=True)
@@ -167,6 +175,8 @@ def main():
                     entry[key] = all(r[key] for r in rows)
                 elif key == 'max_abs_err':
                     entry[key] = max(r[key] for r in rows)
+                elif key == 'digest':
+                    entry[key] = sorted({r[key] for r in rows})
                 elif key.endswith('ms') and value is not None:
                     entry[key] = _median([r[key] for r in rows])
                 elif key.startswith('n_'):
@@ -176,7 +186,19 @@ def main():
             cases.append(entry)
         summary[root] = dict(card=mine[0]['card'], runs=len(mine),
                              spills=mine[0]['spills'], cases=cases)
-    print(json.dumps({'summary': summary}), flush=True)
+    # per kernel and case: the roots whose outputs are bitwise those of
+    # the first root (the same draws on the same card)
+    first = {(c['kernel'], c['case']): c.get('digest')
+             for c in summary[roots[0]]['cases']}
+    same = {}
+    for root in roots[1:]:
+        for c in summary[root]['cases']:
+            key = '%s / %s' % (c['kernel'], c['case'])
+            if c.get('digest') is not None:
+                same.setdefault(key, {})[root] = \
+                    c['digest'] == first.get((c['kernel'], c['case']))
+    print(json.dumps({'summary': summary,
+                      'bitwise_as_first_root': same}), flush=True)
 
 
 if __name__ == '__main__':
