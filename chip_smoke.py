@@ -161,6 +161,37 @@ replay (each graph adds the launches its capture recorded).
                 its Predictor's scope behind a ServingEngine (max batch
                 16): fp32 answers against Predictor.run and against the
                 CPU, 18 bf16 forward launches per forward and no fp32 one.
+  7c. dense_training — the dense training surface. VGG-16
+                (vgg.get_model(): cifar10 3x32x32, batch 32, Adam 1e-3,
+                vgg16_bn_drop's dropouts) and SE-ResNeXt-50
+                (se_resnext.get_model(): flowers 3x224x224, batch 16,
+                102 classes, cardinality 32, Momentum(0.01, 0.9)), each
+                DENSE_STEPS captured steps through Executor() on batches
+                read beforehand: finite losses, one capture, the median
+                replayed step, images/s, peak memory, device busy and
+                idle share and the top device kernels (torch.profiler
+                over 3 replays); the loss falling (VGG over its first 60
+                reader steps, SE-ResNeXt on its first batch repeated 30
+                steps); step 1 on the card against the CPU at batch 2 on
+                the dropout-free program (loss and running stats within
+                1e-4, the gradients within 3x the CPU's own spread).
+                MNIST LeNet captured 5 steps under Adamax,
+                DecayedAdagrad, Adadelta, RMSProp (momentum 0.9), Ftrl
+                (l1, l2 > 0) and Momentum with LARS_weight_decay (its
+                append_LARS rates fetched), each with one of the five
+                decays and GradientClipByNorm on every parameter, against
+                the CPU's eager steps from one state: every fetch and
+                persistable within SURFACE_TOL (relative L2).
+                ModelAverage on that path (captured, cudnn.deterministic):
+                apply() gives the steps' mean in the scope's own tensors,
+                restore() the trained weights bitwise, and the next
+                replay is bitwise a twin's that never averaged.
+                nets.scaled_dot_product_attention (B 16, T 256, 8 heads,
+                D 64): one flash_attention op, its forward and 3 SGD
+                steps against the CPU, and its launches (one forward a
+                forward, one of each backward kernel a step), the
+                nets_attention path of the kernels line. VGG, SE-ResNeXt
+                and the optimizer surface launch no kernel of the port.
   8. captured — each path's captured step against debug_step's eager
                 walk in this call, at full width: Transformer-base
                 training at batch 16 (get_model, dropout 0.1), fp32 and
@@ -198,6 +229,7 @@ import concurrent.futures
 import contextlib
 import hashlib
 import importlib
+import importlib.util
 import itertools
 import json
 import os
@@ -289,9 +321,9 @@ ADAGRAD_RTOL, ADAGRAD_ATOL = 1e-4, 1e-6
 CTR_LEARN_LOSS = 0.01
 # the paths each kernel may launch on (main() holds every path to it)
 KERNEL_PATHS = {
-    'flash_attention_fwd': ('serving', 'training'),
-    'flash_attention_bwd_dq': ('training',),
-    'flash_attention_bwd_dkv': ('training',),
+    'flash_attention_fwd': ('serving', 'training', 'nets_attention'),
+    'flash_attention_bwd_dq': ('training', 'nets_attention'),
+    'flash_attention_bwd_dkv': ('training', 'nets_attention'),
     'flash_attention_fwd_bf16': ('amp_training', 'amp_serving'),
     'flash_attention_bwd_dq_bf16': ('amp_training',),
     'flash_attention_bwd_dkv_bf16': ('amp_training',),
@@ -407,6 +439,52 @@ AMP_CROSS_DEVICE_TOL = 5e-3
 # differently
 AMP_LAYOUT_TOL = 1e-2
 # phase 8: steps timed per path and mode (captured, eager), and traced
+# phase 7c: VGG-16 (vgg.get_model: cifar10, batch 32, Adam 1e-3) and
+# SE-ResNeXt-50 (se_resnext.get_model: batch 16, 224x224) trained
+# DENSE_STEPS captured steps; the loss falling: the mean of its last
+# DENSE_WINDOW below the mean of its first DENSE_WINDOW, over VGG's first
+# VGG_LEARN_STEPS reader steps (its dropouts keep the loss flat for about
+# 25 steps) and SE-ResNeXt's first
+# batch repeated SE_LEARN_STEPS steps (flowers' labels are noise)
+VGG_BATCH = 32
+SE_BATCH = 16
+DENSE_STEPS = 20
+VGG_LEARN_STEPS = 60
+SE_LEARN_STEPS = 30
+DENSE_WINDOW = 5
+DENSE_TOP_KERNELS = 6
+# the optimizer surface on LeNet, card against the CPU's eager steps from
+# one state, SURFACE_STEPS steps at SURFACE_BATCH: every fetch and every
+# persistable by relative L2. Adamax, RMSProp and Ftrl step by about the
+# sign of a gradient where it is small, so an element whose gradient the
+# two devices round to opposite signs steps the other way; the L2 over
+# the tensor keeps such elements small beside the whole
+SURFACE_BATCH = 128
+SURFACE_STEPS = 5
+SURFACE_TOL = 1e-3
+SURFACE_CLIP_NORM = 1.0
+SURFACE_OPTIMIZERS = (
+    ('Adamax', dict(learning_rate=0.001)),
+    ('DecayedAdagrad', dict(learning_rate=0.001)),
+    ('Adadelta', dict(learning_rate=1.0, rho=0.9)),
+    ('RMSProp', dict(learning_rate=0.0002, momentum=0.9)),
+    ('Ftrl', dict(learning_rate=0.005, l1=1e-4, l2=1e-3)),
+    ('Momentum', dict(learning_rate=0.01, momentum=0.9,
+                      LARS_weight_decay=5e-4)),
+)
+SURFACE_SCHEDULES = ('exponential_decay', 'natural_exp_decay',
+                     'inverse_time_decay', 'polynomial_decay',
+                     'piecewise_decay')
+# nets.scaled_dot_product_attention at Transformer-base's attention shape
+NETS_ATTENTION = dict(B=16, T=256, H=8, D=64)
+NETS_ATTENTION_STEPS = 3
+# SGD's rate there: over the 3 steps the projections' weights move by 3e-3
+# to 4e-3 of their norm, far above the fp32 rounding of the weights
+NETS_ATTENTION_LR = 20.0
+# the q, k and v projections' updates over those steps, card against CPU,
+# by relative L2; on the CPU, dK and dV swapped in the plain backward read
+# 1.44 and 1.10 (k, v), zeroed 1.0 each
+NETS_UPDATE_TOL = 1e-2
 CAPTURED_STEPS = 10
 PROFILED_STEPS = 3
 
@@ -2487,7 +2565,8 @@ def _resnet50():
                              % (learn[-1], RESNET_LEARN_STEPS, learn[0]))
     del s2
 
-    _resnet_card_against_cpu(main, avg_cost, initial, feeds[0], stats)
+    _card_against_cpu('ResNet-50', 'image_training', main, avg_cost,
+                      initial, feeds[0], stats)
     _resnet_nhwc(initial, feeds[0], losses[0])
     _serve_resnet(main, prob, scope, exe, stats)
 
@@ -2545,9 +2624,10 @@ def _grad_spread(outs, gnames, a, b):
     return errs[len(errs) // 2][0], errs[-1]
 
 
-def _resnet_card_against_cpu(main, avg_cost, initial, feed, stats):
-    """Step 1 from the startup weights on the card and on the CPU at
-    RESNET_CPU_BATCH rows of the same full-width network: the loss, every
+def _card_against_cpu(what, tag, main, avg_cost, initial, feed, stats):
+    """Step 1 of image network `what` (phase `tag`) from the startup
+    weights on the card and on the CPU at RESNET_CPU_BATCH rows of the
+    same full-width network: the loss, every
     gradient and every running stat after the step, by relative L2; and
     the CPU's step again on the input scaled by 1 + RESNET_INPUT_NOISE *
     noise, the network's own spread under rounding-sized changes."""
@@ -2562,8 +2642,7 @@ def _resnet_card_against_cpu(main, avg_cost, initial, feed, stats):
                 ('cpu', False, main, avg_cost, small, initial),
                 ('nudged', False, main, avg_cost, nudged, initial)]
 
-    rows, outs, after, secs = _first_steps(stats, gnames, runs,
-                                           'image_training')
+    rows, outs, after, secs = _first_steps(stats, gnames, runs, tag)
     med_g, worst_g = _grad_spread(outs, gnames, 'card', 'cpu')
     med_n, worst_n = _grad_spread(outs, gnames, 'nudged', 'cpu')
     s_err = sorted((_rel_l2(after['card'][n], after['cpu'][n]), n)
@@ -2573,24 +2652,25 @@ def _resnet_card_against_cpu(main, avg_cost, initial, feed, stats):
     loss_rel = abs(loss - loss_cpu) / abs(loss_cpu)
     bad = [n for i, n in enumerate(gnames)
            if not np.isfinite(outs['card'][1 + i]).all()]
-    log('[image_training] ResNet-50 step 1 from the startup weights, card '
+    log('[%s] %s step 1 from the startup weights, card '
         'vs CPU at batch %d (CPU step %.2f s, card %.2f s): loss %.6f vs '
         '%.6f (relative %.3g); %d running stats, |diff| / |cpu| (L2) median '
         '%.3g, max %.3g (%s), tol %g on both; %d gradients, median %.3g, '
         'max %.3g (%s), against the CPU with the input scaled by 1 + %g * '
         'noise: median %.3g, max %.3g (%s); tol on the gradients median '
         '%g x that spread'
-        % (rows, secs['cpu'], secs['card'], loss, loss_cpu, loss_rel,
+        % (tag, what, rows, secs['cpu'], secs['card'], loss, loss_cpu,
+           loss_rel,
            len(s_err), med_s, s_err[-1][0], s_err[-1][1], RESNET_GRAD_TOL,
            len(gnames), med_g, worst_g[0], worst_g[1], RESNET_INPUT_NOISE,
            med_n, worst_n[0], worst_n[1], RESNET_GRAD_SPREAD))
     if bad or not (loss_rel <= RESNET_GRAD_TOL and med_s <= RESNET_GRAD_TOL
                    and med_g <= RESNET_GRAD_SPREAD * med_n):
         raise AssertionError(
-            'ResNet-50 step 1, card vs CPU: loss %.3g, running stats %.3g '
-            '(tol %g), gradients %.3g against the CPU\'s own %.3g (tol %g '
-            'x), non-finite %r' % (loss_rel, med_s, RESNET_GRAD_TOL, med_g,
-                                   med_n, RESNET_GRAD_SPREAD, bad))
+            '%s step 1, card vs CPU: loss %.3g, running stats %.3g (tol '
+            '%g), gradients %.3g against the CPU\'s own %.3g (tol %g x), '
+            'non-finite %r' % (what, loss_rel, med_s, RESNET_GRAD_TOL, med_g,
+                               med_n, RESNET_GRAD_SPREAD, bad))
 
 
 def _resnet_nhwc(initial, feed, nchw_loss):
@@ -3118,6 +3198,455 @@ def phase_amp():
     for n, v in _amp_resnet().items():
         train[n] += v
     return {'amp_training': train, 'amp_serving': _amp_serving()}
+
+
+# -- phase 7c: the dense training surface -----------------------------------
+
+def _drop_free(program):
+    """`program` with every dropout's probability set to 0 (the same
+    parameters and ops): the card and the CPU draw other masks, so the
+    step-1 comparison runs the network without them."""
+    for op in program.global_block().ops:
+        if op.type == 'dropout':
+            op.attrs['dropout_prob'] = 0.0
+    return program
+
+
+def build_vgg(dropout=True):
+    """VGG-16 as benchmark/fluid_benchmark.py builds it: vgg.get_model()
+    (cifar10, 3x32x32, batch 32, Adam(1e-3), vgg16_bn_drop's dropouts).
+    Returns (main, startup, avg_cost, train_reader)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import unique_name
+    from paddle_tpu_torch.models import vgg
+    main, startup = _program_pair()
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        avg_cost, _, reader, _, _ = vgg.get_model(batch_size=VGG_BATCH)
+    return (main if dropout else _drop_free(main)), startup, avg_cost, reader
+
+
+def build_se_resnext(dropout=True):
+    """SE-ResNeXt-50 at se_resnext.get_model()'s defaults (3x224x224,
+    batch 16, 102 classes, cardinality 32, reduction 16, Momentum(0.01,
+    0.9)); returns as build_vgg."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import unique_name
+    from paddle_tpu_torch.models import se_resnext
+    main, startup = _program_pair()
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        avg_cost, _, reader, _, _ = se_resnext.get_model(batch_size=SE_BATCH)
+    return (main if dropout else _drop_free(main)), startup, avg_cost, reader
+
+
+def _image_feeds(main, reader, batch, n):
+    """n full batches of a batched image reader through the DataFeeder on
+    the card, read whole passes at a time (restarted at its end), before
+    any step is timed."""
+    from paddle_tpu_torch import fluid
+    blk = main.global_block()
+    feeder = fluid.DataFeeder([blk.var('data'), blk.var('label')],
+                              fluid.CUDAPlace(0), program=main)
+    feeds = []
+    while len(feeds) < n:
+        feeds += [feeder.feed(b) for b in reader()
+                  if len(b) == batch][:n - len(feeds)]
+    return feeds
+
+
+def _top_kernels(step, n):
+    """torch.profiler over n calls of step(): the device's busy ms per
+    step (tools/torch_train_profile.py's busy_us), the traced wall ms per
+    step, and the DENSE_TOP_KERNELS kernels that take the most device
+    time, [(name, ms per step)]."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    # by its path: tools/ is no package, and another `tools` may be
+    # installed
+    spec = importlib.util.spec_from_file_location(
+        'torch_train_profile', os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), 'tools', 'torch_train_profile.py'))
+    profile_tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(profile_tool)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        traced = (time.perf_counter() - t0) * 1e3 / n
+    by_name, spans = {}, []
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA \
+                and not evt.is_user_annotation:
+            by_name[evt.name] = by_name.get(evt.name, 0.0) \
+                + evt.time_range.elapsed_us()
+            spans.append((evt.time_range.start, evt.time_range.end))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:DENSE_TOP_KERNELS]
+    return profile_tool.busy_us(spans) / 1e3 / n, traced, \
+        [(k[:80], v / 1e3 / n) for k, v in top]
+
+
+def _dense_model(what, build, batch, learn_steps, one_batch):
+    """`what` trained DENSE_STEPS captured steps through Executor() on its
+    reader's batches, read beforehand: finite losses, one capture and the
+    rest replays, the median step, images/s, peak memory and the top
+    device kernels. The loss falling (the mean of the last DENSE_WINDOW
+    below the mean of the first DENSE_WINDOW) over `learn_steps` steps:
+    the reader's batches, training on from step DENSE_STEPS; or with
+    `one_batch` the first batch repeated from the startup weights
+    (flowers' synthetic labels are independent of its images). Step 1
+    against the CPU on the dropout-free program. Returns a record of the
+    numbers."""
+    import torch
+    from paddle_tpu_torch import fluid
+    t0 = time.perf_counter()
+    main, startup, avg_cost, reader = build()
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    exe.run(startup, scope=scope)
+    initial = scope.to_numpy()
+    feeds = _image_feeds(main, reader, batch, PROFILED_STEPS + max(
+        DENSE_STEPS, 1 if one_batch else learn_steps))
+    log('[dense_training] %s: built, initialized on the card and read %d '
+        'batches of %d in %.3f s' % (what, len(feeds), batch,
+                                     time.perf_counter() - t0))
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    for feed in feeds[:DENSE_STEPS]:
+        t0 = time.perf_counter()
+        loss, = exe.run(main, feed=feed, fetch_list=[avg_cost], scope=scope)
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(loss[0]))
+    peak = torch.cuda.max_memory_allocated()
+    stats = exe.cache_stats
+    if not np.isfinite(losses).all():
+        raise AssertionError('%s: non-finite loss %r' % (what, losses))
+    # the first step warms up, the second captures and replays
+    if stats['captures'] != 1 or stats['replays'] != DENSE_STEPS - 1:
+        raise AssertionError('%s: %r over %d steps, not one capture and '
+                             'replays after it' % (what, stats, DENSE_STEPS))
+    it = iter(feeds[-PROFILED_STEPS:])
+    busy, traced, top = _top_kernels(lambda: exe.run(
+        main, feed=next(it), fetch_list=[avg_cost], scope=scope),
+        PROFILED_STEPS)
+    med = float(np.median(step_s[2:]))
+    mean = float(np.mean(step_s[2:]))
+    rec = dict(model=what, batch=batch, losses=losses, step_s=step_s,
+               median_captured_step_s=med, mean_captured_step_s=mean,
+               images_per_s=batch / med,
+               peak_memory_gb=peak / 1e9, device_busy_ms_per_step=busy,
+               traced_wall_ms_per_step=traced,
+               device_idle_share_of_traced_wall=1.0 - busy / traced,
+               top_device_kernels_ms_per_step=top, card=nvidia_smi_line())
+    log('[dense_training] %s losses %s' % (what, ', '.join(
+        '%.4f' % x for x in losses)))
+    log('[dense_training] %s step seconds %s' % (what, ', '.join(
+        '%.4f' % x for x in step_s)))
+    log('[dense_training] %s median captured step (steps 3-%d, replays) '
+        '%.4f s: %.1f images/s at batch %d (mean %.4f s: %.1f images/s); '
+        'peak memory %.3f GB; device '
+        'busy %.3f ms a step over %d traced replays of %.3f ms (idle %.3f '
+        'of the traced wall); top device kernels (ms a step) %s; card: %s'
+        % (what, DENSE_STEPS, med, batch / med, batch, mean, batch / mean,
+           peak / 1e9, busy,
+           PROFILED_STEPS, traced, rec['device_idle_share_of_traced_wall'],
+           '; '.join('%s %.3f' % kv for kv in top), rec['card']))
+    if one_batch:
+        s2 = fluid.Scope()
+        s2.load_numpy(initial, fluid.CUDAPlace(0))
+        learn = [float(exe.run(main, feed=feeds[0], fetch_list=[avg_cost],
+                               scope=s2)[0][0]) for _ in range(learn_steps)]
+        how = 'the first batch repeated %d steps from the startup weights' \
+            % learn_steps
+        del s2
+    else:
+        # the profiled steps trained on too: the reader's batches from
+        # DENSE_STEPS + PROFILED_STEPS on
+        learn = losses + [float(exe.run(
+            main, feed=f, fetch_list=[avg_cost], scope=scope)[0][0])
+            for f in feeds[DENSE_STEPS + PROFILED_STEPS:learn_steps
+                           + PROFILED_STEPS]]
+        how = '%d steps of the reader (the %d profiled steps not counted)' \
+            % (len(learn), PROFILED_STEPS)
+    log('[dense_training] %s, %s: loss %s' % (what, how, ', '.join(
+        '%.4f' % x for x in learn)))
+    rec['falling_losses'] = learn
+    if not np.mean(learn[-DENSE_WINDOW:]) < np.mean(learn[:DENSE_WINDOW]):
+        raise AssertionError('%s: the loss did not fall: %r' % (what, learn))
+    del exe, scope
+    main0, _, cost0, _ = build(dropout=False)
+    _card_against_cpu(what, 'dense_training', main0, cost0, initial,
+                      feeds[0], _bn_stats(main0))
+    return rec
+
+
+def surface_program(opt, kw, schedule):
+    """MNIST LeNet (mnist.cnn_model, batch SURFACE_BATCH) under optimizer
+    `opt`, its learning rate from `schedule` (decay_steps 2),
+    GradientClipByNorm(SURFACE_CLIP_NORM) on every parameter and, for
+    Momentum, LARS_weight_decay with append_LARS's rates fetched. Returns
+    (main, startup, fetch list)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import unique_name
+    from paddle_tpu_torch.models import mnist
+    main, startup = _program_pair()
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        images = fluid.layers.data(name='pixel', shape=[1, 28, 28])
+        label = fluid.layers.data(name='label', shape=[1], dtype='int64')
+        predict = mnist.cnn_model(images)
+        avg_cost = fluid.layers.mean(
+            fluid.layers.cross_entropy(input=predict, label=label))
+        fluid.clip.set_gradient_clip(
+            fluid.clip.GradientClipByNorm(SURFACE_CLIP_NORM))
+        lr = kw['learning_rate']
+        layers = fluid.layers
+        if schedule == 'piecewise_decay':
+            sched = layers.piecewise_decay([2, 4], [lr, lr / 2, lr / 4])
+        elif schedule == 'polynomial_decay':
+            sched = layers.polynomial_decay(lr, 2, end_learning_rate=lr / 10,
+                                            cycle=True)
+        else:
+            sched = getattr(layers, schedule)(lr, 2, 0.5, staircase=True)
+        _, pg = getattr(fluid.optimizer, opt)(
+            **dict(kw, learning_rate=sched)).minimize(avg_cost)
+        fetch = [avg_cost]
+        if kw.get('LARS_weight_decay'):
+            fetch += layers.append_LARS(pg, lr, kw['LARS_weight_decay'])
+    return main, startup, fetch
+
+
+def _surface_feeds():
+    from paddle_tpu_torch.batch import batch
+    from paddle_tpu_torch.dataset import mnist
+    rows = list(itertools.islice(batch(mnist.train(), SURFACE_BATCH)(),
+                                 SURFACE_STEPS + 1))
+    return [{'pixel': np.stack([r[0] for r in b]).reshape(
+        -1, 1, 28, 28).astype('float32'),
+             'label': np.array([[r[1]] for r in b], dtype='int64')}
+            for b in rows]
+
+
+def _surface_run(opt, kw, schedule, feeds):
+    """SURFACE_STEPS steps of the surface program on the card (a warm-up,
+    the capture, replays) and eagerly on the CPU from the same startup
+    state; the fetches (loss, LARS rates) and every persistable held to
+    SURFACE_TOL by relative L2. Returns the record."""
+    from paddle_tpu_torch import fluid
+    main, startup, fetch = surface_program(opt, kw, schedule)
+    init_scope = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=init_scope)
+    initial = init_scope.to_numpy()
+    outs, state = {}, {}
+    for where, place in (('card', fluid.CUDAPlace(0)),
+                         ('cpu', fluid.CPUPlace())):
+        scope = fluid.Scope()
+        scope.load_numpy(initial, place)
+        exe = fluid.Executor(place)
+        outs[where] = [[np.asarray(a) for a in exe.run(
+            main, feed=f, fetch_list=fetch, scope=scope)]
+            for f in feeds[:SURFACE_STEPS]]
+        state[where] = scope.to_numpy(sorted(initial))
+        if where == 'card':
+            stats = exe.cache_stats
+    if stats['captures'] != 1 or stats['replays'] != SURFACE_STEPS - 1:
+        raise AssertionError('%s: %r' % (opt, stats))
+    fetch_err = max(_rel_l2(c, p) for sc, sp in zip(outs['card'],
+                                                     outs['cpu'])
+                    for c, p in zip(sc, sp))
+    state_err = sorted((_rel_l2(state['card'][n], state['cpu'][n]), n)
+                       for n in initial)
+    moved = sum(not np.array_equal(state['cpu'][n], initial[n])
+                for n in initial)
+    losses = [float(o[0][0]) for o in outs['card']]
+    log('[dense_training] LeNet, %s(%s) with %s and GradientClipByNorm(%g)'
+        ', %d steps (warm-up, capture, replays) on the card against the '
+        'CPU from one state: losses %s; fetches (loss%s) relative L2 max '
+        '%.3g; %d persistables (%d moved), relative L2 max %.3g (%s); tol '
+        '%g' % (opt, ', '.join('%s=%g' % kv for kv in sorted(kw.items())),
+                schedule, SURFACE_CLIP_NORM, SURFACE_STEPS,
+                ', '.join('%.5f' % x for x in losses),
+                ', %d LARS rates' % (len(fetch) - 1) if len(fetch) > 1
+                else '', fetch_err, len(initial), moved, state_err[-1][0],
+                state_err[-1][1], SURFACE_TOL))
+    if not (np.isfinite(losses).all() and fetch_err <= SURFACE_TOL
+            and state_err[-1][0] <= SURFACE_TOL):
+        raise AssertionError('%s on the card against the CPU: fetches '
+                             '%.3g, persistables %.3g (%s), tol %g'
+                             % (opt, fetch_err, state_err[-1][0],
+                                state_err[-1][1], SURFACE_TOL))
+    return dict(optimizer=opt, schedule=schedule, losses=losses,
+                fetch_rel_l2=fetch_err, state_rel_l2=state_err[-1][0])
+
+
+def _model_average(feeds):
+    """ModelAverage on the LeNet surface path (Momentum with an
+    exponential decay), captured, under cudnn.deterministic: SURFACE_STEPS
+    steps with accumulate() after each, beside a twin scope that does not
+    average; apply() puts the mean of the steps' weights in the scope's
+    own tensors (against the host's mean of copies taken after each step,
+    1e-6), restore() puts the trained ones back bitwise, and the next
+    replay is bitwise the twin's: loss and every persistable."""
+    import torch
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import unique_name
+    main, startup, fetch = surface_program(
+        'Momentum', dict(learning_rate=0.01, momentum=0.9),
+        'exponential_decay')
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        avg = fluid.optimizer.ModelAverage(0.15)
+    names = sorted(p.name for p, _ in avg.params_grads)
+    torch.backends.cudnn.deterministic = True
+    try:
+        exe = fluid.Executor()
+        scope, twin = fluid.Scope(), fluid.Scope()
+        exe.run(startup, scope=scope)
+        twin.load_numpy(scope.to_numpy(), fluid.CUDAPlace(0))
+        taken = []
+        with fluid.scope_guard(scope):
+            for f in feeds[:SURFACE_STEPS]:
+                exe.run(main, feed=f, fetch_list=fetch, scope=scope)
+                avg.accumulate(exe)
+                exe.run(main, feed=f, fetch_list=fetch, scope=twin)
+                taken.append(scope.to_numpy(names))
+            held = {n: scope.vars[n] for n in names}
+            trained = scope.to_numpy(names)
+            with avg.apply(exe):
+                applied = scope.to_numpy(names)
+                in_place = all(scope.vars[n] is held[n] for n in names)
+        restored = scope.to_numpy(names)
+        loss, = exe.run(main, feed=feeds[SURFACE_STEPS], fetch_list=fetch,
+                        scope=scope)
+        want, = exe.run(main, feed=feeds[SURFACE_STEPS], fetch_list=fetch,
+                        scope=twin)
+        stats = exe.cache_stats
+        after, twin_after = scope.to_numpy(), twin.to_numpy()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    mean_err = max(_rel_l2(applied[n], np.mean([t[n] for t in taken], 0))
+                   for n in names)
+    same = all(np.array_equal(restored[n], trained[n]) for n in names)
+    replay_same = np.array_equal(loss, want) and all(
+        np.array_equal(after[n], twin_after[n]) for n in after)
+    log('[dense_training] ModelAverage on LeNet (Momentum, captured, '
+        'cudnn.deterministic), %d parameters over %d steps: apply() %s the '
+        'mean of the steps\' weights in the scope\'s own tensors '
+        '(relative L2 %.3g, tol 1e-6); restore() %s the trained weights '
+        'bitwise; the replay after restore() %s the twin\'s without the '
+        'averaging, loss and %d persistables bitwise; %r'
+        % (len(names), SURFACE_STEPS, 'put' if in_place else 'did NOT put',
+           mean_err, 'gave back' if same else 'did NOT give back',
+           'equals' if replay_same else 'DIFFERS from', len(after), stats))
+    if not (in_place and mean_err <= 1e-6 and same and replay_same
+            and stats['replays'] > 0):
+        raise AssertionError('ModelAverage on the card failed its checks')
+
+
+def _nets_attention():
+    """nets.scaled_dot_product_attention at NETS_ATTENTION (B 16, T 256,
+    8 heads, D 64: hidden 512): one flash_attention op. Its for_test
+    clone's forward once, then NETS_ATTENTION_STEPS training steps (SGD),
+    through Executor() on the card: the attention kernels' launches (one
+    forward per forward, one of each backward per step), the forward's
+    output and the losses against the CPU, and the q, k and v projections'
+    updates (the weights dQ, dK and dV reach) against the CPU's by
+    relative L2. Returns the launch counts."""
+    import torch
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import unique_name
+    c = NETS_ATTENTION
+    hidden = c['H'] * c['D']
+    main, startup = _program_pair()
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        q, k, v = (fluid.layers.data(name=n, shape=[c['T'], hidden])
+                   for n in ('q', 'k', 'v'))
+        ctx = fluid.nets.scaled_dot_product_attention(q, k, v,
+                                                      num_heads=c['H'])
+        loss = fluid.layers.mean(fluid.layers.square(ctx))
+        test = main.clone(for_test=True)
+        fluid.optimizer.SGD(learning_rate=NETS_ATTENTION_LR).minimize(loss)
+    if [op.type for op in main.global_block().ops].count(
+            'flash_attention') != 1:
+        raise AssertionError('nets attention: not one flash_attention op')
+    rng = np.random.RandomState(SEED)
+    feeds = [{n: rng.randn(c['B'], c['T'], hidden).astype('float32')
+              for n in ('q', 'k', 'v')} for _ in range(NETS_ATTENTION_STEPS)]
+    init_scope = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=init_scope)
+    initial = init_scope.to_numpy()
+    outs = {}
+    for where, place in (('card', fluid.CUDAPlace(0)),
+                         ('cpu', fluid.CPUPlace())):
+        scope = fluid.Scope()
+        scope.load_numpy(initial, place)
+        exe = fluid.Executor(place)
+        if where == 'card':
+            torch.cuda.synchronize()
+            _reset_launch_counts()
+        fwd, = exe.run(test, feed=feeds[0], fetch_list=[ctx], scope=scope)
+        losses = [float(exe.run(main, feed=f, fetch_list=[loss],
+                                scope=scope)[0][0]) for f in feeds]
+        if where == 'card':
+            torch.cuda.synchronize()
+            launches = _launch_counts()
+        after = scope.to_numpy()
+        outs[where] = (np.asarray(fwd), losses, {
+            n: after[n].astype('float64') - initial[n]
+            for n in initial if n.endswith('.w_0')})
+    err = float(np.abs(outs['card'][0] - outs['cpu'][0]).max())
+    scale = float(np.abs(outs['cpu'][0]).max())
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(outs['card'][1],
+                                                      outs['cpu'][1]))
+    upd_err = {w: _rel_l2(outs['card'][2][w], outs['cpu'][2][w])
+               for w in outs['cpu'][2]}
+    n = NETS_ATTENTION_STEPS
+    want = {'flash_attention_fwd': n + 1, 'flash_attention_bwd_dq': n,
+            'flash_attention_bwd_dkv': n}
+    log('[dense_training] nets.scaled_dot_product_attention (B %d, T %d, '
+        '%d heads, D %d): for_test forward card vs CPU max abs err %.3g '
+        '(max |out| %.3g, tol %g x max(1, max |out|)); %d SGD steps, losses '
+        '%s, card vs CPU relative %.3g (tol %g); q, k, v projections\' '
+        'updates card vs CPU relative L2 %s (tol %g); launches %r'
+        % (c['B'], c['T'], c['H'], c['D'], err, scale, KERNEL_TOL, n,
+           ', '.join('%.6f' % x for x in outs['card'][1]), loss_rel,
+           CROSS_DEVICE_TOL, ', '.join('%s %.3g' % kv for kv in sorted(
+               upd_err.items())), NETS_UPDATE_TOL,
+           {k: v for k, v in launches.items() if v}))
+    if not (err <= KERNEL_TOL * max(1.0, scale)
+            and loss_rel <= CROSS_DEVICE_TOL
+            and len(upd_err) == 3
+            and max(upd_err.values()) <= NETS_UPDATE_TOL
+            and {k: v for k, v in launches.items() if v} == want):
+        raise AssertionError('nets attention: err %.3g, losses %.3g, '
+                             'updates %r, launches %r (want %r)'
+                             % (err, loss_rel, upd_err, launches, want))
+    return launches
+
+
+def phase_dense_training():
+    """VGG-16 and SE-ResNeXt-50 training, the optimizer surface on LeNet
+    (five optimizers and Momentum with LARS, each with a scheduler and
+    GradientClipByNorm), ModelAverage, and nets.scaled_dot_product_
+    attention; returns {path: launch counts}: dense_training (VGG,
+    SE-ResNeXt and the optimizer surface, which launch none of the port's
+    kernels) and nets_attention."""
+    import torch
+    _reset_launch_counts()
+    records = [_dense_model('VGG-16', build_vgg, VGG_BATCH,
+                            VGG_LEARN_STEPS, False),
+               _dense_model('SE-ResNeXt-50', build_se_resnext, SE_BATCH,
+                            SE_LEARN_STEPS, True)]
+    feeds = _surface_feeds()
+    for i, (opt, kw) in enumerate(SURFACE_OPTIMIZERS):
+        records.append(_surface_run(opt, kw, SURFACE_SCHEDULES[i % len(
+            SURFACE_SCHEDULES)], feeds))
+    _model_average(feeds)
+    torch.cuda.synchronize()
+    dense = _launch_counts()
+    if any(dense.values()):
+        raise AssertionError('the dense training path launched %r' % dense)
+    log(json.dumps({'dense_training': records}))
+    return {'dense_training': dense, 'nets_attention': _nets_attention()}
 
 
 # -- phase 8 ----------------------------------------------------------------
@@ -3733,6 +4262,7 @@ def main():
                'decode': phase_decode(),
                'image_training': phase_image_training()}
     by_path.update(phase_amp())
+    by_path.update(phase_dense_training())
     phase_captured()
     for path, counts in by_path.items():
         stray = {k: n for k, n in counts.items()

@@ -31,13 +31,14 @@ from . import optimizer
 from . import nets
 from . import data_feeder
 from .data_feeder import DataFeeder
-from .param_attr import ParamAttr
+from .param_attr import ParamAttr, WeightNormParamAttr
 from . import unique_name
 from . import contrib
 from .core import CPUPlace, CUDAPlace, TPUPlace, CUDAPinnedPlace
 
 __all__ = framework.__all__ + executor.__all__ + [
-    'io', 'initializer', 'layers', 'ParamAttr', 'unique_name', 'core',
+    'io', 'initializer', 'layers', 'ParamAttr', 'WeightNormParamAttr',
+    'unique_name', 'core',
     'backward', 'optimizer', 'regularizer', 'clip', 'nets', 'data_feeder',
     'DataFeeder', 'debugger', 'step_artifact', 'passes', 'amp', 'contrib',
     'CPUPlace', 'CUDAPlace', 'TPUPlace', 'CUDAPinnedPlace',

@@ -18,10 +18,9 @@ __all__ = ['append_backward']
 
 def append_backward(loss, parameter_list=None, no_grad_set=None,
                     callbacks=None):
+    """callbacks (the reference's error-clip hooks) are accepted and, as
+    in the JAX package, not called."""
     assert loss is not None, "loss is required by append_backward"
-    if callbacks is not None:
-        raise NotImplementedError(
-            'append_backward callbacks (error clipping) are not ported yet')
     program = loss.block.program
     block = program.global_block()
 

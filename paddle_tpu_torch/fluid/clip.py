@@ -1,16 +1,38 @@
 """Gradient clipping.
 
 Parity: reference python/paddle/fluid/clip.py and the JAX package's
-fluid/clip.py: clip by value and by global norm, as ops appended between
-the autodiff marker and the optimizer's update ops. ErrorClipByValue and
-GradientClipByNorm wait for a later slice (ROADMAP.md).
+fluid/clip.py: clip by value, by norm and by global norm, as ops appended
+between the autodiff marker and the optimizer's update ops.
+ErrorClipByValue appends its clip where a caller asks for it; as in the
+JAX package, append_backward applies no error clip (its callbacks are
+accepted and not called).
 """
 import copy
 
 from . import framework
 
-__all__ = ['GradientClipByValue', 'GradientClipByGlobalNorm',
-           'set_gradient_clip', 'append_gradient_clip_ops']
+__all__ = ['ErrorClipByValue', 'GradientClipByValue', 'GradientClipByNorm',
+           'GradientClipByGlobalNorm', 'set_gradient_clip',
+           'append_gradient_clip_ops']
+
+
+class BaseErrorClipAttr(object):
+    def _append_clip_op(self, block, grad_name):
+        raise NotImplementedError
+
+
+class ErrorClipByValue(BaseErrorClipAttr):
+    def __init__(self, max, min=None):
+        max = float(max)
+        self.max = max
+        self.min = float(min) if min is not None else -max
+
+    def _append_clip_op(self, block, grad_name):
+        var = block.var(grad_name)
+        block.append_op(type='clip', inputs={'X': var}, outputs={'Out': var},
+                        attrs={'min': self.min, 'max': self.max,
+                               'op_role': framework.ROLE_BACKWARD},
+                        infer_shape=False)
 
 
 class BaseGradientClipAttr(object):
@@ -37,6 +59,20 @@ class GradientClipByValue(BaseGradientClipAttr):
         out = block.create_var(dtype=grad.dtype, shape=grad.shape)
         block.append_op(type='clip', inputs={'X': grad}, outputs={'Out': out},
                         attrs={'min': self.min, 'max': self.max,
+                               'op_role': framework.ROLE_BACKWARD})
+        return param, out
+
+
+class GradientClipByNorm(BaseGradientClipAttr):
+    def __init__(self, clip_norm):
+        self.clip_norm = clip_norm
+
+    def _create_operators(self, param, grad):
+        block = grad.block
+        out = block.create_var(dtype=grad.dtype, shape=grad.shape)
+        block.append_op(type='clip_by_norm', inputs={'X': grad},
+                        outputs={'Out': out},
+                        attrs={'max_norm': self.clip_norm,
                                'op_role': framework.ROLE_BACKWARD})
         return param, out
 

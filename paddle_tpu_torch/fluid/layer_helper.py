@@ -2,14 +2,16 @@
 
 Parity: reference python/paddle/fluid/layer_helper.py and the JAX package's
 fluid/layer_helper.py — creates parameters (registering their init op on
-the startup program), temp variables, bias and activation epilogues.
+the startup program; a WeightNormParamAttr's as v and g, :112-175), temp
+variables, bias and activation epilogues.
 """
 import copy
 
 from . import unique_name
 from .framework import Variable, default_main_program, \
     default_startup_program
-from .param_attr import ParamAttr
+from .initializer import Constant
+from .param_attr import ParamAttr, WeightNormParamAttr
 
 __all__ = ['LayerHelper']
 
@@ -102,6 +104,10 @@ class LayerHelper(object):
             attr.set_default_initializer(default_initializer)
 
         shape = [int(s) for s in shape]
+        if isinstance(attr, WeightNormParamAttr):
+            # weight-norm reparameterization w = v * g / ||v|| (reference
+            # layer_helper.py:_create_weight_normalize, arXiv:1602.07868)
+            return self._create_weight_normalize(attr, shape, dtype)
         startup_blk = self.startup_program.global_block()
         sp_var = startup_blk.create_parameter(
             name=attr.name, shape=shape, dtype=dtype,
@@ -114,6 +120,67 @@ class LayerHelper(object):
         return main_blk.create_parameter(
             name=attr.name, shape=shape, dtype=dtype,
             **{k: v for k, v in attr.to_kwargs().items() if k != 'name'})
+
+    def _append_norm_except_dim(self, block, v, dim, out):
+        """Append ops computing ||v|| over every axis except `dim` (all
+        axes when dim is None), keepdims, into var `out`."""
+        sq = block.create_var(
+            name=unique_name.generate(self.name + '.wn_sq'),
+            shape=None, dtype=v.dtype)
+        block.append_op(type='square', inputs={'X': [v]},
+                        outputs={'Out': [sq]})
+        red = block.create_var(
+            name=unique_name.generate(self.name + '.wn_red'),
+            shape=None, dtype=v.dtype)
+        axes = [i for i in range(len(v.shape)) if dim is None or i != dim]
+        block.append_op(type='reduce_sum', inputs={'X': [sq]},
+                        outputs={'Out': [red]},
+                        attrs={'dim': axes, 'keep_dim': True})
+        block.append_op(type='sqrt', inputs={'X': [red]},
+                        outputs={'Out': [out]})
+        return out
+
+    def _create_weight_normalize(self, attr, shape, dtype):
+        """w = v * (g / ||v||_except_dim): v carries the direction with the
+        user's initializer, g the magnitude, set in the startup program to
+        ||v_init|| so that the initial w equals v_init (reference
+        layer_helper.py:232)."""
+        dim = attr.dim
+        g_shape = [1] * len(shape)
+        if dim is not None:
+            g_shape[dim] = shape[dim]
+
+        v_attr = copy.deepcopy(attr)
+        v_attr.__class__ = ParamAttr
+        v_attr.name = attr.name + '_v'
+        v = self.create_parameter(v_attr, shape, dtype)
+
+        g_attr = copy.deepcopy(attr)
+        g_attr.__class__ = ParamAttr
+        g_attr.name = attr.name + '_g'
+        g_attr.initializer = Constant(0.0)  # overwritten by startup ops
+        g = self.create_parameter(g_attr, g_shape, dtype)
+
+        # startup: g <- ||v_init||
+        startup_blk = self.startup_program.global_block()
+        self._append_norm_except_dim(startup_blk, startup_blk.vars[v.name],
+                                     dim, startup_blk.vars[g.name])
+
+        # main: w = v * (g / ||v||), recomputed every step
+        blk = self.main_program.current_block()
+        norm = blk.create_var(
+            name=unique_name.generate(self.name + '.wn_norm'),
+            shape=None, dtype=dtype)
+        self._append_norm_except_dim(blk, v, dim, norm)
+        scale = blk.create_var(
+            name=unique_name.generate(self.name + '.wn_scale'),
+            shape=None, dtype=dtype)
+        blk.append_op(type='elementwise_div', inputs={'X': [g], 'Y': [norm]},
+                      outputs={'Out': [scale]}, attrs={'axis': -1})
+        w = blk.create_var(name=attr.name, shape=shape, dtype=dtype)
+        blk.append_op(type='elementwise_mul', inputs={'X': [v], 'Y': [scale]},
+                      outputs={'Out': [w]}, attrs={'axis': -1})
+        return w
 
     def create_variable_for_type_inference(self, dtype, stop_gradient=False,
                                            shape=None, lod_level=0):

@@ -1,10 +1,11 @@
 """Neural-network layers. Parity: reference python/paddle/fluid/layers/nn.py
-and the JAX package's fluid/layers/nn.py — the subset the port's models
-(transformer, deepfm, fit_a_line, mnist, resnet) build with. Each appends
-op symbols lowered by ops_impl/.
+and the JAX package's fluid/layers/nn.py — the dense layers whose rules the
+port carries (the sequence, detection and recurrent layers wait for their
+slices). Each appends op symbols lowered by ops_impl/.
 """
 import numpy as np
 
+from ..framework import Variable
 from ..layer_helper import LayerHelper
 from ..initializer import Constant, Normal
 from ..param_attr import ParamAttr
@@ -14,7 +15,10 @@ __all__ = [
     'fused_attention', 'label_smooth', 'one_hot',
     'softmax_with_cross_entropy', 'reduce_sum', 'conv2d', 'pool2d',
     'batch_norm', 'softmax', 'cross_entropy', 'square_error_cost', 'topk',
-    'matmul',
+    'matmul', 'reduce_mean', 'reduce_max', 'reduce_min', 'reduce_prod',
+    'cos_sim', 'l2_normalize', 'split', 'multiplex', 'pad', 'gather',
+    'expand', 'scatter', 'random_crop', 'relu', 'log', 'crop', 'flatten',
+    'stack', 'autoincreased_step_counter',
 ]
 
 
@@ -121,17 +125,37 @@ def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
     return helper.append_activation(layer_norm_out)
 
 
-def reduce_sum(input, dim=None, keep_dim=False, name=None):
-    helper = LayerHelper('reduce_sum', name=name)
+def _reduce_layer(op_type, input, dim, keep_dim, name):
+    helper = LayerHelper(op_type, name=name)
     out = helper.create_variable_for_type_inference(dtype=input.dtype)
     if dim is not None and not isinstance(dim, (list, tuple)):
         dim = [dim]
     helper.append_op(
-        type='reduce_sum', inputs={'X': [input]}, outputs={'Out': [out]},
+        type=op_type, inputs={'X': [input]}, outputs={'Out': [out]},
         attrs={'dim': dim if dim is not None else [0],
                'keep_dim': keep_dim,
                'reduce_all': True if dim is None else False})
     return out
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    return _reduce_layer('reduce_sum', input, dim, keep_dim, name)
+
+
+def reduce_mean(input, dim=None, keep_dim=False, name=None):
+    return _reduce_layer('reduce_mean', input, dim, keep_dim, name)
+
+
+def reduce_max(input, dim=None, keep_dim=False, name=None):
+    return _reduce_layer('reduce_max', input, dim, keep_dim, name)
+
+
+def reduce_min(input, dim=None, keep_dim=False, name=None):
+    return _reduce_layer('reduce_min', input, dim, keep_dim, name)
+
+
+def reduce_prod(input, dim=None, keep_dim=False, name=None):
+    return _reduce_layer('reduce_prod', input, dim, keep_dim, name)
 
 
 def dropout(x, dropout_prob, is_test=False, seed=None, name=None):
@@ -391,3 +415,176 @@ def topk(input, k, name=None):
     values.stop_gradient = True
     indices.stop_gradient = True
     return values, indices
+
+
+def cos_sim(X, Y):
+    helper = LayerHelper('cos_sim', **locals())
+    out = helper.create_variable_for_type_inference(dtype=X.dtype)
+    xnorm = helper.create_variable_for_type_inference(dtype=X.dtype)
+    ynorm = helper.create_variable_for_type_inference(dtype=X.dtype)
+    helper.append_op(type='cos_sim', inputs={'X': [X], 'Y': [Y]},
+                     outputs={'Out': [out], 'XNorm': [xnorm],
+                              'YNorm': [ynorm]})
+    return out
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    if len(x.shape) == 1:
+        axis = 0
+    helper = LayerHelper("l2_normalize", **locals())
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    norm = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="l2_normalize", inputs={"X": [x]},
+                     outputs={"Out": [out], "Norm": [norm]},
+                     attrs={"axis": 1 if axis is None else axis,
+                            "epsilon": epsilon})
+    return out
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    helper = LayerHelper('split', **locals())
+    if isinstance(num_or_sections, int):
+        num = num_or_sections
+        sections = None
+    else:
+        num = len(num_or_sections)
+        sections = list(num_or_sections)
+    outs = [helper.create_variable_for_type_inference(dtype=input.dtype)
+            for _ in range(num)]
+    helper.append_op(
+        type='split', inputs={'X': [input]}, outputs={'Out': outs},
+        attrs={'num': num_or_sections if isinstance(num_or_sections, int)
+               else 0,
+               'sections': sections or [], 'axis': dim})
+    return outs
+
+
+def multiplex(inputs, index):
+    helper = LayerHelper('multiplex', **locals())
+    if not isinstance(inputs, list) or len(inputs) < 2:
+        raise ValueError("multiplex needs >= 2 inputs")
+    out = helper.create_variable_for_type_inference(inputs[0].dtype)
+    helper.append_op(type='multiplex',
+                     inputs={'X': inputs, 'Ids': [index]},
+                     outputs={'Out': [out]})
+    return out
+
+
+def autoincreased_step_counter(counter_name=None, begin=1, step=1):
+    """reference nn.py:autoincreased_step_counter: a persistable int64
+    counter, incremented by `step` at every run, `begin` at the first."""
+    helper = LayerHelper('global_step_counter')
+    counter_name = counter_name or '@STEP_COUNTER@'
+    blk = helper.main_program.global_block()
+    if counter_name in blk.vars:
+        counter = blk.vars[counter_name]
+    else:
+        counter = helper.create_global_variable(
+            name=counter_name, dtype='int64', shape=[1], persistable=True)
+        helper.set_variable_initializer(
+            counter, initializer=Constant(value=float(begin - 1)))
+    helper.append_op(type='increment', inputs={'X': [counter]},
+                     outputs={'Out': [counter]}, attrs={'step': float(step)},
+                     infer_shape=False)
+    counter.stop_gradient = True
+    return counter
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    helper = LayerHelper('pad', **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type='pad', inputs={'X': [x]}, outputs={'Out': [out]},
+                     attrs={'paddings': list(paddings),
+                            'pad_value': float(pad_value)})
+    return out
+
+
+def gather(input, index):
+    helper = LayerHelper('gather', **locals())
+    dtype = helper.input_dtype()
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type="gather",
+                     inputs={"X": [input], "Index": [index]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def expand(x, expand_times, name=None):
+    """Tile each dim of x by expand_times (reference
+    operators/expand_op.cc)."""
+    helper = LayerHelper('expand', **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type='expand', inputs={'X': [x]},
+                     outputs={'Out': [out]},
+                     attrs={'expand_times': list(expand_times)})
+    return out
+
+
+def scatter(input, index, updates, name=None):
+    helper = LayerHelper('scatter', **locals())
+    dtype = helper.input_dtype()
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type="scatter",
+                     inputs={"X": [input], "Ids": [index],
+                             "Updates": [updates]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def random_crop(x, shape, seed=None):
+    helper = LayerHelper("random_crop", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="random_crop", inputs={"X": [x]},
+                     outputs={"Out": [out]},
+                     attrs={"shape": list(shape)})
+    return out
+
+
+def relu(x, name=None):
+    helper = LayerHelper('relu', name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="relu", inputs={"X": [x]}, outputs={"Out": [out]})
+    return out
+
+
+def log(x, name=None):
+    helper = LayerHelper('log', name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="log", inputs={"X": [x]}, outputs={"Out": [out]})
+    return out
+
+
+def crop(x, shape=None, offsets=None, name=None):
+    helper = LayerHelper('crop', **locals())
+    if offsets is None:
+        offsets = [0] * len(x.shape)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    ipts = {'X': [x]}
+    attrs = {'offsets': list(offsets)}
+    if isinstance(shape, Variable):
+        ipts['Y'] = [shape]
+    else:
+        attrs['shape'] = list(shape)
+    helper.append_op(type='crop', inputs=ipts, outputs={'Out': [out]},
+                     attrs=attrs)
+    return out
+
+
+def flatten(x, axis=1, name=None):
+    helper = LayerHelper('flatten', **locals())
+    if not (isinstance(axis, int)) or axis > len(x.shape) or axis < 0:
+        raise ValueError("axis must be in [0, rank(x)]")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type='flatten', inputs={"X": [x]},
+                     outputs={'Out': [out]}, attrs={"axis": axis})
+    return out
+
+
+def stack(x, axis=0):
+    helper = LayerHelper('stack', **locals())
+    if not isinstance(x, list) and not isinstance(x, tuple):
+        x = [x]
+    out = helper.create_variable_for_type_inference(x[0].dtype)
+    helper.append_op(type='stack', inputs={'X': x}, outputs={'Y': [out]},
+                     attrs={'axis': axis})
+    return out

@@ -1,15 +1,40 @@
-"""Elementwise / activation / reduction / matmul rules.
+"""Elementwise / activation / comparison / reduction / matmul rules.
 
 Parity: the JAX package's fluid/ops_impl/math_ops.py (reference
-paddle/fluid/operators/{elementwise_*,activation,reduce_*,mul,clip,scale}
-_op.*). The plain products stay torch.matmul (under AMP cuBLAS's bf16
-GEMM with an fp32 result): the JAX package leaves them to XLA outside any
-kernel.
+paddle/fluid/operators/{elementwise_*,activation,reduce_*,mul,clip,scale,
+compare,logical,clip_by_norm,maxout,cos_sim,norm}_op.*). The plain
+products stay torch.matmul (under AMP cuBLAS's bf16 GEMM with an fp32
+result): the JAX package leaves them to XLA outside any kernel.
+
+Ties take JAX's gradients: a max or min of two operands is torch.maximum
+or torch.minimum, which split a tie's gradient 0.5 / 0.5 as lax.max and
+lax.min do (torch.relu and torch.clamp give it to one side), a clip is the
+minimum of a maximum as jnp.clip is, |x| is where(x >= 0, x, -x) with
+jnp.abs's gradient of 1 at 0 (torch.abs has 0 there), and the reductions'
+max and min are torch.amax and amin, which share a tie's gradient evenly as
+jnp.max does. A scalar bound is a 0-d CPU tensor of x's dtype, so a bf16 x
+stays bf16 and no copy to the card is made.
+
+The reductions take dense tensors: their sequence (SeqValue) branches,
+which mask the padded steps, wait for the sequence slice of the port.
 """
 import numpy as np
 import torch
 
 from ..lowering import register, data_of, like, amp_cast
+
+
+def _scalar(x, v):
+    """v as a 0-d CPU tensor of x's dtype: a weak operand on any device."""
+    return torch.tensor(v, dtype=x.dtype)
+
+
+def _abs(x):
+    return torch.where(x >= 0, x, -x)
+
+
+def _clip(x, lo, hi):
+    return torch.minimum(torch.maximum(x, _scalar(x, lo)), _scalar(x, hi))
 
 
 def _unary(op_type, fn):
@@ -20,15 +45,68 @@ def _unary(op_type, fn):
     return rule
 
 
-_unary('relu', lambda x, a: torch.relu(x))
+def _elu(x, a):
+    # the untaken branch on min(x, 0): jnp.where's gradient is NaN where
+    # exp(x) overflows (x > 88), this one is not (ROADMAP.md Queue C)
+    neg = torch.exp(torch.minimum(x, _scalar(x, 0))) - 1
+    return torch.where(x >= 0, x, a.get('alpha', 1.0) * neg)
+
+
+_unary('relu', lambda x, a: torch.maximum(x, _scalar(x, 0)))
 _unary('sigmoid', lambda x, a: torch.sigmoid(x))
+_unary('logsigmoid', lambda x, a: torch.nn.functional.logsigmoid(x))
+_unary('exp', lambda x, a: torch.exp(x))
+_unary('tanh', lambda x, a: torch.tanh(x))
+_unary('tanh_shrink', lambda x, a: x - torch.tanh(x))
+_unary('softshrink', lambda x, a: torch.sign(x) * torch.maximum(
+    _abs(x) - a.get('lambda', 0.5), _scalar(x, 0)))
 _unary('sqrt', lambda x, a: torch.sqrt(x))
+_unary('abs', lambda x, a: _abs(x))
+_unary('ceil', lambda x, a: torch.ceil(x))
+_unary('floor', lambda x, a: torch.floor(x))
+_unary('cos', lambda x, a: torch.cos(x))
+_unary('sin', lambda x, a: torch.sin(x))
+_unary('round', lambda x, a: torch.round(x))
+_unary('reciprocal', lambda x, a: 1.0 / x)
 _unary('square', lambda x, a: torch.square(x))
+_unary('softplus', lambda x, a: torch.logaddexp(x, _scalar(x, 0)))
+_unary('softsign', lambda x, a: x / (1 + _abs(x)))
+_unary('brelu', lambda x, a: _clip(x, a.get('t_min', 0.0),
+                                   a.get('t_max', 24.0)))
+_unary('leaky_relu', lambda x, a: torch.where(x >= 0, x,
+                                              a.get('alpha', 0.02) * x))
+_unary('soft_relu', lambda x, a: torch.log1p(torch.exp(_clip(
+    x, -a.get('threshold', 40.0), a.get('threshold', 40.0)))))
+_unary('elu', _elu)
+_unary('relu6', lambda x, a: _clip(x, 0.0, a.get('threshold', 6.0)))
+_unary('pow', lambda x, a: torch.pow(x, a.get('factor', 1.0)))
+_unary('stanh', lambda x, a: a.get('scale_b', 1.7159) * torch.tanh(
+    a.get('scale_a', 2.0 / 3.0) * x))
+_unary('hard_sigmoid', lambda x, a: _clip(
+    a.get('slope', 0.2) * x + a.get('offset', 0.5), 0.0, 1.0))
+_unary('swish', lambda x, a: x * torch.sigmoid(a.get('beta', 1.0) * x))
+_unary('hard_shrink', lambda x, a: torch.where(
+    _abs(x) > a.get('threshold', 0.5), x, 0.0))
+_unary('thresholded_relu', lambda x, a: torch.where(
+    x > a.get('threshold', 1.0), x, 0.0))
+_unary('log', lambda x, a: torch.log(x))
+_unary('logical_not', lambda x, a: torch.logical_not(x))
 _unary('sign', lambda x, a: torch.sign(x))
-_unary('clip', lambda x, a: torch.clamp(x, a['min'], a['max']))
+_unary('clip', lambda x, a: _clip(x, a['min'], a['max']))
 _unary('scale', lambda x, a: (x + a.get('bias', 0.0)) * a['scale']
        if a.get('bias_after_scale', True) is False
        else x * a['scale'] + a.get('bias', 0.0))
+
+
+@register('clip_by_norm')
+def _clip_by_norm(ins, attrs, ctx):
+    x = data_of(ins['X'][0])
+    max_norm = attrs['max_norm']
+    norm = torch.sqrt(torch.sum(torch.square(x)))
+    scale = torch.where(norm > max_norm,
+                        max_norm / torch.maximum(norm, _scalar(norm, 1e-12)),
+                        1.0)
+    return {'Out': like(ins['X'][0], x * scale)}
 
 
 def _broadcast_y(x, y, axis):
@@ -60,6 +138,15 @@ _binary('elementwise_div', torch.div)
 _binary('elementwise_max', torch.maximum)
 _binary('elementwise_min', torch.minimum)
 _binary('elementwise_pow', torch.pow)
+_binary('logical_and', torch.logical_and)
+_binary('logical_or', torch.logical_or)
+_binary('logical_xor', torch.logical_xor)
+_binary('less_than', torch.lt)
+_binary('less_equal', torch.le)
+_binary('greater_than', torch.gt)
+_binary('greater_equal', torch.ge)
+_binary('equal', torch.eq)
+_binary('not_equal', torch.ne)
 
 
 @register('sum')
@@ -177,13 +264,85 @@ def _matmul(ins, attrs, ctx):
     return {'Out': out}
 
 
-@register('reduce_sum')
-def _reduce_sum(ins, attrs, ctx):
+class _Prod(torch.autograd.Function):
+    """torch.prod over one dim with a backward that never syncs: torch's
+    own counts the zeros on the host (`.item()`), which a captured step
+    cannot do. The gradient of each factor is the product of the others,
+    the exclusive running products from the left and from the right
+    multiplied, exact with zeros among the factors."""
+
+    @staticmethod
+    def forward(ctx, x, dim, keepdim):
+        ctx.save_for_backward(x)
+        ctx.dim, ctx.keepdim = dim, keepdim
+        return torch.prod(x, dim=dim, keepdim=keepdim)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        d, n = ctx.dim, x.shape[ctx.dim]
+        if not ctx.keepdim:
+            g = g.unsqueeze(d)
+        one = torch.ones_like(x.narrow(d, 0, 1))
+        left = torch.cat([one, x.narrow(d, 0, n - 1)], d).cumprod(d)
+        right = torch.cat([x.narrow(d, 1, n - 1), one], d).flip(d) \
+            .cumprod(d).flip(d)
+        return g * left * right, None, None
+
+
+def _prod(x, dim, keepdim):
+    # one dim at a time, the last first
+    for d in sorted((d % x.ndim for d in dim), reverse=True):
+        x = _Prod.apply(x, d, keepdim)
+    return x
+
+
+def _reduce(op_type, fn):
+    @register(op_type)
+    def rule(ins, attrs, ctx, _fn=fn):
+        x = data_of(ins['X'][0])
+        dim = attrs.get('dim')
+        if attrs.get('reduce_all', False) or dim is None:
+            dims = tuple(range(x.ndim))
+        else:
+            dims = tuple(dim) if isinstance(dim, (list, tuple)) else (dim,)
+        return {'Out': _fn(x, dims, bool(attrs.get('keep_dim', False)))}
+    return rule
+
+
+_reduce('reduce_sum', lambda x, d, k: torch.sum(x, dim=d, keepdim=k))
+# jnp.mean of an integer tensor is float32
+_reduce('reduce_mean', lambda x, d, k: torch.mean(
+    x if x.is_floating_point() else x.to(torch.float32), dim=d, keepdim=k))
+_reduce('reduce_max', lambda x, d, k: torch.amax(x, dim=d, keepdim=k))
+_reduce('reduce_min', lambda x, d, k: torch.amin(x, dim=d, keepdim=k))
+_reduce('reduce_prod', _prod)
+
+
+@register('maxout')
+def _maxout(ins, attrs, ctx):
+    x = data_of(ins['X'][0])  # NCHW
+    g = attrs['groups']
+    n, c, h, w = x.shape
+    return {'Out': torch.amax(x.reshape(n, c // g, g, h, w), dim=2)}
+
+
+@register('cos_sim')
+def _cos_sim(ins, attrs, ctx):
     x = data_of(ins['X'][0])
-    dim = attrs.get('dim')
-    if attrs.get('reduce_all', False) or dim is None:
-        dims = tuple(range(x.ndim))
-    else:
-        dims = tuple(dim) if isinstance(dim, (list, tuple)) else (dim,)
-    return {'Out': torch.sum(x, dim=dims,
-                             keepdim=bool(attrs.get('keep_dim', False)))}
+    y = data_of(ins['Y'][0])
+    xn = torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True))
+    yn = torch.sqrt(torch.sum(y * y, dim=-1, keepdim=True))
+    xy = xn * yn
+    out = torch.sum(x * y, dim=-1, keepdim=True) \
+        / torch.maximum(xy, _scalar(xy, 1e-12))
+    return {'Out': out, 'XNorm': xn, 'YNorm': yn}
+
+
+@register('l2_normalize')
+def _l2_normalize(ins, attrs, ctx):
+    x = data_of(ins['X'][0])
+    norm = torch.sqrt(torch.sum(x * x, dim=attrs.get('axis', -1),
+                                keepdim=True))
+    norm = torch.maximum(norm, _scalar(norm, attrs.get('epsilon', 1e-12)))
+    return {'Out': like(ins['X'][0], x / norm), 'Norm': norm}

@@ -235,9 +235,11 @@ def _sigmoid_xent(ins, attrs, ctx):
     x = data_of(ins['X'][0])
     label = data_of(ins['Label'][0])
     # max(x, 0) as torch.maximum: at x == 0 its gradient splits between the
-    # two operands, as jnp.maximum's does
+    # two operands, as jnp.maximum's does; |x| as where(x >= 0, x, -x),
+    # whose gradient at 0 is jnp.abs's 1 (torch.abs has 0), so the gradient
+    # at a logit of exactly 0 is -label, as the JAX rule's
     loss = torch.maximum(x, torch.zeros_like(x)) - x * label \
-        + torch.log1p(torch.exp(-torch.abs(x)))
+        + torch.log1p(torch.exp(-torch.where(x >= 0, x, -x)))
     return {'Out': like(ins['X'][0], loss)}
 
 

@@ -1,9 +1,12 @@
 """Optimizer update rules.
 
 Parity: the JAX package's fluid/ops_impl/optim_ops.py (_merge_sparse :19,
-sgd :60, momentum :73, adagrad :88, adam :122, adam_beta_pow_update :165;
-reference paddle/fluid/operators/{sgd,momentum,adagrad,adam}_op.*). They
-run after the autodiff marker, under torch.no_grad().
+sgd :60, momentum :73, adagrad :88, adam :122, adam_beta_pow_update :165,
+adamax :173, decayed_adagrad :192, rmsprop :204, adadelta :220, ftrl :236;
+reference paddle/fluid/operators/{sgd,momentum,adagrad,adam,adamax,
+decayed_adagrad,rmsprop,adadelta,ftrl}_op.*). They run after the autodiff
+marker, under torch.no_grad(). Adamax, DecayedAdagrad, RMSProp, Adadelta
+and Ftrl take dense gradients only.
 
 Dense gradients: the rules are pure, as in the JAX package. Each returns
 new tensors and the Executor binds them under the output names (the same
@@ -157,3 +160,86 @@ def _adam_beta_pow_update(ins, attrs, ctx):
     b2p = data_of(ins['Beta2Pow'][0])
     return {'Beta1PowOut': b1p * attrs.get('beta1', 0.9),
             'Beta2PowOut': b2p * attrs.get('beta2', 0.999)}
+
+
+@register('adamax')
+def _adamax(ins, attrs, ctx):
+    p = data_of(ins['Param'][0])
+    g = _dense_grad(ins, 'adamax')
+    m = data_of(ins['Moment'][0])
+    inf_norm = data_of(ins['InfNorm'][0])
+    b1p = data_of(ins['Beta1Pow'][0]).reshape(())
+    b1 = attrs.get('beta1', 0.9)
+    b2 = attrs.get('beta2', 0.999)
+    eps = attrs.get('epsilon', 1e-8)
+    m_out = b1 * m + (1 - b1) * g
+    inf_out = torch.maximum(b2 * inf_norm, g.abs())
+    p, lr, m_step, denom = _promote(p, _lr(ins) / (1 - b1p), m_out,
+                                    inf_out + eps)
+    return {'ParamOut': p - lr * m_step / denom, 'MomentOut': m_out,
+            'InfNormOut': inf_out}
+
+
+@register('decayed_adagrad')
+def _decayed_adagrad(ins, attrs, ctx):
+    p = data_of(ins['Param'][0])
+    g = _dense_grad(ins, 'decayed_adagrad')
+    m = data_of(ins['Moment'][0])
+    decay = attrs.get('decay', 0.95)
+    eps = attrs.get('epsilon', 1e-6)
+    m_out = decay * m + (1 - decay) * g * g
+    p, lr, g, denom = _promote(p, _lr(ins), g, torch.sqrt(m_out) + eps)
+    return {'ParamOut': p - lr * g / denom, 'MomentOut': m_out}
+
+
+@register('rmsprop')
+def _rmsprop(ins, attrs, ctx):
+    p = data_of(ins['Param'][0])
+    g = _dense_grad(ins, 'rmsprop')
+    ms = data_of(ins['MeanSquare'][0])
+    mom = data_of(ins['Moment'][0])
+    rho = attrs.get('decay', 0.95)
+    eps = attrs.get('epsilon', 1e-6)
+    ms_out = rho * ms + (1 - rho) * g * g
+    mom_out = attrs.get('momentum', 0.0) * mom \
+        + _lr(ins) * g / torch.sqrt(ms_out + eps)
+    p, mom_out = _promote(p, mom_out)
+    return {'ParamOut': p - mom_out, 'MomentOut': mom_out,
+            'MeanSquareOut': ms_out}
+
+
+@register('adadelta')
+def _adadelta(ins, attrs, ctx):
+    p = data_of(ins['Param'][0])
+    g = _dense_grad(ins, 'adadelta')
+    avg_sq_g = data_of(ins['AvgSquaredGrad'][0])
+    avg_sq_u = data_of(ins['AvgSquaredUpdate'][0])
+    rho = attrs.get('rho', 0.95)
+    eps = attrs.get('epsilon', 1e-6)
+    g2 = rho * avg_sq_g + (1 - rho) * g * g
+    update = -torch.sqrt((avg_sq_u + eps) / (g2 + eps)) * g
+    u2 = rho * avg_sq_u + (1 - rho) * update * update
+    return {'ParamOut': p + update, 'AvgSquaredGradOut': g2,
+            'AvgSquaredUpdateOut': u2}
+
+
+@register('ftrl')
+def _ftrl(ins, attrs, ctx):
+    p = data_of(ins['Param'][0])
+    g = _dense_grad(ins, 'ftrl')
+    sq = data_of(ins['SquaredAccumulator'][0])
+    lin = data_of(ins['LinearAccumulator'][0])
+    l1 = attrs.get('l1', 0.0)
+    l2 = attrs.get('l2', 0.0)
+    lr_power = attrs.get('lr_power', -0.5)
+    lr = _lr(ins)
+    new_sq = sq + g * g
+    if lr_power == -0.5:
+        new_acc, old_acc = torch.sqrt(new_sq), torch.sqrt(sq)
+    else:
+        new_acc, old_acc = torch.pow(new_sq, -lr_power), \
+            torch.pow(sq, -lr_power)
+    new_lin = lin + g - (new_acc - old_acc) / lr * p
+    pre = torch.clamp(new_lin, -l1, l1) - new_lin
+    return {'ParamOut': pre / (new_acc / lr + 2 * l2),
+            'SquaredAccumOut': new_sq, 'LinearAccumOut': new_lin}

@@ -1,12 +1,12 @@
-"""ParamAttr.
+"""ParamAttr / WeightNormParamAttr.
 
 Parity: reference python/paddle/fluid/param_attr.py and the JAX package's
-fluid/param_attr.py (sharding annotations and WeightNormParamAttr wait for
-the slices that need them).
+fluid/param_attr.py (its sharding annotations wait for the parallel
+slice).
 """
 from .initializer import Initializer, Xavier, Constant
 
-__all__ = ['ParamAttr']
+__all__ = ['ParamAttr', 'WeightNormParamAttr']
 
 
 class ParamAttr(object):
@@ -72,3 +72,13 @@ class ParamAttr(object):
         if with_initializer:
             kwargs['initializer'] = self.initializer
         return kwargs
+
+
+class WeightNormParamAttr(ParamAttr):
+    """Weight-norm reparameterization attr (reference param_attr.py):
+    LayerHelper.create_parameter builds w = v * g / ||v|| from it, the norm
+    over every dim but `dim` (all dims when None)."""
+
+    def __init__(self, dim=None, **kwargs):
+        super(WeightNormParamAttr, self).__init__(**kwargs)
+        self.dim = dim

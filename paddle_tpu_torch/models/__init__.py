@@ -3,6 +3,9 @@ from . import deepfm  # noqa: F401
 from . import fit_a_line  # noqa: F401
 from . import mnist  # noqa: F401
 from . import resnet  # noqa: F401
+from . import se_resnext  # noqa: F401
 from . import transformer  # noqa: F401
+from . import vgg  # noqa: F401
 
-__all__ = ['deepfm', 'fit_a_line', 'mnist', 'resnet', 'transformer']
+__all__ = ['deepfm', 'fit_a_line', 'mnist', 'resnet', 'se_resnext',
+           'transformer', 'vgg']

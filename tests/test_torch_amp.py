@@ -381,6 +381,27 @@ def test_batch_norm_rounds_bf16_y_once(param_dtype):
      (2, 3, 7, 7)),
     ('mean', {}, (8, 5)),
     ('layer_norm', {'begin_norm_axis': 1, 'epsilon': 1e-5}, (6, 16)),
+    ('clip', {'min': -0.5, 'max': 1.0}, (3, 4, 5)),
+    ('relu6', {'threshold': 1.0}, (3, 4, 5)),
+    ('brelu', {'t_min': -1.0, 't_max': 1.0}, (3, 4, 5)),
+    ('leaky_relu', {'alpha': 0.1}, (3, 4, 5)),
+    ('elu', {}, (3, 4, 5)),
+    ('hard_sigmoid', {}, (3, 4, 5)),
+    ('softshrink', {}, (3, 4, 5)),
+    ('hard_shrink', {}, (3, 4, 5)),
+    ('thresholded_relu', {}, (3, 4, 5)),
+    ('abs', {}, (3, 4, 5)),
+    ('tanh', {}, (3, 4, 5)),
+    ('exp', {}, (3, 4, 5)),
+    ('softplus', {}, (3, 4, 5)),
+    ('logsigmoid', {}, (3, 4, 5)),
+    ('swish', {}, (3, 4, 5)),
+    ('stanh', {}, (3, 4, 5)),
+    ('softsign', {}, (3, 4, 5)),
+    ('tanh_shrink', {}, (3, 4, 5)),
+    ('soft_relu', {}, (3, 4, 5)),
+    ('reduce_max', {'dim': [1], 'keep_dim': False}, (3, 4, 5)),
+    ('reduce_min', {'dim': [1], 'keep_dim': False}, (3, 4, 5)),
 ])
 def test_unary_rules_on_bf16_activations(op_type, attrs, shape):
     """The same dtype out; values within two bf16 ulps of max |out| (a

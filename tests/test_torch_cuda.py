@@ -1625,3 +1625,156 @@ def test_amp_training_step_on_the_card_matches_the_cpu(card):
         assert g.dtype == np.float32, name
         err = np.linalg.norm(g - w) / max(np.linalg.norm(w), 1e-12)
         assert err <= 3e-2, (name, err)
+
+
+# -- the dense training surface's rules on the card ------------------------------
+
+def _surface_cases():
+    """(op, inputs as numpy, attrs, output slot, float inputs to
+    differentiate) for the rules whose card path differs from a plain
+    elementwise call: ties, gathers and scatters with out-of-range
+    indices, sorts, and the random draws."""
+    r = np.random.RandomState(3)
+    x = r.uniform(-5, 5, (4, 12)).astype('float32')
+    x[0] = [0.0, 0.5, -0.5, 1.0, -1.0, 2.0, -2.0, 2.5, -2.5, 6.0, 0.0, 3.0]
+    ints = r.randint(-2, 3, (5, 6)).astype('float32')
+    ints[2, 3] = np.nan
+    return [
+        ('relu', {'X': [x]}, {}, 'Out', 'X'),
+        ('clip', {'X': [x]}, {'min': -1.0, 'max': 2.0}, 'Out', 'X'),
+        ('abs', {'X': [x]}, {}, 'Out', 'X'),
+        ('relu6', {'X': [x]}, {'threshold': 1.0}, 'Out', 'X'),
+        ('elu', {'X': [x * 30]}, {}, 'Out', 'X'),
+        ('softshrink', {'X': [x]}, {}, 'Out', 'X'),
+        ('hard_sigmoid', {'X': [x]}, {}, 'Out', 'X'),
+        ('sigmoid_cross_entropy_with_logits',
+         {'X': [x], 'Label': [(x > 0).astype('float32')]}, {}, 'Out', 'X'),
+        ('reduce_max', {'X': [np.round(x)]}, {'dim': [1]}, 'Out', 'X'),
+        # a few factors: a product in another order moves the last bits
+        ('reduce_prod', {'X': [x[:2, :3]]}, {'dim': [0, 1]}, 'Out', 'X'),
+        ('reduce_prod', {'X': [x[:, :3]]}, {'dim': [1]}, 'Out', 'X'),
+        ('clip_by_norm', {'X': [x]}, {'max_norm': 1.0}, 'Out', 'X'),
+        ('less_than', {'X': [x], 'Y': [x[:1]]}, {}, 'Out', None),
+        ('gather', {'X': [x], 'Index': [np.array([5, -1, -5, 1, 1])]}, {},
+         'Out', 'X'),
+        ('scatter', {'X': [np.zeros((3, 2), 'float32')],
+                     'Ids': [np.array([1, 1, 5, -1])],
+                     'Updates': [x[:4, :2].copy()]}, {}, 'Out', 'Updates'),
+        ('multiplex', {'X': [x, x * 2, x * 3],
+                       'Ids': [np.array([[-1], [5], [0], [1]])]}, {},
+         'Out', 'X'),
+        ('arg_max', {'X': [ints]}, {'axis': 1}, 'Out', None),
+        ('argsort', {'X': [ints]}, {'axis': -1}, 'Indices', None),
+        ('crop', {'X': [x]}, {'offsets': [3, 11], 'shape': [2, 3]}, 'Out',
+         'X'),
+        ('pad', {'X': [x]}, {'paddings': [1, 0, 2, 3]}, 'Out', 'X'),
+        ('shape', {'Input': [x]}, {}, 'Out', None),
+        ('split', {'X': [x]}, {'axis': 1, 'sections': [5, 7]}, 'Out', 'X'),
+    ]
+
+
+@pytest.mark.parametrize('case', range(len(_surface_cases())))
+def test_surface_rule_on_the_card_matches_the_cpu_without_a_sync(card, case):
+    """Each rule on the card (forward and, where it is differentiable, the
+    VJP of a seeded cotangent) under set_sync_debug_mode('error'), which
+    raises on a host sync (torch.prod's own backward syncs, so
+    reduce_prod's does not use it), against the same rule on the CPU:
+    within 1e-6 (1e-6 of max |g| for the gradients a gather or a scatter
+    accumulates with atomics)."""
+    from paddle_tpu_torch.fluid import lowering
+    op, ins, attrs, slot, wrt = _surface_cases()[case]
+    outs = {}
+    for dev in (card, torch.device('cpu')):
+        tins = {k: [torch.from_numpy(np.array(a)).to(dev) for a in v]
+                for k, v in ins.items()}
+        if wrt:
+            tins[wrt] = [t.requires_grad_(True) for t in tins[wrt]]
+        ctx = lowering.Ctx(dev, torch.Generator(device=dev))
+        # the cotangent copied in before the check: a copy from pageable
+        # host memory waits for the card
+        shape = lowering.get_rule(op)(
+            {k: [t.detach() for t in v] for k, v in tins.items()}, attrs,
+            ctx)[slot]
+        shape = (shape[0] if isinstance(shape, list) else shape).shape
+        cot = torch.from_numpy(np.asarray(np.random.RandomState(5).randn(
+            *shape), dtype='float32')).to(dev)
+        torch.cuda.synchronize()
+        mode = torch.cuda.get_sync_debug_mode()
+        if dev.type == 'cuda':
+            torch.cuda.set_sync_debug_mode('error')
+        try:
+            out = lowering.get_rule(op)(tins, attrs, ctx)[slot]
+            out = out[0] if isinstance(out, list) else out
+            grads = torch.autograd.grad(out, tins[wrt], cot) if wrt else []
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        outs[dev.type] = [t.detach().cpu().numpy() for t in [out, *grads]]
+    for got, want in zip(outs['cuda'], outs['cpu']):
+        scale = max(float(np.nanmax(np.abs(want))) if want.size else 0.0,
+                    1.0) if op in ('gather', 'scatter', 'multiplex') else 1.0
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6 * scale,
+                                   err_msg=op)
+
+
+def test_random_surface_rules_draw_on_the_card_inside_a_capture(card):
+    """random_crop, truncated_gaussian_random and the *_batch_size_like
+    draws captured in one CUDA graph: each replay draws anew from the
+    graph's generator, within their bounds."""
+    from paddle_tpu_torch.fluid import lowering
+    gen = torch.Generator(device=card)
+    gen.manual_seed(0)
+    ctx = lowering.Ctx(card, gen)
+    x = torch.arange(2 * 5 * 6, dtype=torch.float32,
+                     device=card).reshape(2, 5, 6)
+    ref = torch.zeros(64, 3, device=card)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(gen)
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        crop = lowering.get_rule('random_crop')(
+            {'X': [x]}, {'shape': [3, 2]}, ctx)['Out']
+        tn = lowering.get_rule('truncated_gaussian_random')(
+            {}, {'shape': [64, 128], 'mean': 0.0, 'std': 1.0}, ctx)['Out']
+        un = lowering.get_rule('uniform_random_batch_size_like')(
+            {'Input': [ref]}, {'shape': [-1, 128], 'min': 2.0, 'max': 3.0},
+            ctx)['Out']
+    draws = []
+    for _ in range(8):
+        graph.replay()
+        torch.cuda.synchronize()
+        draws.append((crop.cpu().numpy().copy(), tn.cpu().numpy().copy(),
+                      un.cpu().numpy().copy()))
+        c = draws[-1][0]
+        r0, c0 = divmod(int(c[0, 0, 0]), 6)
+        np.testing.assert_array_equal(
+            c, x.cpu().numpy()[:, r0:r0 + 3, c0:c0 + 2])
+        assert np.abs(draws[-1][1]).max() <= 2.0
+        assert draws[-1][2].min() >= 2.0 and draws[-1][2].max() <= 3.0
+    assert not np.array_equal(draws[0][1], draws[1][1])
+    assert len({int(d[0][0, 0, 0]) for d in draws}) > 1
+
+
+def test_captured_shape_reads_its_value_after_other_pinned_copies(card):
+    """layers.shape inside a captured step: each replay, after pinned host
+    blocks of the shape value's size were taken and filled with other
+    bytes, still reads the input's shape."""
+    import paddle_tpu_torch.fluid as fluid
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.layers.data(name='x', shape=[6, 5], dtype='float32')
+        shape = fluid.layers.shape(x)
+        scaled = fluid.layers.scale(fluid.layers.cast(shape, 'float32'),
+                                    scale=2.0)
+    feed = {'x': np.ones((4, 6, 5), 'float32')}
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    held = []
+    for _ in range(4):
+        got, twice = exe.run(main, feed=feed, fetch_list=[shape, scaled],
+                             scope=scope)
+        np.testing.assert_array_equal(got, [4, 6, 5])
+        np.testing.assert_array_equal(twice, [8.0, 12.0, 10.0])
+        held += [torch.full((3,), -7, dtype=torch.int32).pin_memory()
+                 for _ in range(64)]
+    assert exe.cache_stats['captures'] == 1
+    assert exe.cache_stats['replays'] == 3

@@ -3,8 +3,9 @@ resnet.py), their readers and the DataFeeder against the JAX package's, on
 the CPU, at tiny shapes:
 
   * get_model emits the JAX program op for op, startup program too:
-    fit_a_line, MNIST LeNet, resnet_cifar10(depth=8) and
-    resnet_imagenet(depth=50) (building compiles nothing);
+    fit_a_line, MNIST LeNet, resnet_cifar10(depth=8),
+    resnet_imagenet(depth=50), VGG-16 on cifar10 and SE-ResNeXt-50
+    (building compiles nothing);
   * from the JAX package's startup scope carried into the port: fit_a_line
     params after 3 SGD steps (1e-5 of each tensor's max |w|); MNIST at
     batch 8, losses over 3 Adam steps (1e-4); resnet_cifar10(depth=8) at
@@ -39,6 +40,8 @@ from paddle_tpu.fluid.executor import Scope as JScope
 from paddle_tpu.models import fit_a_line as jfit
 from paddle_tpu.models import mnist as jmnist
 from paddle_tpu.models import resnet as jresnet
+from paddle_tpu.models import se_resnext as jse_resnext
+from paddle_tpu.models import vgg as jvgg
 
 import paddle_tpu_torch as tpaddle
 import paddle_tpu_torch.fluid as tfluid
@@ -49,13 +52,17 @@ from paddle_tpu_torch.fluid import unique_name as tunique
 from paddle_tpu_torch.models import fit_a_line as tfit
 from paddle_tpu_torch.models import mnist as tmnist
 from paddle_tpu_torch.models import resnet as tresnet
+from paddle_tpu_torch.models import se_resnext as tse_resnext
+from paddle_tpu_torch.models import vgg as tvgg
 
 from test_torch_training import _assert_same_program
 
 JAX = (jpaddle, jfluid, jframework, junique,
-       dict(fit=jfit, mnist=jmnist, resnet=jresnet))
+       dict(fit=jfit, mnist=jmnist, resnet=jresnet, vgg=jvgg,
+            se_resnext=jse_resnext))
 PORT = (tpaddle, tfluid, tframework, tunique,
-        dict(fit=tfit, mnist=tmnist, resnet=tresnet))
+        dict(fit=tfit, mnist=tmnist, resnet=tresnet, vgg=tvgg,
+             se_resnext=tse_resnext))
 TOL = 1e-4
 VELOCITY_TOL = 1e-2
 
@@ -70,6 +77,8 @@ def _build(pkg, model, **kw):
             out = models['fit'].get_model(**kw)
         elif model == 'mnist':
             out = models['mnist'].get_model(**kw)
+        elif model in ('vgg', 'se_resnext'):
+            out = models[model].get_model(**kw)
         elif model in ('cifar8', 'imagenet50'):
             out = models['resnet'].get_model(
                 data_set='cifar10' if model == 'cifar8' else 'imagenet',
@@ -96,7 +105,8 @@ def _bottleneck_net(fluid, resnet, fmt='NCHW'):
 
 
 @pytest.mark.parametrize('which', ['main', 'startup'])
-@pytest.mark.parametrize('model', ['fit', 'mnist', 'cifar8', 'imagenet50'])
+@pytest.mark.parametrize('model', ['fit', 'mnist', 'cifar8', 'imagenet50',
+                                   'vgg', 'se_resnext'])
 def test_get_model_emits_the_jax_program(model, which):
     i = 0 if which == 'main' else 1
     j, t = _build(JAX, model)[i], _build(PORT, model)[i]
@@ -112,6 +122,15 @@ def test_get_model_emits_the_jax_program(model, which):
             assert op_type in types, op_type
     if which == 'main' and model == 'mnist':
         assert types.count('conv2d') == 2 and 'adam' in types
+    if which == 'main' and model == 'vgg':
+        assert types.count('conv2d') == 13
+        assert types.count('batch_norm') == 14
+        assert types.count('dropout') == 10 and 'adam' in types
+    if which == 'main' and model == 'se_resnext':
+        convs = [op for op in t.global_block().ops if op.type == 'conv2d']
+        assert len(convs) == 53
+        assert sum(op.attrs['groups'] == 32 for op in convs) == 16
+        assert types.count('momentum') == 161 + 64
 
 
 @pytest.mark.parametrize('fmt', ['NCHW', 'NHWC'])

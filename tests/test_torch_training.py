@@ -19,7 +19,8 @@ max_length 16), with dropout 0 so the two runs see the same arithmetic:
     Predictor, and a CPU step launches no kernel;
   * on a small regression net, every clip and regularizer class the port
     has, with SGD, gives the JAX package's program, losses and params
-    (1e-5); what the port leaves out raises on use.
+    (1e-5); append_backward's callbacks are accepted and not called, as
+    in the JAX package.
 """
 import json
 
@@ -376,10 +377,18 @@ def test_clips_regularizers_and_optimizers_match_the_jax_package():
 
 def test_error_clip_callbacks_raise_on_use():
     """append_backward's callbacks (the reference's error clipping) are
-    left out: a caller who passes them is refused, not ignored."""
-    main, startup = tframework.Program(), tframework.Program()
-    with tunique.guard(), tframework.program_guard(main, startup):
-        x = tfluid.layers.data(name='x', shape=[4])
-        loss = tfluid.layers.reduce_sum(tfluid.layers.fc(input=x, size=1))
-        with pytest.raises(NotImplementedError, match='callbacks'):
-            tfluid.backward.append_backward(loss, callbacks=[object()])
+    accepted and, as in the JAX package, not called: the program is the
+    one built without them, in both packages (the name is from when the
+    port refused them)."""
+    progs = []
+    for fluid, framework, unique_name, _, _ in (JAX, PORT, PORT):
+        main, startup = framework.Program(), framework.Program()
+        with unique_name.guard(), framework.program_guard(main, startup):
+            x = fluid.layers.data(name='x', shape=[4])
+            loss = fluid.layers.reduce_sum(fluid.layers.fc(input=x, size=1))
+            callbacks = None if len(progs) == 2 else [object()]
+            pg = fluid.backward.append_backward(loss, callbacks=callbacks)
+        assert [p.name for p, _ in pg] == ['fc_0.w_0', 'fc_0.b_0']
+        progs.append(main)
+    _assert_same_program(progs[0], progs[1])
+    _assert_same_program(progs[1], progs[2])

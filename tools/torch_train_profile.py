@@ -8,6 +8,8 @@
     python3 tools/torch_train_profile.py --model resnet50 [--batch 32]
                                          [--amp [--layout NHWC|NCHW]]
     python3 tools/torch_train_profile.py --model mnist [--batch 128]
+    python3 tools/torch_train_profile.py --model vgg16 [--batch 32]
+    python3 tools/torch_train_profile.py --model se_resnext50 [--batch 16]
     python3 tools/torch_train_profile.py --amp     (Transformer under AMP)
 
 --model transformer (the default) builds full-width Transformer-base with
@@ -24,7 +26,11 @@ depth=50) (1000 classes, 3x224x224, NCHW, Momentum(0.01, 0.9)), as
 chip_smoke.py's image_training phase does, and trains it on batches of the
 flowers reader read beforehand (restarted at the end of its 16); --model
 mnist builds models.mnist.get_model (LeNet, Adam 1e-3) on its synthetic
-reader. --amp runs the model under fluid.amp.decorate_program: the
+reader. --model vgg16 builds models.vgg.get_model() (cifar10, 3x32x32,
+Adam 1e-3, vgg16_bn_drop's dropouts) on its cifar reader, and --model
+se_resnext50 models.se_resnext.get_model() (3x224x224, 102 classes,
+cardinality 32, Momentum(0.01, 0.9)) on flowers batches read beforehand,
+as chip_smoke.py's dense_training phase builds them. --amp runs the model under fluid.amp.decorate_program: the
 Transformer as it is (the bf16 attention kernels), ResNet-50 as the JAX
 bench.py:215-253 builds it for AMP (a bfloat16 data var, resnet_imagenet
 in --layout NHWC, the default there, or NCHW, the mean cross entropy and
@@ -40,8 +46,9 @@ checkout whose Executor has no step_artifact reports its Executor.run as
 `run` alone. For each it times each step on the host clock (each step ends in
 its fetch), then traces a few more with torch.profiler: device time by
 class, the share of the attention kernels and of the sparse kernels, and
-the device's idle share, both of the traced wall time (the profiler slows
-the host) and of the untraced median step. A replay runs no host op, so
+the device's idle share (busy: the union of the kernels' intervals), both
+of the traced wall time (the profiler slows the host) and of the untraced
+median step. A replay runs no host op, so
 the classes that lean on the host's ranges (the dense optimizer, the
 sparse sort and merge; every class of the image models) are the eager
 walk's only; the captured step's optimizer kernels count as elementwise.
@@ -52,8 +59,8 @@ kernels launched inside _merge_sparse's `optim.merge_sparse` range, or
 the rows-form wrapper's `sparse_optim.sort_ids`: the sort ops' kernels,
 then the others); the dense optimizer update
 (the rest of the Executor's `executor.update` range); other
-elementwise/normalization kernels; copies. For resnet50 and mnist each
-device kernel is classed instead by the host op that launched it (the
+elementwise/normalization kernels; copies. For the image models (resnet50,
+mnist, vgg16, se_resnext50) each device kernel is classed instead by the host op that launched it (the
 innermost enclosing op or range whose name matches, IMAGE_CLASSES): cuDNN
 convolution forward and backward, batch norm forward (with the running
 stats' var_mean) and backward, pooling, the optimizer update (the
@@ -143,6 +150,18 @@ def _sort_us(events):
                if _under(e, MERGE_RANGES) and not _under(e, names))
 
 
+def busy_us(spans):
+    """The device's busy time over (start, end) kernel intervals: the
+    length of their union (cuDNN runs some of a grouped convolution's
+    kernels at once, and a graph's independent nodes may run together, so
+    their sum can pass the wall)."""
+    busy, end = 0.0, float('-inf')
+    for a, b in sorted(spans):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return busy
+
+
 def profile_steps(step, feeds, image=False):
     """Trace step(feed) over `feeds` with torch.profiler."""
     import torch
@@ -157,6 +176,7 @@ def profile_steps(step, feeds, image=False):
         traced_wall = time.perf_counter() - t0
     classes = dict.fromkeys(CLASSES, 0.0)
     ranges = dict.fromkeys(('executor.update',) + MERGE_RANGES, 0.0)
+    spans = []
     for evt in prof.events():
         if evt.name in ranges \
                 and evt.device_type != torch.autograd.DeviceType.CUDA:
@@ -169,6 +189,7 @@ def profile_steps(step, feeds, image=False):
                 or evt.is_user_annotation:
             continue
         classes[_kernel_class(evt.name)] += evt.time_range.elapsed_us()
+        spans.append((evt.time_range.start, evt.time_range.end))
     # the update range holds the merge, the sparse kernels and the dense
     # rules; the merge's and the dense rules' kernels are elementwise,
     # sorts and scatters: move their time to their classes
@@ -181,7 +202,8 @@ def profile_steps(step, feeds, image=False):
     classes['elementwise/norm/other'] -= (ranges['executor.update']
                                           - sparse_us)
     n = len(feeds)
-    busy_s = sum(classes.values()) / 1e6
+    # the classes sum each kernel's own time
+    busy_s = busy_us(spans) / 1e6
     if image:
         image_us = image_classes_us(prof.events())
         # the same kernels by launching op; the sums agree within the
@@ -333,6 +355,39 @@ def build_mnist(batch_size, n_feeds):
     return main, startup, [avg_cost], feeds, batch_size, 'images_per_s'
 
 
+def build_vgg16(batch_size, n_feeds):
+    """vgg.get_model(batch_size) on its cifar10 reader; returns as
+    build_transformer."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import framework, unique_name
+    from paddle_tpu_torch.models import vgg
+    main, startup = framework.Program(), framework.Program()
+    main.random_seed = startup.random_seed = SEED
+    with unique_name.guard(), framework.program_guard(main, startup):
+        avg_cost, _, reader, _, _ = vgg.get_model(batch_size=batch_size)
+    blk = main.global_block()
+    feeder = fluid.DataFeeder([blk.var('data'), blk.var('label')],
+                              fluid.CPUPlace(), program=main)
+    epoch = [feeder.feed(b) for b in reader() if len(b) == batch_size]
+    feeds = [epoch[i % len(epoch)] for i in range(n_feeds)]
+    return main, startup, [avg_cost], feeds, batch_size, 'images_per_s'
+
+
+def build_se_resnext50(batch_size, n_feeds):
+    """se_resnext.get_model(batch_size) on flowers batches; returns as
+    build_transformer."""
+    from paddle_tpu_torch.fluid import framework, unique_name
+    from paddle_tpu_torch.models import se_resnext
+    main, startup = framework.Program(), framework.Program()
+    main.random_seed = startup.random_seed = SEED
+    with unique_name.guard(), framework.program_guard(main, startup):
+        avg_cost, _, reader, _, _ = se_resnext.get_model(
+            batch_size=batch_size)
+    return (main, startup, [avg_cost],
+            _flowers_feeds(main, reader, batch_size, n_feeds), batch_size,
+            'images_per_s')
+
+
 def build_resnet50_amp(batch_size, n_feeds, layout='NHWC'):
     """ResNet-50 as the JAX bench.py builds it for AMP (chip_smoke.py's
     build_resnet_amp) on the flowers batches, bf16 from the DataFeeder;
@@ -356,7 +411,9 @@ def build_resnet50_amp(batch_size, n_feeds, layout='NHWC'):
 BUILDERS = {'transformer': (build_transformer, 16),
             'deepfm': (build_deepfm, 256),
             'resnet50': (build_resnet50, 32),
-            'mnist': (build_mnist, 128)}
+            'mnist': (build_mnist, 128),
+            'vgg16': (build_vgg16, 32),
+            'se_resnext50': (build_se_resnext50, 16)}
 
 
 def main():
@@ -365,7 +422,8 @@ def main():
                     default='transformer')
     ap.add_argument('--batch', type=int, default=None,
                     help='default: 16 (transformer), 256 (deepfm), 32 '
-                         '(resnet50), 128 (mnist)')
+                         '(resnet50, vgg16), 128 (mnist), 16 '
+                         '(se_resnext50)')
     ap.add_argument('--steps', type=int, default=20)
     ap.add_argument('--amp', action='store_true',
                     help='under fluid.amp.decorate_program (transformer, '
@@ -417,7 +475,7 @@ def main():
 
         modes = [('captured', run), ('eager', eager)]
 
-    image = args.model in ('resnet50', 'mnist')
+    image = args.model in ('resnet50', 'mnist', 'vgg16', 'se_resnext50')
     r = dict(card=card_line(), root=os.path.dirname(os.path.dirname(
         os.path.abspath(paddle_tpu_torch.__file__))),
              model=args.model, batch=batch, steps=args.steps,
