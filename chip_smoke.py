@@ -192,6 +192,31 @@ replay (each graph adds the launches its capture recorded).
                 forward, one of each backward kernel a step), the
                 nets_attention path of the kernels line. VGG, SE-ResNeXt
                 and the optimizer surface launch no kernel of the port.
+  7d. sequences — the LoD sequence models at full width through the
+                entry points: stacked_dynamic_lstm (batch 32, emb and lstm
+                512, vocab 5147, Adam), understand_sentiment (batch 32,
+                emb and hid 32, Adagrad 0.002) and machine_translation's
+                training program (batch 16, emb, encoder and decoder 512,
+                dict 30000, Adam 2e-4), each SEQ_STEPS captured steps
+                through Executor() on reader batches read beforehand
+                through DataFeeder (the time axis bucketed to a power of
+                two): finite losses; one capture per bucket seen twice or
+                more (each bucket's graph pool logged); the median replayed
+                step, sequences/s, valid tokens/s and peak memory; one
+                batch's replay against debug_step's eager walk with device
+                busy time, idle share and device kernels a step
+                (torch.profiler over 3 replays) and the top device
+                kernels; a replay on another batch of that bucket (other
+                lengths) held to two eager walks from the same state, the
+                loss and the written persistables bitwise or within twice
+                the walks' spread, as in phase 8; the loss falling on
+                the first batch repeated SEQ_LEARN_STEPS steps; step 1
+                card against CPU at SEQ_CPU_BATCH sequences (the loss
+                within 1e-4, the gradients within 3x the CPU's own
+                spread under startup weights nudged by 1e-6); the two
+                classifiers' for_test clones through Predictor with
+                LoDTensor feeds, card against CPU within 1e-5. No kernel
+                of the port launches on these paths.
   8. captured — each path's captured step against debug_step's eager
                 walk in this call, at full width: Transformer-base
                 training at batch 16 (get_model, dropout 0.1), fp32 and
@@ -407,6 +432,10 @@ AMP_STATE_NOISE = 1e-6
 # products carry about 2^-24 * sqrt(147) relative on another device,
 # which rounds about 4e-4 of its bf16 outputs the other way
 AMP_INPUT_FLIPS = 4e-4
+# the AMP ResNet-50 loss's own spread on the CPU: the largest move over
+# this many draws of such nudged inputs (one draw leaves the bf16 loss
+# where it was in about half the runs)
+AMP_LOSS_NUDGES = 4
 # op by op (_ops_against_cpu): each forward op of the card's step against
 # the CPU's rule on the same inputs, and at the AMP sites (the op's
 # output and the inputs its vector-Jacobian product is taken for) the VJP
@@ -487,6 +516,23 @@ NETS_ATTENTION_LR = 20.0
 NETS_UPDATE_TOL = 1e-2
 CAPTURED_STEPS = 10
 PROFILED_STEPS = 3
+# phase 7d: the sequence models at full width (the JAX get_models'
+# defaults) trained SEQ_STEPS captured steps each on their readers'
+# batches; the loss falling on the first batch repeated SEQ_LEARN_STEPS
+# steps (the mean of the last DENSE_WINDOW below that of the first); step
+# 1 card against CPU at SEQ_CPU_BATCH sequences: the loss within
+# SEQ_LOSS_TOL (relative), the gradients' median relative L2 within
+# SEQ_GRAD_SPREAD x the CPU's own under startup weights nudged by
+# AMP_STATE_NOISE (_nudged; the ids cannot be nudged); the classifiers'
+# for_test clones through Predictor, card against CPU, within
+# SEQ_SERVE_TOL of max(1, |p|) on SEQ_SERVE_ROWS LoDTensor sequences
+SEQ_STEPS = 20
+SEQ_LEARN_STEPS = 30
+SEQ_CPU_BATCH = 4
+SEQ_LOSS_TOL = 1e-4
+SEQ_GRAD_SPREAD = 3.0
+SEQ_SERVE_TOL = 1e-5
+SEQ_SERVE_ROWS = 8
 
 
 def log(*args):
@@ -3012,8 +3058,12 @@ def _amp_resnet_card_against_cpu(initial, images, labels):
     gradients and the running stats within RESNET_GRAD_SPREAD times the
     CPU's own spread (its step again with AMP_INPUT_FLIPS of the bf16
     input moved to the next bf16 value), by the median over the tensors of
-    the relative L2 difference; the loss within one bf16 ulp at least
-    (the tower computes it in bf16). Logged beside it: AMP's own
+    the relative L2 difference; the loss within RESNET_GRAD_SPREAD times
+    the largest move of the CPU's loss over AMP_LOSS_NUDGES such steps,
+    each with its own draw of the moved inputs (seeds SEED, SEED + 1,
+    ...; the first is the gradients' nudge), and within one bf16 ulp at
+    least (the tower computes the loss in bf16, so one nudge moves it by
+    0 in about half the draws). Logged beside it: AMP's own
     difference (the fp32 tower on the CPU from the same values) and the
     control (the fp32 tower on the card). Then both layouts' steps op by
     op (_ops_against_cpu)."""
@@ -3029,7 +3079,10 @@ def _amp_resnet_card_against_cpu(initial, images, labels):
     # the fp32 tower's startup weights: the same values, widened
     initial32 = {n: t.to(torch.float32) if t.is_floating_point() else t
                  for n, t in initial.items()}
-    flips = np.random.RandomState(SEED).rand(*images.shape) < AMP_INPUT_FLIPS
+    flips = [np.random.RandomState(SEED + k).rand(*images.shape)
+             < AMP_INPUT_FLIPS for k in range(AMP_LOSS_NUDGES)]
+    nudges = ['nudged'] + ['nudged %d' % k
+                           for k in range(1, AMP_LOSS_NUDGES)]
 
     def nhwc(x):
         return np.ascontiguousarray(x.transpose(0, 2, 3, 1))
@@ -3039,14 +3092,16 @@ def _amp_resnet_card_against_cpu(initial, images, labels):
     def runs(rows):
         x, y = images[:rows], labels[:rows]
         bf16 = torch.from_numpy(nhwc(x)).to(torch.bfloat16)
-        moved = (bf16.view(torch.int16) + torch.from_numpy(
-            nhwc(flips[:rows])).to(torch.int16)).view(torch.bfloat16)
         feeds.update(bf16={'data': bf16, 'label': y},
-                     nudged={'data': moved, 'label': y},
                      fp32={'data': nhwc(x), 'label': y})
+        for name, f in zip(nudges, flips):
+            moved = (bf16.view(torch.int16) + torch.from_numpy(
+                nhwc(f[:rows])).to(torch.int16)).view(torch.bfloat16)
+            feeds[name] = {'data': moved, 'label': y}
         return [('card', True, main, avg_cost, feeds['bf16'], initial),
-                ('cpu', False, main, avg_cost, feeds['bf16'], initial),
-                ('nudged', False, main, avg_cost, feeds['nudged'], initial),
+                ('cpu', False, main, avg_cost, feeds['bf16'], initial)] + [
+                (name, False, main, avg_cost, feeds[name], initial)
+                for name in nudges] + [
                 ('cpu fp32', False, main32, cost32, feeds['fp32'],
                  initial32),
                 ('card fp32', True, main32, cost32, feeds['fp32'],
@@ -3064,8 +3119,13 @@ def _amp_resnet_card_against_cpu(initial, images, labels):
     med_s, med_sn = stat_spread('card', 'cpu'), stat_spread('nudged', 'cpu')
     loss = {k: float(outs[k][0][0]) for k in outs}
     ulp = 2.0 ** (np.floor(np.log2(abs(loss['cpu']))) - 7)
-    loss_tol = max(ulp, RESNET_GRAD_SPREAD * abs(loss['nudged']
-                                                 - loss['cpu']))
+    moves = [abs(loss[k] - loss['cpu']) for k in nudges]
+    loss_tol = max(ulp, RESNET_GRAD_SPREAD * max(moves))
+    log('[amp] ResNet-50 NHWC under AMP, step 1: the CPU\'s loss %.6f '
+        'moved by %s under %d draws of moved bf16 inputs (seeds %d-%d); '
+        'loss tolerance max(one bf16 ulp %g, %g x the largest move) = %g'
+        % (loss['cpu'], ', '.join('%g' % m for m in moves), len(moves),
+           SEED, SEED + len(moves) - 1, ulp, RESNET_GRAD_SPREAD, loss_tol))
     bad = [n for i, n in enumerate(gnames)
            if not np.isfinite(outs['card'][1 + i]).all()]
     log('[amp] ResNet-50 NHWC under AMP, step 1 from the startup weights, '
@@ -3649,6 +3709,314 @@ def phase_dense_training():
     return {'dense_training': dense, 'nets_attention': _nets_attention()}
 
 
+# -- phase 7d -----------------------------------------------------------------
+
+def build_stacked_lstm():
+    """stacked_dynamic_lstm.get_model(): batch 32, emb 512, lstm 512,
+    vocab 5147, Adam. Returns (main, startup, avg_cost, train_reader,
+    feed names, the for_test program and its class probabilities)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import unique_name
+    from paddle_tpu_torch.models import stacked_dynamic_lstm
+    main, startup = _program_pair()
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        loss, test, reader, _, _ = stacked_dynamic_lstm.get_model()
+    return main, startup, loss, reader, ['words', 'label'], test, \
+        _last_softmax(test)
+
+
+def build_sentiment():
+    """understand_sentiment.get_model(): batch 32, emb 32, hid 32,
+    Adagrad(0.002); its for_test program a clone of the main program (the
+    builder returns none)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import unique_name
+    from paddle_tpu_torch.models import understand_sentiment
+    main, startup = _program_pair()
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        loss, _, reader, _, names = understand_sentiment.get_model()
+    test = main.clone(for_test=True)
+    return main, startup, loss, reader, names, test, _last_softmax(test)
+
+
+def build_mt():
+    """machine_translation.get_model(): batch 16, emb, encoder and decoder
+    512, dict 30000, Adam(2e-4); the training program only."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import unique_name
+    from paddle_tpu_torch.models import machine_translation
+    main, startup = _program_pair()
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        loss, _, reader, _, names = machine_translation.get_model()
+    return main, startup, loss, reader, names, None, None
+
+
+def _last_softmax(program):
+    return [op for op in program.global_block().ops
+            if op.type == 'softmax'][-1].outputs['Out'][0].name
+
+
+def _seq_feeds(feed):
+    """The sequence (SeqValue) entries of a feed, by name."""
+    from paddle_tpu_torch.fluid.lowering import SeqValue
+    return {n: v for n, v in feed.items() if isinstance(v, SeqValue)}
+
+
+def _bucket(feed):
+    """The padded time axis of each sequence feed: the step signature a
+    batch selects."""
+    return tuple(int(v.data.shape[1]) for _, v in sorted(
+        _seq_feeds(feed).items()))
+
+
+def _valid_tokens(feed, names):
+    """The valid ids of a batch's input sequences (the label sequence of
+    machine_translation not counted)."""
+    return sum(int(v.lengths.sum()) for n, v in _seq_feeds(feed).items()
+               if n in names and n != 'label_sequence')
+
+
+def _sequence_card_against_cpu(what, main, avg_cost, initial, feed):
+    """Step 1 from the startup weights on the card and on the CPU at
+    SEQ_CPU_BATCH sequences, and on the CPU again from the weights nudged
+    by AMP_STATE_NOISE: the loss within SEQ_LOSS_TOL, the gradients'
+    median relative L2 within SEQ_GRAD_SPREAD x the nudged spread."""
+    from paddle_tpu_torch import fluid
+    gnames = _autodiff_grads(main)
+    nudged = _nudged(initial, np.random.RandomState(SEED))
+    outs, secs = {}, {}
+    for where, place, state in (('card', fluid.CUDAPlace(0), initial),
+                                ('cpu', fluid.CPUPlace(), initial),
+                                ('nudged', fluid.CPUPlace(), nudged)):
+        s = fluid.Scope()
+        s.load_numpy(state, place)
+        t0 = time.perf_counter()
+        outs[where] = fluid.Executor(place).run(
+            main, feed=feed, fetch_list=[avg_cost] + gnames, scope=s)
+        secs[where] = time.perf_counter() - t0
+    med_g, worst_g = _grad_spread(outs, gnames, 'card', 'cpu')
+    med_n, worst_n = _grad_spread(outs, gnames, 'nudged', 'cpu')
+    loss = {k: float(np.asarray(v[0]).reshape(-1)[0])
+            for k, v in outs.items()}
+    loss_rel = abs(loss['card'] - loss['cpu']) / abs(loss['cpu'])
+    bad = [n for i, n in enumerate(gnames)
+           if not np.isfinite(outs['card'][1 + i]).all()]
+    log('[sequences] %s step 1 from the startup weights, card vs CPU at %d '
+        'sequences (CPU step %.2f s, card %.2f s): loss %.6f vs %.6f '
+        '(relative %.3g, tol %g), nudged %.6f; %d gradients, |diff| / '
+        '|cpu| (L2) median %.3g, max %.3g (%s); the CPU\'s own with the '
+        'startup weights scaled by 1 + %g * noise: median %.3g, max %.3g '
+        '(%s); tol %g x that spread'
+        % (what, SEQ_CPU_BATCH, secs['cpu'], secs['card'], loss['card'],
+           loss['cpu'], loss_rel, SEQ_LOSS_TOL, loss['nudged'], len(gnames),
+           med_g, worst_g[0], worst_g[1], AMP_STATE_NOISE, med_n,
+           worst_n[0], worst_n[1], SEQ_GRAD_SPREAD))
+    if bad or not (loss_rel <= SEQ_LOSS_TOL
+                   and med_g <= SEQ_GRAD_SPREAD * med_n):
+        raise AssertionError(
+            '%s step 1, card vs CPU: loss %.3g (tol %g), gradients %.3g '
+            'against the CPU\'s own %.3g (tol %g x), non-finite %r'
+            % (what, loss_rel, SEQ_LOSS_TOL, med_g, med_n, SEQ_GRAD_SPREAD,
+               bad))
+    return dict(loss_rel=loss_rel, grad_median_rel_l2=med_g,
+                cpu_spread_median_rel_l2=med_n)
+
+
+def _serve_sequences(what, test, prob, scope, exe, samples):
+    """The trained for_test clone saved with save_inference_model and
+    served through Predictor on the card (three calls of one LoDTensor
+    request: warm-up, capture, replay) and on the CPU: the class
+    probabilities within SEQ_SERVE_TOL of max(1, |p|)."""
+    from paddle_tpu_torch import fluid, inference
+    words = [s[0] for s in samples[:SEQ_SERVE_ROWS]]
+    req = {'words': fluid.LoDTensor(
+        np.concatenate(words).reshape(-1, 1).astype('int64'),
+        [[len(w) for w in words]])}
+    with tempfile.TemporaryDirectory() as d:
+        fluid.io.save_inference_model(
+            d, ['words'], [test.global_block().var(prob)], exe,
+            main_program=test, scope=scope)
+        card = inference.Predictor(d)
+        got = [card.run(req)[0] for _ in range(3)]
+        want = inference.Predictor(d, place=fluid.CPUPlace()).run(req)[0]
+        stats = card._exe.cache_stats
+    err = float(np.abs(got[-1] - want).max())
+    scale = max(1.0, float(np.abs(want).max()))
+    same = all(np.array_equal(g, got[0]) for g in got)
+    log('[sequences] %s for_test clone through Predictor with a LoDTensor '
+        'of %d sequences (lengths %s): card vs CPU max abs err %.3g (tol %g '
+        'x %g); three card calls %s; %r'
+        % (what, len(words), [len(w) for w in words], err, SEQ_SERVE_TOL,
+           scale, 'bitwise equal' if same else 'DIFFER', stats))
+    if not (got[-1].shape == (len(words), 2) and err <= SEQ_SERVE_TOL * scale
+            and same and stats['captures'] == 1):
+        raise AssertionError('%s served through Predictor: err %.3g, shape '
+                             '%r, calls equal %s, %r'
+                             % (what, err, got[-1].shape, same, stats))
+    return err
+
+
+def _sequence_model(what, build):
+    """`what` trained SEQ_STEPS captured steps through Executor() on its
+    reader's batches (read beforehand through DataFeeder): finite losses;
+    one capture per time bucket seen twice or more, every other step of a
+    bucket a replay; the median replayed step, sequences/s and valid
+    tokens/s, peak memory and the graph pool each capture reserved; the
+    replay against the eager walk (_measure: device busy, idle share,
+    kernel records per step) and the top device kernels over
+    PROFILED_STEPS replays; a replay on another batch of the common bucket
+    against the eager walk (_replay_against_eager); the loss falling on
+    the first batch repeated;
+    step 1 against the CPU; the classifiers' serving. Returns a record."""
+    import random
+    import torch
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid.lowering import map_value
+    random.seed(SEED)
+    t0 = time.perf_counter()
+    main, startup, avg_cost, reader, names, test, prob = build()
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    exe.run(startup, scope=scope)
+    initial = scope.to_numpy()
+    feeder = fluid.DataFeeder(names, fluid.CUDAPlace(0), program=main)
+    batches = list(itertools.islice(reader(), SEQ_STEPS))
+    feeds = [feeder.feed(b) for b in batches]
+    batch = len(batches[0])
+    log('[sequences] %s: built, initialized on the card and read %d '
+        'batches of %d in %.3f s' % (what, len(feeds), batch,
+                                     time.perf_counter() - t0))
+    base = exe.cache_stats
+    torch.cuda.reset_peak_memory_stats()
+    seen, pools, losses, step_s, replayed = {}, {}, [], [], []
+    for feed in feeds:
+        bucket = _bucket(feed)
+        seen[bucket] = seen.get(bucket, 0) + 1
+        capture = seen[bucket] == 2
+        r0 = _reserved() if capture else None
+        before = exe.cache_stats['replays']
+        t0 = time.perf_counter()
+        loss, = exe.run(main, feed=feed, fetch_list=[avg_cost], scope=scope)
+        step_s.append(time.perf_counter() - t0)
+        if capture:
+            pools[bucket] = _reserved() - r0
+        replayed.append(exe.cache_stats['replays'] > before
+                        and not capture)
+        losses.append(float(np.asarray(loss).reshape(-1)[0]))
+    peak = torch.cuda.max_memory_allocated()
+    stats = {k: exe.cache_stats[k] - base[k] for k in ('captures',
+                                                       'replays')}
+    if not np.isfinite(losses).all():
+        raise AssertionError('%s: non-finite loss %r' % (what, losses))
+    twice = sum(n >= 2 for n in seen.values())
+    want_replays = sum(n - 1 for n in seen.values() if n >= 2)
+    if stats != {'captures': twice, 'replays': want_replays}:
+        raise AssertionError('%s: %r over buckets %r: not one capture per '
+                             'bucket seen twice' % (what, stats, seen))
+    times = [t for t, r in zip(step_s, replayed) if r]
+    tokens = [_valid_tokens(f, names) for f, r in zip(feeds, replayed) if r]
+    med = float(np.median(times))
+    rec = dict(model=what, batch=batch, losses=losses, step_s=step_s,
+               buckets={'x'.join(map(str, b)): n for b, n in seen.items()},
+               graph_pool_gb={'x'.join(map(str, b)): p / 1e9
+                              for b, p in pools.items()},
+               captures=stats['captures'], replays=stats['replays'],
+               median_replayed_step_s=med, sequences_per_s=batch / med,
+               valid_tokens_per_s=float(np.median(tokens)) / med,
+               peak_memory_gb=peak / 1e9)
+    # the most frequent bucket's first batch: a captured signature
+    common = max(seen, key=seen.get)
+    feed = [f for f in feeds if _bucket(f) == common][0]
+    art = exe.step_artifact(main, feed=feed, fetch_list=[avg_cost],
+                            scope=scope)
+    state = {n: t.clone() for n, t in art.state_dict(scope).items()}
+    dev = {n: map_value(lambda t: torch.as_tensor(t).cuda(), v)
+           for n, v in feed.items()}
+    g = torch.Generator(device='cuda')
+    # timed before the top kernels are traced
+    m = _measure(what, lambda: exe.run(main, feed=feed,
+                                       fetch_list=[avg_cost], scope=scope),
+                 lambda: _to_host(art.debug_step(state, dev, 0,
+                                                 generator=g)[0]),
+                 pools.get(common, 0))
+    del state, dev
+    busy, traced, top = _top_kernels(lambda: exe.run(
+        main, feed=feed, fetch_list=[avg_cost], scope=scope), PROFILED_STEPS)
+    rec.update(top_device_kernels_ms_per_step=top,
+               device_busy_ms_per_step=busy, traced_wall_ms_per_step=traced,
+               measured=m, card=nvidia_smi_line())
+    # one replay of the captured graph on another batch of its bucket,
+    # whose lengths and ids differ from those the replays above copied
+    # into the graph's static buffers, against the eager walk
+    fresh = [f for f in feeds if _bucket(f) == common][-1]
+    if all(torch.equal(fresh[n].lengths, feed[n].lengths)
+           for n in _seq_feeds(feed)):
+        raise AssertionError('%s: no second batch of bucket %r with other '
+                             'lengths' % (what, common))
+    h = exe.acquire_step(main, feed=fresh, fetch_list=[avg_cost],
+                         scope=scope)
+    exact, spread = _replay_against_eager(what, h, art, scope, fresh, 0)
+    rec['replay_vs_eager'] = dict(bitwise=exact, within_spread=spread)
+    log('[sequences] %s losses %s' % (what, ', '.join(
+        '%.4f' % x for x in losses)))
+    log('[sequences] %s buckets (padded time axes of the sequence feeds: '
+        'batches) %s; captures %d, replays %d; graph pool reserved by each '
+        'capture (GB) %s' % (what, rec['buckets'], stats['captures'],
+                             stats['replays'], rec['graph_pool_gb']))
+    log('[sequences] %s median replayed step over %d reader batches %.4f s: '
+        '%.1f sequences/s and %.0f valid tokens/s at batch %d; peak memory '
+        '%.3f GB; replay of one batch %.4f ms against the eager walk\'s '
+        '%.4f ms; device busy %.3f ms a step (idle %.3f of the median '
+        'replay), %.0f device kernels a step; top device kernels (ms a '
+        'step) %s; card: %s'
+        % (what, len(times), med, batch / med, rec['valid_tokens_per_s'],
+           batch, peak / 1e9, m['captured']['median_step_ms'],
+           m['eager']['median_step_ms'], m['captured']['device_busy_ms'],
+           m['captured']['idle_share_of_median_step'],
+           m['captured']['device_records_per_step'],
+           '; '.join('%s %.3f' % kv for kv in top), rec['card']))
+    s2 = fluid.Scope()
+    s2.load_numpy(initial, fluid.CUDAPlace(0))
+    learn = [float(np.asarray(exe.run(main, feed=feeds[0],
+                                      fetch_list=[avg_cost],
+                                      scope=s2)[0]).reshape(-1)[0])
+             for _ in range(SEQ_LEARN_STEPS)]
+    del s2
+    log('[sequences] %s, the first batch repeated %d steps from the '
+        'startup weights: loss %s' % (what, SEQ_LEARN_STEPS, ', '.join(
+            '%.4f' % x for x in learn)))
+    rec['falling_losses'] = learn
+    if not np.mean(learn[-DENSE_WINDOW:]) < np.mean(learn[:DENSE_WINDOW]):
+        raise AssertionError('%s: the loss did not fall: %r' % (what, learn))
+    small = fluid.DataFeeder(names, fluid.CPUPlace(), program=main).feed(
+        batches[0][:SEQ_CPU_BATCH])
+    rec['card_vs_cpu'] = _sequence_card_against_cpu(what, main, avg_cost,
+                                                    initial, small)
+    if test is not None:
+        rec['serve_max_abs_err'] = _serve_sequences(
+            what, test, prob, scope, exe, batches[-1])
+    del exe, scope
+    return rec
+
+
+def phase_sequences():
+    """stacked_dynamic_lstm, understand_sentiment and machine_translation
+    training at full width through the entry points on the card (no
+    kernel of the port on their paths); returns {'sequences': launch
+    counts}."""
+    import torch
+    _reset_launch_counts()
+    records = [_sequence_model('stacked_dynamic_lstm', build_stacked_lstm),
+               _sequence_model('understand_sentiment', build_sentiment),
+               _sequence_model('machine_translation', build_mt)]
+    torch.cuda.synchronize()
+    counts = _launch_counts()
+    if any(counts.values()):
+        raise AssertionError('the sequence paths launched %r' % counts)
+    log(json.dumps({'sequences': records}))
+    return {'sequences': counts}
+
+
 # -- phase 8 ----------------------------------------------------------------
 
 def _to_host(tensors):
@@ -3814,8 +4182,10 @@ def _replay_against_eager(what, handle, art, scope, feed, seed):
     and the written persistables held to the determinism rule
     (_held_to_eager). The scope's state is restored afterwards."""
     import torch
+    from paddle_tpu_torch.fluid.lowering import map_value
     snap = {n: t.clone() for n, t in art.state_dict(scope).items()}
-    dev_feed = {n: torch.as_tensor(v).cuda() for n, v in feed.items()}
+    dev_feed = {n: map_value(lambda t: torch.as_tensor(t).cuda(), v)
+                for n, v in feed.items()}
     g = torch.Generator(device='cuda')
     eager = []
     for _ in range(2):
@@ -4263,6 +4633,7 @@ def main():
                'image_training': phase_image_training()}
     by_path.update(phase_amp())
     by_path.update(phase_dense_training())
+    by_path.update(phase_sequences())
     phase_captured()
     for path, counts in by_path.items():
         stray = {k: n for k, n in counts.items()

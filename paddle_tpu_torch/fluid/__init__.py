@@ -2,7 +2,8 @@
 
 Parity: reference python/paddle/fluid/__init__.py and the JAX package's
 paddle_tpu.fluid, reduced to what the port carries so far: the Program
-IR, the layer builders of the port's models, nets, the DataFeeder, the
+IR, the layer builders of the port's models, nets, LoDTensor (sequence
+feeds and fetches), the DataFeeder, the
 Executor and its compiled step (step_artifact: one captured CUDA graph per
 step signature on the card), the anomaly guard, the NaN/Inf debugger, io,
 the training step (backward, optimizer, regularizer, clip), AMP (amp) and
@@ -29,6 +30,9 @@ from . import regularizer
 from . import clip
 from . import optimizer
 from . import nets
+from . import lod_tensor
+from .lod_tensor import LoDTensor, LoDTensorArray, create_lod_tensor, \
+    create_random_int_lodtensor
 from . import data_feeder
 from .data_feeder import DataFeeder
 from .param_attr import ParamAttr, WeightNormParamAttr
@@ -36,10 +40,13 @@ from . import unique_name
 from . import contrib
 from .core import CPUPlace, CUDAPlace, TPUPlace, CUDAPinnedPlace
 
+Tensor = LoDTensor
+
 __all__ = framework.__all__ + executor.__all__ + [
     'io', 'initializer', 'layers', 'ParamAttr', 'WeightNormParamAttr',
     'unique_name', 'core',
     'backward', 'optimizer', 'regularizer', 'clip', 'nets', 'data_feeder',
-    'DataFeeder', 'debugger', 'step_artifact', 'passes', 'amp', 'contrib',
+    'DataFeeder', 'LoDTensor', 'LoDTensorArray', 'create_lod_tensor',
+    'create_random_int_lodtensor', 'debugger', 'step_artifact', 'passes', 'amp', 'contrib',
     'CPUPlace', 'CUDAPlace', 'TPUPlace', 'CUDAPinnedPlace',
 ]

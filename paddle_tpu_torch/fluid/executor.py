@@ -44,7 +44,10 @@ from .. import obs
 from . import amp as amp_mod
 from . import core
 from . import debugger
+from .data_feeder import _bucket
 from .framework import Variable, default_main_program
+from .lod_tensor import LoDTensor
+from .lowering import SeqValue, leaves_of, map_value
 from .step_artifact import (StepArtifact, _feed_signature, _pack_health,
                             _write_back, health_to_numpy)
 
@@ -129,6 +132,14 @@ def numpy_of(t):
 
 
 _global_scope = Scope()
+
+
+def _unstack(template, leaves, j):
+    """Step j of a bundle's stacked feed: a tensor, or a SeqValue of
+    template's structure."""
+    if isinstance(template, SeqValue):
+        return template.with_leaves(t[j] for t in leaves)
+    return leaves[0][j]
 
 
 def global_scope():
@@ -380,7 +391,7 @@ class StepHandle(object):
             fetches, health = exe._step(art, self._scope, feed_vals,
                                         0 if seed is None else int(seed))
             if exe.device.type == 'cuda':
-                fetches = [t.clone() for t in fetches]
+                fetches = [map_value(torch.clone, t) for t in fetches]
             if health is not None:
                 health = health_to_numpy(health)
         for n in self._donated:
@@ -441,6 +452,34 @@ class Executor(object):
     def _seed(program, n):
         return ((program.random_seed or 0) * 2654435761 + n) % (1 << 63)
 
+    def _feed_value(self, val, var):
+        """One feed as a tensor of the var's dtype, or a SeqValue (the JAX
+        :693-714, :1029-1033): a LoDTensor becomes its padded SeqValue,
+        its time axis the DataFeeder's power-of-two bucket of its longest
+        sequence (the JAX package pads to the longest; every rule masks
+        past the lengths, so the fetches agree, and requests whose longest
+        sequences share a bucket share one artifact and, on the card, one
+        captured graph), a SeqValue keeps its lengths, and a dense feed of
+        a lod var becomes a SeqValue whose rows are all full length. Its
+        data takes the var's dtype; lengths are int64."""
+        if isinstance(val, LoDTensor):
+            lens = val.recursive_sequence_lengths()
+            val = val.to_seq_value(
+                pad_to=_bucket(max(lens[-1], default=1)) if lens else None)
+        if isinstance(val, SeqValue):
+            return SeqValue(
+                self._feed_tensor(val.data, var),
+                self._feed_tensor(val.lengths, None).long(),
+                tuple(self._feed_tensor(o, None).long()
+                      for o in val.outer_lengths or ()),
+                beam_cap=val.beam_cap)
+        t = self._feed_tensor(val, var)
+        if var is not None and var.lod_level and var.lod_level > 0:
+            return SeqValue(t, torch.full((t.shape[0],), t.shape[1],
+                                          dtype=torch.int64,
+                                          device=t.device))
+        return t
+
     def _feed_tensor(self, val, var):
         """One feed as a tensor of the var's dtype, on the CPU (the
         artifact moves it to the card) or where the caller put it."""
@@ -467,7 +506,7 @@ class Executor(object):
 
     def _feed_values(self, program, feed):
         block = program.global_block()
-        return {n: self._feed_tensor(v, block.vars.get(n))
+        return {n: self._feed_value(v, block.vars.get(n))
                 for n, v in feed.items()}
 
     def _prepare(self, program, feed, fetch_list, scope,
@@ -523,7 +562,8 @@ class Executor(object):
         if self.device.type == 'cuda' and not check:
             return art.run_captured(self, scope, feed_vals, seed)
         persist = art._scope_state(scope)
-        feed = {n: t.to(self.device) for n, t in feed_vals.items()}
+        feed = {n: map_value(lambda t: t.to(self.device), v)
+                for n, v in feed_vals.items()}
         if check:
             fetches, new, health = art.debug_step(
                 persist, feed, seed, check_nan_inf=True,
@@ -583,10 +623,18 @@ class Executor(object):
         A program with `_fetch_f32` (Float16Transpiler's contract, the JAX
         _convert_fetch) fetches its bf16 values as fp32, cast on their
         device. numpy has no bf16 dtype, so any other bf16 numpy fetch is
-        widened to fp32 on the host (numpy_of): exact either way."""
+        widened to fp32 on the host (numpy_of): exact either way.
+
+        A SeqValue fetch (the JAX :1626-1640) comes back as the flat valid
+        rows in numpy, or as a LoDTensor with return_numpy=False; on the
+        card its tensors leave the graph's pool whole (cloned) before the
+        host reads them."""
         if getattr(program, '_fetch_f32', False):
-            fetches = [t.to(torch.float32) if t.dtype == torch.bfloat16
-                       else t for t in fetches]
+            fetches = [map_value(
+                lambda t: t.to(torch.float32) if t.dtype == torch.bfloat16
+                else t, v) for v in fetches]
+        if any(isinstance(v, SeqValue) for v in fetches):
+            return self._convert_seq_fetches(fetches, return_numpy, lazy)
         if self.device.type != 'cuda':
             if not return_numpy:
                 return [FetchHandle(t, lambda t=t: t) for t in fetches] \
@@ -613,6 +661,30 @@ class Executor(object):
             ev.synchronize()
             return [numpy_of(o) for o in outs]
         return outs
+
+    def _convert_seq_fetches(self, fetches, return_numpy, lazy):
+        """_convert_fetches for a fetch list holding a SeqValue: every
+        value is cloned out of the step (on the card, out of the graph's
+        pool) and read on the host at materialization."""
+        outs = [map_value(torch.clone, v) if self.device.type == 'cuda'
+                else v for v in fetches]
+        ev = None
+        if self.device.type == 'cuda':
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(self.device))
+
+        def mat(v):
+            if isinstance(v, SeqValue):
+                lt = LoDTensor.from_seq_value(v)
+                return np.asarray(lt.data) if return_numpy else lt
+            return self._to_numpy(v) if return_numpy else v
+
+        if lazy:
+            return [FetchHandle(v, lambda v=v: mat(v), event=ev)
+                    for v in outs]
+        if ev is not None:
+            ev.synchronize()
+        return [mat(v) for v in outs]
 
     def acquire_step(self, program=None, feed=None, fetch_list=None,
                      scope=None):
@@ -707,14 +779,13 @@ class Executor(object):
                         % (j, sorted(f), sorted(feed0)))
                 fv = self._feed_values(program, f)
                 for n, t in fv.items():
-                    if t.shape != feed0[n].shape \
-                            or t.dtype != feed0[n].dtype:
+                    got = _feed_signature(n, t)
+                    want = _feed_signature(n, feed0[n])
+                    if got != want:
                         raise ValueError(
-                            'run_bundle feed %d input %r has shape %r %s, '
-                            'expected %r %s (step 0): a bundle runs one '
-                            'step signature' % (
-                                j, n, tuple(t.shape), t.dtype,
-                                tuple(feed0[n].shape), feed0[n].dtype))
+                            'run_bundle feed %d input %r has shape and '
+                            'dtype %r, expected %r (step 0): a bundle runs '
+                            'one step signature' % (j, n, got[1:], want[1:]))
                 per_step.append(fv)
             run_base = self._run_counter
             self._run_counter += K
@@ -726,17 +797,28 @@ class Executor(object):
                 # one copy per name: the K feeds stacked in pinned memory
                 stacked = {}
                 for n in feed0:
-                    t = torch.stack([f[n].to(feed0[n].device)
-                                     for f in per_step])
-                    if t.device.type == 'cpu':
-                        t = t.pin_memory()
-                    stacked[n] = t.to(self.device, non_blocking=True)
-                per_step = [{n: t[j] for n, t in stacked.items()}
+                    leaves = []
+                    for i, t0 in enumerate(leaves_of(feed0[n])):
+                        t = torch.stack([leaves_of(f[n])[i].to(t0.device)
+                                         for f in per_step])
+                        if t.device.type == 'cpu':
+                            t = t.pin_memory()
+                        leaves.append(t.to(self.device, non_blocking=True))
+                    stacked[n] = leaves
+                per_step = [{n: _unstack(feed0[n], ls, j)
+                             for n, ls in stacked.items()}
                             for j in range(K)]
             outs, hbuf = None, None
             for j in range(K):
                 fetches, health = self._step(art, scope, per_step[j],
                                              seeds[j])
+                seq = [n for n, t in zip(art.fetch_names, fetches)
+                       if isinstance(t, SeqValue)]
+                if seq:
+                    raise NotImplementedError(
+                        'run_bundle: fetch %r is a sequence (SeqValue); '
+                        'a bundle stacks dense fetches only: fetch it '
+                        'with run()' % seq[0])
                 if outs is None:
                     outs = [torch.empty((K,) + tuple(t.shape),
                                         dtype=t.dtype, device=t.device)
@@ -798,13 +880,20 @@ class Executor(object):
 
     def state_dict(self, program=None, scope=None):
         """{name: tensor} of every scope-initialized persistable of
-        `program` (the JAX :1955)."""
+        `program` (the JAX :1955); a LoD (SeqValue) persistable is skipped
+        with a warning."""
         program = program if program is not None else default_main_program()
         scope = scope if scope is not None else global_scope()
         out = {}
         for v in program.list_vars():
             if v.persistable:
                 val = scope._chain_get(v.name)
+                if isinstance(val, SeqValue):
+                    # as the JAX state_dict (:1963-1978): LoD state has no
+                    # place in the state dict; the npz path (io) saves it
+                    warnings.warn('state_dict skips LoD persistable %r'
+                                  % v.name, RuntimeWarning)
+                    continue
                 if val is not None:
                     out[v.name] = val
         return out

@@ -15,6 +15,7 @@ import torch
 
 from .framework import Program, Parameter, Variable, default_main_program
 from .executor import global_scope, numpy_of, tensor_of_numpy
+from .lowering import data_of
 
 __all__ = [
     'save_vars', 'save_params', 'save_persistables', 'load_vars',
@@ -37,7 +38,8 @@ def is_persistable(var):
 def save_vars(executor, dirname, main_program=None, vars=None,
               predicate=None, filename=None, scope=None):
     """reference io.py:save_vars: the named scope tensors, as numpy arrays,
-    into one .npz file (a bf16 tensor widened to float32, exactly)."""
+    into one .npz file (a bf16 tensor widened to float32, exactly; a
+    sequence value's padded data)."""
     if vars is None:
         if main_program is None:
             main_program = default_main_program()
@@ -50,7 +52,9 @@ def save_vars(executor, dirname, main_program=None, vars=None,
         v = scope._chain_get(name)
         if v is None:
             raise RuntimeError("variable %s is not initialized in scope" % name)
-        arrays[name] = numpy_of(v.detach().cpu())
+        # a LoD (SeqValue) value saves its padded data, as the JAX
+        # save_vars (:61-64) does
+        arrays[name] = numpy_of(data_of(v).detach().cpu())
     os.makedirs(dirname, exist_ok=True)
     path = os.path.join(dirname, filename or _PARAMS_FILE)
     np.savez(path, **arrays)

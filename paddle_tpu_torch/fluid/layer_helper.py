@@ -8,7 +8,7 @@ variables, bias and activation epilogues.
 import copy
 
 from . import unique_name
-from .framework import Variable, default_main_program, \
+from .framework import Parameter, Variable, default_main_program, \
     default_startup_program
 from .initializer import Constant
 from .param_attr import ParamAttr, WeightNormParamAttr
@@ -120,6 +120,22 @@ class LayerHelper(object):
         return main_blk.create_parameter(
             name=attr.name, shape=shape, dtype=dtype,
             **{k: v for k, v in attr.to_kwargs().items() if k != 'name'})
+
+    def get_or_create_parameter(self, name, shape, dtype, is_bias=False):
+        """The named parameter of this program if it has one, else a new
+        one (the JAX :195: decoders that share weights by name)."""
+        var = self.main_program.global_block().vars.get(name)
+        if var is not None:
+            if not isinstance(var, Parameter):
+                raise ValueError(
+                    "var %r exists but is not a Parameter" % name)
+            if tuple(var.shape) != tuple(int(s) for s in shape):
+                raise ValueError(
+                    "shared parameter %r has shape %s, requested %s"
+                    % (name, var.shape, shape))
+            return var
+        return self.create_parameter(ParamAttr(name=name), shape=shape,
+                                     dtype=dtype, is_bias=is_bias)
 
     def _append_norm_except_dim(self, block, v, dim, out):
         """Append ops computing ||v|| over every axis except `dim` (all

@@ -2,8 +2,8 @@
 package's fluid/layers/control_flow.py, reduced to the compare ops,
 `increment` and `min_` / `max_`, which the schedulers build with. The
 sub-block constructs (While, Switch, IfElse, StaticRNN, DynamicRNN), the
-tensor-array ops and is_empty wait for the sequences and control-flow
-slice of the port."""
+tensor-array ops and is_empty wait for the control-flow slice of the
+port."""
 from ..layer_helper import LayerHelper
 
 __all__ = ['increment', 'less_than', 'equal']

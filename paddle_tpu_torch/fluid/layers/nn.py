@@ -1,7 +1,8 @@
 """Neural-network layers. Parity: reference python/paddle/fluid/layers/nn.py
-and the JAX package's fluid/layers/nn.py — the dense layers whose rules the
-port carries (the sequence, detection and recurrent layers wait for their
-slices). Each appends op symbols lowered by ops_impl/.
+and the JAX package's fluid/layers/nn.py — the dense, sequence and
+recurrent layers whose rules the port carries (the detection, CRF/CTC and
+sampled layers wait for their slices). Each appends op symbols lowered by
+ops_impl/.
 """
 import numpy as np
 
@@ -9,6 +10,7 @@ from ..framework import Variable
 from ..layer_helper import LayerHelper
 from ..initializer import Constant, Normal
 from ..param_attr import ParamAttr
+from . import tensor as tensor_mod
 
 __all__ = [
     'fc', 'embedding', 'layer_norm', 'dropout', 'reshape', 'transpose',
@@ -19,6 +21,11 @@ __all__ = [
     'cos_sim', 'l2_normalize', 'split', 'multiplex', 'pad', 'gather',
     'expand', 'scatter', 'random_crop', 'relu', 'log', 'crop', 'flatten',
     'stack', 'autoincreased_step_counter',
+    'dynamic_lstm', 'dynamic_lstmp', 'dynamic_gru', 'gru_unit', 'lstm_unit',
+    'sequence_conv', 'sequence_pool', 'sequence_first_step',
+    'sequence_last_step', 'sequence_softmax', 'sequence_expand',
+    'sequence_reshape', 'im2sequence', 'row_conv', 'lod_reset',
+    'sequence_mask',
 ]
 
 
@@ -587,4 +594,281 @@ def stack(x, axis=0):
     out = helper.create_variable_for_type_inference(x[0].dtype)
     helper.append_op(type='stack', inputs={'X': x}, outputs={'Y': [out]},
                      attrs={'axis': axis})
+    return out
+
+
+# -- sequence and recurrent layers (the JAX layers/nn.py :163-300, :376,
+# :480-516, :730, :907-951, :1026, :1286) -------------------------------
+
+def _create_rnn_bias_param(helper, attr, shape, dtype):
+    return helper.create_parameter(attr=attr, shape=shape, dtype=dtype,
+                                   is_bias=True)
+
+
+def dynamic_lstm(input, size, h_0=None, c_0=None, param_attr=None,
+                 bias_attr=None, use_peepholes=True, is_reverse=False,
+                 gate_activation='sigmoid', cell_activation='tanh',
+                 candidate_activation='tanh', dtype='float32', name=None):
+    """reference nn.py:dynamic_lstm: input is the projected gates
+    [*, 4 * hidden]; one lstm op."""
+    helper = LayerHelper('lstm', **locals())
+    size = size // 4
+    weight = helper.create_parameter(attr=helper.param_attr,
+                                     shape=[size, 4 * size], dtype=dtype)
+    bias_size = [1, 7 * size] if use_peepholes else [1, 4 * size]
+    bias = _create_rnn_bias_param(helper, helper.bias_attr, bias_size, dtype)
+    hidden = helper.create_variable_for_type_inference(dtype)
+    cell = helper.create_variable_for_type_inference(dtype)
+    inputs = {'Input': [input], 'Weight': [weight], 'Bias': [bias]}
+    if h_0 is not None:
+        inputs['H0'] = [h_0]
+    if c_0 is not None:
+        inputs['C0'] = [c_0]
+    helper.append_op(type='lstm', inputs=inputs,
+                     outputs={'Hidden': [hidden], 'Cell': [cell]},
+                     attrs={'use_peepholes': use_peepholes,
+                            'is_reverse': is_reverse,
+                            'gate_activation': gate_activation,
+                            'cell_activation': cell_activation,
+                            'candidate_activation': candidate_activation})
+    return hidden, cell
+
+
+def dynamic_lstmp(input, size, proj_size, param_attr=None, bias_attr=None,
+                  use_peepholes=True, is_reverse=False,
+                  gate_activation='sigmoid', cell_activation='tanh',
+                  candidate_activation='tanh', proj_activation='tanh',
+                  dtype='float32', name=None):
+    helper = LayerHelper('lstmp', **locals())
+    size = size // 4
+    weight = helper.create_parameter(attr=helper.param_attr,
+                                     shape=[proj_size, 4 * size], dtype=dtype)
+    proj_weight = helper.create_parameter(
+        attr=ParamAttr(name=None), shape=[size, proj_size], dtype=dtype)
+    bias_size = [1, 7 * size] if use_peepholes else [1, 4 * size]
+    bias = _create_rnn_bias_param(helper, helper.bias_attr, bias_size, dtype)
+    projection = helper.create_variable_for_type_inference(dtype)
+    cell = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type='lstmp',
+                     inputs={'Input': [input], 'Weight': [weight],
+                             'ProjWeight': [proj_weight], 'Bias': [bias]},
+                     outputs={'Projection': [projection], 'Cell': [cell]},
+                     attrs={'use_peepholes': use_peepholes,
+                            'is_reverse': is_reverse,
+                            'gate_activation': gate_activation,
+                            'cell_activation': cell_activation,
+                            'candidate_activation': candidate_activation,
+                            'proj_activation': proj_activation})
+    return projection, cell
+
+
+def dynamic_gru(input, size, param_attr=None, bias_attr=None,
+                is_reverse=False, gate_activation='sigmoid',
+                candidate_activation='tanh', h_0=None):
+    helper = LayerHelper('gru', **locals())
+    dtype = helper.input_dtype()
+    weight = helper.create_parameter(attr=helper.param_attr,
+                                     shape=[size, 3 * size], dtype=dtype)
+    bias = _create_rnn_bias_param(helper, helper.bias_attr, [1, 3 * size],
+                                  dtype)
+    hidden = helper.create_variable_for_type_inference(dtype)
+    inputs = {'Input': [input], 'Weight': [weight], 'Bias': [bias]}
+    if h_0 is not None:
+        inputs['H0'] = [h_0]
+    helper.append_op(type='gru', inputs=inputs, outputs={'Hidden': [hidden]},
+                     attrs={'is_reverse': is_reverse,
+                            'gate_activation': gate_activation,
+                            'activation': candidate_activation})
+    return hidden
+
+
+def gru_unit(input, hidden, size, param_attr=None, bias_attr=None,
+             activation='tanh', gate_activation='sigmoid'):
+    helper = LayerHelper('gru_unit', **locals())
+    dtype = helper.input_dtype()
+    size = size // 3
+    weight = helper.create_parameter(attr=helper.param_attr,
+                                     shape=[size, 3 * size], dtype=dtype)
+    gate = helper.create_variable_for_type_inference(dtype)
+    reset_hidden_pre = helper.create_variable_for_type_inference(dtype)
+    updated_hidden = helper.create_variable_for_type_inference(dtype)
+    inputs = {'Input': [input], 'HiddenPrev': [hidden], 'Weight': [weight]}
+    if helper.bias_attr:
+        bias = helper.create_parameter(attr=helper.bias_attr,
+                                       shape=[1, 3 * size], dtype=dtype,
+                                       is_bias=True)
+        inputs['Bias'] = [bias]
+    helper.append_op(type='gru_unit', inputs=inputs,
+                     outputs={'Hidden': [updated_hidden],
+                              'ResetHiddenPrev': [reset_hidden_pre],
+                              'Gate': [gate]},
+                     attrs={'activation': activation,
+                            'gate_activation': gate_activation})
+    return updated_hidden, reset_hidden_pre, gate
+
+
+def lstm_unit(x_t, hidden_t_prev, cell_t_prev, forget_bias=0.0,
+              param_attr=None, bias_attr=None, name=None):
+    """reference nn.py:lstm_unit: fc([x, h]) then the fused cell."""
+    helper = LayerHelper('lstm_unit', **locals())
+    if len(x_t.shape) != 2:
+        raise ValueError("x_t must be 2-D")
+    size = cell_t_prev.shape[1]
+    concat_out = tensor_mod.concat(input=[x_t, hidden_t_prev], axis=1)
+    fc_out = fc(input=concat_out, size=4 * size, param_attr=param_attr,
+                bias_attr=bias_attr)
+    dtype = x_t.dtype
+    c = helper.create_variable_for_type_inference(dtype)
+    h = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type='lstm_unit',
+                     inputs={"X": [fc_out], "C_prev": [cell_t_prev]},
+                     outputs={"C": [c], "H": [h]},
+                     attrs={"forget_bias": forget_bias})
+    return h, c
+
+
+def sequence_conv(input, num_filters, filter_size=3, filter_stride=1,
+                  padding=None, bias_attr=None, param_attr=None, act=None):
+    helper = LayerHelper('sequence_conv', **locals())
+    dtype = helper.input_dtype()
+    filter_shape = [filter_size * input.shape[-1], num_filters]
+    filter_param = helper.create_parameter(attr=helper.param_attr,
+                                           shape=filter_shape, dtype=dtype)
+    # the input's shape with the feature axis -> num_filters (reference
+    # sequence_conv_op InferShape)
+    out_shape = list(input.shape[:-1]) + [num_filters]
+    pre_bias = helper.create_variable_for_type_inference(
+        dtype, shape=out_shape, lod_level=input.lod_level)
+    helper.append_op(type='sequence_conv',
+                     inputs={'X': [input], 'Filter': [filter_param]},
+                     outputs={'Out': [pre_bias]},
+                     attrs={'contextStride': filter_stride,
+                            'contextStart': -int(filter_size // 2),
+                            'contextLength': filter_size})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=-1)
+    return helper.append_activation(pre_act)
+
+
+def sequence_pool(input, pool_type):
+    helper = LayerHelper('sequence_pool', **locals())
+    dtype = helper.input_dtype()
+    # one row per innermost sequence, the feature dims kept: the padded
+    # [B, T, ...] loses its time axis (reference sequence_pool_op)
+    lod = getattr(input, 'lod_level', 0) or 0
+    shape = None
+    if input.shape is not None:
+        shape = (list(input.shape[:1]) + list(input.shape[2:])
+                 if lod > 0 and len(input.shape) >= 3 else
+                 list(input.shape))
+    pool_out = helper.create_variable_for_type_inference(
+        dtype, shape=shape, lod_level=max(lod - 1, 0))
+    max_index = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type="sequence_pool", inputs={"X": [input]},
+                     outputs={"Out": [pool_out], "MaxIndex": [max_index]},
+                     attrs={"pooltype": pool_type.upper()})
+    return pool_out
+
+
+def sequence_first_step(input):
+    return sequence_pool(input=input, pool_type="first")
+
+
+def sequence_last_step(input):
+    return sequence_pool(input=input, pool_type="last")
+
+
+def sequence_softmax(input, param_attr=None, bias_attr=None, use_cudnn=True):
+    helper = LayerHelper('sequence_softmax', **locals())
+    dtype = helper.input_dtype()
+    softmax_out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type="sequence_softmax", inputs={"X": [input]},
+                     outputs={"Out": [softmax_out]}, attrs={})
+    return softmax_out
+
+
+def sequence_expand(x, y, ref_level=-1, name=None):
+    helper = LayerHelper('sequence_expand', **locals())
+    dtype = helper.input_dtype('x')
+    # a sequence [rows, T (dynamic), features...]: each x row broadcast
+    # over y's time axis
+    shape = None
+    if x.shape is not None:
+        feat = (list(x.shape[2:]) if (x.lod_level or 0) > 0
+                and len(x.shape) >= 3 else list(x.shape[1:]))
+        shape = [x.shape[0], -1] + feat
+    tmp = helper.create_variable_for_type_inference(
+        dtype, shape=shape,
+        lod_level=max(1, getattr(y, 'lod_level', 0) or 0))
+    helper.append_op(type='sequence_expand',
+                     inputs={'X': [x], 'Y': [y]}, outputs={'Out': [tmp]},
+                     attrs={'ref_level': ref_level})
+    return tmp
+
+
+def sequence_reshape(input, new_dim):
+    helper = LayerHelper('sequence_reshape', **locals())
+    out = helper.create_variable_for_type_inference(helper.input_dtype())
+    helper.append_op(type='sequence_reshape', inputs={'X': [input]},
+                     outputs={'Out': [out]}, attrs={'new_dim': new_dim})
+    return out
+
+
+def im2sequence(input, filter_size=1, stride=1, padding=0, name=None):
+    padding = _pair(padding)
+    if len(padding) == 2:
+        padding = [padding[0], padding[1], padding[0], padding[1]]
+    helper = LayerHelper('im2sequence', **locals())
+    out = helper.create_variable_for_type_inference(
+        dtype=helper.input_dtype())
+    helper.append_op(type='im2sequence', inputs={'X': [input]},
+                     outputs={'Out': [out]},
+                     attrs={'kernels': _pair(filter_size),
+                            'strides': _pair(stride), 'paddings': padding})
+    return out
+
+
+def row_conv(input, future_context_size, param_attr=None, act=None):
+    helper = LayerHelper('row_conv', **locals())
+    dtype = helper.input_dtype()
+    filter_shape = [future_context_size + 1, input.shape[-1]]
+    filter_param = helper.create_parameter(attr=helper.param_attr,
+                                           shape=filter_shape, dtype=dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type='row_conv',
+                     inputs={'X': [input], 'Filter': [filter_param]},
+                     outputs={'Out': [out]})
+    return helper.append_activation(out)
+
+
+def lod_reset(x, y=None, target_lod=None):
+    helper = LayerHelper("lod_reset", **locals())
+    # x's valid rows regrouped under the new lod: a sequence
+    # [n_seqs (dynamic), T (dynamic), features...]
+    new_lod = (getattr(y, 'lod_level', 0) or 1) if y is not None else 1
+    shape = None
+    if x.shape is not None:
+        feat = (list(x.shape[2:]) if (x.lod_level or 0) > 0
+                and len(x.shape) >= 3 else list(x.shape[1:]))
+        shape = [-1, -1] + feat
+    out = helper.create_variable_for_type_inference(
+        dtype=x.dtype, shape=shape, lod_level=new_lod)
+    if y is not None:
+        helper.append_op(type="lod_reset", inputs={'X': [x], 'Y': [y]},
+                         outputs={'Out': [out]})
+    elif target_lod is not None:
+        helper.append_op(type="lod_reset", inputs={'X': [x]},
+                         attrs={'target_lod': list(target_lod)},
+                         outputs={'Out': [out]})
+    else:
+        raise ValueError("y and target_lod should not be both None.")
+    return out
+
+
+def sequence_mask(x, maxlen=None, dtype='int64', name=None):
+    helper = LayerHelper('sequence_mask', **locals())
+    out = helper.create_variable_for_type_inference(dtype=dtype)
+    helper.append_op(type='sequence_mask', inputs={'X': [x]},
+                     outputs={'Y': [out]},
+                     attrs={'maxlen': maxlen if maxlen is not None else -1,
+                            'out_dtype': dtype})
     return out

@@ -8,9 +8,11 @@ build-time shape inference evaluates the same rules on `meta` tensors
 (shapes and dtypes only, no storage), with the dynamic batch dim stood in
 by framework.DYN_DIM, so op semantics are defined exactly once.
 
-SparseRows (lowering.py:189-231) carries the touched-rows gradient of an
-is_sparse embedding table. Sequence (LoD) values and tensor arrays of the
-JAX package (SeqValue, ArrayValue) have no counterpart yet.
+SeqValue (lowering.py:125-186) is the runtime value of a lod_level > 0
+variable: padded data [batch, time, ...] with its lengths. SparseRows
+(:189-231) carries the touched-rows gradient of an is_sparse embedding
+table. The JAX package's tensor arrays (ArrayValue) have no counterpart
+yet.
 """
 import torch
 
@@ -109,14 +111,78 @@ class SparseRows(object):
         return out.index_add_(0, self.ids, self.rows)
 
 
+class SeqValue(object):
+    """Runtime value of a lod_level > 0 Variable: dense padded data plus
+    lengths (the JAX :125-186).
+
+    The reference's LoDTensor stores sequences flattened [total_tokens, d]
+    with an offset table (paddle/fluid/framework/lod_tensor.h); here
+    `data` is [batch, max_len, ...], so every rule is a masked dense op and
+    a captured graph sees static shapes. `lengths` int64 [batch] is the
+    innermost level's lengths in rows (the JAX package's are int32; the
+    values agree, and int64 is torch's index dtype). Every level above
+    the innermost rides in `outer_lengths`, a tuple of int64 vectors,
+    outermost first: level k's entries count level k+1's sequences.
+    `beam_cap` marks the capacity form of the LoD beam decoder (JAX
+    ops_impl/lod_beam.py); no rule of the port makes one yet."""
+
+    __slots__ = ('data', 'lengths', 'outer_lengths', 'beam_cap')
+
+    def __init__(self, data, lengths, outer_lengths=None, beam_cap=False):
+        self.data = data
+        self.lengths = lengths
+        if outer_lengths is not None and not isinstance(outer_lengths,
+                                                        tuple):
+            outer_lengths = tuple(outer_lengths) \
+                if isinstance(outer_lengths, list) else (outer_lengths,)
+        self.outer_lengths = outer_lengths or None
+        self.beam_cap = bool(beam_cap)
+
+    def mask(self, dtype=torch.float32):
+        """[batch, max_len] validity mask, on the data's device."""
+        steps = torch.arange(self.data.shape[1], device=self.lengths.device)
+        return (steps[None, :] < self.lengths[:, None]).to(dtype)
+
+    def with_leaves(self, leaves):
+        """A SeqValue of this one's structure over `leaves` (as leaves_of
+        orders them)."""
+        leaves = tuple(leaves)
+        return SeqValue(leaves[0], leaves[1], leaves[2:] or None,
+                        beam_cap=self.beam_cap)
+
+
 def data_of(v):
-    return v
+    return v.data if isinstance(v, SeqValue) else v
 
 
 def like(template, new_data):
-    """Wrap new_data with template's sequence structure — the identity
-    until the port carries sequence values."""
+    """Wrap new_data with template's sequence structure (if any)."""
+    if isinstance(template, SeqValue):
+        return SeqValue(new_data, template.lengths, template.outer_lengths,
+                        beam_cap=template.beam_cap)
     return new_data
+
+
+def first_seq(*vals):
+    for v in vals:
+        if isinstance(v, SeqValue):
+            return v
+    return None
+
+
+def leaves_of(v):
+    """The tensors of a value: a SeqValue's (data, lengths,
+    *outer_lengths), or (v,)."""
+    if isinstance(v, SeqValue):
+        return (v.data, v.lengths) + tuple(v.outer_lengths or ())
+    return (v,)
+
+
+def map_value(fn, v):
+    """fn over every tensor of v (a SeqValue's leaves, or v itself)."""
+    if isinstance(v, SeqValue):
+        return v.with_leaves(fn(t) for t in leaves_of(v))
+    return fn(v)
 
 
 def run_op(op, env, ctx):
@@ -161,13 +227,21 @@ def _bind_outputs(op, outs, env):
 
 def spec_of(var):
     """Build-time abstract value of a Variable: a meta tensor of its shape
-    (the dynamic batch dim stood in by DYN_DIM) and dtype, or None when
-    the shape is undeclared."""
+    (the dynamic dims stood in by DYN_DIM) and dtype, a SeqValue of meta
+    tensors for a lod_level > 0 var (the JAX :490-506), or None when the
+    shape is undeclared."""
     if var.shape is None:
         return None
     shape = tuple(DYN_DIM if d == -1 else d for d in var.shape)
-    return torch.empty(shape, dtype=core.torch_dtype(var.dtype),
-                       device='meta')
+    s = torch.empty(shape, dtype=core.torch_dtype(var.dtype), device='meta')
+    if var.lod_level and var.lod_level > 0:
+        # padded layout [batch, time, ...]: the shape carries both dynamic
+        # dims (layers/io.py:data)
+        lens = torch.empty((shape[0],), dtype=torch.int64, device='meta')
+        if var.lod_level > 1:
+            return SeqValue(s, lens, lens)
+        return SeqValue(s, lens)
+    return s
 
 
 def shape_from_spec(t):
@@ -187,6 +261,11 @@ def infer_op_shapes(op):
     ins = {slot: [spec_of(v) for v in vs] for slot, vs in op.inputs.items()}
     if any(s is None for vs in ins.values() for s in vs):
         return
+    # a sequence input enters without its outer levels, as the JAX
+    # abstract_eval (:509-531) re-wraps it: the declared shapes of a
+    # program are the JAX package's
+    ins = {slot: [SeqValue(s.data, s.lengths) if isinstance(s, SeqValue)
+                  else s for s in vs] for slot, vs in ins.items()}
     ctx = Ctx(torch.device('meta'),
               is_test=bool(op.attrs.get('is_test', False)))
     outs = get_rule(op.type)(ins, op.attrs, ctx)
@@ -199,5 +278,8 @@ def infer_op_shapes(op):
         for var, val in zip(vs, vals):
             if val is None:
                 continue
-            var.shape = shape_from_spec(val)
-            var.dtype = core.convert_dtype(val.dtype)
+            spec = data_of(val)
+            var.shape = shape_from_spec(spec)
+            var.dtype = core.convert_dtype(spec.dtype)
+            if isinstance(val, SeqValue) and var.lod_level == 0:
+                var.lod_level = 1

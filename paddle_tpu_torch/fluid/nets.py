@@ -2,12 +2,11 @@
 the JAX package's fluid/nets.py:8-142. scaled_dot_product_attention with
 more than one head and no dropout emits one flash_attention op, whose rule
 launches the hand-written flash-attention kernels on the card (forward,
-and the backward pair under training). sequence_conv_pool waits for the
-sequence slice of the port."""
+and the backward pair under training)."""
 from . import layers
 
 __all__ = ["simple_img_conv_pool", "glu", "scaled_dot_product_attention",
-           "img_conv_group"]
+           "img_conv_group", "sequence_conv_pool"]
 
 def simple_img_conv_pool(input, num_filters, filter_size, pool_size,
                          pool_stride, act, param_attr=None,
@@ -60,6 +59,16 @@ def img_conv_group(input, conv_num_filter, pool_size, conv_padding=1,
                              pool_type=pool_type, pool_stride=pool_stride,
                              use_cudnn=use_cudnn)
     return pool_out
+
+
+def sequence_conv_pool(input, num_filters, filter_size, param_attr=None,
+                       act="sigmoid", pool_type="max"):
+    """sequence_conv then sequence_pool (reference nets.py:
+    sequence_conv_pool)."""
+    conv_out = layers.sequence_conv(input=input, num_filters=num_filters,
+                                    filter_size=filter_size,
+                                    param_attr=param_attr, act=act)
+    return layers.sequence_pool(input=conv_out, pool_type=pool_type)
 
 
 def glu(input, dim=-1):

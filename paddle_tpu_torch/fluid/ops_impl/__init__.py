@@ -10,3 +10,4 @@ from . import sequence_ops  # noqa: F401
 from . import optim_ops  # noqa: F401
 from . import lod_beam  # noqa: F401
 from . import sampled_ops  # noqa: F401
+from . import extra_ops  # noqa: F401

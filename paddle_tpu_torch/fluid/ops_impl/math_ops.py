@@ -15,13 +15,24 @@ max and min are torch.amax and amin, which share a tie's gradient evenly as
 jnp.max does. A scalar bound is a 0-d CPU tensor of x's dtype, so a bf16 x
 stays bf16 and no copy to the card is made.
 
-The reductions take dense tensors: their sequence (SeqValue) branches,
-which mask the padded steps, wait for the sequence slice of the port.
+A sequence (SeqValue) operand keeps its lengths through the elementwise
+rules (like, first_seq), and the reductions that cross its time axis, and
+`mean`, read its valid steps only (the JAX :15-20, :175-227).
 """
 import numpy as np
 import torch
 
-from ..lowering import register, data_of, like, amp_cast
+from ..lowering import SeqValue, register, data_of, like, first_seq, \
+    amp_cast
+
+
+def _seq_pad_mask(v):
+    """Broadcastable [batch, max_len, 1...] float32 validity mask of a
+    SeqValue."""
+    m = v.mask()
+    while m.ndim < v.data.ndim:
+        m = m[..., None]
+    return m
 
 
 def _scalar(x, v):
@@ -126,8 +137,10 @@ def _broadcast_y(x, y, axis):
 def _binary(op_type, fn):
     @register(op_type)
     def rule(ins, attrs, ctx, _fn=fn):
-        x, y = data_of(ins['X'][0]), data_of(ins['Y'][0])
-        return {'Out': _fn(x, _broadcast_y(x, y, attrs.get('axis', -1)))}
+        xv, yv = ins['X'][0], ins['Y'][0]
+        x, y = data_of(xv), data_of(yv)
+        out = _fn(x, _broadcast_y(x, y, attrs.get('axis', -1)))
+        return {'Out': like(first_seq(xv, yv), out)}
     return rule
 
 
@@ -155,14 +168,21 @@ def _sum(ins, attrs, ctx):
     out = xs[0]
     for x in xs[1:]:
         out = out + x
-    return {'Out': out}
+    return {'Out': like(first_seq(*ins['X']), out)}
 
 
 @register('mean')
 def _mean(ins, attrs, ctx):
-    # shape [1], not 0-d: reference mean_op's output dims are {1}
-    # (mean_op.cc InferShape); the dense form (no sequence values yet)
-    return {'Out': torch.mean(data_of(ins['X'][0])).reshape(1)}
+    """Shape [1], not 0-d: reference mean_op's output dims are {1}
+    (mean_op.cc InferShape). Over a SeqValue, the mean of its valid steps
+    only (the reference's flat LoDTensor has no pad rows)."""
+    xv = ins['X'][0]
+    x = data_of(xv)
+    if isinstance(xv, SeqValue):
+        mask = _seq_pad_mask(xv).expand(x.shape)
+        return {'Out': (torch.sum(x * mask) / torch.clamp_min(
+            torch.sum(mask), 1)).reshape(1)}
+    return {'Out': torch.mean(x).reshape(1)}
 
 
 class _Bf16Product(torch.autograd.Function):
@@ -297,16 +317,47 @@ def _prod(x, dim, keepdim):
     return x
 
 
+def _reduce_pad_fill(op_type, x):
+    """The value a pad step takes in a reduction across the time axis: the
+    operation's identity (the JAX :163-172), as a 0-d CPU tensor."""
+    if op_type in ('reduce_sum', 'reduce_mean'):
+        return _scalar(x, 0)
+    if op_type == 'reduce_prod':
+        return _scalar(x, 1)
+    lim = torch.finfo(x.dtype) if x.is_floating_point() \
+        else torch.iinfo(x.dtype)
+    return _scalar(x, lim.min if op_type == 'reduce_max' else lim.max)
+
+
 def _reduce(op_type, fn):
     @register(op_type)
-    def rule(ins, attrs, ctx, _fn=fn):
-        x = data_of(ins['X'][0])
+    def rule(ins, attrs, ctx, _fn=fn, _op=op_type):
+        xv = ins['X'][0]
+        x = data_of(xv)
         dim = attrs.get('dim')
         if attrs.get('reduce_all', False) or dim is None:
             dims = tuple(range(x.ndim))
         else:
             dims = tuple(dim) if isinstance(dim, (list, tuple)) else (dim,)
-        return {'Out': _fn(x, dims, bool(attrs.get('keep_dim', False)))}
+        keep = bool(attrs.get('keep_dim', False))
+        # a reduction across the time axis (axis 1 of [B, T, ...]) reads
+        # the valid steps only; one over other axes keeps the sequence,
+        # where pads stay pads
+        reduces_time = any(d % x.ndim == 1 for d in dims) if x.ndim > 1 \
+            else False
+        if isinstance(xv, SeqValue) and reduces_time:
+            mask = _seq_pad_mask(xv)
+            x = torch.where(mask > 0, x, _reduce_pad_fill(_op, x))
+            if _op == 'reduce_mean':
+                n = torch.sum(mask.expand(x.shape).to(x.dtype), dim=dims,
+                              keepdim=keep)
+                return {'Out': torch.sum(x, dim=dims, keepdim=keep)
+                        / torch.clamp_min(n, 1)}
+        out = _fn(x, dims, keep)
+        if isinstance(xv, SeqValue) and not reduces_time \
+                and out.ndim >= 2 and out.shape[:2] == x.shape[:2]:
+            return {'Out': like(xv, out)}
+        return {'Out': out}
     return rule
 
 

@@ -4,7 +4,7 @@ Parity: the JAX package's fluid/ops_impl/nn_ops.py (conv2d :23, pool2d
 :157 with _pool :119, batch_norm :180, layer_norm :219, dropout :240,
 softmax :253, cross_entropy :259, softmax_with_cross_entropy :276,
 sigmoid_cross_entropy_with_logits :292, accuracy :348, auc :366,
-flash_attention :529). The JAX package computes convolutions, pools and
+im2sequence :508, flash_attention :529). The JAX package computes convolutions, pools and
 batch norm outside any Pallas kernel (lax.conv_general_dilated,
 lax.reduce_window, jnp arithmetic); here they are torch.nn.functional's
 library calls, cuDNN on the card, under the port's TF32-off rule
@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from ... import ops
-from ..lowering import register, data_of, like, amp_cast
+from ..lowering import SeqValue, register, data_of, like, amp_cast
 
 
 def _pair(v):
@@ -294,6 +294,26 @@ def _auc(ins, attrs, ctx):
     denom = torch.clamp_min(tot_pos[-1] * tot_neg[-1], 1.0)
     return {'AUC': (area / denom).to(torch.float32),
             'StatPosOut': new_pos, 'StatNegOut': new_neg}
+
+
+@register('im2sequence')
+def _im2sequence(ins, attrs, ctx):
+    """reference operators/im2sequence_op.cc: an NCHW image as the sequence
+    of its flattened patches [N, out_h * out_w, C * kh * kw] (channel
+    slowest, then kernel row and column), every row full length."""
+    x = data_of(ins['X'][0])
+    kh, kw = _pair(attrs['kernels'])
+    p = list(attrs.get('paddings', [0, 0, 0, 0]))
+    top = p[0]
+    left = p[1] if len(p) > 1 else p[0]
+    bottom = p[2] if len(p) > 2 else p[0]
+    right = p[3] if len(p) > 3 else p[0]
+    xp = F.pad(x, (left, right, top, bottom))
+    patches = F.unfold(xp, (kh, kw), stride=_pair(attrs.get('strides', 1)))
+    seq = patches.transpose(1, 2)                    # [N, L, C * kh * kw]
+    lengths = torch.full((x.shape[0],), seq.shape[1], dtype=torch.int64,
+                         device=x.device)
+    return {'Out': SeqValue(seq, lengths)}
 
 
 @register('flash_attention')

@@ -15,7 +15,7 @@ the device and without a host check (a captured step cannot wait for
 one, and an out-of-range index on the card is a device-side assert):
 gather wraps [-n, 0) and fills NaN (an integer dtype's minimum) past n,
 scatter wraps [-n, 0) and drops the rest, multiplex wraps and clamps.
-`is_empty` waits for the sequence slice of the port.
+`is_empty` waits for the control-flow slice of the port.
 """
 import math
 
@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from ..core import torch_dtype
-from ..lowering import register, data_of, like
+from ..lowering import SeqValue, register, data_of, like, first_seq
 from .lod_beam import top_k_lower_index
 
 
@@ -101,9 +101,28 @@ def _reshape(ins, attrs, ctx):
 
 @register('concat')
 def _concat(ins, attrs, ctx):
-    # the dense form: sequence (LoD) inputs wait for SeqValue
-    return {'Out': torch.cat([data_of(v) for v in ins['X']],
-                             dim=attrs.get('axis', 0))}
+    """torch.cat; over sequences as the JAX rule (:89-114): along the
+    batch (axis 0) of all-sequence inputs the lengths are concatenated,
+    along the time axis (1) they add up (exact when every input but the
+    last is full length, as the JAX rule says), along a feature axis the
+    first sequence's lengths carry over; any other mix is dense."""
+    vs = ins['X']
+    axis = attrs.get('axis', 0)
+    out = torch.cat([data_of(v) for v in vs], dim=axis)
+    seq = first_seq(*vs)
+    if seq is None:
+        return {'Out': out}
+    if all(isinstance(v, SeqValue) for v in vs):
+        if axis == 0:
+            return {'Out': SeqValue(out, torch.cat([v.lengths for v in vs]))}
+        if axis == 1:
+            lens = vs[0].lengths
+            for v in vs[1:]:
+                lens = lens + v.lengths
+            return {'Out': SeqValue(out, lens)}
+    if axis in (0, 1):
+        return {'Out': out}
+    return {'Out': like(seq, out)}
 
 
 @register('transpose')

@@ -65,7 +65,8 @@ import torch
 from torch.profiler import record_function
 
 from ..ops import _cuda
-from .lowering import Ctx, SparseRows, run_op
+from .lowering import (Ctx, SeqValue, SparseRows, data_of, leaves_of, like,
+                       map_value, run_op)
 from .passes import memory_plan
 
 __all__ = ['StepArtifact', 'program_fingerprint', 'stable_signature']
@@ -77,8 +78,37 @@ def _dtype_name(dtype):
 
 def _feed_signature(name, val):
     """(name, shape, dtype) of a feed value after the executor's dtype
-    coercion: the part of the cache key a feed decides."""
+    coercion: the part of the cache key a feed decides. A SeqValue's is
+    (name, 'seq', then (shape, dtype) of its data, its lengths and each
+    outer level): one artifact, and on the card one captured graph, per
+    time bucket; lengths that differ within a bucket replay it."""
+    if isinstance(val, SeqValue):
+        return (name, 'seq') + tuple(
+            (tuple(int(d) for d in t.shape), _dtype_name(t.dtype))
+            for t in leaves_of(val))
     return (name, tuple(int(d) for d in val.shape), _dtype_name(val.dtype))
+
+
+def _static_feed(sig, device):
+    """An empty feed buffer of signature `sig` (_feed_signature's) on
+    `device`: a tensor, or a SeqValue of one buffer a leaf."""
+    if sig[1] == 'seq':
+        leaves = [torch.empty(shape, dtype=getattr(torch, dtype),
+                              device=device) for shape, dtype in sig[2:]]
+        return SeqValue(leaves[0], leaves[1], leaves[2:] or None)
+    return torch.empty(sig[1], dtype=getattr(torch, sig[2]), device=device)
+
+
+def _to_card(v, device):
+    """A feed value on `device`: each CPU tensor through pinned memory,
+    without a host sync."""
+    return map_value(lambda t: t.pin_memory().to(device, non_blocking=True)
+                     if t.device.type == 'cpu' else t, v)
+
+
+def _detach(v):
+    return map_value(torch.Tensor.detach, v) \
+        if isinstance(v, (torch.Tensor, SeqValue)) else v
 
 
 # optimizer ops with a SparseRows gradient branch (ops_impl/optim_ops.py)
@@ -136,7 +166,7 @@ def _nan_inf_hook(i, op, dt, env):
     floating output holding a NaN or an Inf raises, naming the op."""
     for vs in op.outputs.values():
         for v in vs:
-            val = env.get(v.name)
+            val = data_of(env.get(v.name))
             if isinstance(val, SparseRows):
                 val = val.rows
             if (isinstance(val, torch.Tensor) and val.is_floating_point()
@@ -228,13 +258,12 @@ class StepArtifact(object):
                 on_op(i, op, time.perf_counter() - t0, env)
             if taps is not None and i in taps:
                 tap, out = taps[i]
-                env[out] = env[out] + tap
+                env[out] = like(env[out], data_of(env[out]) + tap)
             if grad_mode:
                 for vs in op.outputs.values():
                     for v in vs:
-                        t = env.get(v.name)
-                        if v.stop_gradient and isinstance(t, torch.Tensor):
-                            env[v.name] = t.detach()
+                        if v.stop_gradient and v.name in env:
+                            env[v.name] = _detach(env[v.name])
 
     def _body(self, persist, feed, ctx, on_op=None, check_nan_inf=False):
         """The step: (fetches, new persistables, health or None). Pure but
@@ -277,7 +306,7 @@ class StepArtifact(object):
         for w, p in sparse.items():
             d = env[w].shape[-1]
             for op_idx, ids_name, _ in p['lookups']:
-                shape = tuple(env[ids_name].shape)
+                shape = tuple(data_of(env[ids_name]).shape)
                 if shape and shape[-1] == 1:
                     shape = shape[:-1]
                 taps[op_idx] = (torch.zeros(shape + (d,),
@@ -303,8 +332,7 @@ class StepArtifact(object):
                 allow_unused=True)
         scale = ad.attrs.get('loss_scale', 1.0)
         for n in list(env):
-            if isinstance(env[n], torch.Tensor):
-                env[n] = env[n].detach()
+            env[n] = _detach(env[n])
         for n, leaf, g in zip(pnames, leaves, grads):
             if g is None:          # the loss does not reach this parameter
                 g = torch.zeros_like(leaf)
@@ -322,7 +350,7 @@ class StepArtifact(object):
             ids_parts, row_parts = [], []
             n = env[w].shape[0]
             for op_idx, ids_name, pad in p['lookups']:
-                ids = env[ids_name].reshape(-1).long()
+                ids = data_of(env[ids_name]).reshape(-1).long()
                 g = tap_grads[op_idx]
                 rows = torch.zeros((ids.shape[0], d), dtype=env[w].dtype,
                                    device=ids.device) if g is None \
@@ -449,7 +477,7 @@ class StepArtifact(object):
         pinned, seen = [], set()
         for n in self.persistables:
             v = scope._chain_get(n)
-            if v is None:
+            if v is None or isinstance(v, SeqValue):
                 continue
             t = torch.as_tensor(v)
             if (t.device != device or not t.is_contiguous()
@@ -486,10 +514,10 @@ class StepArtifact(object):
             self._capture(exe, scope, rec)
         else:
             self._sync_state(exe, scope, rec)
-        for n, t in feed.items():
-            dst = rec.feeds[n]
-            dst.copy_(t.pin_memory() if t.device.type == 'cpu' else t,
-                      non_blocking=True)
+        for n, v in feed.items():
+            for dst, t in zip(leaves_of(rec.feeds[n]), leaves_of(v)):
+                dst.copy_(t.pin_memory() if t.device.type == 'cpu' else t,
+                          non_blocking=True)
         exe._generator.manual_seed(seed)
         rec.graph.replay()
         _cuda.add_launches(rec.launches)
@@ -509,9 +537,7 @@ class StepArtifact(object):
         try:
             with torch.cuda.stream(side):
                 persist = self._scope_state(scope)
-                feed = {n: t.pin_memory().to(dev, non_blocking=True)
-                        if t.device.type == 'cpu' else t
-                        for n, t in feed.items()}
+                feed = {n: _to_card(v, dev) for n, v in feed.items()}
                 self._at = None
                 torch.cuda.set_sync_debug_mode('error')
                 try:
@@ -531,9 +557,10 @@ class StepArtifact(object):
             torch.cuda.set_sync_debug_mode(prev)
         cur = torch.cuda.current_stream(dev)
         cur.wait_stream(side)
-        for t in fetches + list((health or {}).values()):
-            if isinstance(t, torch.Tensor) and t.device.type == 'cuda':
-                t.record_stream(cur)
+        for v in fetches + list((health or {}).values()):
+            for t in leaves_of(v):
+                if isinstance(t, torch.Tensor) and t.device.type == 'cuda':
+                    t.record_stream(cur)
         return fetches, health
 
     def uninitialized(self, scope):
@@ -556,11 +583,7 @@ class StepArtifact(object):
         dev = exe.device
         self.pin_state(scope, dev)
         sig = dict((s[0], s) for s in self._feed_sig or ())
-        feeds = {}
-        for n in self.feed_names:
-            _, shape, dtype = sig[n]
-            feeds[n] = torch.empty(shape, dtype=getattr(torch, dtype),
-                                   device=dev)
+        feeds = {n: _static_feed(sig[n], dev) for n in self.feed_names}
         state = self._scope_state(scope)
         side = exe._side_stream()
         torch.cuda.synchronize(dev)
@@ -653,7 +676,7 @@ class StepArtifact(object):
             parts = []
             n = self.program.global_block().var(w).shape[0]
             for _op_idx, ids_name, pad in plan['lookups']:
-                v = feed.get(ids_name)
+                v = data_of(feed.get(ids_name))
                 if v is None:
                     parts = None
                     break

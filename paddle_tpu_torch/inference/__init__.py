@@ -47,8 +47,10 @@ class Predictor(object):
         return spec
 
     def run(self, feed):
-        """feed: dict name -> ndarray. Returns the list of fetched
-        ndarrays. On the card each feed signature (batch size) is warmed
+        """feed: dict name -> ndarray, or LoDTensor / SeqValue for a
+        sequence input (a padded ndarray of a sequence input reads as all
+        rows full length). Returns the list of fetched ndarrays (a
+        sequence fetch as its flat valid rows). On the card each feed signature (batch size) is warmed
         up on its first call and captured into a CUDA graph on its
         second; later calls replay it, and the fetches come back through
         pinned host buffers."""

@@ -28,7 +28,9 @@ walk, bitwise, for a small Transformer, DeepFM and the paged decode step;
 captured dropout against eager dropout and run_bundle's inner steps,
 bitwise; launch counts under replay; a held device fetch unchanged by the
 next replay; Scope.load_numpy seen by the next replay; a step that cannot
-be captured raising with its op's name.
+be captured raising with its op's name. The sequence rules on the card
+under sync debug against the CPU (1e-5), and a small stacked-LSTM step
+captured in two time buckets, its replays bitwise the eager walk.
 """
 import contextlib
 import importlib
@@ -1778,3 +1780,166 @@ def test_captured_shape_reads_its_value_after_other_pinned_copies(card):
                  for _ in range(64)]
     assert exe.cache_stats['captures'] == 1
     assert exe.cache_stats['replays'] == 3
+
+
+# -- sequences (SeqValue) ------------------------------------------------------
+
+def _seq_cases():
+    """(op, inputs, attrs, output slot, float inputs to differentiate) for
+    the sequence rules; a sequence input is ('seq', data, lengths[,
+    outer]), ragged with a zero-length and a full row."""
+    r = np.random.RandomState(4)
+    lens = np.array([3, 0, 6, 1])
+
+    def seq(*trail, t=6, lengths=lens):
+        x = r.randn(len(lengths), t, *trail).astype('float32')
+        for i, n in enumerate(lengths):
+            x[i, n:] = 0
+        return ('seq', x, lengths)
+
+    D = 4
+    lstm = {'Input': [seq(4 * D)],
+            'Weight': [r.randn(D, 4 * D).astype('float32') * 0.5],
+            'Bias': [r.randn(1, 7 * D).astype('float32') * 0.5]}
+    nested = seq(3)[:2] + (lens, np.array([2, 0, 2]))
+    ids = r.randint(0, 5, (4, 6, 1)).astype('int64')
+    return [
+        ('sequence_pool', {'X': [seq(3)]}, {'pooltype': p}, 'Out', 'X')
+        for p in ('SUM', 'AVERAGE', 'SQRT', 'MAX', 'FIRST', 'LAST')] + [
+        ('sequence_pool', {'X': [nested]}, {'pooltype': 'MAX'}, 'Out', 'X'),
+        ('sequence_softmax', {'X': [seq(1)]}, {}, 'Out', 'X'),
+        ('sequence_expand', {'X': [r.randn(4, 3).astype('float32')],
+                             'Y': [seq(2)]}, {}, 'Out', 'X'),
+        ('sequence_reshape', {'X': [seq(4)]}, {'new_dim': 8}, 'Out', 'X'),
+        ('sequence_mask', {'X': [lens]}, {'maxlen': 6}, 'Y', None),
+        ('lod_reset', {'X': [seq(2)]}, {'target_lod': [0, 2, 2, 7, 10]},
+         'Out', 'X'),
+        ('sequence_conv', {'X': [seq(3)],
+                           'Filter': [r.randn(9, 5).astype('float32')]},
+         {'contextLength': 3, 'contextStart': -1}, 'Out', 'X'),
+        ('row_conv', {'X': [seq(3)],
+                      'Filter': [r.randn(2, 3).astype('float32')]}, {},
+         'Out', 'X'),
+        ('lstm', lstm, {'use_peepholes': True, 'is_reverse': False},
+         'Hidden', 'Input'),
+        ('lstm', lstm, {'use_peepholes': True, 'is_reverse': True,
+                        'candidate_activation': 'relu'}, 'Cell', 'Input'),
+        ('gru', {'Input': [seq(3 * D)],
+                 'Weight': [r.randn(D, 3 * D).astype('float32') * 0.5],
+                 'Bias': [r.randn(1, 3 * D).astype('float32')]},
+         {'is_reverse': True}, 'Hidden', 'Input'),
+        ('attention_lstm_decoder',
+         {'TrgEmb': [seq(3)], 'EncOut': [seq(4, t=5,
+                                              lengths=np.array([2, 0, 5, 3]))],
+          'WDec': [r.randn(7, 8).astype('float32') * 0.5],
+          'UDec': [r.randn(2, 8).astype('float32') * 0.5],
+          'BDec': [r.randn(1, 8).astype('float32') * 0.5],
+          'WAttnQ': [r.randn(2, 4).astype('float32') * 0.5]}, {}, 'Hidden',
+         'EncOut'),
+        ('sequence_concat', {'X': [seq(2), seq(2, t=3,
+                                                 lengths=np.array([1, 3, 0,
+                                                                   2]))]},
+         {}, 'Out', 'X'),
+        ('sequence_erase', {'X': [('seq', ids, lens)]}, {'tokens': [2, 4]},
+         'Out', None),
+    ]
+
+
+def _seq_in(v, dev):
+    from paddle_tpu_torch.fluid import lowering
+    if isinstance(v, tuple) and v[0] == 'seq':
+        return lowering.SeqValue(
+            torch.from_numpy(v[1].copy()).to(dev),
+            torch.from_numpy(np.asarray(v[2], 'int64')).to(dev),
+            tuple(torch.from_numpy(np.asarray(o, 'int64')).to(dev)
+                  for o in v[3:]) or None)
+    return torch.from_numpy(np.array(v)).to(dev)
+
+
+@pytest.mark.parametrize('case', range(len(_seq_cases())))
+def test_sequence_rule_on_the_card_matches_the_cpu_without_a_sync(card,
+                                                                   case):
+    """Each sequence rule on the card (forward, and the VJP of a seeded
+    cotangent with respect to the data of its first input) under
+    set_sync_debug_mode('error'), against the same rule on the CPU within
+    1e-5 (the products of the recurrences in other orders)."""
+    from paddle_tpu_torch.fluid import lowering
+    op, ins, attrs, slot, wrt = _seq_cases()[case]
+    outs = {}
+    for dev in (card, torch.device('cpu')):
+        tins = {k: [_seq_in(a, dev) for a in v] for k, v in ins.items()}
+        leaf = None
+        if wrt:
+            leaf = lowering.data_of(tins[wrt][0]).requires_grad_(True)
+        ctx = lowering.Ctx(dev, torch.Generator(device=dev))
+        shape = lowering.data_of(lowering.get_rule(op)(
+            tins, attrs, ctx)[slot]).shape
+        cot = torch.from_numpy(np.asarray(np.random.RandomState(5).randn(
+            *shape), dtype='float32')).to(dev)
+        torch.cuda.synchronize()
+        mode = torch.cuda.get_sync_debug_mode()
+        if dev.type == 'cuda':
+            torch.cuda.set_sync_debug_mode('error')
+        try:
+            out = lowering.get_rule(op)(tins, attrs, ctx)[slot]
+            res = [lowering.data_of(out)]
+            if isinstance(out, lowering.SeqValue):
+                res.append(out.lengths)
+            if leaf is not None:
+                res += list(torch.autograd.grad(res[0], [leaf], cot))
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        outs[dev.type] = [t.detach().cpu().numpy() for t in res]
+    for got, want in zip(outs['cuda'], outs['cpu']):
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5,
+                                   err_msg=op)
+
+
+def _small_lstm(fluid, longest):
+    """stacked_dynamic_lstm's net at lstm 16, emb 8 (Adam), and batches of
+    4 sequences whose longest has `longest` ids."""
+    from paddle_tpu_torch.models import stacked_dynamic_lstm
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        words = fluid.layers.data(name='words', shape=[1], dtype='int64',
+                                  lod_level=1)
+        label = fluid.layers.data(name='label', shape=[1], dtype='int64')
+        prob = stacked_dynamic_lstm.lstm_net(words, 100, 16, 8)
+        cost = fluid.layers.mean(fluid.layers.cross_entropy(prob, label))
+        fluid.optimizer.Adam().minimize(cost)
+    feeder = fluid.DataFeeder(['words', 'label'], fluid.CPUPlace(),
+                              program=main)
+    r = np.random.RandomState(6)
+
+    def batch(n):
+        return feeder.feed([(r.randint(0, 100, m).tolist(), [m % 2])
+                            for m in (n, 1, n - 2, 3)])
+    return main, startup, cost, batch
+
+
+def test_captured_lstm_step_matches_the_eager_walk_in_two_buckets(card):
+    """Four steps in the 8 bucket (warm-up under sync debug, capture,
+    replays) against the eager walk from the same weights: losses and every
+    persistable bitwise, one capture and three replays; then three steps
+    in the 16 bucket: a second capture and two replays. No kernel of the
+    port launches."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import ops
+    main, startup, cost, batch = _small_lstm(fluid, 8)
+    feeds = [batch(n) for n in (7, 8, 5, 6)]
+    before = {n: k.launches for n, k in ops.KERNELS.items()}
+    (cl, cs, cexe), (el, es, _) = _captured_and_eager(fluid, main, startup,
+                                                      cost, feeds)
+    for a, b in zip(cl, el):
+        np.testing.assert_array_equal(a, b)
+    for n in cs:
+        np.testing.assert_array_equal(cs[n], es[n], err_msg=n)
+    assert cexe.cache_stats['captures'] == 1
+    assert cexe.cache_stats['replays'] == 3
+    scope = fluid.Scope()
+    scope.load_numpy(cs, fluid.CUDAPlace(0))
+    for n in (12, 16, 11):
+        cexe.run(main, feed=batch(n), fetch_list=[cost], scope=scope)
+    stats = cexe.cache_stats
+    assert stats['captures'] == 2 and stats['replays'] == 5, stats
+    assert {n: k.launches for n, k in ops.KERNELS.items()} == before

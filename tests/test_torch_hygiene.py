@@ -56,6 +56,13 @@ SUBMODULES = [
     'paddle_tpu_torch.fluid.contrib',
     'paddle_tpu_torch.fluid.contrib.float16_transpiler',
     'paddle_tpu_torch.fluid.ops_impl.math_ops',
+    'paddle_tpu_torch.fluid.lod_tensor',
+    'paddle_tpu_torch.fluid.ops_impl.sequence_ops',
+    'paddle_tpu_torch.fluid.ops_impl.extra_ops',
+    'paddle_tpu_torch.models.stacked_dynamic_lstm',
+    'paddle_tpu_torch.models.understand_sentiment',
+    'paddle_tpu_torch.models.machine_translation',
+    'paddle_tpu_torch.dataset.imdb', 'paddle_tpu_torch.dataset.wmt14',
 ]
 
 

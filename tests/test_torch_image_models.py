@@ -508,9 +508,14 @@ def test_data_feeder_matches_the_jax_one(model):
 
 
 def test_data_feeder_refuses_a_sequence_slot():
+    """A sequence slot (lod_level 1) becomes a padded SeqValue; a sample
+    whose sequence slot holds no sequence is refused."""
     main = tframework.Program()
     with tframework.program_guard(main, tframework.Program()):
         words = tfluid.layers.data(name='w', shape=[1], dtype='int64',
                                    lod_level=1)
-    with pytest.raises(NotImplementedError, match='sequence'):
-        tfluid.DataFeeder([words], tfluid.CPUPlace())
+    feeder = tfluid.DataFeeder([words], tfluid.CPUPlace())
+    seq = feeder.feed([([1, 2, 3],), ([4],)])['w']
+    assert seq.data.shape == (2, 8, 1) and seq.lengths.tolist() == [3, 1]
+    with pytest.raises(TypeError):
+        feeder.feed([(5,)])

@@ -11,6 +11,7 @@
     python3 tools/torch_train_profile.py --model vgg16 [--batch 32]
     python3 tools/torch_train_profile.py --model se_resnext50 [--batch 16]
     python3 tools/torch_train_profile.py --amp     (Transformer under AMP)
+    python3 tools/torch_train_profile.py --model stacked_lstm | sentiment | mt
 
 --model transformer (the default) builds full-width Transformer-base with
 models.transformer.get_model (its defaults: 6+6 layers, d_model 512, 8
@@ -30,7 +31,15 @@ reader. --model vgg16 builds models.vgg.get_model() (cifar10, 3x32x32,
 Adam 1e-3, vgg16_bn_drop's dropouts) on its cifar reader, and --model
 se_resnext50 models.se_resnext.get_model() (3x224x224, 102 classes,
 cardinality 32, Momentum(0.01, 0.9)) on flowers batches read beforehand,
-as chip_smoke.py's dense_training phase builds them. --amp runs the model under fluid.amp.decorate_program: the
+as chip_smoke.py's dense_training phase builds them. --model
+stacked_lstm, sentiment and mt build the sequence models' get_model at
+full width (stacked_dynamic_lstm: emb and lstm 512, vocab 5147, Adam,
+batch 32; understand_sentiment: emb and hid 32, Adagrad 0.002, batch 32;
+machine_translation's training program: emb, encoder and decoder 512,
+dict 30000, Adam 2e-4, batch 16), as chip_smoke.py's sequences phase does,
+and train them on one pass of their reader through the DataFeeder, the
+batches kept whose padded time axes are the pass's most frequent (one
+captured graph). --amp runs the model under fluid.amp.decorate_program: the
 Transformer as it is (the bf16 attention kernels), ResNet-50 as the JAX
 bench.py:215-253 builds it for AMP (a bfloat16 data var, resnet_imagenet
 in --layout NHWC, the default there, or NCHW, the mean cross entropy and
@@ -408,12 +417,64 @@ def build_resnet50_amp(batch_size, n_feeds, layout='NHWC'):
     return main, startup, [avg_cost], feeds, batch_size, 'images_per_s'
 
 
+def _sequence_feeds(main, reader, names, n_feeds):
+    """n_feeds batches of one pass of a sequence model's reader through
+    the DataFeeder (the shuffle seeded), all in the pass's most frequent
+    time bucket, repeated in turn as needed."""
+    import random
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid.lowering import SeqValue
+    random.seed(SEED)
+    feeder = fluid.DataFeeder(names, fluid.CPUPlace(), program=main)
+    feeds = [feeder.feed(b) for b in reader()]
+    buckets = [tuple(v.data.shape[1] for _, v in sorted(f.items())
+                     if isinstance(v, SeqValue)) for f in feeds]
+    common = max(set(buckets), key=buckets.count)
+    same = [f for f, b in zip(feeds, buckets) if b == common]
+    return [same[i % len(same)] for i in range(n_feeds)]
+
+
+def _build_sequence(module, batch_size, n_feeds, names=None):
+    from paddle_tpu_torch.fluid import framework, unique_name
+    main, startup = framework.Program(), framework.Program()
+    main.random_seed = startup.random_seed = SEED
+    with unique_name.guard(), framework.program_guard(main, startup):
+        out = module.get_model(batch_size=batch_size)
+    avg_cost, reader = out[0], out[2]
+    names = names or out[-1]
+    return (main, startup, [avg_cost],
+            _sequence_feeds(main, reader, names, n_feeds), batch_size,
+            'sequences_per_s')
+
+
+def build_stacked_lstm(batch_size, n_feeds):
+    """stacked_dynamic_lstm.get_model(batch_size); returns as
+    build_transformer."""
+    from paddle_tpu_torch.models import stacked_dynamic_lstm
+    return _build_sequence(stacked_dynamic_lstm, batch_size, n_feeds,
+                           ['words', 'label'])
+
+
+def build_sentiment(batch_size, n_feeds):
+    from paddle_tpu_torch.models import understand_sentiment
+    return _build_sequence(understand_sentiment, batch_size, n_feeds)
+
+
+def build_mt(batch_size, n_feeds):
+    from paddle_tpu_torch.models import machine_translation
+    return _build_sequence(machine_translation, batch_size, n_feeds)
+
+
 BUILDERS = {'transformer': (build_transformer, 16),
             'deepfm': (build_deepfm, 256),
             'resnet50': (build_resnet50, 32),
             'mnist': (build_mnist, 128),
             'vgg16': (build_vgg16, 32),
-            'se_resnext50': (build_se_resnext50, 16)}
+            'se_resnext50': (build_se_resnext50, 16),
+            'stacked_lstm': (build_stacked_lstm, 32),
+            'sentiment': (build_sentiment, 32),
+            'mt': (build_mt, 16)}
+SEQUENCE_MODELS = ('stacked_lstm', 'sentiment', 'mt')
 
 
 def main():
@@ -421,9 +482,9 @@ def main():
     ap.add_argument('--model', choices=sorted(BUILDERS),
                     default='transformer')
     ap.add_argument('--batch', type=int, default=None,
-                    help='default: 16 (transformer), 256 (deepfm), 32 '
-                         '(resnet50, vgg16), 128 (mnist), 16 '
-                         '(se_resnext50)')
+                    help='default: 16 (transformer, se_resnext50, mt), '
+                         '256 (deepfm), 32 (resnet50, vgg16, stacked_lstm, '
+                         'sentiment), 128 (mnist)')
     ap.add_argument('--steps', type=int, default=20)
     ap.add_argument('--amp', action='store_true',
                     help='under fluid.amp.decorate_program (transformer, '
@@ -468,8 +529,17 @@ def main():
         state = {n: t.clone() for n, t in art.state_dict(scope).items()}
         gen = torch.Generator(device='cuda')
 
+        if args.model in SEQUENCE_MODELS:
+            # a sequence feed (SeqValue) goes to the card leaf by leaf
+            from paddle_tpu_torch.fluid.lowering import map_value
+        else:
+            # dense feeds (a --root checkout may predate map_value)
+            def map_value(fn, v):
+                return fn(v)
+
         def eager(feed):
-            dev = {n: torch.as_tensor(v).cuda() for n, v in feed.items()}
+            dev = {n: map_value(lambda t: torch.as_tensor(t).cuda(), v)
+                   for n, v in feed.items()}
             fetches = art.debug_step(state, dev, 0, generator=gen)[0]
             return [t.float().cpu().numpy() for t in fetches]
 
