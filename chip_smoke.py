@@ -65,11 +65,12 @@ replay (each graph adds the launches its capture recorded).
                 parent's route (_merge_sparse and the merged form,
                 parent_route_ms), the sorts alone and each route's device
                 kernels. The paged decode
-                attention in six cases: the decode path's shape (16
+                attention in seven cases: the decode path's shape (16
                 slots, beam 3, page_size 16, 2 pages a slot, src_cap 32,
                 D 1024), src_cap 29, a fully masked slot, beam 1 over 64
-                slots, the test decoder's D 6, and long sources (16 pages
-                a slot, src_cap 250: four chunks); two launches must be
+                slots, the test decoder's D 6, long sources (16 pages
+                a slot, src_cap 250: four chunks) and the speculative
+                step's beam 1 over 16 slots; two launches must be
                 bitwise equal; its library_ms is SDPA over rows gathered
                 beforehand (the gather not timed).
   3. serving  — full-width Transformer-base (6+6 layers, d_model 512, 8
@@ -114,8 +115,32 @@ replay (each graph adds the launches its capture recorded).
                 engine on the CPU (the plain version) the same; one
                 paged_attention launch per step dispatch, warmup's
                 included; the history pool all free after the drain and
-                prefix hits > 0. Phases 3-5 launch no paged_attention, and
-                this phase none of the other kernels.
+                prefix hits > 0. Then (a) machine_translation's
+                generating program (seq_to_seq_net(is_generating=True) at
+                get_model's widths, startup weights from the seed) on 16
+                sources of the synthetic wmt14 reader (bucket 32): warm-up,
+                capture, replays timed beside the eager walk (busy, idle,
+                kernels a replay, graph pool); held against the same
+                program on the CPU (4 sources) and LockstepDecoder on the
+                card fed the encoder output (equal tokens, scores within
+                1e-4 (1 + |s|)); no kernel launches. (b) The token-fed
+                burst: 48 requests of source ids (every third one of 4
+                canonical sources) through program_prefill over the
+                program pruned at its encoder output (token_cap 32; each
+                admission bucket's captured encoder and its graph pool)
+                into the paged engine of DECODE_CONFIG: tokens/s, TTFT,
+                prefill batches and their device ms, prefix hits; one
+                paged_attention launch a dispatch; the requests of (a)'s
+                sources at the default limit equal to (a). (c)
+                Speculative decoding, DecodeConfig(beam_size=1, spec_k=4)
+                paged, over the encoder-row burst with three drafts (the
+                target, a draft of width 128, a random next-token table):
+                tokens equal to the beam-1 paged engine on the card, the
+                accept rate, tokens a dispatch and tokens/s; 2 (spec_k +
+                1) paged_attention launches a dispatch with a weights
+                draft, spec_k + 1 with the table. Phases 3-5 launch no
+                paged_attention, and this phase none of the other
+                kernels.
   7. image_training — the image and book configs through the entry
                 points on the card. fit_a_line (get_model: fc 13 -> 1,
                 SGD 0.01, batch 20) 10 epochs of the uci_housing reader
@@ -354,7 +379,7 @@ KERNEL_PATHS = {
     'flash_attention_bwd_dkv_bf16': ('amp_training',),
     'sparse_adam': ('ctr_training',),
     'sparse_adagrad': ('ctr_training',),
-    'paged_attention': ('decode',),
+    'paged_attention': ('decode', 'token_decode', 'spec_decode'),
 }
 
 # the paged decode attention against its plain version: an online softmax
@@ -375,6 +400,20 @@ DECODE_CPU_REQUESTS = 4
 # the paged engine on the card: the attention sums in another order, and
 # log-probabilities of up to 50 steps accumulate the difference
 DECODE_SCORE_TOL = 1e-4
+# phase 6 (a): machine_translation's generating program at get_model's
+# widths (MT_DECODER, beam and max_len of DECODE_CONFIG) on GEN_SOURCES
+# sources of the synthetic wmt14 reader, timed over GEN_STEPS replays; the
+# CPU decodes the first GEN_CPU_SOURCES of them
+GEN_SOURCES = 16
+GEN_CPU_SOURCES = 4
+GEN_STEPS = 5
+# (b): the token-fed burst's prefill pads every source to TOKEN_CAP ids
+# (the wmt14 sources' 4-29 ids: the generating program's bucket 32)
+TOKEN_CAP = 32
+# (c): speculative decoding at beam 1, SPEC_K proposals a dispatch; the
+# small weights draft's embedding and LSTM width
+SPEC_K = 4
+SPEC_DRAFT_WIDTH = 128
 
 # phase 7: fit_a_line (get_model: batch 20, SGD 0.01) for FIT_EPOCHS epochs;
 # its answers on the card and on the CPU: one fc of 13 products
@@ -1320,7 +1359,7 @@ def _paged_bound(C, beam, ps, npe, src_cap, D, pt):
 
 
 def _paged_attention_cases():
-    """paged_attention against its plain version on the card in six
+    """paged_attention against its plain version on the card in seven
     cases, two launches bitwise equal; returns [case result, ...]."""
     import torch
     import torch.nn.functional as F
@@ -1335,12 +1374,13 @@ def _paged_attention_cases():
         ('src_cap 29, not a multiple of ps', 16, 3, 16, 2, 29, 1024, 4, 29,
          None),
         ('one fully masked slot', 16, 3, 16, 2, 32, 1024, 4, 29, 5),
-        ('beam 1 over 64 slots (the speculative shape)', 64, 1, 16, 2, 32,
-         1024, 4, 29, None),
+        ('beam 1 over 64 slots', 64, 1, 16, 2, 32, 1024, 4, 29, None),
         ('D 6, the test decoder (ps 3, src_cap 5)', 4, 3, 3, 2, 5, 6, 1, 29,
          1),
         ('long sources: NPE 16, src_cap 250 (4 chunks)', 16, 3, 16, 16, 250,
          1024, 100, 250, None),
+        ('beam 1 over 16 slots, D 1024 (the speculative step)', 16, 1, 16,
+         2, 32, 1024, 4, 29, None),
     ]
     out = []
     for name, C, beam, ps, npe, src_cap, D, lo, hi, masked in cases:
@@ -2222,17 +2262,19 @@ def decode_requests(seed=SEED):
             for i in range(DECODE_REQUESTS)]
 
 
-def decode_engine_run(weights, reqs, paged=True, place=None):
-    """A DecodeEngine of DECODE_CONFIG (dense without its page settings),
-    warmed up, then `reqs` burst-submitted and drained. Returns dict(
-    results, seconds, stats, steps: the handle's step dispatches with
-    warmup's, state_bytes, hist_free: (free, usable) history pages)."""
+def decode_engine_run(weights, reqs, paged=True, place=None, config=None,
+                      draft=None):
+    """A DecodeEngine of `config` (default DECODE_CONFIG; dense without its
+    page settings), warmed up, then `reqs` burst-submitted and drained.
+    Returns dict(results, seconds, stats, steps: the handle's step
+    dispatches with warmup's, state_bytes, hist_free: (free, usable)
+    history pages)."""
     from paddle_tpu_torch import serving
-    cfg = dict(DECODE_CONFIG)
+    cfg = dict(config or DECODE_CONFIG)
     if not paged:
         del cfg['page_size'], cfg['pages']
     eng = serving.DecodeEngine(weights, serving.DecodeConfig(**cfg),
-                               place=place)
+                               place=place, draft=draft)
     try:
         eng.warmup()
         t0 = time.perf_counter()
@@ -2247,15 +2289,15 @@ def decode_engine_run(weights, reqs, paged=True, place=None):
                 if paged else None)
 
 
-def _divergence(weights, enc, toks_a, toks_b):
+def _divergence(weights, enc, toks_a, toks_b, K):
     """The first step at which two token matrices [beam, L] of one request
     differ, and the gaps between the beam + 1 best candidate scores there,
     from a replay of the request alone through the dense beam step on the
-    card (diagnostics for a failed comparison)."""
+    card at beam K (diagnostics for a failed comparison)."""
     import torch
     from paddle_tpu_torch.fluid.ops_impl import lod_beam
     from paddle_tpu_torch.serving.decode import WEIGHT_KEYS
-    K, S = DECODE_CONFIG['beam_size'], DECODE_CONFIG['src_cap']
+    S = DECODE_CONFIG['src_cap']
     step = int(np.argmax((toks_a != toks_b).any(axis=0)))
     params = tuple(torch.from_numpy(weights[k]).cuda() for k in WEIGHT_KEYS)
     rows = np.zeros((S, enc.shape[1]), np.float32)
@@ -2281,31 +2323,33 @@ def _divergence(weights, enc, toks_a, toks_b):
     return step, (best[:-1] - best[1:]).tolist()
 
 
-def _compare_decodes(what, want, got, reqs, weights):
+def _compare_decodes(what, want, got, reqs, weights,
+                     K=DECODE_CONFIG['beam_size']):
     """`got` against the paged engine on the card (`want`): equal tokens,
-    scores within DECODE_SCORE_TOL * (1 + |s|). Returns the largest score
-    difference."""
+    scores within DECODE_SCORE_TOL * (1 + |s|). reqs[i][0] is request i's
+    encoder rows. Returns the largest score difference."""
     worst = 0.0
     for i, ((tw, sw), (tg, sg)) in enumerate(zip(want, got)):
         if not np.array_equal(tw, tg):
-            step, gaps = _divergence(weights, reqs[i][0], tw, tg)
+            step, gaps = _divergence(weights, reqs[i][0], tw, tg, K)
             log('[decode] %s: request %d first differs at step %d; the '
                 'gaps between its %d best candidate scores there: %s'
                 % (what, i, step, len(gaps) + 1,
                    ', '.join('%.3g' % g for g in gaps)))
-            raise AssertionError('%s: request %d gave other tokens than the '
-                                 'paged engine on the card' % (what, i))
+            raise AssertionError('%s: request %d gave other tokens than '
+                                 'its reference' % (what, i))
         diff = np.abs(sg - sw)
         if not (diff <= DECODE_SCORE_TOL * (1 + np.abs(sw))).all():
-            raise AssertionError('%s: request %d scores %r, the paged '
-                                 'engine on the card %r' % (what, i, sg, sw))
+            raise AssertionError('%s: request %d scores %r, its reference '
+                                 '%r' % (what, i, sg, sw))
         worst = max(worst, float(diff.max()))
     return worst
 
 
-def phase_decode():
+def _decode_rows():
     """The paged DecodeEngine at the machine_translation decoder's full
-    width on the card; returns the main path's launch counts."""
+    width on the card, fed encoder rows; returns the path's launch
+    counts."""
     import torch
     from paddle_tpu_torch import fluid, obs
     weights = mt_decoder_weights()
@@ -2383,6 +2427,365 @@ def phase_decode():
     log('[decode] card: %s' % nvidia_smi_line())
     torch.cuda.synchronize()
     return launches
+
+
+def build_generation():
+    """machine_translation's generating program at get_model's widths
+    (seq_to_seq_net(is_generating=True): emb, encoder and decoder 512,
+    dict 30000, beam 3, max_length 50) with its startup program, seeded.
+    Returns (program, startup, sentence ids, scores, the encoder output
+    the beam decode attends over)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import machine_translation
+    E, H, V = MT_DECODER['E'], MT_DECODER['H'], MT_DECODER['V']
+    gen, startup = _program_pair()
+    with fluid.unique_name.guard(), fluid.program_guard(gen, startup):
+        ids, scores = machine_translation.seq_to_seq_net(
+            E, H, H, V, V, is_generating=True,
+            beam_size=DECODE_CONFIG['beam_size'],
+            max_length=DECODE_CONFIG['max_len'])
+    return gen, startup, ids, scores, _input_of(
+        gen, 'attention_lstm_beam_decode', 'EncOut')
+
+
+def token_sources():
+    """GEN_SOURCES + 32 sources (int64 ids) of the synthetic wmt14 train
+    reader at dict 30000: 4-29 ids each."""
+    from paddle_tpu_torch.dataset import wmt14
+    return [np.asarray(s, np.int64) for s, _, _ in itertools.islice(
+        wmt14.train(MT_DECODER['V'])(), GEN_SOURCES + 32)]
+
+
+def token_requests(seed=SEED):
+    """DECODE_REQUESTS (index into token_sources(), limit) pairs: every
+    third request one of the first DECODE_CANONICAL sources, drawn at
+    random (prefix hits), the others fresh sources in order; the requests
+    whose source is among the generation batch's GEN_SOURCES take the
+    default limit (max_len), the rest 8-50."""
+    r = np.random.RandomState(seed + 6)
+    out, fresh = [], DECODE_CANONICAL
+    for i in range(DECODE_REQUESTS):
+        if i % 3 == 2:
+            out.append((int(r.randint(DECODE_CANONICAL)), None))
+        else:
+            out.append((fresh, None if fresh < GEN_SOURCES else int(
+                r.randint(8, DECODE_CONFIG['max_len'] + 1))))
+            fresh += 1
+    return out
+
+
+def _generation():
+    """(a) The generating program on the card: 16 sources, warm-up,
+    capture, replays timed beside the eager walk; held against the same
+    program on the CPU (4 sources) and against LockstepDecoder on the card
+    fed the encoder's output (program_prefill over the program pruned at
+    that output). Returns what (b) reuses, with the path's launch
+    counts."""
+    import torch
+    from paddle_tpu_torch import fluid, serving
+    from paddle_tpu_torch.fluid.lowering import map_value
+    K, T = DECODE_CONFIG['beam_size'], DECODE_CONFIG['max_len']
+    t0 = time.perf_counter()
+    gen, startup, ids, scores, enc = build_generation()
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    exe.run(startup, scope=scope)
+    srcs = token_sources()
+    batch = [(s.tolist(),) for s in srcs[:GEN_SOURCES]]
+    feed = fluid.DataFeeder(['source_sequence'], fluid.CUDAPlace(0),
+                            program=gen).feed(batch)
+    if _bucket(feed) != (TOKEN_CAP,):
+        raise AssertionError('the generation batch fell in bucket %r, not '
+                             '%d' % (_bucket(feed), TOKEN_CAP))
+    log('[decode] (a) generating program built and initialized on the card '
+        'in %.3f s: %d ops, %d sources of %s ids'
+        % (time.perf_counter() - t0, len(gen.global_block().ops),
+           GEN_SOURCES, sorted(len(s) for s in srcs[:GEN_SOURCES])))
+
+    _reset_launch_counts()
+    base = exe.cache_stats
+    outs, pool = [], 0
+    for i in range(3):              # warm-up, capture, replay
+        r0 = _reserved() if i == 1 else None
+        outs.append(exe.run(gen, feed=feed, fetch_list=[ids, scores],
+                            scope=scope))
+        if i == 1:
+            pool = _reserved() - r0
+    launches = _launch_counts()
+    stats = {k: exe.cache_stats[k] - base[k] for k in ('captures',
+                                                       'replays')}
+    if stats != {'captures': 1, 'replays': 2} or any(launches.values()):
+        raise AssertionError('generation: %r, launches %r' % (stats,
+                                                              launches))
+    tok, sc = outs[-1]
+    if tok.shape != (GEN_SOURCES, K, T) or tok.dtype != np.int64 \
+            or sc.shape != (GEN_SOURCES, K) or not np.isfinite(sc).all() \
+            or not ((tok >= 0) & (tok < MT_DECODER['V'])).all():
+        raise AssertionError('generation gave %r %r %r' % (
+            tok.shape, tok.dtype, sc.shape))
+    if not (np.array_equal(outs[1][0], tok) and np.array_equal(
+            outs[1][1], sc)):
+        raise AssertionError('generation: two replays differ')
+    eager_ids = [(outs[0][0][i], outs[0][1][i]) for i in range(GEN_SOURCES)]
+
+    # the encoder's output, through the prefill (b) uses, and the lockstep
+    # decode of it on the card
+    weights = serving.mt_weights(scope)
+    pre = serving.program_prefill(exe, gen.prune([enc]), scope,
+                                  'source_sequence', enc,
+                                  token_cap=TOKEN_CAP)
+    rows, lens = pre([{'source_sequence': s} for s in srcs[:GEN_SOURCES]])
+    reqs = [(rows[i, :lens[i]], None) for i in range(GEN_SOURCES)]
+    results = [(tok[i], sc[i]) for i in range(GEN_SOURCES)]
+    worst_eager = _compare_decodes('generation: the replay against its '
+                                   'eager warm-up', eager_ids, results,
+                                   reqs, weights)
+    ls = serving.LockstepDecoder(
+        weights, K, T, DECODE_CONFIG['src_cap'],
+        start_id=DECODE_CONFIG['start_id'], end_id=DECODE_CONFIG['end_id'])
+    ls_tok, ls_sc = ls.run(rows, lens)
+    worst_ls = _compare_decodes(
+        'generation: LockstepDecoder on the encoder output', results,
+        [(ls_tok[i], ls_sc[i]) for i in range(GEN_SOURCES)], reqs, weights)
+
+    art = exe.step_artifact(gen, feed=feed, fetch_list=[ids, scores],
+                            scope=scope)
+    state = {n: t.clone() for n, t in art.state_dict(scope).items()}
+    dev = {n: map_value(lambda t: torch.as_tensor(t).cuda(), v)
+           for n, v in feed.items()}
+    g = torch.Generator(device='cuda')
+    m = _measure('generation, %d sources' % GEN_SOURCES,
+                 lambda: exe.run(gen, feed=feed, fetch_list=[ids, scores],
+                                 scope=scope),
+                 lambda: _to_host(art.debug_step(state, dev, 0,
+                                                 generator=g)[0]),
+                 pool, steps=GEN_STEPS)
+    del state, dev
+
+    # the same program on the CPU for the first sources
+    t0 = time.perf_counter()
+    cpu_scope = fluid.Scope()
+    cpu_scope.load_numpy(scope.to_numpy(), fluid.CPUPlace())
+    cpu_feed = fluid.DataFeeder(['source_sequence'], fluid.CPUPlace(),
+                                program=gen).feed(batch[:GEN_CPU_SOURCES])
+    c_tok, c_sc = fluid.Executor(fluid.CPUPlace()).run(
+        gen, feed=cpu_feed, fetch_list=[ids, scores], scope=cpu_scope)
+    del cpu_scope
+    worst_cpu = _compare_decodes(
+        'generation on the CPU', results[:GEN_CPU_SOURCES],
+        [(c_tok[i], c_sc[i]) for i in range(GEN_CPU_SOURCES)], reqs,
+        weights)
+    c = m['captured']
+    log('[decode] (a) generation, %d sources at beam %d, max_len %d: '
+        'replayed %.4f ms a batch (median of %d), %.1f sentences/s; device '
+        'busy %.4f ms, idle %.3f of the median replay; %.0f device kernels '
+        'a replay; graph pool %.3f GB; eager walk %.4f ms. Replay against '
+        'its eager warm-up: equal tokens, scores max abs diff %.3g; '
+        'LockstepDecoder on the card fed the encoder output: equal tokens, '
+        'max diff %.3g; the CPU on %d sources (%.2f s): equal tokens, max '
+        'diff %.3g (tol %g x (1 + |s|)); card: %s'
+        % (GEN_SOURCES, K, T, c['median_step_ms'], GEN_STEPS,
+           GEN_SOURCES / c['median_step_ms'] * 1e3, c['device_busy_ms'],
+           c['idle_share_of_median_step'], c['device_records_per_step'],
+           c['graph_pool_gb'], m['eager']['median_step_ms'], worst_eager,
+           worst_ls, GEN_CPU_SOURCES, time.perf_counter() - t0, worst_cpu,
+           DECODE_SCORE_TOL, nvidia_smi_line()))
+    return dict(launches=launches, results=results, weights=weights,
+                srcs=srcs, pre=pre, rows=rows, lens=lens, measured=m)
+
+
+def _token_decode(gen):
+    """(b) The token-fed burst: the 48 requests of token_requests() as
+    source ids through program_prefill (token_cap TOKEN_CAP) into the
+    paged engine of DECODE_CONFIG. Returns the path's launch counts."""
+    import torch
+    from paddle_tpu_torch import obs, serving
+    srcs, pre, K = gen['srcs'], gen['pre'], DECODE_CONFIG['beam_size']
+    cfg = serving.DecodeConfig(**DECODE_CONFIG)
+    example = {'source_sequence': srcs[0]}
+    # each admission bucket's prefill signature: warm-up and capture
+    pools = {}
+    for b in cfg.admit_buckets:
+        r0 = _reserved()
+        for _ in range(2):
+            pre([example] * b)
+        pools[b] = (_reserved() - r0) / 1e9
+    pf = {'sizes': [], 'device_ms': []}
+
+    def prefill(feeds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = pre(feeds)
+        end.record()
+        end.synchronize()
+        pf['sizes'].append(len(feeds))
+        pf['device_ms'].append(start.elapsed_time(end))
+        return out
+
+    reqs = token_requests()
+    hists = [obs.histogram('decode.step.seconds'),
+             obs.histogram('decode.ttft.seconds')]
+    _reset_launch_counts()
+    eng = serving.DecodeEngine(gen['weights'], cfg, prefill=prefill)
+    try:
+        buckets = eng.warmup(example_feed=example)
+        pf['sizes'].clear()
+        pf['device_ms'].clear()
+        before = [h.snapshot() for h in hists]
+        t0 = time.perf_counter()
+        futs = [eng.submit({'source_sequence': srcs[j]}, max_new_tokens=n)
+                for j, n in reqs]
+        results = [f.result(timeout=600) for f in futs]
+        secs = time.perf_counter() - t0
+        after = [h.snapshot() for h in hists]
+    finally:
+        eng.shutdown()
+    launches = _launch_counts()
+    steps, st = eng._handle.steps, eng.stats
+    want = dict.fromkeys(launches, 0)
+    want['paged_attention'] = steps
+    if launches != want:
+        raise AssertionError('the token-fed decode launched %r over %d step '
+                             'dispatches; it must launch %r'
+                             % (launches, steps, want))
+    for i, ((j, n), (toks, sc)) in enumerate(zip(reqs, results)):
+        if toks.shape != (K, n or DECODE_CONFIG['max_len']) \
+                or not np.isfinite(sc).all():
+            raise AssertionError('token request %d resolved to %r %r'
+                                 % (i, toks.shape, sc))
+    if eng._hist_pool.free_count != eng._hist_pool.usable \
+            or not st['prefix_hits'] > 0:
+        raise AssertionError('after the drain %d of %d history pages are '
+                             'free and %d prefix hits were counted'
+                             % (eng._hist_pool.free_count,
+                                eng._hist_pool.usable, st['prefix_hits']))
+    # the requests with the default limit against (a)'s sentences
+    same = [i for i, (j, n) in enumerate(reqs) if n is None]
+    rows, lens = gen['rows'], gen['lens']
+    worst = _compare_decodes(
+        'the token-fed engine against the generating program',
+        [gen['results'][reqs[i][0]] for i in same],
+        [results[i] for i in same],
+        [(rows[reqs[i][0], :lens[reqs[i][0]]], None) for i in same],
+        gen['weights'])
+    ttft = hists[1].percentile_window(before[1], after[1], 50)
+    n_steps = after[0]['count'] - before[0]['count']
+    log('[decode] (b) token-fed burst: %d requests of source ids, prefill '
+        'token_cap %d, buckets %s: %d tokens in %.4f s, %.1f tokens/s; %d '
+        'step dispatches (warmup included), decode.step.seconds mean %.6f; '
+        'TTFT p50 %.6f s with the prefill; %d prefill batches of %s, device '
+        'ms %s (sum %.4f); prefix hits %d, misses %d; paged_attention '
+        'launches %d = the step dispatches; the encoder graph pool of each '
+        'prefill bucket (GB) %s; equal tokens to (a) for the %d requests of '
+        'its sources at the default limit, scores max abs diff %.3g; card: '
+        '%s' % (len(reqs), TOKEN_CAP, buckets, st['tokens'], secs,
+                st['tokens'] / secs, steps,
+                (after[0]['sum'] - before[0]['sum']) / n_steps, ttft,
+                len(pf['sizes']), pf['sizes'],
+                ', '.join('%.4f' % x for x in pf['device_ms']),
+                sum(pf['device_ms']), st['prefix_hits'], st['prefix_misses'],
+                launches['paged_attention'],
+                {b: round(p, 4) for b, p in pools.items()}, len(same),
+                worst, nvidia_smi_line()))
+    return launches
+
+
+def spec_draft_weights(seed=SEED):
+    """A small weights draft for the speculative engine: target embedding
+    and LSTM SPEC_DRAFT_WIDTH wide, the target's encoder rows D and vocab
+    V; each matrix and bias N(0, 1/fan_in)."""
+    r = np.random.RandomState(seed + 8)
+    W, D, V = SPEC_DRAFT_WIDTH, MT_DECODER['D'], MT_DECODER['V']
+
+    def normal(shape, fan_in):
+        return (r.randn(*shape) / np.sqrt(fan_in)).astype(np.float32)
+
+    return {'w_dec': normal((W + D, 4 * W), W + D),
+            'u_dec': normal((W, 4 * W), W), 'b_dec': normal((1, 4 * W), W),
+            'w_q': normal((W, D), W), 'w_emb': normal((V, W), W),
+            'w_out': normal((W, V), W), 'b_out': normal((1, V), W)}
+
+
+def _spec_decode():
+    """(c) Speculative decoding: DecodeConfig(beam_size=1, spec_k=SPEC_K),
+    paged, over the encoder-row burst with three drafts (the target
+    itself, a small weights draft, a random next-token table), each held
+    token for token to the beam-1 paged engine on the card. Returns the
+    speculative runs' launch counts."""
+    weights = mt_decoder_weights()
+    reqs = decode_requests()
+    cfg = dict(DECODE_CONFIG, beam_size=1)
+    greedy = decode_engine_run(weights, reqs, config=cfg)
+    g_st = greedy['stats']
+    log('[decode] (c) beam-1 paged engine (the greedy reference): %d '
+        'tokens in %.4f s, %.1f tokens/s, %d step dispatches'
+        % (g_st['tokens'], greedy['seconds'],
+           g_st['tokens'] / greedy['seconds'], greedy['steps']))
+    table = np.random.RandomState(SEED + 9).randint(
+        0, MT_DECODER['V'], MT_DECODER['V']).astype(np.int32)
+    total = None
+    for name, draft in (('the target itself', weights),
+                        ('weights E = H = %d' % SPEC_DRAFT_WIDTH,
+                         spec_draft_weights()),
+                        ('a random next-token table', table)):
+        _reset_launch_counts()
+        run = decode_engine_run(weights, reqs, config=dict(cfg,
+                                                           spec_k=SPEC_K),
+                                draft=draft)
+        counts = _launch_counts()
+        per = (2 if isinstance(draft, dict) else 1) * (SPEC_K + 1)
+        want = dict.fromkeys(counts, 0)
+        want['paged_attention'] = per * run['steps']
+        if counts != want:
+            raise AssertionError('speculative decode (%s) launched %r over %d '
+                                 'dispatches; it must launch %r'
+                                 % (name, counts, run['steps'], want))
+        worst = _compare_decodes('speculative decode, draft %s' % name,
+                                 greedy['results'], run['results'], reqs,
+                                 weights, K=1)
+        st = run['stats']
+        rate = st['spec_accept_rate']
+        # the target as its own draft proposes what it verifies
+        if not (0 < rate <= 1 if draft is weights else 0 <= rate <= 1):
+            raise AssertionError('speculative decode (%s): accept rate %r'
+                                 % (name, rate))
+        live = run['steps'] - 2          # warmup's two no-op dispatches
+        slot_steps = st['spec_proposed'] // SPEC_K
+        log('[decode] (c) spec_k %d, draft %s: equal tokens to the beam-1 '
+            'engine for all %d requests, scores max abs diff %.3g; accept '
+            'rate %.4f (%d of %d proposals); %.3f tokens a slot a dispatch '
+            '(%d tokens over %d slot-dispatches), %d dispatches against the '
+            'beam-1 engine\'s %d; %.1f tokens/s against its %.1f; '
+            'paged_attention %d launches = %d a dispatch x %d dispatches '
+            '(warmup included)'
+            % (SPEC_K, name, len(reqs), worst, rate, st['spec_accepted'],
+               st['spec_proposed'], st['tokens'] / slot_steps, st['tokens'],
+               slot_steps, live, greedy['steps'] - 2,
+               st['tokens'] / run['seconds'],
+               g_st['tokens'] / greedy['seconds'],
+               counts['paged_attention'], per, run['steps']))
+        total = counts if total is None else {
+            k: total[k] + counts[k] for k in counts}
+    log('[decode] (c) card: %s' % nvidia_smi_line())
+    return total
+
+
+def phase_decode():
+    """Phase 6: the encoder-row burst, (a) the generating program, (b) the
+    token-fed burst and (c) speculative decoding, each path's launch
+    counts read just after it; returns {path: counts}."""
+    import torch
+    out = {'decode': _decode_rows()}
+    _reset_launch_counts()
+    gen = _generation()
+    out['generation'] = gen['launches']
+    out['token_decode'] = _token_decode(gen)
+    del gen
+    _reset_launch_counts()
+    out['spec_decode'] = _spec_decode()
+    torch.cuda.synchronize()
+    return out
 
 
 # -- phase 7 ----------------------------------------------------------------
@@ -3257,6 +3660,7 @@ def phase_amp():
     train = _amp_transformer()
     for n, v in _amp_resnet().items():
         train[n] += v
+    _between_phases('amp serving')
     return {'amp_training': train, 'amp_serving': _amp_serving()}
 
 
@@ -4616,6 +5020,16 @@ def phase_captured():
     return records
 
 
+def _between_phases(name):
+    """Give the cached memory of the phases before back to the card (a
+    capture cannot free cached blocks while it runs, and the graphs of
+    earlier phases leave their pools behind) and log what stays."""
+    import torch
+    reserved = _reserved()
+    log('[memory] before %s: %.3f GB allocated, %.3f GB reserved'
+        % (name, torch.cuda.memory_allocated() / 1e9, reserved / 1e9))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4627,14 +5041,23 @@ def main():
            torch.cuda.device_count(), torch.cuda.get_device_name(0)))
     phase_build()
     cases = phase_kernels()
-    by_path = {'serving': phase_serving(), 'training': phase_training(),
-               'ctr_training': phase_ctr_training(),
-               'decode': phase_decode(),
-               'image_training': phase_image_training()}
-    by_path.update(phase_amp())
-    by_path.update(phase_dense_training())
-    by_path.update(phase_sequences())
-    phase_captured()
+    by_path = {}
+    for name, phase in (('serving', phase_serving),
+                        ('training', phase_training),
+                        ('ctr_training', phase_ctr_training),
+                        ('decode', phase_decode),
+                        ('image_training', phase_image_training),
+                        ('amp', phase_amp),
+                        ('dense_training', phase_dense_training),
+                        ('sequences', phase_sequences),
+                        ('captured', phase_captured)):
+        _between_phases(name)
+        counts = phase()
+        if name in ('serving', 'training', 'ctr_training',
+                    'image_training'):
+            by_path[name] = counts
+        elif name != 'captured':
+            by_path.update(counts)
     for path, counts in by_path.items():
         stray = {k: n for k, n in counts.items()
                  if n and path not in KERNEL_PATHS[k]}

@@ -742,7 +742,9 @@ class Executor(object):
         health vectors after the bundle (so max_consecutive_skips raises
         after it, with the state of its end); persistables are in the
         scope at the end. Returns one entry per fetch, stacked on a leading
-        K axis (FetchHandles over the same with sync='async')."""
+        K axis, or for a sequence fetch a list of K values as run() gives
+        them (flat valid rows, or LoDTensors with return_numpy=False); with
+        sync='async', FetchHandles over the same."""
         if sync not in ('auto', 'block', 'async'):
             raise ValueError(
                 "sync must be 'auto', 'block' or 'async', got %r" % (sync,))
@@ -808,23 +810,27 @@ class Executor(object):
                 per_step = [{n: _unstack(feed0[n], ls, j)
                              for n, ls in stacked.items()}
                             for j in range(K)]
-            outs, hbuf = None, None
+            outs, seqs, hbuf = None, None, None
             for j in range(K):
                 fetches, health = self._step(art, scope, per_step[j],
                                              seeds[j])
-                seq = [n for n, t in zip(art.fetch_names, fetches)
-                       if isinstance(t, SeqValue)]
-                if seq:
-                    raise NotImplementedError(
-                        'run_bundle: fetch %r is a sequence (SeqValue); '
-                        'a bundle stacks dense fetches only: fetch it '
-                        'with run()' % seq[0])
                 if outs is None:
-                    outs = [torch.empty((K,) + tuple(t.shape),
+                    # a sequence fetch keeps each step's own value (the
+                    # JAX :1675-1677: a list of K); a dense one is stacked
+                    seqs = [[] if isinstance(t, SeqValue) else None
+                            for t in fetches]
+                    outs = [None if isinstance(t, SeqValue) else
+                            torch.empty((K,) + tuple(t.shape),
                                         dtype=t.dtype, device=t.device)
                             for t in fetches]
-                for o, t in zip(outs, fetches):
-                    o[j].copy_(t)
+                for o, sq, t in zip(outs, seqs, fetches):
+                    if sq is None:
+                        o[j].copy_(t)
+                    elif self.device.type == 'cuda':
+                        # every replay writes the same static buffers
+                        sq.append(map_value(torch.clone, t))
+                    else:
+                        sq.append(t)
                 if health is not None:
                     h = health if isinstance(health, torch.Tensor) \
                         else _pack_health(health)
@@ -842,8 +848,13 @@ class Executor(object):
                         program, {k: v[j] for k, v in hs.items()},
                         run_id=run_base + j + 1)
             with obs.span('executor.fetch', sync=sync, steps=K):
-                return self._convert_fetches(program, outs, return_numpy,
-                                             sync == 'async')
+                lazy = sync == 'async'
+                dense = iter(self._convert_fetches(
+                    program, [o for o in outs if o is not None],
+                    return_numpy, lazy))
+                return [next(dense) if sq is None else
+                        self._convert_fetches(program, sq, return_numpy, lazy)
+                        for sq in seqs]
 
     def _observe_health(self, program, h, run_id=None):
         """The guard's host side (the JAX :1854): record the health vector

@@ -2,9 +2,10 @@
 backtrace.
 
 Parity: the JAX package's fluid/ops_impl/lod_beam.py, only its step-form
-decode (beam_init_carry :308, attention_beam_step :322, backtrace_beams
-:420), which the continuous-batching DecodeEngine drives slot by slot
-through the decode-step rules of sampled_ops.py. Every row is
+decode (beam_init_carry :308, attention_beam_step :322, greedy_attend_cell
+:386, backtrace_beams :420), which the continuous-batching DecodeEngine
+drives slot by slot through the decode-step rules of sampled_ops.py, and
+which attention_lstm_beam_decode loops over the whole decode. Every row is
 independent: no cross-row reduction mixes two sources, which is what lets
 the engine pack unrelated slots into one step and mask the dead ones.
 
@@ -19,8 +20,8 @@ import torch
 
 from ...ops.kernels.paged_attention import attend as attend_rows
 
-__all__ = ['beam_init_carry', 'attention_beam_step', 'backtrace_beams',
-           'top_k_lower_index']
+__all__ = ['beam_init_carry', 'attention_beam_step', 'greedy_attend_cell',
+           'backtrace_beams', 'top_k_lower_index']
 
 NEG = float(torch.finfo(torch.float32).min)
 
@@ -113,6 +114,27 @@ def attention_beam_step(params, enc_t, mask_t, carry, beam, end_id,
     new_fin = fin[gidx] | (new_ids == end_id)
     return (h_new, c_new, new_ids, new_acc, new_fin), \
         (sel_ids, parent.to(torch.int32), top_scores)
+
+
+def greedy_attend_cell(params, enc, mask, h, c, tok, attend=None):
+    """One attend -> LSTM cell -> project step for [B] independent rows
+    with no beam dimension: the draft's proposal step of speculative
+    decoding (sampled_ops.attention_lstm_spec_decode_step), the cell math
+    of attention_beam_step at beam 1 without the top-k and reorder.
+
+    params: the WEIGHT_KEYS tuple; enc [B, S, D]; mask [B, S] 1/0; h, c
+    [B, H]; tok [B] int. Returns (h2, c2, logits [B, V] float32).
+    `attend`: optional q [B, D] -> ctx [B, D] override (see
+    attention_beam_step); with it set, enc and mask may be None."""
+    w_dec, u_dec, b_dec, w_q, w_emb, w_out, b_out = params
+    x = w_emb[tok.long()]
+    q = h @ w_q
+    ctx_vec = attend(q) if attend is not None else attend_rows(q, enc, mask)
+    g = torch.cat([x, ctx_vec], -1) @ w_dec + h @ u_dec + b_dec
+    gi, gf, gc, go = torch.chunk(g, 4, dim=-1)
+    c2 = torch.sigmoid(gf) * c + torch.sigmoid(gi) * torch.tanh(gc)
+    h2 = torch.sigmoid(go) * torch.tanh(c2)
+    return h2, c2, (h2 @ w_out + b_out).to(torch.float32)
 
 
 def backtrace_beams(ids_seq, par_seq):

@@ -1,22 +1,33 @@
-"""Decode-step rules of the continuous-batching DecodeEngine.
+"""Beam and speculative decode rules: the whole-sequence beam decode of the
+generating program and the step rules of the continuous-batching
+DecodeEngine.
 
-Parity: the JAX package's fluid/ops_impl/sampled_ops.py, only the two
+Parity: the JAX package's fluid/ops_impl/sampled_ops.py, its decode rules:
+`attention_lstm_beam_decode` (the whole beam search, :156), the two
 step-form beam rules the engine drives, `attention_lstm_beam_decode_step`
 (dense slot buffers, :221) and `attention_lstm_beam_paged_step` (page
-pools, :393), with their helpers `_masked_beam_advance` :326,
-`_decode_weight_params` :347 and `_paged_hist_write` :379. Both rules
-share `_masked_beam_advance`, so the paged engine matches the dense one by
-construction. `_gather_paged_enc` :361 serves only the JAX rule's
+pools, :393), and the speculative step `attention_lstm_spec_decode_step`
+(:491), with their helpers `_masked_beam_advance` :326,
+`_decode_weight_params` :347 and `_paged_hist_write` :379. The beam rules
+share lod_beam.attention_beam_step, so the engine's results equal the
+whole-sequence decode's and the paged engine matches the dense one by
+construction. `_gather_paged_enc` :361 serves only the JAX rules'
 kernel-off branch; here its gather is paged_attention's plain version.
+`nce`, `hierarchical_sigmoid`, `beam_search` and `beam_search_decode` are
+not ported yet (ROADMAP.md Queue A).
 
-The paged rule calls `ops.kernels.paged_attention` unconditionally: on the
-card that launches the CUDA kernel, on the CPU its plain version. There is
-no switch (the JAX package's PADDLE_TPU_KERNELS knob has no counterpart).
+The paged and the speculative rules call `ops.kernels.paged_attention`
+unconditionally: on the card that launches the CUDA kernel, on the CPU its
+plain version. There is no switch (the JAX package's PADDLE_TPU_KERNELS
+knob has no counterpart). The speculative step attends at beam 1: R =
+spec_k + 1 launches for its verify scan, and R more for a weights draft.
 
-`bundle > 1` runs that many steps as a Python loop in one dispatch, with
-no host sync inside it (the JAX rule's lax.scan); slots that finish
-mid-bundle freeze, so results equal bundle=1. Nothing here reads a value
-back to the host.
+The JAX lax.scans are Python loops here: `max_len` steps of the whole
+decode (one on `meta` tensors, build-time inference, as
+sequence_ops._scan does), `bundle` steps of a step rule, R draft and R
+verify steps of the speculative one. Slots that finish mid-bundle freeze,
+so results equal bundle=1. Nothing here reads a value back to the host,
+so every rule runs inside a captured CUDA graph.
 
 Torch has no `mode='drop'` scatter. The history write redirects invalid
 rows to a scratch row appended past the pool and drops it: two live slots
@@ -27,8 +38,9 @@ indices in (only the dropped rows collide, on the scratch row).
 import torch
 
 from ...ops.kernels import paged_attention
-from ..lowering import register, data_of
-from .lod_beam import attention_beam_step
+from ..lowering import register, data_of, SeqValue
+from .lod_beam import (attention_beam_step, beam_init_carry,
+                       greedy_attend_cell)
 
 
 def _masked_beam_advance(params, enc_t, mask_t, carry5, active, beam,
@@ -51,14 +63,64 @@ def _masked_beam_advance(params, enc_t, mask_t, carry5, active, beam,
             sel(new_carry[4], fin)), (sel_ids, parent)
 
 
-def _decode_weight_params(ins):
+def _decode_weight_params(ins, prefix=''):
     """The WEIGHT_KEYS tuple (w_dec, u_dec, b_dec, w_q, w_emb, w_out,
-    b_out) from op inputs; a missing bias is 0."""
-    return (data_of(ins['WDec'][0]), data_of(ins['UDec'][0]),
-            data_of(ins['BDec'][0]) if ins.get('BDec') else 0.0,
-            data_of(ins['WAttnQ'][0]), data_of(ins['WEmb'][0]),
-            data_of(ins['WOut'][0]),
-            data_of(ins['BOut'][0]) if ins.get('BOut') else 0.0)
+    b_out) from op inputs; a missing bias is 0. prefix='Draft' reads the
+    draft's tensors of the speculative step."""
+    def get(slot):
+        return data_of(ins[prefix + slot][0]) if ins.get(prefix + slot) \
+            else 0.0
+
+    return (get('WDec'), get('UDec'), get('BDec'), get('WAttnQ'),
+            get('WEmb'), get('WOut'), get('BOut'))
+
+
+@register('attention_lstm_beam_decode')
+def _attention_lstm_beam_decode(ins, attrs, ctx):
+    """The whole beam search of the generating program (the JAX rule :156;
+    the reference book test_machine_translation.py:decode()): max_len
+    calls of lod_beam.attention_beam_step from beam_init_carry, then the
+    backtrace over the stacked ids and parents, all on the device.
+
+    Inputs: EncOut [B, S, D] (a SeqValue: its lengths mask the attention),
+    WDec [E+D, 4H], UDec [H, 4H], BDec [1, 4H], WAttnQ [H, D], WEmb [V, E],
+    WOut [H, V], BOut [1, V]. Attrs: beam_size, max_len, start_id, end_id.
+    Outputs: SentenceIds int64 [B, beam, max_len], SentenceScores float32
+    [B, beam]."""
+    enc = ins['EncOut'][0]
+    enc_data = data_of(enc)
+    B, S, _ = enc_data.shape
+    enc_mask = enc.mask(torch.float32) if isinstance(enc, SeqValue) else \
+        torch.ones((B, S), dtype=torch.float32, device=enc_data.device)
+    params = _decode_weight_params(ins)
+    beam = int(attrs['beam_size'])
+    max_len = int(attrs['max_len'])
+    end_id = int(attrs['end_id'])
+    enc_t = enc_data.repeat_interleave(beam, dim=0)     # [B*beam, S, D]
+    mask_t = enc_mask.repeat_interleave(beam, dim=0)
+    carry = beam_init_carry(B, beam, params[1].shape[0],
+                            int(attrs.get('start_id', 0)),
+                            device=enc_data.device, dtype=enc_data.dtype)
+    meta = enc_data.device.type == 'meta'
+    ids, parents = [], []
+    for _ in range(1 if meta else max_len):
+        carry, (sel_ids, parent, _top) = attention_beam_step(
+            params, enc_t, mask_t, carry, beam, end_id)
+        ids.append(sel_ids)
+        parents.append(parent.long())
+    scores = carry[3].reshape(B, beam)
+    if meta:
+        sent = ids[0].unsqueeze(-1).expand(B, beam, max_len)
+        return {'SentenceIds': sent.long(), 'SentenceScores': scores}
+    # the backtrace (the JAX `back` scan): each final beam's pointer walks
+    # its parents from the last step to the first
+    ptr = torch.arange(beam, device=enc_data.device).expand(B, beam)
+    toks = [None] * max_len
+    for t in range(max_len - 1, -1, -1):
+        toks[t] = torch.gather(ids[t], 1, ptr)
+        ptr = torch.gather(parents[t], 1, ptr)
+    return {'SentenceIds': torch.stack(toks, dim=-1).long(),
+            'SentenceScores': scores}
 
 
 def _paged_hist_write(pool, pt_hist, step, page_size, valid, rows):
@@ -228,3 +290,156 @@ def _attention_lstm_beam_paged_step(ins, attrs, ctx):
                         int(attrs.get('bundle', 1)))
     return _step_outputs(carry, active_in, slots, beam,
                          ('HistIdsOut', 'HistParOut'))
+
+
+@register('attention_lstm_spec_decode_step')
+def _attention_lstm_spec_decode_step(ins, attrs, ctx):
+    """Speculative greedy decoding over the paged slot pool (the JAX rule
+    :491): a draft proposes spec_k tokens, the target verifies them all in
+    one dispatch, and accept and rollback are where-selects on the device.
+
+    The emitted token at every position is the target's own greedy argmax;
+    the draft only decides how many positions are valid. Position t is
+    emitted iff every earlier proposal matched, no earlier token was
+    end_id and the slot is live and within its limit there, so a slot
+    emits 1 to spec_k + 1 tokens a dispatch. The verify phase batches what
+    does not depend on the recurrence: the embedding and x @ w_dec[:E]
+    over the R = spec_k + 1 positions before its scan, and the output
+    projection, log-softmax and argmax after it; the scan keeps the
+    attention, ctx @ w_dec[E:], h @ u_dec and the cell.
+
+    Draft forms (attr `draft`): 'weights', a small attention-LSTM of its
+    own Draft* weights (the target's vocab and encoder width) whose state
+    rides in DraftH/DraftC [slots, draft_hidden]; 'table', a [V] int32
+    next-token table (DraftTable), no state.
+
+    State as the paged beam rule at beam 1. Attrs: end_id, spec_k,
+    page_size, src_cap, draft. Outputs also Accepted [slots] int32, the
+    proposals accepted this dispatch. Every attend (the draft's and the
+    verify scan's) is the paged_attention kernel on the card."""
+    h = data_of(ins['H'][0])[:, 0]                      # [C, H]
+    c = data_of(ins['C'][0])[:, 0]
+    prev = data_of(ins['PrevIds'][0]).to(torch.int32)[:, 0]
+    acc = data_of(ins['Acc'][0]).to(torch.float32)[:, 0]
+    fin = data_of(ins['Fin'][0]).to(torch.bool)[:, 0]
+    step = data_of(ins['Step'][0]).to(torch.int32)
+    limit = data_of(ins['Limit'][0]).to(torch.int32)
+    active = data_of(ins['Active'][0]).to(torch.bool)
+    pt_hist = data_of(ins['PtHist'][0]).to(torch.int32)
+    pt_enc = data_of(ins['PtEnc'][0]).to(torch.int32)
+    enc_pages = data_of(ins['EncPages'][0])
+    mask_pages = data_of(ins['MaskPages'][0])
+    hist_ids = data_of(ins['HistIds'][0])
+    hist_par = data_of(ins['HistPar'][0])
+    w_dec, u_dec, b_dec, w_q, w_emb, w_out, b_out = \
+        _decode_weight_params(ins)
+    C = prev.shape[0]
+    page_size = int(attrs['page_size'])
+    end_id = int(attrs['end_id'])
+    src_cap = int(attrs['src_cap'])
+    R = int(attrs['spec_k']) + 1         # verify steps = proposals + 1
+    E = w_emb.shape[1]
+
+    def attend(q):
+        return paged_attention(q, enc_pages, mask_pages, pt_enc, src_cap)
+
+    # -- draft phase: R proposals, so the draft state can roll back to any
+    # accepted position
+    hd_seq = cd_seq = None
+    if attrs.get('draft', 'weights') == 'table':
+        table = data_of(ins['DraftTable'][0]).long()
+        d_list, tok = [], prev
+        for _ in range(R):
+            tok = table[tok.long()].to(torch.int32)
+            d_list.append(tok)
+    else:
+        dparams = _decode_weight_params(ins, prefix='Draft')
+        hd, cd, tok = (data_of(ins['DraftH'][0]), data_of(ins['DraftC'][0]),
+                       prev)
+        d_list, hd_list, cd_list = [], [], []
+        for _ in range(R):
+            hd, cd, logits = greedy_attend_cell(dparams, None, None, hd, cd,
+                                                tok, attend=attend)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            d_list.append(tok)
+            hd_list.append(hd)
+            cd_list.append(cd)
+        hd_seq, cd_seq = torch.stack(hd_list), torch.stack(cd_list)
+    d_seq = torch.stack(d_list)                         # [R, C]
+
+    # -- verify phase: the embedding and input product over all positions,
+    # the slim recurrence, then one stacked projection
+    tok_in = torch.cat([prev[None], d_seq[:R - 1]])     # [R, C]
+    xw = w_emb[tok_in.long()] @ w_dec[:E]               # [R, C, 4H]
+    h_list, c_list = [], []
+    hv, cv = h, c
+    for t in range(R):
+        g = xw[t] + attend(hv @ w_q) @ w_dec[E:] + hv @ u_dec + b_dec
+        gi, gf, gc, go = torch.chunk(g, 4, dim=-1)
+        cv = torch.sigmoid(gf) * cv + torch.sigmoid(gi) * torch.tanh(gc)
+        hv = torch.sigmoid(go) * torch.tanh(cv)
+        h_list.append(hv)
+        c_list.append(cv)
+    h_seq, c_seq = torch.stack(h_list), torch.stack(c_list)   # [R, C, H]
+    logp = torch.log_softmax((h_seq @ w_out + b_out).to(torch.float32),
+                             dim=-1)
+    g_seq = torch.argmax(logp, dim=-1)                  # [R, C]
+    lp_seq = torch.gather(logp, -1, g_seq[..., None])[..., 0]
+    g_seq = g_seq.to(torch.int32)
+
+    # -- accept and rollback: position t is emitted iff every earlier
+    # proposal matched the target's choice and the slot is live there
+    match = g_seq[:R - 1] == d_seq[:R - 1]              # [R-1, C]
+    v = active & ~fin & (step < limit)
+    valid = [v]
+    for t in range(1, R):
+        v = (v & match[t - 1] & (g_seq[t - 1] != end_id)
+             & (step + t < limit))
+        valid.append(v)
+    valid = torch.stack(valid)                          # [R, C]
+    # int32 sums, as the JAX rule's: torch would widen them to int64, and
+    # Step is state the captured graph updates in place
+    n_emit = valid.sum(dim=0, dtype=torch.int32)
+    accepted = (valid[:R - 1] & match).sum(dim=0, dtype=torch.int32)
+
+    # each emitted token at its own (page, offset); beam 1: parent 0
+    ids_pool, par_pool = hist_ids, hist_par
+    zero_par = torch.zeros((C, 1), dtype=torch.int32, device=prev.device)
+    for t in range(R):
+        ids_pool = _paged_hist_write(ids_pool, pt_hist, step + t, page_size,
+                                     valid[t], g_seq[t][:, None])
+        par_pool = _paged_hist_write(par_pool, pt_hist, step + t, page_size,
+                                     valid[t], zero_par)
+    # the scores in emission order (the greedy path's left fold)
+    acc2 = acc
+    for t in range(R):
+        acc2 = acc2 + torch.where(valid[t], lp_seq[t], 0.0)
+
+    # roll back to the state after the last emitted token's input
+    idx = (n_emit - 1).clamp(min=0).long()
+    rows = torch.arange(C, device=prev.device)
+    emitted = active & (n_emit > 0)
+
+    def pick(seq, old):
+        return torch.where(emitted.reshape((-1,) + (1,) * (old.dim() - 1)),
+                           seq[idx, rows], old)
+
+    out = {}
+    if hd_seq is not None:
+        out['DraftHOut'] = pick(hd_seq, data_of(ins['DraftH'][0]))
+        out['DraftCOut'] = pick(cd_seq, data_of(ins['DraftC'][0]))
+    h2, c2 = pick(h_seq, h), pick(c_seq, c)
+    prev2 = torch.where(emitted, g_seq[idx, rows], prev)
+    acc2 = torch.where(emitted, acc2, acc)
+    fin2 = fin | (valid & (g_seq == end_id)).any(dim=0)
+    step2 = step + n_emit
+    bad = active & torch.isnan(acc2)
+    active2 = active & ~(active & (fin2 | (step2 >= limit) | bad))
+    out.update({
+        'HOut': h2[:, None], 'COut': c2[:, None],
+        'PrevIdsOut': prev2[:, None], 'AccOut': acc2[:, None],
+        'FinOut': fin2[:, None], 'HistIdsOut': ids_pool,
+        'HistParOut': par_pool, 'StepOut': step2, 'ActiveOut': active2,
+        'Done': active & ~active2, 'Bad': bad,
+        'Accepted': torch.where(active, accepted, 0)})
+    return out

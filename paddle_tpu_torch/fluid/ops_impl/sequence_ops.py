@@ -31,7 +31,8 @@ from ..core import torch_dtype
 from ..lowering import register, data_of, like, SeqValue
 
 _BEAM_SLICE = ('the capacity (beam) form of a sequence belongs to the '
-               'beam-decode slice of the port (ROADMAP.md Queue A item 6)')
+               'control-flow and LoD beam search slice of the port '
+               '(ROADMAP.md Queue A item 2)')
 
 
 @register('lookup_table')

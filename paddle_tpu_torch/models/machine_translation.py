@@ -5,8 +5,11 @@ Parity: reference benchmark/fluid/models/machine_translation.py
 models/machine_translation.py, op for op: a forward and a reverse
 dynamic_lstm encoder, concatenated; the fused attention_lstm_decoder
 (teacher-forced); a softmax projection over the target vocabulary; the
-cross entropy averaged over valid target steps; Adam. The training program
-only: generation (the fused beam decode) belongs to the beam-decode slice.
+cross entropy averaged over valid target steps; Adam. With
+is_generating=True the encoder feeds one attention_lstm_beam_decode op
+(the JAX :41-74, :105-107), the whole beam search, which reuses the
+training decoder's parameters by name: build it under unique_name.guard()
+so the encoder's names line up with training's too.
 """
 from .. import fluid
 from ..batch import batch
@@ -14,11 +17,6 @@ from ..dataset import wmt14
 from ..fluid.layer_helper import LayerHelper
 
 __all__ = ['seq_to_seq_net', 'get_model']
-
-_BEAM_SLICE = ('machine_translation(is_generating=True): the fused beam '
-               'decode (attention_lstm_beam_decode) belongs to the '
-               'beam-decode slice of the port (ROADMAP.md Queue A item 6)')
-
 
 def _attention_decoder(trg_emb, enc_out, hidden_dim, name='mt'):
     helper = LayerHelper('attention_lstm_decoder')
@@ -43,14 +41,47 @@ def _attention_decoder(trg_emb, enc_out, hidden_dim, name='mt'):
     return out
 
 
+def _beam_decode(enc_out, decoder_size, target_dict_dim, embedding_dim,
+                 beam_size, max_length, start_id=0, end_id=1, name='mt'):
+    """The whole beam search as one op over the training decoder's
+    parameters, the target embedding and the output projection, taken by
+    name. Returns (SentenceIds int64 [B, beam, max_length], SentenceScores
+    float32 [B, beam])."""
+    helper = LayerHelper('attention_lstm_beam_decode')
+    dtype = enc_out.dtype
+    d = enc_out.shape[-1]
+    e, h = embedding_dim, decoder_size
+
+    def param(suffix, shape, is_bias=False):
+        return helper.get_or_create_parameter(name + suffix, shape=shape,
+                                              dtype=dtype, is_bias=is_bias)
+
+    ins = {'EncOut': [enc_out],
+           'WDec': [param('_w_dec', [e + d, 4 * h])],
+           'UDec': [param('_u_dec', [h, 4 * h])],
+           'BDec': [param('_b_dec', [1, 4 * h], is_bias=True)],
+           'WAttnQ': [param('_w_attnq', [h, d])],
+           'WEmb': [param('_trg_emb', [target_dict_dim, e])],
+           'WOut': [param('_w_out', [h, target_dict_dim])],
+           'BOut': [param('_b_out', [1, target_dict_dim], is_bias=True)]}
+    sent_ids = helper.create_variable_for_type_inference('int64')
+    sent_scores = helper.create_variable_for_type_inference('float32')
+    helper.append_op(
+        type='attention_lstm_beam_decode', inputs=ins,
+        outputs={'SentenceIds': [sent_ids], 'SentenceScores': [sent_scores]},
+        attrs={'beam_size': beam_size, 'max_len': max_length,
+               'start_id': start_id, 'end_id': end_id})
+    return sent_ids, sent_scores
+
+
 def seq_to_seq_net(embedding_dim, encoder_size, decoder_size,
                    source_dict_dim, target_dict_dim, is_generating=False,
                    beam_size=3, max_length=50, name='mt'):
     """reference machine_translation.py:seq_to_seq_net. Feeds
     source_sequence, target_sequence and label_sequence (int64, lod_level
-    1). Returns (avg_cost, the feed names)."""
-    if is_generating:
-        raise NotImplementedError(_BEAM_SLICE)
+    1). Returns (avg_cost, the feed names); with is_generating=True it
+    feeds source_sequence only and returns (sentence_ids [B, beam_size,
+    max_length], sentence_scores [B, beam_size])."""
     src_word_idx = fluid.layers.data(name='source_sequence', shape=[1],
                                      dtype='int64', lod_level=1)
     src_embedding = fluid.layers.embedding(
@@ -67,6 +98,10 @@ def seq_to_seq_net(embedding_dim, encoder_size, decoder_size,
                                            use_peepholes=False,
                                            is_reverse=True)
     encoded_vector = fluid.layers.concat(input=[enc_fwd, enc_bwd], axis=2)
+
+    if is_generating:
+        return _beam_decode(encoded_vector, decoder_size, target_dict_dim,
+                            embedding_dim, beam_size, max_length, name=name)
 
     trg_word_idx = fluid.layers.data(name='target_sequence', shape=[1],
                                      dtype='int64', lod_level=1)

@@ -2,8 +2,10 @@
 
 Parity: the JAX package's paddle_tpu.serving, reduced to the
 `ServingEngine` over a `Predictor` and the continuous-batching
-`DecodeEngine` (dense and paged; the router, pod and transport layers wait
-for later slices of the port).
+`DecodeEngine` (dense, paged and speculative, fed encoder rows or source
+tokens through a prefill such as `program_prefill`) with its whole-batch
+baseline `LockstepDecoder` (the router, pod and transport layers wait for
+later slices of the port).
 
     from paddle_tpu_torch import inference, serving
 
@@ -21,6 +23,15 @@ for later slices of the port).
     dec.warmup()
     ids, scores = dec.submit({'enc': enc_rows}, max_new_tokens=20).result()
     dec.shutdown()
+
+    # token requests: the generating program's encoder as the prefill
+    pre = serving.program_prefill(exe, gen_program, scope,
+                                  'source_sequence', encoder_out,
+                                  token_cap=32)
+    dec = serving.DecodeEngine(serving.mt_weights(scope), config,
+                               prefill=pre)
+    dec.warmup(example_feed={'source_sequence': src_ids})
+    ids, scores = dec.submit({'source_sequence': src_ids}).result()
 """
 from . import buckets  # noqa: F401
 from . import pages  # noqa: F401
@@ -28,9 +39,11 @@ from .buckets import default_buckets, pad_rows, pick_bucket  # noqa: F401
 from .engine import (DeadlineExceeded, ServerClosed,  # noqa: F401
                      ServerOverloaded, ServingConfig, ServingEngine)
 from .decode import (DecodeConfig, DecodeEngine,  # noqa: F401
-                     DecodeSlotPoisoned, mt_weights)
+                     DecodeSlotPoisoned, LockstepDecoder, mt_weights,
+                     program_prefill)
 
 __all__ = ['ServingEngine', 'ServingConfig', 'ServerOverloaded',
            'ServerClosed', 'DeadlineExceeded', 'buckets',
            'default_buckets', 'pick_bucket', 'pad_rows', 'DecodeConfig',
-           'DecodeEngine', 'DecodeSlotPoisoned', 'mt_weights', 'pages']
+           'DecodeEngine', 'DecodeSlotPoisoned', 'LockstepDecoder',
+           'mt_weights', 'program_prefill', 'pages']

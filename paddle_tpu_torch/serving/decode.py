@@ -1,9 +1,10 @@
 """Continuous batching for autoregressive beam decode.
 
 Parity: the JAX package's serving/decode.py (DecodeConfig :104,
-mt_weights :243, DecodeEngine :410), the dense and the paged engine. An
-autoregressive decode request is a SEQUENCE of coupled steps; this module
-serves one attention-LSTM beam decoder with iteration-level scheduling:
+mt_weights :243, program_prefill :254, LockstepDecoder :290, DecodeEngine
+:410), the dense, the paged and the speculative engine. An autoregressive
+decode request is a SEQUENCE of coupled steps; this module serves one
+attention-LSTM beam decoder with iteration-level scheduling:
 
   * a fixed-capacity SLOT POOL holds per-sequence decode state (beam
     scores, LSTM rows, token history, encoder rows) as persistable device
@@ -23,11 +24,24 @@ serves one attention-LSTM beam decoder with iteration-level scheduling:
     through int32 page tables; on the card the step's attention is the
     hand-written paged_attention kernel. A full pool blocks admission;
   * PREFIX caching: released encoder pages stay resident keyed by the
-    request's content, and a request with the same encoder rows joins
-    without writing them again.
+    request's content, and a request with the same source joins without
+    a prefill and without writing its pages again;
+  * admission PREFILL (`DecodeEngine(prefill=)`, e.g. `program_prefill`
+    over machine_translation's generating program): the encoder runs on
+    the joining requests' tokens in batches padded to power-of-two
+    buckets, one feed signature (and on the card one captured graph) a
+    bucket;
+  * SPECULATIVE decoding (`DecodeConfig(spec_k=K)` with
+    `DecodeEngine(draft=)`, paged, beam 1): a draft proposes K tokens and
+    the target verifies them in one dispatch, accept and rollback on the
+    device; every attend of the step is the paged_attention kernel on the
+    card.
 
-Requests carry encoder rows directly, `submit({'enc': [S, D]})`. The
-join is a plain function over the handle's tensors (the JAX engine's
+Requests carry source tokens for the prefill, or encoder rows directly,
+`submit({'enc': [S, D]})`, when the engine has none. `LockstepDecoder` is
+the whole-batch baseline both are held to: the generating program's beam
+decode fed encoder rows. The join is a plain function over the handle's
+tensors (the JAX engine's
 jitted scatter): it writes one row per joining request in place with
 index_copy_, whose targets are distinct. On the card those tensors are the
 static state of the step's captured CUDA graph, so the next replay reads
@@ -37,14 +51,14 @@ Per dispatch the loop reads back one small tensor (each slot's active
 flag and step count), and the history pools and scores only when a slot
 releases.
 
-Not ported here (ROADMAP.md Queue A): speculative decoding (`spec_k`,
-`draft=`), streaming (`on_token`, `checkpoint`, `resume`, `cancel`),
-`push_rows`, `export_step_program`, `cache_stats`, `LockstepDecoder`,
-`program_prefill` and the Router.
+Not ported here (ROADMAP.md Queue A): streaming (`on_token`,
+`checkpoint`, `resume`, `cancel`), `push_rows`, `export_step_program` and
+the Router.
 
 Observability: decode.slots.occupied / decode.queue.depth /
 decode.pages.free gauges, decode.step.seconds + decode.ttft.seconds
-histograms, join/release/poison/prefix events and token counters.
+histograms, join/release/poison/prefix/prefill-error events, token and
+speculative proposed/accepted counters.
 """
 import collections
 import concurrent.futures
@@ -55,12 +69,13 @@ import numpy as np
 import torch
 
 from .. import obs
+from . import buckets as _buckets
 from . import pages as _pages
 from .engine import (DeadlineExceeded, ServerClosed, ServerOverloaded,
                      WARMUP_RUNS, _POLL_S)
 
 __all__ = ['DecodeConfig', 'DecodeEngine', 'DecodeSlotPoisoned',
-           'mt_weights', 'WEIGHT_KEYS']
+           'LockstepDecoder', 'mt_weights', 'program_prefill', 'WEIGHT_KEYS']
 
 WEIGHT_KEYS = ('w_dec', 'u_dec', 'b_dec', 'w_q', 'w_emb', 'w_out', 'b_out')
 
@@ -75,7 +90,8 @@ class DecodeConfig(object):
     """Slot-pool / admission policy for a DecodeEngine.
 
     slots:        fixed capacity of the slot pool (the step's batch
-                  dimension).
+                  dimension). Admission prefill batches are padded to the
+                  powers of two up to `slots` (admit_buckets).
     beam_size:    beam width per sequence.
     max_len:      token-buffer capacity per slot; a request's
                   max_new_tokens may not exceed it.
@@ -95,7 +111,9 @@ class DecodeConfig(object):
                   reserved zero page).
     prefix_cache: keep released encoder pages resident keyed by request
                   content (default True when paged).
-    spec_k:       speculative decoding; not ported (raises).
+    spec_k:       speculative decoding (paged, beam_size=1 and bundle=1
+                  only): a draft proposes spec_k tokens a dispatch and the
+                  target verifies them in one step (DecodeEngine(draft=)).
     """
 
     def __init__(self, slots=8, beam_size=3, max_len=32, start_id=0,
@@ -113,10 +131,6 @@ class DecodeConfig(object):
         if not 1 <= int(bundle) <= int(max_len):
             raise ValueError('bundle must be in [1, max_len=%d], got %r'
                              % (max_len, bundle))
-        if spec_k is not None:
-            raise NotImplementedError(
-                'speculative decoding (spec_k) is not ported to '
-                'paddle_tpu_torch yet; see ROADMAP.md Queue A')
         self.bundle = int(bundle)
         self.slots = int(slots)
         self.beam_size = int(beam_size)
@@ -127,9 +141,11 @@ class DecodeConfig(object):
         self.queue_capacity = int(queue_capacity)
         self.overflow = overflow
         self.default_deadline_ms = default_deadline_ms
+        self.admit_buckets = _buckets.default_buckets(self.slots)
         # -- paged state memory -------------------------------------------
         self.paged = page_size is not None
         self.page_size = int(page_size) if self.paged else 0
+        self.spec_k = int(spec_k) if spec_k is not None else 0
         if not self.paged:
             if pages is not None or enc_pages is not None:
                 raise ValueError('pages/enc_pages require page_size '
@@ -137,6 +153,9 @@ class DecodeConfig(object):
             if prefix_cache:
                 raise ValueError('prefix_cache requires page_size (the '
                                  'cache is resident PAGES)')
+            if self.spec_k:
+                raise ValueError('spec_k requires page_size (speculative '
+                                 'decoding runs on the paged engine)')
             self.pages = self.enc_pages = 0
             self.prefix_cache = False
             self.hist_table_width = self.enc_table_width = 0
@@ -172,6 +191,18 @@ class DecodeConfig(object):
                    1 + self.enc_table_width))
         self.prefix_cache = True if prefix_cache is None \
             else bool(prefix_cache)
+        if self.spec_k:
+            if self.spec_k < 1:
+                raise ValueError('spec_k must be >= 1')
+            if self.beam_size != 1:
+                raise ValueError(
+                    'speculative decoding is greedy: spec_k requires '
+                    'beam_size=1 (got %d)' % self.beam_size)
+            if self.bundle != 1:
+                raise ValueError(
+                    'spec_k and bundle>1 are mutually exclusive: the '
+                    'verify pass IS the bundled dispatch (spec_k tokens '
+                    'per step call)')
 
 
 def mt_weights(scope, name='mt'):
@@ -190,6 +221,106 @@ def mt_weights(scope, name='mt'):
             'b_dec': pick('_b_dec'), 'w_q': pick('_w_attnq'),
             'w_emb': pick('_trg_emb'), 'w_out': pick('_w_out'),
             'b_out': pick('_b_out')}
+
+
+def program_prefill(executor, program, scope, feed_name, fetch,
+                    token_cap):
+    """A DecodeEngine prefill callable over an ENCODER Program run by
+    `executor` in `scope` (e.g. machine_translation's generating program,
+    fetching its encoder output). Each request feed is {feed_name: int
+    token array [L] or [L, 1]}, L <= token_cap; the tokens are padded to
+    `token_cap` steps, so each admission bucket is one feed signature (and
+    on the card one captured graph). Returns (enc [n, token_cap, D] with
+    zero rows past each source, src_len [n]); token_cap must not exceed
+    the engine's src_cap."""
+    from ..fluid.lod_tensor import LoDTensor
+    from ..fluid.lowering import SeqValue
+
+    def prefill(feeds):
+        toks, lens = [], []
+        for f in feeds:
+            t = np.asarray(f[feed_name]).reshape(-1)
+            if t.shape[0] > token_cap:
+                raise ValueError(
+                    'source of %d token(s) exceeds the prefill token cap '
+                    '%d' % (t.shape[0], token_cap))
+            lens.append(t.shape[0])
+            toks.append(np.pad(t, (0, token_cap - t.shape[0])))
+        data = np.stack(toks).astype(np.int64)[:, :, None]
+        sv = SeqValue(data, np.asarray(lens, np.int64))
+        out, = executor.run(program, feed={feed_name: sv},
+                            fetch_list=[fetch], scope=scope,
+                            return_numpy=False)
+        if isinstance(out, LoDTensor):
+            # the flat valid rows, padded back to the token cap
+            enc = out.to_seq_value(pad_to=token_cap).data.numpy()
+        else:
+            enc = executor._to_numpy(out)
+        return enc, np.asarray(lens, np.int32)
+
+    return prefill
+
+
+class LockstepDecoder(object):
+    """The whole-batch baseline over the same decoder weights: the
+    generating program's `attention_lstm_beam_decode` op (the whole beam
+    search) fed encoder rows. Every request of a batch pays max_len steps;
+    the continuous engine must match it token for token.
+
+    place: None means CUDAPlace(0), which raises without a card (the JAX
+    class defaults to the CPU); pass fluid.CPUPlace() to run on the
+    CPU."""
+
+    def __init__(self, weights, beam_size, max_len, src_cap, start_id=0,
+                 end_id=1, place=None):
+        from ..fluid import framework
+        from ..fluid.executor import Executor, Scope
+
+        self.beam_size = int(beam_size)
+        self.max_len = int(max_len)
+        self.src_cap = int(src_cap)
+        self._scope = Scope()
+        self._exe = Executor(place)
+        enc_dim = int(np.asarray(weights['w_q']).shape[1])
+        prog = framework.Program()
+        blk = prog.global_block()
+        enc = blk.create_var(name='ls_enc', shape=[-1, self.src_cap, enc_dim],
+                             dtype='float32', lod_level=1, is_data=True)
+        wvars = {}
+        for k in WEIGHT_KEYS:
+            a = np.array(weights[k], dtype=np.float32)
+            wvars[k] = blk.create_var(name='ls_' + k, shape=list(a.shape),
+                                      dtype='float32', persistable=True)
+            self._scope.vars['ls_' + k] = torch.from_numpy(a).to(
+                self._exe.device)
+        ids = blk.create_var(name='ls_sent_ids', shape=None, dtype='int64')
+        scores = blk.create_var(name='ls_sent_scores', shape=None,
+                                dtype='float32')
+        blk.append_op(
+            type='attention_lstm_beam_decode',
+            inputs={'EncOut': [enc], 'WDec': [wvars['w_dec']],
+                    'UDec': [wvars['u_dec']], 'BDec': [wvars['b_dec']],
+                    'WAttnQ': [wvars['w_q']], 'WEmb': [wvars['w_emb']],
+                    'WOut': [wvars['w_out']], 'BOut': [wvars['b_out']]},
+            outputs={'SentenceIds': [ids], 'SentenceScores': [scores]},
+            attrs={'beam_size': self.beam_size, 'max_len': self.max_len,
+                   'start_id': int(start_id), 'end_id': int(end_id)})
+        self._program = prog
+        self._fetch = [ids, scores]
+
+    def run(self, enc, src_len):
+        """enc [n, S<=src_cap, D] float32, src_len [n] -> (sentence_ids
+        [n, beam, max_len] int64, sentence_scores [n, beam] float32)."""
+        from ..fluid.lowering import SeqValue
+        enc = np.asarray(enc, np.float32)
+        if enc.shape[1] < self.src_cap:
+            enc = np.pad(enc, ((0, 0), (0, self.src_cap - enc.shape[1]),
+                               (0, 0)))
+        sv = SeqValue(enc, np.asarray(src_len, np.int64))
+        ids, scores = self._exe.run(self._program, feed={'ls_enc': sv},
+                                    fetch_list=self._fetch,
+                                    scope=self._scope)
+        return ids, scores
 
 
 class _Request(object):
@@ -233,6 +364,8 @@ _G_PAGES_FREE = obs.gauge('decode.pages.free')
 _C_PREFIX_HITS = obs.counter('decode.prefix.hits')
 _C_PREFIX_MISSES = obs.counter('decode.prefix.misses')
 _C_PREFIX_EVICT = obs.counter('decode.prefix.evictions')
+_C_SPEC_PROPOSED = obs.counter('decode.spec.proposed')
+_C_SPEC_ACCEPTED = obs.counter('decode.spec.accepted')
 
 
 class DecodeEngine(object):
@@ -246,17 +379,30 @@ class DecodeEngine(object):
     place: where the slot state and the step run. None means CUDAPlace(0),
     which raises without a card; pass fluid.CPUPlace() to run on the CPU.
 
-    Requests carry the encoder rows directly, {'enc': [S, D]} with
-    S <= config.src_cap (the encoder prefill is not ported yet). They
-    enter through `submit(feed, max_new_tokens=...)` and resolve to
-    (sentence_ids int64 [beam_size, max_new_tokens], sentence_scores
-    float32 [beam_size]).
+    prefill: optional callable(list of request feeds) -> (enc [n, S, D]
+    float array with finite padding, src_len [n]), S <= config.src_cap.
+    It is called with the batch padded up to a power-of-two bucket of
+    config.admit_buckets (the last feed repeated), so it keeps one feed
+    signature a bucket; `program_prefill` builds one from an encoder
+    Program. Without a prefill, each request carries its encoder rows
+    directly: {'enc': [S, D]} with S <= config.src_cap.
+
+    draft: with DecodeConfig(spec_k=K), the speculative draft: a weights
+    dict of WEIGHT_KEYS (the target's vocab and encoder width, any hidden
+    and embedding size) or a [vocab] int next-token table.
+
+    Requests enter through `submit(feed, max_new_tokens=...)` and resolve
+    to (sentence_ids int64 [beam_size, max_new_tokens], sentence_scores
+    float32 [beam_size]): the rows the whole-batch LockstepDecoder gives
+    at max_len=max_new_tokens for the same encoder rows.
     """
 
-    def __init__(self, weights, config=None, place=None):
+    def __init__(self, weights, config=None, place=None, prefill=None,
+                 draft=None):
         from ..fluid.executor import Executor, Scope
 
         self.config = config or DecodeConfig()
+        self._prefill = prefill
         missing = [k for k in WEIGHT_KEYS if k not in weights]
         if missing:
             raise ValueError('decode weights missing %r (need %r)'
@@ -266,6 +412,7 @@ class DecodeEngine(object):
         self._hidden = int(np.asarray(weights['u_dec']).shape[0])
         self._enc_dim = int(np.asarray(weights['w_q']).shape[1])
         self._vocab = int(np.asarray(weights['w_out']).shape[1])
+        self._draft = self._check_draft(draft)
         # host side of the paged state: the allocator + prefix cache
         # (loop-thread owned) and per-slot page assignments
         cfg = self.config
@@ -304,14 +451,56 @@ class DecodeEngine(object):
 
     # -- program build -----------------------------------------------------
 
+    def _check_draft(self, draft):
+        """Validate the speculative draft: a weights dict sharing the
+        target's vocab and encoder width, or a [vocab] int next-token
+        table. Returns ('weights', dict), ('table', int32 array) or
+        None."""
+        cfg = self.config
+        if not cfg.spec_k:
+            if draft is not None:
+                raise ValueError('draft= needs DecodeConfig(spec_k=K)')
+            return None
+        if draft is None:
+            raise ValueError('DecodeConfig(spec_k=%d) needs a draft: '
+                             'DecodeEngine(draft=weights dict or [vocab]'
+                             ' next-token table)' % cfg.spec_k)
+        if isinstance(draft, dict):
+            missing = [k for k in WEIGHT_KEYS if k not in draft]
+            if missing:
+                raise ValueError('draft weights missing %r' % (missing,))
+            d_enc = int(np.asarray(draft['w_q']).shape[1])
+            d_vocab = int(np.asarray(draft['w_out']).shape[1])
+            if d_enc != self._enc_dim or d_vocab != self._vocab:
+                raise ValueError(
+                    'draft must share the target vocab (%d) and enc_dim '
+                    '(%d); got vocab=%d enc_dim=%d'
+                    % (self._vocab, self._enc_dim, d_vocab, d_enc))
+            return ('weights', draft)
+        table = np.asarray(draft)
+        if table.ndim != 1 or table.shape[0] != self._vocab \
+                or not np.issubdtype(table.dtype, np.integer):
+            raise ValueError(
+                'a table draft must be a [vocab=%d] int next-token '
+                'array, got %r %r' % (self._vocab, table.dtype,
+                                      table.shape))
+        return ('table', table.astype(np.int32))
+
+    def _draft_hidden(self):
+        """The weights draft's LSTM width, or None."""
+        if self._draft and self._draft[0] == 'weights':
+            return int(np.asarray(self._draft[1]['u_dec']).shape[0])
+        return None
+
     def _on_prefix_evict(self, key, pages):
         _C_PREFIX_EVICT.inc()
         obs.event('decode.prefix.evict', key=key[:12], pages=len(pages))
 
     def _build_step_program(self, weights):
         """The step-form decode Program: one decode-step op over
-        persistable slot state + the decoder weights, their values put in
-        the engine's scope on the executor's device."""
+        persistable slot state + the decoder weights (and the draft's),
+        their values put in the engine's scope on the executor's
+        device."""
         from ..fluid import core, framework
 
         cfg = self.config
@@ -329,11 +518,15 @@ class DecodeEngine(object):
             self._scope.vars['cbd_' + name] = init.to(dev)
             return v
 
-        wvars = {}
-        for k in WEIGHT_KEYS:
-            a = np.array(weights[k], dtype=np.float32)
-            wvars[k] = pvar(k, list(a.shape), 'float32',
-                            torch.from_numpy(a))
+        def weight_vars(prefix, ws):
+            out = {}
+            for k in WEIGHT_KEYS:
+                a = np.array(ws[k], dtype=np.float32)
+                out[k] = pvar(prefix + k, list(a.shape), 'float32',
+                              torch.from_numpy(a))
+            return out
+
+        wvars = weight_vars('', weights)
 
         spec = {'h': ([C, K, H], 'float32'), 'c': ([C, K, H], 'float32'),
                 'prev_ids': ([C, K], 'int32'), 'acc': ([C, K], 'float32'),
@@ -357,6 +550,10 @@ class DecodeEngine(object):
                 'enc': ([C, S, D], 'float32'), 'mask': ([C, S], 'float32'),
                 'ids_hist': ([C, T, K], 'int32'),
                 'par_hist': ([C, T, K], 'int32')})
+        Hd = self._draft_hidden()
+        if Hd is not None:
+            spec.update({'draft_h': ([C, Hd], 'float32'),
+                         'draft_c': ([C, Hd], 'float32')})
         svars = {}
         for name, (shape, dtype) in spec.items():
             fill = cfg.pages if name == 'pt_hist' else 0
@@ -365,14 +562,21 @@ class DecodeEngine(object):
         done = blk.create_var(name='cbd_done', shape=[C], dtype='bool')
         bad = blk.create_var(name='cbd_bad', shape=[C], dtype='bool')
 
-        ins = {'WDec': [wvars['w_dec']], 'UDec': [wvars['u_dec']],
-               'BDec': [wvars['b_dec']], 'WAttnQ': [wvars['w_q']],
-               'WEmb': [wvars['w_emb']], 'WOut': [wvars['w_out']],
-               'BOut': [wvars['b_out']],
+        def weight_ins(prefix, vs):
+            return {prefix + 'WDec': [vs['w_dec']],
+                    prefix + 'UDec': [vs['u_dec']],
+                    prefix + 'BDec': [vs['b_dec']],
+                    prefix + 'WAttnQ': [vs['w_q']],
+                    prefix + 'WEmb': [vs['w_emb']],
+                    prefix + 'WOut': [vs['w_out']],
+                    prefix + 'BOut': [vs['b_out']]}
+
+        ins = weight_ins('', wvars)
+        ins.update({
                'H': [svars['h']], 'C': [svars['c']],
                'PrevIds': [svars['prev_ids']], 'Acc': [svars['acc']],
                'Fin': [svars['fin']], 'Step': [svars['step']],
-               'Limit': [svars['limit']], 'Active': [svars['active']]}
+               'Limit': [svars['limit']], 'Active': [svars['active']]})
         outs = {'HOut': [svars['h']], 'COut': [svars['c']],
                 'PrevIdsOut': [svars['prev_ids']], 'AccOut': [svars['acc']],
                 'FinOut': [svars['fin']], 'StepOut': [svars['step']],
@@ -394,14 +598,36 @@ class DecodeEngine(object):
                 'ParHist': [svars['par_hist']]})
             outs.update({'IdsHistOut': [svars['ids_hist']],
                          'ParHistOut': [svars['par_hist']]})
-        attrs = {'beam_size': cfg.beam_size, 'end_id': cfg.end_id,
-                 'bundle': cfg.bundle}
-        if cfg.paged:
-            attrs.update(page_size=ps, src_cap=S)
-        blk.append_op(
-            type='attention_lstm_beam_paged_step' if cfg.paged
-            else 'attention_lstm_beam_decode_step',
-            inputs=ins, outputs=outs, attrs=attrs)
+        if cfg.spec_k:
+            accepted = blk.create_var(name='cbd_accepted', shape=[C],
+                                      dtype='int32')
+            outs['Accepted'] = [accepted]
+            if self._draft[0] == 'weights':
+                ins.update(weight_ins('Draft', weight_vars(
+                    'd_', self._draft[1])))
+                ins.update({'DraftH': [svars['draft_h']],
+                            'DraftC': [svars['draft_c']]})
+                outs.update({'DraftHOut': [svars['draft_h']],
+                             'DraftCOut': [svars['draft_c']]})
+            else:
+                ins['DraftTable'] = [pvar(
+                    'd_table', [self._vocab], 'int32',
+                    torch.from_numpy(self._draft[1]))]
+            blk.append_op(
+                type='attention_lstm_spec_decode_step', inputs=ins,
+                outputs=outs,
+                attrs={'end_id': cfg.end_id, 'spec_k': cfg.spec_k,
+                       'page_size': ps, 'src_cap': S,
+                       'draft': self._draft[0]})
+        else:
+            attrs = {'beam_size': cfg.beam_size, 'end_id': cfg.end_id,
+                     'bundle': cfg.bundle}
+            if cfg.paged:
+                attrs.update(page_size=ps, src_cap=S)
+            blk.append_op(
+                type='attention_lstm_beam_paged_step' if cfg.paged
+                else 'attention_lstm_beam_decode_step',
+                inputs=ins, outputs=outs, attrs=attrs)
         self._step_program = prog
         # the step fetches the state a release reads, so a release is a
         # numpy slice of one host copy. Releases are LEVEL-triggered off
@@ -413,6 +639,8 @@ class DecodeEngine(object):
             else ('ids_hist', 'par_hist')
         self._fetch_vars = [svars['active'], svars[ids_n], svars[par_n],
                             svars['acc'], svars['step']]
+        if cfg.spec_k:
+            self._fetch_vars.append(accepted)
         self._state_spec = spec
 
     def _scatter_join(self, slot_idx, enc, mask, limit, pt_hist_rows=None,
@@ -438,6 +666,10 @@ class DecodeEngine(object):
             'step': np.zeros(n, np.int32),
             'limit': np.asarray(limit, np.int32),
             'active': np.ones(n, bool)}
+        Hd = self._draft_hidden()
+        if Hd is not None:
+            rows['draft_h'] = np.zeros((n, Hd), np.float32)
+            rows['draft_c'] = np.zeros((n, Hd), np.float32)
         pages = None
         if cfg.paged:
             rows['pt_hist'] = np.asarray(pt_hist_rows, np.int32)
@@ -494,15 +726,19 @@ class DecodeEngine(object):
             raise ValueError(
                 'max_new_tokens=%d out of range [1, %d] (the slot token '
                 'buffer is fixed at engine build)' % (limit, cfg.max_len))
-        if 'enc' not in feed:
-            raise ValueError("the engine takes encoder rows directly: feed "
-                             "must carry 'enc' (got %r)" % sorted(feed))
-        enc = np.asarray(feed['enc'], np.float32)
-        if enc.ndim != 2 or not 1 <= enc.shape[0] <= cfg.src_cap \
-                or enc.shape[1] != self._enc_dim:
-            raise ValueError("feed['enc'] must be [1<=S<=%d, %d], got %r"
-                             % (cfg.src_cap, self._enc_dim, enc.shape))
-        feed = {'enc': enc}
+        if self._prefill is None:
+            if 'enc' not in feed:
+                raise ValueError(
+                    "an engine without a prefill takes encoder rows "
+                    "directly: feed must carry 'enc' (got %r)"
+                    % sorted(feed))
+            enc = np.asarray(feed['enc'], np.float32)
+            if enc.ndim != 2 or not 1 <= enc.shape[0] <= cfg.src_cap \
+                    or enc.shape[1] != self._enc_dim:
+                raise ValueError(
+                    "feed['enc'] must be [1<=S<=%d, %d], got %r"
+                    % (cfg.src_cap, self._enc_dim, enc.shape))
+            feed = {'enc': enc}
         if deadline_ms is None:
             deadline_ms = cfg.default_deadline_ms
         now = time.monotonic()
@@ -511,7 +747,14 @@ class DecodeEngine(object):
         pkey, hist_need, enc_need = None, 0, 0
         if cfg.paged:
             hist_need = _pages.pages_for(limit, cfg.page_size)
-            enc_need = _pages.pages_for(enc.shape[0], cfg.page_size)
+            if self._prefill is None:
+                enc_need = _pages.pages_for(feed['enc'].shape[0],
+                                            cfg.page_size)
+            else:
+                # the source length is known only after the prefill: the
+                # admission gate budgets the worst case, and the claim
+                # after the prefill takes what the source needs
+                enc_need = cfg.enc_table_width
             if cfg.prefix_cache:
                 pkey = _pages.content_key(feed)
         fut = concurrent.futures.Future()
@@ -588,15 +831,28 @@ class DecodeEngine(object):
 
     # -- warmup ------------------------------------------------------------
 
-    def warmup(self):
-        """Run the step twice with every slot inactive: no-op steps that,
-        on the card, warm the step signature up (kernel build, first-use
-        costs) and capture its CUDA graph before any request."""
+    def warmup(self, example_feed=None):
+        """Run the step twice with every slot inactive (no-op steps) and,
+        with a prefill, the prefill twice at each admission bucket on
+        copies of `example_feed` (any one request feed): on the card that
+        warms each signature up (kernel build, first-use costs) and
+        captures its CUDA graph before any request. Returns the bucket
+        list."""
+        cfg = self.config
+        if self._prefill is not None and example_feed is None:
+            raise ValueError(
+                'warmup() needs example_feed when the engine owns a '
+                'prefill (it cannot make model inputs up)')
         handle = self._acquire()
         with self._handle_lock:
             for _ in range(WARMUP_RUNS):
                 handle.step()
+        if self._prefill is not None:
+            for b in cfg.admit_buckets:
+                for _ in range(WARMUP_RUNS):
+                    self._prefill([dict(example_feed)] * b)
         self._warm = True
+        return list(cfg.admit_buckets)
 
     # -- decode loop -------------------------------------------------------
 
@@ -661,19 +917,67 @@ class DecodeEngine(object):
                 'decode request shed after waiting %.3fs: its deadline '
                 'passed before a slot opened' % waited))
 
+    def _encode(self, reqs):
+        """(enc [m, S, D] float32, src_len [m] int32) of the requests: one
+        prefill batch padded to its admission bucket (the last feed
+        repeated), checked for a malformed return, or the feeds' own rows
+        without a prefill."""
+        cfg = self.config
+        m = len(reqs)
+        if self._prefill is None:
+            src_len = np.asarray([r.feed['enc'].shape[0] for r in reqs],
+                                 np.int32)
+            enc = np.zeros((m, int(src_len.max()), self._enc_dim),
+                           np.float32)
+            for j, r in enumerate(reqs):
+                enc[j, :src_len[j]] = r.feed['enc']
+            return enc, src_len
+        b = _buckets.pick_bucket(m, cfg.admit_buckets)
+        feeds = [r.feed for r in reqs] + [reqs[-1].feed] * (b - m)
+        enc, src_len = self._prefill(feeds)
+        enc = np.asarray(enc, np.float32)[:m]
+        src_len = np.asarray(src_len, np.int32)[:m]
+        # a short or misshapen prefill return fails here, not silently
+        # broadcast into the batch assembly
+        if enc.ndim != 3 or enc.shape[0] != m:
+            raise ValueError(
+                'prefill returned enc of shape %r for %d request(s) (want '
+                '[n, S, %d])' % (getattr(enc, 'shape', None), m,
+                                 self._enc_dim))
+        if src_len.shape != (m,):
+            raise ValueError('prefill returned src_len of shape %r for %d '
+                             'request(s)' % (src_len.shape, m))
+        if enc.shape[1] > cfg.src_cap:
+            raise ValueError('prefill returned %d encoder rows > src_cap=%d'
+                             % (enc.shape[1], cfg.src_cap))
+        return enc, src_len
+
+    @staticmethod
+    def _fail_joins(joins, e):
+        """A prefill or feed fault: only the joining futures fail."""
+        for r in joins:
+            if not r.future.done():
+                r.future.set_exception(e)
+        obs.event('decode.prefill.error', requests=len(joins),
+                  error='%s: %s' % (type(e).__name__, e))
+
     def _admit(self, joins):
-        """Write the joining requests' slot state in one join (loop thread
-        only)."""
+        """Prefill the joining requests and write their slot state in one
+        join (loop thread only). A prefill or feed failure fails only the
+        joining futures."""
         if self.config.paged:
             return self._admit_paged(joins)
         cfg = self.config
         n = len(joins)
-        enc = np.zeros((n, cfg.src_cap, self._enc_dim), np.float32)
-        mask = np.zeros((n, cfg.src_cap), np.float32)
-        for i, r in enumerate(joins):
-            s_len = r.feed['enc'].shape[0]
-            enc[i, :s_len] = r.feed['enc']
-            mask[i, :s_len] = 1.0
+        try:
+            enc_m, src_len = self._encode(joins)
+            enc = np.zeros((n, cfg.src_cap, self._enc_dim), np.float32)
+            enc[:, :enc_m.shape[1]] = enc_m
+            mask = (np.arange(cfg.src_cap)[None, :]
+                    < src_len[:, None]).astype(np.float32)
+        except Exception as e:  # noqa: BLE001 - the joiners' futures own it
+            self._fail_joins(joins, e)
+            return
         free = [i for i, occ in enumerate(self._occupant) if occ is None]
         self._scatter_join(free[:n], enc, mask, [r.limit for r in joins])
         now = time.monotonic()
@@ -687,7 +991,7 @@ class DecodeEngine(object):
                 self._win['joins'] += 1
             _C_JOINS.inc()
             obs.event('decode.join', slot=slot, limit=req.limit,
-                      src_len=int(req.feed['enc'].shape[0]))
+                      src_len=int(src_len[i]))
         self._note_occupancy()
 
     def _note_occupancy(self):
@@ -698,20 +1002,23 @@ class DecodeEngine(object):
                 self._n['slots_high_water'], occ_now)
 
     def _admit_paged(self, joins):
-        """Paged admission (loop thread only): prefix-cache lookups FIRST
+        """Paged admission (loop thread only): prefix-cache lookups first
         (so a resident entry a batch-mate relies on cannot be evicted by
-        this batch's own allocations), then page claims for the misses
-        and every request's history, then one join writing page tables +
-        fresh page content. The admission gate (_pop_live_locked) already
-        budgeted the claims, so they cannot fail; if they do, the gate is
-        wrong and the error fails every future through _loop."""
+        this batch's own allocations), then the prefill for the misses
+        only (a prefix hit joins without one), then page claims for the
+        misses and every request's history, then one join writing page
+        tables + fresh page content. The admission gate
+        (_pop_live_locked) budgeted the worst case, so the claims cannot
+        fail; a prefill or feed failure rolls every claim back and fails
+        only the joining futures."""
         cfg = self.config
         ps, NPE, NPH = (cfg.page_size, cfg.enc_table_width,
                         cfg.hist_table_width)
         S_pad = NPE * ps
         n = len(joins)
-        # enc plan per join: ('hit', pages, src_len) | ('miss',) |
-        # ('dup', i_first), a batch-mate's miss with the same content
+        # enc plan per join: ('hit', pages, src_len) | ('miss', j), j its
+        # row of the prefill batch | ('dup', i_first), a batch-mate's miss
+        # with the same content
         plan = [None] * n
         first_by_key = {}
         miss_idx = []
@@ -725,62 +1032,80 @@ class DecodeEngine(object):
             if r.pkey is not None:
                 first_by_key[r.pkey] = i
                 self._prefix.misses += 1   # cache-level miss
-            plan[i] = ('miss',)
+            plan[i] = ('miss', len(miss_idx))
             miss_idx.append(i)
-        # page claims (cache insertion waits until the content is written)
-        miss_pages = {}
-        for i in miss_idx:
-            need = joins[i].enc_need
-            pages = self._enc_pool.alloc(need, self._prefix)
-            if pages is None:
-                raise RuntimeError(
-                    'encoder page pool exhausted mid-admit (%d needed, %d '
-                    'free)' % (need, self._enc_pool.free_count))
-            miss_pages[i] = pages
-        hist_pages = []
-        for r in joins:
-            pages = self._hist_pool.alloc(r.hist_need)
-            if pages is None:
-                raise RuntimeError(
-                    'history page pool exhausted mid-admit (%d needed, %d '
-                    'free)' % (r.hist_need, self._hist_pool.free_count))
-            hist_pages.append(pages)
-        # the join arrays, one row per joining request
-        enc = np.zeros((n, S_pad, self._enc_dim), np.float32)
-        mask = np.zeros((n, S_pad), np.float32)
-        pt_hist = np.full((n, NPH), cfg.pages, np.int32)
-        pt_enc = np.zeros((n, NPE), np.int32)        # tail: zero page
-        wr_enc = np.full((n, NPE), cfg.enc_pages, np.int32)
-        src_len = np.zeros(n, np.int32)
-        enc_pages_of = [None] * n
-        for i, r in enumerate(joins):
-            kind = plan[i][0]
-            if kind == 'hit':
-                pages, s_len = plan[i][1], plan[i][2]
-            else:
-                first = plan[i][1] if kind == 'dup' else i
-                pages = miss_pages[first]
-                s_len = joins[first].feed['enc'].shape[0]
-            if kind == 'miss':
-                enc[i, :s_len] = r.feed['enc']
-                mask[i, :s_len] = 1.0
-                wr_enc[i, :len(pages)] = pages
-            src_len[i] = s_len
-            enc_pages_of[i] = pages
-            pt_enc[i, :len(pages)] = pages
-            pt_hist[i, :len(hist_pages[i])] = hist_pages[i]
+        claimed_enc, claimed_hist = [], []    # the rollback ledger
+        try:
+            if miss_idx:
+                enc_m, len_m = self._encode([joins[i] for i in miss_idx])
+            # page claims (cache insertion waits until the content is
+            # written)
+            miss_pages = []
+            for j in range(len(miss_idx)):
+                need = _pages.pages_for(int(len_m[j]), ps)
+                pages = self._enc_pool.alloc(need, self._prefix)
+                if pages is None:
+                    raise RuntimeError(
+                        'encoder page pool exhausted mid-admit (%d needed, '
+                        '%d free)' % (need, self._enc_pool.free_count))
+                miss_pages.append(pages)
+                claimed_enc.append(pages)
+            hist_pages = []
+            for r in joins:
+                pages = self._hist_pool.alloc(r.hist_need)
+                if pages is None:
+                    raise RuntimeError(
+                        'history page pool exhausted mid-admit (%d needed, '
+                        '%d free)' % (r.hist_need,
+                                      self._hist_pool.free_count))
+                hist_pages.append(pages)
+                claimed_hist.append(pages)
+            # the join arrays, one row per joining request
+            enc = np.zeros((n, S_pad, self._enc_dim), np.float32)
+            mask = np.zeros((n, S_pad), np.float32)
+            pt_hist = np.full((n, NPH), cfg.pages, np.int32)
+            pt_enc = np.zeros((n, NPE), np.int32)        # tail: zero page
+            wr_enc = np.full((n, NPE), cfg.enc_pages, np.int32)
+            src_len = np.zeros(n, np.int32)
+            enc_pages_of = [None] * n
+            for i, r in enumerate(joins):
+                kind = plan[i][0]
+                if kind == 'hit':
+                    pages, s_len = plan[i][1], plan[i][2]
+                else:
+                    j = plan[i][1] if kind == 'miss' \
+                        else plan[plan[i][1]][1]
+                    pages, s_len = miss_pages[j], int(len_m[j])
+                if kind == 'miss':
+                    enc[i, :enc_m.shape[1]] = enc_m[j]
+                    mask[i, :cfg.src_cap] = np.arange(cfg.src_cap) < s_len
+                    wr_enc[i, :len(pages)] = pages
+                src_len[i] = s_len
+                enc_pages_of[i] = pages
+                pt_enc[i, :len(pages)] = pages
+                pt_hist[i, :len(hist_pages[i])] = hist_pages[i]
+        except Exception as e:  # noqa: BLE001 - the joiners' futures own it
+            for pages in claimed_enc:
+                self._enc_pool.release(pages)
+            for pages in claimed_hist:
+                self._hist_pool.release(pages)
+            for i, r in enumerate(joins):
+                if plan[i][0] == 'hit':
+                    self._prefix.unref(r.pkey)
+            self._fail_joins(joins, e)
+            return
         free = [i for i, occ in enumerate(self._occupant) if occ is None]
         self._scatter_join(free[:n], enc, mask, [r.limit for r in joins],
                            pt_hist, pt_enc, wr_enc)
         # the pages now hold real content: make the miss entries resident
         # (refs = every user in this batch, the first writer plus its
         # dups), so a half-written prefix can never be hit
-        for i in miss_idx:
+        for j, i in enumerate(miss_idx):
             key = joins[i].pkey
             if key is not None:
                 users = 1 + sum(1 for p in plan
                                 if p[0] == 'dup' and p[1] == i)
-                self._prefix.insert(key, miss_pages[i], int(src_len[i]),
+                self._prefix.insert(key, miss_pages[j], int(len_m[j]),
                                     refs=users)
         now = time.monotonic()
         pages_free = self._pages_free()
@@ -941,15 +1266,20 @@ class DecodeEngine(object):
                         self._not_empty.wait(_POLL_S)
                 continue
             handle = self._acquire()
+            spec_k = self.config.spec_k
+            occupied = [slot for slot, occ in enumerate(self._occupant)
+                        if occ is not None]
             t0 = time.perf_counter()
             # host copies own their memory (Executor._to_numpy): a CPU
             # tensor's numpy view would alias state the next join updates
             host = self._exe._to_numpy
             with self._handle_lock:   # vs warmup's step
-                active_v, ids_v, par_v, acc_v, step_v = handle.step()
+                fetched = handle.step()
+                active_v, ids_v, par_v, acc_v, step_v = fetched[:5]
                 # the one host sync of a dispatch: each slot's active flag
-                # and step count, in one copy
-                level = host(torch.stack([active_v.to(torch.int32), step_v]))
+                # and step count (and accepted proposals), in one copy
+                level = host(torch.stack(
+                    [active_v.to(torch.int32), step_v] + list(fetched[5:])))
                 active_np, steps_np = level[0] != 0, level[1]
                 finished = [slot for slot, occ
                             in enumerate(self._occupant)
@@ -965,6 +1295,16 @@ class DecodeEngine(object):
             with self._lock:
                 self._n['steps'] += 1
                 self._win['steps'] += 1
+                if spec_k:
+                    # every occupied slot saw spec_k proposals; Accepted
+                    # counts the ones the target verified
+                    acc_n = int(sum(level[2][s] for s in occupied))
+                    for c in (self._n, self._win):
+                        c['spec_proposed'] += spec_k * len(occupied)
+                        c['spec_accepted'] += acc_n
+            if spec_k:
+                _C_SPEC_PROPOSED.inc(spec_k * len(occupied))
+                _C_SPEC_ACCEPTED.inc(acc_n)
             now = time.monotonic()
             for slot, occ in enumerate(self._occupant):
                 if occ is None:
@@ -1004,6 +1344,9 @@ class DecodeEngine(object):
                          prefix_misses=self._n['prefix_misses'],
                          prefix_evictions=(self._prefix.evictions
                                            if self._prefix else 0))
+        if self.config.spec_k and self._n['spec_proposed']:
+            extra['spec_accept_rate'] = round(
+                self._n['spec_accepted'] / self._n['spec_proposed'], 4)
         obs.event('decode.shutdown', drained=drain, clean=done,
                   completed=self._n['completed'],
                   tokens=self._n['tokens'], **extra)
@@ -1040,6 +1383,12 @@ class DecodeEngine(object):
             out['prefix_misses'] = self._n['prefix_misses']
             out['prefix_evictions'] = (self._prefix.evictions
                                        if self._prefix else 0)
+        if self.config.spec_k:
+            out['spec_proposed'] = self._n['spec_proposed']
+            out['spec_accepted'] = self._n['spec_accepted']
+            out['spec_accept_rate'] = (
+                self._n['spec_accepted'] / self._n['spec_proposed']
+                if self._n['spec_proposed'] else None)
         return out
 
     def stats_window(self):
@@ -1066,7 +1415,18 @@ class DecodeEngine(object):
         else:
             win['pages_free'] = win['pages_total'] = 0
             win['prefix_hit_rate'] = None
+        if self.config.spec_k:
+            win['spec_accept_rate'] = (
+                win.get('spec_accepted', 0) / win['spec_proposed']
+                if win.get('spec_proposed') else None)
         return win
+
+    def cache_stats(self):
+        """The step executor's artifact cache counters (Executor.
+        cache_stats: hits, misses, entries, captures, replays): after
+        warmup() a request stream adds no miss and, on the card, no
+        capture."""
+        return self._exe.cache_stats
 
     def state_bytes(self):
         """Total bytes of the per-request decode STATE tensors (slot state

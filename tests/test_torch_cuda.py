@@ -30,7 +30,11 @@ bitwise; launch counts under replay; a held device fetch unchanged by the
 next replay; Scope.load_numpy seen by the next replay; a step that cannot
 be captured raising with its op's name. The sequence rules on the card
 under sync debug against the CPU (1e-5), and a small stacked-LSTM step
-captured in two time buckets, its replays bitwise the eager walk.
+captured in two time buckets, its replays bitwise the eager walk. The
+speculative decode step under sync debug against the CPU (1e-5, every
+attend a paged_attention launch), the speculative engine token-exact
+against the beam-1 engine on the card, and machine_translation's
+generating program captured, its replays bitwise the eager walk.
 """
 import contextlib
 import importlib
@@ -1942,4 +1946,179 @@ def test_captured_lstm_step_matches_the_eager_walk_in_two_buckets(card):
         cexe.run(main, feed=batch(n), fetch_list=[cost], scope=scope)
     stats = cexe.cache_stats
     assert stats['captures'] == 2 and stats['replays'] == 5, stats
+    assert {n: k.launches for n, k in ops.KERNELS.items()} == before
+
+
+# -- MT generation and speculative decode ---------------------------------------
+
+def _spec_inputs(draft, C=4, V=20, E=8, D=6, H=8, ps=3, src=5, T=8,
+                 spec_k=3):
+    """One mid-flight beam-1 slot pool of the speculative step: a slot near
+    its limit, an inactive one, a finished one, a fresh one; page 0 the
+    zero page; a weights draft of width 4 or a next-token table."""
+    r = np.random.RandomState(31)
+    npe, nph = -(-src // ps), -(-T // ps)
+
+    def w(e, h):
+        return {'WDec': r.randn(e + D, 4 * h) * 0.3,
+                'UDec': r.randn(h, 4 * h) * 0.3,
+                'BDec': r.randn(1, 4 * h) * 0.1, 'WAttnQ': r.randn(h, D) * 0.3,
+                'WEmb': r.randn(V, e) * 0.3, 'WOut': r.randn(h, V) * 0.3,
+                'BOut': r.randn(1, V) * 0.1}
+
+    enc_pages = r.randn(1 + C * npe, ps, D) * 0.5
+    enc_pages[0] = 0
+    mask_pages = np.ones((1 + C * npe, ps))
+    mask_pages[0] = 0
+    mask_pages[2, 1:] = 0
+    pt_hist = np.arange(C * nph).reshape(C, nph)
+    pt_hist[1] = C * nph
+    ins = {k: v.astype('float32') for k, v in w(E, H).items()}
+    ins.update({
+        'H': r.randn(C, 1, H).astype('float32') * 0.5,
+        'C': r.randn(C, 1, H).astype('float32') * 0.5,
+        'PrevIds': r.randint(0, V, (C, 1)).astype('int32'),
+        'Acc': (-r.rand(C, 1) * 3).astype('float32'),
+        'Fin': np.array([[0], [0], [1], [0]], bool),
+        'Step': np.array([6, 0, 3, 0], 'int32'),
+        'Limit': np.array([T, T, 5, T], 'int32'),
+        'Active': np.array([1, 0, 1, 1], bool),
+        'PtHist': pt_hist.astype('int32'),
+        'PtEnc': (1 + np.arange(C * npe)).reshape(C, npe).astype('int32'),
+        'HistIds': r.randint(0, V, (C * nph, ps, 1)).astype('int32'),
+        'HistPar': np.zeros((C * nph, ps, 1), 'int32'),
+        'EncPages': enc_pages.astype('float32'),
+        'MaskPages': mask_pages.astype('float32')})
+    if draft == 'table':
+        ins['DraftTable'] = r.randint(0, V, V).astype('int32')
+    else:
+        ins.update({'Draft' + k: v.astype('float32')
+                    for k, v in w(4, 4).items()})
+        ins['DraftH'] = r.randn(C, 4).astype('float32') * 0.5
+        ins['DraftC'] = r.randn(C, 4).astype('float32') * 0.5
+    return ins, {'end_id': 1, 'spec_k': spec_k, 'page_size': ps,
+                 'src_cap': src,
+                 'draft': 'table' if draft == 'table' else 'weights'}
+
+
+@pytest.mark.parametrize('draft', ['weights', 'table'])
+def test_spec_decode_rule_on_the_card_matches_the_cpu_without_a_sync(
+        card, draft):
+    """One dispatch of attention_lstm_spec_decode_step on the card under
+    set_sync_debug_mode('error') against the CPU's (1e-5; ints equal):
+    every attend is a paged_attention launch, 2 (spec_k + 1) with a
+    weights draft and spec_k + 1 with a table, none on the CPU."""
+    from paddle_tpu_torch.fluid import lowering
+    ins, attrs = _spec_inputs(draft)
+    rule = lowering.get_rule('attention_lstm_spec_decode_step')
+    outs = {}
+    for dev in (card, torch.device('cpu')):
+        tins = {k: [torch.from_numpy(np.array(v)).to(dev)]
+                for k, v in ins.items()}
+        ctx = lowering.Ctx(dev, torch.Generator(device=dev))
+        torch.cuda.synchronize()
+        before = tpa.KERNEL.launches
+        mode = torch.cuda.get_sync_debug_mode()
+        if dev.type == 'cuda':
+            torch.cuda.set_sync_debug_mode('error')
+        try:
+            out = rule(tins, attrs, ctx)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        want = (2 if draft == 'weights' else 1) * (attrs['spec_k'] + 1) \
+            if dev.type == 'cuda' else 0
+        assert tpa.KERNEL.launches - before == want, dev
+        outs[dev.type] = {k: v.cpu().numpy() for k, v in out.items()}
+    assert 'Accepted' in outs['cuda']
+    for k, want in outs['cpu'].items():
+        got = outs['cuda'][k]
+        if want.dtype.kind in 'iub':
+            np.testing.assert_array_equal(got, want, err_msg=k)
+        else:
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5,
+                                       err_msg=k)
+
+
+def test_spec_engine_on_the_card_is_token_exact_against_greedy(card):
+    """DecodeConfig(spec_k=3) with the target as its draft against the
+    beam-1 paged engine, both on the card: equal tokens, scores within
+    1e-5; 2 (spec_k + 1) paged_attention launches a dispatch."""
+    from paddle_tpu_torch import serving
+    r = np.random.RandomState(7)
+    V, E, D, H, SRC, T = 20, 8, 6, 8, 5, 8
+    w = {'w_dec': r.randn(E + D, 4 * H) * 0.3,
+         'u_dec': r.randn(H, 4 * H) * 0.3,
+         'b_dec': r.randn(1, 4 * H) * 0.1, 'w_q': r.randn(H, D) * 0.3,
+         'w_emb': r.randn(V, E) * 0.3, 'w_out': r.randn(H, V) * 0.3,
+         'b_out': r.randn(1, V) * 0.1}
+    encs = [(r.randn(r.randint(2, SRC + 1), D) * 0.5).astype('float32')
+            for _ in range(6)]
+    lims = [3, T, 5, 1, 7, T]
+    out = {}
+    for spec_k in (None, 3):
+        eng = serving.DecodeEngine(w, serving.DecodeConfig(
+            slots=2, beam_size=1, max_len=T, src_cap=SRC, page_size=3,
+            pages=12, spec_k=spec_k), draft=w if spec_k else None)
+        try:
+            eng.warmup()
+            before = tpa.KERNEL.launches
+            futs = [eng.submit({'enc': e}, max_new_tokens=n)
+                    for e, n in zip(encs, lims)]
+            out[spec_k] = [f.result(120) for f in futs]
+            per = 2 * (spec_k + 1) if spec_k else 1
+            assert tpa.KERNEL.launches - before == \
+                per * (eng._handle.steps - 2)
+            if spec_k:
+                assert 0 < eng.stats['spec_accept_rate'] <= 1
+        finally:
+            eng.shutdown()
+    for (ts, ss), (tg, sg) in zip(out[3], out[None]):
+        np.testing.assert_array_equal(ts, tg)
+        np.testing.assert_allclose(ss, sg, rtol=1e-5, atol=1e-5)
+
+
+def test_captured_generating_program_matches_the_eager_walk(card):
+    """machine_translation's generating program (emb, encoder and decoder
+    16, vocab 12, beam 2, max_length 6): four batches of one time bucket
+    (warm-up under sync debug, capture, two replays) against the eager
+    walk from the same weights, sentence ids and scores bitwise; one
+    capture and three replays; against the CPU, ids equal and scores
+    within 1e-5. No kernel of the port launches."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.models import machine_translation as mt
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 3
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        ids, scores = mt.seq_to_seq_net(16, 16, 16, 12, 12,
+                                        is_generating=True, beam_size=2,
+                                        max_length=6)
+    feeder = fluid.DataFeeder(['source_sequence'], fluid.CPUPlace(),
+                              program=main)
+    r = np.random.RandomState(8)
+    feeds = [feeder.feed([(r.randint(2, 12, m).tolist(),)
+                          for m in (n, 1, n - 2, 3)]) for n in (7, 8, 5, 6)]
+    init = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=init)
+    before = {n: k.launches for n, k in ops.KERNELS.items()}
+    runs = []
+    for place, eager in ((fluid.CUDAPlace(0), False),
+                         (fluid.CUDAPlace(0), True),
+                         (fluid.CPUPlace(), False)):
+        scope = fluid.Scope()
+        scope.load_numpy(init.to_numpy(), place)
+        exe = fluid.Executor(place)
+        with (fluid.debugger.check_nan_inf() if eager
+              else contextlib.nullcontext()):
+            runs.append([exe.run(main, feed=f, fetch_list=[ids, scores],
+                                 scope=scope) for f in feeds])
+        if place == fluid.CUDAPlace(0) and not eager:
+            stats = exe.cache_stats
+            assert stats['captures'] == 1 and stats['replays'] == 3, stats
+    for cap, eag, cpu in zip(*runs):
+        assert cap[0].shape == (4, 2, 6) and cap[0].dtype == np.int64
+        np.testing.assert_array_equal(cap[0], eag[0])
+        np.testing.assert_array_equal(cap[1], eag[1])
+        np.testing.assert_array_equal(cap[0], cpu[0])
+        np.testing.assert_allclose(cap[1], cpu[1], rtol=1e-5, atol=1e-5)
     assert {n: k.launches for n, k in ops.KERNELS.items()} == before

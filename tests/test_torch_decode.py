@@ -413,8 +413,10 @@ def test_decode_config_validates():
             serving.DecodeConfig(**kw)
         with pytest.raises(ValueError, match=match):
             JDecodeConfig(**kw)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        serving.DecodeConfig(beam_size=1, page_size=4, pages=8, spec_k=2)
+    # speculative decoding is ported (its validation cases are in
+    # test_torch_spec_decode.py): a paged beam-1 config takes spec_k
+    assert serving.DecodeConfig(beam_size=1, page_size=4, pages=8,
+                                spec_k=2).spec_k == 2
     cfg = serving.DecodeConfig(slots=16, max_len=50, src_cap=32,
                                page_size=16, pages=64)
     assert (cfg.hist_table_width, cfg.enc_table_width, cfg.enc_pages) \

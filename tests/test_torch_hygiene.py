@@ -63,6 +63,9 @@ SUBMODULES = [
     'paddle_tpu_torch.models.understand_sentiment',
     'paddle_tpu_torch.models.machine_translation',
     'paddle_tpu_torch.dataset.imdb', 'paddle_tpu_torch.dataset.wmt14',
+    # machine translation generation and token-fed decode: the prefill's
+    # admission buckets and the engine's typed errors
+    'paddle_tpu_torch.serving.buckets', 'paddle_tpu_torch.serving.engine',
 ]
 
 

@@ -352,8 +352,37 @@ def test_run_bundle_over_sequence_feeds():
     single = [exe.run(main, feed=f, fetch_list=[out], scope=scope)[0]
               for f in feeds]
     np.testing.assert_array_equal(stacked, np.stack(single))
-    with pytest.raises(NotImplementedError, match='sequence'):
-        exe.run_bundle(main, feeds=feeds, fetch_list=[hid], scope=scope)
+    # a sequence fetch is a list of K values, as the JAX run_bundle gives
+    # it (paddle_tpu/fluid/executor.py:1675-1677); a dense one is stacked
+    hids, outs = exe.run_bundle(main, feeds=feeds, fetch_list=[hid, out],
+                                scope=scope)
+    assert isinstance(hids, list) and len(hids) == 3
+    for h, f in zip(hids, feeds):
+        assert h.shape == (9, 4)
+        np.testing.assert_array_equal(
+            h, exe.run(main, feed=f, fetch_list=[hid], scope=scope)[0])
+    assert outs.shape == (3, 3, 2)
+    np.testing.assert_array_equal(outs, stacked)
+    lts, _ = exe.run_bundle(main, feeds=feeds, fetch_list=[hid, out],
+                            scope=scope, return_numpy=False)
+    assert [lt.recursive_sequence_lengths() for lt in lts] == [[[3, 5, 1]]] * 3
+    for lt, h in zip(lts, hids):
+        np.testing.assert_array_equal(np.asarray(lt.data), h)
+    # the same bundle in the JAX package, from the port's startup weights
+    jmain, _, jhid, jout = _seq_program((jfluid, jframework, junique))
+    jscope = JScope()
+    jscope.vars.update(scope.to_numpy([n for n in scope.vars]))
+    jfeeder = jfluid.DataFeeder(['words'], jfluid.CPUPlace(), program=jmain)
+    rng = np.random.RandomState(2)
+    jfeeds = [jfeeder.feed([(rng.randint(0, V, n).tolist(),)
+                            for n in (3, 5, 1)]) for _ in range(3)]
+    with jfluid.scope_guard(jscope):
+        jh, jo = jfluid.Executor(jfluid.CPUPlace()).run_bundle(
+            jmain, feeds=jfeeds, fetch_list=[jhid, jout])
+    assert len(jh) == 3
+    for a, b in zip(hids, jh):
+        np.testing.assert_allclose(a, np.asarray(b), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(outs, np.asarray(jo), rtol=TOL, atol=TOL)
     other = feeder.feed([(rng.randint(0, V, 9).tolist(),)] * 3)
     with pytest.raises(ValueError, match='signature'):
         exe.run_bundle(main, feeds=[feeds[0], other], fetch_list=[out],

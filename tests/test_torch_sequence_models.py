@@ -92,8 +92,41 @@ def test_get_model_emits_the_jax_program(model, width, which):
 
 
 def test_mt_generation_raises_naming_the_beam_slice():
-    with pytest.raises(NotImplementedError, match='beam-decode slice'):
-        tmt.seq_to_seq_net(8, 8, 8, 50, 50, is_generating=True)
+    """Generation is ported: seq_to_seq_net(is_generating=True) emits the
+    JAX program op for op, and from the JAX startup weights gives the JAX
+    sentences (ids equal, scores within TOL)."""
+    progs = {}
+    for name, (fluid, framework, unique_name, models) in (('jax', JAX),
+                                                          ('port', PORT)):
+        main, startup = framework.Program(), framework.Program()
+        with unique_name.guard(), framework.program_guard(main, startup):
+            out = models['mt'].seq_to_seq_net(8, 8, 8, 50, 50,
+                                              is_generating=True)
+        progs[name] = (main, startup, out)
+    (jmain, jstart, jout), (tmain, tstart, tout) = progs['jax'], \
+        progs['port']
+    _assert_same_program(jmain, tmain)
+    _assert_same_program(jstart, tstart)
+    jscope = JScope()
+    with jfluid.scope_guard(jscope):
+        jexe = jfluid.Executor(jfluid.CPUPlace())
+        jexe.run(jstart)
+        rows = np.random.RandomState(4).randint(2, 50, (9, 1)).astype(
+            'int64')
+        lt = [[4, 2, 3]]
+        want = jexe.run(jmain, feed={'source_sequence':
+                                     jfluid.LoDTensor(rows, lt)},
+                        fetch_list=list(jout))
+    tscope = tfluid.Scope()
+    tscope.load_numpy({n: np.array(v) for n, v in jscope.vars.items()},
+                      tfluid.CPUPlace())
+    got = tfluid.Executor(tfluid.CPUPlace()).run(
+        tmain, feed={'source_sequence': tfluid.LoDTensor(rows, lt)},
+        fetch_list=list(tout), scope=tscope)
+    assert got[0].shape == (3, 3, 50) and got[1].shape == (3, 3)
+    np.testing.assert_array_equal(got[0], np.asarray(want[0]))
+    np.testing.assert_allclose(got[1], np.asarray(want[1]), rtol=TOL,
+                               atol=TOL)
 
 
 def test_readers_are_the_jax_readers():
