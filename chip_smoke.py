@@ -242,6 +242,19 @@ replay (each graph adds the launches its capture recorded).
                 classifiers' for_test clones through Predictor with
                 LoDTensor feeds, card against CPU within 1e-5. No kernel
                 of the port launches on these paths.
+  7e. book_models — the last three book models through the same
+                checks and records (dense feeds: one signature, the
+                replay held on another batch): word2vec (get_model: dict
+                2073, embed 32, hidden 256, batch 64, SGD 1e-3),
+                recommender_system (get_model: emb 32, towers 200, batch
+                256, SGD 0.2) and label_semantic_roles at BOOK_SRL
+                (hidden 512, depth 8, batch 10; SGD under the book's
+                staircase exponential decay; the pretrained emb loaded
+                on the card through scope.find_var().get_tensor().set()).
+                word2vec's probabilities and the recommender's scores
+                through Predictor, card against CPU within 1e-5; SRL's
+                decode as BOOK_TIE_FACTOR's note says. The phase's
+                seconds are logged. No kernel of the port launches.
   8. captured — each path's captured step against debug_step's eager
                 walk in this call, at full width: Transformer-base
                 training at batch 16 (get_model, dropout 0.1), fp32 and
@@ -572,6 +585,25 @@ SEQ_LOSS_TOL = 1e-4
 SEQ_GRAD_SPREAD = 3.0
 SEQ_SERVE_TOL = 1e-5
 SEQ_SERVE_ROWS = 8
+# phase 7e (book models): word2vec, recommender_system and
+# label_semantic_roles through _sequence_model (the checks and records of
+# phase 7d); SRL at the reference book's sizes, which are db_lstm's own
+# defaults (word_dim 32, mark_dim 5, hidden 512, depth 8, batch 10), with
+# SGD under exponential_decay(0.01, 100000, 0.5, staircase=True) and the
+# pretrained `emb` loaded through scope.find_var(...).get_tensor().set().
+# The served word2vec probabilities and recommender scores card against
+# CPU within SEQ_SERVE_TOL; SRL's decode is discrete: the card's
+# crf_decoding against the CPU rule on the card's own emissions, equal;
+# the end-to-end paths of the card's and the CPU's Predictor token for
+# token on every sequence whose Viterbi margins (best against second-best
+# score at the last step and at each back-pointer of the path, in float64)
+# exceed BOOK_TIE_FACTOR x the card-CPU emission difference summed over
+# its steps, at least half of BOOK_SRL_SERVE_ROWS sequences.
+BOOK_SRL = dict(word_dim=32, mark_dim=5, hidden_dim=512, depth=8,
+                batch_size=10)
+BOOK_SRL_LR = (0.01, 100000, 0.5)
+BOOK_SRL_SERVE_ROWS = 32
+BOOK_TIE_FACTOR = 4.0
 
 
 def log(*args):
@@ -4180,7 +4212,8 @@ def _valid_tokens(feed, names):
                if n in names and n != 'label_sequence')
 
 
-def _sequence_card_against_cpu(what, main, avg_cost, initial, feed):
+def _sequence_card_against_cpu(what, main, avg_cost, initial, feed,
+                                tag='sequences'):
     """Step 1 from the startup weights on the card and on the CPU at
     SEQ_CPU_BATCH sequences, and on the CPU again from the weights nudged
     by AMP_STATE_NOISE: the loss within SEQ_LOSS_TOL, the gradients'
@@ -4205,13 +4238,13 @@ def _sequence_card_against_cpu(what, main, avg_cost, initial, feed):
     loss_rel = abs(loss['card'] - loss['cpu']) / abs(loss['cpu'])
     bad = [n for i, n in enumerate(gnames)
            if not np.isfinite(outs['card'][1 + i]).all()]
-    log('[sequences] %s step 1 from the startup weights, card vs CPU at %d '
-        'sequences (CPU step %.2f s, card %.2f s): loss %.6f vs %.6f '
+    log('[%s] %s step 1 from the startup weights, card vs CPU at %d '
+        'rows (CPU step %.2f s, card %.2f s): loss %.6f vs %.6f '
         '(relative %.3g, tol %g), nudged %.6f; %d gradients, |diff| / '
         '|cpu| (L2) median %.3g, max %.3g (%s); the CPU\'s own with the '
         'startup weights scaled by 1 + %g * noise: median %.3g, max %.3g '
         '(%s); tol %g x that spread'
-        % (what, SEQ_CPU_BATCH, secs['cpu'], secs['card'], loss['card'],
+        % (tag, what, SEQ_CPU_BATCH, secs['cpu'], secs['card'], loss['card'],
            loss['cpu'], loss_rel, SEQ_LOSS_TOL, loss['nudged'], len(gnames),
            med_g, worst_g[0], worst_g[1], AMP_STATE_NOISE, med_n,
            worst_n[0], worst_n[1], SEQ_GRAD_SPREAD))
@@ -4260,7 +4293,8 @@ def _serve_sequences(what, test, prob, scope, exe, samples):
     return err
 
 
-def _sequence_model(what, build):
+def _sequence_model(what, build, tag='sequences', prepare=None, serve=None,
+                    token_feeds=None):
     """`what` trained SEQ_STEPS captured steps through Executor() on its
     reader's batches (read beforehand through DataFeeder): finite losses;
     one capture per time bucket seen twice or more, every other step of a
@@ -4271,24 +4305,33 @@ def _sequence_model(what, build):
     PROFILED_STEPS replays; a replay on another batch of the common bucket
     against the eager walk (_replay_against_eager); the loss falling on
     the first batch repeated;
-    step 1 against the CPU; the classifiers' serving. Returns a record."""
+    step 1 against the CPU; the classifiers' serving. Returns a record.
+
+    For another phase (`tag`): prepare(scope) runs after the startup
+    program (a pretrained table loaded); serve(test, target, scope, exe,
+    samples) serves the for_test program instead of _serve_sequences;
+    token_feeds names the feeds whose ids count as valid tokens (default:
+    every input sequence). A model with no sequence feed has one
+    signature: its replay is held on another batch."""
     import random
     import torch
     from paddle_tpu_torch import fluid
-    from paddle_tpu_torch.fluid.lowering import map_value
+    from paddle_tpu_torch.fluid.lowering import leaves_of, map_value
     random.seed(SEED)
     t0 = time.perf_counter()
     main, startup, avg_cost, reader, names, test, prob = build()
     scope = fluid.Scope()
     exe = fluid.Executor()
     exe.run(startup, scope=scope)
+    if prepare is not None:
+        prepare(scope)
     initial = scope.to_numpy()
     feeder = fluid.DataFeeder(names, fluid.CUDAPlace(0), program=main)
     batches = list(itertools.islice(reader(), SEQ_STEPS))
     feeds = [feeder.feed(b) for b in batches]
     batch = len(batches[0])
-    log('[sequences] %s: built, initialized on the card and read %d '
-        'batches of %d in %.3f s' % (what, len(feeds), batch,
+    log('[%s] %s: built, initialized on the card and read %d '
+        'batches of %d in %.3f s' % (tag, what, len(feeds), batch,
                                      time.perf_counter() - t0))
     base = exe.cache_stats
     torch.cuda.reset_peak_memory_stats()
@@ -4318,7 +4361,8 @@ def _sequence_model(what, build):
         raise AssertionError('%s: %r over buckets %r: not one capture per '
                              'bucket seen twice' % (what, stats, seen))
     times = [t for t, r in zip(step_s, replayed) if r]
-    tokens = [_valid_tokens(f, names) for f, r in zip(feeds, replayed) if r]
+    tokens = [_valid_tokens(f, token_feeds or names)
+              for f, r in zip(feeds, replayed) if r]
     med = float(np.median(times))
     rec = dict(model=what, batch=batch, losses=losses, step_s=step_s,
                buckets={'x'.join(map(str, b)): n for b, n in seen.items()},
@@ -4352,28 +4396,39 @@ def _sequence_model(what, build):
     # one replay of the captured graph on another batch of its bucket,
     # whose lengths and ids differ from those the replays above copied
     # into the graph's static buffers, against the eager walk
-    fresh = [f for f in feeds if _bucket(f) == common][-1]
-    if all(torch.equal(fresh[n].lengths, feed[n].lengths)
-           for n in _seq_feeds(feed)):
+    same = [f for f in feeds if _bucket(f) == common]
+    fresh = same[-1]
+    seqs = _seq_feeds(feed)
+    # other lengths where the reader's lengths vary, else other ids
+    varies = any(not torch.equal(f[n].lengths, feed[n].lengths)
+                 for f in same for n in seqs)
+    if varies and all(torch.equal(fresh[n].lengths, feed[n].lengths)
+                      for n in seqs):
         raise AssertionError('%s: no second batch of bucket %r with other '
                              'lengths' % (what, common))
+    if all(torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+           for n in feed for a, b in zip(leaves_of(fresh[n]),
+                                         leaves_of(feed[n]))):
+        raise AssertionError('%s: no second batch of bucket %r' % (what,
+                                                                  common))
     h = exe.acquire_step(main, feed=fresh, fetch_list=[avg_cost],
                          scope=scope)
     exact, spread = _replay_against_eager(what, h, art, scope, fresh, 0)
     rec['replay_vs_eager'] = dict(bitwise=exact, within_spread=spread)
-    log('[sequences] %s losses %s' % (what, ', '.join(
+    log('[%s] %s losses %s' % (tag, what, ', '.join(
         '%.4f' % x for x in losses)))
-    log('[sequences] %s buckets (padded time axes of the sequence feeds: '
+    log('[%s] %s buckets (padded time axes of the sequence feeds: '
         'batches) %s; captures %d, replays %d; graph pool reserved by each '
-        'capture (GB) %s' % (what, rec['buckets'], stats['captures'],
+        'capture (GB) %s' % (tag, what, rec['buckets'], stats['captures'],
                              stats['replays'], rec['graph_pool_gb']))
-    log('[sequences] %s median replayed step over %d reader batches %.4f s: '
-        '%.1f sequences/s and %.0f valid tokens/s at batch %d; peak memory '
+    log('[%s] %s median replayed step over %d reader batches %.4f s: '
+        '%.1f %s/s and %.0f valid tokens/s at batch %d; peak memory '
         '%.3f GB; replay of one batch %.4f ms against the eager walk\'s '
         '%.4f ms; device busy %.3f ms a step (idle %.3f of the median '
         'replay), %.0f device kernels a step; top device kernels (ms a '
         'step) %s; card: %s'
-        % (what, len(times), med, batch / med, rec['valid_tokens_per_s'],
+        % (tag, what, len(times), med, batch / med,
+           'sequences' if seqs else 'examples', rec['valid_tokens_per_s'],
            batch, peak / 1e9, m['captured']['median_step_ms'],
            m['eager']['median_step_ms'], m['captured']['device_busy_ms'],
            m['captured']['idle_share_of_median_step'],
@@ -4386,8 +4441,8 @@ def _sequence_model(what, build):
                                       scope=s2)[0]).reshape(-1)[0])
              for _ in range(SEQ_LEARN_STEPS)]
     del s2
-    log('[sequences] %s, the first batch repeated %d steps from the '
-        'startup weights: loss %s' % (what, SEQ_LEARN_STEPS, ', '.join(
+    log('[%s] %s, the first batch repeated %d steps from the '
+        'startup weights: loss %s' % (tag, what, SEQ_LEARN_STEPS, ', '.join(
             '%.4f' % x for x in learn)))
     rec['falling_losses'] = learn
     if not np.mean(learn[-DENSE_WINDOW:]) < np.mean(learn[:DENSE_WINDOW]):
@@ -4395,8 +4450,10 @@ def _sequence_model(what, build):
     small = fluid.DataFeeder(names, fluid.CPUPlace(), program=main).feed(
         batches[0][:SEQ_CPU_BATCH])
     rec['card_vs_cpu'] = _sequence_card_against_cpu(what, main, avg_cost,
-                                                    initial, small)
-    if test is not None:
+                                                    initial, small, tag)
+    if serve is not None:
+        rec['serve'] = serve(test, prob, scope, exe, batches[-1])
+    elif test is not None:
         rec['serve_max_abs_err'] = _serve_sequences(
             what, test, prob, scope, exe, batches[-1])
     del exe, scope
@@ -4419,6 +4476,242 @@ def phase_sequences():
         raise AssertionError('the sequence paths launched %r' % counts)
     log(json.dumps({'sequences': records}))
     return {'sequences': counts}
+
+
+# -- phase 7e ---------------------------------------------------------------
+
+def build_word2vec():
+    """word2vec.get_model(): dict 2073, embed 32, hidden 256, N 5, batch
+    64, SGD 1e-3; serves the for_test program's softmax."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import unique_name
+    from paddle_tpu_torch.models import word2vec
+    main, startup = _program_pair()
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        loss, test, reader, _, names = word2vec.get_model()
+    return main, startup, loss, reader, names, test, _last_softmax(test)
+
+
+def build_recommender():
+    """recommender_system.get_model(): emb 32, towers 200, batch 256, SGD
+    0.2; serves the scaled cosine."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import unique_name
+    from paddle_tpu_torch.models import recommender_system
+    main, startup = _program_pair()
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        loss, infer, test, reader, _, names = \
+            recommender_system.get_model()
+    return main, startup, loss, reader, names, test, infer.name
+
+
+def build_srl():
+    """label_semantic_roles at BOOK_SRL, SGD under the book's staircase
+    exponential decay; serves crf_decoding's path from the for_test
+    clone."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import unique_name
+    from paddle_tpu_torch.models import label_semantic_roles
+    main, startup = _program_pair()
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        loss, decode, reader, names = label_semantic_roles.get_model(
+            **BOOK_SRL)
+        lr = fluid.layers.exponential_decay(*BOOK_SRL_LR, staircase=True)
+        fluid.optimizer.SGD(learning_rate=lr).minimize(loss)
+    return main, startup, loss, reader, names, main.clone(for_test=True), \
+        decode.name
+
+
+def _load_srl_embedding(scope):
+    from paddle_tpu_torch.models import label_semantic_roles
+    shape = label_semantic_roles.load_pretrained_embedding(scope=scope)
+    if scope.vars['emb'].device.type != 'cuda':
+        raise AssertionError('the pretrained emb left the card')
+    log('[book] label_semantic_roles: pretrained emb %r loaded on the card '
+        'through scope.find_var(...).get_tensor().set()' % (shape,))
+
+
+def _book_request(samples, names):
+    """{name: rows} of samples for `names`, the first len(names) slots of
+    each sample: a list slot as a LoDTensor, a number as an int64 [N, 1]
+    array."""
+    from paddle_tpu_torch import fluid
+    req = {}
+    for i, n in enumerate(names):
+        col = [s[i] for s in samples]
+        if isinstance(col[0], (list, tuple)):
+            req[n] = fluid.LoDTensor(
+                np.concatenate(col).reshape(-1, 1).astype('int64'),
+                [[len(c) for c in col]])
+        else:
+            req[n] = np.array(col, 'int64').reshape(-1, 1)
+    return req
+
+
+def _predict(test, target, scope, exe, names, req):
+    """The for_test program saved with save_inference_model and served by
+    Predictor on the card (three calls: warm-up, capture, replay) and on
+    the CPU: (the card's outputs, the CPU's, the card's cache stats)."""
+    from paddle_tpu_torch import fluid, inference
+    with tempfile.TemporaryDirectory() as d:
+        fluid.io.save_inference_model(
+            d, names, [test.global_block().var(target)], exe,
+            main_program=test, scope=scope)
+        card = inference.Predictor(d)
+        got = [card.run(req)[0] for _ in range(3)]
+        want = inference.Predictor(d, place=fluid.CPUPlace()).run(req)[0]
+        stats = card._exe.cache_stats
+    if not (all(np.array_equal(g, got[0]) for g in got)
+            and stats['captures'] == 1):
+        raise AssertionError('Predictor on the card: three calls differ or '
+                             'no capture: %r' % (stats,))
+    return got[-1], want, stats
+
+
+def _serve_book(what, feeds):
+    """serve() of a dense-output book model: its input `feeds` (the first
+    slots of each sample) of SEQ_SERVE_ROWS samples, card against CPU
+    within SEQ_SERVE_TOL of max(1, |y|)."""
+    def serve(test, target, scope, exe, samples):
+        rows = samples[:SEQ_SERVE_ROWS]
+        got, want, stats = _predict(test, target, scope, exe, feeds,
+                                    _book_request(rows, feeds))
+        err = float(np.abs(got - want).max())
+        scale = max(1.0, float(np.abs(want).max()))
+        log('[book] %s for_test program through Predictor, %d rows (feeds '
+            '%s): card vs CPU max abs err %.3g (tol %g x %g); %r'
+            % (what, len(rows), feeds, err, SEQ_SERVE_TOL, scale, stats))
+        if not (got.shape == want.shape and got.shape[0] == len(rows)
+                and np.isfinite(got).all() and err <= SEQ_SERVE_TOL * scale):
+            raise AssertionError('%s served through Predictor: err %.3g, '
+                                 'shape %r' % (what, err, got.shape))
+        return dict(max_abs_err=err, rows=len(rows))
+    return serve
+
+
+def _viterbi_margin(em, trans):
+    """The Viterbi path of one sequence's emissions em [L, C] under
+    trans [C + 2, C], in float64, and its smallest margin: best minus
+    second-best score at the last step and at each back-pointer the path
+    takes."""
+    a, b, w = trans[0], trans[1], trans[2:]
+    delta = a + em[0]
+    ptrs = []
+    for t in range(1, len(em)):
+        scores = delta[:, None] + w
+        top2 = np.partition(scores, -2, axis=0)[-2:]
+        ptrs.append((scores.argmax(0), top2[1] - top2[0]))
+        delta = scores.max(0) + em[t]
+    final = delta + b
+    top2 = np.partition(final, -2)[-2:]
+    state = int(final.argmax())
+    path, margins = [state], [top2[1] - top2[0]]
+    for arg, gap in reversed(ptrs):
+        margins.append(gap[state])
+        state = int(arg[state])
+        path.append(state)
+    return path[::-1], float(min(margins))
+
+
+def _serve_srl(test, decode, scope, exe, samples):
+    """SRL's decode on the card: crf_decoding of the for_test clone run on
+    the card against the CPU rule on the card's own emissions (equal);
+    the card's and the CPU's Predictor token for token on the sequences
+    without near-ties (_viterbi_margin against BOOK_TIE_FACTOR x the
+    card-CPU emission difference summed over the sequence)."""
+    import torch
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import lowering
+    from paddle_tpu_torch.models import label_semantic_roles
+    names = label_semantic_roles.FEED_ORDER[:-1]
+    rows = samples
+    while len(rows) < BOOK_SRL_SERVE_ROWS:
+        rows = rows + samples
+    rows = rows[:BOOK_SRL_SERVE_ROWS]
+    req = _book_request(rows, names)
+    lens = [len(s[0]) for s in rows]
+    op = [o for o in test.global_block().ops if o.type == 'crf_decoding'][0]
+    em_name = op.inputs['Emission'][0].name
+    pruned = test.prune([test.global_block().var(em_name),
+                         test.global_block().var(decode)])
+    cpu_scope = fluid.Scope()
+    cpu_scope.load_numpy(scope.to_numpy(), fluid.CPUPlace())
+    em_card, dec_card = exe.run(pruned, feed=req, fetch_list=[em_name,
+                                                               decode],
+                                scope=scope)
+    em_cpu, = fluid.Executor(fluid.CPUPlace()).run(
+        pruned, feed=req, fetch_list=[em_name], scope=cpu_scope)
+    trans = scope.to_numpy(['crfw'])['crfw']
+    # the CPU rule on the card's emissions, padded to the longest
+    B, T, C = len(lens), max(lens), em_card.shape[1]
+    pad = np.zeros((B, T, C), 'float32')
+    starts = np.cumsum([0] + lens)
+    for i, n in enumerate(lens):
+        pad[i, :n] = em_card[starts[i]:starts[i + 1]]
+    rule = lowering.get_rule('crf_decoding')(
+        {'Emission': [lowering.SeqValue(torch.from_numpy(pad),
+                                        torch.tensor(lens))],
+         'Transition': [torch.from_numpy(trans)]}, {},
+        lowering.Ctx(torch.device('cpu'), torch.Generator()))
+    want = np.concatenate([rule['ViterbiPath'].data[i, :n, 0].numpy()
+                           for i, n in enumerate(lens)])
+    rule_same = np.array_equal(dec_card.reshape(-1), want)
+    got, cpu, stats = _predict(test, decode, scope, exe, names, req)
+    got, cpu = got.reshape(-1), cpu.reshape(-1)
+    clear, same, emb_err = 0, 0, 0.0
+    for i, n in enumerate(lens):
+        sl = slice(starts[i], starts[i + 1])
+        diff = np.abs(em_card[sl].astype('float64') - em_cpu[sl]).max(1)
+        emb_err = max(emb_err, float(diff.max()))
+        path, margin = _viterbi_margin(em_cpu[sl].astype('float64'),
+                                       trans.astype('float64'))
+        if margin > BOOK_TIE_FACTOR * float(diff.sum()):
+            clear += 1
+            same += bool(np.array_equal(got[sl], cpu[sl]))
+    log('[book] label_semantic_roles decode of %d sequences (lengths %s): '
+        'the card\'s crf_decoding against the CPU rule on its emissions %s; '
+        'emissions card vs CPU max abs diff %.3g; %d sequences without a '
+        'near-tie, %d of them token for token equal through Predictor '
+        '(card vs CPU); all: %d of %d tokens equal; %r'
+        % (len(lens), lens, 'equal' if rule_same else 'DIFFER', emb_err,
+           clear, same, int((got == cpu).sum()), got.size, stats))
+    if not (rule_same and clear * 2 >= len(lens) and same == clear
+            and ((got >= 0) & (got < C)).all()):
+        raise AssertionError(
+            'label_semantic_roles decode: rule equal %s, %d of %d sequences '
+            'clear of near-ties, %d of those equal' % (rule_same, clear,
+                                                       len(lens), same))
+    return dict(rule_equal=rule_same, sequences=len(lens),
+                clear_of_ties=clear, equal=same, emission_max_abs_diff=emb_err)
+
+
+def phase_book_models():
+    """word2vec, recommender_system and label_semantic_roles (hidden 512,
+    depth 8) training at full width through the entry points on the card,
+    and served through Predictor (no kernel of the port on their paths);
+    returns {'book_models': launch counts}."""
+    import torch
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    records = [
+        _sequence_model('word2vec', build_word2vec, tag='book',
+                        serve=_serve_book('word2vec', [
+                            'word_%d' % i for i in range(4)])),
+        _sequence_model('recommender_system', build_recommender, tag='book',
+                        serve=_serve_book('recommender_system', [
+                            'user_id', 'gender_id', 'age_id', 'job_id',
+                            'movie_id', 'category_id', 'movie_title'])),
+        _sequence_model('label_semantic_roles', build_srl, tag='book',
+                        prepare=_load_srl_embedding, serve=_serve_srl,
+                        token_feeds=['word_data'])]
+    torch.cuda.synchronize()
+    counts = _launch_counts()
+    if any(counts.values()):
+        raise AssertionError('the book model paths launched %r' % counts)
+    secs = time.perf_counter() - t0
+    log('[book] phase 7e took %.1f s' % secs)
+    log(json.dumps({'book_models': records, 'seconds': secs}))
+    return {'book_models': counts}
 
 
 # -- phase 8 ----------------------------------------------------------------
@@ -5050,6 +5343,7 @@ def main():
                         ('amp', phase_amp),
                         ('dense_training', phase_dense_training),
                         ('sequences', phase_sequences),
+                        ('book_models', phase_book_models),
                         ('captured', phase_captured)):
         _between_phases(name)
         counts = phase()

@@ -55,6 +55,58 @@ __all__ = ['Executor', 'Scope', 'StepHandle', 'FetchHandle',
            'global_scope', 'scope_guard', 'anomaly_guard']
 
 
+class _VarHolder(object):
+    """The pybind Variable handle (find_var().get_tensor()), the JAX
+    :175."""
+
+    def __init__(self, scope, name):
+        self._scope = scope
+        self._name = name
+
+    def get_tensor(self):
+        return _TensorHandle(self._scope, self._name)
+
+    def set(self, value, place=None):
+        self._scope._set_tensor(self._name, value, place)
+
+
+class _TensorHandle(object):
+    """The pybind Tensor surface on a scope var (the JAX :189): reads like
+    an ndarray (__array__), writes back with set(value, place), so the
+    reference idiom `scope.find_var(n).get_tensor().set(arr, place)` loads
+    a pretrained parameter (book test_label_semantic_roles.py:180)."""
+
+    def __init__(self, scope, name):
+        self._scope = scope
+        self._name = name
+
+    def _raw(self):
+        v = self._scope.vars[self._name]
+        return v.data if isinstance(v, SeqValue) else v
+
+    def __array__(self, dtype=None, copy=None):
+        if copy is False:
+            # NumPy 2's __array__ contract: a device tensor reaches numpy
+            # through a copy, so a no-copy request cannot be met
+            raise ValueError(
+                'converting a device tensor to numpy requires a '
+                'device-to-host copy; copy=False cannot be satisfied')
+        a = numpy_of(self._raw().detach().cpu()).copy()
+        if dtype is not None and a.dtype != np.dtype(dtype):
+            a = a.astype(dtype)
+        return a
+
+    def set(self, value, place=None):
+        self._scope._set_tensor(self._name, value, place)
+
+    def shape(self):
+        # metadata only: no copy to the host
+        return list(self._raw().shape)
+
+    def __repr__(self):
+        return '_TensorHandle(%r, shape=%r)' % (self._name, self.shape())
+
+
 class Scope(object):
     """name -> tensor store, optionally chained to a parent scope
     (reference paddle/fluid/framework/scope.h: kid scopes fall back to the
@@ -63,6 +115,35 @@ class Scope(object):
     def __init__(self, parent=None):
         self.vars = collections.OrderedDict()
         self.parent = parent
+
+    def find_var(self, name):
+        """A handle on `name` in this scope or the nearest parent that
+        holds it, or None."""
+        if name in self.vars:
+            return _VarHolder(self, name)
+        if self.parent is not None:
+            return self.parent.find_var(name)
+        return None
+
+    def var(self, name):
+        """A handle on `name`, created empty in this scope if absent."""
+        self.vars.setdefault(name, None)
+        return _VarHolder(self, name)
+
+    def _set_tensor(self, name, value, place):
+        """Bind `name` to a copy of `value` (an array or a tensor). Over a
+        tensor already bound, the copy takes that tensor's device and
+        dtype (a persistable keeps both: a captured step copies the new
+        value into its static state before its next replay); a new name
+        goes to `place`'s device, the CPU without one."""
+        old = self.vars.get(name)
+        t = value.detach() if isinstance(value, torch.Tensor) \
+            else tensor_of_numpy(value)
+        if isinstance(old, torch.Tensor):
+            t = t.to(device=old.device, dtype=old.dtype)
+        elif place is not None:
+            t = t.to(place.torch_device())
+        self.vars[name] = t.clone()
 
     def new_scope(self):
         return Scope(parent=self)

@@ -121,6 +121,15 @@ class LayerHelper(object):
             name=attr.name, shape=shape, dtype=dtype,
             **{k: v for k, v in attr.to_kwargs().items() if k != 'name'})
 
+    def get_parameter(self, name):
+        """The named Parameter of the main program (the JAX :213: a layer
+        that reads another layer's weights, as crf_decoding reads the
+        transition linear_chain_crf created)."""
+        param = self.main_program.global_block().var(name)
+        if not isinstance(param, Parameter):
+            raise ValueError("no Parameter named %s" % name)
+        return param
+
     def get_or_create_parameter(self, name, shape, dtype, is_bias=False):
         """The named parameter of this program if it has one, else a new
         one (the JAX :195: decoders that share weights by name)."""

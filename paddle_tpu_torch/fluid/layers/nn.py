@@ -1,8 +1,8 @@
 """Neural-network layers. Parity: reference python/paddle/fluid/layers/nn.py
 and the JAX package's fluid/layers/nn.py — the dense, sequence and
-recurrent layers whose rules the port carries (the detection, CRF/CTC and
-sampled layers wait for their slices). Each appends op symbols lowered by
-ops_impl/.
+recurrent layers and the CRF/CTC layers whose rules the port carries (the
+detection and sampled layers wait for their slices). Each appends op
+symbols lowered by ops_impl/.
 """
 import numpy as np
 
@@ -25,7 +25,8 @@ __all__ = [
     'sequence_conv', 'sequence_pool', 'sequence_first_step',
     'sequence_last_step', 'sequence_softmax', 'sequence_expand',
     'sequence_reshape', 'im2sequence', 'row_conv', 'lod_reset',
-    'sequence_mask',
+    'sequence_mask', 'linear_chain_crf', 'crf_decoding', 'chunk_eval',
+    'ctc_greedy_decoder', 'edit_distance', 'warpctc',
 ]
 
 
@@ -872,3 +873,113 @@ def sequence_mask(x, maxlen=None, dtype='int64', name=None):
                      attrs={'maxlen': maxlen if maxlen is not None else -1,
                             'out_dtype': dtype})
     return out
+
+
+def linear_chain_crf(input, label, param_attr=None):
+    """The CRF's negative log-likelihood per sequence [B, 1]; its
+    transition parameter [size + 2, size] holds the start weights in row
+    0, the stop weights in row 1 and the pair weights below."""
+    helper = LayerHelper('linear_chain_crf', **locals())
+    size = input.shape[-1]
+    transition = helper.create_parameter(attr=helper.param_attr,
+                                         shape=[size + 2, size],
+                                         dtype=helper.input_dtype())
+    alpha = helper.create_variable_for_type_inference(helper.input_dtype())
+    emission_exps = helper.create_variable_for_type_inference(
+        helper.input_dtype())
+    transition_exps = helper.create_variable_for_type_inference(
+        helper.input_dtype())
+    log_likelihood = helper.create_variable_for_type_inference(
+        helper.input_dtype())
+    helper.append_op(type='linear_chain_crf',
+                     inputs={"Emission": [input], "Transition": [transition],
+                             "Label": [label]},
+                     outputs={"Alpha": [alpha],
+                              "EmissionExps": [emission_exps],
+                              "TransitionExps": [transition_exps],
+                              "LogLikelihood": [log_likelihood]})
+    return log_likelihood
+
+
+def crf_decoding(input, param_attr, label=None):
+    """The Viterbi path under the transition `param_attr` names; with a
+    label, the per-token 0/1 match mask."""
+    helper = LayerHelper('crf_decoding', **locals())
+    transition = helper.get_parameter(param_attr.name)
+    viterbi_path = helper.create_variable_for_type_inference('int64')
+    inputs = {"Emission": [input], "Transition": [transition]}
+    if label is not None:
+        inputs["Label"] = [label]
+    helper.append_op(type='crf_decoding', inputs=inputs,
+                     outputs={"ViterbiPath": [viterbi_path]})
+    return viterbi_path
+
+
+def chunk_eval(input, label, chunk_scheme, num_chunk_types,
+               excluded_chunk_types=None):
+    """Precision, recall, F1 and the three chunk counts of a tagging
+    against its label, under chunk_scheme 'IOB', 'IOE', 'IOBES' or
+    'plain'."""
+    helper = LayerHelper("chunk_eval", **locals())
+    precision = helper.create_variable_for_type_inference(dtype="float32")
+    recall = helper.create_variable_for_type_inference(dtype="float32")
+    f1_score = helper.create_variable_for_type_inference(dtype="float32")
+    num_infer_chunks = helper.create_variable_for_type_inference(
+        dtype="int64")
+    num_label_chunks = helper.create_variable_for_type_inference(
+        dtype="int64")
+    num_correct_chunks = helper.create_variable_for_type_inference(
+        dtype="int64")
+    helper.append_op(
+        type="chunk_eval",
+        inputs={"Inference": [input], "Label": [label]},
+        outputs={"Precision": [precision], "Recall": [recall],
+                 "F1-Score": [f1_score],
+                 "NumInferChunks": [num_infer_chunks],
+                 "NumLabelChunks": [num_label_chunks],
+                 "NumCorrectChunks": [num_correct_chunks]},
+        attrs={"num_chunk_types": num_chunk_types,
+               "chunk_scheme": chunk_scheme,
+               "excluded_chunk_types": excluded_chunk_types or []})
+    return (precision, recall, f1_score, num_infer_chunks, num_label_chunks,
+            num_correct_chunks)
+
+
+def ctc_greedy_decoder(input, blank, name=None):
+    """The per-frame argmax with repeats merged and blanks dropped (the
+    ctc_align op)."""
+    helper = LayerHelper("ctc_greedy_decoder", **locals())
+    ctc_out = helper.create_variable_for_type_inference(dtype="int64")
+    helper.append_op(type="ctc_align", inputs={"Input": [input]},
+                     outputs={"Output": [ctc_out]},
+                     attrs={"merge_repeated": True, "blank": blank})
+    return ctc_out
+
+
+def edit_distance(input, label, normalized=True, ignored_tokens=None):
+    """The Levenshtein distance of each hypothesis to its reference [B, 1]
+    (divided by the reference's length when normalized) and the number of
+    sequences."""
+    helper = LayerHelper("edit_distance", **locals())
+    edit_distance_out = helper.create_variable_for_type_inference(
+        dtype="float32")
+    sequence_num = helper.create_variable_for_type_inference(dtype="int64")
+    helper.append_op(type="edit_distance",
+                     inputs={"Hyps": [input], "Refs": [label]},
+                     outputs={"Out": [edit_distance_out],
+                              "SequenceNum": [sequence_num]},
+                     attrs={"normalized": normalized,
+                            "ignored_tokens": ignored_tokens or []})
+    return edit_distance_out, sequence_num
+
+
+def warpctc(input, label, blank=0, norm_by_times=False):
+    """The CTC loss of each sequence of logits against its label [B, 1]."""
+    helper = LayerHelper('warpctc', **locals())
+    loss_out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    grad_out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(type='warpctc',
+                     inputs={'Logits': [input], 'Label': [label]},
+                     outputs={'WarpCTCGrad': [grad_out], 'Loss': [loss_out]},
+                     attrs={'blank': blank, 'norm_by_times': norm_by_times})
+    return loss_out

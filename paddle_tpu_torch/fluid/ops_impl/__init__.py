@@ -11,3 +11,4 @@ from . import optim_ops  # noqa: F401
 from . import lod_beam  # noqa: F401
 from . import sampled_ops  # noqa: F401
 from . import extra_ops  # noqa: F401
+from . import crf_ctc_ops  # noqa: F401

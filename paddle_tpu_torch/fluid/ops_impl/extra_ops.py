@@ -2,7 +2,8 @@
 (:183-257; reference paddle/fluid/operators/{sequence_concat,
 sequence_slice,sequence_erase}_op.cc). The module's other 25 rules (the
 extra losses, norms, proximal optimizers, fake quantize, spp, unpool, ...)
-wait for the rest of the training surface (ROADMAP.md Queue A item 3).
+wait for the rest of the training surface (ROADMAP.md Queue A, "The rest
+of the training surface").
 
 Each rule keeps the padded layout: gathers along the time axis with the
 positions computed on the device, so a captured step runs them.

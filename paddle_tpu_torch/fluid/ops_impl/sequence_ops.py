@@ -32,7 +32,8 @@ from ..lowering import register, data_of, like, SeqValue
 
 _BEAM_SLICE = ('the capacity (beam) form of a sequence belongs to the '
                'control-flow and LoD beam search slice of the port '
-               '(ROADMAP.md Queue A item 2)')
+               '(ROADMAP.md Queue A, "Control flow and the LoD beam '
+               'search")')
 
 
 @register('lookup_table')

@@ -34,7 +34,10 @@ captured in two time buckets, its replays bitwise the eager walk. The
 speculative decode step under sync debug against the CPU (1e-5, every
 attend a paged_attention launch), the speculative engine token-exact
 against the beam-1 engine on the card, and machine_translation's
-generating program captured, its replays bitwise the eager walk.
+generating program captured, its replays bitwise the eager walk. The six
+CRF/CTC rules under sync debug against the CPU (1e-5; out-of-range labels
+give the CPU's NaNs and leave the card usable), and a small
+label_semantic_roles step captured, its replays bitwise the eager walk.
 """
 import contextlib
 import importlib
@@ -1401,10 +1404,15 @@ def test_a_step_that_cannot_be_captured_names_its_op(card, op_type, when):
 def test_captured_paged_decode_step_matches_the_eager_walk(card):
     """The paged DecodeEngine's step with live slots: a replay of its
     captured graph against debug_step's eager walk from the same state,
-    fetches and state bitwise; one paged_attention launch a replay."""
+    fetches and state bitwise; one paged_attention launch a replay.
+
+    The three slots decode T = 300 steps (no end id is reachable), far
+    more than run between two polls, and the condition is read under the
+    engine's handle lock, so the decode loop cannot move on between the
+    check and the compared step."""
     from paddle_tpu_torch import serving
     r = np.random.RandomState(7)
-    V, E, D, H, K, SRC, T = 20, 8, 6, 8, 3, 5, 30
+    V, E, D, H, K, SRC, T = 20, 8, 6, 8, 3, 5, 300
     w = {'w_dec': r.randn(E + D, 4 * H) * 0.3,
          'u_dec': r.randn(H, 4 * H) * 0.3,
          'b_dec': r.randn(1, 4 * H) * 0.1, 'w_q': r.randn(H, D) * 0.3,
@@ -1412,16 +1420,21 @@ def test_captured_paged_decode_step_matches_the_eager_walk(card):
          'b_out': r.randn(1, V) * 0.1}
     eng = serving.DecodeEngine(w, serving.DecodeConfig(
         slots=3, beam_size=K, max_len=T, src_cap=SRC, page_size=3,
-        pages=40, end_id=V + 1))
+        pages=3 * (T // 3) + 10, end_id=V + 1))
     try:
         eng.warmup()
         futs = [eng.submit({'enc': (r.randn(4, D) * 0.5).astype('float32')},
                            max_new_tokens=T) for _ in range(3)]
         deadline = time.monotonic() + 60
-        while eng.stats['slots_occupied'] < 3 or eng._handle.steps < 6:
+        while True:
+            with eng._handle_lock:
+                if (eng.stats['slots_occupied'] == 3
+                        and eng._handle.steps >= 6):
+                    break
             assert time.monotonic() < deadline, eng.stats
             time.sleep(0.001)
         with eng._handle_lock:
+            assert eng.stats['slots_occupied'] == 3, eng.stats
             h = eng._handle
             art = h._compiled
             snap = {n: t.clone() for n, t in h.state.items()}
@@ -2121,4 +2134,168 @@ def test_captured_generating_program_matches_the_eager_walk(card):
         np.testing.assert_array_equal(cap[1], eag[1])
         np.testing.assert_array_equal(cap[0], cpu[0])
         np.testing.assert_allclose(cap[1], cpu[1], rtol=1e-5, atol=1e-5)
+    assert {n: k.launches for n, k in ops.KERNELS.items()} == before
+
+
+# -- the CRF and CTC rules, label_semantic_roles ------------------------------
+
+def _crf_ctc_cases():
+    """(op, inputs, attrs, output slots, float input slots to
+    differentiate) for the six CRF/CTC rules; sequences ragged with a
+    length-1 and a full row; out-of-range labels (past C, below 0) in the
+    CRF and CTC cases; exact ties (integer-valued emissions) in the
+    Viterbi and greedy CTC cases."""
+    r = np.random.RandomState(9)
+    C, T = 5, 6
+    lens = np.array([3, 1, T, 4])
+
+    def seq(*trail, t=T, lengths=lens, ints=None):
+        if ints is None:
+            x = r.randn(len(lengths), t, *trail).astype('float32')
+        else:
+            x = r.randint(0, ints, (len(lengths), t, 1)).astype('int64')
+        for i, n in enumerate(lengths):
+            x[i, n:] = 0
+        return ('seq', x, lengths)
+
+    em = seq(C)
+    tie = ('seq', np.round(em[1] * 1.5).astype('float32'), lens)
+    trans = (r.randn(C + 2, C) * 0.5).astype('float32')
+    label = seq(ints=C)
+    bad = ('seq', label[1].copy(), lens)
+    bad[1][0, 0, 0], bad[1][2, 3, 0], bad[1][3, 3, 0] = C + 3, -1, -4
+    ctc_lab = seq(t=3, lengths=np.array([2, 1, 3, 0]), ints=C)
+    ctc_bad = ('seq', ctc_lab[1].copy(), ctc_lab[2])
+    ctc_bad[1][2, 1, 0] = C
+    ids = seq(ints=4)
+    tags = seq(t=12, lengths=np.array([7, 1, 12, 9]), ints=4 * 3 + 1)
+    return [
+        ('linear_chain_crf', {'Emission': [em], 'Transition': [trans],
+                              'Label': [label]}, {},
+         ['LogLikelihood', 'Alpha', 'EmissionExps', 'TransitionExps'],
+         ['Emission', 'Transition']),
+        ('linear_chain_crf', {'Emission': [em], 'Transition': [trans],
+                              'Label': [bad]}, {}, ['LogLikelihood'],
+         ['Emission', 'Transition']),
+        ('crf_decoding', {'Emission': [tie],
+                          'Transition': [np.round(trans * 2)]}, {},
+         ['ViterbiPath'], []),
+        ('crf_decoding', {'Emission': [em], 'Transition': [trans],
+                          'Label': [label]}, {}, ['ViterbiPath'], []),
+        ('ctc_align', {'Input': [('seq', np.round(r.rand(4, T, C) * 2)
+                                  .astype('float32'), lens)]},
+         {'blank': 0}, ['Output'], []),
+        ('warpctc', {'Logits': [em], 'Label': [ctc_lab]},
+         {'norm_by_times': True}, ['Loss'], ['Logits']),
+        ('warpctc', {'Logits': [em], 'Label': [ctc_bad]}, {}, ['Loss'],
+         ['Logits']),
+        ('edit_distance', {'Hyps': [ids], 'Refs': [seq(ints=4)]},
+         {'ignored_tokens': [0]}, ['Out', 'SequenceNum'], []),
+        ('chunk_eval', {'Inference': [tags], 'Label': [tags]},
+         {'chunk_scheme': 'IOBES', 'num_chunk_types': 3,
+          'excluded_chunk_types': [1]},
+         ['Precision', 'Recall', 'F1-Score', 'NumInferChunks',
+          'NumLabelChunks', 'NumCorrectChunks'], []),
+    ]
+
+
+@pytest.mark.parametrize('case', range(len(_crf_ctc_cases())))
+def test_crf_ctc_rule_on_the_card_matches_the_cpu_without_a_sync(card, case):
+    """Each CRF/CTC rule on the card under set_sync_debug_mode('error')
+    (forward, and the VJP of a seeded cotangent of its first output with
+    respect to its float inputs) against the same rule on the CPU: floats
+    within 1e-5 (NaN where the CPU has NaN: a label past C), ids, paths
+    and counts equal, dtypes equal. Out-of-range labels raise no
+    device-side assert: a later launch on the card still runs."""
+    from paddle_tpu_torch.fluid import lowering
+    op, ins, attrs, slots, wrt = _crf_ctc_cases()[case]
+    outs = {}
+    for dev in (card, torch.device('cpu')):
+        tins = {k: [_seq_in(a, dev) for a in v] for k, v in ins.items()}
+        leaves = [lowering.data_of(tins[k][0]).requires_grad_(True)
+                  for k in wrt]
+        ctx = lowering.Ctx(dev, torch.Generator(device=dev))
+        # the cotangent goes to the card before the checked run
+        shape = lowering.data_of(lowering.get_rule(op)(
+            tins, attrs, ctx)[slots[0]]).shape
+        cot = torch.from_numpy(np.asarray(np.random.RandomState(5).randn(
+            *shape), dtype='float32')).to(dev)
+        torch.cuda.synchronize()
+        mode = torch.cuda.get_sync_debug_mode()
+        if dev.type == 'cuda':
+            torch.cuda.set_sync_debug_mode('error')
+        try:
+            got = lowering.get_rule(op)(tins, attrs, ctx)
+            res = []
+            for slot in slots:
+                v = got[slot]
+                res.append(lowering.data_of(v))
+                if isinstance(v, lowering.SeqValue):
+                    res.append(v.lengths)
+            if leaves:
+                res += list(torch.autograd.grad(res[0], leaves, cot))
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        outs[dev.type] = [t.detach().cpu() for t in res]
+    for got, want in zip(outs['cuda'], outs['cpu']):
+        assert got.dtype == want.dtype, op
+        if got.is_floating_point():
+            np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                                       atol=1e-5, err_msg=op)
+        else:
+            np.testing.assert_array_equal(got.numpy(), want.numpy(),
+                                          err_msg=op)
+    x = torch.ones(4, device=card) * 2
+    torch.cuda.synchronize()
+    assert x.sum().item() == 8.0
+
+
+def test_captured_srl_step_matches_the_eager_walk(card):
+    """label_semantic_roles at word_dim 16, hidden 32, depth 2 (SGD under
+    the book's staircase exponential_decay), its pretrained `emb` loaded
+    on the card through scope.find_var(...).get_tensor().set(...): four
+    steps of nine sequence slots in one time bucket (warm-up under sync
+    debug, capture, two replays) against the eager walk from the same
+    weights, losses and every persistable bitwise; one capture, three
+    replays; `emb` unchanged; no kernel of the port launches."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.dataset import conll05
+    from paddle_tpu_torch.models import label_semantic_roles as srl
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        cost, decode, _, names = srl.get_model(word_dim=16, mark_dim=4,
+                                               hidden_dim=32, depth=2)
+        lr = fluid.layers.exponential_decay(0.01, 100000, 0.5,
+                                            staircase=True)
+        fluid.optimizer.SGD(learning_rate=lr).minimize(cost)
+    feeder = fluid.DataFeeder(names, fluid.CPUPlace(), program=main)
+    # sequences of 9-16 ids: the 16 bucket
+    samples = [s for s in conll05.test()() if 8 < len(s[0]) <= 16]
+    feeds = [feeder.feed(samples[4 * i:4 * i + 4]) for i in range(4)]
+    init = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=init)
+    before = {n: k.launches for n, k in ops.KERNELS.items()}
+    runs = []
+    for eager in (False, True):
+        scope = fluid.Scope()
+        scope.load_numpy(init.to_numpy(), fluid.CUDAPlace(0))
+        srl.load_pretrained_embedding(scope=scope)
+        assert scope.vars['emb'].device.type == 'cuda'
+        emb = scope.vars['emb'].clone()
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        with (fluid.debugger.check_nan_inf() if eager
+              else contextlib.nullcontext()):
+            losses = [exe.run(main, feed=f, fetch_list=[cost, decode],
+                              scope=scope) for f in feeds]
+        assert torch.equal(scope.vars['emb'], emb)
+        runs.append((losses, scope.to_numpy(), exe))
+    (cl, cs, cexe), (el, es, _) = runs
+    for a, b in zip(cl, el):
+        np.testing.assert_array_equal(a[0], b[0])
+        np.testing.assert_array_equal(a[1], b[1])
+    for n in cs:
+        np.testing.assert_array_equal(cs[n], es[n], err_msg=n)
+    stats = cexe.cache_stats
+    assert stats['captures'] == 1 and stats['replays'] == 3, stats
     assert {n: k.launches for n, k in ops.KERNELS.items()} == before

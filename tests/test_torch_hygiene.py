@@ -66,6 +66,14 @@ SUBMODULES = [
     # machine translation generation and token-fed decode: the prefill's
     # admission buckets and the engine's typed errors
     'paddle_tpu_torch.serving.buckets', 'paddle_tpu_torch.serving.engine',
+    # the last three book models: the CRF/CTC rules, their datasets and
+    # models, compat
+    'paddle_tpu_torch.fluid.ops_impl.crf_ctc_ops',
+    'paddle_tpu_torch.dataset.imikolov', 'paddle_tpu_torch.dataset.movielens',
+    'paddle_tpu_torch.dataset.conll05', 'paddle_tpu_torch.models.word2vec',
+    'paddle_tpu_torch.models.recommender_system',
+    'paddle_tpu_torch.models.label_semantic_roles',
+    'paddle_tpu_torch.compat',
 ]
 
 

@@ -12,6 +12,7 @@
     python3 tools/torch_train_profile.py --model se_resnext50 [--batch 16]
     python3 tools/torch_train_profile.py --amp     (Transformer under AMP)
     python3 tools/torch_train_profile.py --model stacked_lstm | sentiment | mt
+    python3 tools/torch_train_profile.py --model word2vec | recommender | srl
 
 --model transformer (the default) builds full-width Transformer-base with
 models.transformer.get_model (its defaults: 6+6 layers, d_model 512, 8
@@ -39,7 +40,15 @@ machine_translation's training program: emb, encoder and decoder 512,
 dict 30000, Adam 2e-4, batch 16), as chip_smoke.py's sequences phase does,
 and train them on one pass of their reader through the DataFeeder, the
 batches kept whose padded time axes are the pass's most frequent (one
-captured graph). --amp runs the model under fluid.amp.decorate_program: the
+captured graph). --model word2vec, recommender and srl build the last
+three book models as chip_smoke.py's book phase does: word2vec.get_model()
+(dict 2073, embed 32, hidden 256, SGD 1e-3, batch 64),
+recommender_system.get_model() (emb 32, towers 200, SGD 0.2, batch 256)
+and label_semantic_roles at the reference book's sizes (word_dim 32,
+mark_dim 5, hidden 512, depth 8, batch 10; SGD under
+exponential_decay(0.01, 100000, 0.5, staircase=True); the pretrained emb
+loaded), on their readers' batches of the most frequent bucket. --amp
+runs the model under fluid.amp.decorate_program: the
 Transformer as it is (the bf16 attention kernels), ResNet-50 as the JAX
 bench.py:215-253 builds it for AMP (a bfloat16 data var, resnet_imagenet
 in --layout NHWC, the default there, or NCHW, the mean cross entropy and
@@ -74,7 +83,13 @@ innermost enclosing op or range whose name matches, IMAGE_CLASSES): cuDNN
 convolution forward and backward, batch norm forward (with the running
 stats' var_mean) and backward, pooling, the optimizer update (the
 `executor.update` range), copies, and the rest (elementwise, softmax,
-loss, the fc's matmul). Prints one JSON line.
+loss, the fc's matmul). For srl the eager walk's kernels are classed as
+matmul (by kernel name), the CRF loop (the kernels of linear_chain_crf's
+and crf_decoding's rules and of their backward nodes, found through the
+autograd sequence numbers of the ops inside a profiler range around each
+rule), the recurrence (the lstm rule's, likewise), copies and the rest
+(the fcs' elementwise work, sums, lookups, the optimizer). Prints one
+JSON line.
 """
 import argparse
 import json
@@ -171,7 +186,7 @@ def busy_us(spans):
     return busy
 
 
-def profile_steps(step, feeds, image=False):
+def profile_steps(step, feeds, image=False, rule_classes=None):
     """Trace step(feed) over `feeds` with torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -213,6 +228,17 @@ def profile_steps(step, feeds, image=False):
     n = len(feeds)
     # the classes sum each kernel's own time
     busy_s = busy_us(spans) / 1e6
+    if rule_classes:
+        by_rule = rule_classes_us(prof.events(), rule_classes)
+        return {
+            'traced_wall_ms_per_step': traced_wall * 1e3 / n,
+            'device_busy_ms_per_step': busy_s * 1e3 / n,
+            'device_idle_share': 1.0 - busy_s / traced_wall,
+            'device_kernels_per_step': len(spans) / n,
+            'linked_ms_per_step': sum(by_rule.values()) / 1e3 / n,
+            'device_ms_per_step_by_class': {k: v / 1e3 / n
+                                            for k, v in by_rule.items()},
+        }
     if image:
         image_us = image_classes_us(prof.events())
         # the same kernels by launching op; the sums agree within the
@@ -267,6 +293,71 @@ def image_classes_us(events):
             n = k.name.lower()
             c = 'copy' if ('memcpy' in n or 'memset' in n) \
                 and cls != 'optimizer' else cls or 'elementwise/other'
+            out[c] += k.duration
+    return out
+
+
+# srl: the rules whose kernels (forward, and backward through autograd)
+# are classed together, by the profiler range the tool puts around each
+SRL_CLASSES = (('crf loop', ('linear_chain_crf', 'crf_decoding')),
+               ('recurrence (lstm)', ('lstm',)))
+
+
+def range_rules(classes):
+    """Wrap each rule named in `classes` in a torch.profiler range
+    'rule.<op>' (this process only)."""
+    from torch.profiler import record_function
+    from paddle_tpu_torch.fluid import lowering
+
+    def wrapped(op, rule):
+        def run(ins, attrs, ctx):
+            with record_function('rule.' + op):
+                return rule(ins, attrs, ctx)
+        return run
+    for _, ops in classes:
+        for op in ops:
+            lowering._RULES[op] = wrapped(op, lowering.get_rule(op))
+
+
+def rule_classes_us(events, classes):
+    """{class: device us}: matmul kernels by name; every other kernel by
+    the rule range ('rule.<op>') it was launched in, or by the forward op
+    (its autograd sequence number) of the backward node that launched it;
+    copies; the rest."""
+    import torch
+    of_range = {'rule.' + op: c for c, ops in classes for op in ops}
+    host = [e for e in events
+            if e.device_type != torch.autograd.DeviceType.CUDA]
+
+    def ancestors(e):
+        while e is not None:
+            yield e
+            e = e.cpu_parent
+
+    seq = {}
+    for e in host:
+        if e.sequence_nr >= 0 and 'Backward' not in e.name:
+            cls = next((of_range[a.name] for a in ancestors(e)
+                        if a.name in of_range), None)
+            if cls is not None:
+                seq[e.sequence_nr] = cls
+    out = dict.fromkeys(['matmul'] + [c for c, _ in classes]
+                        + ['copy', 'elementwise/other'], 0.0)
+    for e in host:
+        if not e.kernels:
+            continue
+        cls = None
+        for a in ancestors(e):
+            if a.name in of_range:
+                cls = of_range[a.name]
+            elif 'Backward' in a.name and a.sequence_nr in seq:
+                cls = seq[a.sequence_nr]
+            if cls is not None:
+                break
+        for k in e.kernels:
+            kc = _kernel_class(k.name)
+            c = kc if kc in ('matmul', 'copy') else cls or \
+                'elementwise/other'
             out[c] += k.duration
     return out
 
@@ -465,6 +556,47 @@ def build_mt(batch_size, n_feeds):
     return _build_sequence(machine_translation, batch_size, n_feeds)
 
 
+def build_word2vec(batch_size, n_feeds):
+    from paddle_tpu_torch.models import word2vec
+    out = _build_sequence(word2vec, batch_size, n_feeds)
+    return out[:-1] + ('examples_per_s',)
+
+
+def build_recommender(batch_size, n_feeds):
+    """recommender_system.get_model(batch_size): its train reader is the
+    fourth of get_model's results."""
+    from paddle_tpu_torch.fluid import framework, unique_name
+    from paddle_tpu_torch.models import recommender_system
+    main, startup = framework.Program(), framework.Program()
+    main.random_seed = startup.random_seed = SEED
+    with unique_name.guard(), framework.program_guard(main, startup):
+        avg_cost, _, _, reader, _, names = recommender_system.get_model(
+            batch_size=batch_size)
+    return (main, startup, [avg_cost],
+            _sequence_feeds(main, reader, names, n_feeds), batch_size,
+            'examples_per_s')
+
+
+def build_srl(batch_size, n_feeds):
+    """label_semantic_roles at the reference book's sizes, SGD under its
+    staircase exponential decay."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import framework, unique_name
+    from paddle_tpu_torch.models import label_semantic_roles
+    main, startup = framework.Program(), framework.Program()
+    main.random_seed = startup.random_seed = SEED
+    with unique_name.guard(), framework.program_guard(main, startup):
+        avg_cost, _, reader, names = label_semantic_roles.get_model(
+            word_dim=32, mark_dim=5, hidden_dim=512, depth=8,
+            batch_size=batch_size)
+        lr = fluid.layers.exponential_decay(0.01, 100000, 0.5,
+                                            staircase=True)
+        fluid.optimizer.SGD(learning_rate=lr).minimize(avg_cost)
+    return (main, startup, [avg_cost],
+            _sequence_feeds(main, reader, names, n_feeds), batch_size,
+            'sequences_per_s')
+
+
 BUILDERS = {'transformer': (build_transformer, 16),
             'deepfm': (build_deepfm, 256),
             'resnet50': (build_resnet50, 32),
@@ -473,8 +605,12 @@ BUILDERS = {'transformer': (build_transformer, 16),
             'se_resnext50': (build_se_resnext50, 16),
             'stacked_lstm': (build_stacked_lstm, 32),
             'sentiment': (build_sentiment, 32),
-            'mt': (build_mt, 16)}
-SEQUENCE_MODELS = ('stacked_lstm', 'sentiment', 'mt')
+            'mt': (build_mt, 16),
+            'word2vec': (build_word2vec, 64),
+            'recommender': (build_recommender, 256),
+            'srl': (build_srl, 10)}
+SEQUENCE_MODELS = ('stacked_lstm', 'sentiment', 'mt', 'word2vec',
+                   'recommender', 'srl')
 
 
 def main():
@@ -483,8 +619,9 @@ def main():
                     default='transformer')
     ap.add_argument('--batch', type=int, default=None,
                     help='default: 16 (transformer, se_resnext50, mt), '
-                         '256 (deepfm), 32 (resnet50, vgg16, stacked_lstm, '
-                         'sentiment), 128 (mnist)')
+                         '256 (deepfm, recommender), 32 (resnet50, vgg16, '
+                         'stacked_lstm, sentiment), 128 (mnist), 64 '
+                         '(word2vec), 10 (srl)')
     ap.add_argument('--steps', type=int, default=20)
     ap.add_argument('--amp', action='store_true',
                     help='under fluid.amp.decorate_program (transformer, '
@@ -516,6 +653,10 @@ def main():
     scope = fluid.Scope()
     exe = fluid.Executor(fluid.CUDAPlace(0))
     exe.run(startup, scope=scope)
+    if args.model == 'srl':
+        from paddle_tpu_torch.models import label_semantic_roles
+        label_semantic_roles.load_pretrained_embedding(scope=scope)
+        range_rules(SRL_CLASSES)
 
     def run(feed):
         return exe.run(main_prog, feed=feed, fetch_list=fetch, scope=scope)
@@ -574,7 +715,9 @@ def main():
         r[mode][unit_name] = units / med
     for mode, step in modes:
         prof = profile_steps(step, feeds[args.steps:],
-                             image=image and mode != 'captured')
+                             image=image and mode != 'captured',
+                             rule_classes=SRL_CLASSES if args.model == 'srl'
+                             and mode != 'captured' else None)
         r[mode].update(prof, device_idle_share_of_median_step=(
             1.0 - prof['device_busy_ms_per_step'] / 1e3
             / r[mode]['median_step_s']))
