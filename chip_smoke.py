@@ -255,6 +255,18 @@ replay (each graph adds the launches its capture recorded).
                 through Predictor, card against CPU within 1e-5; SRL's
                 decode as BOOK_TIE_FACTOR's note says. The phase's
                 seconds are logged. No kernel of the port launches.
+  7f. control_flow — machine_translation's widths through the public
+                control-flow API: (a) the contrib TrainingDecoder seq2seq
+                (DynamicRNN) trained 20 captured steps through 7d's
+                checks and records; (b) the contrib BeamSearchDecoder on
+                (a)'s weights and (c) the book's While-loop LoD beam
+                decoder on random weights, each on 16 wmt14 sources at
+                beam 3: one capture, the replay bitwise the eager walk,
+                ids (and (c)'s 2-level LoD) equal to the CPU's, scores
+                within 1e-5 of max(1, |score|); each while's bound
+                against its live iterations at exit, replay and eager
+                ms, busy, idle, kernels a replay, graph pool,
+                sentences/s. No kernel of the port launches.
   8. captured — each path's captured step against debug_step's eager
                 walk in this call, at full width: Transformer-base
                 training at batch 16 (get_model, dropout 0.1), fp32 and
@@ -604,6 +616,28 @@ BOOK_SRL = dict(word_dim=32, mark_dim=5, hidden_dim=512, depth=8,
 BOOK_SRL_LR = (0.01, 100000, 0.5)
 BOOK_SRL_SERVE_ROWS = 32
 BOOK_TIE_FACTOR = 4.0
+# phase 7f (control flow and the LoD beam search) at machine_translation's
+# widths (paddle_tpu/models/machine_translation.py:137-138): (a) the
+# contrib TrainingDecoder seq2seq through _sequence_model (phase 7d's
+# checks and records), Adam(2e-4) at batch 16; (b) the contrib
+# BeamSearchDecoder (topk 10) on (a)'s weights; (c) the book's While-loop
+# LoD beam decoder on random weights from SEED. Both decoders take 16
+# wmt14 sources (bucket 32) at beam 3 (phase 6's), max_len 32, end id 1;
+# their ids (and (c)'s 2-level LoD) equal to the CPU's on the same
+# weights, scores within CONTROL_FLOW_SCORE_TOL x max(1, |score|) (a score
+# sums 32 steps' log-probabilities: about -330 at this vocabulary, where an
+# fp32 ulp is 3e-5); the replay bitwise equal to the eager walk.
+CONTROL_FLOW = dict(dict_size=30000, word_dim=512, hidden=512)
+CONTROL_FLOW_BATCH = 16
+CONTROL_FLOW_LR = 2e-4
+CONTROL_FLOW_BEAM = 3
+CONTROL_FLOW_MAX_LEN = 32
+CONTROL_FLOW_END_ID = 1
+CONTROL_FLOW_TOPK = 10
+CONTROL_FLOW_SCORE_TOL = 1e-5
+# timed calls of each decode, captured and eager (the book decoder's eager
+# walk takes about 0.64 s)
+CONTROL_FLOW_TIMED = 5
 
 
 def log(*args):
@@ -4714,6 +4748,443 @@ def phase_book_models():
     return {'book_models': counts}
 
 
+# -- phase 7f ---------------------------------------------------------------
+
+def _cf_encoder(layers, name='src_word', emb_name=None):
+    """The encoder of tests/test_contrib.py and the book's decoder at
+    CONTROL_FLOW's widths: embedding, fc 4 x hidden tanh, dynamic_lstm,
+    sequence_last_step."""
+    from paddle_tpu_torch import fluid
+    V, E, H = (CONTROL_FLOW[k] for k in ('dict_size', 'word_dim',
+                                          'hidden'))
+    src = layers.data(name=name, shape=[1], dtype='int64', lod_level=1)
+    emb = layers.embedding(
+        input=src, size=[V, E], dtype='float32',
+        param_attr=fluid.ParamAttr(name=emb_name) if emb_name else None)
+    fc1 = layers.fc(input=emb, size=H * 4, act='tanh')
+    h, _ = layers.dynamic_lstm(input=fc1, size=H * 4)
+    return layers.sequence_last_step(input=h)
+
+
+def _cf_state_cell(layers, decoder, context):
+    """A StateCell of one state h: fc([h, word], hidden, tanh)."""
+    h = decoder.InitState(init=context, need_reorder=True)
+    cell = decoder.StateCell(inputs={'x': None}, states={'h': h},
+                             out_state='h')
+
+    @cell.state_updater
+    def updater(cell):
+        word = cell.get_input('x')
+        prev_h = cell.get_state('h')
+        cell.set_state('h', layers.fc(input=[prev_h, word],
+                                      size=CONTROL_FLOW['hidden'],
+                                      act='tanh'))
+    return cell
+
+
+def build_contrib_training():
+    """(a): the TrainingDecoder seq2seq (over DynamicRNN) of
+    tests/test_contrib.py at CONTROL_FLOW's widths, fc dict softmax and
+    cross_entropy, Adam(CONTROL_FLOW_LR), wmt14 batches of
+    CONTROL_FLOW_BATCH."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.batch import batch
+    from paddle_tpu_torch.dataset import wmt14
+    from paddle_tpu_torch.fluid import unique_name
+    from paddle_tpu_torch.fluid.contrib import decoder
+    layers = fluid.layers
+    V, E = CONTROL_FLOW['dict_size'], CONTROL_FLOW['word_dim']
+    main, startup = _program_pair()
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        cell = _cf_state_cell(layers, decoder, _cf_encoder(layers))
+        trg = layers.data(name='trg_word', shape=[1], dtype='int64',
+                          lod_level=1)
+        trg_emb = layers.embedding(input=trg, size=[V, E], dtype='float32')
+        dec = decoder.TrainingDecoder(cell)
+        with dec.block():
+            word = dec.step_input(trg_emb)
+            dec.state_cell.compute_state(inputs={'x': word})
+            score = layers.fc(input=dec.state_cell.get_state('h'), size=V,
+                              act='softmax')
+            dec.state_cell.update_states()
+            dec.output(score)
+        label = layers.data(name='next_word', shape=[1], dtype='int64',
+                            lod_level=1)
+        cost = layers.mean(layers.cross_entropy(input=dec(), label=label))
+        fluid.optimizer.Adam(learning_rate=CONTROL_FLOW_LR).minimize(cost)
+    reader = batch(wmt14.train(V), batch_size=CONTROL_FLOW_BATCH)
+    return main, startup, cost, reader, ['src_word', 'trg_word',
+                                         'next_word'], None, None
+
+
+def build_contrib_generation():
+    """(b): BeamSearchDecoder (topk CONTROL_FLOW_TOPK) over the same
+    encoder and cell; its parameters are the training program's, by
+    name. Returns (program, startup, ids, scores, the loop counter, the
+    stacked per-step ids and scores)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import unique_name
+    from paddle_tpu_torch.fluid.contrib import decoder
+    layers = fluid.layers
+    main, startup = _program_pair()
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        cell = _cf_state_cell(layers, decoder, _cf_encoder(layers))
+        init_ids = layers.data(name='init_ids', shape=[1], dtype='int64',
+                               lod_level=2)
+        init_scores = layers.data(name='init_scores', shape=[1],
+                                  dtype='float32', lod_level=2)
+        dec = decoder.BeamSearchDecoder(
+            state_cell=cell, init_ids=init_ids, init_scores=init_scores,
+            target_dict_dim=CONTROL_FLOW['dict_size'],
+            word_dim=CONTROL_FLOW['word_dim'], input_var_dict={},
+            topk_size=CONTROL_FLOW_TOPK, sparse_emb=False,
+            max_len=CONTROL_FLOW_MAX_LEN, beam_size=CONTROL_FLOW_BEAM,
+            end_id=CONTROL_FLOW_END_ID)
+        dec.decode()
+        ids, scores = dec()
+    blk = main.global_block()
+    stacked = [op.outputs['Out'][0].name for op in blk.ops
+               if op.type == 'array_stack']
+    # the reshapes of the stacks: [max_len, B, beam]
+    steps = [op.outputs['Out'][0].name for op in blk.ops
+             if op.type == 'reshape' and op.inputs['X'][0].name in stacked]
+    return main, startup, ids.name, scores.name, dec._counter.name, steps[:2]
+
+
+def build_book_decoder():
+    """(c): the book's decode_main (tests/book/test_machine_translation.py,
+    as tests/test_control_flow.py and tests/test_torch_control_flow.py
+    build it) at CONTROL_FLOW's widths: state, ids and scores arrays of
+    the default capacity; sequence_expand and lod_reset on the beam form;
+    fc tanh state; fc softmax; topk; log + accumulate; beam_search (level
+    0); an is_empty stop; beam_search_decode over the arrays. Random
+    weights from SEED. Returns (program, startup, ids, scores, the loop
+    counter)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import unique_name
+    layers = fluid.layers
+    V, E, H = (CONTROL_FLOW[k] for k in ('dict_size', 'word_dim',
+                                          'hidden'))
+    beam, end_id = CONTROL_FLOW_BEAM, CONTROL_FLOW_END_ID
+    main, startup = _program_pair()
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        context = _cf_encoder(layers, 'src_word_id', 'vemb')
+        array_len = layers.fill_constant(shape=[1], dtype='int64',
+                                         value=CONTROL_FLOW_MAX_LEN)
+        counter = layers.zeros(shape=[1], dtype='int64', force_cpu=True)
+        state_array = layers.create_array('float32')
+        layers.array_write(context, array=state_array, i=counter)
+        ids_array = layers.create_array('int64')
+        scores_array = layers.create_array('float32')
+        init_ids = layers.data(name='init_ids', shape=[1], dtype='int64',
+                               lod_level=2)
+        init_scores = layers.data(name='init_scores', shape=[1],
+                                  dtype='float32', lod_level=2)
+        layers.array_write(init_ids, array=ids_array, i=counter)
+        layers.array_write(init_scores, array=scores_array, i=counter)
+        cond = layers.less_than(x=counter, y=array_len)
+        while_op = layers.While(cond=cond)
+        with while_op.block():
+            pre_ids = layers.array_read(array=ids_array, i=counter)
+            pre_state = layers.array_read(array=state_array, i=counter)
+            pre_score = layers.array_read(array=scores_array, i=counter)
+            pre_state_expanded = layers.sequence_expand(pre_state,
+                                                        pre_score)
+            pre_ids_emb = layers.embedding(input=pre_ids, size=[V, E],
+                                           dtype='float32')
+            current_state = layers.fc(
+                input=[pre_state_expanded, pre_ids_emb], size=H,
+                act='tanh')
+            current_state_with_lod = layers.lod_reset(x=current_state,
+                                                      y=pre_score)
+            current_score = layers.fc(input=current_state_with_lod,
+                                      size=V, act='softmax')
+            topk_scores, topk_indices = layers.topk(current_score, k=beam)
+            accu_scores = layers.elementwise_add(
+                x=layers.log(topk_scores),
+                y=layers.reshape(pre_score, shape=[-1]), axis=0)
+            selected_ids, selected_scores = layers.beam_search(
+                pre_ids, pre_score, topk_indices, accu_scores, beam,
+                end_id=end_id, level=0)
+            layers.increment(x=counter, value=1, in_place=True)
+            layers.array_write(current_state, array=state_array, i=counter)
+            layers.array_write(selected_ids, array=ids_array, i=counter)
+            layers.array_write(selected_scores, array=scores_array,
+                               i=counter)
+            length_cond = layers.less_than(x=counter, y=array_len)
+            finish_cond = layers.logical_not(
+                layers.is_empty(x=selected_ids))
+            layers.logical_and(x=length_cond, y=finish_cond, out=cond)
+        ids, scores = layers.beam_search_decode(
+            ids=ids_array, scores=scores_array, beam_size=beam,
+            end_id=end_id)
+    return main, startup, ids.name, scores.name, counter.name
+
+
+def control_flow_sources():
+    """The first CONTROL_FLOW_BATCH wmt14 training sources (4-29 ids each,
+    the longest past 16: the 32 bucket)."""
+    from paddle_tpu_torch.dataset import wmt14
+    srcs = [s for s, _, _ in itertools.islice(
+        wmt14.train(CONTROL_FLOW['dict_size'])(), CONTROL_FLOW_BATCH)]
+    return srcs
+
+
+def _cf_feed(srcs, name, dense_init):
+    """The decode feed: the sources as a LoDTensor; init_ids (the start id
+    0) and init_scores (1.0), one a source, as the 2-level LoDTensors of
+    the book's decode_main or, dense_init, as the [B, 1] arrays of
+    tests/test_contrib.py."""
+    from paddle_tpu_torch import fluid
+    n = len(srcs)
+    feed = {name: fluid.LoDTensor(
+        np.concatenate(srcs).reshape(-1, 1).astype('int64'),
+        [[len(s) for s in srcs]])}
+    ids = np.zeros((n, 1), 'int64')
+    scores = np.ones((n, 1), 'float32')
+    if dense_init:
+        feed.update(init_ids=ids, init_scores=scores)
+    else:
+        feed.update(init_ids=fluid.LoDTensor(ids, [[1] * n, [1] * n]),
+                    init_scores=fluid.LoDTensor(scores, [[1] * n, [1] * n]))
+    return feed
+
+
+def _leaves(vals):
+    """Every tensor of a fetch list (a SeqValue's leaves in order)."""
+    from paddle_tpu_torch.fluid.lowering import leaves_of
+    return [t for v in vals for t in leaves_of(v)]
+
+
+def _cf_loops(art):
+    """[(label, bound)] of the while ops the artifact's last step ran."""
+    return list(art.last_loops[0]) if art.last_loops else []
+
+
+def _cf_decode(what, main, startup, scope, feed, fetch, counter, state):
+    """One decode program through Executor() on the card: its warm-up,
+    capture and replays (one artifact, one capture); the replay against
+    two eager walks (debug_step; bitwise); _measure's medians, busy, idle,
+    kernels per replay and graph pool; each while's bound against the
+    iterations live at its exit (the loop counter); the same program on
+    the CPU from the same weights. Returns (record, card fetches, CPU
+    fetches), the fetches as numpy or LoDTensors."""
+    import torch
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid.lowering import map_value
+    exe = fluid.Executor()
+    if scope is None:
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        state = scope.to_numpy()
+    base = exe.cache_stats
+    names = fetch + [counter]
+    outs, secs = [], []
+    for k in range(3):
+        r0 = _reserved() if k == 1 else None
+        t0 = time.perf_counter()
+        outs.append(exe.run(main, feed=feed, fetch_list=names, scope=scope,
+                            return_numpy=False))
+        secs.append(time.perf_counter() - t0)
+        if k == 1:
+            pool = _reserved() - r0
+    stats = {k: exe.cache_stats[k] - base[k] for k in ('captures',
+                                                       'replays')}
+    if stats != {'captures': 1, 'replays': 2}:
+        raise AssertionError('%s: %r: not one capture and two replays'
+                             % (what, stats))
+    art = exe.step_artifact(main, feed=feed, fetch_list=names, scope=scope)
+    loops = _cf_loops(art)
+    got = [_host_value(v) for v in outs[-1]]
+    for o in outs[:-1]:
+        if not all(_same_value(_host_value(a), b) for a, b in zip(o, got)):
+            raise AssertionError('%s: the three calls differ' % what)
+    live = int(np.asarray(got[-1]).reshape(-1)[0])
+    # the replay against two eager walks of the same step, bitwise
+    dev = {n: map_value(lambda t: torch.as_tensor(t).cuda(), v)
+           for n, v in exe._feed_values(main, feed).items()}
+    st = art.state_dict(scope)
+    g = torch.Generator(device='cuda')
+    eager = [_leaves(art.debug_step(st, dev, 0, generator=g)[0])
+             for _ in range(2)]
+    handle = exe.acquire_step(main, feed=feed, fetch_list=names,
+                              scope=scope)
+    replay = _leaves(handle.step(feed, seed=0))
+    eager_same = all(torch.equal(a, b) for a, b in zip(*eager))
+    bitwise = all(torch.equal(a, b) for a, b in zip(replay, eager[0]))
+    if not bitwise:
+        raise AssertionError('%s: the replay differs from the eager walk '
+                             '(eager walks equal: %s)' % (what, eager_same))
+    m = _measure(what, lambda: exe.run(main, feed=feed, fetch_list=names,
+                                       scope=scope),
+                 lambda: _to_host(_leaves(art.debug_step(
+                     st, dev, 0, generator=g)[0])), pool,
+                 steps=CONTROL_FLOW_TIMED)
+    # the CPU from the same weights
+    cpu_scope = fluid.Scope()
+    cpu_scope.load_numpy(state, fluid.CPUPlace())
+    t0 = time.perf_counter()
+    want = [_host_value(v) for v in fluid.Executor(fluid.CPUPlace()).run(
+        main, feed=feed, fetch_list=names, scope=cpu_scope,
+        return_numpy=False)]
+    cpu_s = time.perf_counter() - t0
+    rec = dict(path=what, sources=CONTROL_FLOW_BATCH, beam=CONTROL_FLOW_BEAM,
+               max_len=CONTROL_FLOW_MAX_LEN, call_s=secs, cpu_call_s=cpu_s,
+               loops=[dict(op=label, bound=bound, live_at_exit=live,
+                           dead_share=1.0 - live / bound)
+                      for label, bound in loops],
+               replay_vs_eager=dict(bitwise=bitwise, eager_walks_equal=
+                                    eager_same),
+               sentences_per_s=CONTROL_FLOW_BATCH
+               / (m['captured']['median_step_ms'] / 1e3),
+               measured=m, card=nvidia_smi_line())
+    log('[control_flow] %s: %d sources, beam %d: replay %.4f ms (median), '
+        'eager %.4f ms, device busy %.4f ms, idle %.3f of the replay, %.0f '
+        'kernels a replay, graph pool %.3f GB; %.1f sentences/s; while '
+        'bound against live iterations at exit: %s; the replay bitwise '
+        'equal to the eager walk; card: %s'
+        % (what, CONTROL_FLOW_BATCH, CONTROL_FLOW_BEAM,
+           m['captured']['median_step_ms'], m['eager']['median_step_ms'],
+           m['captured']['device_busy_ms'],
+           m['captured']['idle_share_of_median_step'],
+           m['captured']['device_records_per_step'], pool / 1e9,
+           rec['sentences_per_s'],
+           ', '.join('%s %d / %d' % (label, bound, live)
+                     for label, bound in loops), rec['card']))
+    del exe
+    return rec, got, want
+
+
+def _host_value(v):
+    """A fetch as numpy, or a LoDTensor as (lod, numpy data)."""
+    if hasattr(v, 'recursive_sequence_lengths'):
+        return (v.recursive_sequence_lengths(), np.asarray(v.data))
+    return np.asarray(v.detach().cpu() if hasattr(v, 'detach') else v)
+
+
+def _same_value(a, b):
+    if isinstance(a, tuple):
+        return a[0] == b[0] and np.array_equal(a[1], b[1])
+    return np.array_equal(a, b)
+
+
+def _scores_close(got, want):
+    """(max abs difference, the tolerance CONTROL_FLOW_SCORE_TOL x
+    max(1, |want|): a score is a sum of log-probabilities over the steps,
+    and fp32 resolves it to about 1e-7 of its size, whether it is -1 or
+    -330)."""
+    err = float(np.abs(got.astype('float64') - want).max()) \
+        if want.size else 0.0
+    tol = CONTROL_FLOW_SCORE_TOL * max(
+        1.0, float(np.abs(want).max()) if want.size else 1.0)
+    return err, tol
+
+
+def _contrib_generation(scope, srcs):
+    """(b) on the scope (a) trained: ids equal to the CPU's on the same
+    weights and scores within CONTROL_FLOW_SCORE_TOL; where ids differ, a
+    near-tie shown on the per-step stacks: the steps before equal, and at
+    the first differing step the card's and the CPU's selected scores of
+    that source equal within the tolerance (the swapped candidates tie)."""
+    main, startup, ids, scores, counter, steps = build_contrib_generation()
+    params = [v.name for v in main.list_vars() if v.persistable]
+    missing = [n for n in params if n not in scope.vars]
+    if missing:
+        raise AssertionError('generation parameters not trained: %r'
+                             % missing)
+    state = scope.to_numpy(params)
+    feed = _cf_feed(srcs, 'src_word', dense_init=True)
+    rec, got, want = _cf_decode('contrib_generation', main, startup, scope,
+                                feed, [ids, scores] + steps, counter, state)
+    same_ids = np.array_equal(got[0], want[0])
+    err, tol = _scores_close(got[1], want[1])
+    ties = []
+    if not same_ids:
+        gs, ws = got[2], want[2]          # [max_len, B, beam]
+        gsc, wsc = got[3], want[3]
+        for s in range(gs.shape[1]):
+            diff = [t for t in range(gs.shape[0])
+                    if not np.array_equal(gs[t, s], ws[t, s])]
+            if not diff:
+                continue
+            t = diff[0]
+            gap = float(np.abs(np.sort(gsc[t, s]) - np.sort(wsc[t, s]))
+                        .max())
+            ties.append(dict(source=s, step=t, score_gap=gap))
+        if not ties or any(x['score_gap'] > CONTROL_FLOW_SCORE_TOL
+                           for x in ties):
+            raise AssertionError('contrib generation: ids differ from the '
+                                 'CPU without a near-tie: %r' % ties)
+    elif err > tol:
+        raise AssertionError('contrib generation: scores %.3g from the CPU'
+                             % err)
+    if not (got[0].shape == (CONTROL_FLOW_BATCH, CONTROL_FLOW_BEAM,
+                             CONTROL_FLOW_MAX_LEN)
+            and ((got[0] >= 0) & (got[0] < CONTROL_FLOW['dict_size'])).all()
+            and np.isfinite(got[1]).all()):
+        raise AssertionError('contrib generation: ids %r' % (got[0].shape,))
+    rec.update(ids_equal_cpu=same_ids, scores_max_abs_err=err,
+               scores_tol=tol, near_ties=ties)
+    log('[control_flow] contrib_generation card vs CPU: ids %s, scores max '
+        'abs err %.3g (tol %g x max(1, |score|) = %.3g)%s'
+        % ('equal' if same_ids else 'differ', err, CONTROL_FLOW_SCORE_TOL,
+           tol, '; near-ties %r' % ties if ties else ''))
+    return rec
+
+
+def _book_decode(srcs):
+    """(c): the book decoder on random weights from SEED: the 2-level LoD
+    and ids equal card against CPU, scores within CONTROL_FLOW_SCORE_TOL."""
+    main, startup, ids, scores, counter = build_book_decoder()
+    feed = _cf_feed(srcs, 'src_word_id', dense_init=False)
+    rec, got, want = _cf_decode('book_decoder', main, startup, None, feed,
+                                [ids, scores], counter, None)
+    (glod, gids), (wlod, wids) = got[0], want[0]
+    err, tol = _scores_close(got[1][1], want[1][1])
+    ok = (glod == wlod and np.array_equal(gids, wids)
+          and got[1][0] == wlod and err <= tol)
+    log('[control_flow] book_decoder card vs CPU: LoD %s, ids %s, scores '
+        'max abs err %.3g (tol %g x max(1, |score|) = %.3g); hypotheses a '
+        'source %s, tokens %s'
+        % ('equal' if glod == wlod else 'DIFFER',
+           'equal' if np.array_equal(gids, wids) else 'DIFFER', err,
+           CONTROL_FLOW_SCORE_TOL, tol, glod[0], glod[1]))
+    if not ok:
+        raise AssertionError('book decoder: the card differs from the CPU')
+    rec.update(lod_equal=True, ids_equal=True, scores_max_abs_err=err,
+               scores_tol=tol, hypotheses=glod[0], tokens=glod[1])
+    return rec
+
+
+def phase_control_flow():
+    """(a) the contrib TrainingDecoder seq2seq trained as captured steps
+    (_sequence_model's checks and records), (b) the contrib
+    BeamSearchDecoder on the trained weights and (c) the book's While-loop
+    LoD beam decoder, at machine_translation's widths on the card (no
+    kernel of the port on these paths); returns {'control_flow': launch
+    counts}."""
+    import torch
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    srcs = control_flow_sources()
+
+    def generate(test, target, scope, exe, samples):
+        return _contrib_generation(scope, srcs)
+
+    # (b) runs as (a)'s serve step, on the scope (a) trained
+    records = [_sequence_model('contrib_training_decoder',
+                               build_contrib_training, tag='control_flow',
+                               serve=generate),
+               _book_decode(srcs)]
+    torch.cuda.synchronize()
+    counts = _launch_counts()
+    if any(counts.values()):
+        raise AssertionError('the control-flow paths launched %r' % counts)
+    secs = time.perf_counter() - t0
+    log('[control_flow] phase 7f took %.1f s' % secs)
+    log(json.dumps({'control_flow': records, 'seconds': secs}))
+    return {'control_flow': counts}
+
 # -- phase 8 ----------------------------------------------------------------
 
 def _to_host(tensors):
@@ -5344,6 +5815,7 @@ def main():
                         ('dense_training', phase_dense_training),
                         ('sequences', phase_sequences),
                         ('book_models', phase_book_models),
+                        ('control_flow', phase_control_flow),
                         ('captured', phase_captured)):
         _between_phases(name)
         counts = phase()

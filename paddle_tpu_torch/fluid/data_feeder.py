@@ -4,7 +4,8 @@ Parity: reference python/paddle/fluid/data_feeder.py and the JAX package's
 fluid/data_feeder.py. A sequence slot (lod_level > 0) becomes a padded
 lowering.SeqValue whose time axis is bucketed to a power of two, at least
 8 (the JAX :14-68), so a captured step sees few distinct shapes: each
-bucket is one step artifact and one captured graph.
+bucket is one step artifact and one captured graph. Nested LoD whose
+innermost sequences all have length 1 keeps a time axis of 1 (seq_pad).
 """
 import numpy as np
 import torch
@@ -20,6 +21,22 @@ def _bucket(n, minimum=8):
     while b < n:
         b *= 2
     return b
+
+
+def seq_pad(lod):
+    """The padded time axis of a sequence feed with recursive sequence
+    lengths `lod` (outermost first): the bucket of its longest innermost
+    sequence, except 1 for nested LoD whose innermost sequences all have
+    length 1. That narrow form is the decode idiom's 2-level init_ids /
+    init_scores (one row a group), which the LoD beam decoder recognizes
+    by a time axis of 1 as the JAX package does (it pads to the longest
+    sequence). Decided on the host from the lengths, so it is part of the
+    feed signature."""
+    inner = lod[-1] if lod else []
+    longest = max(inner, default=1)
+    if len(lod) > 1 and longest == 1 and min(inner, default=1) == 1:
+        return 1
+    return _bucket(longest)
 
 
 def _flatten_lod(value, lod_level, rows, lod):
@@ -47,7 +64,7 @@ def _seq_slot(samples, lod_level, dtype):
     lens = np.asarray(lod[-1], dtype=np.int64)
     outer = (torch.from_numpy(np.asarray(lod[0], np.int64))
              if lod_level > 1 else None)
-    maxlen = _bucket(int(lens.max()) if len(lens) else 1)
+    maxlen = seq_pad([[int(n) for n in lv] for lv in lod])
     padded = np.zeros((len(lens), maxlen) + flat.shape[1:], dtype=dtype)
     off = 0
     for i, n in enumerate(lens):

@@ -44,10 +44,11 @@ from .. import obs
 from . import amp as amp_mod
 from . import core
 from . import debugger
-from .data_feeder import _bucket
+from .data_feeder import seq_pad
 from .framework import Variable, default_main_program
 from .lod_tensor import LoDTensor
 from .lowering import SeqValue, leaves_of, map_value
+from .ops_impl.block_ops import check_loops
 from .step_artifact import (StepArtifact, _feed_signature, _pack_health,
                             _write_back, health_to_numpy)
 
@@ -540,13 +541,13 @@ class Executor(object):
         sequence (the JAX package pads to the longest; every rule masks
         past the lengths, so the fetches agree, and requests whose longest
         sequences share a bucket share one artifact and, on the card, one
-        captured graph), a SeqValue keeps its lengths, and a dense feed of
+        captured graph) or 1 for nested LoD of length-1 sequences
+        (data_feeder.seq_pad), a SeqValue keeps its lengths, and a dense feed of
         a lod var becomes a SeqValue whose rows are all full length. Its
         data takes the var's dtype; lengths are int64."""
         if isinstance(val, LoDTensor):
             lens = val.recursive_sequence_lengths()
-            val = val.to_seq_value(
-                pad_to=_bucket(max(lens[-1], default=1)) if lens else None)
+            val = val.to_seq_value(pad_to=seq_pad(lens) if lens else None)
         if isinstance(val, SeqValue):
             return SeqValue(
                 self._feed_tensor(val.data, var),
@@ -641,7 +642,9 @@ class Executor(object):
         health); on a replay the fetches are the graph's outputs."""
         check = debugger.nan_inf_check_active()
         if self.device.type == 'cuda' and not check:
-            return art.run_captured(self, scope, feed_vals, seed)
+            out = art.run_captured(self, scope, feed_vals, seed)
+            check_loops(art.last_loops)
+            return out
         persist = art._scope_state(scope)
         feed = {n: map_value(lambda t: t.to(self.device), v)
                 for n, v in feed_vals.items()}
@@ -651,6 +654,7 @@ class Executor(object):
                 generator=self._generator)
         else:
             fetches, new, health = art(persist, feed, seed, self._generator)
+            check_loops(art.last_loops)
         _write_back(scope, new, in_place=self.device.type == 'cuda')
         return fetches, health
 

@@ -284,6 +284,21 @@ class Program(object):
     def block(self, idx):
         return self.blocks[idx]
 
+    def create_block(self, parent_idx=None):
+        """Append a sub-block whose parent is the current block (or
+        `parent_idx`) and make it current (the JAX :555): the body of a
+        While, a branch of IfElse or Switch, an RNN's step."""
+        new_idx = len(self.blocks)
+        parent = self.current_block_idx if parent_idx is None else parent_idx
+        self.blocks.append(Block(self, new_idx, parent))
+        self.current_block_idx = new_idx
+        return self.current_block()
+
+    def rollback(self):
+        """Make the current block's parent current again (the JAX
+        :562)."""
+        self.current_block_idx = self.blocks[self.current_block_idx].parent_idx
+
     @property
     def num_blocks(self):
         return len(self.blocks)
@@ -329,6 +344,9 @@ class Program(object):
                     Variable(nb, name=v.name, **d)
         for bi, blk in enumerate(self.blocks):
             nb = p.blocks[bi]
+            # a sub-block op binds the var of its own block or of the
+            # nearest ancestor that holds it (the JAX nested lookup,
+            # :626-632)
             for op in blk.ops:
                 role = op.attrs.get('op_role', ROLE_FORWARD)
                 if for_test and role in (ROLE_BACKWARD, ROLE_OPTIMIZE,

@@ -26,7 +26,8 @@ __all__ = [
     'sequence_last_step', 'sequence_softmax', 'sequence_expand',
     'sequence_reshape', 'im2sequence', 'row_conv', 'lod_reset',
     'sequence_mask', 'linear_chain_crf', 'crf_decoding', 'chunk_eval',
-    'ctc_greedy_decoder', 'edit_distance', 'warpctc',
+    'ctc_greedy_decoder', 'edit_distance', 'warpctc', 'beam_search',
+    'beam_search_decode',
 ]
 
 
@@ -983,3 +984,51 @@ def warpctc(input, label, blank=0, norm_by_times=False):
                      outputs={'WarpCTCGrad': [grad_out], 'Loss': [loss_out]},
                      attrs={'blank': blank, 'norm_by_times': norm_by_times})
     return loss_out
+
+
+def beam_search(pre_ids, pre_scores, ids, scores, beam_size, end_id, level=0,
+                name=None, return_parent_idx=False):
+    """One beam-search step (reference nn.py:2658 +
+    operators/beam_search_op.cc): the dense [batch*beam] layout with
+    explicit parent pointers instead of LoD lineage; on the 2-level LoD
+    values of the book's While-loop decoder, the reference algorithm at a
+    fixed capacity (ops_impl/lod_beam.py)."""
+    helper = LayerHelper('beam_search', **locals())
+    selected_scores = helper.create_variable_for_type_inference('float32')
+    selected_ids = helper.create_variable_for_type_inference('int64')
+    parent_idx = helper.create_variable_for_type_inference('int64')
+    helper.append_op(type='beam_search',
+                     inputs={'pre_ids': [pre_ids],
+                             'pre_scores': [pre_scores],
+                             'ids': [ids], 'scores': [scores]},
+                     outputs={'selected_ids': [selected_ids],
+                              'selected_scores': [selected_scores],
+                              'parent_idx': [parent_idx]},
+                     attrs={'level': level, 'beam_size': beam_size,
+                            'end_id': end_id})
+    if return_parent_idx:
+        return selected_ids, selected_scores, parent_idx
+    return selected_ids, selected_scores
+
+
+def beam_search_decode(ids, scores, beam_size=None, end_id=0, parents=None,
+                       name=None):
+    """reference nn.py:2770. Dense contract: ids/scores are stacked
+    [T, batch, beam] tensors (use layers.stack over per-step outputs);
+    `parents` carries the beam lineage emitted by beam_search. Tokens past
+    each sentence's first end_id come out as end_id (padding). beam_size is
+    taken from the tensor shape; the arg is accepted for API parity.
+    Passed the LoDTensorArrays of the book's While-loop decoder, it
+    backtraces them into 2-level LoD sentences."""
+    helper = LayerHelper('beam_search_decode', **locals())
+    sentence_ids = helper.create_variable_for_type_inference('int64')
+    sentence_scores = helper.create_variable_for_type_inference('float32')
+    inputs = {"Ids": [ids], "Scores": [scores]}
+    if parents is not None:
+        inputs["Parents"] = [parents]
+    helper.append_op(type="beam_search_decode",
+                     inputs=inputs,
+                     outputs={"SentenceIds": [sentence_ids],
+                              "SentenceScores": [sentence_scores]},
+                     attrs={'end_id': end_id})
+    return sentence_ids, sentence_scores

@@ -12,3 +12,5 @@ from . import lod_beam  # noqa: F401
 from . import sampled_ops  # noqa: F401
 from . import extra_ops  # noqa: F401
 from . import crf_ctc_ops  # noqa: F401
+from . import block_ops  # noqa: F401
+from . import control_ops  # noqa: F401

@@ -13,8 +13,9 @@ share lod_beam.attention_beam_step, so the engine's results equal the
 whole-sequence decode's and the paged engine matches the dense one by
 construction. `_gather_paged_enc` :361 serves only the JAX rules'
 kernel-off branch; here its gather is paged_attention's plain version.
-`nce`, `hierarchical_sigmoid`, `beam_search` and `beam_search_decode` are
-not ported yet (ROADMAP.md Queue A).
+`beam_search` (:100) and `beam_search_decode` (:692), in their dense and
+their LoD (capacity) forms, close the module. `nce` and
+`hierarchical_sigmoid` are not ported yet (ROADMAP.md Queue A).
 
 The paged and the speculative rules call `ops.kernels.paged_attention`
 unconditionally: on the card that launches the CUDA kernel, on the CPU its
@@ -443,3 +444,105 @@ def _attention_lstm_spec_decode_step(ins, attrs, ctx):
         'Done': active & ~active2, 'Bad': bad,
         'Accepted': torch.where(active, accepted, 0)})
     return out
+
+
+@register('beam_search', best_effort_shapes=True)
+def _beam_search(ins, attrs, ctx):
+    """One beam step (the JAX :100-153). On dense [batch*beam, K]
+    candidates: a joint top-k over beam*K a source, with explicit parent
+    pointers instead of the reference's LoD lineage; a finished beam
+    (pre_id == end_id) offers one end_id candidate carrying its score.
+    Ties keep the lower index, as lax.top_k does.
+
+    When pre_scores is a 2-level SeqValue (the book's While-loop LoD
+    decoder) the step follows the reference beam_search_op.cc algorithm
+    on the capacity form instead (lod_beam.py)."""
+    from .lod_beam import (beam_search_step, normalize_capacity,
+                           top_k_lower_index)
+    psc = ins['pre_scores'][0] if ins.get('pre_scores') else None
+    beam = int(attrs['beam_size'])
+    end_id = int(attrs['end_id'])
+    if isinstance(psc, SeqValue) and psc.outer_lengths:
+        p_ids, p_sc, cids, csc = normalize_capacity(
+            ins['pre_ids'][0], psc, ins['ids'][0], ins['scores'][0], beam)
+        sel_ids, sel_scores, parents = beam_search_step(
+            p_ids, p_sc, cids, csc, beam, end_id)
+        return {'selected_ids': sel_ids, 'selected_scores': sel_scores,
+                'parent_idx': parents.long()}
+    pre_ids = data_of(ins['pre_ids'][0]).long()              # [B*b, 1]
+    ids = data_of(ins['ids'][0]).long()                      # [B*b, K]
+    scores = data_of(ins['scores'][0]).to(torch.float32)     # [B*b, K]
+    Bb, K = ids.shape
+    B = Bb // beam
+    if psc is None:
+        raise ValueError(
+            "beam_search requires pre_scores (the previous step's "
+            "selected_scores) to carry finished beams' scores forward")
+    finished = pre_ids[:, 0] == end_id                       # [B*b]
+    keep_score = data_of(psc).to(torch.float32).reshape(Bb)
+    first = torch.arange(K, device=ids.device)[None, :] == 0
+    cand_scores = torch.where(
+        finished[:, None],
+        torch.where(first, keep_score[:, None], float('-inf')), scores)
+    cand_ids = torch.where(finished[:, None], end_id, ids)
+    top_scores, top_pos = top_k_lower_index(
+        cand_scores.reshape(B, beam * K), beam)              # [B, beam]
+    # the global row of each parent in [B*beam]: directly gatherable for
+    # the dense beam-state reorder (contrib BeamSearchDecoder)
+    parent = torch.div(top_pos, K, rounding_mode='floor') + \
+        torch.arange(B, device=ids.device)[:, None] * beam
+    sel_ids = torch.gather(cand_ids.reshape(B, beam * K), 1, top_pos)
+    return {'selected_ids': sel_ids.reshape(Bb, 1),
+            'selected_scores': top_scores.reshape(Bb, 1),
+            'parent_idx': parent.reshape(Bb)}
+
+
+@register('beam_search_decode', best_effort_shapes=True)
+def _beam_search_decode(ins, attrs, ctx):
+    """Backtrace per-step beams into sentences (the JAX :692-744).
+
+    Dense contract: Ids and Scores are [T, batch, beam]; Parents [T,
+    batch, beam] gives each step's source beam (beam_search's global
+    rows, taken modulo beam). SentenceIds [batch, beam, T], padded past a
+    sentence's first end_id with end_id when the op has an end_id attr;
+    SentenceScores [batch, beam], the last step's scores.
+
+    Passed the LoDTensorArrays themselves (the book's While-loop decoder),
+    it backtraces them with the reference algorithm instead
+    (lod_beam.beam_search_decode_arrays) into 2-level LoD sentences."""
+    from ..lowering import ArrayValue
+    if isinstance(ins['Ids'][0], ArrayValue):
+        if not ins['Ids'][0].is_seq:
+            raise TypeError(
+                'beam_search_decode on a LoDTensorArray requires LoD '
+                '(beam_search-written) elements; for dense per-step beams '
+                'pass stacked [T, batch, beam] tensors + parents instead '
+                '(layers.beam_search_decode dense contract)')
+        from .lod_beam import beam_search_decode_arrays
+        sent_ids, sent_scores = beam_search_decode_arrays(
+            ins['Ids'][0], ins['Scores'][0],
+            int(attrs.get('beam_size', 0) or 0),
+            int(attrs.get('end_id', 0)))
+        return {'SentenceIds': sent_ids, 'SentenceScores': sent_scores}
+    ids = data_of(ins['Ids'][0]).long()                     # [T, B, beam]
+    scores = data_of(ins['Scores'][0]).to(torch.float32)
+    T, B, beam = ids.shape
+    if ins.get('Parents'):
+        parents = torch.remainder(data_of(ins['Parents'][0]).long(), beam)
+    else:
+        parents = torch.arange(beam, device=ids.device)[None, None, :] \
+            .expand(T, B, beam)
+    ptr = torch.arange(beam, device=ids.device)[None, :].expand(B, beam)
+    toks = []
+    for t in range(T - 1, -1, -1):
+        toks.append(torch.gather(ids[t], 1, ptr))
+        ptr = torch.gather(parents[t], 1, ptr)
+    sent = torch.stack(toks[::-1], dim=-1)                  # [B, beam, T]
+    if 'end_id' in attrs:
+        end_id = int(attrs['end_id'])
+        ended = torch.cumsum((sent == end_id).long(), dim=-1) > 0
+        prev_ended = torch.cat([torch.zeros_like(ended[..., :1]),
+                                ended[..., :-1]], dim=-1)
+        sent = torch.where(prev_ended, end_id, sent)
+    return {'SentenceIds': sent,
+            'SentenceScores': scores[-1].reshape(B, beam)}

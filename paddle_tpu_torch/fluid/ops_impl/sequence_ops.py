@@ -30,12 +30,6 @@ import torch.nn.functional as F
 from ..core import torch_dtype
 from ..lowering import register, data_of, like, SeqValue
 
-_BEAM_SLICE = ('the capacity (beam) form of a sequence belongs to the '
-               'control-flow and LoD beam search slice of the port '
-               '(ROADMAP.md Queue A, "Control flow and the LoD beam '
-               'search")')
-
-
 @register('lookup_table')
 def _lookup_table(ins, attrs, ctx):
     """The rows of W at Ids, with jnp.take's default mode, as the JAX rule
@@ -59,6 +53,12 @@ def _lookup_table(ins, attrs, ctx):
         # table row before the gather; masking the gathered rows gives the
         # same values without copying the table)
         out = out.masked_fill((ids == pad).unsqueeze(-1), 0.0)
+    from .lod_beam import is_beam_form
+    if is_beam_form(ids_v) and out.ndim == ids.ndim + 1:
+        # capacity-form beam rows [R] embed to [R, 1, E]: each row is a
+        # one-token level-1 group, and the fc ops downstream were
+        # shape-inferred for the padded 3-D layout (the JAX :44-47)
+        out = out[:, None]
     return {'Out': like(ids_v, out)}
 
 
@@ -66,11 +66,6 @@ def _seq(v):
     if not isinstance(v, SeqValue):
         raise TypeError("expected a sequence (lod) value, got dense array")
     return v
-
-
-def _no_beam(v):
-    if isinstance(v, SeqValue) and v.beam_cap:
-        raise NotImplementedError(_BEAM_SLICE)
 
 
 def _trailing(t, ndim):
@@ -181,9 +176,14 @@ def _sequence_softmax(ins, attrs, ctx):
 def _sequence_expand(ins, attrs, ctx):
     """Each row of X broadcast over Y's time steps (reference
     operators/sequence_expand_op.cc, ref_level -1). A sequence X gives
-    each row's first step, as the JAX rule does (:141-145)."""
+    each row's first step, as the JAX rule does (:141-145). On a
+    capacity-form beam Y (the book's LoD beam decoder) each parent row is
+    replicated over its selected children (lod_beam.sequence_expand_beam,
+    the JAX :128-137)."""
     xv = ins['X'][0]
-    _no_beam(ins['Y'][0])
+    from .lod_beam import is_beam_form, sequence_expand_beam
+    if is_beam_form(ins['Y'][0]):
+        return {'Out': sequence_expand_beam(xv, ins['Y'][0])}
     y = _seq(ins['Y'][0])
     x = data_of(xv)
     if isinstance(xv, SeqValue):
@@ -236,12 +236,17 @@ def _lod_reset(ins, attrs, ctx):
     a Y length source the batch stays and only the lengths change; with a
     static target_lod the valid rows are flattened and re-padded into the
     new sequences (an offset past the valid rows reads the edge row
-    again, as the JAX rule's clamped gather does)."""
+    again, as the JAX rule's clamped gather does). A capacity-form beam Y
+    hands X its whole 2-level capacity LoD, beam flag included (the JAX
+    :178-196)."""
     xv = ins['X'][0]
     data = data_of(xv)
     if ins.get('Y') and ins['Y']:
         y = ins['Y'][0]
-        _no_beam(y)
+        from .lod_beam import is_beam_form
+        if is_beam_form(y):
+            return {'Out': SeqValue(data, y.lengths, y.outer_lengths,
+                                    beam_cap=True)}
         lens = y.lengths if isinstance(y, SeqValue) \
             else data_of(y).reshape(-1).long()
         if lens.shape[0] != data.shape[0]:

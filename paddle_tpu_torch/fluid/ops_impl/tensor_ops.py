@@ -84,12 +84,27 @@ def _increment(ins, attrs, ctx):
     return {'Out': x + torch.tensor(attrs.get('step', 1.0), dtype=x.dtype)}
 
 
+@register('is_empty')
+def _is_empty(ins, attrs, ctx):
+    """A 0-d bool (the JAX :312-320). On a capacity-form beam value it is
+    a device-side test, every source pruned (the book decoder's stop
+    condition); on any other value the element count, known from the
+    shape."""
+    from .lod_beam import is_beam_form, is_empty_beam
+    x = ins['X'][0]
+    if is_beam_form(x):
+        return {'Out': is_empty_beam(x)}
+    d = data_of(x)
+    return {'Out': torch.full((), d.numel() == 0, dtype=torch.bool,
+                              device=d.device)}
+
+
 @register('assign')
 def _assign(ins, attrs, ctx):
     return {'Out': ins['X'][0]}
 
 
-@register('reshape')
+@register('reshape', best_effort_shapes=True)
 def _reshape(ins, attrs, ctx):
     x = data_of(ins['X'][0])
     # Fluid semantics (operators/reshape_op.cc): 0 means "copy input dim",

@@ -67,6 +67,7 @@ from torch.profiler import record_function
 from ..ops import _cuda
 from .lowering import (Ctx, SeqValue, SparseRows, data_of, leaves_of, like,
                        map_value, run_op)
+from .ops_impl.block_ops import check_loops, pack_loops
 from .passes import memory_plan
 
 __all__ = ['StepArtifact', 'program_fingerprint', 'stable_signature']
@@ -184,7 +185,7 @@ class _Captured(object):
     kernel launches one replay makes."""
 
     __slots__ = ('graph', 'feeds', 'state', 'fetches', 'health',
-                 'launches', '__weakref__')
+                 'launches', 'loops', '__weakref__')
 
     def __init__(self):
         self.graph = None
@@ -232,6 +233,9 @@ class StepArtifact(object):
         self.captures = 0
         self.replays = 0
         self._at = None     # (op index, type) the walk is at
+        # the while ops' end flags of the last step (block_ops.pack_loops),
+        # which check_loops reads on the host after the step
+        self.last_loops = None
 
     # -- the step body ---------------------------------------------------
 
@@ -268,7 +272,9 @@ class StepArtifact(object):
     def _body(self, persist, feed, ctx, on_op=None, check_nan_inf=False):
         """The step: (fetches, new persistables, health or None). Pure but
         for the sparse optimizer rules, which update their table and
-        moments in place."""
+        moments in place. The while ops' end flags go to last_loops."""
+        loops = []
+        ctx = ctx.derive(loops=loops)
         env = dict(persist)
         env.update(feed)
         health = None
@@ -286,6 +292,7 @@ class StepArtifact(object):
         if health is not None:
             with torch.no_grad():
                 self._select_healthy(health['healthy'], new_persist, old)
+        self.last_loops = pack_loops(loops)
         return fetches, new_persist, health
 
     def _train_step(self, env, persist, ctx, on_op, check_nan_inf):
@@ -456,8 +463,10 @@ class StepArtifact(object):
                 device=tensors[0].device if tensors else 'cpu')
         generator.manual_seed(seed)
         ctx = Ctx(generator.device, generator, amp=self.amp)
-        return self._body(persist, feed, ctx, on_op=hook if hooks else None,
-                          check_nan_inf=check_nan_inf)
+        out = self._body(persist, feed, ctx, on_op=hook if hooks else None,
+                         check_nan_inf=check_nan_inf)
+        check_loops(self.last_loops)
+        return out
 
     def __call__(self, persist, feed, seed, generator):
         """One eager step (the CPU's path, as JAX's jit runs on the CPU)."""
@@ -523,6 +532,7 @@ class StepArtifact(object):
         _cuda.add_launches(rec.launches)
         self.replays += 1
         exe._replays += 1
+        self.last_loops = rec.loops
         return rec.fetches, rec.health
 
     def _warm_up(self, exe, scope, feed, seed):
@@ -628,6 +638,7 @@ class StepArtifact(object):
         torch.cuda.current_stream(dev).wait_stream(side)
         rec.graph, rec.feeds, rec.state = graph, feeds, state
         rec.fetches, rec.health = fetches, health
+        rec.loops = self.last_loops
         self.captures += 1
         exe._captures += 1
         exe._graphs.add(rec)

@@ -2299,3 +2299,199 @@ def test_captured_srl_step_matches_the_eager_walk(card):
     stats = cexe.cache_stats
     assert stats['captures'] == 1 and stats['replays'] == 3, stats
     assert {n: k.launches for n, k in ops.KERNELS.items()} == before
+
+
+def _cf_book_decoder(fluid, V=40, E=8, H=8, beam=2, max_len=6, end_id=1):
+    """The book's While-loop LoD beam decoder (decode_main) at tiny
+    widths, as tests/test_torch_control_flow.py builds it."""
+    layers = fluid.layers
+    src = layers.data(name='src_word_id', shape=[1], dtype='int64',
+                      lod_level=1)
+    emb = layers.embedding(input=src, size=[V, E], dtype='float32',
+                           param_attr=fluid.ParamAttr(name='vemb'))
+    fc1 = layers.fc(input=emb, size=H * 4, act='tanh')
+    h, _ = layers.dynamic_lstm(input=fc1, size=H * 4)
+    context = layers.sequence_last_step(input=h)
+    array_len = layers.fill_constant(shape=[1], dtype='int64', value=max_len)
+    counter = layers.zeros(shape=[1], dtype='int64', force_cpu=True)
+    state_array = layers.create_array('float32')
+    layers.array_write(context, array=state_array, i=counter)
+    ids_array = layers.create_array('int64')
+    scores_array = layers.create_array('float32')
+    init_ids = layers.data(name='init_ids', shape=[1], dtype='int64',
+                           lod_level=2)
+    init_scores = layers.data(name='init_scores', shape=[1],
+                              dtype='float32', lod_level=2)
+    layers.array_write(init_ids, array=ids_array, i=counter)
+    layers.array_write(init_scores, array=scores_array, i=counter)
+    cond = layers.less_than(x=counter, y=array_len)
+    w = layers.While(cond=cond)
+    with w.block():
+        pre_ids = layers.array_read(array=ids_array, i=counter)
+        pre_state = layers.array_read(array=state_array, i=counter)
+        pre_score = layers.array_read(array=scores_array, i=counter)
+        expanded = layers.sequence_expand(pre_state, pre_score)
+        ids_emb = layers.embedding(input=pre_ids, size=[V, E],
+                                   dtype='float32')
+        state = layers.fc(input=[expanded, ids_emb], size=H, act='tanh')
+        score = layers.fc(input=layers.lod_reset(x=state, y=pre_score),
+                          size=V, act='softmax')
+        tk_sc, tk_idx = layers.topk(score, k=beam)
+        accu = layers.elementwise_add(
+            x=layers.log(tk_sc), y=layers.reshape(pre_score, shape=[-1]),
+            axis=0)
+        sel_ids, sel_sc = layers.beam_search(pre_ids, pre_score, tk_idx,
+                                             accu, beam, end_id=end_id,
+                                             level=0)
+        layers.increment(x=counter, value=1, in_place=True)
+        layers.array_write(state, array=state_array, i=counter)
+        layers.array_write(sel_ids, array=ids_array, i=counter)
+        layers.array_write(sel_sc, array=scores_array, i=counter)
+        layers.logical_and(
+            x=layers.less_than(x=counter, y=array_len),
+            y=layers.logical_not(layers.is_empty(x=sel_ids)), out=cond)
+    ids, scores = layers.beam_search_decode(ids=ids_array,
+                                            scores=scores_array,
+                                            beam_size=beam, end_id=end_id)
+    return [ids, scores, counter]
+
+
+def _cf_feed(fluid, sources):
+    n = len(sources)
+    return {'src_word_id': fluid.LoDTensor(
+                np.concatenate(sources).reshape(-1, 1).astype('int64'),
+                [[len(s) for s in sources]]),
+            'init_ids': fluid.LoDTensor(np.zeros((n, 1), 'int64'),
+                                        [[1] * n, [1] * n]),
+            'init_scores': fluid.LoDTensor(np.ones((n, 1), 'float32'),
+                                           [[1] * n, [1] * n])}
+
+
+def test_captured_book_decoder_matches_the_eager_walk(card):
+    """The book's While-loop LoD beam decoder captured on the card (warm-up
+    under sync debug, capture, two replays): every call's sentences (2-level
+    LoD, ids, scores) and live iterations bitwise those of the eager walk
+    (check_nan_inf), ids and LoD equal to the CPU's and scores within 1e-5;
+    one capture, three replays; no kernel of the port launches."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import ops
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        fetch = _cf_book_decoder(fluid)
+    sources = [[5, 9, 3, 7], [12, 4], [30, 31, 32, 2, 6, 8], [17]]
+    feed = _cf_feed(fluid, sources)
+    init = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=init)
+    before = {n: k.launches for n, k in ops.KERNELS.items()}
+    runs = {}
+    for where in ('captured', 'eager', 'cpu'):
+        place = fluid.CPUPlace() if where == 'cpu' else fluid.CUDAPlace(0)
+        scope = fluid.Scope()
+        scope.load_numpy(init.to_numpy(), place)
+        exe = fluid.Executor(place)
+        with (fluid.debugger.check_nan_inf() if where == 'eager'
+              else contextlib.nullcontext()):
+            runs[where] = [exe.run(main, feed=feed, fetch_list=fetch,
+                                   scope=scope, return_numpy=False)
+                           for _ in range(4 if where == 'captured' else 1)]
+        if where == 'captured':
+            assert exe.cache_stats['captures'] == 1
+            assert exe.cache_stats['replays'] == 3
+    eager, = runs['eager']
+    cpu, = runs['cpu']
+    for call in runs['captured']:
+        for got, want in zip(call[:2], eager[:2]):
+            assert got.recursive_sequence_lengths() == \
+                want.recursive_sequence_lengths()
+            np.testing.assert_array_equal(np.asarray(got.data),
+                                          np.asarray(want.data))
+        assert torch.equal(call[2].cpu(), eager[2].cpu())
+    got = runs['captured'][-1]
+    assert got[0].recursive_sequence_lengths() == \
+        cpu[0].recursive_sequence_lengths()
+    np.testing.assert_array_equal(np.asarray(got[0].data),
+                                  np.asarray(cpu[0].data))
+    np.testing.assert_allclose(np.asarray(got[1].data),
+                               np.asarray(cpu[1].data), rtol=0, atol=1e-5)
+    assert {n: k.launches for n, k in ops.KERNELS.items()} == before
+
+
+def _cf_counter_loop(fluid, max_iters):
+    layers = fluid.layers
+    limit = layers.data(name='limit', shape=[1], dtype='int64',
+                        append_batch_size=False)
+    i = layers.zeros(shape=[1], dtype='int64')
+    cond = layers.less_than(x=i, y=limit)
+    w = layers.While(cond=cond, max_iters=max_iters)
+    with w.block():
+        layers.increment(x=i, in_place=True)
+        layers.less_than(x=i, y=limit, cond=cond)
+    return [i]
+
+
+def test_while_past_its_bound_raises_on_the_card(card):
+    """A while of bound 5 runs 3 iterations captured (warm-up, capture,
+    replay), then a feed that asks for 20 makes the next replay raise,
+    naming the op and the bound; so does a warm-up that overruns."""
+    import paddle_tpu_torch.fluid as fluid
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        fetch = _cf_counter_loop(fluid, 5)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    for _ in range(3):
+        out, = exe.run(main, feed={'limit': np.array([3], 'int64')},
+                       fetch_list=fetch, scope=scope)
+        assert int(out[0]) == 3
+    assert exe.cache_stats['captures'] == 1
+    with pytest.raises(RuntimeError, match='bound of 5'):
+        exe.run(main, feed={'limit': np.array([20], 'int64')},
+                fetch_list=fetch, scope=scope)
+    with pytest.raises(RuntimeError, match=r'while op #\d+ of block 0'):
+        fluid.Executor(fluid.CUDAPlace(0)).run(
+            main, feed={'limit': np.array([20], 'int64')},
+            fetch_list=fetch, scope=fluid.Scope())
+
+
+def test_while_max_iters_backward_card_against_cpu(card):
+    """A bounded While on the loss path (an fc tanh recurrence, 3 live of
+    max_iters 6 iterations) trained 3 SGD steps captured on the card
+    against the CPU: losses and parameters within 1e-5."""
+    import paddle_tpu_torch.fluid as fluid
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 7
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        layers = fluid.layers
+        x = layers.data(name='x', shape=[8], dtype='float32')
+        limit = layers.fill_constant(shape=[1], dtype='int64', value=3)
+        i = layers.zeros(shape=[1], dtype='int64')
+        acc = layers.fc(input=x, size=8, act='tanh')
+        cond = layers.less_than(x=i, y=limit)
+        loop = layers.While(cond=cond, max_iters=6)
+        with loop.block():
+            nxt = layers.fc(input=acc, size=8, act='tanh',
+                            param_attr=fluid.ParamAttr(name='loop_w'))
+            layers.assign(nxt, output=acc)
+            layers.increment(x=i, in_place=True)
+            layers.less_than(x=i, y=limit, cond=cond)
+        loss = layers.reduce_mean(layers.square(acc))
+        fluid.optimizer.SGD(learning_rate=0.5).minimize(loss)
+    xv = np.random.RandomState(0).randn(4, 8).astype('float32')
+    init = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=init)
+    outs = {}
+    for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+        scope = fluid.Scope()
+        scope.load_numpy(init.to_numpy(), place)
+        exe = fluid.Executor(place)
+        losses = [float(np.asarray(exe.run(main, feed={'x': xv},
+                                           fetch_list=[loss],
+                                           scope=scope)[0]).reshape(-1)[0])
+                  for _ in range(3)]
+        outs[type(place).__name__] = (losses, scope.to_numpy())
+    (cl, cs), (pl, ps) = outs['CUDAPlace'], outs['CPUPlace']
+    np.testing.assert_allclose(cl, pl, rtol=0, atol=1e-5)
+    assert pl[-1] < pl[0]
+    for n in ps:
+        np.testing.assert_allclose(cs[n], ps[n], rtol=0, atol=1e-5,
+                                   err_msg=n)

@@ -74,6 +74,13 @@ SUBMODULES = [
     'paddle_tpu_torch.models.recommender_system',
     'paddle_tpu_torch.models.label_semantic_roles',
     'paddle_tpu_torch.compat',
+    # control flow and the LoD beam search: the block ops, the debug
+    # rules, the layers and the decoder library
+    'paddle_tpu_torch.fluid.ops_impl.block_ops',
+    'paddle_tpu_torch.fluid.ops_impl.control_ops',
+    'paddle_tpu_torch.fluid.layers.control_flow',
+    'paddle_tpu_torch.fluid.contrib.decoder',
+    'paddle_tpu_torch.fluid.contrib.decoder.beam_search_decoder',
 ]
 
 
