@@ -267,10 +267,46 @@ replay (each graph adds the launches its capture recorded).
                 against its live iterations at exit, replay and eager
                 ms, busy, idle, kernels a replay, graph pool,
                 sentences/s. No kernel of the port launches.
+  7g. trainer — the high-level Trainer on the card (TRAINER_* below).
+                (a) Transformer-base at get_model's widths (batch 16,
+                max_length 256; train_func models.transformer.transformer
+                returning [avg_cost, token_count], optimizer_func
+                get_model's Adam over the scaled noam_decay) through
+                fluid.Trainer(place=CUDAPlace(0), double_buffer=True,
+                CheckpointConfig(step_interval=6)) for 12 steps of the
+                wmt16 reader (paddle.batch, pad_batch): finite losses that
+                fall, 18 launches a step of each fp32 attention kernel
+                (the main path of the phase: its counts go into the
+                kernels line as the `trainer` path), periodic saves at
+                steps 0 and 6 and none left after train(), one capture;
+                the median replayed step (`trainer.step` spans), target
+                tokens/s, the median `trainer.input_stage` wait a step,
+                each serial's bytes and save seconds. (b) A SIGTERM sent
+                from BeginStepEvent 4: train() returns preempted, its
+                handler restored, an emergency serial whose meta says
+                preempted: true; a fresh Trainer over the dir loads it
+                (seconds) with every persistable bitwise the state at
+                preemption (Adam moments, @LR_DECAY_COUNTER@) and resumes
+                at step 5; its next periodic serial (step 6) passes the
+                size and CRC32 gate. (c) The newest serial torn by one
+                flipped byte: the next Trainer warns and resumes from the
+                serial before, its state bitwise that serial. (d)
+                bundle_steps=4 and (e) sync='async', async_window=2 from
+                (a)'s start weights over (a)'s first 8 batches: losses
+                against (a)'s within 1e-6 relative (bitwise or not is
+                printed); the bundled loop's periodic gate saves at steps
+                3 and 7. (f) test() on 2 test batches; save_params; an
+                Inferencer on the card against the same Inferencer on the
+                CPU (2 rows, logits within 1e-4 of max(1, |logit|)). (g)
+                The conv MNIST net of tests/test_book_high_level_api.py at
+                batch 128, Adam 1e-3, one epoch with double_buffer off
+                and on: steps/s and the median input-stage wait (a
+                finding, not a check). One JSON line {"trainer": {...}}.
   8. captured — each path's captured step against debug_step's eager
                 walk in this call, at full width: Transformer-base
                 training at batch 16 (get_model, dropout 0.1), fp32 and
-                under AMP, DeepFM, a paged decode dispatch with 16 slots
+                under AMP, the same step built by phase 7g's Trainer and
+                replayed on its executor, DeepFM, a paged decode dispatch with 16 slots
                 full, serving at batch 1 and 16 (fp32 and transpiled to
                 bf16), LeNet, ResNet-50 at batch 32 (fp32 NCHW, and AMP
                 with a bf16 feed in NHWC and NCHW). For each:
@@ -396,9 +432,10 @@ ADAGRAD_RTOL, ADAGRAD_ATOL = 1e-4, 1e-6
 CTR_LEARN_LOSS = 0.01
 # the paths each kernel may launch on (main() holds every path to it)
 KERNEL_PATHS = {
-    'flash_attention_fwd': ('serving', 'training', 'nets_attention'),
-    'flash_attention_bwd_dq': ('training', 'nets_attention'),
-    'flash_attention_bwd_dkv': ('training', 'nets_attention'),
+    'flash_attention_fwd': ('serving', 'training', 'nets_attention',
+                            'trainer'),
+    'flash_attention_bwd_dq': ('training', 'nets_attention', 'trainer'),
+    'flash_attention_bwd_dkv': ('training', 'nets_attention', 'trainer'),
     'flash_attention_fwd_bf16': ('amp_training', 'amp_serving'),
     'flash_attention_bwd_dq_bf16': ('amp_training',),
     'flash_attention_bwd_dkv_bf16': ('amp_training',),
@@ -638,6 +675,33 @@ CONTROL_FLOW_SCORE_TOL = 1e-5
 # timed calls of each decode, captured and eager (the book decoder's eager
 # walk takes about 0.64 s)
 CONTROL_FLOW_TIMED = 5
+# phase 7g (trainer): Transformer-base (TRANSFORMER_BASE, batch TRAIN_BATCH,
+# warmup TRAIN_WARMUP: get_model's program and Adam over the scaled
+# noam_decay) through fluid.Trainer on the card. (a) TRAINER_STEPS steps of
+# the wmt16 reader with double_buffer on and a periodic checkpoint every
+# TRAINER_INTERVAL steps (steps 0 and 6: two saves); (b) a SIGTERM at
+# BeginStepEvent TRAINER_PREEMPT_AT, the resumed Trainer's periodic save at
+# 6 and a second preemption at 7; (c) the newest serial torn by one flipped
+# byte; (d) bundle_steps TRAINER_BUNDLE and (e) sync='async' over the
+# first TRAINER_PARITY_STEPS steps from (a)'s start weights, against (a)'s
+# losses within TRAINER_PARITY_RTOL (relative); (f) test() on
+# TRAINER_TEST_BATCHES test batches, and the Inferencer's logits on the
+# card against the CPU's within TRAINER_INFER_TOL of max(1, |logit|): the
+# same artifact on two devices, as phase 4's Predictor is held; (g) the
+# conv MNIST net of tests/test_book_high_level_api.py (8 filters) at
+# models/mnist.py's batch 128, Adam 1e-3, one epoch with double_buffer
+# off and on.
+TRAINER_STEPS = 12
+TRAINER_INTERVAL = 6
+TRAINER_PREEMPT_AT = 4
+TRAINER_RESUMED_STEPS = 8
+TRAINER_BUNDLE = 4
+TRAINER_PARITY_STEPS = 8
+TRAINER_BUNDLE_INTERVAL = 5
+TRAINER_PARITY_RTOL = 1e-6
+TRAINER_TEST_BATCHES = 2
+TRAINER_INFER_TOL = 1e-4
+TRAINER_MNIST_BATCH = 128
 
 
 def log(*args):
@@ -5185,6 +5249,513 @@ def phase_control_flow():
     log(json.dumps({'control_flow': records, 'seconds': secs}))
     return {'control_flow': counts}
 
+# -- phase 7g ---------------------------------------------------------------
+
+TRAINER_FEEDS = ['src_word', 'trg_word', 'lbl_word']
+
+
+def _transformer_funcs():
+    """train_func and optimizer_func of the Transformer-base Trainer:
+    models.transformer.transformer at get_model's widths, returning
+    [avg_cost, token_count], and get_model's Adam over the scaled
+    noam_decay; and infer_func, the same graph's decoder logits."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import transformer as T
+    cfg = TRANSFORMER_BASE
+
+    def build():
+        return T.transformer(cfg['src_vocab_size'], cfg['trg_vocab_size'],
+                             cfg['max_length'], cfg['n_layer'],
+                             cfg['d_model'], cfg['n_head'], cfg['d_inner'])
+
+    def train_func():
+        avg_cost, token_count, _ = build()
+        return [avg_cost, token_count]
+
+    def optimizer_func():
+        lr = fluid.layers.learning_rate_scheduler.noam_decay(
+            cfg['d_model'], TRAIN_WARMUP)
+        lr = fluid.layers.scale(lr, scale=2.0)
+        return fluid.optimizer.Adam(learning_rate=lr, beta1=0.9, beta2=0.98,
+                                    epsilon=1e-9)
+
+    def infer_func():
+        build()
+        return logits_var(fluid.default_main_program())
+
+    return train_func, optimizer_func, infer_func
+
+
+def transformer_trainer(**kw):
+    from paddle_tpu_torch import fluid
+    train_func, optimizer_func, _ = _transformer_funcs()
+    return fluid.Trainer(train_func=train_func, optimizer_func=optimizer_func,
+                         place=fluid.CUDAPlace(0), **kw)
+
+
+def trainer_reader(n, test=False):
+    """The first n padded wmt16 batches (paddle.batch, then pad_batch)."""
+    from paddle_tpu_torch import batch, reader
+    from paddle_tpu_torch.dataset import wmt16
+    from paddle_tpu_torch.models.transformer import pad_batch
+    cfg = TRANSFORMER_BASE
+    raw = (wmt16.test if test else wmt16.train)(cfg['src_vocab_size'],
+                                                cfg['trg_vocab_size'])
+    return reader.firstn(reader.map_readers(
+        lambda b: pad_batch(b, cfg['max_length']),
+        batch(raw, TRAIN_BATCH)), n)
+
+
+@contextlib.contextmanager
+def _spans(*names):
+    """{name: [(seconds, fields)]} of the obs spans named, recorded while
+    the context is open (span() exits and span_record() calls)."""
+    from paddle_tpu_torch import obs
+    got = {n: [] for n in names}
+    real_exit, real_record = obs.Span.__exit__, obs.span_record
+
+    def span_exit(self, *exc):
+        out = real_exit(self, *exc)
+        if self.name in got:
+            got[self.name].append((self.seconds, dict(self.fields)))
+        return out
+
+    def span_record(name, seconds, **fields):
+        if name in got:
+            got[name].append((float(seconds), dict(fields)))
+        return real_record(name, seconds, **fields)
+
+    obs.Span.__exit__, obs.span_record = span_exit, span_record
+    try:
+        yield got
+    finally:
+        obs.Span.__exit__, obs.span_record = real_exit, real_record
+
+
+def _secs(recs):
+    return [s for s, _ in recs]
+
+
+def _trainer_state(trainer):
+    """Every persistable of the trainer's program, on the host."""
+    import torch
+    torch.cuda.synchronize()
+    return {v.name: trainer.scope.vars[v.name].detach().cpu().clone()
+            for v in trainer.train_program.list_vars()
+            if v.persistable and v.name in trainer.scope.vars}
+
+
+def _newest_serial(fluid, ckpt):
+    serial = fluid.io.list_checkpoint_serials(ckpt)[-1]
+    sdir = os.path.join(ckpt, 'checkpoint_%d' % serial)
+    with open(os.path.join(sdir, 'meta.json')) as f:
+        return serial, sdir, json.load(f)
+
+
+def _release():
+    """Give the memory of trainers the caller has dropped (their captured
+    graphs and pools) back before the next sub-phase builds its own."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _trainer_main(tmp):
+    """(a) Transformer-base through fluid.Trainer, double_buffer on, two
+    periodic saves; then (f) test() and the Inferencer. Returns (launch
+    counts, the losses, the start params' dir, the record)."""
+    import torch
+    from paddle_tpu_torch import fluid
+    cfg = TRANSFORMER_BASE
+    ckpt = os.path.join(tmp, 'main')
+    start = os.path.join(tmp, 'start')
+    t0 = time.perf_counter()
+    tr = transformer_trainer(double_buffer=True,
+                             checkpoint_config=fluid.CheckpointConfig(
+                                 checkpoint_dir=ckpt,
+                                 step_interval=TRAINER_INTERVAL))
+    tr.save_params(start)
+    n_params = sum(int(np.prod(v.shape)) for v in
+                   tr.train_program.global_block().all_parameters())
+    log('[trainer] built the Transformer-base Trainer (%d parameters) and '
+        'saved its start params in %.3f s' % (n_params,
+                                              time.perf_counter() - t0))
+    losses, tokens, serial_bytes = [], [], []
+
+    def handler(ev):
+        if isinstance(ev, fluid.EndStepEvent):
+            losses.append(float(np.asarray(ev.metrics[0]).reshape(())))
+            tokens.append(float(np.asarray(ev.metrics[1]).reshape(())))
+            if ev.step % TRAINER_INTERVAL == 0:
+                _, _, meta = _newest_serial(fluid, ckpt)
+                serial_bytes.append(meta['params_bytes'])
+
+    _reset_launch_counts()
+    with _spans('trainer.step', 'trainer.input_stage',
+                'trainer.checkpoint.save', 'checkpoint.save') as sp:
+        t0 = time.perf_counter()
+        tr.train(num_epochs=1, event_handler=handler,
+                 reader=trainer_reader(TRAINER_STEPS),
+                 feed_order=TRAINER_FEEDS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = _launch_counts()
+    want = ATTENTION_OPS_PER_FORWARD * TRAINER_STEPS
+    for name in ('flash_attention_fwd', 'flash_attention_bwd_dq',
+                 'flash_attention_bwd_dkv'):
+        if launches[name] != want:
+            raise AssertionError(
+                'the Trainer launched %s %d times in %d steps; the path '
+                'must launch it %d times a step' % (
+                    name, launches[name], TRAINER_STEPS,
+                    ATTENTION_OPS_PER_FORWARD))
+    if len(losses) != TRAINER_STEPS or not np.isfinite(losses).all():
+        raise AssertionError('Trainer losses %r' % (losses,))
+    if not np.mean(losses[-3:]) < losses[0]:
+        raise AssertionError('the Trainer loss did not fall: %r' % (losses,))
+    saves = sp['trainer.checkpoint.save']
+    if [f['step'] for _, f in saves] != [0, TRAINER_INTERVAL] \
+            or len(serial_bytes) != 2:
+        raise AssertionError('periodic saves %r' % (saves,))
+    if fluid.io.list_checkpoint_serials(ckpt):
+        raise AssertionError('a finished train() left its serials')
+    stats = tr.exe.cache_stats
+    if stats['captures'] != 1 or stats['replays'] != TRAINER_STEPS - 1:
+        raise AssertionError('Trainer steps: %r' % (stats,))
+    step_s = _secs(sp['trainer.step'])[2:]          # replays only
+    waits = _secs(sp['trainer.input_stage'])
+    med = float(np.median(step_s))
+    tok_s = sum(tokens[2:]) / sum(step_s)
+    rec = dict(steps=TRAINER_STEPS, losses=losses, wall_s=wall,
+               median_step_ms=med * 1e3,
+               step_ms=[x * 1e3 for x in step_s], tokens_per_s=tok_s,
+               positions_per_s=TRAIN_BATCH * cfg['max_length'] * 2 / med,
+               median_input_wait_ms=float(np.median(waits)) * 1e3,
+               input_wait_ms=[x * 1e3 for x in waits],
+               input_stage_s=tr.input_stage_s, batches_fed=tr.batches_fed,
+               checkpoint_bytes=serial_bytes,
+               save_s=_secs(saves), write_s=_secs(sp['checkpoint.save']),
+               parameters=n_params, launches_per_step={
+                   k: v // TRAINER_STEPS for k, v in launches.items() if v})
+    log('[trainer] (a) %d steps, double_buffer on: losses %s' % (
+        TRAINER_STEPS, ', '.join('%.4f' % x for x in losses)))
+    log('[trainer] (a) median replayed step %.3f ms (steps 3-%d), %.1f '
+        'target tokens/s, %.1f source+target positions/s; median '
+        'input-stage wait %.4f ms a step (mean %.4f); %d launches a step of '
+        'each attention kernel' % (
+            med * 1e3, TRAINER_STEPS, tok_s, rec['positions_per_s'],
+            rec['median_input_wait_ms'],
+            tr.input_stage_s / tr.batches_fed * 1e3,
+            ATTENTION_OPS_PER_FORWARD))
+    log('[trainer] (a) periodic saves at steps 0 and %d: %s bytes, %s s '
+        '(the npz and its CRC: %s s)' % (
+            TRAINER_INTERVAL, serial_bytes,
+            ', '.join('%.3f' % x for x in rec['save_s']),
+            ', '.join('%.3f' % x for x in rec['write_s'])))
+    rec.update(_trainer_test_and_infer(tr, tmp))
+    del tr
+    _release()
+    return launches, losses, start, rec
+
+
+def _trainer_test_and_infer(tr, tmp):
+    """(f) test() on the test reader; save_params; the Inferencer on the
+    card against the same Inferencer on the CPU."""
+    from paddle_tpu_torch import fluid
+    cfg = TRANSFORMER_BASE
+    test = tr.test(trainer_reader(TRAINER_TEST_BATCHES, test=True),
+                   feed_order=TRAINER_FEEDS)
+    if len(test) != 2 or not np.isfinite(test).all():
+        raise AssertionError('test() gave %r' % (test,))
+    params = os.path.join(tmp, 'trained')
+    tr.save_params(params)
+    _, _, infer_func = _transformer_funcs()
+    feed = _grad_check_feed(TRAINER_FEEDS)
+    outs = []
+    for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+        inf = fluid.Inferencer(infer_func=infer_func, param_path=params,
+                               place=place)
+        outs.append(np.asarray(inf.infer(feed)[0]))
+        del inf
+    got, ref = outs
+    rows = feed['src_word'].shape[0]
+    if got.shape != (rows, cfg['max_length'], cfg['trg_vocab_size']) \
+            or not np.isfinite(got).all():
+        raise AssertionError('the Inferencer answered %r' % (got.shape,))
+    diff = float(np.abs(got - ref).max())
+    scale = max(1.0, float(np.abs(ref).max()))
+    if not diff <= TRAINER_INFER_TOL * scale:
+        raise AssertionError(
+            'the Inferencer on the card is %.3g from the CPU (largest logit '
+            '%.3g, tol %g of it)' % (diff, scale, TRAINER_INFER_TOL))
+    log('[trainer] (f) test() over %d test batches: mean loss %.4f, mean '
+        'tokens %.1f; the Inferencer on the card against the CPU on %d rows: '
+        'max abs diff %.3g (largest logit %.3g, tol %g of it)'
+        % (TRAINER_TEST_BATCHES, test[0], test[1], rows, diff, scale,
+           TRAINER_INFER_TOL))
+    return dict(test=test, infer_max_abs_diff=diff, infer_scale=scale)
+
+
+def _trainer_preemption(tmp):
+    """(b) SIGTERM at BeginStepEvent TRAINER_PREEMPT_AT: an emergency serial
+    (meta preempted: true); a fresh Trainer resumes at the next step from
+    state bitwise the state at preemption; its next periodic serial is
+    intact. (c) The newest serial (the resumed Trainer's own preemption)
+    torn by one flipped byte: the next Trainer warns and resumes from the
+    serial before. Returns the record."""
+    import signal
+    import torch
+    import warnings
+    from paddle_tpu_torch import fluid
+    ckpt = os.path.join(tmp, 'preempt')
+    k = TRAINER_PREEMPT_AT
+
+    def cfg():
+        return fluid.CheckpointConfig(checkpoint_dir=ckpt,
+                                      step_interval=TRAINER_PREEMPT_AT - 1,
+                                      max_num_checkpoints=3)
+
+    prev = signal.getsignal(signal.SIGTERM)
+    tr = transformer_trainer(checkpoint_config=cfg())
+    seen = []
+
+    def sigterm(ev):
+        if isinstance(ev, fluid.BeginStepEvent):
+            seen.append(ev.step)
+            if ev.step == k:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+    with warnings.catch_warnings(record=True) as rec, \
+            _spans('trainer.checkpoint.emergency_flush',
+                   'trainer.checkpoint.load', 'checkpoint.verify') as sp:
+        warnings.simplefilter('always')
+        tr.train(num_epochs=1, event_handler=sigterm,
+                 reader=trainer_reader(TRAINER_RESUMED_STEPS),
+                 feed_order=TRAINER_FEEDS)
+        if signal.getsignal(signal.SIGTERM) is not prev:
+            raise AssertionError('train() left its SIGTERM handler installed')
+        if not tr.preempted or seen[-1] != k or not any(
+                'emergency checkpoint flushed' in str(w.message)
+                for w in rec):
+            raise AssertionError('no preemption at step %d: %r' % (k, seen))
+        serial, _, meta = _newest_serial(fluid, ckpt)
+        if meta['trainer_args'] != {'epoch_id': 0, 'step_id': k,
+                                    'preempted': True}:
+            raise AssertionError('emergency meta %r' % (meta,))
+        at_preemption = _trainer_state(tr)
+        del tr
+        _release()
+
+        tr2 = transformer_trainer(checkpoint_config=cfg())
+        resumed = _trainer_state(tr2)
+        differ = [n for n, t in at_preemption.items()
+                  if not torch.equal(resumed[n], t)]
+        if sorted(resumed) != sorted(at_preemption) or differ:
+            raise AssertionError('the resumed state differs from the state '
+                                 'at preemption in %r' % differ[:8])
+        seen2, intact = [], []
+
+        def resumed_handler(ev):
+            if isinstance(ev, fluid.BeginStepEvent):
+                seen2.append(ev.step)
+                if ev.step == TRAINER_RESUMED_STEPS - 1:
+                    tr2.request_preemption()
+            if isinstance(ev, fluid.EndStepEvent) \
+                    and ev.step % (TRAINER_PREEMPT_AT - 1) == 0:
+                s, sdir, m = _newest_serial(fluid, ckpt)
+                fluid.io._verify_params(s, sdir, m)
+                intact.append((s, m['trainer_args']))
+
+        tr2.train(num_epochs=1, event_handler=resumed_handler,
+                  reader=trainer_reader(TRAINER_RESUMED_STEPS),
+                  feed_order=TRAINER_FEEDS)
+    if seen2[0] != k + 1 or not tr2.preempted:
+        raise AssertionError('resumed at step %r, not %d' % (seen2[:1], k + 1))
+    if intact != [(serial + 1, {'epoch_id': 0, 'step_id': 2 * (k - 1)})]:
+        raise AssertionError('the resumed Trainer saved %r' % (intact,))
+    del tr2, resumed_handler
+    _release()
+    n_bytes = meta['params_bytes']
+    log('[trainer] (b) SIGTERM at step %d: emergency serial %d (%d bytes, '
+        '%.3f s), train() returned with preempted True and the handler '
+        'restored; a fresh Trainer loaded it in %.3f s (CRC verify %.3f s), '
+        'all %d persistables (Adam moments, @LR_DECAY_COUNTER@) bitwise the '
+        'state at preemption, resumed at step %d; its periodic serial %d at '
+        'step %d intact (size and CRC32)' % (
+            k, serial, n_bytes, _secs(sp['trainer.checkpoint.emergency_flush'])[0],
+            _secs(sp['trainer.checkpoint.load'])[0],
+            _secs(sp['checkpoint.verify'])[0], len(resumed), k + 1,
+            intact[0][0], intact[0][1]['step_id']))
+
+    # (c) the newest serial torn by one flipped byte
+    newest, sdir, meta = _newest_serial(fluid, ckpt)
+    path = os.path.join(sdir, meta['params_file'])
+    with open(path, 'r+b') as f:
+        f.seek(os.path.getsize(path) // 2)
+        b = f.read(1)
+        f.seek(-1, os.SEEK_CUR)
+        f.write(bytes([b[0] ^ 0x01]))
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter('always')
+        c = cfg()
+        tr3 = transformer_trainer(checkpoint_config=c)
+    msgs = [str(w.message) for w in rec
+            if issubclass(w.category, RuntimeWarning)]
+    if not any('serial %d' % newest in m and 'falling back' in m
+               for m in msgs) or c.load_serial != newest - 1 \
+            or c.step_id != 2 * (k - 1):
+        raise AssertionError('no fallback past the torn serial %d: loaded '
+                             '%r at step %r; warnings %r'
+                             % (newest, c.load_serial, c.step_id, msgs))
+    got = _trainer_state(tr3)
+    with np.load(os.path.join(ckpt, 'checkpoint_%d' % (newest - 1),
+                              '__params__.npz')) as saved:
+        differ = [n for n in got
+                  if not np.array_equal(saved[n], got[n].numpy())]
+    if differ:
+        raise AssertionError('the fallback state differs from serial %d in '
+                             '%r' % (newest - 1, differ[:8]))
+    del tr3
+    _release()
+    log('[trainer] (c) serial %d torn by one flipped byte: the next Trainer '
+        'warned (%s) and resumed from serial %d at step %d, its state '
+        'bitwise that serial' % (newest, msgs[0][:80], newest - 1,
+                                 2 * (k - 1)))
+    return dict(emergency_bytes=n_bytes,
+                emergency_s=_secs(sp['trainer.checkpoint.emergency_flush']),
+                load_s=_secs(sp['trainer.checkpoint.load']),
+                verify_s=_secs(sp['checkpoint.verify']),
+                resumed_at=k + 1, fallback_serial=newest - 1)
+
+
+def _trainer_parity(start, losses, tmp):
+    """(d) bundle_steps=TRAINER_BUNDLE and (e) sync='async' from (a)'s start
+    weights over (a)'s first TRAINER_PARITY_STEPS batches: losses against
+    (a)'s; the bundled loop's periodic gate fires."""
+    from paddle_tpu_torch import fluid
+    want = np.asarray(losses[:TRAINER_PARITY_STEPS])
+    out = {}
+    for what, kw in (('bundled', dict(bundle_steps=TRAINER_BUNDLE,
+                                      checkpoint_config=fluid.CheckpointConfig(
+                                          checkpoint_dir=os.path.join(
+                                              tmp, 'bundled'),
+                                          step_interval=TRAINER_BUNDLE_INTERVAL))),
+                     ('async', dict(sync='async', async_window=2))):
+        tr = transformer_trainer(param_path=start, **kw)
+        got, ends = [], []
+
+        def handler(ev):
+            if isinstance(ev, fluid.EndStepEvent):
+                got.append(ev.metrics[0])
+                ends.append(ev.step)
+
+        with _spans('trainer.checkpoint.save') as sp:
+            tr.train(num_epochs=1, event_handler=handler,
+                     reader=trainer_reader(TRAINER_PARITY_STEPS),
+                     feed_order=TRAINER_FEEDS)
+        got = np.asarray([float(np.asarray(x).reshape(())) for x in got])
+        if ends != list(range(TRAINER_PARITY_STEPS)):
+            raise AssertionError('%s: EndStepEvents %r' % (what, ends))
+        rel = float(np.max(np.abs(got - want) / np.abs(want)))
+        if not rel <= TRAINER_PARITY_RTOL:
+            raise AssertionError('%s losses %r against %r' % (what, got, want))
+        saves = [f['step'] for _, f in sp['trainer.checkpoint.save']]
+        if what == 'bundled' and saves != [TRAINER_BUNDLE - 1,
+                                           2 * TRAINER_BUNDLE - 1]:
+            raise AssertionError('the bundled gate saved at %r' % (saves,))
+        bitwise = bool(np.array_equal(got, want))
+        out[what] = dict(max_rel=rel, bitwise=bitwise, saves=saves)
+        log('[trainer] (%s) %s: %d losses against (a)\'s: max relative diff '
+            '%.3g, bitwise %s%s' % (
+                'd' if what == 'bundled' else 'e', what,
+                TRAINER_PARITY_STEPS, rel, bitwise,
+                '; periodic saves at steps %r' % saves if saves else ''))
+        del tr
+        _release()
+    return out
+
+
+def _trainer_input_stage():
+    """(g) The conv MNIST net of tests/test_book_high_level_api.py (8
+    filters) at models/mnist.py's batch 128, Adam 1e-3, one epoch with
+    double_buffer off and then on: steps/s and the median input-stage
+    wait a step. A finding, not a check."""
+    import torch
+    from paddle_tpu_torch import batch, fluid
+    from paddle_tpu_torch.dataset import mnist
+
+    def train_func():
+        img = fluid.layers.data(name='img', shape=[1, 28, 28],
+                                dtype='float32')
+        conv = fluid.nets.simple_img_conv_pool(
+            input=img, filter_size=5, num_filters=8, pool_size=2,
+            pool_stride=2, act='relu')
+        predict = fluid.layers.fc(input=conv, size=10, act='softmax')
+        label = fluid.layers.data(name='label', shape=[1], dtype='int64')
+        avg = fluid.layers.mean(
+            fluid.layers.cross_entropy(input=predict, label=label))
+        return [avg, fluid.layers.accuracy(input=predict, label=label)]
+
+    out = {}
+    for db in (False, True):
+        tr = fluid.Trainer(
+            train_func=train_func,
+            optimizer_func=lambda: fluid.optimizer.Adam(learning_rate=1e-3),
+            place=fluid.CUDAPlace(0), double_buffer=db)
+        losses = []
+        with _spans('trainer.input_stage', 'trainer.step') as sp:
+            t0 = time.perf_counter()
+            tr.train(num_epochs=1, event_handler=lambda ev: losses.append(
+                ev.metrics[0]) if isinstance(ev, fluid.EndStepEvent)
+                else None, reader=batch(mnist.train(), TRAINER_MNIST_BATCH),
+                feed_order=['img', 'label'])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        waits = _secs(sp['trainer.input_stage'])
+        steps = _secs(sp['trainer.step'])
+        if not np.isfinite([float(np.asarray(x).reshape(-1)[0])
+                            for x in losses]).all():
+            raise AssertionError('MNIST losses %r' % (losses,))
+        out['on' if db else 'off'] = dict(
+            steps=len(losses), steps_per_s=len(losses) / wall,
+            median_input_wait_ms=float(np.median(waits)) * 1e3,
+            mean_input_wait_ms=float(np.mean(waits)) * 1e3,
+            median_step_ms=float(np.median(steps[2:])) * 1e3)
+        del tr
+        _release()
+    for k in ('off', 'on'):
+        r = out[k]
+        log('[trainer] (g) MNIST conv net, batch %d, double_buffer %s: %d '
+            'steps, %.1f steps/s, input-stage wait median %.4f ms (mean '
+            '%.4f), median replayed step %.4f ms' % (
+                TRAINER_MNIST_BATCH, k, r['steps'], r['steps_per_s'],
+                r['median_input_wait_ms'], r['mean_input_wait_ms'],
+                r['median_step_ms']))
+    return out
+
+
+def phase_trainer():
+    """(a) Transformer-base through fluid.Trainer at full width on the card
+    (the main path: its launch counts), (b)-(c) preemption, resume and the
+    torn-serial fallback, (d)-(e) bundled and async parity, (f) test() and
+    the Inferencer, (g) the input stage of a host-bound net. Returns
+    {'trainer': launch counts of (a)}."""
+    import torch
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_trainer_') as tmp:
+        launches, losses, start, rec = _trainer_main(tmp)
+        rec['preemption'] = _trainer_preemption(tmp)
+        rec['parity'] = _trainer_parity(start, losses, tmp)
+    rec['mnist_input_stage'] = _trainer_input_stage()
+    torch.cuda.synchronize()
+    rec['seconds'] = time.perf_counter() - t0
+    rec['card'] = nvidia_smi_line()
+    log('[trainer] phase 7g took %.1f s' % rec['seconds'])
+    log(json.dumps({'trainer': rec}))
+    return {'trainer': launches}
+
+
 # -- phase 8 ----------------------------------------------------------------
 
 def _to_host(tensors):
@@ -5432,32 +6003,58 @@ def _captured_transformer(records, amp=False):
             tag, ', '.join('%.6f' % float(np.asarray(x).reshape(()))
                            for x in cl), len(cs.vars)))
     del runs, es
-    exe, scope = cexe, cs
+    _captured_training_step(
+        tag, 'transformer training, batch 16' + (', AMP' if amp else ''),
+        cexe, main, cs, [avg_cost], feeds[3], pool, records, amp)
+
+
+def _captured_training_step(tag, path, exe, main, scope, fetch, feed, pool,
+                            records, amp=False):
+    """A captured Transformer training step: its launches per replay (18 of
+    each attention kernel, the bf16 ones under AMP), one replay against
+    the eager walk (_replay_against_eager) and the medians of replays and
+    eager walks (_measure), appended to records."""
+    import torch
     launches = _launches_under(
-        lambda: exe.run(main, feed=feeds[3], fetch_list=[avg_cost],
-                        scope=scope), 2)
+        lambda: exe.run(main, feed=feed, fetch_list=fetch, scope=scope), 2)
     want = {k + ('_bf16' if amp else ''): float(ATTENTION_OPS_PER_FORWARD)
             for k in ('flash_attention_fwd', 'flash_attention_bwd_dq',
                       'flash_attention_bwd_dkv')}
     if launches != want:
         raise AssertionError('%s replays launched %r per step, not %r'
                              % (tag, launches, want))
-    h = exe.acquire_step(main, feed=feeds[3], fetch_list=[avg_cost],
-                         scope=scope)
-    art = exe.step_artifact(main, feed=feeds[3], fetch_list=[avg_cost],
-                            scope=scope)
-    _replay_against_eager(tag, h, art, scope, feeds[3], 77)
+    h = exe.acquire_step(main, feed=feed, fetch_list=fetch, scope=scope)
+    art = exe.step_artifact(main, feed=feed, fetch_list=fetch, scope=scope)
+    _replay_against_eager(tag, h, art, scope, feed, 77)
     state = {n: t.clone() for n, t in art.state_dict(scope).items()}
-    dev = {n: torch.from_numpy(v).cuda() for n, v in feeds[3].items()}
+    dev = {n: torch.from_numpy(v).cuda() for n, v in feed.items()}
     g = torch.Generator(device='cuda')
     r = _measure(
-        'transformer training, batch 16' + (', AMP' if amp else ''),
-        lambda: exe.run(main, feed=feeds[3], fetch_list=[avg_cost],
-                        scope=scope),
+        path, lambda: exe.run(main, feed=feed, fetch_list=fetch,
+                              scope=scope),
         lambda: _to_host(art.debug_step(state, dev, 5, generator=g)[0]),
         pool)
     r['launches_per_replay'] = launches
     records.append(r)
+
+
+def _captured_trainer(records):
+    """The Trainer's Transformer-base step (phase 7g's program, dropout
+    0.1, batch 16): two train() steps (warm-up, capture), then the checks
+    and records of the get_model step on the Trainer's executor and
+    scope."""
+    tr = transformer_trainer()
+    r0 = _reserved()
+    tr.train(num_epochs=1, event_handler=lambda ev: None,
+             reader=trainer_reader(2), feed_order=TRAINER_FEEDS)
+    pool = _reserved() - r0
+    if tr.exe.cache_stats['captures'] != 1:
+        raise AssertionError('Trainer steps: %r' % (tr.exe.cache_stats,))
+    feed = as_feed(list(trainer_reader(3)())[2], TRAINER_FEEDS)
+    _captured_training_step(
+        'Trainer transformer', 'Trainer transformer training, batch 16',
+        tr.exe, tr.train_program, tr.scope,
+        [v.name for v in tr.train_func_outputs], feed, pool, records)
 
 
 def _captured_ctr(records):
@@ -5771,6 +6368,7 @@ def phase_captured():
     import torch
     records = []
     _captured_transformer(records)
+    _captured_trainer(records)
     _captured_transformer(records, amp=True)
     _captured_ctr(records)
     _captured_decode(records)
@@ -5816,6 +6414,7 @@ def main():
                         ('sequences', phase_sequences),
                         ('book_models', phase_book_models),
                         ('control_flow', phase_control_flow),
+                        ('trainer', phase_trainer),
                         ('captured', phase_captured)):
         _between_phases(name)
         counts = phase()

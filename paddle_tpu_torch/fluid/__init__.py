@@ -5,9 +5,12 @@ paddle_tpu.fluid, reduced to what the port carries so far: the Program
 IR, the layer builders of the port's models, nets, LoDTensor (sequence
 feeds and fetches), the DataFeeder, the
 Executor and its compiled step (step_artifact: one captured CUDA graph per
-step signature on the card), the anomaly guard, the NaN/Inf debugger, io,
-the training step (backward, optimizer, regularizer, clip), AMP (amp) and
-the bf16 inference transpiler (contrib.Float16Transpiler).
+step signature on the card), the anomaly guard, the NaN/Inf debugger, io
+(with the dense failure-recovery checkpoints), the training step
+(backward, optimizer, regularizer, clip), AMP (amp), the bf16 inference
+transpiler (contrib.Float16Transpiler), and the high-level API: Trainer
+(events, CheckpointConfig, preemption and resume), Inferencer, and the
+host-side metrics, average and evaluator.
 """
 from . import core
 from . import framework
@@ -38,15 +41,25 @@ from .data_feeder import DataFeeder
 from .param_attr import ParamAttr, WeightNormParamAttr
 from . import unique_name
 from . import contrib
+from . import evaluator
+from . import metrics
+from . import average
+from . import trainer
+from .trainer import Trainer, BeginEpochEvent, EndEpochEvent, \
+    BeginStepEvent, EndStepEvent, CheckpointConfig
+from . import inferencer
+from .inferencer import Inferencer
 from .core import CPUPlace, CUDAPlace, TPUPlace, CUDAPinnedPlace
 
 Tensor = LoDTensor
 
-__all__ = framework.__all__ + executor.__all__ + [
+__all__ = framework.__all__ + executor.__all__ + trainer.__all__ + \
+    inferencer.__all__ + [
     'io', 'initializer', 'layers', 'ParamAttr', 'WeightNormParamAttr',
     'unique_name', 'core',
     'backward', 'optimizer', 'regularizer', 'clip', 'nets', 'data_feeder',
     'DataFeeder', 'LoDTensor', 'LoDTensorArray', 'create_lod_tensor',
     'create_random_int_lodtensor', 'debugger', 'step_artifact', 'passes', 'amp', 'contrib',
+    'metrics', 'average', 'evaluator', 'trainer', 'inferencer',
     'CPUPlace', 'CUDAPlace', 'TPUPlace', 'CUDAPinnedPlace',
 ]

@@ -591,6 +591,23 @@ class Executor(object):
         return {n: self._feed_value(v, block.vars.get(n))
                 for n, v in feed.items()}
 
+    def _place_feed(self, program, feed):
+        """Stage one feed dict for a later run of `program` (the JAX :1013),
+        from any thread: the Trainer's prefetch worker calls it while the
+        previous step runs. Each value becomes the tensor (or SeqValue) the
+        step would make of it and, for a card, is copied into pinned host
+        memory; the step then copies it to the card without a host copy of
+        its own. Nothing is allocated or copied on the card here: that copy
+        stays in the step, under the executor's lock on the stream the step
+        runs on, so a staging thread cannot race a capture or a replay's
+        feed buffers. Every entry point takes the result as a feed."""
+        vals = self._feed_values(program, feed)
+        if self.device.type != 'cuda':
+            return vals
+        return {n: map_value(lambda t: t.pin_memory()
+                             if t.device.type == 'cpu' else t, v)
+                for n, v in vals.items()}
+
     def _prepare(self, program, feed, fetch_list, scope,
                  use_program_cache=True):
         """Coerce the feed, resolve the (program, feed signature, fetch,

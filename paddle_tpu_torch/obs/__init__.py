@@ -32,7 +32,7 @@ from .metrics import REGISTRY, counter, gauge, histogram  # noqa: F401
 
 __all__ = ['metrics', 'REGISTRY', 'counter', 'gauge', 'histogram',
            'enabled', 'obs_dir', 'enable', 'disable', 'event', 'span',
-           'run_log_path', 'ENV_DIR']
+           'span_record', 'run_log_path', 'ENV_DIR']
 
 ENV_DIR = 'PADDLE_TPU_OBS_DIR'
 
@@ -160,13 +160,15 @@ def event(name, **fields):
 class Span(object):
     """Context manager created by obs.span(). After __exit__, `.seconds`
     holds the wall time. `.fields` may be mutated inside the span — the
-    run-log record is emitted at exit."""
-    __slots__ = ('name', 'fields', 'id', 'parent', 't0', 'seconds',
-                 '_trace')
+    run-log record is emitted at exit. `step_num` (a training step's
+    ordinal) goes into the record's fields."""
+    __slots__ = ('name', 'fields', 'step_num', 'id', 'parent', 't0',
+                 'seconds', '_trace')
 
-    def __init__(self, name, **fields):
+    def __init__(self, name, step_num=None, **fields):
         self.name = name
         self.fields = fields
+        self.step_num = step_num
         self.id = None
         self.parent = None
         self.t0 = None
@@ -198,16 +200,14 @@ class Span(object):
             st.pop()
         elif self in st:   # mis-nested exit; stay sane
             st.remove(self)
-        h = _span_hists.get(self.name)
-        if h is None:
-            h = REGISTRY.histogram(self.name + '.seconds')
-            _span_hists[self.name] = h
-        h.observe(self.seconds)
+        _span_hist(self.name).observe(self.seconds)
         rl = _run_log()
         if rl is not None:
             fields = dict(self.fields)
             if exc_type is not None:
                 fields['error'] = '%s: %s' % (exc_type.__name__, exc)
+            if self.step_num is not None:
+                fields.setdefault('step_num', self.step_num)
             rl.write({'ts': time.monotonic(), 'kind': 'span',
                       'name': self.name, 'span': self.id,
                       'parent': self.parent, 'dur_s': self.seconds,
@@ -215,8 +215,36 @@ class Span(object):
         return False
 
 
-def span(name, **fields):
+def span(name, step_num=None, **fields):
     """Open a nested wall-time span. Always records `<name>.seconds` into
     the registry histogram; when observability is enabled it also appends
-    a span record to the run log."""
-    return Span(name, **fields)
+    a span record to the run log (with `step_num` among its fields when
+    given)."""
+    return Span(name, step_num=step_num, **fields)
+
+
+def _span_hist(name):
+    h = _span_hists.get(name)
+    if h is None:
+        h = REGISTRY.histogram(name + '.seconds')
+        _span_hists[name] = h
+    return h
+
+
+def span_record(name, seconds, **fields):
+    """Record a span POST-HOC (the JAX :301): the caller timed the region
+    itself, e.g. the Trainer's `trainer.input_stage`, the time its loop
+    waited for the next staged batch. Feeds the same registry histogram
+    and run-log span schema as span(); no profiler range (the region is
+    already over). Returns the record dict when written to the run log,
+    else None."""
+    seconds = float(seconds)
+    _span_hist(name).observe(seconds)
+    rl = _run_log()
+    if rl is None:
+        return None
+    rec = {'ts': time.monotonic(), 'kind': 'span', 'name': name,
+           'span': next(_span_ids), 'parent': current_span_id(),
+           'dur_s': seconds, 'fields': dict(fields)}
+    rl.write(rec)
+    return rec

@@ -38,6 +38,11 @@ generating program captured, its replays bitwise the eager walk. The six
 CRF/CTC rules under sync debug against the CPU (1e-5; out-of-range labels
 give the CPU's NaNs and leave the card usable), and a small
 label_semantic_roles step captured, its replays bitwise the eager walk.
+The high-level Trainer: double_buffer through warm-up, capture and replay
+bitwise the inline feed, Executor._place_feed staging into pinned host
+memory only, each checkpoint with async steps in flight equal to the scope
+after a synchronize, a load_checkpoint between replays reaching the next
+replay, and a preempted Trainer resumed bitwise.
 """
 import contextlib
 import importlib
@@ -2495,3 +2500,189 @@ def test_while_max_iters_backward_card_against_cpu(card):
     for n in ps:
         np.testing.assert_allclose(cs[n], ps[n], rtol=0, atol=1e-5,
                                    err_msg=n)
+
+
+# -- the high-level Trainer on the card --------------------------------------
+
+def _hl_conv_trainer(fluid, **kw):
+    """The conv MNIST net of tests/test_book_high_level_api.py (8 filters)
+    under Adam, as a Trainer on the card."""
+    def train_func():
+        img = fluid.layers.data(name='img', shape=[1, 28, 28],
+                                dtype='float32')
+        conv = fluid.nets.simple_img_conv_pool(
+            input=img, filter_size=5, num_filters=8, pool_size=2,
+            pool_stride=2, act='relu')
+        predict = fluid.layers.fc(input=conv, size=10, act='softmax')
+        label = fluid.layers.data(name='label', shape=[1], dtype='int64')
+        avg = fluid.layers.mean(
+            fluid.layers.cross_entropy(input=predict, label=label))
+        return [avg, fluid.layers.accuracy(input=predict, label=label)]
+    return fluid.Trainer(
+        train_func=train_func,
+        optimizer_func=lambda: fluid.optimizer.Adam(learning_rate=0.005),
+        place=fluid.CUDAPlace(0), **kw)
+
+
+def _hl_reader(steps=6, batch=32, seed=0):
+    def r():
+        rng = np.random.RandomState(seed)
+        for _ in range(steps):
+            imgs = rng.rand(batch, 1, 28, 28).astype('float32')
+            labels = rng.randint(0, 10, size=(batch, 1)).astype('int64')
+            yield [(imgs[i], labels[i]) for i in range(batch)]
+    return r
+
+
+@pytest.fixture
+def cudnn_deterministic():
+    """cuDNN's default convolution algorithms are not deterministic: a
+    bitwise comparison of conv nets captures under deterministic ones."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.backends.cudnn.deterministic = prev
+
+
+def _hl_state(trainer):
+    return {v.name: trainer.scope.vars[v.name].detach().cpu().clone()
+            for v in trainer.train_program.list_vars()
+            if v.persistable and v.name in trainer.scope.vars}
+
+
+def test_trainer_double_buffer_through_capture_is_bitwise_inline(
+        card, cudnn_deterministic, tmp_path):
+    """3 epochs with double_buffer=True: the prefetch worker stages batches
+    (pinned host memory) while the step warms up, captures and replays;
+    every persistable is bitwise the inline-feed run's."""
+    import paddle_tpu_torch.fluid as fluid
+    start = str(tmp_path / 'start')
+    _hl_conv_trainer(fluid).save_params(start)
+    runs = {}
+    for db in (False, True):
+        t = _hl_conv_trainer(fluid, param_path=start, double_buffer=db)
+        losses = []
+        t.train(num_epochs=3, event_handler=lambda ev: losses.append(
+            float(np.asarray(ev.metrics[0]).reshape(-1)[0]))
+            if isinstance(ev, fluid.EndStepEvent) else None,
+            reader=_hl_reader(), feed_order=['img', 'label'])
+        torch.cuda.synchronize()
+        assert t.exe.cache_stats['captures'] == 1
+        # call 1 warms up, call 2 captures and replays
+        assert t.exe.cache_stats['replays'] == 3 * 6 - 1
+        runs[db] = (losses, _hl_state(t), t.batches_fed)
+    assert runs[True][0] == runs[False][0]
+    assert runs[True][2] == runs[False][2] == 18
+    for n, a in runs[False][1].items():
+        assert torch.equal(runs[True][1][n], a), n
+
+
+def test_place_feed_stages_pinned_host_memory_only(card):
+    """Executor._place_feed (the prefetch worker's stage) leaves every
+    value on the host, pinned, and allocates nothing on the card."""
+    import paddle_tpu_torch.fluid as fluid
+    t = _hl_conv_trainer(fluid)
+    feeder = fluid.DataFeeder(feed_list=['img', 'label'],
+                              place=fluid.CUDAPlace(0),
+                              program=t.train_program)
+    fed = feeder.feed(next(_hl_reader()()))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    staged = t.exe._place_feed(t.train_program, fed)
+    assert torch.cuda.memory_allocated() == before
+    for n, v in staged.items():
+        assert v.device.type == 'cpu' and v.is_pinned(), n
+        assert np.array_equal(v.numpy(), fed[n].astype(v.numpy().dtype))
+
+
+def test_checkpoint_with_async_steps_in_flight_reads_after_them(card,
+                                                                tmp_path):
+    """sync='async' with step_interval=1: each serial the Trainer writes
+    equals the scope after a full synchronize (the save reads the static
+    tensors after the replay that wrote them)."""
+    import paddle_tpu_torch.fluid as fluid
+    ckpt = str(tmp_path / 'ckpt')
+    cfg = fluid.CheckpointConfig(checkpoint_dir=ckpt, step_interval=1,
+                                 max_num_checkpoints=2)
+    t = _hl_conv_trainer(fluid, sync='async', async_window=3,
+                         checkpoint_config=cfg)
+    checked = []
+
+    def handler(ev):
+        if not isinstance(ev, fluid.EndStepEvent):
+            return
+        torch.cuda.synchronize()
+        serial = fluid.io.list_checkpoint_serials(ckpt)[-1]
+        path = os.path.join(ckpt, 'checkpoint_%d' % serial, '__params__.npz')
+        with np.load(path) as saved:
+            for n, v in _hl_state(t).items():
+                assert np.array_equal(saved[n], v.numpy()), (ev.step, n)
+        checked.append(ev.step)
+
+    t.train(num_epochs=1, event_handler=handler, reader=_hl_reader(),
+            feed_order=['img', 'label'])
+    assert checked == list(range(6))
+    assert t.exe.cache_stats['replays'] == 5
+
+
+def test_load_between_captured_steps_reaches_the_next_replay(
+        card, cudnn_deterministic, tmp_path):
+    """io.load_checkpoint between two replays rebinds the scope; the next
+    replay copies the loaded values into the graph's static tensors and
+    computes from them: it repeats the step taken from that state."""
+    import paddle_tpu_torch.fluid as fluid
+    t = _hl_conv_trainer(fluid)
+    feeder = fluid.DataFeeder(feed_list=['img', 'label'],
+                              place=fluid.CUDAPlace(0),
+                              program=t.train_program)
+    feeds = [feeder.feed(b) for b in _hl_reader(steps=5)()]
+    fetch = t.train_func_outputs
+    ckpt = str(tmp_path / 'ckpt')
+    with fluid.scope_guard(t.scope):
+        for f in feeds[:3]:
+            t.exe.run(t.train_program, feed=f, fetch_list=fetch)
+        fluid.io.save_checkpoint(t.exe, ckpt, main_program=t.train_program,
+                                 step=1)
+        a = t.exe.run(t.train_program, feed=feeds[3], fetch_list=fetch)
+        after_a = _hl_state(t)
+        t.exe.run(t.train_program, feed=feeds[4], fetch_list=fetch)
+        fluid.io.load_checkpoint(t.exe, ckpt, main_program=t.train_program)
+        b = t.exe.run(t.train_program, feed=feeds[3], fetch_list=fetch)
+        after_b = _hl_state(t)
+    assert t.exe.cache_stats['captures'] == 1
+    assert t.exe.cache_stats['replays'] == 5
+    assert all(np.array_equal(x, y) for x, y in zip(a, b))
+    for n, v in after_a.items():
+        assert torch.equal(after_b[n], v), n
+
+
+def test_trainer_preempted_on_the_card_resumes_bitwise(card, tmp_path):
+    """request_preemption at (1, 2): the emergency serial holds the state
+    at preemption bitwise, and a fresh Trainer resumes at (1, 3) from it."""
+    import paddle_tpu_torch.fluid as fluid
+    ckpt = str(tmp_path / 'ckpt')
+
+    def cfg():
+        return fluid.CheckpointConfig(checkpoint_dir=ckpt, step_interval=100)
+
+    t = _hl_conv_trainer(fluid, checkpoint_config=cfg())
+
+    def handler(ev):
+        if isinstance(ev, fluid.BeginStepEvent) and (ev.epoch, ev.step) \
+                == (1, 2):
+            t.request_preemption()
+
+    t.train(num_epochs=3, event_handler=handler, reader=_hl_reader(),
+            feed_order=['img', 'label'])
+    assert t.preempted
+    torch.cuda.synchronize()
+    state = _hl_state(t)
+    t2 = _hl_conv_trainer(fluid, checkpoint_config=cfg())
+    resumed = _hl_state(t2)
+    for n, v in state.items():
+        assert torch.equal(resumed[n], v), n
+    steps = []
+    t2.train(num_epochs=3, event_handler=lambda ev: steps.append(
+        (ev.epoch, ev.step)) if isinstance(ev, fluid.BeginStepEvent)
+        else None, reader=_hl_reader(), feed_order=['img', 'label'])
+    assert steps[0] == (1, 3)

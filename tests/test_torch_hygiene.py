@@ -6,7 +6,8 @@
     16-bit views);
   * its entry points run on the card unless asked for the CPU: with no
     card, Executor(), Predictor(dirname) and serving.DecodeEngine(weights)
-    raise instead of running on the CPU;
+    raise instead of running on the CPU (Trainer() and Inferencer():
+    tests/test_torch_trainer.py);
   * chip_smoke.py refuses to run, and prints no result, without a card or
     outside a checkout.
 """
@@ -81,6 +82,13 @@ SUBMODULES = [
     'paddle_tpu_torch.fluid.layers.control_flow',
     'paddle_tpu_torch.fluid.contrib.decoder',
     'paddle_tpu_torch.fluid.contrib.decoder.beam_search_decoder',
+    # the high-level Trainer and its data path: the Trainer, Inferencer,
+    # metrics, the reader decorators and prefetch pipeline, retry
+    'paddle_tpu_torch.fluid.trainer', 'paddle_tpu_torch.fluid.inferencer',
+    'paddle_tpu_torch.fluid.metrics', 'paddle_tpu_torch.fluid.average',
+    'paddle_tpu_torch.fluid.evaluator', 'paddle_tpu_torch.reader.pipeline',
+    'paddle_tpu_torch.reader.creator', 'paddle_tpu_torch.reader.decorator',
+    'paddle_tpu_torch.utils', 'paddle_tpu_torch.utils.retry',
 ]
 
 
