@@ -302,6 +302,30 @@ replay (each graph adds the launches its capture recorded).
                 batch 128, Adam 1e-3, one epoch with double_buffer off
                 and on: steps/s and the median input-stage wait (a
                 finding, not a check). One JSON line {"trainer": {...}}.
+  7h. stream  — online training with live serving freshness (STREAM_* below).
+                (a) Full-width DeepFM (both FM tables is_sparse, Adam 1e-3,
+                batch 256) through fluid.Trainer(double_buffer=True).
+                train_stream over the JAX bench's drifting Zipf(1.5)
+                stream, a VocabTable(100000, table='fm_embed',
+                admit_count=2) preloaded full, a DeltaPublisher every 5
+                steps into two ServingEngine replicas (buckets 1-16, the
+                scorer saved from the startup state) behind a Router, and
+                a client thread of 1-8-row requests and a 16-row probe
+                through Router.predict: steps/s, rows admitted and evicted
+                a step, rows a push, push ms, the freshness lag, the
+                trainer.step median, the host split of a step, 2
+                sparse_adam launches a step (the main path of the phase:
+                the `stream` path of the kernels line) and one capture
+                before and after the stream. (b) Each evicted row zero in
+                fm_embed and both Adam moments after its boundary; every
+                probe answer bitwise one of the answers at the push
+                boundaries; after a final publish the replicas' answer
+                against a Predictor of the scorer given the trainer's FM
+                tables within 1e-6 of max(1, |score|); an identity vocab
+                bitwise Trainer.train over 8 batches. (c) A SIGTERM at a
+                boundary: the emergency serial holds streaming_vocab, and a
+                fresh Trainer resumes the same map and every persistable
+                bitwise. One JSON line {"stream": {...}}.
   8. captured — each path's captured step against debug_step's eager
                 walk in this call, at full width: Transformer-base
                 training at batch 16 (get_model, dropout 0.1), fp32 and
@@ -439,7 +463,7 @@ KERNEL_PATHS = {
     'flash_attention_fwd_bf16': ('amp_training', 'amp_serving'),
     'flash_attention_bwd_dq_bf16': ('amp_training',),
     'flash_attention_bwd_dkv_bf16': ('amp_training',),
-    'sparse_adam': ('ctr_training',),
+    'sparse_adam': ('ctr_training', 'stream'),
     'sparse_adagrad': ('ctr_training',),
     'paged_attention': ('decode', 'token_decode', 'spec_decode'),
 }
@@ -702,6 +726,41 @@ TRAINER_PARITY_RTOL = 1e-6
 TRAINER_TEST_BATCHES = 2
 TRAINER_INFER_TOL = 1e-4
 TRAINER_MNIST_BATCH = 128
+# phase 7h (stream): online CTR training with live serving freshness.
+# DeepFM at its full width (26 fields, vocab 100,000, embed_dim 10, hidden
+# [400] x 3, both FM tables is_sparse, Adam(CTR_LR), batch CTR_BATCH)
+# through fluid.Trainer(double_buffer=True).train_stream over the JAX
+# bench.py:826-836 stream: Zipf(1.5) ids around a base that moves
+# STREAM_DRIFT ids a step, in a 2^30 universe, starting at step
+# STREAM_T0. A VocabTable(100000, table='fm_embed', admit_count=2) fronts
+# the tables, preloaded with the 99,999 raw ids just below the first base
+# (an earlier window), so it is full before the first step and every step
+# admits and evicts. A DeltaPublisher(interval_steps=STREAM_PUBLISH_EVERY)
+# pushes through a Router into two ServingEngine replicas of the DeepFM
+# scorer saved from the startup state (buckets STREAM_BUCKETS), while a
+# client thread sends 1-STREAM_CLIENT_ROWS-row requests (and every
+# STREAM_PROBE_EVERY-th one the 16-row probe) through Router.predict.
+# STREAM_WARM steps (the warm-up and the capture), STREAM_STEPS timed, then
+# STREAM_CHECK_STEPS with the zero checks and a SIGTERM at their
+# STREAM_PREEMPT_AT-th boundary; the identity drill over STREAM_IDENTITY
+# batches of synthetic_ctr_reader.
+STREAM_T0 = 10000
+STREAM_DRIFT = 17
+STREAM_UNIVERSE = 1 << 30
+STREAM_ADMIT = 2
+STREAM_PUBLISH_EVERY = 5
+STREAM_BUCKETS = (1, 2, 4, 8, 16)
+STREAM_CLIENT_ROWS = 8
+STREAM_PROBE_EVERY = 4
+STREAM_WARM = 2
+STREAM_STEPS = 300
+STREAM_CHECK_STEPS = 10
+STREAM_PREEMPT_AT = 6
+STREAM_IDENTITY = 8
+# the served answer after the final publish against a Predictor of the same
+# scorer given the trainer's FM tables: the same graphs on the same card,
+# within 1e-6 of max(1, |score|)
+STREAM_SERVE_TOL = 1e-6
 
 
 def log(*args):
@@ -5756,6 +5815,549 @@ def phase_trainer():
     return {'trainer': launches}
 
 
+# -- phase 7h ---------------------------------------------------------------
+
+def _stream_funcs(held):
+    """train_func (DeepFM at full width, both FM tables is_sparse,
+    returning [avg_cost]; its prob kept in `held` for the scorer) and
+    optimizer_func (Adam(CTR_LR)) of the streaming Trainer."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import deepfm
+
+    def train_func():
+        fluid.default_main_program().random_seed = SEED
+        fluid.default_startup_program().random_seed = SEED
+        feat = fluid.layers.data(name='feat_ids', shape=[deepfm.NUM_FIELDS],
+                                 dtype='int64')
+        label = fluid.layers.data(name='label', shape=[1], dtype='int64')
+        cost, held['prob'], _ = deepfm.deepfm(
+            feat, label, embed_dim=CTR_EMBED_DIM, is_sparse=True)
+        return [cost]
+
+    return train_func, lambda: fluid.optimizer.Adam(learning_rate=CTR_LR)
+
+
+def stream_trainer(held, **kw):
+    from paddle_tpu_torch import fluid
+    train_func, optimizer_func = _stream_funcs(held)
+    return fluid.Trainer(train_func=train_func, optimizer_func=optimizer_func,
+                         place=fluid.CUDAPlace(0), **kw)
+
+
+def stream_reader(state):
+    """The JAX bench.py:826-836 stream at DeepFM's shape: batch CTR_BATCH of
+    26 ids, each the base (STREAM_DRIFT ids further each step) plus a
+    Zipf(1.5) draw, mod 2^30, with 0/1 labels. `state` carries the step and
+    the generator across train_stream calls; state['last'] is the newest
+    batch's raw ids (the client thread's source)."""
+    from paddle_tpu_torch.models import deepfm
+    F = deepfm.NUM_FIELDS
+
+    def reader():
+        while True:
+            t = state['t']
+            state['t'] = t + 1
+            rng = state['rng']
+            base = (t * STREAM_DRIFT) % STREAM_UNIVERSE
+            ids = (base + rng.zipf(1.5, size=(CTR_BATCH, F))) \
+                % STREAM_UNIVERSE
+            labels = rng.randint(0, 2, size=(CTR_BATCH, 1))
+            state['last'] = ids
+            yield [(ids[i], labels[i]) for i in range(CTR_BATCH)]
+
+    return reader
+
+
+def _stream_serving(tr, held, tmp):
+    """The DeepFM scorer (feat_ids -> prob) saved from the trainer's startup
+    state, behind two warmed-up ServingEngines in a Router. Returns (router,
+    engines, scorer dir)."""
+    from paddle_tpu_torch import fluid, inference, serving
+    from paddle_tpu_torch.models import deepfm
+    d = os.path.join(tmp, 'scorer')
+    with fluid.scope_guard(tr.scope):
+        fluid.io.save_inference_model(d, ['feat_ids'], [held['prob']],
+                                      tr.exe, main_program=tr.train_program)
+    engines = []
+    for _ in range(2):
+        eng = serving.ServingEngine(inference.Predictor(d),
+                                    serving.ServingConfig(
+                                        max_batch_size=max(STREAM_BUCKETS),
+                                        buckets=list(STREAM_BUCKETS)))
+        eng.warmup(example_feed={'feat_ids': np.zeros(
+            (1, deepfm.NUM_FIELDS), 'int64')})
+        engines.append(eng)
+    return serving.Router().add_model('deepfm', engines), engines, d
+
+
+class _StreamClient(object):
+    """A client thread sending 1-STREAM_CLIENT_ROWS-row requests of the
+    stream's newest ids, translated by the vocab's read-only lookup (the
+    serving side of the map), through Router.predict; every
+    STREAM_PROBE_EVERY-th request is the 16-row probe (alone in its batch:
+    the client waits for each answer, and 16 rows fill the largest
+    bucket)."""
+
+    def __init__(self, router, vt, state, probe):
+        import threading
+        self.router, self.vt, self.state, self.probe = router, vt, state, \
+            probe
+        self.stop = threading.Event()
+        self.latency_s, self.probe_answers, self.errors = [], [], []
+        self.thread = threading.Thread(target=self._run, name='stream-client',
+                                       daemon=True)
+
+    def _run(self):
+        rng = np.random.RandomState(SEED + 7)
+        n = 0
+        try:
+            while not self.stop.is_set():
+                n += 1
+                if n % STREAM_PROBE_EVERY == 0:
+                    out = self.router.predict('deepfm', self.probe,
+                                              timeout=60)
+                    self.probe_answers.append(out[0].tobytes())
+                    continue
+                rows = rng.randint(1, STREAM_CLIENT_ROWS + 1)
+                raw = self.state['last'][rng.randint(0, CTR_BATCH, rows)]
+                feed = {'feat_ids': self.vt.lookup(raw)}
+                t0 = time.perf_counter()
+                out = self.router.predict('deepfm', feed, timeout=60)
+                self.latency_s.append(time.perf_counter() - t0)
+                if out[0].shape != (rows, 1) or \
+                        not np.isfinite(out[0]).all():
+                    raise AssertionError('a served answer %r' % (out[0],))
+        except Exception as e:        # reported by the phase
+            self.errors.append(e)
+
+
+@contextlib.contextmanager
+def _timed_calls(targets):
+    """{label: [seconds, calls]} of the calls to each (owner, attribute,
+    label) in `targets` while the context is open, on whatever thread
+    makes them (the host split of the streaming loop)."""
+    got = {label: [0.0, 0] for _, _, label in targets}
+    # (owner, attribute, its own binding or None when inherited)
+    saved = [(owner, attr, vars(owner).get(attr)) for owner, attr, _ in
+             targets]
+
+    def timed(fn, label):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                got[label][0] += time.perf_counter() - t0
+                got[label][1] += 1
+        return call
+
+    for owner, attr, label in targets:
+        setattr(owner, attr, timed(getattr(owner, attr), label))
+    try:
+        yield got
+    finally:
+        for owner, attr, own in saved:
+            if own is None:
+                delattr(owner, attr)
+            else:
+                setattr(owner, attr, own)
+
+
+def _stream_boundaries(router, engines, probe, pub, pushes):
+    """Wrap router.push_deltas: record each push's ms, rows and freshness
+    lag (the publisher's: the push's end minus the oldest touch it
+    carries) into `pushes` and, right after it, take the probe's answer on
+    every replica (the answers at the push boundaries)."""
+    real = router.push_deltas
+    boundary = [e.predict(probe)[0].tobytes() for e in engines]
+
+    def push_deltas(model_id, deltas):
+        oldest = pub._oldest_touch
+        t0 = time.perf_counter()
+        n = real(model_id, deltas)
+        pushes.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                           rows=sum(len(r) for r, _ in deltas.values()),
+                           lag_s=time.monotonic() - oldest,
+                           row_ids=np.asarray(deltas['fm_embed'][0])))
+        boundary.extend(e.predict(probe)[0].tobytes() for e in engines)
+        return n
+
+    router.push_deltas = push_deltas
+    return boundary
+
+
+def _stream_loop(tmp):
+    """(a) the loop and (b)'s checks on it, (c) the preemption. Returns
+    (launch counts of the timed steps, the record)."""
+    from paddle_tpu_torch import fluid, streaming
+    from paddle_tpu_torch.models import deepfm
+    held, ckpt = {}, os.path.join(tmp, 'stream')
+    t0 = time.perf_counter()
+    tr = stream_trainer(held, double_buffer=True,
+                        checkpoint_config=fluid.CheckpointConfig(
+                            checkpoint_dir=ckpt, step_interval=10 ** 9))
+    router, engines, scorer = _stream_serving(tr, held, tmp)
+    vt = streaming.VocabTable(deepfm.VOCAB, table='fm_embed',
+                              admit_count=STREAM_ADMIT)
+    base = STREAM_T0 * STREAM_DRIFT
+    vt.preload(range(base - (deepfm.VOCAB - 1), base))
+    if vt.stats()['free'] != 0:
+        raise AssertionError('the preloaded vocab is not full: %r'
+                             % (vt.stats(),))
+    pub = streaming.DeltaPublisher(router, 'deepfm',
+                                   interval_steps=STREAM_PUBLISH_EVERY)
+    build_s = time.perf_counter() - t0
+    log('[stream] built the DeepFM Trainer, saved its startup scorer, warmed '
+        'two replicas (buckets %s) and preloaded %d raw ids in %.3f s'
+        % (list(STREAM_BUCKETS), len(vt), build_s))
+    clients = []
+    try:
+        launches, rec = _stream_run(tr, vt, pub, router, engines, scorer,
+                                    clients)
+        at_preemption = _trainer_state(tr)
+        if not router.shutdown():
+            raise AssertionError('a replica did not shut down')
+    finally:
+        # a failed check must not leave the client or a batcher running
+        for client in clients:
+            client.stop.set()
+            client.thread.join(120)
+        router.shutdown(drain=False, timeout=60)
+    rec['build_s'] = build_s
+    del tr, router, engines, clients
+    _release()
+    rec['preemption'] = _stream_resume(ckpt, at_preemption)
+    return launches, rec
+
+
+def _stream_run(tr, vt, pub, router, engines, scorer, clients):
+    """The body of (a) and (b) on the built loop; the client it starts goes
+    into `clients`. Returns (launch counts of the timed steps, the
+    record)."""
+    import signal
+    import torch
+    import warnings
+    from paddle_tpu_torch import fluid
+    state = {'t': STREAM_T0, 'rng': np.random.RandomState(SEED)}
+    reader = stream_reader(state)
+    # the warm-up and the capture, then the probe: the rows of the newest
+    # batch's first 16 examples (rows the stream keeps training)
+    tr.train_stream(reader, vocabs={'feat_ids': vt}, publisher=pub,
+                    max_steps=STREAM_WARM)
+    probe = {'feat_ids': vt.lookup(state['last'][:max(STREAM_BUCKETS)])}
+    pushes = []
+    boundary = _stream_boundaries(router, engines, probe, pub, pushes)
+    captures0 = tr.exe.cache_stats['captures']
+    client = _StreamClient(router, vt, state, probe)
+    clients.append(client)
+    client.thread.start()
+    st0 = vt.stats()
+    _reset_launch_counts()
+    from paddle_tpu_torch.fluid import data_feeder, step_artifact
+    from paddle_tpu_torch.streaming import publish, vocab
+    split = [(vt, 'translate', 'translate (worker)'),
+             (data_feeder.DataFeeder, 'feed', 'feed assembly (worker)'),
+             (tr.exe, '_place_feed', 'pinned staging (worker)'),
+             (tr.exe, 'run', 'Executor.run'),
+             (vocab.Lease, 'release', 'lease release'),
+             (vocab.RowResetter, 'reset', 'row resets'),
+             (step_artifact.StepArtifact, 'touched_rows', 'touched rows'),
+             (publish.DeltaPublisher, 'collect', 'publisher collect'),
+             (publish.DeltaPublisher, 'maybe_publish',
+              'publish (with the probe answers)')]
+    with _spans('trainer.step', 'trainer.input_stage',
+                'streaming.publish') as sp, _timed_calls(split) as calls:
+        t1 = time.perf_counter()
+        n = tr.train_stream(reader, vocabs={'feat_ids': vt}, publisher=pub,
+                            max_steps=STREAM_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    launches = _launch_counts()
+    st1 = vt.stats()
+    captures1 = tr.exe.cache_stats['captures']
+    timed_pushes = list(pushes)
+    want = dict.fromkeys(launches, 0)
+    want['sparse_adam'] = 2 * STREAM_STEPS
+    if n != STREAM_STEPS or launches != want:
+        raise AssertionError('the stream ran %d steps and launched %r; the '
+                             'path must launch %r' % (n, launches, want))
+    if captures1 != captures0 or captures0 != 1:
+        raise AssertionError('captures %d before the stream, %d after'
+                             % (captures0, captures1))
+    admitted = (st1['rows_admitted'] - st0['rows_admitted']) / STREAM_STEPS
+    evicted = (st1['rows_evicted'] - st0['rows_evicted']) / STREAM_STEPS
+    if not admitted > 0 or not evicted > 0 or not timed_pushes:
+        raise AssertionError('the timed steps admitted %.1f and evicted %.1f '
+                             'rows a step in %d pushes'
+                             % (admitted, evicted, len(timed_pushes)))
+    step_s = _secs(sp['trainer.step'])
+
+    # (b) the zero checks, then (c) a SIGTERM at a boundary
+    drained = []
+    drain = vt.drain_resets
+
+    def record():
+        rows = drain()
+        drained.extend(rows)
+        return rows
+
+    vt.drain_resets = record
+    names = ['fm_embed', 'moment1_fm_embed_0', 'moment2_fm_embed_0']
+    zeroed, seen = [], []
+    prev = signal.getsignal(signal.SIGTERM)
+
+    def handler(ev):
+        if not isinstance(ev, fluid.BeginStepEvent):
+            return
+        seen.append(ev.step)
+        if drained:
+            idx = torch.as_tensor(drained,
+                                  device=tr.scope.vars[names[0]].device)
+            for nm in names:
+                if tr.scope.vars[nm].index_select(0, idx).any():
+                    raise AssertionError('an evicted row of %s is not zero '
+                                         'after the boundary' % nm)
+            zeroed.append(len(drained))
+            del drained[:]
+        if len(seen) == STREAM_PREEMPT_AT:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter('always')
+        n2 = tr.train_stream(reader, event_handler=handler,
+                             vocabs={'feat_ids': vt}, publisher=pub,
+                             max_steps=STREAM_CHECK_STEPS)
+    vt.drain_resets = drain
+    if signal.getsignal(signal.SIGTERM) is not prev:
+        raise AssertionError('train_stream left its SIGTERM handler')
+    if not tr.preempted or n2 != STREAM_PREEMPT_AT or not any(
+            'emergency checkpoint flushed' in str(w.message) for w in rec):
+        raise AssertionError('no preemption at the %d-th boundary: %d steps'
+                             % (STREAM_PREEMPT_AT, n2))
+    if not zeroed:
+        raise AssertionError('no eviction at the checked boundaries')
+    client.stop.set()
+    client.thread.join(120)
+    if client.errors:
+        raise client.errors[0]
+
+    # the final publish; the probe answers never torn; the replicas' answer
+    # against the trainer-side Predictor on the trainer's FM tables
+    pub.publish(lambda name: tr.scope._chain_get(name))
+    if not pushes[-1]['row_ids'].size:
+        raise AssertionError('the final publish carried no row')
+    known = set(boundary)
+    torn = [a for a in client.probe_answers if a not in known]
+    if not client.probe_answers or torn:
+        raise AssertionError('%d of %d probe answers are none of the %d '
+                             'answers at the push boundaries' % (
+                                 len(torn), len(client.probe_answers),
+                                 len(known)))
+    check = _stream_final_check(tr, pushes[-1]['row_ids'], engines, scorer)
+    lags = [p['lag_s'] for p in timed_pushes]
+    rec = dict(
+        steps=STREAM_STEPS, wall_s=wall, steps_per_s=STREAM_STEPS / wall,
+        median_step_ms=float(np.median(step_s)) * 1e3,
+        step_ms=[x * 1e3 for x in step_s],
+        median_input_wait_ms=float(np.median(
+            _secs(sp['trainer.input_stage']))) * 1e3,
+        admitted_per_step=admitted, evicted_per_step=evicted,
+        vocab=st1, sparse_adam_per_step=launches['sparse_adam'] // n,
+        captures_before=captures0, captures_after=captures1,
+        pushes=len(timed_pushes),
+        rows_per_push=[p['rows'] for p in timed_pushes],
+        push_ms=[p['ms'] for p in timed_pushes],
+        median_push_ms=float(np.median([p['ms'] for p in timed_pushes])),
+        publish_ms=[x * 1e3 for x in _secs(sp['streaming.publish'])],
+        freshness_lag_s=lags, median_freshness_lag_s=float(np.median(lags)),
+        publisher=pub.stats(), client_requests=len(client.latency_s),
+        client_p50_ms=float(np.median(client.latency_s)) * 1e3,
+        client_p99_ms=float(np.percentile(client.latency_s, 99)) * 1e3,
+        probe_answers=len(client.probe_answers),
+        boundary_answers=len(known), evicted_rows_checked=sum(zeroed),
+        host_split_ms_per_step={k: v[0] * 1e3 / n for k, v in calls.items()},
+        host_split_calls={k: v[1] for k, v in calls.items()}, **check)
+    log('[stream] (a) %d timed steps in %.3f s: %.1f steps/s (%.0f '
+        'examples/s); trainer.step median %.3f ms; input-stage wait median '
+        '%.4f ms; %.1f rows admitted and %.1f evicted a step; %d sparse_adam '
+        'launches a step; captures %d before the stream, %d after' % (
+            STREAM_STEPS, wall, rec['steps_per_s'],
+            rec['steps_per_s'] * CTR_BATCH, rec['median_step_ms'],
+            rec['median_input_wait_ms'], admitted, evicted,
+            rec['sparse_adam_per_step'], captures0, captures1))
+    log('[stream] (a) %d pushes into 2 replicas: %d-%d rows (median %d), '
+        'push ms %.3f-%.3f (median %.3f); freshness lag %.4f-%.4f s '
+        '(median %.4f); client: %d requests, p50 %.3f ms, p99 %.3f ms' % (
+            len(timed_pushes), min(rec['rows_per_push']),
+            max(rec['rows_per_push']), np.median(rec['rows_per_push']),
+            min(rec['push_ms']), max(rec['push_ms']), rec['median_push_ms'],
+            min(lags), max(lags), rec['median_freshness_lag_s'],
+            rec['client_requests'], rec['client_p50_ms'],
+            rec['client_p99_ms']))
+    log('[stream] (a) host ms a step: %s' % ', '.join(
+        '%s %.3f' % kv for kv in rec['host_split_ms_per_step'].items()))
+    log('[stream] (b) %d evicted rows zero in fm_embed and both moments '
+        'after their boundaries; %d probe answers, each one of the %d '
+        'answers at the push boundaries; served against the trainer-side '
+        'Predictor: %.3g (tol %g of max(1, |score|))' % (
+            sum(zeroed), len(client.probe_answers), len(known),
+            check['served_max_err'], STREAM_SERVE_TOL))
+    log('[stream] rows where a replica differs from the trainer after the '
+        'final publish: %s (zeroed for ids translated ahead of a stop, never '
+        'trained, so never pushed)' % check['stale_rows'])
+    return launches, rec
+
+
+def _stream_final_check(tr, rows, engines, scorer):
+    """After the final publish: each replica's answer for 16 examples of the
+    rows that publish carried against a Predictor of the same scorer given
+    the trainer's FM tables (the dense layers are never pushed: both keep
+    the startup weights), and the replicas' copies of those rows bitwise
+    the trainer's. Also counts the rows where a replica's table differs
+    from the trainer's: rows zeroed at a boundary for ids whose batch was
+    translated ahead and never trained (prefetched past a stop), which no
+    step touched and so no publish carries (a finding, not a check)."""
+    import torch
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.models import deepfm
+    n = 16 * deepfm.NUM_FIELDS
+    rows = np.resize(np.asarray(rows, 'int64'), n).reshape(
+        16, deepfm.NUM_FIELDS)
+    feed = {'feat_ids': rows}
+    ref = inference.Predictor(scorer)
+    for name in ('fm_embed', 'fm_first_w'):
+        with torch.no_grad():
+            ref._scope.vars[name].copy_(tr.scope.vars[name])
+    want = ref.run(feed)[0]
+    err, stale = 0.0, []
+    idx = torch.as_tensor(rows.reshape(-1),
+                          device=tr.scope.vars['fm_embed'].device)
+    for eng in engines:
+        got = eng.predict(feed, timeout=60)[0]
+        err = max(err, float(np.max(np.abs(got - want)
+                                    / np.maximum(1.0, np.abs(want)))))
+        served = eng._model._scope.vars['fm_embed']
+        trained = tr.scope.vars['fm_embed']
+        for name in ('fm_embed', 'fm_first_w'):
+            if not torch.equal(eng._model._scope.vars[name][idx],
+                               tr.scope.vars[name][idx]):
+                raise AssertionError('a replica\'s %s rows differ from the '
+                                     'trainer\'s after the final publish'
+                                     % name)
+        stale.append(int((served != trained).any(dim=1).sum()))
+    if not err <= STREAM_SERVE_TOL:
+        raise AssertionError('the served answer is %.3g from the '
+                             'trainer-side Predictor\'s' % err)
+    return dict(served_max_err=err, served_score=float(want.max()),
+                stale_rows=stale)
+
+
+def _stream_resume(ckpt, at_preemption):
+    """(c) the emergency serial's meta holds streaming_vocab; a fresh
+    Trainer over the dir resumes the same map and bitwise the same
+    state."""
+    import torch
+    from paddle_tpu_torch import fluid, streaming
+    from paddle_tpu_torch.models import deepfm
+    serial, sdir, meta = _newest_serial(fluid, ckpt)
+    args = meta['trainer_args']
+    vocab_state = (args.get('streaming_vocab') or {}).get('feat_ids')
+    if not args.get('preempted') or not vocab_state or \
+            len(vocab_state['entries']) != deepfm.VOCAB - 1:
+        raise AssertionError('the emergency serial %d holds no streaming '
+                             'vocab of the full table' % serial)
+    t0 = time.perf_counter()
+    tr2 = stream_trainer({}, checkpoint_config=fluid.CheckpointConfig(
+        checkpoint_dir=ckpt, step_interval=10 ** 9))
+    load_s = time.perf_counter() - t0
+    vt2 = streaming.VocabTable(deepfm.VOCAB, table='fm_embed',
+                               admit_count=STREAM_ADMIT)
+    tr2.train_stream(lambda: iter(()), vocabs={'feat_ids': vt2})
+    if vt2.state_dict() != vocab_state:
+        raise AssertionError('the resumed vocab differs from the preempted '
+                             'one')
+    got = _trainer_state(tr2)
+    differ = [n for n, t in at_preemption.items()
+              if not torch.equal(got[n], t)]
+    if sorted(got) != sorted(at_preemption) or differ:
+        raise AssertionError('the resumed state differs in %r' % differ[:8])
+    with open(os.path.join(sdir, 'meta.json')) as f:
+        meta_bytes = len(f.read())
+    log('[stream] (c) SIGTERM at a boundary: emergency serial %d (%d params '
+        'bytes, meta %d bytes with the vocab of %d residents and %d pending '
+        'counts); a fresh Trainer (%.3f s) resumed the same map and all %d '
+        'persistables bitwise' % (
+            serial, meta['params_bytes'], meta_bytes, len(vt2),
+            len(vocab_state['pending']), load_s, len(got)))
+    del tr2
+    _release()
+    return dict(serial=serial, params_bytes=meta['params_bytes'],
+                meta_bytes=meta_bytes, resume_s=load_s,
+                residents=len(vt2), pending=len(vocab_state['pending']))
+
+
+def _stream_identity():
+    """(b) An identity vocab (preload(range(100000)), cold_row=None):
+    train_stream over STREAM_IDENTITY batches of synthetic_ctr_reader is
+    bitwise Trainer.train over the same batches, from the same state."""
+    import torch
+    from paddle_tpu_torch import fluid, reader, streaming
+    from paddle_tpu_torch.batch import batch
+    from paddle_tpu_torch.models import deepfm
+    batches = reader.firstn(batch(deepfm.synthetic_ctr_reader(tag='train'),
+                                  CTR_BATCH), STREAM_IDENTITY)
+    a, b = stream_trainer({}), stream_trainer({})
+    with torch.no_grad():
+        for n, t in a.scope.vars.items():
+            if isinstance(t, torch.Tensor):
+                b.scope.vars[n].copy_(t)
+    la, lb = [], []
+
+    def losses(sink):
+        return lambda ev: sink.append(float(np.asarray(
+            ev.metrics[0]).reshape(-1)[0])) \
+            if isinstance(ev, fluid.EndStepEvent) else None
+
+    a.train(num_epochs=1, event_handler=losses(la), reader=batches,
+            feed_order=['feat_ids', 'label'])
+    vt = streaming.VocabTable(deepfm.VOCAB, table='fm_embed', admit_count=1,
+                              cold_row=None)
+    vt.preload(range(deepfm.VOCAB))
+    b.train_stream(batches, event_handler=losses(lb),
+                   vocabs={'feat_ids': vt}, feed_order=['feat_ids', 'label'])
+    sa, sb = _trainer_state(a), _trainer_state(b)
+    differ = [n for n in sa if not torch.equal(sa[n], sb[n])]
+    if la != lb or len(la) != STREAM_IDENTITY or differ:
+        raise AssertionError('the identity-vocab stream differs from train(): '
+                             'losses %r / %r, persistables %r'
+                             % (la, lb, differ[:8]))
+    log('[stream] (b) identity vocab: train_stream over %d batches bitwise '
+        'Trainer.train (losses %s; %d persistables)'
+        % (STREAM_IDENTITY, ', '.join('%.4f' % x for x in la), len(sa)))
+    del a, b
+    _release()
+    return dict(identity_steps=STREAM_IDENTITY, identity_losses=la)
+
+
+def phase_stream():
+    """(a) online DeepFM training over a drifting stream through
+    Trainer.train_stream, a VocabTable, a DeltaPublisher and a Router of
+    two live replicas (the main path: its launch counts), (b) the checks
+    on it and the identity drill, (c) preemption and resume. Returns
+    {'stream': launch counts of (a)'s timed steps}."""
+    import torch
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_stream_') as tmp:
+        launches, rec = _stream_loop(tmp)
+    rec.update(_stream_identity())
+    torch.cuda.synchronize()
+    rec['seconds'] = time.perf_counter() - t0
+    rec['card'] = nvidia_smi_line()
+    log('[stream] phase 7h took %.1f s' % rec['seconds'])
+    log(json.dumps({'stream': rec}))
+    return {'stream': launches}
+
+
 # -- phase 8 ----------------------------------------------------------------
 
 def _to_host(tensors):
@@ -6415,6 +7017,7 @@ def main():
                         ('book_models', phase_book_models),
                         ('control_flow', phase_control_flow),
                         ('trainer', phase_trainer),
+                        ('stream', phase_stream),
                         ('captured', phase_captured)):
         _between_phases(name)
         counts = phase()

@@ -18,10 +18,18 @@ stream the steps run on, so it sees every step launched before it; a load
 rebinds them, and the captured step copies the loaded values in before its
 next replay.
 
+train_stream is the JAX Trainer's online loop over an unbounded stream
+with drifting ids (paddle_tpu_torch.streaming): raw ids translate to rows
+of the fixed tables on the input stage, evicted rows are zeroed in place
+at the step boundary, and a DeltaPublisher pushes the touched rows into
+live serving replicas. The feed's shape never changes as the vocabulary
+drifts, so on the card one captured step serves the whole stream. The
+vocab rides every serial's meta in the JAX format.
+
 Not ported yet, and raising NotImplementedError when asked for (ROADMAP.md
 Queue A): parallel=True, transpiler_fn and heartbeat ("Parallel", with the
 sharded checkpoint format the JAX Trainer takes for mesh-annotated
-programs), and train_stream ("Serving, the rest", with streaming/).
+programs).
 """
 import collections
 import contextlib
@@ -88,8 +96,13 @@ class CheckpointConfig(object):
     """reference trainer.py:100, with every argument of the JAX
     CheckpointConfig. commit_timeout and async_save configure the sharded
     checkpoint format, which the port does not have yet: they are stored
-    and, as on the JAX package's dense path, ignored. wallclock_interval_s
-    paces train_stream, which waits for the streaming slice."""
+    and, as on the JAX package's dense path, ignored.
+
+    wallclock_interval_s: unbounded-stream cadence (Trainer.train_stream):
+    ALSO checkpoint whenever this many seconds have passed since the last
+    save, regardless of the step interval — an online trainer consuming a
+    slow stream must bound recovery by wall clock, not step count.
+    Epoch-based train() ignores it."""
 
     def __init__(self, checkpoint_dir=None, max_num_checkpoints=3,
                  epoch_interval=1, step_interval=10, commit_timeout=60.0,
@@ -214,6 +227,14 @@ class Trainer(object):
         self.preempted = False
         self.trainer_id = 0
         self._steps_run = 0
+        # train_stream's vocabs while it runs (folded into every serial's
+        # meta), the vocab state a resumed serial carried (applied once,
+        # by the next train_stream) and the artifact its touched rows are
+        # read from
+        self._stream_vocabs = None
+        self._stream_resume_vocab = None
+        self._stream_art = None
+        self._stream_art_key = None
         self.checkpoint_cfg = checkpoint_config
         if self.checkpoint_cfg:
             assert isinstance(self.checkpoint_cfg, CheckpointConfig)
@@ -280,14 +301,31 @@ class Trainer(object):
             cfg.epoch_id = int(args.get('epoch_id', 0))
             cfg.step_id = int(args.get('step_id', 0))
             self._serial = int(meta.get('step', 0))
+            self._stream_resume_vocab = args.get('streaming_vocab')
             return
+
+    def _vocab_meta(self):
+        """JSON-able {feed name: VocabTable.state_dict()} of the active
+        streaming vocabs (None outside train_stream) — folded into every
+        checkpoint's meta so exact-step resume holds under vocab drift:
+        the restored map reproduces the id->row assignment the restored
+        table rows were trained under (the JAX :524)."""
+        if not self._stream_vocabs:
+            return None
+        return {str(k): vt.state_dict()
+                for k, vt in self._stream_vocabs.items()}
 
     def _write_serial(self, epoch_id, step_id, **extra):
         """One dense serial of the scope's persistables, recording the
-        (epoch, step) the scope holds. Returns its directory."""
+        (epoch, step) the scope holds, and under train_stream the vocab
+        (`streaming_vocab`, as the JAX Trainer writes it). Returns its
+        directory."""
         cfg = self.checkpoint_cfg
         args = {'epoch_id': epoch_id, 'step_id': step_id}
         args.update(extra)
+        vm = self._vocab_meta()
+        if vm is not None:
+            args['streaming_vocab'] = vm
         with self._prog_and_scope_guard():
             return io.save_checkpoint(
                 self.exe, cfg.checkpoint_dir, trainer_id=self.trainer_id,
@@ -418,9 +456,220 @@ class Trainer(object):
 
     def train_stream(self, reader, event_handler=None, feed_order=None,
                      vocabs=None, publisher=None, max_steps=None):
-        """The JAX Trainer's online loop over an unbounded stream; it comes
-        with the port's streaming/ (ROADMAP.md Queue A)."""
-        _not_ported('Trainer.train_stream', 'Serving, the rest')
+        """Online training over an UNBOUNDED stream (the JAX :803).
+        `reader` is an ordinary batch-reader factory with NO epoch length:
+        the loop runs until the stream ends, `stop()` is called,
+        `max_steps` batches have run this call, or preemption lands
+        (emergency checkpoint + clean return, exactly like train()).
+
+        vocabs: {id feed name: streaming.VocabTable} — each named feed
+        is translated raw-id -> row on the input stage (the prefetch
+        worker when double_buffer=True), rows referenced by the in-flight
+        batch are pinned until its step completes, and evicted rows are
+        zeroed (table + optimizer moments, streaming.RowResetter: in
+        place, on the stream the steps run on) at the step boundary
+        BEFORE their new owner trains. Translation is pure host-side
+        indexing: the step's signature never changes as the vocab
+        drifts (on the card one capture serves the whole stream), and
+        with an identity map the trained state is bitwise the
+        un-streamed loop's. The vocab serializes into every checkpoint's
+        meta and a resumed Trainer restores it here, once.
+
+        publisher: a streaming.DeltaPublisher — after each step the
+        touched-row set (StepArtifact.touched_rows: host-side, off the
+        step path) is collected, and the publisher's cadence pushes
+        those rows' live values into the serving replicas
+        (Router.push_deltas). Publisher failures are warned and retried
+        next cadence — freshness degrades, training never dies for a
+        serving-side hiccup.
+
+        Checkpoints follow CheckpointConfig's step_interval AND
+        wallclock_interval_s (whichever fires first); epoch_id is
+        recorded as 0 and serials are NOT cleaned on return — a stream
+        has no "finished" state, the next Trainer resumes. There is no
+        reader fast-forward on resume: a live stream is not replayable;
+        the restored (vocab, table, moments) state carries the
+        continuity. Returns the number of steps run this call.
+
+        As in the JAX Trainer, bundle_steps > 1 and sync='async' are
+        refused; parallel=True cannot reach here (the constructor raises
+        for it)."""
+        if self.bundle_steps > 1 or self.sync == 'async':
+            raise ValueError(
+                'train_stream paces checkpoints, vocab leases, and '
+                'delta publishing per STEP; bundle_steps>1 / '
+                "sync='async' pipeline across steps — pick one "
+                '(double_buffer=True overlaps the input side instead)')
+        from ..streaming.vocab import RowResetter, table_state_names
+        if event_handler is None:
+            event_handler = lambda ev: None  # noqa: E731
+        vocabs = dict(vocabs or {})
+        self._stream_vocabs = vocabs
+        cfg = self.checkpoint_cfg
+        resumed = bool(cfg and cfg.load_serial)
+        if vocabs and resumed and self._stream_resume_vocab:
+            for fname, state in self._stream_resume_vocab.items():
+                if fname in vocabs:
+                    vocabs[fname].load_state_dict(state)
+            # one-shot: a SECOND train_stream() call on this Trainer
+            # continues the LIVE (drifted) vocab — re-applying the
+            # checkpoint-time map would silently mis-map ids to rows
+            self._stream_resume_vocab = None
+        resetter = RowResetter()
+        reset_names = {fname: table_state_names(self.train_program,
+                                                vt.table)
+                       for fname, vt in vocabs.items() if vt.table}
+
+        leases = {}   # step_id -> [Lease] (writer: input stage;
+        #               reader: the loop after that step completes)
+
+        def translate(step_id, fed):
+            ls = []
+            for fname, vt in vocabs.items():
+                v = fed.get(fname)
+                if v is None:
+                    continue
+                if not hasattr(v, 'dtype'):
+                    raise TypeError(
+                        'train_stream vocab feed %r is not a dense '
+                        'array (got %r) — streaming ids are dense id '
+                        'batches' % (fname, type(v).__name__))
+                mapped, lease = vt.translate(v)
+                fed[fname] = mapped.astype(v.dtype, copy=False)
+                ls.append(lease)
+            if ls:
+                leases[step_id] = ls
+            return fed
+
+        def apply_resets():
+            # zero evicted rows (table + moments) BEFORE the step that
+            # trains their new owners — stale moments would bleed the
+            # previous occupant's history into the new id. In place, under
+            # the executor's lock and on the stream the steps run on: on
+            # the card these are the captured step's static tensors
+            for fname, vt in vocabs.items():
+                names = reset_names.get(fname)
+                if not names:
+                    continue
+                rows = vt.drain_resets()
+                if rows:
+                    resetter.reset([self.scope._chain_get(n)
+                                    for n in names], rows,
+                                   lock=self.exe._lock)
+
+        steps_run = 0
+        self.preempted = False
+        self._preempt_requested = False
+        last_done = None
+        last_ckpt_t = time.monotonic()
+        start_step = cfg.step_id + 1 if resumed else 0
+        warned_dense = set()
+        it = None
+        try:
+            with self._preemption_handlers():
+                with self._prog_and_scope_guard():
+                    feed_vars = build_feed_var_list(self.train_program,
+                                                    feed_order)
+                    feeder = DataFeeder(feed_list=feed_vars,
+                                        place=self.place,
+                                        program=self.train_program)
+                    fetch = [v.name for v in self.train_func_outputs]
+                    it = self._iter_staged(reader, feeder, post=translate)
+                    for rel_id, fed in it:
+                        step_id = start_step + rel_id
+                        if self.__stop or (max_steps is not None
+                                           and steps_run >= max_steps):
+                            return steps_run
+                        if self._preempt_requested:
+                            self._finish_preemption(last_done)
+                            return steps_run
+                        apply_resets()
+                        begin = BeginStepEvent(0, step_id)
+                        event_handler(begin)
+                        want = fetch if begin.fetch_metrics else []
+                        self._steps_run += 1
+                        with obs.span('trainer.step',
+                                      step_num=self._steps_run,
+                                      epoch=0, step=step_id, stream=True):
+                            metrics = self.exe.run(
+                                program=self.train_program, feed=fed,
+                                fetch_list=want)
+                        last_done = (0, step_id)
+                        steps_run += 1
+                        # the step is on the stream: a row evicted after
+                        # this release is zeroed behind it there
+                        for lease in leases.pop(rel_id, []):
+                            lease.release()
+                        if publisher is not None:
+                            self._stream_publish(publisher, fed, want,
+                                                 warned_dense, vocabs)
+                        if cfg:
+                            due = (step_id > 0 and step_id
+                                   % cfg.step_interval == 0)
+                            wall = cfg.wallclock_interval_s
+                            if not due and wall is not None:
+                                due = (time.monotonic() - last_ckpt_t
+                                       >= wall)
+                            if due:
+                                self._save_checkpoint(0, step_id,
+                                                      force=True)
+                                last_ckpt_t = time.monotonic()
+                        event_handler(EndStepEvent(0, step_id, metrics))
+                        if self._preempt_requested:
+                            self._finish_preemption(last_done)
+                            return steps_run
+                    return steps_run
+        finally:
+            if it is not None:
+                it.close()   # unblock the prefetch worker on early exit
+            for ls in leases.values():
+                for lease in ls:
+                    lease.release()
+            leases.clear()
+            self._stream_vocabs = None
+            self._stream_art = None
+
+    def _stream_publish(self, publisher, fed, fetch, warned_dense, vocabs):
+        """Collect this step's touched rows (host-side seam) and run the
+        publisher's cadence (the JAX :1031). Serving-side failures warn
+        and retry next cadence."""
+        # resolve the artifact ONCE per fetch set, not per step: the
+        # sparse plan does not depend on the batch, and _prepare would
+        # coerce the whole feed again just to read metadata
+        art = self._stream_art
+        if art is None or self._stream_art_key != tuple(fetch):
+            try:
+                art = self.exe.step_artifact(self.train_program, fed,
+                                             fetch, scope=self.scope)
+            except Exception as e:
+                warnings.warn('train_stream: could not resolve the step '
+                              'artifact for touched-row collection '
+                              '(%s: %s)' % (type(e).__name__, e),
+                              RuntimeWarning)
+                return
+            self._stream_art = art
+            self._stream_art_key = tuple(fetch)
+        for fname, vt in vocabs.items():
+            t = vt.table
+            if t and t not in art.sparse_plan and t not in warned_dense:
+                warned_dense.add(t)
+                warnings.warn(
+                    'train_stream: table %r (vocab feed %r) is NOT on '
+                    'the sparse update path — its update writes every '
+                    'row each step, so touched-row deltas under-report '
+                    'and row eviction is unsafe. Build the lookup with '
+                    'is_sparse=True' % (t, fname), RuntimeWarning)
+        touched = art.touched_rows(fed)
+        if touched:
+            publisher.collect(touched)
+        try:
+            publisher.maybe_publish(lambda name: self.scope._chain_get(name))
+        except Exception as e:
+            obs.counter('streaming.push_failures').inc()
+            warnings.warn(
+                'train_stream: delta push failed (%s: %s) — deltas are '
+                'retained and retried at the next cadence'
+                % (type(e).__name__, e), RuntimeWarning)
 
     def test(self, reader, feed_order=None):
         """reference trainer.py:409 — mean of train_func outputs over the

@@ -1,11 +1,13 @@
 """paddle_tpu_torch.serving — dynamic micro-batching serving engine.
 
 Parity: the JAX package's paddle_tpu.serving, reduced to the
-`ServingEngine` over a `Predictor` and the continuous-batching
-`DecodeEngine` (dense, paged and speculative, fed encoder rows or source
-tokens through a prefill such as `program_prefill`) with its whole-batch
-baseline `LockstepDecoder` (the router, pod and transport layers wait for
-later slices of the port).
+`ServingEngine` over a `Predictor` (with `push_rows`, the row deltas of
+the streaming freshness path), the multi-replica `Router` (least-loaded
+dispatch, quotas, `push_deltas`, `swap(builder=)`) and the
+continuous-batching `DecodeEngine` (dense, paged and speculative, fed
+encoder rows or source tokens through a prefill such as
+`program_prefill`) with its whole-batch baseline `LockstepDecoder` (the
+pod and transport layers wait for later slices of the port).
 
     from paddle_tpu_torch import inference, serving
 
@@ -15,7 +17,12 @@ later slices of the port).
     eng.warmup()                       # run every bucket once
     fut = eng.submit({'x': batch})     # concurrent.futures.Future
     logits, = fut.result()
+    eng.push_rows({'emb_w': (row_ids, rows)})   # live weights, in place
     eng.shutdown()                     # drains in-flight requests
+
+    router = serving.Router().add_model('m', [eng_a, eng_b])
+    logits, = router.predict('m', {'x': batch})  # least-loaded replica
+    router.push_deltas('m', {'emb_w': (row_ids, rows)})  # every replica
 
     dec = serving.DecodeEngine(weights, serving.DecodeConfig(   # the card
         slots=16, beam_size=3, max_len=50, src_cap=32, page_size=16,
@@ -36,14 +43,19 @@ later slices of the port).
 from . import buckets  # noqa: F401
 from . import pages  # noqa: F401
 from .buckets import default_buckets, pad_rows, pick_bucket  # noqa: F401
-from .engine import (DeadlineExceeded, ServerClosed,  # noqa: F401
-                     ServerOverloaded, ServingConfig, ServingEngine)
+from .engine import (DeadlineExceeded, DeltaUnsupported,  # noqa: F401
+                     ServerClosed, ServerOverloaded, ServingConfig,
+                     ServingEngine)
+from .router import (ModelOverloaded, Router, TokenStream,  # noqa: F401
+                     UnknownModel, estimate_state_bytes)
 from .decode import (DecodeConfig, DecodeEngine,  # noqa: F401
                      DecodeSlotPoisoned, LockstepDecoder, mt_weights,
                      program_prefill)
 
 __all__ = ['ServingEngine', 'ServingConfig', 'ServerOverloaded',
-           'ServerClosed', 'DeadlineExceeded', 'buckets',
+           'ServerClosed', 'DeadlineExceeded', 'DeltaUnsupported', 'Router',
+           'ModelOverloaded', 'UnknownModel', 'TokenStream',
+           'estimate_state_bytes', 'buckets',
            'default_buckets', 'pick_bucket', 'pad_rows', 'DecodeConfig',
            'DecodeEngine', 'DecodeSlotPoisoned', 'LockstepDecoder',
            'mt_weights', 'program_prefill', 'pages']

@@ -17,10 +17,12 @@ object with `feed_names` and `run(feed)`):
     per-request deadlines shed already-expired work before it wastes a
     batch slot; `shutdown()` drains in-flight work;
   * everything is observable through paddle_tpu_torch.obs: queue-depth
-    gauge, batch-size / queue-wait histograms, per-batch spans.
-
-Row-delta pushes into live weights (push_rows) and per-batch retries wait
-for a later slice of the port.
+    gauge, batch-size / queue-wait histograms, per-batch spans, and the
+    windowed admission-pressure counters a Router balances on
+    (`stats_window`);
+  * trained row deltas land in the live weights (`push_rows`, the
+    streaming train->serve freshness path): written in place into the
+    tensors the model's captured graphs read, serialized with its batches.
 """
 import collections
 import concurrent.futures
@@ -28,12 +30,13 @@ import threading
 import time
 
 import numpy as np
+import torch
 
 from .. import obs
 from . import buckets as _buckets
 
 __all__ = ['ServingConfig', 'ServingEngine', 'ServerOverloaded',
-           'ServerClosed', 'DeadlineExceeded']
+           'ServerClosed', 'DeadlineExceeded', 'DeltaUnsupported']
 
 # How long any internal condition-wait may sleep before re-checking the
 # shutdown flag.
@@ -59,6 +62,14 @@ class DeadlineExceeded(RuntimeError):
     was shed before execution (its future receives this exception)."""
 
 
+class DeltaUnsupported(TypeError):
+    """push_rows targeted a model that cannot take row deltas: a model
+    with no live parameter scope (a bare callable; the JAX package's
+    `load_compiled` runner, whose parameters are baked into the artifact
+    — publish a new artifact and Router.swap() instead), or a persistable
+    the program writes, which is per-step state rather than a weight."""
+
+
 class ServingConfig(object):
     """Batching / admission policy for a ServingEngine.
 
@@ -74,11 +85,15 @@ class ServingConfig(object):
                         to max_batch_size.
     default_deadline_ms: deadline applied to submits that don't carry
                         their own; None = no deadline.
+    max_retries:        per-batch execution retries (utils.retry, site
+                        'serving.batch') before the batch's futures see
+                        the error; 0 = fail fast.
     """
 
     def __init__(self, max_batch_size=32, max_queue_delay_ms=5.0,
                  queue_capacity=256, overflow='block', buckets=None,
-                 default_deadline_ms=None):
+                 default_deadline_ms=None, max_retries=0,
+                 retry_base_delay_ms=10.0, retry_seed=0):
         if overflow not in ('block', 'reject'):
             raise ValueError("overflow must be 'block' or 'reject', got %r"
                              % (overflow,))
@@ -96,6 +111,55 @@ class ServingConfig(object):
             # a batch can never exceed the largest padded signature
             self.max_batch_size = self.buckets[-1]
         self.default_deadline_ms = default_deadline_ms
+        self.max_retries = int(max_retries)
+        self.retry_base_delay_ms = float(retry_base_delay_ms)
+        self.retry_seed = retry_seed
+
+
+def _table_np_dtype(w):
+    """The numpy dtype pushed rows take for table `w` (a tensor or an
+    array): a bf16 table takes float32 rows, rounded to bf16 on the
+    device."""
+    if isinstance(w, torch.Tensor):
+        if w.dtype == torch.bfloat16:
+            return np.dtype(np.float32)
+        return torch.empty((), dtype=w.dtype).numpy().dtype
+    return np.dtype(str(w.dtype))
+
+
+def _validate_delta(name, w, ids, rows):
+    """Shared delta validation for the push surfaces: in-range int row
+    ids, matching trailing dims, a safely-castable dtype. Returns (ids
+    int64 [n], rows [n,...] in the table's dtype) or raises ValueError
+    naming the table. The JAX :128 (its ids come back int32)."""
+    ids = np.asarray(ids)
+    rows = np.asarray(rows)
+    if ids.ndim != 1:
+        raise ValueError('push_rows: %r row ids must be 1-D, got shape %r'
+                         % (name, tuple(ids.shape)))
+    if not np.issubdtype(ids.dtype, np.integer):
+        raise ValueError('push_rows: %r row ids must be integers, got %s'
+                         % (name, ids.dtype))
+    cap = int(w.shape[0])
+    if ids.size and (int(ids.min()) < 0 or int(ids.max()) >= cap):
+        raise ValueError(
+            'push_rows: %r row ids out of range [0, %d) (got min %d '
+            'max %d)' % (name, cap, int(ids.min()), int(ids.max())))
+    want = (ids.shape[0],) + tuple(int(d) for d in w.shape[1:])
+    if tuple(rows.shape) != want:
+        raise ValueError(
+            'push_rows: %r rows have shape %r, expected %r (one row per '
+            'id, trailing dims of the table)'
+            % (name, tuple(rows.shape), want))
+    wdt = _table_np_dtype(w)
+    if rows.dtype != wdt:
+        if np.can_cast(rows.dtype, wdt, 'same_kind'):
+            rows = rows.astype(wdt)
+        else:
+            raise ValueError(
+                'push_rows: %r rows dtype %s cannot cast to the table '
+                'dtype %s' % (name, rows.dtype, wdt))
+    return ids.astype(np.int64), rows
 
 
 class _Request(object):
@@ -134,16 +198,33 @@ class ServingEngine(object):
     its batcher thread immediately and is a context manager
     (`with ServingEngine(p) as eng: ...` drains on exit).
 
-    An output is sliced back per request when its leading dim equals the
-    padded bucket size; any other output (a batch-level aggregate)
-    replicates whole to each request in the batch.
+    `per_row_outputs` declares which fetch-list positions are batched
+    per-row (everything else replicates whole to each request in the
+    batch). Without it the engine falls back to a HEURISTIC — an output
+    is per-row iff its leading dim equals the padded bucket size —
+    which silently mis-slices a batch-level aggregate whose leading dim
+    coincidentally equals the bucket. Declare the set whenever any
+    fetch output is not batched on axis 0.
     """
 
-    def __init__(self, model, config=None):
+    def __init__(self, model, config=None, per_row_outputs=None):
         self.config = config or ServingConfig()
+        self._model = model
         self._model_fn = model.run if hasattr(model, 'run') else model
         self.feed_names = list(model.feed_names)
         self._input_spec = getattr(model, 'input_spec', None)
+        self._per_row_outputs = None if per_row_outputs is None \
+            else frozenset(int(i) for i in per_row_outputs)
+        if self._per_row_outputs is not None:
+            fetch_names = getattr(model, 'fetch_names', None)
+            n_out = len(fetch_names) if fetch_names is not None else None
+            bad = sorted(i for i in self._per_row_outputs
+                         if i < 0 or (n_out is not None and i >= n_out))
+            if bad:
+                raise ValueError(
+                    'per_row_outputs %r out of range: indices must be '
+                    '>= 0%s' % (bad, '' if n_out is None else
+                                ' and < %d fetch output(s)' % n_out))
         self.buckets = self.config.buckets
         self._lock = threading.Lock()
         self._not_empty = threading.Condition(self._lock)
@@ -162,6 +243,16 @@ class ServingEngine(object):
         self._n_padded_rows = 0
         self._n_inflight = 0           # rows in the currently-executing batch
         self._q_high_water = 0         # cumulative queue high-water mark
+        # row-delta pushes (push_rows): serialized so two publishers'
+        # pushes never interleave their tables
+        self._push_lock = threading.Lock()
+        self._push_write_set = None    # memoized program write set
+        self._n_delta_pushes = 0
+        self._n_delta_rows = 0
+        # the windowed counterparts stats_window() reads-and-resets — the
+        # admission-pressure signal the router balances on
+        self._win = {'submitted': 0, 'completed': 0, 'shed': 0,
+                     'rejected': 0, 'queue_high_water': 0}
         self._thread = threading.Thread(target=self._batcher_loop,
                                         name='serving-batcher', daemon=True)
         self._thread.start()
@@ -230,6 +321,7 @@ class ServingEngine(object):
                     break
                 if self.config.overflow == 'reject':
                     self._n_rejected += 1
+                    self._win['rejected'] += 1
                     _C_REJECTED.inc()
                     obs.event('serving.reject',
                               queue_depth=len(self._queue),
@@ -242,6 +334,7 @@ class ServingEngine(object):
                     min(_POLL_S, t_give_up - time.monotonic())
                 if t_give_up is not None and remaining <= 0:
                     self._n_rejected += 1
+                    self._win['rejected'] += 1
                     _C_REJECTED.inc()
                     obs.event('serving.reject',
                               queue_depth=len(self._queue),
@@ -253,12 +346,55 @@ class ServingEngine(object):
                 self._not_full.wait(remaining)
             self._queue.append(req)
             self._n_submitted += 1
+            self._win['submitted'] += 1
             depth = len(self._queue)
             self._q_high_water = max(self._q_high_water, depth)
+            self._win['queue_high_water'] = max(
+                self._win['queue_high_water'], depth)
             _C_REQUESTS.inc()
             _G_QDEPTH.set(depth)
             self._not_empty.notify()
         return fut
+
+    def predict(self, feed, deadline_ms=None, timeout=None):
+        """Synchronous convenience: submit + wait. `timeout` is ONE
+        wall-clock budget covering both admission (a 'block' overflow
+        wait on a full queue) and the result, and its expiry raises the
+        typed DeadlineExceeded (never a raw
+        concurrent.futures.TimeoutError). A still-queued request is
+        cancelled — dropped at dequeue time without consuming a batch
+        slot; one already mid-batch cannot be recalled: its batch
+        completes and the result is discarded."""
+        t0 = time.monotonic()
+        fut = self.submit(feed, deadline_ms=deadline_ms, timeout=timeout)
+        remaining = None if timeout is None else \
+            max(0.0, timeout - (time.monotonic() - t0))
+        try:
+            return fut.result(remaining)
+        except concurrent.futures.TimeoutError:
+            if fut.done():
+                # the future resolved in the race window after result()
+                # expired — return the just-arrived result (or re-raise
+                # the model's own exception, including a genuine model
+                # TimeoutError) instead of discarding it
+                return fut.result()
+            if fut.cancel():
+                raise DeadlineExceeded(
+                    'no result within the %.3fs predict() timeout; the '
+                    'queued request was cancelled and will not execute'
+                    % timeout)
+            raise DeadlineExceeded(
+                'no result within the %.3fs predict() timeout; the '
+                'request is already executing — its batch completes but '
+                'the result is discarded' % timeout)
+
+    def cancel(self, future):
+        """Best-effort cancel of one submitted request by its future. A
+        still-QUEUED request is cancelled — dropped at dequeue time
+        without consuming a batch slot; one already mid-batch completes
+        and its result is discarded. Returns True if the future was
+        cancelled while queued."""
+        return future.cancel()
 
     # -- warmup ------------------------------------------------------------
 
@@ -295,7 +431,88 @@ class ServingEngine(object):
         self._warm = True
         return list(self.buckets)
 
+    # -- row-delta push ----------------------------------------------------
+
+    def push_rows(self, deltas):
+        """Write trained row deltas into this replica's LIVE weights — the
+        streaming train->serve freshness path: `deltas` maps a persistable
+        name to `(row_ids, rows)` where `rows[i]` is the new value of
+        `table[row_ids[i]]`. Returns rows applied.
+
+        The JAX engine commits by building each table anew and swapping
+        the reference in its scope. Here the Predictor's captured graphs
+        read their weights by address (the scope's tensors ARE the
+        graphs' static state), so a rebound table would never be seen by
+        a replay. The rows are written IN PLACE instead (`index_copy_`
+        into the tensor the scope holds), every table of the push under
+        the model executor's lock, which serializes its runs, and on the
+        stream its replays run on: a batch executing concurrently reads
+        every table whole before the push or whole after it, never a
+        torn row, and no graph is captured again. Every delta is
+        validated before any row is written. Only Predictor-backed models
+        take deltas (anything without a live scope: typed
+        DeltaUnsupported), and only into variables the program does not
+        WRITE (per-step state, which the step itself rewrites)."""
+        scope = getattr(self._model, '_scope', None)
+        prog = getattr(self._model, '_program', None)
+        exe = getattr(self._model, '_exe', None)
+        if scope is None or prog is None or exe is None:
+            raise DeltaUnsupported(
+                'this replica serves a model (or a bare callable) with no '
+                'live parameter scope — row deltas need a Predictor-backed '
+                'engine; swap() a new model instead')
+        if self._shutdown:
+            raise ServerClosed('serving engine is shut down')
+        # the program never changes for the life of the engine: walk
+        # its write set once, not once per publisher cadence
+        write_set = self._push_write_set
+        if write_set is None:
+            from ..fluid.passes import memory_plan
+            write_set = self._push_write_set = memory_plan(prog).write_set
+        applied = 0
+        with self._push_lock:
+            staged = []
+            for name in sorted(deltas):
+                ids, rows = deltas[name]
+                w = scope._chain_get(name)
+                if w is None:
+                    raise KeyError(
+                        'push_rows: no persistable %r in the model scope'
+                        % (name,))
+                if name in write_set:
+                    raise DeltaUnsupported(
+                        'push_rows: %r is WRITTEN by the serving program '
+                        '(per-step state) — pushing rows into it would '
+                        'race the step\'s own update' % (name,))
+                ids, rows = _validate_delta(name, w, ids, rows)
+                dev = w.device
+                idx = torch.from_numpy(ids)
+                src = torch.from_numpy(np.ascontiguousarray(rows))
+                if dev.type == 'cuda':
+                    # staged from pinned memory without waiting for the
+                    # card; the copies are ordered before the writes
+                    idx = idx.pin_memory().to(dev, non_blocking=True)
+                    src = src.pin_memory().to(dev, non_blocking=True)
+                staged.append((name, idx, src))
+                applied += int(ids.shape[0])
+            with exe._lock, torch.no_grad():
+                for name, idx, src in staged:
+                    # read under the lock: the first capture may have
+                    # rebound the scope to the graph's static tensor
+                    w = scope._chain_get(name)
+                    w.index_copy_(0, idx, src.to(w.dtype))
+        self._n_delta_rows += applied
+        self._n_delta_pushes += 1
+        return applied
+
     # -- shutdown ----------------------------------------------------------
+
+    def request_shutdown(self):
+        """Signal-safe shutdown request (the Trainer preemption pattern:
+        flag only, NO locks — safe from a SIGTERM handler). Admission
+        closes immediately; the batcher drains queued and in-flight
+        requests, then exits."""
+        self._shutdown = True
 
     def shutdown(self, drain=True, timeout=None):
         """Stop admission and wait for the batcher to finish. With
@@ -325,7 +542,9 @@ class ServingEngine(object):
     @property
     def stats(self):
         """This engine's CUMULATIVE serving statistics (process-wide
-        aggregates of the same series live in the obs registry)."""
+        aggregates of the same series live in the obs registry). The
+        windowed admission-pressure signal a router balances on is
+        `stats_window()`."""
         with self._lock:
             depth = len(self._queue)
         return {'submitted': self._n_submitted,
@@ -338,7 +557,27 @@ class ServingEngine(object):
                 'queue_depth': depth,
                 'queue_high_water': self._q_high_water,
                 'inflight': self._n_inflight,
+                'delta_pushes': self._n_delta_pushes,
+                'delta_rows': self._n_delta_rows,
                 'warm': self._warm}
+
+    def stats_window(self):
+        """Admission-pressure counters SINCE THE LAST CALL — the queue
+        high-water mark plus shed/reject/submit/complete counts of the
+        window, with the instantaneous depth and in-flight rows
+        appended. Instantaneous depth alone is a useless balancing
+        signal (a bursty replica reads 0 between bursts; one that shed
+        work a moment ago looks idle); the router (serving/router.py)
+        is the intended single consumer — reading resets the window."""
+        with self._lock:
+            win = dict(self._win)
+            for k in self._win:
+                self._win[k] = 0
+            depth = len(self._queue)
+        win['queue_depth'] = depth
+        win['inflight'] = self._n_inflight
+        win['capacity'] = self.config.queue_capacity
+        return win
 
     # -- batcher -----------------------------------------------------------
 
@@ -372,6 +611,8 @@ class ServingEngine(object):
             if not req.future.set_running_or_notify_cancel():
                 continue
             self._n_shed += 1
+            with self._lock:   # _win races stats_window's copy+reset
+                self._win['shed'] += 1
             _C_SHED.inc()
             waited = now - req.t_submit
             obs.event('serving.shed', waited_s=waited, rows=req.n)
@@ -469,6 +710,17 @@ class ServingEngine(object):
                     if not req.future.done():
                         req.future.set_exception(e)
 
+    def _run_with_retry(self, feed):
+        if self.config.max_retries <= 0:
+            return self._model_fn(feed)
+        from ..utils import retry as retry_mod
+        return retry_mod.retry_call(
+            self._model_fn, args=(feed,),
+            retries=self.config.max_retries,
+            base_delay=self.config.retry_base_delay_ms / 1000.0,
+            retry_on=(Exception,), seed=self.config.retry_seed,
+            site='serving.batch')
+
     def _execute(self, batch):
         now = time.monotonic()
         rows = sum(r.n for r in batch)
@@ -499,9 +751,16 @@ class ServingEngine(object):
                 # through a Predictor: numpy views of the pinned host
                 # buffers the step's fetches were copied into; the slices
                 # each request gets keep them alive
-                outs = self._model_fn(feed)
+                outs = self._run_with_retry(feed)
                 sp.fields['warm'] = self._warm
             outs = [np.asarray(o) for o in outs]
+            if self._per_row_outputs is not None:
+                bad = sorted(i for i in self._per_row_outputs
+                             if i >= len(outs))
+                if bad:
+                    raise ValueError(
+                        'per_row_outputs %r out of range: the model '
+                        'returned %d output(s)' % (bad, len(outs)))
         except Exception as e:  # noqa: BLE001 — the batch's futures own it
             self._n_batch_errors += 1
             _C_BATCH_ERRORS.inc()
@@ -512,13 +771,20 @@ class ServingEngine(object):
                 req.future.set_exception(e)
             self._n_inflight = 0
             return
+        per_row = self._per_row_outputs
         off = 0
         for req in batch:
-            # per-row outputs scatter back to their request's rows;
-            # batch-level aggregates replicate whole
+            # declared per-row outputs scatter back to their request's
+            # rows; undeclared engines fall back to the leading-dim
+            # heuristic (see the class docstring for its failure mode);
+            # everything else (batch-level aggregates) replicates whole
             req.future.set_result([
-                o[off:off + req.n] if o.ndim and o.shape[0] == bucket else o
-                for o in outs])
+                o[off:off + req.n]
+                if (i in per_row if per_row is not None
+                    else (o.ndim and o.shape[0] == bucket))
+                else o for i, o in enumerate(outs)])
             off += req.n
             self._n_completed += 1
+            with self._lock:
+                self._win['completed'] += 1
         self._n_inflight = 0

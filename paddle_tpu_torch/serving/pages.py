@@ -3,8 +3,8 @@
 Parity: the JAX package's serving/pages.py (pages_for :61, content_key
 :66, PagePool :81, PrefixCache :145), copied as it is: the module is pure
 Python and numpy, and decides between dispatches only WHICH physical page
-backs which logical page. Its refcounted LRU (the JAX package's
-utils/lru.RefCountedLRU) is kept here as `_RefCountedLRU`.
+backs which logical page. Its refcounted LRU is the port's
+utils/lru.RefCountedLRU, which streaming.VocabTable shares.
 
 The paged engine (``DecodeConfig(page_size=..., pages=...)``) keeps token
 history and encoder rows in fixed-size PAGES drawn from two
@@ -35,6 +35,8 @@ import hashlib
 
 import numpy as np
 
+from ..utils.lru import RefCountedLRU
+
 __all__ = ['PagePool', 'PrefixCache', 'content_key', 'pages_for']
 
 
@@ -56,83 +58,6 @@ def content_key(feed):
         h.update(str(a.shape).encode())
         h.update(np.ascontiguousarray(a).tobytes())
     return h.hexdigest()
-
-
-class _Entry(object):
-    __slots__ = ('value', 'refs')
-
-    def __init__(self, value, refs):
-        self.value = value
-        self.refs = refs
-
-
-class _RefCountedLRU(object):
-    """key -> (value, refs) with LRU eviction of refs==0 entries. One
-    OrderedDict: insertion/touch order IS the recency order. Not
-    thread-safe; callers own their locking."""
-
-    def __init__(self):
-        self._entries = collections.OrderedDict()
-
-    def __len__(self):
-        return len(self._entries)
-
-    def __contains__(self, key):
-        return key in self._entries
-
-    def get(self, key):
-        """The entry's value (None when absent), with no side effects."""
-        e = self._entries.get(key)
-        return None if e is None else e.value
-
-    def refs(self, key):
-        e = self._entries.get(key)
-        return 0 if e is None else e.refs
-
-    def insert(self, key, value, refs=0):
-        """Insert a NEW entry (most-recent position); raises on a
-        duplicate key."""
-        if key in self._entries:
-            raise KeyError('duplicate LRU key %r' % (key,))
-        self._entries[key] = _Entry(value, int(refs))
-
-    def touch(self, key):
-        self._entries.move_to_end(key)
-
-    def ref(self, key):
-        """Pin: one more live user. Pinned entries are never evicted."""
-        self._entries[key].refs += 1
-
-    def unref(self, key):
-        """One user let go; the entry STAYS resident (floor at 0; a
-        missing key is tolerated)."""
-        e = self._entries.get(key)
-        if e is not None and e.refs > 0:
-            e.refs -= 1
-
-    def evict_one(self):
-        """Evict the least-recently-used UNREFERENCED entry: (key, value),
-        or None when everything resident is pinned."""
-        victim = None
-        for key, e in self._entries.items():   # front = least recent
-            if e.refs == 0:
-                victim = key
-                break
-        if victim is None:
-            return None
-        return victim, self._entries.pop(victim).value
-
-    def evictable(self, weigh=None):
-        """Total weight of evictable (refs==0) entries; `weigh(value)`
-        defaults to 1 per entry."""
-        if weigh is None:
-            return sum(1 for e in self._entries.values() if e.refs == 0)
-        return sum(weigh(e.value) for e in self._entries.values()
-                   if e.refs == 0)
-
-    def items(self):
-        """(key, value) pairs in recency order (least recent first)."""
-        return [(k, e.value) for k, e in self._entries.items()]
 
 
 class PagePool(object):
@@ -213,7 +138,7 @@ class PrefixCache(object):
 
     def __init__(self, pool, on_evict=None):
         self._pool = pool
-        self._lru = _RefCountedLRU()                # key -> _Resident
+        self._lru = RefCountedLRU()                # key -> _Resident
         self._on_evict = on_evict
         self.hits = 0
         self.misses = 0

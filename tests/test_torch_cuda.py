@@ -42,7 +42,11 @@ The high-level Trainer: double_buffer through warm-up, capture and replay
 bitwise the inline feed, Executor._place_feed staging into pinned host
 memory only, each checkpoint with async steps in flight equal to the scope
 after a synchronize, a load_checkpoint between replays reaching the next
-replay, and a preempted Trainer resumed bitwise.
+replay, and a preempted Trainer resumed bitwise. Online training: push_rows
+into a Predictor whose bucket is captured reaching the next replay with no
+capture (1e-6 against a fresh Predictor given the rows), and RowResetter
+zeroing the captured DeepFM step's static tables in place, the stream on
+the card against the CPU at 1e-5.
 """
 import contextlib
 import importlib
@@ -2686,3 +2690,137 @@ def test_trainer_preempted_on_the_card_resumes_bitwise(card, tmp_path):
         (ev.epoch, ev.step)) if isinstance(ev, fluid.BeginStepEvent)
         else None, reader=_hl_reader(), feed_order=['img', 'label'])
     assert steps[0] == (1, 3)
+
+
+def _stream_deepfm(fluid, deepfm, held=None):
+    """A sparse DeepFM of 4 fields, vocab 32, embed_dim 4, hidden [8]."""
+    feat = fluid.layers.data(name='feat_ids', shape=[4], dtype='int64')
+    label = fluid.layers.data(name='label', shape=[1], dtype='int64')
+    cost, prob, _ = deepfm.deepfm(feat, label, num_fields=4, vocab_size=32,
+                                  embed_dim=4, hidden=[8], is_sparse=True)
+    if held is not None:
+        held['prob'] = prob
+    return cost
+
+
+def test_push_rows_reaches_the_next_replay_without_a_capture(card, tmp_path):
+    """push_rows into a Predictor whose bucket is captured: the rows land in
+    the graph's static tables (the scope's tensors, not rebound), the next
+    replay answers with them, equal to a fresh Predictor given the same
+    rows, and no graph is captured again."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import inference, serving
+    from paddle_tpu_torch.fluid import framework, unique_name
+    from paddle_tpu_torch.models import deepfm
+    main, startup = framework.Program(), framework.Program()
+    held = {}
+    with unique_name.guard(), framework.program_guard(main, startup):
+        _stream_deepfm(fluid, deepfm, held)
+        scope = fluid.Scope()
+        with fluid.scope_guard(scope):
+            exe = fluid.Executor(fluid.CUDAPlace(0))
+            exe.run(startup)
+            d = str(tmp_path / 'scorer')
+            fluid.io.save_inference_model(d, ['feat_ids'], [held['prob']],
+                                          exe, main_program=main)
+    feed = {'feat_ids': np.array([[3, 5, 7, 9], [1, 3, 5, 31]], 'int64')}
+    pred = inference.Predictor(d)
+    eng = serving.ServingEngine(pred, serving.ServingConfig(
+        max_batch_size=2, buckets=[2]))
+    try:
+        eng.warmup(example_feed=feed)
+        before = eng.predict(feed)[0]
+        stats = pred._exe.cache_stats
+        assert stats['captures'] == 1 and stats['replays'] >= 1
+        table = pred._scope.vars['fm_embed']
+        ptr = table.data_ptr()
+        rng = np.random.RandomState(0)
+        ids = np.array([3, 5, 31])
+        deltas = {'fm_embed': (ids, rng.randn(3, 4).astype('float32')),
+                  'fm_first_w': (ids, rng.randn(3, 1).astype('float32'))}
+        assert eng.push_rows(deltas) == 6
+        after = eng.predict(feed)[0]
+        assert pred._scope.vars['fm_embed'] is table
+        assert table.data_ptr() == ptr
+        assert pred._exe.cache_stats['captures'] == 1
+        assert pred._exe.cache_stats['replays'] > stats['replays']
+        assert not np.array_equal(after, before)
+        fresh = inference.Predictor(d)
+        for name, (rows, vals) in deltas.items():
+            fresh._scope.vars[name][torch.as_tensor(rows, device=card)] = \
+                torch.as_tensor(vals, device=card)
+        want = fresh.run(feed)[0]
+        np.testing.assert_allclose(after, want, rtol=1e-6, atol=1e-6)
+        np.testing.assert_array_equal(
+            table[torch.as_tensor(ids, device=card)].cpu().numpy(),
+            deltas['fm_embed'][1])
+    finally:
+        eng.shutdown()
+
+
+def test_row_resetter_zeroes_the_captured_deepfm_steps_static_tables(card):
+    """train_stream on the card with a small VocabTable (every step admits
+    and evicts): one capture for the whole stream, the tables and moments
+    stay the graph's static tensors (never rebound), each evicted row is
+    zero in fm_embed and both moments after its boundary, and the losses
+    and every persistable match the same stream on the CPU (1e-5), so
+    every replay read the zeroed rows."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import streaming
+    from paddle_tpu_torch.models import deepfm
+
+    def trainer(place):
+        return fluid.Trainer(
+            train_func=lambda: [_stream_deepfm(fluid, deepfm)],
+            optimizer_func=lambda: fluid.optimizer.Adam(learning_rate=1e-2),
+            place=place)
+
+    def reader():
+        rng = np.random.RandomState(1)
+        for t in range(12):
+            ids = (t * 7 + rng.zipf(1.5, size=(8, 4))).astype('int64')
+            lab = rng.randint(0, 2, size=(8, 1)).astype('int64')
+            yield [(ids[i], lab[i]) for i in range(8)]
+
+    names = ['fm_embed', 'moment1_fm_embed_0', 'moment2_fm_embed_0']
+    gpu, cpu = trainer(fluid.CUDAPlace(0)), trainer(fluid.CPUPlace())
+    cpu.scope.load_numpy({n: t.detach().cpu().numpy()
+                          for n, t in gpu.scope.vars.items()},
+                         fluid.CPUPlace())
+    out = {}
+    for tag, tr in (('gpu', gpu), ('cpu', cpu)):
+        vt = streaming.VocabTable(32, table='fm_embed', admit_count=1)
+        drained, losses, ptrs = [], [], set()
+        drain = vt.drain_resets
+
+        def record(drain=drain, drained=drained):
+            rows = drain()
+            drained.extend(rows)
+            return rows
+
+        vt.drain_resets = record
+
+        def handler(ev, tr=tr, drained=drained, losses=losses, ptrs=ptrs):
+            if isinstance(ev, fluid.BeginStepEvent):
+                for r in drained:
+                    for n in names:
+                        assert not tr.scope.vars[n][r].any(), (n, r)
+                del drained[:]
+                ptrs.add(tuple(tr.scope.vars[n].data_ptr() for n in names))
+            else:
+                losses.append(float(np.asarray(ev.metrics[0]).reshape(-1)[0]))
+
+        tr.train_stream(reader, event_handler=handler,
+                        vocabs={'feat_ids': vt})
+        out[tag] = (losses, {n: t.detach().cpu().numpy()
+                             for n, t in tr.scope.vars.items()}, vt)
+        if tag == 'gpu':
+            assert tr.exe.cache_stats['captures'] == 1
+            assert len(ptrs) <= 2     # the startup tensors, pinned once
+            assert vt.rows_evicted > 0
+    np.testing.assert_allclose(out['gpu'][0], out['cpu'][0], rtol=1e-5,
+                               atol=1e-5)
+    for n, v in out['cpu'][1].items():
+        np.testing.assert_allclose(out['gpu'][1][n], v, rtol=1e-5,
+                                   atol=1e-5, err_msg=n)
+    assert out['gpu'][2].state_dict() == out['cpu'][2].state_dict()

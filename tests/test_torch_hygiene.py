@@ -89,6 +89,12 @@ SUBMODULES = [
     'paddle_tpu_torch.fluid.evaluator', 'paddle_tpu_torch.reader.pipeline',
     'paddle_tpu_torch.reader.creator', 'paddle_tpu_torch.reader.decorator',
     'paddle_tpu_torch.utils', 'paddle_tpu_torch.utils.retry',
+    # online training with live serving freshness: the vocab, the
+    # publisher, the row codec, the router and the shared LRU
+    'paddle_tpu_torch.streaming', 'paddle_tpu_torch.streaming.vocab',
+    'paddle_tpu_torch.streaming.publish',
+    'paddle_tpu_torch.embedding.quant_rows',
+    'paddle_tpu_torch.serving.router', 'paddle_tpu_torch.utils.lru',
 ]
 
 

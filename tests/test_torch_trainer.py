@@ -639,11 +639,6 @@ def test_arguments_of_later_slices_raise(kw):
         _trainer('port', **kw)
 
 
-def test_train_stream_waits_for_the_streaming_slice():
-    with pytest.raises(NotImplementedError, match='Serving, the rest'):
-        _trainer('port').train_stream(_linear_reader())
-
-
 @pytest.mark.parametrize('kw', [dict(bundle_steps=0), dict(sync='never'),
                                 dict(parallel=True, bundle_steps=4),
                                 dict(bundle_steps=4, sync='async')])
