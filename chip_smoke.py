@@ -326,6 +326,42 @@ replay (each graph adds the launches its capture recorded).
                 boundary: the emergency serial holds streaming_vocab, and a
                 fresh Trainer resumes the same map and every persistable
                 bitwise. One JSON line {"stream": {...}}.
+  7i. serving_stream — token streaming and the compiled serving artifact
+                (TOKEN_* and COMPILED_* below). (a) Phase 6's paged
+                DecodeEngine (its weights and DECODE_CONFIG) behind a
+                Router: its 48 requests through Router.predict from 8
+                client threads, then the same burst as Router.stream calls
+                (the main path of the phase's decode half: the
+                `token_stream` path of the kernels line): each stream's t
+                1..n once each and in order, its result equal to
+                Router.predict's (scores within DECODE_SCORE_TOL, bitwise
+                or not printed); streamed and unstreamed tokens/s, client
+                TTFT and inter-token gap p50/p99, one host copy a dispatch
+                (stats['host_syncs']) and one paged_attention launch a
+                dispatch. (b) The burst again with 8 streams cancelled
+                after 3 tokens: cancelled 8, the history pages free and
+                the encoder pages free or evictable as before, the other
+                results unchanged. (c) 8 streams checkpointed every 4
+                tokens on engine A and moved at their second checkpoint to
+                engine B (same weights) behind the same TokenStream, as
+                the JAX pod's failover does it: every t delivered once,
+                the results equal to (a)'s, B's captures unchanged. (d)
+                push_rows of 64 target-embedding rows: a probe equal to a
+                fresh engine given the rows, no capture. (e) Transformer-
+                base at batch 16 exported on the card with
+                inference.export_compiled, fp32 and its Float16Transpiler
+                program in bf16, each loaded with load_compiled in a fresh
+                process that imports only paddle_tpu_torch and in this
+                one (the `compiled` and `amp_compiled` paths: 18 flash
+                forward launches a call of their dtype's kernel): logits
+                against Predictor.run within COMPILED_TOL of max(1,
+                |logit|) (fp32) and AMP_CROSS_DEVICE_TOL (bf16, relative
+                L2); export and load seconds, bytes on disk, the replayed
+                call beside Predictor.run; then Router.swap('tfm', path)
+                with no builder from a Predictor generation to an artifact
+                of a second seed under a client of 16-row requests: no
+                future lost or failed, answers of generation 1 then 2. One
+                JSON line {"serving_stream": {...}}.
   8. captured — each path's captured step against debug_step's eager
                 walk in this call, at full width: Transformer-base
                 training at batch 16 (get_model, dropout 0.1), fp32 and
@@ -457,15 +493,17 @@ CTR_LEARN_LOSS = 0.01
 # the paths each kernel may launch on (main() holds every path to it)
 KERNEL_PATHS = {
     'flash_attention_fwd': ('serving', 'training', 'nets_attention',
-                            'trainer'),
+                            'trainer', 'compiled'),
     'flash_attention_bwd_dq': ('training', 'nets_attention', 'trainer'),
     'flash_attention_bwd_dkv': ('training', 'nets_attention', 'trainer'),
-    'flash_attention_fwd_bf16': ('amp_training', 'amp_serving'),
+    'flash_attention_fwd_bf16': ('amp_training', 'amp_serving',
+                                 'amp_compiled'),
     'flash_attention_bwd_dq_bf16': ('amp_training',),
     'flash_attention_bwd_dkv_bf16': ('amp_training',),
     'sparse_adam': ('ctr_training', 'stream'),
     'sparse_adagrad': ('ctr_training',),
-    'paged_attention': ('decode', 'token_decode', 'spec_decode'),
+    'paged_attention': ('decode', 'token_decode', 'spec_decode',
+                        'token_stream'),
 }
 
 # the paged decode attention against its plain version: an online softmax
@@ -761,6 +799,27 @@ STREAM_IDENTITY = 8
 # scorer given the trainer's FM tables: the same graphs on the same card,
 # within 1e-6 of max(1, |score|)
 STREAM_SERVE_TOL = 1e-6
+# phase 7i (serving_stream): phase 6's paged DecodeEngine (MT_DECODER,
+# DECODE_CONFIG, its 48 requests) behind a Router, each request streamed by
+# one of TOKEN_CLIENTS client threads; (b) TOKEN_CANCELS of them cancelled
+# after TOKEN_CANCEL_AFTER tokens; (c) TOKEN_RESUMES streams checkpointed
+# every TOKEN_CKPT_EVERY tokens, moved to a second engine at their second
+# checkpoint; (d) TOKEN_PUSH_ROWS target-embedding rows pushed (row 0, the
+# start id every first step reads, among them)
+TOKEN_CLIENTS = 8
+TOKEN_CANCELS = 8
+TOKEN_CANCEL_AFTER = 3
+TOKEN_RESUMES = 8
+TOKEN_CKPT_EVERY = 4
+TOKEN_PUSH_ROWS = 64
+# (e): Transformer-base exported at the largest serving bucket; the loaded
+# artifact against Predictor.run of the same weights on the same card, fp32
+# within 1e-6 of max(1, |logit|) (the same rules traced into one graph);
+# the bf16 artifact of the transpiled program by relative L2 within
+# AMP_CROSS_DEVICE_TOL, phase 7b's bound; COMPILED_CALLS timed replays
+COMPILED_BATCH = 16
+COMPILED_TOL = 1e-6
+COMPILED_CALLS = 10
 
 
 def log(*args):
@@ -6358,6 +6417,686 @@ def phase_stream():
     return {'stream': launches}
 
 
+# -- phase 7i: token streaming and the compiled serving artifact ------------
+
+def _token_stream_burst(router, reqs, cancel=()):
+    """Every request of `reqs` through Router.stream from TOKEN_CLIENTS
+    client threads (request i on thread i mod TOKEN_CLIENTS, one at a
+    time); the requests in `cancel` are cancelled by their client after
+    TOKEN_CANCEL_AFTER tokens. Returns (per request dict(t, arrivals,
+    ttft_s, result or error), seconds)."""
+    import threading
+    out = [None] * len(reqs)
+    errors = []
+
+    def client(k):
+        try:
+            for i in range(k, len(reqs), TOKEN_CLIENTS):
+                enc, n = reqs[i]
+                s = router.stream('mt', {'enc': enc}, max_new_tokens=n)
+                ts, arrivals = [], []
+                for t, _ in s:
+                    ts.append(t)
+                    arrivals.append(time.perf_counter())
+                    if i in cancel and t >= TOKEN_CANCEL_AFTER:
+                        s.cancel()
+                        break
+                rec = dict(t=ts, arrivals=arrivals, ttft_s=s.ttft_s)
+                try:
+                    rec['result'] = s.result(600)
+                except Exception as e:       # a cancelled stream's
+                    rec['error'] = e
+                out[i] = rec
+        except Exception as e:
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(k,), daemon=True)
+               for k in range(TOKEN_CLIENTS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(900)
+    secs = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    return out, secs
+
+
+def _predict_burst(router, reqs):
+    """The same requests through Router.predict from TOKEN_CLIENTS
+    threads. Returns (results, seconds)."""
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(TOKEN_CLIENTS) as pool:
+        results = list(pool.map(
+            lambda r: router.predict('mt', {'enc': r[0]},
+                                     max_new_tokens=r[1], timeout=600),
+            reqs))
+    return results, time.perf_counter() - t0
+
+
+def _same_decode(got, want):
+    """(equal tokens, scores within DECODE_SCORE_TOL (1 + |s|), bitwise,
+    largest score difference)."""
+    d = np.abs(np.asarray(got[1]) - np.asarray(want[1]))
+    return (np.array_equal(got[0], want[0]),
+            bool((d <= DECODE_SCORE_TOL * (1 + np.abs(want[1]))).all()),
+            np.array_equal(got[0], want[0]) and np.array_equal(
+                np.asarray(got[1]).view(np.int32),
+                np.asarray(want[1]).view(np.int32)),
+            float(d.max()))
+
+
+def _check_delivered(what, ts, result, n):
+    """A stream's delivered t: 1..m once each and in order, m = n, or m < n
+    where every beam ended at step m (the result padded with end_id)."""
+    m = len(ts)
+    if ts != list(range(1, m + 1)) or m > n or (
+            m < n and not (np.asarray(result[0])[:, m:]
+                           == DECODE_CONFIG['end_id']).all()):
+        raise AssertionError('%s delivered t %r (limit %d)' % (what, ts, n))
+
+
+def _pages_available(eng):
+    """Pages free or held only by the prefix cache with no user (free to
+    evict): what a drained engine must give back whole."""
+    return (eng._hist_pool.free_count,
+            eng._enc_pool.available(eng._prefix))
+
+
+def _failover_stream(eng_a, eng_b, enc, n):
+    """One stream moved between engines at its second checkpoint, as the
+    JAX package's pod failover does it (serving/pod.py:2061-2140, not
+    ported yet): engine A streams into a TokenStream with checkpoints
+    every TOKEN_CKPT_EVERY tokens; at the second, A is told to cancel; the
+    checkpoint's tokens are replayed into the stream (which must drop the
+    ones it has) and engine B resumes from the checkpoint into the same
+    stream, whose future B's result completes. Returns (delivered t list,
+    result, the checkpoint's step)."""
+    import threading
+    from paddle_tpu_torch import serving
+    s = serving.TokenStream('mt')
+    outer = concurrent.futures.Future()
+    s._attach(outer)
+    moved = threading.Event()
+    held = {}
+
+    def sink(state):
+        held.setdefault('n', 0)
+        held['n'] += 1
+        if held['n'] == 2:
+            held['ckpt'] = state
+            eng_a.cancel(held['fut'])
+            moved.set()
+
+    held['fut'] = eng_a.submit({'enc': enc}, max_new_tokens=n,
+                               on_token=s._on_token, checkpoint=sink,
+                               ckpt_every=TOKEN_CKPT_EVERY)
+    delivered = []
+
+    def consume():
+        for t, _ in s:
+            delivered.append(t)
+
+    th = threading.Thread(target=consume, daemon=True)
+    th.start()
+    if not moved.wait(300):
+        raise AssertionError('no second checkpoint within 300 s')
+    try:
+        held['fut'].result(60)
+        raise AssertionError('engine A finished a cancelled stream')
+    except serving.StreamCancelled:
+        pass
+    ckpt = held['ckpt']
+    for t in range(1, int(ckpt['step']) + 1):      # the replay
+        s._on_token(t, ckpt['ids'][t - 1])
+    fut_b = eng_b.submit({'enc': enc}, max_new_tokens=n, resume=ckpt,
+                         on_token=s._on_token)
+    fut_b.add_done_callback(
+        lambda f: outer.set_exception(f.exception()) if f.exception()
+        else outer.set_result(f.result()))
+    result = outer.result(600)
+    th.join(60)
+    return delivered, result, int(ckpt['step'])
+
+
+def _percentiles(xs, ps=(50, 99)):
+    return [float(np.percentile(xs, p)) for p in ps] if xs else \
+        [float('nan')] * len(ps)
+
+
+def _token_streaming(rec):
+    """(a)-(d) of phase 7i; returns the token_stream path's launch counts
+    (the streamed burst of (a))."""
+    from paddle_tpu_torch import serving
+    weights = mt_decoder_weights()
+    reqs = decode_requests()
+    cfg = serving.DecodeConfig(**DECODE_CONFIG)
+    eng = serving.DecodeEngine(weights, cfg)
+    eng_b = serving.DecodeEngine(weights, cfg)
+    router = serving.Router(window_s=0.0)
+    router.add_model('mt', [eng])
+    try:
+        eng.warmup()
+        eng_b.warmup()
+        tok0, steps_p = eng.stats['tokens'], eng._handle.steps
+        want, plain_s = _predict_burst(router, reqs)
+        plain_tokens = eng.stats['tokens'] - tok0
+        plain_dispatches = eng._handle.steps - steps_p
+        caps = eng.cache_stats()['captures']
+
+        # (a) the main path: the same burst streamed
+        st0, steps0 = eng.stats, eng._handle.steps
+        _reset_launch_counts()
+        streams, secs = _token_stream_burst(router, reqs)
+        launches = _launch_counts()
+        st1, steps1 = eng.stats, eng._handle.steps
+        bitwise, worst, gaps = True, 0.0, []
+        for i, (srec, w) in enumerate(zip(streams, want)):
+            _check_delivered('stream %d' % i, srec['t'], srec['result'],
+                             reqs[i][1])
+            toks_eq, sc_ok, bits, d = _same_decode(srec['result'], w)
+            if not (toks_eq and sc_ok):
+                raise AssertionError('stream %d: its result differs from '
+                                     'Router.predict of the same request '
+                                     '(largest score difference %.3g)'
+                                     % (i, d))
+            bitwise &= bits
+            worst = max(worst, d)
+            gaps += list(np.diff(srec['arrivals']))
+        dispatches = steps1 - steps0
+        syncs = st1['host_syncs'] - st0['host_syncs']
+        want_l = dict.fromkeys(launches, 0)
+        want_l['paged_attention'] = dispatches
+        if launches != want_l:
+            raise AssertionError('the streamed burst launched %r over %d '
+                                 'dispatches; it must launch %r'
+                                 % (launches, dispatches, want_l))
+        if syncs != dispatches:
+            raise AssertionError('the streamed burst made %d host copies '
+                                 'over %d dispatches: one a dispatch'
+                                 % (syncs, dispatches))
+        ttft = _percentiles([r['ttft_s'] for r in streams])
+        gap = _percentiles(gaps)
+        tokens = st1['tokens'] - st0['tokens']
+        rec['a'] = dict(
+            requests=len(reqs), tokens=tokens, seconds=secs,
+            tokens_per_s=tokens / secs, plain_seconds=plain_s,
+            plain_tokens_per_s=plain_tokens / plain_s,
+            plain_dispatches=plain_dispatches,
+            ttft_p50_s=ttft[0], ttft_p99_s=ttft[1], gap_p50_s=gap[0],
+            gap_p99_s=gap[1], dispatches=dispatches, host_syncs=syncs,
+            host_syncs_per_dispatch=syncs / dispatches,
+            paged_attention_launches=launches['paged_attention'],
+            bitwise=bitwise, max_score_diff=worst)
+        log('[serving_stream] (a) %d streams from %d client threads: %d '
+            'tokens in %.4f s, %.1f tokens/s (the same burst through '
+            'Router.predict: %.4f s, %.1f tokens/s, %d dispatches); client '
+            'TTFT p50 %.6f s p99 %.6f s; inter-token gap p50 %.6f s p99 '
+            '%.6f s; %d dispatches, %d host copies (%.3f a dispatch), '
+            'paged_attention launches %d; results equal to Router.predict '
+            '(bitwise: %s, largest score difference %.3g)'
+            % (len(reqs), TOKEN_CLIENTS, tokens, secs, tokens / secs, plain_s,
+               plain_tokens / plain_s, plain_dispatches, ttft[0], ttft[1],
+               gap[0], gap[1], dispatches, syncs, syncs / dispatches,
+               launches['paged_attention'], bitwise, worst))
+
+        # (b) cancel TOKEN_CANCELS streams after TOKEN_CANCEL_AFTER tokens
+        # the longest requests: each far from its end when cancelled
+        cancel = set(sorted(range(len(reqs)),
+                            key=lambda i: -reqs[i][1])[:TOKEN_CANCELS])
+        avail0, free0 = _pages_available(eng), eng.stats['pages_free']
+        c0 = eng.stats['cancelled']
+        streams_b, _ = _token_stream_burst(router, reqs, cancel=cancel)
+        deadline = time.monotonic() + 60
+        while (eng.stats['slots_occupied'] or _pages_available(eng)
+               != avail0) and time.monotonic() < deadline:
+            time.sleep(0.01)
+        cancelled = eng.stats['cancelled'] - c0
+        bitwise_b = True
+        for i, srec in enumerate(streams_b):
+            if i in cancel:
+                if not isinstance(srec.get('error'), serving.StreamCancelled):
+                    raise AssertionError('cancelled stream %d resolved to %r'
+                                         % (i, srec.get('result',
+                                                        srec.get('error'))))
+                continue
+            toks_eq, sc_ok, bits, d = _same_decode(srec['result'], want[i])
+            if not (toks_eq and sc_ok):
+                raise AssertionError('stream %d changed beside the cancelled '
+                                     'ones (%.3g)' % (i, d))
+            bitwise_b &= bits
+        if cancelled != TOKEN_CANCELS or _pages_available(eng) != avail0:
+            raise AssertionError(
+                '%d streams cancelled (want %d); pages free or evictable '
+                '%r after the drain, %r before' % (
+                    cancelled, TOKEN_CANCELS, _pages_available(eng),
+                    avail0))
+        rec['b'] = dict(cancelled=cancelled, pages_available=avail0,
+                        pages_free_before=free0,
+                        pages_free_after=eng.stats['pages_free'],
+                        others_bitwise=bitwise_b)
+        log('[serving_stream] (b) %d streams cancelled after %d tokens: '
+            'cancelled %d; history pages free and encoder pages free or '
+            'evictable %r before and after (pages_free %d before, %d after: '
+            'the prefix cache holds what it evicts at will); the other %d '
+            'results equal to (a) (bitwise: %s)'
+            % (len(cancel), TOKEN_CANCEL_AFTER, cancelled, avail0, free0,
+               eng.stats['pages_free'], len(reqs) - len(cancel), bitwise_b))
+
+        # (c) TOKEN_RESUMES streams moved to engine B at their second
+        # checkpoint
+        caps_b = eng_b.cache_stats()['captures']
+        movable = [i for i, (_, n) in enumerate(reqs)
+                   if n >= 4 * TOKEN_CKPT_EVERY][:TOKEN_RESUMES]
+        resumed0 = eng_b.stats['resumed']
+        bitwise_c = True
+        for i in movable:
+            enc, n = reqs[i]
+            delivered, result, at = _failover_stream(eng, eng_b, enc, n)
+            _check_delivered('moved stream %d' % i, delivered, result, n)
+            toks_eq, sc_ok, bits, d = _same_decode(result, want[i])
+            if not (toks_eq and sc_ok) or at != 2 * TOKEN_CKPT_EVERY:
+                raise AssertionError('moved stream %d (at %d): its result '
+                                     'differs from (a) (%.3g)' % (i, at, d))
+            bitwise_c &= bits
+        if eng_b.stats['resumed'] - resumed0 != len(movable) or \
+                eng_b.cache_stats()['captures'] != caps_b:
+            raise AssertionError('engine B resumed %d of %d streams, its '
+                                 'captures %d -> %d'
+                                 % (eng_b.stats['resumed'] - resumed0,
+                                    len(movable), caps_b,
+                                    eng_b.cache_stats()['captures']))
+        rec['c'] = dict(moved=len(movable), at_step=2 * TOKEN_CKPT_EVERY,
+                        bitwise=bitwise_c, captures_b=caps_b)
+        log('[serving_stream] (c) %d streams checkpointed every %d tokens, '
+            'moved from engine A to engine B at step %d: every t delivered '
+            'once, results equal to (a) (bitwise: %s); engine B resumed %d '
+            'with its captures unchanged (%d)'
+            % (len(movable), TOKEN_CKPT_EVERY, 2 * TOKEN_CKPT_EVERY,
+               bitwise_c, len(movable), caps_b))
+
+        # (d) push TOKEN_PUSH_ROWS target-embedding rows between dispatches
+        rng = np.random.RandomState(SEED + 11)
+        ids = np.concatenate([[0], rng.choice(
+            np.arange(1, MT_DECODER['V']), TOKEN_PUSH_ROWS - 1,
+            replace=False)])
+        rows = (rng.randn(TOKEN_PUSH_ROWS, MT_DECODER['E'])
+                / np.sqrt(MT_DECODER['E'])).astype(np.float32)
+        probe_enc, probe_n = reqs[1]
+        before = router.predict('mt', {'enc': probe_enc},
+                                max_new_tokens=probe_n, timeout=600)
+        t0 = time.perf_counter()
+        router.push_deltas('mt', {'cbd_w_emb': (ids, rows)})
+        push_ms = (time.perf_counter() - t0) * 1e3
+        after = router.predict('mt', {'enc': probe_enc},
+                               max_new_tokens=probe_n, timeout=600)
+        if eng.cache_stats()['captures'] != caps:
+            raise AssertionError('engine A captured again: %d -> %d'
+                                 % (caps, eng.cache_stats()['captures']))
+    finally:
+        router.shutdown(drain=False)
+        eng_b.shutdown(drain=False)
+    pushed = dict(weights, w_emb=weights['w_emb'].copy())
+    pushed['w_emb'][ids] = rows
+    fresh = serving.DecodeEngine(pushed, cfg)
+    try:
+        fresh_out = fresh.predict({'enc': probe_enc},
+                                  max_new_tokens=probe_n, timeout=600)
+    finally:
+        fresh.shutdown()
+    toks_eq, sc_ok, bits, d = _same_decode(after, fresh_out)
+    if not toks_eq or not sc_ok:
+        raise AssertionError('the probe after the push differs from a fresh '
+                             'engine given the rows (%.3g)' % d)
+    changed = not np.array_equal(after[1], before[1])
+    rec['d'] = dict(rows=TOKEN_PUSH_ROWS, push_ms=push_ms, bitwise=bits,
+                    probe_changed=changed, captures=caps)
+    log('[serving_stream] (d) push_rows of %d target-embedding rows: %.3f '
+        'ms; the probe after it equal to a fresh engine given the rows '
+        '(bitwise: %s; its scores changed by the push: %s); captures %d '
+        'before and after (abort, resume and push_rows captured nothing)'
+        % (TOKEN_PUSH_ROWS, push_ms, bits, changed, caps))
+    return launches
+
+
+def _transformer_scope(seed, place):
+    """Transformer-base (TRANSFORMER_BASE) built and initialized from
+    `seed` on `place`. Returns (main, scope, exe, logits var)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import framework, unique_name
+    from paddle_tpu_torch.models import transformer as T
+    main, startup = framework.Program(), framework.Program()
+    main.random_seed = startup.random_seed = seed
+    scope = fluid.Scope()
+    with unique_name.guard(), framework.program_guard(main, startup):
+        T.transformer(**TRANSFORMER_BASE)
+    exe = fluid.Executor(place)
+    exe.run(startup, scope=scope)
+    return main, scope, exe, logits_var(main)
+
+
+def _dir_bytes(d):
+    return sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+
+
+# a fresh process that imports only paddle_tpu_torch: load each artifact
+# given as (tag, dir) pairs and call it three times (warm-up, capture,
+# replay); the answers saved beside argv[2]
+_COMPILED_CHILD = r"""
+import json, sys, time
+import numpy as np
+import paddle_tpu_torch
+from paddle_tpu_torch import inference
+feed = dict(np.load(sys.argv[1]))
+out = {}
+for tag, d in zip(sys.argv[3::2], sys.argv[4::2]):
+    t0 = time.perf_counter()
+    run = inference.load_compiled(d)
+    load_s = time.perf_counter() - t0
+    first = run(feed)[0]
+    same = all(np.array_equal(run(feed)[0], first) for _ in range(2))
+    np.save('%s.%s.npy' % (sys.argv[2], tag), first)
+    out[tag] = dict(load_s=load_s, stats=run.cache_stats(), same=same)
+bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')
+       or m == 'paddle_tpu' or m.startswith('paddle_tpu.')]
+print(json.dumps(dict(out, bad=bad)))
+"""
+
+# an export in a process of its own, so the three exports of (e) run side
+# by side: the saved model's Predictor on the card (transpiled to bf16 with
+# argv[4] == 'bf16'), exported at the feed of argv[3]
+_EXPORT_CHILD = r"""
+import json, sys, time
+import numpy as np
+from paddle_tpu_torch import fluid, inference
+model, out, feed = sys.argv[1], sys.argv[2], dict(np.load(sys.argv[3]))
+pred = inference.Predictor(model)
+if sys.argv[4] == 'bf16':
+    fluid.contrib.Float16Transpiler().transpile(pred._program,
+                                                scope=pred._scope)
+t0 = time.perf_counter()
+inference.export_compiled(out, feed, pred._fetch_vars, pred._exe,
+                          main_program=pred._program, scope=pred._scope)
+print(json.dumps({'export_s': time.perf_counter() - t0}))
+"""
+
+
+def _child(code, *args):
+    """A python process running `code` with `args` from the checkout's root
+    (its stdout and stderr piped)."""
+    return subprocess.Popen([sys.executable, '-c', code] + list(args),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def _child_result(proc, what, timeout=900):
+    """The last stdout line of a finished child, as JSON; raise with its
+    stderr when it failed."""
+    out, err = proc.communicate(timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError('%s failed (rc %d): %s'
+                             % (what, proc.returncode, err[-4000:]))
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def _timed_turns(fns, n=COMPILED_CALLS):
+    """Median wall ms of a call of each of `fns` ({label: fn}), timed in
+    turns A B B A (n calls a turn; results dropped as they come, so no
+    call finds its pinned fetch buffer still held)."""
+    secs = {k: [] for k in fns}
+    order = list(fns) + list(fns)[::-1]
+    for k in order:
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fns[k]()
+            secs[k].append(time.perf_counter() - t0)
+    return {k: float(np.median(v)) * 1e3 for k, v in secs.items()}
+
+
+def _compiled_path(tag, d, feed):
+    """One artifact loaded in this process and called three times (warm-up,
+    capture, replay): its launch counts (the `tag` path), load seconds, the
+    runner and its answer."""
+    import torch
+    from paddle_tpu_torch import inference
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    run = inference.load_compiled(d)
+    load_s = time.perf_counter() - t0
+    first = run(feed)[0]
+    for _ in range(2):
+        if not np.array_equal(run(feed)[0], first):
+            raise AssertionError('%s: the calls disagree' % tag)
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    stats = run.cache_stats()
+    if stats['captures'] != 1 or stats['replays'] != 2:
+        raise AssertionError('%s: %r after three calls; one capture and a '
+                             'replay for every later call' % (tag, stats))
+    return launches, load_s, run, first
+
+
+def _compiled_artifact(rec, tmp):
+    """(e) of phase 7i; returns {'compiled': counts, 'amp_compiled':
+    counts}. The fp32 export runs here while two processes export the bf16
+    program and generation 2 (a second seed) beside it."""
+    import torch
+    from paddle_tpu_torch import fluid, inference
+    B, T = COMPILED_BATCH, TRANSFORMER_BASE['max_length']
+    rng = np.random.RandomState(SEED + 13)
+    reqs = make_requests(B, 1, T, TRANSFORMER_BASE['trg_vocab_size'], rng)
+    feed = {n: np.concatenate([r[n] for r in reqs]) for n in reqs[0]}
+    feed_path = os.path.join(tmp, 'feed.npz')
+    np.savez(feed_path, **feed)
+    model, model2 = os.path.join(tmp, 'model'), os.path.join(tmp, 'model2')
+    for seed, d in ((SEED + 1, model2), (SEED, model)):
+        main, scope, exe, logits = _transformer_scope(seed,
+                                                      fluid.CUDAPlace(0))
+        fluid.io.save_inference_model(d, ['src_word', 'trg_word'], [logits],
+                                      exe, main_program=main, scope=scope)
+    dirs = {'compiled': os.path.join(tmp, 'fp32'),
+            'amp_compiled': os.path.join(tmp, 'bf16')}
+    dir2 = os.path.join(tmp, 'gen2')
+    t0 = time.perf_counter()
+    kids = {'amp_compiled': _child(_EXPORT_CHILD, model, dirs['amp_compiled'],
+                                   feed_path, 'bf16'),
+            'gen2': _child(_EXPORT_CHILD, model2, dir2, feed_path, 'fp32')}
+    export_s = {}
+    try:
+        t1 = time.perf_counter()
+        inference.export_compiled(dirs['compiled'], feed, [logits], exe,
+                                  main_program=main, scope=scope)
+        export_s['compiled'] = time.perf_counter() - t1
+        for tag, kid in kids.items():
+            export_s[tag] = _child_result(kid, 'the %s export' % tag)[
+                'export_s']
+    finally:
+        for kid in kids.values():
+            if kid.poll() is None:
+                kid.kill()
+                kid.wait()
+    exports_s = time.perf_counter() - t0
+    del main, scope, exe
+    # a fresh process loads both artifacts while this one does
+    fresh = _child(_COMPILED_CHILD, feed_path, os.path.join(tmp, 'child'),
+                   *[x for tag in dirs for x in (tag, dirs[tag])])
+    try:
+        pred = inference.Predictor(model)
+        pred16 = transpiled_predictor(model)
+        preds = {'compiled': pred, 'amp_compiled': pred16}
+        wants = {tag: p.run(feed)[0] for tag, p in preds.items()}
+        held = {}
+
+        def held_by(tag, got, want):
+            if got.shape != (B, T, TRANSFORMER_BASE['trg_vocab_size']) or \
+                    got.dtype != np.float32 or not np.isfinite(got).all():
+                raise AssertionError('%s answered %s %r'
+                                     % (tag, got.dtype, got.shape))
+            if tag == 'compiled':
+                err = float((np.abs(got - want)
+                             / np.maximum(1.0, np.abs(want))).max())
+                ok = err <= COMPILED_TOL
+            else:
+                err = _rel_l2(got, want)
+                ok = err <= AMP_CROSS_DEVICE_TOL
+            if not ok:
+                raise AssertionError('%s against Predictor.run: %.3g'
+                                     % (tag, err))
+            return err, bool(np.array_equal(got, want))
+
+        launches, out = {}, {}
+        for tag in dirs:
+            counts, load_s, run, got = _compiled_path(tag, dirs[tag], feed)
+            kern = 'flash_attention_fwd' if tag == 'compiled' \
+                else 'flash_attention_fwd_bf16'
+            want_l = dict.fromkeys(counts, 0)
+            want_l[kern] = ATTENTION_OPS_PER_FORWARD * 3
+            if counts != want_l:
+                raise AssertionError('%s: 3 calls launched %r; they must '
+                                     'launch %r' % (tag, counts, want_l))
+            launches[tag] = counts
+            err, bits = held_by(tag, got, wants[tag])
+            preds[tag].run(feed)        # the Predictor's capture
+            ms = _timed_turns({'predictor': lambda p=preds[tag]: p.run(feed),
+                               'compiled': lambda r=run: r(feed)})
+            out[tag] = dict(export_s=export_s[tag], load_s=load_s,
+                            bytes=_dir_bytes(dirs[tag]),
+                            replay_ms=ms['compiled'],
+                            predictor_ms=ms['predictor'], err=err,
+                            bitwise=bits,
+                            launches_per_call=counts[kern] // 3)
+            del run
+        child = _child_result(fresh, 'the fresh process')
+    finally:
+        if fresh.poll() is None:
+            fresh.kill()
+            fresh.wait()
+    if child.pop('bad'):
+        raise AssertionError('the fresh process imported JAX')
+    for tag in dirs:
+        c = child[tag]
+        err, bits = held_by(tag, np.load(os.path.join(
+            tmp, 'child.%s.npy' % tag)), wants[tag])
+        if not c['same'] or c['stats']['captures'] != 1:
+            raise AssertionError('the fresh process\'s %s: %r' % (tag, c))
+        o = out[tag]
+        o.update(child_load_s=c['load_s'], child_err=err,
+                 child_bitwise=bits)
+        log('[serving_stream] (e) %s artifact of Transformer-base at batch '
+            '%d: export %.3f s (the three exports side by side %.3f s), %d '
+            'bytes on disk; loaded in %.3f s here, %.3f s in a fresh process '
+            'that imports only paddle_tpu_torch; %d %s launches a call; a '
+            'replayed call %.3f ms beside Predictor.run\'s %.3f ms (wall, '
+            'fetch to the host included, medians of %d calls in turns A B B '
+            'A); against Predictor.run: %s %.3g (bitwise: %s), the fresh '
+            'process %.3g (bitwise: %s)'
+            % (tag, B, o['export_s'], exports_s, o['bytes'], o['load_s'],
+               c['load_s'], o['launches_per_call'],
+               'flash_attention_fwd' if tag == 'compiled'
+               else 'flash_attention_fwd_bf16', o['replay_ms'],
+               o['predictor_ms'], 2 * COMPILED_CALLS,
+               'max |diff| / max(1, |logit|)' if tag == 'compiled'
+               else 'relative L2', o['err'], o['bitwise'], err, bits))
+    out['exports_s'] = exports_s
+    out['gen2_export_s'] = export_s['gen2']
+    rec['e'] = out
+
+    # Router.swap(model, path) with no builder, under traffic
+    want2 = inference.load_compiled(dir2)(feed)[0]
+    rec['e']['swap'] = _swap_under_traffic(model, dir2, feed,
+                                           wants['compiled'], want2)
+    torch.cuda.synchronize()
+    return launches
+
+
+def _swap_under_traffic(model, dir2, feed, want1, want2):
+    """Generation 1 a ServingEngine over a Predictor of `model`,
+    generation 2 the artifact at dir2, cut over by Router.swap('tfm',
+    dir2) with no builder while a client thread sends 16-row requests: no
+    future fails or is lost; answers before the cutover equal want1,
+    after it want2 (COMPILED_TOL)."""
+    import threading
+    from paddle_tpu_torch import inference, serving
+    cfg = serving.ServingConfig(max_batch_size=COMPILED_BATCH,
+                                buckets=[COMPILED_BATCH])
+    eng = serving.ServingEngine(inference.Predictor(model), cfg)
+    eng.warmup(example_feed=feed)
+    router = serving.Router(window_s=0.0)
+    router.add_model('tfm', [eng])
+    futs, stop, errors = [], threading.Event(), []
+
+    def client():
+        try:
+            while not stop.is_set():
+                futs.append(router.submit('tfm', feed))
+                futs[-1].result(600)
+        except Exception as e:
+            errors.append(e)
+
+    th = threading.Thread(target=client, daemon=True)
+    try:
+        th.start()
+        while len(futs) < 3 and not errors:
+            time.sleep(0.01)
+        t0 = time.perf_counter()
+        version = router.swap('tfm', dir2)
+        swap_s = time.perf_counter() - t0
+        n_swap = len(futs)
+        while len(futs) < n_swap + 3 and not errors:
+            time.sleep(0.01)
+        stop.set()
+        th.join(600)
+        if errors:
+            raise errors[0]
+        answers = [f.result(600)[0] for f in futs]
+    finally:
+        stop.set()
+        router.shutdown()
+    gens = []
+    for a in answers:
+        for g, w in ((1, want1), (2, want2)):
+            if (np.abs(a - w) / np.maximum(1.0, np.abs(w))).max() \
+                    <= COMPILED_TOL:
+                gens.append(g)
+                break
+        else:
+            raise AssertionError('an answer during the swap is neither '
+                                 'generation\'s')
+    if version != 2 or gens != sorted(gens) or gens[0] != 1 \
+            or gens[-1] != 2:
+        raise AssertionError('swap: version %d, generations in order %r'
+                             % (version, gens))
+    log('[serving_stream] (e) Router.swap(\'tfm\', path) with no builder '
+        'under a client of %d-row requests: %.3f s (load, warmup of bucket '
+        '%d, cutover); %d requests, none lost or failed: %d answered by '
+        'the Predictor generation, then %d by the artifact'
+        % (COMPILED_BATCH, swap_s, COMPILED_BATCH, len(answers),
+           gens.count(1), gens.count(2)))
+    return dict(seconds=swap_s, requests=len(answers),
+                gen1=gens.count(1), gen2=gens.count(2))
+
+
+def phase_serving_stream():
+    """Phase 7i: (a)-(d) token streaming on phase 6's decode engine (the
+    token_stream path), (e) the compiled artifact (the compiled and
+    amp_compiled paths) and Router.swap to it. Returns {path: launch
+    counts}."""
+    import torch
+    t0 = time.perf_counter()
+    rec = {}
+    out = {'token_stream': _token_streaming(rec)}
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_compiled_') as tmp:
+        out.update(_compiled_artifact(rec, tmp))
+    rec['seconds'] = time.perf_counter() - t0
+    rec['card'] = nvidia_smi_line()
+    log('[serving_stream] phase 7i took %.1f s' % rec['seconds'])
+    log(json.dumps({'serving_stream': rec}, default=float))
+    return out
+
+
 # -- phase 8 ----------------------------------------------------------------
 
 def _to_host(tensors):
@@ -7018,6 +7757,7 @@ def main():
                         ('control_flow', phase_control_flow),
                         ('trainer', phase_trainer),
                         ('stream', phase_stream),
+                        ('serving_stream', phase_serving_stream),
                         ('captured', phase_captured)):
         _between_phases(name)
         counts = phase()

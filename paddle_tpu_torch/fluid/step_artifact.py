@@ -70,7 +70,8 @@ from .lowering import (Ctx, SeqValue, SparseRows, data_of, leaves_of, like,
 from .ops_impl.block_ops import check_loops, pack_loops
 from .passes import memory_plan
 
-__all__ = ['StepArtifact', 'program_fingerprint', 'stable_signature']
+__all__ = ['StepArtifact', 'ExportedStep', 'program_fingerprint',
+           'stable_signature']
 
 
 def _dtype_name(dtype):
@@ -719,6 +720,37 @@ class StepArtifact(object):
             if v is not None:
                 out[n] = v
         return out
+
+
+class ExportedStep(StepArtifact):
+    """A module that torch.export wrote (inference.load_compiled's
+    artifact: the weights are its own buffers) run as a step artifact, so
+    on the card it takes the same warm-up, capture and replay as a
+    program's step: its one fixed-shape call is warmed up at the first
+    call, captured at the second and replayed after that. It has no
+    Program and no persistable in a scope; `feed_sig` is the exported
+    inputs' (name, shape, dtype) signature, and the body returns the
+    module's outputs as the fetches."""
+
+    def __init__(self, module, feed_names, fetch_names, feed_sig):
+        # the fields the warm-up, capture and replay read
+        self.module = module
+        self.amp = False
+        self.feed_names = list(feed_names)
+        self.fetch_names = list(fetch_names)
+        self.persistables = []
+        self._feed_sig = tuple(sorted(feed_sig))
+        self._captured = weakref.WeakKeyDictionary()
+        self.captures = 0
+        self.replays = 0
+        self._at = None
+        self.last_loops = None
+
+    def _body(self, persist, feed, ctx, on_op=None, check_nan_inf=False):
+        with torch.inference_mode():
+            outs = self.module(*[feed[n] for n in self.feed_names])
+        self.last_loops = None
+        return list(outs), {}, None
 
 
 def _state_signature(state):

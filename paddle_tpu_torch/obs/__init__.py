@@ -15,7 +15,11 @@ reduced to what this slice uses):
     `<name>.seconds`, appends a span record to the run log and, when
     observability is on, brackets the region with
     torch.profiler.record_function so the same names appear in a
-    torch.profiler trace.
+    torch.profiler trace;
+  * REQUEST TRACING (obs.trace): while a trace context is active, a span
+    joins it (a completed-span record in the trace buffer, and
+    `trace`/`tspan`/`tparent` keys on its run-log record) and becomes the
+    parent of what opens inside it; events carry the trace ids too.
 
 stdlib-only at import time: torch is reached through sys.modules, and only
 when observability is enabled.
@@ -28,9 +32,10 @@ import time
 
 from . import metrics  # noqa: F401
 from . import runlog as _runlog
+from . import trace  # noqa: F401
 from .metrics import REGISTRY, counter, gauge, histogram  # noqa: F401
 
-__all__ = ['metrics', 'REGISTRY', 'counter', 'gauge', 'histogram',
+__all__ = ['metrics', 'trace', 'REGISTRY', 'counter', 'gauge', 'histogram',
            'enabled', 'obs_dir', 'enable', 'disable', 'event', 'span',
            'span_record', 'run_log_path', 'ENV_DIR']
 
@@ -83,6 +88,7 @@ def _reset():
         _close_runlog_locked()
         _state['override'] = None
         _span_hists.clear()
+    trace._reset()
 
 
 def _close_runlog_locked():
@@ -153,6 +159,9 @@ def event(name, **fields):
         return None
     rec = {'ts': time.monotonic(), 'kind': 'event', 'name': name,
            'span': current_span_id(), 'fields': fields}
+    tids = trace._ids()
+    if tids:
+        rec.update(tids)
     rl.write(rec)
     return rec
 
@@ -163,7 +172,7 @@ class Span(object):
     run-log record is emitted at exit. `step_num` (a training step's
     ordinal) goes into the record's fields."""
     __slots__ = ('name', 'fields', 'step_num', 'id', 'parent', 't0',
-                 'seconds', '_trace')
+                 'seconds', '_trace', '_tinfo')
 
     def __init__(self, name, step_num=None, **fields):
         self.name = name
@@ -174,12 +183,16 @@ class Span(object):
         self.t0 = None
         self.seconds = None
         self._trace = None
+        self._tinfo = None
 
     def __enter__(self):
         st = _span_stack()
         self.parent = st[-1].id if st else None
         self.id = next(_span_ids)
         st.append(self)
+        # under an active request trace this span joins it and parents
+        # whatever opens inside; a no-op otherwise
+        self._tinfo = trace._span_begin(self.name)
         if enabled():
             # forward to the profiler only through an already-imported
             # torch: the disabled-mode contract is "no framework import"
@@ -201,17 +214,30 @@ class Span(object):
         elif self in st:   # mis-nested exit; stay sane
             st.remove(self)
         _span_hist(self.name).observe(self.seconds)
+        err = '%s: %s' % (exc_type.__name__, exc) if exc_type is not None \
+            else None
+        tids = None
+        if self._tinfo is not None:
+            trec = trace._span_end(self._tinfo, fields=dict(self.fields),
+                                   error=err)
+            self._tinfo = None
+            tids = {'trace': trec['trace'], 'tspan': trec['span']}
+            if trec.get('parent') is not None:
+                tids['tparent'] = trec['parent']
         rl = _run_log()
         if rl is not None:
             fields = dict(self.fields)
-            if exc_type is not None:
-                fields['error'] = '%s: %s' % (exc_type.__name__, exc)
+            if err is not None:
+                fields['error'] = err
             if self.step_num is not None:
                 fields.setdefault('step_num', self.step_num)
-            rl.write({'ts': time.monotonic(), 'kind': 'span',
-                      'name': self.name, 'span': self.id,
-                      'parent': self.parent, 'dur_s': self.seconds,
-                      'fields': fields})
+            rec = {'ts': time.monotonic(), 'kind': 'span',
+                   'name': self.name, 'span': self.id,
+                   'parent': self.parent, 'dur_s': self.seconds,
+                   'fields': fields}
+            if tids:
+                rec.update(tids)
+            rl.write(rec)
         return False
 
 
@@ -246,5 +272,8 @@ def span_record(name, seconds, **fields):
     rec = {'ts': time.monotonic(), 'kind': 'span', 'name': name,
            'span': next(_span_ids), 'parent': current_span_id(),
            'dur_s': seconds, 'fields': dict(fields)}
+    tids = trace._ids()
+    if tids:
+        rec.update(tids)
     rl.write(rec)
     return rec

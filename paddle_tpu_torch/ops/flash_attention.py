@@ -18,8 +18,18 @@ q, k and v decides the variant; there is no switch.
 
 Dispatch is by the device of the tensors, with no fallback and no switch:
   * CUDA tensors -> the kernels (built at first use), or an exception;
-  * CPU or meta tensors -> the plain torch versions (meta is what build-time
-    shape inference passes).
+  * CPU tensors -> the plain torch versions;
+  * meta and fake tensors (build-time shape inference, torch.export's
+    trace) -> the output shapes alone.
+The forward is one torch operator, `torch.ops.paddle_tpu_torch.
+flash_attention_lse(q, k, v, key_bias, causal, scale) -> (O, lse)`
+(torch.library.custom_op): its CUDA implementation is the forward kernel,
+its CPU implementation the plain version, and its fake implementation gives
+O's and lse's shapes and dtypes. So torch.export keeps the operator in the
+graph it writes (inference/export_compiled), and a loaded artifact launches
+the same kernel that serving and training do. The backward kernels stay
+ctypes launches inside the autograd.Function: an exported graph is for
+inference.
 Both directions go through _FlashAttentionLse, whose backward takes both
 cotangents (dO and dlse) as _flash_lse_bwd does: the lse cotangent is folded
 into delta = rowsum(dO * O) - dlse, in plain torch as in the JAX package,
@@ -302,16 +312,37 @@ def _flash_bwd_cuda(q, k, v, kb, do, lse, delta, causal, scale):
     return dq, dk, dv
 
 
+@torch.library.custom_op('paddle_tpu_torch::flash_attention_lse',
+                         mutates_args=(), device_types='cpu')
+def _flash_attention_lse_op(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, key_bias: torch.Tensor,
+                            causal: bool, scale: float
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward as one operator (module docstring); this body is its
+    CPU implementation, the plain version."""
+    o, lse = flash_attention_lse_plain(q, k, v, key_bias, causal, scale)
+    return o.contiguous(), lse.contiguous()
+
+
+@_flash_attention_lse_op.register_kernel('cuda')
+def _(q, k, v, key_bias, causal, scale):
+    return _flash_lse_cuda(q, k, v, key_bias, causal, scale)
+
+
+@_flash_attention_lse_op.register_fake
+def _(q, k, v, key_bias, causal, scale):
+    return (q.new_empty(q.shape),
+            q.new_empty(q.shape[:3], dtype=torch.float32))
+
+
 class _FlashAttentionLse(torch.autograd.Function):
     """(O, lse) = flash attention of (q, k, v); differentiable in q, k and
     v through both outputs (the JAX package's _flash_lse custom_vjp)."""
 
     @staticmethod
     def forward(ctx, q, k, v, kb, causal, scale):
-        if q.is_cuda:
-            o, lse = _flash_lse_cuda(q, k, v, kb, causal, scale)
-        else:
-            o, lse = flash_attention_lse_plain(q, k, v, kb, causal, scale)
+        o, lse = torch.ops.paddle_tpu_torch.flash_attention_lse(
+            q, k, v, kb, causal, scale)
         ctx.save_for_backward(q, k, v, kb, o, lse)
         ctx.causal, ctx.scale = causal, scale
         ctx.set_materialize_grads(False)    # an unused output gives None

@@ -1,13 +1,15 @@
 """paddle_tpu_torch.serving — dynamic micro-batching serving engine.
 
 Parity: the JAX package's paddle_tpu.serving, reduced to the
-`ServingEngine` over a `Predictor` (with `push_rows`, the row deltas of
-the streaming freshness path), the multi-replica `Router` (least-loaded
-dispatch, quotas, `push_deltas`, `swap(builder=)`) and the
+`ServingEngine` over a `Predictor` or a `load_compiled` runner (with
+`push_rows`, the row deltas of the streaming freshness path), the
+multi-replica `Router` (least-loaded dispatch, quotas, `push_deltas`,
+`swap` to a compiled artifact, `stream` and its `TokenStream`) and the
 continuous-batching `DecodeEngine` (dense, paged and speculative, fed
 encoder rows or source tokens through a prefill such as
-`program_prefill`) with its whole-batch baseline `LockstepDecoder` (the
-pod and transport layers wait for later slices of the port).
+`program_prefill`; token streaming, cancel, checkpoint and resume) with
+its whole-batch baseline `LockstepDecoder` (the pod and transport layers
+wait for later slices of the port).
 
     from paddle_tpu_torch import inference, serving
 
@@ -39,6 +41,15 @@ pod and transport layers wait for later slices of the port).
                                prefill=pre)
     dec.warmup(example_feed={'source_sequence': src_ids})
     ids, scores = dec.submit({'source_sequence': src_ids}).result()
+
+    # token streaming through the router; a compiled artifact behind swap
+    router = serving.Router().add_model('mt', [dec])
+    s = router.stream('mt', {'source_sequence': src_ids})
+    for t, beam_row in s:              # t = 1, 2, ... in order
+        ...
+    ids, scores = s.result()
+    inference.export_compiled(art_dir, feed, [logits], exe)
+    router.swap('tfm', art_dir)        # ServingEngine(load_compiled(...))
 """
 from . import buckets  # noqa: F401
 from . import pages  # noqa: F401
@@ -49,8 +60,8 @@ from .engine import (DeadlineExceeded, DeltaUnsupported,  # noqa: F401
 from .router import (ModelOverloaded, Router, TokenStream,  # noqa: F401
                      UnknownModel, estimate_state_bytes)
 from .decode import (DecodeConfig, DecodeEngine,  # noqa: F401
-                     DecodeSlotPoisoned, LockstepDecoder, mt_weights,
-                     program_prefill)
+                     DecodeSlotPoisoned, LockstepDecoder, StreamCancelled,
+                     mt_weights, program_prefill)
 
 __all__ = ['ServingEngine', 'ServingConfig', 'ServerOverloaded',
            'ServerClosed', 'DeadlineExceeded', 'DeltaUnsupported', 'Router',
@@ -58,4 +69,4 @@ __all__ = ['ServingEngine', 'ServingConfig', 'ServerOverloaded',
            'estimate_state_bytes', 'buckets',
            'default_buckets', 'pick_bucket', 'pad_rows', 'DecodeConfig',
            'DecodeEngine', 'DecodeSlotPoisoned', 'LockstepDecoder',
-           'mt_weights', 'program_prefill', 'pages']
+           'StreamCancelled', 'mt_weights', 'program_prefill', 'pages']

@@ -1,8 +1,9 @@
 """Continuous batching for autoregressive beam decode.
 
-Parity: the JAX package's serving/decode.py (DecodeConfig :104,
-mt_weights :243, program_prefill :254, LockstepDecoder :290, DecodeEngine
-:410), the dense, the paged and the speculative engine. An autoregressive
+Parity: the JAX package's serving/decode.py (StreamCancelled :97,
+DecodeConfig :104, mt_weights :243, program_prefill :254, LockstepDecoder
+:290, DecodeEngine :410), the dense, the paged and the speculative engine,
+with token streaming, cancel and checkpoint/resume. An autoregressive
 decode request is a SEQUENCE of coupled steps; this module serves one
 attention-LSTM beam decoder with iteration-level scheduling:
 
@@ -35,7 +36,14 @@ attention-LSTM beam decoder with iteration-level scheduling:
     `DecodeEngine(draft=)`, paged, beam 1): a draft proposes K tokens and
     the target verifies them in one dispatch, accept and rollback on the
     device; every attend of the step is the paged_attention kernel on the
-    card.
+    card;
+  * STREAMING (`submit(on_token=)`): every generated beam row is handed
+    to the caller, in order, from the decode loop; `cancel(future)` (or a
+    raising callback) aborts the slot at the next tick, its pages back in
+    the pool; `checkpoint=` / `ckpt_every=` take the slot's whole decode
+    state every N tokens, and `submit(resume=state)` continues from it
+    token-exact, on this engine or another one (the checkpoint dict has
+    the JAX engine's keys, shapes and dtypes, so it crosses packages).
 
 Requests carry source tokens for the prefill, or encoder rows directly,
 `submit({'enc': [S, D]})`, when the engine has none. `LockstepDecoder` is
@@ -47,13 +55,17 @@ index_copy_, whose targets are distinct. On the card those tensors are the
 static state of the step's captured CUDA graph, so the next replay reads
 the joined rows, and the step's fetches are clones that the next replay
 leaves as they are. The step and the join run under torch.no_grad().
+Abort, resume and `push_rows` write into the same tensors the same way: in
+place (index_copy_, a slice assignment or a fill), on the loop's stream,
+under the handle lock, so no tensor is rebound and nothing is captured
+again.
+
 Per dispatch the loop reads back one small tensor (each slot's active
 flag and step count), and the history pools and scores only when a slot
-releases.
-
-Not ported here (ROADMAP.md Queue A): streaming (`on_token`,
-`checkpoint`, `resume`, `cancel`), `push_rows`, `export_step_program` and
-the Router.
+releases. While a streaming or checkpointing slot is present, the pools,
+the scores and the state rows of the slots whose checkpoint may fall due
+join that one copy, so a streaming dispatch makes exactly one host sync.
+`stats['host_syncs']` counts the copies.
 
 Observability: decode.slots.occupied / decode.queue.depth /
 decode.pages.free gauges, decode.step.seconds + decode.ttft.seconds
@@ -75,15 +87,26 @@ from .engine import (DeadlineExceeded, ServerClosed, ServerOverloaded,
                      WARMUP_RUNS, _POLL_S)
 
 __all__ = ['DecodeConfig', 'DecodeEngine', 'DecodeSlotPoisoned',
-           'LockstepDecoder', 'mt_weights', 'program_prefill', 'WEIGHT_KEYS']
+           'LockstepDecoder', 'StreamCancelled', 'mt_weights',
+           'program_prefill', 'WEIGHT_KEYS']
 
 WEIGHT_KEYS = ('w_dec', 'u_dec', 'b_dec', 'w_q', 'w_emb', 'w_out', 'b_out')
+# a checkpoint's per-slot state rows (besides step, acc and the history)
+_CKPT_ROWS = ('h', 'c', 'prev_ids', 'fin')
+_DRAFT_STATE = ('draft_h', 'draft_c')     # spec_k with a weights draft
 
 
 class DecodeSlotPoisoned(RuntimeError):
     """Non-finite values appeared in one slot's beam scores (a poisoned
     feed). Only that slot's future receives this error; the slot is freed
     and every other in-flight sequence is untouched."""
+
+
+class StreamCancelled(RuntimeError):
+    """The request was cancelled before completing: a streaming consumer
+    went away (its on_token raised) or `cancel()` was called. The slot and
+    its pages are already back in the pool when this resolves the
+    future."""
 
 
 class DecodeConfig(object):
@@ -325,10 +348,12 @@ class LockstepDecoder(object):
 
 class _Request(object):
     __slots__ = ('feed', 'limit', 'future', 't_submit', 'deadline',
-                 't_join', 'pkey', 'hist_need', 'enc_need')
+                 't_join', 'pkey', 'hist_need', 'enc_need', 'on_token',
+                 'resume', 'checkpoint', 'ckpt_every', 'aborted')
 
     def __init__(self, feed, limit, future, t_submit, deadline,
-                 pkey=None, hist_need=0, enc_need=0):
+                 pkey=None, hist_need=0, enc_need=0, on_token=None,
+                 resume=None, checkpoint=None, ckpt_every=0):
         self.feed = feed
         self.limit = limit
         self.future = future
@@ -340,6 +365,21 @@ class _Request(object):
         self.pkey = pkey
         self.hist_need = hist_need
         self.enc_need = enc_need
+        # streaming: the per-token callback, the checkpoint sink and its
+        # cadence, the resume state, and the consumer-gone flag (set from
+        # any thread; the loop frees the slot at its next tick)
+        self.on_token = on_token
+        self.resume = resume
+        self.checkpoint = checkpoint
+        self.ckpt_every = ckpt_every
+        self.aborted = False
+
+    def streams(self):
+        """True while the loop must read this slot's tokens every
+        dispatch: it streams or checkpoints, and is not aborted."""
+        return not self.aborted and (
+            self.on_token is not None
+            or (self.checkpoint is not None and self.ckpt_every > 0))
 
 
 # process-wide decode telemetry; per-engine views live in engine.stats /
@@ -366,6 +406,8 @@ _C_PREFIX_MISSES = obs.counter('decode.prefix.misses')
 _C_PREFIX_EVICT = obs.counter('decode.prefix.evictions')
 _C_SPEC_PROPOSED = obs.counter('decode.spec.proposed')
 _C_SPEC_ACCEPTED = obs.counter('decode.spec.accepted')
+_C_CANCELLED = obs.counter('decode.cancelled')
+_C_RESUMED = obs.counter('decode.resumed')
 
 
 class DecodeEngine(object):
@@ -394,7 +436,11 @@ class DecodeEngine(object):
     Requests enter through `submit(feed, max_new_tokens=...)` and resolve
     to (sentence_ids int64 [beam_size, max_new_tokens], sentence_scores
     float32 [beam_size]): the rows the whole-batch LockstepDecoder gives
-    at max_len=max_new_tokens for the same encoder rows.
+    at max_len=max_new_tokens for the same encoder rows. `submit` also
+    streams (on_token), checkpoints (checkpoint, ckpt_every) and resumes
+    (resume); `cancel(future)` aborts a request; `push_rows` writes row
+    deltas into the live decoder weights; `export_step_program` saves the
+    step Program as an inference artifact.
     """
 
     def __init__(self, weights, config=None, place=None, prefill=None,
@@ -710,22 +756,147 @@ class DecodeEngine(object):
                     scope=self._scope)
             return self._handle
 
+    def export_step_program(self, dirname):
+        """Save the step-form decode Program with its weight and state
+        persistables as an ordinary inference artifact (io.
+        save_inference_model's `__model__.json` and `__params__.npz`, the
+        JAX package's format). Returns dirname."""
+        from ..fluid import io
+        # _handle_lock: not in the middle of a dispatch or a join
+        with self._handle_lock:
+            self._acquire()
+            io.save_inference_model(dirname, [], list(self._fetch_vars),
+                                    self._exe,
+                                    main_program=self._step_program,
+                                    scope=self._scope)
+        return dirname
+
+    def push_rows(self, deltas):
+        """Write trained row deltas into this replica's LIVE decoder
+        weights between dispatches (the streaming train->serve freshness
+        path on the continuous-batching engine). `deltas` maps a step
+        Program persistable name to `(row_ids, rows)`. Returns rows
+        applied.
+
+        Only the persistables the step only READS take deltas (the
+        decoder weights, and the page tables and pools the join writes);
+        the state the step writes (slot carries, histories) raises
+        DeltaUnsupported, and a name the step does not have KeyError.
+        Every delta is validated before any row is written. The rows are
+        written in place (index_copy_ into the tensors the step reads: on
+        the card the captured graph's static tensors), under the handle
+        lock every dispatch and join holds and on the stream the replays
+        run on, so a dispatch sees every table whole before the push or
+        whole after it, and nothing is captured again."""
+        from .engine import DeltaUnsupported, _validate_delta
+        if self._shutdown:
+            raise ServerClosed('decode engine is shut down')
+        applied = 0
+        handle = self._acquire()
+        staged = []
+        for name in sorted(deltas):
+            ids, rows = deltas[name]
+            if name in handle._donated:
+                raise DeltaUnsupported(
+                    'push_rows: %r is donated per-step decode state '
+                    '(slot pool), not a weight — row deltas apply only to '
+                    'the read-only set %r'
+                    % (name, sorted(handle._readonly)))
+            w = handle._readonly.get(name)
+            if w is None:
+                raise KeyError(
+                    'push_rows: no read-only persistable %r in the decode '
+                    'step (have %r)' % (name, sorted(handle._readonly)))
+            ids, rows = _validate_delta(name, w, ids, rows)
+            staged.append((name, self._staged(ids), self._staged(rows)))
+            applied += int(ids.shape[0])
+        with self._handle_lock, torch.no_grad():
+            for name, idx, src in staged:
+                # the scope's tensor, read under the lock: the one the
+                # next dispatch reads
+                w = self._scope._chain_get(name)
+                w.index_copy_(0, idx, src.to(w.dtype))
+            self._n['delta_pushes'] += 1
+            self._n['delta_rows'] += applied
+        return applied
+
+    def _staged(self, a):
+        """A host array as a tensor on the engine's device: on the card
+        through pinned memory without waiting for the card (the copy is
+        ordered before the writes that read it)."""
+        a = np.ascontiguousarray(a)
+        t = torch.from_numpy(a if a.flags.writeable else a.copy())
+        if self._exe.device.type == 'cuda':
+            return t.pin_memory().to(self._exe.device, non_blocking=True)
+        return t
+
     # -- admission ---------------------------------------------------------
 
     def submit(self, feed, max_new_tokens=None, deadline_ms=None,
-               timeout=None):
+               timeout=None, on_token=None, resume=None, checkpoint=None,
+               ckpt_every=0):
         """Enqueue one decode request; returns a Future resolving to
         (sentence_ids [beam, max_new_tokens] int64, sentence_scores [beam]
         float32). Raises ServerClosed after shutdown, ServerOverloaded
         under the 'reject' policy (or a 'block' admission timeout), and
         ValueError for malformed feeds. A deadline sheds the request with
-        DeadlineExceeded if it is still QUEUED when it passes."""
+        DeadlineExceeded if it is still QUEUED when it passes.
+
+        Streaming: `on_token(t, ids)` is called from the decode loop for
+        every generated token, t = 1.., ids the [beam_size] raw beam
+        column of that step (the result is still the backtraced
+        history). A callback that RAISES marks the consumer gone: the
+        slot is aborted, its pages return to the pool and the future
+        fails StreamCancelled. `checkpoint(state)` is called every
+        `ckpt_every` tokens with a dict that `resume=` takes as it is;
+        `resume` overwrites the slot's state right after its join, so
+        generation continues token-exact from state['step'] (a resume at
+        max_new_tokens resolves at once from the checkpoint's history).
+        Resume writes in place like push_rows: it captures nothing."""
         cfg = self.config
         limit = cfg.max_len if max_new_tokens is None else int(max_new_tokens)
         if not 1 <= limit <= cfg.max_len:
             raise ValueError(
                 'max_new_tokens=%d out of range [1, %d] (the slot token '
                 'buffer is fixed at engine build)' % (limit, cfg.max_len))
+        ckpt_every = int(ckpt_every or 0)
+        if on_token is not None and not callable(on_token):
+            raise ValueError('on_token must be callable, got %r'
+                             % (on_token,))
+        if checkpoint is not None and not callable(checkpoint):
+            raise ValueError('checkpoint must be callable, got %r'
+                             % (checkpoint,))
+        if resume is not None:
+            resume = {k: np.asarray(v) for k, v in dict(resume).items()}
+            need = ('h', 'c', 'prev_ids', 'acc', 'fin', 'step', 'ids',
+                    'par')
+            missing = [k for k in need if k not in resume]
+            if missing:
+                raise ValueError('resume state missing %r (need %r)'
+                                 % (missing, list(need)))
+            t_res = int(resume['step'])
+            K = cfg.beam_size
+            if not 0 <= t_res <= limit:
+                raise ValueError(
+                    'resume step=%d out of range [0, max_new_tokens=%d]'
+                    % (t_res, limit))
+            if tuple(resume['ids'].shape) != (t_res, K) \
+                    or tuple(resume['par'].shape) != (t_res, K):
+                raise ValueError(
+                    'resume ids/par must be [%d, %d] (step x beam), got '
+                    '%r / %r' % (t_res, K, tuple(resume['ids'].shape),
+                                 tuple(resume['par'].shape)))
+            if t_res >= limit:
+                # nothing left to generate: the checkpoint already holds
+                # the whole history; resolve without taking a slot
+                from ..fluid.ops_impl.lod_beam import backtrace_beams
+                toks = backtrace_beams(resume['ids'].astype(np.int32),
+                                       resume['par'].astype(np.int32))
+                fut = concurrent.futures.Future()
+                fut.set_running_or_notify_cancel()
+                fut.set_result((toks.astype(np.int64),
+                                resume['acc'].astype(np.float32)))
+                return fut
         if self._prefill is None:
             if 'enc' not in feed:
                 raise ValueError(
@@ -759,7 +930,9 @@ class DecodeEngine(object):
                 pkey = _pages.content_key(feed)
         fut = concurrent.futures.Future()
         req = _Request(feed, limit, fut, now, deadline, pkey=pkey,
-                       hist_need=hist_need, enc_need=enc_need)
+                       hist_need=hist_need, enc_need=enc_need,
+                       on_token=on_token, resume=resume,
+                       checkpoint=checkpoint, ckpt_every=ckpt_every)
         t_give_up = now + timeout if timeout is not None else None
         with self._lock:
             while True:
@@ -828,6 +1001,33 @@ class DecodeEngine(object):
                 'no result within the %.3fs predict() timeout; the '
                 'sequence is already decoding — it completes but the '
                 'result is discarded' % timeout)
+
+    def cancel(self, future):
+        """Best-effort cancel of one submitted request by its future (the
+        mid-stream-disconnect path). A still-QUEUED request fails
+        StreamCancelled at once; one already decoding has its slot
+        aborted at the next loop tick, the slot AND its pages back in the
+        pool. Returns True if the request was found, False if it already
+        completed or was never this engine's."""
+        with self._lock:
+            found = None
+            for i, r in enumerate(self._queue):
+                if r.future is future:
+                    found = r
+                    del self._queue[i]
+                    _G_QDEPTH.set(len(self._queue))
+                    self._not_full.notify()
+                    break
+        if found is not None:
+            if found.future.set_running_or_notify_cancel():
+                found.future.set_exception(StreamCancelled(
+                    'decode request cancelled while queued'))
+            return True
+        for occ in list(self._occupant):
+            if occ is not None and occ.future is future:
+                occ.aborted = True
+                return True
+        return False
 
     # -- warmup ------------------------------------------------------------
 
@@ -986,6 +1186,8 @@ class DecodeEngine(object):
             self._occupant[slot] = req
             self._slot_steps[slot] = 0
             req.t_join = now
+            if req.resume is not None:
+                self._apply_resume(slot, req)
             with self._lock:
                 self._n['joins'] += 1
                 self._win['joins'] += 1
@@ -1119,6 +1321,8 @@ class DecodeEngine(object):
                 'hist': hist_pages[i], 'enc': enc_pages_of[i],
                 'pkey': req.pkey}
             req.t_join = now
+            if req.resume is not None:
+                self._apply_resume(slot, req)
             with self._lock:
                 self._n['joins'] += 1
                 self._win['joins'] += 1
@@ -1136,6 +1340,149 @@ class DecodeEngine(object):
 
     def _pages_free(self):
         return self._hist_pool.free_count + self._enc_pool.free_count
+
+    def _state(self, name):
+        """The slot-state tensor `cbd_<name>` the next dispatch reads (the
+        scope's; on the card the captured graph's static tensor)."""
+        return self._scope._chain_get('cbd_' + name)
+
+    def _apply_resume(self, slot, req):
+        """Overwrite one JUST-JOINED slot's rows with checkpointed state
+        (the decode-stream failover resume; loop thread only). The join
+        already installed the encoder rows or page tables from the
+        request's feed; this restores the generation state on top: carry,
+        previous beam ids, scores, finish flags, step counter, the draft's
+        carry where there is one, and the token history written into the
+        slot's history buffer or its freshly claimed pages. Every write
+        is in place under the handle lock, so nothing is captured
+        again."""
+        cfg = self.config
+        st = req.resume
+        t = int(st['step'])
+        K = cfg.beam_size
+        ids = np.asarray(st['ids'], np.int32).reshape(t, K)
+        par = np.asarray(st['par'], np.int32).reshape(t, K)
+        with self._handle_lock, torch.no_grad():
+            self._acquire()
+
+            def put_row(name, rows):
+                row = self._state(name)[slot]
+                row.copy_(self._staged(rows).reshape(row.shape))
+
+            for name in ('h', 'c', 'prev_ids', 'acc', 'fin'):
+                put_row(name, st[name])
+            for name in _DRAFT_STATE:
+                if name in st and self._state(name) is not None:
+                    put_row(name, st[name])
+            self._state('step')[slot] = t
+            if cfg.paged:
+                pages = self._slot_pages[slot]['hist']
+                ps = cfg.page_size
+                idx = self._staged(np.asarray(pages, np.int64))
+                for pool, content in (('hist_ids', ids), ('hist_par', par)):
+                    rows = np.zeros((len(pages) * ps, K), np.int32)
+                    rows[:t] = content
+                    self._state(pool).index_copy_(0, idx, self._staged(
+                        rows.reshape(len(pages), ps, K)))
+            elif t:
+                for hist, content in (('ids_hist', ids), ('par_hist', par)):
+                    self._state(hist)[slot, :t] = self._staged(content)
+        self._slot_steps[slot] = t
+        with self._lock:
+            self._n['resumed'] += 1
+            self._win['resumed'] += 1
+        _C_RESUMED.inc()
+        obs.event('decode.resume', slot=slot, step=t, limit=req.limit)
+
+    def _ckpt_parts(self, slots):
+        """The state rows a checkpoint of each of `slots` needs, read
+        after this dispatch's step: [(slot, name, int32 tensor)] (float
+        rows bit-cast, bool rows widened), to join the dispatch's one host
+        copy."""
+        names = _CKPT_ROWS + tuple(n for n in _DRAFT_STATE
+                                   if self._state(n) is not None)
+        out = []
+        for slot in slots:
+            for name in names:
+                row = self._state(name)[slot]
+                if row.dtype == torch.float32:
+                    row = row.contiguous().view(torch.int32)
+                else:
+                    row = row.to(torch.int32)
+                out.append((slot, name, row))
+        return out
+
+    def _snapshot_slot(self, slot, t, ids_np, par_np, acc_np, rows):
+        """One slot's decode state at token `t`: exactly the dict
+        `submit(resume=...)` restores, with the JAX engine's keys, shapes
+        and dtypes (step int32, ids and par int32 [t, K], acc, h, c and the
+        draft's carry float32, prev_ids int32, fin bool). `rows` are the
+        slot's state rows from this dispatch's host copy (_ckpt_parts)
+        and the history comes from the copied pools (loop thread only)."""
+        snap = {'step': np.asarray(t, np.int32),
+                'acc': np.array(acc_np[slot], np.float32)}
+        for name, row in rows.items():
+            if name == 'fin':
+                snap[name] = row != 0
+            elif name == 'prev_ids':
+                snap[name] = row.copy()
+            else:
+                snap[name] = row.view(np.float32).copy()
+        K = self.config.beam_size
+        if self.config.paged:
+            sp = self._slot_pages[slot]
+            snap['ids'] = ids_np[sp['hist']].reshape(-1, K)[:t].copy()
+            snap['par'] = par_np[sp['hist']].reshape(-1, K)[:t].copy()
+        else:
+            snap['ids'] = ids_np[slot, :t].copy()
+            snap['par'] = par_np[slot, :t].copy()
+        return snap
+
+    def _token_row(self, slot, s, ids_np):
+        """The [beam_size] raw beam column generated at step `s` (1-based)
+        of `slot`, from this dispatch's copied history."""
+        if self.config.paged:
+            sp = self._slot_pages[slot]
+            ps = self.config.page_size
+            return ids_np[sp['hist'][(s - 1) // ps], (s - 1) % ps]
+        return ids_np[slot, s - 1]
+
+    def _abort_slot(self, slot):
+        """Free a slot whose stream consumer went away (loop thread only):
+        deactivate its row in place, return the slot and its pages to the
+        pool, fail the future StreamCancelled. The other in-flight
+        sequences never notice: the step's where-select masking isolates
+        rows."""
+        req = self._occupant[slot]
+        taken = self._slot_steps[slot]
+        with self._handle_lock, torch.no_grad():
+            self._acquire()
+            self._state('active')[slot] = False
+        self._occupant[slot] = None
+        sp = self._slot_pages[slot]
+        self._slot_pages[slot] = None
+        if sp is not None:
+            self._hist_pool.release(sp['hist'])
+            if sp['pkey'] is not None:
+                self._prefix.unref(sp['pkey'])
+            else:
+                self._enc_pool.release(sp['enc'])
+            _G_PAGES_FREE.set(self._pages_free())
+        with self._lock:
+            for c in (self._n, self._win):
+                c['cancelled'] += 1
+                c['releases'] += 1
+        _C_CANCELLED.inc()
+        _C_RELEASES.inc()
+        _G_SLOTS.set(sum(o is not None for o in self._occupant))
+        obs.event('decode.cancel', slot=slot, steps=taken)
+        if req is not None and not req.future.done():
+            try:
+                req.future.set_exception(StreamCancelled(
+                    'decode slot %d cancelled after %d token(s): the '
+                    'stream consumer went away' % (slot, taken)))
+            except concurrent.futures.InvalidStateError:
+                pass      # a racing cancel() resolved it first
 
     def _release(self, slot, poisoned, ids_np, par_np, acc_np):
         """Resolve the slot's future from the step's fetched token history
@@ -1256,6 +1603,11 @@ class DecodeEngine(object):
                     r.future.set_exception(ServerClosed(
                         'decode engine shut down without draining'))
             self._fail_shed(shed)
+            # consumer-gone streams first: their slots and pages free up
+            # before this round's admit and step
+            for slot, occ in enumerate(self._occupant):
+                if occ is not None and occ.aborted:
+                    self._abort_slot(slot)
             if joins:
                 self._admit(joins)
             if not any(o is not None for o in self._occupant):
@@ -1269,32 +1621,70 @@ class DecodeEngine(object):
             spec_k = self.config.spec_k
             occupied = [slot for slot, occ in enumerate(self._occupant)
                         if occ is not None]
+            streaming = [slot for slot in occupied
+                         if self._occupant[slot].streams()]
+            # the slots whose checkpoint cadence this dispatch may cross
+            # (a dispatch advances a slot by at most `adv` tokens)
+            adv = spec_k + 1 if spec_k else self.config.bundle
+            ckpt_due = []
+            for slot in streaming:
+                occ, cur = self._occupant[slot], self._slot_steps[slot]
+                if occ.checkpoint is not None and occ.ckpt_every and (
+                        (cur + adv) // occ.ckpt_every
+                        > cur // occ.ckpt_every):
+                    ckpt_due.append(slot)
             t0 = time.perf_counter()
             # host copies own their memory (Executor._to_numpy): a CPU
             # tensor's numpy view would alias state the next join updates
             host = self._exe._to_numpy
+            ckpt_rows = {}
             with self._handle_lock:   # vs warmup's step
                 fetched = handle.step()
                 active_v, ids_v, par_v, acc_v, step_v = fetched[:5]
-                # the one host sync of a dispatch: each slot's active flag
-                # and step count (and accepted proposals), in one copy
-                level = host(torch.stack(
-                    [active_v.to(torch.int32), step_v] + list(fetched[5:])))
+                level_v = torch.stack(
+                    [active_v.to(torch.int32), step_v] + list(fetched[5:]))
+                if streaming:
+                    # the one host sync of a streaming dispatch: the
+                    # level, the history pools and the scores (every
+                    # emission and release reads them) and the state
+                    # rows of the slots whose checkpoint may fall due
+                    parts = [level_v, ids_v, par_v,
+                             acc_v.contiguous().view(torch.int32)]
+                    rows = self._ckpt_parts(ckpt_due)
+                    parts += [r for _, _, r in rows]
+                    flat = host(torch.cat([t.reshape(-1) for t in parts]))
+                    syncs = 1
+                    cuts = np.cumsum([t.numel() for t in parts])[:-1]
+                    pieces = np.split(flat, cuts)
+                    level = pieces[0].reshape(level_v.shape)
+                    ids_np = pieces[1].reshape(ids_v.shape)
+                    par_np = pieces[2].reshape(par_v.shape)
+                    acc_np = pieces[3].view(np.float32).reshape(acc_v.shape)
+                    for (slot, name, r), a in zip(rows, pieces[4:]):
+                        ckpt_rows.setdefault(slot, {})[name] = a.reshape(
+                            tuple(r.shape))
+                else:
+                    # the one host sync of a dispatch: each slot's active
+                    # flag and step count (and accepted proposals)
+                    level = host(level_v)
+                    syncs = 1
                 active_np, steps_np = level[0] != 0, level[1]
                 finished = [slot for slot, occ
                             in enumerate(self._occupant)
                             if occ is not None and not active_np[slot]]
-                if finished:
+                if finished and not streaming:
                     # one more for every release of this dispatch
                     ids_np = host(ids_v)
                     par_np = host(par_v)
                     acc_np = host(acc_v)
+                    syncs += 3
             dt = time.perf_counter() - t0
             _H_STEP.observe(dt)
             _C_STEPS.inc()
             with self._lock:
                 self._n['steps'] += 1
                 self._win['steps'] += 1
+                self._n['host_syncs'] += syncs
                 if spec_k:
                     # every occupied slot saw spec_k proposals; Accepted
                     # counts the ones the target verified
@@ -1314,6 +1704,36 @@ class DecodeEngine(object):
                 _C_TOKENS.inc(cur - prev_steps)
                 if prev_steps == 0 and cur > 0 and occ.t_join is not None:
                     _H_TTFT.observe(now - occ.t_submit)
+                # stream every token this dispatch produced, IN ORDER; a
+                # RAISING callback means the consumer is gone and the
+                # slot is reaped at the next tick
+                if occ.on_token is not None and cur > prev_steps \
+                        and not occ.aborted:
+                    for t in range(prev_steps + 1, cur + 1):
+                        try:
+                            occ.on_token(t, self._token_row(slot, t,
+                                                            ids_np))
+                        except Exception as e:  # noqa: BLE001
+                            occ.aborted = True
+                            obs.event('decode.stream.abort', slot=slot,
+                                      token=t, error='%s: %s'
+                                      % (type(e).__name__, e))
+                            break
+                # checkpoint at every cadence crossing (not for a slot
+                # finishing now: its result resolves anyway); a failing
+                # sink degrades failover and must not stop the stream
+                if slot in ckpt_rows and not occ.aborted \
+                        and slot not in finished \
+                        and cur // occ.ckpt_every \
+                        > prev_steps // occ.ckpt_every:
+                    try:
+                        occ.checkpoint(self._snapshot_slot(
+                            slot, cur, ids_np, par_np, acc_np,
+                            ckpt_rows[slot]))
+                    except Exception as e:  # noqa: BLE001
+                        obs.event('decode.ckpt.error', slot=slot,
+                                  step=cur, error='%s: %s'
+                                  % (type(e).__name__, e))
                 if slot in finished:
                     self._release(slot,
                                   bool(np.isnan(acc_np[slot]).any()),
@@ -1371,7 +1791,9 @@ class DecodeEngine(object):
             depth = len(self._queue)
         out = {k: self._n.get(k, 0) for k in
                ('submitted', 'completed', 'rejected', 'shed', 'poisoned',
-                'joins', 'releases', 'steps', 'tokens', 'slots_high_water')}
+                'joins', 'releases', 'steps', 'tokens', 'cancelled',
+                'resumed', 'slots_high_water', 'delta_pushes',
+                'delta_rows', 'host_syncs')}
         out['queue_depth'] = depth
         out['queue_high_water'] = self._q_high_water
         out['slots'] = self.config.slots

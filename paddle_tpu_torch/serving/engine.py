@@ -63,11 +63,12 @@ class DeadlineExceeded(RuntimeError):
 
 
 class DeltaUnsupported(TypeError):
-    """push_rows targeted a model that cannot take row deltas: a model
-    with no live parameter scope (a bare callable; the JAX package's
-    `load_compiled` runner, whose parameters are baked into the artifact
-    — publish a new artifact and Router.swap() instead), or a persistable
-    the program writes, which is per-step state rather than a weight."""
+    """push_rows targeted a model that cannot take row deltas: a
+    `load_compiled` runner (its weights are part of the exported artifact
+    — publish a new artifact and Router.swap() instead) or another model
+    with no live parameter scope, a persistable the program writes, which
+    is per-step state rather than a weight, or a decode-pool persistable
+    (slot state, not a weight)."""
 
 
 class ServingConfig(object):
@@ -450,17 +451,19 @@ class ServingEngine(object):
         every table whole before the push or whole after it, never a
         torn row, and no graph is captured again. Every delta is
         validated before any row is written. Only Predictor-backed models
-        take deltas (anything without a live scope: typed
-        DeltaUnsupported), and only into variables the program does not
-        WRITE (per-step state, which the step itself rewrites)."""
+        take deltas (a `load_compiled` runner carries its weights in the
+        artifact: typed DeltaUnsupported; publish an artifact and
+        Router.swap() instead), and only into variables the program does
+        not WRITE (per-step state, which the step itself rewrites)."""
         scope = getattr(self._model, '_scope', None)
         prog = getattr(self._model, '_program', None)
         exe = getattr(self._model, '_exe', None)
         if scope is None or prog is None or exe is None:
             raise DeltaUnsupported(
-                'this replica serves a model (or a bare callable) with no '
-                'live parameter scope — row deltas need a Predictor-backed '
-                'engine; swap() a new model instead')
+                'this replica serves a compiled artifact (or a bare '
+                'callable) with no live parameter scope — row deltas '
+                'need a Predictor-backed engine; swap() a new artifact '
+                'instead')
         if self._shutdown:
             raise ServerClosed('serving engine is shut down')
         # the program never changes for the life of the engine: walk

@@ -1,9 +1,10 @@
 """Multi-replica serving router: least-loaded dispatch + hot swap.
 
-Parity: the JAX package's serving/router.py (Router :339, push_deltas
-:740). One process, N model replicas (`ServingEngine`s over Predictors,
-or anything with submit()/stats_window()/shutdown()). The router is the
-single front door:
+Parity: the JAX package's serving/router.py (TokenStream :190, Router
+:339, stream :626, swap :672, push_deltas :740). One process, N model
+replicas (`ServingEngine`s over Predictors or `load_compiled` runners,
+`DecodeEngine`s for continuous-batching decode, or anything with
+submit()/stats_window()/shutdown()). The router is the single front door:
 
   * LEAST-LOADED dispatch: each replica's admission pressure is sampled
     from its `stats_window()` — the queue high-water mark and shed/
@@ -18,41 +19,47 @@ single front door:
     replica's own `ServerOverloaded` is caught and retried on the next
     least-loaded replica — overload propagates to the caller typed, as
     `ModelOverloaded(model_id)`, only when every replica refused;
-  * VERSIONED HOT SWAP (`swap(..., builder=)`): build the incoming
-    replicas, `warmup()` them off to the side (every bucket warmed up
-    and captured), then cut traffic over atomically while the OLD
-    replicas drain in the background (no future is lost);
+  * VERSIONED HOT SWAP (`swap`): load the incoming artifact through
+    `inference.load_compiled` (or build it with `builder=`), `warmup()` it
+    off to the side (every bucket warmed up and captured), then cut
+    traffic over atomically while the OLD replicas drain in the
+    background (no future is lost);
+  * TOKEN STREAMING (`stream`): a `TokenStream` over a decode replica's
+    per-token callback, in order and each index once, with `cancel()`
+    freeing the slot and its pages;
   * ROW-DELTA PUSH (`push_deltas`): trained rows into every live replica
     under the swap lock, so a push lands entirely on one generation.
 
-Not ported yet (ROADMAP.md Queue A, "Serving, the rest"), and raising
-NotImplementedError: swap() without a builder (it loads the JAX
-package's `load_compiled` artifact), `stream` / `TokenStream` (the decode
-engine's per-token streaming) and `estimate_state_bytes` (it prices the
-compiled artifact). The JAX router's trace spans (obs/trace) are not
-ported either.
+Every request is traced (obs.trace): `submit` opens a `serving.request`
+span at node `router` under the caller's trace context (or a new trace)
+and dispatches with it current.
+
+Not ported (ROADMAP.md Queue A): `estimate_state_bytes` raises
+NotImplementedError (it prices an artifact through
+fluid.analysis.cost_report), and the pod's host/key seam, `replicas()`
+and `sample_windows()` (serving/pod.py).
 """
 import concurrent.futures
 import threading
 import time
 
+import numpy as np
+
 from .. import obs
-from .engine import DeadlineExceeded, ServerClosed, ServerOverloaded
+from ..obs import trace
+from .engine import (DeadlineExceeded, ServerClosed, ServerOverloaded,
+                     ServingEngine)
 
 __all__ = ['Router', 'ModelOverloaded', 'TokenStream', 'UnknownModel',
            'estimate_state_bytes']
 
 
-def _not_ported(what):
-    raise NotImplementedError(
-        '%s waits for the port\'s "Serving, the rest" slice (ROADMAP.md '
-        'Queue A)' % what)
-
-
 def estimate_state_bytes(artifact, mesh_axes=None, batch=1):
     """The JAX :48: the static byte footprint of a model never loaded,
-    priced from its compiled artifact's cost report; not ported yet."""
-    _not_ported('estimate_state_bytes')
+    priced by fluid.analysis.cost_report; not ported yet."""
+    raise NotImplementedError(
+        'estimate_state_bytes waits for fluid.analysis.cost_report, the '
+        'port\'s "Analysis and tooling" slice (ROADMAP.md Queue A)')
 
 
 class UnknownModel(KeyError):
@@ -72,6 +79,10 @@ class ModelOverloaded(ServerOverloaded):
 _C_ROUTED = obs.counter('router.routed')
 _C_OVERLOADED = obs.counter('router.overloaded')
 _G_REPLICAS = obs.gauge('router.replicas')
+_C_STREAM_TOKENS = obs.counter('serving.stream.tokens')
+# END-TO-END time to first token: stream() call (before admission, before
+# any queueing) to the first token reaching the client's buffer
+_H_STREAM_TTFT = obs.histogram('serving.stream.ttft.seconds')
 
 # process-wide replica-id sequence: ids stay unique across routers
 _RID_LOCK = threading.Lock()
@@ -82,6 +93,19 @@ def _next_rid():
     with _RID_LOCK:
         _RID[0] += 1
         return _RID[0]
+
+
+def _end_request_span(h, fut):
+    """Close a serving.request trace span from its future's done
+    callback. end() merges: a stream's _on_done adds its ttft fields to
+    the same record in whichever order the callbacks fire."""
+    try:
+        err = fut.exception()
+    except concurrent.futures.CancelledError as e:
+        err = e
+    except Exception:
+        err = None
+    h.end(error=type(err).__name__ if err is not None else None)
 
 
 class _Replica(object):
@@ -137,12 +161,123 @@ class _ModelEntry(object):
 
 
 class TokenStream(object):
-    """The JAX :190: the client handle of a per-token streamed decode
-    request (`Router.stream`); it needs the decode engine's streaming,
-    which is not ported yet."""
+    """Client handle for one per-token streamed decode request
+    (`Router.stream`): iterate it for `(t, ids)` pairs (t the 1-based
+    generated-token index, ids the [beam_size] token row of that step) in
+    strictly increasing t order, then call `result()` for the final
+    (tokens, scores) exactly as a plain submit() future returns them.
+
+    Ordering is enforced HERE, at the consumer edge: `_on_token` drops any
+    token with t <= the last t delivered, so a producer's replay (a stream
+    resumed from a checkpoint re-sending tokens 1..ckpt) is seen once.
+
+    The producer (the decode loop) never blocks on the consumer: tokens
+    buffer here (at most max_new_tokens rows). `cancel()` drops a queued
+    request, or aborts a decoding one at the next loop tick (the slot and
+    its pages freed, StreamCancelled on the future)."""
 
     def __init__(self, model_id=None):
-        _not_ported('TokenStream')
+        self.model_id = model_id
+        self._cv = threading.Condition()
+        self._buf = []
+        self._last_t = 0
+        self._future = None
+        self._cancel_cb = None
+        self._t_open = time.monotonic()
+        self._ttft_s = None
+        self._tspan = None        # trace.SpanHandle of the request span
+
+    # -- producer edge (the decode loop) -----------------------------------
+
+    def _on_token(self, t, ids):
+        t = int(t)
+        with self._cv:
+            if t <= self._last_t:
+                return            # a resumed stream's replay
+            self._last_t = t
+            first = self._ttft_s is None
+            if first:
+                self._ttft_s = time.monotonic() - self._t_open
+            self._buf.append((t, None if ids is None
+                              else np.asarray(ids).copy()))
+            self._cv.notify_all()
+        _C_STREAM_TOKENS.inc()
+        if first:
+            _H_STREAM_TTFT.observe(self._ttft_s)
+            h = self._tspan
+            if h is not None:
+                h.mark('trace.first_token', ttft_s=round(self._ttft_s, 6))
+            obs.event('serving.stream.first_token',
+                      model=str(self.model_id),
+                      ttft_s=round(self._ttft_s, 6))
+
+    def _attach(self, future):
+        self._future = future
+        future.add_done_callback(self._on_done)
+
+    def _on_done(self, fut):
+        with self._cv:
+            self._cv.notify_all()
+        try:
+            err = fut.exception()
+        except concurrent.futures.CancelledError as e:
+            err = e
+        h = self._tspan
+        if h is not None:
+            h.end(tokens=self._last_t, ttft_s=self._ttft_s)
+        obs.event('serving.stream.close', model=str(self.model_id),
+                  tokens=self._last_t, ttft_s=self._ttft_s,
+                  error=type(err).__name__ if err is not None else None)
+
+    # -- consumer edge -----------------------------------------------------
+
+    @property
+    def ttft_s(self):
+        """End-to-end time to first token (None until it arrives): the
+        stream() call to the token reaching this buffer."""
+        return self._ttft_s
+
+    @property
+    def last_t(self):
+        """Highest token index delivered so far."""
+        return self._last_t
+
+    def __iter__(self):
+        """Yield (t, ids) in order until the request completes; a failed
+        request raises its error from `result()` AFTER the tokens that did
+        arrive have been yielded."""
+        while True:
+            with self._cv:
+                while not self._buf and not (self._future is not None
+                                             and self._future.done()):
+                    self._cv.wait(0.05)
+                if self._buf:
+                    t, ids = self._buf.pop(0)
+                else:
+                    return
+            yield t, ids
+
+    def result(self, timeout=None):
+        """Final (tokens, scores); blocks like a submit() future."""
+        return self._future.result(timeout)
+
+    def done(self):
+        return self._future is not None and self._future.done()
+
+    def cancel(self):
+        """Stop the stream: a queued request is dropped, a decoding one is
+        aborted at the next loop tick (slot and pages freed,
+        StreamCancelled on the future). Returns True if a cancel was
+        delivered."""
+        if self._future is not None and self._future.done():
+            return False
+        cb = self._cancel_cb
+        if cb is not None:
+            try:
+                return bool(cb())
+            except Exception:
+                pass
+        return self._future.cancel() if self._future is not None else False
 
 
 class Router(object):
@@ -251,11 +386,28 @@ class Router(object):
 
     def submit(self, model_id, feed, **kwargs):
         """Route one request to the least-loaded replica of `model_id`;
-        extra keyword arguments (deadline_ms, timeout, ...) pass through
-        to the replica's submit(). Raises UnknownModel for an
-        unregistered id and ModelOverloaded when the model quota is
-        exhausted or every replica refused."""
-        return self._dispatch(model_id, feed, kwargs)
+        extra keyword arguments (deadline_ms, timeout, max_new_tokens,
+        on_token, ...) pass through to the replica's submit(). Raises
+        UnknownModel for an unregistered id and ModelOverloaded when the
+        model quota is exhausted or every replica refused.
+
+        Every request is traced: the admission point opens the
+        `serving.request` span under the caller's active trace context
+        (or a fresh trace), and dispatch runs with that span current."""
+        ctx = trace.current()
+        if ctx is None:
+            ctx = trace.new_trace()
+        h = trace.begin('serving.request', ctx=ctx, node='router',
+                        model=str(model_id))
+        try:
+            with trace.activate(h.ctx):
+                fut = self._dispatch(model_id, feed, kwargs)
+        except Exception as e:
+            h.end(error=type(e).__name__)
+            raise
+        fut.add_done_callback(lambda f, _h=h: _end_request_span(_h, f))
+        fut._trace_span = h       # stream() picks the handle up here
+        return fut
 
     def _dispatch(self, model_id, feed, kwargs):
         last_err = None
@@ -371,31 +523,64 @@ class Router(object):
                 'result is discarded' % timeout)
 
     def stream(self, model_id, feed, **kwargs):
-        """The JAX :626: per-token streamed decode through the
-        least-loaded replica; it needs the decode engine's streaming,
-        which is not ported yet."""
-        _not_ported('Router.stream')
+        """Per-token streamed decode through the least-loaded replica:
+        returns a `TokenStream` yielding (t, ids) as tokens are generated,
+        with `result()` for the final (tokens, scores). Rides the ordinary
+        submit() path, the stream's on_token callback in kwargs, so
+        admission, quota and overload-retry are those of submit(). TTFT
+        is measured end to end: the stream() call to the first token in
+        the client's buffer."""
+        s = TokenStream(model_id=model_id)
+        kwargs['on_token'] = s._on_token
+        ctx = trace.current()
+        if ctx is None:
+            ctx = trace.new_trace()
+        with trace.activate(ctx):
+            fut = self.submit(model_id, feed, **kwargs)
+            obs.event('serving.stream.open', model=str(model_id))
+        s._tspan = getattr(fut, '_trace_span', None)
+        s._cancel_cb = lambda: self._cancel_request(model_id, s._future)
+        s._attach(fut)
+        return s
+
+    def _cancel_request(self, model_id, fut):
+        """Best-effort cancel of an accepted request: ask each replica
+        engine that knows the future (only its owner returns True)."""
+        if fut is None:
+            return False
+        with self._lock:
+            engines = [r.engine for r in self._entry(model_id).replicas]
+        for e in engines:
+            cancel = getattr(e, 'cancel', None)
+            if cancel is None:
+                continue
+            try:
+                if cancel(fut):
+                    return True
+            except Exception:
+                pass
+        return fut.cancel()
 
     # -- hot swap ----------------------------------------------------------
 
     def swap(self, model_id, path, config=None, warmup_feed=None,
              builder=None):
         """Zero-downtime versioned hot-swap: build one NEW replica per
-        current replica with `builder(path)` (e.g. a ServingEngine over a
-        Predictor of the model dir at `path`), run `warmup(warmup_feed)`
-        on each incoming replica (every bucket warmed up and captured —
-        the cutover never serves a cold bucket), then atomically cut
-        traffic over and drain the old replicas in the background
-        (queued + in-flight work completes; no future is lost).
-        Admission stays open throughout. Returns the new version number.
+        current replica from the `load_compiled` artifact at `path`, run
+        `warmup(warmup_feed)` on each incoming replica (every bucket
+        warmed up and captured — the cutover never serves a cold bucket),
+        then atomically cut traffic over and drain the old replicas in
+        the background (queued + in-flight work completes; no future is
+        lost). Admission stays open throughout. Returns the new version
+        number.
 
-        Swaps serialize on one router-wide lock (a second swap waits, it
-        is not lost), and a replica added concurrently via add_replica
-        survives the cutover. The JAX router's default builder loads a
-        `load_compiled` artifact, which is not ported: without `builder`
-        this raises NotImplementedError (`config` served it)."""
-        if builder is None:
-            _not_ported('Router.swap without builder= (load_compiled)')
+        `builder(path)` overrides replica construction (e.g. a
+        ServingEngine over a Predictor, or a DecodeEngine); the default
+        is ServingEngine(load_compiled(path), config or the old replica's
+        config), the artifact on the card. Swaps serialize on one
+        router-wide lock (a second swap waits, it is not lost), and a
+        replica added concurrently via add_replica survives the
+        cutover."""
         with self._swap_lock:
             return self._swap_locked(model_id, path, config, warmup_feed,
                                      builder)
@@ -404,6 +589,15 @@ class Router(object):
         with self._lock:
             entry = self._entry(model_id)
             n, old_replicas = len(entry.replicas), list(entry.replicas)
+        if builder is None:
+            from .. import inference
+
+            def builder(p):
+                cfg = config
+                if cfg is None:
+                    cfg = getattr(old_replicas[0].engine, 'config', None)
+                return ServingEngine(inference.load_compiled(p), cfg)
+
         incoming = []
         try:
             for _ in range(n):

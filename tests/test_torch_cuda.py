@@ -46,7 +46,13 @@ replay, and a preempted Trainer resumed bitwise. Online training: push_rows
 into a Predictor whose bucket is captured reaching the next replay with no
 capture (1e-6 against a fresh Predictor given the rows), and RowResetter
 zeroing the captured DeepFM step's static tables in place, the stream on
-the card against the CPU at 1e-5.
+the card against the CPU at 1e-5. Token streaming and the compiled
+artifact: the flash-attention forward operator against its plain version
+(fp32 1e-4, bf16 within 2 bf16 ulps of the largest |O|), one launch a
+call; a Transformer artifact exported and loaded on the card against the
+same one exported on the CPU (1e-4 of max(1, |logit|)), captured once;
+abort, resume and decode push_rows reaching the next replay with the
+captures unchanged.
 """
 import contextlib
 import importlib
@@ -2824,3 +2830,168 @@ def test_row_resetter_zeroes_the_captured_deepfm_steps_static_tables(card):
         np.testing.assert_allclose(out['gpu'][1][n], v, rtol=1e-5,
                                    atol=1e-5, err_msg=n)
     assert out['gpu'][2].state_dict() == out['cpu'][2].state_dict()
+
+
+# -- token streaming and the compiled serving artifact ------------------------
+
+def _bf16_ulps_close(got, want, ulps=2):
+    """Within `ulps` bf16 ulps of want's largest magnitude."""
+    m = float(want.abs().max())
+    tol = ulps * 2.0 ** (np.floor(np.log2(max(m, 1e-30))) - 7)
+    assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('causal', [False, True])
+def test_flash_operator_launches_the_kernel_once_a_call(card, dtype, causal):
+    """torch.ops.paddle_tpu_torch.flash_attention_lse on CUDA tensors is
+    the forward kernel of q's dtype: one launch a call, counted by the
+    kernel's counter, against the plain version."""
+    q, k, v, kb = _fwd_case(card, 2, 3, 64, 70, 64, 23)
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    kern = tfa.KERNEL if dtype == torch.float32 else tfa.KERNEL_BF16
+    other = tfa.KERNEL_BF16 if dtype == torch.float32 else tfa.KERNEL
+    before, before_other = kern.launches, other.launches
+    o, lse = torch.ops.paddle_tpu_torch.flash_attention_lse(
+        q, k, v, kb, causal, 0.125)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1 and other.launches == before_other
+    o_ref, lse_ref = tfa.flash_attention_lse_plain(q, k, v, kb, causal,
+                                                   0.125)
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    if dtype == torch.float32:
+        torch.testing.assert_close(o, o_ref, rtol=TOL, atol=TOL)
+    else:
+        _bf16_ulps_close(o, o_ref)
+    torch.testing.assert_close(lse, lse_ref, rtol=TOL, atol=TOL)
+    # the autograd path goes through the same operator
+    o2, _ = tfa.flash_attention_lse(q, k, v, key_bias=kb, causal=causal,
+                                    sm_scale=0.125)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 2
+    assert torch.equal(o2, o)
+
+
+def test_a_loaded_artifact_on_the_card_matches_the_cpu_export(card,
+                                                              tmp_path):
+    """A small Transformer exported on the CPU and on the card from one
+    startup state: each artifact loads on its device, the card's logits
+    within 1e-4 of max(1, |logit|) of the CPU's; on the card its calls warm
+    up, capture once and replay, 3 x n_layer flash-attention forward
+    launches a call."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.models import transformer as T
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 5
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        T.transformer(100, 100, 40, n_layer=2, d_model=64, n_head=4,
+                      d_inner=128)
+    blk = main.global_block()
+    lg = [op.input('Logits')[0] for op in blk.ops
+          if op.type == 'softmax_with_cross_entropy'][0]
+    logits = blk.var([op.input('X')[0] for op in blk.ops
+                      if op.type == 'reshape'
+                      and op.output('Out')[0] == lg][0])
+    r = np.random.RandomState(3)
+    feed = {n: r.randint(1, 100, (4, 40)).astype('int64')
+            for n in ('src_word', 'trg_word')}
+    feed['trg_word'][2, 11:] = 0
+    cpu_scope = fluid.Scope()
+    cpu_exe = fluid.Executor(fluid.CPUPlace())
+    cpu_exe.run(startup, scope=cpu_scope)
+    card_scope = fluid.Scope()
+    card_scope.load_numpy(cpu_scope.to_numpy(), fluid.CUDAPlace(0))
+    dirs = {}
+    for tag, exe, scope in (('cpu', cpu_exe, cpu_scope),
+                            ('cuda', fluid.Executor(fluid.CUDAPlace(0)),
+                             card_scope)):
+        dirs[tag] = str(tmp_path / tag)
+        inference.export_compiled(dirs[tag], feed, [logits], exe,
+                                  main_program=main, scope=scope)
+    want = inference.load_compiled(dirs['cpu'], fluid.CPUPlace())(feed)[0]
+    with pytest.raises(ValueError, match='exported for cpu.*on cuda'):
+        inference.load_compiled(dirs['cpu'])
+    run = inference.load_compiled(dirs['cuda'])
+    outs = []
+    for i in range(3):
+        before = tfa.KERNEL.launches
+        outs.append(run(feed)[0])
+        assert tfa.KERNEL.launches - before == 6, i
+    stats = run.cache_stats()
+    assert stats['captures'] == 1 and stats['replays'] == 2
+    for got in outs:
+        assert np.array_equal(got, outs[-1]) or np.allclose(
+            got, outs[-1], rtol=0, atol=1e-6)
+        assert (np.abs(got - want)
+                <= 1e-4 * np.maximum(1.0, np.abs(want))).all()
+
+
+def test_abort_resume_and_push_rows_reach_the_next_replay(card):
+    """The paged engine on the card, warmed up (its step captured): a
+    stream cancelled after 3 tokens frees its slot and pages, a
+    checkpoint resumes token-exact, and push_rows reaches the next
+    dispatch (equal to a fresh engine given the rows), with the captures
+    unchanged by all three and one host copy a streaming dispatch."""
+    from paddle_tpu_torch import serving
+    r = np.random.RandomState(11)
+    V, E, D, H, SRC, T = 20, 8, 6, 8, 5, 12
+    w = {'w_dec': r.randn(E + D, 4 * H) * 0.3,
+         'u_dec': r.randn(H, 4 * H) * 0.3,
+         'b_dec': r.randn(1, 4 * H) * 0.1, 'w_q': r.randn(H, D) * 0.3,
+         'w_emb': r.randn(V, E) * 0.3, 'w_out': r.randn(H, V) * 0.3,
+         'b_out': r.randn(1, V) * 0.1}
+    w = {k: v.astype('float32') for k, v in w.items()}
+    enc = (r.randn(4, D) * 0.5).astype('float32')
+    cfg = dict(slots=2, beam_size=3, max_len=T, src_cap=SRC, page_size=3,
+               pages=16, prefix_cache=False)
+    eng = serving.DecodeEngine(w, serving.DecodeConfig(**cfg))
+    try:
+        eng.warmup()
+        caps = eng.cache_stats()['captures']
+        base = eng.stats
+        want = eng.submit({'enc': enc}, max_new_tokens=T).result(60)
+        ckpts, seen = [], []
+        s0 = eng.stats
+        got = eng.submit({'enc': enc}, max_new_tokens=T,
+                         on_token=lambda t, ids: seen.append(t),
+                         checkpoint=ckpts.append, ckpt_every=4).result(60)
+        s1 = eng.stats
+        assert s1['host_syncs'] - s0['host_syncs'] == s1['steps'] - s0['steps']
+        assert seen == list(range(1, T + 1))
+        np.testing.assert_array_equal(got[0], want[0])
+        for c in ckpts:
+            res = eng.submit({'enc': enc}, max_new_tokens=T,
+                             resume=c).result(60)
+            np.testing.assert_array_equal(res[0], want[0])
+            np.testing.assert_allclose(res[1], want[1], rtol=1e-6,
+                                       atol=1e-6)
+
+        def consumer(t, ids):
+            if t == 3:
+                raise IOError('gone')
+
+        fut = eng.submit({'enc': enc}, max_new_tokens=T, on_token=consumer)
+        with pytest.raises(serving.StreamCancelled):
+            fut.result(60)
+        deadline = time.monotonic() + 10
+        while eng.stats['pages_free'] != base['pages_free'] \
+                and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert eng.stats['pages_free'] == base['pages_free']
+        ids = np.array([0, 3, 5])
+        rows = (r.randn(3, E) * 0.5).astype('float32')
+        eng.push_rows({'cbd_w_emb': (ids, rows)})
+        pushed = eng.submit({'enc': enc}, max_new_tokens=T).result(60)
+        assert eng.cache_stats()['captures'] == caps
+    finally:
+        eng.shutdown()
+    w2 = dict(w, w_emb=w['w_emb'].copy())
+    w2['w_emb'][ids] = rows
+    fresh = serving.DecodeEngine(w2, serving.DecodeConfig(**cfg))
+    try:
+        want2 = fresh.submit({'enc': enc}, max_new_tokens=T).result(60)
+    finally:
+        fresh.shutdown()
+    np.testing.assert_array_equal(pushed[0], want2[0])
+    np.testing.assert_allclose(pushed[1], want2[1], rtol=1e-6, atol=1e-6)

@@ -5,8 +5,8 @@
     machine with the card does not have (bf16 crosses numpy through
     16-bit views);
   * its entry points run on the card unless asked for the CPU: with no
-    card, Executor(), Predictor(dirname) and serving.DecodeEngine(weights)
-    raise instead of running on the CPU (Trainer() and Inferencer():
+    card, Executor(), Predictor(dirname), inference.load_compiled(dirname)
+    and serving.DecodeEngine(weights) raise instead of running on the CPU (Trainer() and Inferencer():
     tests/test_torch_trainer.py);
   * chip_smoke.py refuses to run, and prints no result, without a card or
     outside a checkout.
@@ -95,6 +95,9 @@ SUBMODULES = [
     'paddle_tpu_torch.streaming.publish',
     'paddle_tpu_torch.embedding.quant_rows',
     'paddle_tpu_torch.serving.router', 'paddle_tpu_torch.utils.lru',
+    # token streaming and the compiled serving artifact: the request
+    # trace, the step artifact's exported form
+    'paddle_tpu_torch.obs.trace', 'paddle_tpu_torch.fluid.step_artifact',
 ]
 
 
@@ -200,6 +203,26 @@ def test_predictor_defaults_to_the_card_and_raises_without_one(tmp_path):
     with pytest.raises(RuntimeError, match='no CUDA device'):
         inference.Predictor(str(tmp_path))
     got = inference.Predictor(str(tmp_path), place=fluid.CPUPlace()).run(
+        {'x': np.ones((2, 4), 'float32')})[0]
+    assert got.shape == (2, 3)
+
+
+def test_load_compiled_defaults_to_the_card_and_raises_without_one(
+        tmp_path):
+    _no_card()
+    main, startup = fluid.Program(), fluid.Program()
+    scope = fluid.Scope()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.layers.data(name='x', shape=[4])
+        y = fluid.layers.fc(input=x, size=3)
+        exe = fluid.Executor(fluid.CPUPlace())
+        exe.run(startup, scope=scope)
+        inference.export_compiled(str(tmp_path), {
+            'x': np.ones((2, 4), 'float32')}, [y], exe, main_program=main,
+            scope=scope)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        inference.load_compiled(str(tmp_path))
+    got = inference.load_compiled(str(tmp_path), place=fluid.CPUPlace())(
         {'x': np.ones((2, 4), 'float32')})[0]
     assert got.shape == (2, 3)
 
