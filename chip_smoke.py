@@ -362,6 +362,37 @@ replay (each graph adds the launches its capture recorded).
                 of a second seed under a client of 16-row requests: no
                 future lost or failed, answers of generation 1 then 2. One
                 JSON line {"serving_stream": {...}}.
+  7j. tier    — tiered embedding storage and the run-log report (TIER_*
+                below). (a) 7h's DeepFM through fluid.Trainer(double_buffer
+                =True).train_stream over the JAX bench_tiered stream
+                (Zipf(1.3) around a base moving 13 ids a step, 800,000 ids:
+                8x the table), a TieredVocabTable(VocabTable(100000,
+                table='fm_embed', admit_count=2), host_arena(dir,
+                slots=800000)) preloaded full, a DeltaPublisher every 5
+                steps into two replicas behind a Router; 300 timed steps
+                (the main path of the phase: the `tier` path of the kernels
+                line), then the same with a plain VocabTable: steps/s of
+                each, hit rate, spilled, restored and dropped_full,
+                restore and spill ms p50/p99, host waits a spilling
+                boundary (one), the boundary's share of the wall and its
+                host split, 2 sparse_adam launches a step, one capture
+                before and after, the arena file's bytes, the freshness
+                lag. (b) The JAX tests/test_tiers.py:513 drill at chip
+                size (one Constant(0) table, 26 fields, batch 256, Adam
+                1e-2, double_buffer off, 60 steps over 131,072 ids): the
+                tiered leg at capacity 16,384 bitwise a reference that
+                covers every id at every step, the plain leg diverging,
+                spilled >= 3 and restored >= 1, no capture in any second
+                half. (c) A SIGTERM at a boundary of (a)'s trainer: the
+                emergency serial holds the vocab, the spill map and the
+                pending ops; a fresh Trainer and host_arena over the same
+                directory resume them (the manifest too) and every
+                persistable bitwise, and 10 more steps are bitwise the
+                uninterrupted run. (d) (c)'s run log through the port's
+                obs.report (no malformed record, the streaming and tiers
+                sections printed) and tools/slo_budgets.json graded over
+                the process's registry (a violation fails). One JSON line
+                {"tier": {...}}.
   8. captured — each path's captured step against debug_step's eager
                 walk in this call, at full width: Transformer-base
                 training at batch 16 (get_model, dropout 0.1), fp32 and
@@ -500,7 +531,7 @@ KERNEL_PATHS = {
                                  'amp_compiled'),
     'flash_attention_bwd_dq_bf16': ('amp_training',),
     'flash_attention_bwd_dkv_bf16': ('amp_training',),
-    'sparse_adam': ('ctr_training', 'stream'),
+    'sparse_adam': ('ctr_training', 'stream', 'tier'),
     'sparse_adagrad': ('ctr_training',),
     'paged_attention': ('decode', 'token_decode', 'spec_decode',
                         'token_stream'),
@@ -820,6 +851,33 @@ TOKEN_PUSH_ROWS = 64
 COMPILED_BATCH = 16
 COMPILED_TOL = 1e-6
 COMPILED_CALLS = 10
+# phase 7j (tier): phase 5's DeepFM through fluid.Trainer(double_buffer=
+# True).train_stream over the JAX bench.py:898-1006 (bench_tiered) stream:
+# Zipf(TIER_ZIPF) ids around a base that moves TIER_DRIFT ids a step, over
+# TIER_UNIVERSE ids (8x the 100,000 rows), 0/1 labels. The tiered leg's
+# TieredVocabTable(VocabTable(100000, table='fm_embed', admit_count=
+# TIER_ADMIT), host_arena(dir, slots=TIER_SLOTS)) and the plain leg's
+# VocabTable are preloaded full (ids 1..99,999, the window the stream
+# starts in), so nearly every step evicts; each leg runs TIER_WARM steps,
+# then TIER_STEPS timed,
+# with 7h's publisher into two replicas behind a Router. (c) SIGTERM at the
+# STREAM_PREEMPT_AT-th boundary of STREAM_CHECK_STEPS, then
+# TIER_RESUME_STEPS more steps, uninterrupted and resumed. (b) The bitwise
+# drill: TIER_DRILL_STEPS batches of the same stream shape over
+# TIER_DRILL_UNIVERSE ids, a one-table net (Adam TIER_DRILL_LR), capacity
+# TIER_DRILL_CAP against a reference that covers every id.
+TIER_UNIVERSE = 800000
+TIER_DRIFT = 13
+TIER_ZIPF = 1.3
+TIER_ADMIT = 2
+TIER_SLOTS = 800000
+TIER_WARM = 2
+TIER_STEPS = 300
+TIER_RESUME_STEPS = 10
+TIER_DRILL_UNIVERSE = 131072
+TIER_DRILL_CAP = 16384
+TIER_DRILL_STEPS = 60
+TIER_DRILL_LR = 1e-2
 
 
 def log(*args):
@@ -7097,6 +7155,570 @@ def phase_serving_stream():
     return out
 
 
+# -- phase 7j: tiered embedding storage and the run-log report --------------
+
+def tier_reader(state, universe, fields, float_label=False):
+    """bench.py:956-967's stream (bench_tiered) at CTR_BATCH: each step's
+    ids are the base (TIER_DRIFT ids further each step) plus a
+    Zipf(TIER_ZIPF) draw, mod `universe`; labels 0/1 (DeepFM) or
+    standard normal (the drill's squared loss). `state` carries the step
+    and the generator across train_stream calls."""
+    def reader():
+        while True:
+            t = state['t']
+            state['t'] = t + 1
+            rng = state['rng']
+            base = (t * TIER_DRIFT) % universe
+            ids = (base + rng.zipf(TIER_ZIPF, size=(CTR_BATCH, fields))) \
+                % universe
+            if float_label:
+                ids = ids.reshape(CTR_BATCH, fields, 1)
+                labels = rng.randn(CTR_BATCH, 1).astype('float32')
+            else:
+                labels = rng.randint(0, 2, size=(CTR_BATCH, 1))
+            yield [(ids[i], labels[i]) for i in range(CTR_BATCH)]
+
+    return reader
+
+
+def _tier_vocab(tiered, arena_dir):
+    """The leg's vocab: VocabTable(100000, table='fm_embed', admit_count=
+    TIER_ADMIT), behind a host_arena of TIER_SLOTS slots when tiered,
+    preloaded full with ids 1..99,999: the window the stream starts in,
+    as a table that has been serving it holds (most steps evict, and an
+    evicted id the stream draws twice more re-admits warm)."""
+    from paddle_tpu_torch import streaming
+    from paddle_tpu_torch.models import deepfm
+    vt = streaming.VocabTable(deepfm.VOCAB, table='fm_embed',
+                              admit_count=TIER_ADMIT)
+    tab = (streaming.TieredVocabTable(
+        vt, streaming.host_arena(arena_dir, slots=TIER_SLOTS))
+        if tiered else vt)
+    tab.preload(range(1, deepfm.VOCAB))
+    if vt.stats()['free'] != 0:
+        raise AssertionError('the preloaded vocab is not full: %r'
+                             % (vt.stats(),))
+    return tab
+
+
+def _push_lags(router, pub):
+    """Wrap router.push_deltas: each push's freshness lag (its end minus
+    the oldest touch it carries, the publisher's own measure) and ms."""
+    real, pushes = router.push_deltas, []
+
+    def push_deltas(model_id, deltas):
+        oldest = pub._oldest_touch
+        t0 = time.perf_counter()
+        n = real(model_id, deltas)
+        pushes.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                           lag_s=time.monotonic() - oldest, rows=n))
+        return n
+
+    router.push_deltas = push_deltas
+    return pushes
+
+
+def _quiet_threads(before, timeout=30.0):
+    """Wait until no thread but those in `before` is alive: the prefetch
+    worker a train_stream leaves behind finishes its last translation
+    (it is not joined on an early return)."""
+    import threading
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if not [t for t in threading.enumerate() if t not in before]:
+            return
+        time.sleep(0.01)
+    raise AssertionError('a train_stream worker is still alive after %.0f s'
+                         % timeout)
+
+
+def _tier_leg(tr, tab, router, tiered):
+    """TIER_WARM steps (warm-up and capture), then TIER_STEPS timed steps
+    of the stream through train_stream with a DeltaPublisher into the
+    router. Returns (launch counts of the timed steps, the record, the
+    reader's state)."""
+    import threading
+    import torch
+    from paddle_tpu_torch import streaming
+    from paddle_tpu_torch.models import deepfm
+    from paddle_tpu_torch.obs.report import percentile_exact
+    threads = set(threading.enumerate())
+    state = {'t': 0, 'rng': np.random.RandomState(SEED)}
+    reader = tier_reader(state, TIER_UNIVERSE, deepfm.NUM_FIELDS)
+    pub = streaming.DeltaPublisher(router, 'deepfm',
+                                   interval_steps=STREAM_PUBLISH_EVERY)
+    vocabs = {'feat_ids': tab}
+    tr.train_stream(reader, vocabs=vocabs, publisher=pub,
+                    max_steps=TIER_WARM)
+    real_push = router.push_deltas
+    pushes = _push_lags(router, pub)
+    captures0 = tr.exe.cache_stats['captures']
+    vt = tab.vocab if tiered else tab
+    st0 = vt.stats()
+    if tiered:
+        tier0 = dict(hits=tab.tier_hits, misses=tab.tier_misses,
+                     spilled=tab.spilled, restored=tab.restored,
+                     dropped=tab.dropped_full,
+                     waits=tab._spiller.host_waits,
+                     restore_i=len(tab.restore_ms_samples),
+                     spill_i=len(tab.spill_ms_samples))
+        split = [(tab, 'apply_step_boundary', 'tier boundary'),
+                 (tab._spiller, 'spill', 'spill: gather, copy, wait, zero'),
+                 (tab.arena, 'put_many', 'arena put_many'),
+                 (tab._restorer, 'restore', 'restore: scatter'),
+                 (tab.arena, 'discard_many', 'arena discard_many'),
+                 (tab, 'translate', 'translate (worker)')]
+    else:
+        split = [(streaming.RowResetter, 'reset', 'row resets'),
+                 (vt, 'translate', 'translate (worker)')]
+    split += [(tr.exe, 'run', 'Executor.run')]
+    _reset_launch_counts()
+    try:
+        with _spans('trainer.step') as sp, _timed_calls(split) as calls:
+            t1 = time.perf_counter()
+            n = tr.train_stream(reader, vocabs=vocabs, publisher=pub,
+                                max_steps=TIER_STEPS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+    finally:
+        router.push_deltas = real_push
+    _quiet_threads(threads)
+    launches = _launch_counts()
+    st1 = vt.stats()
+    captures1 = tr.exe.cache_stats['captures']
+    want = dict.fromkeys(launches, 0)
+    want['sparse_adam'] = 2 * TIER_STEPS
+    if n != TIER_STEPS or launches != want:
+        raise AssertionError('the %s leg ran %d steps and launched %r; the '
+                             'path must launch %r' % (
+                                 'tiered' if tiered else 'plain', n,
+                                 launches, want))
+    if captures1 != captures0 or captures0 != 1:
+        raise AssertionError('captures %d before the stream, %d after'
+                             % (captures0, captures1))
+    step_s = _secs(sp['trainer.step'])
+    lags = [p['lag_s'] for p in pushes]
+    rec = dict(
+        steps=n, wall_s=wall, steps_per_s=n / wall,
+        median_step_ms=float(np.median(step_s)) * 1e3,
+        admitted_per_step=(st1['rows_admitted'] - st0['rows_admitted']) / n,
+        evicted_per_step=(st1['rows_evicted'] - st0['rows_evicted']) / n,
+        sparse_adam_per_step=launches['sparse_adam'] / n,
+        captures_before=captures0, captures_after=captures1,
+        pushes=len(pushes), push_ms=[p['ms'] for p in pushes],
+        freshness_lag_s=lags,
+        median_freshness_lag_s=float(np.median(lags)) if lags else None,
+        host_split_ms_per_step={k: v[0] * 1e3 / n for k, v in calls.items()},
+        host_split_calls={k: v[1] for k, v in calls.items()})
+    if not pushes or not rec['evicted_per_step'] > 0:
+        raise AssertionError('the timed steps evicted %.1f rows a step in %d '
+                             'pushes' % (rec['evicted_per_step'], len(pushes)))
+    if tiered:
+        hits = tab.tier_hits - tier0['hits']
+        misses = tab.tier_misses - tier0['misses']
+        restore_ms = tab.restore_ms_samples[tier0['restore_i']:]
+        spill_ms = tab.spill_ms_samples[tier0['spill_i']:]
+        waits = tab._spiller.host_waits - tier0['waits']
+        arena_bytes = os.path.getsize(os.path.join(tab.arena.path,
+                                                   'arena.npy'))
+        rec.update(
+            hit_rate=hits / float(max(1, hits + misses)),
+            hit_rate_cumulative=tab.hit_rate(), tier_hits=hits,
+            tier_misses=misses, spilled=tab.spilled - tier0['spilled'],
+            restored=tab.restored - tier0['restored'],
+            dropped_full=tab.dropped_full - tier0['dropped'],
+            restore_p50_ms=percentile_exact(restore_ms, 50),
+            restore_p99_ms=percentile_exact(restore_ms, 99),
+            spill_p50_ms=percentile_exact(spill_ms, 50),
+            spill_p99_ms=percentile_exact(spill_ms, 99),
+            boundaries_with_spills=len(spill_ms),
+            host_waits=waits,
+            host_waits_per_boundary=waits / float(max(1, len(spill_ms))),
+            boundary_share_of_step=(
+                calls['tier boundary'][0] / wall),
+            arena_file_bytes=arena_bytes, arena=tab.arena.stats())
+        if rec['spilled'] <= 0 or rec['restored'] <= 0 or \
+                rec['dropped_full'] or waits != len(spill_ms):
+            raise AssertionError('the tiered leg spilled %d, restored %d, '
+                                 'dropped %d, waited %d times at %d '
+                                 'spilling boundaries' % (
+                                     rec['spilled'], rec['restored'],
+                                     rec['dropped_full'], waits,
+                                     len(spill_ms)))
+    else:
+        rec['boundary_share_of_step'] = calls['row resets'][0] / wall
+    return launches, rec, state
+
+
+def _tier_resume(tr, tab, state, router, ckpt, arena_dir):
+    """(c) a SIGTERM at a boundary of the tiered leg, sent by the reader as
+    it hands over the batch after the STREAM_PREEMPT_AT-th step: that
+    batch is translated (its admissions and evictions are the tier's
+    pending ops, its warm ids staged) and never trained. The emergency
+    serial holds the vocab, the spill map and those pending ops, equal to
+    the live table's; the trainer then runs TIER_RESUME_STEPS more batches
+    (the uninterrupted run: its first boundary applies the pending ops
+    from the staged rows), and a fresh Trainer over the dir with a fresh
+    host_arena over the same directory resumes the same map and spill map
+    (the directory's manifest too), every persistable bitwise, and runs
+    the same batches bitwise the uninterrupted run: losses, persistables
+    and the tier's state, its spilled ids by their CRC32 (the two arenas
+    hand out free slots in other orders: the uninterrupted one never
+    reuses a slot the serial references before a checkpoint commits).
+    Both trainers run these steps with double_buffer off: on an early
+    return the prefetch worker, released by the queue's drain, translates
+    one more batch after the serial is written (reader/pipeline.py, as in
+    the JAX package), so the live table would run a batch ahead of the
+    serial at a moment no check can pin down: the resumed run reads its
+    pending ops from the arena, the uninterrupted one from the rows the
+    translation staged."""
+    import signal
+    import torch
+    import warnings
+    from paddle_tpu_torch import fluid, streaming
+    from paddle_tpu_torch.models import deepfm
+    stream = tier_reader(state, TIER_UNIVERSE, deepfm.NUM_FIELDS)
+
+    def reader():
+        for i, batch in enumerate(stream()):
+            if i == STREAM_PREEMPT_AT:
+                os.kill(os.getpid(), signal.SIGTERM)
+            yield batch
+
+    pub = streaming.DeltaPublisher(router, 'deepfm',
+                                   interval_steps=STREAM_PUBLISH_EVERY)
+    tr.double_buffer = False
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        n = tr.train_stream(reader, vocabs={'feat_ids': tab}, publisher=pub,
+                            max_steps=STREAM_CHECK_STEPS)
+    if not tr.preempted or n != STREAM_PREEMPT_AT or not any(
+            'emergency checkpoint flushed' in str(w.message)
+            for w in caught):
+        raise AssertionError('no preemption at the %d-th boundary: %d steps'
+                             % (STREAM_PREEMPT_AT, n))
+    serial, sdir, meta = _newest_serial(fluid, ckpt)
+    saved = (meta['trainer_args'].get('streaming_vocab') or {}).get(
+        'feat_ids') or {}
+    live = json.loads(json.dumps(tab.state_dict()))
+    if not meta['trainer_args'].get('preempted') or \
+            not saved.get('tiered') or saved != live or \
+            not saved['arena']['entries'] or not saved['ops']:
+        raise AssertionError('the emergency serial %d does not hold the live '
+                             'tiered vocab (tiered %r, %d spilled ids, equal '
+                             'to the live table: %r)' % (
+                                 serial, saved.get('tiered'),
+                                 len((saved.get('arena') or {}).get(
+                                     'entries', [])), saved == live))
+    at_preemption = _trainer_state(tr)
+    more = list(itertools.islice(stream(), TIER_RESUME_STEPS))
+
+    def run_more(trainer, table):
+        losses = []
+        trainer.train_stream(
+            lambda: iter(more), vocabs={'feat_ids': table},
+            event_handler=lambda ev: losses.append(
+                np.asarray(ev.metrics[0]).tobytes())
+            if isinstance(ev, fluid.EndStepEvent) else None)
+        sd = json.loads(json.dumps(table.state_dict()))
+        sd['arena']['entries'] = sorted(
+            (raw, crc) for raw, _, crc in sd['arena']['entries'])
+        return losses, _trainer_state(trainer), sd
+
+    want = run_more(tr, tab)
+    t0 = time.perf_counter()
+    tr2 = stream_trainer({}, checkpoint_config=fluid.CheckpointConfig(
+        checkpoint_dir=ckpt, step_interval=10 ** 9))
+    tab2 = streaming.TieredVocabTable(
+        streaming.VocabTable(deepfm.VOCAB, table='fm_embed',
+                             admit_count=TIER_ADMIT),
+        streaming.host_arena(arena_dir, slots=TIER_SLOTS))
+    tr2.train_stream(lambda: iter(()), vocabs={'feat_ids': tab2})
+    resume_s = time.perf_counter() - t0
+    with open(os.path.join(tab2.arena.path, 'manifest.json')) as f:
+        manifest = json.load(f)
+    got_sd = json.loads(json.dumps(tab2.state_dict()))
+    if got_sd != saved or sorted(map(tuple, manifest['entries'])) != \
+            sorted(map(tuple, saved['arena']['entries'])):
+        raise AssertionError('the resumed tier differs from the serial\'s '
+                             '(map equal: %r, manifest equal: %r)' % (
+                                 got_sd == saved,
+                                 sorted(map(tuple, manifest['entries']))
+                                 == sorted(map(tuple,
+                                               saved['arena']['entries']))))
+    got = _trainer_state(tr2)
+    differ = [k for k, t in at_preemption.items()
+              if not torch.equal(got[k], t)]
+    if sorted(got) != sorted(at_preemption) or differ:
+        raise AssertionError('the resumed state differs in %r' % differ[:8])
+    resumed = run_more(tr2, tab2)
+    differ = [k for k, t in want[1].items()
+              if not torch.equal(resumed[1][k], t)]
+    if resumed[0] != want[0] or differ or resumed[2] != want[2]:
+        first = [i for i, (a, b) in enumerate(zip(resumed[0], want[0]))
+                 if a != b][:1]
+        raise AssertionError(
+            'the resumed run differs from the uninterrupted one: losses '
+            'first at step %r, persistables %r, tier keys %r' % (
+                first, differ[:8],
+                [k for k in want[2] if resumed[2].get(k) != want[2][k]]))
+    ops = [k for k, _, _ in saved['ops']]
+    log('[tier] (c) SIGTERM at a boundary: emergency serial %d holds the '
+        'vocab (%d residents), the spill map (%d ids) and %d pending ops '
+        '(%d spills, %d restores) of the batch translated and never trained, '
+        'equal to the live table; a fresh Trainer and host_arena resumed '
+        'them (the manifest too) and all %d persistables bitwise in %.3f s; '
+        '%d more steps bitwise the uninterrupted run (losses, persistables, '
+        'tier state)' % (serial, len(saved['vocab']['entries']),
+                         len(saved['arena']['entries']), len(ops),
+                         ops.count('spill'), ops.count('restore'),
+                         len(got), resume_s, TIER_RESUME_STEPS))
+    del tr2, tab2
+    _release()
+    return dict(serial=serial, spilled_ids=len(saved['arena']['entries']),
+                pending_ops=len(ops), pending_spills=ops.count('spill'),
+                pending_restores=ops.count('restore'), resume_s=resume_s,
+                more_steps=TIER_RESUME_STEPS)
+
+
+def _tier_drill_funcs():
+    """bench.py:939-950's net (bench_tiered) at DeepFM's field count: one
+    is_sparse `emb_w` of TIER_DRILL_UNIVERSE + 1 rows (Constant(0): a
+    zeroed row equals a never-trained one), an fc to 1, reduce_sum,
+    squared loss, Adam(TIER_DRILL_LR)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import deepfm
+
+    def train_func():
+        fluid.default_main_program().random_seed = SEED
+        fluid.default_startup_program().random_seed = SEED
+        ids = fluid.layers.data(name='ids', shape=[deepfm.NUM_FIELDS, 1],
+                                dtype='int64')
+        label = fluid.layers.data(name='label', shape=[1], dtype='float32')
+        emb = fluid.layers.embedding(
+            ids, size=[TIER_DRILL_UNIVERSE + 1, CTR_EMBED_DIM],
+            is_sparse=True, param_attr=fluid.ParamAttr(
+                name='emb_w', initializer=fluid.initializer.Constant(0.0)))
+        pred = fluid.layers.fc(input=emb, size=1, num_flatten_dims=2,
+                               param_attr=fluid.ParamAttr(name='fc_w'))
+        score = fluid.layers.reduce_sum(pred, dim=1)
+        return [fluid.layers.mean(fluid.layers.square(score - label))]
+
+    return train_func, lambda: fluid.optimizer.Adam(
+        learning_rate=TIER_DRILL_LR)
+
+
+def _tier_drill(arena_dir):
+    """(b) the JAX tests/test_tiers.py:513 drill at chip size: three legs
+    over the same TIER_DRILL_STEPS batches from the same start weights,
+    double_buffer off (every leg makes the same vocab decisions): a
+    reference whose capacity covers every id the batches hold, tiered at
+    TIER_DRILL_CAP, plain at TIER_DRILL_CAP. The tiered losses are bitwise
+    the reference's at every step, the plain leg diverges, the tier
+    spilled >= 3 and restored >= 1, and no leg captures in its second
+    half."""
+    import torch
+    from paddle_tpu_torch import fluid, streaming
+    from paddle_tpu_torch.models import deepfm
+    state = {'t': 0, 'rng': np.random.RandomState(SEED + 1)}
+    batches = list(itertools.islice(tier_reader(
+        state, TIER_DRILL_UNIVERSE, deepfm.NUM_FIELDS, float_label=True)(),
+        TIER_DRILL_STEPS))
+    seen = len({int(i) for b in batches for ids, _ in b
+                for i in ids.reshape(-1)})
+    train_func, optimizer_func = _tier_drill_funcs()
+    start = None
+    legs = {}
+    for leg in ('reference', 'tiered', 'plain'):
+        tr = fluid.Trainer(train_func=train_func,
+                           optimizer_func=optimizer_func,
+                           place=fluid.CUDAPlace(0), double_buffer=False)
+        if start is None:
+            start = _trainer_state(tr)
+        else:
+            with torch.no_grad():
+                for k, t in start.items():
+                    tr.scope.vars[k].copy_(t)
+        cap = seen + 1 if leg == 'reference' else TIER_DRILL_CAP
+        vt = streaming.VocabTable(cap, table='emb_w', admit_count=1)
+        tab = (streaming.TieredVocabTable(
+            vt, streaming.HostArena(os.path.join(arena_dir, 'drill'),
+                                    TIER_DRILL_UNIVERSE))
+            if leg == 'tiered' else vt)
+        losses, captures = [], []
+        half = TIER_DRILL_STEPS // 2
+        for part in (batches[:half], batches[half:]):
+            tr.train_stream(
+                lambda part=part: iter(part), vocabs={'ids': tab},
+                event_handler=lambda ev: losses.append(
+                    np.asarray(ev.metrics[0]).copy())
+                if isinstance(ev, fluid.EndStepEvent) else None)
+            captures.append(tr.exe.cache_stats['captures'])
+        if captures[1] != captures[0] or len(losses) != TIER_DRILL_STEPS:
+            raise AssertionError('the %s leg captured %r in its halves, %d '
+                                 'losses' % (leg, captures, len(losses)))
+        legs[leg] = (losses, tab, vt.stats())
+        del tr
+        _release()
+    ref, tiered, plain = (legs[k][0] for k in ('reference', 'tiered',
+                                               'plain'))
+    tab = legs['tiered'][1]
+    differ = [i for i, (a, b) in enumerate(zip(ref, tiered))
+              if not np.array_equal(a, b)]
+    diverged = [i for i, (a, b) in enumerate(zip(ref, plain))
+                if not np.array_equal(a, b)]
+    if differ or not diverged or tab.spilled < 3 or tab.restored < 1 or \
+            legs['reference'][2]['rows_evicted']:
+        raise AssertionError(
+            'the drill: tiered differs from the reference at steps %r, the '
+            'plain leg diverges at %r, spilled %d, restored %d, reference '
+            'evictions %d' % (differ[:8], diverged[:8], tab.spilled,
+                              tab.restored,
+                              legs['reference'][2]['rows_evicted']))
+    rec = dict(steps=TIER_DRILL_STEPS, ids_seen=seen,
+               reference_capacity=seen + 1, capacity=TIER_DRILL_CAP,
+               spilled=tab.spilled, restored=tab.restored,
+               hit_rate=tab.hit_rate(),
+               plain_first_divergence=diverged[0],
+               plain_max_loss_diff=float(max(
+                   abs(float(a.reshape(-1)[0]) - float(b.reshape(-1)[0]))
+                   for a, b in zip(ref, plain))))
+    log('[tier] (b) the drill: %d steps of %d ids over %d distinct; the '
+        'tiered leg at capacity %d (spilled %d, restored %d, hit rate %.4f) '
+        'bitwise the reference (capacity %d) at every step; the plain leg '
+        'first diverges at step %d (max |loss diff| %.6g); no capture in '
+        'any second half' % (
+            TIER_DRILL_STEPS, CTR_BATCH * deepfm.NUM_FIELDS, seen,
+            TIER_DRILL_CAP, tab.spilled, tab.restored, tab.hit_rate(),
+            seen + 1, diverged[0], rec['plain_max_loss_diff']))
+    return rec
+
+
+def _tier_report(path):
+    """(d) the phase's run log through the port's obs.report: no malformed
+    record, the streaming and tiers sections printed; tools/slo_budgets.json
+    graded over the process's registry, each key ok, violation or missing;
+    a violation fails."""
+    from paddle_tpu_torch import obs
+    from paddle_tpu_torch.obs import report, slo
+    events, errors = report.load_events(path)
+    if errors or not events:
+        raise AssertionError('the run log holds %d malformed record(s): %r'
+                             % (len(errors), errors[:3]))
+    text = report.summarize(events)
+    lines = text.splitlines()
+    sections = {}
+    for head in ('-- streaming --', '-- tiers --'):
+        if head not in lines:
+            raise AssertionError('the report has no %s section:\n%s'
+                                 % (head, text))
+        i = lines.index(head)
+        j = i + 1
+        while j < len(lines) and lines[j].strip():
+            j += 1
+        sections[head] = lines[i:j]
+        for line in lines[i:j]:
+            log('[tier] (d) %s' % line)
+    budgets = slo.SloBudget.from_file(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), 'tools',
+        'slo_budgets.json'))
+    res = budgets.evaluate(registry=obs.REGISTRY, events=events)
+    for line in res.lines():
+        log('[tier] (d) %s' % line)
+    if res.violations:
+        raise AssertionError('SLO violations: %r' % (res.violations,))
+    return dict(records=len(events), malformed=len(errors),
+                sections=sections,
+                slo_ok={b: m for b, _, m in res.ok},
+                slo_missing=[m.budget for m in res.missing])
+
+
+def _tier_legs(tmp):
+    """(a) the tiered leg (the phase's main path: its launch counts) and the
+    plain leg over the same stream, one Router of two replicas between
+    them; (c) on the tiered leg's trainer, with the run log on."""
+    from paddle_tpu_torch import fluid, obs
+    held, ckpt = {}, os.path.join(tmp, 'ckpt')
+    arena_dir = os.path.join(tmp, 'arena')
+    t0 = time.perf_counter()
+    tr = stream_trainer(held, double_buffer=True,
+                        checkpoint_config=fluid.CheckpointConfig(
+                            checkpoint_dir=ckpt, step_interval=10 ** 9))
+    router, engines, _ = _stream_serving(tr, held, tmp)
+    tab = _tier_vocab(True, arena_dir)
+    build_s = time.perf_counter() - t0
+    try:
+        launches, tiered, state = _tier_leg(tr, tab, router, True)
+        obs.enable(os.path.join(tmp, 'obs'))
+        try:
+            tiered['preemption'] = _tier_resume(tr, tab, state, router,
+                                                ckpt, arena_dir)
+            path = obs.run_log_path()
+        finally:
+            obs.disable()
+        del tr, tab
+        _release()
+        tr = stream_trainer({}, double_buffer=True)
+        _, plain, _ = _tier_leg(tr, _tier_vocab(False, None), router, False)
+        del tr
+        if not router.shutdown():
+            raise AssertionError('a replica did not shut down')
+    finally:
+        router.shutdown(drain=False, timeout=60)
+    _release()
+    tiered['build_s'] = build_s
+    return launches, tiered, plain, path
+
+
+def phase_tier():
+    """Phase 7j: (a) full-width DeepFM through train_stream over a
+    TieredVocabTable against a plain VocabTable on bench_tiered's stream,
+    (b) the bitwise drill, (c) preemption and resume of the tiered leg,
+    (d) the run log's report and the SLO budgets. Returns {'tier': launch
+    counts of (a)'s timed tiered steps}."""
+    import torch
+    from paddle_tpu_torch import obs
+    t0 = time.perf_counter()
+    rec = {}
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_tier_') as tmp:
+        launches, rec['tiered'], rec['plain'], path = _tier_legs(tmp)
+        a, b = rec['tiered'], rec['plain']
+        log('[tier] (a) tiered: %d timed steps at %.1f steps/s (plain %.1f, '
+            'ratio %.3f); trainer.step median %.3f ms (plain %.3f); %.1f '
+            'rows admitted and %.1f evicted a step; hit rate %.4f over the '
+            'timed steps (%.4f with the preload); spilled %d, restored %d, '
+            'dropped_full %d; %d sparse_adam launches a step; captures %d '
+            'before, %d after' % (
+                a['steps'], a['steps_per_s'], b['steps_per_s'],
+                a['steps_per_s'] / b['steps_per_s'], a['median_step_ms'],
+                b['median_step_ms'], a['admitted_per_step'],
+                a['evicted_per_step'], a['hit_rate'],
+                a['hit_rate_cumulative'], a['spilled'], a['restored'],
+                a['dropped_full'], a['sparse_adam_per_step'],
+                a['captures_before'], a['captures_after']))
+        log('[tier] (a) restore ms p50 %.3f p99 %.3f; spill ms p50 %.3f p99 '
+            '%.3f; %.2f host waits a spilling boundary (%d boundaries); the '
+            'boundary %.1f%% of the tiered leg\'s wall (plain resets %.1f%%);'
+            ' arena file %d bytes; freshness lag median %.4f s (plain %.4f)'
+            % (a['restore_p50_ms'], a['restore_p99_ms'], a['spill_p50_ms'],
+               a['spill_p99_ms'], a['host_waits_per_boundary'],
+               a['boundaries_with_spills'],
+               100.0 * a['boundary_share_of_step'],
+               100.0 * b['boundary_share_of_step'], a['arena_file_bytes'],
+               a['median_freshness_lag_s'], b['median_freshness_lag_s']))
+        for tag, r in (('tiered', a), ('plain', b)):
+            log('[tier] (a) %s host ms a step: %s' % (tag, ', '.join(
+                '%s %.3f' % kv for kv in r['host_split_ms_per_step'].items())))
+        rec['drill'] = _tier_drill(os.path.join(tmp, 'arena'))
+        rec['report'] = _tier_report(path)
+    torch.cuda.synchronize()
+    rec['seconds'] = time.perf_counter() - t0
+    rec['card'] = nvidia_smi_line()
+    log('[tier] phase 7j took %.1f s' % rec['seconds'])
+    log(json.dumps({'tier': rec}, default=float))
+    return {'tier': launches}
+
+
 # -- phase 8 ----------------------------------------------------------------
 
 def _to_host(tensors):
@@ -7758,6 +8380,7 @@ def main():
                         ('trainer', phase_trainer),
                         ('stream', phase_stream),
                         ('serving_stream', phase_serving_stream),
+                        ('tier', phase_tier),
                         ('captured', phase_captured)):
         _between_phases(name)
         counts = phase()

@@ -45,13 +45,47 @@ def grad_var_name(name):
     return name + GRAD_VAR_SUFFIX
 
 
+def normalize_sharding(spec):
+    """Normalize a sharding annotation into the canonical per-dim tuple (the
+    JAX :49): each entry is a mesh-axis name, None (replicated dim) or a
+    tuple of axis names; a bare string means dim 0 over that axis. Returns
+    None for None. The port runs no sharded program: the annotation is
+    inert metadata that the tier store's dim-sharding refusal reads."""
+    if spec is None:
+        return None
+    if isinstance(spec, str):
+        spec = (spec,)
+    if not isinstance(spec, (list, tuple)):
+        raise ValueError(
+            'sharding must be a tuple of mesh-axis names / None / '
+            'axis-name tuples, got %r' % (spec,))
+    out = []
+    for e in spec:
+        if e is None:
+            out.append(None)
+        elif isinstance(e, str):
+            out.append(e)
+        elif (isinstance(e, (list, tuple)) and e
+              and all(isinstance(a, str) for a in e)):
+            out.append(tuple(e))
+        else:
+            raise ValueError(
+                'bad sharding entry %r in %r: each dim is an axis name, '
+                'None, or a non-empty tuple of axis names' % (e, spec))
+    return tuple(out)
+
+
 class Variable(object):
     """A named tensor in a Block. Reference framework.py:142.
 
     Holds static metadata only (shape may contain -1 for the batch dim);
-    values live in a Scope as torch tensors at run time. Serialized keys
-    this port does not act on (a JAX artifact's `sharding`/`tiered`) are
-    accepted and dropped."""
+    values live in a Scope as torch tensors at run time. `sharding` (a JAX
+    artifact's GSPMD annotation) is kept as inert metadata: the port runs
+    no sharded program, but a tiered table refuses a sharded embedding
+    dim from it (embedding.tiers). `tiered` marks a table that a tier
+    store fronts (TieredVocabTable.validate_program stamps it). Both
+    serialize only when set, as in the JAX package; other keys the port
+    does not act on are accepted and dropped."""
 
     def __init__(self,
                  block,
@@ -63,11 +97,15 @@ class Variable(object):
                  stop_gradient=False,
                  is_data=False,
                  type=None,
+                 sharding=None,
+                 tiered=False,
                  **kwargs):
         self.block = block
         if name is None:
             name = unique_name.generate('_generated_var')
         self.name = name
+        self.sharding = normalize_sharding(sharding)
+        self.tiered = bool(tiered)
         self.shape = tuple(int(d) for d in shape) if shape is not None else None
         if self.shape is not None and DYN_DIM in self.shape:
             raise ValueError(
@@ -98,13 +136,19 @@ class Variable(object):
         return tensor.cast(self, dtype)
 
     def _to_dict(self):
-        return dict(name=self.name,
-                    shape=list(self.shape) if self.shape is not None else None,
-                    dtype=self.dtype, lod_level=self.lod_level,
-                    persistable=self.persistable,
-                    stop_gradient=self.stop_gradient,
-                    is_data=self.is_data, type=self.type,
-                    cls=type(self).__name__)
+        d = dict(name=self.name,
+                 shape=list(self.shape) if self.shape is not None else None,
+                 dtype=self.dtype, lod_level=self.lod_level,
+                 persistable=self.persistable,
+                 stop_gradient=self.stop_gradient,
+                 is_data=self.is_data, type=self.type,
+                 cls=type(self).__name__)
+        if self.sharding is not None:
+            d['sharding'] = [list(e) if isinstance(e, tuple) else e
+                             for e in self.sharding]
+        if self.tiered:
+            d['tiered'] = True
+        return d
 
 
 class Parameter(Variable):

@@ -473,7 +473,12 @@ class Trainer(object):
         drifts (on the card one capture serves the whole stream), and
         with an identity map the trained state is bitwise the
         un-streamed loop's. The vocab serializes into every checkpoint's
-        meta and a resumed Trainer restores it here, once.
+        meta and a resumed Trainer restores it here, once. A tiered
+        vocab (embedding.TieredVocabTable) owns its boundary instead:
+        evictions SPILL the rows to its host arena and warm re-admissions
+        RESTORE them, in place in the same tensors, and the rows it
+        changed reach the publisher; its arena recycles released slots
+        after each committed checkpoint.
 
         publisher: a streaming.DeltaPublisher — after each step the
         touched-row set (StepArtifact.touched_rows: host-side, off the
@@ -516,9 +521,16 @@ class Trainer(object):
             # checkpoint-time map would silently mis-map ids to rows
             self._stream_resume_vocab = None
         resetter = RowResetter()
-        reset_names = {fname: table_state_names(self.train_program,
-                                                vt.table)
-                       for fname, vt in vocabs.items() if vt.table}
+        reset_names = {}
+        for fname, vt in vocabs.items():
+            if vt.table:
+                reset_names[fname] = table_state_names(
+                    self.train_program, vt.table)
+                if hasattr(vt, 'validate_program'):
+                    # tiered tables refuse a dim-sharded table TYPED
+                    # (a spill would tear rows across hosts) — before
+                    # any step runs, not on the first eviction
+                    vt.validate_program(self.train_program)
 
         leases = {}   # step_id -> [Lease] (writer: input stage;
         #               reader: the loop after that step completes)
@@ -546,16 +558,37 @@ class Trainer(object):
             # trains their new owners — stale moments would bleed the
             # previous occupant's history into the new id. In place, under
             # the executor's lock and on the stream the steps run on: on
-            # the card these are the captured step's static tensors
+            # the card these are the captured step's static tensors.
+            # A tiered table owns its boundary instead (spill and
+            # restore, in place too) and reports the rows it mutated so
+            # the delta publisher keeps serving replicas converged across
+            # a spill/restore cycle.
+            changed = None
             for fname, vt in vocabs.items():
                 names = reset_names.get(fname)
                 if not names:
+                    continue
+                if hasattr(vt, 'apply_step_boundary'):
+                    ch = vt.apply_step_boundary(
+                        self.scope._chain_get, self.scope._chain_set,
+                        names, lock=self.exe._lock)
+                    if ch:
+                        changed = changed or {}
+                        for t, rows in ch.items():
+                            prev = changed.get(t)
+                            if prev is None:
+                                changed[t] = rows
+                            else:
+                                changed[t] = sorted(
+                                    {int(r) for r in prev}
+                                    | {int(r) for r in rows})
                     continue
                 rows = vt.drain_resets()
                 if rows:
                     resetter.reset([self.scope._chain_get(n)
                                     for n in names], rows,
                                    lock=self.exe._lock)
+            return changed
 
         steps_run = 0
         self.preempted = False
@@ -583,7 +616,7 @@ class Trainer(object):
                         if self._preempt_requested:
                             self._finish_preemption(last_done)
                             return steps_run
-                        apply_resets()
+                        tier_changed = apply_resets()
                         begin = BeginStepEvent(0, step_id)
                         event_handler(begin)
                         want = fetch if begin.fetch_metrics else []
@@ -602,7 +635,8 @@ class Trainer(object):
                             lease.release()
                         if publisher is not None:
                             self._stream_publish(publisher, fed, want,
-                                                 warned_dense, vocabs)
+                                                 warned_dense, vocabs,
+                                                 extra_rows=tier_changed)
                         if cfg:
                             due = (step_id > 0 and step_id
                                    % cfg.step_interval == 0)
@@ -614,6 +648,13 @@ class Trainer(object):
                                 self._save_checkpoint(0, step_id,
                                                       force=True)
                                 last_ckpt_t = time.monotonic()
+                                for vt in vocabs.values():
+                                    if hasattr(vt, 'mark_checkpoint'):
+                                        # a committed serial no longer
+                                        # references slots released
+                                        # before it: recycle the
+                                        # arena's limbo list
+                                        vt.mark_checkpoint()
                         event_handler(EndStepEvent(0, step_id, metrics))
                         if self._preempt_requested:
                             self._finish_preemption(last_done)
@@ -629,10 +670,13 @@ class Trainer(object):
             self._stream_vocabs = None
             self._stream_art = None
 
-    def _stream_publish(self, publisher, fed, fetch, warned_dense, vocabs):
+    def _stream_publish(self, publisher, fed, fetch, warned_dense, vocabs,
+                        extra_rows=None):
         """Collect this step's touched rows (host-side seam) and run the
-        publisher's cadence (the JAX :1031). Serving-side failures warn
-        and retry next cadence."""
+        publisher's cadence (the JAX :1031). `extra_rows` ({table: rows})
+        carries rows the TIER boundary mutated outside the batch — zeroed
+        on spill, scattered on restore — so serving replicas converge on
+        them too. Serving-side failures warn and retry next cadence."""
         # resolve the artifact ONCE per fetch set, not per step: the
         # sparse plan does not depend on the batch, and _prepare would
         # coerce the whole feed again just to read metadata
@@ -660,6 +704,15 @@ class Trainer(object):
                     'and row eviction is unsafe. Build the lookup with '
                     'is_sparse=True' % (t, fname), RuntimeWarning)
         touched = art.touched_rows(fed)
+        if extra_rows:
+            touched = dict(touched or {})
+            for t, rows in extra_rows.items():
+                merged = {int(r) for r in rows}
+                prev = touched.get(t)
+                if prev is not None:
+                    merged.update(
+                        int(r) for r in np.asarray(prev).reshape(-1))
+                touched[t] = np.asarray(sorted(merged), np.int64)
         if touched:
             publisher.collect(touched)
         try:

@@ -16,6 +16,9 @@ reduced to what this slice uses):
     observability is on, brackets the region with
     torch.profiler.record_function so the same names appear in a
     torch.profiler trace;
+  * the RUN-LOG REPORT (obs.report: validation and the summary
+    tools/obs_report.py prints) and the SLO BUDGETS graded against the
+    registry (obs.slo), both copied from the JAX package;
   * REQUEST TRACING (obs.trace): while a trace context is active, a span
     joins it (a completed-span record in the trace buffer, and
     `trace`/`tspan`/`tparent` keys on its run-log record) and becomes the
@@ -31,13 +34,15 @@ import threading
 import time
 
 from . import metrics  # noqa: F401
+from . import report  # noqa: F401
 from . import runlog as _runlog
+from . import slo  # noqa: F401
 from . import trace  # noqa: F401
 from .metrics import REGISTRY, counter, gauge, histogram  # noqa: F401
 
-__all__ = ['metrics', 'trace', 'REGISTRY', 'counter', 'gauge', 'histogram',
-           'enabled', 'obs_dir', 'enable', 'disable', 'event', 'span',
-           'span_record', 'run_log_path', 'ENV_DIR']
+__all__ = ['metrics', 'report', 'slo', 'trace', 'REGISTRY', 'counter',
+           'gauge', 'histogram', 'enabled', 'obs_dir', 'enable', 'disable',
+           'event', 'span', 'span_record', 'run_log_path', 'ENV_DIR']
 
 ENV_DIR = 'PADDLE_TPU_OBS_DIR'
 

@@ -144,8 +144,7 @@ class VocabTable(object):
         self._pending_order = collections.deque()
         self._resets = []                # evicted rows awaiting zeroing
         # admission/eviction MOVE log for the tier store
-        # (the JAX package's embedding.tiers.TieredVocabTable, not ported
-        # yet): disabled by default so a
+        # (embedding.tiers.TieredVocabTable): disabled by default so a
         # plain table never accumulates an undrained list
         self._log_moves = False
         self._moves = []                 # [('admit'|'evict', raw, row)]
@@ -340,8 +339,7 @@ class VocabTable(object):
     def drain_moves(self):
         """Ordered admission/eviction moves since the last drain —
         empty unless `_log_moves` was switched on by the tier store
-        (the JAX package's `embedding.tiers.TieredVocabTable`, not
-        ported yet), which turns evictions
+        (`embedding.tiers.TieredVocabTable`), which turns evictions
         into SPILLS and warm admissions into RESTORES."""
         with self._lock:
             out, self._moves = self._moves, []

@@ -52,7 +52,10 @@ artifact: the flash-attention forward operator against its plain version
 call; a Transformer artifact exported and loaded on the card against the
 same one exported on the CPU (1e-4 of max(1, |logit|)), captured once;
 abort, resume and decode push_rows reaching the next replay with the
-captures unchanged.
+captures unchanged. Tiered embedding storage: the spill and restore on CUDA
+tensors in place and bitwise the CPU path, a pinned restore buffer
+surviving a non_blocking copy, and a tiered stream keeping its one
+capture, against the same stream on the CPU (1e-5).
 """
 import contextlib
 import importlib
@@ -2995,3 +2998,133 @@ def test_abort_resume_and_push_rows_reach_the_next_replay(card):
         fresh.shutdown()
     np.testing.assert_array_equal(pushed[0], want2[0])
     np.testing.assert_allclose(pushed[1], want2[1], rtol=1e-6, atol=1e-6)
+
+
+# -- tiered embedding storage ---------------------------------------------------
+
+def _tier_tensors(device, seed=0, cap=64, dim=10):
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy(rng.randn(cap, dim).astype('float32')).to(device)
+            for _ in range(3)]
+
+
+def test_tier_spill_and_restore_act_in_place_bitwise_the_cpu(card):
+    """RowSpiller on CUDA tensors: the gathered rows bitwise the CPU
+    path's, the rows zeroed in the same tensors (data_ptr unchanged), one
+    host wait for the one copy; RowRestorer writes other values back in
+    place, bitwise the CPU path."""
+    from paddle_tpu_torch.embedding import tiers
+    rows = [3, 17, 40, 5, 63, 0, 17]
+    gpu, cpu = _tier_tensors(card), _tier_tensors('cpu')
+    ptrs = [t.data_ptr() for t in gpu]
+    sp_g, sp_c = tiers.RowSpiller(), tiers.RowSpiller()
+    _, got = sp_g.spill(gpu, rows, lock=contextlib.nullcontext())
+    _, want = sp_c.spill(cpu, rows)
+    assert sp_g.host_waits == 1 and sp_c.host_waits == 0
+    assert sorted(got) == sorted(want) == sorted(set(rows))
+    for r in want:
+        for g, w in zip(got[r], want[r]):
+            np.testing.assert_array_equal(g, w)
+    assert [t.data_ptr() for t in gpu] == ptrs
+    for g, c in zip(gpu, cpu):
+        np.testing.assert_array_equal(g.cpu().numpy(), c.numpy())
+        assert not g[torch.as_tensor(rows, device=card)].any()
+    back = [1, 17, 33]
+    vals = [np.random.RandomState(9 + i).randn(3, 10).astype('float32')
+            for i in range(3)]
+    tiers.RowRestorer().restore(gpu, back, vals)
+    tiers.RowRestorer().restore(cpu, back, vals)
+    torch.cuda.synchronize()
+    assert [t.data_ptr() for t in gpu] == ptrs
+    for g, c in zip(gpu, cpu):
+        np.testing.assert_array_equal(g.cpu().numpy(), c.numpy())
+
+
+def test_tier_restore_pinned_buffer_survives_a_non_blocking_copy(card):
+    """The restore's values cross from memory pinned by pin_memory() with
+    non_blocking=True while the stream is still busy: pinned blocks taken
+    and scribbled on right after (the caching host allocator must not hand
+    the restore's block out before its copy ran) do not reach the table."""
+    from paddle_tpu_torch.embedding import tiers
+    t = torch.zeros(4096, 10, device=card)
+    rows = list(range(0, 4096, 2))
+    vals = np.random.RandomState(4).randn(len(rows), 10).astype('float32')
+    torch.cuda._sleep(200_000_000)         # the stream is busy ~0.1 s
+    tiers.RowRestorer().restore([t], rows, [vals])
+    held = []
+    for _ in range(16):
+        p = torch.empty(len(rows), 1, 10, pin_memory=True)
+        p.fill_(-7.0)
+        held.append(p)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(t[rows].cpu().numpy(), vals)
+    assert not t[1::2].any()
+
+
+def test_tiered_boundary_in_a_captured_stream_adds_no_capture(card,
+                                                              tmp_path):
+    """train_stream on the card over a TieredVocabTable (capacity 32, a
+    stream that cycles through three windows: every step spills, most
+    re-admit warm): one capture for the whole stream, the tables and
+    moments never rebound, and the losses, every persistable (1e-5), the
+    tier counts and the tier state (map, ops, spill slots) equal to the
+    same stream on the CPU."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import streaming
+    from paddle_tpu_torch.models import deepfm
+
+    def trainer(place):
+        return fluid.Trainer(
+            train_func=lambda: [_stream_deepfm(fluid, deepfm)],
+            optimizer_func=lambda: fluid.optimizer.Adam(learning_rate=1e-2),
+            place=place)
+
+    def reader():
+        rng = np.random.RandomState(2)
+        for t in range(15):
+            ids = ((t % 3) * 50 + rng.zipf(1.5, size=(8, 4)) % 40).astype(
+                'int64')
+            lab = rng.randint(0, 2, size=(8, 1)).astype('int64')
+            yield [(ids[i], lab[i]) for i in range(8)]
+
+    names = ['fm_embed', 'moment1_fm_embed_0', 'moment2_fm_embed_0']
+    gpu, cpu = trainer(fluid.CUDAPlace(0)), trainer(fluid.CPUPlace())
+    cpu.scope.load_numpy({n: t.detach().cpu().numpy()
+                          for n, t in gpu.scope.vars.items()},
+                         fluid.CPUPlace())
+    out = {}
+    for tag, tr in (('gpu', gpu), ('cpu', cpu)):
+        tt = streaming.TieredVocabTable(
+            streaming.VocabTable(32, table='fm_embed', admit_count=1),
+            streaming.HostArena(str(tmp_path / tag), 512))
+        losses, ptrs = [], set()
+
+        def handler(ev, tr=tr, losses=losses, ptrs=ptrs):
+            if isinstance(ev, fluid.BeginStepEvent):
+                ptrs.add(tuple(tr.scope.vars[n].data_ptr() for n in names))
+            else:
+                losses.append(float(np.asarray(ev.metrics[0]).reshape(-1)[0]))
+
+        tr.train_stream(reader, event_handler=handler,
+                        vocabs={'feat_ids': tt})
+        out[tag] = (losses, {n: t.detach().cpu().numpy()
+                             for n, t in tr.scope.vars.items()}, tt)
+        if tag == 'gpu':
+            assert tr.exe.cache_stats['captures'] == 1
+            assert len(ptrs) <= 2     # the startup tensors, pinned once
+            assert tt.spilled > 0 and tt.restored > 0
+            assert tt._spiller.host_waits > 0
+    np.testing.assert_allclose(out['gpu'][0], out['cpu'][0], rtol=1e-5,
+                               atol=1e-5)
+    for n, v in out['cpu'][1].items():
+        np.testing.assert_allclose(out['gpu'][1][n], v, rtol=1e-5,
+                                   atol=1e-5, err_msg=n)
+    g, c = out['gpu'][2], out['cpu'][2]
+    assert (g.spilled, g.restored, g.tier_hits, g.tier_misses) == \
+        (c.spilled, c.restored, c.tier_hits, c.tier_misses)
+    # the same map, ops and spill slots; the slots' CRC32s differ with the
+    # rows' last bits (the card and the CPU sum in other orders)
+    gs, cs = g.state_dict(), c.state_dict()
+    for sd in (gs, cs):
+        sd['arena']['entries'] = [e[:2] for e in sd['arena']['entries']]
+    assert gs == cs

@@ -98,6 +98,10 @@ SUBMODULES = [
     # token streaming and the compiled serving artifact: the request
     # trace, the step artifact's exported form
     'paddle_tpu_torch.obs.trace', 'paddle_tpu_torch.fluid.step_artifact',
+    # tiered embedding storage and the run-log report: the tier store,
+    # the report, the SLO budgets, the fault harness
+    'paddle_tpu_torch.embedding.tiers', 'paddle_tpu_torch.obs.report',
+    'paddle_tpu_torch.obs.slo', 'paddle_tpu_torch.utils.faults',
 ]
 
 
