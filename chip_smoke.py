@@ -393,6 +393,36 @@ replay (each graph adds the launches its capture recorded).
                 sections printed) and tools/slo_budgets.json graded over
                 the process's registry (a violation fails). One JSON line
                 {"tier": {...}}.
+  7k. passes  — the pass pipeline and int8 weight quantization (PASSES_*
+                below; PADDLE_TPU_OPT is set only inside this phase). (a)
+                Transformer-base (phase 3's config and 8 requests) with
+                passes.quant_pass.quantize_weights on its inference
+                program, saved by save_inference_model (int8 weights and
+                scales, no fp32 weight) beside the fp32 artifact of the
+                same weights; the int8 Predictor on the card behind a
+                ServingEngine: 18 flash_attention_fwd launches a forward,
+                every answer within 0.05 of max |fp32| of the fp32
+                Predictor's (the JAX tests/test_kernels.py:363-364 bound),
+                one row against the int8 artifact on the CPU (phase 3's
+                tolerance); artifact bytes, the batch-16 replay (int8 and
+                fp32 in turns), kernel records a replay and each graph
+                pool printed. (b) ResNet-50 at batch 32, NCHW (phase 7's
+                get_model; its batch norms' running stats and affine drawn
+                from the seed so the fold moves real numbers), served
+                through Predictor before and after InferenceTranspiler:
+                53 batch norms folded, the outputs within
+                PASSES_FOLD_TOL, kernel records a replay and the replay
+                before and after. (c) Transformer-base training at batch 16
+                (get_model, dropout 0.1), 3 steps from one state at
+                PADDLE_TPU_OPT off and default: losses and every
+                persistable bitwise equal; under decorate_program the AMP
+                pass's step (ctx.amp off, explicit casts) against runtime
+                AMP's: each loss within one bf16 ulp; 18 launches a step of
+                each attention kernel (the bf16 ones under the AMP pass,
+                no fp32 one); the PassReports, kernel records a replay and
+                the replay off against default. (d) no passes.error
+                anywhere in the script (the passes.errors counter is 0 at
+                its end). One JSON line {"passes": {...}}.
   8. captured — each path's captured step against debug_step's eager
                 walk in this call, at full width: Transformer-base
                 training at batch 16 (get_model, dropout 0.1), fp32 and
@@ -536,6 +566,14 @@ KERNEL_PATHS = {
     'paged_attention': ('decode', 'token_decode', 'spec_decode',
                         'token_stream'),
 }
+# phase 7k's paths: the int8 Transformer-base served, its training at
+# PADDLE_TPU_OPT=default, and under the AMP pass
+KERNEL_PATHS['flash_attention_fwd'] += ('int8_serving', 'opt_training')
+KERNEL_PATHS['flash_attention_bwd_dq'] += ('opt_training',)
+KERNEL_PATHS['flash_attention_bwd_dkv'] += ('opt_training',)
+KERNEL_PATHS['flash_attention_fwd_bf16'] += ('amp_opt_training',)
+KERNEL_PATHS['flash_attention_bwd_dq_bf16'] += ('amp_opt_training',)
+KERNEL_PATHS['flash_attention_bwd_dkv_bf16'] += ('amp_opt_training',)
 
 # the paged decode attention against its plain version: an online softmax
 # over pages against one softmax over the gathered rows; the Pallas
@@ -878,6 +916,21 @@ TIER_DRILL_UNIVERSE = 131072
 TIER_DRILL_CAP = 16384
 TIER_DRILL_STEPS = 60
 TIER_DRILL_LR = 1e-2
+
+# phase 7k (passes): the int8 answers against the fp32 Predictor of the same
+# weights, max |int8 - fp32| over max |fp32|: the JAX package's bound and
+# measure for a quantized output (tests/test_kernels.py:363-364)
+PASSES_INT8_TOL = 0.05
+PASSES_REQUESTS = 8
+PASSES_BATCH = 16          # serving's largest bucket
+PASSES_TIMED = 10          # replays timed a path, in turns
+PASSES_STEPS = 3
+# ResNet-50's logits before and after the conv+BN fold, max |diff| over max
+# |logit|: the same function, rounded in other places (the folded weights,
+# a bias add in place of the normalization) over 53 layers; phase 7's
+# serving tolerance
+PASSES_FOLD_TOL = 1e-4
+RESNET_BN_FOLDS = 53       # 1 stem + 16 blocks x 3 + 4 projections
 
 
 def log(*args):
@@ -7719,6 +7772,390 @@ def phase_tier():
     return {'tier': launches}
 
 
+# -- phase 7k: the pass pipeline and int8 weight quantization ----------------
+
+@contextlib.contextmanager
+def _opt_level(mode):
+    """PADDLE_TPU_OPT=mode inside the block; as it was outside."""
+    prev = os.environ.get('PADDLE_TPU_OPT')
+    os.environ['PADDLE_TPU_OPT'] = mode
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop('PADDLE_TPU_OPT', None)
+        else:
+            os.environ['PADDLE_TPU_OPT'] = prev
+
+
+def _pool_of(run):
+    """Run `run` twice (a signature's warm-up, then its capture and first
+    replay); returns the memory the capture reserved (its graph pool)."""
+    run()
+    r0 = _reserved()
+    run()
+    return _reserved() - r0
+
+
+def _in_turns(fns, n=PASSES_TIMED):
+    """{tag: median host ms} of the calls of each fn (ending in
+    torch.cuda.synchronize), the fns called in turns n times."""
+    import torch
+    secs = {t: [] for t in fns}
+    for _ in range(n):
+        for t, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            secs[t].append(time.perf_counter() - t0)
+    return {t: float(np.median(v)) * 1e3 for t, v in secs.items()}
+
+
+def _passes_int8(tmp, rec):
+    """(a): Transformer-base quantized offline and served from its int8
+    artifact. Returns the launch counts of the served path."""
+    import torch
+    from paddle_tpu_torch import fluid, inference, serving
+    from paddle_tpu_torch.fluid.passes import quant_pass
+    cfg = TRANSFORMER_BASE
+    main, scope, exe, logits = _transformer_scope(SEED, fluid.CUDAPlace(0))
+    dirs = {'fp32': os.path.join(tmp, 'fp32'),
+            'int8': os.path.join(tmp, 'int8')}
+    fluid.io.save_inference_model(dirs['fp32'], ['src_word', 'trg_word'],
+                                  [logits], exe, main_program=main,
+                                  scope=scope)
+    infer = main.clone(for_test=True).prune([logits])
+    n_weights = quant_pass.quantize_weights(infer, scope)
+    fluid.io.save_inference_model(
+        dirs['int8'], ['src_word', 'trg_word'],
+        [infer.global_block().var(logits.name)], exe, main_program=infer,
+        scope=scope)
+    del main, scope, exe, infer
+    params = {t: os.path.getsize(os.path.join(d, '__params__.npz'))
+              for t, d in dirs.items()}
+    with np.load(os.path.join(dirs['int8'], '__params__.npz')) as z:
+        kinds = {}
+        for n in z.files:
+            kinds[str(z[n].dtype)] = kinds.get(str(z[n].dtype), 0) + 1
+    if not n_weights or kinds.get('int8') != n_weights:
+        raise AssertionError('int8 artifact: %d weights quantized, arrays '
+                             'by dtype %r' % (n_weights, kinds))
+    ratio = params['int8'] / params['fp32']
+    log('[passes] (a) Transformer-base: %d weights quantized; artifact '
+        'params %d bytes int8 against %d fp32 (%.4fx); int8 arrays by '
+        'dtype %r' % (n_weights, params['int8'], params['fp32'], ratio,
+                      kinds))
+    reqs = make_requests(PASSES_REQUESTS, 4, cfg['max_length'],
+                         cfg['trg_vocab_size'], np.random.RandomState(SEED))
+    pred = inference.Predictor(dirs['int8'])
+    if pred._scope.vars[[n for n in pred._scope.vars
+                         if n.endswith('@quant.int8')][0]].dtype \
+            != torch.int8:
+        raise AssertionError('the int8 Predictor did not load int8')
+    engine = serving.ServingEngine(pred, serving.ServingConfig(
+        max_batch_size=PASSES_BATCH, max_queue_delay_ms=20.0))
+    try:
+        _reset_launch_counts()
+        buckets = engine.warmup()
+        with concurrent.futures.ThreadPoolExecutor(len(reqs)) as pool:
+            futs = list(pool.map(engine.submit, reqs))
+        answers = [f.result(timeout=600)[0] for f in futs]
+        torch.cuda.synchronize()
+        launches = _launch_counts()
+        batches = engine.stats['batches']
+    finally:
+        engine.shutdown()
+    runs = serving.engine.WARMUP_RUNS * len(buckets) + batches
+    want = {k: 0 for k in launches}
+    want['flash_attention_fwd'] = ATTENTION_OPS_PER_FORWARD * runs
+    if launches != want:
+        raise AssertionError('int8 serving launched %r for %d forwards; '
+                             'want %r' % (launches, runs, want))
+    f32 = inference.Predictor(dirs['fp32'])
+    worst = 0.0
+    for req, ans in zip(reqs, answers):
+        n = req['src_word'].shape[0]
+        if ans.shape != (n, cfg['max_length'], cfg['trg_vocab_size']) or \
+                not np.isfinite(ans).all():
+            raise AssertionError('int8 answer shape %r or non-finite'
+                                 % (ans.shape,))
+        ref = f32.run(req)[0]
+        rel = float(np.abs(ans - ref).max() / np.abs(ref).max())
+        worst = max(worst, rel)
+    if not worst < PASSES_INT8_TOL:
+        raise AssertionError('int8 against fp32: max |diff| / max |fp32| '
+                             '%.4f (bound %g)' % (worst, PASSES_INT8_TOL))
+    cpu = inference.Predictor(dirs['int8'], place=fluid.CPUPlace())
+    small = {k: v[:1] for k, v in reqs[0].items()}
+    ref = cpu.run(small)[0]
+    cross = float(np.abs(answers[0][:1] - ref).max())
+    np.testing.assert_allclose(answers[0][:1], ref, atol=CROSS_DEVICE_TOL,
+                               rtol=CROSS_DEVICE_TOL)
+    del cpu
+    log('[passes] (a) %d requests in %d batch(es) through ServingEngine '
+        'over the int8 Predictor: flash_attention_fwd %d launches = %d x '
+        '%d forwards; against the fp32 Predictor max |diff| / max |fp32| '
+        '%.4f (bound %g); one row against the int8 artifact on the CPU: '
+        'max abs diff %.3g (tol %g)'
+        % (len(reqs), batches, launches['flash_attention_fwd'],
+           ATTENTION_OPS_PER_FORWARD, runs, worst, PASSES_INT8_TOL, cross,
+           CROSS_DEVICE_TOL))
+    # the served batch replayed: fresh Predictors (fresh graph pools)
+    feed = {n: np.repeat(a[:1], PASSES_BATCH, axis=0)
+            for n, a in reqs[0].items()}
+    preds = {'fp32': inference.Predictor(dirs['fp32']),
+             'int8': inference.Predictor(dirs['int8'])}
+    del f32, pred
+    _release()
+    pools = {t: _pool_of(lambda p=p: p.run(feed)) for t, p in preds.items()}
+    ms = _in_turns({t: (lambda p=p: p.run(feed)) for t, p in preds.items()})
+    busy = {t: _device_busy(lambda p=p: p.run(feed), 2)
+            for t, p in preds.items()}
+    rec['int8_serving'] = dict(
+        weights_quantized=n_weights, params_bytes=params,
+        bytes_ratio=ratio, worst_rel_to_fp32=worst, cpu_max_abs=cross,
+        batches=batches, forwards=runs,
+        flash_attention_fwd=launches['flash_attention_fwd'],
+        batch=PASSES_BATCH, replay_ms=ms,
+        device_busy_ms={t: b[0] for t, b in busy.items()},
+        kernels_per_replay={t: b[3] for t, b in busy.items()},
+        graph_pool_gb={t: v / 1e9 for t, v in pools.items()})
+    log('[passes] (a) batch %d replayed, Predictor.run with the fetch on '
+        'the host: int8 %.4f ms, fp32 %.4f ms (median of %d in turns); '
+        'device busy %.4f / %.4f ms; kernel records a replay %.0f / %.0f; '
+        'graph pool %.3f / %.3f GB'
+        % (PASSES_BATCH, ms['int8'], ms['fp32'], PASSES_TIMED,
+           busy['int8'][0], busy['fp32'][0], busy['int8'][3],
+           busy['fp32'][3], pools['int8'] / 1e9, pools['fp32'] / 1e9))
+    return launches
+
+
+def _passes_resnet(tmp, rec):
+    """(b): ResNet-50 served before and after InferenceTranspiler."""
+    import warnings
+    import torch
+    from paddle_tpu_torch import fluid, inference
+    main, startup, _, _, _ = build_resnet('NCHW')
+    # the classifier's logits (the softmax's input): random weights
+    # saturate the probabilities, which would hide a wrong fold
+    logits = _input_of(main, 'softmax', 'X')
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(SEED)
+    for op in main.global_block().ops:
+        if op.type != 'batch_norm':
+            continue
+        for slot, lo, hi in (('Scale', 0.8, 1.2), ('Bias', -0.05, 0.05),
+                             ('Mean', -0.05, 0.05),
+                             ('Variance', 0.8, 1.2)):
+            t = scope.vars[op.input(slot)[0]]
+            t.copy_(torch.from_numpy(
+                rng.uniform(lo, hi, tuple(t.shape)).astype('float32')))
+    d = os.path.join(tmp, 'resnet50')
+    fluid.io.save_inference_model(d, ['data'], [logits], exe,
+                                  main_program=main.clone(for_test=True),
+                                  scope=scope)
+    del main, startup, scope, exe
+    preds = {'before': inference.Predictor(d),
+             'after': inference.Predictor(d)}
+    with warnings.catch_warnings():
+        warnings.simplefilter('ignore', DeprecationWarning)
+        fluid.InferenceTranspiler().transpile(preds['after']._program,
+                                              scope=preds['after']._scope)
+    types = {k: [op.type for op in p._program.global_block().ops]
+             for k, p in preds.items()}
+    folded = types['before'].count('batch_norm')
+    if folded != RESNET_BN_FOLDS or 'batch_norm' in types['after']:
+        raise AssertionError('InferenceTranspiler left %d of %d batch '
+                             'norms; want all %d folded' % (
+                                 types['after'].count('batch_norm'),
+                                 folded, RESNET_BN_FOLDS))
+    feed = {'data': rng.randn(RESNET_BATCH, 3, 224, 224).astype('float32')}
+    pools = {k: _pool_of(lambda p=p: p.run(feed)) for k, p in preds.items()}
+    outs = {k: p.run(feed)[0] for k, p in preds.items()}
+    diff = float(np.abs(outs['after'] - outs['before']).max()
+                 / np.abs(outs['before']).max())
+    if outs['after'].shape != (RESNET_BATCH, 1000) or \
+            not np.isfinite(outs['after']).all() or \
+            not diff <= PASSES_FOLD_TOL:
+        raise AssertionError('ResNet-50 after the fold: shape %r, max abs '
+                             'diff over max |logit| %.3g (tol %g)' % (
+                                 outs['after'].shape, diff, PASSES_FOLD_TOL))
+    ms = _in_turns({k: (lambda p=p: p.run(feed)) for k, p in preds.items()})
+    busy = {k: _device_busy(lambda p=p: p.run(feed), 2)
+            for k, p in preds.items()}
+    rec['resnet_fold'] = dict(
+        bn_folded=folded, ops={k: len(v) for k, v in types.items()},
+        rel_diff=diff, max_abs_logit=float(np.abs(outs['before']).max()),
+        replay_ms=ms, device_busy_ms={k: b[0] for k, b in busy.items()},
+        kernels_per_replay={k: b[3] for k, b in busy.items()},
+        graph_pool_gb={k: v / 1e9 for k, v in pools.items()})
+    log('[passes] (b) ResNet-50 batch %d: %d batch norms folded by '
+        'InferenceTranspiler (%d -> %d ops); logits max abs diff over max '
+        '|logit| %.3g (tol %g); replay %.4f -> %.4f ms (median of %d in turns); '
+        'device busy %.4f -> %.4f ms; kernel records a replay %.0f -> '
+        '%.0f; graph pool %.3f -> %.3f GB'
+        % (RESNET_BATCH, folded, len(types['before']),
+           len(types['after']), diff, PASSES_FOLD_TOL, ms['before'],
+           ms['after'], PASSES_TIMED, busy['before'][0], busy['after'][0],
+           busy['before'][3], busy['after'][3], pools['before'] / 1e9,
+           pools['after'] / 1e9))
+
+
+def _passes_arm(main, init, feeds, fetch, mode):
+    """PASSES_STEPS steps of `main` from `init` at PADDLE_TPU_OPT=mode on a
+    fresh executor (warm-up, capture, replay). Returns (losses, the state
+    after them (clones), launches, the artifact, executor, scope)."""
+    import torch
+    from paddle_tpu_torch import fluid
+    with _opt_level(mode):
+        scope = fluid.Scope()
+        scope.vars.update({n: t.clone() for n, t in init.vars.items()})
+        exe = fluid.Executor()
+        _reset_launch_counts()
+        losses = [exe.run(main, feed=f, fetch_list=[fetch], scope=scope)[0]
+                  for f in feeds]
+        torch.cuda.synchronize()
+        launches = _launch_counts()
+        art = exe.step_artifact(main, feeds[-1], [fetch], scope=scope)
+    state = {n: t.clone() for n, t in scope.vars.items()}
+    if exe.cache_stats['captures'] != 1:
+        raise AssertionError('%s: %r' % (mode, exe.cache_stats))
+    return losses, state, launches, art, exe, scope
+
+
+def _passes_replays(arms, main, feed, fetch):
+    """{mode: (median replay ms in turns, busy ms, kernel records)} of more
+    steps of each arm (after the compared steps), each at its own
+    PADDLE_TPU_OPT level: its artifact's replays."""
+    def step(mode, exe, scope):
+        with _opt_level(mode):
+            exe.run(main, feed=feed, fetch_list=[fetch], scope=scope)
+    fns = {m: (lambda m=m, a=a: step(m, a[4], a[5]))
+           for m, a in arms.items()}
+    captures = {m: a[4].cache_stats['captures'] for m, a in arms.items()}
+    ms = _in_turns(fns, n=5)
+    out = {m: (ms[m],) + _device_busy(fn, 1)[::3] for m, fn in fns.items()}
+    if {m: a[4].cache_stats['captures'] for m, a in arms.items()} \
+            != captures:
+        raise AssertionError('the timed steps captured again: %r'
+                             % captures)
+    return out
+
+
+def _bf16_ulp(x):
+    return 2.0 ** (np.floor(np.log2(abs(x))) - 7)
+
+
+def _passes_training(rec):
+    """(c): Transformer-base training at PADDLE_TPU_OPT off and default,
+    fp32 and under AMP. Returns the launch counts of the two optimized
+    paths."""
+    import torch
+    from paddle_tpu_torch import fluid
+    main, startup, avg_cost, names, reader = build_trainer()
+    init = fluid.Scope()
+    fluid.Executor().run(startup, scope=init)
+    it = reader()
+    feeds = [as_feed(next(it), names) for _ in range(PASSES_STEPS)]
+    attn = ('flash_attention_fwd', 'flash_attention_bwd_dq',
+            'flash_attention_bwd_dkv')
+    out, counts = {}, {}
+    for amp in (False, True):
+        tag = 'amp' if amp else 'fp32'
+        if amp:
+            fluid.amp.decorate_program(main)
+        arms = {m: _passes_arm(main, init, feeds, avg_cost, m)
+                for m in ('off', 'default')}
+        (lo, so, _, ao, _, _), (ld, sd, cd, ad, _, _) = \
+            arms['off'], arms['default']
+        report = ad.program._opt_report
+        if amp:
+            if ao.amp is not True or ad.amp is not False or \
+                    not ad.program._amp_ir:
+                raise AssertionError('AMP arms: runtime amp %r, pass amp %r'
+                                     % (ao.amp, ad.amp))
+            gaps = [abs(float(np.asarray(a).reshape(())) -
+                        float(np.asarray(b).reshape(())))
+                    / _bf16_ulp(float(np.asarray(a).reshape(())))
+                    for a, b in zip(lo, ld)]
+            if not max(gaps) <= 1.0:
+                raise AssertionError('AMP pass losses %r against runtime '
+                                     'AMP %r: %r bf16 ulps' % (ld, lo, gaps))
+            want = {k: 0 for k in cd}
+            want.update((k + '_bf16', ATTENTION_OPS_PER_FORWARD *
+                         PASSES_STEPS) for k in attn)
+            path, check = 'amp_opt_training', 'losses within %s bf16 ulps' \
+                % ', '.join('%.3f' % g for g in gaps)
+        else:
+            if not all(np.array_equal(a, b) for a, b in zip(lo, ld)):
+                raise AssertionError('PADDLE_TPU_OPT default losses %r, off '
+                                     '%r' % (ld, lo))
+            diff = [n for n in so if not torch.equal(so[n], sd[n])]
+            if diff:
+                raise AssertionError('default and off differ in %r after '
+                                     '%d steps' % (diff[:8], PASSES_STEPS))
+            want = {k: 0 for k in cd}
+            want.update((k, ATTENTION_OPS_PER_FORWARD * PASSES_STEPS)
+                        for k in attn)
+            path, check = 'opt_training', 'losses and all %d persistables ' \
+                'bitwise equal' % len(so)
+        if cd != want:
+            raise AssertionError('%s launched %r over %d steps; want %r'
+                                 % (path, cd, PASSES_STEPS, want))
+        counts[path] = cd
+        rep = _passes_replays(arms, main, feeds[-1], avg_cost)
+        out[tag] = dict(report=report.to_dict(),
+                        losses={m: [float(np.asarray(x).reshape(()))
+                                    for x in a[0]] for m, a in arms.items()},
+                        replay_ms={m: r[0] for m, r in rep.items()},
+                        device_busy_ms={m: r[1] for m, r in rep.items()},
+                        kernels_per_replay={m: r[2] for m, r in rep.items()})
+        log('[passes] (c) Transformer-base training %s, batch %d, dropout '
+            '0.1, %d steps: default against off: %s; %r; %s per step of '
+            'each attention kernel %d; replay %.4f / %.4f ms, device busy '
+            '%.4f / %.4f ms, kernel records a replay %.0f / %.0f (default '
+            '/ off)' % (tag, TRAIN_BATCH, PASSES_STEPS, check, report, path,
+                        ATTENTION_OPS_PER_FORWARD, rep['default'][0],
+                        rep['off'][0], rep['default'][1], rep['off'][1],
+                        rep['default'][2], rep['off'][2]))
+        del arms, so, sd, ao, ad
+        _release()
+    rec['training'] = out
+    return counts
+
+
+def phase_passes():
+    """Phase 7k: (a) int8 Transformer-base serving, (b) ResNet-50 through
+    InferenceTranspiler, (c) Transformer-base training at PADDLE_TPU_OPT
+    default against off, fp32 and under the AMP pass, (d) no pass
+    failure. Returns {path: launch counts} of int8_serving, opt_training
+    and amp_opt_training."""
+    import torch
+    from paddle_tpu_torch import obs
+    t0 = time.perf_counter()
+    rec = {}
+    counts = {}
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_passes_') as tmp:
+        counts['int8_serving'] = _passes_int8(tmp, rec)
+        _release()
+        _passes_resnet(tmp, rec)
+        _release()
+    counts.update(_passes_training(rec))
+    errors = obs.REGISTRY.counter('passes.errors').snapshot()['value']
+    if errors:
+        raise AssertionError('%d pass failure(s) fell back to the '
+                             'unoptimized program' % errors)
+    torch.cuda.synchronize()
+    rec['seconds'] = time.perf_counter() - t0
+    rec['card'] = nvidia_smi_line()
+    log(json.dumps({'passes': rec}))
+    log('[passes] phase 7k took %.1f s' % rec['seconds'])
+    return counts
+
+
 # -- phase 8 ----------------------------------------------------------------
 
 def _to_host(tensors):
@@ -8381,9 +8818,12 @@ def main():
                         ('stream', phase_stream),
                         ('serving_stream', phase_serving_stream),
                         ('tier', phase_tier),
+                        ('passes', phase_passes),
                         ('captured', phase_captured)):
         _between_phases(name)
+        t0 = time.perf_counter()
         counts = phase()
+        log('[time] phase %s took %.1f s' % (name, time.perf_counter() - t0))
         if name in ('serving', 'training', 'ctr_training',
                     'image_training'):
             by_path[name] = counts
@@ -8395,6 +8835,10 @@ def main():
         if stray:
             raise AssertionError('the %s path launched kernels of other '
                                  'paths: %r' % (path, stray))
+    from paddle_tpu_torch import obs
+    if obs.REGISTRY.counter('passes.errors').snapshot()['value']:
+        raise AssertionError('a pass failure fell back to the unoptimized '
+                             'program in the smoke run')
     if 'jax' in sys.modules or any(
             m == 'paddle_tpu' or m.startswith('paddle_tpu.')
             for m in sys.modules):

@@ -1,15 +1,18 @@
 """Int8 embedding ROW codec: quantized storage, fp32 optimizer moments.
 
-Parity: the JAX package's embedding/quant_rows.py, copied as it is: the
-codec is pure numpy. The delta publisher (streaming/publish.py) moves
-table ROWS from the trainer into serving replicas; row values tolerate
-int8 (each row carries its own absmax scale, the per-channel axis-0
-scheme of the JAX package's quant_ops), while the optimizer MOMENTS that
-ride next to them in training do not: their magnitudes span the whole
-schedule, so moments stay fp32 and only the VALUE bytes shrink. On the
-delta push the wire bytes per row go from 4*D to D + 4.
+Parity: the JAX package's embedding/quant_rows.py. The delta publisher
+(streaming/publish.py) moves table ROWS from the trainer into serving
+replicas; row values tolerate int8 (each row carries its own absmax
+scale: the per-channel axis-0 scheme of fluid/ops_impl/quant_ops.py,
+whose quantize_array is the one definition of the rounding), while the
+optimizer MOMENTS that ride next to them in training do not: their
+magnitudes span the whole schedule, so moments stay fp32 and only the
+VALUE bytes shrink. On the delta push the wire bytes per row go from 4*D
+to D + 4.
 """
 import numpy as np
+
+from ..fluid.ops_impl.quant_ops import quantize_array
 
 __all__ = ['quantize_rows', 'dequantize_rows', 'row_bytes',
            'ROW_SCALE_BYTES']
@@ -19,16 +22,11 @@ ROW_SCALE_BYTES = 4
 
 
 def quantize_rows(vals):
-    """[N, D] float rows -> (q int8 [N, D], scale f32 [N, 1]) with
-    per-row symmetric absmax scales. Pure numpy (the publisher runs
-    host-side, off the step path); the same rounding as
-    the JAX package's quant_ops.quantize_array(axis=0)."""
-    vals = np.asarray(vals, np.float32)
-    amax = np.max(np.abs(vals), axis=tuple(range(1, vals.ndim)),
-                  keepdims=True)
-    scale = np.maximum(amax / 127.0, 1e-12).astype(np.float32)
-    q = np.clip(np.round(vals / scale), -127, 127).astype(np.int8)
-    return q, scale
+    """[N, D] float rows -> (q int8 [N, D], scale f32 [N, 1]) numpy
+    arrays with per-row symmetric absmax scales: quant_ops.quantize_array
+    (axis=0) on the host (the publisher runs off the step path)."""
+    q, scale = quantize_array(np.asarray(vals, np.float32), axis=0)
+    return q.numpy(), scale.numpy()
 
 
 def dequantize_rows(q, scale):

@@ -10,7 +10,9 @@ step signature on the card), the anomaly guard, the NaN/Inf debugger, io
 (backward, optimizer, regularizer, clip), AMP (amp), the bf16 inference
 transpiler (contrib.Float16Transpiler), and the high-level API: Trainer
 (events, CheckpointConfig, preemption and resume), Inferencer, and the
-host-side metrics, average and evaluator.
+host-side metrics, average and evaluator; the pass pipeline (passes:
+PADDLE_TPU_OPT, int8 weight quantization), the dataflow analysis it
+builds on, and the InferenceTranspiler and memory_optimize shims.
 """
 from . import core
 from . import framework
@@ -19,6 +21,7 @@ from .framework import Program, Operator, Parameter, Variable, \
 from . import lowering
 from . import ops_impl  # noqa: F401  (registers every op rule)
 from . import passes
+from . import analysis
 from . import step_artifact
 from . import amp
 from . import debugger
@@ -50,16 +53,20 @@ from .trainer import Trainer, BeginEpochEvent, EndEpochEvent, \
 from . import inferencer
 from .inferencer import Inferencer
 from .core import CPUPlace, CUDAPlace, TPUPlace, CUDAPinnedPlace
+from . import transpiler
+from .transpiler import InferenceTranspiler, memory_optimize, \
+    release_memory
+from .analysis import ProgramVerifyError
 
 Tensor = LoDTensor
 
 __all__ = framework.__all__ + executor.__all__ + trainer.__all__ + \
-    inferencer.__all__ + [
+    inferencer.__all__ + transpiler.__all__ + [
     'io', 'initializer', 'layers', 'ParamAttr', 'WeightNormParamAttr',
     'unique_name', 'core',
     'backward', 'optimizer', 'regularizer', 'clip', 'nets', 'data_feeder',
     'DataFeeder', 'LoDTensor', 'LoDTensorArray', 'create_lod_tensor',
     'create_random_int_lodtensor', 'debugger', 'step_artifact', 'passes', 'amp', 'contrib',
     'metrics', 'average', 'evaluator', 'trainer', 'inferencer',
-    'CPUPlace', 'CUDAPlace', 'TPUPlace', 'CUDAPinnedPlace',
+    'transpiler', 'analysis', 'ProgramVerifyError', 'CPUPlace', 'CUDAPlace', 'TPUPlace', 'CUDAPinnedPlace',
 ]

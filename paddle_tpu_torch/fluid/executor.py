@@ -27,7 +27,11 @@ seeded at every run from Program.random_seed and the run count (the JAX
 Executor derives its per-run PRNG key the same way), so a seeded program
 gives the same numbers run for run, captured or eager, bundled or not.
 
-The JAX Executor's IR passes, mesh placement, AOT warm signatures,
+Before a cache key's artifact is built, the pass pipeline
+(fluid/passes: PADDLE_TPU_OPT, a quant-marked program) may rewrite the
+program; the artifact runs the optimized clone (`_build_artifact`).
+
+The JAX Executor's verify gate, mesh placement, AOT warm signatures,
 persistent compile cache and remat detection have no counterpart yet
 (ROADMAP.md Queue A).
 """
@@ -44,11 +48,13 @@ from .. import obs
 from . import amp as amp_mod
 from . import core
 from . import debugger
+from . import passes as passes_mod
 from .data_feeder import seq_pad
 from .framework import Variable, default_main_program
 from .lod_tensor import LoDTensor
 from .lowering import SeqValue, leaves_of, map_value
 from .ops_impl.block_ops import check_loops
+from .passes import quant_pass
 from .step_artifact import (StepArtifact, _feed_signature, _pack_health,
                             _write_back, health_to_numpy)
 
@@ -276,6 +282,8 @@ _C_MISSES = obs.counter('executor.cache.misses')
 _C_EVICTIONS = obs.counter('executor.cache.evictions')
 _C_BUNDLED_STEPS = obs.counter('executor.bundle.steps')
 _C_SKIPPED = obs.counter('anomaly.skipped_steps')
+# the pass pipeline's fallbacks to the unoptimized program (passes.error)
+_C_PASS_ERRORS = obs.counter('passes.errors')
 _G_GRAD_NORM = obs.gauge('anomaly.grad_norm')
 # run(sync='async') handles not yet read (the host_stall histogram comes
 # from the obs.span in FetchHandle.block)
@@ -611,8 +619,8 @@ class Executor(object):
     def _prepare(self, program, feed, fetch_list, scope,
                  use_program_cache=True):
         """Coerce the feed, resolve the (program, feed signature, fetch,
-        guard) cache key and build or fetch its StepArtifact. Returns
-        (artifact, feed tensors)."""
+        guard, amp, quant mark, pass level) cache key and build or fetch
+        its StepArtifact. Returns (artifact, feed tensors)."""
         feed_vals = self._feed_values(program, feed)
         fetch_names = tuple(_as_fetch_name(f) for f in fetch_list)
         feed_sig = tuple(sorted(_feed_signature(n, v)
@@ -621,8 +629,12 @@ class Executor(object):
         # AMP changes what the rules compute: one program run with and
         # without it builds (and on the card captures) two steps
         amp = amp_mod.is_amp(program)
+        # the pass level and the quant mark change the program the step
+        # runs: marking a program after it ran builds a new step
+        opt = passes_mod.opt_mode()
+        quant = quant_pass.is_quant(program)
         key = (program._uid, program._version, feed_sig, fetch_names, guard,
-               amp)
+               amp, quant, opt)
         key_id = '%08x' % (hash(key) & 0xFFFFFFFF)
         art = self._cache.get(key) if use_program_cache else None
         if art is None:
@@ -632,8 +644,9 @@ class Executor(object):
                 v.name for v in program.list_vars()
                 if v.persistable and v.name not in feed_vals
                 and scope._chain_get(v.name) is not None)
-            art = StepArtifact(program, list(feed_vals), fetch_names,
-                               persist_in, guard=guard, amp=amp)
+            art = self._build_artifact(program, feed_vals, fetch_names,
+                                       persist_in, guard, amp, quant, opt,
+                                       key_id)
             art._feed_sig = feed_sig
             art._key_id = key_id
             art._source_program = program
@@ -651,6 +664,47 @@ class Executor(object):
         self._last_cache_lookup = {'outcome': outcome, 'key': key_id,
                                    'entries': len(self._cache)}
         return art, feed_vals
+
+    def _build_artifact(self, program, feed_vals, fetch_names, persist_in,
+                        guard, amp, quant, opt, key_id):
+        """The StepArtifact of one cache key, built from the program the
+        pass pipeline makes of `program` (the JAX :1115-1200): at
+        PADDLE_TPU_OPT off the program itself, unless it is quant-marked
+        (the mark has no other effect, so it is honoured at every level).
+        Folding evaluates on this executor's device. A pass failure, or an
+        optimized program the artifact cannot be built from, warns, emits
+        `passes.error` and builds from the unoptimized program; it hides
+        no device or kernel failure, which happen later, in the step."""
+        run_program = program
+        if opt != 'off' or quant:
+            try:
+                run_program, _ = passes_mod.optimize(
+                    program, feeds=set(feed_vals), fetches=fetch_names,
+                    level=opt if opt != 'off' else 'default',
+                    where='executor', device=self.device)
+            except Exception as e:  # noqa: BLE001 - fall back, loudly
+                self._pass_failed(opt, key_id, 'optimize', e)
+                run_program = program
+        try:
+            return StepArtifact(run_program, list(feed_vals), fetch_names,
+                                persist_in, guard=guard, amp=amp)
+        except Exception as e:  # noqa: BLE001 - fall back, loudly
+            if run_program is program:
+                raise
+            self._pass_failed(opt, key_id, 'artifact', e)
+            return StepArtifact(program, list(feed_vals), fetch_names,
+                                persist_in, guard=guard, amp=amp)
+
+    @staticmethod
+    def _pass_failed(opt, key_id, stage, e):
+        warnings.warn(
+            '%s=%s: program optimization failed at %s (%s: %s); running '
+            'the unoptimized program' % (passes_mod.ENV_OPT, opt, stage,
+                                         type(e).__name__, e),
+            RuntimeWarning)
+        _C_PASS_ERRORS.inc()
+        obs.event('passes.error', key=key_id, stage=stage,
+                  error='%s: %s' % (type(e).__name__, e))
 
     def _step(self, art, scope, feed_vals, seed):
         """One step of `art` (the lock held): a warm-up, capture or replay

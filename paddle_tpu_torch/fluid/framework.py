@@ -362,9 +362,11 @@ class Program(object):
         p = Program()
         p.random_seed = self.random_seed
         # execution flags travel with the program, as in the JAX package's
-        # clone (:583-588): amp mode and the Float16Transpiler's fetch
-        # contract
-        for flag in ('_amp', '_fetch_f32'):
+        # clone (:583-588): amp mode (and the AMP pass's IR marker), the
+        # Float16Transpiler's fetch contract, the quant mark and its IR
+        # marker
+        for flag in ('_amp', '_amp_ir', '_fetch_f32', '_quant', '_quant_ir',
+                     '_quant_ops'):
             if hasattr(self, flag):
                 setattr(p, flag, getattr(self, flag))
         p.blocks = []
@@ -412,6 +414,28 @@ class Program(object):
 
     def inference_optimize(self):
         return self.clone(for_test=True)
+
+    def optimize(self, level='default', feeds=None, fetches=None):
+        """Ahead-of-execution optimization (the JAX :697-720): a NEW
+        Program rewritten by the fluid.passes pipeline (AMP cast
+        insertion, quantization where marked, constant folding, and with
+        `fetches` CSE and dead-op elimination). This program is never
+        mutated; the PassReport lands on the result as `_opt_report`.
+        Folding evaluates the rules on the CPU.
+
+        The Executor applies the same pipeline behind
+        PADDLE_TPU_OPT={off,default,aggressive}, once per step-artifact
+        cache key; this method is the manual surface (e.g. before
+        save_inference_model)."""
+        from . import passes
+        p, report = passes.optimize(self, feeds=feeds, fetches=fetches,
+                                    level=level)
+        if p is self:
+            # passes.optimize returns the input itself at level 'off'; this
+            # method promises a program the caller owns
+            p = self.clone(for_test=False)
+            p._opt_report = report
+        return p
 
     def prune(self, targets):
         """Backward-slice the program to the ops needed to compute

@@ -538,6 +538,20 @@ def shape_from_spec(t):
                  for d in t.shape)
 
 
+def abstract_eval(op, in_specs):
+    """Evaluate op's rule on abstract inputs ({slot: [meta tensor or
+    SeqValue of meta tensors, ...]}, as spec_of makes them): the JAX
+    :509-531. Returns the rule's outputs, meta tensors for tensors. A
+    sequence input enters without its outer levels, as the JAX
+    abstract_eval re-wraps it, so the declared shapes of a program are the
+    JAX package's. Raises whatever the rule raises."""
+    ins = {slot: [SeqValue(s.data, s.lengths) if isinstance(s, SeqValue)
+                  else s for s in vs] for slot, vs in in_specs.items()}
+    ctx = Ctx(torch.device('meta'),
+              is_test=bool(op.attrs.get('is_test', False)))
+    return get_rule(op.type)(ins, op.attrs, ctx)
+
+
 def infer_op_shapes(op):
     """Build-time shape/dtype inference by evaluating the rule on meta
     tensors; replaces the reference's per-op C++ InferShape functions.
@@ -547,20 +561,13 @@ def infer_op_shapes(op):
     ins = {slot: [spec_of(v) for v in vs] for slot, vs in op.inputs.items()}
     if any(s is None for vs in ins.values() for s in vs):
         return
-    # a sequence input enters without its outer levels, as the JAX
-    # abstract_eval (:509-531) re-wraps it: the declared shapes of a
-    # program are the JAX package's
-    ins = {slot: [SeqValue(s.data, s.lengths) if isinstance(s, SeqValue)
-                  else s for s in vs] for slot, vs in ins.items()}
-    ctx = Ctx(torch.device('meta'),
-              is_test=bool(op.attrs.get('is_test', False)))
     if op.type in _BEST_EFFORT_SHAPES:
         try:
-            outs = get_rule(op.type)(ins, op.attrs, ctx)
+            outs = abstract_eval(op, ins)
         except Exception:   # noqa: BLE001 - the declared shapes stay
             return
     else:
-        outs = get_rule(op.type)(ins, op.attrs, ctx)
+        outs = abstract_eval(op, ins)
     for slot, vs in op.outputs.items():
         vals = outs.get(slot)
         if vals is None:

@@ -199,8 +199,11 @@ class StepArtifact(object):
     def __init__(self, program, feed_names, fetch_names, persist_in,
                  guard=False, amp=False):
         self.program = program
-        # AMP (fluid/amp.py): the rules' Ctx.amp, part of the artifact's key
-        self.amp = bool(amp)
+        # AMP (fluid/amp.py): the rules' Ctx.amp, part of the artifact's
+        # key. A program the AMP pass rewrote (`_amp_ir`) carries its casts
+        # as ops and runs with it off, even under amp_guard: its bf16
+        # operands reach the bf16 kernels and products by their dtype
+        self.amp = bool(amp) and not getattr(program, '_amp_ir', False)
         self.ops = list(program.global_block().ops)
         self.feed_names = list(feed_names)
         self.fetch_names = list(fetch_names)

@@ -55,7 +55,12 @@ abort, resume and decode push_rows reaching the next replay with the
 captures unchanged. Tiered embedding storage: the spill and restore on CUDA
 tensors in place and bitwise the CPU path, a pinned restore buffer
 surviving a non_blocking copy, and a tiered stream keeping its one
-capture, against the same stream on the CPU (1e-5).
+capture, against the same stream on the CPU (1e-5). The pass pipeline and
+int8: dequantize and quant_lookup_table under sync debug bitwise the CPU
+(out-of-range ids and padding_idx included); a mark_quant program captured
+and replayed against the CPU (1e-6); the AMP pass's step with ctx.amp off
+launching only the bf16 attention kernels, its loss within one bf16 ulp of
+runtime AMP's on the card.
 """
 import contextlib
 import importlib
@@ -3128,3 +3133,140 @@ def test_tiered_boundary_in_a_captured_stream_adds_no_capture(card,
     for sd in (gs, cs):
         sd['arena']['entries'] = [e[:2] for e in sd['arena']['entries']]
     assert gs == cs
+
+
+# -- the pass pipeline and int8 weight quantization --------------------------
+
+def test_quant_rules_on_the_card_match_the_cpu(card):
+    """dequantize and quant_lookup_table on CUDA tensors under sync debug
+    (no host read): bitwise the CPU, an id past V and below -V reading NaN
+    rows, a negative id wrapping, padding_idx through its scale."""
+    from paddle_tpu_torch.fluid import lowering
+    from paddle_tpu_torch.fluid.ops_impl.quant_ops import quantize_array
+    rng = np.random.RandomState(4)
+    w = torch.from_numpy(rng.randn(50, 24).astype('float32'))
+    q, s = quantize_array(w, axis=0)
+    ids = torch.tensor([[0], [7], [50], [-1], [-51], [49], [3], [7]])
+    cases = [('dequantize', {'X': [q], 'Scale': [s]}, {}),
+             ('quant_lookup_table', {'W': [q], 'Scale': [s], 'Ids': [ids]},
+              {}),
+             ('quant_lookup_table', {'W': [q], 'Scale': [s], 'Ids': [ids]},
+              {'padding_idx': 7})]
+    for op_type, ins, attrs in cases:
+        rule = lowering.get_rule(op_type)
+        want = rule(ins, attrs, lowering.Ctx(torch.device('cpu')))['Out']
+        dev = {k: [t.to(card) for t in vs] for k, vs in ins.items()}
+        torch.cuda.synchronize()
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            got = rule(dev, attrs, lowering.Ctx(card))['Out']
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+        got = got.cpu()
+        assert torch.equal(torch.isnan(got), torch.isnan(want)), op_type
+        np.testing.assert_array_equal(got.numpy(), want.numpy(),
+                                      err_msg=op_type)
+    gq, gs = quantize_array(w.to(card), axis=1)
+    cq, cs = quantize_array(w, axis=1)
+    assert torch.equal(gq.cpu(), cq) and torch.equal(gs.cpu(), cs)
+
+
+def _quant_net(fluid):
+    layers = fluid.layers
+    ids = layers.data(name='ids', shape=[3, 1], dtype='int64')
+    emb = layers.embedding(ids, size=[200, 32],
+                           param_attr=fluid.ParamAttr(name='emb_w'))
+    return layers.fc(input=emb, size=16, num_flatten_dims=2,
+                     param_attr=fluid.ParamAttr(name='fc_w'))
+
+
+def test_a_mark_quant_program_runs_captured_on_the_card(card):
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid.passes import quant_pass
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 3
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        out = _quant_net(fluid)
+    quant_pass.mark_quant(main)
+    cpu_scope = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=cpu_scope)
+    init = cpu_scope.to_numpy()
+    rng = np.random.RandomState(2)
+    feeds = [{'ids': rng.randint(0, 200, (8, 3, 1)).astype('int64')}
+             for _ in range(3)]
+    gscope = fluid.Scope()
+    gscope.load_numpy(init, fluid.CUDAPlace(0))
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    got = [exe.run(main, feed=f, fetch_list=[out], scope=gscope)[0]
+           for f in feeds]
+    assert exe.cache_stats['captures'] == 1
+    assert exe.cache_stats['replays'] == 2
+    art = exe.step_artifact(main, feeds[0], [out], scope=gscope)
+    types = [op.type for op in art.program.global_block().ops]
+    assert 'quant_lookup_table' in types and 'dequantize' in types
+    cexe = fluid.Executor(fluid.CPUPlace())
+    for f, g in zip(feeds, got):
+        want, = cexe.run(main, feed=f, fetch_list=[out], scope=cpu_scope)
+        np.testing.assert_allclose(g, want, rtol=1e-6, atol=1e-6)
+
+
+def test_amp_pass_step_launches_the_bf16_attention_kernels(card):
+    """A small Transformer under decorate_program at PADDLE_TPU_OPT=default:
+    the step runs the AMP pass's explicit casts with ctx.amp off, launches
+    the three bf16 attention kernels 3 a layer pair and no fp32 one, and
+    its loss is within one bf16 ulp of runtime AMP's on the card."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.models import transformer as T
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 5
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        avg_cost, _, _ = T.transformer(100, 100, 40, n_layer=2, d_model=64,
+                                       n_head=4, d_inner=128,
+                                       dropout_rate=0.0)
+        fluid.optimizer.Adam(learning_rate=1e-3).minimize(avg_cost)
+    fluid.amp.decorate_program(main)
+    cpu_scope = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=cpu_scope)
+    init = cpu_scope.to_numpy()
+    r = np.random.RandomState(1)
+    feed = {n: r.randint(1, 100, (3, 40)).astype('int64')
+            for n in ('src_word', 'trg_word', 'lbl_word')}
+    kernels = (tfa.KERNEL, tfa.KERNEL_BWD_DQ, tfa.KERNEL_BWD_DKV,
+               tfa.KERNEL_BF16, tfa.KERNEL_BWD_DQ_BF16,
+               tfa.KERNEL_BWD_DKV_BF16)
+    losses = {}
+    prev = os.environ.get('PADDLE_TPU_OPT')
+    try:
+        for mode in ('off', 'default'):
+            os.environ['PADDLE_TPU_OPT'] = mode
+            s = fluid.Scope()
+            s.load_numpy(init, fluid.CUDAPlace(0))
+            exe = fluid.Executor(fluid.CUDAPlace(0))
+            before = [k.launches for k in kernels]
+            losses[mode] = exe.run(main, feed=feed, fetch_list=[avg_cost],
+                                   scope=s)[0]
+            launched = {k.name: k.launches - b
+                        for k, b in zip(kernels, before)}
+            art = exe.step_artifact(main, feed, [avg_cost], scope=s)
+            if mode == 'default':
+                assert art.program._amp_ir and not art.amp
+                assert 'cast' in [op.type for op in
+                                  art.program.global_block().ops]
+            else:
+                assert art.amp
+            assert launched == {'flash_attention_fwd': 0,
+                                'flash_attention_bwd_dq': 0,
+                                'flash_attention_bwd_dkv': 0,
+                                'flash_attention_fwd_bf16': 6,
+                                'flash_attention_bwd_dq_bf16': 6,
+                                'flash_attention_bwd_dkv_bf16': 6}, mode
+    finally:
+        if prev is None:
+            os.environ.pop('PADDLE_TPU_OPT', None)
+        else:
+            os.environ['PADDLE_TPU_OPT'] = prev
+    a = float(np.asarray(losses['off']).reshape(()))
+    b = float(np.asarray(losses['default']).reshape(()))
+    ulp = 2.0 ** (np.floor(np.log2(abs(a))) - 7)
+    assert abs(a - b) <= ulp, (a, b)
