@@ -423,6 +423,33 @@ replay (each graph adds the launches its capture recorded).
                 the replay off against default. (d) no passes.error
                 anywhere in the script (the passes.errors counter is 0 at
                 its end). One JSON line {"passes": {...}}.
+  7l. detection — the SSD family and the vision rules (SSD_*, RPN_*,
+                VISION_TOL below). (a) MobileNet-SSD built from fluid.layers
+                as PaddlePaddle/models' object_detection/mobilenet_ssd.py
+                builds it (MobileNet-v1 at scale 1.0, 3x300x300, 21
+                classes, multi_box_head over the 19, 10, 5, 3, 2 and 1
+                maps: 2,278 priors), ssd_loss under RMSProp with L2Decay,
+                SSD_STEPS captured steps at batch 32 (two time buckets of
+                the LoD gt, each captured): the loss falls, step 1 card
+                against CPU within 3x the CPU's spread under a 1e-6
+                nudge; the replay, images/s, busy, idle, kernels a replay,
+                graph pool, and ssd_loss's rule and its matching alone.
+                The detection_output program saved and served through a
+                captured Predictor at batch 8: every image's rows equal to
+                the CPU rule's on the card's decoded boxes and scores
+                (rows decided within 1e-5 of the NMS threshold printed and
+                excused); replay, busy, kernels, and multiclass_nms and
+                its suppression loop alone; detection_map over 4 served
+                batches through fluid.metrics.DetectionMAP, card against
+                CPU. (b) An RPN head on the 19x19 map (3,249 anchors,
+                rpn_target_assign, sigmoid cross entropy and smooth_l1)
+                RPN_STEPS captured steps at batch 16, step 1 card against
+                CPU. (c) The 14 vision rules of nn_ops.py at vision sizes
+                (conv2d_transpose 512->256 from 19x19 to 38x38, resize up
+                and down, roi_pool of 128 ROIs, conv3d and pool3d on
+                16^3 volumes), forward and VJP on the card under sync
+                debug against the CPU rule. No kernel of the port runs.
+                One JSON line {"detection": {...}}.
   8. captured — each path's captured step against debug_step's eager
                 walk in this call, at full width: Transformer-base
                 training at batch 16 (get_model, dropout 0.1), fp32 and
@@ -931,6 +958,52 @@ PASSES_STEPS = 3
 # serving tolerance
 PASSES_FOLD_TOL = 1e-4
 RESNET_BN_FOLDS = 53       # 1 stem + 16 blocks x 3 + 4 projections
+
+# phase 7l (detection): MobileNet-SSD as PaddlePaddle/models' fluid
+# object_detection/mobilenet_ssd.py builds it (a MobileNet-v1 backbone at
+# scale 1.0, 3x300x300 images, 21 VOC classes) with multi_box_head over the
+# 19, 10, 5, 3, 2 and 1 maps at base_size 300, min_ratio 20, max_ratio 90,
+# aspect_ratios [[2], [2, 3] x 5], offset 0.5, flip (the layer's derived
+# sizes: 2,278 priors), ssd_loss and RMSProp(SSD_LR) with L2Decay(SSD_L2):
+# SSD_STEPS captured steps at SSD_BATCH on seeded images and 1-8 gt boxes
+# an image (labels 1-20); the batches SSD_WIDE_BATCHES hold an image of 9-16
+# boxes (a second time bucket, warmed up and captured). Step 1 card against
+# CPU at SSD_CPU_BATCH images as phase 7 holds ResNet-50. Serving: the
+# detection_output program (SSD_NMS) through a captured Predictor at
+# SSD_SERVE_BATCH, its rows equal to the CPU rule's on the card's decoded
+# boxes and scores but for (image) rows decided by an IoU within
+# SSD_NMS_TIE of the threshold; detection_map over SSD_MAP_BATCHES served
+# batches through fluid.metrics.DetectionMAP, card against CPU within
+# SSD_MAP_TOL. (b) An RPN head on the 19x19 map: anchor_generator (sizes
+# 64, 128, 256, ratios 0.5, 1, 2, stride 16: 3,249 anchors),
+# rpn_target_assign's defaults, sigmoid cross entropy and smooth_l1 masked
+# to the sampled slots; RPN_STEPS captured steps at RPN_BATCH, step 1 card
+# against CPU at RPN_CPU_BATCH. (c) The 14 nn_ops rules the slice added, each
+# once at a vision size, forward and VJP against the CPU rule within
+# VISION_TOL of max(1, |x|).
+SSD_CLASSES = 21
+SSD_IMAGE = 300
+SSD_PRIORS = 2278
+SSD_BATCH = 32
+SSD_STEPS = 20
+SSD_LR = 1e-3
+SSD_L2 = 5e-5
+SSD_WIDE_BATCHES = (10, 15)
+SSD_IMAGE_POOL = 4          # distinct image batches the steps cycle through
+SSD_WINDOW = 5
+SSD_CPU_BATCH = 4
+SSD_SERVE_BATCH = 8
+SSD_NMS = dict(nms_threshold=0.45, nms_top_k=400, keep_top_k=200,
+               score_threshold=0.01)
+SSD_NMS_TIE = 1e-5
+SSD_MAP_BATCHES = 4
+SSD_MAP_TOL = 1e-5
+SSD_TIMED = 10
+RPN_BATCH = 16
+RPN_STEPS = 5
+RPN_ANCHORS = 3249
+RPN_CPU_BATCH = 4
+VISION_TOL = 1e-4
 
 
 def log(*args):
@@ -8156,6 +8229,796 @@ def phase_passes():
     return counts
 
 
+# -- phase 7l: detection and the vision rules ---------------------------------
+
+def _conv_bn(layers, x, k, c, stride, pad, groups=1):
+    """mobilenet_ssd.py's conv_bn: a bias-free convolution, batch norm,
+    relu."""
+    conv = layers.conv2d(x, num_filters=c, filter_size=k, stride=stride,
+                         padding=pad, groups=groups, bias_attr=False)
+    return layers.batch_norm(conv, act='relu')
+
+
+def mobilenet_19(layers, img):
+    """MobileNet-v1 at scale 1.0 (mobilenet_ssd.py's mobile_net) up to its
+    19x19x512 map (module11): a strided conv_bn, then depthwise-separable
+    blocks (a depthwise 3x3 conv_bn, groups = channels, and a pointwise
+    one)."""
+    x = _conv_bn(layers, img, 3, 32, 2, 1)                        # 150
+    for c1, c2, s in ((32, 64, 1), (64, 128, 2), (128, 128, 1),
+                      (128, 256, 2), (256, 256, 1), (256, 512, 2)):
+        x = _conv_bn(layers, _conv_bn(layers, x, 3, c1, s, 1, groups=c1),
+                     1, c2, 1, 0)                             # ... 19
+    for _ in range(5):
+        x = _conv_bn(layers, _conv_bn(layers, x, 3, 512, 1, 1, groups=512),
+                     1, 512, 1, 0)
+    return x
+
+
+def mobilenet_ssd_maps(layers, img):
+    """The six maps multi_box_head reads: 19x19x512, 10x10x1024 and the
+    extra blocks' 5, 3, 2 and 1 (a 1x1 conv_bn, then a strided 3x3)."""
+    m11 = mobilenet_19(layers, img)
+    x = _conv_bn(layers, _conv_bn(layers, m11, 3, 512, 2, 1, groups=512),
+                 1, 1024, 1, 0)                                   # 10
+    maps = [m11, _conv_bn(layers, _conv_bn(layers, x, 3, 1024, 1, 1,
+                                           groups=1024), 1, 1024, 1, 0)]
+    for c1, c2 in ((256, 512), (128, 256), (128, 256), (64, 128)):
+        maps.append(_conv_bn(layers, _conv_bn(layers, maps[-1], 1, c1, 1, 0),
+                             3, c2, 2, 1))                        # 5 3 2 1
+    return maps
+
+
+def ssd_program(train):
+    """MobileNet-SSD at full width; train: ssd_loss under RMSProp with
+    L2Decay (returns main, startup, loss); else the detection_output
+    program (returns main, startup, nmsed). Both under a fresh
+    unique_name guard: the same parameter names."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import unique_name
+    layers = fluid.layers
+    main, startup = _program_pair()
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        img = layers.data(name='image', shape=[3, SSD_IMAGE, SSD_IMAGE])
+        locs, confs, box, box_var = layers.multi_box_head(
+            inputs=mobilenet_ssd_maps(layers, img), image=img,
+            base_size=SSD_IMAGE, num_classes=SSD_CLASSES,
+            aspect_ratios=[[2.]] + [[2., 3.]] * 5, min_ratio=20,
+            max_ratio=90, offset=0.5, flip=True)
+        if box.shape[0] != SSD_PRIORS:
+            raise AssertionError('multi_box_head gave %d priors, not %d'
+                                 % (box.shape[0], SSD_PRIORS))
+        if not train:
+            return main, startup, layers.detection_output(
+                locs, confs, box, box_var, **SSD_NMS)
+        gt_box = layers.data(name='gt_box', shape=[4], lod_level=1)
+        gt_label = layers.data(name='gt_label', shape=[1], dtype='int64',
+                               lod_level=1)
+        loss = layers.reduce_sum(layers.ssd_loss(locs, confs, gt_box,
+                                                 gt_label, box, box_var))
+        fluid.optimizer.RMSProp(
+            learning_rate=SSD_LR,
+            regularization=fluid.regularizer.L2Decay(SSD_L2)).minimize(loss)
+    return main, startup, loss
+
+
+def rpn_program():
+    """An RPN head on MobileNet's 19x19 map: a 3x3 conv, 9 objectness
+    logits and 36 box offsets a position over anchor_generator's 9 anchors
+    (3,249 in all), rpn_target_assign's defaults, sigmoid cross entropy
+    on the sampled slots and smooth_l1 on the foreground ones."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import unique_name
+    layers = fluid.layers
+    main, startup = _program_pair()
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        img = layers.data(name='image', shape=[3, SSD_IMAGE, SSD_IMAGE])
+        gt_box = layers.data(name='gt_box', shape=[4], lod_level=1)
+        feat = mobilenet_19(layers, img)
+        conv = layers.conv2d(feat, num_filters=512, filter_size=3,
+                             padding=1, act='relu')
+        cls = layers.conv2d(conv, num_filters=9, filter_size=1)
+        bbox = layers.conv2d(conv, num_filters=36, filter_size=1)
+        anchors, _ = layers.anchor_generator(
+            feat, anchor_sizes=[64., 128., 256.], aspect_ratios=[0.5, 1., 2.],
+            stride=[16., 16.])
+        anchors = layers.reshape(anchors, [-1, 4])
+        if anchors.shape[0] != RPN_ANCHORS:
+            raise AssertionError('%d anchors, not %d' % (anchors.shape[0],
+                                                         RPN_ANCHORS))
+        score, loc, label, target = layers.rpn_target_assign(
+            layers.reshape(layers.transpose(bbox, [0, 2, 3, 1]), [0, -1, 4]),
+            layers.reshape(layers.transpose(cls, [0, 2, 3, 1]), [0, -1, 1]),
+            anchors, gt_box)
+        lbl = layers.cast(label, 'float32')              # -1, 0 or 1
+        fg = layers.clip(lbl, 0.0, 1.0)
+        sampled = layers.clip(layers.scale(lbl, bias=1.0), 0.0, 1.0)
+        fg4 = layers.expand(fg, [1, 1, 4])
+        cls_loss = layers.reduce_sum(
+            layers.sigmoid_cross_entropy_with_logits(score, fg) * sampled)
+        box_loss = layers.reduce_sum(layers.smooth_l1(
+            loc, target, inside_weight=fg4, outside_weight=fg4, sigma=3.0))
+        loss = layers.scale(cls_loss + box_loss, scale=1.0 / 256)
+        fluid.optimizer.Momentum(learning_rate=1e-3,
+                                 momentum=0.9).minimize(loss)
+    return main, startup, loss
+
+
+def _lod(fluid, rows):
+    """A LoDTensor of per-image row arrays."""
+    return fluid.create_lod_tensor(np.concatenate(rows, 0),
+                                   [[len(r) for r in rows]],
+                                   fluid.CPUPlace())
+
+
+def _gt_rows(rng, n, scale=1.0, labels=True):
+    """n corner boxes (times scale) and, with labels, their labels 1-20."""
+    xy = rng.uniform(0.0, 0.75, (n, 2))
+    box = np.concatenate([xy, np.minimum(xy + rng.uniform(
+        0.1, 0.4, (n, 2)), 1.0)], 1).astype('float32') * scale
+    if not labels:
+        return box
+    return box, rng.randint(1, SSD_CLASSES, (n, 1)).astype('int64')
+
+
+def _ssd_batches(rng):
+    """SSD_STEPS (images, [per-image boxes], [per-image labels]): the
+    images cycle through SSD_IMAGE_POOL seeded batches, 1-8 boxes an
+    image, one image of 9-16 in each of SSD_WIDE_BATCHES."""
+    images = [rng.uniform(-1, 1, (SSD_BATCH, 3, SSD_IMAGE, SSD_IMAGE))
+              .astype('float32') for _ in range(SSD_IMAGE_POOL)]
+    out = []
+    for step in range(SSD_STEPS):
+        counts = rng.randint(1, 9, SSD_BATCH)
+        if step in SSD_WIDE_BATCHES:
+            counts[step % SSD_BATCH] = rng.randint(9, 17)
+        gts = [_gt_rows(rng, int(n)) for n in counts]
+        out.append((images[step % SSD_IMAGE_POOL], [g[0] for g in gts],
+                    [g[1] for g in gts]))
+    return out
+
+
+def _ssd_feed(fluid, batch, rows=None, nudge=None):
+    images, boxes, labels = batch
+    rows = rows or len(boxes)
+    img = images[:rows]
+    if nudge is not None:
+        img = (img * (1 + RESNET_INPUT_NOISE * nudge[:rows])) \
+            .astype('float32')
+    return {'image': img, 'gt_box': _lod(fluid, boxes[:rows]),
+            'gt_label': _lod(fluid, labels[:rows])}
+
+
+def _det_card_against_cpu(what, main, loss, initial, feed_of, rows):
+    """Step 1 of `main` from `initial` at `rows` images on the card and on
+    the CPU, and on the CPU again with the images scaled by 1 +
+    RESNET_INPUT_NOISE * noise: the loss within max(RESNET_GRAD_TOL,
+    RESNET_GRAD_SPREAD x the nudge's move) and the gradients' median
+    relative L2 within RESNET_GRAD_SPREAD x the nudge's own (phase 7's
+    rule for ResNet-50). Returns the record."""
+    from paddle_tpu_torch import fluid
+    gnames = _autodiff_grads(main)
+    noise = np.random.RandomState(SEED).randn(rows, 3, SSD_IMAGE, SSD_IMAGE)
+    outs, secs = {}, {}
+    for where, place, nudge in (('card', fluid.CUDAPlace(0), None),
+                                ('cpu', fluid.CPUPlace(), None),
+                                ('nudged', fluid.CPUPlace(), noise)):
+        s = fluid.Scope()
+        s.load_numpy(initial, place)
+        t0 = time.perf_counter()
+        outs[where] = fluid.Executor(place).run(
+            main, feed=feed_of(rows, nudge), fetch_list=[loss] + gnames,
+            scope=s)
+        secs[where] = time.perf_counter() - t0
+    med_g, worst_g = _grad_spread(outs, gnames, 'card', 'cpu')
+    med_n, worst_n = _grad_spread(outs, gnames, 'nudged', 'cpu')
+    lc, lp, ln = (float(np.asarray(outs[w][0]).reshape(-1)[0])
+                  for w in ('card', 'cpu', 'nudged'))
+    loss_rel, loss_spread = abs(lc - lp) / abs(lp), abs(ln - lp) / abs(lp)
+    bad = [n for i, n in enumerate(gnames)
+           if not np.isfinite(outs['card'][1 + i]).all()]
+    rec = dict(rows=rows, cpu_s=secs['cpu'], card_s=secs['card'],
+               loss_card=lc, loss_cpu=lp, loss_rel=loss_rel,
+               loss_nudged_rel=loss_spread, grads=len(gnames),
+               grad_median_rel=med_g, grad_max_rel=worst_g[0],
+               grad_max_name=worst_g[1], nudged_median_rel=med_n,
+               nudged_max_rel=worst_n[0])
+    log('[detection] %s step 1 from the startup weights, card vs CPU at %d '
+        'images (CPU %.2f s): loss %.6f vs %.6f (relative %.3g; the '
+        'nudge moves it %.3g); %d gradients, |diff| / |cpu| (L2) median '
+        '%.3g, max %.3g (%s); the CPU against itself nudged by %g: median '
+        '%.3g, max %.3g' % (what, rows, secs['cpu'], lc, lp, loss_rel,
+                             loss_spread, len(gnames), med_g, worst_g[0],
+                             worst_g[1], RESNET_INPUT_NOISE, med_n,
+                             worst_n[0]))
+    if bad or not (loss_rel <= max(RESNET_GRAD_TOL,
+                                   RESNET_GRAD_SPREAD * loss_spread)
+                   and med_g <= RESNET_GRAD_SPREAD * med_n):
+        raise AssertionError(
+            '%s step 1, card vs CPU: loss %.3g (the nudge %.3g), gradients '
+            '%.3g against the CPU\'s own %.3g (tol %g x), non-finite %r'
+            % (what, loss_rel, loss_spread, med_g, med_n,
+               RESNET_GRAD_SPREAD, bad))
+    return rec
+
+
+def _ssd_priors(main):
+    """The training program's priors and variances, [P, 4] each on the
+    card, from its prior_box ops' rule."""
+    import torch
+    from paddle_tpu_torch.fluid import lowering
+    rule = lowering.get_rule('prior_box')
+    blk = main.global_block()
+    boxes, variances = [], []
+    for op in blk.ops:
+        if op.type != 'prior_box':
+            continue
+        fh, fw = blk.var(op.input('Input')[0]).shape[2:]
+        out = rule({'Input': [torch.zeros((1, 1, fh, fw)).cuda()],
+                    'Image': [torch.zeros((1, 1, SSD_IMAGE, SSD_IMAGE))
+                              .cuda()]}, op.attrs, None)
+        boxes.append(out['Boxes'].reshape(-1, 4))
+        variances.append(out['Variances'].reshape(-1, 4))
+    return torch.cat(boxes), torch.cat(variances)
+
+
+def _kernels_of(fn):
+    return sum(device_kernel_counts(fn).values())
+
+
+def _ssd_loss_alone(main, batch, rec):
+    """ssd_loss's rule alone at the step's shapes (its forward and
+    backward), and its matching alone, each captured and replayed: their
+    device ms and kernels beside the step's."""
+    import torch
+    from paddle_tpu_torch.fluid import lowering
+    from paddle_tpu_torch.fluid.lowering import Ctx, SeqValue
+    from paddle_tpu_torch.fluid.ops_impl import detection_ops
+    priors, pvar = _ssd_priors(main)
+    g = torch.Generator().manual_seed(SEED)
+    loc = torch.randn(SSD_BATCH, SSD_PRIORS, 4, generator=g).cuda() \
+        .requires_grad_()
+    conf = torch.randn(SSD_BATCH, SSD_PRIORS, SSD_CLASSES, generator=g) \
+        .cuda().requires_grad_()
+    _, boxes, labels = batch
+    width = 8
+    lens = torch.tensor([len(b) for b in boxes]).cuda()
+    gtb = torch.zeros(SSD_BATCH, width, 4)
+    gtl = torch.zeros(SSD_BATCH, width, 1, dtype=torch.int64)
+    for i, (b, lb) in enumerate(zip(boxes, labels)):
+        gtb[i, :len(b)] = torch.from_numpy(b)
+        gtl[i, :len(b)] = torch.from_numpy(lb)
+    gtb, gtl = gtb.cuda(), gtl.cuda()
+    ins = {'Loc': [loc], 'Conf': [conf], 'GtBox': [SeqValue(gtb, lens)],
+           'GtLabel': [SeqValue(gtl, lens)], 'PriorBox': [priors],
+           'PriorBoxVar': [pvar]}
+    rule = lowering.get_rule('ssd_loss')
+    ctx = Ctx(torch.device('cuda'))
+
+    def loss_fwd_bwd():
+        out = rule(ins, {}, ctx)['Loss']
+        torch.autograd.grad(out.sum(), [loc, conf])
+
+    valid = torch.arange(width, device=lens.device)[None] < lens[:, None]
+    dist = detection_ops._iou(gtb, priors).masked_fill(~valid[..., None],
+                                                       -1e9)
+
+    def matching():
+        detection_ops._match(dist, 'per_prediction', 0.5)
+
+    rec['ssd_loss_rule_ms'] = time_graph_ms(loss_fwd_bwd, iters=5)
+    rec['ssd_loss_rule_kernels'] = _kernels_of(loss_fwd_bwd)
+    rec['matching_ms'] = time_graph_ms(matching, iters=5)
+    rec['matching_kernels'] = _kernels_of(matching)
+
+
+def _ssd_training(rec):
+    """(a) MobileNet-SSD trained SSD_STEPS captured steps; the loss falls;
+    step 1 card against CPU; returns (scope, executor, the state after
+    training, the batches, launch counts)."""
+    import torch
+    from paddle_tpu_torch import fluid
+    t0 = time.perf_counter()
+    main, startup, loss = ssd_program(train=True)
+    rng = np.random.RandomState(SEED)
+    batches = _ssd_batches(rng)
+    feeds = [_ssd_feed(fluid, b) for b in batches]
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    exe.run(startup, scope=scope)
+    initial = scope.to_numpy()
+    n_ops = len(main.global_block().ops)
+    log('[detection] MobileNet-SSD (%d ops, %d parameters, %d priors, %d '
+        'classes): built, initialized and %d batches of %d made in %.2f s'
+        % (n_ops, len(main.all_parameters()), SSD_PRIORS, SSD_CLASSES,
+           SSD_STEPS, SSD_BATCH, time.perf_counter() - t0))
+    _reset_launch_counts()
+    losses, secs, pool = [], [], 0
+    for i, feed in enumerate(feeds):
+        if i == 1:
+            r0 = _reserved()
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(np.asarray(out[0]).reshape(-1)[0]))
+        if i == 1:
+            pool = _reserved() - r0
+    counts = _launch_counts()
+    stats = exe.cache_stats
+    replayed = [s for i, s in enumerate(secs)
+                if i >= 2 and i not in SSD_WIDE_BATCHES]
+    med = float(np.median(replayed))
+    first = float(np.mean(losses[:SSD_WINDOW]))
+    last = float(np.mean(losses[-SSD_WINDOW:]))
+    log('[detection] MobileNet-SSD losses %s'
+        % ', '.join('%.4f' % x for x in losses))
+    log('[detection] step seconds %s' % ', '.join('%.4f' % x for x in secs))
+    if not np.isfinite(losses).all() or not last < first:
+        raise AssertionError('MobileNet-SSD: the loss did not fall (mean '
+                             'of the first %d %.4f, the last %.4f): %r'
+                             % (SSD_WINDOW, first, last, losses))
+    if stats['captures'] < 2:
+        raise AssertionError('MobileNet-SSD: %r captures, want one a time '
+                             'bucket (8 and 16)' % (stats,))
+    busy, idle, wall, records = _device_busy(
+        lambda: exe.run(main, feed=feeds[2], fetch_list=[loss],
+                        scope=scope), 3)
+    rec['ssd_training'] = dict(
+        losses=losses, step_s=secs, median_replay_ms=med * 1e3,
+        images_per_s=SSD_BATCH / med, device_busy_ms=busy,
+        idle_share=1.0 - busy / (med * 1e3), traced_idle_share=idle,
+        kernels_per_replay=records, graph_pool_gb=pool / 1e9,
+        cache_stats=dict(stats), ops=n_ops)
+    _ssd_loss_alone(main, batches[2], rec['ssd_training'])
+    r = rec['ssd_training']
+    log('[detection] MobileNet-SSD batch %d: median replay %.4f ms (%.1f '
+        'images/s), device busy %.4f ms (idle %.3f of the replay), %.0f '
+        'kernels a replay, graph pool %.3f GB, %d captures (buckets 8 and '
+        '16); ssd_loss\'s rule alone (forward and backward) %.4f ms, %d '
+        'kernels (%.3f of the busy step), its matching %.4f ms, %d kernels'
+        % (SSD_BATCH, r['median_replay_ms'], r['images_per_s'], busy,
+           r['idle_share'], records, r['graph_pool_gb'], stats['captures'],
+           r['ssd_loss_rule_ms'], r['ssd_loss_rule_kernels'],
+           r['ssd_loss_rule_ms'] / busy, r['matching_ms'],
+           r['matching_kernels']))
+    noise_batch = batches[0]
+    rec['ssd_step1'] = _det_card_against_cpu(
+        'MobileNet-SSD', main, loss, initial,
+        lambda rows, nudge: _ssd_feed(fluid, noise_batch, rows, nudge),
+        SSD_CPU_BATCH)
+    state = scope.to_numpy()
+    del exe, scope
+    _release()
+    return state, counts
+
+
+def _nms_near_threshold(boxes, scores, attrs):
+    """{image: [(class, iou)]} of the pairs among each class's top-k
+    candidates whose IoU lies within SSD_NMS_TIE of the NMS threshold."""
+    import torch
+    from paddle_tpu_torch.fluid.ops_impl import detection_ops
+    thr, k = attrs['nms_threshold'], attrs['nms_top_k']
+    s = torch.from_numpy(scores).transpose(1, 2)           # [B, C, M]
+    b = torch.from_numpy(boxes)
+    out = {}
+    for i in range(s.shape[0]):
+        for c in range(1, s.shape[1]):
+            order = torch.argsort(-s[i, c], stable=True)[:k]
+            iou = detection_ops._iou(b[i, order], b[i, order])
+            near = ((iou - thr).abs() <= SSD_NMS_TIE).triu(1)
+            if near.any():
+                out.setdefault(i, []).append(
+                    (c, float(iou[near][0])))
+    return out
+
+
+def _map_labels(rng, rows):
+    """Ground truth an image for detection_map from the served rows: the
+    top 3 kept detections' labels and boxes moved by up to 0.03, and 2
+    random labelled boxes."""
+    out = []
+    for r in rows:
+        kept = r[r[:, 0] >= 0][:3]
+        box = np.clip(kept[:, 2:6] + rng.uniform(-0.03, 0.03,
+                                                 kept[:, 2:6].shape), 0, 1)
+        rb, rl = _gt_rows(rng, 2)
+        out.append(np.concatenate([
+            np.concatenate([kept[:, :1], box], 1),
+            np.concatenate([rl.astype('float32'), rb], 1)], 0)
+            .astype('float32'))
+    return out
+
+
+def _ssd_serving(tmp, state, rec):
+    """(a) The detection_output program served through Predictor on the
+    card: rows against the CPU rule, replay and NMS timings, mAP card
+    against CPU. Returns launch counts."""
+    import torch
+    from paddle_tpu_torch import fluid, inference
+    from paddle_tpu_torch.fluid import lowering
+    from paddle_tpu_torch.fluid.lowering import Ctx
+    from paddle_tpu_torch.fluid.ops_impl import detection_ops
+    main, startup, nmsed = ssd_program(train=False)
+    blk = main.global_block()
+    nms_op = [op for op in blk.ops if op.type == 'multiclass_nms'][0]
+    dec, sc = blk.var(nms_op.input('BBoxes')[0]), \
+        blk.var(nms_op.input('Scores')[0])
+    scope = fluid.Scope()
+    scope.load_numpy(state, fluid.CUDAPlace(0))
+    exe = fluid.Executor()
+    d = os.path.join(tmp, 'mobilenet_ssd')
+    fluid.io.save_inference_model(d, ['image'], [nmsed, dec, sc], exe,
+                                  main_program=main, scope=scope)
+    del scope, exe
+    rng = np.random.RandomState(SEED + 1)
+    images = [rng.uniform(-1, 1, (SSD_SERVE_BATCH, 3, SSD_IMAGE, SSD_IMAGE))
+              .astype('float32') for _ in range(SSD_MAP_BATCHES)]
+    pred = inference.Predictor(d)
+    _reset_launch_counts()
+    pool = _pool_of(lambda: pred.run({'image': images[0]}))
+    outs = [pred.run({'image': x}) for x in images]
+    counts = _launch_counts()
+    nms_rule = lowering.get_rule('multiclass_nms')
+    cpu_ctx = Ctx(torch.device('cpu'))
+    equal, excused = 0, {}
+    for rows, boxes, scores in outs:
+        if rows.shape != (SSD_SERVE_BATCH, SSD_NMS['keep_top_k'], 6) or \
+                not np.isfinite(rows).all() or rows[..., 0].min() < -1 or \
+                rows[..., 0].max() >= SSD_CLASSES:
+            raise AssertionError('served rows: shape %r, labels %r..%r'
+                                 % (rows.shape, rows[..., 0].min(),
+                                    rows[..., 0].max()))
+        want = nms_rule({'BBoxes': [torch.from_numpy(boxes)],
+                         'Scores': [torch.from_numpy(scores)]},
+                        nms_op.attrs, cpu_ctx)['Out'].numpy()
+        near = None
+        for i in range(SSD_SERVE_BATCH):
+            if np.array_equal(rows[i], want[i]):
+                equal += 1
+                continue
+            near = near if near is not None else \
+                _nms_near_threshold(boxes, scores, nms_op.attrs)
+            if i not in near:
+                bad = np.argwhere((rows[i] != want[i]).any(-1))[:, 0]
+                raise AssertionError(
+                    'image %d: the card\'s NMS rows %r differ from the CPU '
+                    'rule\'s on the same boxes and scores, and no IoU of '
+                    'its candidates lies within %g of the threshold: card '
+                    '%r, cpu %r' % (i, bad[:5].tolist(), SSD_NMS_TIE,
+                                    rows[i, bad[:2]], want[i, bad[:2]]))
+            excused[len(excused)] = near[i]
+    kept = float(np.mean([(r[0][..., 0] >= 0).sum(-1).mean() for r in outs]))
+    feed = {'image': images[0]}
+    timed = _in_turns({'replay': lambda: pred.run(feed)}, n=SSD_TIMED)
+    busy, idle, wall, records = _device_busy(lambda: pred.run(feed), 3)
+    # the multiclass_nms rule alone, and its suppression loop alone, on the
+    # card on the first batch's decoded boxes and scores
+    boxes = torch.from_numpy(outs[0][1]).cuda()
+    scores = torch.from_numpy(outs[0][2]).cuda()
+    ctx = Ctx(torch.device('cuda'))
+
+    def nms():
+        nms_rule({'BBoxes': [boxes], 'Scores': [scores]}, nms_op.attrs, ctx)
+
+    s = detection_ops._drop_class(scores.transpose(1, 2), 1, 0)
+    order = torch.argsort(-s, dim=-1, stable=True)[..., :SSD_NMS['nms_top_k']]
+    cand = torch.gather(boxes[:, None].expand(-1, s.shape[1], -1, -1), 2,
+                        order[..., None].expand(-1, -1, -1, 4))
+    iou = detection_ops._iou(cand, cand)
+    valid = torch.gather(s, -1, order) > SSD_NMS['score_threshold']
+
+    def loop():
+        detection_ops._nms_keep(iou, valid, SSD_NMS['nms_threshold'], 1.0)
+
+    nms_ms, loop_ms = time_graph_ms(nms, iters=3), time_graph_ms(loop, iters=3)
+    rec['ssd_serving'] = dict(
+        batch=SSD_SERVE_BATCH, rows_equal=equal,
+        rows_excused=excused, kept_rows_mean=kept,
+        replay_ms=timed['replay'], device_busy_ms=busy,
+        idle_share=1.0 - busy / timed['replay'], traced_idle_share=idle,
+        kernels_per_replay=records, graph_pool_gb=pool / 1e9,
+        nms_rule_ms=nms_ms, nms_rule_kernels=_kernels_of(nms),
+        nms_loop_ms=loop_ms, nms_loop_kernels=_kernels_of(loop),
+        nms_share_of_busy=nms_ms / busy)
+    r = rec['ssd_serving']
+    log('[detection] served MobileNet-SSD detection_output at batch %d: %d '
+        'of %d image rows equal to the CPU rule on the card\'s boxes and '
+        'scores, %d decided within %g of the threshold %r; %.1f kept rows '
+        'an image; replay %.4f ms (median of %d), device busy %.4f ms, '
+        '%.0f kernels a replay, graph pool %.3f GB; multiclass_nms alone '
+        '%.4f ms, %d kernels (%.3f of the busy replay), its suppression '
+        'loop %.4f ms, %d kernels'
+        % (SSD_SERVE_BATCH, equal, SSD_SERVE_BATCH * len(outs),
+           len(excused), SSD_NMS_TIE, excused, kept, r['replay_ms'],
+           SSD_TIMED, busy, records, r['graph_pool_gb'], nms_ms,
+           r['nms_rule_kernels'], r['nms_share_of_busy'], loop_ms,
+           r['nms_loop_kernels']))
+    _ssd_map([o[0] for o in outs], rng, rec)
+    del pred
+    _release()
+    return counts
+
+
+def _ssd_map(served, rng, rec):
+    """detection_map over the served batches through
+    fluid.metrics.DetectionMAP, card against CPU."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import unique_name
+    layers = fluid.layers
+    main, startup = _program_pair()
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        det = layers.data(name='det', shape=[SSD_NMS['keep_top_k'], 6])
+        gt = layers.data(name='gt', shape=[5], lod_level=1)
+        m = layers.detection_map(det, gt, class_num=SSD_CLASSES,
+                                 overlap_threshold=0.5)
+    exes = {'card': fluid.Executor(), 'cpu': fluid.Executor(fluid.CPUPlace())}
+    metrics = {w: fluid.metrics.DetectionMAP() for w in exes}
+    per = {w: [] for w in exes}
+    for rows in served:
+        labels = _map_labels(rng, rows)
+        feed = {'det': rows, 'gt': _lod(fluid, labels)}
+        for w, e in exes.items():
+            v = float(np.asarray(e.run(main, feed=feed, fetch_list=[m],
+                                       scope=fluid.Scope())[0]))
+            per[w].append(v)
+            metrics[w].update(v)
+    got, want = metrics['card'].eval(), metrics['cpu'].eval()
+    diff = max(abs(a - b) for a, b in zip(per['card'], per['cpu']))
+    map_op = [op for op in main.global_block().ops
+              if op.type == 'detection_map'][0]
+    loop_ms, loop_kernels = _map_rule_alone(served[-1], labels,
+                                            map_op.attrs)
+    rec['ssd_map'] = dict(card=got, cpu=want, per_batch_card=per['card'],
+                          per_batch_cpu=per['cpu'], max_abs_diff=diff,
+                          rule_ms=loop_ms, rule_kernels=loop_kernels)
+    log('[detection] detection_map (integral, overlap 0.5) over %d served '
+        'batches through DetectionMAP: card %.6f, CPU %.6f (per batch %s; '
+        'max |diff| %.3g, tol %g); the rule alone on a batch %.4f ms, %d '
+        'kernels' % (len(served), got, want,
+                     ', '.join('%.4f' % v for v in per['card']), diff,
+                     SSD_MAP_TOL, loop_ms, loop_kernels))
+    if not (0.0 < got <= 1.0 and diff <= SSD_MAP_TOL):
+        raise AssertionError('detection_map card %r, CPU %r, per batch '
+                             '%r / %r' % (got, want, per['card'],
+                                          per['cpu']))
+
+
+def _map_rule_alone(rows, labels, attrs):
+    """detection_map's rule alone on the card on one served batch (its
+    labels padded to the feeder's bucket of 8), captured and replayed:
+    (device ms, kernels)."""
+    import torch
+    from paddle_tpu_torch.fluid import lowering
+    from paddle_tpu_torch.fluid.lowering import Ctx, SeqValue
+    lab = np.zeros((len(labels), 8, 5), 'float32')
+    for i, r in enumerate(labels):
+        lab[i, :len(r)] = r
+    ins = {'DetectRes': [torch.from_numpy(rows).cuda()],
+           'Label': [SeqValue(torch.from_numpy(lab).cuda(), torch.tensor(
+               [len(r) for r in labels]).cuda())]}
+    rule = lowering.get_rule('detection_map')
+    ctx = Ctx(torch.device('cuda'))
+
+    def fn():
+        rule(ins, attrs, ctx)
+
+    return time_graph_ms(fn, iters=3), _kernels_of(fn)
+
+
+def _rpn(rec):
+    """(b) The RPN head: RPN_STEPS captured steps at RPN_BATCH, step 1
+    card against CPU. Returns launch counts."""
+    import torch
+    from paddle_tpu_torch import fluid
+    main, startup, loss = rpn_program()
+    rng = np.random.RandomState(SEED + 2)
+    images = rng.uniform(-1, 1, (RPN_BATCH, 3, SSD_IMAGE, SSD_IMAGE)) \
+        .astype('float32')
+    batches = [(images, [_gt_rows(rng, int(n), scale=SSD_IMAGE,
+                                  labels=False)
+                         for n in rng.randint(1, 9, RPN_BATCH)])
+               for _ in range(RPN_STEPS)]
+
+    def feed_of(batch, rows=None, nudge=None):
+        img, boxes = batch
+        rows = rows or len(boxes)
+        img = img[:rows]
+        if nudge is not None:
+            img = (img * (1 + RESNET_INPUT_NOISE * nudge[:rows])) \
+                .astype('float32')
+        return {'image': img, 'gt_box': _lod(fluid, boxes[:rows])}
+
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    exe.run(startup, scope=scope)
+    initial = scope.to_numpy()
+    _reset_launch_counts()
+    losses, secs = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feed_of(b), fetch_list=[loss], scope=scope)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(np.asarray(out[0]).reshape(-1)[0]))
+    counts = _launch_counts()
+    if not np.isfinite(losses).all() or exe.cache_stats['replays'] < 1:
+        raise AssertionError('RPN: losses %r, cache %r'
+                             % (losses, exe.cache_stats))
+    med = float(np.median(secs[2:]))
+    rec['rpn_training'] = dict(losses=losses, step_s=secs,
+                               median_replay_ms=med * 1e3,
+                               images_per_s=RPN_BATCH / med,
+                               anchors=RPN_ANCHORS)
+    log('[detection] RPN head (%d anchors) at batch %d: losses %s; median '
+        'replay %.4f ms (%.1f images/s)'
+        % (RPN_ANCHORS, RPN_BATCH, ', '.join('%.4f' % x for x in losses),
+           med * 1e3, RPN_BATCH / med))
+    rec['rpn_step1'] = _det_card_against_cpu(
+        'RPN head', main, loss, initial,
+        lambda rows, nudge: feed_of(batches[0], rows, nudge), RPN_CPU_BATCH)
+    del exe, scope
+    _release()
+    return counts
+
+
+def _vision_cases(rng):
+    """(op type, inputs, attrs, output slot, inputs to differentiate) of
+    the 14 rules at vision sizes."""
+    def f(*shape):
+        return rng.randn(*shape).astype('float32')
+
+    rois = np.concatenate([rng.randint(0, 2, (128, 1)),
+                           _gt_rows(rng, 128, scale=SSD_IMAGE,
+                                    labels=False)], 1).astype('float32')
+    probs = np.abs(f(8, 2, 64, 64))
+    probs /= probs.sum(1, keepdims=True)
+    one = dict(strides=[1, 1, 1], paddings=[1, 1, 1], dilations=[1, 1, 1],
+               groups=1)
+    return [
+        ('conv3d', {'Input': [f(2, 16, 16, 16, 16)],
+                    'Filter': [f(32, 16, 3, 3, 3)]}, one, 'Output',
+         ['Input', 'Filter']),
+        ('conv2d_transpose', {'Input': [f(8, 512, 19, 19)],
+                              'Filter': [f(512, 256, 4, 4)]},
+         dict(strides=[2, 2], paddings=[1, 1], dilations=[1, 1], groups=1),
+         'Output', ['Input', 'Filter']),
+        ('conv3d_transpose', {'Input': [f(2, 16, 8, 8, 8)],
+                              'Filter': [f(16, 8, 4, 4, 4)]},
+         dict(one, strides=[2, 2, 2]), 'Output', ['Input', 'Filter']),
+        ('pool3d', {'X': [f(2, 16, 16, 16, 16)]},
+         dict(pooling_type='max', ksize=[2, 2, 2], strides=[2, 2, 2],
+              paddings=[0, 0, 0]), 'Out', ['X']),
+        ('smooth_l1_loss', {'X': [f(16, 256, 4)], 'Y': [f(16, 256, 4)],
+                            'InsideWeight': [np.abs(f(16, 256, 4))],
+                            'OutsideWeight': [np.abs(f(16, 256, 4))]},
+         {'sigma': 3.0}, 'Out', ['X', 'Y']),
+        ('rank_loss', {'Label': [(rng.rand(256, 1) > 0.5)
+                                 .astype('float32')],
+                       'Left': [f(256, 1)], 'Right': [f(256, 1)]}, {},
+         'Out', ['Left', 'Right']),
+        ('dice_loss', {'X': [probs], 'Label': [(rng.rand(8, 2, 64, 64) > 0.5)
+                                               .astype('int64')]},
+         {'epsilon': 1e-5}, 'Out', ['X']),
+        ('huber_loss', {'X': [f(256, 1)], 'Y': [f(256, 1)]},
+         {'delta': 1.0}, 'Out', ['X', 'Y']),
+        ('lrn', {'X': [f(8, 96, 55, 55)]},
+         {'n': 5, 'k': 1.0, 'alpha': 1e-4, 'beta': 0.75}, 'Out', ['X']),
+        ('prelu', {'X': [f(8, 64, 38, 38)], 'Alpha': [f(1, 64, 1, 1)]},
+         {'mode': 'channel'}, 'Out', ['X', 'Alpha']),
+        ('bilinear_interp', {'X': [f(8, 256, 19, 19)]},
+         {'out_h': 38, 'out_w': 38}, 'Out', ['X']),
+        ('bilinear_interp', {'X': [f(8, 32, 150, 150)]},
+         {'out_h': 75, 'out_w': 75}, 'Out', ['X']),
+        ('nearest_interp', {'X': [f(8, 256, 19, 19)]},
+         {'out_h': 38, 'out_w': 38}, 'Out', ['X']),
+        ('roi_pool', {'X': [f(2, 512, 19, 19)], 'ROIs': [rois]},
+         {'pooled_height': 7, 'pooled_width': 7,
+          'spatial_scale': 1.0 / 16}, 'Out', ['X']),
+        ('mean_iou', {'Predictions': [rng.randint(0, SSD_CLASSES,
+                                                  (8, 64, 64))],
+                      'Labels': [rng.randint(0, SSD_CLASSES, (8, 64, 64))]},
+         {'num_classes': SSD_CLASSES}, 'OutMeanIou', []),
+    ]
+
+
+@contextlib.contextmanager
+def _sync_checked(on_card):
+    """torch.cuda.set_sync_debug_mode('error') inside the block on the card:
+    a rule that waits for the card there raises."""
+    import torch
+    if not on_card:
+        yield
+        return
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def _vision_rule(op_type, ins, attrs, slot, wrt, device, cot):
+    """The rule on `device` under the sync check (on the card), its output
+    and the VJP of sum(out * cot) for wrt, as numpy."""
+    import torch
+    from paddle_tpu_torch.fluid import lowering
+    from paddle_tpu_torch.fluid.lowering import Ctx
+    card = device == 'cuda'
+
+    def put(a):
+        t = torch.from_numpy(np.array(a))
+        return t.cuda() if card else t
+
+    tins = {s: [put(a) for a in vs] for s, vs in ins.items()}
+    leaves = [tins[s][0].requires_grad_() for s in wrt]
+    with _sync_checked(card):
+        outs = lowering.get_rule(op_type)(tins, attrs,
+                                          Ctx(torch.device(device)))
+    out = outs[slot]
+    grads = torch.autograd.grad((out * put(cot)).sum(), leaves) if wrt \
+        else []
+    extra = [outs[s].cpu().numpy() for s in ('OutWrong', 'OutCorrect')
+             if op_type == 'mean_iou']
+    return out.detach().cpu().numpy(), [g.cpu().numpy() for g in grads], \
+        extra
+
+
+def _vision_ops(rec):
+    """(c) Each of the 14 rules on the card against its CPU rule, forward
+    and VJP."""
+    rng = np.random.RandomState(SEED + 3)
+    rows = []
+    for op_type, ins, attrs, slot, wrt in _vision_cases(rng):
+        shape = _vision_rule(op_type, ins, attrs, slot, [], 'cpu',
+                             None)[0].shape
+        cot = np.asarray(rng.randn(*shape), 'float32')
+        cpu, cpu_g, cpu_x = _vision_rule(op_type, ins, attrs, slot, wrt,
+                                         'cpu', cot)
+        card, card_g, card_x = _vision_rule(op_type, ins, attrs, slot, wrt,
+                                            'cuda', cot)
+        err = float(np.abs(card - cpu).max()) / max(1.0,
+                                                    float(np.abs(cpu).max()))
+        gerr = max([float(np.abs(a - b).max()) / max(1.0, float(
+            np.abs(b).max())) for a, b in zip(card_g, cpu_g)] or [0.0])
+        exact = all(np.array_equal(a, b) for a, b in zip(card_x, cpu_x))
+        rows.append(dict(op=op_type, shape=list(card.shape), out_err=err,
+                         vjp_err=gerr, counts_equal=exact))
+        if not (err <= VISION_TOL and gerr <= VISION_TOL and exact):
+            raise AssertionError('%s on the card against the CPU rule: '
+                                 'output %.3g, VJP %.3g (tol %g), counts '
+                                 'equal %r' % (op_type, err, gerr,
+                                               VISION_TOL, exact))
+    rec['vision_ops'] = rows
+    log('[detection] the 14 vision rules, card against CPU (forward and '
+        'VJP, |diff| over max(1, |cpu|), tol %g): %s'
+        % (VISION_TOL, '; '.join('%s %s %.2g / %.2g' % (
+            r['op'], 'x'.join(map(str, r['shape'])), r['out_err'],
+            r['vjp_err']) for r in rows)))
+
+
+def phase_detection():
+    """Phase 7l: (a) MobileNet-SSD trained and served, mAP; (b) an RPN
+    head; (c) the 14 vision rules op by op. Returns {path: launch counts}
+    of ssd_training, ssd_serving and rpn_training (no kernel of the port
+    runs on them)."""
+    import torch
+    t0 = time.perf_counter()
+    rec = {}
+    counts = {}
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_detection_') as tmp:
+        state, counts['ssd_training'] = _ssd_training(rec)
+        counts['ssd_serving'] = _ssd_serving(tmp, state, rec)
+    del state
+    counts['rpn_training'] = _rpn(rec)
+    _vision_ops(rec)
+    torch.cuda.synchronize()
+    rec['seconds'] = time.perf_counter() - t0
+    rec['card'] = nvidia_smi_line()
+    log(json.dumps({'detection': rec}))
+    log('[detection] phase 7l took %.1f s' % rec['seconds'])
+    return counts
+
+
 # -- phase 8 ----------------------------------------------------------------
 
 def _to_host(tensors):
@@ -8796,6 +9659,7 @@ def main():
     import torch
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: no CUDA device is available')
+    t_start = time.perf_counter()
     import paddle_tpu_torch  # noqa: F401  (fails outside a checkout)
     from paddle_tpu_torch import ops
     log('[env] python %s, torch %s, CUDA %s, %d card(s): %s'
@@ -8819,6 +9683,7 @@ def main():
                         ('serving_stream', phase_serving_stream),
                         ('tier', phase_tier),
                         ('passes', phase_passes),
+                        ('detection', phase_detection),
                         ('captured', phase_captured)):
         _between_phases(name)
         t0 = time.perf_counter()
@@ -8866,6 +9731,7 @@ def main():
             library_ms=head['library_ms'], shape=head['shape'],
             **extra, cases=rs))
     log(json.dumps({'kernels': kernels}))
+    log('[time] the whole script took %.1f s' % (time.perf_counter() - t_start))
     log(nvidia_smi_line())
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

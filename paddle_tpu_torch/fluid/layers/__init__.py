@@ -1,6 +1,5 @@
-"""fluid.layers: the layer builders this slice of the port carries — those
-models/transformer.py, models/deepfm.py and their training steps call
-(parity: the JAX package's fluid/layers)."""
+"""fluid.layers: the layer builders the port carries (parity: the JAX
+package's fluid/layers)."""
 from . import nn
 from .nn import *  # noqa: F401,F403
 from . import ops
@@ -16,7 +15,9 @@ from .metric_op import *  # noqa: F401,F403
 from . import math_op_patch  # noqa: F401 (patches Variable operators)
 from . import learning_rate_scheduler
 from .learning_rate_scheduler import *  # noqa: F401,F403
+from . import detection
+from .detection import *  # noqa: F401,F403
 
 __all__ = nn.__all__ + ops.__all__ + tensor.__all__ + \
     control_flow.__all__ + io.__all__ + metric_op.__all__ + \
-    learning_rate_scheduler.__all__
+    learning_rate_scheduler.__all__ + detection.__all__

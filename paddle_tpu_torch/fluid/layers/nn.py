@@ -1,8 +1,8 @@
 """Neural-network layers. Parity: reference python/paddle/fluid/layers/nn.py
-and the JAX package's fluid/layers/nn.py — the dense, sequence and
+and the JAX package's fluid/layers/nn.py — the dense, vision, sequence and
 recurrent layers and the CRF/CTC layers whose rules the port carries (the
-detection and sampled layers wait for their slices). Each appends op
-symbols lowered by ops_impl/.
+detection layers are in layers/detection.py; nce, hsigmoid and moe_mlp
+wait for their slices). Each appends op symbols lowered by ops_impl/.
 """
 import numpy as np
 
@@ -27,12 +27,19 @@ __all__ = [
     'sequence_reshape', 'im2sequence', 'row_conv', 'lod_reset',
     'sequence_mask', 'linear_chain_crf', 'crf_decoding', 'chunk_eval',
     'ctc_greedy_decoder', 'edit_distance', 'warpctc', 'beam_search',
-    'beam_search_decode',
+    'beam_search_decode', 'conv3d', 'pool3d', 'conv2d_transpose',
+    'conv3d_transpose', 'smooth_l1', 'lrn', 'roi_pool', 'dice_loss',
+    'image_resize', 'resize_bilinear', 'image_resize_short', 'mean_iou',
+    'rank_loss', 'prelu',
 ]
 
 
 def _pair(v):
     return list(v) if isinstance(v, (list, tuple)) else [v, v]
+
+
+def _triple(v):
+    return list(v) if isinstance(v, (list, tuple)) else [v] * 3
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -1032,3 +1039,244 @@ def beam_search_decode(ids, scores, beam_size=None, end_id=0, parents=None,
                               "SentenceScores": [sentence_scores]},
                      attrs={'end_id': end_id})
     return sentence_ids, sentence_scores
+
+
+# -- the vision layers (the JAX layers/nn.py :448-1255) ---------------------
+
+def conv3d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=None, param_attr=None, bias_attr=None, use_cudnn=True,
+           use_mkldnn=False, act=None, name=None):
+    """reference nn.py:conv3d, NCDHW with an OIDHW filter."""
+    num_channels = input.shape[1]
+    helper = LayerHelper('conv3d', **locals())
+    dtype = helper.input_dtype()
+    groups = groups or 1
+    filter_size = _triple(filter_size)
+    filter_shape = [num_filters, num_channels // groups] + filter_size
+    std = (2.0 / (int(np.prod(filter_size)) * num_channels)) ** 0.5
+    filter_param = helper.create_parameter(
+        attr=helper.param_attr, shape=filter_shape, dtype=dtype,
+        default_initializer=Normal(0.0, std, 0))
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type='conv3d',
+        inputs={'Input': [input], 'Filter': [filter_param]},
+        outputs={"Output": [pre_bias]},
+        attrs={'strides': _triple(stride), 'paddings': _triple(padding),
+               'dilations': _triple(dilation), 'groups': groups})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def pool3d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, use_mkldnn=False, name=None):
+    helper = LayerHelper('pool3d', **locals())
+    dtype = helper.input_dtype()
+    pool_out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type='pool3d', inputs={"X": [input]}, outputs={"Out": [pool_out]},
+        attrs={"pooling_type": pool_type, "ksize": _triple(pool_size),
+               "global_pooling": global_pooling,
+               "strides": _triple(pool_stride),
+               "paddings": _triple(pool_padding), "ceil_mode": ceil_mode})
+    return pool_out
+
+
+def _conv_transpose(op_type, ntuple, input, num_filters, filter_size,
+                    padding, stride, dilation, groups, param_attr,
+                    bias_attr, act, name):
+    """A transposed convolution layer: filter [in_c, num_filters / groups,
+    *filter_size], then the bias and the activation."""
+    helper = LayerHelper(op_type, input=input, param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    groups = 1 if groups is None else groups
+    filter_shape = [input.shape[1], num_filters // groups] + filter_size
+    img_filter = helper.create_parameter(dtype=input.dtype,
+                                         shape=filter_shape,
+                                         attr=helper.param_attr)
+    pre_bias = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(
+        type=op_type,
+        inputs={'Input': [input], 'Filter': [img_filter]},
+        outputs={'Output': [pre_bias]},
+        attrs={'strides': ntuple(stride), 'paddings': ntuple(padding),
+               'dilations': ntuple(dilation), 'groups': groups})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, groups=None,
+                     param_attr=None, bias_attr=None, use_cudnn=True,
+                     act=None, name=None):
+    """reference nn.py:conv2d_transpose; without filter_size it is derived
+    from output_size."""
+    if filter_size is None:
+        if output_size is None:
+            raise ValueError("output_size must be set when filter_size is "
+                             "None")
+        output_size = _pair(output_size)
+        padding, stride, dilation = (_pair(padding), _pair(stride),
+                                     _pair(dilation))
+        filter_size = [
+            (output_size[i] - (input.shape[2 + i] - 1) * stride[i]
+             + 2 * padding[i] - 1) // dilation[i] + 1 for i in range(2)]
+    return _conv_transpose('conv2d_transpose', _pair, input, num_filters,
+                           _pair(filter_size), padding, stride, dilation,
+                           groups, param_attr, bias_attr, act, name)
+
+
+def conv3d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, groups=None,
+                     param_attr=None, bias_attr=None, use_cudnn=True,
+                     act=None, name=None):
+    if filter_size is None:
+        raise ValueError("filter_size is required for conv3d_transpose")
+    return _conv_transpose('conv3d_transpose', _triple, input, num_filters,
+                           _triple(filter_size), padding, stride, dilation,
+                           groups, param_attr, bias_attr, act, name)
+
+
+def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=None):
+    helper = LayerHelper('smooth_l1_loss', **locals())
+    diff = helper.create_variable_for_type_inference(dtype=x.dtype)
+    loss = helper.create_variable_for_type_inference(dtype=x.dtype)
+    inputs = {'X': [x], 'Y': [y]}
+    if inside_weight is not None:
+        inputs['InsideWeight'] = [inside_weight]
+    if outside_weight is not None:
+        inputs['OutsideWeight'] = [outside_weight]
+    helper.append_op(type='smooth_l1_loss', inputs=inputs,
+                     outputs={'Diff': [diff], 'Out': [loss]},
+                     attrs={'sigma': sigma if sigma is not None else 1.0})
+    return loss
+
+
+def lrn(input, n=5, k=1.0, alpha=1e-4, beta=0.75, name=None):
+    helper = LayerHelper('lrn', **locals())
+    dtype = helper.input_dtype()
+    if len(input.shape) != 4:
+        raise ValueError("Input of lrn must be 4-D (NCHW)")
+    mid_out = helper.create_variable_for_type_inference(dtype,
+                                                        stop_gradient=True)
+    lrn_out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type='lrn', inputs={'X': [input]},
+                     outputs={'Out': [lrn_out], 'MidOut': [mid_out]},
+                     attrs={'n': n, 'k': k, 'alpha': alpha, 'beta': beta})
+    return lrn_out
+
+
+def roi_pool(input, rois, pooled_height=1, pooled_width=1,
+             spatial_scale=1.0):
+    helper = LayerHelper('roi_pool', **locals())
+    dtype = helper.input_dtype()
+    pool_out = helper.create_variable_for_type_inference(dtype)
+    argmaxes = helper.create_variable_for_type_inference(dtype='int64')
+    helper.append_op(type="roi_pool",
+                     inputs={"X": [input], "ROIs": [rois]},
+                     outputs={"Out": [pool_out], "Argmax": [argmaxes]},
+                     attrs={"pooled_height": pooled_height,
+                            "pooled_width": pooled_width,
+                            "spatial_scale": spatial_scale})
+    return pool_out
+
+
+def dice_loss(input, label, epsilon=0.00001):
+    helper = LayerHelper('dice_loss', **locals())
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(type="dice_loss",
+                     inputs={"X": [input], "Label": [label]},
+                     outputs={"Out": [out]}, attrs={"epsilon": epsilon})
+    return out
+
+
+def image_resize(input, out_shape=None, scale=None, name=None,
+                 resample='BILINEAR'):
+    resample_methods = {'BILINEAR': 'bilinear_interp',
+                        'NEAREST': 'nearest_interp'}
+    if resample not in resample_methods:
+        raise ValueError("resample must be BILINEAR or NEAREST")
+    if out_shape is None and scale is None:
+        raise ValueError("one of out_shape and scale must be set")
+    helper = LayerHelper(resample_methods[resample], **locals())
+    dtype = helper.input_dtype()
+    inputs = {"X": [input]}
+    if out_shape is not None:
+        if isinstance(out_shape, Variable):
+            inputs['OutSize'] = [out_shape]
+            out_h = out_w = 0
+        else:
+            out_h, out_w = int(out_shape[0]), int(out_shape[1])
+    else:
+        out_h = int(input.shape[2] * scale)
+        out_w = int(input.shape[3] * scale)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type=resample_methods[resample], inputs=inputs,
+                     outputs={"Out": [out]},
+                     attrs={"out_h": out_h, "out_w": out_w},
+                     infer_shape='OutSize' not in inputs)
+    return out
+
+
+def resize_bilinear(input, out_shape=None, scale=None, name=None):
+    return image_resize(input, out_shape, scale, name, 'BILINEAR')
+
+
+def image_resize_short(input, out_short_len, resample='BILINEAR'):
+    """Resize so the shorter side is out_short_len, the aspect kept."""
+    in_shape = input.shape
+    if len(in_shape) != 4:
+        raise ValueError("image_resize_short needs a 4-D (NCHW) input")
+    hw = list(in_shape[2:4])
+    short_idx = hw.index(min(hw))
+    out_shape = list(hw)
+    out_shape[short_idx] = out_short_len
+    out_shape[1 - short_idx] = int(
+        float(out_shape[1 - short_idx]) *
+        (float(out_short_len) / float(hw[short_idx])) + 0.5)
+    return image_resize(input=input, out_shape=out_shape, resample=resample)
+
+
+def mean_iou(input, label, num_classes):
+    helper = LayerHelper('mean_iou', **locals())
+    out_mean_iou = helper.create_variable_for_type_inference(dtype='float32')
+    out_wrong = helper.create_variable_for_type_inference(dtype='int64')
+    out_correct = helper.create_variable_for_type_inference(dtype='int64')
+    helper.append_op(type="mean_iou",
+                     inputs={"Predictions": [input], "Labels": [label]},
+                     outputs={"OutMeanIou": [out_mean_iou],
+                              "OutWrong": [out_wrong],
+                              "OutCorrect": [out_correct]},
+                     attrs={"num_classes": num_classes})
+    return out_mean_iou, out_wrong, out_correct
+
+
+def rank_loss(label, left, right, name=None):
+    helper = LayerHelper('rank_loss', **locals())
+    out = helper.create_variable_for_type_inference("float32")
+    helper.append_op(type='rank_loss',
+                     inputs={"Label": [label], "Left": [left],
+                             "Right": [right]},
+                     outputs={'Out': [out]})
+    return out
+
+
+def prelu(x, mode, param_attr=None, name=None):
+    helper = LayerHelper('prelu', **locals())
+    if mode not in ['all', 'channel', 'element']:
+        raise ValueError('mode should be one of all, channel, element')
+    alpha_shape = [1]
+    if mode == 'channel':
+        alpha_shape = [1, x.shape[1], 1, 1]
+    elif mode == 'element':
+        alpha_shape = list(x.shape)
+        alpha_shape[0] = 1
+    alpha = helper.create_parameter(attr=ParamAttr.to_attr(param_attr),
+                                    shape=alpha_shape, dtype='float32',
+                                    is_bias=False,
+                                    default_initializer=Constant(1.0))
+    out = helper.create_variable_for_type_inference('float32')
+    helper.append_op(type="prelu", inputs={"X": [x], 'Alpha': [alpha]},
+                     attrs={"mode": mode}, outputs={"Out": [out]})
+    return out

@@ -15,3 +15,4 @@ from . import crf_ctc_ops  # noqa: F401
 from . import block_ops  # noqa: F401
 from . import control_ops  # noqa: F401
 from . import quant_ops  # noqa: F401
+from . import detection_ops  # noqa: F401

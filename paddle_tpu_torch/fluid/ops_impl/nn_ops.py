@@ -1,14 +1,18 @@
 """Conv / pool / normalization / dropout / loss / metric / attention rules.
 
-Parity: the JAX package's fluid/ops_impl/nn_ops.py (conv2d :23, pool2d
-:157 with _pool :119, batch_norm :180, layer_norm :219, dropout :240,
-softmax :253, cross_entropy :259, softmax_with_cross_entropy :276,
-sigmoid_cross_entropy_with_logits :292, accuracy :348, auc :366,
-im2sequence :508, flash_attention :529). The JAX package computes convolutions, pools and
-batch norm outside any Pallas kernel (lax.conv_general_dilated,
-lax.reduce_window, jnp arithmetic); here they are torch.nn.functional's
-library calls, cuDNN on the card, under the port's TF32-off rule
-(fluid/core.py). Under AMP conv2d and flash_attention take bf16 operands
+Parity: the JAX package's fluid/ops_impl/nn_ops.py, every rule of it:
+conv2d :23, conv3d :52, conv2d_transpose :68, conv3d_transpose :101,
+pool2d :157 and pool3d :169 with _pool :119, batch_norm :180, layer_norm
+:219, dropout :240, softmax :253, cross_entropy :259,
+softmax_with_cross_entropy :276, sigmoid_cross_entropy_with_logits :292,
+smooth_l1_loss :300, rank_loss :317, dice_loss :327, huber_loss :338,
+accuracy :348, auc :366, lrn :393, prelu :408, bilinear_interp :427 and
+nearest_interp :438 with _resize :422, roi_pool :445, mean_iou :491,
+im2sequence :508, flash_attention :529. The JAX package computes
+convolutions, pools, resizes and batch norm outside any Pallas kernel
+(lax.conv_general_dilated, lax.reduce_window, jax.image.resize, jnp
+arithmetic); here they are torch.nn.functional's library calls, cuDNN on
+the card, under the port's TF32-off rule (fluid/core.py). Under AMP conv2d and flash_attention take bf16 operands
 (lowering.amp_cast), as the JAX rules do; a bf16 tower's pools, norms,
 softmax and loss then see bf16 activations.
 """
@@ -17,10 +21,15 @@ import torch.nn.functional as F
 
 from ... import ops
 from ..lowering import SeqValue, register, data_of, like, amp_cast
+from .math_ops import _abs
+
+
+def _ntuple(v, n):
+    return tuple(v) if isinstance(v, (list, tuple)) else (v,) * n
 
 
 def _pair(v):
-    return tuple(v) if isinstance(v, (list, tuple)) else (v, v)
+    return _ntuple(v, 2)
 
 
 def _to_nchw(x, fmt):
@@ -61,39 +70,106 @@ def _conv2d(ins, attrs, ctx):
     return {'Output': back(out.to(x.dtype))}
 
 
+@register('conv3d')
+def _conv3d(ins, attrs, ctx):
+    """NCDHW, filter OIDHW (the JAX :52-65)."""
+    x = data_of(ins['Input'][0])
+    w = data_of(ins['Filter'][0])
+    return {'Output': F.conv3d(
+        x, w.to(x.dtype), stride=_ntuple(attrs.get('strides', 1), 3),
+        padding=_ntuple(attrs.get('paddings', 0), 3),
+        dilation=_ntuple(attrs.get('dilations', 1), 3),
+        groups=attrs.get('groups', 1) or 1)}
+
+
+@register('conv2d_transpose')
+def _conv2d_transpose(ins, attrs, ctx):
+    """reference operators/conv_transpose_op.cc; the JAX :68-98 computes
+    it as an lhs-dilated convolution. Filter [in_c, out_c / groups, kh,
+    kw], torch's own layout for a transposed convolution; the output is
+    (H - 1) * stride - 2 * pad + dilation * (k - 1) + 1 on both sides."""
+    x = data_of(ins['Input'][0])
+    w = data_of(ins['Filter'][0])
+    return {'Output': F.conv_transpose2d(
+        x, w.to(x.dtype), stride=_pair(attrs.get('strides', 1)),
+        padding=_pair(attrs.get('paddings', 0)),
+        groups=attrs.get('groups', 1) or 1,
+        dilation=_pair(attrs.get('dilations', 1)))}
+
+
+@register('conv3d_transpose')
+def _conv3d_transpose(ins, attrs, ctx):
+    """The JAX :101-116, which ignores `groups`: every input channel feeds
+    each of the filter's out_c / groups outputs, as here."""
+    x = data_of(ins['Input'][0])
+    w = data_of(ins['Filter'][0])
+    return {'Output': F.conv_transpose3d(
+        x, w.to(x.dtype), stride=_ntuple(attrs.get('strides', 1), 3),
+        padding=_ntuple(attrs.get('paddings', 0), 3),
+        dilation=_ntuple(attrs.get('dilations', 1), 3))}
+
+
+_MAX_POOL = {2: F.max_pool2d, 3: F.max_pool3d}
+_AVG_POOL = {2: F.avg_pool2d, 3: F.avg_pool3d}
+
+
+def _window_pool(x, pool_type, ksize, strides, pads, ceil_mode, exclusive):
+    """Max or average pooling of x [N, C, *spatial] over len(ksize) dims,
+    as the JAX rule's reduce_window (:119-154): ceil_mode pads stride - 1
+    more at the end of each dim (torch's ceil_mode drops a window that
+    starts in the padding, so the padding is explicit here); an exclusive
+    average divides each window by its count of positions inside the
+    input."""
+    nd = len(ksize)
+    extra = [s - 1 for s in strides] if ceil_mode else [0] * nd
+    pad = ()
+    for p, e in reversed(list(zip(pads, extra))):    # F.pad: last dim first
+        pad += (p, p + e)
+    if pool_type == 'max':
+        if any(pad):
+            x = F.pad(x, pad, value=float('-inf'))
+        return _MAX_POOL[nd](x, ksize, strides)
+    if not any(pad):
+        return _AVG_POOL[nd](x, ksize, strides)
+    out = _AVG_POOL[nd](F.pad(x, pad), ksize, strides)
+    if exclusive:
+        # the share of each window inside the input, from a ones volume:
+        # the same for every sample and channel
+        ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype,
+                          device=x.device)
+        out = out / _AVG_POOL[nd](F.pad(ones, pad), ksize, strides)
+    return out
+
+
+def _pool_attrs(x, attrs, nd):
+    """(ksize, strides, paddings) of a pool op over x's nd trailing dims;
+    global pooling takes the whole volume."""
+    if attrs.get('global_pooling', False):
+        return tuple(x.shape[2:]), (1,) * nd, (0,) * nd
+    return (_ntuple(attrs['ksize'], nd), _ntuple(attrs.get('strides', 1), nd),
+            _ntuple(attrs.get('paddings', 0), nd))
+
+
 @register('pool2d')
 def _pool2d(ins, attrs, ctx):
-    """Max or average pooling as the JAX rule's reduce_window (:119-154):
-    global pooling takes the whole plane; ceil_mode pads stride - 1 more
-    on the bottom and right (torch's ceil_mode drops a window that starts
-    in the padding, so the padding is explicit here); an exclusive average
-    divides each window by its count of positions inside the input."""
+    """NCHW or NHWC (`data_format`) through _window_pool."""
     x = data_of(ins['X'][0])
     xc, back = _to_nchw(x, attrs.get('data_format', 'NCHW'))
-    if attrs.get('global_pooling', False):
-        ksize, strides, pads = tuple(xc.shape[2:]), (1, 1), (0, 0)
-    else:
-        ksize = _pair(attrs['ksize'])
-        strides = _pair(attrs.get('strides', 1))
-        pads = _pair(attrs.get('paddings', 0))
-    extra = [s - 1 for s in strides] if attrs.get('ceil_mode', False) \
-        else [0, 0]
-    # F.pad's order: (left, right, top, bottom)
-    pad = (pads[1], pads[1] + extra[1], pads[0], pads[0] + extra[0])
-    if attrs.get('pooling_type', 'max') == 'max':
-        if any(pad):
-            xc = F.pad(xc, pad, value=float('-inf'))
-        return {'Out': back(F.max_pool2d(xc, ksize, strides))}
-    if not any(pad):
-        return {'Out': back(F.avg_pool2d(xc, ksize, strides))}
-    out = F.avg_pool2d(F.pad(xc, pad), ksize, strides)
-    if attrs.get('exclusive', True):
-        # the share of each window inside the input, from a ones plane:
-        # the same for every sample and channel
-        ones = torch.ones((1, 1) + tuple(xc.shape[2:]), dtype=xc.dtype,
-                          device=xc.device)
-        out = out / F.avg_pool2d(F.pad(ones, pad), ksize, strides)
+    out = _window_pool(xc, attrs.get('pooling_type', 'max'),
+                       *_pool_attrs(xc, attrs, 2),
+                       attrs.get('ceil_mode', False),
+                       attrs.get('exclusive', True))
     return {'Out': back(out)}
+
+
+@register('pool3d')
+def _pool3d(ins, attrs, ctx):
+    """NCDHW pooling, the JAX :169-177."""
+    x = data_of(ins['X'][0])
+    return {'Out': _window_pool(x, attrs.get('pooling_type', 'max'),
+                                *_pool_attrs(x, attrs, 3),
+                                attrs.get('ceil_mode', False),
+                                attrs.get('exclusive', True))}
 
 
 @register('batch_norm')
@@ -294,6 +370,204 @@ def _auc(ins, attrs, ctx):
     denom = torch.clamp_min(tot_pos[-1] * tot_neg[-1], 1.0)
     return {'AUC': (area / denom).to(torch.float32),
             'StatPosOut': new_pos, 'StatNegOut': new_neg}
+
+
+@register('smooth_l1_loss')
+def _smooth_l1(ins, attrs, ctx):
+    """The JAX :300-314: per-row sums of the smooth L1 of (X - Y) *
+    InsideWeight, quadratic below 1 / sigma^2, times OutsideWeight; Out
+    [N, 1], Diff the weighted difference."""
+    x = data_of(ins['X'][0])
+    y = data_of(ins['Y'][0])
+    sigma = attrs.get('sigma', 1.0)
+    s2 = sigma * sigma
+    d = x - y
+    if ins.get('InsideWeight'):
+        d = d * data_of(ins['InsideWeight'][0])
+    ad = _abs(d)
+    loss = torch.where(ad < 1.0 / s2, 0.5 * s2 * d * d, ad - 0.5 / s2)
+    if ins.get('OutsideWeight'):
+        loss = loss * data_of(ins['OutsideWeight'][0])
+    return {'Out': loss.reshape(loss.shape[0], -1).sum(1, keepdim=True),
+            'Diff': d}
+
+
+@register('rank_loss')
+def _rank_loss(ins, attrs, ctx):
+    label = data_of(ins['Label'][0])
+    d = data_of(ins['Left'][0]) - data_of(ins['Right'][0])
+    return {'Out': torch.log1p(torch.exp(d)) - label * d}
+
+
+@register('dice_loss')
+def _dice_loss(ins, attrs, ctx):
+    """X: probabilities; the mean over the batch of 1 - (2 |X L| + eps) /
+    (|X| + |L| + eps), a 0-d Out."""
+    x = data_of(ins['X'][0])
+    label = data_of(ins['Label'][0]).to(x.dtype)
+    eps = attrs.get('epsilon', 1e-5)
+    red = tuple(range(1, x.ndim))
+    inter = 2.0 * torch.sum(x * label, dim=red)
+    union = torch.sum(x, dim=red) + torch.sum(label, dim=red)
+    return {'Out': torch.mean(1.0 - (inter + eps) / (union + eps))}
+
+
+@register('huber_loss')
+def _huber_loss(ins, attrs, ctx):
+    x = data_of(ins['X'][0])
+    y = data_of(ins['Y'][0])
+    delta = attrs.get('delta', 1.0)
+    d = _abs(y - x)
+    loss = torch.where(d <= delta, 0.5 * d * d, delta * (d - 0.5 * delta))
+    return {'Out': loss, 'Residual': y - x}
+
+
+@register('lrn')
+def _lrn(ins, attrs, ctx):
+    """Cross-channel local response normalization of NCHW x (the JAX
+    :393-405): x / (k + alpha * sum of n neighbouring squares)^beta,
+    the window summed in the JAX rule's order."""
+    x = data_of(ins['X'][0])
+    n = attrs.get('n', 5)
+    half = n // 2
+    sq = F.pad(x * x, (0, 0, 0, 0, half, half))
+    acc = sum(sq[:, i:i + x.shape[1]] for i in range(n))
+    mid = attrs.get('k', 2.0) + attrs.get('alpha', 1e-4) * acc
+    return {'Out': x / torch.pow(mid, attrs.get('beta', 0.75)),
+            'MidOut': mid}
+
+
+@register('prelu')
+def _prelu(ins, attrs, ctx):
+    """where(x >= 0, x, alpha * x): alpha one scalar ('all'), one a
+    channel ('channel') or one an element of a sample ('element')."""
+    x = data_of(ins['X'][0])
+    alpha = data_of(ins['Alpha'][0])
+    mode = attrs.get('mode', 'all')
+    if mode == 'all':
+        a = alpha.reshape(())
+    elif mode == 'channel':
+        a = alpha.reshape((1, -1) + (1,) * (x.ndim - 2))
+    else:
+        a = alpha.reshape((1,) + tuple(x.shape[1:]))
+    return {'Out': torch.where(x >= 0, x, a * x)}
+
+
+def _nearest_index(n_in, n_out, device):
+    """Source rows of a half-pixel nearest resize of one dim, computed as
+    jax.image.resize computes them (floor of (i + 0.5) * n_in / n_out in
+    fp32)."""
+    pos = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) \
+        * n_in / n_out
+    return torch.floor(pos).long()
+
+
+def _resize(x, out_h, out_w, method):
+    """jax.image.resize of NCHW x to [out_h, out_w] (the JAX :422-424).
+    Bilinear there is a triangle filter at half-pixel centres, widened by
+    the scale on a downscale (antialias, its default) and normalized:
+    F.interpolate's antialiased bilinear computes the same weights, up
+    and down. Nearest takes each output's source row and column as JAX
+    does (torch's 'nearest-exact' rounds its scale another way)."""
+    if method == 'bilinear':
+        return F.interpolate(x, size=(out_h, out_w), mode='bilinear',
+                             align_corners=False, antialias=True)
+    for dim, n_out in ((2, out_h), (3, out_w)):
+        if x.shape[dim] != n_out:
+            x = x.index_select(dim, _nearest_index(x.shape[dim], n_out,
+                                                   x.device))
+    return x
+
+
+@register('bilinear_interp')
+def _bilinear_interp(ins, attrs, ctx):
+    if ins.get('OutSize'):
+        raise ValueError(
+            'image_resize with a runtime OutSize tensor has a data-'
+            'dependent shape, which a captured step cannot hold; pass a '
+            'static out_shape list')
+    return {'Out': _resize(data_of(ins['X'][0]), attrs['out_h'],
+                           attrs['out_w'], 'bilinear')}
+
+
+@register('nearest_interp')
+def _nearest_interp(ins, attrs, ctx):
+    return {'Out': _resize(data_of(ins['X'][0]), attrs['out_h'],
+                           attrs['out_w'], 'nearest')}
+
+
+@register('roi_pool')
+def _roi_pool(ins, attrs, ctx):
+    """reference operators/roi_pool_op.cc; the JAX :445-488, every ROI at
+    once. ROIs [R, 4] (x1, y1, x2, y2) on image 0, or [R, 5] with the
+    image index first. Each pixel of a ROI's rounded box falls in one of
+    pooled_height x pooled_width bins, and a bin is the max of its pixels
+    (a scatter-max from -inf, whose gradient splits a tie evenly, as
+    JAX's scatter-max does); an empty bin is 0."""
+    x = data_of(ins['X'][0])
+    rois = data_of(ins['ROIs'][0])
+    ph, pw = attrs['pooled_height'], attrs['pooled_width']
+    scale = attrs.get('spatial_scale', 1.0)
+    n, c, h, w = x.shape
+    dev = x.device
+    if rois.shape[-1] == 5:
+        bid = rois[:, 0].long()
+        boxes = rois[:, 1:]
+    else:
+        bid = torch.zeros((rois.shape[0],), dtype=torch.int64, device=dev)
+        boxes = rois
+    # JAX's x[bid]: an index below 0 wraps once, any other is clamped
+    bid = torch.where(bid < 0, bid + n, bid).clamp(0, n - 1)
+    img = x.index_select(0, bid)                          # [R, C, H, W]
+    r = img.shape[0]
+    x1, y1, x2, y2 = (torch.round(boxes[:, i] * scale).long()
+                      for i in range(4))
+    rh = torch.clamp_min(y2 - y1 + 1, 1).to(torch.float32)
+    rw = torch.clamp_min(x2 - x1 + 1, 1).to(torch.float32)
+    ys = torch.arange(h, device=dev)
+    xs = torch.arange(w, device=dev)
+    ybin = torch.floor((ys[None] - y1[:, None]).to(torch.float32)
+                       / (rh / ph)[:, None]).long().clamp(0, ph - 1)
+    xbin = torch.floor((xs[None] - x1[:, None]).to(torch.float32)
+                       / (rw / pw)[:, None]).long().clamp(0, pw - 1)
+    inside = (((ys[None] >= y1[:, None]) & (ys[None] <= y2[:, None]))
+              [:, :, None]
+              & ((xs[None] >= x1[:, None]) & (xs[None] <= x2[:, None]))
+              [:, None, :])                               # [R, H, W]
+    masked = torch.where(inside[:, None], img,
+                         img.new_full((), float('-inf')))
+    bins = (ybin[:, :, None] * pw + xbin[:, None, :]).reshape(r, 1, h * w)
+    out = img.new_full((r, c, ph * pw), float('-inf')).scatter_reduce(
+        2, bins.expand(r, c, h * w), masked.reshape(r, c, h * w), 'amax',
+        include_self=True).reshape(r, c, ph, pw)
+    return {'Out': torch.where(torch.isfinite(out), out,
+                               out.new_zeros(())),
+            'Argmax': None}
+
+
+@register('mean_iou')
+def _mean_iou(ins, attrs, ctx):
+    """The JAX :491-505 over the confusion counts of label * num_classes +
+    prediction (a flat index below 0 wraps once and one past the end is
+    dropped, as JAX's scatter-add does). OutWrong and OutCorrect are int64
+    counts; the JAX rule carries them as float32."""
+    pred = data_of(ins['Predictions'][0]).reshape(-1).long()
+    label = data_of(ins['Labels'][0]).reshape(-1).long()
+    nc = attrs['num_classes']
+    idx = label * nc + pred
+    idx = torch.where(idx < 0, idx + nc * nc, idx)
+    ok = (idx >= 0) & (idx < nc * nc)
+    cm = torch.zeros((nc * nc,), dtype=torch.int64, device=pred.device) \
+        .index_add_(0, idx.clamp(0, nc * nc - 1), ok.long()).reshape(nc, nc)
+    inter = torch.diagonal(cm)
+    union = cm.sum(0) + cm.sum(1) - inter
+    valid = union > 0
+    iou = torch.where(valid, inter.to(torch.float32)
+                      / torch.clamp_min(union, 1).to(torch.float32),
+                      torch.zeros((), device=pred.device))
+    mean = iou.sum() / torch.clamp_min(valid.sum(), 1).to(torch.float32)
+    return {'OutMeanIou': mean, 'OutWrong': cm.sum(1) - inter,
+            'OutCorrect': inter}
 
 
 @register('im2sequence')

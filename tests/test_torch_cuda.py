@@ -3270,3 +3270,175 @@ def test_amp_pass_step_launches_the_bf16_attention_kernels(card):
     b = float(np.asarray(losses['default']).reshape(()))
     ulp = 2.0 ** (np.floor(np.log2(abs(a))) - 7)
     assert abs(a - b) <= ulp, (a, b)
+
+
+# -- detection ----------------------------------------------------------------
+
+def _det_rule(op_type, ins, attrs, device):
+    """The rule on `device` (on the card under sync debug: no host read);
+    a lod input is a (data, lengths) pair."""
+    from paddle_tpu_torch.fluid import lowering
+    from paddle_tpu_torch.fluid.lowering import SeqValue
+
+    def put(a):
+        if isinstance(a, tuple):
+            return SeqValue(put(a[0]), put(a[1]))
+        return a.to(device)
+
+    dev = {k: [put(a) for a in vs] for k, vs in ins.items()}
+    if device.type != 'cuda':
+        return dev, lowering.get_rule(op_type)(dev, attrs,
+                                               lowering.Ctx(device))
+    torch.cuda.synchronize()
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        return dev, lowering.get_rule(op_type)(dev, attrs,
+                                               lowering.Ctx(device))
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+def _boxes_t(g, *shape):
+    xy = torch.rand(shape + (2,), generator=g) * 0.75
+    wh = 0.05 + torch.rand(shape + (2,), generator=g) * 0.3
+    return torch.cat([xy, xy + wh], -1)
+
+
+def _nms_case(tied):
+    """The served MobileNet-SSD's NMS input: 8 images, 2,278 decoded boxes,
+    21 classes' softmax scores [B, M, C]; tied: repeated boxes and
+    scores."""
+    g = torch.Generator().manual_seed(25)
+    boxes = _boxes_t(g, 8, 2278)
+    scores = torch.softmax(4 * torch.randn(8, 2278, 21, generator=g), -1)
+    if tied:
+        boxes[:, 1::7] = boxes[:, ::7][:, :boxes[:, 1::7].shape[1]]
+        scores[:, 1::7] = scores[:, ::7][:, :scores[:, 1::7].shape[1]]
+        scores[:, 100:140, 3] = scores[:, 99:100, 3]
+    return {'BBoxes': [boxes], 'Scores': [scores]}
+
+
+NMS_ATTRS = dict(nms_threshold=0.45, nms_top_k=400, keep_top_k=200,
+                 score_threshold=0.01, scores_layout='BMC')
+
+
+@pytest.mark.parametrize('tied', [False, True])
+def test_multiclass_nms_card_against_cpu(card, tied):
+    """At the served SSD's sizes, under sync debug: rows equal to the CPU
+    rule's (ties included: stable sorts, first-max argmaxes)."""
+    ins = _nms_case(tied)
+    _, want = _det_rule('multiclass_nms', ins, NMS_ATTRS,
+                        torch.device('cpu'))
+    _, got = _det_rule('multiclass_nms', ins, NMS_ATTRS, card)
+    assert torch.equal(got['Out'].cpu(), want['Out'])
+    assert (want['Out'][..., 0] >= 1).sum() > 100
+
+
+def test_multiclass_nms_replay_is_bitwise_its_eager_walk(card):
+    """The rule captured in a CUDA graph and replayed on new inputs copied
+    into its static ones: bitwise an eager call on those inputs."""
+    from paddle_tpu_torch.fluid import lowering
+    rule = lowering.get_rule('multiclass_nms')
+    ctx = lowering.Ctx(card)
+    static = {k: [t.to(card) for t in vs]
+              for k, vs in _nms_case(False).items()}
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        rule(static, NMS_ATTRS, ctx)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = rule(static, NMS_ATTRS, ctx)['Out']
+    fresh = _nms_case(True)
+    for k in static:
+        static[k][0].copy_(fresh[k][0])
+    graph.replay()
+    torch.cuda.synchronize()
+    eager = rule({k: [t.to(card) for t in vs] for k, vs in fresh.items()},
+                 NMS_ATTRS, ctx)['Out']
+    assert torch.equal(out, eager)
+
+
+def _ssd_loss_case():
+    """The trained SSD's ssd_loss input at batch 32: 2,278 priors, 21
+    classes, gt in the 16 bucket, one image with none, one with 16."""
+    g = torch.Generator().manual_seed(26)
+    b, p, c, w = 32, 2278, 21, 16
+    lens = torch.randint(1, 9, (b,), generator=g)
+    lens[0], lens[1] = 0, 16
+    priors = _boxes_t(g, p)
+    priors[1] = priors[0]
+    gt = _boxes_t(g, b, w)
+    gt[2, 0] = priors[0]
+    return {'Loc': [torch.randn(b, p, 4, generator=g)],
+            'Conf': [torch.randn(b, p, c, generator=g)],
+            'GtBox': [(gt, lens)],
+            'GtLabel': [(torch.randint(1, c, (b, w, 1), generator=g), lens)],
+            'PriorBox': [priors],
+            'PriorBoxVar': [torch.tensor([[0.1, 0.1, 0.2, 0.2]]).repeat(p, 1)]}
+
+
+def test_ssd_loss_card_against_cpu(card):
+    """At the trained SSD's sizes, under sync debug: the loss and its VJP
+    on Loc and Conf within 1e-5 of their max."""
+    ins = _ssd_loss_case()
+    cot = torch.randn(32, 1, generator=torch.Generator().manual_seed(27))
+    res = []
+    for dev in (torch.device('cpu'), card):
+        d_ins, out = _det_rule('ssd_loss', {
+            k: [a if isinstance(a, tuple) else a.clone().requires_grad_()
+                if k in ('Loc', 'Conf') else a for a in vs]
+            for k, vs in ins.items()}, {}, dev)
+        loss = out['Loss']
+        grads = torch.autograd.grad((loss * cot.to(dev)).sum(),
+                                    [d_ins['Loc'][0], d_ins['Conf'][0]])
+        res.append([loss.detach().cpu()] + [t.cpu() for t in grads])
+    for want, got in zip(*res):
+        scale = max(float(want.abs().max()), 1e-12)
+        assert float((got - want).abs().max()) <= 1e-5 * scale
+
+
+def test_detection_map_card_against_cpu(card):
+    """At the served batch's sizes (8 images, 200 rows, 21 classes; tied
+    scores, gt in the 8 bucket, an image without gt): within 1e-5."""
+    g = torch.Generator().manual_seed(28)
+    det = torch.zeros(8, 200, 6)
+    det[..., 0] = torch.randint(-1, 21, (8, 200), generator=g).float()
+    det[..., 1] = torch.round(torch.rand(8, 200, generator=g) * 10) / 10
+    det[..., 2:] = _boxes_t(g, 8, 200)
+    lens = torch.randint(1, 9, (8,), generator=g)
+    lens[3] = 0
+    lab = torch.zeros(8, 8, 5)
+    lab[..., 0] = torch.randint(1, 21, (8, 8), generator=g).float()
+    lab[..., 1:] = _boxes_t(g, 8, 8)
+    det[:, :8, 0], det[:, :8, 2:] = lab[..., 0], lab[..., 1:]
+    ins = {'DetectRes': [det], 'Label': [(lab, lens)]}
+    attrs = {'class_num': 21, 'overlap_threshold': 0.5}
+    _, want = _det_rule('detection_map', ins, attrs, torch.device('cpu'))
+    _, got = _det_rule('detection_map', ins, attrs, card)
+    assert 0 < float(want['MAP']) <= 1
+    assert abs(float(got['MAP']) - float(want['MAP'])) <= 1e-5
+
+
+def test_rpn_target_assign_and_ties_card_against_cpu(card):
+    """rpn_target_assign at the RPN head's sizes (16 images, 3,249 anchors,
+    two identical) under sync debug: labels and gathers equal to the
+    CPU's (argmax's first maximum and the scatter-max on the card)."""
+    g = torch.Generator().manual_seed(29)
+    anchors = _boxes_t(g, 3249) * 300
+    anchors[1] = anchors[0]
+    lens = torch.randint(1, 9, (16,), generator=g)
+    lens[0] = 0
+    gt = _boxes_t(g, 16, 8) * 300
+    gt[1, 0] = anchors[0]
+    ins = {'Loc': [torch.randn(16, 3249, 4, generator=g)],
+           'Score': [torch.randn(16, 3249, 1, generator=g)],
+           'AnchorBox': [anchors], 'GtBox': [(gt, lens)]}
+    _, want = _det_rule('rpn_target_assign', ins, {}, torch.device('cpu'))
+    _, got = _det_rule('rpn_target_assign', ins, {}, card)
+    for k in ('PredScore', 'PredLoc', 'TargetLabel'):
+        assert torch.equal(got[k].cpu(), want[k]), k
+    assert float((got['TargetBox'].cpu() - want['TargetBox']).abs().max()) \
+        <= 1e-5 * float(want['TargetBox'].abs().max())

@@ -102,6 +102,9 @@ SUBMODULES = [
     # the report, the SLO budgets, the fault harness
     'paddle_tpu_torch.embedding.tiers', 'paddle_tpu_torch.obs.report',
     'paddle_tpu_torch.obs.slo', 'paddle_tpu_torch.utils.faults',
+    # detection: the SSD family's rules and layers
+    'paddle_tpu_torch.fluid.ops_impl.detection_ops',
+    'paddle_tpu_torch.fluid.layers.detection',
 ]
 
 
