@@ -450,6 +450,25 @@ replay (each graph adds the launches its capture recorded).
                 16^3 volumes), forward and VJP on the card under sync
                 debug against the CPU rule. No kernel of the port runs.
                 One JSON line {"detection": {...}}.
+  7m. training_surface — the rest of the training surface (W2V_*,
+                EXTRA_*, INIT_STD_TOL, RESIZE_* below). (a) word2vec's
+                N-gram net at get_model's widths with layers.nce (10
+                negatives) in place of its softmax, W2V_STEPS captured
+                steps at batch 64 on imikolov.train: the loss falls, the
+                negatives of replays 2 and 3 differ, a step's Cost equals
+                the CPU's on its negatives and weights; (b) the same net
+                with layers.hsigmoid: the loss falls, step 1 card against
+                CPU within 3x the CPU's spread under a 1e-6 nudge; replay,
+                samples/s, busy, idle, kernels a replay, graph pool. (c)
+                The 25 extra_ops rules, nce and hierarchical_sigmoid, each
+                one program captured through Executor() (generate_layer_fn
+                where it fits), forward and VJP against the CPU, with
+                device ms and records a replay; sampling_id by law, the
+                proximal rules in place. (d) TruncatedNormal, MSRA,
+                Bilinear and NumpyArrayInitializer in a startup program on
+                the card, and a Bilinear depthwise conv2d_transpose. (e)
+                bilinear_interp at output dims of 1. No kernel of the
+                port runs. One JSON line {"training_surface": {...}}.
   8. captured — each path's captured step against debug_step's eager
                 walk in this call, at full width: Transformer-base
                 training at batch 16 (get_model, dropout 0.1), fp32 and
@@ -1004,6 +1023,45 @@ RPN_STEPS = 5
 RPN_ANCHORS = 3249
 RPN_CPU_BATCH = 4
 VISION_TOL = 1e-4
+
+# phase 7m (the rest of the training surface): word2vec's N-gram net at
+# get_model's widths (dict 2073, embed 32, hidden 256, N 5, batch 64, SGD)
+# with its softmax head swapped for layers.nce (W2V_NEG negatives, the
+# layer's default; SGD at W2V_NCE_LR) and for layers.hsigmoid (SGD at
+# get_model's W2V_LR), W2V_STEPS captured steps
+# each on dataset.imikolov.train's batches (the reader cycled): the mean
+# loss of the last W2V_WINDOW steps below the first W2V_WINDOW's. NCE: the
+# negatives of replays 2 and 3 differ, and step W2V_COST_STEP's Cost
+# equals the CPU's on that step's fetched negatives and the same weights
+# within W2V_COST_TOL. hsigmoid: step 1 card against CPU within 3x the
+# CPU's own spread under weights nudged by AMP_STATE_NOISE. (c) The 27
+# rules one program each (generate_layer_fn where the rule's slots are X
+# and Y, append_op otherwise), captured through Executor(), forward and
+# VJP (the differentiable inputs made parameters) against the CPU within
+# EXTRA_TOL of max(1, |x|); sampling_id by law over EXTRA_DRAWS draws a
+# row; the proximal rules updating their parameter in place over
+# EXTRA_UPDATES replays. (d) The four initializers in a startup program:
+# INIT_STD_TOL on the std of the random ones, Bilinear's depthwise
+# conv2d_transpose within RESIZE_TOL. (e) bilinear_interp at output dims of
+# 1, forward and VJP within RESIZE_TOL.
+W2V_DICT = 2073
+W2V_STEPS = 200
+W2V_WINDOW = 20
+W2V_NEG = 10
+W2V_LR = 1e-3
+# at get_model's 1e-3 the NCE loss moves less than its step-to-step noise
+# over W2V_STEPS: its gradient reaches a class's row only when the class is
+# drawn (10 of 2,073 a step), so the rows move by about lr / 11 a draw
+W2V_NCE_LR = 0.05
+W2V_COST_STEP = 3
+W2V_COST_TOL = 1e-4
+EXTRA_TOL = 1e-4
+EXTRA_DRAWS = 20000
+EXTRA_UPDATES = 3
+INIT_STD_TOL = 0.02
+RESIZE_TOL = 1e-5
+RESIZE_CASES = ((2, 1, 3, 1), (1, 2, 1, 3), (5, 4, 1, 1), (1, 1, 4, 4),
+                (19, 19, 1, 38), (38, 38, 19, 1))
 
 
 def log(*args):
@@ -9019,6 +9077,637 @@ def phase_detection():
     return counts
 
 
+# -- phase 7m: the rest of the training surface -------------------------------
+
+def build_word2vec_head(head):
+    """word2vec's N-gram net at get_model's widths (models/word2vec.py: four
+    context words read one shared 2073x32 table, concatenated, fc 256
+    sigmoid) with layers.nce (W2V_NEG negatives) or layers.hsigmoid over
+    the vocabulary in place of its softmax, mean, get_model's SGD (at
+    W2V_NCE_LR for nce); its reader at get_model's batch 64. Returns
+    (main, startup, avg_cost, reader, feed names)."""
+    from paddle_tpu_torch import batch, fluid
+    from paddle_tpu_torch.dataset import imikolov
+    from paddle_tpu_torch.fluid import unique_name
+    from paddle_tpu_torch.models import word2vec
+    word_dict = imikolov.build_dict()
+    if len(word_dict) != W2V_DICT:
+        raise AssertionError('imikolov.build_dict() has %d words, not %d'
+                             % (len(word_dict), W2V_DICT))
+    main, startup = _program_pair()
+    names = ['word_%d' % i for i in range(word2vec.N)]
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        layers = fluid.layers
+        words = [layers.data(name=n, shape=[1], dtype='int64')
+                 for n in names]
+        embeds = [layers.embedding(
+            input=w, size=[W2V_DICT, word2vec.EMBED_SIZE],
+            param_attr=fluid.ParamAttr(name='shared_w')) for w in words[:-1]]
+        hidden = layers.fc(input=layers.concat(input=embeds, axis=1),
+                           size=word2vec.HIDDEN_SIZE, act='sigmoid')
+        if head == 'nce':
+            cost = layers.nce(input=hidden, label=words[-1],
+                              num_total_classes=W2V_DICT)
+        else:
+            cost = layers.hsigmoid(input=hidden, label=words[-1],
+                                   num_classes=W2V_DICT)
+        avg_cost = layers.mean(cost)
+        fluid.optimizer.SGD(learning_rate=W2V_NCE_LR if head == 'nce'
+                            else W2V_LR).minimize(avg_cost)
+    reader = batch(imikolov.train(word_dict, word2vec.N), 64)
+    return main, startup, avg_cost, reader, names
+
+
+def _w2v_feeds(reader, names, n):
+    """n feeds of the reader's full batches, its epoch cycled."""
+    epoch = [np.asarray(b, 'int64') for b in reader() if len(b) == 64]
+    return [{name: epoch[i % len(epoch)][:, j:j + 1].copy()
+             for j, name in enumerate(names)} for i in range(n)]
+
+
+def _op_of(program, op_type):
+    return [op for op in program.global_block().ops
+            if op.type == op_type][0]
+
+
+def _w2v_card_against_cpu(what, main, loss, initial, feed):
+    """Step 1 of `main` from `initial` on the card and on the CPU, and on
+    the CPU again from the weights nudged by AMP_STATE_NOISE: the loss
+    within max(RESNET_GRAD_TOL, RESNET_GRAD_SPREAD x the nudge's move) and
+    the gradients' median relative L2 within RESNET_GRAD_SPREAD x the
+    nudge's own. Returns the record."""
+    from paddle_tpu_torch import fluid
+    gnames = _autodiff_grads(main)
+    nudged = _nudged(initial, np.random.RandomState(SEED))
+    outs = {}
+    for where, place, state in (('card', fluid.CUDAPlace(0), initial),
+                                ('cpu', fluid.CPUPlace(), initial),
+                                ('nudged', fluid.CPUPlace(), nudged)):
+        s = fluid.Scope()
+        s.load_numpy(state, place)
+        outs[where] = fluid.Executor(place).run(
+            main, feed=feed, fetch_list=[loss] + gnames, scope=s)
+    med_g, worst_g = _grad_spread(outs, gnames, 'card', 'cpu')
+    med_n, worst_n = _grad_spread(outs, gnames, 'nudged', 'cpu')
+    lc, lp, ln = (float(np.asarray(outs[w][0]).reshape(-1)[0])
+                  for w in ('card', 'cpu', 'nudged'))
+    loss_rel, loss_spread = abs(lc - lp) / abs(lp), abs(ln - lp) / abs(lp)
+    rec = dict(loss_card=lc, loss_cpu=lp, loss_rel=loss_rel,
+               loss_nudged_rel=loss_spread, grads=len(gnames),
+               grad_median_rel=med_g, grad_max_rel=worst_g[0],
+               grad_max_name=worst_g[1], nudged_median_rel=med_n,
+               nudged_max_rel=worst_n[0])
+    log('[surface] %s step 1 from the startup weights, card vs CPU: loss '
+        '%.6f vs %.6f (relative %.3g; the nudge moves it %.3g); %d '
+        'gradients, |diff| / |cpu| (L2) median %.3g, max %.3g (%s); the '
+        'CPU against itself nudged by %g: median %.3g, max %.3g'
+        % (what, lc, lp, loss_rel, loss_spread, len(gnames), med_g,
+           worst_g[0], worst_g[1], AMP_STATE_NOISE, med_n, worst_n[0]))
+    if not (loss_rel <= max(RESNET_GRAD_TOL, RESNET_GRAD_SPREAD * loss_spread)
+            and med_g <= RESNET_GRAD_SPREAD * med_n):
+        raise AssertionError(
+            '%s step 1, card vs CPU: loss %.3g (the nudge %.3g), gradients '
+            '%.3g against the CPU\'s own %.3g (tol %g x)'
+            % (what, loss_rel, loss_spread, med_g, med_n,
+               RESNET_GRAD_SPREAD))
+    return rec
+
+
+def _w2v_nce_cost_check(main, fetch, state, feed, card_out):
+    """The step's Cost on the card against the same step on the CPU from
+    the same weights, the CPU's draw replaced by the negatives the card's
+    step drew (sampled_ops.nce_negatives patched for this one run)."""
+    import torch
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid.ops_impl import sampled_ops
+    labels = np.asarray(card_out[1])
+    neg = torch.from_numpy(labels[0, 1:].copy())
+    real = sampled_ops.nce_negatives
+    sampled_ops.nce_negatives = lambda n, k, device, generator: \
+        neg.to(device)
+    try:
+        s = fluid.Scope()
+        s.load_numpy(state, fluid.CPUPlace())
+        cpu = fluid.Executor(fluid.CPUPlace()).run(
+            main, feed=feed, fetch_list=fetch, scope=s)
+    finally:
+        sampled_ops.nce_negatives = real
+    if not np.array_equal(np.asarray(cpu[1]), labels):
+        raise AssertionError('word2vec NCE: the CPU step did not take the '
+                             'card\'s negatives')
+    card_cost, cpu_cost = np.asarray(card_out[2]), np.asarray(cpu[2])
+    return float(np.abs(card_cost - cpu_cost).max()) / max(
+        1.0, float(np.abs(cpu_cost).max()))
+
+
+def _w2v_train(head, rec):
+    """(a) / (b): word2vec with the `head` trained W2V_STEPS captured
+    steps; the loss falls; NCE's draws and Cost, or hsigmoid's step 1, as
+    the phase's note says. Returns the launch counts."""
+    import torch
+    from paddle_tpu_torch import fluid
+    t0 = time.perf_counter()
+    main, startup, loss, reader, names = build_word2vec_head(head)
+    feeds = _w2v_feeds(reader, names, W2V_STEPS)
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    exe.run(startup, scope=scope)
+    initial = scope.to_numpy()
+    fetch = [loss]
+    if head == 'nce':
+        op = _op_of(main, 'nce')
+        fetch += [op.output('SampleLabels')[0], op.output('Cost')[0]]
+    what = 'word2vec ' + head
+    log('[surface] %s (%d ops, %d parameters): built, initialized and %d '
+        'batches of 64 read in %.2f s' % (
+            what, len(main.global_block().ops), len(main.all_parameters()),
+            len(feeds), time.perf_counter() - t0))
+    _reset_launch_counts()
+    losses, secs, pool, kept, before = [], [], 0, {}, None
+    for i, feed in enumerate(feeds):
+        if i == 1:
+            r0 = _reserved()
+        if head == 'nce' and i == W2V_COST_STEP:
+            before = scope.to_numpy()
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        if i == 1:
+            pool = _reserved() - r0
+        losses.append(float(np.asarray(out[0]).reshape(-1)[0]))
+        if i in (2, 3, W2V_COST_STEP):
+            kept[i] = out
+    counts = _launch_counts()
+    stats = dict(exe.cache_stats)
+    first = float(np.mean(losses[:W2V_WINDOW]))
+    last = float(np.mean(losses[-W2V_WINDOW:]))
+    log('[surface] %s losses every 10th step %s' % (
+        what, ', '.join('%.5f' % x for x in losses[::10])))
+    if not np.isfinite(losses).all() or not last < first:
+        raise AssertionError('%s: the loss did not fall (mean of the first '
+                             '%d %.5f, the last %.5f)' % (
+                                 what, W2V_WINDOW, first, last))
+    if stats['captures'] != 1 or stats['replays'] != W2V_STEPS - 1:
+        raise AssertionError('%s: %r after %d steps' % (what, stats,
+                                                        W2V_STEPS))
+    med = float(np.median(secs[2:]))
+    busy, idle, wall, records = _device_busy(
+        lambda: exe.run(main, feed=feeds[2], fetch_list=[loss],
+                        scope=scope), 3)
+    r = dict(losses_first_mean=first, losses_last_mean=last,
+             losses=losses, median_replay_ms=med * 1e3,
+             samples_per_s=64 / med, device_busy_ms=busy,
+             idle_share=1.0 - busy / (med * 1e3), traced_idle_share=idle,
+             kernels_per_replay=records, graph_pool_gb=pool / 1e9,
+             cache_stats=stats)
+    if head == 'nce':
+        a, b = (np.asarray(kept[i][1]) for i in (2, 3))
+        shared = all((np.asarray(kept[i][1])[:, 1:]
+                      == np.asarray(kept[i][1])[0, 1:]).all() for i in kept)
+        if np.array_equal(a[0, 1:], b[0, 1:]) or not shared:
+            raise AssertionError('word2vec NCE: replays 2 and 3 drew the '
+                                 'same negatives %r, or a step\'s rows did '
+                                 'not share theirs' % (a[0, 1:],))
+        r['negatives_replay_2'] = a[0, 1:].tolist()
+        r['negatives_replay_3'] = b[0, 1:].tolist()
+        r['cost_err'] = _w2v_nce_cost_check(main, fetch, before,
+                                            feeds[W2V_COST_STEP],
+                                            kept[W2V_COST_STEP])
+        if not r['cost_err'] <= W2V_COST_TOL:
+            raise AssertionError('word2vec NCE step %d: Cost %.3g from the '
+                                 'CPU\'s on the same negatives (tol %g)'
+                                 % (W2V_COST_STEP, r['cost_err'],
+                                    W2V_COST_TOL))
+        tail = ('; negatives of replays 2 and 3 %s / %s; step %d\'s Cost '
+                'against the CPU on its negatives %.3g'
+                % (r['negatives_replay_2'], r['negatives_replay_3'],
+                   W2V_COST_STEP, r['cost_err']))
+    else:
+        r['step1'] = _w2v_card_against_cpu(what, main, loss, initial,
+                                           feeds[0])
+        tail = ''
+    log('[surface] %s: %d captured steps at batch 64, loss %.5f -> %.5f '
+        '(means of the first and last %d), median replay %.4f ms (%.0f '
+        'samples/s), device busy %.4f ms (idle %.3f of the replay), %.0f '
+        'kernels a replay, graph pool %.3f GB%s'
+        % (what, W2V_STEPS, first, last, W2V_WINDOW, med * 1e3, 64 / med,
+           busy, r['idle_share'], records, r['graph_pool_gb'], tail))
+    rec['w2v_' + head] = r
+    del exe, scope
+    _release()
+    return counts
+
+
+def _extra_cases(rng):
+    """The 27 rules, each a spec: op, ins {slot: array}, attrs, the output
+    slots (the first one's VJP is checked), wrt (inputs made parameters
+    and differentiated), layer (built through generate_layer_fn), inplace
+    {output slot: parameter input slot}."""
+    import torch
+    from paddle_tpu_torch.fluid import lowering
+
+    def f(*s):
+        return np.asarray(rng.randn(*s), 'float32')
+
+    def lab(*s):
+        return (rng.rand(*s) > 0.5).astype('float32')
+
+    x_pool = f(8, 16, 32, 32)
+    pool_attrs = {'ksize': [3, 3], 'strides': [2, 2], 'paddings': [1, 1]}
+    pooled = lowering.get_rule('max_pool2d_with_index')(
+        {'X': [torch.from_numpy(x_pool)]}, pool_attrs,
+        lowering.Ctx(torch.device('cpu')))
+    match = np.where(rng.rand(32, 2278) < 0.05,
+                     rng.randint(0, 8, (32, 2278)), -1).astype('int32')
+    rows = np.float32([[0.1, 0.2, 0.3, 0.4, 0.0], [0.97, 0.01, 0.01, 0.01,
+                                                   0.0],
+                       [0.0, 0.5, 0.0, 0.25, 0.25], [0.2] * 5])
+    return [
+        dict(op='cumsum', ins={'X': f(64, 256)}, wrt=['X'], layer=True,
+             attrs={'axis': 1, 'exclusive': True, 'reverse': True}),
+        dict(op='l1_norm', ins={'X': f(64, 256)}, wrt=['X'], layer=True),
+        dict(op='squared_l2_norm', ins={'X': f(64, 256)}, wrt=['X'],
+             layer=True),
+        dict(op='squared_l2_distance', ins={'X': f(64, 128),
+                                            'Y': f(1, 128)},
+             wrt=['X', 'Y'], layer=True),
+        dict(op='minus', ins={'X': f(64, 256), 'Y': f(64, 256)},
+             wrt=['X', 'Y'], layer=True),
+        dict(op='fill', ins={}, outs=['Out'], attrs={
+            'shape': [4, 8], 'value': rng.randn(32).tolist(),
+            'dtype': 'float32'}),
+        dict(op='fill_zeros_like', ins={'X': f(64, 256)}, layer=True),
+        dict(op='norm', ins={'X': f(64, 32, 8)}, wrt=['X'], layer=True,
+             attrs={'axis': 1, 'epsilon': 1e-10}),
+        dict(op='log_loss', ins={'Predicted': rng.uniform(
+            0.05, 0.95, (64, 1)).astype('float32'), 'Labels': lab(64, 1)},
+             outs=['Loss'], wrt=['Predicted'], attrs={'epsilon': 1e-4}),
+        dict(op='hinge_loss', ins={'Logits': f(64, 1), 'Labels': lab(64, 1)},
+             outs=['Loss'], wrt=['Logits']),
+        dict(op='margin_rank_loss', ins={
+            'Label': np.where(rng.rand(64, 1) > 0.5, 1.0, -1.0).astype(
+                'float32'), 'X1': f(64, 1), 'X2': f(64, 1)},
+             outs=['Out', 'Activated'], wrt=['X1', 'X2'],
+             attrs={'margin': 0.1}),
+        dict(op='modified_huber_loss', ins={'X': f(64, 1), 'Y': lab(64, 1)},
+             outs=['Out', 'IntermediateVal'], wrt=['X']),
+        dict(op='sampling_id', ins={'X': np.repeat(rows, EXTRA_DRAWS, 0)},
+             layer=True, law=rows),
+        dict(op='conv_shift', ins={'X': f(64, 256), 'Y': f(64, 5)},
+             wrt=['X', 'Y'], layer=True),
+        dict(op='bilinear_tensor_product', ins={
+            'X': f(64, 32), 'Y': f(64, 24), 'Weight': f(16, 32, 24),
+            'Bias': f(1, 16)}, wrt=['X', 'Y', 'Weight', 'Bias']),
+        dict(op='proximal_gd', ins={
+            'Param': f(64, 256), 'Grad': f(64, 256),
+            'LearningRate': np.float32([0.1])},
+             outs=['ParamOut'], params=['Param'],
+             inplace={'ParamOut': 'Param'}, attrs={'l1': 0.01, 'l2': 0.02}),
+        dict(op='proximal_adagrad', ins={
+            'Param': f(64, 256), 'Moment': np.abs(f(64, 256)) + 0.1,
+            'Grad': f(64, 256), 'LearningRate': np.float32([0.1])},
+             outs=['ParamOut', 'MomentOut'], params=['Param', 'Moment'],
+             inplace={'ParamOut': 'Param', 'MomentOut': 'Moment'},
+             attrs={'l1': 0.01, 'l2': 0.02}),
+        dict(op='max_pool2d_with_index', ins={'X': x_pool},
+             outs=['Out', 'Mask'], wrt=['X'], attrs=pool_attrs),
+        dict(op='unpool', ins={
+            'X': pooled['Out'].numpy(), 'Indices': pooled['Mask'].numpy()},
+             wrt=['X'], attrs=dict(pool_attrs, unpooling_type='max',
+                                   output_size=[32, 32])),
+        dict(op='spp', ins={'X': f(8, 16, 13, 13)}, wrt=['X'], layer=True,
+             attrs={'pyramid_height': 3, 'pooling_type': 'max'}),
+        dict(op='positive_negative_pair', ins={
+            'Score': np.round(f(256, 2), 1),
+            'Label': rng.randint(0, 3, (256, 1)).astype('float32'),
+            'QueryID': rng.randint(0, 16, (256, 1)).astype('int64'),
+            'Weight': np.abs(f(256, 1))},
+             outs=['PositivePair', 'NegativePair', 'NeutralPair'],
+             attrs={'column': 1}),
+        dict(op='precision_recall', ins={
+            'Indices': rng.randint(0, 10, (256, 1)).astype('int64'),
+            'Labels': rng.randint(0, 10, (256, 1)).astype('int64'),
+            'Weights': np.abs(f(256, 1)), 'StatesInfo': np.abs(f(10, 4))},
+             outs=['BatchMetrics', 'AccumMetrics', 'AccumStatesInfo'],
+             attrs={'class_number': 10}),
+        dict(op='fake_quantize', ins={'X': f(64, 256)},
+             outs=['Out', 'OutMovingScale'], wrt=['X'],
+             attrs={'bit_length': 8}),
+        dict(op='fake_dequantize_max_abs', ins={
+            'X': np.round(f(64, 256) * 40), 'Scale': np.float32([2.7])},
+             wrt=['X', 'Scale'], attrs={'num_bits': 8}),
+        dict(op='mine_hard_examples', ins={
+            'ClsLoss': np.round(np.abs(f(32, 2278)), 1),
+            'MatchIndices': match, 'MatchDist': rng.rand(32, 2278).astype(
+                'float32')},
+             outs=['NegIndices', 'UpdatedMatchIndices'],
+             attrs={'neg_pos_ratio': 3.0, 'neg_dist_threshold': 0.5}),
+        dict(op='nce', ins={
+            'Input': f(64, 256), 'Label': rng.randint(
+                0, W2V_DICT, (64, 1)).astype('int64'),
+            'Weight': f(W2V_DICT, 256) * 0.1, 'Bias': f(W2V_DICT, 1) * 0.1},
+             outs=['Cost', 'SampleLogits', 'SampleLabels'],
+             wrt=['Input', 'Weight', 'Bias'],
+             attrs={'num_total_classes': W2V_DICT,
+                    'num_neg_samples': W2V_NEG}),
+        dict(op='hierarchical_sigmoid', ins={
+            'X': f(64, 256), 'W': f(W2V_DICT - 1, 256) * 0.1,
+            'Bias': f(1, W2V_DICT - 1) * 0.1, 'Label': rng.randint(
+                0, W2V_DICT, (64, 1)).astype('int64')},
+             outs=['Out', 'PreOut'], wrt=['X', 'W', 'Bias'],
+             attrs={'num_classes': W2V_DICT}),
+    ]
+
+
+def _extra_program(spec, rng):
+    """One program of the rule: its parameters (wrt and in-place inputs),
+    its data feeds, the fetch list (the outputs, then the gradients of
+    sum(first output * cot) for wrt). Returns (main, startup, params
+    {name: array}, feed, fetch names)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import unique_name
+    from paddle_tpu_torch.fluid.layer_helper import LayerHelper
+    main, startup = _program_pair()
+    params, feed = {}, {}
+    wrt = spec.get('wrt', [])
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        ins = {}
+        for slot, a in spec['ins'].items():
+            if slot in wrt or slot in spec.get('params', ()):
+                v = LayerHelper('rule_input').create_parameter(
+                    attr=fluid.ParamAttr(name='p_' + slot.lower()),
+                    shape=list(a.shape), dtype=str(a.dtype))
+                params[v.name] = a
+            else:
+                v = fluid.layers.data(name='in_' + slot.lower(),
+                                      shape=list(a.shape), dtype=str(a.dtype),
+                                      append_batch_size=False)
+                feed[v.name] = a
+            ins[slot] = v
+        if spec.get('layer'):
+            gen = fluid.layers.generate_layer_fn(spec['op'])
+            outs = {'Out': gen(*[ins[s] for s in ('X', 'Y') if s in ins],
+                               **spec.get('attrs', {}))}
+        else:
+            helper = LayerHelper(spec['op'])
+            outs = {}
+            for slot in spec.get('outs', ['Out']):
+                if slot in spec.get('inplace', {}):
+                    outs[slot] = ins[spec['inplace'][slot]]
+                else:
+                    outs[slot] = helper.create_variable_for_type_inference(
+                        'float32')
+            helper.append_op(type=spec['op'],
+                             inputs={s: [v] for s, v in ins.items()},
+                             outputs={s: [v] for s, v in outs.items()},
+                             attrs=spec.get('attrs', {}))
+        fetch = [outs[s].name for s in (spec.get('outs') or ['Out'])]
+        if wrt:
+            first = outs[(spec.get('outs') or ['Out'])[0]]
+            cot = fluid.layers.data(name='cot', shape=list(first.shape),
+                                    dtype='float32', append_batch_size=False)
+            feed['cot'] = np.asarray(rng.randn(*first.shape), 'float32')
+            total = fluid.layers.reduce_sum(
+                fluid.layers.elementwise_mul(first, cot))
+            fetch += [g.name for _, g in fluid.backward.append_backward(
+                total)]
+    return main, startup, params, feed, fetch
+
+
+def _extra_run(main, startup, params, feed, fetch, place, runs):
+    """`runs` steps of the program on `place` from `params`; returns (the
+    executor, its scope, each step's fetches)."""
+    from paddle_tpu_torch import fluid
+    scope = fluid.Scope()
+    exe = fluid.Executor(place)
+    exe.run(startup, scope=scope)
+    scope.load_numpy(params, place)
+    return exe, scope, [exe.run(main, feed=feed, fetch_list=fetch,
+                                scope=scope) for _ in range(runs)]
+
+
+def _chi_square(counts, p):
+    """The chi-square of counts against the law p over p's live entries,
+    its 1e-6 upper quantile, and whether a dead entry was drawn."""
+    from scipy.stats import chi2
+    live = p > 0
+    e = counts.sum() * p[live]
+    return (float(((counts[live] - e) ** 2 / e).sum()),
+            float(chi2.ppf(1 - 1e-6, live.sum() - 1)),
+            bool(counts[~live].any()))
+
+
+def _rel(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    if a.shape != b.shape:
+        return float('inf')
+    if not np.issubdtype(b.dtype, np.floating):
+        return 0.0 if np.array_equal(a, b) else float('inf')
+    return float(np.abs(a.astype('float64') - b).max()) / max(
+        1.0, float(np.abs(b).max())) if b.size else 0.0
+
+
+def _extra_rules(rec):
+    """(c) The 27 rules, each captured alone through Executor() against the
+    same program on the CPU."""
+    import torch
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid.ops_impl import sampled_ops
+    rng = np.random.RandomState(SEED + 7)
+    rows = []
+    for spec in _extra_cases(rng):
+        op = spec['op']
+        main, startup, params, feed, fetch = _extra_program(spec, rng)
+        runs = EXTRA_UPDATES if spec.get('inplace') else 3
+        exe, scope, card = _extra_run(main, startup, params, feed, fetch,
+                                      fluid.CUDAPlace(0), runs)
+        stats = dict(exe.cache_stats)
+        if stats['captures'] != 1 or stats['replays'] != runs - 1:
+            raise AssertionError('%s: %r after %d runs' % (op, stats, runs))
+        n_out = len(spec.get('outs') or ['Out'])
+        row = dict(op=op, layer=bool(spec.get('layer')),
+                   shape=list(np.asarray(card[-1][0]).shape))
+        if 'law' in spec:
+            a, b = np.asarray(card[1][0]), np.asarray(card[2][0])
+            if np.array_equal(a, b):
+                raise AssertionError('sampling_id: two replays drew the '
+                                     'same ids')
+            stats_rows = []
+            for i, p in enumerate(spec['law']):
+                got = b[i * EXTRA_DRAWS:(i + 1) * EXTRA_DRAWS]
+                stat, bound, dead = _chi_square(
+                    np.bincount(got, minlength=p.size), p)
+                stats_rows.append(stat)
+                if dead or not stat < bound:
+                    raise AssertionError(
+                        'sampling_id row %d on the card: chi-square %.3g '
+                        '(bound %.3g), a zero entry drawn %r'
+                        % (i, stat, bound, dead))
+            row.update(chi_square=stats_rows, chi_square_bound=bound)
+        else:
+            if op == 'nce':
+                neg = torch.from_numpy(np.asarray(card[-1][2])[0, 1:].copy())
+                real = sampled_ops.nce_negatives
+                sampled_ops.nce_negatives = \
+                    lambda n, k, device, generator: neg.to(device)
+            try:
+                cpu = _extra_run(main, startup, params, feed, fetch,
+                                 fluid.CPUPlace(), runs)[2]
+            finally:
+                if op == 'nce':
+                    sampled_ops.nce_negatives = real
+            out_err = max(_rel(card[j][i], cpu[j][i]) for j in range(runs)
+                          if spec.get('inplace') or j == runs - 1
+                          for i in range(n_out))
+            vjp_err = max([_rel(card[-1][i], cpu[-1][i])
+                           for i in range(n_out, len(fetch))] or [0.0])
+            row.update(out_err=out_err, vjp_err=vjp_err)
+            if not (out_err <= EXTRA_TOL and vjp_err <= EXTRA_TOL):
+                raise AssertionError('%s on the card against the CPU: '
+                                     'outputs %.3g, VJP %.3g (tol %g)'
+                                     % (op, out_err, vjp_err, EXTRA_TOL))
+        busy, _, _, records = _device_busy(
+            lambda: exe.run(main, feed=feed, fetch_list=fetch,
+                            scope=scope), 3)
+        row.update(device_ms=busy, kernels_per_replay=records)
+        rows.append(row)
+        del exe, scope
+    rec['rules'] = rows
+    log('[surface] the 27 rules, each captured alone, card against CPU '
+        '(outputs and VJP, |diff| over max(1, |cpu|), tol %g; device ms and '
+        'device records a replay, fetch copies included): %s'
+        % (EXTRA_TOL, '; '.join(
+            '%s %s %.4f ms %.0f' % (
+                r['op'], ('chi2 %s' % ','.join('%.1f' % s for s in
+                                                r['chi_square']))
+                if 'chi_square' in r else '%.2g/%.2g' % (
+                    r['out_err'], r['vjp_err']),
+                r['device_ms'], r['kernels_per_replay']) for r in rows)))
+
+
+def _initializers(rec):
+    """(d) TruncatedNormal, MSRA (uniform and normal), Bilinear and
+    NumpyArrayInitializer in one startup program on the card against the
+    CPU; a depthwise conv2d_transpose at stride 2 with the Bilinear
+    filter."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import unique_name
+    from paddle_tpu_torch.fluid.layer_helper import LayerHelper
+    rng = np.random.RandomState(SEED + 8)
+    values = np.asarray(rng.randn(64, 48), 'float32')
+    main, startup = _program_pair()
+    init = fluid.initializer
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.layers.data(name='x', shape=[16, 19, 19], dtype='float32')
+        up = fluid.layers.conv2d_transpose(
+            x, num_filters=16, filter_size=4, stride=2, padding=1, groups=16,
+            param_attr=fluid.ParamAttr(name='bilinear_w',
+                                       initializer=init.Bilinear()),
+            bias_attr=False)
+        helper = LayerHelper('init')
+        for name, shape, ini in (
+                ('tn_w', [1024, 1024], init.TruncatedNormal(scale=2.0)),
+                ('msra_u', [512, 256, 3, 3], init.MSRA()),
+                ('msra_n', [512, 256, 3, 3], init.MSRA(uniform=False)),
+                ('np_w', [64, 48], init.NumpyArrayInitializer(values))):
+            helper.create_parameter(attr=fluid.ParamAttr(
+                name=name, initializer=ini), shape=shape, dtype='float32')
+    feed = {'x': np.asarray(rng.randn(8, 16, 19, 19), 'float32')}
+    got = {}
+    for where, place in (('card', fluid.CUDAPlace(0)),
+                         ('cpu', fluid.CPUPlace())):
+        scope = fluid.Scope()
+        exe = fluid.Executor(place)
+        exe.run(startup, scope=scope)
+        outs = [exe.run(main, feed=feed, fetch_list=[up], scope=scope)[0]
+                for _ in range(3 if where == 'card' else 1)]
+        got[where] = (scope.to_numpy(['bilinear_w', 'np_w', 'tn_w',
+                                      'msra_u', 'msra_n']), outs[-1])
+    card, cpu = got['card'][0], got['cpu'][0]
+    exact = {n: bool(np.array_equal(card[n], cpu[n]))
+             for n in ('bilinear_w', 'np_w')}
+    tn = card['tn_w'].astype('float64')
+    fan_in = 256 * 9
+    limit = float(np.sqrt(6.0 / fan_in))
+    r = dict(bitwise=exact, tn_max_abs=float(np.abs(tn).max()),
+             tn_std=float(tn.std()), tn_std_want=0.8796 * 2.0,
+             msra_u_max_abs=float(np.abs(card['msra_u']).max()),
+             msra_u_limit=limit,
+             msra_n_std=float(card['msra_n'].astype('float64').std()),
+             msra_n_std_want=float(np.sqrt(2.0 / fan_in)),
+             upsample_err=_rel(got['card'][1], got['cpu'][1]))
+    checks = {
+        'Bilinear and NumpyArrayInitializer bitwise': all(exact.values()),
+        'TruncatedNormal inside 2 std': r['tn_max_abs'] <= 4.0,
+        'TruncatedNormal std': abs(r['tn_std'] / r['tn_std_want'] - 1)
+        <= INIT_STD_TOL,
+        'MSRA uniform limit': r['msra_u_max_abs'] <= limit and
+        abs(r['msra_u_max_abs'] / limit - 1) <= INIT_STD_TOL,
+        'MSRA normal std': abs(r['msra_n_std'] / r['msra_n_std_want'] - 1)
+        <= INIT_STD_TOL,
+        'bilinear upsample': r['upsample_err'] <= RESIZE_TOL}
+    rec['initializers'] = r
+    log('[surface] initializers on the card: %s; TruncatedNormal(2) max '
+        '|w| %.4f, std %.5f (the truncated law\'s %.5f); MSRA uniform max '
+        '|w| %.6f (limit %.6f), normal std %.6f (want %.6f); the Bilinear '
+        'depthwise conv2d_transpose 19 -> 38, card against CPU %.3g'
+        % (exact, r['tn_max_abs'], r['tn_std'], r['tn_std_want'],
+           r['msra_u_max_abs'], limit, r['msra_n_std'],
+           r['msra_n_std_want'], r['upsample_err']))
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError('initializers on the card: %s failed (%r)'
+                             % (bad, r))
+
+
+def _resize_width_1(rec):
+    """(e) bilinear_interp at output dims of 1 (and the sizes around them),
+    forward and VJP on the card under the sync check against the CPU."""
+    rng = np.random.RandomState(SEED + 9)
+    rows = []
+    for h, w, oh, ow in RESIZE_CASES:
+        ins = {'X': [np.asarray(rng.randn(4, 8, h, w), 'float32')]}
+        attrs = {'out_h': oh, 'out_w': ow}
+        cot = np.asarray(rng.randn(4, 8, oh, ow), 'float32')
+        cpu, cpu_g, _ = _vision_rule('bilinear_interp', ins, attrs, 'Out',
+                                     ['X'], 'cpu', cot)
+        card, card_g, _ = _vision_rule('bilinear_interp', ins, attrs, 'Out',
+                                       ['X'], 'cuda', cot)
+        err, gerr = _rel(card, cpu), _rel(card_g[0], cpu_g[0])
+        rows.append(dict(size=[h, w, oh, ow], out_err=err, vjp_err=gerr))
+        if not (err <= RESIZE_TOL and gerr <= RESIZE_TOL):
+            raise AssertionError('bilinear_interp %dx%d -> %dx%d on the '
+                                 'card: %.3g / %.3g (tol %g)'
+                                 % (h, w, oh, ow, err, gerr, RESIZE_TOL))
+    rec['resize'] = rows
+    log('[surface] bilinear_interp, card against CPU (forward / VJP): %s'
+        % '; '.join('%dx%d->%dx%d %.2g/%.2g' % (tuple(r['size']) + (
+            r['out_err'], r['vjp_err'])) for r in rows))
+
+
+def phase_training_surface():
+    """Phase 7m: (a) word2vec with the NCE head and (b) with the
+    hsigmoid head trained captured; (c) the 27 rules alone; (d) the
+    initializers; (e) the width-1 bilinear resize. Returns {path: launch
+    counts} of w2v_nce_training and w2v_hsigmoid_training (no kernel of
+    the port runs on them)."""
+    import torch
+    t0 = time.perf_counter()
+    rec = {}
+    counts = {'w2v_nce_training': _w2v_train('nce', rec),
+              'w2v_hsigmoid_training': _w2v_train('hsigmoid', rec)}
+    _extra_rules(rec)
+    _initializers(rec)
+    _resize_width_1(rec)
+    torch.cuda.synchronize()
+    rec['seconds'] = time.perf_counter() - t0
+    rec['card'] = nvidia_smi_line()
+    log(json.dumps({'training_surface': rec}))
+    log('[surface] phase 7m took %.1f s' % rec['seconds'])
+    return counts
+
+
 # -- phase 8 ----------------------------------------------------------------
 
 def _to_host(tensors):
@@ -9684,6 +10373,7 @@ def main():
                         ('tier', phase_tier),
                         ('passes', phase_passes),
                         ('detection', phase_detection),
+                        ('training_surface', phase_training_surface),
                         ('captured', phase_captured)):
         _between_phases(name)
         t0 = time.perf_counter()

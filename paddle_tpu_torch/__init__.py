@@ -10,6 +10,8 @@ Entry points run on the card unless the caller asks for the CPU:
 Executor() and inference.Predictor(dirname) default to CUDAPlace(0) and
 raise when no card is present.
 """
+from .version import full_version as __version__  # noqa: F401
+from .version import commit as __git_commit__  # noqa: F401
 from . import obs  # noqa: F401
 from . import fluid  # noqa: F401
 from . import ops  # noqa: F401

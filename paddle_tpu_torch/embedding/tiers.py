@@ -727,7 +727,7 @@ class TieredVocabTable(object):
                 'tiered vocab %r: table %r shards its EMBEDDING dim '
                 '(sharding=%r) — a spill would tear rows across hosts. '
                 'Column sharding for D > HBM is out of scope for the '
-                'tier store (ROADMAP item 3); row-shard the table '
+                'tier store (ROADMAP "Parallel"); row-shard the table '
                 '(e.g. sharding=(%r, None)) instead.'
                 % (self.name, self.table, tuple(sh),
                    tuple(sh)[1] if len(sh) > 1 else 'model'))

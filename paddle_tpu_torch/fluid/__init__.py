@@ -12,12 +12,15 @@ transpiler (contrib.Float16Transpiler), and the high-level API: Trainer
 (events, CheckpointConfig, preemption and resume), Inferencer, and the
 host-side metrics, average and evaluator; the pass pipeline (passes:
 PADDLE_TPU_OPT, int8 weight quantization), the dataflow analysis it
-builds on, and the InferenceTranspiler and memory_optimize shims.
+builds on, and the InferenceTranspiler and memory_optimize shims; the
+aux modules annotations, concurrency (host-side channels), default
+scope functions, graphviz and net_drawer.
 """
 from . import core
 from . import framework
-from .framework import Program, Operator, Parameter, Variable, \
-    default_startup_program, default_main_program, program_guard, get_var
+from .framework import Program, Operator, Parameter, Variable, Block, \
+    default_startup_program, default_main_program, program_guard, \
+    name_scope, get_var, grad_var_name, normalize_sharding
 from . import lowering
 from . import ops_impl  # noqa: F401  (registers every op rule)
 from . import passes
@@ -26,14 +29,17 @@ from . import step_artifact
 from . import amp
 from . import debugger
 from . import executor
-from .executor import Executor, global_scope, scope_guard, Scope, \
-    anomaly_guard
+from .executor import Executor, global_scope, scope_guard, _switch_scope, \
+    Scope, StepHandle, FetchHandle, anomaly_guard
 from . import layers
 from . import initializer
 from . import io
 from . import backward
+from .backward import append_backward
 from . import regularizer
 from . import clip
+from .clip import ErrorClipByValue, GradientClipByValue, GradientClipByNorm, \
+    GradientClipByGlobalNorm
 from . import optimizer
 from . import nets
 from . import lod_tensor
@@ -42,6 +48,9 @@ from .lod_tensor import LoDTensor, LoDTensorArray, create_lod_tensor, \
 from . import data_feeder
 from .data_feeder import DataFeeder
 from .param_attr import ParamAttr, WeightNormParamAttr
+# re-exported by name, as the JAX fluid/__init__.py:33 does; the patch
+# itself is applied as math_op_patch's import side effect
+from .layers.math_op_patch import monkey_patch_variable
 from . import unique_name
 from . import contrib
 from . import evaluator
@@ -57,6 +66,13 @@ from . import transpiler
 from .transpiler import InferenceTranspiler, memory_optimize, \
     release_memory
 from .analysis import ProgramVerifyError
+from . import annotations
+from . import concurrency
+from . import default_scope_funcs
+from . import graphviz
+from . import net_drawer
+from .concurrency import (Go, make_channel, channel_send, channel_recv,
+                          channel_close, Select)
 
 Tensor = LoDTensor
 
@@ -68,5 +84,6 @@ __all__ = framework.__all__ + executor.__all__ + trainer.__all__ + \
     'DataFeeder', 'LoDTensor', 'LoDTensorArray', 'create_lod_tensor',
     'create_random_int_lodtensor', 'debugger', 'step_artifact', 'passes', 'amp', 'contrib',
     'metrics', 'average', 'evaluator', 'trainer', 'inferencer',
-    'transpiler', 'analysis', 'ProgramVerifyError', 'CPUPlace', 'CUDAPlace', 'TPUPlace', 'CUDAPinnedPlace',
+    'transpiler', 'analysis', 'ProgramVerifyError', 'CPUPlace', 'CUDAPlace',
+    'TPUPlace', 'CUDAPinnedPlace', 'Tensor',
 ]

@@ -59,7 +59,7 @@ from .step_artifact import (StepArtifact, _feed_signature, _pack_health,
                             _write_back, health_to_numpy)
 
 __all__ = ['Executor', 'Scope', 'StepHandle', 'FetchHandle',
-           'global_scope', 'scope_guard', 'anomaly_guard']
+           'global_scope', 'scope_guard', '_switch_scope', 'anomaly_guard']
 
 
 class _VarHolder(object):

@@ -22,7 +22,7 @@ from . import unique_name
 __all__ = [
     'Program', 'Operator', 'Parameter', 'Variable', 'Block',
     'default_startup_program', 'default_main_program', 'program_guard',
-    'get_var', 'grad_var_name',
+    'name_scope', 'get_var', 'grad_var_name', 'normalize_sharding',
 ]
 
 GRAD_VAR_SUFFIX = "@GRAD"
@@ -547,6 +547,20 @@ def program_guard(main_program, startup_program=None):
         switch_main_program(prev_main)
         if prev_start is not None:
             switch_startup_program(prev_start)
+
+
+_name_scope_stack = []
+
+
+@contextlib.contextmanager
+def name_scope(prefix=None):
+    """A named region of the program being built (the JAX :843-852): a
+    stack of prefixes, pushed and popped; nothing reads it."""
+    _name_scope_stack.append(prefix or '')
+    try:
+        yield
+    finally:
+        _name_scope_stack.pop()
 
 
 def get_var(name, program=None):

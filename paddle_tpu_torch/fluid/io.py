@@ -29,7 +29,7 @@ __all__ = [
     'save_vars', 'save_params', 'save_persistables', 'load_vars',
     'load_params', 'load_persistables', 'save_inference_model',
     'load_inference_model', 'save_checkpoint', 'load_checkpoint',
-    'list_checkpoint_serials',
+    'list_checkpoint_serials', 'get_inference_program',
 ]
 
 _PARAMS_FILE = '__params__.npz'
@@ -118,6 +118,15 @@ def load_persistables(executor, dirname, main_program=None, filename=None,
                       scope=None):
     load_vars(executor, dirname, main_program, None, is_persistable, filename,
               scope=scope)
+
+
+def get_inference_program(target_vars, main_program=None):
+    """The program cloned for inference (the JAX :115): its backward and
+    optimizer ops pruned, test mode on. target_vars is accepted as in the
+    reference and, as in the JAX package, does not prune."""
+    if main_program is None:
+        main_program = default_main_program()
+    return main_program.clone(for_test=True)
 
 
 def save_inference_model(dirname, feeded_var_names, target_vars, executor,

@@ -1,8 +1,8 @@
 """Neural-network layers. Parity: reference python/paddle/fluid/layers/nn.py
 and the JAX package's fluid/layers/nn.py — the dense, vision, sequence and
-recurrent layers and the CRF/CTC layers whose rules the port carries (the
-detection layers are in layers/detection.py; nce, hsigmoid and moe_mlp
-wait for their slices). Each appends op symbols lowered by ops_impl/.
+recurrent layers, the CRF/CTC layers and the sampled losses nce and
+hsigmoid (the detection layers are in layers/detection.py; moe_mlp waits
+for ROADMAP's "Parallel"). Each appends op symbols lowered by ops_impl/.
 """
 import numpy as np
 
@@ -30,7 +30,7 @@ __all__ = [
     'beam_search_decode', 'conv3d', 'pool3d', 'conv2d_transpose',
     'conv3d_transpose', 'smooth_l1', 'lrn', 'roi_pool', 'dice_loss',
     'image_resize', 'resize_bilinear', 'image_resize_short', 'mean_iou',
-    'rank_loss', 'prelu',
+    'rank_loss', 'prelu', 'nce', 'hsigmoid',
 ]
 
 
@@ -603,6 +603,60 @@ def stack(x, axis=0):
     out = helper.create_variable_for_type_inference(x[0].dtype)
     helper.append_op(type='stack', inputs={'X': x}, outputs={'Y': [out]},
                      attrs={'axis': axis})
+    return out
+
+
+def nce(input, label, num_total_classes, sample_weight=None, param_attr=None,
+        bias_attr=None, num_neg_samples=None):
+    """Noise-contrastive estimation (the JAX layers/nn.py:1306; reference
+    nn.py:nce): Weight [N, D], Bias [N, 1]; returns the cost divided by
+    num_neg_samples + 1 (10 negatives by default)."""
+    helper = LayerHelper('nce', **locals())
+    dim = input.shape[1]
+    num_true_class = label.shape[1] if len(label.shape) > 1 else 1
+    w = helper.create_parameter(attr=helper.param_attr,
+                                shape=[num_total_classes, dim],
+                                dtype=input.dtype)
+    b = helper.create_parameter(attr=helper.bias_attr,
+                                shape=[num_total_classes, 1],
+                                dtype=input.dtype, is_bias=True)
+    cost = helper.create_variable_for_type_inference(dtype=input.dtype)
+    sample_logits = helper.create_variable_for_type_inference(
+        dtype=input.dtype)
+    sample_labels = helper.create_variable_for_type_inference(
+        dtype=label.dtype)
+    num_neg_samples = 10 if num_neg_samples is None else int(num_neg_samples)
+    inputs = {'Input': [input], 'Label': [label], 'Weight': [w], 'Bias': [b]}
+    if sample_weight is not None:
+        inputs['SampleWeight'] = [sample_weight]
+    helper.append_op(type='nce', inputs=inputs,
+                     outputs={'Cost': [cost], 'SampleLogits': [sample_logits],
+                              'SampleLabels': [sample_labels]},
+                     attrs={'num_total_classes': int(num_total_classes),
+                            'num_neg_samples': num_neg_samples,
+                            'num_true_classes': num_true_class})
+    return cost / (num_neg_samples + 1)
+
+
+def hsigmoid(input, label, num_classes, param_attr=None, bias_attr=None):
+    """Hierarchical sigmoid (the JAX layers/nn.py:1334; reference
+    nn.py:hsigmoid): W [C - 1, D], Bias [1, C - 1]."""
+    helper = LayerHelper('hierarchical_sigmoid', **locals())
+    dim = input.shape[1]
+    weights = helper.create_parameter(attr=helper.param_attr,
+                                      shape=[num_classes - 1, dim],
+                                      dtype=input.dtype)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    pre_out = helper.create_variable_for_type_inference(input.dtype)
+    inputs = {'X': [input], 'W': [weights], 'Label': [label]}
+    if helper.bias_attr:
+        bias = helper.create_parameter(attr=helper.bias_attr,
+                                       shape=[1, num_classes - 1],
+                                       dtype=input.dtype, is_bias=True)
+        inputs['Bias'] = [bias]
+    helper.append_op(type='hierarchical_sigmoid', inputs=inputs,
+                     outputs={'Out': [out], 'PreOut': [pre_out]},
+                     attrs={'num_classes': num_classes})
     return out
 
 

@@ -19,7 +19,7 @@ __all__ = __activations__ + [
     'elementwise_pow', 'clip', 'clip_by_norm', 'logical_and', 'logical_or',
     'logical_xor', 'logical_not', 'uniform_random_batch_size_like',
     'gaussian_random', 'gaussian_random_batch_size_like', 'sum', 'slice',
-    'shape', 'maxout',
+    'shape', 'maxout', 'cumsum',
 ]
 
 
@@ -227,6 +227,14 @@ def thresholded_relu(x, threshold=None):
     default 1.0)."""
     attrs = {} if threshold is None else {'threshold': float(threshold)}
     return _single_in_op('thresholded_relu', x, attrs=attrs)
+
+
+def cumsum(x, axis=-1, exclusive=False, reverse=False, name=None):
+    """Cumulative sum along axis (the JAX layers/ops.py:244; reference
+    operators/cum_op.h)."""
+    return _single_in_op('cumsum', x,
+                         attrs={'axis': axis, 'exclusive': exclusive,
+                                'reverse': reverse}, name=name)
 
 
 def sign(x, name=None):

@@ -80,7 +80,8 @@ _unary('sin', lambda x, a: torch.sin(x))
 _unary('round', lambda x, a: torch.round(x))
 _unary('reciprocal', lambda x, a: 1.0 / x)
 _unary('square', lambda x, a: torch.square(x))
-_unary('softplus', lambda x, a: torch.logaddexp(x, _scalar(x, 0)))
+# logaddexp's CUDA kernel takes no CPU scalar operand: a zero tensor
+_unary('softplus', lambda x, a: torch.logaddexp(x, torch.zeros_like(x)))
 _unary('softsign', lambda x, a: x / (1 + _abs(x)))
 _unary('brelu', lambda x, a: _clip(x, a.get('t_min', 0.0),
                                    a.get('t_max', 24.0)))

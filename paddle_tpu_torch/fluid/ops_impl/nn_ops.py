@@ -462,16 +462,42 @@ def _nearest_index(n_in, n_out, device):
     return torch.floor(pos).long()
 
 
+def _triangle_weights(n_in, n_out, device):
+    """[n_in, n_out] weights of jax.image.resize's bilinear along one dim
+    (jax/_src/image/scale.py compute_weight_mat, antialias on): a triangle
+    kernel at the half-pixel sample positions, widened by the scale on a
+    downscale, each output's weights normalized, and an output whose
+    sample lies past the input's half-pixel border weighted 0."""
+    inv_scale = 1.0 / (n_out / n_in)
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (torch.arange(n_out, dtype=torch.float32, device=device)
+              + 0.5) * inv_scale - 0.5
+    src = torch.arange(n_in, dtype=torch.float32, device=device)
+    w = torch.clamp(1.0 - (sample[None, :] - src[:, None]).abs()
+                    / kernel_scale, min=0.0)
+    total = w.sum(dim=0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * torch.finfo(torch.float32).eps,
+                    w / torch.where(total != 0, total, 1.0),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w))
+
+
 def _resize(x, out_h, out_w, method):
     """jax.image.resize of NCHW x to [out_h, out_w] (the JAX :422-424).
-    Bilinear there is a triangle filter at half-pixel centres, widened by
-    the scale on a downscale (antialias, its default) and normalized:
-    F.interpolate's antialiased bilinear computes the same weights, up
-    and down. Nearest takes each output's source row and column as JAX
-    does (torch's 'nearest-exact' rounds its scale another way)."""
+    Bilinear is separable: along each dim whose size changes, a product
+    with that dim's [in, out] triangle weights (_triangle_weights), built
+    on x's device, so autograd gives the VJP. Nearest takes each output's
+    source row and column as JAX does (torch's 'nearest-exact' rounds its
+    scale another way)."""
     if method == 'bilinear':
-        return F.interpolate(x, size=(out_h, out_w), mode='bilinear',
-                             align_corners=False, antialias=True)
+        if x.shape[2] != out_h:
+            wh = _triangle_weights(x.shape[2], out_h, x.device).to(x.dtype)
+            x = torch.einsum('nchw,hk->nckw', x, wh)
+        if x.shape[3] != out_w:
+            ww = _triangle_weights(x.shape[3], out_w, x.device).to(x.dtype)
+            x = torch.matmul(x, ww)
+        return x
     for dim, n_out in ((2, out_h), (3, out_w)):
         if x.shape[dim] != n_out:
             x = x.index_select(dim, _nearest_index(x.shape[dim], n_out,

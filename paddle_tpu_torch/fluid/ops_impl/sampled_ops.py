@@ -14,8 +14,17 @@ whole-sequence decode's and the paged engine matches the dense one by
 construction. `_gather_paged_enc` :361 serves only the JAX rules'
 kernel-off branch; here its gather is paged_attention's plain version.
 `beam_search` (:100) and `beam_search_decode` (:692), in their dense and
-their LoD (capacity) forms, close the module. `nce` and
-`hierarchical_sigmoid` are not ported yet (ROADMAP.md Queue A).
+their LoD (capacity) forms, close the module; before them the two sampled
+losses, `nce` (:23) and `hierarchical_sigmoid` (:63).
+
+`nce` draws its shared negatives uniformly on the device from
+ctx.generator (the generator each captured step registers, so every
+replay draws afresh) and hands them to `nce_cost`, a function of the
+drawn negatives that the tests hold against the JAX rule on the same
+negatives: the two packages' draws differ, their law is the same.
+`hierarchical_sigmoid` walks the complete binary tree as the JAX rule
+does, a static [B, max_depth] gather of heap ancestors with a masked
+logistic loss.
 
 The paged and the speculative rules call `ops.kernels.paged_attention`
 unconditionally: on the card that launches the CUDA kernel, on the CPU its
@@ -36,10 +45,14 @@ never share a history page, so every kept row has exactly one writer and
 the result does not depend on the order `index_put_` applies duplicate
 indices in (only the dropped rows collide, on the scratch row).
 """
+import math
+
 import torch
 
 from ...ops.kernels import paged_attention
 from ..lowering import register, data_of, SeqValue
+from .math_ops import _clip
+from .tensor_ops import take_rows
 from .lod_beam import (attention_beam_step, beam_init_carry,
                        greedy_attend_cell)
 
@@ -444,6 +457,98 @@ def _attention_lstm_spec_decode_step(ins, attrs, ctx):
         'Done': active & ~active2, 'Bad': bad,
         'Accepted': torch.where(active, accepted, 0)})
     return out
+
+
+def _softplus(x):
+    """jax.nn.softplus as the softplus rule takes it (math_ops):
+    logaddexp(x, 0), no threshold."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def nce_negatives(num_total_classes, num_neg_samples, device, generator):
+    """The k negatives all rows share, uniform over [0, N), drawn on the
+    device (int64 [k])."""
+    return torch.randint(0, num_total_classes, (num_neg_samples,),
+                         generator=generator, device=device)
+
+
+def nce_cost(x, label, w, b, neg, num_total_classes, sample_weight=None):
+    """NCE's cost for the drawn negatives `neg` (the JAX :23-60): the
+    logistic loss of each row's true classes against the k shared
+    negatives, every logit corrected by log(k / N). x [B, D], label [B, T]
+    or [B], w [N, D], b [N, 1] or None. Returns (Cost [B, 1],
+    SampleLogits [B, T + k], SampleLabels int64 [B, T + k])."""
+    label = label.long()
+    if label.ndim == 1:
+        label = label[:, None]
+    k = neg.shape[0]
+    log_kq = torch.log(torch.tensor(k / num_total_classes, dtype=x.dtype))
+    bias = None if b is None else b[:, 0]
+    true_logit = torch.einsum('bd,btd->bt', x, take_rows(w, label))
+    neg_logit = x @ w.index_select(0, neg).t()              # [B, k]
+    if bias is not None:
+        true_logit = true_logit + take_rows(bias, label)
+        neg_logit = neg_logit + bias.index_select(0, neg)[None, :]
+    true_logit = true_logit - log_kq
+    neg_logit = neg_logit - log_kq
+    cost = (_softplus(-true_logit).sum(dim=1)
+            + _softplus(neg_logit).sum(dim=1))[:, None]
+    if sample_weight is not None:
+        cost = cost * sample_weight.reshape(-1, 1)
+    labels = torch.cat([label, neg[None, :].expand(label.shape[0], k)], 1)
+    return cost, torch.cat([true_logit, neg_logit], 1), labels
+
+
+@register('nce')
+def _nce(ins, attrs, ctx):
+    """Noise-contrastive estimation with a uniform noise law (reference
+    nce_op.h's defaults): nce_cost over negatives drawn by nce_negatives
+    from ctx.generator."""
+    x = data_of(ins['Input'][0])
+    n = int(attrs['num_total_classes'])
+    neg = nce_negatives(n, int(attrs.get('num_neg_samples', 10)), x.device,
+                        ctx.generator)
+    cost, logits, labels = nce_cost(
+        x, data_of(ins['Label'][0]), data_of(ins['Weight'][0]),
+        data_of(ins['Bias'][0]) if ins.get('Bias') else None, neg, n,
+        data_of(ins['SampleWeight'][0]) if ins.get('SampleWeight')
+        else None)
+    return {'Cost': cost, 'SampleLogits': logits, 'SampleLabels': labels}
+
+
+@register('hierarchical_sigmoid')
+def _hierarchical_sigmoid(ins, attrs, ctx):
+    """Hierarchical sigmoid over the complete binary tree (reference
+    hierarchical_sigmoid_op.h SimpleCode; the JAX :63-97): class c is the
+    heap leaf c + C; its path has floor(log2(fp32(c + C))) internal nodes,
+    the heap ancestors, each a row of W [C - 1, D] and a branch bit. The
+    pre-activations are clipped to [-40, 40] (the port's clip, whose
+    gradient at the bound is jnp.clip's) and each node adds the logistic
+    loss of its bit; nodes past the path are masked."""
+    x = data_of(ins['X'][0])                                # [B, D]
+    w = data_of(ins['W'][0])                                # [C - 1, D]
+    label = data_of(ins['Label'][0]).long()
+    if label.ndim > 1:
+        label = label.reshape(label.shape[0])
+    bias = data_of(ins['Bias'][0]) if ins.get('Bias') else None
+    c = int(attrs['num_classes'])
+    max_len = max(1, int(math.ceil(math.log2(c))))
+    code = label + c                                        # heap leaf
+    length = torch.floor(torch.log2(code.to(torch.float32))).long()
+    j = torch.arange(max_len, device=x.device)[None, :]     # [1, L]
+    valid = j < length[:, None]
+    shift = torch.clamp(length[:, None] - j, min=1)
+    anc = torch.bitwise_right_shift(code[:, None], shift)   # ancestors
+    bit = torch.bitwise_right_shift(code[:, None], shift - 1) & 1
+    idx = torch.clamp(anc - 1, 0, c - 2)                    # W's row
+    pre = torch.einsum('bd,bld->bl', x, w[idx])
+    if bias is not None:
+        pre = pre + bias.reshape(-1)[idx]
+    pre = _clip(pre, -40.0, 40.0)
+    loss = _softplus(pre) - bit.to(pre.dtype) * pre
+    out = torch.where(valid, loss, torch.zeros_like(loss)).sum(
+        dim=1, keepdim=True)
+    return {'Out': out, 'PreOut': pre}
 
 
 @register('beam_search', best_effort_shapes=True)

@@ -349,18 +349,23 @@ def _fill_of(x):
     return torch.iinfo(x.dtype).min
 
 
-@register('gather')
-def _gather(ins, attrs, ctx):
-    """jnp.take(x, index, axis=0): [-n, 0) wraps, an index outside
-    [-n, n) gives the fill; out has shape index.shape + x.shape[1:]."""
-    x = data_of(ins['X'][0])
+def take_rows(x, index):
+    """jnp.take(x, index, axis=0) in its default mode: [-n, 0) wraps, an
+    index outside [-n, n) gives the fill; shape index.shape +
+    x.shape[1:]. Wrapped, clamped and selected on the device."""
     n = x.shape[0]
-    idx = _wrap(data_of(ins['Index'][0]).long(), n)
+    idx = _wrap(index.long(), n)
     rows = x.index_select(0, idx.reshape(-1).clamp(0, n - 1)).reshape(
         tuple(idx.shape) + tuple(x.shape[1:]))
     valid = ((idx >= 0) & (idx < n)).reshape(
         tuple(idx.shape) + (1,) * (x.ndim - 1))
-    return {'Out': torch.where(valid, rows, _fill_of(x))}
+    return torch.where(valid, rows, _fill_of(x))
+
+
+@register('gather')
+def _gather(ins, attrs, ctx):
+    return {'Out': take_rows(data_of(ins['X'][0]),
+                             data_of(ins['Index'][0]))}
 
 
 @register('expand')

@@ -53,6 +53,7 @@ wait for later slices of the port).
 """
 from . import buckets  # noqa: F401
 from . import pages  # noqa: F401
+from .pages import PagePool, PrefixCache  # noqa: F401
 from .buckets import default_buckets, pad_rows, pick_bucket  # noqa: F401
 from .engine import (DeadlineExceeded, DeltaUnsupported,  # noqa: F401
                      ServerClosed, ServerOverloaded, ServingConfig,
@@ -69,4 +70,5 @@ __all__ = ['ServingEngine', 'ServingConfig', 'ServerOverloaded',
            'estimate_state_bytes', 'buckets',
            'default_buckets', 'pick_bucket', 'pad_rows', 'DecodeConfig',
            'DecodeEngine', 'DecodeSlotPoisoned', 'LockstepDecoder',
-           'StreamCancelled', 'mt_weights', 'program_prefill', 'pages']
+           'StreamCancelled', 'mt_weights', 'program_prefill', 'pages',
+           'PagePool', 'PrefixCache']

@@ -60,7 +60,11 @@ int8: dequantize and quant_lookup_table under sync debug bitwise the CPU
 (out-of-range ids and padding_idx included); a mark_quant program captured
 and replayed against the CPU (1e-6); the AMP pass's step with ctx.amp off
 launching only the bf16 attention kernels, its loss within one bf16 ulp of
-runtime AMP's on the card.
+runtime AMP's on the card. The rest of the training surface: the extra
+and sampled rules under sync debug against the CPU (1e-5, the index
+outputs exactly), nce and sampling_id captured in one graph drawing anew
+each replay (Cost against nce_cost at the drawn negatives, 1e-5), and the
+bilinear resize to an output dim of 1, forward and VJP (1e-5).
 """
 import contextlib
 import importlib
@@ -3442,3 +3446,147 @@ def test_rpn_target_assign_and_ties_card_against_cpu(card):
         assert torch.equal(got[k].cpu(), want[k]), k
     assert float((got['TargetBox'].cpu() - want['TargetBox']).abs().max()) \
         <= 1e-5 * float(want['TargetBox'].abs().max())
+
+
+# -- the rest of the training surface -------------------------------------------
+
+def _training_surface_cases():
+    """(op, ins, attrs, exact output slots) of the extra and sampled rules
+    the card runs without a host read."""
+    g = torch.Generator().manual_seed(31)
+
+    def f(*s):
+        return torch.randn(*s, generator=g)
+
+    x_pool = f(2, 3, 9, 8)
+    pool_attrs = {'ksize': [3, 3], 'strides': [1, 2], 'paddings': [1, 1]}
+    from paddle_tpu_torch.fluid import lowering
+    pooled = lowering.get_rule('max_pool2d_with_index')(
+        {'X': [x_pool]}, pool_attrs, lowering.Ctx(torch.device('cpu')))
+    match = torch.where(torch.rand(4, 300, generator=g) < 0.1,
+                        torch.randint(0, 5, (4, 300), generator=g),
+                        -1).int()
+    return [
+        # the softplus rule: logaddexp on the card, where a CPU-scalar
+        # operand raises
+        ('softplus', {'X': [f(8, 16) * 30]}, {}, ()),
+        ('cumsum', {'X': [f(8, 33)]}, {'axis': 1, 'exclusive': True,
+                                       'reverse': True}, ()),
+        ('norm', {'X': [f(4, 6, 5)]}, {'axis': 1}, ()),
+        ('conv_shift', {'X': [f(8, 40)], 'Y': [f(8, 5)]}, {}, ()),
+        ('bilinear_tensor_product', {'X': [f(8, 6)], 'Y': [f(8, 7)],
+                                     'Weight': [f(3, 6, 7)],
+                                     'Bias': [f(1, 3)]}, {}, ()),
+        ('max_pool2d_with_index', {'X': [x_pool]}, pool_attrs, ('Mask',)),
+        ('unpool', {'X': [pooled['Out']], 'Indices': [pooled['Mask']]},
+         dict(pool_attrs, unpooling_type='max', output_size=[9, 8]), ()),
+        ('spp', {'X': [f(2, 3, 7, 9)]}, {'pyramid_height': 3}, ()),
+        ('positive_negative_pair', {
+            'Score': [torch.round(f(40, 2) * 4) / 4],
+            'Label': [torch.randint(0, 3, (40, 1), generator=g).float()],
+            'QueryID': [torch.randint(0, 5, (40, 1), generator=g)]},
+         {'column': 0}, ()),
+        ('precision_recall', {
+            'Indices': [torch.randint(0, 6, (50, 1), generator=g)],
+            'Labels': [torch.randint(0, 6, (50, 1), generator=g)],
+            'StatesInfo': [f(6, 4).abs()]}, {'class_number': 6}, ()),
+        ('fake_quantize', {'X': [f(8, 16)]}, {'bit_length': 8}, ()),
+        ('mine_hard_examples', {
+            'ClsLoss': [torch.round(f(4, 300).abs() * 2) / 2],
+            'MatchIndices': [match], 'MatchDist': [torch.rand(
+                4, 300, generator=g)]}, {}, ('NegIndices',
+                                          'UpdatedMatchIndices')),
+        ('proximal_adagrad', {
+            'Param': [f(8, 9)], 'Grad': [f(8, 9)],
+            'Moment': [f(8, 9).abs() + 0.1],
+            'LearningRate': [torch.tensor([0.1])]}, {'l1': 0.1, 'l2': 0.2},
+         ()),
+        ('hierarchical_sigmoid', {
+            'X': [f(16, 12)], 'W': [f(99, 12)], 'Bias': [f(1, 99)],
+            'Label': [torch.randint(0, 100, (16, 1), generator=g)]},
+         {'num_classes': 100}, ()),
+    ]
+
+
+@pytest.mark.parametrize('case', range(len(_training_surface_cases())))
+def test_training_surface_rule_on_the_card_matches_the_cpu_without_a_sync(
+        card, case):
+    """Under sync debug (no host read): every output within 1e-5 of max(1,
+    |cpu|), the index outputs exactly."""
+    from paddle_tpu_torch.fluid.lowering import SeqValue
+    op, ins, attrs, exact = _training_surface_cases()[case]
+    _, want = _det_rule(op, ins, attrs, torch.device('cpu'))
+    _, got = _det_rule(op, ins, attrs, card)
+    for slot, w in want.items():
+        if w is None:
+            continue
+        gt = got[slot]
+        if isinstance(w, SeqValue):
+            assert torch.equal(gt.lengths.cpu(), w.lengths), slot
+            w, gt = w.data, gt.data
+        if slot in exact or not w.is_floating_point():
+            assert torch.equal(gt.cpu(), w), (op, slot)
+        else:
+            scale = max(1.0, float(w.abs().max()))
+            assert float((gt.cpu() - w).abs().max()) <= 1e-5 * scale, \
+                (op, slot)
+
+
+def test_nce_and_sampling_id_draw_afresh_in_each_replay(card):
+    """nce and sampling_id captured in one CUDA graph: each replay draws
+    new negatives and ids from the graph's generator, and the replay's Cost
+    is nce_cost on the CPU at its negatives within 1e-5."""
+    from paddle_tpu_torch.fluid import lowering
+    from paddle_tpu_torch.fluid.ops_impl import sampled_ops
+    g = torch.Generator().manual_seed(32)
+    x, w, b = (torch.randn(16, 8, generator=g),
+               torch.randn(300, 8, generator=g),
+               torch.randn(300, 1, generator=g))
+    label = torch.randint(0, 300, (16, 1), generator=g)
+    probs = torch.full((64, 10), 0.1, device=card)
+    gen = torch.Generator(device=card)
+    gen.manual_seed(0)
+    ctx = lowering.Ctx(card, gen)
+    ins = {'Input': [x.to(card)], 'Label': [label.to(card)],
+           'Weight': [w.to(card)], 'Bias': [b.to(card)]}
+    attrs = {'num_total_classes': 300, 'num_neg_samples': 7}
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(gen)
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        out = lowering.get_rule('nce')(ins, attrs, ctx)
+        ids = lowering.get_rule('sampling_id')(
+            {'X': [probs]}, {}, ctx)['Out']
+    draws = []
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        labels = out['SampleLabels'].cpu()
+        neg = labels[0, 1:]
+        assert (labels[:, 1:] == neg).all()
+        cost = sampled_ops.nce_cost(x, label, w, b, neg, 300)[0]
+        assert float((out['Cost'].cpu() - cost).abs().max()) <= 1e-5 * max(
+            1.0, float(cost.abs().max()))
+        draws.append((neg.clone(), ids.cpu().clone()))
+    assert not torch.equal(draws[0][0], draws[1][0])
+    assert not torch.equal(draws[0][1], draws[1][1])
+
+
+@pytest.mark.parametrize('size', [(2, 1, 3, 1), (1, 2, 1, 3), (5, 4, 1, 1),
+                                  (1, 1, 4, 4), (7, 5, 1, 9)])
+def test_bilinear_resize_to_a_dim_of_1_card_against_cpu(card, size):
+    """The width-1 fault's shapes: forward and VJP within 1e-5."""
+    from paddle_tpu_torch.fluid.ops_impl.nn_ops import _resize
+    h, w, oh, ow = size
+    g = torch.Generator().manual_seed(33)
+    x = torch.randn(3, 4, h, w, generator=g)
+    cot = torch.randn(3, 4, oh, ow, generator=g)
+    res = []
+    for dev in (torch.device('cpu'), card):
+        xi = x.to(dev).requires_grad_()
+        y = _resize(xi, oh, ow, 'bilinear')
+        gx, = torch.autograd.grad((y * cot.to(dev)).sum(), xi)
+        res.append((y.detach().cpu(), gx.cpu()))
+    for a, b in zip(res[0], res[1]):
+        assert float((a - b).abs().max()) <= 1e-5 * max(1.0,
+                                                       float(a.abs().max()))

@@ -9,8 +9,12 @@
     and serving.DecodeEngine(weights) raise instead of running on the CPU (Trainer() and Inferencer():
     tests/test_torch_trainer.py);
   * chip_smoke.py refuses to run, and prints no result, without a card or
-    outside a checkout.
+    outside a checkout;
+  * every module the two packages share exports (`__all__`) every name the
+    JAX module exports, less the names a ROADMAP queue item holds, each
+    listed in _HELD with the item's title.
 """
+import importlib
 import os
 import re
 import shutil
@@ -105,6 +109,14 @@ SUBMODULES = [
     # detection: the SSD family's rules and layers
     'paddle_tpu_torch.fluid.ops_impl.detection_ops',
     'paddle_tpu_torch.fluid.layers.detection',
+    # the rest of the training surface and the fluid aux modules
+    'paddle_tpu_torch.fluid.initializer',
+    'paddle_tpu_torch.fluid.layers.layer_function_generator',
+    'paddle_tpu_torch.fluid.layers.device', 'paddle_tpu_torch.models',
+    'paddle_tpu_torch.fluid.annotations', 'paddle_tpu_torch.fluid.concurrency',
+    'paddle_tpu_torch.fluid.default_scope_funcs',
+    'paddle_tpu_torch.fluid.graphviz', 'paddle_tpu_torch.fluid.net_drawer',
+    'paddle_tpu_torch.fluid.debugger', 'paddle_tpu_torch.version',
 ]
 
 
@@ -273,3 +285,127 @@ def test_chip_smoke_fails_without_a_card_and_prints_no_result(tmp_path,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+# Names the JAX module exports and the port's does not yet, each held by a
+# ROADMAP.md queue item (its title) or a recorded departure.
+_DATA = 'Trainer and data: the recordio half'
+_PARALLEL = 'Parallel'
+_TOOLING = 'Analysis and tooling'
+_SERVING = 'Serving, the rest'
+_NO_SWITCH = 'Known departures: no kernel switch'
+_READER_LAYERS = ['open_recordio_file', 'open_files', 'read_file', 'shuffle',
+                  'batch', 'double_buffer', 'random_data_generator',
+                  'py_reader', 'Preprocessor', 'load']
+_TRANSPILERS = ['DistributeTranspiler', 'DistributeTranspilerConfig',
+                'PipelineTranspiler', 'SequenceParallelTranspiler',
+                'TensorParallelTranspiler', 'HashName', 'RoundRobin']
+_HELD = {
+    'dataset': {n: _DATA for n in ('sentiment', 'voc2012', 'mq2007')},
+    'dataset.common': {n: _DATA for n in (
+        'download', 'md5file', 'data_path', 'split', 'cluster_files_reader',
+        'convert')},
+    'dataset.image': {n: _DATA for n in (
+        'load_image_bytes', 'load_image', 'simple_transform_batch',
+        'load_and_transform', 'batch_images_from_tar')},
+    'dataset.uci_housing': {'feature_range': _DATA, 'convert': _DATA},
+    'dataset.wmt16': {'fetch': _DATA, 'convert': _DATA},
+    'embedding': {n: _PARALLEL for n in (
+        'sharded_lookup', 'pad_vocab', 'wire_stats', 'table_attr',
+        'gather_table')},
+    'embedding.lookup': {n: _PARALLEL for n in (
+        'sharded_lookup', 'pad_vocab', 'wire_stats')},
+    'fluid': dict({n: _PARALLEL for n in ['device_guard'] + _TRANSPILERS[:5]},
+                  profiler=_TOOLING),
+    'fluid.analysis': {n: _TOOLING for n in (
+        'analyze', 'maybe_verify', 'report_findings', 'verify_mode',
+        'executor_donates', 'persistable_write_set', 'register_infer',
+        'ENV_VERIFY', 'CostReport', 'cost_report', 'collective_sequence')},
+    'fluid.contrib': {'memory_usage_calc': _TOOLING,
+                      'memory_usage': _TOOLING},
+    'fluid.framework': {'device_guard': _PARALLEL,
+                        'strict_infer_shape': _TOOLING},
+    'fluid.layers': dict({n: _DATA for n in _READER_LAYERS},
+                         moe_mlp=_PARALLEL),
+    'fluid.layers.io': {n: _DATA for n in _READER_LAYERS},
+    'fluid.layers.nn': {'moe_mlp': _PARALLEL},
+    'fluid.step_artifact': {n: _SERVING for n in (
+        'aot_manifest', 'write_aot', 'read_aot', 'aot_check',
+        'AOT_MANIFEST', 'AOT_CACHE_DIR')},
+    'fluid.transpiler': {n: _PARALLEL for n in _TRANSPILERS},
+    'ops': {'reference_attention': _NO_SWITCH},
+    'ops.kernels': {n: _NO_SWITCH for n in (
+        'register_kernel', 'available', 'enabled', 'configure', 'signature',
+        'note_dispatch', 'interpret_default', 'ENV_KERNELS',
+        'paged_attention_reference')},
+    'reader.creator': {'recordio': _DATA},
+    'serving': {n: _SERVING for n in (
+        'transport', 'Channel', 'RpcServer', 'TransportError', 'PodRouter',
+        'PodWorker', 'RemoteReplica', 'RpcReplica', 'ShardedPredictor',
+        'sharded_replica', 'save_serving_program', 'AutoscalePolicy',
+        'Autoscaler')},
+}
+for _m in ('cifar', 'conll05', 'imdb', 'imikolov', 'mnist', 'movielens',
+           'wmt14'):
+    _HELD['dataset.' + _m] = {'convert': _DATA}
+# listed in the JAX fluid.__all__ but not defined on the JAX fluid module
+# (the port defines Block, grad_var_name, FetchHandle and
+# normalize_sharding there)
+_UNDEFINED_IN_JAX = {'fluid': [
+    'Block', 'grad_var_name', 'strict_infer_shape', 'normalize_sharding',
+    'FetchHandle', 'HashName', 'RoundRobin', 'learning_rate_decay']}
+
+
+def _module_names(pkg_dir):
+    out = set()
+    for root, _, files in os.walk(pkg_dir):
+        for f in files:
+            if f.endswith('.py'):
+                rel = os.path.relpath(os.path.join(root, f), pkg_dir)[:-3]
+                parts = rel.split(os.sep)
+                if parts[-1] == '__init__':
+                    parts = parts[:-1]
+                out.add('.'.join(parts))
+    return out
+
+
+def test_every_shared_module_exports_the_jax_names():
+    """The port's __all__ holds the JAX __all__ of every module both
+    packages have, less _HELD; every held name is really missing (so the
+    list shrinks as the port grows), and every queue title it names
+    stands in ROADMAP.md."""
+    import paddle_tpu
+    jax_dir = os.path.dirname(os.path.abspath(paddle_tpu.__file__))
+    shared = sorted(_module_names(jax_dir) & _module_names(PORT_DIR))
+    assert len(shared) > 100 and '' in shared and 'fluid.initializer' in shared
+    missing, undefined, phantom = {}, {}, []
+    for m in shared:
+        jm = importlib.import_module('paddle_tpu' + ('.' + m if m else ''))
+        tm = importlib.import_module('paddle_tpu_torch' + ('.' + m if m
+                                                            else ''))
+        jall = getattr(jm, '__all__', None)
+        if jall is None:
+            continue
+        tall = set(getattr(tm, '__all__', None) or ())
+        for n in jall:
+            if not hasattr(jm, n):
+                undefined.setdefault(m or '<root>', []).append(n)
+                continue
+            if n not in tall:
+                missing.setdefault(m, {})[n] = None
+        phantom.extend('%s.%s' % (m, n) for n in sorted(tall)
+                       if not hasattr(tm, n))
+    assert not phantom, 'in the port\'s __all__ but undefined: %r' % phantom
+    assert undefined == _UNDEFINED_IN_JAX
+    unheld = {m: sorted(n for n in ns if n not in _HELD.get(m, {}))
+              for m, ns in missing.items()}
+    unheld = {m: ns for m, ns in unheld.items() if ns}
+    assert not unheld, unheld
+    stale = {m: sorted(n for n in ns if n not in missing.get(m, {}))
+             for m, ns in _HELD.items()}
+    stale = {m: ns for m, ns in stale.items() if ns}
+    assert not stale, stale
+    with open(os.path.join(REPO, 'ROADMAP.md')) as fh:
+        roadmap = fh.read()
+    for title in {t for ns in _HELD.values() for t in ns.values()}:
+        assert title.split(': ')[-1] in roadmap, title

@@ -607,7 +607,8 @@ def test_corrupt_slot_and_forced_evict_are_the_jax_tiers(tmp_path):
 def test_tiered_dim_sharded_table_refused_typed_with_the_jax_message(
         tmp_path):
     """A dim-sharded annotation (inert metadata in the port) is refused
-    TYPED at train_stream entry, with the JAX message; row sharding is
+    TYPED at train_stream entry, with the JAX message (but the ROADMAP
+    pointer, by the item's title in the port); row sharding is
     accepted; the table var is stamped tiered and serializes so."""
     msgs = []
     for pkg in ('jax', 'port'):
@@ -627,7 +628,9 @@ def test_tiered_dim_sharded_table_refused_typed_with_the_jax_message(
         msgs.append(str(e.value))
         tvar.sharding = ('model', None)
         tt.validate_program(t.train_program)
-    assert msgs[0] == msgs[1]
+    # the port's message points at the ROADMAP item by its title
+    assert msgs[1] == msgs[0].replace('ROADMAP item 3', 'ROADMAP "Parallel"')
+    assert 'ROADMAP item 3' in msgs[0]
     from paddle_tpu_torch.fluid import framework
     assert framework.normalize_sharding('model') == ('model',)
     assert framework.normalize_sharding([['a', 'b'], None]) == \

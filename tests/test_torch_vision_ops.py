@@ -10,8 +10,9 @@ same numpy inputs, on the CPU:
     |d| = 1 / sigma^2, huber at |d| = delta and 0, prelu at x = 0, roi_pool
     with tied values in one bin (JAX's scatter-max splits the gradient);
     the transposed convs with groups and dilations; resize 2x up, 0.5x
-    down and non-integer ratios (jax.image.resize antialiases a
-    downscale);
+    down, non-integer ratios (jax.image.resize antialiases a downscale)
+    and output dims of 1, and the bilinear forward over every size in
+    1..5;
   * the layers: one program of all 14 emits the JAX program op for op
     (but mean_iou's counts, int64 where the JAX program infers float32),
     and from the JAX startup scope its fetches and one SGD step's
@@ -188,7 +189,10 @@ def test_prelu_at_zero(mode):
 RESIZE_CASES = {'up_2x': (8, 6, 16, 12), 'down_half': (16, 12, 8, 6),
                 'up_non_integer': (10, 7, 15, 9),
                 'down_non_integer': (19, 19, 10, 7),
-                'mixed': (5, 12, 11, 5), 'same_height': (6, 6, 6, 9)}
+                'mixed': (5, 12, 11, 5), 'same_height': (6, 6, 6, 9),
+                # an output dim of 1 (torch's own bilinear special-cases it)
+                'to_width_1': (2, 1, 3, 1), 'to_height_1': (1, 2, 1, 3),
+                'to_1x1': (5, 4, 1, 1), 'from_1x1': (1, 1, 4, 4)}
 
 
 @pytest.mark.parametrize('op_type', ['bilinear_interp', 'nearest_interp'])
@@ -197,6 +201,30 @@ def test_resize(case, op_type):
     h, w, oh, ow = RESIZE_CASES[case]
     _both(op_type, {'X': [_f32(2, 3, h, w)]}, {'out_h': oh, 'out_w': ow},
           ('Out',), ['X'])
+
+
+def test_bilinear_resize_sweeps_every_size_up_to_5():
+    """Forward only: every h, w, out_h, out_w in 1..5 within 1e-5. The JAX
+    rule runs jitted, one program an input size for all 25 output sizes
+    (a compile a shape would take minutes)."""
+    import itertools
+    import jax
+    from test_torch_detection import _jrule, _trule
+    sizes = list(itertools.product(range(1, 6), repeat=2))
+
+    @jax.jit
+    def every_output(x):
+        return [_jrule('bilinear_interp', {'X': [x]},
+                       {'out_h': oh, 'out_w': ow})['Out']
+                for oh, ow in sizes]
+
+    for h, w in sizes:
+        x = _f32(2, 3, h, w)
+        for (oh, ow), want in zip(sizes, every_output(x)):
+            got = _trule('bilinear_interp', {'X': [x]},
+                         {'out_h': oh, 'out_w': ow})['Out']
+            _close(got.numpy(), np.asarray(want),
+                   'bilinear %dx%d -> %dx%d' % (h, w, oh, ow))
 
 
 # -- roi_pool, mean_iou -----------------------------------------------------
