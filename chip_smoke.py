@@ -469,6 +469,31 @@ replay (each graph adds the launches its capture recorded).
                 the card, and a Bilinear depthwise conv2d_transpose. (e)
                 bilinear_interp at output dims of 1. No kernel of the
                 port runs. One JSON line {"training_surface": {...}}.
+  7n. recordio — the recordio half of the data path (RIO_* below). The
+                native host library (csrc/recordio.cpp, image_aug.cpp)
+                built from the checkout by the host compiler. (a) 1,280 raw
+                flowers samples (315 MB) written into 4 recordio shards;
+                every record read back by the native prefetch scanner and
+                by RecordIOReader bitwise the sample written; the
+                scanners' MB/s (page cache warm). The chain open_files ->
+                shuffle -> batch -> simple_transform_batch ->
+                double_buffer(CUDAPlace) feeds ResNet-50 (flowers) 30
+                captured steps fp32 NCHW and 30 of phase 7b's AMP NHWC
+                tower (the batch cast to bf16 on the card at the feed):
+                the first two batches Executor.run receives bitwise the
+                plain path's (RecordIOReader, the same shuffle seed, the
+                plain numpy transform), finite losses; images/s from the
+                chain against the same captured step fed a batch already
+                on the card, the input wait a step (median, p90), the
+                transform's images/s at batch 32. (b) understand_sentiment
+                (phase 7d's config) trained captured from 12 imdb batches
+                written by fluid.recordio_writer and read by
+                open_recordio_file -> double_buffer: the losses bitwise a
+                second executor's fed the same batches through
+                DataFeeder. (c) A Preprocessor block (cast, scale, the
+                elementwise_sub of a mean parameter, transpose) on the card
+                against the CPU within RIO_PREP_TOL. No kernel of the port
+                runs. One JSON line {"recordio": {...}}.
   8. captured — each path's captured step against debug_step's eager
                 walk in this call, at full width: Transformer-base
                 training at batch 16 (get_model, dropout 0.1), fp32 and
@@ -1062,6 +1087,35 @@ INIT_STD_TOL = 0.02
 RESIZE_TOL = 1e-5
 RESIZE_CASES = ((2, 1, 3, 1), (1, 2, 1, 3), (5, 4, 1, 1), (1, 1, 4, 4),
                 (19, 19, 1, 38), (38, 38, 19, 1))
+
+# phase 7n (the recordio half of the data path): RIO_SAMPLES raw samples of
+# dataset.flowers' raw reader (256x320x3 uint8 and a label) written by
+# reader.recordio.write_samples into RIO_SHARDS shards, read through
+# layers.open_files -> shuffle(RIO_SHUFFLE) -> batch(RESNET_BATCH) ->
+# dataset.image.simple_transform_batch(resize 256, crop 224, train,
+# RIO_MEAN, seed: the batch index) -> double_buffer(CUDAPlace(0)) into
+# ResNet-50 (flowers: 102 classes, Momentum 0.01/0.9), RIO_STEPS steps fp32
+# NCHW and RIO_STEPS of phase 7b's AMP NHWC tower, then RIO_MEMORY_STEPS of
+# each step fed one batch already on the card. Each step's input wait,
+# to_feed time, garbage collections and device and pinned host
+# allocations are logged. (b) RIO_LOD_BATCHES imdb
+# batches of understand_sentiment through fluid.recordio_writer. (c) A
+# Preprocessor block over RIO_PREP_BATCHES raw batches, card against CPU
+# within RIO_PREP_TOL. The transform timed over RIO_TRANSFORM_REPS calls.
+RIO_SAMPLES = 1280
+RIO_SHARDS = 4
+RIO_SHUFFLE = 256
+RIO_MEAN = [103.94, 116.78, 123.68]
+RIO_STEPS = 30
+# the chain's images/s is also read from step RIO_SETTLED + 1 on: the first
+# replays of the AMP step still grow the device allocator (cudaMalloc calls
+# and 90-200 ms steps in replays 1-2 on an H100, PERF.md section 6)
+RIO_SETTLED = 5
+RIO_MEMORY_STEPS = 20
+RIO_TRANSFORM_REPS = 10
+RIO_LOD_BATCHES = 12
+RIO_PREP_BATCHES = 2
+RIO_PREP_TOL = 1e-6
 
 
 def log(*args):
@@ -9708,6 +9762,464 @@ def phase_training_surface():
     return counts
 
 
+# -- phase 7n: the recordio half of the data path ---------------------------
+
+def _recordio_shards(tmp, rec):
+    """RIO_SAMPLES raw flowers samples written by write_samples into
+    RIO_SHARDS shards; every record read back by the native prefetch
+    scanner and by RecordIOReader held bitwise to the sample written
+    (sha256 of its arrays), and the scanners' MB/s over the shards, the
+    page cache warm (the shards were just written). Returns the shard
+    paths."""
+    from paddle_tpu_torch.dataset import flowers
+    from paddle_tpu_torch.reader import recordio
+    from paddle_tpu_torch.utils import native
+
+    def digest(arrays):
+        h = hashlib.sha256()
+        for a in arrays:
+            a = np.ascontiguousarray(a)
+            h.update(a.dtype.str.encode() + repr(a.shape).encode())
+            h.update(a.tobytes())
+        return h.hexdigest()
+
+    t0 = time.perf_counter()
+    native.load()
+    rec['native_build_s'] = time.perf_counter() - t0
+    rec['native_library'] = os.path.relpath(
+        native.LIBRARY.library_path(), os.path.dirname(native._PKG_DIR))
+    samples = list(flowers._raw_reader('train', RIO_SAMPLES)())
+    written = [digest([np.asarray(x) for x in s]) for s in samples]
+    per = RIO_SAMPLES // RIO_SHARDS
+    paths = [os.path.join(tmp, 'flowers-%05d.ptrio' % i)
+             for i in range(RIO_SHARDS)]
+    t0 = time.perf_counter()
+    for i, p in enumerate(paths):
+        recordio.write_samples(p, iter(samples[i * per:(i + 1) * per]))
+    rec['write_s'] = time.perf_counter() - t0
+    del samples
+    nbytes = sum(os.path.getsize(p) for p in paths)
+    rec['shard_bytes'] = nbytes
+    for name, scan in (('prefetch', lambda p: native.recordio_prefetch_iter(
+            p, 4)), ('scanner', native.recordio_iter),
+            ('python', recordio.RecordIOReader)):
+        t0 = time.perf_counter()
+        n = sum(1 for p in paths for _ in scan(p))
+        secs = time.perf_counter() - t0
+        rec['scan_mb_s_' + name] = nbytes / secs / 1e6
+        if n != RIO_SAMPLES:
+            raise AssertionError('%s scanned %d records, %d written'
+                                 % (name, n, RIO_SAMPLES))
+    for name, scan in (('prefetch', lambda p: native.recordio_prefetch_iter(
+            p, 4)), ('python', recordio.RecordIOReader)):
+        got = [digest(recordio._unpack_sample(payload))
+               for p in paths for payload in scan(p)]
+        if got != written:
+            bad = [i for i, (g, w) in enumerate(zip(got, written)) if g != w]
+            raise AssertionError('the %s reader gave %d records, %d not the '
+                                 'sample written (first %r)'
+                                 % (name, len(got), len(bad), bad[:5]))
+    log('[recordio] wrote %d raw flowers samples (256x320x3 uint8 and a '
+        'label) into %d shards, %.1f MB, in %.2f s; every record read back '
+        'bitwise by the native prefetch scanner and by RecordIOReader; '
+        'scanner MB/s over the shards, page cache warm (just written): '
+        'prefetch %.0f, plain scanner %.0f, python RecordIOReader %.0f; '
+        'native library built or found in %.2f s (%s); card: %s'
+        % (RIO_SAMPLES, RIO_SHARDS, nbytes / 1e6, rec['write_s'],
+           rec['scan_mb_s_prefetch'], rec['scan_mb_s_scanner'],
+           rec['scan_mb_s_python'], rec['native_build_s'],
+           rec['native_library'], nvidia_smi_line()))
+    return paths
+
+
+def _flowers_chain(paths, place=None):
+    """open_files -> shuffle(RIO_SHUFFLE) -> batch(RESNET_BATCH) -> the
+    batched transform (seed: the batch index) -> double_buffer(place): a
+    reader of (images [32, 3, 224, 224] float32, labels [32, 1] int64),
+    staged into pinned memory on the prefetch thread. Its data vars live
+    in a program of their own."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.dataset import image
+    main, startup = _program_pair()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        layers = fluid.layers
+        r = layers.open_files(paths, shapes=[[-1, 256, 320, 3], [-1, 1]],
+                              lod_levels=[0, 0], dtypes=['uint8', 'int64'])
+        r = layers.batch(layers.shuffle(r, buffer_size=RIO_SHUFFLE),
+                         RESNET_BATCH)
+        batches = r._gen
+
+        def transformed():
+            for i, b in enumerate(batches()):
+                imgs = np.stack([s[0] for s in b])
+                labels = np.stack([s[1] for s in b]).reshape(-1, 1)
+                yield image.simple_transform_batch(
+                    imgs, 256, 224, True, mean=RIO_MEAN, seed=i), labels
+
+        r._gen = transformed
+        return layers.double_buffer(r, place=place)
+
+
+def _plain_flowers_batches(paths, n):
+    """The chain's first n batches built the plain way from the same
+    shards: RecordIOReader, the reader decorators' shuffle under the same
+    random.seed, the plain numpy transform."""
+    import random
+    from paddle_tpu_torch import reader as reader_mod
+    from paddle_tpu_torch.batch import batch
+    from paddle_tpu_torch.dataset import image
+    from paddle_tpu_torch.reader import recordio
+
+    def samples():
+        for p in paths:
+            for payload in recordio.RecordIOReader(p):
+                yield recordio._unpack_sample(payload)
+
+    random.seed(SEED)
+    out = []
+    for i, b in enumerate(batch(reader_mod.shuffle(samples, RIO_SHUFFLE),
+                                RESNET_BATCH)()):
+        if i == n:
+            break
+        out.append((image._transform_batch_plain(
+            np.stack([s[0] for s in b]), 256, 224, True, mean=RIO_MEAN,
+            seed=i), np.stack([s[1] for s in b]).reshape(-1, 1)))
+    return out
+
+
+def _chain_training(what, paths, exe, main, scope, avg_cost, to_feed,
+                    plain, rec):
+    """RIO_STEPS steps of a captured step fed by the chain, then
+    RIO_MEMORY_STEPS of the same step fed one batch already on the card.
+    Holds: the first two batches Executor.run receives bitwise the plain
+    path's; finite losses; one capture. Records images/s of both feeds
+    over the replayed steps, and the input wait a step."""
+    import random
+    import torch
+    import gc
+    r = _flowers_chain(paths, place=exe.place)
+    random.seed(SEED)
+    it = r()
+    losses, waits, steps, seen = [], [], [], []
+    pauses, started = [], []
+
+    def gc_clock(phase, info):
+        if phase == 'start':
+            started.append(time.perf_counter())
+        elif started:
+            pauses.append((info['generation'],
+                           time.perf_counter() - started.pop()))
+
+    host0 = torch.cuda.host_memory_stats()
+    gc.callbacks.append(gc_clock)
+    _reset_launch_counts()
+    feed_s, allocs = [], []
+
+    def alloc_counts():
+        return (torch.cuda.memory_stats().get('num_device_alloc', 0),
+                torch.cuda.host_memory_stats().get('num_host_alloc', 0))
+
+    for i in range(RIO_STEPS):
+        a0 = alloc_counts()
+        t0 = time.perf_counter()
+        imgs, labels = next(it)
+        t1 = time.perf_counter()
+        if i < len(plain):
+            seen.append((np.array(imgs), np.array(labels)))
+        feed = to_feed(imgs, labels)
+        t2 = time.perf_counter()
+        loss, = exe.run(main, feed=feed, fetch_list=[avg_cost], scope=scope)
+        t3 = time.perf_counter()
+        a1 = alloc_counts()
+        losses.append(float(np.asarray(loss).reshape(-1)[0]))
+        waits.append(t1 - t0)
+        feed_s.append(t2 - t1 if i >= len(plain) else None)
+        steps.append(t3 - t0)
+        allocs.append((a1[0] - a0[0], a1[1] - a0[1]))
+    gc.callbacks.remove(gc_clock)
+    host1 = torch.cuda.host_memory_stats()
+    it.close()
+    launches = _launch_counts()
+    for j, ((gi, gl), (wi, wl)) in enumerate(zip(seen, plain)):
+        if gi.tobytes() != wi.tobytes() or gl.tobytes() != wl.tobytes():
+            raise AssertionError(
+                '%s: batch %d from the chain is not the plain path\'s '
+                '(max |diff| %r)' % (what, j, float(np.abs(
+                    gi.astype(np.float64) - wi).max())))
+    if not np.isfinite(losses).all():
+        raise AssertionError('%s: non-finite loss %r' % (what, losses))
+    if exe.cache_stats['captures'] != 1:
+        raise AssertionError('%s: %r' % (what, exe.cache_stats))
+    on_card = to_feed(torch.from_numpy(seen[0][0]).to(exe.device),
+                      torch.from_numpy(seen[0][1]).to(exe.device))
+    mem = []
+    for _ in range(RIO_MEMORY_STEPS):
+        t0 = time.perf_counter()
+        exe.run(main, feed=on_card, fetch_list=[avg_cost], scope=scope)
+        mem.append(time.perf_counter() - t0)
+    replayed, settled = steps[2:], steps[RIO_SETTLED:]
+    out = dict(
+        losses=losses,
+        images_s_chain=RESNET_BATCH * len(replayed) / sum(replayed),
+        images_s_chain_settled=RESNET_BATCH * len(settled) / sum(settled),
+        images_s_memory=RESNET_BATCH * len(mem[1:]) / sum(mem[1:]),
+        step_ms_chain_median=1e3 * float(np.median(replayed)),
+        step_ms_memory_median=1e3 * float(np.median(mem[1:])),
+        wait_ms_median=1e3 * float(np.median(waits[2:])),
+        wait_ms_p90=1e3 * float(np.percentile(waits[2:], 90)),
+        wait_ms_first=1e3 * waits[0],
+        step_ms=[round(1e3 * x, 3) for x in steps],
+        wait_ms=[round(1e3 * x, 3) for x in waits],
+        feed_ms=[None if x is None else round(1e3 * x, 3) for x in feed_s],
+        device_host_allocs=allocs,
+        gc_pauses_ms={g: round(1e3 * sum(t for gg, t in pauses if gg == g), 3)
+                      for g in sorted({g for g, _ in pauses})},
+        gc_collections=len(pauses),
+        pinned_allocs=host1.get('num_host_alloc', 0)
+        - host0.get('num_host_alloc', 0),
+        captures=exe.cache_stats['captures'])
+    out['chain_over_memory'] = out['images_s_chain'] / out['images_s_memory']
+    out['settled_over_memory'] = (out['images_s_chain_settled']
+                                  / out['images_s_memory'])
+    rec[what] = out
+    log('[recordio] %s: %d steps fed by the chain, losses %s' % (
+        what, RIO_STEPS, ', '.join('%.4f' % x for x in losses)))
+    log('[recordio] %s: %.1f images/s from the chain (steps 3-%d, median '
+        'step %.2f ms; %.1f over steps %d-%d, %.3f of the memory-fed rate) '
+        'against %.1f fed a batch already on the card '
+        '(median %.2f ms), %.3f of it; input wait a step median %.3f ms, '
+        'p90 %.3f ms (the first %.1f ms); the first %d batches bitwise '
+        'the plain path\'s; in the chain\'s steps %d garbage collections '
+        '(ms by generation %s) and %d pinned host allocations; card: %s'
+        % (what, out['images_s_chain'], RIO_STEPS,
+           out['step_ms_chain_median'], out['images_s_chain_settled'],
+           RIO_SETTLED + 1, RIO_STEPS, out['settled_over_memory'],
+           out['images_s_memory'],
+           out['step_ms_memory_median'], out['chain_over_memory'],
+           out['wait_ms_median'], out['wait_ms_p90'], out['wait_ms_first'],
+           len(plain), out['gc_collections'], out['gc_pauses_ms'],
+           out['pinned_allocs'], nvidia_smi_line()))
+    log('[recordio] %s: step ms %s; input wait ms %s; to_feed ms (after '
+        'the checked batches) %s; (device, pinned host) allocations a step '
+        '%s' % (what, out['step_ms'], out['wait_ms'], out['feed_ms'],
+                 allocs))
+    return launches
+
+
+def _recordio_resnet(paths, rec):
+    """(a) ResNet-50 (flowers, 102 classes, Momentum 0.01/0.9) fp32 NCHW,
+    then the AMP NHWC tower of phase 7b with the batch cast to bf16 on
+    the card at the feed, each fed by the chain. Returns the launch
+    counts."""
+    import torch
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.dataset import image
+    from paddle_tpu_torch.fluid import unique_name
+    from paddle_tpu_torch.models import resnet
+    from paddle_tpu_torch.reader import recordio
+    plain = _plain_flowers_batches(paths, 2)
+    # the transform alone at batch 32, native against plain
+    raw = np.stack([s[0] for _, s in zip(range(RESNET_BATCH),
+                                         recordio.read_samples(paths[0]))])
+    for name, fn in (('native', image.simple_transform_batch),
+                     ('plain', image._transform_batch_plain)):
+        fn(raw, 256, 224, True, mean=RIO_MEAN, seed=0)
+        t0 = time.perf_counter()
+        for k in range(RIO_TRANSFORM_REPS):
+            fn(raw, 256, 224, True, mean=RIO_MEAN, seed=k)
+        secs = (time.perf_counter() - t0) / RIO_TRANSFORM_REPS
+        rec['transform_images_s_' + name] = RESNET_BATCH / secs
+    rec['cpu_count'] = os.cpu_count()
+    log('[recordio] simple_transform_batch at batch %d (256x320 -> crop '
+        '224, flip, mean): native %.0f images/s, plain numpy %.0f, with '
+        'os.cpu_count() %d; card: %s'
+        % (RESNET_BATCH, rec['transform_images_s_native'],
+           rec['transform_images_s_plain'], rec['cpu_count'],
+           nvidia_smi_line()))
+    counts = {}
+    main, startup = _program_pair()
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        avg_cost = resnet.get_model(data_set='flowers', depth=50,
+                                    batch_size=RESNET_BATCH)[0]
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    exe.run(startup, scope=scope)
+    launches = _chain_training(
+        'resnet50_fp32_nchw', paths, exe, main, scope, avg_cost,
+        lambda x, y: {'data': x, 'label': y}, plain, rec)
+    counts = {n: counts.get(n, 0) + v for n, v in launches.items()}
+    del exe, scope
+    main, startup, avg_cost = build_resnet_amp('NHWC')
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    exe.run(startup, scope=scope)
+
+    def bf16_nhwc(x, y):
+        x = torch.as_tensor(x).to(exe.device, non_blocking=True)
+        x = x.permute(0, 2, 3, 1)
+        return {'data': x.to(torch.bfloat16).contiguous(), 'label': y}
+
+    launches = _chain_training('resnet50_amp_nhwc', paths, exe, main, scope,
+                               avg_cost, bf16_nhwc, plain, rec)
+    counts = {n: counts.get(n, 0) + v for n, v in launches.items()}
+    del exe, scope
+    return counts
+
+
+def _recordio_sentiment(tmp, rec):
+    """(b) RIO_LOD_BATCHES batches of imdb for understand_sentiment
+    (phase 7d's config) written by convert_reader_to_recordio_files, read
+    back by open_recordio_file -> double_buffer(CUDAPlace) and trained
+    captured; the losses bitwise those of a second executor from the same
+    startup seed fed the same batches through DataFeeder. Returns the
+    launch counts."""
+    import random
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import recordio_writer
+    random.seed(SEED)
+    main, startup, avg_cost, reader, names = build_sentiment()[:5]
+    feeder = fluid.DataFeeder(names, fluid.CUDAPlace(0), program=main)
+    batches = list(itertools.islice(reader(), RIO_LOD_BATCHES))
+    stem = os.path.join(tmp, 'imdb.rec')
+    n = recordio_writer.convert_reader_to_recordio_files(
+        stem, RIO_LOD_BATCHES, lambda: iter(batches), feeder)
+    if n != RIO_LOD_BATCHES:
+        raise AssertionError('wrote %d imdb records' % n)
+    blk = main.global_block()
+    vars_ = [blk.var(nm) for nm in names]
+    r_main, r_startup = _program_pair()
+    with fluid.unique_name.guard(), fluid.program_guard(r_main, r_startup):
+        r = fluid.layers.open_recordio_file(
+            os.path.join(tmp, 'imdb-00000.rec'), shapes=[[-1, 1], [-1, 1]],
+            lod_levels=[v.lod_level or 0 for v in vars_],
+            dtypes=[v.dtype for v in vars_])
+        r = fluid.layers.double_buffer(r, place=fluid.CUDAPlace(0))
+    runs = {}
+    _reset_launch_counts()
+    for how in ('chain', 'feeder'):
+        scope = fluid.Scope()
+        exe = fluid.Executor()
+        exe.run(startup, scope=scope)
+        runs[how + '_initial'] = scope.to_numpy()
+        feeds = ([dict(zip(names, slots)) for slots in r()]
+                 if how == 'chain' else [feeder.feed(b) for b in batches])
+        runs[how] = [float(np.asarray(exe.run(
+            main, feed=f, fetch_list=[avg_cost], scope=scope)[0])
+            .reshape(-1)[0]) for f in feeds]
+        runs[how + '_captures'] = exe.cache_stats['captures']
+        del exe, scope
+    launches = _launch_counts()
+    init_a, init_b = runs['chain_initial'], runs['feeder_initial']
+    if any(init_a[k].tobytes() != init_b[k].tobytes() for k in init_a):
+        raise AssertionError('the two startups from one seed differ')
+    rec['sentiment'] = dict(losses=runs['chain'],
+                            captures=runs['chain_captures'])
+    log('[recordio] understand_sentiment from fluid.recordio_writer (%d '
+        'batches of %d, LoD words): losses %s; %d captures'
+        % (RIO_LOD_BATCHES, len(batches[0]),
+           ', '.join('%.6f' % x for x in runs['chain']),
+           runs['chain_captures']))
+    if not (len(runs['chain']) == RIO_LOD_BATCHES
+            and np.isfinite(runs['chain']).all()
+            and np.array_equal(runs['chain'], runs['feeder'])):
+        raise AssertionError('sentiment from recordio: losses %r, through '
+                             'DataFeeder %r' % (runs['chain'],
+                                                runs['feeder']))
+    return launches
+
+
+def _preprocessed_on(place, raw):
+    """The (c) block over `raw` (a list of (images, labels)) through a
+    Preprocessor on `place`; returns (its outputs, seconds a batch)."""
+    from paddle_tpu_torch import fluid
+    main, startup = _program_pair()
+    scope = fluid.Scope()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup), \
+            fluid.scope_guard(scope):
+        layers = fluid.layers
+        reader = layers.py_reader(capacity=2,
+                                  shapes=[[-1, 256, 320, 3], [-1, 1]],
+                                  dtypes=['uint8', 'int64'], name='raw')
+        reader.decorate_paddle_reader(lambda: iter(raw))
+        p = layers.Preprocessor(reader, place=place)
+        with p.block():
+            img, label = p.inputs()
+            x = layers.scale(layers.cast(img, 'float32'), scale=1.0 / 255.0)
+            mean = layers.create_parameter(
+                shape=[3], dtype='float32', name='rio_mean',
+                default_initializer=fluid.initializer.NumpyArrayInitializer(
+                    np.asarray(RIO_MEAN, 'float32') / 255.0))
+            x = layers.transpose(layers.elementwise_sub(x, mean, axis=-1),
+                                 perm=[0, 3, 1, 2])
+            p.outputs(x, label)
+        fluid.Executor(fluid.CPUPlace()).run(startup, scope=scope)
+        t0 = time.perf_counter()
+        out = list(reader())
+        return out, (time.perf_counter() - t0) / len(raw)
+
+
+def _recordio_preprocessor(paths, rec):
+    """(c) a cast of the uint8 images to float32, scale, the
+    elementwise_sub of a mean parameter and transpose over (a)'s raw
+    batches through a Preprocessor on the card against the same block on
+    the CPU."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.reader import recordio
+    it = recordio.read_samples(paths[1])
+    raw = []
+    for _ in range(RIO_PREP_BATCHES):
+        b = [next(it) for _ in range(RESNET_BATCH)]
+        raw.append((np.stack([s[0] for s in b]),
+                    np.stack([s[1] for s in b]).reshape(-1, 1)))
+    it.close()
+    card, card_s = _preprocessed_on(fluid.CUDAPlace(0), raw)
+    cpu, cpu_s = _preprocessed_on(fluid.CPUPlace(), raw)
+    err = max(float(np.abs(c[0].astype(np.float64) - h[0]).max())
+              for c, h in zip(card, cpu))
+    same_labels = all(c[1].tobytes() == h[1].tobytes()
+                      for c, h in zip(card, cpu))
+    rec['preprocessor'] = dict(max_abs_err=err, card_ms=1e3 * card_s,
+                               cpu_ms=1e3 * cpu_s,
+                               shape=list(card[0][0].shape),
+                               dtype=str(card[0][0].dtype))
+    log('[recordio] Preprocessor (cast to float32, scale, elementwise_sub '
+        'of a mean parameter, transpose) over %d raw batches of %d: '
+        'out %s %s, card against CPU max |diff| %.3g (tol %g); %.1f ms a '
+        'batch on the card, %.1f on the CPU (host clock, the host copy '
+        'of the outputs included); card: %s'
+        % (RIO_PREP_BATCHES, RESNET_BATCH, card[0][0].shape,
+           card[0][0].dtype, err, RIO_PREP_TOL, 1e3 * card_s, 1e3 * cpu_s,
+           nvidia_smi_line()))
+    if not (err <= RIO_PREP_TOL and same_labels
+            and card[0][0].shape == (RESNET_BATCH, 3, 256, 320)):
+        raise AssertionError('Preprocessor on the card: max |diff| %r, '
+                             'labels equal %r' % (err, same_labels))
+
+
+def phase_recordio():
+    """Phase 7n: (a) ResNet-50 trained from recordio shards through the
+    reader layers and the native transform, fp32 and AMP; (b)
+    understand_sentiment from fluid.recordio_writer's LoD records; (c) a
+    Preprocessor block on the card against the CPU. Returns {path: launch
+    counts} of recordio_resnet and recordio_sentiment (no kernel of the
+    port runs on them)."""
+    import torch
+    t0 = time.perf_counter()
+    rec = {}
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_recordio_') as tmp:
+        paths = _recordio_shards(tmp, rec)
+        counts = {'recordio_resnet': _recordio_resnet(paths, rec),
+                  'recordio_sentiment': _recordio_sentiment(tmp, rec)}
+        _recordio_preprocessor(paths, rec)
+    torch.cuda.synchronize()
+    rec['seconds'] = time.perf_counter() - t0
+    rec['card'] = nvidia_smi_line()
+    log(json.dumps({'recordio': rec}))
+    log('[recordio] phase 7n took %.1f s; card: %s'
+        % (rec['seconds'], rec['card']))
+    return counts
+
+
 # -- phase 8 ----------------------------------------------------------------
 
 def _to_host(tensors):
@@ -10374,6 +10886,7 @@ def main():
                         ('passes', phase_passes),
                         ('detection', phase_detection),
                         ('training_surface', phase_training_surface),
+                        ('recordio', phase_recordio),
                         ('captured', phase_captured)):
         _between_phases(name)
         t0 = time.perf_counter()

@@ -5,7 +5,7 @@ import numpy as np
 
 from . import common
 
-__all__ = ['train10', 'test10', 'train100', 'test100']
+__all__ = ['train10', 'test10', 'train100', 'test100', 'convert']
 
 
 def _synthetic(n, num_classes, tag):
@@ -39,3 +39,12 @@ def train100():
 
 def test100():
     return _reader_creator('test', 100, 512)
+
+
+def convert(path):
+    """Serialize all four splits to recordio (reference cifar.py:convert,
+    the same shard prefixes)."""
+    common.convert(path, train100(), 1000, "cifar_train100")
+    common.convert(path, test100(), 1000, "cifar_test100")
+    common.convert(path, train10(), 1000, "cifar_train10")
+    common.convert(path, test10(), 1000, "cifar_test10")

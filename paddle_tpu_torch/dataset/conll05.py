@@ -10,7 +10,7 @@ import numpy as np
 
 from . import common
 
-__all__ = ['get_dict', 'get_embedding', 'train', 'test']
+__all__ = ['get_dict', 'get_embedding', 'train', 'test', 'convert']
 
 _WORD, _VERB, _LABEL = 44068, 3162, 59
 
@@ -76,3 +76,9 @@ def test():
         for s in _synthetic(768, 'test'):
             yield s
     return reader
+
+
+def convert(path):
+    """Serialize the test split to recordio (reference conll05.py:convert,
+    its 'conl105_test' prefix kept)."""
+    common.convert(path, test(), 1000, "conl105_test")

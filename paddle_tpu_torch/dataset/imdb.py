@@ -6,7 +6,7 @@ import numpy as np
 
 from . import common
 
-__all__ = ['train', 'test', 'word_dict', 'build_dict']
+__all__ = ['train', 'test', 'word_dict', 'build_dict', 'convert']
 
 _VOCAB = 5147
 
@@ -47,3 +47,10 @@ def test(word_idx=None):
 def build_dict(pattern=None, cutoff=None):
     """reference imdb.py:build_dict (word -> id); the synthetic vocabulary."""
     return word_dict()
+
+
+def convert(path):
+    """Serialize train/test to recordio (reference imdb.py:convert)."""
+    w = word_dict()
+    common.convert(path, train(w), 1000, "imdb_train")
+    common.convert(path, test(w), 1000, "imdb_test")

@@ -8,7 +8,7 @@ import numpy as np
 
 from . import common
 
-__all__ = ['train', 'test', 'build_dict']
+__all__ = ['train', 'test', 'build_dict', 'convert']
 
 _VOCAB = 2073
 
@@ -53,3 +53,12 @@ def test(word_idx=None, n=5):
         for s in _synthetic(512, 'test', n):
             yield s
     return reader
+
+
+def convert(path):
+    """Serialize train/test 5-grams to recordio (reference
+    imikolov.py:convert)."""
+    N = 5
+    word_dict = build_dict()
+    common.convert(path, train(word_dict, N), 1000, "imikolov_train")
+    common.convert(path, test(word_dict, N), 1000, "imikolov_test")

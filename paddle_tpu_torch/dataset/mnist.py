@@ -7,7 +7,7 @@ import numpy as np
 
 from . import common
 
-__all__ = ['train', 'test']
+__all__ = ['train', 'test', 'convert']
 
 
 def _synthetic(n, tag):
@@ -33,3 +33,10 @@ def train():
 
 def test():
     return _reader_creator('test', 1024)
+
+
+def convert(path):
+    """Serialize train/test to recordio (reference mnist.py:convert, its
+    'minist' prefix kept)."""
+    common.convert(path, train(), 1000, "minist_train")
+    common.convert(path, test(), 1000, "minist_test")

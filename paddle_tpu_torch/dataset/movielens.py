@@ -8,7 +8,7 @@ from . import common
 
 __all__ = ['train', 'test', 'max_user_id', 'max_movie_id', 'max_job_id',
            'age_table', 'movie_categories', 'get_movie_title_dict',
-           'movie_info', 'user_info', 'MovieInfo', 'UserInfo']
+           'movie_info', 'user_info', 'MovieInfo', 'UserInfo', 'convert']
 
 age_table = [1, 18, 25, 35, 45, 50, 56]
 
@@ -131,3 +131,9 @@ def user_info():
                             age_table[int(rng.randint(0, len(age_table)))],
                             int(rng.randint(0, max_job_id() + 1)))
     return out
+
+
+def convert(path):
+    """Serialize train/test to recordio (reference movielens.py:convert)."""
+    common.convert(path, train(), 1000, "movielens_train")
+    common.convert(path, test(), 1000, "movielens_test")

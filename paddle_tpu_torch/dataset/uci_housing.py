@@ -7,7 +7,7 @@ import numpy as np
 
 from . import common
 
-__all__ = ['train', 'test']
+__all__ = ['train', 'test', 'feature_range', 'convert']
 
 _DATA = {}
 
@@ -46,3 +46,16 @@ def train():
 
 def test():
     return _reader('test')
+
+
+def feature_range(maximums, minimums):
+    """The reference draws the features' ranges as a bar chart with
+    matplotlib; as in the JAX package, nothing is drawn here."""
+    return None
+
+
+def convert(path):
+    """Serialize train/test to recordio (reference uci_housing.py:convert,
+    its 'uci_houseing_test' prefix kept)."""
+    common.convert(path, train(), 1000, "uci_housing_train")
+    common.convert(path, test(), 1000, "uci_houseing_test")

@@ -4,7 +4,7 @@ sample (source ids, `<s>` + target ids, target ids + `</s>`; the target a
 shifted copy of the source), since neither package downloads."""
 from . import common
 
-__all__ = ['train', 'test', 'get_dict', 'N']
+__all__ = ['train', 'test', 'get_dict', 'convert', 'N']
 
 N = 30000  # vocab size in reference's pruned dict
 
@@ -40,3 +40,10 @@ def get_dict(dict_size, reverse=True):
     if reverse:
         d = {v: k for k, v in d.items()}
     return d, dict(d)
+
+
+def convert(path):
+    """Serialize train/test to recordio (reference wmt14.py:convert)."""
+    dict_size = 30000
+    common.convert(path, train(dict_size), 1000, "wmt14_train")
+    common.convert(path, test(dict_size), 1000, "wmt14_test")

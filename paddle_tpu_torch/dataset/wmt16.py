@@ -4,7 +4,8 @@ same synthetic corpus, sample for sample (a seeded copy task with a fixed
 token map), since neither package downloads."""
 from . import common
 
-__all__ = ['train', 'test', 'validation', 'get_dict']
+__all__ = ['train', 'test', 'validation', 'get_dict', 'fetch',
+           'convert']
 
 
 def get_dict(lang, dict_size, reverse=False):
@@ -43,3 +44,21 @@ def validation(src_dict_size=10000, trg_dict_size=10000, src_lang='en'):
         for s in _synthetic(256, 'valid', src_dict_size, trg_dict_size):
             yield s
     return reader
+
+
+def fetch():
+    """Nothing to download: the corpus is synthetic, made as it is read
+    (reference wmt16.py:fetch downloads it beforehand). Returns None, as
+    the JAX package's does."""
+    return None
+
+
+def convert(path, src_dict_size=10000, trg_dict_size=10000, src_lang='en'):
+    """Serialize the three splits to recordio (reference
+    wmt16.py:convert)."""
+    common.convert(path, train(src_dict_size, trg_dict_size, src_lang),
+                   1000, "wmt16_train")
+    common.convert(path, test(src_dict_size, trg_dict_size, src_lang),
+                   1000, "wmt16_test")
+    common.convert(path, validation(src_dict_size, trg_dict_size, src_lang),
+                   1000, "wmt16_validation")

@@ -71,6 +71,7 @@ from . import concurrency
 from . import default_scope_funcs
 from . import graphviz
 from . import net_drawer
+from . import recordio_writer
 from .concurrency import (Go, make_channel, channel_send, channel_recv,
                           channel_close, Select)
 

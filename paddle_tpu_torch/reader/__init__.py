@@ -1,8 +1,8 @@
 """Reader decorators. Parity: reference python/paddle/reader/decorator.py;
 the port's own copy of the JAX package's reader/__init__.py (stdlib
 only), with its submodules pipeline (prefetch, bundle), creator
-(np_array, text_file) and decorator. The recordio reader and
-creator.recordio wait for the recordio slice (ROADMAP.md Queue A)."""
+(np_array, text_file, recordio), decorator and recordio (the record file
+writer and readers; the scanner is native C++, utils/native.py)."""
 import itertools
 import random
 from queue import Queue
@@ -16,6 +16,7 @@ __all__ = [
 
 from . import pipeline  # noqa: F401
 from . import creator  # noqa: F401
+from . import recordio  # noqa: F401
 
 
 def map_readers(func, *readers):

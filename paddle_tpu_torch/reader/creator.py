@@ -1,11 +1,10 @@
 """Reader creators.
 
 Parity: reference python/paddle/reader/creator.py — build sample readers
-from in-memory arrays and text files; the port's own copy of the JAX
-package's reader/creator.py. Its recordio creator waits for the port's
-recordio reader (ROADMAP.md Queue A).
+from in-memory arrays, text files and recordio files; the port's own copy
+of the JAX package's reader/creator.py.
 """
-__all__ = ['np_array', 'text_file']
+__all__ = ['np_array', 'text_file', 'recordio']
 
 
 def np_array(x):
@@ -32,3 +31,25 @@ def text_file(path):
 
     return reader
 
+
+
+def recordio(paths, buf_size=100):
+    """Reader yielding the raw records (bytes) of recordio file(s); paths
+    is a path, a comma-separated list of paths or a list (reference
+    creator.py:recordio, less the cloud-reader branch that served the
+    retired pserver infrastructure). It reads through the plain python
+    RecordIOReader, as the JAX package's does; buf_size is the reference's
+    signature."""
+    from . import recordio as rio
+
+    if isinstance(paths, str):
+        path_list = paths.split(',')
+    else:
+        path_list = list(paths)
+
+    def reader():
+        for p in path_list:
+            for rec in rio.RecordIOReader(p):
+                yield rec
+
+    return reader

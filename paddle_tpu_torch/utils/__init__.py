@@ -1,4 +1,6 @@
-"""Host-side utilities of the port: retry/backoff primitives
+"""Host-side utilities of the port: the native host library's build and
+bindings (utils.native: the recordio scanner and the batched image
+transform, C++ built at first use), retry/backoff primitives
 (utils.retry), the schedule reader.fault_tolerant re-opens its source on,
 the refcounted LRU (utils.lru) that the paged decode's prefix cache and
 the streaming vocab share, and the seeded fault-injection harness

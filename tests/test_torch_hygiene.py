@@ -117,6 +117,12 @@ SUBMODULES = [
     'paddle_tpu_torch.fluid.default_scope_funcs',
     'paddle_tpu_torch.fluid.graphviz', 'paddle_tpu_torch.fluid.net_drawer',
     'paddle_tpu_torch.fluid.debugger', 'paddle_tpu_torch.version',
+    # the recordio half of the data path: the record files, the native
+    # host library, the reader layers and the datasets' converters
+    'paddle_tpu_torch.reader.recordio', 'paddle_tpu_torch.utils.native',
+    'paddle_tpu_torch.fluid.recordio_writer',
+    'paddle_tpu_torch.fluid.layers.io', 'paddle_tpu_torch.dataset.mq2007',
+    'paddle_tpu_torch.dataset.sentiment', 'paddle_tpu_torch.dataset.voc2012',
 ]
 
 
@@ -289,27 +295,14 @@ def test_chip_smoke_fails_without_a_card_and_prints_no_result(tmp_path,
 
 # Names the JAX module exports and the port's does not yet, each held by a
 # ROADMAP.md queue item (its title) or a recorded departure.
-_DATA = 'Trainer and data: the recordio half'
 _PARALLEL = 'Parallel'
 _TOOLING = 'Analysis and tooling'
 _SERVING = 'Serving, the rest'
 _NO_SWITCH = 'Known departures: no kernel switch'
-_READER_LAYERS = ['open_recordio_file', 'open_files', 'read_file', 'shuffle',
-                  'batch', 'double_buffer', 'random_data_generator',
-                  'py_reader', 'Preprocessor', 'load']
 _TRANSPILERS = ['DistributeTranspiler', 'DistributeTranspilerConfig',
                 'PipelineTranspiler', 'SequenceParallelTranspiler',
                 'TensorParallelTranspiler', 'HashName', 'RoundRobin']
 _HELD = {
-    'dataset': {n: _DATA for n in ('sentiment', 'voc2012', 'mq2007')},
-    'dataset.common': {n: _DATA for n in (
-        'download', 'md5file', 'data_path', 'split', 'cluster_files_reader',
-        'convert')},
-    'dataset.image': {n: _DATA for n in (
-        'load_image_bytes', 'load_image', 'simple_transform_batch',
-        'load_and_transform', 'batch_images_from_tar')},
-    'dataset.uci_housing': {'feature_range': _DATA, 'convert': _DATA},
-    'dataset.wmt16': {'fetch': _DATA, 'convert': _DATA},
     'embedding': {n: _PARALLEL for n in (
         'sharded_lookup', 'pad_vocab', 'wire_stats', 'table_attr',
         'gather_table')},
@@ -325,9 +318,7 @@ _HELD = {
                       'memory_usage': _TOOLING},
     'fluid.framework': {'device_guard': _PARALLEL,
                         'strict_infer_shape': _TOOLING},
-    'fluid.layers': dict({n: _DATA for n in _READER_LAYERS},
-                         moe_mlp=_PARALLEL),
-    'fluid.layers.io': {n: _DATA for n in _READER_LAYERS},
+    'fluid.layers': {'moe_mlp': _PARALLEL},
     'fluid.layers.nn': {'moe_mlp': _PARALLEL},
     'fluid.step_artifact': {n: _SERVING for n in (
         'aot_manifest', 'write_aot', 'read_aot', 'aot_check',
@@ -338,16 +329,12 @@ _HELD = {
         'register_kernel', 'available', 'enabled', 'configure', 'signature',
         'note_dispatch', 'interpret_default', 'ENV_KERNELS',
         'paged_attention_reference')},
-    'reader.creator': {'recordio': _DATA},
     'serving': {n: _SERVING for n in (
         'transport', 'Channel', 'RpcServer', 'TransportError', 'PodRouter',
         'PodWorker', 'RemoteReplica', 'RpcReplica', 'ShardedPredictor',
         'sharded_replica', 'save_serving_program', 'AutoscalePolicy',
         'Autoscaler')},
 }
-for _m in ('cifar', 'conll05', 'imdb', 'imikolov', 'mnist', 'movielens',
-           'wmt14'):
-    _HELD['dataset.' + _m] = {'convert': _DATA}
 # listed in the JAX fluid.__all__ but not defined on the JAX fluid module
 # (the port defines Block, grad_var_name, FetchHandle and
 # normalize_sharding there)

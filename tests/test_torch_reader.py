@@ -61,8 +61,7 @@ def test_the_port_keeps_the_jax_reader_names():
     assert treader.__all__ == jreader.__all__
     assert tdecorator.__all__ == jdecorator.__all__
     assert tpipeline.__all__ == jpipeline.__all__
-    assert tcreator.__all__ == [n for n in jcreator.__all__
-                                if n != 'recordio']
+    assert tcreator.__all__ == jcreator.__all__
     for name in tdecorator.__all__:
         assert getattr(tdecorator, name) is getattr(treader, name)
     assert tpaddle.reader is treader
