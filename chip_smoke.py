@@ -494,6 +494,30 @@ replay (each graph adds the launches its capture recorded).
                 elementwise_sub of a mean parameter, transpose) on the card
                 against the CPU within RIO_PREP_TOL. No kernel of the port
                 runs. One JSON line {"recordio": {...}}.
+  7o. parallel — data and expert parallelism on a one-rank NCCL group
+                (parallel.init_distributed(), destroyed before the phase
+                returns). (a) Transformer-base (phase 4's dropout-free
+                program, batch 16) trained PARALLEL_STEPS captured steps
+                from one state three ways: the plain Executor,
+                ParallelExecutor(use_cuda=True) and set_mesh({'dp': 1});
+                (b) with BuildStrategy.Reduce (ZeRO-3) and
+                DistributeTranspiler(shard_parameters=True): each way's
+                losses and every persistable within PARALLEL_TOL of the
+                plain run (bitwise in practice); the ParallelExecutor
+                replay traced (its NCCL kernels, at least one, and the
+                attention kernels; 18 launches of each a step, the
+                slice's main path `parallel`); the median replays. (c)
+                The MoE encoder (MOE_ENCODER: Transformer-base's encoder,
+                each FFN a moe_mlp of 8 experts, top 2) trained captured
+                under set_mesh({'dp': 1}) (the mesh path, two one-rank
+                all_to_alls a layer; path `moe_encoder`); step 1 mesh path
+                against dense path on the card bitwise; card against CPU
+                at MOE_CPU_BATCH rows within MOE_GRAD_SPREAD times the
+                CPU's own spread (median and worst gradient logged,
+                each layer's routes compared); at capacity factor
+                MOE_OVERFLOW_CF the kept slots and routes equal to the
+                CPU rule's. One JSON
+                line {"parallel": {...}}.
   8. captured — each path's captured step against debug_step's eager
                 walk in this call, at full width: Transformer-base
                 training at batch 16 (get_model, dropout 0.1), fp32 and
@@ -503,7 +527,7 @@ replay (each graph adds the launches its capture recorded).
                 bf16), LeNet, ResNet-50 at batch 32 (fp32 NCHW, and AMP
                 with a bf16 feed in NHWC and NCHW). For each:
                 the median step of the replay and of the eager walk
-                (CAPTURED_STEPS each, ending in the fetch on the host),
+                (CAPTURED_STEPS_8 each, ending in the fetch on the host),
                 device busy time, idle share and kernel records per step
                 (torch.profiler over PROFILED_STEPS), peak memory
                 allocated and memory reserved; one JSON line
@@ -622,6 +646,29 @@ CTR_CROSS_DEVICE_TOL = 1e-5
 ADAGRAD_RTOL, ADAGRAD_ATOL = 1e-4, 1e-6
 # the single-batch learning check: the JAX package's run reached 4.0e-5
 CTR_LEARN_LOSS = 0.01
+# phase 7o (data and expert parallelism on a one-rank NCCL group): each way
+# of Transformer-base trains PARALLEL_STEPS captured steps from one state
+# and is held to the plain Executor's run: losses and every persistable
+# within PARALLEL_TOL (relative; a one-rank average multiplies by 1.0)
+PARALLEL_STEPS = 5
+PARALLEL_TOL = 1e-6
+# the MoE encoder: Transformer-base's encoder width with a moe_mlp in every
+# position-wise FFN; loss + MOE_AUX_WEIGHT * the layers' auxiliary losses
+MOE_ENCODER = dict(n_layer=6, d_model=512, n_head=8, num_experts=8,
+                   hidden=2048, top_k=2, capacity_factor=2.0, vocab=10000,
+                   max_length=256)
+MOE_BATCH = 16
+MOE_AUX_WEIGHT = 0.01
+MOE_LR = 1e-4
+# step 1 card against CPU at MOE_CPU_BATCH rows, the gradients within
+# MOE_GRAD_SPREAD times the CPU's own spread (ResNet-50's rule); each
+# layer's routes compared, since a near-tie of two gate logits can route a
+# token to another expert on the card, which moves that expert's gradient
+# far more than rounding does
+MOE_CPU_BATCH = 2
+MOE_GRAD_SPREAD = 3.0
+# one batch forced to overflow: each expert holds a quarter of its tokens
+MOE_OVERFLOW_CF = 0.5
 # the paths each kernel may launch on (main() holds every path to it)
 KERNEL_PATHS = {
     'flash_attention_fwd': ('serving', 'training', 'nets_attention',
@@ -645,6 +692,11 @@ KERNEL_PATHS['flash_attention_bwd_dkv'] += ('opt_training',)
 KERNEL_PATHS['flash_attention_fwd_bf16'] += ('amp_opt_training',)
 KERNEL_PATHS['flash_attention_bwd_dq_bf16'] += ('amp_opt_training',)
 KERNEL_PATHS['flash_attention_bwd_dkv_bf16'] += ('amp_opt_training',)
+# phase 7o's paths: Transformer-base through ParallelExecutor, the MoE
+# encoder (self-attention only) under set_mesh
+KERNEL_PATHS['flash_attention_fwd'] += ('parallel', 'moe_encoder')
+KERNEL_PATHS['flash_attention_bwd_dq'] += ('parallel', 'moe_encoder')
+KERNEL_PATHS['flash_attention_bwd_dkv'] += ('parallel', 'moe_encoder')
 
 # the paged decode attention against its plain version: an online softmax
 # over pages against one softmax over the gathered rows; the Pallas
@@ -819,6 +871,10 @@ NETS_ATTENTION_LR = 20.0
 NETS_UPDATE_TOL = 1e-2
 CAPTURED_STEPS = 10
 PROFILED_STEPS = 3
+# phase 8 times this many replays and eager walks a path: its depth was
+# cut from CAPTURED_STEPS when the whole script passed 1,000 s (its checks
+# were not)
+CAPTURED_STEPS_8 = 5
 # phase 7d: the sequence models at full width (the JAX get_models'
 # defaults) trained SEQ_STEPS captured steps each on their readers'
 # batches; the loss falling on the first batch repeated SEQ_LEARN_STEPS
@@ -10220,6 +10276,592 @@ def phase_recordio():
     return counts
 
 
+# -- phase 7o: data and expert parallelism -----------------------------------
+
+def _nccl_kernels(counts):
+    """{name: count} of the NCCL kernels among a trace's device kernels (a
+    one-rank NCCL launches its oneRankReduce for an average)."""
+    return {n: c for n, c in counts.items()
+            if 'nccl' in n.lower() or 'onerank' in n.lower()}
+
+
+def _parallel_feeds(names):
+    """PARALLEL_STEPS wmt16 batches of TRAIN_BATCH at full length, each
+    target's first (pad) id replaced by a live one (_grad_check_feed)."""
+    from paddle_tpu_torch.dataset import wmt16
+    from paddle_tpu_torch.models.transformer import pad_batch
+    cfg = TRANSFORMER_BASE
+    rows = list(itertools.islice(wmt16.train(cfg['src_vocab_size'],
+                                             cfg['trg_vocab_size'])(),
+                                 TRAIN_BATCH * PARALLEL_STEPS))
+    feeds = []
+    for s in range(PARALLEL_STEPS):
+        feed = as_feed(pad_batch(rows[s * TRAIN_BATCH:(s + 1) * TRAIN_BATCH],
+                                 cfg['max_length']), names)
+        feed['trg_word'][:, 0] = 2
+        feeds.append(feed)
+    return feeds
+
+
+def _parallel_way(way, built, initial, feeds, profile):
+    """PARALLEL_STEPS captured steps of the dropout-free Transformer-base
+    from `initial` one way: 'plain' (Executor), 'parallel_executor'
+    (ParallelExecutor(use_cuda=True)), 'set_mesh' (set_mesh({'dp': 1}) and
+    the Executor), 'reduce' (ParallelExecutor with BuildStrategy.Reduce:
+    ZeRO-3) or 'transpiler' (DistributeTranspiler(shard_parameters=True)).
+    Returns (losses, {persistable: numpy after the last step}, host seconds
+    per step, kernel launches, device kernel counts of one more replay or
+    None)."""
+    import gc
+    import torch
+    from paddle_tpu_torch import fluid, parallel
+    t_way = time.perf_counter()
+    main, avg_cost = built[0].clone(), built[1]
+    scope = fluid.Scope()
+    scope.load_numpy(initial, fluid.CUDAPlace(0))
+    exe = fluid.Executor()
+    if way in ('parallel_executor', 'reduce'):
+        bs = fluid.BuildStrategy()
+        if way == 'reduce':
+            bs.reduce_strategy = fluid.BuildStrategy.ReduceStrategy.Reduce
+        pe = fluid.ParallelExecutor(use_cuda=True, loss_name=avg_cost.name,
+                                    main_program=main, scope=scope,
+                                    build_strategy=bs)
+
+        def step(feed):
+            return pe.run([avg_cost.name], feed=feed)[0]
+    else:
+        if way == 'set_mesh':
+            main.set_mesh({'dp': 1})
+        elif way == 'transpiler':
+            cfg = fluid.DistributeTranspilerConfig()
+            cfg.shard_parameters = True
+            fluid.DistributeTranspiler(cfg).transpile(
+                trainer_id=0, trainers=1, program=main)
+
+        def step(feed):
+            return exe.run(main, feed=feed, fetch_list=[avg_cost],
+                           scope=scope)[0]
+    _reset_launch_counts()
+    losses, secs = [], []
+    for feed in feeds:
+        t0 = time.perf_counter()
+        losses.append(float(np.asarray(step(feed)).reshape(())))
+        secs.append(time.perf_counter() - t0)
+    launches = _launch_counts()
+    state = {n: v.detach().cpu().numpy()
+             for n, v in parallel.full_state(main, scope).items()} \
+        if way != 'plain' else scope.to_numpy(
+            [v.name for v in main.list_vars()
+             if v.persistable and v.name in scope.vars])
+    kernels = device_kernel_counts(lambda: step(feeds[-1])) \
+        if profile else None
+    log('[parallel] %s: %.1f s' % (way, time.perf_counter() - t_way))
+    del step, exe, scope
+    if way in ('parallel_executor', 'reduce'):
+        del pe
+    gc.collect()
+    torch.cuda.synchronize()
+    return losses, state, secs, launches, kernels
+
+
+def _parallel_transformer(rec):
+    """(a)-(b): Transformer-base five ways from one startup state and one
+    set of feeds, each held to the plain run. Returns the launch counts of
+    the ParallelExecutor run (the slice's main path)."""
+    from paddle_tpu_torch import fluid
+    t0 = time.perf_counter()
+    main, startup, avg_cost, names, _ = build_trainer(dropout=False)
+    scope = fluid.Scope()
+    fluid.Executor().run(startup, scope=scope)
+    initial = scope.to_numpy()
+    del scope
+    feeds = _parallel_feeds(names)
+    log('[parallel] Transformer-base built and initialized: %.1f s'
+        % (time.perf_counter() - t0))
+    runs = {}
+    for way in ('plain', 'parallel_executor', 'set_mesh', 'reduce',
+                'transpiler'):
+        # each way runs its own clone (set_mesh and the transpiler
+        # annotate the program they are given)
+        runs[way] = _parallel_way(way, (main, avg_cost), initial, feeds,
+                                  way == 'parallel_executor')
+    plain_losses, plain_state = runs['plain'][0], runs['plain'][1]
+    out = {}
+    for way, (losses, state, secs, launches, kernels) in runs.items():
+        loss_err = max(abs(a - b) / abs(b)
+                       for a, b in zip(losses, plain_losses))
+        missing = sorted(set(plain_state) - set(state))
+        errs = sorted((_rel_l2(state[n], plain_state[n]), n)
+                      for n in plain_state if n in state)
+        bitwise = all(np.array_equal(state[n], plain_state[n])
+                      for n in plain_state if n in state) and \
+            losses == plain_losses
+        row = {'losses': losses, 'loss_rel_err': loss_err,
+               'state_rel_l2_max': errs[-1][0], 'state_worst': errs[-1][1],
+               'bitwise': bitwise,
+               'median_replay_s': float(np.median(secs[2:])),
+               'step_s': secs,
+               'launches_per_step': {
+                   n: c // PARALLEL_STEPS for n, c in launches.items() if c}}
+        if kernels is not None:
+            row['replay_kernels'] = sum(kernels.values())
+            row['replay_nccl_kernels'] = _nccl_kernels(kernels)
+            row['replay_flash_kernels'] = sum(
+                c for n, c in kernels.items() if 'flash' in n.lower()
+                or 'fwd_kernel' in n or 'bwd_' in n)
+        out[way] = row
+        log('[parallel] %s: losses %s; vs plain: loss %.3g, state rel L2 '
+            'max %.3g (%s), bitwise %s; median replay %.4f s'
+            % (way, ', '.join('%.5f' % x for x in losses), loss_err,
+               errs[-1][0], errs[-1][1], bitwise, row['median_replay_s']))
+        if missing or not (loss_err <= PARALLEL_TOL
+                           and errs[-1][0] <= PARALLEL_TOL):
+            raise AssertionError(
+                'Transformer-base %s against the plain run: loss %.3g, state '
+                '%.3g (%s) (tol %g), missing %r'
+                % (way, loss_err, errs[-1][0], errs[-1][1], PARALLEL_TOL,
+                   missing[:4]))
+        if not np.isfinite(losses).all():
+            raise AssertionError('%s: non-finite losses %r' % (way, losses))
+    pe = out['parallel_executor']
+    if not pe['replay_nccl_kernels']:
+        raise AssertionError('the ParallelExecutor replay ran no NCCL kernel')
+    launches = runs['parallel_executor'][3]
+    want = ATTENTION_OPS_PER_FORWARD * PARALLEL_STEPS
+    for name in ('flash_attention_fwd', 'flash_attention_bwd_dq',
+                 'flash_attention_bwd_dkv'):
+        if launches[name] != want:
+            raise AssertionError(
+                '%s launched %d times in %d ParallelExecutor steps, not %d'
+                % (name, launches[name], PARALLEL_STEPS, want))
+    pe['replay_vs_plain'] = pe['median_replay_s'] / \
+        out['plain']['median_replay_s']
+    rec['transformer'] = out
+    return launches
+
+
+def build_moe_encoder(capacity_factor=None, batch_major=True):
+    """The MoE Transformer encoder of phase 7o in fresh programs: the
+    encoder of Transformer-base (MOE_ENCODER: 6 layers, d_model 512, 8
+    heads) with every position-wise FFN a moe_mlp (8 experts of hidden
+    2048, top 2), predicting each next source token (the token-weighted
+    cross entropy of models/transformer.py) plus MOE_AUX_WEIGHT times the
+    layers' auxiliary losses; Adam. Returns (main, startup, avg_cost)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import framework, layers, unique_name
+    from paddle_tpu_torch.models import transformer as T
+    c = MOE_ENCODER
+    cf = c['capacity_factor'] if capacity_factor is None else capacity_factor
+    main, startup = framework.Program(), framework.Program()
+    main.random_seed = startup.random_seed = SEED
+    with unique_name.guard(), framework.program_guard(main, startup):
+        src = layers.data(name='src_word', shape=[c['max_length']],
+                          dtype='int64')
+        lbl = layers.data(name='lbl_word', shape=[c['max_length']],
+                          dtype='int64')
+        key_bias = T._pad_mask_bias(src, 'src')
+        x = T._embed(src, c['vocab'], c['d_model'], c['max_length'], 0.0,
+                     'src')
+        aux_sum = None
+        for _ in range(c['n_layer']):
+            attn = T.multi_head_attention(x, x, x, key_bias, c['d_model'],
+                                          c['n_head'])
+            x = T._pre_post_process(x, attn, 0.0, 'dan')
+            f, aux = layers.moe_mlp(
+                x, num_experts=c['num_experts'], hidden_size=c['hidden'],
+                act='relu', capacity_factor=cf, top_k=c['top_k'],
+                return_aux_loss=True)
+            x = T._pre_post_process(x, f, 0.0, 'dan')
+            aux_sum = aux if aux_sum is None else \
+                layers.elementwise_add(aux_sum, aux)
+        logits = layers.fc(input=x, size=c['vocab'], num_flatten_dims=2)
+        logits2d = layers.reshape(logits, shape=[-1, c['vocab']])
+        lbl2d = layers.reshape(lbl, shape=[-1, 1])
+        cost = layers.softmax_with_cross_entropy(logits=logits2d,
+                                                 label=lbl2d)
+        weights = layers.reshape(layers.clip(layers.cast(
+            lbl, 'float32'), 0.0, 1.0), shape=[-1, 1])
+        tokens = layers.reduce_sum(weights)
+        loss = layers.elementwise_div(
+            layers.reduce_sum(layers.elementwise_mul(cost, weights)), tokens)
+        avg_cost = layers.elementwise_add(
+            loss, layers.scale(aux_sum, scale=MOE_AUX_WEIGHT))
+        fluid.optimizer.Adam(learning_rate=MOE_LR).minimize(avg_cost)
+    return main, startup, avg_cost
+
+
+def _moe_feeds(rows, n):
+    """n batches of `rows` wmt16 source sentences padded to max_length,
+    labelled with each next token (0 past the sentence: no weight)."""
+    from paddle_tpu_torch.dataset import wmt16
+    c = MOE_ENCODER
+    it = wmt16.train(c['vocab'], c['vocab'])()
+    feeds = []
+    for _ in range(n):
+        src = np.zeros((rows, c['max_length']), 'int64')
+        for i in range(rows):
+            s = next(it)[0][:c['max_length']]
+            src[i, :len(s)] = s
+        lbl = np.zeros_like(src)
+        lbl[:, :-1] = src[:, 1:]
+        feeds.append({'src_word': src, 'lbl_word': lbl})
+    return feeds
+
+
+def _moe_first_step(main, avg_cost, state, feed, place, mesh, gnames):
+    """Step 1 (eager: use_program_cache=False) from `state` on `place`,
+    under set_mesh({'dp': 1}) when `mesh`; returns [loss] + gradients."""
+    from paddle_tpu_torch import fluid
+    main.set_mesh({'dp': 1} if mesh else None)
+    s = fluid.Scope()
+    s.load_numpy(state, place)
+    out = fluid.Executor(place).run(main, feed=feed,
+                                    fetch_list=[avg_cost] + gnames, scope=s,
+                                    use_program_cache=False)
+    main.set_mesh(None)
+    return [np.asarray(v) for v in out]
+
+
+def _moe_routed(fn, n_layer):
+    """fn()'s result and each of the n_layer moe_mlp layers' routing in
+    its first forward, in layer order: [(expert [k, nt], keep [k, nt],
+    gate logits [nt, E], tokens [nt, d])] as numpy, from the pack_topk
+    calls (the mesh
+    path's and the dense path's). On the card the step runs its eager
+    warm-up, the forward recorded here, and then its capture: the copies
+    stay on the card until the step is done (a copy to the host inside
+    the step would synchronize, which the warm-up refuses)."""
+    from paddle_tpu_torch.fluid.ops_impl import moe_ops
+    from paddle_tpu_torch.parallel import moe as tmoe
+    real, routes = tmoe.pack_topk, []
+
+    def recording(xs, logits, n_exp, cap, top_k=1):
+        send, route = real(xs, logits, n_exp, cap, top_k)
+        if len(routes) < n_layer:
+            routes.append(tuple(t.detach().float().clone()
+                                for t in (route[0], route[2], logits, xs)))
+        return send, route
+
+    tmoe.pack_topk = moe_ops.pack_topk = recording
+    try:
+        out = fn()
+    finally:
+        tmoe.pack_topk = moe_ops.pack_topk = real
+    if len(routes) != n_layer:
+        raise AssertionError('MoE step 1: %d routings recorded, not one a '
+                             'layer (%d)' % (len(routes), n_layer))
+    return out, [tuple(t.cpu().numpy() for t in r) for r in routes]
+
+
+def _route_diff(got, want, top_k):
+    """Per layer, the card's routes (`got`) against the CPU's (`want`):
+    the assignments routed to another expert, the keep masks that differ,
+    and the gap between the top_k-th and the next gate logit (the CPU's)
+    at the tokens routed differently, which a rounding-sized difference
+    can cross."""
+    out = []
+    for layer, ((e_g, k_g, _, _), (e_w, k_w, logits, _)) in enumerate(
+            zip(got, want)):
+        moved = np.nonzero((e_g != e_w).any(axis=0))[0]
+        top = -np.sort(-logits, axis=1)
+        gap = top[:, top_k - 1] - top[:, top_k]
+        out.append({'layer': layer, 'assignments': int(e_w.size),
+                    'rerouted': int((e_g != e_w).sum()),
+                    'keep_differs': int((k_g != k_w).sum()),
+                    'gap_at_rerouted': float(gap[moved].min())
+                    if moved.size else None,
+                    'gap_min': float(gap.min())})
+    return out
+
+
+def _expert_breakdown(outs, gnames, name, routes, a, b, weighted, state):
+    """The gradient `name` of an expert-stacked moe_mlp parameter ([E,
+    ...]), run `a` against run `b`, expert by expert: the tokens `b` keeps
+    for the expert and those of them the loss weighs (`weighted`, a bool
+    [nt]), its |a - b| / |b| (L2) and its share of the tensor's norm; for
+    W1, the smallest |pre-activation| of a weighted kept token over the
+    RMS of them all (`b`'s tokens and the `state` weights, float64): a
+    relu that a rounding-sized change flips moves a whole column of the
+    gradient when few tokens carry it. None for another parameter."""
+    n_exp = MOE_ENCODER['num_experts']
+    g_a, g_b = outs[a][1 + gnames.index(name)], outs[b][1 + gnames.index(name)]
+    if not name.startswith('moe_mlp_') or g_b.ndim < 2 \
+            or g_b.shape[0] != n_exp:
+        return None
+    prefix = name.split('.')[0]
+    expert, keep, _, xs = routes[b][int(prefix[len('moe_mlp_'):])]
+    out = []
+    for e in range(n_exp):
+        kept = ((expert == e) & (keep > 0)).any(axis=0)
+        d = {'expert': e, 'tokens': int(kept.sum()),
+             'weighted_tokens': int((kept & weighted).sum()),
+             'rel_l2': _rel_l2(g_a[e], g_b[e]),
+             'norm_share': float(np.linalg.norm(g_b[e]))
+             / (float(np.linalg.norm(g_b)) or 1.0), 'relu_margin': None}
+        if name.startswith(prefix + '.w_1') and d['weighted_tokens']:
+            pre = xs[kept & weighted].astype(np.float64) \
+                @ state[prefix + '.w_1'][e].astype(np.float64) \
+                + state[prefix + '.b_0'][e].astype(np.float64)
+            d['relu_margin'] = float(np.abs(pre).min()
+                                     / np.sqrt(np.mean(pre * pre)))
+        out.append(d)
+    return out
+
+
+def _moe_overflow(state, feed, rec):
+    """(c) overflow: layer 0's moe_mlp rule at capacity_factor
+    MOE_OVERFLOW_CF on the card and on the CPU from the same weights and
+    tokens: the kept slots and the routes equal, the outputs close."""
+    import torch
+    from paddle_tpu_torch.fluid.lowering import Ctx
+    from paddle_tpu_torch.fluid.ops_impl import moe_ops
+    from paddle_tpu_torch.parallel import moe as tmoe
+    c = MOE_ENCODER
+    rng = np.random.RandomState(SEED)
+    x = rng.randn(MOE_BATCH * c['max_length'], c['d_model']).astype(
+        'float32')
+    names = {'GateW': 'moe_mlp_0.w_0', 'W1': 'moe_mlp_0.w_1',
+             'B1': 'moe_mlp_0.b_0', 'W2': 'moe_mlp_0.w_2',
+             'B2': 'moe_mlp_0.b_1'}
+    attrs = {'num_experts': c['num_experts'], 'top_k': c['top_k'],
+             'capacity_factor': MOE_OVERFLOW_CF, 'act': 'relu'}
+    cap = int(max(1, MOE_OVERFLOW_CF * c['top_k'] * x.shape[0]
+                  / c['num_experts']))
+    from paddle_tpu_torch import fluid
+    got = {}
+    for where, dev in (('card', fluid.CUDAPlace(0).torch_device()),
+                       ('cpu', torch.device('cpu'))):
+        ins = {'X': [torch.from_numpy(x).to(dev)]}
+        ins.update({k: [torch.from_numpy(state[n]).to(dev)]
+                    for k, n in names.items()})
+        with torch.no_grad():
+            out = moe_ops._moe_mlp(ins, attrs, Ctx(dev))['Out']
+            logits = (ins['X'][0] @ ins['GateW'][0]).float()
+            _, route = tmoe.pack_topk(ins['X'][0], logits, c['num_experts'],
+                                      cap, c['top_k'])
+        got[where] = (out.cpu().numpy(), [r.cpu().numpy() for r in route])
+    keep_card, keep_cpu = got['card'][1][2], got['cpu'][1][2]
+    same_route = all(np.array_equal(a, b) for a, b in
+                     zip(got['card'][1][:3], got['cpu'][1][:3]))
+    err = _rel_l2(got['card'][0], got['cpu'][0])
+    rec['overflow'] = {'capacity_factor': MOE_OVERFLOW_CF, 'cap': cap,
+                       'kept': int(keep_card.sum()),
+                       'assignments': int(keep_card.size),
+                       'routes_equal': bool(same_route),
+                       'out_rel_l2': err}
+    log('[parallel] MoE overflow (capacity factor %g, %d slots an expert): '
+        '%d of %d assignments kept on the card, routes equal to the CPU '
+        'rule %s, output rel L2 %.3g'
+        % (MOE_OVERFLOW_CF, cap, keep_card.sum(), keep_card.size,
+           same_route, err))
+    if not (same_route and keep_card.sum() < keep_card.size
+            and np.array_equal(keep_card, keep_cpu)
+            and err <= CROSS_DEVICE_TOL):
+        raise AssertionError('MoE overflow on the card against the CPU rule: '
+                             'routes equal %r, output %.3g'
+                             % (same_route, err))
+
+
+def _parallel_moe(rec):
+    """(c): the MoE encoder trained captured under set_mesh({'dp': 1})
+    (the mesh path: two one-rank all_to_alls a layer); step 1 card against
+    CPU at MOE_CPU_BATCH rows within MOE_GRAD_SPREAD times the CPU's own
+    spread (its weights scaled by 1 + AMP_STATE_NOISE * noise), with each
+    layer's routes on the card and the nudged CPU against the CPU's; the
+    mesh path against the dense path on the card, bitwise; the overflow
+    routes.
+    Returns the launch counts of the captured training."""
+    import torch
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid.ops_impl import moe_ops
+    t0 = time.perf_counter()
+    main, startup, avg_cost = build_moe_encoder()
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    exe.run(startup, scope=scope)
+    initial = scope.to_numpy()
+    feeds = _moe_feeds(MOE_BATCH, PARALLEL_STEPS)
+    log('[parallel] MoE encoder built and initialized: %.1f s'
+        % (time.perf_counter() - t0))
+    main.set_mesh({'dp': 1})
+    real, calls = moe_ops.moe_apply, [0]
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return real(*a, **k)
+
+    moe_ops.moe_apply = counted
+    t_train = time.perf_counter()
+    try:
+        _reset_launch_counts()
+        losses, secs = [], []
+        for feed in feeds:
+            t0 = time.perf_counter()
+            loss, = exe.run(main, feed=feed, fetch_list=[avg_cost],
+                            scope=scope)
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(np.asarray(loss).reshape(())))
+        launches = _launch_counts()
+    finally:
+        moe_ops.moe_apply = real
+    main.set_mesh(None)
+    log('[parallel] MoE encoder trained %d steps: %.1f s'
+        % (PARALLEL_STEPS, time.perf_counter() - t_train))
+    stats = exe.cache_stats
+    layers = MOE_ENCODER['n_layer']
+    rec['moe'] = {'losses': losses, 'step_s': secs,
+                  'median_replay_s': float(np.median(secs[2:])),
+                  'captures': stats['captures'], 'replays': stats['replays'],
+                  'mesh_path_calls': calls[0],
+                  'launches_per_step': {n: c // PARALLEL_STEPS
+                                        for n, c in launches.items() if c}}
+    log('[parallel] MoE encoder (%d layers, d_model %d, %d experts of '
+        'hidden %d, top %d) under set_mesh({"dp": 1}), batch %d x %d: losses '
+        '%s; median replay %.4f s; %d mesh-path calls while capturing'
+        % (layers, MOE_ENCODER['d_model'], MOE_ENCODER['num_experts'],
+           MOE_ENCODER['hidden'], MOE_ENCODER['top_k'], MOE_BATCH,
+           MOE_ENCODER['max_length'], ', '.join('%.4f' % x for x in losses),
+           rec['moe']['median_replay_s'], calls[0]))
+    if not np.isfinite(losses).all() or stats['captures'] != 1:
+        raise AssertionError('MoE encoder: losses %r, cache %r'
+                             % (losses, stats))
+    # the warm-up and the capture run every layer's mesh path in Python; a
+    # replay (the capture's own first one included) runs none
+    want = layers * (PARALLEL_STEPS - stats['replays'] + 1)
+    if calls[0] != want:
+        raise AssertionError('MoE mesh path ran %d times in %d steps (%d '
+                             'replays), not %d'
+                             % (calls[0], PARALLEL_STEPS, stats['replays'],
+                                want))
+    del exe, scope
+    gnames = grad_names(main)
+    # the mesh path against the dense path on the card, bitwise
+    t0 = time.perf_counter()
+    card = fluid.CUDAPlace(0)
+    mesh = _moe_first_step(main, avg_cost, initial, feeds[0], card, True,
+                           gnames)
+    dense = _moe_first_step(main, avg_cost, initial, feeds[0], card, False,
+                            gnames)
+    log('[parallel] MoE step 1 twice on the card: %.1f s'
+        % (time.perf_counter() - t0))
+    bitwise = all(np.array_equal(a, b) for a, b in zip(mesh, dense))
+    worst = max(_rel_l2(a, b) for a, b in zip(mesh, dense))
+    rec['moe']['mesh_vs_dense_bitwise'] = bitwise
+    rec['moe']['mesh_vs_dense_rel_l2_max'] = worst
+    log('[parallel] MoE step 1, mesh path against dense path on the card: '
+        'bitwise %s (worst rel L2 %.3g)' % (bitwise, worst))
+    if not bitwise:
+        raise AssertionError('MoE mesh path against the dense path: not '
+                             'bitwise (worst %.3g)' % worst)
+    # card against CPU at MOE_CPU_BATCH rows
+    small = _moe_feeds(MOE_CPU_BATCH, 1)[0]
+    noise = np.random.RandomState(SEED)
+    nudged = {n: (v * (1 + AMP_STATE_NOISE * noise.randn(*v.shape))).astype(
+        v.dtype) if v.dtype == np.float32 and v.ndim >= 2 else v
+        for n, v in initial.items()}
+    t0 = time.perf_counter()
+    outs, routes = {}, {}
+    for name, state, place, mesh in (
+            ('card', initial, card, True),
+            ('cpu', initial, fluid.CPUPlace(), False),
+            ('nudged', nudged, fluid.CPUPlace(), False)):
+        outs[name], routes[name] = _moe_routed(
+            lambda: _moe_first_step(main, avg_cost, state, small, place,
+                                    mesh, gnames), MOE_ENCODER['n_layer'])
+    cpu_s = time.perf_counter() - t0
+    rdiff = _route_diff(routes['card'], routes['cpu'], MOE_ENCODER['top_k'])
+    ndiff = _route_diff(routes['nudged'], routes['cpu'],
+                        MOE_ENCODER['top_k'])
+    log('[parallel] MoE step 1 on the card and twice on the CPU: %.1f s'
+        % cpu_s)
+    med_g, worst_g = _grad_spread(outs, gnames, 'card', 'cpu')
+    med_n, worst_n = _grad_spread(outs, gnames, 'nudged', 'cpu')
+    loss_g = abs(float(outs['card'][0]) - float(outs['cpu'][0]))
+    loss_n = abs(float(outs['nudged'][0]) - float(outs['cpu'][0]))
+    rec['moe']['card_vs_cpu'] = {
+        'rows': MOE_CPU_BATCH, 'grad_median': med_g, 'grad_worst': worst_g,
+        'cpu_spread_median': med_n, 'cpu_spread_worst': worst_n,
+        'loss_diff': loss_g, 'cpu_loss_spread': loss_n, 'seconds': cpu_s,
+        'routes_card_vs_cpu': rdiff, 'routes_nudged_vs_cpu': ndiff}
+    weighted = small['lbl_word'].reshape(-1) != 0
+    split = {w: _expert_breakdown(outs, gnames, worst_g[1], routes, w,
+                                  'cpu', weighted, initial)
+             for w in ('card', 'nudged')}
+    rec['moe']['card_vs_cpu']['worst_by_expert'] = split
+    if split['card'] is not None:
+        log('[parallel] MoE step 1, the worst gradient %s by expert: tokens '
+            'kept %s, of them weighed by the loss %s; share of the tensor\'s '
+            'norm %s; |diff| / |cpu| (L2) card %s, the nudged CPU %s; '
+            'smallest |pre-activation| of a weighed token over their RMS %s'
+            % (worst_g[1], [d['tokens'] for d in split['card']],
+               [d['weighted_tokens'] for d in split['card']],
+               ['%.3g' % d['norm_share'] for d in split['card']],
+               ['%.3g' % d['rel_l2'] for d in split['card']],
+               ['%.3g' % d['rel_l2'] for d in split['nudged']],
+               ['%.3g' % d['relu_margin'] if d['relu_margin'] is not None
+                else '-' for d in split['card']]))
+    for what, diff in (('card', rdiff), ('the nudged CPU', ndiff)):
+        log('[parallel] MoE step 1 routes, %s against the CPU, layer by '
+            'layer: assignments to another expert %s, keep masks differing '
+            '%s (of %d); top-%d gate gap at a rerouted token %s, smallest '
+            'gap %s' % (what, [d['rerouted'] for d in diff],
+                        [d['keep_differs'] for d in diff],
+                        diff[0]['assignments'], MOE_ENCODER['top_k'],
+                        ['%.3g' % d['gap_at_rerouted']
+                         if d['gap_at_rerouted'] is not None else '-'
+                         for d in diff],
+                        ['%.3g' % d['gap_min'] for d in diff]))
+    log('[parallel] MoE step 1 card against CPU at batch %d: loss |diff| '
+        '%.3g (the CPU\'s own %.3g); %d gradients, |diff| / |cpu| (L2) '
+        'median %.3g, max %.3g (%s); the CPU with its weights scaled by 1 + '
+        '%g * noise: median %.3g, max %.3g (%s); tol %g x'
+        % (MOE_CPU_BATCH, loss_g, loss_n, len(gnames), med_g, worst_g[0],
+           worst_g[1], AMP_STATE_NOISE, med_n, worst_n[0], worst_n[1],
+           MOE_GRAD_SPREAD))
+    if not (med_g <= MOE_GRAD_SPREAD * med_n
+            and loss_g <= MOE_GRAD_SPREAD * max(loss_n, 1e-7)):
+        raise AssertionError(
+            'MoE step 1 card against CPU: gradients %.3g against the CPU\'s '
+            'own %.3g, loss %.3g against %.3g (tol %g x)'
+            % (med_g, med_n, loss_g, loss_n, MOE_GRAD_SPREAD))
+    t0 = time.perf_counter()
+    _moe_overflow(initial, feeds[0], rec['moe'])
+    torch.cuda.synchronize()
+    log('[parallel] MoE overflow on the card and the CPU: %.1f s'
+        % (time.perf_counter() - t0))
+    return launches
+
+
+def phase_parallel():
+    """Phase 7o: data and expert parallelism on a one-rank NCCL group: (a)
+    Transformer-base trained captured through the Executor,
+    ParallelExecutor(use_cuda=True) and set_mesh({'dp': 1}), (b) with
+    BuildStrategy.Reduce and DistributeTranspiler(shard_parameters=True),
+    each held to the plain run, the ParallelExecutor replay traced for its
+    NCCL and attention kernels; (c) the MoE encoder. The group is destroyed
+    before the phase returns. Returns {path: launch counts} of parallel (the
+    ParallelExecutor run) and moe_encoder."""
+    import torch
+    import torch.distributed as dist
+    from paddle_tpu_torch import parallel
+    t0 = time.perf_counter()
+    info = parallel.init_distributed()
+    rec = {'group': info}
+    try:
+        counts = {'parallel': _parallel_transformer(rec),
+                  'moe_encoder': _parallel_moe(rec)}
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.synchronize()
+    rec['seconds'] = time.perf_counter() - t0
+    rec['card'] = nvidia_smi_line()
+    log(json.dumps({'parallel': rec}))
+    log('[parallel] phase 7o took %.1f s; card: %s'
+        % (rec['seconds'], rec['card']))
+    return counts
+
+
 # -- phase 8 ----------------------------------------------------------------
 
 def _to_host(tensors):
@@ -10497,7 +11139,7 @@ def _captured_training_step(tag, path, exe, main, scope, fetch, feed, pool,
         path, lambda: exe.run(main, feed=feed, fetch_list=fetch,
                               scope=scope),
         lambda: _to_host(art.debug_step(state, dev, 5, generator=g)[0]),
-        pool)
+        pool, steps=CAPTURED_STEPS_8)
     r['launches_per_replay'] = launches
     records.append(r)
 
@@ -10587,7 +11229,7 @@ def _captured_ctr(records):
         'DeepFM training, batch 256',
         lambda: e1.run(main, feed=feeds[5], fetch_list=fetch, scope=s1),
         lambda: _to_host(art.debug_step(state, dev, 0, generator=g)[0]),
-        pool)
+        pool, steps=CAPTURED_STEPS_8)
     r['launches_per_replay'] = launches
     records.append(r)
 
@@ -10635,7 +11277,8 @@ def _captured_decode(records):
             r = _measure(
                 'decode dispatch, 16 slots full', lambda: dispatch(h.step),
                 lambda: dispatch(lambda: art.debug_step(
-                    state, {}, 0, generator=g)[0]), pool)
+                    state, {}, 0, generator=g)[0]), pool,
+                steps=CAPTURED_STEPS_8)
             r['launches_per_replay'] = launches
             live = int(h.state['cbd_active'].sum())
             if live != cfg['slots']:
@@ -10695,7 +11338,7 @@ def _captured_serving_at(records, pred, req, b, tag):
                  lambda: pred.run(feed),
                  lambda: _to_host(art.debug_step(
                      state, dev, 0, generator=g)[0]),
-                 pool)
+                 pool, steps=CAPTURED_STEPS_8)
     r['launches_per_replay'] = launches
     records.append(r)
 
@@ -10753,7 +11396,8 @@ def _captured_image(records):
             name, lambda: exe.run(prog, feed=feed, fetch_list=[cost],
                                   scope=scope),
             lambda: _to_host(art.debug_step(
-                state, dev, 0, generator=g)[0]), pool))
+                state, dev, 0, generator=g)[0]), pool,
+            steps=CAPTURED_STEPS_8))
         records[-1]['eager_walks_differ_in'] = differ
         del state, exe, scope
         # cuDNN's default convolution algorithms are not deterministic:
@@ -10774,7 +11418,7 @@ def _captured_image(records):
             _replay_against_eager(name + ', cuDNN deterministic', h, art,
                                   scope, feed, 0)
             secs = []
-            for _ in range(CAPTURED_STEPS):
+            for _ in range(CAPTURED_STEPS_8):
                 t0 = time.perf_counter()
                 exe.run(prog, feed=feed, fetch_list=[cost], scope=scope)
                 torch.cuda.synchronize()
@@ -10887,6 +11531,7 @@ def main():
                         ('detection', phase_detection),
                         ('training_surface', phase_training_surface),
                         ('recordio', phase_recordio),
+                        ('parallel', phase_parallel),
                         ('captured', phase_captured)):
         _between_phases(name)
         t0 = time.perf_counter()

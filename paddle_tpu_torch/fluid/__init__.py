@@ -12,7 +12,9 @@ transpiler (contrib.Float16Transpiler), and the high-level API: Trainer
 (events, CheckpointConfig, preemption and resume), Inferencer, and the
 host-side metrics, average and evaluator; the pass pipeline (passes:
 PADDLE_TPU_OPT, int8 weight quantization), the dataflow analysis it
-builds on, and the InferenceTranspiler and memory_optimize shims; the
+builds on, and the InferenceTranspiler and memory_optimize shims; data
+and expert parallelism on torch.distributed (Program.set_mesh,
+ParallelExecutor, DistributeTranspiler with ZeRO: fluid/mesh_step.py); the
 aux modules annotations, concurrency (host-side channels), default
 scope functions, graphviz and net_drawer.
 """
@@ -63,8 +65,12 @@ from . import inferencer
 from .inferencer import Inferencer
 from .core import CPUPlace, CUDAPlace, TPUPlace, CUDAPinnedPlace
 from . import transpiler
-from .transpiler import InferenceTranspiler, memory_optimize, \
-    release_memory
+from .transpiler import DistributeTranspiler, DistributeTranspilerConfig, \
+    InferenceTranspiler, memory_optimize, release_memory, HashName, \
+    RoundRobin
+from . import parallel_executor
+from .parallel_executor import ParallelExecutor, ExecutionStrategy, \
+    BuildStrategy
 from .analysis import ProgramVerifyError
 from . import annotations
 from . import concurrency
@@ -86,5 +92,6 @@ __all__ = framework.__all__ + executor.__all__ + trainer.__all__ + \
     'create_random_int_lodtensor', 'debugger', 'step_artifact', 'passes', 'amp', 'contrib',
     'metrics', 'average', 'evaluator', 'trainer', 'inferencer',
     'transpiler', 'analysis', 'ProgramVerifyError', 'CPUPlace', 'CUDAPlace',
-    'TPUPlace', 'CUDAPinnedPlace', 'Tensor',
+    'TPUPlace', 'CUDAPinnedPlace', 'Tensor', 'ParallelExecutor',
+    'ExecutionStrategy', 'BuildStrategy', 'parallel_executor',
 ]

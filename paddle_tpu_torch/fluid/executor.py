@@ -31,9 +31,16 @@ Before a cache key's artifact is built, the pass pipeline
 (fluid/passes: PADDLE_TPU_OPT, a quant-marked program) may rewrite the
 program; the artifact runs the optimized clone (`_build_artifact`).
 
-The JAX Executor's verify gate, mesh placement, AOT warm signatures,
-persistent compile cache and remat detection have no counterpart yet
-(ROADMAP.md Queue A).
+A program on a dp mesh (Program.set_mesh, ParallelExecutor,
+DistributeTranspiler; fluid/mesh_step.py) runs on every rank of the
+process group: the feed is the global batch and each rank takes its rows
+(a batch the data axis does not divide raises "not divisible"), the scope
+holds each ZeRO-split persistable as the rank's block, and every rank
+returns the global fetches. Random ops draw per rank: the seed of a run is
+offset by the rank.
+
+The JAX Executor's verify gate, AOT warm signatures, persistent compile
+cache and remat detection have no counterpart yet (ROADMAP.md Queue A).
 """
 import collections
 import contextlib
@@ -48,11 +55,13 @@ from .. import obs
 from . import amp as amp_mod
 from . import core
 from . import debugger
+from . import mesh_step
 from . import passes as passes_mod
 from .data_feeder import seq_pad
 from .framework import Variable, default_main_program
 from .lod_tensor import LoDTensor
 from .lowering import SeqValue, leaves_of, map_value
+from ..parallel import LocalRows
 from .ops_impl.block_ops import check_loops
 from .passes import quant_pass
 from .step_artifact import (StepArtifact, _feed_signature, _pack_health,
@@ -470,7 +479,7 @@ class StepHandle(object):
                     'step: a pinned handle must be the only runner of its '
                     '(program, scope); re-acquire_step() to resume' % n)
         exe, art = self._exe, self._compiled
-        feed_vals = exe._feed_values(self._program, feed or {})
+        feed_vals = exe._feed_values(self._program, feed or {}, art)
         sig = tuple(sorted(_feed_signature(n, v)
                            for n, v in feed_vals.items()))
         if sig != art._feed_sig:
@@ -492,6 +501,12 @@ class StepHandle(object):
         StepHandle._C_STEPS.inc()
         return fetches
 
+
+
+def _spec_of(art):
+    """The MeshSpec an artifact was built for, or None."""
+    plan = getattr(art, 'mesh', None)
+    return None if plan is None else plan.spec
 
 class Executor(object):
     """Parity: reference python/paddle/fluid/executor.py:256.
@@ -539,8 +554,13 @@ class Executor(object):
         return self._pool
 
     @staticmethod
-    def _seed(program, n):
-        return ((program.random_seed or 0) * 2654435761 + n) % (1 << 63)
+    def _seed(program, n, art):
+        s = ((program.random_seed or 0) * 2654435761 + n) % (1 << 63)
+        spec = _spec_of(art)
+        if spec is not None and spec.rank:
+            # each rank draws its own masks for its rows
+            s = (s + spec.rank * 0x9E3779B97F4A7C15) % (1 << 63)
+        return s
 
     def _feed_value(self, val, var):
         """One feed as a tensor of the var's dtype, or a SeqValue (the JAX
@@ -594,10 +614,31 @@ class Executor(object):
             t = t.to(self.device)
         return t
 
-    def _feed_values(self, program, feed):
+    def _feed_values(self, program, feed, art=None):
+        """The coerced feed of a run of `program` (of the artifact `art`,
+        when given: its mesh)."""
+        spec = mesh_step.mesh_spec(program) if art is None else _spec_of(art)
+        return self._mesh_feed_values(program, feed, spec)[0]
+
+    def _mesh_feed_values(self, program, feed, spec):
+        """(the coerced feed, the names that carry this rank's rows of a
+        dp-sharded batch). On the mesh `spec` each global feed is cut to
+        this rank's rows after its coercion (a LoDTensor padded to the
+        global batch's bucket first); a parallel.LocalRows value is the
+        rank's rows already."""
         block = program.global_block()
-        return {n: self._feed_value(v, block.vars.get(n))
-                for n, v in feed.items()}
+        vals, sharded = {}, set()
+        for n, v in feed.items():
+            var = block.vars.get(n)
+            local = isinstance(v, LocalRows)
+            val = self._feed_value(v.value if local else v, var)
+            if spec is not None:
+                cut, rows = mesh_step.shard_feed(spec, n, val, var)
+                if rows:
+                    sharded.add(n)
+                    val = val if local else cut
+            vals[n] = val
+        return vals, sharded
 
     def _place_feed(self, program, feed):
         """Stage one feed dict for a later run of `program` (the JAX :1013),
@@ -609,11 +650,14 @@ class Executor(object):
         stays in the step, under the executor's lock on the stream the step
         runs on, so a staging thread cannot race a capture or a replay's
         feed buffers. Every entry point takes the result as a feed."""
-        vals = self._feed_values(program, feed)
-        if self.device.type != 'cuda':
-            return vals
-        return {n: map_value(lambda t: t.pin_memory()
-                             if t.device.type == 'cpu' else t, v)
+        vals, sharded = self._mesh_feed_values(
+            program, feed, mesh_step.mesh_spec(program))
+        if self.device.type == 'cuda':
+            vals = {n: map_value(lambda t: t.pin_memory()
+                                 if t.device.type == 'cpu' else t, v)
+                    for n, v in vals.items()}
+        # a mesh feed staged here is this rank's rows already
+        return {n: LocalRows(v) if n in sharded else v
                 for n, v in vals.items()}
 
     def _prepare(self, program, feed, fetch_list, scope,
@@ -621,7 +665,11 @@ class Executor(object):
         """Coerce the feed, resolve the (program, feed signature, fetch,
         guard, amp, quant mark, pass level) cache key and build or fetch
         its StepArtifact. Returns (artifact, feed tensors)."""
-        feed_vals = self._feed_values(program, feed)
+        spec = mesh_step.mesh_spec(program)
+        self._check_mesh(program, spec)
+        if spec is not None:
+            mesh_step.place_scope(spec, program, scope)
+        feed_vals, sharded = self._mesh_feed_values(program, feed, spec)
         fetch_names = tuple(_as_fetch_name(f) for f in fetch_list)
         feed_sig = tuple(sorted(_feed_signature(n, v)
                                 for n, v in feed_vals.items()))
@@ -634,7 +682,8 @@ class Executor(object):
         opt = passes_mod.opt_mode()
         quant = quant_pass.is_quant(program)
         key = (program._uid, program._version, feed_sig, fetch_names, guard,
-               amp, quant, opt)
+               amp, quant, opt, None if spec is None else spec.key(),
+               tuple(sorted(sharded)))
         key_id = '%08x' % (hash(key) & 0xFFFFFFFF)
         art = self._cache.get(key) if use_program_cache else None
         if art is None:
@@ -646,7 +695,7 @@ class Executor(object):
                 and scope._chain_get(v.name) is not None)
             art = self._build_artifact(program, feed_vals, fetch_names,
                                        persist_in, guard, amp, quant, opt,
-                                       key_id)
+                                       key_id, spec, sharded)
             art._feed_sig = feed_sig
             art._key_id = key_id
             art._source_program = program
@@ -666,7 +715,8 @@ class Executor(object):
         return art, feed_vals
 
     def _build_artifact(self, program, feed_vals, fetch_names, persist_in,
-                        guard, amp, quant, opt, key_id):
+                        guard, amp, quant, opt, key_id, spec=None,
+                        sharded=()):
         """The StepArtifact of one cache key, built from the program the
         pass pipeline makes of `program` (the JAX :1115-1200): at
         PADDLE_TPU_OPT off the program itself, unless it is quant-marked
@@ -687,13 +737,45 @@ class Executor(object):
                 run_program = program
         try:
             return StepArtifact(run_program, list(feed_vals), fetch_names,
-                                persist_in, guard=guard, amp=amp)
+                                persist_in, guard=guard, amp=amp, mesh=spec,
+                                sharded_feeds=sharded)
+        except NotImplementedError:
+            raise
         except Exception as e:  # noqa: BLE001 - fall back, loudly
             if run_program is program:
                 raise
             self._pass_failed(opt, key_id, 'artifact', e)
             return StepArtifact(program, list(feed_vals), fetch_names,
-                                persist_in, guard=guard, amp=amp)
+                                persist_in, guard=guard, amp=amp, mesh=spec,
+                                sharded_feeds=sharded)
+
+    def _check_mesh(self, program, spec):
+        """A mesh program runs where its process group does: NCCL on this
+        rank's card, gloo on the CPU. A DistributeTranspiler program with
+        sync_mode=False warns once that it runs synchronously (the JAX
+        :781-798)."""
+        group = None if spec is None else spec.group
+        if group is not None:
+            backend = torch.distributed.get_backend(group)
+            want = 'cuda' if backend == 'nccl' else 'cpu'
+            if self.device.type != want or (
+                    want == 'cuda'
+                    and self.device.index != torch.cuda.current_device()):
+                raise ValueError(
+                    'a %s process group runs its mesh on %s; this executor '
+                    'is on %s' % (backend, 'cuda:%d' % torch.cuda.current_device()
+                                  if want == 'cuda' else 'the CPU',
+                                  self.device))
+        dist = getattr(program, '_dist_config', None)
+        if dist and not dist.get('sync_mode', True) and not getattr(
+                program, '_async_warned', False):
+            warnings.warn(
+                "DistributeTranspiler sync_mode=False: the program path "
+                "runs SYNCHRONOUS data-parallel (the gradients are averaged "
+                "every step). For async-style training use "
+                "paddle_tpu_torch.parallel.LocalSGD (periodic parameter "
+                "averaging).", UserWarning, stacklevel=4)
+            program._async_warned = True
 
     @staticmethod
     def _pass_failed(opt, key_id, stage, e):
@@ -761,7 +843,7 @@ class Executor(object):
                              key=look['key'])
             fetches, health = self._step(
                 art, scope, feed_vals, self._seed(program,
-                                                  self._run_counter))
+                                                  self._run_counter, art))
             if health is not None:
                 with (obs.span('executor.host_stall', cause='anomaly_guard')
                       if sync == 'async' else contextlib.nullcontext()):
@@ -935,7 +1017,7 @@ class Executor(object):
                         'run_bundle feed %d has names %r, expected %r: a '
                         'bundle runs one step signature'
                         % (j, sorted(f), sorted(feed0)))
-                fv = self._feed_values(program, f)
+                fv = self._feed_values(program, f, art)
                 for n, t in fv.items():
                     got = _feed_signature(n, t)
                     want = _feed_signature(n, feed0[n])
@@ -949,7 +1031,7 @@ class Executor(object):
             self._run_counter += K
             _C_BUNDLED_STEPS.inc(K)
             art.bundle_signature(K)
-            seeds = [self._seed(program, run_base + j + 1)
+            seeds = [self._seed(program, run_base + j + 1, art)
                      for j in range(K)]
             if self.device.type == 'cuda':
                 # one copy per name: the K feeds stacked in pinned memory

@@ -49,8 +49,9 @@ def normalize_sharding(spec):
     """Normalize a sharding annotation into the canonical per-dim tuple (the
     JAX :49): each entry is a mesh-axis name, None (replicated dim) or a
     tuple of axis names; a bare string means dim 0 over that axis. Returns
-    None for None. The port runs no sharded program: the annotation is
-    inert metadata that the tier store's dim-sharding refusal reads."""
+    None for None. On a set_mesh program a persistable annotated on the
+    data axis is held split over the ranks (ZeRO-3, fluid/mesh_step.py);
+    the tier store's dim-sharding refusal reads it too."""
     if spec is None:
         return None
     if isinstance(spec, str):
@@ -79,10 +80,11 @@ class Variable(object):
     """A named tensor in a Block. Reference framework.py:142.
 
     Holds static metadata only (shape may contain -1 for the batch dim);
-    values live in a Scope as torch tensors at run time. `sharding` (a JAX
-    artifact's GSPMD annotation) is kept as inert metadata: the port runs
-    no sharded program, but a tiered table refuses a sharded embedding
-    dim from it (embedding.tiers). `tiered` marks a table that a tier
+    values live in a Scope as torch tensors at run time. `sharding` is the
+    per-dim mesh-axis annotation (normalize_sharding): on a set_mesh
+    program a persistable split over the data axis is held as each rank's
+    block (ZeRO-3), and a tiered table refuses a sharded embedding dim
+    from it (embedding.tiers). `tiered` marks a table that a tier
     store fronts (TieredVocabTable.validate_program stamps it). Both
     serialize only when set, as in the JAX package; other keys the port
     does not act on are accepted and dropped."""
@@ -313,8 +315,74 @@ class Program(object):
         self.current_block_idx = 0
         self.random_seed = 0
         self._version = 0
+        # the mesh spec (set_mesh): ((axis, size), ...) in layout order and
+        # the axis feeds split their batch over (the JAX :459-464)
+        self._mesh_axes = None
+        self._mesh_data_axis = None
+        # ParallelExecutor's BuildStrategy.Reduce, for one call: ZeRO-3 of
+        # every persistable the annotations leave whole (mesh_step)
+        self._mesh_fsdp = False
         self._uid = Program._next_uid
         Program._next_uid += 1
+
+    def set_mesh(self, axes, data_axis=None):
+        """Declare the mesh this Program's sharding annotations refer to
+        (the JAX :472-535): the program-level half of the annotation
+        surface, whose per-tensor half is ``ParamAttr(sharding=...)`` /
+        ``Variable.sharding``.
+
+        axes: {'dp': 8}-style dict (insertion order is the layout, row
+        major over the ranks) or an ``((name, size), ...)`` sequence;
+        ``set_mesh(None)`` clears the spec. data_axis: the axis feed
+        batches split their leading dim over; defaults to 'dp' (then
+        'data') when present, else feeds replicate. ``data_axis=False``
+        makes feeds replicate even when a 'dp'/'data' axis exists (the
+        sharded serving posture) and survives clone and the
+        _to_dict/_from_dict round trip.
+
+        The Executor runs an annotated Program on every rank of the mesh
+        (fluid/mesh_step.py); plain run/run_bundle/Trainer take that path.
+        A non-data axis of size > 1 (tensor, sequence or pipeline
+        parallelism) raises NotImplementedError when the program runs."""
+        if axes is None:
+            self._mesh_axes = None
+            self._mesh_data_axis = None
+            self._bump_version()
+            return self
+        items = tuple(axes.items()) if isinstance(axes, dict) \
+            else tuple((str(n), int(s)) for n, s in axes)
+        if not items:
+            raise ValueError('set_mesh needs at least one (axis, size)')
+        seen = set()
+        for name, size in items:
+            if not isinstance(name, str) or not name:
+                raise ValueError('mesh axis name must be a non-empty '
+                                 'string, got %r' % (name,))
+            if name in seen:
+                raise ValueError('duplicate mesh axis %r' % name)
+            seen.add(name)
+            if int(size) < 1:
+                raise ValueError('mesh axis %r has size %r' % (name, size))
+        items = tuple((n, int(s)) for n, s in items)
+        if data_axis is None:
+            for cand in ('dp', 'data'):
+                if cand in seen:
+                    data_axis = cand
+                    break
+        elif data_axis is not False and data_axis not in seen:
+            raise ValueError('data_axis %r is not a mesh axis (have %r)'
+                             % (data_axis, sorted(seen)))
+        self._mesh_axes = items
+        self._mesh_data_axis = data_axis
+        self._bump_version()
+        return self
+
+    @property
+    def mesh_axes(self):
+        """The declared mesh spec as an ordered dict, or None."""
+        if self._mesh_axes is None:
+            return None
+        return collections.OrderedDict(self._mesh_axes)
 
     def _bump_version(self):
         self._version += 1
@@ -369,6 +437,12 @@ class Program(object):
                      '_quant_ops'):
             if hasattr(self, flag):
                 setattr(p, flag, getattr(self, flag))
+        # the mesh spec and a DistributeTranspiler's annotation travel with
+        # the program (:590-598); per-var specs ride Variable._to_dict
+        p._mesh_axes = self._mesh_axes
+        p._mesh_data_axis = self._mesh_data_axis
+        if getattr(self, '_dist_config', None) is not None:
+            p._dist_config = dict(self._dist_config)
         p.blocks = []
         for blk in self.blocks:
             nb = Block(p, blk.idx, blk.parent_idx)
@@ -471,17 +545,22 @@ class Program(object):
 
     # -- serialization (reference: ProgramDesc protobuf round-trip) --
     def _to_dict(self):
-        return dict(random_seed=self.random_seed,
-                    blocks=[b._to_dict() for b in self.blocks])
+        d = dict(random_seed=self.random_seed,
+                 blocks=[b._to_dict() for b in self.blocks])
+        if self._mesh_axes is not None:
+            # the mesh spec survives save/load (the JAX :759-763)
+            d['mesh'] = {'axes': [[n, s] for n, s in self._mesh_axes],
+                         'data_axis': self._mesh_data_axis}
+        return d
 
     @staticmethod
     def _from_dict(d):
-        if d.get('mesh'):
-            raise ValueError(
-                'this program is mesh-annotated (set_mesh); the PyTorch '
-                'port does not run sharded programs yet')
         p = Program()
         p.random_seed = d.get('random_seed', 0)
+        mesh = d.get('mesh')
+        if mesh:
+            p.set_mesh([(n, s) for n, s in mesh['axes']],
+                       data_axis=mesh.get('data_axis'))
         p.blocks = []
         for bd in d['blocks']:
             blk = Block(p, bd['idx'], bd['parent_idx'])

@@ -1,8 +1,8 @@
 """Neural-network layers. Parity: reference python/paddle/fluid/layers/nn.py
 and the JAX package's fluid/layers/nn.py — the dense, vision, sequence and
 recurrent layers, the CRF/CTC layers and the sampled losses nce and
-hsigmoid (the detection layers are in layers/detection.py; moe_mlp waits
-for ROADMAP's "Parallel"). Each appends op symbols lowered by ops_impl/.
+hsigmoid and the mixture-of-experts FFN moe_mlp (the detection layers are
+in layers/detection.py). Each appends op symbols lowered by ops_impl/.
 """
 import numpy as np
 
@@ -30,7 +30,7 @@ __all__ = [
     'beam_search_decode', 'conv3d', 'pool3d', 'conv2d_transpose',
     'conv3d_transpose', 'smooth_l1', 'lrn', 'roi_pool', 'dice_loss',
     'image_resize', 'resize_bilinear', 'image_resize_short', 'mean_iou',
-    'rank_loss', 'prelu', 'nce', 'hsigmoid',
+    'rank_loss', 'prelu', 'nce', 'hsigmoid', 'moe_mlp',
 ]
 
 
@@ -657,6 +657,72 @@ def hsigmoid(input, label, num_classes, param_attr=None, bias_attr=None):
     helper.append_op(type='hierarchical_sigmoid', inputs=inputs,
                      outputs={'Out': [out], 'PreOut': [pre_out]},
                      attrs={'num_classes': num_classes})
+    return out
+
+
+def moe_mlp(input, num_experts, hidden_size, size=None, act='relu',
+            capacity_factor=2.0, gate_param_attr=None, param_attr=None,
+            bias_attr=None, name=None, top_k=1, return_aux_loss=False):
+    """Top-k gated mixture-of-experts FFN (the JAX layers/nn.py:1399).
+
+    Each of `num_experts` experts is a two-layer MLP
+    ``act(x @ w1 + b1) @ w2 + b2`` with hidden width `hidden_size`; tokens
+    are routed top-k by a learned linear gate with fixed capacity
+    (capacity_factor * top_k * tokens / experts; overflow dropped, all
+    first choices claiming slots before any second choice). top_k=1 uses
+    Switch-style raw-probability gates; top_k>=2 renormalizes the selected
+    gates per token (GShard). On a mesh whose dp size divides num_experts,
+    each rank runs num_experts/dp experts and dispatch rides two
+    all_to_alls (parallel.moe); otherwise every expert runs locally with
+    the same semantics.
+
+    With return_aux_loss=True, also returns the scalar load-balancing
+    auxiliary loss (E * sum_e f_e * P_e, 1.0 for a uniform router) to add
+    to the objective with a small weight, e.g. ``cost + 0.01 * aux``.
+
+    input: [N, d] tokens or [B, T, d] activations. Parameters: GateW [d, E],
+    W1 [E, d, h], B1 [E, h], W2 [E, h, out], B2 [E, out]. Returns the input's
+    shape with the last dim `size` (default d), or (out, aux_loss)."""
+    from ..ops_impl.moe_ops import supported_acts
+    if (act or None) is not None and act not in supported_acts():
+        raise ValueError(
+            "moe_mlp act=%r is not supported; pick one of %s"
+            % (act, sorted(a for a in supported_acts() if a)))
+    if not 1 <= int(top_k) <= int(num_experts):
+        raise ValueError('moe_mlp top_k=%r must be in [1, num_experts=%d]'
+                         % (top_k, num_experts))
+    helper = LayerHelper('moe_mlp', **locals())
+    dtype = helper.input_dtype()
+    d = int(input.shape[-1])
+    out_d = int(size) if size is not None else d
+    gate_w = helper.create_parameter(attr=ParamAttr.to_attr(gate_param_attr),
+                                     shape=[d, num_experts], dtype=dtype,
+                                     is_bias=False)
+    w1 = helper.create_parameter(attr=ParamAttr.to_attr(param_attr),
+                                 shape=[num_experts, d, hidden_size],
+                                 dtype=dtype, is_bias=False)
+    b1 = helper.create_parameter(attr=ParamAttr.to_attr(bias_attr),
+                                 shape=[num_experts, hidden_size],
+                                 dtype=dtype, is_bias=True)
+    w2 = helper.create_parameter(attr=ParamAttr.to_attr(param_attr),
+                                 shape=[num_experts, hidden_size, out_d],
+                                 dtype=dtype, is_bias=False)
+    b2 = helper.create_parameter(attr=ParamAttr.to_attr(bias_attr),
+                                 shape=[num_experts, out_d], dtype=dtype,
+                                 is_bias=True)
+    out = helper.create_variable_for_type_inference(dtype)
+    aux = helper.create_variable_for_type_inference('float32')
+    helper.append_op(
+        type='moe_mlp',
+        inputs={'X': [input], 'GateW': [gate_w], 'W1': [w1], 'B1': [b1],
+                'W2': [w2], 'B2': [b2]},
+        outputs={'Out': [out], 'AuxLoss': [aux]},
+        attrs={'num_experts': int(num_experts),
+               'capacity_factor': float(capacity_factor),
+               'top_k': int(top_k),
+               'act': act or ''})
+    if return_aux_loss:
+        return out, aux
     return out
 
 

@@ -100,13 +100,17 @@ class Ctx(object):
     host to read after the step; `inplace`, False inside an IfElse or
     Switch branch (whose array writes must not touch the buffer the other
     branch reads) and an RNN step (whose writes to an outer array stay in
-    the step, as in JAX)."""
+    the step, as in JAX).
+
+    `mesh` is the parallel.Mesh a rule runs under when its token input
+    holds this rank's rows of a dp-sharded batch (fluid/mesh_step.py hands
+    it to moe_mlp, as the JAX Ctx carries the step's mesh), else None."""
 
     __slots__ = ('is_test', 'amp', 'device', 'generator', 'pred', 'loops',
-                 'inplace')
+                 'inplace', 'mesh')
 
     def __init__(self, device, generator=None, is_test=False, amp=False,
-                 pred=None, loops=None, inplace=True):
+                 pred=None, loops=None, inplace=True, mesh=None):
         self.device = device
         self.generator = generator
         self.is_test = is_test
@@ -114,6 +118,7 @@ class Ctx(object):
         self.pred = pred
         self.loops = loops
         self.inplace = inplace
+        self.mesh = mesh
 
     def derive(self, **fields):
         """A copy of this context with `fields` replaced."""

@@ -16,3 +16,4 @@ from . import block_ops  # noqa: F401
 from . import control_ops  # noqa: F401
 from . import quant_ops  # noqa: F401
 from . import detection_ops  # noqa: F401
+from . import moe_ops  # noqa: F401

@@ -96,6 +96,7 @@ class Optimizer(object):
         var = self.helper.create_global_variable(
             name=unique_name.generate(name + "_" + param.name),
             persistable=True, dtype=dtype or param.dtype, shape=shape)
+        var._is_optimizer_accumulator = True
         self._accumulators[name][param.name] = var
         self.helper.set_variable_initializer(
             var, initializer=Constant(value=float(fill_value)))

@@ -1,8 +1,9 @@
 """ParamAttr / WeightNormParamAttr.
 
 Parity: reference python/paddle/fluid/param_attr.py and the JAX package's
-fluid/param_attr.py (its sharding annotations wait for the parallel
-slice).
+fluid/param_attr.py, with its per-dim sharding annotation (a parameter
+split over a set_mesh program's data axis is held as each rank's block:
+ZeRO-3, fluid/mesh_step.py).
 """
 from .initializer import Initializer, Xavier, Constant
 
@@ -17,7 +18,8 @@ class ParamAttr(object):
                  regularizer=None,
                  trainable=True,
                  gradient_clip=None,
-                 do_model_average=None):
+                 do_model_average=None,
+                 sharding=None):
         self.name = name
         self.initializer = initializer
         self.learning_rate = learning_rate
@@ -25,6 +27,10 @@ class ParamAttr(object):
         self.trainable = trainable
         self.gradient_clip = gradient_clip
         self.do_model_average = do_model_average
+        # per-dim mesh-axis names (the JAX :33-38), normalized here so a
+        # bad spec fails at the layer call that wrote it
+        from .framework import normalize_sharding
+        self.sharding = normalize_sharding(sharding)
 
     def set_default_initializer(self, initializer):
         if initializer is None:
@@ -68,6 +74,7 @@ class ParamAttr(object):
             'trainable': self.trainable,
             'gradient_clip_attr': self.gradient_clip,
             'do_model_average': self.do_model_average,
+            'sharding': self.sharding,
         }
         if with_initializer:
             kwargs['initializer'] = self.initializer

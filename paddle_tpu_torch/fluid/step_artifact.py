@@ -51,9 +51,17 @@ count it: each graph records the launches its capture saw
 (`_cuda.launch_counts`), takes them back (the capture launched nothing)
 and adds them on every replay.
 
+On a dp mesh (Program.set_mesh, ParallelExecutor, DistributeTranspiler)
+the artifact carries a mesh_step.MeshPlan: each rank runs the step on its
+rows, the ops that mix batch rows complete across the ranks, the gradients
+are averaged in buckets between torch.autograd.grad and the update rules,
+ZeRO blocks are gathered, reduce-scattered and updated locally, and
+batch-sharded fetches are gathered; on the card all of it is captured into
+the one graph.
+
 Not ported (ROADMAP.md Queue A): the AOT manifest and warm signatures
-(write_aot, read_aot, aot_check), the mesh shardings and the pipeline
-region, remat.
+(write_aot, read_aot, aot_check), the tensor, sequence and pipeline
+shardings and the pipeline region, remat.
 """
 import hashlib
 import json
@@ -67,6 +75,7 @@ from torch.profiler import record_function
 from ..ops import _cuda
 from .lowering import (Ctx, SeqValue, SparseRows, data_of, leaves_of, like,
                        map_value, run_op)
+from .mesh_step import MeshPlan
 from .ops_impl.block_ops import check_loops, pack_loops
 from .passes import memory_plan
 
@@ -197,7 +206,7 @@ class StepArtifact(object):
     docstring."""
 
     def __init__(self, program, feed_names, fetch_names, persist_in,
-                 guard=False, amp=False):
+                 guard=False, amp=False, mesh=None, sharded_feeds=()):
         self.program = program
         # AMP (fluid/amp.py): the rules' Ctx.amp, part of the artifact's
         # key. A program the AMP pass rewrote (`_amp_ir`) carries its casts
@@ -224,9 +233,14 @@ class StepArtifact(object):
         self.ad_idx = ad[0] if ad else None
         self.persistables = sorted({v.name for v in program.list_vars()
                                     if v.persistable})
-        self.sparse_plan = {} if self.ad_idx is None else \
-            _sparse_embedding_plan(self.ops, self.ad_idx,
-                                   set(self.persistables), set(fetch_names))
+        # mesh: a mesh_step.MeshSpec. A replicated is_sparse table takes
+        # its dense, all-reduced gradient under a mesh (the JAX :357-384)
+        self.mesh = None if mesh is None else MeshPlan(
+            mesh, self.ops, self.ad_idx, sharded_feeds, fetch_names)
+        self.sparse_plan = {} if self.ad_idx is None or mesh is not None \
+            else _sparse_embedding_plan(self.ops, self.ad_idx,
+                                        set(self.persistables),
+                                        set(fetch_names))
         self.plan = memory_plan(program)
         self.mutates_persist = self.plan.donates
         self.donate_names = self.plan.donate_names(self.persist_in)
@@ -244,23 +258,26 @@ class StepArtifact(object):
     # -- the step body ---------------------------------------------------
 
     def _run_ops(self, env, lo, hi, ctx, grad_mode=False, on_op=None,
-                 taps=None):
+                 taps=None, update=False):
         """Run ops [lo, hi) against env. grad_mode: every output var marked
         stop_gradient is detached (the JAX _run_ops :591-596). taps: {op
         index: (tap tensor, output name)}: right after that op the tap is
         added to its output, so the tap's gradient is the per-row gradient
         there (:586-590). on_op(i, op, seconds, env): each op is
-        synchronized and timed, and the hook runs after it."""
+        synchronized and timed, and the hook runs after it. update: the ops
+        after the autodiff op (on a mesh, ZeRO blocks update locally)."""
+        mesh = self.mesh
         for i in range(lo, hi):
             op = self.ops[i]
             if op.type == 'autodiff':
                 continue
             self._at = (i, op.type)
-            if on_op is None:
+            t0 = time.perf_counter() if on_op is not None else None
+            if mesh is None:
                 run_op(op, env, ctx)
             else:
-                t0 = time.perf_counter()
-                run_op(op, env, ctx)
+                mesh.run_op(i, op, env, ctx, update)
+            if on_op is not None:
                 if ctx.device.type == 'cuda':
                     torch.cuda.synchronize(ctx.device)
                 on_op(i, op, time.perf_counter() - t0, env)
@@ -286,12 +303,18 @@ class StepArtifact(object):
             mode = torch.no_grad() if self.plan.donates \
                 else torch.inference_mode()
             with mode:
+                if self.mesh is not None:
+                    self.mesh.gather_placed(env, {})
                 self._run_ops(env, 0, len(self.ops), ctx, on_op=on_op)
+                if self.mesh is not None:
+                    self.mesh.cut_placed(env, {})
             old = persist
         else:
             health, old = self._train_step(env, persist, ctx, on_op,
                                            check_nan_inf)
         fetches = [env[n] for n in self.fetch_names]
+        if self.mesh is not None:
+            fetches = self.mesh.gather_fetches(fetches, env)
         new_persist = {n: env[n] for n in self.persist_out if n in env}
         if health is not None:
             with torch.no_grad():
@@ -329,6 +352,12 @@ class StepArtifact(object):
                   if n in env and n not in sparse]
         leaves = [env[n].detach().requires_grad_() for n in pnames]
         env.update(zip(pnames, leaves))
+        mesh = self.mesh
+        placed = {} if mesh is None else {
+            n: leaf for n, leaf in zip(pnames, leaves) if n in mesh.placement}
+        if mesh is not None:
+            # ZeRO blocks become full values for the forward
+            mesh.gather_placed(env, placed)
         tap_order = sorted(taps)
         # record_function ranges name the phases in a torch.profiler trace
         # (tools/torch_train_profile.py); without a profiler they cost ~1 us
@@ -344,6 +373,8 @@ class StepArtifact(object):
         scale = ad.attrs.get('loss_scale', 1.0)
         for n in list(env):
             env[n] = _detach(env[n])
+        if mesh is not None:
+            mesh.cut_placed(env, placed)
         for n, leaf, g in zip(pnames, leaves, grads):
             if g is None:          # the loss does not reach this parameter
                 g = torch.zeros_like(leaf)
@@ -355,6 +386,11 @@ class StepArtifact(object):
                     "NaN/Inf in gradient %r (of parameter %r)"
                     % (gnames[n], n))
             env[gnames[n]] = g
+        if mesh is not None:
+            # the gradients of replicated parameters, averaged over the
+            # ranks (a ZeRO-3 block's came averaged out of its gather)
+            mesh.reduce_grads(env, [gnames[n] for n in pnames
+                                    if n not in placed])
         tap_grads = dict(zip(tap_order, grads[len(leaves):]))
         for w, p in sparse.items():
             d = env[w].shape[-1]
@@ -407,7 +443,8 @@ class StepArtifact(object):
                 old = dict(persist)
                 old.update((n, persist[n].clone()) for n in inplace)
         with torch.no_grad(), record_function('executor.update'):
-            self._run_ops(env, self.ad_idx + 1, len(ops), ctx, on_op=on_op)
+            self._run_ops(env, self.ad_idx + 1, len(ops), ctx, on_op=on_op,
+                          update=True)
         return health, old
 
     def _step_health(self, env, ad, pnames, gnames, sparse):
@@ -419,14 +456,27 @@ class StepArtifact(object):
         loss_finite = torch.isfinite(loss.to(torch.float32)).all()
         grads_finite = torch.ones((), dtype=torch.bool, device=loss.device)
         sq = torch.zeros((), dtype=torch.float32, device=loss.device)
+        # on a mesh, a gradient held as this rank's block adds its part of
+        # the norm and of the finiteness across the ranks
+        part = torch.zeros(2, dtype=torch.float32, device=loss.device)
+        mesh = self.mesh
         for n in list(pnames) + list(sparse):
             g = env.get(gnames[n])
             if g is None:
                 continue
             gf = (g.rows if isinstance(g, SparseRows) else g).to(
                 torch.float32)
+            if mesh is not None and (n in mesh.placement
+                                     or gnames[n] in mesh.scatter_grads):
+                part = part + torch.stack([
+                    (gf * gf).sum(), (~torch.isfinite(gf)).sum().float()])
+                continue
             grads_finite = grads_finite & torch.isfinite(gf).all()
             sq = sq + (gf * gf).sum()
+        if mesh is not None and (mesh.placement or mesh.scatter_grads):
+            part = mesh.global_sum(part)
+            sq = sq + part[0]
+            grads_finite = grads_finite & (part[1] == 0)
         return {'healthy': loss_finite & grads_finite,
                 'loss_finite': loss_finite, 'grads_finite': grads_finite,
                 'grad_norm': torch.sqrt(sq)}

@@ -26,10 +26,14 @@ live serving replicas. The feed's shape never changes as the vocabulary
 drifts, so on the card one captured step serves the whole stream. The
 vocab rides every serial's meta in the JAX format.
 
-Not ported yet, and raising NotImplementedError when asked for (ROADMAP.md
-Queue A): parallel=True, transpiler_fn and heartbeat ("Parallel", with the
-sharded checkpoint format the JAX Trainer takes for mesh-annotated
-programs).
+parallel=True trains through ParallelExecutor (a dp mesh over the ranks
+of the process group) and transpiler_fn(train_program) may annotate the
+program (a DistributeTranspiler, set_mesh), whose mesh the test program
+shares (fluid/mesh_step.py). Not ported yet, and raising
+NotImplementedError when asked for (ROADMAP.md Queue A, "Parallel"):
+heartbeat, and the sharded checkpoint format the JAX Trainer takes for
+mesh-annotated programs (a serial here holds the ranks' values as the
+scope holds them).
 """
 import collections
 import contextlib
@@ -48,6 +52,7 @@ from . import core
 from . import framework
 from . import io
 from . import optimizer as opt_module
+from . import parallel_executor
 from . import unique_name
 from .data_feeder import DataFeeder
 from .executor import Executor, FetchHandle, Scope, scope_guard
@@ -202,10 +207,6 @@ class Trainer(object):
                 'metrics for its EndStepEvents (a blocking read); '
                 "sync='async' applies to the unbundled loop — pick one"
                 % bundle_steps)
-        if parallel:
-            _not_ported('Trainer(parallel=True)', 'Parallel')
-        if transpiler_fn is not None:
-            _not_ported('Trainer(transpiler_fn=)', 'Parallel')
         if heartbeat is not None:
             _not_ported('Trainer(heartbeat=)', 'Parallel')
         self.bundle_steps = int(bundle_steps)
@@ -238,6 +239,8 @@ class Trainer(object):
         self.checkpoint_cfg = checkpoint_config
         if self.checkpoint_cfg:
             assert isinstance(self.checkpoint_cfg, CheckpointConfig)
+        self.parallel = parallel
+        self.parallel_executor = None
 
         self.scope = Scope()
         self.startup_program = framework.Program()
@@ -255,6 +258,8 @@ class Trainer(object):
                     raise TypeError(
                         "The optimizer should be an instance of Optimizer")
                 optimizer.minimize(loss)
+                if transpiler_fn is not None:
+                    self._apply_transpiler(transpiler_fn)
 
         self.place = check_and_get_place(place)
         self.exe = Executor(self.place)
@@ -269,6 +274,35 @@ class Trainer(object):
             with self._prog_and_scope_guard():
                 io.load_params(self.exe, param_path,
                                main_program=self.train_program)
+
+    def _apply_transpiler(self, transpiler_fn):
+        """transpiler_fn(train_program) (the JAX :254-281); the test
+        program, cloned before it ran, takes the same mesh."""
+        if self.parallel:
+            raise ValueError(
+                'parallel=True builds its own dp-only mesh and '
+                'would silently drop the transpiler_fn '
+                'annotations; compose dp via '
+                'fluid.DistributeTranspiler inside '
+                'transpiler_fn instead')
+        transpiler_fn(self.train_program)
+        dc = getattr(self.train_program, '_dist_config', None)
+        if dc is not None:
+            self.test_program._dist_config = dict(dc)
+        ma = self.train_program._mesh_axes
+        if ma is not None and self.test_program._mesh_axes is None:
+            self.test_program.set_mesh(
+                list(ma), data_axis=self.train_program._mesh_data_axis)
+
+    def _get_or_create_parallel_executor(self):
+        """The ParallelExecutor of parallel=True (the JAX :1135): on the
+        Trainer's place, over the world's ranks."""
+        if self.parallel_executor is None:
+            self.parallel_executor = parallel_executor.ParallelExecutor(
+                use_cuda=isinstance(self.place, core.CUDAPlace),
+                loss_name=self.train_func_outputs[0].name,
+                main_program=self.train_program, scope=self.scope)
+        return self.parallel_executor
 
     # -- checkpoint/resume ------------------------------------------------
 
@@ -451,7 +485,11 @@ class Trainer(object):
         self.preempted = False
         self._preempt_requested = False
         with self._preemption_handlers():
-            self._train_loop(self.exe, num_epochs, event_handler, reader,
+            exe = self.exe
+            if self.parallel:
+                with self._prog_and_scope_guard():
+                    exe = self._get_or_create_parallel_executor()
+            self._train_loop(exe, num_epochs, event_handler, reader,
                              feed_order)
 
     def train_stream(self, reader, event_handler=None, feed_order=None,
@@ -496,9 +534,12 @@ class Trainer(object):
         the restored (vocab, table, moments) state carries the
         continuity. Returns the number of steps run this call.
 
-        As in the JAX Trainer, bundle_steps > 1 and sync='async' are
-        refused; parallel=True cannot reach here (the constructor raises
-        for it)."""
+        As in the JAX Trainer, bundle_steps > 1, sync='async' and
+        parallel=True are refused."""
+        if self.parallel:
+            raise ValueError('train_stream drives the single-program '
+                             'Executor loop; parallel=True does not '
+                             'compose with it (use GSPMD annotations)')
         if self.bundle_steps > 1 or self.sync == 'async':
             raise ValueError(
                 'train_stream paces checkpoints, vocab leases, and '
@@ -831,7 +872,10 @@ class Trainer(object):
 
         from ..reader import pipeline as rpipe
         exe, prog = self.exe, self.train_program
-        place_in_worker = self.bundle_steps == 1
+        # a mesh program's feed is cut to the rank's rows in the step
+        place_in_worker = (not self.parallel and self.bundle_steps == 1
+                           and getattr(prog, '_dist_config', None) is None
+                           and prog._mesh_axes is None)
 
         def tagged():
             return enumerate(reader())
@@ -874,11 +918,12 @@ class Trainer(object):
             fetch = [v.name for v in self.train_func_outputs]
             cfg = self.checkpoint_cfg
             start_epoch = cfg.epoch_id if cfg and cfg.load_serial else 0
-            if self.bundle_steps > 1:
+            is_pe = isinstance(exe, parallel_executor.ParallelExecutor)
+            if self.bundle_steps > 1 and not is_pe:
                 self._train_loop_bundled(exe, num_epochs, event_handler,
                                          reader, feeder, fetch)
                 return
-            use_async = self.sync == 'async'
+            use_async = self.sync == 'async' and not is_pe
             window = collections.deque()   # in-flight async fetch handles
             # (epoch, step) of the last COMPLETED step this run — what an
             # emergency checkpoint must record when preemption is noticed
@@ -910,10 +955,13 @@ class Trainer(object):
                     self._steps_run += 1
                     with obs.span('trainer.step', step_num=self._steps_run,
                                   epoch=epoch_id, step=step_id):
-                        metrics = exe.run(program=self.train_program,
-                                          feed=fed, fetch_list=want,
-                                          sync='async' if use_async
-                                          else 'auto')
+                        if is_pe:
+                            metrics = exe.run(want, feed=fed)
+                        else:
+                            metrics = exe.run(program=self.train_program,
+                                              feed=fed, fetch_list=want,
+                                              sync='async' if use_async
+                                              else 'auto')
                     last_done = (epoch_id, step_id)
                     if use_async:
                         # bounded dispatch window: the handler below may

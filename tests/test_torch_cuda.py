@@ -64,7 +64,10 @@ runtime AMP's on the card. The rest of the training surface: the extra
 and sampled rules under sync debug against the CPU (1e-5, the index
 outputs exactly), nce and sampling_id captured in one graph drawing anew
 each replay (Cost against nce_cost at the drawn negatives, 1e-5), and the
-bilinear resize to an output dim of 1, forward and VJP (1e-5).
+bilinear resize to an output dim of 1, forward and VJP (1e-5). Data
+parallelism on a one-rank NCCL group: set_mesh, ParallelExecutor and
+ZeRO-3 steps captured, bitwise the plain step, an NCCL kernel in the
+replay.
 """
 import contextlib
 import importlib
@@ -3590,3 +3593,138 @@ def test_bilinear_resize_to_a_dim_of_1_card_against_cpu(card, size):
     for a, b in zip(res[0], res[1]):
         assert float((a - b).abs().max()) <= 1e-5 * max(1.0,
                                                        float(a.abs().max()))
+
+
+def _dp_net():
+    from paddle_tpu_torch import fluid
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.layers.data(name='x', shape=[16], dtype='float32')
+        y = fluid.layers.data(name='y', shape=[1], dtype='float32')
+        h = fluid.layers.fc(input=x, size=128, act='relu')
+        pred = fluid.layers.fc(input=h, size=1)
+        cost = fluid.layers.mean(
+            fluid.layers.square_error_cost(input=pred, label=y))
+        fluid.optimizer.Adam(learning_rate=0.01).minimize(cost)
+    return main, startup, cost
+
+
+@pytest.mark.parametrize('way', ['set_mesh', 'parallel_executor', 'reduce'])
+def test_one_rank_nccl_step_captured_equals_the_plain_step(card, way):
+    """A one-rank NCCL group (parallel.init_distributed): a data-parallel
+    step (set_mesh({'dp': 1}), ParallelExecutor(use_cuda=True), and with
+    BuildStrategy.Reduce) captured on the card gives the plain Executor's
+    losses and parameters bitwise over 4 steps (a one-rank average
+    multiplies by 1.0), and its replay holds an NCCL kernel."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch import fluid, parallel
+    joined = not dist.is_initialized()
+    parallel.init_distributed()
+    try:
+        rng = np.random.RandomState(0)
+        feeds = [{'x': rng.rand(16, 16).astype('float32'),
+                  'y': rng.rand(16, 1).astype('float32')} for _ in range(4)]
+        main, startup, cost = _dp_net()
+        scope = fluid.Scope()
+        exe = fluid.Executor()
+        exe.run(startup, scope=scope)
+        init = scope.to_numpy()
+        plain = [exe.run(main, feed=f, fetch_list=[cost], scope=scope)[0]
+                 for f in feeds]
+        want = scope.to_numpy([p.name for p in main.all_parameters()])
+        main, _, cost = _dp_net()
+        scope = fluid.Scope()
+        scope.load_numpy(init, fluid.CUDAPlace(0))
+        if way == 'set_mesh':
+            main.set_mesh({'dp': 1})
+            exe = fluid.Executor()
+
+            def step(f):
+                return exe.run(main, feed=f, fetch_list=[cost],
+                               scope=scope)[0]
+        else:
+            bs = fluid.BuildStrategy()
+            if way == 'reduce':
+                bs.reduce_strategy = fluid.BuildStrategy.ReduceStrategy.Reduce
+            pe = fluid.ParallelExecutor(use_cuda=True, loss_name=cost.name,
+                                        main_program=main, scope=scope,
+                                        build_strategy=bs)
+            exe = pe._exe
+
+            def step(f):
+                return pe.run([cost.name], feed=f)[0]
+        got = [step(f) for f in feeds]
+        assert exe.cache_stats['captures'] == 1
+        assert exe.cache_stats['replays'] == 3
+        state = {n: v.detach().cpu().numpy()
+                 for n, v in parallel.full_state(main, scope).items()}
+        for a, b in zip(got, plain):
+            np.testing.assert_array_equal(a, b)
+        for n, w in want.items():
+            np.testing.assert_array_equal(state[n], w)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step(feeds[0])
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert any('nccl' in n.lower() or 'onerank' in n.lower()
+                   for n in names), sorted(set(names))
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def test_one_rank_nccl_helpers_and_local_sgd_place_on_the_card(card):
+    """On a one-rank NCCL group the sharding helpers and LocalSGD put numpy
+    inputs on the card, and LocalSGD's step and sync run there: its copy
+    after 2 local steps and one sync equals the plain update."""
+    import torch.distributed as dist
+    from paddle_tpu_torch import parallel
+    joined = not dist.is_initialized()
+    parallel.init_distributed()
+    try:
+        mesh = parallel.make_mesh({'dp': 1})
+        dev = torch.device('cuda', torch.cuda.current_device())
+        assert parallel.mesh_device(mesh) == dev
+        rng = np.random.RandomState(0)
+        w = rng.rand(8, 128).astype('float32')
+        vals = {'w': w, 'b': rng.rand(8).astype('float32')}
+        placed = [parallel.shard_batch(mesh, w), parallel.replicate(mesh, w)]
+        for fn in (parallel.shard_optimizer_states,
+                   parallel.fsdp_shard_params):
+            placed.extend(fn(vals, mesh).values())
+        placed.extend(parallel.shard_params_by_rules(
+            vals, mesh, [('w', parallel.P('dp', None))]).values())
+        for t in placed:
+            assert t.device == dev
+        np.testing.assert_array_equal(placed[0].cpu().numpy(), w)
+
+        def step_fn(params, batch):
+            x, y = batch
+            assert x.device == dev and params['w'].device == dev
+            g = 2.0 * x.t() @ (x @ params['w'] - y) / x.shape[0]
+            return {'w': params['w'] - 0.1 * g}, None
+
+        xs = rng.rand(2, 16, 4).astype('float32')
+        ys = rng.rand(2, 16, 1).astype('float32')
+        w0 = rng.rand(4, 1).astype('float32')
+        ls = parallel.LocalSGD(step_fn, mesh, axis='dp', sync_steps=2)
+        params = ls.replicate({'w': w0})
+        assert params['w'].device == dev
+        for i in range(2):
+            batch = ls.shard_batch((xs[i], ys[i]))
+            assert all(t.device == dev for t in batch)
+            params, _ = ls.step(params, batch)
+        params = ls.sync(params)
+        assert params['w'].device == dev
+        want = torch.as_tensor(w0, device=dev)
+        for i in range(2):
+            x = torch.as_tensor(xs[i], device=dev)
+            y = torch.as_tensor(ys[i], device=dev)
+            want = want - 0.1 * (2.0 * x.t() @ (x @ want - y) / 16)
+        np.testing.assert_array_equal(ls.collapse(params)['w'],
+                                      want.cpu().numpy())
+    finally:
+        if joined:
+            dist.destroy_process_group()

@@ -13,8 +13,9 @@ same numpy inputs, on the CPU:
     mine_hard_examples;
   * sampling_id by law: 20,000 draws a row in each package, each held to
     p by a chi-square test, a zero entry never drawn;
-  * the registry: the port's rules are the JAX package's but moe_mlp,
-    every ops_impl module loaded in both;
+  * the registry: the port's rules are the JAX package's, all 213 (the
+    last, moe_mlp, came with data and expert parallelism), every ops_impl
+    module loaded in both;
   * generate_layer_fn and layers.cumsum: the programs they build are the
     JAX package's op for op, and run to the same fetches.
 """
@@ -493,11 +494,14 @@ def _load_every_ops_impl(pkg):
 
 
 def test_the_port_has_every_jax_rule_but_moe_mlp():
+    """moe_mlp, the last rule missing here, came with data and expert
+    parallelism: the port's rules are now exactly the JAX package's."""
     _load_every_ops_impl('paddle_tpu')
     _load_every_ops_impl('paddle_tpu_torch')
     missing = sorted(set(jlow._RULES) - set(tlow._RULES))
-    assert missing == ['moe_mlp'], missing
+    assert missing == [], missing
     assert not set(tlow._RULES) - set(jlow._RULES)
+    assert 'moe_mlp' in tlow._RULES and len(tlow._RULES) == 213
 
 
 def _generated_net(fluid, lfg):

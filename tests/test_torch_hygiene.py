@@ -123,6 +123,16 @@ SUBMODULES = [
     'paddle_tpu_torch.fluid.recordio_writer',
     'paddle_tpu_torch.fluid.layers.io', 'paddle_tpu_torch.dataset.mq2007',
     'paddle_tpu_torch.dataset.sentiment', 'paddle_tpu_torch.dataset.voc2012',
+    # data and expert parallelism: the mesh, the collectives, MoE, LocalSGD,
+    # the mesh step, ParallelExecutor and the distribute transpiler
+    'paddle_tpu_torch.parallel', 'paddle_tpu_torch.parallel.moe',
+    'paddle_tpu_torch.parallel.local_sgd',
+    'paddle_tpu_torch.fluid.mesh_step',
+    'paddle_tpu_torch.fluid.parallel_executor',
+    'paddle_tpu_torch.fluid.transpiler',
+    'paddle_tpu_torch.fluid.transpiler.distribute_transpiler',
+    'paddle_tpu_torch.fluid.transpiler.ps_dispatcher',
+    'paddle_tpu_torch.fluid.ops_impl.moe_ops',
 ]
 
 
@@ -299,16 +309,15 @@ _PARALLEL = 'Parallel'
 _TOOLING = 'Analysis and tooling'
 _SERVING = 'Serving, the rest'
 _NO_SWITCH = 'Known departures: no kernel switch'
-_TRANSPILERS = ['DistributeTranspiler', 'DistributeTranspilerConfig',
-                'PipelineTranspiler', 'SequenceParallelTranspiler',
-                'TensorParallelTranspiler', 'HashName', 'RoundRobin']
+_TRANSPILERS = ['PipelineTranspiler', 'SequenceParallelTranspiler',
+                'TensorParallelTranspiler']
 _HELD = {
     'embedding': {n: _PARALLEL for n in (
         'sharded_lookup', 'pad_vocab', 'wire_stats', 'table_attr',
         'gather_table')},
     'embedding.lookup': {n: _PARALLEL for n in (
         'sharded_lookup', 'pad_vocab', 'wire_stats')},
-    'fluid': dict({n: _PARALLEL for n in ['device_guard'] + _TRANSPILERS[:5]},
+    'fluid': dict({n: _PARALLEL for n in ['device_guard'] + _TRANSPILERS},
                   profiler=_TOOLING),
     'fluid.analysis': {n: _TOOLING for n in (
         'analyze', 'maybe_verify', 'report_findings', 'verify_mode',
@@ -318,13 +327,18 @@ _HELD = {
                       'memory_usage': _TOOLING},
     'fluid.framework': {'device_guard': _PARALLEL,
                         'strict_infer_shape': _TOOLING},
-    'fluid.layers': {'moe_mlp': _PARALLEL},
-    'fluid.layers.nn': {'moe_mlp': _PARALLEL},
     'fluid.step_artifact': {n: _SERVING for n in (
         'aot_manifest', 'write_aot', 'read_aot', 'aot_check',
         'AOT_MANIFEST', 'AOT_CACHE_DIR')},
     'fluid.transpiler': {n: _PARALLEL for n in _TRANSPILERS},
     'ops': {'reference_attention': _NO_SWITCH},
+    # tensor, sequence and pipeline parallelism and the host heartbeat:
+    # the later parts of "Parallel"
+    'parallel': {n: _PARALLEL for n in (
+        'annotate_tp', 'auto_tp_rules', 'ring_attention',
+        'ring_self_attention', 'ulysses_attention', 'ulysses_self_attention',
+        'pipeline_apply', 'pipeline_manual_axes', 'stack_stage_params',
+        'Heartbeat', 'HostLost')},
     'ops.kernels': {n: _NO_SWITCH for n in (
         'register_kernel', 'available', 'enabled', 'configure', 'signature',
         'note_dispatch', 'interpret_default', 'ENV_KERNELS',

@@ -635,8 +635,21 @@ def test_trainer_without_a_place_runs_on_the_card_and_raises_here(
                                 dict(transpiler_fn=lambda p: None),
                                 dict(heartbeat=object())])
 def test_arguments_of_later_slices_raise(kw):
-    with pytest.raises(NotImplementedError, match='Parallel'):
-        _trainer('port', **kw)
+    """heartbeat waits for the later part of "Parallel" and raises naming
+    it; parallel=True and transpiler_fn are ported (data parallelism) and
+    build as the JAX Trainer does (their training runs on gloo ranks in
+    tests/test_torch_parallel.py), and both refuse to compose as in JAX."""
+    if 'heartbeat' in kw:
+        with pytest.raises(NotImplementedError, match='Parallel'):
+            _trainer('port', **kw)
+        return
+    t = _trainer('port', **kw)
+    assert t.parallel is bool(kw.get('parallel'))
+    with pytest.raises(ValueError) as je:
+        _trainer('jax', parallel=True, transpiler_fn=lambda p: None)
+    with pytest.raises(ValueError) as te:
+        _trainer('port', parallel=True, transpiler_fn=lambda p: None)
+    assert str(te.value) == str(je.value)
 
 
 @pytest.mark.parametrize('kw', [dict(bundle_steps=0), dict(sync='never'),

@@ -13,6 +13,7 @@
     python3 tools/torch_train_profile.py --amp     (Transformer under AMP)
     python3 tools/torch_train_profile.py --model stacked_lstm | sentiment | mt
     python3 tools/torch_train_profile.py --model word2vec | recommender | srl
+    python3 tools/torch_train_profile.py --model moe_encoder [--batch 16]
 
 --model transformer (the default) builds full-width Transformer-base with
 models.transformer.get_model (its defaults: 6+6 layers, d_model 512, 8
@@ -47,7 +48,11 @@ recommender_system.get_model() (emb 32, towers 200, SGD 0.2, batch 256)
 and label_semantic_roles at the reference book's sizes (word_dim 32,
 mark_dim 5, hidden 512, depth 8, batch 10; SGD under
 exponential_decay(0.01, 100000, 0.5, staircase=True); the pretrained emb
-loaded), on their readers' batches of the most frequent bucket. --amp
+loaded), on their readers' batches of the most frequent bucket. --model
+moe_encoder builds chip_smoke.py's MoE encoder (phase 7o: Transformer-base's
+encoder, each FFN a moe_mlp of 8 experts, hidden 2048, top 2) on its wmt16
+source batches; without a process group it runs the dense path, which at
+one rank is the mesh path's arithmetic bit for bit. --amp
 runs the model under fluid.amp.decorate_program: the
 Transformer as it is (the bf16 attention kernels), ResNet-50 as the JAX
 bench.py:215-253 builds it for AMP (a bfloat16 data var, resnet_imagenet
@@ -389,6 +394,17 @@ def build_transformer(batch_size, n_feeds):
             batch_size * MAX_LENGTH * 2, 'source_target_positions_per_s')
 
 
+def build_moe_encoder(batch_size, n_feeds):
+    """chip_smoke.py's MoE encoder; returns as build_transformer."""
+    sys.path.insert(0, HERE)
+    import chip_smoke
+    main, startup, avg_cost = chip_smoke.build_moe_encoder()
+    feeds = chip_smoke._moe_feeds(batch_size, n_feeds)
+    return (main, startup, [avg_cost], feeds,
+            batch_size * chip_smoke.MOE_ENCODER['max_length'],
+            'source_positions_per_s')
+
+
 def build_deepfm(batch_size, n_feeds):
     """deepfm.training_program's defaults (both FM tables is_sparse, auc,
     Adam(1e-3)), as chip_smoke.py's ctr_training phase builds it; returns
@@ -608,7 +624,8 @@ BUILDERS = {'transformer': (build_transformer, 16),
             'mt': (build_mt, 16),
             'word2vec': (build_word2vec, 64),
             'recommender': (build_recommender, 256),
-            'srl': (build_srl, 10)}
+            'srl': (build_srl, 10),
+            'moe_encoder': (build_moe_encoder, 16)}
 SEQUENCE_MODELS = ('stacked_lstm', 'sentiment', 'mt', 'word2vec',
                    'recommender', 'srl')
 
@@ -618,7 +635,8 @@ def main():
     ap.add_argument('--model', choices=sorted(BUILDERS),
                     default='transformer')
     ap.add_argument('--batch', type=int, default=None,
-                    help='default: 16 (transformer, se_resnext50, mt), '
+                    help='default: 16 (transformer, se_resnext50, mt, '
+                         'moe_encoder), '
                          '256 (deepfm, recommender), 32 (resnet50, vgg16, '
                          'stacked_lstm, sentiment), 128 (mnist), 64 '
                          '(word2vec), 10 (srl)')
